@@ -9,7 +9,8 @@ It needs one CUDA card and ``nvcc``, imports neither ``jax`` nor the
 reference package ``repro``, and, in order:
 
 1. prints the card, its power limit, and the torch / CUDA / nvcc versions;
-2. builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. builds the five CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` per source, in parallel;
 3. measures device-to-device copy bandwidth on a 1 GiB buffer (the
    measured roofline);
 4. holds K1 (the operator kernel) against its plain PyTorch version, n=2..16
@@ -21,12 +22,22 @@ reference package ``repro``, and, in order:
    loop) and ``'pallas_fused_cg_v2'`` (K4 + K5), each against the plain
    ``'fused'`` route on the card, and shows from the launch counters that
    each route ran through its kernels;
-7. times every kernel and its plain version (device time by CUDA events)
-   at E=1024 and E=4096, and the solves per iteration (host clock);
-8. profiles 20 iterations of each kernel route (device time per
+7. holds K10 (the Jacobi-PCG update) and K11 (the Chebyshev apply)
+   against their plain versions: the paper case and n=6, fp64 and fp32,
+   k = 1, 2, 4;
+8. solves the paper case through the three routes this slice added, each
+   with the launch counters reset just before it: Jacobi-PCG over K4 + K10
+   (100 iterations, against the plain route with the same preconditioner),
+   Chebyshev-PCG(4) to rnorm <= 1e-8 over K11 + K4 + K5 (at most 34
+   iterations), and the tolerance-driven v2 solve (its history bitwise a
+   prefix of the fixed run's);
+9. times every kernel and its plain version (device time by CUDA events)
+   at E=1024 and E=4096, the solves per iteration and to tolerance (host
+   clock), and the Chebyshev interval's one-time set-up;
+10. profiles 20 iterations of each kernel route (device time per
    iteration, by kernel, and the device's busy share);
-9. prints the ``kernels`` JSON line, the card line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+11. prints the ``kernels`` JSON line, the card line, and last the result
+   line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits with status 1 and prints no result line.
 """
@@ -43,10 +54,13 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM data sheet: device-memory rate, and peak fp64 / fp32 rates outside
-# the tensor cores.  bound_ms = max(bytes / BW_PEAK, flops / FLOPS_PEAK).
+# H100 SXM data sheet: device-memory rate, and peak fp64 rates outside and
+# on the tensor cores.  bound_ms is the larger of bytes / BW_PEAK and the
+# operations' time: contraction flops (the n-long products with D) at the
+# tensor cores' rate, the rest outside them.
 BW_PEAK = 3.35e12
-FLOPS_PEAK = {"float64": 34e12, "float32": 67e12}
+FP64_PEAK = 34e12
+FP64_TENSOR_PEAK = 67e12
 
 PAPER_GRID = (8, 8, 16)       # E = 1024, PAPER_CASES[1024]
 BIG_GRID = (16, 16, 16)       # E = 4096, the paper's largest case
@@ -57,6 +71,10 @@ HIST_RTOL_HEAD = 1e-12        # first 10 history entries
 # at its worst entry.  A kernel route must stay within this factor of that
 # spread.
 ENVELOPE_FACTOR = 10.0
+PCG_HIST_TOL_HEAD = 1e-10     # PCG routes: first 10 history entries
+CHEB_K = 4
+CHEB_TOL = 1e-8
+CHEB_MAX_ITERS = 34           # the reference's acceptance at the paper case
 # about 10 ms of spin at the H100's clock: longer than the host takes to
 # enqueue the calls that device_ms times after it.
 SPIN_CYCLES = 20_000_000
@@ -303,12 +321,10 @@ def phase_routes():
     print(f"== paper case, both routes: n=10, E=1024, fp64, {NITER} "
           "iterations", flush=True)
     want_launches = {
-        "fused": {"nekbone_ax": 0, "nekbone_ax_slab": 0,
-                  "nekbone_cg_update": 0},
-        "pallas": {"nekbone_ax": NITER, "nekbone_ax_slab": 0,
-                   "nekbone_cg_update": 0},
-        "pallas_fused_cg_v2": {"nekbone_ax": 0, "nekbone_ax_slab": NITER,
-                               "nekbone_cg_update": NITER},
+        "fused": _zero_but(),
+        "pallas": _zero_but(nekbone_ax=NITER),
+        "pallas_fused_cg_v2": _zero_but(nekbone_ax_slab=NITER,
+                                        nekbone_cg_update=NITER),
     }
     hist, launches, cases = {}, {}, {}
     for impl in want_launches:
@@ -364,6 +380,214 @@ def phase_routes():
     return launches, cases
 
 
+def _pcg_operands(case, rng):
+    """v2 operands plus a continuous z, the assembled inverse diagonal and
+    Chebyshev scalars for k = 1, 2, 4."""
+    import torch
+
+    from repro_torch.core.precond import cheb_scalars
+
+    E, n = case.mesh.nelt, case.n
+    o = _v2_operands(case, rng)
+    o["z"] = o.pop("p")
+    o["p"] = _v2_operands(case, rng)["p"]
+    o["invd"] = (1.0 / case.operator_diagonal()).reshape(E, n ** 3) \
+        .contiguous()
+    o["D"] = case.D
+    # an interval of the paper case's order (its Lanczos estimate is about
+    # [0.005, 0.78])
+    o["coef"] = {k: torch.as_tensor(cheb_scalars(k, 0.005, 0.8),
+                                    dtype=case.dtype, device="cuda")
+                 for k in (1, 2, 4)}
+    return o
+
+
+def phase_pcg_parity():
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== K10/K11 parity (kernel vs plain)", flush=True)
+    rng = np.random.default_rng(3)
+    errs = {}
+    for dtype, part_tol, z_tol in ((torch.float64, 1e-13, 1e-12),
+                                   (torch.float32, 1e-5, 1e-4)):
+        for n, grid in ((10, PAPER_GRID), (6, (4, 4, 4))):
+            case = NekboneCase(n=n, grid=grid, dtype=dtype)
+            o = _pcg_operands(case, rng)
+            tag = f"{dtype} n={n} E={case.mesh.nelt}"
+            # K10 on K4's own output, z in K4's residual slot
+            kp, kw, _ = K.nekbone_ax_slab_cuda(o["p"], o["z"], o["D"],
+                                               o["g3"], *o["m"], o["beta"],
+                                               n=n)
+            args = (o["x"], kp, o["z"], kw, o["alpha"], o["invd"], *o["c"])
+            kx, kz, krtz, krcr = K.nekbone_pcg_update_cuda(*args, n=n)
+            px, pz, prtz, prcr = K.nekbone_pcg_update_plain(*args, n=n)
+            check(torch.equal(kx, px) and torch.equal(kz, pz),
+                  f"K10 {tag}: x += alpha p, z -= alpha invd gs(w) bitwise")
+            if dtype == torch.float64 and n == 10:
+                errs["K10"] = float((kz - pz).abs().max())
+            for name, a, b in (("rtz", krtz, prtz), ("rcr", krcr, prcr)):
+                err = abs(float(a.sum() - b.sum())) / abs(float(b.sum()))
+                check(err <= part_tol, f"K10 {tag}: {name} rel err "
+                                       f"{err:.2e} <= {part_tol:g}")
+            for k in (1, 2, 4):
+                args = (o["z"], o["D"], o["g3"], *o["m"], *o["c"],
+                        o["coef"][k])
+                kz, krtz = K.nekbone_cheb_apply_cuda(*args, n=n, k=k)
+                pz, prtz = K.nekbone_cheb_apply_plain(*args, n=n, k=k)
+                err = rel_err(kz, pz)
+                rtz_err = abs(float(krtz.sum() - prtz.sum())) \
+                    / abs(float(prtz.sum()))
+                check(err <= z_tol and rtz_err <= z_tol,
+                      f"K11 {tag} k={k}: z max rel err {err:.2e}, rtz rel "
+                      f"err {rtz_err:.2e} <= {z_tol:g}")
+                if dtype == torch.float64 and n == 10 and k == CHEB_K:
+                    errs["K11"] = float((kz - pz).abs().max())
+    torch.cuda.synchronize()
+    return errs
+
+
+def _launch_run(K, fn):
+    """``fn()`` with every launch count set to 0 just before it; returns
+    its result and the counts read just after."""
+    import torch
+
+    K.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, dict(K.LAUNCHES)
+
+
+def _zero_but(**want):
+    counts = dict.fromkeys(("nekbone_ax", "nekbone_ax_slab",
+                            "nekbone_cg_update", "nekbone_pcg_update",
+                            "nekbone_cheb_apply"), 0)
+    counts.update(want)
+    return counts
+
+
+def _rel_dev(h, base):
+    import numpy as np
+
+    return np.abs(h - base) / base
+
+
+def phase_pcg_routes():
+    """The three routes of this slice through ``case.solve``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cg import cg_fixed_iters
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.core.precond import chebyshev_preconditioner
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== paper case, PCG and tolerance routes: n=10, E=1024, fp64",
+          flush=True)
+    out = {"launches": {}, "cases": {}}
+
+    def case_of(impl, device=None):
+        return NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                           ax_impl=impl, device=device)
+
+    # --- Jacobi-PCG, 100 iterations, against the plain route ------------
+    v2 = case_of("pallas_fused_cg_v2")
+    u_ex, f = v2.manufactured()
+    fixed = v2.solve(f, niter=NITER)
+    v2_hist = fixed.history.cpu().numpy()
+    v2_err = float(v2.solution_error(fixed.x, u_ex))
+    res, launches = _launch_run(
+        K, lambda: v2.solve(f, niter=NITER, precond="jacobi"))
+    out["launches"]["jacobi"] = launches
+    h = res.history.cpu().numpy()
+    check(h.shape == (NITER + 1,) and bool(np.isfinite(h).all())
+          and bool(torch.isfinite(res.x).all()),
+          f"jacobi: finite x, history of {h.size}")
+    check(launches == _zero_but(nekbone_ax_slab=NITER,
+                                nekbone_pcg_update=NITER),
+          f"jacobi: launches {launches}")
+    plain = case_of("fused")
+    h_plain = plain.solve(f, niter=NITER, precond="jacobi").history \
+        .cpu().numpy()
+    cpu = case_of("fused", device="cpu")
+    h_cpu = cpu.solve(cpu.manufactured()[1], niter=NITER,
+                      precond="jacobi").history.numpy()
+    dev, envelope = _rel_dev(h, h_plain), float(_rel_dev(h_cpu, h_plain).max())
+    k = int(dev.argmax())
+    print(f"  jacobi: history[0]={h[0]:.6e} history[{NITER}]={h[NITER]:.6e} "
+          f"solution_error={float(v2.solution_error(res.x, u_ex)):.6e}; vs "
+          f"plain jacobi route: entries 0..10 {float(dev[:11].max()):.2e}, "
+          f"all {float(dev.max()):.2e} at entry {k}; plain route CPU vs "
+          f"card {envelope:.2e}", flush=True)
+    check(float(dev[:11].max()) <= PCG_HIST_TOL_HEAD,
+          f"jacobi: history entries 0..10 within {PCG_HIST_TOL_HEAD:g} of "
+          "the plain jacobi route")
+    check(float(dev.max()) <= max(PCG_HIST_TOL_HEAD, ENVELOPE_FACTOR
+                                  * envelope),
+          f"jacobi: all {NITER + 1} entries within {ENVELOPE_FACTOR:g}x the "
+          f"plain route's own CPU-vs-card spread ({envelope:.2e})")
+    out["cases"]["jacobi"] = (v2, f, dict(niter=NITER, precond="jacobi"))
+
+    # --- Chebyshev-PCG(k), solve to CHEB_TOL --------------------------------
+    name = f"cheb{CHEB_K}"
+    spec = v2.precond_spec(name)          # the one-time Lanczos set-up
+    res, launches = _launch_run(
+        K, lambda: v2.solve(f, tol=CHEB_TOL, max_iter=NITER, precond=name))
+    out["launches"]["cheb"] = launches
+    it = int(res.iters)
+    h = res.history.cpu().numpy()
+    err = float(v2.solution_error(res.x, u_ex))
+    print(f"  {name}: interval [{spec.lmin:.6e}, {spec.lmax:.6e}]; "
+          f"{it} iterations to rnorm {float(res.rnorm):.6e}; "
+          f"solution_error={err:.6e} (v2, {NITER} iterations: "
+          f"{v2_err:.6e}, rnorm {v2_hist[NITER]:.6e}, least "
+          f"{v2_hist.min():.6e})", flush=True)
+    check(0 < it <= CHEB_MAX_ITERS and float(res.rnorm) <= CHEB_TOL
+          and bool(np.isfinite(h[:it + 1]).all())
+          and bool(np.isnan(h[it + 1:]).all()),
+          f"{name}: rnorm {float(res.rnorm):.3e} <= {CHEB_TOL:g} in {it} <= "
+          f"{CHEB_MAX_ITERS} iterations, history NaN after")
+    check(launches == _zero_but(nekbone_cheb_apply=it + 1,
+                                nekbone_ax_slab=it, nekbone_cg_update=it),
+          f"{name}: launches {launches} (K11 = iters + 1)")
+    # the reference route's driver on v2's interval
+    M = chebyshev_preconditioner(plain.ax_full, spec.k, spec.lmin, spec.lmax)
+    h_ref = cg_fixed_iters(plain.ax_full, f, niter=10, dot=plain.dot(),
+                           precond=M).history.cpu().numpy()
+    dev = _rel_dev(h[:11], h_ref)
+    check(float(dev.max()) <= PCG_HIST_TOL_HEAD,
+          f"{name}: history entries 0..10 within {PCG_HIST_TOL_HEAD:g} of "
+          f"the plain {name} route ({float(dev.max()):.2e})")
+    check(float(v2_hist.min()) > CHEB_TOL,
+          f"v2 without a preconditioner stays above {CHEB_TOL:g} in {NITER} "
+          "iterations")
+    out["cases"]["cheb"] = (v2, f, dict(tol=CHEB_TOL, max_iter=NITER,
+                                        precond=name))
+
+    # --- tolerance-driven v2 without a preconditioner ---------------------
+    tol = float(v2_hist[NITER // 2]) * (1.0 + 1e-12)
+    first = int(np.nonzero(v2_hist <= tol)[0][0])
+    res, launches = _launch_run(
+        K, lambda: v2.solve(f, tol=tol, max_iter=NITER))
+    out["launches"]["v2_tol"] = launches
+    it = int(res.iters)
+    h = res.history.cpu().numpy()
+    print(f"  v2_tol: tol {tol:.6e} (fixed run first at or below it at "
+          f"entry {first}); {it} iterations, launches {launches}",
+          flush=True)
+    check(it == first and np.array_equal(h[:it + 1], v2_hist[:it + 1])
+          and bool(np.isnan(h[it + 1:]).all()),
+          f"v2_tol: {it} iterations, history bitwise the fixed run's prefix, "
+          "NaN after")
+    check(launches == _zero_but(nekbone_ax_slab=it, nekbone_cg_update=it),
+          f"v2_tol: launches {launches}")
+    out["cases"]["v2_tol"] = (v2, f, dict(tol=tol, max_iter=NITER))
+    return out
+
+
 def phase_times(bw_copy, cases):
     import numpy as np
     import torch
@@ -386,28 +610,44 @@ def phase_times(bw_copy, cases):
         o = _v2_operands(case, rng)
         kp, kw, _ = K.nekbone_ax_slab_cuda(o["p"], o["r"], case.D, o["g3"],
                                            *o["m"], o["beta"], n=n)
+        # name: (kernel, plain version, bytes, (contraction, other) flops
+        # per point)
         work = {
             "K1": (lambda: K.nekbone_ax_cuda(u, D, g, n=n),
                    lambda: K.nekbone_ax_plain(u, D, g, n=n),
-                   8 * field, cost.ax_local_flops(E, n)),
+                   8 * field, (12 * n, 17)),
             "K4": (lambda: K.nekbone_ax_slab_cuda(
                        o["p"], o["r"], case.D, o["g3"], *o["m"], o["beta"],
                        n=n),
                    lambda: K.nekbone_ax_slab_plain(
                        o["p"], o["r"], case.D, o["g3"], *o["m"], o["beta"],
                        n=n),
-                   7 * field, E * n ** 3 * (12 * n + 10)),
+                   7 * field, (12 * n, 10)),
             "K5": (lambda: K.nekbone_cg_update_cuda(
                        o["x"], kp, o["r"], kw, o["alpha"], *o["c"], n=n),
                    lambda: K.nekbone_cg_update_plain(
                        o["x"], kp, o["r"], kw, o["alpha"], *o["c"], n=n),
-                   6 * field, E * n ** 3 * 8),
+                   6 * field, (0, 8)),
         }
-        for name, (kern, plain, nbytes, flops) in work.items():
+        q = _pcg_operands(case, rng)
+        k10 = (q["x"], kp, q["z"], kw, q["alpha"], q["invd"], *q["c"])
+        k11 = (q["z"], q["D"], q["g3"], *q["m"], *q["c"], q["coef"][CHEB_K])
+        work.update({
+            # 5 reads + 2 writes; about 14 flops per node
+            "K10": (lambda: K.nekbone_pcg_update_cuda(*k10, n=n),
+                    lambda: K.nekbone_pcg_update_plain(*k10, n=n),
+                    7 * field, (0, 14)),
+            # the book: r and 3 metric diagonals in, z out
+            "K11": (lambda: K.nekbone_cheb_apply_cuda(*k11, n=n, k=CHEB_K),
+                    lambda: K.nekbone_cheb_apply_plain(*k11, n=n, k=CHEB_K),
+                    5 * field, cost.cheb_apply_flops(n, CHEB_K)),
+        })
+        for name, (kern, plain, nbytes, (f_mma, f_rest)) in work.items():
             ms = device_ms(kern)
             plain_ms = device_ms(plain)
             t_bytes = nbytes / BW_PEAK * 1e3
-            t_ops = flops / FLOPS_PEAK["float64"] * 1e3
+            t_ops = E * n ** 3 * (f_mma / FP64_TENSOR_PEAK
+                                  + f_rest / FP64_PEAK) * 1e3
             rows[(name, grid)] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -416,9 +656,17 @@ def phase_times(bw_copy, cases):
                   f"({nbytes / ms / 1e6:.0f} GB/s, "
                   f"{nbytes / ms / 1e6 / (bw_copy / 1e9):.2f} of copy BW); "
                   f"plain {plain_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f}"
-                  f" ms at 3.35 TB/s, {nbytes / bw_copy * 1e3:.4f} ms at "
+                  f" ms (bytes at 3.35 TB/s {t_bytes:.4f}, operations "
+                  f"{t_ops:.4f}), {nbytes / bw_copy * 1e3:.4f} ms at "
                   f"measured copy BW; {nbytes / 1e6:.1f} MB", flush=True)
-        del u, D, g, o, kp, kw
+        # the fields K11's chain of CHEB_K + 1 launches actually moves
+        moved = (6 + 11 * (CHEB_K - 1) + 6) * field
+        print(f"  K11 E={E}: the chain moves {moved / 1e6:.1f} MB "
+              f"({moved // field} fields) against the book's "
+              f"{5 * field / 1e6:.1f} MB; {moved / rows[('K11', grid)]['ms'] / 1e6:.0f}"
+              " GB/s moved", flush=True)
+        rows[("K11", grid)]["moved_bytes"] = moved
+        del u, D, g, o, kp, kw, q
     # whole solves per iteration, paper case (the cases of phase_routes)
     for impl, (case, f) in cases.items():
         ndof = case.mesh.ndof
@@ -429,10 +677,72 @@ def phase_times(bw_copy, cases):
         print(f"  solve {impl} E={case.mesh.nelt}: {ms:.4f} ms/iteration; "
               f"book {book / 1e6:.1f} MB/iteration -> "
               f"{book / ms / 1e6:.0f} GB/s", flush=True)
-    return rows
+        if impl == "pallas_fused_cg_v2":
+            v2_solve_ms = ms * NITER
+    return rows, v2_solve_ms
 
 
-def phase_profile(cases, niter: int = 20):
+def phase_pcg_times(pcg, v2_solve_ms):
+    """Solves of the PCG and tolerance routes (host clock to synchronize,
+    median of 5), the cost of the per-iteration stop check, and the
+    Chebyshev interval's one-time set-up."""
+    from repro_torch.core import cost
+    from repro_torch.core.precond import estimate_interval
+
+    print("== times of this slice's routes (host clock to synchronize, "
+          "median of 5)", flush=True)
+    case, f, _ = pcg["cases"]["jacobi"]
+    ndof = case.mesh.ndof
+    books = {"jacobi": (cost.JACOBI_V2_READ_STREAMS
+                        + cost.JACOBI_V2_WRITE_STREAMS),
+             "cheb": cost.CHEB_V2_READ_STREAMS + cost.CHEB_V2_WRITE_STREAMS,
+             "v2_tol": (cost.FUSED_V2_READ_STREAMS
+                        + cost.FUSED_V2_WRITE_STREAMS)}
+    out = {}
+    for label, (case, f, kw) in pcg["cases"].items():
+        iters = int(case.solve(f, **kw).iters)
+        ms = wall_ms(lambda: case.solve(f, **kw))
+        book = books[label] * ndof * 8
+        out[label] = ms
+        print(f"  {label} {kw}: {ms:.3f} ms for {iters} iterations, "
+              f"{ms / iters:.4f} ms/iteration; book {book / 1e6:.1f} "
+              f"MB/iteration -> {book * iters / ms / 1e6:.0f} GB/s",
+              flush=True)
+    case, f, kw = pcg["cases"]["cheb"]
+    iters = int(case.solve(f, **kw).iters)
+    fixed = wall_ms(lambda: case.solve(f, niter=iters,
+                                       precond=kw["precond"]))
+    print(f"  time to rnorm <= {CHEB_TOL:g}: cheb{CHEB_K} "
+          f"{out['cheb']:.3f} ms; the same {iters} iterations fixed, with no "
+          f"host read of the stop rule: {fixed:.3f} ms; v2 without a "
+          f"preconditioner never gets there ({NITER} iterations: "
+          f"{v2_solve_ms:.3f} ms)", flush=True)
+    # the stop check: the same 100 iterations, the host reading the stop
+    # condition before each or never, in turns (the host clock drifts)
+    case, f, _ = pcg["cases"]["v2_tol"]
+    runs = {"checked": lambda: case.solve(f, tol=0.0, max_iter=NITER),
+            "unchecked": lambda: case.solve(f, niter=NITER)}
+    times = {key: [] for key in runs}
+    for _ in range(9):
+        for key, fn in runs.items():
+            times[key].append(wall_ms(fn, reps=1, warmup=0))
+    med = {key: statistics.median(t) for key, t in times.items()}
+    low = {key: min(t) for key, t in times.items()}
+    print(f"  stop check, v2 {NITER} iterations in 9 alternating pairs: "
+          f"median {med['checked']:.3f} ms with the host reading "
+          f"|rtz| > tol^2 before each iteration, {med['unchecked']:.3f} ms "
+          f"without ({(med['checked'] - med['unchecked']) / NITER * 1e3:.1f}"
+          f" us per iteration); fastest {low['checked']:.3f} vs "
+          f"{low['unchecked']:.3f} ms "
+          f"({(low['checked'] - low['unchecked']) / NITER * 1e3:.1f} us per "
+          "iteration)", flush=True)
+    setup = wall_ms(lambda: estimate_interval(case.D, case.g, case.grid,
+                                              case.mask, case.c), reps=3)
+    print(f"  Chebyshev interval set-up (16 Lanczos steps, plain torch, "
+          f"once per case): {setup:.3f} ms", flush=True)
+
+
+def phase_profile(cases, pcg, niter: int = 20):
     """Device time per iteration of each solve, by kernel, from
     torch.profiler; the busy share is device time over the span from the
     first to the last device event (the profiler slows the host, so the
@@ -442,13 +752,21 @@ def phase_profile(cases, niter: int = 20):
 
     print(f"== profile ({niter}-iteration solves under torch.profiler)",
           flush=True)
-    for impl in ("pallas", "pallas_fused_cg_v2"):
-        case, f = cases[impl]
-        case.solve(f, niter=2)
+    runs = {impl: (*cases[impl], dict(niter=niter))
+            for impl in ("pallas", "pallas_fused_cg_v2")}
+    for label, (case, f, kw) in pcg["cases"].items():
+        if "niter" in kw:
+            kw = dict(kw, niter=niter)
+        else:                           # v2_tol: all niter, each checked
+            kw = dict(kw, max_iter=niter,
+                      tol=0.0 if label == "v2_tol" else kw["tol"])
+        runs[label] = (case, f, kw)
+    for impl, (case, f, kw) in runs.items():
+        case.solve(f, **kw)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            case.solve(f, niter=niter)
+            iters = int(case.solve(f, **kw).iters)
             torch.cuda.synchronize()
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -462,12 +780,12 @@ def phase_profile(cases, niter: int = 20):
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        print(f"  {impl}: device {busy / niter:.1f} us/iteration in "
-              f"{len(kernels) / niter:.1f} device ops/iteration; busy "
-              f"{busy / span:.2f} of the device span; top: " + "; ".join(
-                  f"{name[:48]} {t / niter:.1f} us" for name, t in top),
-              flush=True)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"  {impl}: {iters} iterations, device {busy / iters:.1f} "
+              f"us/iteration in {len(kernels) / iters:.1f} device "
+              f"ops/iteration; busy {busy / span:.2f} of the device span; "
+              "top: " + "; ".join(f"{name[:48]} {t / iters:.1f} us"
+                                  for name, t in top), flush=True)
 
 
 def main() -> int:
@@ -496,8 +814,12 @@ def main() -> int:
         err = {"K1": phase_k1_parity()}
         err.update(phase_v2_parity())
         launches, cases = phase_routes()
-        rows = phase_times(bw, cases)
-        phase_profile(cases)
+        err.update(phase_pcg_parity())
+        pcg = phase_pcg_routes()
+        launches.update(pcg["launches"])
+        rows, v2_solve_ms = phase_times(bw, cases)
+        phase_pcg_times(pcg, v2_solve_ms)
+        phase_profile(cases, pcg)
     except CheckFailed as exc:
         print(f"FAILED: {exc}", flush=True)
         return 1
@@ -511,6 +833,12 @@ def main() -> int:
         "K5": ("nekbone_cg_update",
                "src/repro_torch/kernels/csrc/nekbone_cg_update.cu",
                "src/repro/kernels/nekbone_ax.py:625", "pallas_fused_cg_v2"),
+        "K10": ("nekbone_pcg_update",
+                "src/repro_torch/kernels/csrc/nekbone_pcg_update.cu",
+                "src/repro/kernels/nekbone_ax.py:1322", "jacobi"),
+        "K11": ("nekbone_cheb_apply",
+                "src/repro_torch/kernels/csrc/nekbone_cheb_apply.cu",
+                "src/repro/kernels/nekbone_ax.py:1434", "cheb"),
     }
     kernels = []
     for key, (kname, source, replaces, route) in meta.items():

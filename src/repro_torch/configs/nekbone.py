@@ -26,6 +26,12 @@ class NekboneConfig:
     # precision policy (core/precision.py) or None to leave the solver
     # dtype to ``dtype``.
     precision: str | None = None
+    # preconditioner (core/precond.py): None (the paper's unpreconditioned
+    # protocol), "jacobi", or "cheb" of order ``cheb_k``.  The v2 pipeline
+    # runs the fused PCG drivers; every other ax_impl applies the plain
+    # preconditioner inside the reference CG loop.
+    precond: str | None = None
+    cheb_k: int = 4
 
     @property
     def nelt(self) -> int:
@@ -44,7 +50,8 @@ class NekboneConfig:
 
         kwargs = dict(n=self.n, grid=self.grid,
                       dtype=getattr(torch, self.dtype), ax_impl=self.ax_impl,
-                      precision=self.precision)
+                      precision=self.precision, precond=self.precond,
+                      cheb_k=self.cheb_k)
         kwargs.update(overrides)
         return NekboneCase(**kwargs)
 
@@ -66,12 +73,13 @@ PAPER_CASES = {
 }
 
 
-def paper_case(nelt: int = 1024, precision: str | None = None
-               ) -> NekboneConfig:
-    """A paper-grid case, optionally re-priced under a precision policy.
-    (The reference's ``precond=`` argument waits for the preconditioners,
-    ROADMAP.md queue 1 item 8.)"""
+def paper_case(nelt: int = 1024, precision: str | None = None,
+               precond: str | None = None) -> NekboneConfig:
+    """A paper-grid case, optionally re-priced under a precision policy
+    and/or preconditioned."""
     cfg = PAPER_CASES[nelt]
     if precision != cfg.precision:
         cfg = dataclasses.replace(cfg, precision=precision)
+    if precond != cfg.precond:
+        cfg = dataclasses.replace(cfg, precond=precond)
     return cfg

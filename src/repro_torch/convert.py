@@ -7,6 +7,10 @@ the mass ``bmass``.  :func:`case_from_arrays` builds a port
 given arrays (for instance the reference package's case fields as numpy),
 so both packages can be fed identical operator data — including a random
 SPD metric (``geom.random_spd_metric``) in place of the box's.
+:func:`precond_from_reference` carries a preconditioner across the same
+way: the Jacobi diagonal as an array, the Chebyshev order and interval as
+numbers, so both packages can run one interval rather than two Lanczos
+estimates.
 """
 from __future__ import annotations
 
@@ -14,8 +18,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.nekbone import NekboneCase
+from repro_torch.core.precond import ChebyshevPrecond, JacobiPrecond
 
-__all__ = ["FIELDS", "case_from_arrays"]
+__all__ = ["FIELDS", "case_from_arrays", "precond_from_reference"]
 
 FIELDS = ("D", "g", "mask", "mult", "c", "bmass")
 
@@ -43,3 +48,22 @@ def case_from_arrays(n: int, grid: tuple[int, int, int],
             raise ValueError(f"{name} has shape {a.shape}, expected {want}")
         setattr(case, name, torch.tensor(a, dtype=dtype, device=case.device))
     return case
+
+
+def precond_from_reference(spec, *, dtype: torch.dtype,
+                           device) -> JacobiPrecond | ChebyshevPrecond:
+    """The port's preconditioner spec for a reference spec, read as data.
+
+    ``spec`` is any object with the reference spec's attributes: ``name``
+    ``"jacobi"`` with an array-like ``invdiag`` (E, n, n, n), or ``name``
+    ``"cheb"`` with ``k``, ``lmin`` and ``lmax``.
+    """
+    name = getattr(spec, "name", None)
+    if name == "jacobi":
+        return JacobiPrecond(invdiag=torch.tensor(
+            np.asarray(spec.invdiag), dtype=dtype, device=device))
+    if name == "cheb":
+        return ChebyshevPrecond(k=int(spec.k), lmin=float(spec.lmin),
+                                lmax=float(spec.lmax))
+    raise ValueError(f"cannot carry preconditioner {name!r} across; "
+                     "expected 'jacobi' or 'cheb'")

@@ -21,7 +21,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["CGResult", "SolveResult", "cg", "cg_fixed_iters", "weighted_dot"]
+__all__ = ["CGResult", "SolveResult", "cg", "cg_fixed_iters", "weighted_dot",
+           "jacobi_preconditioner"]
 
 
 class CGResult(NamedTuple):
@@ -179,3 +180,13 @@ def cg_fixed_iters(A: Callable, b: torch.Tensor, *, niter: int,
         CGResult(x=x, iters=torch.tensor(niter, device=b.device),
                  rnorm=hist[niter], rnorm_history=hist),
         pipeline="reference")
+
+
+def jacobi_preconditioner(diag: torch.Tensor) -> Callable:
+    """Diagonal (Jacobi) preconditioner — the paper's future-work item."""
+    inv = torch.where(diag != 0, 1.0 / diag, torch.zeros_like(diag))
+
+    def M(r):
+        return r * inv
+
+    return M

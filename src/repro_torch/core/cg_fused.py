@@ -15,7 +15,9 @@ The mask and the weight ``c`` are rebuilt in the kernels from per-axis
 factors, and the axis-aligned metric collapses to its diagonal: 9 reads and
 4 writes per iteration, the book of ``core/cost.py``.  The partials are
 summed by ``torch.sum`` between the kernels; ``alpha``, ``beta`` and the
-history stay on the device, so the loop never waits for the card.
+history stay on the device, so the fixed-iteration loop never waits for the
+card.  The loop (:func:`_run`) and the operand preparation are shared with
+the preconditioned and tolerance-driven drivers of ``core/precond.py``.
 
 The reference's slab split ``sz``, contraction ``layout`` and
 ``grid_order`` are TPU VMEM knobs with no counterpart here.  The v1 and
@@ -23,7 +25,7 @@ sharded pipelines and iterative refinement are not ported yet
 (ROADMAP.md).
 
 Preconditions: ``b`` must be assembled (coincident copies equal —
-manufactured right-hand sides are) and masked; unpreconditioned CG only.
+manufactured right-hand sides are) and masked.
 """
 from __future__ import annotations
 
@@ -79,6 +81,96 @@ def _v2_iter(x2, r2, p2, rtz, beta, *, D, g3, mx, my, mz, cx, cy, cz,
     return x2, r2, p2, rtz_new, beta
 
 
+def _prepare(b, D, g, grid, mask, c, precision):
+    """Operands of the v2-family drivers (here and in core/precond.py).
+
+    Returns ``(policy, b, n, grid, op)``: the precision policy, ``b`` cast
+    to its storage dtype, and ``op``, the keyword operands of the kernels —
+    D and the metric diagonal in the operator-storage dtype, and the
+    per-axis mask and ``c`` factors.
+    """
+    from repro_torch.kernels import ops as kernel_ops
+
+    policy = resolve_policy(precision, b.dtype)
+    if policy.refine:
+        raise NotImplementedError(
+            f"precision {policy.name!r} needs iterative refinement "
+            "(cg_ir_fixed_iters), not ported yet: ROADMAP.md queue 1 item 9")
+    b = b.to(policy.storage_dtype)
+    E = b.shape[0]
+    n = b.shape[-1]
+    grid = tuple(grid)
+    _check_box_fields(grid, n, mask, c)
+    (mx, my, mz), (cx, cy, cz) = kernel_ops.slab_axis_factors(
+        grid, n, b.dtype, b.device)
+    op = dict(D=D.to(policy.op_storage_dtype).contiguous(),
+              g3=kernel_ops.diag_metric(g.to(policy.op_storage_dtype), E, n),
+              mx=mx, my=my, mz=mz, cx=cx, cy=cy, cz=cz, n=n)
+    return policy, b, n, grid, op
+
+
+def _run(body, state, rtz, r0, tol2: float | None, max_iter: int):
+    """The iteration loop shared by every v2-family driver.
+
+    Runs ``state, rtz, rnorm = body(state, rtz)`` while fewer than
+    ``max_iter`` iterations have run and ``|rtz| > tol2`` — the reference's
+    ``while_loop`` condition, checked before each iteration.  With
+    ``tol2=None`` exactly ``max_iter`` iterations run and the host never
+    waits for the card; otherwise the host reads the condition before every
+    iteration.  Since the fixed and the tolerance-driven runs share this
+    loop and their bodies, the tolerance-driven history is bitwise a prefix
+    of the fixed one.
+
+    Returns ``(state, k, hist)``: ``k`` iterations ran, and ``hist`` holds
+    ``r0`` and the ``k`` norms the body returned, NaN-padded to
+    ``max_iter + 1`` entries.
+    """
+    norms = [r0]
+    k = 0
+    while k < max_iter and (tol2 is None or bool(torch.abs(rtz) > tol2)):
+        state, rtz, rnorm = body(state, rtz)
+        norms.append(rnorm)
+        k += 1
+    hist = torch.full((max_iter + 1,), float("nan"), dtype=r0.dtype,
+                      device=r0.device)
+    hist[:k + 1] = torch.stack(norms)
+    return state, k, hist
+
+
+def _result(x2, k: int, hist, shape) -> CGResult:
+    return CGResult(x=x2.reshape(shape),
+                    iters=torch.tensor(k, device=hist.device),
+                    rnorm=hist[k], rnorm_history=hist)
+
+
+def _cg_v2_tol(b, op, policy, tol2: float | None,
+               max_iter: int) -> CGResult:
+    """Unpreconditioned v2 CG over K4 + K5, under :func:`_run`.
+
+    The reference keeps this tolerance-driven core in core/precond.py; here
+    it sits beside :func:`_v2_iter`, and the fixed driver below runs it with
+    ``tol2=None``.
+    """
+    acc = policy.accum_dtype
+    b2 = b.reshape(b.shape[0], -1).contiguous()
+    c2 = box_outer(op["cz"], op["cy"], op["cx"]).reshape(
+        b2.shape).to(acc)
+    rtz = torch.sum(b2.to(acc) * c2 * b2.to(acc))
+
+    def body(state, rtz):
+        x2, r2, p2, beta = state
+        x2, r2, p2, rtz, beta = _v2_iter(x2, r2, p2, rtz, beta, **op)
+        return (x2, r2, p2, beta), rtz, torch.sqrt(torch.abs(rtz))
+
+    state = (torch.zeros(b2.shape, dtype=policy.x_storage_dtype,
+                         device=b2.device),
+             b2, torch.zeros_like(b2), torch.zeros((), dtype=acc,
+                                                   device=b2.device))
+    (x2, *_), k, hist = _run(body, state, rtz, torch.sqrt(torch.abs(rtz)),
+                             tol2, max_iter)
+    return _result(x2, k, hist, b.shape)
+
+
 def cg_fused_v2_fixed_iters(b: torch.Tensor, *, D: torch.Tensor,
                             g: torch.Tensor, grid: tuple[int, int, int],
                             niter: int, mask: torch.Tensor | None = None,
@@ -103,41 +195,6 @@ def cg_fused_v2_fixed_iters(b: torch.Tensor, *, D: torch.Tensor,
     Returns a :class:`SolveResult` whose history matches ``cg_fixed_iters``
     to round-off.
     """
-    from repro_torch.kernels import ops as kernel_ops
-
-    policy = resolve_policy(precision, b.dtype)
-    if policy.refine:
-        raise NotImplementedError(
-            f"precision {policy.name!r} needs iterative refinement "
-            "(cg_ir_fixed_iters), not ported yet: ROADMAP.md queue 1 item 9")
-    b = b.to(policy.storage_dtype)
-    E = b.shape[0]
-    n = b.shape[-1]
-    grid = tuple(grid)
-    dev = b.device
-    acc = policy.accum_dtype
-    _check_box_fields(grid, n, mask, c)
-    (mx, my, mz), (cx, cy, cz) = kernel_ops.slab_axis_factors(
-        grid, n, b.dtype, dev)
-    D = D.to(policy.op_storage_dtype).contiguous()
-    g3 = kernel_ops.diag_metric(g.to(policy.op_storage_dtype), E, n)
-
-    b2 = b.reshape(E, n ** 3).contiguous()
-    c2 = box_outer(cz, cy, cx).reshape(E, n ** 3).to(acc)
-    rtz = torch.sum(b2.to(acc) * c2 * b2.to(acc))
-    x2 = torch.zeros(b2.shape, dtype=policy.x_storage_dtype, device=dev)
-    r2 = b2
-    p2 = torch.zeros_like(b2)
-    beta = torch.zeros((), dtype=acc, device=dev)
-    norms = []
-    for _ in range(niter):
-        norms.append(torch.sqrt(torch.abs(rtz)))
-        x2, r2, p2, rtz, beta = _v2_iter(
-            x2, r2, p2, rtz, beta, D=D, g3=g3, mx=mx, my=my, mz=mz,
-            cx=cx, cy=cy, cz=cz, n=n)
-    norms.append(torch.sqrt(torch.abs(rtz)))
-    hist = torch.stack(norms)
-    return SolveResult.from_cg(
-        CGResult(x=x2.reshape(b.shape), iters=torch.tensor(niter, device=dev),
-                 rnorm=hist[niter], rnorm_history=hist),
-        pipeline="fused_v2")
+    policy, b, n, grid, op = _prepare(b, D, g, grid, mask, c, precision)
+    return SolveResult.from_cg(_cg_v2_tol(b, op, policy, None, niter),
+                               pipeline="fused_v2")

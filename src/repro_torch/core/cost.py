@@ -9,8 +9,9 @@ points per direction,
 
 Pure arithmetic, hardware-independent: a copy of the part of the
 reference's ``core/cost.py`` that the ported paths and ``chip_smoke.py``
-use to turn times into bytes per second.  The s-step, Chebyshev, pmg and
-multi-RHS books are not ported yet (ROADMAP.md).
+use to turn times into bytes per second, and the preconditioned v2 books
+(Jacobi, Chebyshev).  The s-step, pmg and multi-RHS books are not ported
+yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,7 +21,10 @@ __all__ = ["flops_per_dof", "cg_iter_flops", "cg_iter_bytes", "intensity",
            "ax_local_flops", "ax_local_bytes", "CostModel",
            "CG_READ_STREAMS", "CG_WRITE_STREAMS", "FUSED_V2_READ_STREAMS",
            "FUSED_V2_WRITE_STREAMS", "fused_v2_cg_iter_bytes",
-           "PRECISION_ITEMSIZE", "precision_itemsize"]
+           "PRECISION_ITEMSIZE", "precision_itemsize",
+           "JACOBI_V2_READ_STREAMS", "JACOBI_V2_WRITE_STREAMS",
+           "CHEB_V2_READ_STREAMS", "CHEB_V2_WRITE_STREAMS", "CHEB_DEFAULT_K",
+           "cheb_apply_flops"]
 
 # Eq. 2's stream counts: words moved per DOF per CG iteration when the
 # operator, mask, and every inner product run as separate passes.
@@ -36,6 +40,37 @@ CG_WRITE_STREAMS = 6
 # copies of w are not counted as a stream.
 FUSED_V2_READ_STREAMS = 9
 FUSED_V2_WRITE_STREAMS = 4
+
+# Preconditioned v2 pipelines (core/precond.py, DESIGN.md §9).
+#
+# Jacobi: the solver carries the *preconditioned* residual z = D^-1 r, so
+# the slab front-half is the v2 kernel unchanged (reads p, z, 3 metric
+# diagonals; writes p, w) and the merged PCG update kernel adds exactly one
+# stream — the assembled operator diagonal:
+#   update kernel: reads x, p, z, w, invdiag    (5)    writes x, z (2)
+# = 10R + 4W = 14 streams/iter, one more than unpreconditioned v2.
+JACOBI_V2_READ_STREAMS = 10
+JACOBI_V2_WRITE_STREAMS = 4
+
+# Chebyshev(k): one extra kernel per iteration evaluates z = q_k(A) r; in
+# the reference it is a single halo'd slab residency (the §8
+# matrix-powers machinery):
+#   cheb kernel:   reads r, 3 metric diagonals  (4)    writes z (1)
+#   slab kernel:   reads p, z, 3 metric         (5)    writes p, w (2)
+#   update kernel: reads x, p, r, w             (4)    writes x, r (2)
+# = 13R + 5W = 18 streams/iter regardless of k (the k chained operator
+# applications stay on chip).  The win is the *iteration count*: the
+# E=1024/n=10 acceptance case converges to 1e-8 in ~2x fewer iterations
+# at k=4.
+CHEB_V2_READ_STREAMS = 13
+CHEB_V2_WRITE_STREAMS = 5
+CHEB_DEFAULT_K = 4
+
+# In the port the Chebyshev apply (K11, kernels/csrc/nekbone_cheb_apply.cu)
+# is a chain of k + 1 per-element launches, not one halo'd residency: the
+# books above stay the reference's (the least traffic the algorithm needs),
+# and the chain's own traffic is stated in the kernel's source note.
+
 
 PRECISION_ITEMSIZE = {"f64": 8, "f32": 4, "bf16": 2,
                       "f32_ir": 4, "bf16_ir": 2}
@@ -120,3 +155,16 @@ class CostModel:
     @property
     def intensity(self) -> float:
         return intensity(self.n, self.itemsize)
+
+
+def cheb_apply_flops(n: int, k: int = CHEB_DEFAULT_K) -> tuple[int, int]:
+    """Flops per point of the Chebyshev apply z = q_k(A) r (K11), as
+    ``(contraction, other)``.
+
+    k diagonal-metric operator applications, each 12n contraction flops
+    (3 forward and 3 transposed n-long dot products) plus 4 (3 metric
+    products, 1 add), then per application the mask (1), the residual
+    update (1), the recurrence ``d = c0 d + c1 res`` (3) and ``z += d``
+    (1): ``k (12n + 10)`` in all, ``12 n k`` of it in contractions.  The
+    assembly's face sums are left out, so this is a lower bound."""
+    return 12 * n * k, 10 * k

@@ -13,8 +13,9 @@ the fused expression (both plain torch), and the CUDA kernel.
 
 Every field lives on ``device``.  ``device=None`` means the card
 (``"cuda"``); without a CUDA device the case raises unless the caller asks
-for ``device="cpu"``, as the tests do.  Sharding and preconditioning are
-not ported yet (ROADMAP.md).
+for ``device="cpu"``, as the tests do.  Jacobi and Chebyshev
+preconditioning are ported (core/precond.py); p-multigrid and sharding are
+not yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 import repro_torch.core.ax as ax_mod
 import repro_torch.core.cg as cg_mod
 import repro_torch.core.gs as gs_mod
+import repro_torch.core.precond as precond_mod
 from repro_torch.core.cost import CostModel
 from repro_torch.core.geom import BoxMesh
 
@@ -63,6 +65,16 @@ class NekboneCase:
       precision: 'f64' | 'f32' | 'bf16' | 'bf16_ir' | 'f32_ir' | None — the
                fused pipeline's precision policy.  Non-refined policies
                also set ``dtype`` to the storage dtype.
+      precond: None | 'jacobi' | 'cheb' (optionally 'cheb<k>') — the
+               case's default preconditioner (core/precond.py).  Solves
+               through 'pallas_fused_cg_v2' run the fused PCG drivers
+               (Jacobi: K4 + K10 per iteration; Chebyshev: K11 + K4 + K5);
+               every other ``ax_impl`` applies the plain preconditioner
+               inside the reference CG loop.  ``solve(precond=...)``
+               overrides it per call with the same names; the booleans of
+               the reference's old API raise ``TypeError``.  'pmg' is not
+               ported yet and raises ``NotImplementedError``.
+      cheb_k:  Chebyshev polynomial order for ``precond='cheb'``.
       device:  where the fields live; ``None`` is the card.
     """
 
@@ -72,6 +84,8 @@ class NekboneCase:
     dtype: torch.dtype = torch.float32
     ax_impl: str = "fused"
     precision: str | None = None
+    precond: str | None = None
+    cheb_k: int = 4
     device: torch.device | str | None = None
 
     def __post_init__(self):
@@ -143,6 +157,54 @@ class NekboneCase:
     def dot(self) -> Callable:
         return cg_mod.weighted_dot(self.c)
 
+    def _precond_name(self, precond) -> str | None:
+        """Resolve a ``solve(precond=...)`` argument against the case.
+
+        ``None`` inherits the case's ``precond`` field; a string names a
+        registry preconditioner.  Booleans raise ``TypeError``, as in the
+        reference, whose boolean spelling completed its deprecation.
+        """
+        if precond is None:
+            return self.precond
+        if isinstance(precond, bool):
+            raise TypeError(
+                "solve(precond=True|False) was removed after its "
+                "deprecation cycle; pass the registry name instead "
+                "(precond='jacobi', 'cheb4', ...), or omit the argument / "
+                "pass precond=None for unpreconditioned.")
+        return str(precond)
+
+    def precond_spec(self, name: str | None = None):
+        """The case's preconditioner spec (core/precond.py), cached.
+
+        The Jacobi diagonal and the Chebyshev Lanczos interval depend only
+        on the case's operator: one-time set-up costs per case, not per
+        solve.
+        """
+        name = name or self.precond
+        if name is None:
+            return None
+        if name in ("cheb", "chebyshev"):
+            name = f"cheb{self.cheb_k}"
+        cache = self.__dict__.setdefault("_precond_specs", {})
+        spec = cache.get(name)
+        if spec is None:
+            spec = precond_mod.make_preconditioner(
+                name, D=self.D, g=self.g, grid=self.grid, mask=self.mask,
+                c=self.c, lengths=self.lengths)
+            cache[name] = spec
+        return spec
+
+    def _reference_preconditioner(self, name: str | None):
+        """The plain ``M(r)`` of the ``reference`` route."""
+        if name is None:
+            return None
+        spec = self.precond_spec(name)
+        if isinstance(spec, precond_mod.JacobiPrecond):
+            return cg_mod.jacobi_preconditioner(self.operator_diagonal())
+        return precond_mod.chebyshev_preconditioner(
+            self.ax_full, spec.k, spec.lmin, spec.lmax)
+
     def solve(self, f: torch.Tensor, *, b: int | None = None,
               niter: int | None = None, tol: float = 1e-8,
               max_iter: int = 1000,
@@ -166,3 +228,11 @@ class NekboneCase:
                        u_exact: torch.Tensor) -> torch.Tensor:
         """Weighted max-norm error against the exact solution."""
         return torch.max(torch.abs((x - u_exact) * self.mask))
+
+    # ------------------------------------------------------------------
+    def operator_diagonal(self) -> torch.Tensor:
+        """diag(A) for the Jacobi preconditioner, computed structurally
+        (:func:`repro_torch.core.precond.operator_diagonal`); masked rows
+        are 1 to keep the inverse finite."""
+        return precond_mod.operator_diagonal(self.D, self.g, self.grid,
+                                 self.mask).to(self.dtype)

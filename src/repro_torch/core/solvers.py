@@ -8,15 +8,20 @@ dispatches through here.
 Routes ported so far (every route returns :class:`SolveResult`):
 
 =================  ======================================================
-``v2``             fused v2 fixed-iters over the CUDA kernels K4 and K5
-                   (core/cg_fused.py), unpreconditioned
+``v2``             fused v2 fixed-iters: unpreconditioned over K4 + K5
+                   (core/cg_fused.py); Jacobi over K4 + K10, Chebyshev
+                   over K11 + K4 + K5 (core/precond.py)
+``v2_tol``         the same bodies, tolerance-driven
+                   (``precond.cg_fused_tol``)
 ``reference``      reference CG (cg / cg_fixed_iters) over
-                   ``NekboneCase.ax_full``; K1 when ``ax_impl='pallas'``
+                   ``NekboneCase.ax_full``, K1 when ``ax_impl='pallas'``,
+                   with the plain Jacobi or Chebyshev preconditioner
 =================  ======================================================
 
 The other routes of the reference (``block``, ``block_loop``, ``ir``,
-``sstep``, ``v2_tol``, ``v1``) and every preconditioned request raise
-``NotImplementedError`` naming their ROADMAP.md item; nothing is re-routed.
+``sstep``, ``v1``) raise ``NotImplementedError`` naming their ROADMAP.md
+item, and so does ``precond='pmg'`` (from ``make_preconditioner``);
+nothing is re-routed.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import Callable
 import torch
 
 import repro_torch.core.cg as cg_mod
-import repro_torch.core.cg_fused as cg_fused_mod
+import repro_torch.core.precond as precond_mod
 from repro_torch.core.cg import SolveResult
 
 __all__ = ["REGISTRY", "NOT_PORTED", "route_name", "solve_case", "solve"]
@@ -36,21 +41,31 @@ _SSTEP_BLOCK_WARNED = False
 
 
 def _drive_v2(case, f, *, b, niter, tol, max_iter, pc_name):
-    return cg_fused_mod.cg_fused_v2_fixed_iters(
-        f, D=case.D, g=case.g, grid=case.grid, niter=niter,
+    spec = case.precond_spec(pc_name) if pc_name else None
+    return precond_mod.pcg_fused_v2_fixed_iters(
+        f, D=case.D, g=case.g, grid=case.grid, niter=niter, precond=spec,
         mask=case.mask, c=case.c, precision=case.precision)
 
 
+def _drive_v2_tol(case, f, *, b, niter, tol, max_iter, pc_name):
+    spec = case.precond_spec(pc_name) if pc_name else None
+    return precond_mod.cg_fused_tol(
+        f, D=case.D, g=case.g, grid=case.grid, tol=tol, max_iter=max_iter,
+        precond=spec, mask=case.mask, c=case.c, precision=case.precision)
+
+
 def _drive_reference(case, f, *, b, niter, tol, max_iter, pc_name):
+    M = case._reference_preconditioner(pc_name)
     if niter is not None:
         return cg_mod.cg_fixed_iters(case.ax_full, f, niter=niter,
-                                     dot=case.dot())
+                                     dot=case.dot(), precond=M)
     return cg_mod.cg(case.ax_full, f, tol=tol, max_iter=max_iter,
-                     dot=case.dot())
+                     dot=case.dot(), precond=M)
 
 
 REGISTRY: dict[str, Callable] = {
     "v2": _drive_v2,
+    "v2_tol": _drive_v2_tol,
     "reference": _drive_reference,
 }
 
@@ -61,7 +76,6 @@ NOT_PORTED: dict[str, str] = {
     "block_loop": "queue 1 item 11 (multi-RHS block CG)",
     "ir": "queue 1 item 9 (iterative refinement)",
     "sstep": "queue 1 item 10 (s-step CG)",
-    "v2_tol": "queue 1 item 8 (cg_fused_tol)",
     "v1": "queue 1 item 5 (v1 fused CG)",
 }
 
@@ -120,13 +134,11 @@ def solve_case(case, f: torch.Tensor, *, b: int | None = None,
     """Route one solve request through the registry.
 
     ``b`` is the RHS batch: ``None`` infers it from ``f``'s shape (a
-    leading axis ahead of (E, n, n, n) is a batch).  Only single-RHS,
-    unpreconditioned requests are ported.
+    leading axis ahead of (E, n, n, n) is a batch).  ``precond`` takes the
+    registry names (resolved by :meth:`NekboneCase._precond_name`; booleans
+    raise ``TypeError`` there).  Only single-RHS requests are ported.
     """
-    if precond is not None:
-        raise NotImplementedError(
-            f"precond={precond!r}: preconditioning is not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
+    pc_name = case._precond_name(precond)
     batched = f.ndim == 5
     if b is None:
         b = f.shape[0] if batched else 1
@@ -136,13 +148,13 @@ def solve_case(case, f: torch.Tensor, *, b: int | None = None,
         raise ValueError(f"b={b} needs a (b, E, n, n, n) rhs; "
                          f"got {tuple(f.shape)}")
     f_in = f[0] if (batched and b == 1) else f
-    name = route_name(case, b=b, niter=niter, pc_name=None)
+    name = route_name(case, b=b, niter=niter, pc_name=pc_name)
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"route {name!r} is not ported yet (ROADMAP.md "
             f"{NOT_PORTED[name]})")
     res = REGISTRY[name](case, f_in, b=b, niter=niter, tol=tol,
-                         max_iter=max_iter, pc_name=None)
+                         max_iter=max_iter, pc_name=pc_name)
     # a batched rhs always comes back batched, even at b=1.
     if batched and res.x.ndim == 4:
         res = SolveResult(x=res.x[None], history=res.history[None],
@@ -167,6 +179,7 @@ def solve(case_or_config, f: torch.Tensor | None = None, *,
           manufactured problem.
       niter: fixed iteration count; ``None`` = tolerance-driven.
       tol: stopping tolerance for the tol-driven mode (default 1e-8).
+      precond: ``None`` (the case's own), ``"jacobi"`` or ``"cheb[<k>]"``.
       device: where a case built here lives (``None``: the card); a case
           passed in keeps its own.
 

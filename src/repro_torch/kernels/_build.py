@@ -1,17 +1,22 @@
 """Build the CUDA kernels of ``kernels/csrc/`` with ``nvcc``, at first use.
 
-Each ``csrc/*.cu`` becomes one shared library with a plain C interface
-(loaded with ``ctypes``), compiled for Hopper only::
+Each ``csrc/<stem>.cu`` becomes two shared libraries with a plain C
+interface (loaded with ``ctypes``), one per dtype, compiled for Hopper
+only::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o <build>/<stem>-<hash>.so <stem>.cu
+         -Xcompiler -fPIC -Xptxas -v -DNEKBONE_REAL_F64 \\
+         -o <build>/<stem>_f64-<hash>.so <stem>.cu
 
-The libraries go to ``build/repro_torch/`` at the root of the checkout
-(``$REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of the sources,
-the shared header and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  :func:`build_all` starts one ``nvcc``
-per source, all at once, and waits for them together; ``ptxas``'s register
-and spill report lands next to each library as ``<stem>-<hash>.log``.
+The macro keeps only that dtype's C entry point ``<stem>_f64`` (or
+``_f32``), and with it that dtype's template instantiations, so the two
+halves build in parallel.  The libraries go to ``build/repro_torch/`` at
+the root of the checkout (``$REPRO_TORCH_BUILD_DIR`` overrides it), named
+by a hash of the sources, the shared header and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.
+:func:`build_all` starts one ``nvcc`` per library, all at once, and waits
+for them together; ``ptxas``'s register and spill report lands next to
+each library as ``<name>-<hash>.log``.
 """
 from __future__ import annotations
 
@@ -23,11 +28,13 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["CSRC", "SOURCES", "NVCC_FLAGS", "build_dir", "nvcc_path",
+__all__ = ["CSRC", "SOURCES", "DTYPES", "NVCC_FLAGS", "build_dir", "nvcc_path",
            "build_all", "load"]
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
-SOURCES = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update")
+SOURCES = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
+           "nekbone_pcg_update", "nekbone_cheb_apply")
+DTYPES = ("f64", "f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,56 +62,64 @@ def nvcc_path() -> str:
                        "that has the card")
 
 
-def _target(stem: str) -> pathlib.Path:
+def _flags(dtype: str) -> tuple[str, ...]:
+    return (*NVCC_FLAGS, f"-DNEKBONE_REAL_{dtype.upper()}")
+
+
+def _target(stem: str, dtype: str) -> pathlib.Path:
     h = hashlib.sha256()
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{stem}.cu"]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"{stem}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(_flags(dtype)).encode())
+    return build_dir() / f"{stem}_{dtype}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, pathlib.Path]:
-    """Compile every missing library, one ``nvcc`` per source in parallel.
+    """Compile every missing library, one ``nvcc`` per library in parallel.
 
-    Returns ``{stem: library path}``.  Raises ``RuntimeError`` with the
-    compiler's output if any source fails to build.
+    Returns ``{name: library path}`` with ``name`` the library's C entry
+    point, ``<stem>_<dtype>``.  Raises ``RuntimeError`` with the compiler's
+    output if any library fails to build.
     """
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    targets = {stem: _target(stem) for stem in SOURCES}
+    targets = {f"{stem}_{dtype}": _target(stem, dtype)
+               for stem in SOURCES for dtype in DTYPES}
     procs = {}
-    for stem, so in targets.items():
+    for name, so in targets.items():
         if so.exists():
             continue
+        stem, dtype = name.rsplit("_", 1)
         tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *_flags(dtype), "-o", str(tmp),
                str(CSRC / f"{stem}.cu")]
-        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp)
     errors = []
-    for stem, (proc, tmp) in procs.items():
+    for name, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
-        targets[stem].with_suffix(".log").write_text(log)
+        targets[name].with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             head = "\n".join(log.splitlines()[:40])
-            errors.append(f"nvcc failed on {stem}.cu (first 40 lines; all "
-                          f"in {targets[stem].with_suffix('.log')}):\n{head}")
+            errors.append(f"nvcc failed on {name} (first 40 lines; all "
+                          f"in {targets[name].with_suffix('.log')}):\n{head}")
             continue
-        os.replace(tmp, targets[stem])
+        os.replace(tmp, targets[name])
     if errors:
         raise RuntimeError("\n".join(errors))
     return targets
 
 
-def load(stem: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu``, building all on first use."""
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library whose C entry point is ``name``
+    (``<stem>_<dtype>``), building all on first use."""
     with _LOCK:
-        lib = _LIBS.get(stem)
+        lib = _LIBS.get(name)
         if lib is None:
             paths = build_all()
-            for name, path in paths.items():
-                _LIBS[name] = ctypes.CDLL(str(path))
-            lib = _LIBS[stem]
+            for key, path in paths.items():
+                _LIBS[key] = ctypes.CDLL(str(path))
+            lib = _LIBS[name]
         return lib

@@ -1,14 +1,17 @@
 // Shared helpers of the Nekbone kernels (nekbone_ax.cu, nekbone_ax_slab.cu,
-// nekbone_cg_update.cu).
+// nekbone_cg_update.cu, nekbone_pcg_update.cu, nekbone_cheb_apply.cu).
 //
 // * Rounded arithmetic without contraction.  The CG vector updates
-//   (p = r + beta p, x += alpha p, r -= alpha w) use explicitly rounded
-//   multiply and add, so nvcc does not fuse them into an FMA: the stored
-//   vectors are then bitwise what the plain PyTorch versions compute (one
-//   rounding per operation, as separate tensor ops do).  The tensor
-//   contractions are free to use FMA.
+//   (p = r + beta p, x += alpha p, r -= alpha w, the Chebyshev recurrence)
+//   use explicitly rounded multiply and add, so nvcc does not fuse them into
+//   an FMA: the stored vectors are then bitwise what the plain PyTorch
+//   versions compute (one rounding per operation, as separate tensor ops
+//   do).  The tensor contractions are free to use FMA.
 // * A deterministic block sum: a fixed shared-memory tree, so partial inner
 //   products are the same from run to run (no atomics).
+// * The local diagonal-metric operator of one element (K4, K11) and the
+//   node-by-node direct-stiffness sum of an unassembled field in
+//   core/gs.ds_sum_local's tree (K5, K10, K11).
 // * Dispatch of the run-time n (2..16) to the template instantiations.
 #pragma once
 
@@ -22,6 +25,9 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+// correctly rounded 1 / a, as torch's reciprocal division gives it.
+__device__ __forceinline__ double rcp_rn(double a) { return __drcp_rn(a); }
+__device__ __forceinline__ float rcp_rn(float a) { return __frcp_rn(a); }
 
 __host__ __device__ constexpr int pow2_ceil(int v) {
   int p = 1;
@@ -42,6 +48,133 @@ __device__ __forceinline__ T block_sum(T v, T* sh, int tid) {
     __syncthreads();
   }
   return sh[0];
+}
+
+// ---------------------------------------------------------------------------
+// Local operator with a diagonal metric, one element per n x n thread block.
+// ---------------------------------------------------------------------------
+
+// Shared memory of ax_diag_columns: D and D^T, and three layers.
+template <int N, typename T>
+struct AxShared {
+  T D[N][N];
+  T Dt[N][N];
+  T u[N][N];
+  T r[N][N];
+  T s[N][N];
+};
+
+// Thread (i, j) loads D[j][i] and its transpose; the first barrier of
+// ax_diag_columns publishes them.
+template <int N, typename T>
+__device__ __forceinline__ void load_D(AxShared<N, T>& sh,
+                                       const T* __restrict__ D, int i, int j) {
+  sh.D[j][i] = D[j * N + i];
+  sh.Dt[i][j] = D[j * N + i];
+}
+
+// w = D^T diag(grr, gss, gtt) D u for one element: thread (i, j) holds the
+// column uc[k] = u[k][j][i] and receives wc[k] = w[k][j][i] (unassembled,
+// unmasked).  ge points at the element's metric diagonal (3, n^3) plus the
+// thread's offset j * n + i.  The layer loop marches k: the r- and
+// s-contractions go through the shared layer, the t-contraction reads the
+// thread's own column, and the t-part of D^T scatters into all of wc.
+template <int N, typename T>
+__device__ __forceinline__ void ax_diag_columns(AxShared<N, T>& sh,
+                                                const T* __restrict__ ge,
+                                                const T (&uc)[N], T (&wc)[N],
+                                                int i, int j) {
+  constexpr int N2 = N * N;
+  constexpr int N3 = N * N * N;
+#pragma unroll
+  for (int k = 0; k < N; ++k) wc[k] = T(0);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    sh.u[j][i] = uc[k];
+    __syncthreads();
+    T wr = T(0), ws = T(0), wt = T(0);
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      wr += sh.Dt[l][i] * sh.u[j][l];
+      ws += sh.D[j][l] * sh.u[l][i];
+      wt += sh.D[k][l] * uc[l];
+    }
+    const T ur = ge[0 * N3 + k * N2] * wr;
+    const T us = ge[1 * N3 + k * N2] * ws;
+    const T ut = ge[2 * N3 + k * N2] * wt;
+    sh.r[j][i] = ur;
+    sh.s[j][i] = us;
+    __syncthreads();
+    T acc = T(0);
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      acc += sh.D[l][i] * sh.r[j][l];
+      acc += sh.D[l][j] * sh.s[l][i];
+    }
+    wc[k] += acc;
+#pragma unroll
+    for (int m = 0; m < N; ++m) wc[m] += sh.D[k][m] * ut;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Direct-stiffness sum of an unassembled field, one node at a time.
+//
+// Thread (i, j) of element e, at layer k, reads the node's own copy and, on a
+// face, edge or corner, the coincident copies in the neighbouring elements,
+// straight from device memory.  The sums follow core/gs.ds_sum_local's tree
+// exactly: pairs across x first, then pairs of x-sums across y, then pairs
+// of xy-sums across z, each pair as (lower element) + (upper element).  IEEE
+// addition is commutative but not associative, so fixing the tree makes the
+// assembled value bitwise the plain version's in fp64 and fp32.  Elements
+// are z-major over (ex, ey, ez).
+// ---------------------------------------------------------------------------
+
+template <int N, typename T>
+__device__ __forceinline__ T node(const T* __restrict__ w, size_t e, int k,
+                                  int j, int i) {
+  return w[e * (N * N * N) + (k * N + j) * N + i];
+}
+
+// x pairs: face i = n-1 of element ex meets i = 0 of element ex + 1.
+template <int N, typename T>
+__device__ __forceinline__ T sum_x(const T* __restrict__ w, size_t e, int k,
+                                   int j, int i, int ix, int ex) {
+  if (i == N - 1 && ix < ex - 1)
+    return add_rn(node<N>(w, e, k, j, N - 1), node<N>(w, e + 1, k, j, 0));
+  if (i == 0 && ix > 0)
+    return add_rn(node<N>(w, e - 1, k, j, N - 1), node<N>(w, e, k, j, 0));
+  return node<N>(w, e, k, j, i);
+}
+
+// y pairs of x-sums.
+template <int N, typename T>
+__device__ __forceinline__ T sum_xy(const T* __restrict__ w, size_t e, int k,
+                                    int j, int i, int ix, int iy, int ex,
+                                    int ey) {
+  const size_t sy = static_cast<size_t>(ex);
+  if (j == N - 1 && iy < ey - 1)
+    return add_rn(sum_x<N>(w, e, k, N - 1, i, ix, ex),
+                  sum_x<N>(w, e + sy, k, 0, i, ix, ex));
+  if (j == 0 && iy > 0)
+    return add_rn(sum_x<N>(w, e - sy, k, N - 1, i, ix, ex),
+                  sum_x<N>(w, e, k, 0, i, ix, ex));
+  return sum_x<N>(w, e, k, j, i, ix, ex);
+}
+
+// z pairs of xy-sums: the assembled value of node (k, j, i) of element e.
+template <int N, typename T>
+__device__ __forceinline__ T sum_xyz(const T* __restrict__ w, size_t e, int k,
+                                     int j, int i, int ix, int iy, int iz,
+                                     int ex, int ey, int ez) {
+  const size_t sz = static_cast<size_t>(ex) * ey;
+  if (k == N - 1 && iz < ez - 1)
+    return add_rn(sum_xy<N>(w, e, N - 1, j, i, ix, iy, ex, ey),
+                  sum_xy<N>(w, e + sz, 0, j, i, ix, iy, ex, ey));
+  if (k == 0 && iz > 0)
+    return add_rn(sum_xy<N>(w, e - sz, N - 1, j, i, ix, iy, ex, ey),
+                  sum_xy<N>(w, e, 0, j, i, ix, iy, ex, ey));
+  return sum_xy<N>(w, e, k, j, i, ix, iy, ex, ey);
 }
 
 }  // namespace nekbone

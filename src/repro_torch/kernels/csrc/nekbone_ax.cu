@@ -127,13 +127,17 @@ int dispatch(const T* u, const T* D, const T* g, T* w, int E, int n,
 
 // u, w: (E, n^3); D: (n, n); g: (E, 6, n^3); all contiguous, on `stream`.
 // Returns cudaGetLastError() after the launch (0 on success).
+#ifdef NEKBONE_REAL_F64
 extern "C" int nekbone_ax_f64(const double* u, const double* D,
                               const double* g, double* w, int E, int n,
                               void* stream) {
   return nekbone::dispatch<double>(u, D, g, w, E, n, stream);
 }
+#endif
 
+#ifdef NEKBONE_REAL_F32
 extern "C" int nekbone_ax_f32(const float* u, const float* D, const float* g,
                               float* w, int E, int n, void* stream) {
   return nekbone::dispatch<float>(u, D, g, w, E, n, stream);
 }
+#endif

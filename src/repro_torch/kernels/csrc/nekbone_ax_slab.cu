@@ -13,8 +13,9 @@
 // a block may use, so here the work splits differently:
 //
 // * this kernel is per element (one thread block, an n x n thread layer
-//   marching the k layers as in nekbone_ax.cu) and writes the *unassembled*
-//   masked w;
+//   marching the k layers as in nekbone_ax.cu; the layer loop is
+//   common.cuh's ax_diag_columns, shared with the Chebyshev kernel) and
+//   writes the *unassembled* masked w;
 // * the update kernel (nekbone_cg_update.cu) assembles w node by node,
 //   reading the neighbours' face copies straight from device memory in
 //   core/gs.ds_sum_local's order.
@@ -52,11 +53,7 @@ nekbone_ax_slab_kernel(const T* __restrict__ p_prev, const T* __restrict__ r,
                        T* __restrict__ pap, int ex, int ey) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
-  __shared__ T sD[N][N];
-  __shared__ T sDt[N][N];
-  __shared__ T su[N][N];
-  __shared__ T sr[N][N];
-  __shared__ T ss[N][N];
+  __shared__ AxShared<N, T> sh;
   __shared__ T red[N2];
 
   const int i = threadIdx.x;
@@ -68,8 +65,7 @@ nekbone_ax_slab_kernel(const T* __restrict__ p_prev, const T* __restrict__ r,
   const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
   const size_t base = e * N3 + tid;
 
-  sD[j][i] = D[tid];
-  sDt[i][j] = D[tid];
+  load_D(sh, D, i, j);
   const T b = *beta;
   T pc[N];
   T wc[N];
@@ -77,37 +73,8 @@ nekbone_ax_slab_kernel(const T* __restrict__ p_prev, const T* __restrict__ r,
   for (int k = 0; k < N; ++k) {
     pc[k] = add_rn(r[base + k * N2], mul_rn(b, p_prev[base + k * N2]));
     p_out[base + k * N2] = pc[k];
-    wc[k] = T(0);
   }
-
-  const T* ge = g3 + e * 3 * N3 + tid;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    su[j][i] = pc[k];
-    __syncthreads();
-    T wr = T(0), ws = T(0), wt = T(0);
-#pragma unroll
-    for (int l = 0; l < N; ++l) {
-      wr += sDt[l][i] * su[j][l];
-      ws += sD[j][l] * su[l][i];
-      wt += sD[k][l] * pc[l];
-    }
-    const T ur = ge[0 * N3 + k * N2] * wr;
-    const T us = ge[1 * N3 + k * N2] * ws;
-    const T ut = ge[2 * N3 + k * N2] * wt;
-    sr[j][i] = ur;
-    ss[j][i] = us;
-    __syncthreads();
-    T acc = T(0);
-#pragma unroll
-    for (int l = 0; l < N; ++l) {
-      acc += sD[l][i] * sr[j][l];
-      acc += sD[l][j] * ss[l][i];
-    }
-    wc[k] += acc;
-#pragma unroll
-    for (int m = 0; m < N; ++m) wc[m] += sD[k][m] * ut;
-  }
+  ax_diag_columns(sh, g3 + e * 3 * N3 + tid, pc, wc, i, j);
 
   const T myx = my[iy * N + j] * mx[ix * N + i];
   T part = T(0);
@@ -159,6 +126,7 @@ int dispatch(const T* p_prev, const T* r, const T* D, const T* g3,
 // p_prev, r, p_out, w: (E, n^3); D: (n, n); g3: (E, 3, n^3); mx: (EX, n);
 // my: (EY, n); mz: (EZ, n); beta: one value; pap: (E,).  Elements z-major
 // over (EX, EY, EZ).  Returns cudaGetLastError() after the launch.
+#ifdef NEKBONE_REAL_F64
 extern "C" int nekbone_ax_slab_f64(const double* p_prev, const double* r,
                                    const double* D, const double* g3,
                                    const double* mx, const double* my,
@@ -169,7 +137,9 @@ extern "C" int nekbone_ax_slab_f64(const double* p_prev, const double* r,
   return nekbone::dispatch<double>(p_prev, r, D, g3, mx, my, mz, beta, p_out,
                                    w, pap, ex, ey, ez, n, stream);
 }
+#endif
 
+#ifdef NEKBONE_REAL_F32
 extern "C" int nekbone_ax_slab_f32(const float* p_prev, const float* r,
                                    const float* D, const float* g3,
                                    const float* mx, const float* my,
@@ -179,3 +149,4 @@ extern "C" int nekbone_ax_slab_f32(const float* p_prev, const float* r,
   return nekbone::dispatch<float>(p_prev, r, D, g3, mx, my, mz, beta, p_out,
                                   w, pap, ex, ey, ez, n, stream);
 }
+#endif

@@ -13,11 +13,9 @@
 // and this kernel assembles it: thread (i, j) of the element's n x n layer,
 // at layer k, reads the node's own copy and, on a face, edge or corner, the
 // coincident copies in the neighbouring elements, straight from device
-// memory.  The sums follow core/gs.ds_sum_local's tree exactly: pairs
-// across x first, then pairs of x-sums across y, then pairs of xy-sums
-// across z, each pair as (lower element) + (upper element).  IEEE addition
-// is commutative but not associative, so fixing the tree makes the
-// assembled w bitwise the plain version's in fp64 and fp32.
+// memory (common.cuh's sum_xyz, shared with K10 and K11).  The sums follow
+// core/gs.ds_sum_local's tree exactly, so the assembled w is bitwise the
+// plain version's in fp64 and fp32.
 //
 // Streams: reads x, p, r, w (4) and writes x, r (2) — with the front half,
 // the 13-stream book of core/cost.py.  The face gathers read at most 8
@@ -37,53 +35,6 @@
 #include "common.cuh"
 
 namespace nekbone {
-
-template <int N, typename T>
-__device__ __forceinline__ T node(const T* __restrict__ w, size_t e, int k,
-                                  int j, int i) {
-  return w[e * (N * N * N) + (k * N + j) * N + i];
-}
-
-// x pairs: face i = n-1 of element ex meets i = 0 of element ex + 1.
-template <int N, typename T>
-__device__ __forceinline__ T sum_x(const T* __restrict__ w, size_t e, int k,
-                                   int j, int i, int ix, int ex) {
-  if (i == N - 1 && ix < ex - 1)
-    return add_rn(node<N>(w, e, k, j, N - 1), node<N>(w, e + 1, k, j, 0));
-  if (i == 0 && ix > 0)
-    return add_rn(node<N>(w, e - 1, k, j, N - 1), node<N>(w, e, k, j, 0));
-  return node<N>(w, e, k, j, i);
-}
-
-// y pairs of x-sums.
-template <int N, typename T>
-__device__ __forceinline__ T sum_xy(const T* __restrict__ w, size_t e, int k,
-                                    int j, int i, int ix, int iy, int ex,
-                                    int ey) {
-  const size_t sy = static_cast<size_t>(ex);
-  if (j == N - 1 && iy < ey - 1)
-    return add_rn(sum_x<N>(w, e, k, N - 1, i, ix, ex),
-                  sum_x<N>(w, e + sy, k, 0, i, ix, ex));
-  if (j == 0 && iy > 0)
-    return add_rn(sum_x<N>(w, e - sy, k, N - 1, i, ix, ex),
-                  sum_x<N>(w, e, k, 0, i, ix, ex));
-  return sum_x<N>(w, e, k, j, i, ix, ex);
-}
-
-// z pairs of xy-sums: the assembled value of node (k, j, i) of element e.
-template <int N, typename T>
-__device__ __forceinline__ T sum_xyz(const T* __restrict__ w, size_t e, int k,
-                                     int j, int i, int ix, int iy, int iz,
-                                     int ex, int ey, int ez) {
-  const size_t sz = static_cast<size_t>(ex) * ey;
-  if (k == N - 1 && iz < ez - 1)
-    return add_rn(sum_xy<N>(w, e, N - 1, j, i, ix, iy, ex, ey),
-                  sum_xy<N>(w, e + sz, 0, j, i, ix, iy, ex, ey));
-  if (k == 0 && iz > 0)
-    return add_rn(sum_xy<N>(w, e - sz, N - 1, j, i, ix, iy, ex, ey),
-                  sum_xy<N>(w, e, 0, j, i, ix, iy, ex, ey));
-  return sum_xy<N>(w, e, k, j, i, ix, iy, ex, ey);
-}
 
 template <int N, typename T>
 __global__ void __launch_bounds__(N * N)
@@ -161,6 +112,7 @@ int dispatch(const T* x, const T* p, const T* r, const T* w, const T* alpha,
 // x, p, r, w (unassembled, masked), x_out, r_out: (E, n^3); alpha: one
 // value; cx: (EX, n); cy: (EY, n); cz: (EZ, n); rcr: (E,).  Elements z-major
 // over (EX, EY, EZ).  Returns cudaGetLastError() after the launch.
+#ifdef NEKBONE_REAL_F64
 extern "C" int nekbone_cg_update_f64(const double* x, const double* p,
                                      const double* r, const double* w,
                                      const double* alpha, const double* cx,
@@ -171,7 +123,9 @@ extern "C" int nekbone_cg_update_f64(const double* x, const double* p,
   return nekbone::dispatch<double>(x, p, r, w, alpha, cx, cy, cz, x_out,
                                    r_out, rcr, ex, ey, ez, n, stream);
 }
+#endif
 
+#ifdef NEKBONE_REAL_F32
 extern "C" int nekbone_cg_update_f32(const float* x, const float* p,
                                      const float* r, const float* w,
                                      const float* alpha, const float* cx,
@@ -182,3 +136,4 @@ extern "C" int nekbone_cg_update_f32(const float* x, const float* p,
   return nekbone::dispatch<float>(x, p, r, w, alpha, cx, cy, cz, x_out,
                                   r_out, rcr, ex, ey, ez, n, stream);
 }
+#endif

@@ -1,11 +1,16 @@
-"""Wrappers of the three CUDA kernels of the Nekbone operator and v2 CG.
+"""Wrappers of the CUDA kernels of the Nekbone operator, v2 CG and PCG.
 
 * ``nekbone_ax_cuda`` — K1, ``csrc/nekbone_ax.cu``, replaces the reference's
   ``kernels/nekbone_ax.py:nekbone_ax_kernel``;
 * ``nekbone_ax_slab_cuda`` — K4, ``csrc/nekbone_ax_slab.cu``, replaces
   ``nekbone_ax_slab_kernel``;
 * ``nekbone_cg_update_cuda`` — K5, ``csrc/nekbone_cg_update.cu``, replaces
-  ``nekbone_cg_update_kernel``.
+  ``nekbone_cg_update_kernel``;
+* ``nekbone_pcg_update_cuda`` — K10, ``csrc/nekbone_pcg_update.cu``,
+  replaces ``nekbone_pcg_update_kernel``;
+* ``nekbone_cheb_apply_cuda`` — K11, ``csrc/nekbone_cheb_apply.cu``,
+  replaces ``nekbone_cheb_apply_kernel`` (one call queues k + 1 device
+  launches and counts once).
 
 Every wrapper takes the kernel's flat operands ((E, n^3) fields), and:
 
@@ -27,15 +32,20 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (nekbone_ax_plain, nekbone_ax_slab_plain,
-                                     nekbone_cg_update_plain)
+                                     nekbone_cg_update_plain,
+                                     nekbone_cheb_apply_plain,
+                                     nekbone_pcg_update_plain)
 
 __all__ = ["LAUNCHES", "reset_launches", "nekbone_ax_cuda",
            "nekbone_ax_slab_cuda", "nekbone_cg_update_cuda",
+           "nekbone_pcg_update_cuda", "nekbone_cheb_apply_cuda",
            "nekbone_ax_plain", "nekbone_ax_slab_plain",
-           "nekbone_cg_update_plain", "N_RANGE"]
+           "nekbone_cg_update_plain", "nekbone_pcg_update_plain",
+           "nekbone_cheb_apply_plain", "N_RANGE"]
 
 # Kernel launches per wrapper since the last reset_launches(); plain ints.
-LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0}
+LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
+            "nekbone_pcg_update": 0, "nekbone_cheb_apply": 0}
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
@@ -47,6 +57,8 @@ _ARGTYPES = {
     "nekbone_ax": [_P] * 4 + [_I] * 2 + [_P],
     "nekbone_ax_slab": [_P] * 11 + [_I] * 4 + [_P],
     "nekbone_cg_update": [_P] * 11 + [_I] * 4 + [_P],
+    "nekbone_pcg_update": [_P] * 13 + [_I] * 4 + [_P],
+    "nekbone_cheb_apply": [_P] * 16 + [_I] * 5 + [_P],
 }
 
 
@@ -56,7 +68,8 @@ def reset_launches() -> None:
 
 
 def _function(stem: str, dtype: torch.dtype):
-    fn = getattr(_build.load(stem), f"{stem}_{_SUFFIX[dtype]}")
+    name = f"{stem}_{_SUFFIX[dtype]}"
+    fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[stem]
         fn.restype = ctypes.c_int
@@ -159,3 +172,61 @@ def nekbone_cg_update_cuda(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int):
             (x2, p2, r2, w2, alpha, cx, cy, cz, x_out, r_out, rcr),
             (ex, ey, ez, n))
     return x_out, r_out, rcr
+
+
+def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
+                            n: int):
+    """K10: assemble ``w``, ``x += alpha p``, ``z -= alpha invd w``, partials.
+
+    Operands as :func:`repro_torch.kernels.ref.nekbone_pcg_update_plain`;
+    ``w2`` is K4's unassembled output.  Returns ``(x, z, rtz, rcr)`` with
+    ``rtz`` and ``rcr`` of shape (E,).
+    """
+    if x2.device.type == "cpu":
+        return nekbone_pcg_update_plain(x2, p2, z2, w2, alpha, invd2, cx, cy,
+                                        cz, n=n)
+    ex, ey, ez = cx.shape[0], cy.shape[0], cz.shape[0]
+    E = ex * ey * ez
+    n3 = n ** 3
+    _check("nekbone_pcg_update", n, x2.dtype, x2.device, x2=(x2, (E, n3)),
+           p2=(p2, (E, n3)), z2=(z2, (E, n3)), w2=(w2, (E, n3)),
+           alpha=(alpha.reshape(1), (1,)), invd2=(invd2, (E, n3)),
+           cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    x_out = torch.empty_like(x2)
+    z_out = torch.empty_like(z2)
+    parts = torch.empty(2, E, dtype=x2.dtype, device=x2.device)
+    _launch("nekbone_pcg_update", x2.dtype, x2.device,
+            (x2, p2, z2, w2, alpha, invd2, cx, cy, cz, x_out, z_out,
+             parts[0], parts[1]), (ex, ey, ez, n))
+    return x_out, z_out, parts[0], parts[1]
+
+
+def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
+                            n: int, k: int):
+    """K11: ``z = q_k(A) r`` and per-element ``r·c·z`` partials.
+
+    Operands as :func:`repro_torch.kernels.ref.nekbone_cheb_apply_plain`.
+    The kernel allocates nothing: this wrapper hands it ``z``, the
+    partials, and scratch for the recurrence's ``d`` and ``res`` and two
+    buffers of the unassembled ``A d``.  Returns ``(z, rtz)`` with ``rtz``
+    of shape (E,).
+    """
+    if r2.device.type == "cpu":
+        return nekbone_cheb_apply_plain(r2, D, g3, mx, my, mz, cx, cy, cz,
+                                        coef, n=n, k=k)
+    if k < 1:
+        raise ValueError(f"nekbone_cheb_apply: k={k}, need k >= 1")
+    ex, ey, ez = mx.shape[0], my.shape[0], mz.shape[0]
+    E = ex * ey * ez
+    n3 = n ** 3
+    _check("nekbone_cheb_apply", n, r2.dtype, r2.device, r2=(r2, (E, n3)),
+           D=(D, (n, n)), g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)),
+           my=(my, (ey, n)), mz=(mz, (ez, n)), cx=(cx, (ex, n)),
+           cy=(cy, (ey, n)), cz=(cz, (ez, n)), coef=(coef, (k + 1, 2)))
+    z = torch.empty_like(r2)
+    scratch = torch.empty(4, E, n3, dtype=r2.dtype, device=r2.device)
+    rtz = torch.empty(E, dtype=r2.dtype, device=r2.device)
+    _launch("nekbone_cheb_apply", r2.dtype, r2.device,
+            (r2, D, g3, mx, my, mz, cx, cy, cz, coef, z, *scratch, rtz),
+            (ex, ey, ez, n, k))
+    return z, rtz

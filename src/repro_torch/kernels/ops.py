@@ -12,8 +12,10 @@ import torch
 from repro_torch.core.geom import (GEOM_RR, GEOM_RS, GEOM_RT, GEOM_SS,
                                    GEOM_ST, GEOM_TT, box_axis_factors)
 from repro_torch.kernels import nekbone_ax as _ax
+from repro_torch.kernels.ref import accum_dtype
 
-__all__ = ["nekbone_ax", "slab_axis_factors", "diag_metric"]
+__all__ = ["nekbone_ax", "slab_axis_factors", "diag_metric",
+           "nekbone_pcg_update", "nekbone_cheb_precond"]
 
 
 def nekbone_ax(u: torch.Tensor, D: torch.Tensor,
@@ -65,3 +67,67 @@ def diag_metric(g: torch.Tensor, E: int, n: int) -> torch.Tensor:
             "the slab (v2) pipeline requires an axis-aligned (diagonal-"
             "metric) mesh; off-diagonal metric entries are non-zero")
     return g[:, [GEOM_RR, GEOM_SS, GEOM_TT]].reshape(E, 3, n ** 3).contiguous()
+
+
+def nekbone_pcg_update(x: torch.Tensor, p: torch.Tensor, z: torch.Tensor,
+                       w: torch.Tensor, alpha, invdiag: torch.Tensor,
+                       grid: tuple[int, int, int]):
+    """Merged Jacobi-PCG vector update (K10) on natural shapes.
+
+    The solver carries ``z = invdiag * r``; this computes ``x + alpha p``,
+    ``z - alpha invdiag gs(w)`` and the two weighted partials of the
+    reconstructed residual ``r = z / invdiag``: ``rtz = r·c·z`` (the PCG
+    beta numerator) and ``rcr = r·c·r`` (the history entry), ``c`` rebuilt
+    in the kernel.
+
+    Args:
+      x, p, z: (E, n, n, n); w: (E, n, n, n) the masked *unassembled*
+      operator output of K4 — the kernel assembles it, so the reference's
+      ``addb``/``addt`` boundary planes have no counterpart; alpha: a float
+      or a scalar tensor; invdiag: (E, n, n, n) assembled ``1/diag(A)``
+      (1 at masked rows); grid: the element grid.
+
+    Returns ``(x_new, z_new, rtz, rcr)``.
+    """
+    E = x.shape[0]
+    n = x.shape[-1]
+    n3 = n ** 3
+    _, (cx, cy, cz) = slab_axis_factors(tuple(grid), n, x.dtype, x.device)
+    x2, z2, rtz_e, rcr_e = _ax.nekbone_pcg_update_cuda(
+        x.reshape(E, n3), p.reshape(E, n3), z.reshape(E, n3),
+        w.reshape(E, n3),
+        torch.as_tensor(alpha, dtype=accum_dtype(x.dtype), device=x.device),
+        invdiag.reshape(E, n3), cx, cy, cz, n=n)
+    return (x2.reshape(x.shape), z2.reshape(x.shape), torch.sum(rtz_e),
+            torch.sum(rcr_e))
+
+
+def nekbone_cheb_precond(r: torch.Tensor, D: torch.Tensor, g3: torch.Tensor,
+                         coef, grid: tuple[int, int, int], *, k: int):
+    """Chebyshev preconditioner application (K11) on natural shapes.
+
+    Evaluates ``z = q_k(A) r`` — k chained masked, assembled operator
+    applications combined by the Chebyshev recurrence scalars — and the
+    weighted partial ``rtz = r·c·z``.
+
+    Args:
+      r: (E, n, n, n), continuous and masked, z-major over ``grid``.
+      D: (n, n); g3: the (E, 3, ...) metric diagonal or a 6-component
+         metric whose off-diagonal entries are zero; coef: (k+1, 2)
+         recurrence scalars (:func:`repro_torch.core.precond.cheb_scalars`);
+      k: polynomial degree (>= 1).
+
+    Returns ``(z, rtz)``.
+    """
+    E = r.shape[0]
+    n = r.shape[-1]
+    (mx, my, mz), (cx, cy, cz) = slab_axis_factors(tuple(grid), n, r.dtype,
+                                                   r.device)
+    D = D.to(r.dtype).contiguous()
+    g3 = diag_metric(g3.to(r.dtype), E, n)
+    coef = torch.as_tensor(coef, dtype=accum_dtype(r.dtype),
+                           device=r.device).contiguous()
+    z2, rtz_e = _ax.nekbone_cheb_apply_cuda(
+        r.reshape(E, n ** 3).contiguous(), D, g3, mx, my, mz, cx, cy, cz,
+        coef, n=n, k=k)
+    return z2.reshape(r.shape), torch.sum(rtz_e)

@@ -17,7 +17,8 @@ from repro_torch.core.geom import box_outer
 from repro_torch.core.gs import ds_sum_local
 
 __all__ = ["accum_dtype", "nekbone_ax_ref", "nekbone_ax_plain",
-           "nekbone_ax_slab_plain", "nekbone_cg_update_plain"]
+           "nekbone_ax_slab_plain", "nekbone_cg_update_plain",
+           "nekbone_pcg_update_plain", "nekbone_cheb_apply_plain"]
 
 
 def accum_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -44,6 +45,13 @@ def nekbone_ax_plain(u2: torch.Tensor, D: torch.Tensor, g2: torch.Tensor, *,
     return w.reshape(E, n ** 3).to(u2.dtype)
 
 
+def _masked_ax_diag(u4, D, g, mask):
+    """Masked, unassembled ``D^T diag(g) D u`` of (E, n, n, n) fields; ``g``
+    is the (E, 3, n, n, n) metric diagonal."""
+    wr, ws, wt = local_grad3(u4, D)
+    return local_grad3_t(g[:, 0] * wr, g[:, 1] * ws, g[:, 2] * wt, D) * mask
+
+
 def nekbone_ax_slab_plain(p2, r2, D, g3, mx, my, mz, beta, *, n: int):
     """K4: direction update, diagonal-metric masked Ax, pap partials.
 
@@ -62,10 +70,8 @@ def nekbone_ax_slab_plain(p2, r2, D, g3, mx, my, mz, beta, *, n: int):
     p = p.to(p2.dtype).to(acc)          # rounded through storage
     p4 = p.reshape(E, n, n, n)
     g = g3.to(acc).reshape(E, 3, n, n, n)
-    wr, ws, wt = local_grad3(p4, D.to(acc))
-    w = local_grad3_t(g[:, 0] * wr, g[:, 1] * ws, g[:, 2] * wt, D.to(acc))
     mask = box_outer(mz.to(acc), my.to(acc), mx.to(acc)).reshape(E, n, n, n)
-    v = w * mask
+    v = _masked_ax_diag(p4, D.to(acc), g, mask)
     pap = (p4 * v).reshape(E, -1).sum(dim=1)
     return (p.to(p2.dtype).reshape(E, n ** 3),
             v.to(p2.dtype).reshape(E, n ** 3), pap)
@@ -92,3 +98,74 @@ def nekbone_cg_update_plain(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int):
     r6 = r.to(acc)
     rcr = (r6 * c * r6).sum(dim=1)
     return x.to(x2.dtype), r, rcr
+
+
+def _grid(fx, fy, fz):
+    return (fx.shape[0], fy.shape[0], fz.shape[0])
+
+
+def nekbone_pcg_update_plain(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
+                             n: int):
+    """K10: assemble w, ``x += alpha p``, ``z -= alpha invd w``, partials.
+
+    Args:
+      x2, p2: (E, n^3); z2: (E, n^3) the carried ``z = invd * r``; w2:
+      (E, n^3) masked *unassembled* operator output (K4's); alpha:
+      one-element tensor; invd2: (E, n^3) assembled ``1/diag(A)`` (1 at
+      masked nodes); cx, cy, cz: per-axis ``c`` factors, whose lengths give
+      the element grid.
+
+    Returns ``(x, z, rtz, rcr)``; with ``d = 1/invd`` taken after ``z`` is
+    rounded to storage, ``rtz = sum(z c z d)`` (= r·c·z) and
+    ``rcr = sum(z c z d d)`` (= r·c·r), one value per element (E,).
+    """
+    acc = accum_dtype(x2.dtype)
+    E = x2.shape[0]
+    a = alpha.reshape(()).to(acc)
+    w = ds_sum_local(w2.to(acc).reshape(E, n, n, n),
+                     _grid(cx, cy, cz)).reshape(E, n ** 3)
+    invd = invd2.to(acc)
+    x = x2.to(acc) + a * p2.to(acc)
+    z = (z2.to(acc) - a * (invd * w)).to(z2.dtype)
+    d = 1.0 / invd
+    c = box_outer(cz.to(acc), cy.to(acc), cx.to(acc)).reshape(E, n ** 3)
+    z6 = z.to(acc)
+    t = z6 * c * z6 * d
+    return x.to(x2.dtype), z, t.sum(dim=1), (t * d).sum(dim=1)
+
+
+def nekbone_cheb_apply_plain(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
+                             n: int, k: int):
+    """K11: ``z = q_k(A) r`` by the Chebyshev recurrence, and r·c·z partials.
+
+    ``d = coef[0,0] r; z = d; res = r``, then for i in 1..k:
+    ``res -= gs(mask * A_loc d); d = coef[i,0] d + coef[i,1] res; z += d``.
+
+    Args:
+      r2: (E, n^3) continuous, masked; D: (n, n); g3: (E, 3, n^3) metric
+      diagonal; mx, my, mz / cx, cy, cz: per-axis mask / ``c`` factors,
+      whose lengths give the element grid; coef: (k+1, 2) scalars
+      (core/precond.cheb_scalars).
+
+    Returns ``(z, rtz)``: z in ``r2``'s dtype and one ``sum(r c z)`` over
+    the stored z per element (E,).
+    """
+    acc = accum_dtype(r2.dtype)
+    E = r2.shape[0]
+    grid = _grid(mx, my, mz)
+    D = D.to(acc)
+    g = g3.to(acc).reshape(E, 3, n, n, n)
+    mask = box_outer(mz.to(acc), my.to(acc), mx.to(acc)).reshape(E, n, n, n)
+    coef = coef.to(acc)
+    r = r2.to(acc).reshape(E, n, n, n)
+    d = coef[0, 0] * r
+    z = d
+    res = r
+    for i in range(1, k + 1):
+        res = res - ds_sum_local(_masked_ax_diag(d, D, g, mask), grid)
+        d = coef[i, 0] * d + coef[i, 1] * res
+        z = z + d
+    z = z.reshape(E, n ** 3).to(r2.dtype)
+    c = box_outer(cz.to(acc), cy.to(acc), cx.to(acc)).reshape(E, n ** 3)
+    rtz = (r.reshape(E, n ** 3) * c * z.to(acc)).sum(dim=1)
+    return z, rtz

@@ -34,17 +34,20 @@ def test_route_name_agrees_with_reference():
             assert got == want, (impl, prec, b, niter, pc)
             assert got in torch_solvers.REGISTRY or \
                 got in torch_solvers.NOT_PORTED
+    assert {"v2", "v2_tol", "reference"} <= set(torch_solvers.REGISTRY)
+    assert not set(torch_solvers.REGISTRY) & set(torch_solvers.NOT_PORTED)
 
 
 @pytest.mark.parametrize("kw,solve_kw", [
     (dict(ax_impl="pallas_fused_cg"), dict(niter=3)),             # v1
     (dict(ax_impl="pallas_sstep_v3"), dict(niter=3)),             # sstep
-    (dict(ax_impl="pallas_fused_cg_v2"), dict(tol=1e-6)),         # v2_tol
+    (dict(ax_impl="pallas_fused_cg_v2"),
+     dict(niter=3, precond="pmg")),                               # pmg, v2
     (dict(ax_impl="pallas_fused_cg_v2", precision="f32_ir"),
      dict(niter=3)),                                              # ir
     (dict(ax_impl="pallas_fused_cg_v2"), dict(niter=3, b=2)),     # block
     (dict(ax_impl="fused"), dict(niter=3, b=2)),                  # block_loop
-    (dict(ax_impl="pallas"), dict(niter=3, precond="jacobi")),    # precond
+    (dict(ax_impl="pallas"), dict(niter=3, precond="pmg")),       # pmg
 ])
 def test_unported_routes_raise(kw, solve_kw):
     case = NekboneCase(n=3, grid=(1, 1, 2), dtype=torch.float64,
@@ -101,9 +104,13 @@ def test_paper_cases_mirror_reference():
     for key, cfg in PAPER_CASES.items():
         ref = jax_configs.PAPER_CASES[key]
         assert (cfg.name, cfg.n, cfg.grid, cfg.niter, cfg.dtype,
-                cfg.ax_impl) == (ref.name, ref.n, ref.grid, ref.niter,
-                                 ref.dtype, ref.ax_impl)
+                cfg.ax_impl, cfg.precond, cfg.cheb_k) == (
+                    ref.name, ref.n, ref.grid, ref.niter, ref.dtype,
+                    ref.ax_impl, ref.precond, ref.cheb_k)
     assert paper_case(1024, precision="f64").precision == "f64"
+    for precond in ("jacobi", "cheb"):
+        assert paper_case(1024, precond=precond).precond == \
+            jax_configs.paper_case(1024, precond=precond).precond
 
 
 def test_convert_round_trips_reference_case(x64):
