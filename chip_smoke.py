@@ -9,34 +9,45 @@ It needs one CUDA card and ``nvcc``, imports neither ``jax`` nor the
 reference package ``repro``, and, in order:
 
 1. prints the card, its power limit, and the torch / CUDA / nvcc versions;
-2. builds the five CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   ``nvcc`` per source, in parallel;
+2. builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` per source and dtype (16 libraries), in parallel;
 3. measures device-to-device copy bandwidth on a 1 GiB buffer (the
    measured roofline);
 4. holds K1 (the operator kernel) against its plain PyTorch version, n=2..16
    at small E and n=10 at E=1024, fp64 and fp32;
 5. holds K4 and K5 (the v2 CG iteration) against their plain versions for
-   one iteration of the paper case, fp64 and fp32;
+   one iteration of the paper case, fp64 and fp32, at n = 10, 5 and 3 (the
+   degrees of the p-multigrid ladder);
 6. solves the paper case (n=10, E=1024, fp64, 100 CG iterations) through
    ``NekboneCase.solve`` with ``ax_impl='pallas'`` (K1 in the reference CG
    loop) and ``'pallas_fused_cg_v2'`` (K4 + K5), each against the plain
    ``'fused'`` route on the card, and shows from the launch counters that
    each route ran through its kernels;
 7. holds K10 (the Jacobi-PCG update) and K11 (the Chebyshev apply)
-   against their plain versions: the paper case and n=6, fp64 and fp32,
-   k = 1, 2, 4;
+   against their plain versions: the paper grid at n = 10, 5 and 3 and
+   n=6, fp64 and fp32, k = 1, 2, 4;
 8. solves the paper case through the three routes this slice added, each
    with the launch counters reset just before it: Jacobi-PCG over K4 + K10
    (100 iterations, against the plain route with the same preconditioner),
    Chebyshev-PCG(4) to rnorm <= 1e-8 over K11 + K4 + K5 (at most 34
    iterations), and the tolerance-driven v2 solve (its history bitwise a
    prefix of the fixed run's);
-9. times every kernel and its plain version (device time by CUDA events)
+9. holds K12 (the p-multigrid interpolation) against its plain version for
+   every step of the ladder at E=1024 (bitwise, fp64 and fp32) with face
+   values kept bitwise, and K6 and K7 (the multi-RHS block kernels)
+   against K4 and K5 lane by lane (bitwise at b = 1 and 4);
+10. solves the paper case through the two routes of this slice, each with
+   the launch counters reset just before it: p-multigrid PCG to
+   rnorm <= 1e-8 r0 beside Chebyshev-PCG(4) to the same tolerance, and
+   multi-RHS block CG at b = 4 (100 iterations, each lane bitwise its own
+   v2 solve), plus the tolerance-driven block solve and the per-RHS
+   ``block_loop`` route at b = 2;
+11. times every kernel and its plain version (device time by CUDA events)
    at E=1024 and E=4096, the solves per iteration and to tolerance (host
-   clock), and the Chebyshev interval's one-time set-up;
-10. profiles 20 iterations of each kernel route (device time per
-   iteration, by kernel, and the device's busy share);
-11. prints the ``kernels`` JSON line, the card line, and last the result
+   clock), and the Chebyshev and pmg intervals' one-time set-up;
+12. profiles each kernel route (device time per iteration, by kernel, and
+   the device's busy share);
+13. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits with status 1 and prints no result line.
@@ -75,6 +86,11 @@ PCG_HIST_TOL_HEAD = 1e-10     # PCG routes: first 10 history entries
 CHEB_K = 4
 CHEB_TOL = 1e-8
 CHEB_MAX_ITERS = 34           # the reference's acceptance at the paper case
+PMG_RTOL = 1e-8               # pmg: solve to 1e-8 r0 (benchmarks/pmg_smoke.py)
+PMG_MAX_ITERS = 15
+BLOCK_B = 4
+# the steps of the p-multigrid ladder of the paper case, both directions
+LADDER_PAIRS = ((10, 5), (5, 10), (5, 3), (3, 5), (3, 2), (2, 3))
 # about 10 ms of spin at the H100's clock: longer than the host takes to
 # enqueue the calls that device_ms times after it.
 SPIN_CYCLES = 20_000_000
@@ -156,6 +172,31 @@ def phase_device():
     return name, smi[0] if smi else "nvidia-smi: no output"
 
 
+def _ptxas_report(log: str) -> dict:
+    """``{template arguments: (registers, spill store bytes)}`` for every
+    kernel instantiation in an ``nvcc -Xptxas -v`` log; the key is n, or
+    ``nin->nout`` for the interpolation kernel."""
+    import re
+
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            key = "->".join(args)
+            out[key] = [0, 0]
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[key][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -164,12 +205,12 @@ def phase_build():
     paths = _build.build_all()
     seconds = time.perf_counter() - t0
     for stem, path in paths.items():
-        log = path.with_suffix(".log").read_text()
-        spills = [line.strip() for line in log.splitlines()
-                  if "spill" in line
-                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
-        print(f"  {stem}: {path.name}, instantiations with spills: "
-              f"{len(spills)}")
+        report = _ptxas_report(path.with_suffix(".log").read_text())
+        spills = {key: v[1] for key, v in report.items() if v[1]}
+        main = {key: v[0] for key, v in report.items()
+                if key in ("10", "10->5")}
+        print(f"  {stem}: {path.name}; registers {main}; spill bytes by "
+              f"instantiation: {spills or 'none'}")
     print(f"  build seconds {seconds:.1f} (0 when cached)", flush=True)
     return seconds
 
@@ -269,44 +310,52 @@ def phase_v2_parity():
     from repro_torch.core.nekbone import NekboneCase
     from repro_torch.kernels import nekbone_ax as K
 
-    print("== K4/K5 parity (one v2 iteration, paper case)", flush=True)
+    print("== K4/K5 parity (one v2 iteration, paper grid, n = 10, 5, 3)",
+          flush=True)
     rng = np.random.default_rng(1)
     errs = {}
-    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        case = NekboneCase(n=10, grid=PAPER_GRID, dtype=dtype)
-        o = _v2_operands(case, rng)
-        E, n = case.mesh.nelt, case.n
-        kp, kw, kpap = K.nekbone_ax_slab_cuda(o["p"], o["r"], case.D,
-                                              o["g3"], *o["m"], o["beta"],
-                                              n=n)
-        pp, pw, ppap = K.nekbone_ax_slab_plain(o["p"], o["r"], case.D,
-                                               o["g3"], *o["m"], o["beta"],
-                                               n=n)
-        check(torch.equal(kp, pp), f"K4 {dtype}: p = r + beta p bitwise")
-        check(rel_err(kw, pw) <= tol,
-              f"K4 {dtype}: w max rel err {rel_err(kw, pw):.2e} <= {tol:g}")
-        pap_err = abs(float(kpap.sum() - ppap.sum())) / abs(float(ppap.sum()))
-        check(pap_err <= tol, f"K4 {dtype}: pap rel err {pap_err:.2e}")
-        # K5 on K4's own outputs, both sides: x and r bitwise
-        kx, kr, krcr = K.nekbone_cg_update_cuda(o["x"], kp, o["r"], kw,
-                                                o["alpha"], *o["c"], n=n)
-        px, pr, prcr = K.nekbone_cg_update_plain(o["x"], kp, o["r"], kw,
-                                                 o["alpha"], *o["c"], n=n)
-        check(torch.equal(kx, px) and torch.equal(kr, pr),
-              f"K5 {dtype}: x += alpha p, r -= alpha gs(w) bitwise")
-        rcr_err = abs(float(krcr.sum() - prcr.sum())) / abs(float(prcr.sum()))
-        check(rcr_err <= tol, f"K5 {dtype}: rcr rel err {rcr_err:.2e}")
-        # with r = 0, alpha = -1 the stored r is the assembled w itself
-        zero = torch.zeros_like(o["x"])
-        _, wa, _ = K.nekbone_cg_update_cuda(
-            zero, zero, zero, kw, torch.tensor(-1.0, dtype=dtype,
-                                               device="cuda"), *o["c"], n=n)
-        want = ds_sum_local(kw.reshape(E, n, n, n), case.grid)
-        check(torch.equal(wa, want.reshape(E, n ** 3)),
-              f"K5 {dtype}: assembly bitwise ds_sum_local")
-        if dtype == torch.float64:
-            errs["K4"] = float((kw - pw).abs().max())
-            errs["K5"] = float((kr - pr).abs().max())
+    for n in (10, 5, 3):
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            case = NekboneCase(n=n, grid=PAPER_GRID, dtype=dtype)
+            o = _v2_operands(case, rng)
+            E = case.mesh.nelt
+            tag = f"{dtype} n={n}"
+            kp, kw, kpap = K.nekbone_ax_slab_cuda(o["p"], o["r"], case.D,
+                                                  o["g3"], *o["m"],
+                                                  o["beta"], n=n)
+            pp, pw, ppap = K.nekbone_ax_slab_plain(o["p"], o["r"], case.D,
+                                                   o["g3"], *o["m"],
+                                                   o["beta"], n=n)
+            check(torch.equal(kp, pp), f"K4 {tag}: p = r + beta p bitwise")
+            check(rel_err(kw, pw) <= tol,
+                  f"K4 {tag}: w max rel err {rel_err(kw, pw):.2e} <= "
+                  f"{tol:g}")
+            pap_err = abs(float(kpap.sum() - ppap.sum())) \
+                / abs(float(ppap.sum()))
+            check(pap_err <= tol, f"K4 {tag}: pap rel err {pap_err:.2e}")
+            # K5 on K4's own outputs, both sides: x and r bitwise
+            kx, kr, krcr = K.nekbone_cg_update_cuda(o["x"], kp, o["r"], kw,
+                                                    o["alpha"], *o["c"], n=n)
+            px, pr, prcr = K.nekbone_cg_update_plain(o["x"], kp, o["r"], kw,
+                                                     o["alpha"], *o["c"],
+                                                     n=n)
+            check(torch.equal(kx, px) and torch.equal(kr, pr),
+                  f"K5 {tag}: x += alpha p, r -= alpha gs(w) bitwise")
+            rcr_err = abs(float(krcr.sum() - prcr.sum())) \
+                / abs(float(prcr.sum()))
+            check(rcr_err <= tol, f"K5 {tag}: rcr rel err {rcr_err:.2e}")
+            # with r = 0, alpha = -1 the stored r is the assembled w itself
+            zero = torch.zeros_like(o["x"])
+            _, wa, _ = K.nekbone_cg_update_cuda(
+                zero, zero, zero, kw, torch.tensor(-1.0, dtype=dtype,
+                                                   device="cuda"), *o["c"],
+                n=n)
+            want = ds_sum_local(kw.reshape(E, n, n, n), case.grid)
+            check(torch.equal(wa, want.reshape(E, n ** 3)),
+                  f"K5 {tag}: assembly bitwise ds_sum_local")
+            if dtype == torch.float64 and n == 10:
+                errs["K4"] = float((kw - pw).abs().max())
+                errs["K5"] = float((kr - pr).abs().max())
     torch.cuda.synchronize()
     return errs
 
@@ -385,7 +434,7 @@ def _pcg_operands(case, rng):
     Chebyshev scalars for k = 1, 2, 4."""
     import torch
 
-    from repro_torch.core.precond import cheb_scalars
+    from repro_torch.core.precond import cheb_scalars, estimate_interval
 
     E, n = case.mesh.nelt, case.n
     o = _v2_operands(case, rng)
@@ -394,9 +443,10 @@ def _pcg_operands(case, rng):
     o["invd"] = (1.0 / case.operator_diagonal()).reshape(E, n ** 3) \
         .contiguous()
     o["D"] = case.D
-    # an interval of the paper case's order (its Lanczos estimate is about
-    # [0.005, 0.78])
-    o["coef"] = {k: torch.as_tensor(cheb_scalars(k, 0.005, 0.8),
+    # the case's own Lanczos interval (about [0.005, 0.78] at n=10)
+    lmin, lmax = estimate_interval(case.D, case.g, case.grid, case.mask,
+                                   case.c)
+    o["coef"] = {k: torch.as_tensor(cheb_scalars(k, lmin, lmax),
                                     dtype=case.dtype, device="cuda")
                  for k in (1, 2, 4)}
     return o
@@ -409,12 +459,14 @@ def phase_pcg_parity():
     from repro_torch.core.nekbone import NekboneCase
     from repro_torch.kernels import nekbone_ax as K
 
-    print("== K10/K11 parity (kernel vs plain)", flush=True)
+    print("== K10/K11 parity (kernel vs plain; n = 10, 5, 3 on the paper "
+          "grid, n = 6 on 4x4x4)", flush=True)
     rng = np.random.default_rng(3)
     errs = {}
     for dtype, part_tol, z_tol in ((torch.float64, 1e-13, 1e-12),
                                    (torch.float32, 1e-5, 1e-4)):
-        for n, grid in ((10, PAPER_GRID), (6, (4, 4, 4))):
+        for n, grid in ((10, PAPER_GRID), (6, (4, 4, 4)), (5, PAPER_GRID),
+                        (3, PAPER_GRID)):
             case = NekboneCase(n=n, grid=grid, dtype=dtype)
             o = _pcg_operands(case, rng)
             tag = f"{dtype} n={n} E={case.mesh.nelt}"
@@ -450,6 +502,130 @@ def phase_pcg_parity():
     return errs
 
 
+def _ladder_matrix(nin: int, nout: int, dtype):
+    """K12's ``mt`` (nin, nout) for one ladder step: ``J`` restricts
+    (nin > nout), ``J^T`` prolongs."""
+    import torch
+
+    from repro_torch.core.pmg import gll_interp_matrix
+
+    J = gll_interp_matrix(max(nin, nout), min(nin, nout))
+    return torch.as_tensor(J if nin > nout else J.T, dtype=dtype,
+                           device="cuda").contiguous()
+
+
+def phase_interp_block_parity():
+    """K12 against its plain version for every ladder step, with the face
+    property; K6 and K7 against K4 and K5 lane by lane."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.gs import ds_sum_local
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+    from repro_torch.kernels import ops
+
+    print("== K12 parity (kernel vs plain, every ladder step) and K6/K7 "
+          "parity (lane by lane against K4/K5)", flush=True)
+    rng = np.random.default_rng(5)
+    errs = {}
+    E = PAPER_GRID[0] * PAPER_GRID[1] * PAPER_GRID[2]
+    for dtype in (torch.float64, torch.float32):
+        worst = 0.0
+        for nin, nout in LADDER_PAIRS:
+            u = torch.as_tensor(rng.normal(size=(E, nin ** 3)), dtype=dtype,
+                                device="cuda")
+            mt = _ladder_matrix(nin, nout, dtype)
+            v = K.nekbone_interp_cuda(u, mt, nin=nin, nout=nout)
+            want = K.nekbone_interp_plain(u, mt, nin=nin, nout=nout)
+            err = rel_err(v, want)
+            worst = max(worst, err)
+            check(torch.equal(v, want) and err <= 1e-15,
+                  f"K12 {dtype} {nin}->{nout} E={E}: bitwise the plain "
+                  f"version (max rel err {err:.1e} <= 1e-15)")
+            if dtype == torch.float64 and (nin, nout) == (10, 5):
+                errs["K12"] = float((v - want).abs().max())
+        others = sorted(K.INTERP_PAIRS - set(LADDER_PAIRS))
+        bad = []
+        for nin, nout in others:
+            u = torch.as_tensor(rng.normal(size=(9, nin ** 3)), dtype=dtype,
+                                device="cuda")
+            mt = _ladder_matrix(nin, nout, dtype)
+            if not torch.equal(
+                    K.nekbone_interp_cuda(u, mt, nin=nin, nout=nout),
+                    K.nekbone_interp_plain(u, mt, nin=nin, nout=nout)):
+                bad.append((nin, nout))
+        check(not bad, f"K12 {dtype}: the other {len(others)} instantiated "
+                       f"pairs, E=9, bitwise (failing: {bad})")
+        # prolongation keeps element faces: a continuous coarse field on the
+        # paper grid prolongs to coincident copies that are bitwise equal,
+        # and element corners keep the coarse corner values
+        for nc, nf in ((5, 10), (3, 5), (2, 3)):
+            ec = ds_sum_local(torch.as_tensor(
+                rng.normal(size=(E, nc, nc, nc)), dtype=dtype,
+                device="cuda"), PAPER_GRID)
+            up = K.nekbone_interp_cuda(ec.reshape(E, -1),
+                                       _ladder_matrix(nc, nf, dtype),
+                                       nin=nc, nout=nf).reshape(E, nf, nf,
+                                                                nf)
+            ex, ey, ez = PAPER_GRID
+            v = up.reshape(ez, ey, ex, nf, nf, nf)
+            corners = all(torch.equal(up[:, a, b, c], ec[:, a, b, c])
+                          for a in (0, -1) for b in (0, -1)
+                          for c in (0, -1))
+            faces = (torch.equal(v[:, :, :-1, :, :, -1], v[:, :, 1:, :, :, 0])
+                     and torch.equal(v[:, :-1, :, :, -1, :],
+                                     v[:, 1:, :, :, 0, :])
+                     and torch.equal(v[:-1, :, :, -1, :, :],
+                                     v[1:, :, :, 0, :, :]))
+            check(corners and faces,
+                  f"K12 {dtype} {nc}->{nf}: prolongated corners bitwise the "
+                  "coarse values, coincident face copies bitwise equal")
+        print(f"  K12 {dtype}: largest rel err over the ladder {worst:.1e}",
+              flush=True)
+
+    # K6 / K7: every output bitwise K4's / K5's on each lane
+    for dtype in (torch.float64, torch.float32):
+        for n in (10, 5, 3):
+            case = NekboneCase(n=n, grid=PAPER_GRID, dtype=dtype)
+            E = case.mesh.nelt
+            m, c = ops.slab_axis_factors(case.grid, n, dtype, "cuda")
+            g3 = ops.diag_metric(case.g, E, n)
+            for b in (1, BLOCK_B):
+                o = [_v2_operands(case, rng) for _ in range(b)]
+                P = torch.stack([q["p"] for q in o])
+                R = torch.stack([q["r"] for q in o])
+                X = torch.stack([q["x"] for q in o])
+                beta = torch.as_tensor(rng.normal(size=b), dtype=dtype,
+                                       device="cuda")
+                alpha = torch.as_tensor(rng.normal(size=b), dtype=dtype,
+                                        device="cuda")
+                p3, w3, pap = K.nekbone_ax_slab_block_cuda(
+                    P, R, case.D, g3, *m, beta, n=n)
+                x3, r3, rcr = K.nekbone_cg_update_block_cuda(
+                    X, p3, R, w3, alpha, *c, n=n)
+                same = True
+                for j in range(b):
+                    p, w, pp = K.nekbone_ax_slab_cuda(
+                        P[j], R[j], case.D, g3, *m, beta[j:j + 1], n=n)
+                    x, r, rr = K.nekbone_cg_update_cuda(
+                        X[j], p, R[j], w, alpha[j:j + 1], *c, n=n)
+                    same &= all(torch.equal(a, z) for a, z in (
+                        (p3[j], p), (w3[j], w), (pap[j], pp), (x3[j], x),
+                        (r3[j], r), (rcr[j], rr)))
+                check(same, f"K6/K7 {dtype} n={n} b={b}: p, w, pap, x, r, "
+                            "rcr of every lane bitwise K4's and K5's")
+                if dtype == torch.float64 and n == 10 and b == BLOCK_B:
+                    _, pw, _ = K.nekbone_ax_slab_block_plain(
+                        P, R, case.D, g3, *m, beta, n=n)
+                    _, pr, _ = K.nekbone_cg_update_block_plain(
+                        X, p3, R, w3, alpha, *c, n=n)
+                    errs["K6"] = float((w3 - pw).abs().max())
+                    errs["K7"] = float((r3 - pr).abs().max())
+    torch.cuda.synchronize()
+    return errs
+
+
 def _launch_run(K, fn):
     """``fn()`` with every launch count set to 0 just before it; returns
     its result and the counts read just after."""
@@ -464,7 +640,9 @@ def _launch_run(K, fn):
 def _zero_but(**want):
     counts = dict.fromkeys(("nekbone_ax", "nekbone_ax_slab",
                             "nekbone_cg_update", "nekbone_pcg_update",
-                            "nekbone_cheb_apply"), 0)
+                            "nekbone_cheb_apply", "nekbone_interp",
+                            "nekbone_ax_slab_block",
+                            "nekbone_cg_update_block"), 0)
     counts.update(want)
     return counts
 
@@ -588,6 +766,184 @@ def phase_pcg_routes():
     return out
 
 
+def phase_pmg_block_routes():
+    """The two routes of this slice through ``case.solve``: p-multigrid
+    PCG to 1e-8 r0 beside Chebyshev-PCG(4), and block CG."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cg import cg_fixed_iters
+    from repro_torch.core.gs import ds_sum_local
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.core.pmg import pmg_vcycle_reference
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== paper case, p-multigrid and block routes: n=10, E=1024, fp64",
+          flush=True)
+    out = {"launches": {}, "cases": {}}
+    v2 = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                     ax_impl="pallas_fused_cg_v2")
+    u_ex, f = v2.manufactured()
+    r0 = float(torch.sqrt(torch.abs(torch.sum(f * v2.c * f))))
+    tol = PMG_RTOL * r0
+
+    # --- p-multigrid PCG to 1e-8 r0, beside Chebyshev-PCG(4) -------------
+    t0 = time.perf_counter()
+    spec = v2.precond_spec("pmg")        # the one-time per-level Lanczos
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    res, launches = _launch_run(
+        K, lambda: v2.solve(f, tol=tol, max_iter=NITER, precond="pmg"))
+    out["launches"]["pmg"] = launches
+    it = int(res.iters)
+    h = res.history.cpu().numpy()
+    cheb = v2.solve(f, tol=tol, max_iter=NITER, precond=f"cheb{CHEB_K}")
+    it_cheb = int(cheb.iters)
+    print(f"  pmg: ladder {spec.ns}, k={spec.k}, intervals "
+          + ", ".join(f"[{a:.6e}, {b:.6e}]" for a, b in spec.intervals)
+          + f" (set-up {setup_ms:.1f} ms); r0 {r0:.6e}, tol {tol:.6e}; "
+          f"{it} iterations to rnorm {float(res.rnorm):.6e}, solution_error "
+          f"{float(v2.solution_error(res.x, u_ex)):.6e}; cheb{CHEB_K}: "
+          f"{it_cheb} iterations to rnorm {float(cheb.rnorm):.6e}; "
+          f"launches {launches}", flush=True)
+    check(0 < it <= min(it_cheb // 2, PMG_MAX_ITERS)
+          and float(res.rnorm) <= tol
+          and bool(np.isfinite(h[:it + 1]).all())
+          and bool(np.isnan(h[it + 1:]).all()),
+          f"pmg: rnorm {float(res.rnorm):.3e} <= tol {tol:.3e} in {it} <= "
+          f"min(cheb{CHEB_K}'s {it_cheb} // 2, {PMG_MAX_ITERS}) iterations, "
+          "history NaN after")
+    L1 = len(spec.ns) - 1                # smoothed levels
+    check(launches == _zero_but(
+        nekbone_interp=2 * L1 * (it + 1),
+        nekbone_cheb_apply=2 * L1 * (it + 1),
+        nekbone_ax_slab=it + 2 * L1 * (it + 1),
+        nekbone_cg_update=it + 2 * L1 * (it + 1)),
+        f"pmg: launches {launches} (K12 = K11 = {2 * L1} x (iters + 1); K4 "
+        f"= K5 = iters + {2 * L1} x (iters + 1))")
+    # the plain V-cycle (reference route) on the same spec, on the card
+    plain = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                        ax_impl="fused")
+    M = pmg_vcycle_reference(spec, D=plain.D, g=plain.g, grid=plain.grid,
+                             mask=plain.mask, c=plain.c)
+    h_ref = cg_fixed_iters(plain.ax_full, f, niter=10, dot=plain.dot(),
+                           precond=M).history.cpu().numpy()
+    dev = _rel_dev(h[:11], h_ref)
+    check(float(np.abs(h[:11] - h_ref).max()) <= PCG_HIST_TOL_HEAD * h_ref[0],
+          f"pmg: history entries 0..10 within {PCG_HIST_TOL_HEAD:g} of the "
+          f"plain V-cycle route (largest rel deviation {float(dev.max()):.2e})")
+    out["cases"]["pmg"] = (v2, f, dict(tol=tol, max_iter=NITER,
+                                       precond="pmg"))
+    out["cases"]["cheb_r0"] = (v2, f, dict(tol=tol, max_iter=NITER,
+                                           precond=f"cheb{CHEB_K}"))
+    out["pmg_setup_ms"] = setup_ms
+    out["pmg_iters"], out["cheb_r0_iters"] = it, it_cheb
+
+    # --- block CG, b = 4, 100 fixed iterations --------------------------
+    rng = np.random.default_rng(9)
+    F = torch.stack([f] + [
+        ds_sum_local(torch.as_tensor(rng.normal(size=tuple(f.shape)),
+                                     dtype=f.dtype, device="cuda"),
+                     v2.grid) * v2.mask for _ in range(BLOCK_B - 1)])
+    res, launches = _launch_run(K, lambda: v2.solve(F, niter=NITER))
+    out["launches"]["block"] = launches
+    h = res.history.cpu().numpy()
+    check(res.pipeline == f"fused_v2_rhs{BLOCK_B}"
+          and h.shape == (BLOCK_B, NITER + 1)
+          and bool(np.isfinite(h).all())
+          and tuple(res.x.shape) == tuple(F.shape),
+          f"block b={BLOCK_B}: finite x of shape {tuple(res.x.shape)}, "
+          f"history {h.shape}")
+    check(launches == _zero_but(nekbone_ax_slab_block=NITER,
+                                nekbone_cg_update_block=NITER),
+          f"block b={BLOCK_B}: launches {launches}")
+    same = []
+    for j in range(BLOCK_B):
+        solo = v2.solve(F[j], niter=NITER)
+        same.append(torch.equal(res.history[j], solo.history)
+                    and torch.equal(res.x[j], solo.x))
+    print(f"  block b={BLOCK_B}: history[:, {NITER}] = "
+          + " ".join(f"{x:.6e}" for x in h[:, NITER])
+          + f"; lanes bitwise their own v2 solves: {same}", flush=True)
+    check(all(same), f"block b={BLOCK_B}: every lane's history and x "
+                     "bitwise its own v2 solve")
+    out["cases"]["block"] = (v2, F, dict(niter=NITER))
+
+    # --- block_tol and block_loop at b = 2 ------------------------------
+    F2 = F[:2].contiguous()
+    fixed = v2.solve(F2, niter=NITER).history.cpu().numpy()
+    btol = float(fixed[:, NITER // 2].max()) * (1.0 + 1e-12)
+    res, launches = _launch_run(K, lambda: v2.solve(F2, tol=btol,
+                                                     max_iter=NITER))
+    it = int(res.iters)
+    h = res.history.cpu().numpy()
+    first = int(np.nonzero((fixed <= btol).all(axis=0))[0][0])
+    print(f"  block tol, b=2: tol {btol:.6e}; {it} iterations (the fixed "
+          f"run first has both lanes at or below it at entry {first}); "
+          f"launches {launches}", flush=True)
+    check(it == first and np.array_equal(h[:, :it + 1], fixed[:, :it + 1])
+          and bool(np.isnan(h[:, it + 1:]).all())
+          and bool((res.rnorm.cpu().numpy() <= btol).all()),
+          "block tol, b=2: every lane at or below tol, histories bitwise "
+          "the fixed run's prefix, NaN after")
+    check(launches == _zero_but(nekbone_ax_slab_block=it,
+                                nekbone_cg_update_block=it),
+          f"block tol, b=2: launches {launches}")
+    # block_loop: the manufactured rhs and the weak-form rhs of a second
+    # smooth solution, sin(2 pi x) sin(pi y) sin(pi z) (a random rhs is far
+    # rougher: Chebyshev-PCG(4) leaves it at 2e-2 after 100 iterations)
+    name = f"cheb{CHEB_K}"
+    xyz = v2.mesh.coords()
+    u2 = (np.sin(2 * np.pi * xyz[..., 0]) * np.sin(np.pi * xyz[..., 1])
+          * np.sin(np.pi * xyz[..., 2]))
+    f2 = ds_sum_local(torch.as_tensor(6 * np.pi ** 2 * u2, device="cuda")
+                      * v2.bmass, v2.grid) * v2.mask
+    F2 = torch.stack([f, f2])
+    res, launches = _launch_run(
+        K, lambda: v2.solve(F2, tol=CHEB_TOL, max_iter=NITER, precond=name))
+    its = [int(x) for x in res.iters.cpu()]
+    # NaN-padded histories: equal bitwise, NaN where NaN
+    same = all(torch.allclose(res.history[j], v2.solve(
+        F2[j], tol=CHEB_TOL, max_iter=NITER, precond=name).history, rtol=0,
+        atol=0, equal_nan=True) for j in range(2))
+    print(f"  block_loop {name}, b=2: iterations {its}, rnorm "
+          f"{res.rnorm.cpu().numpy()}; launches {launches}", flush=True)
+    check(res.history.shape == (2, NITER + 1)
+          and bool((res.rnorm.cpu() <= CHEB_TOL).all()) and same,
+          f"block_loop {name}, b=2: every lane at rnorm <= {CHEB_TOL:g}, "
+          "histories bitwise the single-RHS solves")
+    check(launches == _zero_but(nekbone_cheb_apply=sum(its) + 2,
+                                nekbone_ax_slab=sum(its),
+                                nekbone_cg_update=sum(its)),
+          f"block_loop {name}, b=2: launches {launches}")
+    return out
+
+
+def _time_row(label, kern, plain, nbytes, mma_flops, rest_flops, bw_copy,
+              lib=None):
+    """Device time of a kernel, its plain version and, where one PyTorch
+    call computes the same function, that call; the bound from the bytes
+    (each input read once, each output written once) and the operations
+    (contraction flops at the fp64 tensor cores' rate, the rest outside
+    them), at the data sheet's peaks."""
+    ms = device_ms(kern)
+    plain_ms = device_ms(plain)
+    lib_ms = device_ms(lib) if lib is not None else None
+    t_bytes = nbytes / BW_PEAK * 1e3
+    t_ops = (mma_flops / FP64_TENSOR_PEAK + rest_flops / FP64_PEAK) * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"  {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+          f"{nbytes / ms / 1e6 / (bw_copy / 1e9):.2f} of copy BW); plain "
+          f"{plain_ms:.4f} ms; "
+          + (f"library {lib_ms:.4f} ms; " if lib is not None else "")
+          + f"bound {bound:.4f} ms (bytes at 3.35 TB/s {t_bytes:.4f}, "
+          f"operations {t_ops:.4f}), {nbytes / bw_copy * 1e3:.4f} ms at "
+          f"measured copy BW; {nbytes / 1e6:.2f} MB", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_copy_ms=nbytes / bw_copy * 1e3, bytes=nbytes)
+
+
 def phase_times(bw_copy, cases):
     import numpy as np
     import torch
@@ -643,22 +999,55 @@ def phase_times(bw_copy, cases):
                     5 * field, cost.cheb_apply_flops(n, CHEB_K)),
         })
         for name, (kern, plain, nbytes, (f_mma, f_rest)) in work.items():
-            ms = device_ms(kern)
-            plain_ms = device_ms(plain)
-            t_bytes = nbytes / BW_PEAK * 1e3
-            t_ops = E * n ** 3 * (f_mma / FP64_TENSOR_PEAK
-                                  + f_rest / FP64_PEAK) * 1e3
-            rows[(name, grid)] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_copy_ms=nbytes / bw_copy * 1e3, bytes=nbytes)
-            print(f"  {name} E={E}: kernel {ms:.4f} ms "
-                  f"({nbytes / ms / 1e6:.0f} GB/s, "
-                  f"{nbytes / ms / 1e6 / (bw_copy / 1e9):.2f} of copy BW); "
-                  f"plain {plain_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f}"
-                  f" ms (bytes at 3.35 TB/s {t_bytes:.4f}, operations "
-                  f"{t_ops:.4f}), {nbytes / bw_copy * 1e3:.4f} ms at "
-                  f"measured copy BW; {nbytes / 1e6:.1f} MB", flush=True)
+            rows[(name, grid)] = _time_row(
+                f"{name} E={E}", kern, plain, nbytes,
+                E * n ** 3 * f_mma, E * n ** 3 * f_rest, bw_copy)
+        # K12 on every ladder step, K6 and K7 at b = 1 and 4
+        for nin, nout in LADDER_PAIRS:
+            u2 = torch.as_tensor(rng.normal(size=(E, nin ** 3)),
+                                 device="cuda")
+            mt = _ladder_matrix(nin, nout, torch.float64)
+            row = _time_row(
+                f"K12 {nin}->{nout} E={E}",
+                lambda: K.nekbone_interp_cuda(u2, mt, nin=nin, nout=nout),
+                lambda: K.nekbone_interp_plain(u2, mt, nin=nin, nout=nout),
+                E * (nin ** 3 + nout ** 3) * 8,
+                2 * E * (nin * nin * nout + nin * nout * nout + nout ** 3),
+                0, bw_copy,
+                lib=lambda: torch.einsum(
+                    "ekji,ia,jb,kc->ecba", u2.view(E, nin, nin, nin), mt, mt,
+                    mt))
+            rows[(f"K12 {nin}->{nout}", grid)] = row
+            if (nin, nout) == (10, 5):
+                rows[("K12", grid)] = row
+        m, c = o["m"], o["c"]
+        for b in (1, BLOCK_B):
+            ops_b = [_v2_operands(case, rng) for _ in range(b)]
+            P, R, X = (torch.stack([q[key] for q in ops_b])
+                       for key in ("p", "r", "x"))
+            beta = torch.full((b,), 0.37, dtype=torch.float64, device="cuda")
+            alpha = torch.full((b,), 0.81, dtype=torch.float64,
+                               device="cuda")
+            p3, w3, _ = K.nekbone_ax_slab_block_cuda(P, R, case.D, o["g3"],
+                                                     *m, beta, n=n)
+            k6 = (P, R, case.D, o["g3"], *m, beta)
+            k7 = (X, p3, R, w3, alpha, *c)
+            for name, kern, plain, fields, flops in (
+                    ("K6", K.nekbone_ax_slab_block_cuda,
+                     K.nekbone_ax_slab_block_plain, 4 * b + 3,
+                     (12 * n, 10)),
+                    ("K7", K.nekbone_cg_update_block_cuda,
+                     K.nekbone_cg_update_block_plain, 6 * b, (0, 8))):
+                args = k6 if name == "K6" else k7
+                row = _time_row(
+                    f"{name} b={b} E={E}",
+                    lambda: kern(*args, n=n), lambda: plain(*args, n=n),
+                    fields * field, b * E * n ** 3 * flops[0],
+                    b * E * n ** 3 * flops[1], bw_copy)
+                rows[(f"{name} b={b}", grid)] = row
+                if b == BLOCK_B:
+                    rows[(name, grid)] = row
+            del P, R, X, p3, w3, ops_b
         # the fields K11's chain of CHEB_K + 1 launches actually moves
         moved = (6 + 11 * (CHEB_K - 1) + 6) * field
         print(f"  K11 E={E}: the chain moves {moved / 1e6:.1f} MB "
@@ -742,7 +1131,50 @@ def phase_pcg_times(pcg, v2_solve_ms):
           f"once per case): {setup:.3f} ms", flush=True)
 
 
-def phase_profile(cases, pcg, niter: int = 20):
+def phase_slice3_times(routes, v2_solve_ms):
+    """The pmg and block solves (host clock to synchronize, median of 5)."""
+    from repro_torch.core import cost
+    from repro_torch.core.cg_block import cg_block_fixed_iters
+
+    print("== times of the pmg and block routes (host clock to synchronize, "
+          "median of 5)", flush=True)
+    out = {}
+    case, f, kw = routes["cases"]["pmg"]
+    ndof = case.mesh.ndof
+    for label in ("pmg", "cheb_r0"):
+        case, f, kw = routes["cases"][label]
+        iters = int(case.solve(f, **kw).iters)
+        ms = wall_ms(lambda: case.solve(f, **kw))
+        out[label] = (ms, iters)
+        print(f"  {kw['precond']} to rnorm <= {kw['tol']:.6e} (1e-8 r0): "
+              f"{ms:.3f} ms for {iters} iterations, {ms / iters:.4f} "
+              "ms/iteration", flush=True)
+    case, f, kw = routes["cases"]["pmg"]
+    iters = out["pmg"][1]
+    fixed = wall_ms(lambda: case.solve(f, niter=iters, precond="pmg"))
+    reads, writes = cost.pmg_streams(10)
+    print(f"  pmg: the same {iters} iterations fixed, with no host read of "
+          f"the stop rule: {fixed:.3f} ms; book {reads + writes:.2f} streams "
+          f"= {(reads + writes) * ndof * 8 / 1e6:.1f} MB per iteration; "
+          f"one-time set-up (3 Lanczos estimates) "
+          f"{routes['pmg_setup_ms']:.1f} ms", flush=True)
+    case, F, _ = routes["cases"]["block"]
+    v2_ms = v2_solve_ms / NITER
+    kw = dict(D=case.D, g=case.g, grid=case.grid, niter=NITER,
+              mask=case.mask, c=case.c)
+    for b in (1, BLOCK_B):
+        ms = wall_ms(lambda: cg_block_fixed_iters(F[:b], **kw)) / NITER
+        reads, writes = cost.multi_rhs_streams(b)
+        book = (reads + writes) * ndof * 8
+        out[f"block{b}"] = ms
+        print(f"  block b={b}, {NITER} iterations: {ms:.4f} ms/iteration, "
+              f"{ms / b:.4f} ms/iteration per RHS (v2: {v2_ms:.4f}); book "
+              f"{reads + writes:.3f} streams per RHS -> "
+              f"{book * b / ms / 1e6:.0f} GB/s", flush=True)
+    return out
+
+
+def phase_profile(cases, pcg, routes, niter: int = 20):
     """Device time per iteration of each solve, by kernel, from
     torch.profiler; the busy share is device time over the span from the
     first to the last device event (the profiler slows the host, so the
@@ -761,6 +1193,9 @@ def phase_profile(cases, pcg, niter: int = 20):
             kw = dict(kw, max_iter=niter,
                       tol=0.0 if label == "v2_tol" else kw["tol"])
         runs[label] = (case, f, kw)
+    runs["pmg"] = routes["cases"]["pmg"]             # its whole solve
+    case, F, _ = routes["cases"]["block"]
+    runs[f"block b={BLOCK_B}"] = (case, F, dict(niter=niter))
     for impl, (case, f, kw) in runs.items():
         case.solve(f, **kw)
         torch.cuda.synchronize()
@@ -815,11 +1250,15 @@ def main() -> int:
         err.update(phase_v2_parity())
         launches, cases = phase_routes()
         err.update(phase_pcg_parity())
+        err.update(phase_interp_block_parity())
         pcg = phase_pcg_routes()
         launches.update(pcg["launches"])
+        routes = phase_pmg_block_routes()
+        launches.update(routes["launches"])
         rows, v2_solve_ms = phase_times(bw, cases)
         phase_pcg_times(pcg, v2_solve_ms)
-        phase_profile(cases, pcg)
+        phase_slice3_times(routes, v2_solve_ms)
+        phase_profile(cases, pcg, routes)
     except CheckFailed as exc:
         print(f"FAILED: {exc}", flush=True)
         return 1
@@ -839,6 +1278,15 @@ def main() -> int:
         "K11": ("nekbone_cheb_apply",
                 "src/repro_torch/kernels/csrc/nekbone_cheb_apply.cu",
                 "src/repro/kernels/nekbone_ax.py:1434", "cheb"),
+        "K12": ("nekbone_interp",
+                "src/repro_torch/kernels/csrc/nekbone_interp.cu",
+                "src/repro/kernels/nekbone_ax.py:1596", "pmg"),
+        "K6": ("nekbone_ax_slab_block",
+               "src/repro_torch/kernels/csrc/nekbone_ax_slab_block.cu",
+               "src/repro/kernels/nekbone_ax.py:741", "block"),
+        "K7": ("nekbone_cg_update_block",
+               "src/repro_torch/kernels/csrc/nekbone_cg_update_block.cu",
+               "src/repro/kernels/nekbone_ax.py:859", "block"),
     }
     kernels = []
     for key, (kname, source, replaces, route) in meta.items():
@@ -848,7 +1296,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches[route][kname],
             "max_abs_err": err[key], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None})
+            "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -27,9 +27,10 @@ class NekboneConfig:
     # dtype to ``dtype``.
     precision: str | None = None
     # preconditioner (core/precond.py): None (the paper's unpreconditioned
-    # protocol), "jacobi", or "cheb" of order ``cheb_k``.  The v2 pipeline
-    # runs the fused PCG drivers; every other ax_impl applies the plain
-    # preconditioner inside the reference CG loop.
+    # protocol), "jacobi", "cheb" of order ``cheb_k``, or "pmg" /
+    # "pmg[cheb<k>]" (the p-multigrid V-cycle, core/pmg.py).  The v2
+    # pipeline runs the fused PCG drivers; every other ax_impl applies the
+    # plain preconditioner inside the reference CG loop.
     precond: str | None = None
     cheb_k: int = 4
 

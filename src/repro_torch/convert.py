@@ -8,9 +8,10 @@ given arrays (for instance the reference package's case fields as numpy),
 so both packages can be fed identical operator data — including a random
 SPD metric (``geom.random_spd_metric``) in place of the box's.
 :func:`precond_from_reference` carries a preconditioner across the same
-way: the Jacobi diagonal as an array, the Chebyshev order and interval as
-numbers, so both packages can run one interval rather than two Lanczos
-estimates.
+way: the Jacobi diagonal as an array, the Chebyshev order and interval and
+the p-multigrid ladder, order, per-level intervals, base iterations and box
+lengths as numbers, so both packages can run one set of intervals rather
+than two Lanczos estimates.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.nekbone import NekboneCase
-from repro_torch.core.precond import ChebyshevPrecond, JacobiPrecond
+from repro_torch.core.precond import (ChebyshevPrecond, JacobiPrecond,
+                                      PMGPrecond)
 
 __all__ = ["FIELDS", "case_from_arrays", "precond_from_reference"]
 
@@ -50,13 +52,14 @@ def case_from_arrays(n: int, grid: tuple[int, int, int],
     return case
 
 
-def precond_from_reference(spec, *, dtype: torch.dtype,
-                           device) -> JacobiPrecond | ChebyshevPrecond:
+def precond_from_reference(spec, *, dtype: torch.dtype, device
+                           ) -> JacobiPrecond | ChebyshevPrecond | PMGPrecond:
     """The port's preconditioner spec for a reference spec, read as data.
 
     ``spec`` is any object with the reference spec's attributes: ``name``
-    ``"jacobi"`` with an array-like ``invdiag`` (E, n, n, n), or ``name``
-    ``"cheb"`` with ``k``, ``lmin`` and ``lmax``.
+    ``"jacobi"`` with an array-like ``invdiag`` (E, n, n, n); ``name``
+    ``"cheb"`` with ``k``, ``lmin`` and ``lmax``; or ``name`` ``"pmg"``
+    with ``ns``, ``k``, ``intervals``, ``coarse_iters`` and ``lengths``.
     """
     name = getattr(spec, "name", None)
     if name == "jacobi":
@@ -65,5 +68,11 @@ def precond_from_reference(spec, *, dtype: torch.dtype,
     if name == "cheb":
         return ChebyshevPrecond(k=int(spec.k), lmin=float(spec.lmin),
                                 lmax=float(spec.lmax))
+    if name == "pmg":
+        return PMGPrecond(
+            ns=tuple(int(n) for n in spec.ns), k=int(spec.k),
+            intervals=tuple((float(a), float(b)) for a, b in spec.intervals),
+            coarse_iters=int(spec.coarse_iters),
+            lengths=tuple(float(x) for x in spec.lengths))
     raise ValueError(f"cannot carry preconditioner {name!r} across; "
-                     "expected 'jacobi' or 'cheb'")
+                     "expected 'jacobi', 'cheb' or 'pmg'")

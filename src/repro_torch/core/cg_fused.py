@@ -114,33 +114,41 @@ def _run(body, state, rtz, r0, tol2: float | None, max_iter: int):
 
     Runs ``state, rtz, rnorm = body(state, rtz)`` while fewer than
     ``max_iter`` iterations have run and ``|rtz| > tol2`` — the reference's
-    ``while_loop`` condition, checked before each iteration.  With
-    ``tol2=None`` exactly ``max_iter`` iterations run and the host never
-    waits for the card; otherwise the host reads the condition before every
-    iteration.  Since the fixed and the tolerance-driven runs share this
-    loop and their bodies, the tolerance-driven history is bitwise a prefix
-    of the fixed one.
+    ``while_loop`` condition, checked before each iteration; for a batch
+    (``rtz`` of shape (b,), core/cg_block.py) while any lane is above it.
+    With ``tol2=None`` exactly ``max_iter`` iterations run and the host
+    never waits for the card; otherwise the host reads the condition before
+    every iteration.  Since the fixed and the tolerance-driven runs share
+    this loop and their bodies, the tolerance-driven history is bitwise a
+    prefix of the fixed one.
 
     Returns ``(state, k, hist)``: ``k`` iterations ran, and ``hist`` holds
-    ``r0`` and the ``k`` norms the body returned, NaN-padded to
-    ``max_iter + 1`` entries.
+    ``r0`` and the ``k`` norms the body returned along its last axis,
+    NaN-padded to ``max_iter + 1`` entries (shape ``(*r0.shape,
+    max_iter + 1)``).
     """
     norms = [r0]
     k = 0
-    while k < max_iter and (tol2 is None or bool(torch.abs(rtz) > tol2)):
+    while k < max_iter and (tol2 is None or _live(rtz, tol2)):
         state, rtz, rnorm = body(state, rtz)
         norms.append(rnorm)
         k += 1
-    hist = torch.full((max_iter + 1,), float("nan"), dtype=r0.dtype,
-                      device=r0.device)
-    hist[:k + 1] = torch.stack(norms)
+    hist = torch.full((*r0.shape, max_iter + 1), float("nan"),
+                      dtype=r0.dtype, device=r0.device)
+    hist[..., :k + 1] = torch.stack(norms, dim=-1)
     return state, k, hist
+
+
+def _live(rtz, tol2: float) -> bool:
+    """Host read of the stop rule: some ``|rtz|`` is above ``tol2``."""
+    above = torch.abs(rtz) > tol2
+    return bool(above.any() if above.ndim else above)
 
 
 def _result(x2, k: int, hist, shape) -> CGResult:
     return CGResult(x=x2.reshape(shape),
                     iters=torch.tensor(k, device=hist.device),
-                    rnorm=hist[k], rnorm_history=hist)
+                    rnorm=hist[..., k], rnorm_history=hist)
 
 
 def _cg_v2_tol(b, op, policy, tol2: float | None,

@@ -10,8 +10,8 @@ points per direction,
 Pure arithmetic, hardware-independent: a copy of the part of the
 reference's ``core/cost.py`` that the ported paths and ``chip_smoke.py``
 use to turn times into bytes per second, and the preconditioned v2 books
-(Jacobi, Chebyshev).  The s-step, pmg and multi-RHS books are not ported
-yet (ROADMAP.md).
+(Jacobi, Chebyshev), the p-multigrid books and the multi-RHS books of the
+v2 pipeline.  The s-step books are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,7 +24,10 @@ __all__ = ["flops_per_dof", "cg_iter_flops", "cg_iter_bytes", "intensity",
            "PRECISION_ITEMSIZE", "precision_itemsize",
            "JACOBI_V2_READ_STREAMS", "JACOBI_V2_WRITE_STREAMS",
            "CHEB_V2_READ_STREAMS", "CHEB_V2_WRITE_STREAMS", "CHEB_DEFAULT_K",
-           "cheb_apply_flops"]
+           "cheb_apply_flops", "PMG_DEFAULT_K", "PMG_COARSE_ITERS",
+           "PMG_SMOOTH_RATIO", "pmg_degrees", "pmg_dof_fracs",
+           "pmg_vcycle_streams", "pmg_streams", "pmg_flops_per_dof",
+           "MULTI_RHS_SHARED_STREAMS", "multi_rhs_streams"]
 
 # Eq. 2's stream counts: words moved per DOF per CG iteration when the
 # operator, mask, and every inner product run as separate passes.
@@ -168,3 +171,124 @@ def cheb_apply_flops(n: int, k: int = CHEB_DEFAULT_K) -> tuple[int, int]:
     (1): ``k (12n + 10)`` in all, ``12 n k`` of it in contractions.  The
     assembly's face sums are left out, so this is a lower bound."""
     return 12 * n * k, 10 * k
+
+
+# ---------------------------------------------------------------------------
+# p-multigrid (core/pmg.py, the pmg branch of core/precond.py): a degree
+# ladder n -> ceil(n/2) -> ... -> 2, each fine level smoothed twice (pre +
+# post) by the Chebyshev(k) apply, a fixed-iteration CG base solve at n=2.
+# The books count per V-cycle, scaled per level by the DOF fraction
+# phi_l = (n_l / n)^3: a level-l field is phi_l of one fine-grid stream.
+# The defaults are the reference's, tuned on the paper case (E=1024, n=10,
+# rtol 1e-8): k=3 at ratio 24 with 12 base iterations.
+# ---------------------------------------------------------------------------
+PMG_DEFAULT_K = 3
+PMG_COARSE_ITERS = 12
+PMG_SMOOTH_RATIO = 24.0
+
+# Stream table of one symmetric V-cycle per smoothed level, in units of one
+# *level-l* field (multiply by phi_l):
+#   pre-smooth (cheb kernel)      4R 1W   | prolong-add z+=m*e  3R 1W
+#   A z #1     (v2 slab kernel)   5R 2W   | A z #2 (slab)       5R 2W
+#   res1 = r - w                  2R 1W   | res2 = r - w        2R 1W
+#   c-weight   t = c * res        2R 1W   | post-smooth (cheb)  4R 1W
+#   restrict interp (fine side)   1R  -   | z += dz             2R 1W
+_PMG_LEVEL_READS = 30.0
+_PMG_LEVEL_WRITES = 12.0
+# ... and per coarse transition, in units of one *level-(l+1)* field: the
+# restrict interp's output write, the gather-scatter + mask pass (2R 1W)
+# and the prolong interp's input read.
+_PMG_COARSE_SIDE_READS = 3.0
+_PMG_COARSE_SIDE_WRITES = 2.0
+
+
+def pmg_degrees(n: int) -> tuple[int, ...]:
+    """The p-coarsening ladder ``n -> ceil(n/2) -> ... -> 2`` (degree
+    halving; GLL count n = degree + 1, so n=2 is the trilinear base)."""
+    if n < 2:
+        raise ValueError(f"need n >= 2 GLL points, got {n}")
+    ns = [int(n)]
+    while ns[-1] > 2:
+        ns.append((ns[-1] + 1) // 2)
+    return tuple(ns)
+
+
+def pmg_dof_fracs(n: int) -> tuple[float, ...]:
+    """Per-level DOF fractions ``phi_l = (n_l / n)^3`` of the ladder."""
+    return tuple((nl / float(n)) ** 3 for nl in pmg_degrees(n))
+
+
+def pmg_vcycle_streams(n: int = 10,
+                       coarse_iters: int = PMG_COARSE_ITERS
+                       ) -> tuple[float, float]:
+    """(reads, writes) full-*fine*-field streams of ONE symmetric V-cycle:
+    the level table over the smoothed levels, the transition table over the
+    level boundaries, and ``coarse_iters`` Eq.-2 CG iterations (24R + 6W)
+    at the base fraction."""
+    fr = pmg_dof_fracs(n)
+    reads = sum(_PMG_LEVEL_READS * f for f in fr[:-1])
+    reads += sum(_PMG_COARSE_SIDE_READS * f for f in fr[1:])
+    reads += CG_READ_STREAMS * coarse_iters * fr[-1]
+    writes = sum(_PMG_LEVEL_WRITES * f for f in fr[:-1])
+    writes += sum(_PMG_COARSE_SIDE_WRITES * f for f in fr[1:])
+    writes += CG_WRITE_STREAMS * coarse_iters * fr[-1]
+    return reads, writes
+
+
+def pmg_streams(n: int = 10, coarse_iters: int = PMG_COARSE_ITERS
+                ) -> tuple[float, float]:
+    """(reads, writes) streams per DOF per PCG iteration of pmg: the v2
+    iteration (9 + 4) plus one V-cycle."""
+    vr, vw = pmg_vcycle_streams(n, coarse_iters)
+    return FUSED_V2_READ_STREAMS + vr, FUSED_V2_WRITE_STREAMS + vw
+
+
+def pmg_flops_per_dof(n: int, k: int = PMG_DEFAULT_K,
+                      coarse_iters: int = PMG_COARSE_ITERS) -> float:
+    """Eq.-1 flops/DOF/iteration of pmg-PCG: the v2 iteration plus, per
+    smoothed level at its DOF fraction, two Chebyshev applies (k operator
+    applications + recurrence axpys each), two explicit operator
+    applications, the transfer contractions (3 directions x 2 n_c flops per
+    fine point, both directions) and ~8 glue axpys; plus the base-level CG
+    iterations."""
+    ns = pmg_degrees(n)
+    fr = pmg_dof_fracs(n)
+    total = float(flops_per_dof(n))
+    for lev, (nl, f) in enumerate(zip(ns[:-1], fr[:-1])):
+        level = 2.0 * k * (12 * nl + 17 + 6)      # pre+post smoother
+        level += 2.0 * (12 * nl + 17)             # the two A z residuals
+        level += 2.0 * 3.0 * 2.0 * ns[lev + 1]    # interp down + up
+        level += 8.0                              # residual/correction glue
+        total += f * level
+    total += fr[-1] * coarse_iters * flops_per_dof(ns[-1])
+    return total
+
+
+# ---------------------------------------------------------------------------
+# multi-RHS (block) books (core/cg_block.py): the operator streams are
+# shared by the b right-hand sides, the vector streams are per RHS.
+# ---------------------------------------------------------------------------
+
+# The 3 metric diagonals (rr, ss, tt): read once per element for all b.  D
+# and the per-axis factors are shared too, but sub-stream.
+MULTI_RHS_SHARED_STREAMS = 3.0
+
+
+def multi_rhs_streams(b: int, pipeline: str = "fused_v2"
+                      ) -> tuple[float, float]:
+    """(reads, writes) full-field streams per DOF per iteration *per RHS*
+    of a b-way block solve.
+
+    ``fused_v2``: of the 9 read streams, 3 are the shared metric diagonals
+    and 6 are per-RHS vectors; all 4 write streams are per RHS:
+    ``reads = 6 + 3/b``, ``writes = 4``.  The s-step books wait for the
+    s-step port (ROADMAP.md).
+    """
+    b = float(b)
+    if b < 1:
+        raise ValueError(f"RHS batch must be >= 1, got {b}")
+    if pipeline == "fused_v2":
+        reads = (FUSED_V2_READ_STREAMS - MULTI_RHS_SHARED_STREAMS
+                 + MULTI_RHS_SHARED_STREAMS / b)
+        return reads, float(FUSED_V2_WRITE_STREAMS)
+    raise ValueError(f"no multi-RHS books for pipeline {pipeline!r}")

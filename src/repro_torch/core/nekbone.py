@@ -13,9 +13,9 @@ the fused expression (both plain torch), and the CUDA kernel.
 
 Every field lives on ``device``.  ``device=None`` means the card
 (``"cuda"``); without a CUDA device the case raises unless the caller asks
-for ``device="cpu"``, as the tests do.  Jacobi and Chebyshev
-preconditioning are ported (core/precond.py); p-multigrid and sharding are
-not yet (ROADMAP.md).
+for ``device="cpu"``, as the tests do.  Jacobi, Chebyshev and p-multigrid
+preconditioning (core/precond.py, core/pmg.py) and multi-RHS block solves
+(core/cg_block.py) are ported; sharding is not yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -65,15 +65,16 @@ class NekboneCase:
       precision: 'f64' | 'f32' | 'bf16' | 'bf16_ir' | 'f32_ir' | None — the
                fused pipeline's precision policy.  Non-refined policies
                also set ``dtype`` to the storage dtype.
-      precond: None | 'jacobi' | 'cheb' (optionally 'cheb<k>') — the
-               case's default preconditioner (core/precond.py).  Solves
-               through 'pallas_fused_cg_v2' run the fused PCG drivers
-               (Jacobi: K4 + K10 per iteration; Chebyshev: K11 + K4 + K5);
-               every other ``ax_impl`` applies the plain preconditioner
-               inside the reference CG loop.  ``solve(precond=...)``
-               overrides it per call with the same names; the booleans of
-               the reference's old API raise ``TypeError``.  'pmg' is not
-               ported yet and raises ``NotImplementedError``.
+      precond: None | 'jacobi' | 'cheb' (optionally 'cheb<k>') | 'pmg'
+               (optionally 'pmg[cheb<k>]') — the case's default
+               preconditioner (core/precond.py).  Solves through
+               'pallas_fused_cg_v2' run the fused PCG drivers (Jacobi:
+               K4 + K10 per iteration; Chebyshev: K11 + K4 + K5; pmg: a
+               V-cycle over K11, K4, K5 and K12, then K4 + K5); every other
+               ``ax_impl`` applies the plain preconditioner inside the
+               reference CG loop.  ``solve(precond=...)`` overrides it per
+               call with the same names; the booleans of the reference's
+               old API raise ``TypeError``.
       cheb_k:  Chebyshev polynomial order for ``precond='cheb'``.
       device:  where the fields live; ``None`` is the card.
     """
@@ -177,9 +178,9 @@ class NekboneCase:
     def precond_spec(self, name: str | None = None):
         """The case's preconditioner spec (core/precond.py), cached.
 
-        The Jacobi diagonal and the Chebyshev Lanczos interval depend only
-        on the case's operator: one-time set-up costs per case, not per
-        solve.
+        The Jacobi diagonal, the Chebyshev Lanczos interval and the pmg
+        per-level intervals depend only on the case's operator: one-time
+        set-up costs per case, not per solve.
         """
         name = name or self.precond
         if name is None:
@@ -202,6 +203,12 @@ class NekboneCase:
         spec = self.precond_spec(name)
         if isinstance(spec, precond_mod.JacobiPrecond):
             return cg_mod.jacobi_preconditioner(self.operator_diagonal())
+        if isinstance(spec, precond_mod.PMGPrecond):
+            from repro_torch.core.pmg import pmg_vcycle_reference
+
+            return pmg_vcycle_reference(spec, D=self.D, g=self.g,
+                                        grid=self.grid, mask=self.mask,
+                                        c=self.c)
         return precond_mod.chebyshev_preconditioner(
             self.ax_full, spec.k, spec.lmin, spec.lmax)
 

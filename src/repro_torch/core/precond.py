@@ -15,6 +15,15 @@
   K4 and K5 then run the unmodified v2 iteration on z.  Per iteration K11
   + K4 + K5, and one more K11 at the start.  The interval comes from
   :func:`estimate_interval`, a weighted-Lanczos estimate run once per case.
+* **p-multigrid PCG** (:class:`repro_torch.core.pmg.PMGPrecond`): the
+  Chebyshev driver's loop with ``z = M r`` a symmetric V-cycle over the
+  degree ladder (``core/pmg.py``): per smoothed level a Chebyshev(k)
+  pre-smooth by K11 on that level's rediscretized operator, the residual
+  ``r - A z`` by K4 (beta = 0, z in the residual slot) and K5 (alpha = 1),
+  the restriction (c-multiply, K12 with ``mt = J``, ``ds_sum_local``, the
+  mask), the next level, the prolongation (K12 with ``mt = J^T``, the mask)
+  and correction, a second residual and a post-smooth; the n=2 base level
+  by :func:`repro_torch.core.pmg.coarse_solve_fixed`.
 * **Tolerance-driven solves** (:func:`cg_fused_tol`): the same bodies under
   ``core/cg_fused._run``, which stops before an iteration once
   ``|rtz| <= tol**2`` (``rtz = r·c·z``, or ``r·c·r`` unpreconditioned).
@@ -22,8 +31,7 @@
   run the same loop without reading it, so a tolerance-driven history is
   bitwise a prefix of the fixed one, NaN-padded to ``max_iter + 1``.
 
-p-multigrid (``precond="pmg…"``) is not ported yet: ROADMAP.md queue 1 item
-12.  The reference's TPU knobs (``sz``, ``cheb_sz``, ``layout``,
+The reference's TPU knobs (``sz``, ``cheb_sz``, ``layout``,
 ``grid_order``, ``interpret``, the autotune picks) have no counterpart.
 
 Preconditions are the v2 pipeline's (structured axis-aligned box,
@@ -39,14 +47,16 @@ import numpy as np
 import torch
 
 import repro_torch.core.gs as gs_mod
+import repro_torch.core.pmg as pmg_mod
 from repro_torch.core.ax import ax_local_fused
 from repro_torch.core.cg import SolveResult
 from repro_torch.core.cg_fused import _cg_v2_tol, _prepare, _result, _run
-from repro_torch.core.cost import CHEB_DEFAULT_K
+from repro_torch.core.cost import CHEB_DEFAULT_K, PMG_DEFAULT_K
 from repro_torch.core.geom import box_axis_factors, box_outer
+from repro_torch.core.pmg import PMGPrecond
 from repro_torch.kernels import nekbone_ax as _ax
 
-__all__ = ["CHEB_DEFAULT_K", "JacobiPrecond", "ChebyshevPrecond",
+__all__ = ["CHEB_DEFAULT_K", "JacobiPrecond", "ChebyshevPrecond", "PMGPrecond",
            "make_preconditioner", "operator_diagonal", "estimate_interval",
            "cheb_scalars", "chebyshev_preconditioner",
            "pcg_fused_v2_fixed_iters", "cg_fused_tol"]
@@ -279,9 +289,10 @@ def make_preconditioner(name: str, *, D: torch.Tensor, g: torch.Tensor,
 
     Args:
       name: ``"jacobi"``; ``"cheb"``/``"chebyshev"`` (optionally with a
-            trailing order, e.g. ``"cheb2"`` — overrides ``k``).  ``"pmg"``
-            and ``"pmg[cheb<k>]"`` name the p-multigrid V-cycle, which is
-            not ported yet and raises ``NotImplementedError``.
+            trailing order, e.g. ``"cheb2"`` — overrides ``k``); ``"pmg"``
+            or ``"pmg[cheb<k>]"``, the p-multigrid V-cycle with
+            Chebyshev(k) smoothers (default :data:`PMG_DEFAULT_K`; ``k``
+            does not reach it).
       D/g/grid: the operator's defining data, as the fused drivers take.
       mask/c: structural fields (rebuilt from the box factors if omitted).
       k: Chebyshev order (default :data:`CHEB_DEFAULT_K`).
@@ -302,9 +313,20 @@ def make_preconditioner(name: str, *, D: torch.Tensor, g: torch.Tensor,
         return JacobiPrecond(invdiag=1.0 / operator_diagonal(D, g, grid,
                                                              mask))
     if key.startswith("pmg"):
-        raise NotImplementedError(
-            f"precond={name!r}: the p-multigrid preconditioner is not ported "
-            "yet (ROADMAP.md queue 1 item 12)")
+        suffix = key.removeprefix("pmg")
+        kk = PMG_DEFAULT_K
+        if suffix:
+            inner = suffix.removeprefix("[cheb").removesuffix("]")
+            if (suffix == f"[cheb{inner}]" and inner.isdigit()
+                    and int(inner) >= 1):
+                kk = int(inner)
+            else:
+                raise ValueError(f"unknown preconditioner {name!r}; the "
+                                 "pmg spellings are 'pmg' and "
+                                 "'pmg[cheb<k>]'")
+        return pmg_mod.make_pmg_preconditioner(D=D, g=g, grid=grid,
+                                               mask=mask, c=c, k=kk,
+                                               lengths=lengths)
     if key.startswith("cheb"):
         suffix = key.removeprefix("chebyshev").removeprefix("cheb")
         if suffix:
@@ -365,26 +387,19 @@ def _pcg_jacobi(b, invd, op, policy, tol2: float | None, max_iter: int):
     return _result(x2, k, hist, b.shape)
 
 
-def _pcg_cheb(b, coef, kcheb: int, op, policy, tol2: float | None,
-              max_iter: int):
-    """Chebyshev PCG: K11, then the unmodified v2 pair K4 + K5.
+def _pcg_apply(b, apply_m, op, policy, tol2: float | None, max_iter: int):
+    """PCG with ``z, rtz = apply_m(r)`` and the unmodified v2 pair K4 + K5.
 
-    K11 evaluates ``z = q_k(A) r`` and the ``rtz = r·c·z`` partials at the
-    *end* of each iteration, on the freshly updated residual, so the
-    stopping rule sees the same rtz :func:`repro_torch.core.cg.cg` checks;
-    one more K11 at the start gives ``z0``.
+    ``apply_m`` (Chebyshev: K11; pmg: the V-cycle) runs at the *end* of
+    each iteration, on the freshly updated residual, so the stopping rule
+    sees the same ``rtz = r·c·z`` :func:`repro_torch.core.cg.cg` checks;
+    one more application at the start gives ``z0``.
     """
     acc = policy.accum_dtype
     b2 = b.reshape(b.shape[0], -1).contiguous()
     n = op["n"]
     c2 = box_outer(op["cz"], op["cy"], op["cx"]).reshape(b2.shape).to(acc)
     rcr0 = torch.sum(b2.to(acc) * c2 * b2.to(acc))
-
-    def cheb(r2):
-        z2, rtz_e = _ax.nekbone_cheb_apply_cuda(
-            r2, op["D"], op["g3"], op["mx"], op["my"], op["mz"], op["cx"],
-            op["cy"], op["cz"], coef, n=n, k=kcheb)
-        return z2, torch.sum(rtz_e)
 
     def body(state, rtz):
         x2, r2, z2, p2, rtz_prev = state
@@ -398,10 +413,10 @@ def _pcg_cheb(b, coef, kcheb: int, op, policy, tol2: float | None,
         x2, r2, rcr_e = _ax.nekbone_cg_update_cuda(
             x2, p2, r2, w2, alpha, op["cx"], op["cy"], op["cz"], n=n)
         rnorm = torch.sqrt(torch.abs(torch.sum(rcr_e)))
-        z2, rtz_new = cheb(r2)
+        z2, rtz_new = apply_m(r2)
         return (x2, r2, z2, p2, rtz), rtz_new, rnorm
 
-    z0, rtz0 = cheb(b2)
+    z0, rtz0 = apply_m(b2)
     state = (torch.zeros(b2.shape, dtype=policy.x_storage_dtype,
                          device=b2.device),
              b2, z0, torch.zeros_like(b2),
@@ -411,13 +426,116 @@ def _pcg_cheb(b, coef, kcheb: int, op, policy, tol2: float | None,
     return _result(x2, k, hist, b.shape)
 
 
+def _pcg_cheb(b, coef, kcheb: int, op, policy, tol2: float | None,
+              max_iter: int):
+    """Chebyshev PCG: K11, then the v2 pair K4 + K5."""
+    def cheb(r2):
+        z2, rtz_e = _ax.nekbone_cheb_apply_cuda(
+            r2, op["D"], op["g3"], op["mx"], op["my"], op["mz"], op["cx"],
+            op["cy"], op["cz"], coef, n=op["n"], k=kcheb)
+        return z2, torch.sum(rtz_e)
+
+    return _pcg_apply(b, cheb, op, policy, tol2, max_iter)
+
+
+def _pcg_pmg(b, spec: PMGPrecond, op, policy, tol2: float | None,
+             max_iter: int):
+    """p-multigrid PCG: the V-cycle over K11, K4, K5 and K12, then K4 + K5.
+
+    The recursion over the ladder ``spec.ns`` is a Python recursion; level
+    0 runs on the caller's operands ``op``, the others on the cached
+    :func:`repro_torch.core.pmg.level_operands`.  Per V-cycle, at each of
+    the ``L - 1`` smoothed levels: two K11 calls, two K12 calls (restrict,
+    prolong) and two residuals of K4 + K5 each.
+
+    The residual ``r - A z``: K4 writes the *unassembled* masked ``A z``
+    (beta = 0 and zeros in the direction slot make its stored p exactly z),
+    and K5 with alpha = 1 assembles it in ``ds_sum_local``'s tree and forms
+    ``r - 1 * w``, which equals ``r - w`` exactly; K5's x output (zeros + z)
+    is scratch.  So the residual needs no kernel beyond the two the
+    iteration already uses, and the reference's host-side plane stitching
+    has no counterpart.
+    """
+    acc = policy.accum_dtype
+    grid = (op["mx"].shape[0], op["my"].shape[0], op["mz"].shape[0])
+    E = b.shape[0]
+    ns = spec.ns
+    L = len(ns)
+    levels, coarse = pmg_mod.level_operands(
+        spec, grid, policy.op_storage_dtype, acc, str(b.device))
+    lops = [dict(levels[0], D=op["D"], g3=op["g3"],
+                 m=(op["mx"], op["my"], op["mz"]),
+                 c=(op["cx"], op["cy"], op["cz"]))]
+    lops += [dict(o) for o in levels[1:]]
+    dtype = b.dtype
+    for o in lops:
+        nl3 = o["n"] ** 3
+        o["mask2"] = box_outer(o["m"][2], o["m"][1], o["m"][0]) \
+            .reshape(E, nl3)
+        o["c2"] = box_outer(o["c"][2], o["c"][1], o["c"][0]) \
+            .reshape(E, nl3).to(acc)
+        o["zero"] = torch.zeros(E, nl3, dtype=dtype, device=b.device)
+    Dc, gc, maskc, cc = coarse
+    nc = ns[-1]
+    mask_c2 = maskc.reshape(E, nc ** 3)
+    beta0 = torch.zeros((), dtype=acc, device=b.device)
+    alpha1 = torch.ones((), dtype=acc, device=b.device)
+
+    def smooth(r2l, o):
+        z2l, _ = _ax.nekbone_cheb_apply_cuda(
+            r2l, o["D"], o["g3"], *o["m"], *o["c"], o["coef"], n=o["n"],
+            k=spec.k)
+        return z2l
+
+    def residual(r2l, z2l, o):
+        p2, w2, _ = _ax.nekbone_ax_slab_cuda(o["zero"], z2l, o["D"], o["g3"],
+                                             *o["m"], beta0, n=o["n"])
+        _, res, _ = _ax.nekbone_cg_update_cuda(o["zero"], p2, r2l, w2,
+                                               alpha1, *o["c"], n=o["n"])
+        return res
+
+    def restrict(res2, lev):
+        o = lops[lev]
+        ncl = ns[lev + 1]
+        t2 = (res2.to(acc) * o["c2"]).to(dtype)
+        rc2 = _ax.nekbone_interp_cuda(t2, o["J"], nin=o["n"], nout=ncl)
+        rc2 = gs_mod.ds_sum_local(rc2.reshape(E, ncl, ncl, ncl),
+                                  grid).reshape(E, ncl ** 3)
+        mask = lops[lev + 1]["mask2"] if lev + 1 < L - 1 else mask_c2
+        return rc2 * mask.to(dtype)
+
+    def vcycle_level(r2l, lev):
+        if lev == L - 1:
+            e4 = pmg_mod.coarse_solve_fixed(
+                r2l.reshape(E, nc, nc, nc).to(acc), Dc, gc, grid, maskc, cc,
+                iters=spec.coarse_iters)
+            return e4.reshape(E, nc ** 3).to(dtype)
+        o = lops[lev]
+        z2l = smooth(r2l, o)
+        ec = vcycle_level(restrict(residual(r2l, z2l, o), lev), lev + 1)
+        dz = _ax.nekbone_interp_cuda(ec, o["Jt"], nin=ns[lev + 1],
+                                     nout=o["n"])
+        z2l = (z2l.to(acc) + dz.to(acc) * o["mask2"].to(acc)).to(dtype)
+        res = residual(r2l, z2l, o)
+        return (z2l.to(acc) + smooth(res, o).to(acc)).to(dtype)
+
+    c2 = lops[0]["c2"]
+
+    def vcycle(r2):
+        z2 = vcycle_level(r2, 0)
+        return z2, torch.sum(r2.to(acc) * c2 * z2.to(acc))
+
+    return _pcg_apply(b, vcycle, op, policy, tol2, max_iter)
+
+
 # ---------------------------------------------------------------------------
 # public drivers
 # ---------------------------------------------------------------------------
 
 def _resolve_precond(precond, *, D, g, grid, mask, c):
     if precond is None or isinstance(precond, (JacobiPrecond,
-                                               ChebyshevPrecond)):
+                                               ChebyshevPrecond,
+                                               PMGPrecond)):
         return precond
     return make_preconditioner(str(precond), D=D, g=g, grid=grid, mask=mask,
                                c=c)
@@ -434,6 +552,8 @@ def _dispatch(b, precond, tol2: float | None, max_iter: int, *, policy, op):
         coef = torch.as_tensor(precond.scalars(), dtype=policy.accum_dtype,
                                device=b.device)
         return _pcg_cheb(b, coef, precond.k, op, policy, tol2, max_iter)
+    if isinstance(precond, PMGPrecond):
+        return _pcg_pmg(b, precond, op, policy, tol2, max_iter)
     raise TypeError(f"unsupported preconditioner {precond!r}")
 
 

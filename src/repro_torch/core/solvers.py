@@ -8,20 +8,24 @@ dispatches through here.
 Routes ported so far (every route returns :class:`SolveResult`):
 
 =================  ======================================================
+``block``          multi-RHS batched v2 over K6 + K7 (core/cg_block.py):
+                   b > 1, unpreconditioned, fixed or tolerance-driven
+``block_loop``     b > 1 with a preconditioner or another pipeline: each
+                   RHS through this table, the results stacked
 ``v2``             fused v2 fixed-iters: unpreconditioned over K4 + K5
                    (core/cg_fused.py); Jacobi over K4 + K10, Chebyshev
-                   over K11 + K4 + K5 (core/precond.py)
+                   over K11 + K4 + K5, pmg over K11, K12, K4 and K5
+                   (core/precond.py)
 ``v2_tol``         the same bodies, tolerance-driven
                    (``precond.cg_fused_tol``)
 ``reference``      reference CG (cg / cg_fixed_iters) over
                    ``NekboneCase.ax_full``, K1 when ``ax_impl='pallas'``,
-                   with the plain Jacobi or Chebyshev preconditioner
+                   with the plain Jacobi, Chebyshev or pmg preconditioner
 =================  ======================================================
 
-The other routes of the reference (``block``, ``block_loop``, ``ir``,
-``sstep``, ``v1``) raise ``NotImplementedError`` naming their ROADMAP.md
-item, and so does ``precond='pmg'`` (from ``make_preconditioner``);
-nothing is re-routed.
+The other routes of the reference (``ir``, ``sstep``, ``v1``) raise
+``NotImplementedError`` naming their ROADMAP.md item; nothing is
+re-routed.
 """
 from __future__ import annotations
 
@@ -38,6 +42,34 @@ __all__ = ["REGISTRY", "NOT_PORTED", "route_name", "solve_case", "solve"]
 
 # one-time flag for the documented b>1 s-step fallback warning below.
 _SSTEP_BLOCK_WARNED = False
+
+
+def _drive_block(case, f, *, b, niter, tol, max_iter, pc_name):
+    from repro_torch.core.cg_block import cg_block_fixed_iters, cg_block_tol
+
+    if niter is not None:
+        return cg_block_fixed_iters(
+            f, D=case.D, g=case.g, grid=case.grid, niter=niter,
+            mask=case.mask, c=case.c, precision=case.precision)
+    return cg_block_tol(
+        f, D=case.D, g=case.g, grid=case.grid, tol=tol, max_iter=max_iter,
+        mask=case.mask, c=case.c, precision=case.precision)
+
+
+def _drive_block_loop(case, f, *, b, niter, tol, max_iter, pc_name):
+    """Batched requests outside the block kernels' coverage (preconditioned,
+    refined, or another pipeline): each RHS routes through the registry on
+    its own and the results stack."""
+    parts = [_solve_resolved(case, f[j], b=1, niter=niter, tol=tol,
+                             max_iter=max_iter, pc_name=pc_name)
+             for j in range(f.shape[0])]
+    return SolveResult(
+        x=torch.stack([p.x for p in parts]),
+        history=torch.stack([p.history for p in parts]),
+        iters_taken=torch.stack([p.iters_taken for p in parts]),
+        achieved_rtol=torch.stack([p.achieved_rtol for p in parts]),
+        rnorm=torch.stack([p.rnorm for p in parts]),
+        pipeline=parts[0].pipeline, precond=parts[0].precond)
 
 
 def _drive_v2(case, f, *, b, niter, tol, max_iter, pc_name):
@@ -64,6 +96,8 @@ def _drive_reference(case, f, *, b, niter, tol, max_iter, pc_name):
 
 
 REGISTRY: dict[str, Callable] = {
+    "block": _drive_block,
+    "block_loop": _drive_block_loop,
     "v2": _drive_v2,
     "v2_tol": _drive_v2_tol,
     "reference": _drive_reference,
@@ -72,8 +106,6 @@ REGISTRY: dict[str, Callable] = {
 # Routes of the reference that are still to port, and where ROADMAP.md
 # lists them.
 NOT_PORTED: dict[str, str] = {
-    "block": "queue 1 item 11 (multi-RHS block CG)",
-    "block_loop": "queue 1 item 11 (multi-RHS block CG)",
     "ir": "queue 1 item 9 (iterative refinement)",
     "sstep": "queue 1 item 10 (s-step CG)",
     "v1": "queue 1 item 5 (v1 fused CG)",
@@ -134,9 +166,11 @@ def solve_case(case, f: torch.Tensor, *, b: int | None = None,
     """Route one solve request through the registry.
 
     ``b`` is the RHS batch: ``None`` infers it from ``f``'s shape (a
-    leading axis ahead of (E, n, n, n) is a batch).  ``precond`` takes the
-    registry names (resolved by :meth:`NekboneCase._precond_name`; booleans
-    raise ``TypeError`` there).  Only single-RHS requests are ported.
+    leading axis ahead of (E, n, n, n) is a batch), 1 forces a single-RHS
+    solve, > 1 needs ``f`` of shape (b, E, n, n, n); a batched request
+    returns a batched :class:`SolveResult`.  ``precond`` takes the registry
+    names (resolved by :meth:`NekboneCase._precond_name`; booleans raise
+    ``TypeError`` there).
     """
     pc_name = case._precond_name(precond)
     batched = f.ndim == 5
@@ -148,13 +182,8 @@ def solve_case(case, f: torch.Tensor, *, b: int | None = None,
         raise ValueError(f"b={b} needs a (b, E, n, n, n) rhs; "
                          f"got {tuple(f.shape)}")
     f_in = f[0] if (batched and b == 1) else f
-    name = route_name(case, b=b, niter=niter, pc_name=pc_name)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"route {name!r} is not ported yet (ROADMAP.md "
-            f"{NOT_PORTED[name]})")
-    res = REGISTRY[name](case, f_in, b=b, niter=niter, tol=tol,
-                         max_iter=max_iter, pc_name=pc_name)
+    res = _solve_resolved(case, f_in, b=b, niter=niter, tol=tol,
+                          max_iter=max_iter, pc_name=pc_name)
     # a batched rhs always comes back batched, even at b=1.
     if batched and res.x.ndim == 4:
         res = SolveResult(x=res.x[None], history=res.history[None],
@@ -163,6 +192,16 @@ def solve_case(case, f: torch.Tensor, *, b: int | None = None,
                           rnorm=res.rnorm[None], pipeline=res.pipeline,
                           precond=res.precond)
     return res
+
+
+def _solve_resolved(case, f, *, b, niter, tol, max_iter, pc_name):
+    name = route_name(case, b=b, niter=niter, pc_name=pc_name)
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"route {name!r} is not ported yet (ROADMAP.md "
+            f"{NOT_PORTED[name]})")
+    return REGISTRY[name](case, f, b=b, niter=niter, tol=tol,
+                          max_iter=max_iter, pc_name=pc_name)
 
 
 def solve(case_or_config, f: torch.Tensor | None = None, *,
@@ -175,11 +214,13 @@ def solve(case_or_config, f: torch.Tensor | None = None, *,
       case_or_config: a :class:`repro_torch.core.nekbone.NekboneCase`, a
           :class:`repro_torch.configs.nekbone.NekboneConfig`, or an int — a
           paper-grid element count (``PAPER_CASES`` key).
-      f: right-hand side, (E, n, n, n).  ``None`` solves the case's
-          manufactured problem.
+      f: right-hand side(s), (E, n, n, n) or (b, E, n, n, n).  ``None``
+          solves the case's manufactured problem (replicated to ``b``).
+      b: RHS batch; default: inferred from ``f``.
       niter: fixed iteration count; ``None`` = tolerance-driven.
       tol: stopping tolerance for the tol-driven mode (default 1e-8).
-      precond: ``None`` (the case's own), ``"jacobi"`` or ``"cheb[<k>]"``.
+      precond: ``None`` (the case's own), ``"jacobi"``, ``"cheb[<k>]"``,
+          ``"pmg"`` or ``"pmg[cheb<k>]"``.
       device: where a case built here lives (``None``: the card); a case
           passed in keeps its own.
 
@@ -194,6 +235,8 @@ def solve(case_or_config, f: torch.Tensor | None = None, *,
         case = case.make_case(device=device)
     if f is None:
         _, f = case.manufactured()
+        if b is not None and b > 1:
+            f = torch.stack([f] * b)
     return solve_case(case, f, b=b, niter=niter,
                       tol=1e-8 if tol is None else tol,
                       max_iter=max_iter, precond=precond)

@@ -33,7 +33,8 @@ __all__ = ["CSRC", "SOURCES", "DTYPES", "NVCC_FLAGS", "build_dir", "nvcc_path",
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 SOURCES = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
-           "nekbone_pcg_update", "nekbone_cheb_apply")
+           "nekbone_pcg_update", "nekbone_cheb_apply", "nekbone_interp",
+           "nekbone_ax_slab_block", "nekbone_cg_update_block")
 DTYPES = ("f64", "f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,5 +1,6 @@
 // Shared helpers of the Nekbone kernels (nekbone_ax.cu, nekbone_ax_slab.cu,
-// nekbone_cg_update.cu, nekbone_pcg_update.cu, nekbone_cheb_apply.cu).
+// nekbone_cg_update.cu, nekbone_pcg_update.cu, nekbone_cheb_apply.cu,
+// nekbone_ax_slab_block.cu, nekbone_cg_update_block.cu).
 //
 // * Rounded arithmetic without contraction.  The CG vector updates
 //   (p = r + beta p, x += alpha p, r -= alpha w, the Chebyshev recurrence)
@@ -9,9 +10,9 @@
 //   do).  The tensor contractions are free to use FMA.
 // * A deterministic block sum: a fixed shared-memory tree, so partial inner
 //   products are the same from run to run (no atomics).
-// * The local diagonal-metric operator of one element (K4, K11) and the
+// * The local diagonal-metric operator of one element (K4, K6, K11) and the
 //   node-by-node direct-stiffness sum of an unassembled field in
-//   core/gs.ds_sum_local's tree (K5, K10, K11).
+//   core/gs.ds_sum_local's tree (K5, K7, K10, K11).
 // * Dispatch of the run-time n (2..16) to the template instantiations.
 #pragma once
 
@@ -75,17 +76,14 @@ __device__ __forceinline__ void load_D(AxShared<N, T>& sh,
 
 // w = D^T diag(grr, gss, gtt) D u for one element: thread (i, j) holds the
 // column uc[k] = u[k][j][i] and receives wc[k] = w[k][j][i] (unassembled,
-// unmasked).  ge points at the element's metric diagonal (3, n^3) plus the
-// thread's offset j * n + i.  The layer loop marches k: the r- and
-// s-contractions go through the shared layer, the t-contraction reads the
-// thread's own column, and the t-part of D^T scatters into all of wc.
-template <int N, typename T>
-__device__ __forceinline__ void ax_diag_columns(AxShared<N, T>& sh,
-                                                const T* __restrict__ ge,
-                                                const T (&uc)[N], T (&wc)[N],
-                                                int i, int j) {
-  constexpr int N2 = N * N;
-  constexpr int N3 = N * N * N;
+// unmasked).  g(c, k) returns metric diagonal c (rr, ss, tt) at the thread's
+// node of layer k.  The layer loop marches k: the r- and s-contractions go
+// through the shared layer, the t-contraction reads the thread's own
+// column, and the t-part of D^T scatters into all of wc.
+template <int N, typename T, typename Metric>
+__device__ __forceinline__ void ax_diag_columns_g(AxShared<N, T>& sh,
+                                                  Metric g, const T (&uc)[N],
+                                                  T (&wc)[N], int i, int j) {
 #pragma unroll
   for (int k = 0; k < N; ++k) wc[k] = T(0);
 #pragma unroll
@@ -99,9 +97,9 @@ __device__ __forceinline__ void ax_diag_columns(AxShared<N, T>& sh,
       ws += sh.D[j][l] * sh.u[l][i];
       wt += sh.D[k][l] * uc[l];
     }
-    const T ur = ge[0 * N3 + k * N2] * wr;
-    const T us = ge[1 * N3 + k * N2] * ws;
-    const T ut = ge[2 * N3 + k * N2] * wt;
+    const T ur = g(0, k) * wr;
+    const T us = g(1, k) * ws;
+    const T ut = g(2, k) * wt;
     sh.r[j][i] = ur;
     sh.s[j][i] = us;
     __syncthreads();
@@ -115,6 +113,18 @@ __device__ __forceinline__ void ax_diag_columns(AxShared<N, T>& sh,
 #pragma unroll
     for (int m = 0; m < N; ++m) wc[m] += sh.D[k][m] * ut;
   }
+}
+
+// The same with the metric read from device memory: ge points at the
+// element's metric diagonal (3, n^3) plus the thread's offset j * n + i.
+template <int N, typename T>
+__device__ __forceinline__ void ax_diag_columns(AxShared<N, T>& sh,
+                                                const T* __restrict__ ge,
+                                                const T (&uc)[N], T (&wc)[N],
+                                                int i, int j) {
+  ax_diag_columns_g(
+      sh, [ge](int c, int k) { return ge[c * (N * N * N) + k * (N * N)]; },
+      uc, wc, i, j);
 }
 
 // ---------------------------------------------------------------------------

@@ -10,9 +10,17 @@
   replaces ``nekbone_pcg_update_kernel``;
 * ``nekbone_cheb_apply_cuda`` — K11, ``csrc/nekbone_cheb_apply.cu``,
   replaces ``nekbone_cheb_apply_kernel`` (one call queues k + 1 device
-  launches and counts once).
+  launches and counts once);
+* ``nekbone_interp_cuda`` — K12, ``csrc/nekbone_interp.cu``, replaces
+  ``nekbone_interp_kernel`` (the p-multigrid transfers);
+* ``nekbone_ax_slab_block_cuda`` — K6, ``csrc/nekbone_ax_slab_block.cu``,
+  replaces ``nekbone_ax_slab_block_kernel`` (K4 over b right-hand sides);
+* ``nekbone_cg_update_block_cuda`` — K7,
+  ``csrc/nekbone_cg_update_block.cu``, replaces
+  ``nekbone_cg_update_block_kernel`` (K5 over b right-hand sides).
 
-Every wrapper takes the kernel's flat operands ((E, n^3) fields), and:
+Every wrapper takes the kernel's flat operands ((E, n^3) fields, or
+(b, E, n^3) for K6 and K7), and:
 
 * for tensors on the CPU, returns its plain PyTorch version
   (kernels/ref.py) — the tests' path;
@@ -31,9 +39,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (nekbone_ax_plain, nekbone_ax_slab_plain,
+from repro_torch.kernels.ref import (nekbone_ax_plain,
+                                     nekbone_ax_slab_block_plain,
+                                     nekbone_ax_slab_plain,
+                                     nekbone_cg_update_block_plain,
                                      nekbone_cg_update_plain,
                                      nekbone_cheb_apply_plain,
+                                     nekbone_interp_plain,
                                      nekbone_pcg_update_plain)
 
 __all__ = ["LAUNCHES", "reset_launches", "nekbone_ax_cuda",
@@ -41,14 +53,24 @@ __all__ = ["LAUNCHES", "reset_launches", "nekbone_ax_cuda",
            "nekbone_pcg_update_cuda", "nekbone_cheb_apply_cuda",
            "nekbone_ax_plain", "nekbone_ax_slab_plain",
            "nekbone_cg_update_plain", "nekbone_pcg_update_plain",
-           "nekbone_cheb_apply_plain", "N_RANGE"]
+           "nekbone_cheb_apply_plain", "nekbone_interp_cuda",
+           "nekbone_interp_plain", "nekbone_ax_slab_block_cuda",
+           "nekbone_ax_slab_block_plain", "nekbone_cg_update_block_cuda",
+           "nekbone_cg_update_block_plain", "N_RANGE", "INTERP_PAIRS"]
 
 # Kernel launches per wrapper since the last reset_launches(); plain ints.
 LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
-            "nekbone_pcg_update": 0, "nekbone_cheb_apply": 0}
+            "nekbone_pcg_update": 0, "nekbone_cheb_apply": 0,
+            "nekbone_interp": 0, "nekbone_ax_slab_block": 0,
+            "nekbone_cg_update_block": 0}
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
+# The (nin, nout) pairs K12 is instantiated for: the steps of the
+# p-multigrid ladder n -> ceil(n/2) and back, for n = 3..16.
+INTERP_PAIRS = frozenset(
+    pair for nf in range(3, 17) for pair in ((nf, (nf + 1) // 2),
+                                             ((nf + 1) // 2, nf)))
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -59,6 +81,9 @@ _ARGTYPES = {
     "nekbone_cg_update": [_P] * 11 + [_I] * 4 + [_P],
     "nekbone_pcg_update": [_P] * 13 + [_I] * 4 + [_P],
     "nekbone_cheb_apply": [_P] * 16 + [_I] * 5 + [_P],
+    "nekbone_interp": [_P] * 3 + [_I] * 3 + [_P],
+    "nekbone_ax_slab_block": [_P] * 11 + [_I] * 5 + [_P],
+    "nekbone_cg_update_block": [_P] * 11 + [_I] * 5 + [_P],
 }
 
 
@@ -230,3 +255,83 @@ def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
             (r2, D, g3, mx, my, mz, cx, cy, cz, coef, z, *scratch, rtz),
             (ex, ey, ez, n, k))
     return z, rtz
+
+
+def nekbone_interp_cuda(u2, mt, *, nin: int, nout: int):
+    """K12: tensor-product GLL-to-GLL interpolation, along i, then j, then k.
+
+    ``u2``: (E, nin^3); ``mt``: (nin, nout), rows indexed by the input grid
+    (``J`` restricts, ``J^T`` prolongs).  Returns (E, nout^3).  The pair
+    must be a step of the p-multigrid ladder (:data:`INTERP_PAIRS`).
+    """
+    if u2.device.type == "cpu":
+        return nekbone_interp_plain(u2, mt, nin=nin, nout=nout)
+    if (nin, nout) not in INTERP_PAIRS:
+        raise ValueError(f"nekbone_interp: ({nin}, {nout}) is not a step "
+                         "n -> ceil(n/2) or back of the p-multigrid ladder, "
+                         "n = 3..16")
+    E = u2.shape[0]
+    _check("nekbone_interp", nin, u2.dtype, u2.device,
+           u2=(u2, (E, nin ** 3)), mt=(mt, (nin, nout)))
+    v2 = torch.empty(E, nout ** 3, dtype=u2.dtype, device=u2.device)
+    _launch("nekbone_interp", u2.dtype, u2.device, (u2, mt, v2),
+            (E, nin, nout))
+    return v2
+
+
+def nekbone_ax_slab_block_cuda(p3, r3, D, g3, mx, my, mz, beta, *, n: int):
+    """K6: K4 over b right-hand sides, the operator data read once.
+
+    Operands as :func:`repro_torch.kernels.ref.nekbone_ax_slab_block_plain`:
+    ``p3``, ``r3``: (b, E, n^3); ``beta``: (b,).  Returns ``(p3, w3, pap)``
+    with ``w3`` unassembled and ``pap`` of shape (b, E); each lane is
+    bitwise K4's on that lane.
+    """
+    if p3.device.type == "cpu":
+        return nekbone_ax_slab_block_plain(p3, r3, D, g3, mx, my, mz, beta,
+                                           n=n)
+    ex, ey, ez = mx.shape[0], my.shape[0], mz.shape[0]
+    E = ex * ey * ez
+    n3 = n ** 3
+    b = p3.shape[0]
+    _check("nekbone_ax_slab_block", n, p3.dtype, p3.device,
+           p3=(p3, (b, E, n3)), r3=(r3, (b, E, n3)), D=(D, (n, n)),
+           g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)), my=(my, (ey, n)),
+           mz=(mz, (ez, n)), beta=(beta, (b,)))
+    p_out = torch.empty_like(p3)
+    w3 = torch.empty_like(p3)
+    pap = torch.empty(b, E, dtype=p3.dtype, device=p3.device)
+    _launch("nekbone_ax_slab_block", p3.dtype, p3.device,
+            (p3, r3, D, g3, mx, my, mz, beta, p_out, w3, pap),
+            (ex, ey, ez, n, b))
+    return p_out, w3, pap
+
+
+def nekbone_cg_update_block_cuda(x3, p3, r3, w3, alpha, cx, cy, cz, *,
+                                 n: int):
+    """K7: K5 over b right-hand sides, ``c`` rebuilt once per element.
+
+    Operands as
+    :func:`repro_torch.kernels.ref.nekbone_cg_update_block_plain`: ``x3``,
+    ``p3``, ``r3``, ``w3``: (b, E, n^3); ``alpha``: (b,).  Returns
+    ``(x3, r3, rcr)`` with ``rcr`` of shape (b, E); each lane is bitwise
+    K5's on that lane.
+    """
+    if x3.device.type == "cpu":
+        return nekbone_cg_update_block_plain(x3, p3, r3, w3, alpha, cx, cy,
+                                             cz, n=n)
+    ex, ey, ez = cx.shape[0], cy.shape[0], cz.shape[0]
+    E = ex * ey * ez
+    n3 = n ** 3
+    b = x3.shape[0]
+    _check("nekbone_cg_update_block", n, x3.dtype, x3.device,
+           x3=(x3, (b, E, n3)), p3=(p3, (b, E, n3)), r3=(r3, (b, E, n3)),
+           w3=(w3, (b, E, n3)), alpha=(alpha, (b,)), cx=(cx, (ex, n)),
+           cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    x_out = torch.empty_like(x3)
+    r_out = torch.empty_like(r3)
+    rcr = torch.empty(b, E, dtype=x3.dtype, device=x3.device)
+    _launch("nekbone_cg_update_block", x3.dtype, x3.device,
+            (x3, p3, r3, w3, alpha, cx, cy, cz, x_out, r_out, rcr),
+            (ex, ey, ez, n, b))
+    return x_out, r_out, rcr

@@ -15,7 +15,7 @@ from repro_torch.kernels import nekbone_ax as _ax
 from repro_torch.kernels.ref import accum_dtype
 
 __all__ = ["nekbone_ax", "slab_axis_factors", "diag_metric",
-           "nekbone_pcg_update", "nekbone_cheb_precond"]
+           "nekbone_pcg_update", "nekbone_cheb_precond", "nekbone_interp"]
 
 
 def nekbone_ax(u: torch.Tensor, D: torch.Tensor,
@@ -131,3 +131,32 @@ def nekbone_cheb_precond(r: torch.Tensor, D: torch.Tensor, g3: torch.Tensor,
         r.reshape(E, n ** 3).contiguous(), D, g3, mx, my, mz, cx, cy, cz,
         coef, n=n, k=k)
     return z2.reshape(r.shape), torch.sum(rtz_e)
+
+
+def nekbone_interp(u: torch.Tensor, M, grid: tuple[int, int, int]
+                   ) -> torch.Tensor:
+    """Tensor-product GLL-to-GLL interpolation (K12) on natural shapes.
+
+    Applies ``M`` — (n_out, n_in), e.g.
+    :func:`repro_torch.core.pmg.gll_interp_matrix` — along each local
+    direction of ``u`` (E, n_in, n_in, n_in), elements z-major over
+    ``grid``: the p-multigrid transfer.  ``M`` built fine-from-coarse
+    prolongs; its transpose is the restriction core.  Element-local, so
+    ``grid`` only fixes E.
+
+    Returns (E, n_out, n_out, n_out) in ``u``'s dtype.
+    """
+    E = u.shape[0]
+    nin = u.shape[-1]
+    ex, ey, ez = grid
+    if E != ex * ey * ez:
+        raise ValueError(f"u has {E} elements, grid {tuple(grid)} has "
+                         f"{ex * ey * ez}")
+    M = torch.as_tensor(M, dtype=u.dtype, device=u.device)
+    nout = M.shape[0]
+    if tuple(M.shape) != (nout, nin):
+        raise ValueError(f"M has shape {tuple(M.shape)}, expected "
+                         f"({nout}, {nin})")
+    v2 = _ax.nekbone_interp_cuda(u.reshape(E, nin ** 3).contiguous(),
+                                 M.T.contiguous(), nin=nin, nout=nout)
+    return v2.reshape(E, nout, nout, nout)

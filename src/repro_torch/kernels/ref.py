@@ -18,7 +18,9 @@ from repro_torch.core.gs import ds_sum_local
 
 __all__ = ["accum_dtype", "nekbone_ax_ref", "nekbone_ax_plain",
            "nekbone_ax_slab_plain", "nekbone_cg_update_plain",
-           "nekbone_pcg_update_plain", "nekbone_cheb_apply_plain"]
+           "nekbone_pcg_update_plain", "nekbone_cheb_apply_plain",
+           "nekbone_interp_plain", "nekbone_ax_slab_block_plain",
+           "nekbone_cg_update_block_plain"]
 
 
 def accum_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -169,3 +171,55 @@ def nekbone_cheb_apply_plain(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
     c = box_outer(cz.to(acc), cy.to(acc), cx.to(acc)).reshape(E, n ** 3)
     rtz = (r.reshape(E, n ** 3) * c * z.to(acc)).sum(dim=1)
     return z, rtz
+
+
+def nekbone_interp_plain(u2, mt, *, nin: int, nout: int):
+    """K12: tensor-product GLL-to-GLL interpolation of every element.
+
+    ``u2``: (E, nin^3) in [e, k, j, i] order; ``mt``: (nin, nout), rows
+    indexed by the input grid (``J`` restricts, ``J^T`` prolongs).  The
+    three contractions run along i, then j, then k, each a sum over the
+    input index in ascending order of separately rounded products, as the
+    kernel computes them.  Returns (E, nout^3).
+    """
+    acc = accum_dtype(u2.dtype)
+    E = u2.shape[0]
+    m = mt.to(acc)
+    u = u2.to(acc).reshape(E, nin, nin, nin)
+    v1 = torch.zeros(E, nin, nin, nout, dtype=acc, device=u2.device)
+    for l in range(nin):                                   # along i
+        v1 = v1 + u[..., l, None] * m[l]
+    v2 = torch.zeros(E, nin, nout, nout, dtype=acc, device=u2.device)
+    for l in range(nin):                                   # along j
+        v2 = v2 + v1[:, :, l, None, :] * m[l, :, None]
+    v3 = torch.zeros(E, nout, nout, nout, dtype=acc, device=u2.device)
+    for l in range(nin):                                   # along k
+        v3 = v3 + v2[:, l, None] * m[l, :, None, None]
+    return v3.reshape(E, nout ** 3).to(u2.dtype)
+
+
+def nekbone_ax_slab_block_plain(p3, r3, D, g3, mx, my, mz, beta, *, n: int):
+    """K6: K4 over b right-hand sides.
+
+    ``p3``, ``r3``: (b, E, n^3); ``beta``: (b,); the operator operands are
+    K4's and shared.  Each lane is :func:`nekbone_ax_slab_plain` on that
+    lane.  Returns ``(p3, w3, pap)`` with ``pap`` of shape (b, E).
+    """
+    lanes = [nekbone_ax_slab_plain(p3[j], r3[j], D, g3, mx, my, mz, beta[j],
+                                   n=n) for j in range(p3.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*lanes))
+
+
+def nekbone_cg_update_block_plain(x3, p3, r3, w3, alpha, cx, cy, cz, *,
+                                  n: int):
+    """K7: K5 over b right-hand sides.
+
+    ``x3``, ``p3``, ``r3``, ``w3``: (b, E, n^3); ``alpha``: (b,); the
+    factors are K5's and shared.  Each lane is
+    :func:`nekbone_cg_update_plain` on that lane.  Returns ``(x3, r3, rcr)``
+    with ``rcr`` of shape (b, E).
+    """
+    lanes = [nekbone_cg_update_plain(x3[j], p3[j], r3[j], w3[j], alpha[j],
+                                     cx, cy, cz, n=n)
+             for j in range(x3.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*lanes))

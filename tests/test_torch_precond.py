@@ -111,8 +111,8 @@ def test_make_preconditioner_names():
                                         **kw).k == torch_pc.CHEB_DEFAULT_K
     with pytest.raises(ValueError, match="unknown preconditioner"):
         torch_pc.make_preconditioner("ilu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_pc.make_preconditioner("pmg[cheb2]", **kw)
+    pmg = torch_pc.make_preconditioner("pmg[cheb2]", **kw)
+    assert isinstance(pmg, torch_pc.PMGPrecond) and pmg.k == 2
 
 
 # ---------------------------------------------------------------------------
@@ -287,11 +287,22 @@ def test_precond_booleans_raise():
 
 
 @pytest.mark.parametrize("ax_impl", ["pallas_fused_cg_v2", "pallas"])
-def test_pmg_raises_naming_roadmap(ax_impl):
+def test_pmg_solves_through_case(x64, ax_impl):
+    """precond='pmg' on the fused route (the V-cycle over K11, K12, K4 and
+    K5's plain versions) and on the reference route (the plain V-cycle in
+    the reference CG loop), against the reference case's own solve on the
+    same ladder (3 -> 2)."""
+    jcase = JaxCase(n=3, grid=(1, 1, 2), dtype=jnp.float64, ax_impl=ax_impl)
     case = TorchCase(n=3, grid=(1, 1, 2), dtype=torch.float64,
                      ax_impl=ax_impl, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        case.solve_manufactured(niter=3, precond="pmg")
+    res, u_ex = case.solve_manufactured(niter=3, precond="pmg")
+    assert res.precond == ("pmg" if ax_impl == "pallas_fused_cg_v2"
+                           else None)
+    assert case.precond_spec("pmg").ns == (3, 2)
+    h = res.history.numpy()
+    assert h.shape == (4,) and np.isfinite(h).all() and h[-1] < h[0]
+    ref, _ = jcase.solve_manufactured(niter=3, precond="pmg")
+    _assert_parity(ref, res)
 
 
 @pytest.mark.parametrize("niter", [8, None])

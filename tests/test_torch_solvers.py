@@ -34,20 +34,16 @@ def test_route_name_agrees_with_reference():
             assert got == want, (impl, prec, b, niter, pc)
             assert got in torch_solvers.REGISTRY or \
                 got in torch_solvers.NOT_PORTED
-    assert {"v2", "v2_tol", "reference"} <= set(torch_solvers.REGISTRY)
+    assert {"v2", "v2_tol", "reference", "block", "block_loop"} <= set(
+        torch_solvers.REGISTRY)
     assert not set(torch_solvers.REGISTRY) & set(torch_solvers.NOT_PORTED)
 
 
 @pytest.mark.parametrize("kw,solve_kw", [
     (dict(ax_impl="pallas_fused_cg"), dict(niter=3)),             # v1
     (dict(ax_impl="pallas_sstep_v3"), dict(niter=3)),             # sstep
-    (dict(ax_impl="pallas_fused_cg_v2"),
-     dict(niter=3, precond="pmg")),                               # pmg, v2
     (dict(ax_impl="pallas_fused_cg_v2", precision="f32_ir"),
      dict(niter=3)),                                              # ir
-    (dict(ax_impl="pallas_fused_cg_v2"), dict(niter=3, b=2)),     # block
-    (dict(ax_impl="fused"), dict(niter=3, b=2)),                  # block_loop
-    (dict(ax_impl="pallas"), dict(niter=3, precond="pmg")),       # pmg
 ])
 def test_unported_routes_raise(kw, solve_kw):
     case = NekboneCase(n=3, grid=(1, 1, 2), dtype=torch.float64,
