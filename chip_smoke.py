@@ -9,8 +9,9 @@ It needs one CUDA card and ``nvcc``, imports neither ``jax`` nor the
 reference package ``repro``, and, in order:
 
 1. prints the card, its power limit, and the torch / CUDA / nvcc versions;
-2. builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   ``nvcc`` per source and dtype (16 libraries), in parallel;
+2. builds the CUDA kernels from the eleven sources of
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (22
+   libraries), in parallel;
 3. measures device-to-device copy bandwidth on a 1 GiB buffer (the
    measured roofline);
 4. holds K1 (the operator kernel) against its plain PyTorch version, n=2..16
@@ -45,9 +46,20 @@ reference package ``repro``, and, in order:
 11. times every kernel and its plain version (device time by CUDA events)
    at E=1024 and E=4096, the solves per iteration and to tolerance (host
    clock), and the Chebyshev and pmg intervals' one-time set-up;
-12. profiles each kernel route (device time per iteration, by kernel, and
+12. holds K3 and K2 (the v1 operator) and K8 and K9 (the s-step cycle)
+   against their plain versions at n=10, E=1024, fp64 and fp32, K8/K9 at
+   s = 1, 2, 4;
+13. solves the paper case through the two routes of this slice, each with
+   the launch counters reset just before it: v1 over K3 (100 iterations,
+   against the plain route) and s-step over K8 + K9 at s = 4 and 1 (100
+   iterations) and 2 (99, a remainder cycle), against v2, and s-step at
+   s = 4 to a tolerance it crosses inside a cycle;
+14. times K2, K3, K8 and K9 (K8 and K9 at s = 1, 2, 4) beside their plain
+   versions at E=1024 and E=4096, and v1 and s-step per iteration beside
+   v2, in turns;
+15. profiles each kernel route (device time per iteration, by kernel, and
    the device's busy share);
-13. prints the ``kernels`` JSON line, the card line, and last the result
+16. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits with status 1 and prints no result line.
@@ -56,6 +68,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -89,6 +102,9 @@ CHEB_MAX_ITERS = 34           # the reference's acceptance at the paper case
 PMG_RTOL = 1e-8               # pmg: solve to 1e-8 r0 (benchmarks/pmg_smoke.py)
 PMG_MAX_ITERS = 15
 BLOCK_B = 4
+SSTEP_S = 4                   # the reference's default cycle length
+SSTEP_HIST_TOL_HEAD = 1e-9    # s-step vs v2, entries 0..10 (the Gram forms)
+SSTEP1_HIST_TOL_HEAD = 1e-10  # s=1 vs v2, entries 0..10
 # the steps of the p-multigrid ladder of the paper case, both directions
 LADDER_PAIRS = ((10, 5), (5, 10), (5, 3), (3, 5), (3, 2), (2, 3))
 # about 10 ms of spin at the H100's clock: longer than the host takes to
@@ -173,17 +189,22 @@ def phase_device():
 
 
 def _ptxas_report(log: str) -> dict:
-    """``{template arguments: (registers, spill store bytes)}`` for every
-    kernel instantiation in an ``nvcc -Xptxas -v`` log; the key is n, or
-    ``nin->nout`` for the interpolation kernel."""
+    """``{kernel<template arguments>: (registers, spill store bytes)}`` for
+    every kernel instantiation in an ``nvcc -Xptxas -v`` log; the integer
+    and bool template arguments are joined by ``,`` (n first, or nin, nout
+    for the interpolation kernel)."""
     import re
 
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            args = re.findall(r"Li(\d+)E", m.group(1))
-            key = "->".join(args)
+            mangled = m.group(1)
+            nm = re.match(r"_ZN7nekbone(\d+)", mangled)
+            name = (mangled[nm.end():nm.end() + int(nm.group(1))]
+                    if nm else mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            key = f"{name}<{','.join(args)}>"
             out[key] = [0, 0]
             continue
         if key is None:
@@ -207,10 +228,11 @@ def phase_build():
     for stem, path in paths.items():
         report = _ptxas_report(path.with_suffix(".log").read_text())
         spills = {key: v[1] for key, v in report.items() if v[1]}
+        # the n=10 instantiations (and K12's 10 -> 5)
         main = {key: v[0] for key, v in report.items()
-                if key in ("10", "10->5")}
-        print(f"  {stem}: {path.name}; registers {main}; spill bytes by "
-              f"instantiation: {spills or 'none'}")
+                if re.search(r"<10(,|>)", key)}
+        print(f"  {stem}: {path.name}; registers at n=10 {main}; spill "
+              f"bytes by instantiation: {spills or 'none'}")
     print(f"  build seconds {seconds:.1f} (0 when cached)", flush=True)
     return seconds
 
@@ -426,7 +448,7 @@ def phase_routes():
               f"{impl}: all {NITER + 1} entries within {ENVELOPE_FACTOR:g}x "
               f"the plain route's own CPU-vs-card spread ({envelope:.2e}) "
               f"or {HIST_RTOL_HEAD:g}")
-    return launches, cases
+    return launches, cases, hist
 
 
 def _pcg_operands(case, rng):
@@ -638,11 +660,9 @@ def _launch_run(K, fn):
 
 
 def _zero_but(**want):
-    counts = dict.fromkeys(("nekbone_ax", "nekbone_ax_slab",
-                            "nekbone_cg_update", "nekbone_pcg_update",
-                            "nekbone_cheb_apply", "nekbone_interp",
-                            "nekbone_ax_slab_block",
-                            "nekbone_cg_update_block"), 0)
+    from repro_torch.kernels import nekbone_ax as K
+
+    counts = dict.fromkeys(K.LAUNCHES, 0)
     counts.update(want)
     return counts
 
@@ -919,6 +939,212 @@ def phase_pmg_block_routes():
     return out
 
 
+def _sstep_inputs(case, rng, theta=None):
+    """Continuous p, r and K8/K9's operands on ``case``; ``inv_theta`` from
+    ``theta`` (default: the case's own power-iteration estimate)."""
+    import torch
+
+    from repro_torch.core.cg_sstep import estimate_theta
+
+    o = _v2_operands(case, rng)
+    if theta is None:
+        theta = estimate_theta(case.D, case.g, case.grid, case.mask)
+    o["theta"] = theta
+    o["inv_theta"] = torch.full((1,), 1.0 / theta, dtype=case.dtype,
+                                device="cuda")
+    return o
+
+
+def phase_v1_sstep_parity():
+    """K3 and K2 (the v1 operator) and K8 and K9 (the s-step cycle) against
+    their plain versions at the paper case's width, fp64 and fp32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== K2/K3 and K8/K9 parity (kernel vs plain; n=10, E=1024; K8/K9 "
+          "at s = 1, 2, 4)", flush=True)
+    rng = np.random.default_rng(7)
+    errs = {}
+    n = 10
+    for dtype, tol, basis_tol in ((torch.float64, 1e-12, 1e-12),
+                                  (torch.float32, 1e-5, 1e-4)):
+        case = NekboneCase(n=n, grid=PAPER_GRID, dtype=dtype)
+        E = case.mesh.nelt
+        n3 = n ** 3
+        tag = f"{dtype} n={n} E={E}"
+        # K3 / K2: a random SPD metric, the box's mask and weight
+        u, D, g = _operator_data(rng, E, n, dtype)
+        r = torch.as_tensor(rng.normal(size=(E, n3)), dtype=dtype,
+                            device="cuda")
+        mask = case.mask.reshape(E, n3).contiguous()
+        c = case.c.reshape(E, n3).contiguous()
+        kw3, kpap3 = K.nekbone_ax_pap_cuda(u, D, g, mask, n=n)
+        pw3, ppap3 = K.nekbone_ax_pap_plain(u, D, g, mask, n=n)
+        kw2, kpap2, krcz = K.nekbone_ax_dots_cuda(u, D, g, mask, r, c, n=n)
+        pw2, ppap2, prcz = K.nekbone_ax_dots_plain(u, D, g, mask, r, c, n=n)
+        for name, kw, pw, parts in (
+                ("K3", kw3, pw3, (("pap", kpap3, ppap3),)),
+                ("K2", kw2, pw2, (("pap", kpap2, ppap2),
+                                  ("rcz", krcz, prcz)))):
+            err = rel_err(kw, pw)
+            check(err <= tol, f"{name} {tag}: w max rel err {err:.2e} <= "
+                              f"{tol:g}")
+            for pname, a, b in parts:
+                perr = abs(float(a.sum() - b.sum())) / abs(float(b.sum()))
+                check(perr <= tol, f"{name} {tag}: {pname} rel err "
+                                   f"{perr:.2e} <= {tol:g}")
+            if dtype == torch.float64:
+                errs[name] = float((kw - pw).abs().max())
+        check(torch.equal(kw2, kw3) and torch.equal(kpap2, kpap3),
+              f"K2/K3 {tag}: K2's w and pap bitwise K3's")
+        # K8 / K9 on continuous p, r at the case's own theta
+        o = _sstep_inputs(case, rng)
+        g3 = o["g3"]
+        for s in (1, 2, 4):
+            args = (o["p"], o["r"], case.D, g3, *o["m"], *o["c"],
+                    o["inv_theta"])
+            kb, kg = K.nekbone_ax_powers_cuda(*args, n=n, s=s)
+            pb, pg = K.nekbone_ax_powers_plain(*args, n=n, s=s)
+            berr = max(rel_err(kb[:, m], pb[:, m]) for m in range(2 * s - 1))
+            gk, gp = kg.sum(0), pg.sum(0)
+            gerr = float((gk - gp).abs().max() / gp.abs().max())
+            check(berr <= basis_tol and gerr <= 10 * basis_tol
+                  and torch.equal(kg, kg.transpose(1, 2)),
+                  f"K8 {tag} s={s}: basis max rel err {berr:.2e} <= "
+                  f"{basis_tol:g}, summed Gram rel err {gerr:.2e} <= "
+                  f"{10 * basis_tol:g}, partials symmetric")
+            coef = torch.as_tensor(rng.normal(size=(3, 2 * s + 1)),
+                                   dtype=dtype, device="cuda")
+            uargs = (o["x"], o["p"], o["r"], kb, coef, *o["c"])
+            kx, kr, kp, krcr = K.nekbone_sstep_update_cuda(*uargs, n=n, s=s)
+            px, pr, pp, prcr = K.nekbone_sstep_update_plain(*uargs, n=n, s=s)
+            rerr = abs(float(krcr.sum() - prcr.sum())) / abs(float(prcr.sum()))
+            check(torch.equal(kx, px) and torch.equal(kr, pr)
+                  and torch.equal(kp, pp) and rerr <= tol,
+                  f"K9 {tag} s={s}: x, r, p bitwise the plain version, rcr "
+                  f"rel err {rerr:.2e} <= {tol:g}")
+            if dtype == torch.float64 and s == SSTEP_S:
+                errs["K8"] = float((kb - pb).abs().max())
+                errs["K9"] = float((kr - pr).abs().max())
+        print(f"  theta ({dtype}) {o['theta']:.6e}", flush=True)
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_v1_sstep_routes(hist):
+    """The v1 and s-step routes of the paper case through ``case.solve``,
+    each with the launch counters set to 0 just before it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    print(f"== paper case, v1 and s-step routes: n=10, E=1024, fp64, "
+          f"{NITER} iterations", flush=True)
+    out = {"launches": {}, "cases": {}}
+
+    def case_of(impl, **kw):
+        return NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                           ax_impl=impl, **kw)
+
+    base, v2_hist = hist["fused"], hist["pallas_fused_cg_v2"]
+    envelope = float(_rel_dev(hist["fused on the CPU"], base).max())
+
+    # --- v1 (K3), 100 iterations, against the plain route on the card ---
+    v1 = case_of("pallas_fused_cg")
+    u_ex, f = v1.manufactured()
+    res, launches = _launch_run(K, lambda: v1.solve(f, niter=NITER))
+    out["launches"]["v1"] = launches
+    h = res.history.cpu().numpy()
+    check(res.pipeline == "fused_v1" and h.shape == (NITER + 1,)
+          and bool(np.isfinite(h).all())
+          and bool(torch.isfinite(res.x).all()),
+          f"v1: pipeline {res.pipeline}, finite x and history of {h.size}")
+    check(launches == _zero_but(nekbone_ax_pap=NITER),
+          f"v1: launches {launches}")
+    dev = _rel_dev(h, base)
+    k = int(dev.argmax())
+    print(f"  v1: history[{NITER}]={h[NITER]:.6e} solution_error="
+          f"{float(v1.solution_error(res.x, u_ex)):.6e}; vs fused: entries "
+          f"0..10 {float(dev[:11].max()):.2e}, all {float(dev.max()):.2e} at "
+          f"entry {k} (plain route CPU vs card {envelope:.2e})", flush=True)
+    check(float(dev[:11].max()) <= HIST_RTOL_HEAD,
+          f"v1: history entries 0..10 within {HIST_RTOL_HEAD:g} of fused")
+    check(float(dev.max()) <= max(HIST_RTOL_HEAD, ENVELOPE_FACTOR * envelope),
+          f"v1: all {NITER + 1} entries within {ENVELOPE_FACTOR:g}x the "
+          f"plain route's own CPU-vs-card spread ({envelope:.2e})")
+    out["cases"]["v1"] = (v1, f, dict(niter=NITER))
+
+    # --- s-step at s = 4, 1 (100 iterations) and 2 (99: a remainder) ----
+    fixed = {}
+    for s, niter, head_tol in ((SSTEP_S, NITER, SSTEP_HIST_TOL_HEAD),
+                               (1, NITER, SSTEP1_HIST_TOL_HEAD),
+                               (2, NITER - 1, SSTEP_HIST_TOL_HEAD)):
+        case = case_of("pallas_sstep_v3", s=s)
+        t0 = time.perf_counter()
+        res, launches = _launch_run(K, lambda: case.solve(f, niter=niter))
+        first_ms = (time.perf_counter() - t0) * 1e3
+        out["launches"][f"sstep{s}"] = launches
+        cycles = -(-niter // s)
+        h = res.history.cpu().numpy()
+        check(res.pipeline == "sstep_v3" and int(res.iters) == niter
+              and h.shape == (niter + 1,) and bool(np.isfinite(h).all())
+              and bool(torch.isfinite(res.x).all()),
+              f"sstep s={s}: {niter} iterations, finite x and history of "
+              f"{h.size}")
+        check(launches == _zero_but(nekbone_ax_powers=cycles,
+                                    nekbone_sstep_update=cycles),
+              f"sstep s={s}: launches {launches} (K8 = K9 = {cycles} "
+              f"cycles; K8's device launches {cycles} x (s + 2) = "
+              f"{cycles * (s + 2)})")
+        dev = _rel_dev(h, v2_hist[:niter + 1])
+        k = int(dev.argmax())
+        print(f"  sstep s={s}: theta {case._sstep_theta:.6e} (first solve "
+              f"with its estimate {first_ms:.1f} ms); history[{niter}]="
+              f"{h[niter]:.6e} solution_error="
+              f"{float(case.solution_error(res.x, u_ex)):.6e}; vs v2: "
+              f"entries 0..10 {float(dev[:11].max()):.2e}, worst over all "
+              f"{niter + 1} {float(dev.max()):.2e} at entry {k} (v2 "
+              f"{v2_hist[k]:.6e}, sstep {h[k]:.6e}); max over 0..k by k: "
+              + " ".join(f"{j}:{float(dev[:j + 1].max()):.1e}"
+                         for j in range(10, niter + 1, 10)), flush=True)
+        check(float(dev[:11].max()) <= head_tol,
+              f"sstep s={s}: history entries 0..10 within {head_tol:g} of v2")
+        fixed[s] = (case, h)
+        out["cases"][f"sstep{s}"] = (case, f, dict(niter=NITER))
+
+    # --- s-step to a tolerance, stopping inside a cycle -----------------
+    case, h4 = fixed[SSTEP_S]
+    for j in range(NITER // 2, NITER):
+        tol = float(h4[j]) * (1.0 + 1e-12)
+        first = int(np.nonzero(h4 <= tol)[0][0])
+        if first % SSTEP_S:
+            break
+    res, launches = _launch_run(K, lambda: case.solve(f, tol=tol,
+                                                      max_iter=NITER))
+    it = int(res.iters)
+    h = res.history.cpu().numpy()
+    cycles = first // SSTEP_S + 1
+    print(f"  sstep s={SSTEP_S} tol {tol:.6e} (the fixed run first at or "
+          f"below it at entry {first}, inside cycle {cycles}); {it} "
+          f"iterations, last entry {h[-1]:.6e} (fixed run {h4[first]:.6e}); "
+          f"launches {launches}", flush=True)
+    check(it == first and h.shape == (it + 1,)
+          and np.array_equal(h[:it], h4[:it])
+          and abs(h[it] - h4[it]) <= SSTEP_HIST_TOL_HEAD * h4[0],
+          f"sstep tol: {it} iterations, history bitwise the fixed run's "
+          f"prefix but for the last entry (the stored residual after the "
+          f"shortened cycle, within {SSTEP_HIST_TOL_HEAD:g} h0)")
+    check(launches == _zero_but(nekbone_ax_powers=cycles,
+                                nekbone_sstep_update=cycles),
+          f"sstep tol: launches {launches}")
+    return out
+
+
 def _time_row(label, kern, plain, nbytes, mma_flops, rest_flops, bw_copy,
               lib=None):
     """Device time of a kernel, its plain version and, where one PyTorch
@@ -1174,7 +1400,122 @@ def phase_slice3_times(routes, v2_solve_ms):
     return out
 
 
-def phase_profile(cases, pcg, routes, niter: int = 20):
+def phase_slice4_times(bw_copy, routes, rows):
+    """Device time of K2, K3, K8 and K9 beside their plain versions (and
+    K9 beside one ``torch.matmul``) at E=1024 and E=4096; then ms per
+    iteration of v1 and s-step (s = 1, 2, 4) beside v2, in turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cost
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== times of the v1 and s-step kernels and routes (fp64, n=10; "
+          "kernels: device time per call; solves: host clock to "
+          "synchronize, median of 5)", flush=True)
+    rng = np.random.default_rng(8)
+    n = 10
+    for grid in (PAPER_GRID, BIG_GRID):
+        case = NekboneCase(n=n, grid=grid, dtype=torch.float64)
+        E = case.mesh.nelt
+        n3 = n ** 3
+        field = E * n3 * 8
+        u, D, g = _operator_data(rng, E, n, torch.float64)
+        r = torch.as_tensor(rng.normal(size=(E, n3)), device="cuda")
+        mask = case.mask.reshape(E, n3).contiguous()
+        c = case.c.reshape(E, n3).contiguous()
+        k3 = (u, D, g, mask)
+        k2 = (u, D, g, mask, r, c)
+        # bytes: K3 p, 6 metric, mask in, w out; K2 also r and c in.
+        # operations per point: 12n contraction flops; the metric (15),
+        # the mask (1), pap (2) and for K2 rcz (3)
+        for name, kern, plain, fields, other in (
+                ("K3", K.nekbone_ax_pap_cuda, K.nekbone_ax_pap_plain, 9, 18),
+                ("K2", K.nekbone_ax_dots_cuda, K.nekbone_ax_dots_plain, 11,
+                 21)):
+            args = k3 if name == "K3" else k2
+            rows[(name, grid)] = _time_row(
+                f"{name} E={E}", lambda: kern(*args, n=n),
+                lambda: plain(*args, n=n), fields * field,
+                E * n3 * 12 * n, E * n3 * other, bw_copy)
+        o = _sstep_inputs(case, rng)
+        for s in (1, 2, SSTEP_S):
+            K_ = 2 * s + 1
+            k8 = (o["p"], o["r"], case.D, o["g3"], *o["m"], *o["c"],
+                  o["inv_theta"])
+            basis, _ = K.nekbone_ax_powers_cuda(*k8, n=n, s=s)
+            coef = torch.as_tensor(rng.normal(size=(3, K_)), device="cuda")
+            k9 = (o["x"], o["p"], o["r"], basis, coef, *o["c"])
+            # K8: p, r, 3 metric diagonals in, 2s-1 basis vectors and the
+            # E (2s+1)^2 Gram partials out; 2s-1 applications of 12n
+            # contraction and 6 other flops (metric 4, mask, scale) per
+            # point, and 3 per Gram pair and point
+            gram_bytes = E * K_ * K_ * 8
+            row8 = _time_row(
+                f"K8 s={s} E={E}", lambda: K.nekbone_ax_powers_cuda(
+                    *k8, n=n, s=s),
+                lambda: K.nekbone_ax_powers_plain(*k8, n=n, s=s),
+                (5 + 2 * s - 1) * field + gram_bytes,
+                (2 * s - 1) * E * n3 * 12 * n,
+                E * n3 * (6 * (2 * s - 1) + 3 * K_ * (K_ + 1) // 2), bw_copy)
+            moved = (11 * s if s >= 2 else 10) * field + gram_bytes
+            row8["moved_bytes"] = moved
+            print(f"  K8 s={s} E={E}: the chain of {s + 2} launches moves "
+                  f"{moved / 1e6:.1f} MB against the book's "
+                  f"{((5 + 2 * s - 1) * field + gram_bytes) / 1e6:.1f} MB; "
+                  f"{moved / row8['ms'] / 1e6:.0f} GB/s moved", flush=True)
+            # K9: x, p, r and 2s-1 basis vectors in, x, r, p out; 6 flops
+            # per term and point, 3 for rcr.  Library: the three
+            # combinations as one matmul over a stacked (2s+1, E n^3) V
+            # (no rcr partial)
+            V = torch.stack([o["p"]] + [basis[:, m] for m in range(s)]
+                            + [o["r"]]
+                            + [basis[:, s + m] for m in range(s - 1)]
+                            ).reshape(K_, E * n3)
+            row9 = _time_row(
+                f"K9 s={s} E={E}",
+                lambda: K.nekbone_sstep_update_cuda(*k9, n=n, s=s),
+                lambda: K.nekbone_sstep_update_plain(*k9, n=n, s=s),
+                (3 + 2 * s - 1 + 3) * field, 0, E * n3 * (6 * K_ + 3),
+                bw_copy, lib=lambda: torch.matmul(coef, V))
+            rows[(f"K8 s={s}", grid)] = row8
+            rows[(f"K9 s={s}", grid)] = row9
+            if s == SSTEP_S:
+                rows[("K8", grid)] = row8
+                rows[("K9", grid)] = row9
+            del basis, V
+        del u, D, g, r, o
+    # whole solves per iteration, paper case, in turns
+    f = routes["cases"]["v1"][1]
+    v2 = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                     ax_impl="pallas_fused_cg_v2")
+    ndof = v2.mesh.ndof
+    solves = {"v2": (v2, sum(cost.fused_v2_cg_iter_bytes(ndof, 8))),
+              "v1": (routes["cases"]["v1"][0],
+                     sum(cost.fused_cg_iter_bytes(ndof, 8)))}
+    for s in (SSTEP_S, 2, 1):
+        reads, writes = cost.sstep_streams(s)
+        solves[f"sstep s={s}"] = (routes["cases"][f"sstep{s}"][0],
+                                  (reads + writes) * ndof * 8)
+    times = {key: [] for key in solves}
+    for _ in range(3):
+        for key, (case, _) in solves.items():
+            times[key].append(wall_ms(
+                lambda: case.solve(f, niter=NITER), reps=3) / NITER)
+    out = {}
+    for key, (case, book) in solves.items():
+        ms = statistics.median(times[key])
+        out[key] = ms
+        print(f"  solve {key}, {NITER} iterations: {ms:.4f} ms/iteration "
+              f"(median of 3 rounds in turns: "
+              + ", ".join(f"{t:.4f}" for t in times[key])
+              + f"); book {book / 1e6:.1f} MB/iteration -> "
+              f"{book / ms / 1e6:.0f} GB/s", flush=True)
+    return out
+
+
+def phase_profile(cases, pcg, routes, slice4, niter: int = 20):
     """Device time per iteration of each solve, by kernel, from
     torch.profiler; the busy share is device time over the span from the
     first to the last device event (the profiler slows the host, so the
@@ -1196,6 +1537,9 @@ def phase_profile(cases, pcg, routes, niter: int = 20):
     runs["pmg"] = routes["cases"]["pmg"]             # its whole solve
     case, F, _ = routes["cases"]["block"]
     runs[f"block b={BLOCK_B}"] = (case, F, dict(niter=niter))
+    for label in ("v1", f"sstep{SSTEP_S}"):
+        case, f, _ = slice4["cases"][label]
+        runs[label] = (case, f, dict(niter=niter))
     for impl, (case, f, kw) in runs.items():
         case.solve(f, **kw)
         torch.cuda.synchronize()
@@ -1248,7 +1592,7 @@ def main() -> int:
         bw = phase_copy_bandwidth()
         err = {"K1": phase_k1_parity()}
         err.update(phase_v2_parity())
-        launches, cases = phase_routes()
+        launches, cases, hist = phase_routes()
         err.update(phase_pcg_parity())
         err.update(phase_interp_block_parity())
         pcg = phase_pcg_routes()
@@ -1258,7 +1602,11 @@ def main() -> int:
         rows, v2_solve_ms = phase_times(bw, cases)
         phase_pcg_times(pcg, v2_solve_ms)
         phase_slice3_times(routes, v2_solve_ms)
-        phase_profile(cases, pcg, routes)
+        err.update(phase_v1_sstep_parity())
+        slice4 = phase_v1_sstep_routes(hist)
+        launches.update(slice4["launches"])
+        phase_slice4_times(bw, slice4, rows)
+        phase_profile(cases, pcg, routes, slice4)
     except CheckFailed as exc:
         print(f"FAILED: {exc}", flush=True)
         return 1
@@ -1287,6 +1635,19 @@ def main() -> int:
         "K7": ("nekbone_cg_update_block",
                "src/repro_torch/kernels/csrc/nekbone_cg_update_block.cu",
                "src/repro/kernels/nekbone_ax.py:859", "block"),
+        # K2 has no route: its launches on the v1 route are 0
+        "K2": ("nekbone_ax_dots",
+               "src/repro_torch/kernels/csrc/nekbone_ax_dots.cu",
+               "src/repro/kernels/nekbone_ax.py:305", "v1"),
+        "K3": ("nekbone_ax_pap",
+               "src/repro_torch/kernels/csrc/nekbone_ax_dots.cu",
+               "src/repro/kernels/nekbone_ax.py:404", "v1"),
+        "K8": ("nekbone_ax_powers",
+               "src/repro_torch/kernels/csrc/nekbone_ax_powers.cu",
+               "src/repro/kernels/nekbone_ax.py:1026", f"sstep{SSTEP_S}"),
+        "K9": ("nekbone_sstep_update",
+               "src/repro_torch/kernels/csrc/nekbone_sstep_update.cu",
+               "src/repro/kernels/nekbone_ax.py:1198", f"sstep{SSTEP_S}"),
     }
     kernels = []
     for key, (kname, source, replaces, route) in meta.items():

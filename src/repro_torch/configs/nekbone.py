@@ -26,6 +26,9 @@ class NekboneConfig:
     # precision policy (core/precision.py) or None to leave the solver
     # dtype to ``dtype``.
     precision: str | None = None
+    # s-step cycle length for ax_impl="pallas_sstep_v3" (core/cg_sstep.py):
+    # iterations per matrix-powers cycle; ignored by other ax_impls.
+    s: int = 4
     # preconditioner (core/precond.py): None (the paper's unpreconditioned
     # protocol), "jacobi", "cheb" of order ``cheb_k``, or "pmg" /
     # "pmg[cheb<k>]" (the p-multigrid V-cycle, core/pmg.py).  The v2
@@ -51,8 +54,8 @@ class NekboneConfig:
 
         kwargs = dict(n=self.n, grid=self.grid,
                       dtype=getattr(torch, self.dtype), ax_impl=self.ax_impl,
-                      precision=self.precision, precond=self.precond,
-                      cheb_k=self.cheb_k)
+                      precision=self.precision, s=self.s,
+                      precond=self.precond, cheb_k=self.cheb_k)
         kwargs.update(overrides)
         return NekboneCase(**kwargs)
 

@@ -11,7 +11,9 @@ SPD metric (``geom.random_spd_metric``) in place of the box's.
 way: the Jacobi diagonal as an array, the Chebyshev order and interval and
 the p-multigrid ladder, order, per-level intervals, base iterations and box
 lengths as numbers, so both packages can run one set of intervals rather
-than two Lanczos estimates.
+than two Lanczos estimates.  :func:`sstep_theta_from_reference` carries the
+s-step basis scale theta the same way, so both packages run one theta
+rather than two power iterations.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from repro_torch.core.nekbone import NekboneCase
 from repro_torch.core.precond import (ChebyshevPrecond, JacobiPrecond,
                                       PMGPrecond)
 
-__all__ = ["FIELDS", "case_from_arrays", "precond_from_reference"]
+__all__ = ["FIELDS", "case_from_arrays", "precond_from_reference",
+           "sstep_theta_from_reference"]
 
 FIELDS = ("D", "g", "mask", "mult", "c", "bmass")
 
@@ -76,3 +79,19 @@ def precond_from_reference(spec, *, dtype: torch.dtype, device
             lengths=tuple(float(x) for x in spec.lengths))
     raise ValueError(f"cannot carry preconditioner {name!r} across; "
                      "expected 'jacobi', 'cheb' or 'pmg'")
+
+
+def sstep_theta_from_reference(source, case: NekboneCase) -> float:
+    """Give ``case`` the s-step basis scale theta of ``source``.
+
+    ``source`` is a number, or any object with the reference case's cached
+    ``_sstep_theta`` (set by its first s-step solve).  The port case then
+    skips its own power iteration (``solvers._drive_sstep`` reads the same
+    attribute).  Returns theta.
+    """
+    theta = getattr(source, "_sstep_theta", source)
+    if theta is None:
+        raise ValueError("the reference case has no s-step theta yet: run "
+                         "one s-step solve on it first")
+    case._sstep_theta = float(theta)
+    return case._sstep_theta

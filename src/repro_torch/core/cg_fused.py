@@ -1,4 +1,13 @@
-"""Step-fused conjugate gradients: the v2 iteration in two CUDA kernels.
+"""Step-fused conjugate gradients: the v1 and v2 iterations in CUDA kernels.
+
+**v1** (:func:`cg_fused_fixed_iters`, DESIGN.md §3.3): K3
+(``kernels/csrc/nekbone_ax_dots.cu``) applies the full-metric operator and
+the mask field and emits per-element ``p·w`` partials; the direct-stiffness
+sum (``gs.ds_sum_local``) and the vector updates stay torch passes.  The
+``r·c·r`` reduction is carried through the loop (it equals the previous
+iteration's post-update reduction), so the kernel reads no ``r``/``c``:
+17 streams per iteration.  v1 takes any mask and weight fields, not only
+the structured box's.
 
 **v2** (:func:`cg_fused_v2_fixed_iters`, DESIGN.md §3.4): no standalone
 full-field pass.  Per iteration:
@@ -19,10 +28,10 @@ history stay on the device, so the fixed-iteration loop never waits for the
 card.  The loop (:func:`_run`) and the operand preparation are shared with
 the preconditioned and tolerance-driven drivers of ``core/precond.py``.
 
-The reference's slab split ``sz``, contraction ``layout`` and
-``grid_order`` are TPU VMEM knobs with no counterpart here.  The v1 and
-sharded pipelines and iterative refinement are not ported yet
-(ROADMAP.md).
+The reference's v1 ``block_e``, and its v2 slab split ``sz``, contraction
+``layout`` and ``grid_order``, are TPU VMEM knobs with no counterpart here:
+the kernels work per element.  The sharded pipeline and iterative
+refinement are not ported yet (ROADMAP.md).
 
 Preconditions: ``b`` must be assembled (coincident copies equal —
 manufactured right-hand sides are) and masked.
@@ -33,10 +42,74 @@ import torch
 
 from repro_torch.core.cg import CGResult, SolveResult
 from repro_torch.core.geom import box_axis_factors, box_outer
+from repro_torch.core.gs import ds_sum_local
 from repro_torch.core.precision import resolve_policy
 from repro_torch.kernels import nekbone_ax as _ax
 
-__all__ = ["cg_fused_v2_fixed_iters"]
+__all__ = ["cg_fused_fixed_iters", "cg_fused_v2_fixed_iters"]
+
+
+def cg_fused_fixed_iters(b: torch.Tensor, *, D: torch.Tensor,
+                         g: torch.Tensor, mask: torch.Tensor,
+                         c: torch.Tensor, grid: tuple[int, int, int],
+                         niter: int, precision=None) -> SolveResult:
+    """Fixed-iteration CG through the fused-iteration pipeline (v1, K3).
+
+    Args:
+      b:     (E, n, n, n) assembled, masked right-hand side.
+      D:     (n, n) derivative matrix.
+      g:     (E, 6, n, n, n) metric fields.
+      mask:  (E, n, n, n) Dirichlet mask (0/1 valued).
+      c:     (E, n, n, n) inner-product weight (mask / multiplicity).
+      grid:  element grid (EX, EY, EZ) with EX*EY*EZ == E.
+      niter: iteration count (the paper runs 100).
+      precision: policy name / policy / ``None`` (infer from ``b.dtype``):
+             operands are cast to the storage dtype, the partials and
+             scalars live in the accumulation dtype.
+
+    Per iteration: K3 (masked ``Ax`` and ``p·w`` partials), ``torch.sum``,
+    ``ds_sum_local``, the two axpys, the ``r·c·r`` of the stored ``r`` and
+    ``p = r + beta p``; alpha, beta and the history stay on the device, so
+    the loop never waits for the card.  Returns a :class:`SolveResult`
+    whose history matches ``cg_fixed_iters`` to round-off.
+    """
+    policy, b = _policy(b, precision)
+    E = b.shape[0]
+    n = b.shape[-1]
+    n3 = n ** 3
+    grid = tuple(grid)
+    acc = policy.accum_dtype
+    D = D.to(policy.op_storage_dtype).contiguous()
+    g2 = g.to(policy.op_storage_dtype).reshape(E, 6, n3).contiguous()
+    mask2 = mask.to(b.dtype).reshape(E, n3).contiguous()
+    c_acc = c.to(b.dtype).to(acc)
+    # r·c·r is carried through the loop: each iteration's post-update
+    # reduction is the next iteration's rtz, so K3 needs no r/c operands.
+    rtz = torch.sum(b.to(acc) * c_acc * b.to(acc))
+
+    def body(state, rtz):
+        x, r, p = state
+        w2, pap_e = _ax.nekbone_ax_pap_cuda(p.reshape(E, n3), D, g2, mask2,
+                                            n=n)
+        pap = torch.sum(pap_e)
+        # mask commutes with gs (coincident copies share their mask value),
+        # so the kernel's masked output assembles directly.
+        w = ds_sum_local(w2.reshape(b.shape), grid)
+        alpha = rtz / pap
+        x = (x.to(acc) + alpha * p.to(acc)).to(policy.x_storage_dtype)
+        r = (r.to(acc) - alpha * w.to(acc)).to(b.dtype)
+        # over the *stored* r, the residual the next iteration reads
+        rtz_new = torch.sum(r.to(acc) * c_acc * r.to(acc))
+        beta = rtz_new / rtz
+        p = (r.to(acc) + beta * p.to(acc)).to(b.dtype)
+        return (x, r, p), rtz_new, torch.sqrt(torch.abs(rtz_new))
+
+    state = (torch.zeros(b.shape, dtype=policy.x_storage_dtype,
+                         device=b.device), b, b)
+    (x, *_), k, hist = _run(body, state, rtz, torch.sqrt(torch.abs(rtz)),
+                            None, niter)
+    return SolveResult.from_cg(_result(x, k, hist, b.shape),
+                               pipeline="fused_v1")
 
 
 def _check_box_fields(grid, n, mask, c) -> None:
@@ -81,6 +154,17 @@ def _v2_iter(x2, r2, p2, rtz, beta, *, D, g3, mx, my, mz, cx, cy, cz,
     return x2, r2, p2, rtz_new, beta
 
 
+def _policy(b, precision):
+    """The precision policy of a solve and ``b`` cast to its storage dtype;
+    refined policies raise (iterative refinement is not ported)."""
+    policy = resolve_policy(precision, b.dtype)
+    if policy.refine:
+        raise NotImplementedError(
+            f"precision {policy.name!r} needs iterative refinement "
+            "(cg_ir_fixed_iters), not ported yet: ROADMAP.md queue 1 item 9")
+    return policy, b.to(policy.storage_dtype)
+
+
 def _prepare(b, D, g, grid, mask, c, precision):
     """Operands of the v2-family drivers (here and in core/precond.py).
 
@@ -91,12 +175,7 @@ def _prepare(b, D, g, grid, mask, c, precision):
     """
     from repro_torch.kernels import ops as kernel_ops
 
-    policy = resolve_policy(precision, b.dtype)
-    if policy.refine:
-        raise NotImplementedError(
-            f"precision {policy.name!r} needs iterative refinement "
-            "(cg_ir_fixed_iters), not ported yet: ROADMAP.md queue 1 item 9")
-    b = b.to(policy.storage_dtype)
+    policy, b = _policy(b, precision)
     E = b.shape[0]
     n = b.shape[-1]
     grid = tuple(grid)

@@ -9,9 +9,9 @@ points per direction,
 
 Pure arithmetic, hardware-independent: a copy of the part of the
 reference's ``core/cost.py`` that the ported paths and ``chip_smoke.py``
-use to turn times into bytes per second, and the preconditioned v2 books
-(Jacobi, Chebyshev), the p-multigrid books and the multi-RHS books of the
-v2 pipeline.  The s-step books are not ported yet (ROADMAP.md).
+use to turn times into bytes per second: the v1, v2 and s-step books, the
+preconditioned v2 books (Jacobi, Chebyshev), the p-multigrid books and the
+multi-RHS books of the v2 pipeline.
 """
 from __future__ import annotations
 
@@ -19,7 +19,11 @@ import dataclasses
 
 __all__ = ["flops_per_dof", "cg_iter_flops", "cg_iter_bytes", "intensity",
            "ax_local_flops", "ax_local_bytes", "CostModel",
-           "CG_READ_STREAMS", "CG_WRITE_STREAMS", "FUSED_V2_READ_STREAMS",
+           "CG_READ_STREAMS", "CG_WRITE_STREAMS", "FUSED_CG_READ_STREAMS",
+           "FUSED_CG_WRITE_STREAMS", "fused_cg_iter_bytes",
+           "fused_intensity", "SSTEP_DEFAULT_S", "sstep_cycle_streams",
+           "sstep_streams", "sstep_halo_streams", "sstep_intensity",
+           "FUSED_V2_READ_STREAMS",
            "FUSED_V2_WRITE_STREAMS", "fused_v2_cg_iter_bytes",
            "PRECISION_ITEMSIZE", "precision_itemsize",
            "JACOBI_V2_READ_STREAMS", "JACOBI_V2_WRITE_STREAMS",
@@ -34,6 +38,15 @@ __all__ = ["flops_per_dof", "cg_iter_flops", "cg_iter_bytes", "intensity",
 CG_READ_STREAMS = 24
 CG_WRITE_STREAMS = 6
 
+# The fused-iteration pipeline v1 (core/cg_fused.py, DESIGN.md §3.3) moves:
+#   kernel (K3): reads p, 6 metric fields, mask      (8)    writes w (1)
+#   vector pass: reads x, p, r, w, c                 (5)    writes x, r, p (3)
+# The r·c·r reduction is carried through the loop state, so the kernel
+# reads no r/c — 13R + 4W = 17 streams.  The per-element dot partials are E
+# scalars — charged as zero streams.
+FUSED_CG_READ_STREAMS = 13
+FUSED_CG_WRITE_STREAMS = 4
+
 # The v2 pipeline (core/cg_fused.py) runs the whole iteration in two
 # kernels:
 #   K4 (front half): reads p, r, 3 metric diagonals    (5)    writes p, w (2)
@@ -43,6 +56,42 @@ CG_WRITE_STREAMS = 6
 # copies of w are not counted as a stream.
 FUSED_V2_READ_STREAMS = 9
 FUSED_V2_WRITE_STREAMS = 4
+
+# The s-step pipeline (core/cg_sstep.py, DESIGN.md §8) runs s CG iterations
+# per *cycle*:
+#   powers kernel (K8): reads p, r, 3 metric diagonals   (5)  writes 2s-1
+#                       basis vectors
+#   update kernel (K9): reads x + the 2s+1 basis (incl.  (2s+2)  writes x,
+#                       p and r, re-read)                        r, p (3)
+# = (2s+7) reads + (2s+2) writes = 4s+9 streams per s iterations: the v2
+# budget (13) at s=1, 25/4 = 6.25 streams/iter at the default s=4.  In the
+# port K8 is a chain of s + 2 launches over the whole box (its source note
+# states what the chain moves); the books stay the reference's, the least
+# traffic the algorithm needs.
+SSTEP_DEFAULT_S = 4
+
+
+def sstep_cycle_streams(s: int) -> tuple[int, int]:
+    """(reads, writes) full-field streams per s-step *cycle* (s iterations)."""
+    return 2 * s + 7, 2 * s + 2
+
+
+def sstep_streams(s: int) -> tuple[float, float]:
+    """(reads, writes) streams per DOF per CG *iteration* of the s-step
+    pipeline — the per-cycle budget amortized by 1/s.  ``sstep_streams(1)``
+    equals the v2 budget exactly: (9, 4)."""
+    r, w = sstep_cycle_streams(s)
+    return r / float(s), w / float(s)
+
+
+def sstep_halo_streams(s: int, sz: int) -> float:
+    """Stream-equivalents of the reference's matrix-powers halo, per
+    iteration: ``5 * 2s / sz`` stream-fractions per cycle over s iterations,
+    ``10/sz`` whatever s is.  It prices the TPU kernel's materialized ghost
+    windows, which the port's K8 does not have; kept for parity with the
+    reference's books, not as the port's bound."""
+    return 2.0 * 5.0 * float(s) / (float(sz) * float(s))
+
 
 # Preconditioned v2 pipelines (core/precond.py, DESIGN.md §9).
 #
@@ -106,6 +155,26 @@ def cg_iter_bytes(ndof: int, itemsize: int = 8) -> tuple[int, int]:
 def intensity(n: int, itemsize: int = 8) -> float:
     """Eq. 2 generalized to dtype: I = (12n+34) / (30 * itemsize)."""
     return flops_per_dof(n) / (30.0 * itemsize)
+
+
+def fused_cg_iter_bytes(ndof: int, itemsize: int = 8) -> tuple[int, int]:
+    """(read_bytes, write_bytes) of the step-fused CG iteration (v1, with
+    the carried r·c·r): 13 D reads, 4 D writes (vs Eq. 2's 24 + 6 — a
+    30/17 ≈ 1.76x traffic cut)."""
+    return (FUSED_CG_READ_STREAMS * ndof * itemsize,
+            FUSED_CG_WRITE_STREAMS * ndof * itemsize)
+
+
+def fused_intensity(n: int, itemsize: int = 8) -> float:
+    """Eq. 2 re-evaluated for the fused pipeline: same flops over 17 streams."""
+    return flops_per_dof(n) / (
+        (FUSED_CG_READ_STREAMS + FUSED_CG_WRITE_STREAMS) * float(itemsize))
+
+
+def sstep_intensity(n: int, s: int, itemsize: int = 8) -> float:
+    """Eq. 2 re-evaluated for the s-step pipeline (headline streams)."""
+    r, w = sstep_streams(s)
+    return flops_per_dof(n) / ((r + w) * float(itemsize))
 
 
 def fused_v2_cg_iter_bytes(ndof: int, itemsize: int = 8) -> tuple[int, int]:
@@ -281,8 +350,10 @@ def multi_rhs_streams(b: int, pipeline: str = "fused_v2"
 
     ``fused_v2``: of the 9 read streams, 3 are the shared metric diagonals
     and 6 are per-RHS vectors; all 4 write streams are per RHS:
-    ``reads = 6 + 3/b``, ``writes = 4``.  The s-step books wait for the
-    s-step port (ROADMAP.md).
+    ``reads = 6 + 3/b``, ``writes = 4``.  The reference's ``sstep_v3``
+    branch prices a batched s-step kernel that neither package has
+    (``route_name`` sends b > 1 s-step requests to ``block``); it is not
+    ported.
     """
     b = float(b)
     if b < 1:

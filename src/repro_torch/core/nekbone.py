@@ -58,13 +58,18 @@ class NekboneCase:
                'pallas_fused_cg_v2' | 'pallas_sstep_v3'.  'listing1' and
                'fused' are plain torch; 'pallas' applies the operator
                through the CUDA kernel K1 inside the reference CG loop;
-               'pallas_fused_cg_v2' runs the whole iteration in the two
-               CUDA kernels K4 and K5 (core/cg_fused.py).  The names keep
-               the reference package's spelling.  'auto' (the autotuned
-               pick) is not ported yet and raises.
+               'pallas_fused_cg' runs the v1 fused iteration over K3
+               (core/cg_fused.py); 'pallas_fused_cg_v2' runs the whole
+               iteration in the two CUDA kernels K4 and K5
+               (core/cg_fused.py); 'pallas_sstep_v3' runs s iterations
+               per cycle over K8 and K9 (core/cg_sstep.py).  The names
+               keep the reference package's spelling.  'auto' (the
+               autotuned pick) is not ported yet and raises.
       precision: 'f64' | 'f32' | 'bf16' | 'bf16_ir' | 'f32_ir' | None — the
                fused pipeline's precision policy.  Non-refined policies
                also set ``dtype`` to the storage dtype.
+      s:       iterations per s-step cycle (the 'pallas_sstep_v3' knob;
+               ignored by every other ax_impl).
       precond: None | 'jacobi' | 'cheb' (optionally 'cheb<k>') | 'pmg'
                (optionally 'pmg[cheb<k>]') — the case's default
                preconditioner (core/precond.py).  Solves through
@@ -85,6 +90,7 @@ class NekboneCase:
     dtype: torch.dtype = torch.float32
     ax_impl: str = "fused"
     precision: str | None = None
+    s: int = 4
     precond: str | None = None
     cheb_k: int = 4
     device: torch.device | str | None = None

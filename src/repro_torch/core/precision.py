@@ -74,6 +74,17 @@ class PrecisionPolicy:
         """Bytes per stored word — the byte books' multiplier."""
         return self.storage_dtype.itemsize
 
+    @property
+    def gram(self) -> str:
+        """Dtype of the s-step Gram/recurrence solve — always float64.
+
+        The (2s+1)^2 Gram block conditions like ``kappa(A)^{2s}`` (DESIGN.md
+        §8), so the coefficient recurrence is solved on the host in f64
+        whatever the storage and accumulation dtypes: O(s^2) scalar work
+        per cycle, never a stream.
+        """
+        return "float64"
+
 
 POLICIES: dict[str, PrecisionPolicy] = {
     "f64": PrecisionPolicy("f64", "float64", "float64"),

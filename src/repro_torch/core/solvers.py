@@ -18,14 +18,16 @@ Routes ported so far (every route returns :class:`SolveResult`):
                    (core/precond.py)
 ``v2_tol``         the same bodies, tolerance-driven
                    (``precond.cg_fused_tol``)
+``sstep``          s-step CG over K8 + K9 (core/cg_sstep.py), fixed or
+                   tolerance-driven, theta estimated once per case
+``v1``             fused v1 fixed-iters over K3 (core/cg_fused.py)
 ``reference``      reference CG (cg / cg_fixed_iters) over
                    ``NekboneCase.ax_full``, K1 when ``ax_impl='pallas'``,
                    with the plain Jacobi, Chebyshev or pmg preconditioner
 =================  ======================================================
 
-The other routes of the reference (``ir``, ``sstep``, ``v1``) raise
-``NotImplementedError`` naming their ROADMAP.md item; nothing is
-re-routed.
+The reference's other route (``ir``) raises ``NotImplementedError``
+naming its ROADMAP.md item; nothing is re-routed.
 """
 from __future__ import annotations
 
@@ -86,6 +88,37 @@ def _drive_v2_tol(case, f, *, b, niter, tol, max_iter, pc_name):
         precond=spec, mask=case.mask, c=case.c, precision=case.precision)
 
 
+def _drive_sstep(case, f, *, b, niter, tol, max_iter, pc_name):
+    from repro_torch.core.cg_sstep import cg_sstep_fixed_iters, estimate_theta
+
+    # the basis scale depends only on the case's operator — estimate once
+    # per case, not once per solve.
+    theta = getattr(case, "_sstep_theta", None)
+    if theta is None:
+        theta = estimate_theta(case.D, case.g, case.grid, case.mask)
+        case._sstep_theta = theta
+    if niter is not None:
+        return cg_sstep_fixed_iters(
+            f, D=case.D, g=case.g, grid=case.grid, niter=niter, s=case.s,
+            mask=case.mask, c=case.c, theta=theta,
+            precision=case.precision)
+    # tolerance-driven: the per-cycle host read checks the stored-residual
+    # reduction and the f64 Gram recurrence resolves the stopping point to
+    # the iteration.
+    return cg_sstep_fixed_iters(
+        f, D=case.D, g=case.g, grid=case.grid, niter=max_iter, s=case.s,
+        mask=case.mask, c=case.c, theta=theta, tol=tol,
+        precision=case.precision)
+
+
+def _drive_v1(case, f, *, b, niter, tol, max_iter, pc_name):
+    from repro_torch.core.cg_fused import cg_fused_fixed_iters
+
+    return cg_fused_fixed_iters(
+        f, D=case.D, g=case.g, mask=case.mask, c=case.c, grid=case.grid,
+        niter=niter, precision=case.precision)
+
+
 def _drive_reference(case, f, *, b, niter, tol, max_iter, pc_name):
     M = case._reference_preconditioner(pc_name)
     if niter is not None:
@@ -98,8 +131,10 @@ def _drive_reference(case, f, *, b, niter, tol, max_iter, pc_name):
 REGISTRY: dict[str, Callable] = {
     "block": _drive_block,
     "block_loop": _drive_block_loop,
+    "sstep": _drive_sstep,
     "v2": _drive_v2,
     "v2_tol": _drive_v2_tol,
+    "v1": _drive_v1,
     "reference": _drive_reference,
 }
 
@@ -107,8 +142,6 @@ REGISTRY: dict[str, Callable] = {
 # lists them.
 NOT_PORTED: dict[str, str] = {
     "ir": "queue 1 item 9 (iterative refinement)",
-    "sstep": "queue 1 item 10 (s-step CG)",
-    "v1": "queue 1 item 5 (v1 fused CG)",
 }
 
 

@@ -8,9 +8,10 @@ only::
          -Xcompiler -fPIC -Xptxas -v -DNEKBONE_REAL_F64 \\
          -o <build>/<stem>_f64-<hash>.so <stem>.cu
 
-The macro keeps only that dtype's C entry point ``<stem>_f64`` (or
-``_f32``), and with it that dtype's template instantiations, so the two
-halves build in parallel.  The libraries go to ``build/repro_torch/`` at
+The macro keeps only that dtype's C entry points ``<stem>_f64`` (or
+``_f32``; ``nekbone_ax_dots`` also exports ``nekbone_ax_pap_<dtype>``), and
+with them that dtype's template instantiations, so the two halves build in
+parallel.  The libraries go to ``build/repro_torch/`` at
 the root of the checkout (``$REPRO_TORCH_BUILD_DIR`` overrides it), named
 by a hash of the sources, the shared header and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.
@@ -34,7 +35,8 @@ __all__ = ["CSRC", "SOURCES", "DTYPES", "NVCC_FLAGS", "build_dir", "nvcc_path",
 CSRC = pathlib.Path(__file__).with_name("csrc")
 SOURCES = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
            "nekbone_pcg_update", "nekbone_cheb_apply", "nekbone_interp",
-           "nekbone_ax_slab_block", "nekbone_cg_update_block")
+           "nekbone_ax_slab_block", "nekbone_cg_update_block",
+           "nekbone_ax_dots", "nekbone_ax_powers", "nekbone_sstep_update")
 DTYPES = ("f64", "f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -114,8 +116,8 @@ def build_all() -> dict[str, pathlib.Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library whose C entry point is ``name``
-    (``<stem>_<dtype>``), building all on first use."""
+    """The loaded library ``name`` (``<stem>_<dtype>``), building all on
+    first use."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

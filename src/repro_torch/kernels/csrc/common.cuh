@@ -1,6 +1,8 @@
-// Shared helpers of the Nekbone kernels (nekbone_ax.cu, nekbone_ax_slab.cu,
-// nekbone_cg_update.cu, nekbone_pcg_update.cu, nekbone_cheb_apply.cu,
-// nekbone_ax_slab_block.cu, nekbone_cg_update_block.cu).
+// Shared helpers of the Nekbone kernels (nekbone_ax.cu, nekbone_ax_dots.cu,
+// nekbone_ax_slab.cu, nekbone_cg_update.cu, nekbone_pcg_update.cu,
+// nekbone_cheb_apply.cu, nekbone_ax_slab_block.cu,
+// nekbone_cg_update_block.cu, nekbone_ax_powers.cu,
+// nekbone_sstep_update.cu).
 //
 // * Rounded arithmetic without contraction.  The CG vector updates
 //   (p = r + beta p, x += alpha p, r -= alpha w, the Chebyshev recurrence)
@@ -10,9 +12,10 @@
 //   do).  The tensor contractions are free to use FMA.
 // * A deterministic block sum: a fixed shared-memory tree, so partial inner
 //   products are the same from run to run (no atomics).
-// * The local diagonal-metric operator of one element (K4, K6, K11) and the
-//   node-by-node direct-stiffness sum of an unassembled field in
-//   core/gs.ds_sum_local's tree (K5, K7, K10, K11).
+// * The local operator of one element, with the full metric (K1, K2, K3)
+//   or its diagonal (K4, K6, K8, K11), and the node-by-node direct-stiffness
+//   sum of an unassembled field in core/gs.ds_sum_local's tree (K5, K7, K8,
+//   K10, K11).
 // * Dispatch of the run-time n (2..16) to the template instantiations.
 #pragma once
 
@@ -51,8 +54,14 @@ __device__ __forceinline__ T block_sum(T v, T* sh, int tid) {
   return sh[0];
 }
 
+// The largest s of the s-step kernels (K8, K9): the Gram tile and the
+// coefficient rows are sized by it.  The monomial basis loses fp64 parity
+// with plain CG well before it (core/cg_sstep.py).
+constexpr int kSstepMaxS = 10;
+constexpr int kSstepMaxK = 2 * kSstepMaxS + 1;
+
 // ---------------------------------------------------------------------------
-// Local operator with a diagonal metric, one element per n x n thread block.
+// Local operator, one element per n x n thread block.
 // ---------------------------------------------------------------------------
 
 // Shared memory of ax_diag_columns: D and D^T, and three layers.
@@ -74,16 +83,19 @@ __device__ __forceinline__ void load_D(AxShared<N, T>& sh,
   sh.Dt[i][j] = D[j * N + i];
 }
 
-// w = D^T diag(grr, gss, gtt) D u for one element: thread (i, j) holds the
-// column uc[k] = u[k][j][i] and receives wc[k] = w[k][j][i] (unassembled,
-// unmasked).  g(c, k) returns metric diagonal c (rr, ss, tt) at the thread's
-// node of layer k.  The layer loop marches k: the r- and s-contractions go
-// through the shared layer, the t-contraction reads the thread's own
-// column, and the t-part of D^T scatters into all of wc.
+// w = D^T M D u for one element: thread (i, j) holds the column
+// uc[k] = u[k][j][i] and receives wc[k] = w[k][j][i] (unassembled,
+// unmasked).  metric(k, wr, ws, wt, ur, us, ut) applies the metric of the
+// thread's node at layer k to the reference-space gradient (wr, ws, wt).
+// The layer loop marches k: the r- and s-contractions go through the shared
+// layer, the t-contraction reads the thread's own column, and the t-part of
+// D^T scatters into all of wc.  Two calls in a row need no barrier between
+// them, for the reason the layers of one call need none (see the end of the
+// loop).
 template <int N, typename T, typename Metric>
-__device__ __forceinline__ void ax_diag_columns_g(AxShared<N, T>& sh,
-                                                  Metric g, const T (&uc)[N],
-                                                  T (&wc)[N], int i, int j) {
+__device__ __forceinline__ void ax_columns(AxShared<N, T>& sh, Metric metric,
+                                           const T (&uc)[N], T (&wc)[N],
+                                           int i, int j) {
 #pragma unroll
   for (int k = 0; k < N; ++k) wc[k] = T(0);
 #pragma unroll
@@ -97,9 +109,8 @@ __device__ __forceinline__ void ax_diag_columns_g(AxShared<N, T>& sh,
       ws += sh.D[j][l] * sh.u[l][i];
       wt += sh.D[k][l] * uc[l];
     }
-    const T ur = g(0, k) * wr;
-    const T us = g(1, k) * ws;
-    const T ut = g(2, k) * wt;
+    T ur, us, ut;
+    metric(k, wr, ws, wt, ur, us, ut);
     sh.r[j][i] = ur;
     sh.s[j][i] = us;
     __syncthreads();
@@ -112,7 +123,26 @@ __device__ __forceinline__ void ax_diag_columns_g(AxShared<N, T>& sh,
     wc[k] += acc;
 #pragma unroll
     for (int m = 0; m < N; ++m) wc[m] += sh.D[k][m] * ut;
+    // The next layer writes u before its first barrier and r/s only after
+    // it; every read of this layer's u happened before the second barrier
+    // above, and of r/s before any thread reaches the next first barrier.
   }
+}
+
+// The diagonal metric: g(c, k) returns diagonal c (rr, ss, tt) at the
+// thread's node of layer k.
+template <int N, typename T, typename Metric>
+__device__ __forceinline__ void ax_diag_columns_g(AxShared<N, T>& sh,
+                                                  Metric g, const T (&uc)[N],
+                                                  T (&wc)[N], int i, int j) {
+  ax_columns(
+      sh,
+      [&g](int k, T wr, T ws, T wt, T& ur, T& us, T& ut) {
+        ur = g(0, k) * wr;
+        us = g(1, k) * ws;
+        ut = g(2, k) * wt;
+      },
+      uc, wc, i, j);
 }
 
 // The same with the metric read from device memory: ge points at the
@@ -125,6 +155,51 @@ __device__ __forceinline__ void ax_diag_columns(AxShared<N, T>& sh,
   ax_diag_columns_g(
       sh, [ge](int c, int k) { return ge[c * (N * N * N) + k * (N * N)]; },
       uc, wc, i, j);
+}
+
+// The full metric (rr, rs, rt, ss, st, tt) read from device memory: ge
+// points at the element's (6, n^3) metric plus the thread's offset (K1, K2,
+// K3).
+template <int N, typename T>
+__device__ __forceinline__ void ax_full_columns(AxShared<N, T>& sh,
+                                                const T* __restrict__ ge,
+                                                const T (&uc)[N], T (&wc)[N],
+                                                int i, int j) {
+  ax_columns(
+      sh,
+      [ge](int k, T wr, T ws, T wt, T& ur, T& us, T& ut) {
+        const T* gk = ge + k * (N * N);
+        const T grr = gk[0 * (N * N * N)], grs = gk[1 * (N * N * N)];
+        const T grt = gk[2 * (N * N * N)], gss = gk[3 * (N * N * N)];
+        const T gst = gk[4 * (N * N * N)], gtt = gk[5 * (N * N * N)];
+        ur = grr * wr + grs * ws + grt * wt;
+        us = grs * wr + gss * ws + gst * wt;
+        ut = grt * wr + gst * ws + gtt * wt;
+      },
+      uc, wc, i, j);
+}
+
+// Masked A_loc of the thread's column dc, written unassembled to ad: the box
+// mask (mz * my) * mx from its per-axis factors, whose values 0 and 1 make
+// any order of the product exact (K8, K11).
+template <int N, typename T>
+__device__ __forceinline__ void masked_ax(AxShared<N, T>& sh,
+                                          const T* __restrict__ g3,
+                                          const T* __restrict__ mx,
+                                          const T* __restrict__ my,
+                                          const T* __restrict__ mz,
+                                          const T (&dc)[N], T* ad, size_t e,
+                                          int i, int j, int ix, int iy,
+                                          int iz) {
+  constexpr int N2 = N * N;
+  constexpr int N3 = N * N * N;
+  const int tid = j * N + i;
+  T wc[N];
+  ax_diag_columns(sh, g3 + e * 3 * N3 + tid, dc, wc, i, j);
+  const T myx = my[iy * N + j] * mx[ix * N + i];
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    ad[e * N3 + tid + k * N2] = wc[k] * (mz[iz * N + k] * myx);
 }
 
 // ---------------------------------------------------------------------------

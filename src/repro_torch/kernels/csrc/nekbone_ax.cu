@@ -20,8 +20,9 @@
 // by device-memory bytes (about 20 us at the data sheet's 3.35 TB/s).  The
 // design reads each input once and writes w once: u's column is loaded
 // once into registers, the metric is read once per node, and nothing else
-// leaves the SM.  It is a first, simple version: no TMA, no prefetch of the
-// next layer's metric, one element per block.
+// leaves the SM.  The layer loop is common.cuh's ax_full_columns, shared
+// with K2 and K3 (nekbone_ax_dots.cu).  It is a first, simple version: no
+// TMA, no prefetch of the next layer's metric, one element per block.
 //
 // n is a template parameter (2..16, dispatched at run time); T is float or
 // double, and the kernel accumulates in T (the reference's _accum rule for
@@ -38,66 +39,21 @@ nekbone_ax_kernel(const T* __restrict__ u, const T* __restrict__ D,
                   const T* __restrict__ g, T* __restrict__ w) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
-  __shared__ T sD[N][N];   // sD[a][b]  = D[a, b]
-  __shared__ T sDt[N][N];  // sDt[a][b] = D[b, a]
-  __shared__ T su[N][N];   // layer k of u
-  __shared__ T sr[N][N];   // layer k of ur
-  __shared__ T ss[N][N];   // layer k of us
+  __shared__ AxShared<N, T> sh;
 
   const int i = threadIdx.x;
   const int j = threadIdx.y;
   const size_t e = blockIdx.x;
-  const T* ue = u + e * N3 + j * N + i;
-  const T* ge = g + e * 6 * N3 + j * N + i;
-  T* we = w + e * N3 + j * N + i;
+  const size_t base = e * N3 + j * N + i;
 
-  sD[j][i] = D[j * N + i];
-  sDt[i][j] = D[j * N + i];
+  load_D(sh, D, i, j);
   T uc[N];
   T wc[N];
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    uc[k] = ue[k * N2];
-    wc[k] = T(0);
-  }
-
+  for (int k = 0; k < N; ++k) uc[k] = u[base + k * N2];
+  ax_full_columns(sh, g + e * 6 * N3 + j * N + i, uc, wc, i, j);
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    su[j][i] = uc[k];
-    __syncthreads();
-    T wr = T(0), ws = T(0), wt = T(0);
-#pragma unroll
-    for (int l = 0; l < N; ++l) {
-      wr += sDt[l][i] * su[j][l];
-      ws += sD[j][l] * su[l][i];
-      wt += sD[k][l] * uc[l];
-    }
-    const T* gk = ge + k * N2;
-    const T grr = gk[0 * N3], grs = gk[1 * N3], grt = gk[2 * N3];
-    const T gss = gk[3 * N3], gst = gk[4 * N3], gtt = gk[5 * N3];
-    const T ur = grr * wr + grs * ws + grt * wt;
-    const T us = grs * wr + gss * ws + gst * wt;
-    const T ut = grt * wr + gst * ws + gtt * wt;
-    sr[j][i] = ur;
-    ss[j][i] = us;
-    __syncthreads();
-    T acc = T(0);
-#pragma unroll
-    for (int l = 0; l < N; ++l) {
-      acc += sD[l][i] * sr[j][l];
-      acc += sD[l][j] * ss[l][i];
-    }
-    wc[k] += acc;
-#pragma unroll
-    for (int m = 0; m < N; ++m) wc[m] += sD[k][m] * ut;
-    // The next layer writes su before its first barrier and sr/ss only
-    // after it; every read of this layer's su happened before the second
-    // barrier above, and of sr/ss before any thread reaches the next first
-    // barrier, so no third barrier is needed.
-  }
-
-#pragma unroll
-  for (int k = 0; k < N; ++k) we[k * N2] = wc[k];
+  for (int k = 0; k < N; ++k) w[base + k * N2] = wc[k];
 }
 
 template <int N, typename T>

@@ -33,8 +33,8 @@
 // The unassembled A_loc d ping-pongs between two buffers, since a step reads
 // its neighbours' copies of the previous one while it writes the next; d,
 // res and z are read and written only by their own element's block, so they
-// are updated in place.  The local operator is common.cuh's
-// ax_diag_columns, the same code as K4's.
+// are updated in place.  The local operator is common.cuh's masked_ax
+// (ax_diag_columns, the same code as K4's), shared with K8.
 //
 // Bound: bytes.  The reference's book is r and the 3 metric diagonals in,
 // z out: 5 x 8.19 MB = 41.0 MB at E=1024, n=10, fp64 (12.2 us at 3.35
@@ -54,29 +54,6 @@
 #include "common.cuh"
 
 namespace nekbone {
-
-// Masked A_loc of the thread's column dc, written unassembled to ad.
-template <int N, typename T>
-__device__ __forceinline__ void masked_ax(AxShared<N, T>& sh,
-                                          const T* __restrict__ g3,
-                                          const T* __restrict__ mx,
-                                          const T* __restrict__ my,
-                                          const T* __restrict__ mz,
-                                          const T (&dc)[N], T* ad, size_t e,
-                                          int i, int j, int ix, int iy,
-                                          int iz) {
-  constexpr int N2 = N * N;
-  constexpr int N3 = N * N * N;
-  const int tid = j * N + i;
-  T wc[N];
-  ax_diag_columns(sh, g3 + e * 3 * N3 + tid, dc, wc, i, j);
-  // the box mask is (mz * my) * mx; all factors are 0 or 1, so any order of
-  // the product is exact.
-  const T myx = my[iy * N + j] * mx[ix * N + i];
-#pragma unroll
-  for (int k = 0; k < N; ++k)
-    ad[e * N3 + tid + k * N2] = wc[k] * (mz[iz * N + k] * myx);
-}
 
 template <int N, typename T>
 __global__ void __launch_bounds__(N * N)

@@ -1,4 +1,4 @@
-"""Wrappers of the CUDA kernels of the Nekbone operator, v2 CG and PCG.
+"""Wrappers of the CUDA kernels of the Nekbone operator, CG and PCG.
 
 * ``nekbone_ax_cuda`` — K1, ``csrc/nekbone_ax.cu``, replaces the reference's
   ``kernels/nekbone_ax.py:nekbone_ax_kernel``;
@@ -17,7 +17,15 @@
   replaces ``nekbone_ax_slab_block_kernel`` (K4 over b right-hand sides);
 * ``nekbone_cg_update_block_cuda`` — K7,
   ``csrc/nekbone_cg_update_block.cu``, replaces
-  ``nekbone_cg_update_block_kernel`` (K5 over b right-hand sides).
+  ``nekbone_cg_update_block_kernel`` (K5 over b right-hand sides);
+* ``nekbone_ax_pap_cuda`` — K3, and ``nekbone_ax_dots_cuda`` — K2, both
+  ``csrc/nekbone_ax_dots.cu``, replace ``nekbone_ax_pap_kernel`` and
+  ``nekbone_ax_dots_kernel`` (the v1 fused iteration's operator);
+* ``nekbone_ax_powers_cuda`` — K8, ``csrc/nekbone_ax_powers.cu``, replaces
+  ``nekbone_ax_powers_kernel`` (the s-step basis and Gram; one call queues
+  s + 2 device launches and counts once);
+* ``nekbone_sstep_update_cuda`` — K9, ``csrc/nekbone_sstep_update.cu``,
+  replaces ``nekbone_sstep_update_kernel`` (the s-step multi-axpy).
 
 Every wrapper takes the kernel's flat operands ((E, n^3) fields, or
 (b, E, n^3) for K6 and K7), and:
@@ -39,14 +47,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (nekbone_ax_plain,
+from repro_torch.kernels.ref import (nekbone_ax_dots_plain,
+                                     nekbone_ax_pap_plain,
+                                     nekbone_ax_plain,
+                                     nekbone_ax_powers_plain,
                                      nekbone_ax_slab_block_plain,
                                      nekbone_ax_slab_plain,
                                      nekbone_cg_update_block_plain,
                                      nekbone_cg_update_plain,
                                      nekbone_cheb_apply_plain,
                                      nekbone_interp_plain,
-                                     nekbone_pcg_update_plain)
+                                     nekbone_pcg_update_plain,
+                                     nekbone_sstep_update_plain)
 
 __all__ = ["LAUNCHES", "reset_launches", "nekbone_ax_cuda",
            "nekbone_ax_slab_cuda", "nekbone_cg_update_cuda",
@@ -56,13 +68,20 @@ __all__ = ["LAUNCHES", "reset_launches", "nekbone_ax_cuda",
            "nekbone_cheb_apply_plain", "nekbone_interp_cuda",
            "nekbone_interp_plain", "nekbone_ax_slab_block_cuda",
            "nekbone_ax_slab_block_plain", "nekbone_cg_update_block_cuda",
-           "nekbone_cg_update_block_plain", "N_RANGE", "INTERP_PAIRS"]
+           "nekbone_cg_update_block_plain", "nekbone_ax_pap_cuda",
+           "nekbone_ax_pap_plain", "nekbone_ax_dots_cuda",
+           "nekbone_ax_dots_plain", "nekbone_ax_powers_cuda",
+           "nekbone_ax_powers_plain", "nekbone_sstep_update_cuda",
+           "nekbone_sstep_update_plain", "N_RANGE", "INTERP_PAIRS",
+           "SSTEP_MAX_S"]
 
 # Kernel launches per wrapper since the last reset_launches(); plain ints.
 LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
             "nekbone_pcg_update": 0, "nekbone_cheb_apply": 0,
             "nekbone_interp": 0, "nekbone_ax_slab_block": 0,
-            "nekbone_cg_update_block": 0}
+            "nekbone_cg_update_block": 0, "nekbone_ax_pap": 0,
+            "nekbone_ax_dots": 0, "nekbone_ax_powers": 0,
+            "nekbone_sstep_update": 0}
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
@@ -71,6 +90,9 @@ N_RANGE = range(2, 17)
 INTERP_PAIRS = frozenset(
     pair for nf in range(3, 17) for pair in ((nf, (nf + 1) // 2),
                                              ((nf + 1) // 2, nf)))
+# The largest s the s-step kernels K8 and K9 take (kSstepMaxS of
+# csrc/common.cuh: the Gram tile and the coefficient rows are sized by it).
+SSTEP_MAX_S = 10
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -84,7 +106,13 @@ _ARGTYPES = {
     "nekbone_interp": [_P] * 3 + [_I] * 3 + [_P],
     "nekbone_ax_slab_block": [_P] * 11 + [_I] * 5 + [_P],
     "nekbone_cg_update_block": [_P] * 11 + [_I] * 5 + [_P],
+    "nekbone_ax_pap": [_P] * 6 + [_I] * 2 + [_P],
+    "nekbone_ax_dots": [_P] * 9 + [_I] * 2 + [_P],
+    "nekbone_ax_powers": [_P] * 17 + [_I] * 5 + [_P],
+    "nekbone_sstep_update": [_P] * 12 + [_I] * 5 + [_P],
 }
+# Entry points that live in another stem's library.
+_LIBRARY = {"nekbone_ax_pap": "nekbone_ax_dots"}
 
 
 def reset_launches() -> None:
@@ -93,8 +121,9 @@ def reset_launches() -> None:
 
 
 def _function(stem: str, dtype: torch.dtype):
-    name = f"{stem}_{_SUFFIX[dtype]}"
-    fn = getattr(_build.load(name), name)
+    suffix = _SUFFIX[dtype]
+    name = f"{stem}_{suffix}"
+    fn = getattr(_build.load(f"{_LIBRARY.get(stem, stem)}_{suffix}"), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[stem]
         fn.restype = ctypes.c_int
@@ -335,3 +364,110 @@ def nekbone_cg_update_block_cuda(x3, p3, r3, w3, alpha, cx, cy, cz, *,
             (x3, p3, r3, w3, alpha, cx, cy, cz, x_out, r_out, rcr),
             (ex, ey, ez, n, b))
     return x_out, r_out, rcr
+
+
+def nekbone_ax_pap_cuda(p2, D, g2, mask2, *, n: int):
+    """K3: ``w = mask (D^T G D p)`` with the full metric, pap partials.
+
+    Operands as :func:`repro_torch.kernels.ref.nekbone_ax_pap_plain`:
+    ``p2``, ``mask2``: (E, n^3); ``g2``: (E, 6, n^3).  Returns ``(w, pap)``
+    with ``w`` unassembled and ``pap`` of shape (E,).
+    """
+    if p2.device.type == "cpu":
+        return nekbone_ax_pap_plain(p2, D, g2, mask2, n=n)
+    E = p2.shape[0]
+    n3 = n ** 3
+    _check("nekbone_ax_pap", n, p2.dtype, p2.device, p2=(p2, (E, n3)),
+           D=(D, (n, n)), g2=(g2, (E, 6, n3)), mask2=(mask2, (E, n3)))
+    w2 = torch.empty_like(p2)
+    pap = torch.empty(E, dtype=p2.dtype, device=p2.device)
+    _launch("nekbone_ax_pap", p2.dtype, p2.device, (p2, D, g2, mask2, w2, pap),
+            (E, n))
+    return w2, pap
+
+
+def nekbone_ax_dots_cuda(p2, D, g2, mask2, r2, c2, *, n: int):
+    """K2: K3 plus per-element ``r·c·r`` partials.
+
+    Operands as :func:`repro_torch.kernels.ref.nekbone_ax_dots_plain`.
+    Returns ``(w, pap, rcz)`` with ``pap`` and ``rcz`` of shape (E,).
+    """
+    if p2.device.type == "cpu":
+        return nekbone_ax_dots_plain(p2, D, g2, mask2, r2, c2, n=n)
+    E = p2.shape[0]
+    n3 = n ** 3
+    _check("nekbone_ax_dots", n, p2.dtype, p2.device, p2=(p2, (E, n3)),
+           D=(D, (n, n)), g2=(g2, (E, 6, n3)), mask2=(mask2, (E, n3)),
+           r2=(r2, (E, n3)), c2=(c2, (E, n3)))
+    w2 = torch.empty_like(p2)
+    parts = torch.empty(2, E, dtype=p2.dtype, device=p2.device)
+    _launch("nekbone_ax_dots", p2.dtype, p2.device,
+            (p2, D, g2, mask2, r2, c2, w2, parts[0], parts[1]), (E, n))
+    return w2, parts[0], parts[1]
+
+
+def _check_s(stem: str, s: int) -> None:
+    if not 1 <= s <= SSTEP_MAX_S:
+        raise ValueError(f"{stem}: s={s} outside the built range "
+                         f"1..{SSTEP_MAX_S}")
+
+
+def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
+                           *, n: int, s: int):
+    """K8: the scaled s-step basis and per-element Gram partials.
+
+    Operands as :func:`repro_torch.kernels.ref.nekbone_ax_powers_plain`.
+    The kernel allocates nothing: this wrapper hands it the basis, the Gram
+    partials and four buffers of unassembled operator outputs (two per
+    chain).  Returns ``(basis, gram)``: (E, 2s-1, n^3) and
+    (E, 2s+1, 2s+1).
+    """
+    if p2.device.type == "cpu":
+        return nekbone_ax_powers_plain(p2, r2, D, g3, mx, my, mz, cx, cy, cz,
+                                       inv_theta, n=n, s=s)
+    _check_s("nekbone_ax_powers", s)
+    ex, ey, ez = mx.shape[0], my.shape[0], mz.shape[0]
+    E = ex * ey * ez
+    n3 = n ** 3
+    _check("nekbone_ax_powers", n, p2.dtype, p2.device, p2=(p2, (E, n3)),
+           r2=(r2, (E, n3)), D=(D, (n, n)), g3=(g3, (E, 3, n3)),
+           mx=(mx, (ex, n)), my=(my, (ey, n)), mz=(mz, (ez, n)),
+           cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)),
+           inv_theta=(inv_theta.reshape(1), (1,)))
+    K = 2 * s + 1
+    basis = torch.empty(E, 2 * s - 1, n3, dtype=p2.dtype, device=p2.device)
+    gram = torch.empty(E, K, K, dtype=p2.dtype, device=p2.device)
+    scratch = torch.empty(4, E, n3, dtype=p2.dtype, device=p2.device)
+    _launch("nekbone_ax_powers", p2.dtype, p2.device,
+            (p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta, basis, gram,
+             *scratch), (ex, ey, ez, n, s))
+    return basis, gram
+
+
+def nekbone_sstep_update_cuda(x2, p2, r2, basis, coef, cx, cy, cz, *, n: int,
+                              s: int):
+    """K9: the s-step multi-axpy and per-element ``r·c·r`` partials.
+
+    Operands as :func:`repro_torch.kernels.ref.nekbone_sstep_update_plain`:
+    ``basis`` (E, 2s-1, n^3) from K8, ``coef`` (3, 2s+1).  Returns
+    ``(x, r, p, rcr)`` with ``rcr`` of shape (E,).
+    """
+    if x2.device.type == "cpu":
+        return nekbone_sstep_update_plain(x2, p2, r2, basis, coef, cx, cy, cz,
+                                          n=n, s=s)
+    _check_s("nekbone_sstep_update", s)
+    ex, ey, ez = cx.shape[0], cy.shape[0], cz.shape[0]
+    E = ex * ey * ez
+    n3 = n ** 3
+    _check("nekbone_sstep_update", n, x2.dtype, x2.device, x2=(x2, (E, n3)),
+           p2=(p2, (E, n3)), r2=(r2, (E, n3)),
+           basis=(basis, (E, 2 * s - 1, n3)), coef=(coef, (3, 2 * s + 1)),
+           cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    x_out = torch.empty_like(x2)
+    r_out = torch.empty_like(r2)
+    p_out = torch.empty_like(p2)
+    rcr = torch.empty(E, dtype=x2.dtype, device=x2.device)
+    _launch("nekbone_sstep_update", x2.dtype, x2.device,
+            (x2, p2, r2, basis, coef, cx, cy, cz, x_out, r_out, p_out, rcr),
+            (ex, ey, ez, n, s))
+    return x_out, r_out, p_out, rcr

@@ -14,8 +14,10 @@ from repro_torch.core.geom import (GEOM_RR, GEOM_RS, GEOM_RT, GEOM_SS,
 from repro_torch.kernels import nekbone_ax as _ax
 from repro_torch.kernels.ref import accum_dtype
 
-__all__ = ["nekbone_ax", "slab_axis_factors", "diag_metric",
-           "nekbone_pcg_update", "nekbone_cheb_precond", "nekbone_interp"]
+__all__ = ["nekbone_ax", "nekbone_ax_dots", "nekbone_ax_pap",
+           "slab_axis_factors", "diag_metric", "nekbone_ax_powers",
+           "nekbone_sstep_update", "nekbone_pcg_update",
+           "nekbone_cheb_precond", "nekbone_interp"]
 
 
 def nekbone_ax(u: torch.Tensor, D: torch.Tensor,
@@ -32,6 +34,44 @@ def nekbone_ax(u: torch.Tensor, D: torch.Tensor,
     w2 = _ax.nekbone_ax_cuda(u.reshape(E, n ** 3), D.contiguous(),
                              g.reshape(E, 6, n ** 3), n=n)
     return w2.reshape(u.shape)
+
+
+def nekbone_ax_dots(p: torch.Tensor, D: torch.Tensor, g: torch.Tensor,
+                    mask: torch.Tensor, r: torch.Tensor, c: torch.Tensor):
+    """Masked local Ax and the two CG inner products through K2.
+
+    Args:
+      p, r: (E, n, n, n) search direction / residual (p continuous).
+      D: (n, n); g: (E, 6, n, n, n); mask, c: (E, n, n, n).
+
+    Returns ``(w, pap, rcz)``: the *masked local* operator output (still to
+    be assembled with gs — mask and gs commute) and the summed scalars
+    ``pap == p·c·(mask gs w)`` and ``rcz == r·c·r``.  The reference's
+    ``block_e`` and ``interpret`` have no counterpart: K2 works per element.
+    """
+    E = p.shape[0]
+    n = p.shape[-1]
+    n3 = n ** 3
+    w2, pap_e, rcz_e = _ax.nekbone_ax_dots_cuda(
+        p.reshape(E, n3), D.contiguous(), g.reshape(E, 6, n3),
+        mask.reshape(E, n3), r.reshape(E, n3), c.reshape(E, n3), n=n)
+    return w2.reshape(p.shape), torch.sum(pap_e), torch.sum(rcz_e)
+
+
+def nekbone_ax_pap(p: torch.Tensor, D: torch.Tensor, g: torch.Tensor,
+                   mask: torch.Tensor):
+    """Masked local Ax and ``p·c·(mask gs w)`` through K3 (the v1 loop's
+    kernel: :func:`nekbone_ax_dots` without the ``r·c·r`` partial).
+
+    Returns ``(w, pap)``.
+    """
+    E = p.shape[0]
+    n = p.shape[-1]
+    n3 = n ** 3
+    w2, pap_e = _ax.nekbone_ax_pap_cuda(
+        p.reshape(E, n3), D.contiguous(), g.reshape(E, 6, n3),
+        mask.reshape(E, n3), n=n)
+    return w2.reshape(p.shape), torch.sum(pap_e)
 
 
 def slab_axis_factors(grid: tuple[int, int, int], n: int, dtype: torch.dtype,
@@ -160,3 +200,67 @@ def nekbone_interp(u: torch.Tensor, M, grid: tuple[int, int, int]
     v2 = _ax.nekbone_interp_cuda(u.reshape(E, nin ** 3).contiguous(),
                                  M.T.contiguous(), nin=nin, nout=nout)
     return v2.reshape(E, nout, nout, nout)
+
+
+def nekbone_ax_powers(p: torch.Tensor, r: torch.Tensor, D: torch.Tensor,
+                      g3: torch.Tensor, grid: tuple[int, int, int], *, s: int,
+                      theta: float = 1.0):
+    """The s-step matrix-powers kernel (K8) on natural shapes.
+
+    Evaluates the scaled Krylov basis of one s-step cycle —
+    ``A' = (gs mask ax_local) / theta`` chained s times from ``p`` and s-1
+    times from ``r`` — and the (2s+1)^2 Gram block of ``V = [p, A'p..,
+    r, A'r..]`` under the weight ``c``.  The reference's halo windows and
+    its ``sz``, ``layout`` and ``grid_order`` are TPU knobs with no
+    counterpart: K8 computes the same function over the whole box.
+
+    Args:
+      p, r: (E, n, n, n), z-major over ``grid``; both continuous and masked.
+      D: (n, n); g3: diagonal (E, 3, ...) or a 6-component metric whose
+         off-diagonal entries are zero; theta: basis scale; s: powers per
+         cycle (1..``SSTEP_MAX_S``).
+
+    Returns ``(basis, gram)``: basis (E, 2s-1, n, n, n) holding
+    ``[A'p..A'^s p, A'r..A'^{s-1} r]`` and the summed (2s+1, 2s+1) Gram
+    matrix.
+    """
+    E = p.shape[0]
+    n = p.shape[-1]
+    n3 = n ** 3
+    (mx, my, mz), (cx, cy, cz) = slab_axis_factors(tuple(grid), n, p.dtype,
+                                                   p.device)
+    inv_theta = torch.full((1,), 1.0 / theta, dtype=accum_dtype(p.dtype),
+                           device=p.device)
+    basis, gram_e = _ax.nekbone_ax_powers_cuda(
+        p.reshape(E, n3).contiguous(), r.reshape(E, n3).contiguous(),
+        D.to(p.dtype).contiguous(), diag_metric(g3.to(p.dtype), E, n), mx, my,
+        mz, cx, cy, cz, inv_theta, n=n, s=s)
+    return basis.reshape(E, 2 * s - 1, n, n, n), torch.sum(gram_e, dim=0)
+
+
+def nekbone_sstep_update(x: torch.Tensor, p: torch.Tensor, r: torch.Tensor,
+                         basis: torch.Tensor, coef, grid: tuple[int, int, int],
+                         *, s: int):
+    """The s-step multi-axpy (K9) on natural shapes.
+
+    ``x += V e``, ``r = V b``, ``p = V a`` with ``V`` in K8's column order
+    and ``coef`` the (3, 2s+1) rows (e, b, a), plus the post-cycle
+    ``sum(r * c * r)`` (``c`` rebuilt in the kernel).
+
+    Args:
+      x, p, r: (E, n, n, n); basis: (E, 2s-1, n, n, n) from
+      :func:`nekbone_ax_powers`; coef: (3, 2s+1).
+
+    Returns ``(x_new, r_new, p_new, rcr)``.
+    """
+    E = x.shape[0]
+    n = x.shape[-1]
+    n3 = n ** 3
+    _, (cx, cy, cz) = slab_axis_factors(tuple(grid), n, x.dtype, x.device)
+    coef = torch.as_tensor(coef, dtype=accum_dtype(x.dtype),
+                           device=x.device).contiguous()
+    x2, r2, p2, rcr_e = _ax.nekbone_sstep_update_cuda(
+        x.reshape(E, n3), p.reshape(E, n3), r.reshape(E, n3),
+        basis.reshape(E, 2 * s - 1, n3), coef, cx, cy, cz, n=n, s=s)
+    return (x2.reshape(x.shape), r2.reshape(x.shape), p2.reshape(x.shape),
+            torch.sum(rcr_e))

@@ -20,7 +20,9 @@ __all__ = ["accum_dtype", "nekbone_ax_ref", "nekbone_ax_plain",
            "nekbone_ax_slab_plain", "nekbone_cg_update_plain",
            "nekbone_pcg_update_plain", "nekbone_cheb_apply_plain",
            "nekbone_interp_plain", "nekbone_ax_slab_block_plain",
-           "nekbone_cg_update_block_plain"]
+           "nekbone_cg_update_block_plain", "nekbone_ax_pap_plain",
+           "nekbone_ax_dots_plain", "nekbone_ax_powers_plain",
+           "nekbone_sstep_update_plain"]
 
 
 def accum_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -223,3 +225,108 @@ def nekbone_cg_update_block_plain(x3, p3, r3, w3, alpha, cx, cy, cz, *,
                                      cx, cy, cz, n=n)
              for j in range(x3.shape[0])]
     return tuple(torch.stack(t) for t in zip(*lanes))
+
+
+def nekbone_ax_pap_plain(p2, D, g2, mask2, *, n: int):
+    """K3: masked full-metric Ax and per-element ``p·w`` partials.
+
+    ``p2``, ``mask2``: (E, n^3); ``g2``: (E, 6, n^3) metric; ``D``: (n, n).
+    Returns ``(w, pap)``: the masked *unassembled* operator output and one
+    ``sum(p * w)`` per element (E,), taken before ``w`` is rounded to
+    storage, as the reference does.
+    """
+    acc = accum_dtype(p2.dtype)
+    E = p2.shape[0]
+    p = p2.to(acc)
+    w = ax_local_fused(p.reshape(E, n, n, n), D.to(acc),
+                       g2.to(acc).reshape(E, 6, n, n, n)).reshape(E, n ** 3)
+    w = w * mask2.to(acc)
+    return w.to(p2.dtype), (p * w).sum(dim=1)
+
+
+def nekbone_ax_dots_plain(p2, D, g2, mask2, r2, c2, *, n: int):
+    """K2: K3 plus per-element ``r·c·r`` partials (``r2``, ``c2``: (E, n^3)).
+
+    Returns ``(w, pap, rcz)``.
+    """
+    acc = accum_dtype(p2.dtype)
+    w, pap = nekbone_ax_pap_plain(p2, D, g2, mask2, n=n)
+    r = r2.to(acc)
+    return w, pap, (r * c2.to(acc) * r).sum(dim=1)
+
+
+def nekbone_ax_powers_plain(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
+                            *, n: int, s: int):
+    """K8: the scaled s-step basis and its per-element Gram partials.
+
+    ``A' v = inv_theta * gs(mask * A_loc v)`` (mask, then assemble, then
+    scale, the reference's order), chained s times from ``p2`` and s - 1
+    times from ``r2``; each vector is rounded through storage before it is
+    applied again and before the Gram.
+
+    Args:
+      p2, r2: (E, n^3) continuous, masked; D: (n, n); g3: (E, 3, n^3)
+      metric diagonal; mx, my, mz / cx, cy, cz: per-axis mask / ``c``
+      factors, whose lengths give the element grid; inv_theta: one-element
+      tensor ``1/theta``.
+
+    Returns ``(basis, gram)``: basis (E, 2s-1, n^3) holding ``[A'p..A'^s p,
+    A'r..A'^{s-1} r]`` and gram (E, 2s+1, 2s+1) with
+    ``gram[e, a, b] = sum(V_a * c * V_b)`` over element e.
+    """
+    acc = accum_dtype(p2.dtype)
+    E = p2.shape[0]
+    grid = _grid(mx, my, mz)
+    D = D.to(acc)
+    g = g3.to(acc).reshape(E, 3, n, n, n)
+    mask = box_outer(mz.to(acc), my.to(acc), mx.to(acc)).reshape(E, n, n, n)
+    ith = inv_theta.reshape(()).to(acc)
+
+    def chain(v, napps):
+        out = []
+        for _ in range(napps):
+            v = ds_sum_local(_masked_ax_diag(v, D, g, mask), grid) * ith
+            v = v.to(p2.dtype).to(acc)     # rounded through storage
+            out.append(v)
+        return out
+
+    p = p2.to(acc).reshape(E, n, n, n)
+    r = r2.to(acc).reshape(E, n, n, n)
+    new = chain(p, s) + chain(r, s - 1)
+    basis = torch.stack(new, dim=1).reshape(E, 2 * s - 1, n ** 3)
+    V = torch.stack([p] + new[:s] + [r] + new[s:], dim=1).reshape(
+        E, 2 * s + 1, n ** 3)
+    c = box_outer(cz.to(acc), cy.to(acc), cx.to(acc)).reshape(E, 1, n ** 3)
+    gram = torch.einsum("eal,ebl->eab", V * c, V)
+    return basis.to(p2.dtype), gram
+
+
+def nekbone_sstep_update_plain(x2, p2, r2, basis, coef, cx, cy, cz, *,
+                               n: int, s: int):
+    """K9: ``x += V coef[0]``, ``r = V coef[1]``, ``p = V coef[2]`` and the
+    per-element ``r·c·r`` partials over the stored r.
+
+    ``x2``, ``p2``, ``r2``: (E, n^3); ``basis``: (E, 2s-1, n^3) from K8;
+    ``coef``: (3, 2s+1).  The terms are added in ``V``'s column order, x
+    from the old x and r, p from zero, each product and sum rounded, as the
+    reference and the kernel do.  Returns ``(x, r, p, rcr)``.
+    """
+    acc = accum_dtype(x2.dtype)
+    E = x2.shape[0]
+    coef = coef.to(acc)
+    b = basis.to(acc)
+    # V's column order (K8's): p, A'p..A'^s p, r, A'r..A'^{s-1} r
+    terms = ([p2.to(acc)] + [b[:, m] for m in range(s)] + [r2.to(acc)]
+             + [b[:, s + m] for m in range(s - 1)])
+    xacc = x2.to(acc)
+    racc = torch.zeros_like(xacc)
+    pacc = torch.zeros_like(xacc)
+    for k, v in enumerate(terms):
+        xacc = xacc + coef[0, k] * v
+        racc = racc + coef[1, k] * v
+        pacc = pacc + coef[2, k] * v
+    r = racc.to(r2.dtype)
+    c = box_outer(cz.to(acc), cy.to(acc), cx.to(acc)).reshape(E, n ** 3)
+    r6 = r.to(acc)
+    return (xacc.to(x2.dtype), r, pacc.to(p2.dtype),
+            (r6 * c * r6).sum(dim=1))

@@ -34,14 +34,31 @@ def test_route_name_agrees_with_reference():
             assert got == want, (impl, prec, b, niter, pc)
             assert got in torch_solvers.REGISTRY or \
                 got in torch_solvers.NOT_PORTED
-    assert {"v2", "v2_tol", "reference", "block", "block_loop"} <= set(
-        torch_solvers.REGISTRY)
+    assert {"v2", "v2_tol", "reference", "block", "block_loop", "v1",
+            "sstep"} <= set(torch_solvers.REGISTRY)
     assert not set(torch_solvers.REGISTRY) & set(torch_solvers.NOT_PORTED)
 
 
+@pytest.mark.parametrize("kw,solve_kw,pipeline", [
+    (dict(ax_impl="pallas_fused_cg"), dict(niter=3), "fused_v1"),
+    (dict(ax_impl="pallas_sstep_v3"), dict(niter=3), "sstep_v3"),
+    (dict(ax_impl="pallas_sstep_v3", s=2), dict(tol=1e-3, max_iter=20),
+     "sstep_v3"),
+], ids=["v1", "sstep", "sstep_tol"])
+def test_ported_routes_run(kw, solve_kw, pipeline):
+    """The routes that raised before their slice now solve, and say which
+    pipeline ran."""
+    case = NekboneCase(n=3, grid=(1, 1, 2), dtype=torch.float64,
+                       device="cpu", **kw)
+    _, f = case.manufactured()
+    res = case.solve(f, **solve_kw)
+    assert res.pipeline == pipeline
+    k = int(res.iters)
+    h = res.history.numpy()
+    assert 0 < k <= solve_kw.get("niter", 20) and np.isfinite(h[:k + 1]).all()
+
+
 @pytest.mark.parametrize("kw,solve_kw", [
-    (dict(ax_impl="pallas_fused_cg"), dict(niter=3)),             # v1
-    (dict(ax_impl="pallas_sstep_v3"), dict(niter=3)),             # sstep
     (dict(ax_impl="pallas_fused_cg_v2", precision="f32_ir"),
      dict(niter=3)),                                              # ir
 ])
@@ -100,9 +117,12 @@ def test_paper_cases_mirror_reference():
     for key, cfg in PAPER_CASES.items():
         ref = jax_configs.PAPER_CASES[key]
         assert (cfg.name, cfg.n, cfg.grid, cfg.niter, cfg.dtype,
-                cfg.ax_impl, cfg.precond, cfg.cheb_k) == (
+                cfg.ax_impl, cfg.s, cfg.precond, cfg.cheb_k) == (
                     ref.name, ref.n, ref.grid, ref.niter, ref.dtype,
-                    ref.ax_impl, ref.precond, ref.cheb_k)
+                    ref.ax_impl, ref.s, ref.precond, ref.cheb_k)
+    small = NekboneConfig("tiny", n=3, grid=(1, 1, 2))
+    assert small.make_case(device="cpu").s == small.s == 4
+    assert small.make_case(device="cpu", s=2).s == 2
     assert paper_case(1024, precision="f64").precision == "f64"
     for precond in ("jacobi", "cheb"):
         assert paper_case(1024, precond=precond).precond == \
