@@ -9,9 +9,10 @@ It needs one CUDA card and ``nvcc``, imports neither ``jax`` nor the
 reference package ``repro``, and, in order:
 
 1. prints the card, its power limit, and the torch / CUDA / nvcc versions;
-2. builds the CUDA kernels from the eleven sources of
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (22
-   libraries), in parallel;
+2. builds the CUDA kernels from the thirteen sources of
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (26
+   libraries: f64 and f32 for the Nekbone kernels, f32 and bf16 for K13
+   and K14), in parallel;
 3. measures device-to-device copy bandwidth on a 1 GiB buffer (the
    measured roofline);
 4. holds K1 (the operator kernel) against its plain PyTorch version, n=2..16
@@ -59,13 +60,31 @@ reference package ``repro``, and, in order:
    v2, in turns;
 15. profiles each kernel route (device time per iteration, by kernel, and
    the device's busy share);
-16. prints the ``kernels`` JSON line, the card line, and last the result
+16. holds K13 (flash attention) and K14 (the RWKV6 recurrence) against
+   their plain versions in bf16 and f32, at gemma2-27b's heads (Hq 32,
+   Hkv 16, d 128: 2048 tokens with window 1024, global, and a q_offset
+   case) and rwkv6-1.6b's (H 32, d 64: T = 1024 from a zero and a random
+   state, T = 1), plus d = 16 with fully masked rows; bf16 outputs also
+   value by value (one bf16 step of each value);
+17. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens)
+   and gemma2-27b (2 of its 46 layers, batch 2, prompt 6144, 16 new)
+   three times each through ``launch.serve.serve`` at full width, with
+   every plain attention / WKV function and SDPA made to raise meanwhile:
+   the tokens are in range, the runs agree bitwise, the launch counts are
+   K14 = layers x tokens and K13 = layers in each; the third run is
+   profiled, its device time read against the second's wall clock;
+18. times K13 and K14 at the serve shapes beside their plain versions
+   and, for K13, SDPA; holds K13 there in bf16 and f32 (batch 2, 6144
+   tokens, global and window 4096), and shows that these checks fail a
+   K13 that ignores the window or cuts it one key short;
+19. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits with status 1 and prints no result line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import re
@@ -200,9 +219,12 @@ def _ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            nm = re.match(r"_ZN7nekbone(\d+)", mangled)
-            name = (mangled[nm.end():nm.end() + int(nm.group(1))]
-                    if nm else mangled)
+            # _ZN <namespace length><namespace> <name length><name> ...
+            nm = re.match(r"_ZN(\d+)", mangled)
+            rest = mangled[nm.end() + int(nm.group(1)):] if nm else ""
+            nl = re.match(r"\d+", rest)
+            name = (rest[nl.end():nl.end() + int(nl.group(0))]
+                    if nl else mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             key = f"{name}<{','.join(args)}>"
             out[key] = [0, 0]
@@ -228,10 +250,11 @@ def phase_build():
     for stem, path in paths.items():
         report = _ptxas_report(path.with_suffix(".log").read_text())
         spills = {key: v[1] for key, v in report.items() if v[1]}
-        # the n=10 instantiations (and K12's 10 -> 5)
+        # the n=10 instantiations (and K12's 10 -> 5); every one for K13/K14
         main = {key: v[0] for key, v in report.items()
-                if re.search(r"<10(,|>)", key)}
-        print(f"  {stem}: {path.name}; registers at n=10 {main}; spill "
+                if re.search(r"<10(,|>)", key)
+                or stem.startswith(("flash_attn", "wkv6"))}
+        print(f"  {stem}: {path.name}; registers {main}; spill "
               f"bytes by instantiation: {spills or 'none'}")
     print(f"  build seconds {seconds:.1f} (0 when cached)", flush=True)
     return seconds
@@ -387,7 +410,6 @@ def phase_routes():
     import torch
 
     from repro_torch.core.nekbone import NekboneCase
-    from repro_torch.kernels import nekbone_ax as K
 
     print(f"== paper case, both routes: n=10, E=1024, fp64, {NITER} "
           "iterations", flush=True)
@@ -402,10 +424,8 @@ def phase_routes():
         case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
                            ax_impl=impl)
         u_ex, f = case.manufactured()
-        K.reset_launches()
-        res = case.solve(f, niter=NITER)
-        torch.cuda.synchronize()
-        launches[impl] = dict(K.LAUNCHES)
+        res, launches[impl] = _launch_run(
+            lambda: case.solve(f, niter=NITER))
         h = res.history.cpu().numpy()
         check(h.shape == (NITER + 1,) and bool(np.isfinite(h).all())
               and tuple(res.x.shape) == tuple(f.shape)
@@ -648,21 +668,23 @@ def phase_interp_block_parity():
     return errs
 
 
-def _launch_run(K, fn):
+def _launch_run(fn):
     """``fn()`` with every launch count set to 0 just before it; returns
     its result and the counts read just after."""
     import torch
 
-    K.reset_launches()
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
     res = fn()
     torch.cuda.synchronize()
-    return res, dict(K.LAUNCHES)
+    return res, dict(_build.LAUNCHES)
 
 
 def _zero_but(**want):
-    from repro_torch.kernels import nekbone_ax as K
+    from repro_torch.kernels import _build
 
-    counts = dict.fromkeys(K.LAUNCHES, 0)
+    counts = dict.fromkeys(_build.LAUNCHES, 0)
     counts.update(want)
     return counts
 
@@ -681,7 +703,6 @@ def phase_pcg_routes():
     from repro_torch.core.cg import cg_fixed_iters
     from repro_torch.core.nekbone import NekboneCase
     from repro_torch.core.precond import chebyshev_preconditioner
-    from repro_torch.kernels import nekbone_ax as K
 
     print("== paper case, PCG and tolerance routes: n=10, E=1024, fp64",
           flush=True)
@@ -698,7 +719,7 @@ def phase_pcg_routes():
     v2_hist = fixed.history.cpu().numpy()
     v2_err = float(v2.solution_error(fixed.x, u_ex))
     res, launches = _launch_run(
-        K, lambda: v2.solve(f, niter=NITER, precond="jacobi"))
+        lambda: v2.solve(f, niter=NITER, precond="jacobi"))
     out["launches"]["jacobi"] = launches
     h = res.history.cpu().numpy()
     check(h.shape == (NITER + 1,) and bool(np.isfinite(h).all())
@@ -733,7 +754,7 @@ def phase_pcg_routes():
     name = f"cheb{CHEB_K}"
     spec = v2.precond_spec(name)          # the one-time Lanczos set-up
     res, launches = _launch_run(
-        K, lambda: v2.solve(f, tol=CHEB_TOL, max_iter=NITER, precond=name))
+        lambda: v2.solve(f, tol=CHEB_TOL, max_iter=NITER, precond=name))
     out["launches"]["cheb"] = launches
     it = int(res.iters)
     h = res.history.cpu().numpy()
@@ -769,7 +790,7 @@ def phase_pcg_routes():
     tol = float(v2_hist[NITER // 2]) * (1.0 + 1e-12)
     first = int(np.nonzero(v2_hist <= tol)[0][0])
     res, launches = _launch_run(
-        K, lambda: v2.solve(f, tol=tol, max_iter=NITER))
+        lambda: v2.solve(f, tol=tol, max_iter=NITER))
     out["launches"]["v2_tol"] = launches
     it = int(res.iters)
     h = res.history.cpu().numpy()
@@ -796,7 +817,6 @@ def phase_pmg_block_routes():
     from repro_torch.core.gs import ds_sum_local
     from repro_torch.core.nekbone import NekboneCase
     from repro_torch.core.pmg import pmg_vcycle_reference
-    from repro_torch.kernels import nekbone_ax as K
 
     print("== paper case, p-multigrid and block routes: n=10, E=1024, fp64",
           flush=True)
@@ -813,7 +833,7 @@ def phase_pmg_block_routes():
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
     res, launches = _launch_run(
-        K, lambda: v2.solve(f, tol=tol, max_iter=NITER, precond="pmg"))
+        lambda: v2.solve(f, tol=tol, max_iter=NITER, precond="pmg"))
     out["launches"]["pmg"] = launches
     it = int(res.iters)
     h = res.history.cpu().numpy()
@@ -865,7 +885,7 @@ def phase_pmg_block_routes():
         ds_sum_local(torch.as_tensor(rng.normal(size=tuple(f.shape)),
                                      dtype=f.dtype, device="cuda"),
                      v2.grid) * v2.mask for _ in range(BLOCK_B - 1)])
-    res, launches = _launch_run(K, lambda: v2.solve(F, niter=NITER))
+    res, launches = _launch_run(lambda: v2.solve(F, niter=NITER))
     out["launches"]["block"] = launches
     h = res.history.cpu().numpy()
     check(res.pipeline == f"fused_v2_rhs{BLOCK_B}"
@@ -893,8 +913,8 @@ def phase_pmg_block_routes():
     F2 = F[:2].contiguous()
     fixed = v2.solve(F2, niter=NITER).history.cpu().numpy()
     btol = float(fixed[:, NITER // 2].max()) * (1.0 + 1e-12)
-    res, launches = _launch_run(K, lambda: v2.solve(F2, tol=btol,
-                                                     max_iter=NITER))
+    res, launches = _launch_run(lambda: v2.solve(F2, tol=btol,
+                                                  max_iter=NITER))
     it = int(res.iters)
     h = res.history.cpu().numpy()
     first = int(np.nonzero((fixed <= btol).all(axis=0))[0][0])
@@ -920,7 +940,7 @@ def phase_pmg_block_routes():
                       * v2.bmass, v2.grid) * v2.mask
     F2 = torch.stack([f, f2])
     res, launches = _launch_run(
-        K, lambda: v2.solve(F2, tol=CHEB_TOL, max_iter=NITER, precond=name))
+        lambda: v2.solve(F2, tol=CHEB_TOL, max_iter=NITER, precond=name))
     its = [int(x) for x in res.iters.cpu()]
     # NaN-padded histories: equal bitwise, NaN where NaN
     same = all(torch.allclose(res.history[j], v2.solve(
@@ -1041,7 +1061,6 @@ def phase_v1_sstep_routes(hist):
     import torch
 
     from repro_torch.core.nekbone import NekboneCase
-    from repro_torch.kernels import nekbone_ax as K
 
     print(f"== paper case, v1 and s-step routes: n=10, E=1024, fp64, "
           f"{NITER} iterations", flush=True)
@@ -1057,7 +1076,7 @@ def phase_v1_sstep_routes(hist):
     # --- v1 (K3), 100 iterations, against the plain route on the card ---
     v1 = case_of("pallas_fused_cg")
     u_ex, f = v1.manufactured()
-    res, launches = _launch_run(K, lambda: v1.solve(f, niter=NITER))
+    res, launches = _launch_run(lambda: v1.solve(f, niter=NITER))
     out["launches"]["v1"] = launches
     h = res.history.cpu().numpy()
     check(res.pipeline == "fused_v1" and h.shape == (NITER + 1,)
@@ -1086,7 +1105,7 @@ def phase_v1_sstep_routes(hist):
                                (2, NITER - 1, SSTEP_HIST_TOL_HEAD)):
         case = case_of("pallas_sstep_v3", s=s)
         t0 = time.perf_counter()
-        res, launches = _launch_run(K, lambda: case.solve(f, niter=niter))
+        res, launches = _launch_run(lambda: case.solve(f, niter=niter))
         first_ms = (time.perf_counter() - t0) * 1e3
         out["launches"][f"sstep{s}"] = launches
         cycles = -(-niter // s)
@@ -1124,8 +1143,8 @@ def phase_v1_sstep_routes(hist):
         first = int(np.nonzero(h4 <= tol)[0][0])
         if first % SSTEP_S:
             break
-    res, launches = _launch_run(K, lambda: case.solve(f, tol=tol,
-                                                      max_iter=NITER))
+    res, launches = _launch_run(lambda: case.solve(f, tol=tol,
+                                                   max_iter=NITER))
     it = int(res.iters)
     h = res.history.cpu().numpy()
     cycles = first // SSTEP_S + 1
@@ -1567,6 +1586,398 @@ def phase_profile(cases, pcg, routes, slice4, niter: int = 20):
                                   for name, t in top), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The LM serving slice: K13 (flash attention) and K14 (WKV6)
+# ---------------------------------------------------------------------------
+# H100 SXM data sheet: dense bf16 tensor-core rate and fp32 rate outside the
+# tensor cores (K13's and K14's operation bounds).
+BF16_TENSOR_PEAK = 989e12
+FP32_PEAK = 67e12
+# gemma2-27b's attention shapes and rwkv6-1.6b's WKV shapes
+GEMMA_HEADS = dict(Hq=32, Hkv=16, d=128)
+RWKV_HEADS = dict(H=32, d=64)
+# Kernel against plain version, relative to the plain version's max |.|:
+# float32 is two summation orders; bfloat16 outputs (o) may differ by one
+# bfloat16 rounding (2^-8 of the largest value at most); K14's f32 state
+# is float32 in both dtypes, over 1024 steps.
+K13_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+K14_O_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+K14_S_TOL = 1e-4
+# bfloat16 outputs are also held value by value, so that rows far smaller
+# than the largest value are checked too: kernel and plain version each
+# round one f32 result to bfloat16, so they may differ by one bfloat16 step
+# (at most 2^-7 of the value) plus their f32 difference (the float32
+# tolerance of the largest value).
+BF16_STEP = 2.0 ** -7
+# serve runs: (arch, depth kept, batch, prompt, generated tokens)
+SERVE_RUNS = (("rwkv6-1.6b", None, 4, 1024, 32),
+              ("gemma2-27b", 2, 2, 6144, 16))
+
+
+def _attn_pairs(Sq, Skv, causal, window, q_offset=0):
+    """Unmasked (query, key) pairs of one head."""
+    import numpy as np
+
+    qpos = q_offset + np.arange(Sq)
+    hi = np.minimum(Skv, qpos + 1) if causal else np.full(Sq, Skv)
+    lo = (np.maximum(0, qpos - window + 1) if window is not None
+          else np.zeros(Sq, dtype=np.int64))
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def _k13_inputs(gen, B, Hq, Hkv, Sq, Skv, d, dtype):
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return rnd(B, Hq, Sq, d), rnd(B, Hkv, Skv, d), rnd(B, Hkv, Skv, d)
+
+
+def _k14_inputs(gen, B, H, T, d, dtype, state: bool):
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v = (rnd(B, H, T, d).to(dtype) for _ in range(3))
+    # the model's decay range: w = exp(-exp(w~)), w~ in [-8, 1]
+    wt = torch.rand((B, H, T, d), generator=gen, device="cuda") * 9.0 - 8.0
+    w = torch.exp(-torch.exp(wt))
+    u = 0.1 * rnd(H, d)
+    s0 = rnd(B, H, d, d) if state else None
+    return r, k, v, w, u, s0
+
+
+def _max_rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def _value_rel(a, b, tol32: float) -> float:
+    """max over values of |a - b| / (2^-7 |b| + tol32 max |b|): a bfloat16
+    output a agrees with b value by value where this is <= 1."""
+    bf = b.float()
+    atol = tol32 * float(bf.abs().max())
+    return float(((a.float() - bf).abs()
+                  / (BF16_STEP * bf.abs() + max(atol, 1e-30))).max())
+
+
+def _check_k13(label, o, p):
+    """K13's output o against the plain version's p (q's dtype)."""
+    import torch
+
+    kind = str(o.dtype).split(".")[1]
+    rel = _max_rel(o, p)
+    check(rel <= K13_TOL[kind] and bool(torch.isfinite(o).all()),
+          f"K13 {kind} {label}: max rel err {rel:.2e} <= {K13_TOL[kind]:g}")
+    if o.dtype == torch.bfloat16:
+        val = _value_rel(o, p, K13_TOL["float32"])
+        check(val <= 1.0, f"K13 {kind} {label}: every value within one "
+              f"bfloat16 step + {K13_TOL['float32']:g} max |o| (worst "
+              f"{val:.2f} of that)")
+
+
+def phase_lm_parity():
+    """K13 and K14 against their plain versions on the card."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as WK
+
+    print("== K13/K14 parity (kernel vs plain; gemma2-27b's Hq 32, Hkv 16, "
+          "d 128 and rwkv6-1.6b's H 32, d 64)", flush=True)
+    gen = torch.Generator("cuda").manual_seed(5)
+    err = {}
+    Hq, Hkv, d = GEMMA_HEADS["Hq"], GEMMA_HEADS["Hkv"], GEMMA_HEADS["d"]
+    k13_cases = (
+        ("window 1024", dict(B=1, Hq=Hq, Hkv=Hkv, Sq=2048, Skv=2048, d=d),
+         dict(causal=True, window=1024, softcap=50.0, q_offset=0)),
+        ("global", dict(B=1, Hq=Hq, Hkv=Hkv, Sq=2048, Skv=2048, d=d),
+         dict(causal=True, window=None, softcap=50.0, q_offset=0)),
+        ("q_offset 1536", dict(B=1, Hq=Hq, Hkv=Hkv, Sq=512, Skv=2048, d=d),
+         dict(causal=True, window=None, softcap=50.0, q_offset=1536)),
+        ("d=16, rows 0..4 masked", dict(B=2, Hq=4, Hkv=2, Sq=40, Skv=40,
+                                        d=16),
+         dict(causal=True, window=16, softcap=50.0, q_offset=-5)))
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, shape, kw in k13_cases:
+            q, k, v = _k13_inputs(gen, dtype=dtype, **shape)
+            kw = dict(kw, scale=shape["d"] ** -0.5)
+            o = FA.flash_attention_cuda(q, k, v, **kw)
+            p = ref.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            _check_k13(label, o, p)
+            if label.startswith("d=16"):
+                check(bool((o[:, :, :5] == 0).all()),
+                      f"K13 {dtype} {label}: masked rows are 0")
+            if dtype == torch.bfloat16 and label == "global":
+                err["K13"] = float((o.float() - p.float()).abs().max())
+    H, d = RWKV_HEADS["H"], RWKV_HEADS["d"]
+    k14_cases = (("T=1024, zero state", 4, H, 1024, d, False),
+                 ("T=1024, random state", 4, H, 1024, d, True),
+                 ("T=1, random state", 4, H, 1, d, True),
+                 ("d=16, T=37", 2, 2, 37, 16, True))
+    for dtype in (torch.bfloat16, torch.float32):
+        otol = K14_O_TOL[str(dtype).split(".")[1]]
+        for label, B, H_, T, d_, state in k14_cases:
+            r, k, v, w, u, s0 = _k14_inputs(gen, B, H_, T, d_, dtype, state)
+            o, s = WK.wkv6_cuda(r, k, v, w, u, initial_state=s0)
+            po, ps = ref.wkv6_ref(r, k, v, w, u, initial_state=s0,
+                                  return_state=True)
+            torch.cuda.synchronize()
+            oe, se = _max_rel(o, po), _max_rel(s, ps)
+            check(oe <= otol and se <= K14_S_TOL
+                  and o.dtype == dtype and s.dtype == torch.float32,
+                  f"K14 {dtype} {label}: o max rel err {oe:.2e} <= "
+                  f"{otol:g}, state {se:.2e} <= {K14_S_TOL:g}")
+            if dtype == torch.bfloat16:
+                val = _value_rel(o, po, K14_O_TOL["float32"])
+                check(val <= 1.0, f"K14 {dtype} {label}: every value of o "
+                      f"within one bfloat16 step + "
+                      f"{K14_O_TOL['float32']:g} max |o| (worst {val:.2f} "
+                      "of that)")
+            if dtype == torch.bfloat16 and label == "T=1024, zero state":
+                err["K14"] = float((o.float() - po.float()).abs().max())
+    return err
+
+
+class _ForbidPlain:
+    """While active, every plain attention / WKV formulation and PyTorch's
+    fused attention raise: the serving path on the card must run K13/K14."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import flash_attn, wkv6
+        from repro_torch.models import attention, rwkv6
+
+        def forbidden(*args, **kwargs):
+            raise AssertionError("a plain version ran on the card's path")
+
+        self._saved = []
+        for mod, names in ((flash_attn, ("flash_attention_plain",)),
+                           (wkv6, ("wkv6_ref",)),
+                           (attention, ("attention_ref",)),
+                           (rwkv6, ("wkv6_ref", "wkv6_chunked")),
+                           (F, ("scaled_dot_product_attention",))):
+            for name in names:
+                self._saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, forbidden)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _serve_profile(tag, prof, wall_s):
+    """Device time of the profiled serve run, by kernel, beside the host
+    clock of an unprofiled warm run (the profiler slows the host, so its own
+    span would understate the busy share)."""
+    import torch
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"  {tag}: the profiler saw no device time")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  {tag}: device {busy:.1f} ms in {len(kernels)} device ops; "
+          f"{busy / (wall_s * 1e3):.2f} of run 1's {wall_s * 1e3:.1f} ms "
+          "(warm, unprofiled; prefill + decode); top: " + "; ".join(
+              f"{name[:40]} {t:.1f} ms" for name, t in top), flush=True)
+
+
+def phase_serve():
+    """Serve rwkv6-1.6b (24 layers) and gemma2-27b (2 of 46 layers) at full
+    width through ``launch.serve.serve``, three times each: run 0 cold, run
+    1 warm (the busy share's wall clock), run 2 profiled."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import _build
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+
+    print("== serve (full width, random weights from seed 0, greedy)",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"launches": {}, "stats": {}}
+    for arch, layers, B, P, G in SERVE_RUNS:
+        cfg = get(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        runs = []
+        for rep in range(3):
+            _build.reset_launches()
+            # the last run is profiled (device kernels only), with the same
+            # seed's weights made before it, so that the profile holds the
+            # serving alone
+            last = rep == 2
+            params = (M.init_params(torch.Generator("cuda").manual_seed(0),
+                                    cfg) if last else None)
+            prof = (profile(activities=[ProfilerActivity.CUDA]) if last
+                    else contextlib.nullcontext())
+            with _ForbidPlain(), prof:
+                tokens, stats = serve(cfg, batch=B, prompt_len=P, gen=G,
+                                      seed=0, params=params)
+                torch.cuda.synchronize()
+            del params
+            runs.append((tokens, stats, dict(_build.LAUNCHES),
+                         torch.cuda.max_memory_allocated()))
+            torch.cuda.empty_cache()
+        tokens, stats, launches, _ = runs[0]
+        logits = stats["logits"]
+        tag = f"{arch} ({cfg.n_layers} layers, batch {B}, prompt {P}, {G} new)"
+        check(tuple(tokens.shape) == (B, G) and tokens.dtype == torch.long
+              and bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
+              and bool(torch.isfinite(logits).all()),
+              f"{tag}: {tuple(tokens.shape)} tokens in [0, {cfg.vocab}), "
+              "finite logits")
+        check(all(torch.equal(tokens, t) and torch.equal(logits, st["logits"])
+                  for t, st, _, _ in runs[1:]),
+              f"{tag}: runs 1 and 2 give the same tokens and bitwise the "
+              "same logits as run 0")
+        want = dict.fromkeys(_build.LAUNCHES, 0)
+        if cfg.block == "rwkv":
+            want["wkv6"] = cfg.n_layers * G      # prefill + G - 1 steps
+        else:
+            want["flash_attn"] = cfg.n_layers    # every prefill layer
+        check(all(ln == want for _, _, ln, _ in runs),
+              f"{tag}: launches flash_attn {launches['flash_attn']}, wkv6 "
+              f"{launches['wkv6']} (want {want['flash_attn']}, "
+              f"{want['wkv6']}) in every run, no other kernel")
+        for i, (_, st, _, pk) in enumerate(runs):
+            print(f"  {tag} run {i}: prefill {st['prefill_s'] * 1e3:.1f} ms, "
+                  f"decode {st['decode_s'] * 1e3 / (G - 1):.2f} ms per token "
+                  f"step, {st['tok_per_s']:.1f} tokens/s decoded, "
+                  f"{B * P / st['prefill_s']:.0f} prompt tokens/s; peak "
+                  f"memory {pk / 2 ** 30:.1f} GiB", flush=True)
+        print(f"  {tag}: first tokens {tokens[0, :8].tolist()}", flush=True)
+        warm = runs[1][1]
+        _serve_profile(tag, prof, warm["prefill_s"] + warm["decode_s"])
+        out["launches"][arch] = launches
+        out["stats"][arch] = [st for _, st, _, _ in runs]
+        del runs, tokens, stats, logits, warm
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def _lm_row(label, kern, plain, nbytes, flops, peak, bw_copy, *, calls,
+            lib=None):
+    """Device times of a kernel, its plain version and a library call; the
+    bound from bytes at the data sheet's 3.35 TB/s and operations at
+    ``peak``."""
+    ms = device_ms(kern, calls=calls, reps=3, warmup=1)
+    plain_ms = device_ms(plain, calls=1, reps=3, warmup=1)
+    lib_ms = (device_ms(lib, calls=calls, reps=3, warmup=1)
+              if lib is not None else None)
+    t_bytes = nbytes / BW_PEAK * 1e3
+    t_ops = flops / peak * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"  {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TF/s); "
+          f"plain {plain_ms:.4f} ms; "
+          + (f"library {lib_ms:.4f} ms; " if lib is not None else "")
+          + f"bound {bound:.4f} ms (bytes at 3.35 TB/s {t_bytes:.4f}, "
+          f"{nbytes / bw_copy * 1e3:.4f} at measured copy BW; operations "
+          f"{t_ops:.4f}); kernel / bound {ms / bound:.1f}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_lm_times(bw_copy):
+    """K13 at gemma2's serve shapes (batch 2, 6144 tokens) and K14 at
+    rwkv6's (batch 4, 1024 tokens; and one decode step)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as WK
+
+    print("== times of K13 and K14 at the serve shapes (device time per "
+          "call, CUDA events, median of 3)", flush=True)
+    gen = torch.Generator("cuda").manual_seed(6)
+    rows = {}
+    B, S = 2, 6144
+    Hq, Hkv, d = GEMMA_HEADS["Hq"], GEMMA_HEADS["Hkv"], GEMMA_HEADS["d"]
+    q, k, v = _k13_inputs(gen, B, Hq, Hkv, S, S, d, torch.bfloat16)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    plain32 = {}
+    for label, window in (("global", None), ("window 4096", 4096)):
+        kw = dict(causal=True, window=window, softcap=50.0, q_offset=0,
+                  scale=d ** -0.5)
+        flops = 4 * d * B * Hq * _attn_pairs(S, S, True, window)
+        lib = None
+        if window is None:
+            # same function but for the softcap, which SDPA lacks
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=True)
+        rows[f"K13 {label}"] = _lm_row(
+            f"K13 bf16 {label}, B={B} S={S}",
+            lambda: FA.flash_attention_cuda(q, k, v, **kw),
+            lambda: ref.flash_attention_plain(q, k, v, **kw),
+            nbytes, flops, BF16_TENSOR_PEAK, bw_copy, calls=3, lib=lib)
+        # parity at the serve shape, in bfloat16 and in float32 (the same
+        # values upcast), over every row: the window cuts in past row 4096
+        _check_k13(f"{label} at the serve shape",
+                   FA.flash_attention_cuda(q, k, v, **kw),
+                   ref.flash_attention_plain(q, k, v, **kw))
+        plain32[label] = ref.flash_attention_plain(q32, k32, v32, **kw)
+        _check_k13(f"{label} at the serve shape",
+                   FA.flash_attention_cuda(q32, k32, v32, **kw),
+                   plain32[label])
+        torch.cuda.empty_cache()
+    # What a wrong kernel would read on the window layer: the plain version
+    # with the window dropped, or one key short, held to the same measures.
+    want = plain32["window 4096"]
+    kw = dict(causal=True, window=4095, softcap=50.0, q_offset=0,
+              scale=d ** -0.5)
+    for wrong, got in (("window ignored", plain32["global"]),
+                       ("window 4095", ref.flash_attention_plain(
+                           q32, k32, v32, **kw))):
+        rel = _max_rel(got, want)
+        val = _value_rel(got.bfloat16(), want.bfloat16(), K13_TOL["float32"])
+        print(f"  a K13 with the {wrong} would read: float32 max rel err "
+              f"{rel:.2e}; bfloat16 worst value {val:.2f} of its limit",
+              flush=True)
+        check(rel > K13_TOL["float32"] and val > 1.0,
+              f"the serve-shape checks fail a K13 with the {wrong}")
+    del q32, k32, v32, plain32, want, got
+    torch.cuda.empty_cache()
+    del q, k, v
+    H, d = RWKV_HEADS["H"], RWKV_HEADS["d"]
+    for label, T, state in (("prefill T=1024", 1024, False),
+                            ("decode T=1", 1, True)):
+        r, k, v, w, u, s0 = _k14_inputs(gen, 4, H, T, d, torch.bfloat16,
+                                        state)
+        nbytes = (r.numel() * (2 + 2 + 2 + 4 + 2)
+                  + (2 if state else 1) * 4 * 4 * H * d * d)
+        flops = 4 * d * d * 4 * H * T
+        rows[f"K14 {label}"] = _lm_row(
+            f"K14 bf16 {label}, B=4 H={H}",
+            lambda: WK.wkv6_cuda(r, k, v, w, u, initial_state=s0),
+            lambda: ref.wkv6_ref(r, k, v, w, u, initial_state=s0,
+                                 return_state=True),
+            nbytes, flops, FP32_PEAK, bw_copy, calls=10 if T > 1 else 50)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -1607,6 +2018,9 @@ def main() -> int:
         launches.update(slice4["launches"])
         phase_slice4_times(bw, slice4, rows)
         phase_profile(cases, pcg, routes, slice4)
+        err.update(phase_lm_parity())
+        served = phase_serve()
+        lm_rows = phase_lm_times(bw)
     except CheckFailed as exc:
         print(f"FAILED: {exc}", flush=True)
         return 1
@@ -1659,6 +2073,21 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms")})
+    lm = (("K13 global", "flash_attn", "src/repro_torch/kernels/csrc/"
+           "flash_attn.cu", "src/repro/kernels/flash_attn.py:32",
+           "gemma2-27b", "K13"),
+          ("K14 prefill T=1024", "wkv6",
+           "src/repro_torch/kernels/csrc/wkv6.cu",
+           "src/repro/kernels/wkv6.py:89", "rwkv6-1.6b", "K14"))
+    for key, kname, source, replaces, arch, ekey in lm:
+        row = lm_rows[key]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": served["launches"][arch][kname],
+            "max_abs_err": err[ekey], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,10 @@ the p-multigrid ladder, order, per-level intervals, base iterations and box
 lengths as numbers, so both packages can run one set of intervals rather
 than two Lanczos estimates.  :func:`sstep_theta_from_reference` carries the
 s-step basis scale theta the same way, so both packages run one theta
-rather than two power iterations.
+rather than two power iterations.  :func:`lm_params_from_reference` loads
+the reference's LM parameter pytree (``models/model.init_params``, as numpy
+arrays) into the port's model, so both packages serve with identical
+weights.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from repro_torch.core.precond import (ChebyshevPrecond, JacobiPrecond,
                                       PMGPrecond)
 
 __all__ = ["FIELDS", "case_from_arrays", "precond_from_reference",
-           "sstep_theta_from_reference"]
+           "sstep_theta_from_reference", "lm_params_from_reference"]
 
 FIELDS = ("D", "g", "mask", "mult", "c", "bmass")
 
@@ -95,3 +98,53 @@ def sstep_theta_from_reference(source, case: NekboneCase) -> float:
                          "one s-step solve on it first")
     case._sstep_theta = float(theta)
     return case._sstep_theta
+
+
+def _leaves(tree, prefix=()):
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from _leaves(sub, prefix + (key,))
+        else:
+            yield prefix + (key,), sub
+
+
+def lm_params_from_reference(cfg, tree, *, device=None):
+    """The port's LM (``models.model.LM``) holding the reference's weights.
+
+    ``tree`` is the reference's ``init_params(key, cfg)`` pytree with numpy
+    (or array-like) leaves: nested dicts whose keys are the port's module
+    attribute names, the per-layer entries under ``"layers"`` stacked on a
+    leading L axis (``jax.vmap``), which is unstacked here.  Every port
+    parameter must be given, with its shape; dtypes follow
+    ``cfg.param_dtype``.  ``device`` is the card unless given.
+    """
+    from repro_torch.models import model as M
+
+    device = torch.device("cuda" if device is None else device)
+    model = M.init_params(torch.Generator(device).manual_seed(0), cfg)
+    params = dict(model.named_parameters())
+    seen = set()
+    for path, leaf in _leaves(tree):
+        a = np.asarray(leaf)
+        if path[0] == "layers":
+            if a.shape[0] != cfg.n_layers:
+                raise ValueError(f"{'.'.join(path)} stacks {a.shape[0]} "
+                                 f"layers, cfg has {cfg.n_layers}")
+            items = [(".".join(("layers", str(i)) + path[1:]), a[i])
+                     for i in range(cfg.n_layers)]
+        else:
+            items = [(".".join(path), a)]
+        for name, arr in items:
+            if name not in params:
+                raise ValueError(f"the reference tree has {name}, which the "
+                                 "port's model does not")
+            dst = params[name]
+            if tuple(arr.shape) != tuple(dst.shape):
+                raise ValueError(f"{name} has shape {arr.shape}, expected "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.tensor(arr))
+            seen.add(name)
+    missing = sorted(set(params) - seen)
+    if missing:
+        raise ValueError(f"the reference tree lacks {missing}")
+    return model

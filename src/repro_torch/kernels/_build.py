@@ -1,17 +1,20 @@
 """Build the CUDA kernels of ``kernels/csrc/`` with ``nvcc``, at first use.
 
-Each ``csrc/<stem>.cu`` becomes two shared libraries with a plain C
-interface (loaded with ``ctypes``), one per dtype, compiled for Hopper
-only::
+Each ``csrc/<stem>.cu`` becomes one shared library with a plain C
+interface (loaded with ``ctypes``) per dtype of :data:`SOURCES` — ``f64``
+and ``f32`` for the Nekbone kernels, ``f32`` and ``bf16`` for the LM
+kernels (K13 ``flash_attn``, K14 ``wkv6``) — compiled for Hopper only::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -DNEKBONE_REAL_F64 \\
          -o <build>/<stem>_f64-<hash>.so <stem>.cu
 
 The macro keeps only that dtype's C entry points ``<stem>_f64`` (or
-``_f32``; ``nekbone_ax_dots`` also exports ``nekbone_ax_pap_<dtype>``), and
-with them that dtype's template instantiations, so the two halves build in
-parallel.  The libraries go to ``build/repro_torch/`` at
+``_f32``, ``_bf16``; ``nekbone_ax_dots`` also exports
+``nekbone_ax_pap_<dtype>``), and with them that dtype's template
+instantiations, so the halves build in parallel.  The macro keeps its
+first slice's name for every source, so the Nekbone libraries keep their
+hashes.  The libraries go to ``build/repro_torch/`` at
 the root of the checkout (``$REPRO_TORCH_BUILD_DIR`` overrides it), named
 by a hash of the sources, the shared header and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.
@@ -29,17 +32,36 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["CSRC", "SOURCES", "DTYPES", "NVCC_FLAGS", "build_dir", "nvcc_path",
-           "build_all", "load"]
+__all__ = ["CSRC", "SOURCES", "NVCC_FLAGS", "LAUNCHES", "reset_launches",
+           "build_dir", "nvcc_path", "build_all", "load", "launch"]
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
-SOURCES = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
-           "nekbone_pcg_update", "nekbone_cheb_apply", "nekbone_interp",
-           "nekbone_ax_slab_block", "nekbone_cg_update_block",
-           "nekbone_ax_dots", "nekbone_ax_powers", "nekbone_sstep_update")
-DTYPES = ("f64", "f32")
+_NEKBONE = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
+            "nekbone_pcg_update", "nekbone_cheb_apply", "nekbone_interp",
+            "nekbone_ax_slab_block", "nekbone_cg_update_block",
+            "nekbone_ax_dots", "nekbone_ax_powers", "nekbone_sstep_update")
+# {stem: the dtypes it is built for}: one library per pair.
+SOURCES = {**{stem: ("f64", "f32") for stem in _NEKBONE},
+           "flash_attn": ("f32", "bf16"), "wkv6": ("f32", "bf16")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Kernel launches per wrapper since the last reset_launches() (plain ints;
+# launch() adds one where a wrapper launches its kernel).  The package's one
+# counter, for K1-K12 (kernels/nekbone_ax.py), K13 (kernels/flash_attn.py)
+# and K14 (kernels/wkv6.py).
+LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
+            "nekbone_pcg_update": 0, "nekbone_cheb_apply": 0,
+            "nekbone_interp": 0, "nekbone_ax_slab_block": 0,
+            "nekbone_cg_update_block": 0, "nekbone_ax_pap": 0,
+            "nekbone_ax_dots": 0, "nekbone_ax_powers": 0,
+            "nekbone_sstep_update": 0, "flash_attn": 0, "wkv6": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -88,7 +110,7 @@ def build_all() -> dict[str, pathlib.Path]:
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     targets = {f"{stem}_{dtype}": _target(stem, dtype)
-               for stem in SOURCES for dtype in DTYPES}
+               for stem, dtypes in SOURCES.items() for dtype in dtypes}
     procs = {}
     for name, so in targets.items():
         if so.exists():
@@ -126,3 +148,24 @@ def load(name: str) -> ctypes.CDLL:
                 _LIBS[key] = ctypes.CDLL(str(path))
             lib = _LIBS[name]
         return lib
+
+
+def launch(name: str, argtypes: list, device, args, *,
+           library: str | None = None) -> None:
+    """Call the C entry point ``name`` (``<stem>_<dtype>``) of ``library``
+    (by default the library of that name) with ``args`` and the current
+    stream of ``device``; raise if it returns a CUDA error, else add one to
+    ``LAUNCHES[<stem>]``."""
+    import torch
+
+    fn = getattr(load(library or name), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES[name.rsplit("_", 1)[0]] += 1

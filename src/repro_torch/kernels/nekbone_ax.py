@@ -34,7 +34,8 @@ Every wrapper takes the kernel's flat operands ((E, n^3) fields, or
   (kernels/ref.py) — the tests' path;
 * for CUDA tensors, checks device, dtype, shape and contiguity, allocates
   the outputs, launches the kernel on the current stream, raises if the
-  launch returned an error, and adds one to its count in :data:`LAUNCHES`.
+  launch returned an error, and adds one to its count in
+  ``_build.LAUNCHES``.
   There is no fallback: a CUDA tensor the kernel does not take (bf16, say)
   raises.
 
@@ -60,7 +61,7 @@ from repro_torch.kernels.ref import (nekbone_ax_dots_plain,
                                      nekbone_pcg_update_plain,
                                      nekbone_sstep_update_plain)
 
-__all__ = ["LAUNCHES", "reset_launches", "nekbone_ax_cuda",
+__all__ = ["nekbone_ax_cuda",
            "nekbone_ax_slab_cuda", "nekbone_cg_update_cuda",
            "nekbone_pcg_update_cuda", "nekbone_cheb_apply_cuda",
            "nekbone_ax_plain", "nekbone_ax_slab_plain",
@@ -74,14 +75,6 @@ __all__ = ["LAUNCHES", "reset_launches", "nekbone_ax_cuda",
            "nekbone_ax_powers_plain", "nekbone_sstep_update_cuda",
            "nekbone_sstep_update_plain", "N_RANGE", "INTERP_PAIRS",
            "SSTEP_MAX_S"]
-
-# Kernel launches per wrapper since the last reset_launches(); plain ints.
-LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
-            "nekbone_pcg_update": 0, "nekbone_cheb_apply": 0,
-            "nekbone_interp": 0, "nekbone_ax_slab_block": 0,
-            "nekbone_cg_update_block": 0, "nekbone_ax_pap": 0,
-            "nekbone_ax_dots": 0, "nekbone_ax_powers": 0,
-            "nekbone_sstep_update": 0}
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
@@ -115,21 +108,6 @@ _ARGTYPES = {
 _LIBRARY = {"nekbone_ax_pap": "nekbone_ax_dots"}
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _function(stem: str, dtype: torch.dtype):
-    suffix = _SUFFIX[dtype]
-    name = f"{stem}_{suffix}"
-    fn = getattr(_build.load(f"{_LIBRARY.get(stem, stem)}_{suffix}"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[stem]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(stem: str, n: int, dtype: torch.dtype, device: torch.device,
            **tensors: tuple[torch.Tensor, tuple[int, ...]]) -> None:
     if device.type != "cuda":
@@ -155,14 +133,10 @@ def _check(stem: str, n: int, dtype: torch.dtype, device: torch.device,
 
 def _launch(stem: str, dtype: torch.dtype, device: torch.device,
             tensors, ints) -> None:
-    fn = _function(stem, dtype)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{stem}: kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES[stem] += 1
+    suffix = _SUFFIX[dtype]
+    _build.launch(f"{stem}_{suffix}", _ARGTYPES[stem], device,
+                  (*(t.data_ptr() for t in tensors), *ints),
+                  library=f"{_LIBRARY.get(stem, stem)}_{suffix}")
 
 
 def nekbone_ax_cuda(u2: torch.Tensor, D: torch.Tensor, g2: torch.Tensor, *,

@@ -1,9 +1,11 @@
 """Public wrappers around the CUDA kernels, on natural shapes.
 
-Each reshapes ``(E, n, n, n)`` fields to the kernels' flat ``(E, n^3)``
-layout (free for contiguous tensors) and calls the kernel wrapper of
-:mod:`repro_torch.kernels.nekbone_ax`, which runs the kernel on a CUDA
-tensor and its plain version on a CPU tensor.
+The Nekbone wrappers reshape ``(E, n, n, n)`` fields to the kernels' flat
+``(E, n^3)`` layout (free for contiguous tensors) and call the kernel
+wrapper of :mod:`repro_torch.kernels.nekbone_ax`; :func:`flash_attention`
+(K13) and :func:`wkv6` (K14) call :mod:`repro_torch.kernels.flash_attn` and
+:mod:`repro_torch.kernels.wkv6`.  Each runs its kernel on a CUDA tensor
+and its plain version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -11,13 +13,16 @@ import torch
 
 from repro_torch.core.geom import (GEOM_RR, GEOM_RS, GEOM_RT, GEOM_SS,
                                    GEOM_ST, GEOM_TT, box_axis_factors)
+from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import nekbone_ax as _ax
+from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels.ref import accum_dtype
 
 __all__ = ["nekbone_ax", "nekbone_ax_dots", "nekbone_ax_pap",
            "slab_axis_factors", "diag_metric", "nekbone_ax_powers",
            "nekbone_sstep_update", "nekbone_pcg_update",
-           "nekbone_cheb_precond", "nekbone_interp"]
+           "nekbone_cheb_precond", "nekbone_interp", "flash_attention",
+           "wkv6"]
 
 
 def nekbone_ax(u: torch.Tensor, D: torch.Tensor,
@@ -264,3 +269,40 @@ def nekbone_sstep_update(x: torch.Tensor, p: torch.Tensor, r: torch.Tensor,
         basis.reshape(E, 2 * s - 1, n3), coef, cx, cy, cz, n=n, s=s)
     return (x2.reshape(x.shape), r2.reshape(x.shape), p2.reshape(x.shape),
             torch.sum(rcr_e))
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None, window: int | None = None,
+                    softcap: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Block online-softmax attention forward (K13), the reference's
+    signature less ``block_q``, ``block_k`` and ``interpret``.
+
+    q: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d); returns (B, Hq, Sq, d) in
+    q's dtype.  GQA (Hq a multiple of Hkv), causal mask, sliding ``window``
+    (query i sees key j iff i - j < window), logit ``softcap`` and
+    ``q_offset`` (the absolute position of q[0]).  The three left out have
+    no counterpart: K13's tiles are fixed (16 query rows, 32 keys), and a
+    CPU tensor runs the plain version.
+    """
+    scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
+    return _flash.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                       window=window, softcap=softcap,
+                                       q_offset=q_offset)
+
+
+def wkv6(r, k, v, w, u, *, initial_state=None, return_state: bool = False,
+         variant: str = "chunked"):
+    """The RWKV6 recurrence (K14), the reference's signature less
+    ``block_t`` and ``interpret``.
+
+    r, k, v, w: (B, H, T, d); u: (H, d) -> o (B, H, T, d) [, final state
+    (B, H, d, d) f32].  The reference's two ``variant`` bodies compute one
+    function, and one kernel serves both (the name is still checked).  The
+    two left out have no counterpart: the kernel needs no padding of T, and
+    a CPU tensor runs the plain version.
+    """
+    if variant not in ("sequential", "chunked"):
+        raise ValueError(f"unknown wkv6 variant {variant!r}")
+    o, state = _wkv6.wkv6_cuda(r, k, v, w, u, initial_state=initial_state)
+    return (o, state) if return_state else o

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of every CUDA kernel in this package.
 
 Each takes the kernel's own operands and returns its own outputs, so it is
-both the CPU path of the kernel's wrapper (kernels/nekbone_ax.py) and the
-oracle the kernel is held against on the card (``chip_smoke.py``).  They
+both the CPU path of the kernel's wrapper (kernels/nekbone_ax.py,
+kernels/flash_attn.py, kernels/wkv6.py) and the oracle the kernel is held
+against on the card (``chip_smoke.py``).  They
 are written for clarity, not speed.  Operands are upcast to the
 accumulation dtype of the reference's ``_accum`` rule (f64 stays f64,
 everything narrower accumulates in f32) and field outputs are rounded back
@@ -22,7 +23,10 @@ __all__ = ["accum_dtype", "nekbone_ax_ref", "nekbone_ax_plain",
            "nekbone_interp_plain", "nekbone_ax_slab_block_plain",
            "nekbone_cg_update_block_plain", "nekbone_ax_pap_plain",
            "nekbone_ax_dots_plain", "nekbone_ax_powers_plain",
-           "nekbone_sstep_update_plain"]
+           "nekbone_sstep_update_plain", "attention_ref",
+           "flash_attention_plain", "wkv6_ref", "wkv6_chunked"]
+
+NEG_INF = -1e30          # the reference kernel's _NEG_INF (never -inf)
 
 
 def accum_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -330,3 +334,133 @@ def nekbone_sstep_update_plain(x2, p2, r2, basis, coef, cx, cy, cz, *,
     r6 = r.to(acc)
     return (xacc.to(x2.dtype), r, pacc.to(p2.dtype),
             (r6 * c * r6).sum(dim=1))
+
+
+def attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None,
+                  window: int | None = None, softcap: float | None = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Naive attention oracle with GQA / sliding window / logit softcap
+    (the reference's ``kernels/ref.attention_ref``, the ``naive`` impl).
+
+    q: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d); Hq % Hkv == 0.  Masked
+    scores are -inf, so a row with no valid key is NaN here; K13 and
+    :func:`flash_attention_plain` give 0 there.
+    """
+    B, Hq, Sq, d = q.shape
+    group = Hq // k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kk).float() * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = _attn_mask(Sq, k.shape[2], causal, window, q_offset, q.device)
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv.float()).to(q.dtype)
+
+
+def _attn_mask(Sq, Skv, causal, window, q_offset, device):
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
+                          window: int | None, softcap: float | None,
+                          q_offset: int) -> torch.Tensor:
+    """K13: the function of the reference's flash kernel, whole rows at once.
+
+    q: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d) -> (B, Hq, Sq, d) in q's
+    dtype, computed in f32.  Masked scores are -1e30 and their p is zeroed,
+    as in the kernel, so a row with no valid key gives 0, not NaN.
+    """
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Hkv, Hq // Hkv, Sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = _attn_mask(Sq, Skv, causal, window, q_offset, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) \
+        / torch.where(l == 0.0, 1.0, l)
+    return o.reshape(B, Hq, Sq, d).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, *, initial_state=None,
+             return_state: bool = False):
+    """K14: the RWKV6 (Finch) recurrence, one time step at a time.
+
+    Shapes: r, k, v, w: (B, H, T, d); u: (H, d).  Per head, with state
+    S in R^{d_k x d_v}::
+
+        o_t = S_{t-1}^T r_t + (r_t . (u * k_t)) v_t
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T
+
+    r, k and v are upcast to f32 first, as the TPU kernel does (the
+    reference's oracle forms ``k v^T`` in the input dtype; the two agree in
+    f32).  Returns o in r's dtype and, with ``return_state``, the f32 state.
+    """
+    B, H, T, d = r.shape
+    f32 = torch.float32
+    S = (torch.zeros((B, H, d, d), dtype=f32, device=r.device)
+         if initial_state is None else initial_state.to(f32))
+    rf, kf, vf, wf = (x.to(f32) for x in (r, k, v, w))
+    uf = u.to(f32)[None]
+    outs = []
+    for t in range(T):
+        rt, kt, vt, wt = rf[:, :, t], kf[:, :, t], vf[:, :, t], wf[:, :, t]
+        out = torch.einsum("bhkv,bhk->bhv", S, rt)
+        bonus = torch.einsum("bhk,bhk->bh", rt, uf * kt)
+        outs.append(out + bonus[..., None] * vt)
+        S = wt[..., :, None] * S + torch.einsum("bhk,bhv->bhkv", kt, vt)
+    o = torch.stack(outs, dim=2).to(r.dtype)
+    return (o, S) if return_state else o
+
+
+def wkv6_chunked(r, k, v, w, u, *, initial_state=None, chunk: int = 16,
+                 return_state: bool = False):
+    """The chunked-parallel WKV6 form (the reference's training path and the
+    TPU kernel's ``chunked`` body): per chunk of c steps three matmuls and a
+    masked (c, c) correlation, with cumulative decay products.  Same
+    function as :func:`wkv6_ref`; c is the largest divisor of T not above
+    ``chunk``.
+    """
+    B, H, T, d = r.shape
+    c = min(chunk, T)
+    while T % c:
+        c -= 1
+    f32 = torch.float32
+    S = (torch.zeros((B, H, d, d), dtype=f32, device=r.device)
+         if initial_state is None else initial_state.to(f32))
+    uu = u.to(f32)[None, :, None, :]                  # (1, H, 1, d)
+    strict = torch.tril(torch.ones(c, c, dtype=torch.bool, device=r.device),
+                        diagonal=-1)
+    eye = torch.eye(c, dtype=f32, device=r.device)
+    outs = []
+    for t0 in range(0, T, c):
+        rb, kb, vb, wb = (x[:, :, t0:t0 + c].to(f32) for x in (r, k, v, w))
+        logw = torch.log(wb)
+        cum = torch.cumsum(logw, dim=2)
+        p_incl = torch.exp(cum)
+        p_excl = torch.exp(cum - logw)
+        r_t = rb * p_excl
+        k_t = kb * torch.exp(-cum)
+        A = torch.einsum("bhtd,bhsd->bhts", r_t, k_t)
+        A = torch.where(strict, A, 0.0)
+        bonus = torch.einsum("bhtd,bhtd->bht", rb, uu * kb)
+        A = A + torch.einsum("bht,ts->bhts", bonus, eye)
+        O = torch.einsum("bhtd,bhdv->bhtv", r_t, S)
+        outs.append(O + torch.einsum("bhts,bhsv->bhtv", A, vb))
+        S = p_incl[:, :, -1][..., :, None] * (
+            S + torch.einsum("bhsd,bhsv->bhdv", k_t, vb))
+    o = torch.cat(outs, dim=2).to(r.dtype)
+    return (o, S) if return_state else o
