@@ -10,9 +10,10 @@ reference package ``repro``, and, in order:
 
 1. prints the card, its power limit, and the torch / CUDA / nvcc versions;
 2. builds the CUDA kernels from the thirteen sources of
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (26
-   libraries: f64 and f32 for the Nekbone kernels, f32 and bf16 for K13
-   and K14), in parallel;
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (32
+   libraries: f64 and f32 for the Nekbone kernels, and the two bf16
+   operand mixes ``bf16`` and ``bf16_ir`` for K4, K5 and K3; f32 and bf16
+   for K13 and K14), in parallel;
 3. measures device-to-device copy bandwidth on a 1 GiB buffer (the
    measured roofline);
 4. holds K1 (the operator kernel) against its plain PyTorch version, n=2..16
@@ -58,26 +59,42 @@ reference package ``repro``, and, in order:
 14. times K2, K3, K8 and K9 (K8 and K9 at s = 1, 2, 4) beside their plain
    versions at E=1024 and E=4096, and v1 and s-step per iteration beside
    v2, in turns;
-15. profiles each kernel route (device time per iteration, by kernel, and
+15. holds K4, K5 and K3 in their bf16 builds (``bf16``: every operand
+   bf16; ``bf16_ir``: bf16 vectors, x, the metric and D in f32) against
+   their plain versions at n=10, E=1024 and 4096: fields value by value,
+   partials relatively; a K4 that skips rounding p through storage must
+   fail the same check;
+16. solves the paper case (b in fp64, 100 inner iterations per sweep)
+   through the ``ir`` route — ``f32_ir`` over v2, v1 and s-step (s=4),
+   ``bf16_ir`` over v2 and v1 — and the non-refined ``bf16`` policy over v2
+   and v1, each with the launch counters reset just before it: launches
+   exact, the history against the same route over the plain versions on
+   the card, ``f32_ir`` at or below fp64 v2's 100-iteration rnorm,
+   ``bf16_ir``'s outer rnorms never rising; times each solve; and shows
+   that bf16 over s-step and bf16 Jacobi-PCG (kernels without a bf16
+   build) raise;
+17. times the bf16 K4, K5 and K3 (both builds) beside their plain versions
+   at E=1024 and E=4096;
+18. profiles each kernel route (device time per iteration, by kernel, and
    the device's busy share);
-16. holds K13 (flash attention) and K14 (the RWKV6 recurrence) against
+19. holds K13 (flash attention) and K14 (the RWKV6 recurrence) against
    their plain versions in bf16 and f32, at gemma2-27b's heads (Hq 32,
    Hkv 16, d 128: 2048 tokens with window 1024, global, and a q_offset
    case) and rwkv6-1.6b's (H 32, d 64: T = 1024 from a zero and a random
    state, T = 1), plus d = 16 with fully masked rows; bf16 outputs also
    value by value (one bf16 step of each value);
-17. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens)
+20. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens)
    and gemma2-27b (2 of its 46 layers, batch 2, prompt 6144, 16 new)
    three times each through ``launch.serve.serve`` at full width, with
    every plain attention / WKV function and SDPA made to raise meanwhile:
    the tokens are in range, the runs agree bitwise, the launch counts are
    K14 = layers x tokens and K13 = layers in each; the third run is
    profiled, its device time read against the second's wall clock;
-18. times K13 and K14 at the serve shapes beside their plain versions
+21. times K13 and K14 at the serve shapes beside their plain versions
    and, for K13, SDPA; holds K13 there in bf16 and f32 (batch 2, 6144
    tokens, global and window 4096), and shows that these checks fail a
    K13 that ignores the window or cuts it one key short;
-19. prints the ``kernels`` JSON line, the card line, and last the result
+22. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits with status 1 and prints no result line.
@@ -1165,17 +1182,17 @@ def phase_v1_sstep_routes(hist):
 
 
 def _time_row(label, kern, plain, nbytes, mma_flops, rest_flops, bw_copy,
-              lib=None):
+              lib=None, mma_peak=FP64_TENSOR_PEAK, rest_peak=FP64_PEAK):
     """Device time of a kernel, its plain version and, where one PyTorch
     call computes the same function, that call; the bound from the bytes
     (each input read once, each output written once) and the operations
-    (contraction flops at the fp64 tensor cores' rate, the rest outside
-    them), at the data sheet's peaks."""
+    (contraction flops at ``mma_peak``, by default the fp64 tensor cores'
+    rate, the rest at ``rest_peak``), at the data sheet's peaks."""
     ms = device_ms(kern)
     plain_ms = device_ms(plain)
     lib_ms = device_ms(lib) if lib is not None else None
     t_bytes = nbytes / BW_PEAK * 1e3
-    t_ops = (mma_flops / FP64_TENSOR_PEAK + rest_flops / FP64_PEAK) * 1e3
+    t_ops = (mma_flops / mma_peak + rest_flops / rest_peak) * 1e3
     bound = max(t_bytes, t_ops)
     print(f"  {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
           f"{nbytes / ms / 1e6 / (bw_copy / 1e9):.2f} of copy BW); plain "
@@ -1584,6 +1601,357 @@ def phase_profile(cases, pcg, routes, slice4, niter: int = 20):
               f"ops/iteration; busy {busy / span:.2f} of the device span; "
               "top: " + "; ".join(f"{name[:48]} {t / iters:.1f} us"
                                   for name, t in top), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: iterative refinement (the ir route) and the bf16 builds of K4, K5
+# and K3
+# ---------------------------------------------------------------------------
+BF16_MIXES = ("bf16", "bf16_ir")
+# bf16 fields are held value by value (_value_rel): kernel and plain version
+# each round one f32 result to bf16, so they may differ by one bf16 step
+# plus their f32 difference (this tolerance of the largest value).  The
+# partials are f32 sums of the same terms in two orders, held relatively.
+BF16_F32_TOL = 1e-5
+BF16_PART_TOL = 1e-5
+# The ir and bf16 routes against the same route over the plain versions on
+# the card (the kernel wrappers swapped for their plain versions).  Entry 0
+# is the same torch sum on both sides.  A reduced-precision sweep ends at a
+# noisy floor: two valid f32 orders of the partials changed one sweep's
+# contraction by up to 3.0x (the plain route against itself with its
+# partials reordered and scaled by 1 +- 2e-7, on the CPU at n = 10, grids
+# 4x4x4 and 4x4x8, 100 inner iterations), and the kernel route against the
+# plain one on the card by up to 8.3x (f32_ir over v1, second sweep).  So
+# outer entry k must lie within IR_SWEEP_FACTOR^k of the plain route's:
+# each sweep may add one such factor.  (Python code shared by both sides is
+# held to the reference by the CPU tests, tests/test_torch_ir.py.)
+IR_SWEEP_FACTOR = 10.0
+# non-refined bf16: the first 10 entries, relative (bf16 storage: 2^-7)
+BF16_HEAD_TOL = 1e-2
+# bf16_ir's outer norms must not rise (x 1.05: the reference's own test)
+IR_MONOTONE = 1.05
+IR_ROUTES = (("f32_ir", "v2"), ("f32_ir", "v1"), ("f32_ir", "sstep"),
+             ("bf16_ir", "v2"), ("bf16_ir", "v1"), ("bf16", "v2"),
+             ("bf16", "v1"))
+IR_IMPL = {"v2": "pallas_fused_cg_v2", "v1": "pallas_fused_cg",
+           "sstep": "pallas_sstep_v3"}
+
+
+def _mix_operands(case, rng, mix):
+    """K4/K5 operands of ``case`` (an fp64 case on the card) in the dtypes
+    of one bf16 build: p, r, the factors in S, x in X, D and the metric
+    diagonal in O, beta and alpha in A."""
+    from repro_torch.kernels import nekbone_ax as K
+
+    dt = K.MIXES[mix]
+    o = _v2_operands(case, rng)
+    return dict(p=o["p"].to(dt["S"]), r=o["r"].to(dt["S"]),
+                x=o["x"].to(dt["X"]), D=case.D.to(dt["O"]),
+                g3=o["g3"].to(dt["O"]),
+                m=tuple(f.to(dt["S"]) for f in o["m"]),
+                c=tuple(f.to(dt["S"]) for f in o["c"]),
+                beta=o["beta"].to(dt["A"]), alpha=o["alpha"].to(dt["A"]))
+
+
+def _k4_unrounded(p2, r2, D, g3, mx, my, mz, beta, *, n):
+    """A wrong K4 for the negative check: K4's plain version
+    (kernels/ref.nekbone_ax_slab_plain) with the one line that rounds p
+    through storage before the operator removed."""
+    from repro_torch.core.geom import box_outer
+    from repro_torch.kernels.ref import _masked_ax_diag, accum_dtype
+
+    acc = accum_dtype(p2.dtype)
+    E = p2.shape[0]
+    p = r2.to(acc) + beta.reshape(()).to(acc) * p2.to(acc)
+    p4 = p.reshape(E, n, n, n)
+    g = g3.to(acc).reshape(E, 3, n, n, n)
+    mask = box_outer(mz.to(acc), my.to(acc), mx.to(acc)).reshape(E, n, n, n)
+    v = _masked_ax_diag(p4, D.to(acc), g, mask)
+    pap = (p4 * v).reshape(E, -1).sum(dim=1)
+    return (p.to(p2.dtype).reshape(E, n ** 3),
+            v.to(p2.dtype).reshape(E, n ** 3), pap)
+
+
+def _part_err(a, b) -> float:
+    """Summed partials, relative."""
+    sa, sb = float(a.double().sum()), float(b.double().sum())
+    return abs(sa - sb) / abs(sb)
+
+
+def phase_bf16_parity():
+    """K4, K5 and K3 in their bf16 builds (both operand mixes) against their
+    plain versions, on the paper grid and at E=4096; and a K4 that skips
+    rounding p through storage, which must fail."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== bf16 K4/K5/K3 parity (kernel vs plain; n=10, E = 1024 and "
+          f"4096; builds {', '.join(BF16_MIXES)}; fields value by value: "
+          f"|o - p| <= 2^-7 |p| + {BF16_F32_TOL:g} max |p|; partials summed, "
+          f"relative, <= {BF16_PART_TOL:g})", flush=True)
+    rng = np.random.default_rng(11)
+    errs = {}
+    n = 10
+    for grid in (PAPER_GRID, BIG_GRID):
+        case = NekboneCase(n=n, grid=grid, dtype=torch.float64)
+        E = case.mesh.nelt
+        n3 = n ** 3
+        u64, D64, g64 = _operator_data(rng, E, n, torch.float64)
+        mask64 = case.mask.reshape(E, n3).contiguous()
+        for mix in BF16_MIXES:
+            dt = K.MIXES[mix]
+            tag = f"{mix} E={E}"
+            o = _mix_operands(case, rng, mix)
+            k4 = (o["p"], o["r"], o["D"], o["g3"], *o["m"], o["beta"])
+            kp, kw, kpap = K.nekbone_ax_slab_cuda(*k4, n=n)
+            pp, pw, ppap = K.nekbone_ax_slab_plain(*k4, n=n)
+            wval = _value_rel(kw, pw, BF16_F32_TOL)
+            perr = _part_err(kpap, ppap)
+            check(kp.dtype == kw.dtype == dt["S"] and kpap.dtype == dt["A"]
+                  and torch.equal(kp, pp),
+                  f"K4 {tag}: p and w in {dt['S']}, pap in {dt['A']}; the "
+                  "stored p = r + beta p bitwise the plain version's")
+            check(wval <= 1.0 and perr <= BF16_PART_TOL,
+                  f"K4 {tag}: w value by value (worst {wval:.2f} of the "
+                  f"limit; {int((kw != pw).sum())} of {kw.numel()} values "
+                  f"differ), pap rel err {perr:.2e}")
+            # K5 on K4's own outputs, both sides
+            k5 = (o["x"], kp, o["r"], kw, o["alpha"], *o["c"])
+            kx, kr, krcr = K.nekbone_cg_update_cuda(*k5, n=n)
+            px, pr, prcr = K.nekbone_cg_update_plain(*k5, n=n)
+            xval = _value_rel(kx, px, BF16_F32_TOL)
+            rval = _value_rel(kr, pr, BF16_F32_TOL)
+            rerr = _part_err(krcr, prcr)
+            check(kx.dtype == dt["X"] and kr.dtype == dt["S"]
+                  and krcr.dtype == dt["A"] and xval <= 1.0 and rval <= 1.0
+                  and rerr <= BF16_PART_TOL,
+                  f"K5 {tag}: x in {dt['X']}, r in {dt['S']}, value by value "
+                  f"(worst {xval:.2f} and {rval:.2f} of the limit; bitwise: "
+                  f"x {torch.equal(kx, px)}, r {torch.equal(kr, pr)}), rcr "
+                  f"rel err {rerr:.2e}")
+            # K3 on a random SPD metric and the box's mask
+            k3 = (u64.to(dt["S"]), D64.to(dt["O"]), g64.to(dt["O"]),
+                  mask64.to(dt["S"]))
+            kw3, kpap3 = K.nekbone_ax_pap_cuda(*k3, n=n)
+            pw3, ppap3 = K.nekbone_ax_pap_plain(*k3, n=n)
+            w3val = _value_rel(kw3, pw3, BF16_F32_TOL)
+            p3err = _part_err(kpap3, ppap3)
+            check(kw3.dtype == dt["S"] and kpap3.dtype == dt["A"]
+                  and w3val <= 1.0 and p3err <= BF16_PART_TOL,
+                  f"K3 {tag}: w value by value (worst {w3val:.2f} of the "
+                  f"limit), pap rel err {p3err:.2e}")
+            if grid == PAPER_GRID:
+                # the negative check: p unrounded before the operator
+                _, bw, _ = _k4_unrounded(*k4, n=n)
+                bad = _value_rel(bw, pw, BF16_F32_TOL)
+                check(bad > 1.0,
+                      f"K4 {tag}: a stand-in that skips rounding p through "
+                      f"storage fails the w check ({bad:.1f}x the limit)")
+                errs[("K4", mix)] = float((kw.float() - pw.float()).abs()
+                                          .max())
+                errs[("K5", mix)] = float((kr.float() - pr.float()).abs()
+                                          .max())
+                errs[("K3", mix)] = float((kw3.float() - pw3.float()).abs()
+                                          .max())
+            del o, k4, k5, k3, kp, kw, pp, pw, kx, kr, px, pr, kw3, pw3
+        del u64, D64, g64, mask64
+    torch.cuda.synchronize()
+    return errs
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The kernel wrappers of the ir and bf16 routes (K1, K3, K4, K5, K8,
+    K9) replaced by their plain versions, which run on the card's tensors:
+    the same route over plain versions."""
+    from repro_torch.kernels import nekbone_ax as K
+
+    names = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
+             "nekbone_ax_pap", "nekbone_ax_powers", "nekbone_sstep_update")
+    saved = {name: getattr(K, f"{name}_cuda") for name in names}
+    try:
+        for name in names:
+            setattr(K, f"{name}_cuda", getattr(K, f"{name}_plain"))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(K, f"{name}_cuda", fn)
+
+
+def _ir_launches(prec, variant):
+    """The launches one solve of NITER iterations per sweep must make."""
+    sweeps = {"f32_ir": 2, "bf16_ir": 5, "bf16": 1}[prec]
+    inner = sweeps * NITER
+    k1 = sweeps if prec != "bf16" else 0
+    if variant == "v2":
+        return sweeps, _zero_but(nekbone_ax=k1, nekbone_ax_slab=inner,
+                                 nekbone_cg_update=inner)
+    if variant == "v1":
+        return sweeps, _zero_but(nekbone_ax=k1, nekbone_ax_pap=inner)
+    cycles = sweeps * -(-NITER // SSTEP_S)
+    return sweeps, _zero_but(nekbone_ax=k1, nekbone_ax_powers=cycles,
+                             nekbone_sstep_update=cycles)
+
+
+def phase_ir_routes(hist, v2_solve_ms):
+    """The ir route (f32_ir over v2, v1 and s-step; bf16_ir over v2 and v1)
+    and the non-refined bf16 policy (v2, v1) on the paper case, through
+    ``case.solve``, each with the launch counters set to 0 just before it,
+    against the same route over the plain versions on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nekbone import NekboneCase
+
+    v2_last = float(hist["pallas_fused_cg_v2"][NITER])
+    print(f"== paper case, ir and bf16 routes: n=10, E=1024, b in fp64, "
+          f"{NITER} inner iterations per sweep; fp64 v2 for comparison: "
+          f"history[{NITER}]={v2_last:.6e}, {v2_solve_ms:.3f} ms "
+          f"({v2_solve_ms / NITER:.4f} ms/iteration)", flush=True)
+    out = {"launches": {}, "ms": {}, "hist": {}}
+    for prec, variant in IR_ROUTES:
+        label = f"{prec} {variant}"
+        case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                           precision=prec, ax_impl=IR_IMPL[variant],
+                           s=SSTEP_S)
+        u_ex, f = case.manufactured()
+        sweeps, want = _ir_launches(prec, variant)
+        refined = prec != "bf16"
+        res, launches = _launch_run(lambda: case.solve(f, niter=NITER))
+        out["launches"][label] = launches
+        h = res.history.double().cpu().numpy()
+        want_len = sweeps + 1 if refined else NITER + 1
+        check(res.pipeline == ("ir" if refined else
+                               {"v2": "fused_v2", "v1": "fused_v1"}[variant])
+              and h.shape == (want_len,) and bool(np.isfinite(h).all())
+              and bool(torch.isfinite(res.x).all())
+              and res.x.dtype == (torch.float64 if refined
+                                  else torch.bfloat16),
+              f"{label}: pipeline {res.pipeline}, x {res.x.dtype}, finite, "
+              f"history of {h.size}")
+        check(launches == want, f"{label}: launches {launches}")
+        with _plain_kernels():
+            pres, plaunch = _launch_run(lambda: case.solve(f, niter=NITER))
+        ph = pres.history.double().cpu().numpy()
+        check(plaunch == _zero_but(), f"{label} over plain versions: no "
+                                      "kernel launched")
+        if refined:
+            dev = np.abs(np.log(h / ph))
+            check(h[0] == ph[0] and bool(np.all(
+                      dev[1:] <= np.arange(1, h.size)
+                      * np.log(IR_SWEEP_FACTOR))),
+                  f"{label}: history[0] equal to the plain route's, entry k "
+                  f"within {IR_SWEEP_FACTOR:g}^k of it (ratios "
+                  + " ".join(f"{v:.2f}" for v in h / ph) + "; plain route "
+                  + " ".join(f"{v:.3e}" for v in ph) + ")")
+        else:
+            dev = _rel_dev(h, ph)
+            worst = float(np.abs(np.log(h / ph)).max())
+            check(h[0] == ph[0] and float(dev[:11].max()) <= BF16_HEAD_TOL,
+                  f"{label}: history entries 0..10 within {BF16_HEAD_TOL:g} "
+                  f"of the plain route's ({float(dev[:11].max()):.2e}); all "
+                  f"{NITER + 1} within {np.exp(worst):.2f}x (reported)")
+        ms = wall_ms(lambda: case.solve(f, niter=NITER), reps=3)
+        out["ms"][label] = ms
+        out["hist"][label] = h
+        shown = h if refined else h[[0, 10, 50, NITER]]
+        what = "outer history" if refined else "history[0, 10, 50, 100]"
+        print(f"  {label}: {what} " + " ".join(f"{v:.6e}" for v in shown)
+              + f"; last / fp64 v2's history[{NITER}] {h[-1] / v2_last:.3e}; "
+              f"solution_error {float(case.solution_error(res.x, u_ex)):.6e}; "
+              f"{ms:.3f} ms to completion, {ms / (sweeps * NITER):.4f} ms per "
+              f"inner iteration (fp64 v2 {v2_solve_ms / NITER:.4f}); "
+              f"launches {({k: v for k, v in launches.items() if v})}",
+              flush=True)
+        if prec == "f32_ir" and variant != "sstep":
+            check(h[-1] <= v2_last,
+                  f"{label}: last outer rnorm {h[-1]:.6e} reaches fp64 v2's "
+                  f"{NITER}-iteration {v2_last:.6e}")
+        elif prec == "f32_ir":
+            # f32 s-step (a monomial basis of 4 powers, its Gram summed in
+            # f32) contracts far less per sweep than v2; the reference
+            # fails its own f32 s-step test (ROADMAP.md queue 3)
+            print(f"  {label}: reaches fp64 v2's {NITER}-iteration rnorm: "
+                  f"{'yes' if h[-1] <= v2_last else 'NO'} ({h[-1]:.6e} "
+                  f"against {v2_last:.6e}; reported, not gated)", flush=True)
+        if prec == "bf16_ir":
+            check(bool(np.all(h[1:] <= h[:-1] * IR_MONOTONE)),
+                  f"{label}: outer rnorms never rise (x {IR_MONOTONE:g})")
+            print(f"  {label}: reaches fp64 v2's {NITER}-iteration rnorm: "
+                  f"{'yes' if h[-1] <= v2_last else 'NO'} ({h[-1]:.6e} "
+                  f"against {v2_last:.6e}; reported, not gated)", flush=True)
+    # the bf16 routes whose kernels have no bf16 build raise, naming the
+    # queue that holds them; nothing falls back
+    for prec, impl, pc in (("bf16_ir", "pallas_sstep_v3", None),
+                           ("bf16", "pallas_sstep_v3", None),
+                           ("bf16", "pallas_fused_cg_v2", "jacobi")):
+        case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                           precision=prec, ax_impl=impl, s=SSTEP_S)
+        _, f = case.manufactured()
+        try:
+            _launch_run(lambda: case.solve(f, niter=NITER, precond=pc))
+            raised = ""
+        except NotImplementedError as exc:
+            raised = str(exc)
+        check("ROADMAP.md queue 2" in raised,
+              f"{prec} over {impl}{' with ' + pc if pc else ''} raises on "
+              f"the card: {raised or 'nothing raised'}")
+    return out
+
+
+def phase_bf16_times(bw_copy, rows):
+    """Device time of the bf16 K4, K5 and K3 (both builds) beside their
+    plain versions at E=1024 and E=4096."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== times of the bf16 builds (n=10; device time per call, CUDA "
+          "events around 20 queued calls, median of 5; operations at the "
+          "fp32 rate, 67 TF/s)", flush=True)
+    rng = np.random.default_rng(12)
+    n = 10
+    for grid in (PAPER_GRID, BIG_GRID):
+        case = NekboneCase(n=n, grid=grid, dtype=torch.float64)
+        E = case.mesh.nelt
+        nodes = E * n ** 3
+        u64, D64, g64 = _operator_data(rng, E, n, torch.float64)
+        mask64 = case.mask.reshape(E, n ** 3).contiguous()
+        for mix in BF16_MIXES:
+            dt = K.MIXES[mix]
+            S, X, O = (dt[r].itemsize for r in "SXO")
+            o = _mix_operands(case, rng, mix)
+            k4 = (o["p"], o["r"], o["D"], o["g3"], *o["m"], o["beta"])
+            kp, kw, _ = K.nekbone_ax_slab_cuda(*k4, n=n)
+            k5 = (o["x"], kp, o["r"], kw, o["alpha"], *o["c"])
+            k3 = (u64.to(dt["S"]), D64.to(dt["O"]), g64.to(dt["O"]),
+                  mask64.to(dt["S"]))
+            # bytes per node: K4 p, r, 3 metric diagonals in, p, w out; K5
+            # x, p, r, w in, x, r out; K3 p, 6 metric fields, mask in, w
+            # out.  (contraction, other) flops per node as for fp64.
+            work = {
+                "K4": (K.nekbone_ax_slab_cuda, K.nekbone_ax_slab_plain, k4,
+                       4 * S + 3 * O, (12 * n, 10)),
+                "K5": (K.nekbone_cg_update_cuda, K.nekbone_cg_update_plain,
+                       k5, 2 * X + 4 * S, (0, 8)),
+                "K3": (K.nekbone_ax_pap_cuda, K.nekbone_ax_pap_plain, k3,
+                       3 * S + 6 * O, (12 * n, 18)),
+            }
+            for name, (kern, plain, args, per_node, (fm, fr)) in work.items():
+                row = _time_row(
+                    f"{name} {mix} E={E} ({per_node} B/node)",
+                    lambda: kern(*args, n=n), lambda: plain(*args, n=n),
+                    per_node * nodes, nodes * fm, nodes * fr, bw_copy,
+                    mma_peak=FP32_PEAK, rest_peak=FP32_PEAK)
+                rows[(f"{name} {mix}", grid)] = row
+            del o, k4, k5, k3, kp, kw
+        del u64, D64, g64, mask64
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2017,6 +2385,9 @@ def main() -> int:
         slice4 = phase_v1_sstep_routes(hist)
         launches.update(slice4["launches"])
         phase_slice4_times(bw, slice4, rows)
+        err.update(phase_bf16_parity())
+        ir = phase_ir_routes(hist, v2_solve_ms)
+        phase_bf16_times(bw, rows)
         phase_profile(cases, pcg, routes, slice4)
         err.update(phase_lm_parity())
         served = phase_serve()
@@ -2073,6 +2444,22 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms")})
+    for mix in BF16_MIXES:
+        for key, kname, cu, line, variant in (
+                ("K4", "nekbone_ax_slab", "nekbone_ax_slab.cu", 476, "v2"),
+                ("K5", "nekbone_cg_update", "nekbone_cg_update.cu", 625,
+                 "v2"),
+                ("K3", "nekbone_ax_pap", "nekbone_ax_dots.cu", 404, "v1")):
+            row = rows[(f"{key} {mix}", PAPER_GRID)]
+            kernels.append({
+                "name": f"{kname}_{mix}", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{cu}",
+                "replaces": f"src/repro/kernels/nekbone_ax.py:{line}",
+                "launches": ir["launches"][f"{mix} {variant}"][kname],
+                "max_abs_err": err[(key, mix)], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms")})
     lm = (("K13 global", "flash_attn", "src/repro_torch/kernels/csrc/"
            "flash_attn.cu", "src/repro/kernels/flash_attn.py:32",
            "gemma2-27b", "K13"),

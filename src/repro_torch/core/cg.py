@@ -9,6 +9,9 @@ Provided solvers:
   * :func:`cg` — tolerance-driven.
   * :func:`cg_fixed_iters` — fixed iteration count (Nekbone runs 100);
     returns the residual-norm history for benchmarking.
+  * :func:`ir_solve` — generic mixed-precision iterative refinement around
+    any inner solve (the fused pipelines' own refinement loop is
+    ``cg_fused.cg_ir_fixed_iters``).
 
 Both are Python loops over device tensors: ``alpha``, ``beta``, the inner
 products and the history stay on the device, so the fixed-iteration loop
@@ -22,7 +25,7 @@ from typing import Callable, NamedTuple
 import torch
 
 __all__ = ["CGResult", "SolveResult", "cg", "cg_fixed_iters", "weighted_dot",
-           "jacobi_preconditioner"]
+           "ir_solve", "jacobi_preconditioner"]
 
 
 class CGResult(NamedTuple):
@@ -180,6 +183,31 @@ def cg_fixed_iters(A: Callable, b: torch.Tensor, *, niter: int,
         CGResult(x=x, iters=torch.tensor(niter, device=b.device),
                  rnorm=hist[niter], rnorm_history=hist),
         pipeline="reference")
+
+
+def ir_solve(A_hi: Callable, b: torch.Tensor, inner_solve: Callable, *,
+             outer_iters: int = 3,
+             lo_dtype: torch.dtype = torch.float32) -> SolveResult:
+    """Mixed-precision iterative refinement.
+
+    ``x_{k+1} = x_k + inner_solve(lo(b - A_hi x_k))`` with the residual
+    formed in the precision of ``b`` and the correction solved in
+    ``lo_dtype``.  Returns a :class:`SolveResult` whose ``history`` holds
+    the ``outer_iters + 1`` outer residual 2-norms.
+    """
+    hi = b.dtype
+    x = torch.zeros_like(b)
+    norms = [torch.linalg.vector_norm(b)]
+    for _ in range(outer_iters):
+        r = b - A_hi(x)
+        e = inner_solve(r.to(lo_dtype))
+        x = x + e.to(hi)
+        norms.append(torch.linalg.vector_norm(b - A_hi(x)))
+    hist = torch.stack(norms)
+    return SolveResult.from_cg(
+        CGResult(x=x, iters=torch.tensor(outer_iters, device=b.device),
+                 rnorm=hist[-1], rnorm_history=hist),
+        pipeline="ir")
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> Callable:

@@ -28,10 +28,18 @@ history stay on the device, so the fixed-iteration loop never waits for the
 card.  The loop (:func:`_run`) and the operand preparation are shared with
 the preconditioned and tolerance-driven drivers of ``core/precond.py``.
 
+**ir** (:func:`cg_ir_fixed_iters`, DESIGN.md §7): iterative refinement.
+Low-precision inner solves over v2, v1 or s-step, each scaled by the
+residual's inf-norm, and an outer residual ``r = b - mask gs(A x)`` formed
+in ``b``'s precision by one assembled K1 per sweep.  The ``bf16`` and
+``bf16_ir`` policies run K4, K5 and K3 in their bf16 builds (bf16 storage,
+f32 accumulation); K8 and K9 have no bf16 build yet, so bf16 over s-step
+raises on the card (ROADMAP.md queue 2).
+
 The reference's v1 ``block_e``, and its v2 slab split ``sz``, contraction
 ``layout`` and ``grid_order``, are TPU VMEM knobs with no counterpart here:
-the kernels work per element.  The sharded pipeline and iterative
-refinement are not ported yet (ROADMAP.md).
+the kernels work per element.  The sharded pipeline is not ported yet
+(ROADMAP.md).
 
 Preconditions: ``b`` must be assembled (coincident copies equal —
 manufactured right-hand sides are) and masked.
@@ -46,7 +54,8 @@ from repro_torch.core.gs import ds_sum_local
 from repro_torch.core.precision import resolve_policy
 from repro_torch.kernels import nekbone_ax as _ax
 
-__all__ = ["cg_fused_fixed_iters", "cg_fused_v2_fixed_iters"]
+__all__ = ["cg_fused_fixed_iters", "cg_fused_v2_fixed_iters",
+           "cg_ir_fixed_iters"]
 
 
 def cg_fused_fixed_iters(b: torch.Tensor, *, D: torch.Tensor,
@@ -155,13 +164,13 @@ def _v2_iter(x2, r2, p2, rtz, beta, *, D, g3, mx, my, mz, cx, cy, cz,
 
 
 def _policy(b, precision):
-    """The precision policy of a solve and ``b`` cast to its storage dtype;
-    refined policies raise (iterative refinement is not ported)."""
+    """The precision policy of a solve and ``b`` cast to its storage dtype.
+
+    A refined policy passed to a v1, v2 or s-step solve runs as its storage
+    policy, as in the reference: the refinement loop is
+    :func:`cg_ir_fixed_iters`.
+    """
     policy = resolve_policy(precision, b.dtype)
-    if policy.refine:
-        raise NotImplementedError(
-            f"precision {policy.name!r} needs iterative refinement "
-            "(cg_ir_fixed_iters), not ported yet: ROADMAP.md queue 1 item 9")
     return policy, b.to(policy.storage_dtype)
 
 
@@ -285,3 +294,134 @@ def cg_fused_v2_fixed_iters(b: torch.Tensor, *, D: torch.Tensor,
     policy, b, n, grid, op = _prepare(b, D, g, grid, mask, c, precision)
     return SolveResult.from_cg(_cg_v2_tol(b, op, policy, None, niter),
                                pipeline="fused_v2")
+
+
+# ---------------------------------------------------------------------------
+# iterative refinement: low-precision fused inner solves, high-precision
+# residuals (DESIGN.md §7)
+# ---------------------------------------------------------------------------
+
+IR_VARIANTS = ("v2", "v1", "sstep")
+
+
+def cg_ir_fixed_iters(b: torch.Tensor, *, D: torch.Tensor, g: torch.Tensor,
+                      grid: tuple[int, int, int], niter: int = 100,
+                      precision="bf16_ir", outer_iters: int | None = None,
+                      inner_iters: int | None = None,
+                      mask: torch.Tensor | None = None,
+                      c: torch.Tensor | None = None, variant: str = "v2",
+                      s: int = 4) -> SolveResult:
+    """Mixed-precision CG: fused low-precision inner solves wrapped in an
+    iterative-refinement outer loop.
+
+    Low-precision storage stalls plain CG at the storage dtype's round-off
+    floor (bf16: ~4e-3 relative).  Each sweep
+
+        r_k = b - mask gs(A x_k)          (b's precision, one K1 launch)
+        e_k = solve(A e = r_k / s_k)      (v2, v1 or s-step, the policy's
+                                           storage, ``inner_iters`` its)
+        x_{k+1} = x_k + s_k e_k           (b's precision)
+
+    with ``s_k = max|r_k|``, taken on the device, so the narrow mantissa
+    holds the digits that are still wrong.  The sweeps restart CG, so each
+    runs the full ``inner_iters``.
+
+    Args:
+      b:     (E, n, n, n) assembled, masked right-hand side, in the
+             precision the refined residuals should reach (f64: the
+             paper's).
+      D, g, grid: as :func:`cg_fused_fixed_iters` (``g`` the full
+             6-component metric: the outer refresh applies it).
+      niter: inner iterations per sweep (the paper's protocol runs 100).
+      precision: the policy (default ``bf16_ir``); its storage prices the
+             inner iterations.
+      outer_iters: sweeps; default 5 for storage narrower than 4 bytes and
+             2 otherwise (the reference's code; its docstring says 3).
+      inner_iters: overrides ``niter`` per sweep.
+      mask/c: structural fields; built from the box's per-axis factors
+             when omitted.
+      variant: inner pipeline, ``"v2"`` (K4 + K5), ``"v1"`` (K3) or
+             ``"sstep"`` (K8 + K9, s iterations per cycle; theta is
+             estimated once per solve).
+
+    Returns a :class:`SolveResult`: ``x`` in ``b``'s dtype, ``history``
+    the ``outer_iters + 1`` outer norms ``sqrt(r·c·r)`` of the true
+    residual, ``iters`` the total inner count.
+    """
+    if variant not in IR_VARIANTS:
+        raise ValueError(f"variant must be one of {IR_VARIANTS}, got "
+                         f"{variant!r}")
+    policy = resolve_policy(precision, b.dtype)
+    hi = b.dtype
+    grid = tuple(grid)
+    E = b.shape[0]
+    n = b.shape[-1]
+    if outer_iters is None:
+        outer_iters = 5 if policy.storage_dtype.itemsize < 4 else 2
+    if inner_iters is None:
+        inner_iters = niter
+    if mask is None or c is None:
+        (mxf, myf, mzf), (cxf, cyf, czf) = box_axis_factors(grid, n)
+
+        def structural(fz, fy, fx):
+            return box_outer(*(torch.as_tensor(f, device=b.device)
+                               for f in (fz, fy, fx))).reshape(b.shape)
+
+        if mask is None:
+            mask = structural(mzf, myf, mxf)
+        if c is None:
+            c = structural(czf, cyf, cxf)
+    mask_hi = mask.to(hi)
+    c_hi = c.to(hi)
+    D_hi = D.to(hi).contiguous()
+    g2_hi = g.to(hi).reshape(E, 6, n ** 3).contiguous()
+
+    def refresh(x):
+        """The residual in b's precision and its weighted norm."""
+        w = _ax.nekbone_ax_cuda(x.reshape(E, n ** 3), D_hi, g2_hi, n=n)
+        r = b - ds_sum_local(w.reshape(b.shape), grid) * mask_hi
+        return r, torch.sqrt(torch.abs(torch.sum(r * c_hi * r)))
+
+    theta = None
+    if variant == "sstep":
+        from repro_torch.core.cg_sstep import estimate_theta
+
+        # theta depends only on the operator: once per solve, not per sweep
+        theta = estimate_theta(D_hi, g.to(hi), grid, mask_hi)
+
+    def inner(r_scaled):
+        if variant == "sstep":
+            from repro_torch.core.cg_sstep import cg_sstep_fixed_iters
+
+            return cg_sstep_fixed_iters(
+                r_scaled, D=D, g=g, grid=grid, niter=inner_iters, s=s,
+                mask=mask, c=c, theta=theta, precision=policy)
+        if variant == "v2":
+            # the caller's mask/c are validated against the box fields the
+            # kernels rebuild: the refresh applies them.
+            return cg_fused_v2_fixed_iters(
+                r_scaled, D=D, g=g, grid=grid, niter=inner_iters, mask=mask,
+                c=c, precision=policy)
+        return cg_fused_fixed_iters(
+            r_scaled, D=D, g=g, mask=mask, c=c, grid=grid,
+            niter=inner_iters, precision=policy)
+
+    x = torch.zeros_like(b)
+    r = b
+    norms = [torch.sqrt(torch.abs(torch.sum(b * c_hi * b)))]
+    for _ in range(outer_iters):
+        # (the reference times each sweep in an obs.trace span; the port's
+        # tracing is ROADMAP.md queue 1 item 13)
+        # inf-norm scaling, on the device: no host read per sweep
+        scale = torch.max(torch.abs(r))
+        scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+        e = inner(r / scale).x
+        x = x + scale * e.to(hi)
+        r, rn = refresh(x)
+        norms.append(rn)
+    hist = torch.stack(norms)
+    return SolveResult.from_cg(
+        CGResult(x=x, iters=torch.tensor(outer_iters * inner_iters,
+                                         device=b.device),
+                 rnorm=hist[-1], rnorm_history=hist),
+        pipeline="ir")

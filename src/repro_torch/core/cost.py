@@ -31,7 +31,8 @@ __all__ = ["flops_per_dof", "cg_iter_flops", "cg_iter_bytes", "intensity",
            "cheb_apply_flops", "PMG_DEFAULT_K", "PMG_COARSE_ITERS",
            "PMG_SMOOTH_RATIO", "pmg_degrees", "pmg_dof_fracs",
            "pmg_vcycle_streams", "pmg_streams", "pmg_flops_per_dof",
-           "MULTI_RHS_SHARED_STREAMS", "multi_rhs_streams"]
+           "MULTI_RHS_SHARED_STREAMS", "multi_rhs_streams",
+           "ir_overhead_streams"]
 
 # Eq. 2's stream counts: words moved per DOF per CG iteration when the
 # operator, mask, and every inner product run as separate passes.
@@ -182,6 +183,21 @@ def fused_v2_cg_iter_bytes(ndof: int, itemsize: int = 8) -> tuple[int, int]:
     4 D writes (vs Eq. 2's 24 + 6)."""
     return (FUSED_V2_READ_STREAMS * ndof * itemsize,
             FUSED_V2_WRITE_STREAMS * ndof * itemsize)
+
+
+def ir_overhead_streams(inner_iters: int, hi_itemsize: int = 8,
+                        itemsize: int = 2) -> float:
+    """Storage-stream equivalents the refinement outer loop adds per inner
+    iteration.
+
+    Each sweep runs one high-precision pass — the operator refresh
+    (7R + 1W), the residual/solution axpys (4R + 2W) — ~14 ``hi_itemsize``
+    words/DOF, amortized over ``inner_iters`` low-precision iterations and
+    expressed in units of one storage-dtype stream.  At the defaults
+    (bf16 inner, f64 outer, 12 inner iters) that is ~4.7 extra bf16
+    streams on the v2 budget's 13: ~35 bytes/DOF/iter against unrefined
+    f32 v2's 52 — the refined pipeline still moves ~1.5x fewer bytes."""
+    return 14.0 * float(hi_itemsize) / (float(itemsize) * float(inner_iters))
 
 
 def ax_local_flops(nelt: int, n: int) -> int:

@@ -14,8 +14,10 @@ the fused expression (both plain torch), and the CUDA kernel.
 Every field lives on ``device``.  ``device=None`` means the card
 (``"cuda"``); without a CUDA device the case raises unless the caller asks
 for ``device="cpu"``, as the tests do.  Jacobi, Chebyshev and p-multigrid
-preconditioning (core/precond.py, core/pmg.py) and multi-RHS block solves
-(core/cg_block.py) are ported; sharding is not yet (ROADMAP.md).
+preconditioning (core/precond.py, core/pmg.py), multi-RHS block solves
+(core/cg_block.py) and iterative refinement (``precision="f32_ir"`` or
+``"bf16_ir"``, core/cg_fused.py) are ported; sharding is not yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -66,8 +68,13 @@ class NekboneCase:
                keep the reference package's spelling.  'auto' (the
                autotuned pick) is not ported yet and raises.
       precision: 'f64' | 'f32' | 'bf16' | 'bf16_ir' | 'f32_ir' | None — the
-               fused pipeline's precision policy.  Non-refined policies
-               also set ``dtype`` to the storage dtype.
+               fused pipeline's precision policy (core/precision.py).
+               Non-refined policies also set ``dtype`` to the storage
+               dtype; a refined one keeps ``dtype`` as the outer precision
+               and sends fixed-iteration solves of the fused pipelines to
+               the ``ir`` route.  On the card bf16 runs over v2 and v1
+               (K4, K5 and K3 in bf16); the other kernels' bf16 builds
+               raise (ROADMAP.md queue 2).
       s:       iterations per s-step cycle (the 'pallas_sstep_v3' knob;
                ignored by every other ax_impl).
       precond: None | 'jacobi' | 'cheb' (optionally 'cheb<k>') | 'pmg'

@@ -231,8 +231,10 @@ def estimate_interval(D: torch.Tensor, g: torch.Tensor,
                         for f in (czf, cyf, cxf))).reshape(mask.shape)
     alphas, betas = _lanczos_tridiag(D, g, mask, c.to(mask.dtype),
                                      grid=grid, iters=int(iters))
-    alphas = alphas.cpu().numpy().astype(np.float64)
-    betas = betas.cpu().numpy().astype(np.float64)
+    # numpy has no bfloat16: widen on the device first, as the reference's
+    # np.asarray(alphas, np.float64) does.
+    alphas = alphas.to(torch.float64).cpu().numpy()
+    betas = betas.to(torch.float64).cpu().numpy()
     # truncate at Krylov breakdown (beta ~ 0): later entries are noise.
     scale = max(np.abs(alphas).max(), 1.0)
     good = np.nonzero(betas < 1e-12 * scale)[0]

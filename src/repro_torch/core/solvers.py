@@ -21,13 +21,17 @@ Routes ported so far (every route returns :class:`SolveResult`):
 ``sstep``          s-step CG over K8 + K9 (core/cg_sstep.py), fixed or
                    tolerance-driven, theta estimated once per case
 ``v1``             fused v1 fixed-iters over K3 (core/cg_fused.py)
+``ir``             iterative refinement (a refined policy, fixed
+                   iterations, no preconditioner): sweeps of v2, v1 or
+                   s-step inner solves in the policy's storage, and one
+                   assembled K1 in ``b``'s precision per sweep
+                   (``cg_fused.cg_ir_fixed_iters``)
 ``reference``      reference CG (cg / cg_fixed_iters) over
                    ``NekboneCase.ax_full``, K1 when ``ax_impl='pallas'``,
                    with the plain Jacobi, Chebyshev or pmg preconditioner
 =================  ======================================================
 
-The reference's other route (``ir``) raises ``NotImplementedError``
-naming its ROADMAP.md item; nothing is re-routed.
+Every route of the reference is ported: :data:`NOT_PORTED` is empty.
 """
 from __future__ import annotations
 
@@ -119,6 +123,17 @@ def _drive_v1(case, f, *, b, niter, tol, max_iter, pc_name):
         niter=niter, precision=case.precision)
 
 
+def _drive_ir(case, f, *, b, niter, tol, max_iter, pc_name):
+    from repro_torch.core.cg_fused import cg_ir_fixed_iters
+
+    variant = {"pallas_fused_cg_v2": "v2",
+               "pallas_sstep_v3": "sstep"}.get(case.ax_impl, "v1")
+    return cg_ir_fixed_iters(
+        f, D=case.D, g=case.g, grid=case.grid, niter=niter,
+        precision=case.precision, mask=case.mask, c=case.c,
+        variant=variant, s=case.s)
+
+
 def _drive_reference(case, f, *, b, niter, tol, max_iter, pc_name):
     M = case._reference_preconditioner(pc_name)
     if niter is not None:
@@ -135,14 +150,13 @@ REGISTRY: dict[str, Callable] = {
     "v2": _drive_v2,
     "v2_tol": _drive_v2_tol,
     "v1": _drive_v1,
+    "ir": _drive_ir,
     "reference": _drive_reference,
 }
 
 # Routes of the reference that are still to port, and where ROADMAP.md
-# lists them.
-NOT_PORTED: dict[str, str] = {
-    "ir": "queue 1 item 9 (iterative refinement)",
-}
+# lists them: none.
+NOT_PORTED: dict[str, str] = {}
 
 
 def route_name(case, *, b: int = 1, niter: int | None = None,

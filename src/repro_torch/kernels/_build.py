@@ -2,20 +2,24 @@
 
 Each ``csrc/<stem>.cu`` becomes one shared library with a plain C
 interface (loaded with ``ctypes``) per dtype of :data:`SOURCES` — ``f64``
-and ``f32`` for the Nekbone kernels, ``f32`` and ``bf16`` for the LM
-kernels (K13 ``flash_attn``, K14 ``wkv6``) — compiled for Hopper only::
+and ``f32`` for the Nekbone kernels, and ``bf16`` and ``bf16_ir`` (the two
+operand mixes of the bf16 policies: every operand bf16, or bf16 vectors
+with x, the metric and D in f32) for K4, K5 and K3; ``f32`` and ``bf16``
+for the LM kernels (K13 ``flash_attn``, K14 ``wkv6``) — compiled for
+Hopper only::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -DNEKBONE_REAL_F64 \\
          -o <build>/<stem>_f64-<hash>.so <stem>.cu
 
-The macro keeps only that dtype's C entry points ``<stem>_f64`` (or
-``_f32``, ``_bf16``; ``nekbone_ax_dots`` also exports
-``nekbone_ax_pap_<dtype>``), and with them that dtype's template
-instantiations, so the halves build in parallel.  The macro keeps its
-first slice's name for every source, so the Nekbone libraries keep their
-hashes.  The libraries go to ``build/repro_torch/`` at
-the root of the checkout (``$REPRO_TORCH_BUILD_DIR`` overrides it), named
+The macro (``-DNEKBONE_REAL_BF16_IR`` for ``bf16_ir``) keeps only that
+dtype's C entry points ``<stem>_f64`` (or ``_f32``, ``_bf16``,
+``_bf16_ir``; ``nekbone_ax_dots`` also exports ``nekbone_ax_pap_<dtype>``,
+and only that one in its bf16 builds), and with them that dtype's
+template instantiations, so the builds run in parallel.  The macro keeps its
+first slice's name (``NEKBONE_REAL_``) for every source, so a library's
+name and flags depend only on its stem and dtype.  The libraries go to
+``build/repro_torch/`` at the root of the checkout (``$REPRO_TORCH_BUILD_DIR`` overrides it), named
 by a hash of the sources, the shared header and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.
 :func:`build_all` starts one ``nvcc`` per library, all at once, and waits
@@ -32,17 +36,24 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["CSRC", "SOURCES", "NVCC_FLAGS", "LAUNCHES", "reset_launches",
-           "build_dir", "nvcc_path", "build_all", "load", "launch"]
+__all__ = ["CSRC", "SOURCES", "DTYPES", "BF16_NEKBONE", "NVCC_FLAGS",
+           "LAUNCHES", "reset_launches", "split_name", "build_dir",
+           "nvcc_path", "build_all", "load", "launch"]
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 _NEKBONE = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
             "nekbone_pcg_update", "nekbone_cheb_apply", "nekbone_interp",
             "nekbone_ax_slab_block", "nekbone_cg_update_block",
             "nekbone_ax_dots", "nekbone_ax_powers", "nekbone_sstep_update")
+# The Nekbone stems with bf16 builds (K4, K5, K3); the rest wait in
+# ROADMAP.md queue 2.
+BF16_NEKBONE = ("nekbone_ax_slab", "nekbone_cg_update", "nekbone_ax_dots")
 # {stem: the dtypes it is built for}: one library per pair.
-SOURCES = {**{stem: ("f64", "f32") for stem in _NEKBONE},
+SOURCES = {**{stem: ("f64", "f32") + (("bf16", "bf16_ir")
+                                      if stem in BF16_NEKBONE else ())
+              for stem in _NEKBONE},
            "flash_attn": ("f32", "bf16"), "wkv6": ("f32", "bf16")}
+DTYPES = ("f64", "f32", "bf16", "bf16_ir")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,6 +72,15 @@ LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def split_name(name: str) -> tuple[str, str]:
+    """``<stem>_<dtype>`` -> ``(stem, dtype)``; the dtype may hold an
+    underscore (``bf16_ir``)."""
+    for dtype in sorted(DTYPES, key=len, reverse=True):
+        if name.endswith(f"_{dtype}"):
+            return name[:-len(dtype) - 1], dtype
+    raise ValueError(f"{name!r} ends in none of the dtypes {DTYPES}")
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -115,7 +135,7 @@ def build_all() -> dict[str, pathlib.Path]:
     for name, so in targets.items():
         if so.exists():
             continue
-        stem, dtype = name.rsplit("_", 1)
+        stem, dtype = split_name(name)
         tmp = so.with_suffix(f".tmp{os.getpid()}.so")
         cmd = [nvcc_path(), *_flags(dtype), "-o", str(tmp),
                str(CSRC / f"{stem}.cu")]
@@ -168,4 +188,4 @@ def launch(name: str, argtypes: list, device, args, *,
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    LAUNCHES[name.rsplit("_", 1)[0]] += 1
+    LAUNCHES[split_name(name)[0]] += 1

@@ -17,11 +17,49 @@
 //   sum of an unassembled field in core/gs.ds_sum_local's tree (K5, K7, K8,
 //   K10, K11).
 // * Dispatch of the run-time n (2..16) to the template instantiations.
+// * Storage apart from accumulation.  A field is loaded in its storage type
+//   and upcast to the accumulation type (convert), the arithmetic runs in
+//   the accumulation type, and a field output is rounded to its storage
+//   type on store (round to nearest even, as torch's .to() does).  f64 and
+//   f32 accumulate in their own type, so for them every convert is the
+//   identity and the arithmetic is what it was before the split; bf16
+//   (__nv_bfloat16) accumulates in f32 (accum_t), the reference's _accum
+//   rule.  The rounded, uncontracted helpers work in the accumulation type.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace nekbone {
+
+// The accumulation type of a storage type: f64 and f32 their own, bf16 f32.
+template <typename S>
+struct Accum {
+  using type = S;
+};
+template <>
+struct Accum<__nv_bfloat16> {
+  using type = float;
+};
+template <typename S>
+using accum_t = typename Accum<S>::type;
+
+// Value conversion between storage and accumulation types: exact upward,
+// round to nearest even downward, the identity within one type.
+template <typename To, typename From>
+__device__ __forceinline__ To convert(From v) {
+  return static_cast<To>(v);
+}
+template <>
+__device__ __forceinline__ float convert<float, __nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 convert<__nv_bfloat16, float>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -74,13 +112,14 @@ struct AxShared {
   T s[N][N];
 };
 
-// Thread (i, j) loads D[j][i] and its transpose; the first barrier of
-// ax_diag_columns publishes them.
-template <int N, typename T>
+// Thread (i, j) loads D[j][i] and its transpose, upcast to the
+// accumulation type T; the first barrier of ax_diag_columns publishes them.
+template <int N, typename T, typename O>
 __device__ __forceinline__ void load_D(AxShared<N, T>& sh,
-                                       const T* __restrict__ D, int i, int j) {
-  sh.D[j][i] = D[j * N + i];
-  sh.Dt[i][j] = D[j * N + i];
+                                       const O* __restrict__ D, int i, int j) {
+  const T d = convert<T>(D[j * N + i]);
+  sh.D[j][i] = d;
+  sh.Dt[i][j] = d;
 }
 
 // w = D^T M D u for one element: thread (i, j) holds the column
@@ -145,33 +184,40 @@ __device__ __forceinline__ void ax_diag_columns_g(AxShared<N, T>& sh,
       uc, wc, i, j);
 }
 
-// The same with the metric read from device memory: ge points at the
-// element's metric diagonal (3, n^3) plus the thread's offset j * n + i.
-template <int N, typename T>
+// The same with the metric read from device memory (in its storage type
+// G): ge points at the element's metric diagonal (3, n^3) plus the
+// thread's offset j * n + i.
+template <int N, typename T, typename G>
 __device__ __forceinline__ void ax_diag_columns(AxShared<N, T>& sh,
-                                                const T* __restrict__ ge,
+                                                const G* __restrict__ ge,
                                                 const T (&uc)[N], T (&wc)[N],
                                                 int i, int j) {
   ax_diag_columns_g(
-      sh, [ge](int c, int k) { return ge[c * (N * N * N) + k * (N * N)]; },
+      sh,
+      [ge](int c, int k) {
+        return convert<T>(ge[c * (N * N * N) + k * (N * N)]);
+      },
       uc, wc, i, j);
 }
 
 // The full metric (rr, rs, rt, ss, st, tt) read from device memory: ge
 // points at the element's (6, n^3) metric plus the thread's offset (K1, K2,
 // K3).
-template <int N, typename T>
+template <int N, typename T, typename G>
 __device__ __forceinline__ void ax_full_columns(AxShared<N, T>& sh,
-                                                const T* __restrict__ ge,
+                                                const G* __restrict__ ge,
                                                 const T (&uc)[N], T (&wc)[N],
                                                 int i, int j) {
   ax_columns(
       sh,
       [ge](int k, T wr, T ws, T wt, T& ur, T& us, T& ut) {
-        const T* gk = ge + k * (N * N);
-        const T grr = gk[0 * (N * N * N)], grs = gk[1 * (N * N * N)];
-        const T grt = gk[2 * (N * N * N)], gss = gk[3 * (N * N * N)];
-        const T gst = gk[4 * (N * N * N)], gtt = gk[5 * (N * N * N)];
+        const G* gk = ge + k * (N * N);
+        const T grr = convert<T>(gk[0 * (N * N * N)]);
+        const T grs = convert<T>(gk[1 * (N * N * N)]);
+        const T grt = convert<T>(gk[2 * (N * N * N)]);
+        const T gss = convert<T>(gk[3 * (N * N * N)]);
+        const T gst = convert<T>(gk[4 * (N * N * N)]);
+        const T gtt = convert<T>(gk[5 * (N * N * N)]);
         ur = grr * wr + grs * ws + grt * wt;
         us = grs * wr + gss * ws + gst * wt;
         ut = grt * wr + gst * ws + gtt * wt;
@@ -216,15 +262,16 @@ __device__ __forceinline__ void masked_ax(AxShared<N, T>& sh,
 // ---------------------------------------------------------------------------
 
 template <int N, typename T>
-__device__ __forceinline__ T node(const T* __restrict__ w, size_t e, int k,
-                                  int j, int i) {
-  return w[e * (N * N * N) + (k * N + j) * N + i];
+__device__ __forceinline__ accum_t<T> node(const T* __restrict__ w, size_t e,
+                                           int k, int j, int i) {
+  return convert<accum_t<T>>(w[e * (N * N * N) + (k * N + j) * N + i]);
 }
 
 // x pairs: face i = n-1 of element ex meets i = 0 of element ex + 1.
 template <int N, typename T>
-__device__ __forceinline__ T sum_x(const T* __restrict__ w, size_t e, int k,
-                                   int j, int i, int ix, int ex) {
+__device__ __forceinline__ accum_t<T> sum_x(const T* __restrict__ w,
+                                            size_t e, int k, int j, int i,
+                                            int ix, int ex) {
   if (i == N - 1 && ix < ex - 1)
     return add_rn(node<N>(w, e, k, j, N - 1), node<N>(w, e + 1, k, j, 0));
   if (i == 0 && ix > 0)
@@ -234,9 +281,9 @@ __device__ __forceinline__ T sum_x(const T* __restrict__ w, size_t e, int k,
 
 // y pairs of x-sums.
 template <int N, typename T>
-__device__ __forceinline__ T sum_xy(const T* __restrict__ w, size_t e, int k,
-                                    int j, int i, int ix, int iy, int ex,
-                                    int ey) {
+__device__ __forceinline__ accum_t<T> sum_xy(const T* __restrict__ w,
+                                             size_t e, int k, int j, int i,
+                                             int ix, int iy, int ex, int ey) {
   const size_t sy = static_cast<size_t>(ex);
   if (j == N - 1 && iy < ey - 1)
     return add_rn(sum_x<N>(w, e, k, N - 1, i, ix, ex),
@@ -247,11 +294,13 @@ __device__ __forceinline__ T sum_xy(const T* __restrict__ w, size_t e, int k,
   return sum_x<N>(w, e, k, j, i, ix, ex);
 }
 
-// z pairs of xy-sums: the assembled value of node (k, j, i) of element e.
+// z pairs of xy-sums: the assembled value of node (k, j, i) of element e,
+// in the accumulation type (an unassembled bf16 field sums in f32).
 template <int N, typename T>
-__device__ __forceinline__ T sum_xyz(const T* __restrict__ w, size_t e, int k,
-                                     int j, int i, int ix, int iy, int iz,
-                                     int ex, int ey, int ez) {
+__device__ __forceinline__ accum_t<T> sum_xyz(const T* __restrict__ w,
+                                              size_t e, int k, int j, int i,
+                                              int ix, int iy, int iz, int ex,
+                                              int ey, int ez) {
   const size_t sz = static_cast<size_t>(ex) * ey;
   if (k == N - 1 && iz < ez - 1)
     return add_rn(sum_xy<N>(w, e, N - 1, j, i, ix, iy, ex, ey),

@@ -28,23 +28,33 @@
 // 12n + 20 flops per node, 0.14 GF, far below.  Each input is read once
 // (p's column into registers, the metric and mask once per node) and w
 // written once.
+//
+// Storage and accumulation (common.cuh).  The template takes the storage
+// type S of the fields (p, mask, w, and r, c for K2), the storage type O of
+// the operator's data (D, metric) and the accumulation type A (the
+// arithmetic, the partials).  K3 has four builds: f64 and f32 (one type
+// throughout), bf16 (S = O = bf16, A = f32) and bf16_ir (S = bf16, O = A =
+// f32).  pap is taken over the unrounded w in A, and w leaves rounded to S,
+// as the TPU kernel does.  K2 is built for f64 and f32 only: no route
+// launches it.  K3 moves 18 bytes per node in bf16 (p, 6 metric fields,
+// mask, w) and 30 in bf16_ir (the metric in f32).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace nekbone {
 
-template <int N, typename T, bool DOTS>
+template <int N, typename S, typename O, typename A, bool DOTS>
 __global__ void __launch_bounds__(N * N)
-nekbone_ax_dots_kernel(const T* __restrict__ p, const T* __restrict__ D,
-                       const T* __restrict__ g, const T* __restrict__ mask,
-                       const T* __restrict__ r, const T* __restrict__ c,
-                       T* __restrict__ w, T* __restrict__ pap,
-                       T* __restrict__ rcz) {
+nekbone_ax_dots_kernel(const S* __restrict__ p, const O* __restrict__ D,
+                       const O* __restrict__ g, const S* __restrict__ mask,
+                       const S* __restrict__ r, const S* __restrict__ c,
+                       S* __restrict__ w, A* __restrict__ pap,
+                       A* __restrict__ rcz) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
-  __shared__ AxShared<N, T> sh;
-  __shared__ T red[2][N2];
+  __shared__ AxShared<N, A> sh;
+  __shared__ A red[2][N2];
 
   const int i = threadIdx.x;
   const int j = threadIdx.y;
@@ -53,52 +63,62 @@ nekbone_ax_dots_kernel(const T* __restrict__ p, const T* __restrict__ D,
   const size_t base = e * N3 + tid;
 
   load_D(sh, D, i, j);
-  T pc[N];
-  T wc[N];
+  A pc[N];
+  A wc[N];
 #pragma unroll
-  for (int k = 0; k < N; ++k) pc[k] = p[base + k * N2];
+  for (int k = 0; k < N; ++k) pc[k] = convert<A>(p[base + k * N2]);
   ax_full_columns(sh, g + e * 6 * N3 + tid, pc, wc, i, j);
 
-  T part = T(0);
-  T part_r = T(0);
+  A part = A(0);
+  A part_r = A(0);
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const size_t o = base + k * N2;
-    const T v = wc[k] * mask[o];
+    const A v = wc[k] * convert<A>(mask[o]);
     part += pc[k] * v;
-    w[o] = v;
+    w[o] = convert<S>(v);
     if (DOTS) {
-      const T rk = r[o];
-      part_r += (rk * c[o]) * rk;
+      const A rk = convert<A>(r[o]);
+      part_r += (rk * convert<A>(c[o])) * rk;
     }
   }
-  const T total = block_sum<N2>(part, red[0], tid);
+  const A total = block_sum<N2>(part, red[0], tid);
   if (tid == 0) pap[e] = total;
   if (DOTS) {
-    const T total_r = block_sum<N2>(part_r, red[1], tid);
+    const A total_r = block_sum<N2>(part_r, red[1], tid);
     if (tid == 0) rcz[e] = total_r;
   }
 }
 
-template <int N, typename T, bool DOTS>
-cudaError_t launch(const T* p, const T* D, const T* g, const T* mask,
-                   const T* r, const T* c, T* w, T* pap, T* rcz, int E,
+template <int N, typename S, typename O, typename A, bool DOTS>
+cudaError_t launch(const S* p, const O* D, const O* g, const S* mask,
+                   const S* r, const S* c, S* w, A* pap, A* rcz, int E,
                    cudaStream_t stream) {
-  nekbone_ax_dots_kernel<N, T, DOTS><<<E, dim3(N, N), 0, stream>>>(
+  nekbone_ax_dots_kernel<N, S, O, A, DOTS><<<E, dim3(N, N), 0, stream>>>(
       p, D, g, mask, r, c, w, pap, rcz);
   return cudaGetLastError();
 }
 
-template <typename T, bool DOTS>
-int dispatch(const T* p, const T* D, const T* g, const T* mask, const T* r,
-             const T* c, T* w, T* pap, T* rcz, int E, int n, void* stream) {
+template <typename S, typename O, typename A, bool DOTS>
+int dispatch(const void* p, const void* D, const void* g, const void* mask,
+             const void* r, const void* c, void* w, void* pap, void* rcz,
+             int E, int n, void* stream) {
   if (E <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const S* ps = static_cast<const S*>(p);
+  const O* Ds = static_cast<const O*>(D);
+  const O* gs = static_cast<const O*>(g);
+  const S* ms = static_cast<const S*>(mask);
+  const S* rs = static_cast<const S*>(r);
+  const S* cs = static_cast<const S*>(c);
+  S* wo = static_cast<S*>(w);
+  A* pa = static_cast<A*>(pap);
+  A* rc = static_cast<A*>(rcz);
   switch (n) {
-#define NEKBONE_CASE(N)                                                     \
-  case N:                                                                   \
-    return static_cast<int>(                                                \
-        launch<N, T, DOTS>(p, D, g, mask, r, c, w, pap, rcz, E, s));
+#define NEKBONE_CASE(N)                                                       \
+  case N:                                                                     \
+    return static_cast<int>(launch<N, S, O, A, DOTS>(ps, Ds, gs, ms, rs, cs,  \
+                                                     wo, pa, rc, E, s));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -108,43 +128,36 @@ int dispatch(const T* p, const T* D, const T* g, const T* mask, const T* r,
 
 }  // namespace nekbone
 
-// p, mask, w (and r, c for K2): (E, n^3); D: (n, n); g: (E, 6, n^3); pap
-// (and rcz): (E,).  All contiguous, on `stream`.  Returns
+// p, mask, w (and r, c for K2): (E, n^3) in S; D: (n, n) and g: (E, 6, n^3)
+// in O; pap (and rcz): (E,) in A.  All contiguous, on `stream`.  Returns
 // cudaGetLastError() after the launch (0 on success).
+#define NEKBONE_AX_PAP_ENTRY(NAME, S, O, A)                                  \
+  extern "C" int NAME(const void* p, const void* D, const void* g,           \
+                      const void* mask, void* w, void* pap, int E, int n,    \
+                      void* stream) {                                        \
+    return nekbone::dispatch<S, O, A, false>(p, D, g, mask, nullptr, nullptr, \
+                                             w, pap, nullptr, E, n, stream); \
+  }
+#define NEKBONE_AX_DOTS_ENTRY(NAME, S, O, A)                                 \
+  extern "C" int NAME(const void* p, const void* D, const void* g,           \
+                      const void* mask, const void* r, const void* c,        \
+                      void* w, void* pap, void* rcz, int E, int n,           \
+                      void* stream) {                                        \
+    return nekbone::dispatch<S, O, A, true>(p, D, g, mask, r, c, w, pap, rcz, \
+                                            E, n, stream);                   \
+  }
+
 #ifdef NEKBONE_REAL_F64
-extern "C" int nekbone_ax_pap_f64(const double* p, const double* D,
-                                  const double* g, const double* mask,
-                                  double* w, double* pap, int E, int n,
-                                  void* stream) {
-  return nekbone::dispatch<double, false>(p, D, g, mask, nullptr, nullptr, w,
-                                          pap, nullptr, E, n, stream);
-}
-
-extern "C" int nekbone_ax_dots_f64(const double* p, const double* D,
-                                   const double* g, const double* mask,
-                                   const double* r, const double* c,
-                                   double* w, double* pap, double* rcz,
-                                   int E, int n, void* stream) {
-  return nekbone::dispatch<double, true>(p, D, g, mask, r, c, w, pap, rcz, E,
-                                         n, stream);
-}
+NEKBONE_AX_PAP_ENTRY(nekbone_ax_pap_f64, double, double, double)
+NEKBONE_AX_DOTS_ENTRY(nekbone_ax_dots_f64, double, double, double)
 #endif
-
 #ifdef NEKBONE_REAL_F32
-extern "C" int nekbone_ax_pap_f32(const float* p, const float* D,
-                                  const float* g, const float* mask,
-                                  float* w, float* pap, int E, int n,
-                                  void* stream) {
-  return nekbone::dispatch<float, false>(p, D, g, mask, nullptr, nullptr, w,
-                                         pap, nullptr, E, n, stream);
-}
-
-extern "C" int nekbone_ax_dots_f32(const float* p, const float* D,
-                                   const float* g, const float* mask,
-                                   const float* r, const float* c, float* w,
-                                   float* pap, float* rcz, int E, int n,
-                                   void* stream) {
-  return nekbone::dispatch<float, true>(p, D, g, mask, r, c, w, pap, rcz, E,
-                                        n, stream);
-}
+NEKBONE_AX_PAP_ENTRY(nekbone_ax_pap_f32, float, float, float)
+NEKBONE_AX_DOTS_ENTRY(nekbone_ax_dots_f32, float, float, float)
+#endif
+#ifdef NEKBONE_REAL_BF16
+NEKBONE_AX_PAP_ENTRY(nekbone_ax_pap_bf16, __nv_bfloat16, __nv_bfloat16, float)
+#endif
+#ifdef NEKBONE_REAL_BF16_IR
+NEKBONE_AX_PAP_ENTRY(nekbone_ax_pap_bf16_ir, __nv_bfloat16, float, float)
 #endif

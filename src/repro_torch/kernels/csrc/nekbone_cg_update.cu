@@ -30,24 +30,35 @@
 // multiply and add, so x and r are bitwise the plain version's.  The
 // weight c = mask/multiplicity is rebuilt per node from the factors cx, cy,
 // cz (exact binary fractions).
+//
+// Storage and accumulation (common.cuh).  The template takes the storage
+// type S of the CG vectors (p, r, w and the c factors), the storage type X
+// of the solution and the accumulation type A (alpha, the arithmetic, the
+// assembly of w, rcr).  Four builds: f64 and f32 (one type throughout);
+// bf16 (S = X = bf16, A = f32) and bf16_ir (S = bf16, X = A = f32: the
+// bf16_ir policy keeps x in f32, core/precision.py).  The updated r is
+// rounded to storage before r.c.r, as the TPU kernel does
+// (nekbone_ax.py:662): the partial is next iteration's beta numerator, and
+// that iteration reads the stored r.  w is assembled in A from its bf16
+// copies.  bf16 moves 12 bytes per node, bf16_ir 16 (x in f32).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace nekbone {
 
-template <int N, typename T>
+template <int N, typename S, typename X, typename A>
 __global__ void __launch_bounds__(N * N)
-nekbone_cg_update_kernel(const T* __restrict__ x, const T* __restrict__ p,
-                         const T* __restrict__ r, const T* __restrict__ w,
-                         const T* __restrict__ alpha,
-                         const T* __restrict__ cx, const T* __restrict__ cy,
-                         const T* __restrict__ cz, T* __restrict__ x_out,
-                         T* __restrict__ r_out, T* __restrict__ rcr, int ex,
+nekbone_cg_update_kernel(const X* __restrict__ x, const S* __restrict__ p,
+                         const S* __restrict__ r, const S* __restrict__ w,
+                         const A* __restrict__ alpha,
+                         const S* __restrict__ cx, const S* __restrict__ cy,
+                         const S* __restrict__ cz, X* __restrict__ x_out,
+                         S* __restrict__ r_out, A* __restrict__ rcr, int ex,
                          int ey, int ez) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
-  __shared__ T red[N2];
+  __shared__ A red[N2];
 
   const int i = threadIdx.x;
   const int j = threadIdx.y;
@@ -57,49 +68,66 @@ nekbone_cg_update_kernel(const T* __restrict__ x, const T* __restrict__ p,
   const int iy = static_cast<int>((e / ex) % ey);
   const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
   const size_t base = e * N3 + tid;
-  const T a = *alpha;
-  const T cyx = cy[iy * N + j] * cx[ix * N + i];
+  const A a = *alpha;
+  const A cyx = convert<A>(cy[iy * N + j]) * convert<A>(cx[ix * N + i]);
 
-  T part = T(0);
+  A part = A(0);
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const size_t o = base + k * N2;
-    const T wa = sum_xyz<N>(w, e, k, j, i, ix, iy, iz, ex, ey, ez);
-    x_out[o] = add_rn(x[o], mul_rn(a, p[o]));
-    const T rn = sub_rn(r[o], mul_rn(a, wa));
-    r_out[o] = rn;
+    const A wa = sum_xyz<N>(w, e, k, j, i, ix, iy, iz, ex, ey, ez);
+    x_out[o] =
+        convert<X>(add_rn(convert<A>(x[o]), mul_rn(a, convert<A>(p[o]))));
+    // the stored residual, and r.c.r over exactly it (the round trip
+    // through S is the identity for f64 and f32)
+    const S rs = convert<S>(sub_rn(convert<A>(r[o]), mul_rn(a, wa)));
+    r_out[o] = rs;
+    const A rn = convert<A>(rs);
     // c is (cz * cy) * cx; the factors are 0, 1/2 or 1, so the product is
     // exact in any order.
-    const T c = cz[iz * N + k] * cyx;
+    const A c = convert<A>(cz[iz * N + k]) * cyx;
     part += (rn * c) * rn;
   }
-  const T total = block_sum<N2>(part, red, tid);
+  const A total = block_sum<N2>(part, red, tid);
   if (tid == 0) rcr[e] = total;
 }
 
-template <int N, typename T>
-cudaError_t launch(const T* x, const T* p, const T* r, const T* w,
-                   const T* alpha, const T* cx, const T* cy, const T* cz,
-                   T* x_out, T* r_out, T* rcr, int ex, int ey, int ez,
+template <int N, typename S, typename X, typename A>
+cudaError_t launch(const X* x, const S* p, const S* r, const S* w,
+                   const A* alpha, const S* cx, const S* cy, const S* cz,
+                   X* x_out, S* r_out, A* rcr, int ex, int ey, int ez,
                    cudaStream_t stream) {
   const int E = ex * ey * ez;
-  nekbone_cg_update_kernel<N, T><<<E, dim3(N, N), 0, stream>>>(
+  nekbone_cg_update_kernel<N, S, X, A><<<E, dim3(N, N), 0, stream>>>(
       x, p, r, w, alpha, cx, cy, cz, x_out, r_out, rcr, ex, ey, ez);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const T* x, const T* p, const T* r, const T* w, const T* alpha,
-             const T* cx, const T* cy, const T* cz, T* x_out, T* r_out,
-             T* rcr, int ex, int ey, int ez, int n, void* stream) {
+template <typename S, typename X, typename A>
+int dispatch(const void* x, const void* p, const void* r, const void* w,
+             const void* alpha, const void* cx, const void* cy,
+             const void* cz, void* x_out, void* r_out, void* rcr, int ex,
+             int ey, int ez, int n, void* stream) {
   if (ex <= 0 || ey <= 0 || ez <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const X* xs = static_cast<const X*>(x);
+  const S* ps = static_cast<const S*>(p);
+  const S* rs = static_cast<const S*>(r);
+  const S* ws = static_cast<const S*>(w);
+  const A* as = static_cast<const A*>(alpha);
+  const S* cxs = static_cast<const S*>(cx);
+  const S* cys = static_cast<const S*>(cy);
+  const S* czs = static_cast<const S*>(cz);
+  X* xo = static_cast<X*>(x_out);
+  S* ro = static_cast<S*>(r_out);
+  A* rc = static_cast<A*>(rcr);
   switch (n) {
 #define NEKBONE_CASE(N)                                                     \
   case N:                                                                   \
-    return static_cast<int>(launch<N, T>(x, p, r, w, alpha, cx, cy, cz,     \
-                                         x_out, r_out, rcr, ex, ey, ez, s));
+    return static_cast<int>(launch<N, S, X, A>(xs, ps, rs, ws, as, cxs,     \
+                                               cys, czs, xo, ro, rc, ex, ey, \
+                                               ez, s));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -109,31 +137,31 @@ int dispatch(const T* x, const T* p, const T* r, const T* w, const T* alpha,
 
 }  // namespace nekbone
 
-// x, p, r, w (unassembled, masked), x_out, r_out: (E, n^3); alpha: one
-// value; cx: (EX, n); cy: (EY, n); cz: (EZ, n); rcr: (E,).  Elements z-major
-// over (EX, EY, EZ).  Returns cudaGetLastError() after the launch.
-#ifdef NEKBONE_REAL_F64
-extern "C" int nekbone_cg_update_f64(const double* x, const double* p,
-                                     const double* r, const double* w,
-                                     const double* alpha, const double* cx,
-                                     const double* cy, const double* cz,
-                                     double* x_out, double* r_out,
-                                     double* rcr, int ex, int ey, int ez,
-                                     int n, void* stream) {
-  return nekbone::dispatch<double>(x, p, r, w, alpha, cx, cy, cz, x_out,
-                                   r_out, rcr, ex, ey, ez, n, stream);
-}
-#endif
+// x, x_out: (E, n^3) in X; p, r, w (unassembled, masked), r_out: (E, n^3)
+// in S; alpha: one value and rcr: (E,) in A; cx: (EX, n), cy: (EY, n), cz:
+// (EZ, n) in S.  Elements z-major over (EX, EY, EZ).  Returns
+// cudaGetLastError() after the launch.
+#define NEKBONE_CG_UPDATE_ENTRY(NAME, S, X, A)                              \
+  extern "C" int NAME(const void* x, const void* p, const void* r,          \
+                      const void* w, const void* alpha, const void* cx,     \
+                      const void* cy, const void* cz, void* x_out,          \
+                      void* r_out, void* rcr, int ex, int ey, int ez, int n, \
+                      void* stream) {                                       \
+    return nekbone::dispatch<S, X, A>(x, p, r, w, alpha, cx, cy, cz, x_out, \
+                                      r_out, rcr, ex, ey, ez, n, stream);   \
+  }
 
+#ifdef NEKBONE_REAL_F64
+NEKBONE_CG_UPDATE_ENTRY(nekbone_cg_update_f64, double, double, double)
+#endif
 #ifdef NEKBONE_REAL_F32
-extern "C" int nekbone_cg_update_f32(const float* x, const float* p,
-                                     const float* r, const float* w,
-                                     const float* alpha, const float* cx,
-                                     const float* cy, const float* cz,
-                                     float* x_out, float* r_out, float* rcr,
-                                     int ex, int ey, int ez, int n,
-                                     void* stream) {
-  return nekbone::dispatch<float>(x, p, r, w, alpha, cx, cy, cz, x_out,
-                                  r_out, rcr, ex, ey, ez, n, stream);
-}
+NEKBONE_CG_UPDATE_ENTRY(nekbone_cg_update_f32, float, float, float)
+#endif
+#ifdef NEKBONE_REAL_BF16
+NEKBONE_CG_UPDATE_ENTRY(nekbone_cg_update_bf16, __nv_bfloat16, __nv_bfloat16,
+                        float)
+#endif
+#ifdef NEKBONE_REAL_BF16_IR
+NEKBONE_CG_UPDATE_ENTRY(nekbone_cg_update_bf16_ir, __nv_bfloat16, float,
+                        float)
 #endif

@@ -36,14 +36,20 @@ Every wrapper takes the kernel's flat operands ((E, n^3) fields, or
   the outputs, launches the kernel on the current stream, raises if the
   launch returned an error, and adds one to its count in
   ``_build.LAUNCHES``.
-  There is no fallback: a CUDA tensor the kernel does not take (bf16, say)
-  raises.
+  There is no fallback: a CUDA tensor the kernel does not take raises.
+
+Every kernel is built for f64 and f32, one dtype for all operands.  K4, K5
+and K3 also take the two bf16 operand mixes of :data:`MIXES` — ``bf16``
+(every operand bf16) and ``bf16_ir`` (bf16 vectors; x, the metric and D in
+f32) — with f32 scalars and partials; the dtype of each operand picks the
+build.  Any other kernel raises for bf16 (ROADMAP.md queue 2).
 
 The kernels are built from the sources at first use (kernels/_build.py).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -74,7 +80,7 @@ __all__ = ["nekbone_ax_cuda",
            "nekbone_ax_dots_plain", "nekbone_ax_powers_cuda",
            "nekbone_ax_powers_plain", "nekbone_sstep_update_cuda",
            "nekbone_sstep_update_plain", "N_RANGE", "INTERP_PAIRS",
-           "SSTEP_MAX_S"]
+           "SSTEP_MAX_S", "MIXES", "build_for"]
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
@@ -87,7 +93,20 @@ INTERP_PAIRS = frozenset(
 # csrc/common.cuh: the Gram tile and the coefficient rows are sized by it).
 SSTEP_MAX_S = 10
 
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+# The operand mixes of the builds, by role: S the CG vectors (and the mask
+# and c fields or factors), X the solution x, O the operator's data (D and
+# the metric), A the scalars (alpha, beta) and the partials.  f64 and f32
+# are one dtype throughout; the bf16 mixes accumulate in f32 and are built
+# for the stems of _BF16_STEMS only.
+_F64, _F32, _BF16 = torch.float64, torch.float32, torch.bfloat16
+MIXES = {
+    "f64": dict(S=_F64, X=_F64, O=_F64, A=_F64),
+    "f32": dict(S=_F32, X=_F32, O=_F32, A=_F32),
+    "bf16": dict(S=_BF16, X=_BF16, O=_BF16, A=_F32),
+    "bf16_ir": dict(S=_BF16, X=_F32, O=_F32, A=_F32),
+}
+_BF16_STEMS = frozenset({"nekbone_ax_slab", "nekbone_cg_update",
+                         "nekbone_ax_pap"})
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers, then the ints, then the stream.
 _ARGTYPES = {
@@ -108,35 +127,71 @@ _ARGTYPES = {
 _LIBRARY = {"nekbone_ax_pap": "nekbone_ax_dots"}
 
 
-def _check(stem: str, n: int, dtype: torch.dtype, device: torch.device,
-           **tensors: tuple[torch.Tensor, tuple[int, ...]]) -> None:
+def build_for(stem: str, **tensors: tuple) -> str:
+    """The build (``MIXES`` key) the operands of a launch of ``stem`` pick.
+
+    Each operand is ``(tensor, shape)`` or ``(tensor, shape, role)``, the
+    role a key of a ``MIXES`` entry (``S`` when omitted); the first ``S``
+    operand's dtype selects the storage, and every operand must then match
+    one build role by role.  bf16 storage raises ``NotImplementedError``
+    for a kernel without a bf16 build; a dtype that matches no build raises
+    ``TypeError``.  The answer is cached by the operands' (name, role,
+    dtype), so a launch pays for one tuple and one lookup.
+    """
+    return _build_for(stem, tuple(
+        (name, spec[2] if len(spec) > 2 else "S", spec[0].dtype)
+        for name, spec in tensors.items()))
+
+
+@functools.lru_cache(maxsize=None)
+def _build_for(stem: str, signature: tuple) -> str:
+    storage = next(dtype for _, role, dtype in signature if role == "S")
+    if storage == torch.bfloat16 and stem not in _BF16_STEMS:
+        raise NotImplementedError(
+            f"{stem}: the CUDA kernel has no bf16 build yet (built in bf16: "
+            "K4, K5 and K3; the rest are ROADMAP.md queue 2)")
+    mixes = [m for m, dt in MIXES.items() if dt["S"] == storage]
+    if not mixes:
+        raise NotImplementedError(
+            f"{stem}: the CUDA kernel is built for float64, float32 and (K4, "
+            f"K5, K3) bfloat16 storage, not {storage} (ROADMAP.md queue 2)")
+    mix = next((m for m in mixes if all(
+        dtype == MIXES[m][role] for _, role, dtype in signature)), None)
+    if mix is None:
+        got = {name: dtype for name, _, dtype in signature}
+        raise TypeError(
+            f"{stem}: operand dtypes {got} match no build; builds by role "
+            "(S vectors, X solution, O operator, A scalars): "
+            + "; ".join(f"{m} {MIXES[m]}" for m in mixes))
+    return mix
+
+
+def _check(stem: str, n: int, device: torch.device,
+           **tensors: tuple) -> str:
+    """Check the operands of a launch (device, n, dtypes, shapes,
+    contiguity) and return the build they pick (:func:`build_for`)."""
     if device.type != "cuda":
         raise ValueError(f"{stem}: tensors must be on the CPU or a CUDA "
                          f"device, got {device}")
-    if dtype not in _SUFFIX:
-        raise NotImplementedError(
-            f"{stem}: the CUDA kernel is built for float32 and float64, not "
-            f"{dtype} (bf16 variants: ROADMAP.md queue 2)")
     if n not in N_RANGE:
         raise ValueError(f"{stem}: n={n} outside the built range 2..16")
-    for name, (t, shape) in tensors.items():
+    mix = build_for(stem, **tensors)
+    for name, (t, shape, *_) in tensors.items():
         if t.device != device:
             raise ValueError(f"{stem}: {name} is on {t.device}, not {device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{stem}: {name} is {t.dtype}, not {dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{stem}: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{stem}: {name} must be contiguous")
+    return mix
 
 
-def _launch(stem: str, dtype: torch.dtype, device: torch.device,
-            tensors, ints) -> None:
-    suffix = _SUFFIX[dtype]
-    _build.launch(f"{stem}_{suffix}", _ARGTYPES[stem], device,
+def _launch(stem: str, mix: str, device: torch.device, tensors,
+            ints) -> None:
+    _build.launch(f"{stem}_{mix}", _ARGTYPES[stem], device,
                   (*(t.data_ptr() for t in tensors), *ints),
-                  library=f"{_LIBRARY.get(stem, stem)}_{suffix}")
+                  library=f"{_LIBRARY.get(stem, stem)}_{mix}")
 
 
 def nekbone_ax_cuda(u2: torch.Tensor, D: torch.Tensor, g2: torch.Tensor, *,
@@ -146,10 +201,10 @@ def nekbone_ax_cuda(u2: torch.Tensor, D: torch.Tensor, g2: torch.Tensor, *,
         return nekbone_ax_plain(u2, D, g2, n=n)
     E = u2.shape[0]
     n3 = n ** 3
-    _check("nekbone_ax", n, u2.dtype, u2.device, u2=(u2, (E, n3)),
-           D=(D, (n, n)), g2=(g2, (E, 6, n3)))
+    mix = _check("nekbone_ax", n, u2.device, u2=(u2, (E, n3)),
+                 D=(D, (n, n)), g2=(g2, (E, 6, n3)))
     w2 = torch.empty_like(u2)
-    _launch("nekbone_ax", u2.dtype, u2.device, (u2, D, g2, w2), (E, n))
+    _launch("nekbone_ax", mix, u2.device, (u2, D, g2, w2), (E, n))
     return w2
 
 
@@ -157,22 +212,25 @@ def nekbone_ax_slab_cuda(p2, r2, D, g3, mx, my, mz, beta, *, n: int):
     """K4: ``p = r + beta p2``, masked diagonal-metric Ax, pap partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_ax_slab_plain`; the
-    element grid is ``(len(mx), len(my), len(mz))``.  Returns
-    ``(p, w, pap)`` with ``w`` unassembled and ``pap`` of shape (E,).
+    element grid is ``(len(mx), len(my), len(mz))``.  Builds by operand
+    dtype (:data:`MIXES`): p2, r2 and the factors in S, D and g3 in O, beta
+    in A.  Returns ``(p, w, pap)`` with ``p`` and the unassembled ``w`` in
+    S and ``pap`` of shape (E,) in A.
     """
     if p2.device.type == "cpu":
         return nekbone_ax_slab_plain(p2, r2, D, g3, mx, my, mz, beta, n=n)
     ex, ey, ez = mx.shape[0], my.shape[0], mz.shape[0]
     E = ex * ey * ez
     n3 = n ** 3
-    _check("nekbone_ax_slab", n, p2.dtype, p2.device, p2=(p2, (E, n3)),
-           r2=(r2, (E, n3)), D=(D, (n, n)), g3=(g3, (E, 3, n3)),
-           mx=(mx, (ex, n)), my=(my, (ey, n)), mz=(mz, (ez, n)),
-           beta=(beta.reshape(1), (1,)))
+    mix = _check("nekbone_ax_slab", n, p2.device, p2=(p2, (E, n3)),
+                 r2=(r2, (E, n3)), D=(D, (n, n), "O"),
+                 g3=(g3, (E, 3, n3), "O"), mx=(mx, (ex, n)),
+                 my=(my, (ey, n)), mz=(mz, (ez, n)),
+                 beta=(beta.reshape(1), (1,), "A"))
     p_out = torch.empty_like(p2)
     w2 = torch.empty_like(p2)
-    pap = torch.empty(E, dtype=p2.dtype, device=p2.device)
-    _launch("nekbone_ax_slab", p2.dtype, p2.device,
+    pap = torch.empty(E, dtype=MIXES[mix]["A"], device=p2.device)
+    _launch("nekbone_ax_slab", mix, p2.device,
             (p2, r2, D, g3, mx, my, mz, beta, p_out, w2, pap), (ex, ey, ez, n))
     return p_out, w2, pap
 
@@ -181,22 +239,23 @@ def nekbone_cg_update_cuda(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int):
     """K5: assemble ``w``, ``x += alpha p``, ``r -= alpha w``, rcr partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_cg_update_plain`;
-    ``w2`` is K4's unassembled output.  Returns ``(x, r, rcr)`` with
-    ``rcr`` of shape (E,).
+    ``w2`` is K4's unassembled output.  Builds by operand dtype
+    (:data:`MIXES`): x2 in X, p2, r2, w2 and the factors in S, alpha in A.
+    Returns ``(x, r, rcr)`` with ``rcr`` of shape (E,) in A.
     """
     if x2.device.type == "cpu":
         return nekbone_cg_update_plain(x2, p2, r2, w2, alpha, cx, cy, cz, n=n)
     ex, ey, ez = cx.shape[0], cy.shape[0], cz.shape[0]
     E = ex * ey * ez
     n3 = n ** 3
-    _check("nekbone_cg_update", n, x2.dtype, x2.device, x2=(x2, (E, n3)),
-           p2=(p2, (E, n3)), r2=(r2, (E, n3)), w2=(w2, (E, n3)),
-           alpha=(alpha.reshape(1), (1,)), cx=(cx, (ex, n)),
-           cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    mix = _check("nekbone_cg_update", n, x2.device, x2=(x2, (E, n3), "X"),
+                 p2=(p2, (E, n3)), r2=(r2, (E, n3)), w2=(w2, (E, n3)),
+                 alpha=(alpha.reshape(1), (1,), "A"), cx=(cx, (ex, n)),
+                 cy=(cy, (ey, n)), cz=(cz, (ez, n)))
     x_out = torch.empty_like(x2)
     r_out = torch.empty_like(r2)
-    rcr = torch.empty(E, dtype=x2.dtype, device=x2.device)
-    _launch("nekbone_cg_update", x2.dtype, x2.device,
+    rcr = torch.empty(E, dtype=MIXES[mix]["A"], device=x2.device)
+    _launch("nekbone_cg_update", mix, x2.device,
             (x2, p2, r2, w2, alpha, cx, cy, cz, x_out, r_out, rcr),
             (ex, ey, ez, n))
     return x_out, r_out, rcr
@@ -216,14 +275,14 @@ def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
     ex, ey, ez = cx.shape[0], cy.shape[0], cz.shape[0]
     E = ex * ey * ez
     n3 = n ** 3
-    _check("nekbone_pcg_update", n, x2.dtype, x2.device, x2=(x2, (E, n3)),
-           p2=(p2, (E, n3)), z2=(z2, (E, n3)), w2=(w2, (E, n3)),
-           alpha=(alpha.reshape(1), (1,)), invd2=(invd2, (E, n3)),
-           cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    mix = _check("nekbone_pcg_update", n, x2.device, x2=(x2, (E, n3)),
+                 p2=(p2, (E, n3)), z2=(z2, (E, n3)), w2=(w2, (E, n3)),
+                 alpha=(alpha.reshape(1), (1,)), invd2=(invd2, (E, n3)),
+                 cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)))
     x_out = torch.empty_like(x2)
     z_out = torch.empty_like(z2)
     parts = torch.empty(2, E, dtype=x2.dtype, device=x2.device)
-    _launch("nekbone_pcg_update", x2.dtype, x2.device,
+    _launch("nekbone_pcg_update", mix, x2.device,
             (x2, p2, z2, w2, alpha, invd2, cx, cy, cz, x_out, z_out,
              parts[0], parts[1]), (ex, ey, ez, n))
     return x_out, z_out, parts[0], parts[1]
@@ -247,14 +306,14 @@ def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
     ex, ey, ez = mx.shape[0], my.shape[0], mz.shape[0]
     E = ex * ey * ez
     n3 = n ** 3
-    _check("nekbone_cheb_apply", n, r2.dtype, r2.device, r2=(r2, (E, n3)),
-           D=(D, (n, n)), g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)),
-           my=(my, (ey, n)), mz=(mz, (ez, n)), cx=(cx, (ex, n)),
-           cy=(cy, (ey, n)), cz=(cz, (ez, n)), coef=(coef, (k + 1, 2)))
+    mix = _check("nekbone_cheb_apply", n, r2.device, r2=(r2, (E, n3)),
+                 D=(D, (n, n)), g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)),
+                 my=(my, (ey, n)), mz=(mz, (ez, n)), cx=(cx, (ex, n)),
+                 cy=(cy, (ey, n)), cz=(cz, (ez, n)), coef=(coef, (k + 1, 2)))
     z = torch.empty_like(r2)
     scratch = torch.empty(4, E, n3, dtype=r2.dtype, device=r2.device)
     rtz = torch.empty(E, dtype=r2.dtype, device=r2.device)
-    _launch("nekbone_cheb_apply", r2.dtype, r2.device,
+    _launch("nekbone_cheb_apply", mix, r2.device,
             (r2, D, g3, mx, my, mz, cx, cy, cz, coef, z, *scratch, rtz),
             (ex, ey, ez, n, k))
     return z, rtz
@@ -274,10 +333,10 @@ def nekbone_interp_cuda(u2, mt, *, nin: int, nout: int):
                          "n -> ceil(n/2) or back of the p-multigrid ladder, "
                          "n = 3..16")
     E = u2.shape[0]
-    _check("nekbone_interp", nin, u2.dtype, u2.device,
-           u2=(u2, (E, nin ** 3)), mt=(mt, (nin, nout)))
+    mix = _check("nekbone_interp", nin, u2.device,
+                 u2=(u2, (E, nin ** 3)), mt=(mt, (nin, nout)))
     v2 = torch.empty(E, nout ** 3, dtype=u2.dtype, device=u2.device)
-    _launch("nekbone_interp", u2.dtype, u2.device, (u2, mt, v2),
+    _launch("nekbone_interp", mix, u2.device, (u2, mt, v2),
             (E, nin, nout))
     return v2
 
@@ -297,14 +356,14 @@ def nekbone_ax_slab_block_cuda(p3, r3, D, g3, mx, my, mz, beta, *, n: int):
     E = ex * ey * ez
     n3 = n ** 3
     b = p3.shape[0]
-    _check("nekbone_ax_slab_block", n, p3.dtype, p3.device,
-           p3=(p3, (b, E, n3)), r3=(r3, (b, E, n3)), D=(D, (n, n)),
-           g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)), my=(my, (ey, n)),
-           mz=(mz, (ez, n)), beta=(beta, (b,)))
+    mix = _check("nekbone_ax_slab_block", n, p3.device,
+                 p3=(p3, (b, E, n3)), r3=(r3, (b, E, n3)), D=(D, (n, n)),
+                 g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)), my=(my, (ey, n)),
+                 mz=(mz, (ez, n)), beta=(beta, (b,)))
     p_out = torch.empty_like(p3)
     w3 = torch.empty_like(p3)
     pap = torch.empty(b, E, dtype=p3.dtype, device=p3.device)
-    _launch("nekbone_ax_slab_block", p3.dtype, p3.device,
+    _launch("nekbone_ax_slab_block", mix, p3.device,
             (p3, r3, D, g3, mx, my, mz, beta, p_out, w3, pap),
             (ex, ey, ez, n, b))
     return p_out, w3, pap
@@ -327,14 +386,14 @@ def nekbone_cg_update_block_cuda(x3, p3, r3, w3, alpha, cx, cy, cz, *,
     E = ex * ey * ez
     n3 = n ** 3
     b = x3.shape[0]
-    _check("nekbone_cg_update_block", n, x3.dtype, x3.device,
-           x3=(x3, (b, E, n3)), p3=(p3, (b, E, n3)), r3=(r3, (b, E, n3)),
-           w3=(w3, (b, E, n3)), alpha=(alpha, (b,)), cx=(cx, (ex, n)),
-           cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    mix = _check("nekbone_cg_update_block", n, x3.device,
+                 x3=(x3, (b, E, n3)), p3=(p3, (b, E, n3)), r3=(r3, (b, E, n3)),
+                 w3=(w3, (b, E, n3)), alpha=(alpha, (b,)), cx=(cx, (ex, n)),
+                 cy=(cy, (ey, n)), cz=(cz, (ez, n)))
     x_out = torch.empty_like(x3)
     r_out = torch.empty_like(r3)
     rcr = torch.empty(b, E, dtype=x3.dtype, device=x3.device)
-    _launch("nekbone_cg_update_block", x3.dtype, x3.device,
+    _launch("nekbone_cg_update_block", mix, x3.device,
             (x3, p3, r3, w3, alpha, cx, cy, cz, x_out, r_out, rcr),
             (ex, ey, ez, n, b))
     return x_out, r_out, rcr
@@ -344,18 +403,20 @@ def nekbone_ax_pap_cuda(p2, D, g2, mask2, *, n: int):
     """K3: ``w = mask (D^T G D p)`` with the full metric, pap partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_ax_pap_plain`:
-    ``p2``, ``mask2``: (E, n^3); ``g2``: (E, 6, n^3).  Returns ``(w, pap)``
-    with ``w`` unassembled and ``pap`` of shape (E,).
+    ``p2``, ``mask2``: (E, n^3) in S; ``D``, ``g2``: (n, n), (E, 6, n^3) in
+    O (:data:`MIXES`).  Returns ``(w, pap)`` with ``w`` unassembled in S
+    and ``pap`` of shape (E,) in A.
     """
     if p2.device.type == "cpu":
         return nekbone_ax_pap_plain(p2, D, g2, mask2, n=n)
     E = p2.shape[0]
     n3 = n ** 3
-    _check("nekbone_ax_pap", n, p2.dtype, p2.device, p2=(p2, (E, n3)),
-           D=(D, (n, n)), g2=(g2, (E, 6, n3)), mask2=(mask2, (E, n3)))
+    mix = _check("nekbone_ax_pap", n, p2.device, p2=(p2, (E, n3)),
+                 D=(D, (n, n), "O"), g2=(g2, (E, 6, n3), "O"),
+                 mask2=(mask2, (E, n3)))
     w2 = torch.empty_like(p2)
-    pap = torch.empty(E, dtype=p2.dtype, device=p2.device)
-    _launch("nekbone_ax_pap", p2.dtype, p2.device, (p2, D, g2, mask2, w2, pap),
+    pap = torch.empty(E, dtype=MIXES[mix]["A"], device=p2.device)
+    _launch("nekbone_ax_pap", mix, p2.device, (p2, D, g2, mask2, w2, pap),
             (E, n))
     return w2, pap
 
@@ -370,12 +431,12 @@ def nekbone_ax_dots_cuda(p2, D, g2, mask2, r2, c2, *, n: int):
         return nekbone_ax_dots_plain(p2, D, g2, mask2, r2, c2, n=n)
     E = p2.shape[0]
     n3 = n ** 3
-    _check("nekbone_ax_dots", n, p2.dtype, p2.device, p2=(p2, (E, n3)),
-           D=(D, (n, n)), g2=(g2, (E, 6, n3)), mask2=(mask2, (E, n3)),
-           r2=(r2, (E, n3)), c2=(c2, (E, n3)))
+    mix = _check("nekbone_ax_dots", n, p2.device, p2=(p2, (E, n3)),
+                 D=(D, (n, n)), g2=(g2, (E, 6, n3)), mask2=(mask2, (E, n3)),
+                 r2=(r2, (E, n3)), c2=(c2, (E, n3)))
     w2 = torch.empty_like(p2)
     parts = torch.empty(2, E, dtype=p2.dtype, device=p2.device)
-    _launch("nekbone_ax_dots", p2.dtype, p2.device,
+    _launch("nekbone_ax_dots", mix, p2.device,
             (p2, D, g2, mask2, r2, c2, w2, parts[0], parts[1]), (E, n))
     return w2, parts[0], parts[1]
 
@@ -403,16 +464,16 @@ def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
     ex, ey, ez = mx.shape[0], my.shape[0], mz.shape[0]
     E = ex * ey * ez
     n3 = n ** 3
-    _check("nekbone_ax_powers", n, p2.dtype, p2.device, p2=(p2, (E, n3)),
-           r2=(r2, (E, n3)), D=(D, (n, n)), g3=(g3, (E, 3, n3)),
-           mx=(mx, (ex, n)), my=(my, (ey, n)), mz=(mz, (ez, n)),
-           cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)),
-           inv_theta=(inv_theta.reshape(1), (1,)))
+    mix = _check("nekbone_ax_powers", n, p2.device, p2=(p2, (E, n3)),
+                 r2=(r2, (E, n3)), D=(D, (n, n)), g3=(g3, (E, 3, n3)),
+                 mx=(mx, (ex, n)), my=(my, (ey, n)), mz=(mz, (ez, n)),
+                 cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)),
+                 inv_theta=(inv_theta.reshape(1), (1,)))
     K = 2 * s + 1
     basis = torch.empty(E, 2 * s - 1, n3, dtype=p2.dtype, device=p2.device)
     gram = torch.empty(E, K, K, dtype=p2.dtype, device=p2.device)
     scratch = torch.empty(4, E, n3, dtype=p2.dtype, device=p2.device)
-    _launch("nekbone_ax_powers", p2.dtype, p2.device,
+    _launch("nekbone_ax_powers", mix, p2.device,
             (p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta, basis, gram,
              *scratch), (ex, ey, ez, n, s))
     return basis, gram
@@ -433,15 +494,16 @@ def nekbone_sstep_update_cuda(x2, p2, r2, basis, coef, cx, cy, cz, *, n: int,
     ex, ey, ez = cx.shape[0], cy.shape[0], cz.shape[0]
     E = ex * ey * ez
     n3 = n ** 3
-    _check("nekbone_sstep_update", n, x2.dtype, x2.device, x2=(x2, (E, n3)),
-           p2=(p2, (E, n3)), r2=(r2, (E, n3)),
-           basis=(basis, (E, 2 * s - 1, n3)), coef=(coef, (3, 2 * s + 1)),
-           cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    mix = _check("nekbone_sstep_update", n, x2.device, x2=(x2, (E, n3)),
+                 p2=(p2, (E, n3)), r2=(r2, (E, n3)),
+                 basis=(basis, (E, 2 * s - 1, n3)),
+                 coef=(coef, (3, 2 * s + 1)),
+                 cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)))
     x_out = torch.empty_like(x2)
     r_out = torch.empty_like(r2)
     p_out = torch.empty_like(p2)
     rcr = torch.empty(E, dtype=x2.dtype, device=x2.device)
-    _launch("nekbone_sstep_update", x2.dtype, x2.device,
+    _launch("nekbone_sstep_update", mix, x2.device,
             (x2, p2, r2, basis, coef, cx, cy, cz, x_out, r_out, p_out, rcr),
             (ex, ey, ez, n, s))
     return x_out, r_out, p_out, rcr

@@ -167,12 +167,27 @@ def test_v1_matches_the_plain_route(x64):
     np.testing.assert_allclose(h, h_plain, rtol=1e-12, atol=1e-13 * h[0])
 
 
-def test_v1_refined_precision_raises():
-    f = torch.zeros(2, 3, 3, 3, dtype=torch.float32)
-    case = TorchCase(n=3, grid=(1, 1, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cg_fused_fixed_iters(f, D=case.D, g=case.g, mask=case.mask, c=case.c,
-                             grid=case.grid, niter=2, precision="f32_ir")
+def test_v1_refined_precision_raises(x64):
+    """A refined policy passed straight to the v1 solve no longer raises:
+    it runs as its storage policy, as the reference's does — bitwise the
+    port's own f32 run, and within 1e-4 of the reference's f32_ir run over
+    entries 0..8 (the f32 envelope of tests/test_torch_ir.py)."""
+    jcase = JaxCase(n=4, grid=(2, 2, 2), dtype=jnp.float64)
+    case = TorchCase(n=4, grid=(2, 2, 2), dtype=torch.float64, device="cpu")
+    f = np.array(jcase.manufactured()[1])
+    kw = dict(D=case.D, g=case.g, mask=case.mask, c=case.c, grid=case.grid,
+              niter=8)
+    got = cg_fused_fixed_iters(torch.as_tensor(f), precision="f32_ir", **kw)
+    plain = cg_fused_fixed_iters(torch.as_tensor(f), precision="f32", **kw)
+    assert got.x.dtype == torch.float32
+    assert torch.equal(got.history, plain.history)
+    assert torch.equal(got.x, plain.x)
+    ref = jax_cg_fused(jnp.asarray(f), D=jcase.D, g=jcase.g, mask=jcase.mask,
+                       c=jcase.c, grid=jcase.grid, niter=8,
+                       precision="f32_ir")
+    h_ref = np.asarray(ref.rnorm_history, np.float64)
+    h = got.history.double().numpy()
+    assert np.abs(h - h_ref).max() <= 1e-4 * h_ref.min()
 
 
 def test_v1_books_match_reference():

@@ -336,3 +336,49 @@ def test_vcycle_plain_matches_jax_cg_with_reference_cycle(x64):
              dot=tcase.dot(), precond=tM)
     assert int(got.iters) == int(ref.iters)
     _assert_parity(ref, got)
+
+
+# ---------------------------------------------------------------------------
+# the reduced-precision policies (n=6, grid 2x2x4: the ladder 6 -> 3 -> 2)
+# ---------------------------------------------------------------------------
+
+def _policy_cases(precision):
+    kw = dict(n=6, grid=(2, 2, 4), precision=precision,
+              ax_impl="pallas_fused_cg_v2")
+    return (JaxCase(dtype=jnp.float64, **kw),
+            TorchCase(dtype=torch.float64, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("precision,rtol", [("f32", 1e-5), ("bf16", 1e-2)])
+def test_reduced_precision_pmg_spec_matches_reference(x64, precision, rtol):
+    """The pmg set-up of an f32 or bf16 case (bf16 raised before: numpy has
+    no bfloat16): the same ladder, and per-level intervals whose fine level
+    comes from a Lanczos run in storage (f32 1e-5, bf16 1e-2; measured 2e-6
+    and 2.2e-3) and whose coarser levels are the f64 level operators'."""
+    jcase, tcase = _policy_cases(precision)
+    want = jcase.precond_spec("pmg")
+    got = tcase.precond_spec("pmg")
+    assert got.ns == want.ns == (6, 3, 2)
+    np.testing.assert_allclose(np.asarray(got.intervals),
+                               np.asarray(want.intervals), rtol=rtol)
+
+
+@pytest.mark.parametrize("precision,entries,rtol", [("f32", 11, 1e-4),
+                                                    ("bf16", 4, 2e-2)])
+def test_reduced_precision_pmg_pcg_matches_reference(x64, precision, entries,
+                                                     rtol):
+    """pmg-PCG in f32 and bf16 storage through ``case.solve`` (12
+    iterations), each side on its own set-up: the history over its
+    pre-asymptotic entries.  f32: 1e-4 over entries 0..10 (measured 4.6e-5;
+    entry 11 is at f32's floor, 1e-13 of entry 0); bf16: 2e-2 over entries
+    0..3 (measured 5.8e-3; pmg reaches bf16's floor by entry 4)."""
+    jcase, tcase = _policy_cases(precision)
+    _, jf = jcase.manufactured()
+    tf = torch.as_tensor(np.asarray(jf, np.float64)).to(tcase.dtype)
+    ref = jcase.solve(jf, niter=12, precond="pmg")
+    got = tcase.solve(tf, niter=12, precond="pmg")
+    assert got.x.dtype == tcase.dtype and got.precond == "pmg"
+    h_ref = np.asarray(ref.rnorm_history, np.float64)[:entries]
+    h = got.history.double().numpy()[:entries]
+    rel = np.abs(h - h_ref) / h_ref
+    assert rel.max() <= rtol, rel

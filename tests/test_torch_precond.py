@@ -345,3 +345,51 @@ def test_fixed_v2_history_is_a_prefix_of_itself_via_cg_fused_tol(x64):
     ref = jax_v2_fixed(jf, D=jcase.D, g=jcase.g, grid=jcase.grid, niter=9,
                        interpret=True)
     _assert_parity(ref, fixed)
+
+
+# ---------------------------------------------------------------------------
+# the reduced-precision policies (n=6, grid 2x2x4, 12 iterations)
+# ---------------------------------------------------------------------------
+
+def _policy_cases(precision):
+    kw = dict(n=6, grid=(2, 2, 4), precision=precision,
+              ax_impl="pallas_fused_cg_v2")
+    return (JaxCase(dtype=jnp.float64, **kw),
+            TorchCase(dtype=torch.float64, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("precision,rtol", [("f32", 1e-5), ("bf16", 1e-2)])
+def test_reduced_precision_cheb_interval_matches_reference(x64, precision,
+                                                           rtol):
+    """The Chebyshev set-up of an f32 or bf16 case (bf16 raised before:
+    numpy has no bfloat16).  The Lanczos vectors round to storage at every
+    step, so the extreme Ritz values agree to f32's 1e-5 and bf16's 1e-2
+    (measured: 2e-6 and 2.3e-3)."""
+    jcase, tcase = _policy_cases(precision)
+    want = jcase.precond_spec("cheb2")
+    got = tcase.precond_spec("cheb2")
+    assert got.k == 2
+    np.testing.assert_allclose((got.lmin, got.lmax), (want.lmin, want.lmax),
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("precision,pc,entries,rtol", [
+    ("f32", "jacobi", 11, 1e-4), ("f32", "cheb2", 11, 1e-4),
+    ("bf16", "jacobi", 7, 2e-2), ("bf16", "cheb2", 7, 2e-2)])
+def test_reduced_precision_pcg_matches_reference(x64, precision, pc, entries,
+                                                 rtol):
+    """Jacobi and Chebyshev(2) PCG in f32 and bf16 storage through
+    ``case.solve``, each side on its own set-up: the history over its
+    pre-asymptotic entries.  f32: 1e-4 over entries 0..10 (measured 1.6e-5);
+    bf16: 2e-2 over entries 0..6 (measured 9.4e-3: f32 sums in another
+    order flip bf16 steps of the stored vectors)."""
+    jcase, tcase = _policy_cases(precision)
+    _, jf = jcase.manufactured()
+    tf = torch.as_tensor(np.asarray(jf, np.float64)).to(tcase.dtype)
+    ref = jcase.solve(jf, niter=12, precond=pc)
+    got = tcase.solve(tf, niter=12, precond=pc)
+    assert got.x.dtype == tcase.dtype and got.precond == ref.precond
+    h_ref = np.asarray(ref.rnorm_history, np.float64)[:entries]
+    h = got.history.double().numpy()[:entries]
+    rel = np.abs(h - h_ref) / h_ref
+    assert rel.max() <= rtol, rel

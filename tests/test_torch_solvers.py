@@ -62,15 +62,27 @@ def test_ported_routes_run(kw, solve_kw, pipeline):
     (dict(ax_impl="pallas_fused_cg_v2", precision="f32_ir"),
      dict(niter=3)),                                              # ir
 ])
-def test_unported_routes_raise(kw, solve_kw):
+def test_unported_routes_raise(x64, kw, solve_kw):
+    """No route of the reference is left unported: ``NOT_PORTED`` is empty,
+    and the last one that raised, ``ir``, now solves — two f32 sweeps of 3
+    v2 iterations, refined in the case's fp64, as the reference's."""
+    assert torch_solvers.NOT_PORTED == {}
     case = NekboneCase(n=3, grid=(1, 1, 2), dtype=torch.float64,
                        device="cpu", **kw)
-    _, f = case.manufactured()
-    b = solve_kw.pop("b", None)
-    if b:
-        f = torch.stack([f] * b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        case.solve(f, b=b, **solve_kw)
+    jcase = JaxCase(n=3, grid=(1, 1, 2), dtype=jnp.float64, **kw)
+    assert torch_solvers.route_name(case, **solve_kw) == "ir"
+    _, f = jcase.manufactured()
+    ref = jcase.solve(f, **solve_kw)
+    res = case.solve(torch.as_tensor(np.array(f)), **solve_kw)
+    assert res.pipeline == ref.pipeline == "ir"
+    assert res.x.dtype == torch.float64 and int(res.iters) == 6
+    h, h_ref = res.history.numpy(), np.asarray(ref.rnorm_history)
+    assert h.shape == h_ref.shape == (3,)
+    assert abs(h[0] - h_ref[0]) <= 1e-12 * h_ref[0] and h[-1] < h[0]
+    # each sweep's contraction within 4x of the reference's (the sweep
+    # envelope of tests/test_torch_ir.py)
+    ratio = (h[1:] / h[:-1]) / (h_ref[1:] / h_ref[:-1])
+    assert np.all(np.abs(np.log(ratio)) <= np.log(4.0)), (h, h_ref)
 
 
 def test_auto_impl_raises():
