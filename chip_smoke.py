@@ -13,7 +13,9 @@ reference package ``repro``, and, in order:
    ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (32
    libraries: f64 and f32 for the Nekbone kernels, and the two bf16
    operand mixes ``bf16`` and ``bf16_ir`` for K4, K5 and K3; f32 and bf16
-   for K13 and K14), in parallel;
+   for K13 and K14), in parallel, and shows from the bf16 K13's machine
+   code (``cuobjdump -sass``) that it runs tensor-core MMAs (HMMA) on
+   operands copied by cp.async (LDGSTS);
 3. measures device-to-device copy bandwidth on a 1 GiB buffer (the
    measured roofline);
 4. holds K1 (the operator kernel) against its plain PyTorch version, n=2..16
@@ -77,12 +79,17 @@ reference package ``repro``, and, in order:
    at E=1024 and E=4096;
 18. profiles each kernel route (device time per iteration, by kernel, and
    the device's busy share);
-19. holds K13 (flash attention) and K14 (the RWKV6 recurrence) against
-   their plain versions in bf16 and f32, at gemma2-27b's heads (Hq 32,
-   Hkv 16, d 128: 2048 tokens with window 1024, global, and a q_offset
-   case) and rwkv6-1.6b's (H 32, d 64: T = 1024 from a zero and a random
+19. holds K13 (flash attention; in bf16 on the tensor cores) and K14 (the
+   RWKV6 recurrence) against their plain versions in bf16 and f32, at
+   gemma2-27b's heads (Hq 32, Hkv 16, d 128: 2048 tokens with window 1024,
+   global, and a q_offset case; two ragged cases across partial tiles,
+   1000 tokens with window 333 and 300 queries at q_offset 700 over 1000
+   keys) and rwkv6-1.6b's (H 32, d 64: T = 1024 from a zero and a random
    state, T = 1), plus d = 16 with fully masked rows; bf16 outputs also
-   value by value (one bf16 step of each value);
+   value by value (one bf16 step of each value); shows that the same
+   value check fails the bf16 kernel's arithmetic with P rounded once to
+   bf16 (``ref.flash_attention_tc_emulated(split_p=False)``) at the global
+   shape and passes it with P split;
 20. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens)
    and gemma2-27b (2 of its 46 layers, batch 2, prompt 6144, 16 new)
    three times each through ``launch.serve.serve`` at full width, with
@@ -102,6 +109,7 @@ Any failed check exits with status 1 and prints no result line.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import pathlib
 import re
@@ -236,12 +244,15 @@ def _ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            # _ZN <namespace length><namespace> <name length><name> ...
-            nm = re.match(r"_ZN(\d+)", mangled)
-            rest = mangled[nm.end() + int(nm.group(1)):] if nm else ""
-            nl = re.match(r"\d+", rest)
-            name = (rest[nl.end():nl.end() + int(nl.group(0))]
-                    if nl else mangled)
+            # _ZN <length><namespace> ... <length><name> I<arguments>E ...
+            name, at = mangled, 3
+            while mangled.startswith("_ZN") and at < len(mangled):
+                nl = re.match(r"\d+", mangled[at:])
+                if not nl:
+                    break
+                at += nl.end()
+                name = mangled[at:at + int(nl.group(0))]
+                at += int(nl.group(0))
             args = re.findall(r"L[ib](\d+)E", mangled)
             key = f"{name}<{','.join(args)}>"
             out[key] = [0, 0]
@@ -273,6 +284,26 @@ def phase_build():
                 or stem.startswith(("flash_attn", "wkv6"))}
         print(f"  {stem}: {path.name}; registers {main}; spill "
               f"bytes by instantiation: {spills or 'none'}")
+    report = _ptxas_report(paths[K13_BF16].with_suffix(".log").read_text())
+    smem = _build.load(K13_BF16).flash_attn_bf16_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    for key, (regs, spill) in sorted(report.items()):
+        d = int(re.search(r"<(\d+)>", key).group(1))
+        print(f"  {K13_BF16} {key}: {regs} registers, {spill} bytes spill "
+              f"stores, {smem(d)} bytes dynamic shared memory")
+    # the machine code: tensor-core MMAs (HMMA) and cp.async copies (LDGSTS)
+    cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(paths[K13_BF16])],
+                          capture_output=True, text=True, timeout=120).stdout
+    kernels = [f for f in sass.split("Function : ")[1:]
+               if "flash_attn_tc_kernel" in f.split("\n", 1)[0]]
+    check(len(kernels) == 2, f"{K13_BF16}: SASS of both head sizes")
+    for f in kernels:
+        d = re.search(r"ILi(\d+)E", f).group(1)
+        ops = {op: len(re.findall(rf"\b{op}\b", f))
+               for op in ("HMMA", "LDSM", "LDGSTS", "MUFU")}
+        check(ops["HMMA"] > 0 and ops["LDGSTS"] > 0,
+              f"{K13_BF16} flash_attn_tc_kernel<{d}> SASS: {ops}")
     print(f"  build seconds {seconds:.1f} (0 when cached)", flush=True)
     return seconds
 
@@ -1980,6 +2011,9 @@ BF16_STEP = 2.0 ** -7
 # serve runs: (arch, depth kept, batch, prompt, generated tokens)
 SERVE_RUNS = (("rwkv6-1.6b", None, 4, 1024, 32),
               ("gemma2-27b", 2, 2, 6144, 16))
+# K13's bf16 build (the tensor-core kernel), for its ptxas and shared-memory
+# report
+K13_BF16 = "flash_attn_bf16"
 
 
 def _attn_pairs(Sq, Skv, causal, window, q_offset=0):
@@ -2066,6 +2100,12 @@ def phase_lm_parity():
          dict(causal=True, window=None, softcap=50.0, q_offset=0)),
         ("q_offset 1536", dict(B=1, Hq=Hq, Hkv=Hkv, Sq=512, Skv=2048, d=d),
          dict(causal=True, window=None, softcap=50.0, q_offset=1536)),
+        ("S=1000, window 333", dict(B=1, Hq=Hq, Hkv=Hkv, Sq=1000, Skv=1000,
+                                    d=d),
+         dict(causal=True, window=333, softcap=50.0, q_offset=0)),
+        ("Sq=300, Skv=1000, q_offset 700",
+         dict(B=1, Hq=Hq, Hkv=Hkv, Sq=300, Skv=1000, d=d),
+         dict(causal=True, window=None, softcap=50.0, q_offset=700)),
         ("d=16, rows 0..4 masked", dict(B=2, Hq=4, Hkv=2, Sq=40, Skv=40,
                                         d=16),
          dict(causal=True, window=16, softcap=50.0, q_offset=-5)))
@@ -2082,6 +2122,7 @@ def phase_lm_parity():
                       f"K13 {dtype} {label}: masked rows are 0")
             if dtype == torch.bfloat16 and label == "global":
                 err["K13"] = float((o.float() - p.float()).abs().max())
+                _check_k13_split(q, k, v, kw, o, p)
     H, d = RWKV_HEADS["H"], RWKV_HEADS["d"]
     k14_cases = (("T=1024, zero state", 4, H, 1024, d, False),
                  ("T=1024, random state", 4, H, 1024, d, True),
@@ -2111,6 +2152,25 @@ def phase_lm_parity():
     return err
 
 
+def _check_k13_split(q, k, v, kw, o, p):
+    """The bf16 K13's arithmetic in torch (``ref.flash_attention_tc_emulated``)
+    beside the kernel's output o and the plain version's p: with P split
+    into two bf16 terms it passes the bf16 value check, with P rounded once
+    to bf16 it must fail it."""
+    from repro_torch.kernels import ref
+
+    for split in (True, False):
+        e = ref.flash_attention_tc_emulated(q, k, v, split_p=split, **kw)
+        val = _value_rel(e, p, K13_TOL["float32"])
+        diff = float((e.float() - o.float()).abs().max())
+        how = "split" if split else "rounded once"
+        print(f"  the bf16 K13's arithmetic, P {how}: worst value {val:.2f} "
+              f"of the bf16 limit; max |. - kernel| {diff:.2e}", flush=True)
+        check(val <= 1.0 if split else val > 1.0,
+              "the bf16 value check " + ("passes the split P" if split else
+                                         "fails P rounded once to bf16"))
+
+
 class _ForbidPlain:
     """While active, every plain attention / WKV formulation and PyTorch's
     fused attention raise: the serving path on the card must run K13/K14."""
@@ -2118,7 +2178,7 @@ class _ForbidPlain:
     def __enter__(self):
         import torch.nn.functional as F
 
-        from repro_torch.kernels import flash_attn, wkv6
+        from repro_torch.kernels import flash_attn, ref, wkv6
         from repro_torch.models import attention, rwkv6
 
         def forbidden(*args, **kwargs):
@@ -2126,6 +2186,7 @@ class _ForbidPlain:
 
         self._saved = []
         for mod, names in ((flash_attn, ("flash_attention_plain",)),
+                           (ref, ("flash_attention_tc_emulated",)),
                            (wkv6, ("wkv6_ref",)),
                            (attention, ("attention_ref",)),
                            (rwkv6, ("wkv6_ref", "wkv6_chunked")),

@@ -1,15 +1,21 @@
 """Wrapper of K13, the flash-attention forward kernel (``csrc/flash_attn.cu``).
 
 Replaces the reference's ``kernels/flash_attn.py:flash_attention`` (its
-``_attn_kernel``).  :func:`flash_attention_cuda`:
+``_attn_kernel``).  The bf16 build runs on the tensor cores (``mma.sync``
+on 64 query rows x 64-key tiles staged by ``cp.async``, P split into two
+bf16 terms; its arithmetic is :func:`repro_torch.kernels.ref.
+flash_attention_tc_emulated`), the f32 build on the CUDA cores (16 query
+rows x 32-key tiles).  :func:`flash_attention_cuda`:
 
 * for tensors on the CPU, returns the plain PyTorch version
   (:func:`repro_torch.kernels.ref.flash_attention_plain`) — the tests' path;
 * for CUDA tensors, checks device, dtype (float32 or bfloat16, the same for
-  q, k and v), shapes, the head size (16 or 128, the sizes it is built for)
-  and contiguity, allocates the output, launches the kernel on the current
-  stream, raises if the launch returned an error, and adds one to
-  ``LAUNCHES["flash_attn"]`` (kernels/_build.py).  There is no fallback.
+  q, k and v), shapes, the head size (16 or 128, the sizes it is built for),
+  contiguity and 16-byte alignment (the bf16 kernel copies rows in 16-byte
+  pieces; a misaligned tensor raises, it is not copied), allocates the
+  output, launches the kernel on the current stream, raises if the launch
+  returned an error, and adds one to ``LAUNCHES["flash_attn"]``
+  (kernels/_build.py).  There is no fallback.
 """
 from __future__ import annotations
 
@@ -65,6 +71,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attn: {name} {value} outside int32")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attn: {name}'s data is not 16-byte "
+                             f"aligned (address {t.data_ptr():#x})")
     _build.launch(
         f"flash_attn_{_SUFFIX[q.dtype]}", _ARGTYPES, q.device,
         (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq, Hkv,

@@ -282,7 +282,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q's dtype.  GQA (Hq a multiple of Hkv), causal mask, sliding ``window``
     (query i sees key j iff i - j < window), logit ``softcap`` and
     ``q_offset`` (the absolute position of q[0]).  The three left out have
-    no counterpart: K13's tiles are fixed (16 query rows, 32 keys), and a
+    no counterpart: K13's tiles are fixed by its build (bf16: 64 query rows
+    by 64 keys on the tensor cores; f32: 16 query rows by 32 keys), and a
     CPU tensor runs the plain version.
     """
     scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)

@@ -27,9 +27,11 @@ __all__ = ["accum_dtype", "nekbone_ax_ref", "nekbone_ax_plain",
            "nekbone_cg_update_block_plain", "nekbone_ax_pap_plain",
            "nekbone_ax_dots_plain", "nekbone_ax_powers_plain",
            "nekbone_sstep_update_plain", "attention_ref",
-           "flash_attention_plain", "wkv6_ref", "wkv6_chunked"]
+           "flash_attention_plain", "flash_attention_tc_emulated",
+           "flash_tiles", "wkv6_ref", "wkv6_chunked"]
 
 NEG_INF = -1e30          # the reference kernel's _NEG_INF (never -inf)
+LOG2E = 1.4426950408889634
 
 
 def accum_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -396,6 +398,85 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) \
         / torch.where(l == 0.0, 1.0, l)
     return o.reshape(B, Hq, Sq, d).to(q.dtype)
+
+
+def flash_tiles(q0: int, block_q: int, block_k: int, *, Sq: int, Skv: int,
+                causal: bool, window: int | None, q_offset: int):
+    """The key tiles that the bf16 K13 visits for the query tile of rows
+    q0 .. q0 + block_q - 1, as ``[(first key, needs the per-element
+    mask)]``.
+
+    Tiles wholly outside every valid row's causal band or window are
+    skipped (they leave m, l and the accumulator unchanged: p = 0,
+    correction 1).  A visited tile is masked element by element only if it
+    crosses Skv, the diagonal of its first row or the window's edge of its
+    last valid row; on every other tile each pair is valid for every row.
+    """
+    qlo = q_offset + q0
+    qhi = q_offset + min(q0 + block_q, Sq) - 1
+    khi = min(Skv, qhi + 1) if causal else Skv
+    klo = max(0, min(qlo - window + 1, khi)) if window is not None else 0
+    return [(kt, kt + block_k > Skv
+             or (causal and kt + block_k - 1 > qlo)
+             or (window is not None and qhi - kt >= window))
+            for kt in range(klo // block_k * block_k, khi, block_k)]
+
+
+def flash_attention_tc_emulated(q, k, v, *, causal: bool, scale: float,
+                                window: int | None, softcap: float | None,
+                                q_offset: int, block_k: int = 64,
+                                split_p: bool = True) -> torch.Tensor:
+    """The arithmetic of the bf16 K13 (``csrc/flash_attn.cu``,
+    ``flash_attn_tc_kernel``), tile by tile, in torch.
+
+    Query tiles of 64 rows (the kernel's block) walk the key tiles of
+    :func:`flash_tiles`, ``block_k`` keys each; scores are products of
+    bf16 operands summed in f32, scaled, soft-capped and taken to log2
+    units (``x = cap log2(e) tanh(s scale / cap)`` or ``s scale
+    log2(e)``), and -inf where the kernel masks; the online softmax runs
+    on ``exp2`` from a running max starting at -1e30, so masked p is
+    exactly 0; P·V takes P as the two bf16 terms ``p_hi = bf16(p)``,
+    ``p_lo = bf16(p - p_hi)`` (``split_p``) or as ``bf16(p)`` once, against
+    bf16 V, summed in f32; l = 0 is read as 1.  Same signature and result
+    shape as :func:`flash_attention_plain`, in q's dtype.
+    """
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    bf = torch.bfloat16
+    qg = q.to(bf).float().reshape(B, Hkv, Hq // Hkv, Sq, d)
+    kf, vf = k.to(bf).float()[:, :, None], v.to(bf).float()[:, :, None]
+    out = torch.empty((B, Hkv, Hq // Hkv, Sq, d), dtype=torch.float32,
+                      device=q.device)
+    block_q = 64
+    pre = scale / softcap if softcap is not None else scale * LOG2E
+    mask = _attn_mask(Sq, Skv, causal, window, q_offset, q.device)
+    for q0 in range(0, Sq, block_q):
+        qt = qg[..., q0:q0 + block_q, :]
+        m = torch.full((*qt.shape[:-1], 1), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qt)
+        for kt, masked in flash_tiles(q0, block_q, block_k, Sq=Sq, Skv=Skv,
+                                      causal=causal, window=window,
+                                      q_offset=q_offset):
+            kk, vv = kf[..., kt:kt + block_k, :], vf[..., kt:kt + block_k, :]
+            s = (qt @ kk.transpose(-1, -2)) * pre
+            if softcap is not None:
+                s = (softcap * LOG2E) * torch.tanh(s)
+            if masked:
+                s = torch.where(mask[q0:q0 + block_q, kt:kt + block_k], s,
+                                float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp2(s - m_new)
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            p_hi = p.to(bf).float()
+            pv = p_hi @ vv
+            if split_p:
+                pv = pv + (p - p_hi).to(bf).float() @ vv
+            acc = acc * corr + pv
+            m = m_new
+        out[..., q0:q0 + block_q, :] = acc / torch.where(l == 0.0, 1.0, l)
+    return out.reshape(B, Hq, Sq, d).to(q.dtype)
 
 
 def wkv6_ref(r, k, v, w, u, *, initial_state=None,
