@@ -28,9 +28,14 @@ reference package ``repro``, and, in order:
    loop) and ``'pallas_fused_cg_v2'`` (K4 + K5), each against the plain
    ``'fused'`` route on the card, and shows from the launch counters that
    each route ran through its kernels;
-7. holds K10 (the Jacobi-PCG update) and K11 (the Chebyshev apply)
-   against their plain versions: the paper grid at n = 10, 5 and 3 and
-   n=6, fp64 and fp32, k = 1, 2, 4;
+7. holds K10 (the Jacobi-PCG update) and K11 (the Chebyshev apply, one
+   cooperative launch per call) against their plain versions: the paper
+   grid at n = 10, 5 and 3, n=6, and the 16x16x16 grid (E=4096) at n=10,
+   fp64 and fp32, k = 1, 2, 4; prints K11's launch plan for each (variant,
+   grid, blocks per SM, shared memory, registers), shows that the
+   shared-memory variant ran at E=1024 and the device-memory variant at
+   E=4096, that 5 repeated calls give bitwise the same z and rtz, and K11's
+   max abs error beside the earlier chain's;
 8. solves the paper case through the three routes this slice added, each
    with the launch counters reset just before it: Jacobi-PCG over K4 + K10
    (100 iterations, against the plain route with the same preconditioner),
@@ -48,8 +53,9 @@ reference package ``repro``, and, in order:
    v2 solve), plus the tolerance-driven block solve and the per-RHS
    ``block_loop`` route at b = 2;
 11. times every kernel and its plain version (device time by CUDA events)
-   at E=1024 and E=4096, the solves per iteration and to tolerance (host
-   clock), and the Chebyshev and pmg intervals' one-time set-up;
+   at E=1024 and E=4096 (with the fields K11's variant moves), the solves
+   per iteration and to tolerance (host clock), and the Chebyshev and pmg
+   intervals' one-time set-up;
 12. holds K3 and K2 (the v1 operator) and K8 and K9 (the s-step cycle)
    against their plain versions at n=10, E=1024, fp64 and fp32, K8/K9 at
    s = 1, 2, 4;
@@ -85,7 +91,10 @@ reference package ``repro``, and, in order:
    global, and a q_offset case; two ragged cases across partial tiles,
    1000 tokens with window 333 and 300 queries at q_offset 700 over 1000
    keys) and rwkv6-1.6b's (H 32, d 64: T = 1024 from a zero and a random
-   state, T = 1), plus d = 16 with fully masked rows; bf16 outputs also
+   state, T = 1, and T = 1000, which ends in a partial pass of K14's
+   staged steps; 5 repeated calls bitwise the same; K14's blocks per call
+   printed and more than B x H), plus d = 16 with fully masked rows (K13)
+   and T = 37 (K14); bf16 outputs also
    value by value (one bf16 step of each value); shows that the same
    value check fails the bf16 kernel's arithmetic with P rounded once to
    bf16 (``ref.flash_attention_tc_emulated(split_p=False)``) at the global
@@ -141,6 +150,12 @@ HIST_RTOL_HEAD = 1e-12        # first 10 history entries
 ENVELOPE_FACTOR = 10.0
 PCG_HIST_TOL_HEAD = 1e-10     # PCG routes: first 10 history entries
 CHEB_K = 4
+# K11's max abs error against its plain version at the paper grid (fp64,
+# n = 10, k = CHEB_K, phase_pcg_parity's first inputs) as the chain of k + 1
+# launches that the cooperative kernel replaced computed it: 5.684342e-14
+# by scripts/k11_k14_compare.py on an H100 80GB HBM3 at 700 W (the two give
+# bitwise the same z there).
+K11_CHAIN_MAX_ABS_ERR = 5.684342e-14
 CHEB_TOL = 1e-8
 CHEB_MAX_ITERS = 34           # the reference's acceptance at the paper case
 PMG_RTOL = 1e-8               # pmg: solve to 1e-8 r0 (benchmarks/pmg_smoke.py)
@@ -550,13 +565,14 @@ def phase_pcg_parity():
     from repro_torch.kernels import nekbone_ax as K
 
     print("== K10/K11 parity (kernel vs plain; n = 10, 5, 3 on the paper "
-          "grid, n = 6 on 4x4x4)", flush=True)
+          "grid, n = 6 on 4x4x4, n = 10 on the 16x16x16 grid)", flush=True)
     rng = np.random.default_rng(3)
     errs = {}
+    variants = set()
     for dtype, part_tol, z_tol in ((torch.float64, 1e-13, 1e-12),
                                    (torch.float32, 1e-5, 1e-4)):
         for n, grid in ((10, PAPER_GRID), (6, (4, 4, 4)), (5, PAPER_GRID),
-                        (3, PAPER_GRID)):
+                        (3, PAPER_GRID), (10, BIG_GRID)):
             case = NekboneCase(n=n, grid=grid, dtype=dtype)
             o = _pcg_operands(case, rng)
             tag = f"{dtype} n={n} E={case.mesh.nelt}"
@@ -575,6 +591,19 @@ def phase_pcg_parity():
                 err = abs(float(a.sum() - b.sum())) / abs(float(b.sum()))
                 check(err <= part_tol, f"K10 {tag}: {name} rel err "
                                        f"{err:.2e} <= {part_tol:g}")
+            plan, info = K.nekbone_cheb_apply_plan(case.mesh.nelt, n, dtype)
+            variants.add(plan.variant)
+            print(f"  K11 {tag}: {plan.variant}-memory variant, one "
+                  f"cooperative launch of {plan.grid} blocks ({info['slices']}"
+                  f" elements side by side, {plan.per_block} owned), "
+                  f"{plan.blocks_per_sm} blocks per SM on {info['sm_count']} "
+                  f"SMs, {plan.smem_bytes} bytes dynamic + "
+                  f"{info['static_smem']} static shared memory, "
+                  f"{info['registers']} registers", flush=True)
+            if n == 10:
+                want = "shared" if grid == PAPER_GRID else "device"
+                check(plan.variant == want,
+                      f"K11 {tag}: the {want}-memory variant")
             for k in (1, 2, 4):
                 args = (o["z"], o["D"], o["g3"], *o["m"], *o["c"],
                         o["coef"][k])
@@ -586,8 +615,23 @@ def phase_pcg_parity():
                 check(err <= z_tol and rtz_err <= z_tol,
                       f"K11 {tag} k={k}: z max rel err {err:.2e}, rtz rel "
                       f"err {rtz_err:.2e} <= {z_tol:g}")
-                if dtype == torch.float64 and n == 10 and k == CHEB_K:
+                if (dtype == torch.float64 and grid == PAPER_GRID and n == 10
+                        and k == CHEB_K):
                     errs["K11"] = float((kz - pz).abs().max())
+                    print(f"  K11 {tag} k={k}: max abs err "
+                          f"{errs['K11']:.6e}; the chain of k + 1 launches it "
+                          f"replaced: {K11_CHAIN_MAX_ABS_ERR:.6e}", flush=True)
+                if n == 10 and k == CHEB_K:
+                    # a missing grid sync or a stale read of a neighbour's
+                    # A d shows as calls that disagree
+                    reps = [K.nekbone_cheb_apply_cuda(*args, n=n, k=k)
+                            for _ in range(5)]
+                    check(all(torch.equal(z, kz) and torch.equal(t, krtz)
+                              for z, t in reps),
+                          f"K11 {tag} k={k}: 5 more calls give bitwise the "
+                          "same z and rtz")
+    check(variants == {"shared", "device"},
+          f"K11: both variants ran ({sorted(variants)})")
     torch.cuda.synchronize()
     return errs
 
@@ -1341,12 +1385,18 @@ def phase_times(bw_copy, cases):
                 if b == BLOCK_B:
                     rows[(name, grid)] = row
             del P, R, X, p3, w3, ops_b
-        # the fields K11's chain of CHEB_K + 1 launches actually moves
-        moved = (6 + 11 * (CHEB_K - 1) + 6) * field
-        print(f"  K11 E={E}: the chain moves {moved / 1e6:.1f} MB "
-              f"({moved // field} fields) against the book's "
-              f"{5 * field / 1e6:.1f} MB; {moved / rows[('K11', grid)]['ms'] / 1e6:.0f}"
-              " GB/s moved", flush=True)
+        # the fields K11's variant actually moves (csrc/nekbone_cheb_apply.cu):
+        # with the state resident, r and the metric in and A d out at the
+        # start, A d and the metric in and A d out at each middle step, A d
+        # and r in and z out at the last; in device memory, d, res and z too
+        plan, _ = K.nekbone_cheb_apply_plan(E, n, torch.float64)
+        fields = 5 * CHEB_K + 3 if plan.resident else 11 * CHEB_K
+        moved = fields * field
+        print(f"  K11 E={E} ({plan.variant}-memory variant): moves "
+              f"{moved / 1e6:.1f} MB ({fields} fields) against the book's "
+              f"{5 * field / 1e6:.1f} MB; "
+              f"{moved / rows[('K11', grid)]['ms'] / 1e6:.0f} GB/s moved",
+              flush=True)
         rows[("K11", grid)]["moved_bytes"] = moved
         del u, D, g, o, kp, kw, q
     # whole solves per iteration, paper case (the cases of phase_routes)
@@ -2127,7 +2177,20 @@ def phase_lm_parity():
     k14_cases = (("T=1024, zero state", 4, H, 1024, d, False),
                  ("T=1024, random state", 4, H, 1024, d, True),
                  ("T=1, random state", 4, H, 1, d, True),
-                 ("d=16, T=37", 2, 2, 37, 16, True))
+                 ("d=16, T=37", 2, 2, 37, 16, True),
+                 # T not a whole number of the kernel's passes
+                 ("T=1000, random state", 2, H, 1000, d, True))
+    for T, tiles in ((1024, WK.TILES[d]), (1, WK.DECODE_TILES[d])):
+        col_tile, groups, per_thread, steps = tiles
+        blocks = 4 * H * (d // col_tile)
+        print(f"  K14 rwkv6-1.6b serve shape (B=4, H={H}, d={d}), T={T}: "
+              f"{blocks} blocks of {col_tile // per_thread * groups} threads "
+              f"({d // col_tile} column tiles of {col_tile} per head, "
+              f"{groups} row groups, {per_thread} columns a thread, "
+              f"{steps} steps a pass)", flush=True)
+        check(blocks > 4 * H, f"K14 T={T}: {blocks} blocks > B*H = {4 * H}")
+    check(1000 % WK.TILES[d][3] != 0, f"K14: T=1000 ends in a partial "
+          f"pass of the {WK.TILES[d][3]}-step passes")
     for dtype in (torch.bfloat16, torch.float32):
         otol = K14_O_TOL[str(dtype).split(".")[1]]
         for label, B, H_, T, d_, state in k14_cases:
@@ -2149,6 +2212,13 @@ def phase_lm_parity():
                       "of that)")
             if dtype == torch.bfloat16 and label == "T=1024, zero state":
                 err["K14"] = float((o.float() - po.float()).abs().max())
+            if label.startswith(("T=1024, zero", "T=1,", "T=1000")):
+                reps = [WK.wkv6_cuda(r, k, v, w, u, initial_state=s0)
+                        for _ in range(5)]
+                check(all(torch.equal(a, o) and torch.equal(b, s)
+                          for a, b in reps),
+                      f"K14 {dtype} {label}: 5 more calls give bitwise the "
+                      "same o and state")
     return err
 
 

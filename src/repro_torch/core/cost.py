@@ -120,9 +120,11 @@ CHEB_V2_WRITE_STREAMS = 5
 CHEB_DEFAULT_K = 4
 
 # In the port the Chebyshev apply (K11, kernels/csrc/nekbone_cheb_apply.cu)
-# is a chain of k + 1 per-element launches, not one halo'd residency: the
-# books above stay the reference's (the least traffic the algorithm needs),
-# and the chain's own traffic is stated in the kernel's source note.
+# is one cooperative launch with a grid sync between its k steps, not one
+# halo'd residency: the books above stay the reference's (the least traffic
+# the algorithm needs), and what the kernel moves (5k + 3 fields with its
+# state in shared memory, 11k in device memory) is stated in its source
+# note.
 
 
 PRECISION_ITEMSIZE = {"f64": 8, "f32": 4, "bf16": 2,

@@ -13,9 +13,9 @@
 // * A deterministic block sum: a fixed shared-memory tree, so partial inner
 //   products are the same from run to run (no atomics).
 // * The local operator of one element, with the full metric (K1, K2, K3)
-//   or its diagonal (K4, K6, K8, K11), and the node-by-node direct-stiffness
-//   sum of an unassembled field in core/gs.ds_sum_local's tree (K5, K7, K8,
-//   K10, K11).
+//   or its diagonal (K4, K6, K8), and the node-by-node direct-stiffness sum
+//   of an unassembled field in core/gs.ds_sum_local's tree (K5, K7, K8,
+//   K10; K11 in a branch-free form with coherent loads).
 // * Dispatch of the run-time n (2..16) to the template instantiations.
 // * Storage apart from accumulation.  A field is loaded in its storage type
 //   and upcast to the accumulation type (convert), the arithmetic runs in
@@ -29,6 +29,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 namespace nekbone {
 
@@ -123,18 +125,19 @@ __device__ __forceinline__ void load_D(AxShared<N, T>& sh,
 }
 
 // w = D^T M D u for one element: thread (i, j) holds the column
-// uc[k] = u[k][j][i] and receives wc[k] = w[k][j][i] (unassembled,
-// unmasked).  metric(k, wr, ws, wt, ur, us, ut) applies the metric of the
+// uc[k] = u[k][j][i] (a register array, or anything indexable that reads
+// it, such as K11's column in shared memory) and receives wc[k] =
+// w[k][j][i] (unassembled, unmasked).  metric(k, wr, ws, wt, ur, us, ut) applies the metric of the
 // thread's node at layer k to the reference-space gradient (wr, ws, wt).
 // The layer loop marches k: the r- and s-contractions go through the shared
 // layer, the t-contraction reads the thread's own column, and the t-part of
 // D^T scatters into all of wc.  Two calls in a row need no barrier between
 // them, for the reason the layers of one call need none (see the end of the
 // loop).
-template <int N, typename T, typename Metric>
+template <int N, typename T, typename Metric, typename U>
 __device__ __forceinline__ void ax_columns(AxShared<N, T>& sh, Metric metric,
-                                           const T (&uc)[N], T (&wc)[N],
-                                           int i, int j) {
+                                           const U& uc, T (&wc)[N], int i,
+                                           int j) {
 #pragma unroll
   for (int k = 0; k < N; ++k) wc[k] = T(0);
 #pragma unroll
@@ -170,9 +173,9 @@ __device__ __forceinline__ void ax_columns(AxShared<N, T>& sh, Metric metric,
 
 // The diagonal metric: g(c, k) returns diagonal c (rr, ss, tt) at the
 // thread's node of layer k.
-template <int N, typename T, typename Metric>
+template <int N, typename T, typename Metric, typename U>
 __device__ __forceinline__ void ax_diag_columns_g(AxShared<N, T>& sh,
-                                                  Metric g, const T (&uc)[N],
+                                                  Metric g, const U& uc,
                                                   T (&wc)[N], int i, int j) {
   ax_columns(
       sh,
@@ -187,10 +190,10 @@ __device__ __forceinline__ void ax_diag_columns_g(AxShared<N, T>& sh,
 // The same with the metric read from device memory (in its storage type
 // G): ge points at the element's metric diagonal (3, n^3) plus the
 // thread's offset j * n + i.
-template <int N, typename T, typename G>
+template <int N, typename T, typename G, typename U>
 __device__ __forceinline__ void ax_diag_columns(AxShared<N, T>& sh,
                                                 const G* __restrict__ ge,
-                                                const T (&uc)[N], T (&wc)[N],
+                                                const U& uc, T (&wc)[N],
                                                 int i, int j) {
   ax_diag_columns_g(
       sh,
@@ -309,6 +312,77 @@ __device__ __forceinline__ accum_t<T> sum_xyz(const T* __restrict__ w,
     return add_rn(sum_xy<N>(w, e - sz, N - 1, j, i, ix, iy, ex, ey),
                   sum_xy<N>(w, e, 0, j, i, ix, iy, ex, ey));
   return sum_xy<N>(w, e, k, j, i, ix, iy, ex, ey);
+}
+
+// The same sum over a field that other blocks of the running launch wrote
+// before a grid-wide barrier (K11's exchanged A d), without branches.
+// Every load goes through L2 (ld.global.cg): neither L1 nor the
+// non-coherent read-only path, which a const __restrict__ pointer lets nvcc
+// pick, is coherent with those writes.  The loads are volatile asm, so that
+// nvcc keeps them after the barrier.  Kept apart from the helpers above so
+// that K4, K5, K8 and K10 compile as before.
+//
+// sum_xyz's branches diverge inside a warp (face, edge and corner nodes
+// take other paths), and each path then waits for its own loads.  Here
+// every node issues the same eight loads, the copies it does not have
+// predicated off, and selects: the own copy and, along each axis with a
+// neighbour, the neighbour's, paired x first, then y, then z, as sum_xyz
+// pairs them.  IEEE addition is commutative, so (own + neighbour) is
+// bitwise sum_xyz's (lower + upper) for either side.
+__device__ __forceinline__ double ld_cg(bool p, const double* a) {
+  double v;
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n mov.b64 %0, 0;\n"
+      " @p ld.global.cg.f64 %0, [%1];\n}"
+      : "=d"(v)
+      : "l"(a), "r"(static_cast<int>(p)));
+  return v;
+}
+__device__ __forceinline__ float ld_cg(bool p, const float* a) {
+  float v;
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n mov.b32 %0, 0;\n"
+      " @p ld.global.cg.f32 %0, [%1];\n}"
+      : "=f"(v)
+      : "l"(a), "r"(static_cast<int>(p)));
+  return v;
+}
+
+template <int N, typename T>
+__device__ __forceinline__ T sum_xyz_cg(const T* w, size_t e, int k, int j,
+                                        int i, int ix, int iy, int iz, int ex,
+                                        int ey, int ez) {
+  constexpr int N2 = N * N;
+  constexpr int N3 = N * N * N;
+  // along each axis: is there a neighbour's copy, and where is it (element
+  // offset, and the node index on its side: N - 1 - own)
+  const bool hx = (i == N - 1 && ix < ex - 1) || (i == 0 && ix > 0);
+  const bool hy = (j == N - 1 && iy < ey - 1) || (j == 0 && iy > 0);
+  const bool hz = (k == N - 1 && iz < ez - 1) || (k == 0 && iz > 0);
+  const ptrdiff_t sx = i == N - 1 ? 1 : -1;
+  const ptrdiff_t sy = (j == N - 1 ? 1 : -1) * static_cast<ptrdiff_t>(ex);
+  const ptrdiff_t sz =
+      (k == N - 1 ? 1 : -1) * static_cast<ptrdiff_t>(ex) * ey;
+  const T* own = w + e * N3 + (k * N + j) * N + i;
+  // the copy of the node in the element offset along the axes flagged
+  auto at = [&](bool dx, bool dy, bool dz) {
+    return own + ((dx ? sx : 0) + (dy ? sy : 0) + (dz ? sz : 0)) * N3 +
+           (dx ? (N - 1 - 2 * i) : 0) + (dy ? (N - 1 - 2 * j) * N : 0) +
+           (dz ? (N - 1 - 2 * k) * N2 : 0);
+  };
+  auto xsum = [&](bool p, bool dy, bool dz) {
+    const T a = ld_cg(p, at(false, dy, dz));
+    const T b = ld_cg(p && hx, at(true, dy, dz));
+    return hx ? add_rn(a, b) : a;
+  };
+  auto xysum = [&](bool p, bool dz) {
+    const T a = xsum(p, false, dz);
+    const T b = xsum(p && hy, true, dz);
+    return hy ? add_rn(a, b) : a;
+  };
+  const T a = xysum(true, false);
+  const T b = xysum(hz, true);
+  return hz ? add_rn(a, b) : a;
 }
 
 }  // namespace nekbone

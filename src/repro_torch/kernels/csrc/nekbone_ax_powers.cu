@@ -10,11 +10,12 @@
 // :1164).  The TPU kernel kept a block of z-slabs plus s ghost slabs on each
 // side in VMEM (sstep_extend_field / sstep_extend_zfactor), so the 2s - 1
 // chained assembled applications never left the chip; the windows exist
-// because the TPU walks its grid in order.  Here, as for K11
-// (nekbone_cheb_apply.cu), one thread block cannot see its neighbours' new
-// vector without a grid-wide barrier, so the function is computed over the
-// whole box as a chain of s + 2 launches on the caller's stream, one thread
-// block per element, an n x n thread layer marching the k layers:
+// because the TPU walks its grid in order.  Here one thread block cannot
+// see its neighbours' new vector without a grid-wide barrier, so the
+// function is computed over the whole box as a chain of s + 2 launches on
+// the caller's stream, one thread block per element, an n x n thread layer
+// marching the k layers (K11, nekbone_cheb_apply.cu, was such a chain too
+// and is now one cooperative launch with grid syncs between its steps):
 //
 // * start:       mask * A_loc p (and of r when s >= 2), unassembled;
 // * step j=1..s: assembles the previous unassembled output with common.cuh's

@@ -14,180 +14,401 @@
 // src/repro/kernels/nekbone_ax.py:nekbone_cheb_apply_kernel (pallas_call at
 // :1563).  The TPU kernel kept a block of z-slabs plus k ghost slabs on each
 // side in VMEM, so the k chained *assembled* operator applications never
-// left the chip.  On Hopper one thread block cannot see its neighbours' new
-// d without a grid-wide barrier, and a tile of elements with k ghost layers
-// does not fit the 227 KB of shared memory a block may use (one fp64 n=10
-// element is 8 KB; a cooperative launch is out, since at E=4096 not every
-// block can be resident).  So the polynomial runs as a chain of k + 1
-// launches on the caller's stream, one thread block per element, an n x n
-// thread layer marching the k layers:
+// left the chip.  On Hopper a tile of elements with k ghost layers does not
+// fit the 227 KB of shared memory a block may use, and a block cannot see
+// its neighbours' new A d without a grid-wide barrier.  So the whole
+// polynomial is one persistent, cooperative launch
+// (cudaLaunchCooperativeKernel): every block is resident at once and owns
+// one contiguous, z-major range of elements for all k steps.
 //
-// * start:       d = c00 * r; writes d and the unassembled masked A_loc d;
-// * step i < k:  assembles the previous A_loc d with common.cuh's sum_xyz
-//                (core/gs.ds_sum_local's tree), applies the recurrence,
-//                writes d, res, z and the unassembled masked A_loc of the
-//                new d (the block holds its whole element's new d);
-// * step k:      the same recurrence, then writes z and the per-element
-//                rtz partial.
+// * start:      d = c00 * r; writes the masked, unassembled A_loc d;
+// * step i < k: grid sync; assembles the previous A_loc d, applies the
+//               recurrence and writes the masked, unassembled A_loc of the
+//               new d;
+// * step k:     grid sync; the same recurrence, then writes z and the
+//               per-element rtz partial.
 //
-// The unassembled A_loc d ping-pongs between two buffers, since a step reads
-// its neighbours' copies of the previous one while it writes the next; d,
-// res and z are read and written only by their own element's block, so they
-// are updated in place.  The local operator is common.cuh's masked_ax
-// (ax_diag_columns, the same code as K4's), shared with K8.
+// k grid syncs per call.  Only the unassembled A d crosses blocks; it
+// ping-pongs between two buffers, since a step reads its neighbours' copies
+// of the previous one while it writes the next, and it is assembled by
+// common.cuh's sum_xyz_cg: core/gs.ds_sum_local's pairing, bitwise, read
+// through L2 (other blocks of this launch wrote it) and without branches
+// (the branchy tree made each face, edge and corner path of a warp wait
+// for its own loads).  A block is (n, n, P) threads: P elements side by
+// side (4 at n = 10), each slice an n x n layer marching its element's k
+// layers with common.cuh's operator (ax_diag_columns, K4's code, so A_loc
+// is bitwise masked_ax's), over as many rounds as the block owns elements
+// / P.  Thread (i, j) of a slice is the only one that touches column
+// (i, j) of its elements' d, res and z, so that state needs no barrier.
+// Where it is kept is a template parameter, chosen by
+// kernels/nekbone_ax.k11_plan:
+//
+// * RESIDENT: d, res and z of the owned elements stay in the block's
+//   dynamic shared memory from the start to the last step (24 KB per fp64
+//   element at n = 10: four elements a block, two blocks an SM hold the
+//   paper case's 1024), and only z goes to device memory, at the end;
+// * otherwise, where the owned state does not fit (fp64, n = 10 past about
+//   1,050 elements on 132 SMs), they live in device memory, read and
+//   written by their owner alone, with a shared copy of the operator's
+//   input column per slice.
+//
+// The operator reads its input column from shared memory (the state's d,
+// or that copy) rather than from registers, and the block asks for two
+// blocks an SM (__launch_bounds__): 72 registers at n = 10.  The grid is
+// sized from cudaOccupancyMaxActiveBlocksPerMultiprocessor for the
+// instantiation and its dynamic shared memory, times the SM count; a
+// cooperative launch that does not fit is refused, and the caller raises.
 //
 // Bound: bytes.  The reference's book is r and the 3 metric diagonals in,
 // z out: 5 x 8.19 MB = 41.0 MB at E=1024, n=10, fp64 (12.2 us at 3.35
 // TB/s).  The work is k (12n + 10) flops per node (core/cost.py
 // cheb_apply_flops), 0.53 GF at k=4: 8.5 us with the contractions on the
 // fp64 tensor cores (67 TF/s) and the rest at 34 TF/s, below the book's
-// bytes.  The chain moves far more than the book: the start launch 6
-// fields, each middle step 11 (d, res, z, A d and 3 metric diagonals in;
-// d, res, z, A d out), the last step 6 (d, res, z, A d, r in; z out), so 45
-// fields at k=4 — what a halo-tiled, one-residency design would save.
+// bytes.  What the design moves: the RESIDENT variant reads r and the
+// metric (4 fields) and writes A d (1) at the start, reads A d and the
+// metric (4) and writes A d (1) at each middle step, and reads A d and r
+// (2) and writes z (1) at the last: 5k + 3 fields, 23 at k = 4 (the metric
+// and both A d buffers, 41 MB at E=1024, fit the 50 MB L2).  The device
+// variant adds the state, 11k fields, 44 at k = 4 (the chain of k + 1
+// launches it replaced moved 45).  On the card the operator's
+// shared-memory reads take most of the time (scripts/k11_k14_ablation.py).
 //
 // The recurrence uses rounded, uncontracted arithmetic, as the plain
 // version's separate tensor operations do; only the operator's
 // contractions use FMA.  The scalars are read from a device pointer.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace nekbone {
 
-template <int N, typename T>
-__global__ void __launch_bounds__(N * N)
-nekbone_cheb_start_kernel(const T* __restrict__ r, const T* __restrict__ D,
-                          const T* __restrict__ g3, const T* __restrict__ mx,
-                          const T* __restrict__ my, const T* __restrict__ mz,
-                          const T* __restrict__ coef, T* __restrict__ d,
-                          T* __restrict__ ad, int ex, int ey) {
-  constexpr int N2 = N * N;
-  constexpr int N3 = N * N * N;
-  __shared__ AxShared<N, T> sh;
+namespace cg = cooperative_groups;
 
-  const int i = threadIdx.x;
-  const int j = threadIdx.y;
-  const size_t e = blockIdx.x;
-  const int ix = static_cast<int>(e % ex);
-  const int iy = static_cast<int>((e / ex) % ey);
-  const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
-  const size_t base = e * N3 + j * N + i;
+// The operands of one call, passed by value to the kernel.
+template <typename T>
+struct ChebArgs {
+  const T* r;
+  const T* D;
+  const T* g3;
+  const T* mx;
+  const T* my;
+  const T* mz;
+  const T* cx;
+  const T* cy;
+  const T* cz;
+  const T* coef;
+  T* z;
+  T* d;    // device variant only: (E, n^3) scratch
+  T* res;  // device variant only: (E, n^3) scratch
+  T* ad0;  // unassembled A d, even steps
+  T* ad1;  // unassembled A d, odd steps
+  T* rtz;
+  int ex, ey, ez, k, per_block;
+};
 
-  load_D(sh, D, i, j);
-  const T c00 = coef[0];
-  T dc[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    dc[k] = mul_rn(c00, r[base + k * N2]);
-    d[base + k * N2] = dc[k];
-  }
-  masked_ax(sh, g3, mx, my, mz, dc, ad, e, i, j, ix, iy, iz);
+// Elements a block works on side by side (its z extent): at most 512
+// threads, so that two blocks an SM keep every owned element of the paper
+// case (E = 1024, fp64, n = 10) in flight at once.
+template <int N>
+constexpr int kSlices = N >= 12 ? 2 : N >= 8 ? 4 : N >= 5 ? 8 : 16;
+// Blocks an SM must hold, at up to 78 registers a thread (the chain of
+// launches took 74-78): ptxas keeps to what lets them be resident (72 at
+// n = 10, two blocks of 13 warps).
+constexpr int min_blocks(int threads) {
+  const int fit = 65536 / (78 * ((threads + 31) / 32 * 32));
+  return fit > 1 ? fit : 1;
 }
+template <int N>
+constexpr int kMinBlocks = min_blocks(N * N * kSlices<N>);
 
-// Step i of the recurrence.  res_in is r at step 1 and z_in is d there (z
-// starts as d); from step 2 on they alias res and z.  The pointers that may
-// alias are not __restrict__.
-template <int N, typename T, bool LAST>
-__global__ void __launch_bounds__(N * N)
-nekbone_cheb_step_kernel(const T* res_in, const T* z_in, T* d, T* res, T* z,
-                         const T* __restrict__ ad_in, T* __restrict__ ad_out,
-                         const T* __restrict__ r, const T* __restrict__ D,
-                         const T* __restrict__ g3, const T* __restrict__ mx,
-                         const T* __restrict__ my, const T* __restrict__ mz,
-                         const T* __restrict__ cx, const T* __restrict__ cy,
-                         const T* __restrict__ cz, const T* __restrict__ coef,
-                         T* __restrict__ rtz, int step, int ex, int ey,
-                         int ez) {
-  constexpr int N2 = N * N;
-  constexpr int N3 = N * N * N;
-  __shared__ AxShared<N, T> sh;
-  __shared__ T red[N2];
+// The thread's element in one round of a block's owned range: slice p of
+// round q works on element first + q P + p; a slice past the range (the
+// last round of the last block) computes on the block's last element and
+// stores nothing outside its own (allocated, unused) shared slot, so that
+// it still meets every barrier.  per_block is a multiple of P.
+template <int N, typename T, bool RESIDENT>
+struct ChebNode {
+  size_t e;       // the element the slice computes on
+  bool active;    // e is its own
+  int ix, iy, iz;
+  size_t base;    // offset of the thread's layer-0 node
+  T* sd;          // the thread's column of d, res and z, layer 0 (the
+  T* sres;        // layers N * N apart)
+  T* sz;
+  T* col;         // the column of the operator's input d, in shared memory
 
-  const int i = threadIdx.x;
-  const int j = threadIdx.y;
-  const int tid = j * N + i;
-  const size_t e = blockIdx.x;
-  const int ix = static_cast<int>(e % ex);
-  const int iy = static_cast<int>((e / ex) % ey);
-  const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
-  const size_t base = e * N3 + tid;
-
-  if (!LAST) load_D(sh, D, i, j);
-  const T ci0 = coef[2 * step];
-  const T ci1 = coef[2 * step + 1];
-  const T cyx = cy[iy * N + j] * cx[ix * N + i];
-  T dc[N];
-  T part = T(0);
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const size_t o = base + k * N2;
-    const T aw = sum_xyz<N>(ad_in, e, k, j, i, ix, iy, iz, ex, ey, ez);
-    const T rn = sub_rn(res_in[o], aw);
-    const T dn = add_rn(mul_rn(ci0, d[o]), mul_rn(ci1, rn));
-    const T zn = add_rn(z_in[o], dn);
-    z[o] = zn;
-    if (LAST) {
-      // c is (cz * cy) * cx, exact in any order (factors 0, 1/2, 1).
-      part += mul_rn(mul_rn(r[o], cz[iz * N + k] * cyx), zn);
+  __device__ __forceinline__ ChebNode(const ChebArgs<T>& a, T* smem,
+                                      size_t first, size_t last, int q, int p,
+                                      int tid) {
+    constexpr int N3 = N * N * N;
+    const size_t local = static_cast<size_t>(q) * kSlices<N> + p;
+    active = first + local < last;
+    e = active ? first + local : last - 1;
+    ix = static_cast<int>(e % a.ex);
+    iy = static_cast<int>((e / a.ex) % a.ey);
+    iz = static_cast<int>(e / (static_cast<size_t>(a.ex) * a.ey));
+    base = e * N3 + tid;
+    if (RESIDENT) {
+      // [element][d, res, z][layer][thread]; a slot past the range is
+      // allocated, and a slice past the range writes only there
+      sd = smem + local * 3 * N3 + tid;
+      sres = sd + N3;
+      sz = sd + 2 * N3;
+      col = sd;
     } else {
-      res[o] = rn;
-      d[o] = dn;
-      dc[k] = dn;
+      sd = a.d + base;
+      sres = a.res + base;
+      sz = a.z + base;
+      // [slice][layer][thread]: the operator's copy of d
+      col = smem + p * N3 + tid;
     }
   }
-  if (LAST) {
-    const T total = block_sum<N2>(part, red, tid);
-    if (tid == 0) rtz[e] = total;
-  } else {
-    masked_ax(sh, g3, mx, my, mz, dc, ad_out, e, i, j, ix, iy, iz);
+};
+
+// The thread's column of d read from shared memory, layer k at k N^2: the
+// operator's input without the N registers a copy would hold.
+template <int N, typename T>
+struct SharedColumn {
+  const T* p;
+  __device__ __forceinline__ T operator[](int k) const { return p[k * N * N]; }
+};
+
+// The masked, unassembled A_loc of the thread's column of d into ad:
+// common.cuh masked_ax, operation for operation (so the output is bitwise
+// the same), with the column read from shared memory and the store kept to
+// active slices.
+template <int N, typename T>
+__device__ __forceinline__ void cheb_ax(AxShared<N, T>& sh,
+                                        const ChebArgs<T>& a, const T* col,
+                                        T* ad, size_t e, bool active, int i,
+                                        int j, int ix, int iy, int iz) {
+  constexpr int N2 = N * N;
+  constexpr int N3 = N * N * N;
+  const int tid = j * N + i;
+  T wc[N];
+  ax_diag_columns(sh, a.g3 + e * 3 * N3 + tid, SharedColumn<N, T>{col}, wc,
+                  i, j);
+  const T myx = a.my[iy * N + j] * a.mx[ix * N + i];
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      ad[e * N3 + tid + k * N2] = wc[k] * (a.mz[iz * N + k] * myx);
   }
 }
 
-template <int N, typename T>
-cudaError_t launch(const T* r, const T* D, const T* g3, const T* mx,
-                   const T* my, const T* mz, const T* cx, const T* cy,
-                   const T* cz, const T* coef, T* z, T* d, T* res, T* ad0,
-                   T* ad1, T* rtz, int ex, int ey, int ez, int k,
-                   cudaStream_t stream) {
-  const int E = ex * ey * ez;
-  const dim3 threads(N, N);
-  nekbone_cheb_start_kernel<N, T><<<E, threads, 0, stream>>>(
-      r, D, g3, mx, my, mz, coef, d, ad0, ex, ey);
-  cudaError_t err = cudaGetLastError();
-  T* ad[2] = {ad0, ad1};
-  for (int step = 1; step <= k && err == cudaSuccess; ++step) {
-    const T* res_in = step == 1 ? r : res;
-    const T* z_in = step == 1 ? d : z;
-    const T* ad_in = ad[(step - 1) % 2];
-    T* ad_out = ad[step % 2];
-    if (step < k)
-      nekbone_cheb_step_kernel<N, T, false><<<E, threads, 0, stream>>>(
-          res_in, z_in, d, res, z, ad_in, ad_out, r, D, g3, mx, my, mz, cx,
-          cy, cz, coef, rtz, step, ex, ey, ez);
-    else
-      nekbone_cheb_step_kernel<N, T, true><<<E, threads, 0, stream>>>(
-          res_in, z_in, d, res, z, ad_in, ad_out, r, D, g3, mx, my, mz, cx,
-          cy, cz, coef, rtz, step, ex, ey, ez);
-    err = cudaGetLastError();
+// One step of the recurrence over the block's rounds: assemble ad_in, update
+// d, res, z, then (not LAST) write the masked A_loc of the new d to ad_out,
+// or (LAST) write z and the rtz partials.  At step 1 the device variant
+// reads res as r and z as d (the RESIDENT start stores them).
+template <int N, typename T, bool RESIDENT, bool LAST>
+__device__ __forceinline__ void cheb_step(const ChebArgs<T>& a,
+                                          AxShared<N, T>& sh, T* red, T* smem,
+                                          const T* ad_in, T* ad_out,
+                                          int step, size_t first, size_t last,
+                                          int rounds, int p, int i, int j) {
+  constexpr int N2 = N * N;
+  const int tid = j * N + i;
+  const T ci0 = a.coef[2 * step];
+  const T ci1 = a.coef[2 * step + 1];
+  for (int q = 0; q < rounds; ++q) {
+    const ChebNode<N, T, RESIDENT> nd(a, smem, first, last, q, p, tid);
+    T part = T(0);
+    T cyx = T(0);
+    if (LAST) cyx = a.cy[nd.iy * N + j] * a.cx[nd.ix * N + i];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int s = k * N2;
+      const T aw = sum_xyz_cg<N>(ad_in, nd.e, k, j, i, nd.ix, nd.iy, nd.iz,
+                                 a.ex, a.ey, a.ez);
+      const T dold = nd.sd[s];
+      const T resold = (!RESIDENT && step == 1) ? a.r[nd.base + k * N2]
+                                                : nd.sres[s];
+      const T zold = (!RESIDENT && step == 1) ? dold : nd.sz[s];
+      const T rn = sub_rn(resold, aw);
+      const T dn = add_rn(mul_rn(ci0, dold), mul_rn(ci1, rn));
+      const T zn = add_rn(zold, dn);
+      if (LAST) {
+        if (nd.active) a.z[nd.base + k * N2] = zn;
+        // c is (cz * cy) * cx, exact in any order (factors 0, 1/2, 1).
+        part += mul_rn(
+            mul_rn(a.r[nd.base + k * N2], a.cz[nd.iz * N + k] * cyx), zn);
+      } else {
+        if (RESIDENT || nd.active) {
+          nd.sd[s] = dn;
+          nd.sres[s] = rn;
+          nd.sz[s] = zn;
+        }
+        if (!RESIDENT) nd.col[s] = dn;
+      }
+    }
+    if (LAST) {
+      const T total = block_sum<N2>(part, red, tid);
+      if (tid == 0 && nd.active) a.rtz[nd.e] = total;
+    } else {
+      cheb_ax(sh, a, nd.col, ad_out, nd.e, nd.active, i, j, nd.ix, nd.iy,
+              nd.iz);
+    }
   }
-  return err;
+}
+
+// Block (N, N, P): slice p = threadIdx.z works on its own element of each
+// round, with its own operator scratch; the barriers inside the operator
+// and the block sum are block-wide, so every slice runs every round.
+template <int N, typename T, bool RESIDENT>
+__global__ void __launch_bounds__(N * N * kSlices<N>, kMinBlocks<N>)
+nekbone_cheb_kernel(const ChebArgs<T> a) {
+  constexpr int N2 = N * N;
+  constexpr int P = kSlices<N>;
+  __shared__ AxShared<N, T> sh_all[P];
+  __shared__ T red_all[P][N2];
+  extern __shared__ __align__(16) unsigned char state_bytes[];
+  T* smem = reinterpret_cast<T*>(state_bytes);
+
+  cg::grid_group grid = cg::this_grid();
+  const int i = threadIdx.x;
+  const int j = threadIdx.y;
+  const int p = threadIdx.z;
+  const int tid = j * N + i;
+  AxShared<N, T>& sh = sh_all[p];
+  T* red = red_all[p];
+  const size_t E = static_cast<size_t>(a.ex) * a.ey * a.ez;
+  const size_t first = static_cast<size_t>(blockIdx.x) * a.per_block;
+  const size_t last = first + a.per_block < E ? first + a.per_block : E;
+  const int rounds = static_cast<int>((last - first + P - 1) / P);
+
+  // start: d = c00 r, and the masked A_loc d into ad0.  D is published by
+  // the first barrier of the operator.
+  load_D(sh, a.D, i, j);
+  const T c00 = a.coef[0];
+  for (int q = 0; q < rounds; ++q) {
+    const ChebNode<N, T, RESIDENT> nd(a, smem, first, last, q, p, tid);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const T rv = a.r[nd.base + k * N2];
+      const T dk = mul_rn(c00, rv);
+      if (RESIDENT || nd.active) nd.sd[k * N2] = dk;
+      if (RESIDENT) {
+        nd.sres[k * N2] = rv;
+        nd.sz[k * N2] = dk;
+      } else {
+        nd.col[k * N2] = dk;
+      }
+    }
+    cheb_ax(sh, a, nd.col, a.ad0, nd.e, nd.active, i, j, nd.ix, nd.iy,
+            nd.iz);
+  }
+  for (int step = 1; step <= a.k; ++step) {
+    // every block's A d of the previous step is written
+    grid.sync();
+    const T* ad_in = step % 2 ? a.ad0 : a.ad1;
+    T* ad_out = step % 2 ? a.ad1 : a.ad0;
+    if (step < a.k)
+      cheb_step<N, T, RESIDENT, false>(a, sh, red, smem, ad_in, ad_out,
+                                       step, first, last, rounds, p, i, j);
+    else
+      cheb_step<N, T, RESIDENT, true>(a, sh, red, smem, ad_in, ad_out, step,
+                                      first, last, rounds, p, i, j);
+  }
+}
+
+// out = {blocks per SM at dyn bytes of dynamic shared memory (0 if a block
+// may not take that much), static shared bytes, registers per thread, the
+// most dynamic shared bytes a block may take, SM count, cooperative launch
+// supported (0/1), elements a block works on side by side}.
+template <int N, typename T, bool RESIDENT>
+cudaError_t query(int dyn, int* out) {
+  const void* fn =
+      reinterpret_cast<const void*>(&nekbone_cheb_kernel<N, T, RESIDENT>);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  int optin = 0, sms = 0, coop = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  const int max_dyn = optin - static_cast<int>(attr.sharedSizeBytes);
+  int blocks = 0;
+  if (dyn <= max_dyn) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dyn);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, fn, N * N * kSlices<N>, dyn);
+    if (err != cudaSuccess) return err;
+  }
+  out[0] = blocks;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = attr.numRegs;
+  out[3] = max_dyn;
+  out[4] = sms;
+  out[5] = coop;
+  out[6] = kSlices<N>;
+  return cudaSuccess;
+}
+
+template <int N, typename T, bool RESIDENT>
+cudaError_t launch(const ChebArgs<T>& a, int grid, cudaStream_t stream) {
+  const void* fn =
+      reinterpret_cast<const void*>(&nekbone_cheb_kernel<N, T, RESIDENT>);
+  const size_t dyn = (RESIDENT ? static_cast<size_t>(a.per_block) * 3
+                                : static_cast<size_t>(kSlices<N>)) *
+                     N * N * N * sizeof(T);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<ChebArgs<T>*>(&a)};
+  return cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(N, N, kSlices<N>),
+                                     args, dyn, stream);
+}
+
+inline int slices(int n) {
+  switch (n) {
+#define NEKBONE_CASE(N) \
+  case N:               \
+    return kSlices<N>;
+    NEKBONE_FOR_EACH_N(NEKBONE_CASE)
+#undef NEKBONE_CASE
+    default:
+      return 1;
+  }
 }
 
 template <typename T>
-int dispatch(const T* r, const T* D, const T* g3, const T* mx, const T* my,
-             const T* mz, const T* cx, const T* cy, const T* cz,
-             const T* coef, T* z, T* d, T* res, T* ad0, T* ad1, T* rtz,
-             int ex, int ey, int ez, int n, int k, void* stream) {
-  if (ex <= 0 || ey <= 0 || ez <= 0 || k < 1)
+int dispatch_query(int n, int resident, int dyn, int* out) {
+  switch (n) {
+#define NEKBONE_CASE(N)                                                  \
+  case N:                                                                \
+    return static_cast<int>(resident ? query<N, T, true>(dyn, out)       \
+                                     : query<N, T, false>(dyn, out));
+    NEKBONE_FOR_EACH_N(NEKBONE_CASE)
+#undef NEKBONE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int dispatch(const ChebArgs<T>& a, int n, int resident, int grid,
+             void* stream) {
+  const long long E = static_cast<long long>(a.ex) * a.ey * a.ez;
+  if (a.ex <= 0 || a.ey <= 0 || a.ez <= 0 || a.k < 1 || a.per_block < 1 ||
+      a.per_block % slices(n) != 0 ||
+      grid < 1 || static_cast<long long>(grid) * a.per_block < E ||
+      (!resident && (a.d == nullptr || a.res == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
-#define NEKBONE_CASE(N)                                                      \
-  case N:                                                                    \
-    return static_cast<int>(launch<N, T>(r, D, g3, mx, my, mz, cx, cy, cz,   \
-                                         coef, z, d, res, ad0, ad1, rtz, ex, \
-                                         ey, ez, k, s));
+#define NEKBONE_CASE(N)                                                   \
+  case N:                                                                 \
+    return static_cast<int>(resident ? launch<N, T, true>(a, grid, s)     \
+                                     : launch<N, T, false>(a, grid, s));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -197,32 +418,36 @@ int dispatch(const T* r, const T* D, const T* g3, const T* mx, const T* my,
 
 }  // namespace nekbone
 
-// r, z and the scratch d, res, ad0, ad1: (E, n^3); D: (n, n); g3: (E, 3,
-// n^3); mx, cx: (EX, n); my, cy: (EY, n); mz, cz: (EZ, n); coef: (k+1, 2);
-// rtz: (E,).  Elements z-major over (EX, EY, EZ).  Queues k + 1 launches
-// and returns the first non-zero cudaGetLastError(), or 0.
+// r, z: (E, n^3); D: (n, n); g3: (E, 3, n^3); mx, cx: (EX, n); my, cy:
+// (EY, n); mz, cz: (EZ, n); coef: (k+1, 2); rtz: (E,); ad0, ad1: (E, n^3)
+// scratch; d, res: (E, n^3) scratch of the device variant (null when
+// resident).  Elements z-major over (EX, EY, EZ); block b owns elements
+// [b * per_block, (b + 1) * per_block).  One cooperative launch of `grid`
+// blocks; returns its error (cudaErrorCooperativeLaunchTooLarge when the
+// grid cannot be resident at once), or 0.
+//
+// nekbone_cheb_apply_query_<dtype>(n, resident, dyn, out): fills out[7] as
+// nekbone::query documents; returns a CUDA error, or 0.
+#define NEKBONE_CHEB_ENTRY(SUFFIX, T)                                         \
+  extern "C" int nekbone_cheb_apply_##SUFFIX(                                 \
+      const T* r, const T* D, const T* g3, const T* mx, const T* my,          \
+      const T* mz, const T* cx, const T* cy, const T* cz, const T* coef,      \
+      T* z, T* d, T* res, T* ad0, T* ad1, T* rtz, int ex, int ey, int ez,     \
+      int n, int k, int resident, int per_block, int grid, void* stream) {    \
+    const nekbone::ChebArgs<T> a{r,  D,   g3,  mx,  my,  mz, cx, cy, cz,      \
+                                 coef, z, d, res, ad0, ad1, rtz, ex, ey, ez,  \
+                                 k,  per_block};                              \
+    return nekbone::dispatch<T>(a, n, resident, grid, stream);                \
+  }                                                                           \
+  extern "C" int nekbone_cheb_apply_query_##SUFFIX(int n, int resident,       \
+                                                   int dyn, int* out) {       \
+    return nekbone::dispatch_query<T>(n, resident, dyn, out);                 \
+  }
+
 #ifdef NEKBONE_REAL_F64
-extern "C" int nekbone_cheb_apply_f64(
-    const double* r, const double* D, const double* g3, const double* mx,
-    const double* my, const double* mz, const double* cx, const double* cy,
-    const double* cz, const double* coef, double* z, double* d, double* res,
-    double* ad0, double* ad1, double* rtz, int ex, int ey, int ez, int n,
-    int k, void* stream) {
-  return nekbone::dispatch<double>(r, D, g3, mx, my, mz, cx, cy, cz, coef, z,
-                                   d, res, ad0, ad1, rtz, ex, ey, ez, n, k,
-                                   stream);
-}
+NEKBONE_CHEB_ENTRY(f64, double)
 #endif
 
 #ifdef NEKBONE_REAL_F32
-extern "C" int nekbone_cheb_apply_f32(
-    const float* r, const float* D, const float* g3, const float* mx,
-    const float* my, const float* mz, const float* cx, const float* cy,
-    const float* cz, const float* coef, float* z, float* d, float* res,
-    float* ad0, float* ad1, float* rtz, int ex, int ey, int ez, int n, int k,
-    void* stream) {
-  return nekbone::dispatch<float>(r, D, g3, mx, my, mz, cx, cy, cz, coef, z,
-                                  d, res, ad0, ad1, rtz, ex, ey, ez, n, k,
-                                  stream);
-}
+NEKBONE_CHEB_ENTRY(f32, float)
 #endif

@@ -9,8 +9,8 @@
 * ``nekbone_pcg_update_cuda`` — K10, ``csrc/nekbone_pcg_update.cu``,
   replaces ``nekbone_pcg_update_kernel``;
 * ``nekbone_cheb_apply_cuda`` — K11, ``csrc/nekbone_cheb_apply.cu``,
-  replaces ``nekbone_cheb_apply_kernel`` (one call queues k + 1 device
-  launches and counts once);
+  replaces ``nekbone_cheb_apply_kernel`` (one cooperative launch per call,
+  its grid and variant chosen by :func:`k11_plan`);
 * ``nekbone_interp_cuda`` — K12, ``csrc/nekbone_interp.cu``, replaces
   ``nekbone_interp_kernel`` (the p-multigrid transfers);
 * ``nekbone_ax_slab_block_cuda`` — K6, ``csrc/nekbone_ax_slab_block.cu``,
@@ -49,6 +49,7 @@ The kernels are built from the sources at first use (kernels/_build.py).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -80,7 +81,8 @@ __all__ = ["nekbone_ax_cuda",
            "nekbone_ax_dots_plain", "nekbone_ax_powers_cuda",
            "nekbone_ax_powers_plain", "nekbone_sstep_update_cuda",
            "nekbone_sstep_update_plain", "N_RANGE", "INTERP_PAIRS",
-           "SSTEP_MAX_S", "MIXES", "build_for"]
+           "SSTEP_MAX_S", "MIXES", "build_for", "K11Plan", "k11_plan",
+           "k11_state_bytes", "nekbone_cheb_apply_plan"]
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
@@ -114,7 +116,7 @@ _ARGTYPES = {
     "nekbone_ax_slab": [_P] * 11 + [_I] * 4 + [_P],
     "nekbone_cg_update": [_P] * 11 + [_I] * 4 + [_P],
     "nekbone_pcg_update": [_P] * 13 + [_I] * 4 + [_P],
-    "nekbone_cheb_apply": [_P] * 16 + [_I] * 5 + [_P],
+    "nekbone_cheb_apply": [_P] * 16 + [_I] * 8 + [_P],
     "nekbone_interp": [_P] * 3 + [_I] * 3 + [_P],
     "nekbone_ax_slab_block": [_P] * 11 + [_I] * 5 + [_P],
     "nekbone_cg_update_block": [_P] * 11 + [_I] * 5 + [_P],
@@ -288,15 +290,140 @@ def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
     return x_out, z_out, parts[0], parts[1]
 
 
+@dataclasses.dataclass(frozen=True)
+class K11Plan:
+    """One K11 launch: block b of ``grid`` owns elements ``[b * per_block,
+    (b + 1) * per_block)`` (z-major, the last range cut at E) for all k
+    steps; ``resident`` keeps their d, res and z in the block's dynamic
+    shared memory, else in device memory (with a shared copy of the
+    operator's input column per slice); ``smem_bytes`` is that dynamic
+    shared memory and ``blocks_per_sm`` the residency the grid was sized
+    by."""
+    resident: bool
+    per_block: int
+    grid: int
+    blocks_per_sm: int
+    smem_bytes: int
+
+    @property
+    def variant(self) -> str:
+        return "shared" if self.resident else "device"
+
+
+def k11_state_bytes(n: int, dtype: torch.dtype) -> int:
+    """d, res and z of one element: the shared memory it takes resident."""
+    return 3 * n ** 3 * dtype.itemsize
+
+
+def k11_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
+             blocks_per_sm, smem_per_block: int, *,
+             slices: int = 1) -> K11Plan:
+    """K11's variant and grid for E elements of degree n - 1.
+
+    ``blocks_per_sm(resident, dyn_bytes)`` is how many blocks of that
+    variant an SM holds with ``dyn_bytes`` of dynamic shared memory each (on
+    the card, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    ``smem_per_block`` the most dynamic shared memory a block of the
+    shared-memory variant may take.  Every block of a cooperative launch is
+    resident at once, so the grid is at most ``sm_count`` times that
+    residency.  A block works on ``slices`` elements side by side, so it
+    owns a multiple m of them.  The shared-memory variant is taken if and
+    only if some such m fits both: m elements' state in one block, and
+    ceil(E / m) blocks on the card at the residency that state allows; the
+    least such m.  Otherwise the device-memory variant, whose residency
+    (with one n^3 column copy per slice in shared memory) does not depend
+    on E, owns the least multiple m with ceil(E / m) blocks resident.
+    Raises ``ValueError`` where neither can run (no block of the device
+    variant fits an SM).
+    """
+    if E < 1 or sm_count < 1 or slices < 1:
+        raise ValueError(f"k11_plan: E={E}, sm_count={sm_count}, "
+                         f"slices={slices}")
+
+    def round_up(m):
+        return -(-m // slices) * slices
+
+    state = k11_state_bytes(n, dtype)
+    m = slices
+    if m * state <= smem_per_block:
+        fit = blocks_per_sm(True, m * state)
+        # the residency falls as m grows, so no m below this one fits
+        m = round_up(max(m, -(-E // max(sm_count * fit, 1))))
+        while m * state <= smem_per_block:
+            fit = blocks_per_sm(True, m * state)
+            grid = -(-E // m)
+            if fit >= 1 and grid <= sm_count * fit:
+                return K11Plan(True, m, grid, fit, m * state)
+            m += slices
+    column = slices * n ** 3 * dtype.itemsize
+    fit = blocks_per_sm(False, column) if column <= smem_per_block else 0
+    if fit < 1:
+        raise ValueError(f"k11_plan: no block of K11 (n={n}, {dtype}) is "
+                         "resident on an SM in either variant")
+    m = round_up(-(-E // (sm_count * fit)))
+    return K11Plan(False, m, -(-E // m), fit, column)
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _k11_query(mix: str, n: int, resident: bool, dyn: int,
+               device: int) -> tuple[int, ...]:
+    """The C side's occupancy query (csrc/nekbone_cheb_apply.cu ``query``):
+    (blocks per SM, static shared bytes, registers, the most dynamic shared
+    bytes, SM count, cooperative launch supported, elements a block works
+    on side by side)."""
+    fn = getattr(_build.load(f"nekbone_cheb_apply_{mix}"),
+                 f"nekbone_cheb_apply_query_{mix}")
+    fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = fn(n, int(resident), dyn, out)
+    if err != 0:
+        raise RuntimeError(f"nekbone_cheb_apply: occupancy query failed with "
+                           f"CUDA error {err}")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _k11_device_plan(E: int, n: int, mix: str, device: int) -> K11Plan:
+    info = _k11_query(mix, n, True, 0, device)
+    if not info[5]:
+        raise RuntimeError("nekbone_cheb_apply: the device does not support "
+                           "cooperative launches (cudaDevAttrCooperativeLaunch)")
+    return k11_plan(
+        E, n, MIXES[mix]["S"], info[4],
+        lambda resident, dyn: _k11_query(mix, n, resident, dyn, device)[0],
+        info[3], slices=info[6])
+
+
+def nekbone_cheb_apply_plan(E: int, n: int, dtype: torch.dtype,
+                            device="cuda") -> tuple[K11Plan, dict]:
+    """The plan K11 launches with for E elements on ``device``, and the
+    instantiation it runs: ``{"registers", "static_smem", "sm_count",
+    "slices"}``."""
+    index = _device_index(torch.device(device))
+    mix = next(m for m, dt in MIXES.items() if dt["S"] == dtype)
+    plan = _k11_device_plan(E, n, mix, index)
+    info = _k11_query(mix, n, plan.resident, plan.smem_bytes, index)
+    return plan, {"registers": info[2], "static_smem": info[1],
+                  "sm_count": info[4], "slices": info[6]}
+
+
 def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
                             n: int, k: int):
     """K11: ``z = q_k(A) r`` and per-element ``r·c·z`` partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_cheb_apply_plain`.
+    One cooperative launch (:func:`k11_plan` picks its variant and grid).
     The kernel allocates nothing: this wrapper hands it ``z``, the
-    partials, and scratch for the recurrence's ``d`` and ``res`` and two
-    buffers of the unassembled ``A d``.  Returns ``(z, rtz)`` with ``rtz``
-    of shape (E,).
+    partials, two buffers of the unassembled ``A d`` and, in the
+    device-memory variant, scratch for the recurrence's ``d`` and ``res``.
+    Returns ``(z, rtz)`` with ``rtz`` of shape (E,).
     """
     if r2.device.type == "cpu":
         return nekbone_cheb_apply_plain(r2, D, g3, mx, my, mz, cx, cy, cz,
@@ -310,12 +437,20 @@ def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
                  D=(D, (n, n)), g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)),
                  my=(my, (ey, n)), mz=(mz, (ez, n)), cx=(cx, (ex, n)),
                  cy=(cy, (ey, n)), cz=(cz, (ez, n)), coef=(coef, (k + 1, 2)))
+    plan = _k11_device_plan(E, n, mix, _device_index(r2.device))
     z = torch.empty_like(r2)
-    scratch = torch.empty(4, E, n3, dtype=r2.dtype, device=r2.device)
+    scratch = torch.empty(2 if plan.resident else 4, E, n3, dtype=r2.dtype,
+                          device=r2.device)
     rtz = torch.empty(E, dtype=r2.dtype, device=r2.device)
-    _launch("nekbone_cheb_apply", mix, r2.device,
-            (r2, D, g3, mx, my, mz, cx, cy, cz, coef, z, *scratch, rtz),
-            (ex, ey, ez, n, k))
+    state = (0, 0) if plan.resident else (scratch[2].data_ptr(),
+                                          scratch[3].data_ptr())
+    _build.launch(
+        f"nekbone_cheb_apply_{mix}", _ARGTYPES["nekbone_cheb_apply"],
+        r2.device,
+        (*(t.data_ptr() for t in (r2, D, g3, mx, my, mz, cx, cy, cz, coef,
+                                  z)), *state, scratch[0].data_ptr(),
+         scratch[1].data_ptr(), rtz.data_ptr(), ex, ey, ez, n, k,
+         int(plan.resident), plan.per_block, plan.grid))
     return z, rtz
 
 

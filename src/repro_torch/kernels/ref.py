@@ -28,7 +28,7 @@ __all__ = ["accum_dtype", "nekbone_ax_ref", "nekbone_ax_plain",
            "nekbone_ax_dots_plain", "nekbone_ax_powers_plain",
            "nekbone_sstep_update_plain", "attention_ref",
            "flash_attention_plain", "flash_attention_tc_emulated",
-           "flash_tiles", "wkv6_ref", "wkv6_chunked"]
+           "flash_tiles", "wkv6_ref", "wkv6_chunked", "wkv6_split_emulated"]
 
 NEG_INF = -1e30          # the reference kernel's _NEG_INF (never -inf)
 LOG2E = 1.4426950408889634
@@ -506,6 +506,53 @@ def wkv6_ref(r, k, v, w, u, *, initial_state=None,
         bonus = torch.einsum("bhk,bhk->bh", rt, uf * kt)
         outs.append(out + bonus[..., None] * vt)
         S = wt[..., :, None] * S + torch.einsum("bhk,bhv->bhkv", kt, vt)
+    o = torch.stack(outs, dim=2).to(r.dtype)
+    return (o, S) if return_state else o
+
+
+def wkv6_split_emulated(r, k, v, w, u, *, col_tile: int, row_groups: int,
+                        initial_state=None, return_state: bool = False):
+    """K14's arithmetic (csrc/wkv6.cu) in float32 torch: the same function
+    as :func:`wkv6_ref`, with the sums grouped as the kernel groups them.
+
+    The value columns are split into tiles of ``col_tile`` and each tile
+    computed on its own (a column needs only its own v); within a tile the
+    key rows are split into ``row_groups`` groups of d / row_groups rows.
+    Per step, each group forms its partials ``sum_{i in g} r_t[i] S[i][j]``
+    and ``sum_{i in g} r_t[i] (u[i] k_t[i])``; both are summed over the
+    groups in the order g = 0, 1, .., and ``o_t[j]`` is the first sum plus
+    the second times ``v_t[j]``.  (The kernel forms each partial as fused
+    multiply-adds in ascending i; torch rounds each product, so the two
+    agree to float32 round-off, not bitwise.)
+    """
+    B, H, T, d = r.shape
+    if d % col_tile or d % row_groups:
+        raise ValueError(f"wkv6_split_emulated: d={d} is not a multiple of "
+                         f"col_tile={col_tile} and row_groups={row_groups}")
+    rows = d // row_groups
+    f32 = torch.float32
+    S = (torch.zeros((B, H, d, d), dtype=f32, device=r.device)
+         if initial_state is None else initial_state.to(f32))
+    rf, kf, vf, wf = (x.to(f32) for x in (r, k, v, w))
+    uf = u.to(f32)[None]
+    outs = []
+    for t in range(T):
+        rt, kt, vt, wt = rf[:, :, t], kf[:, :, t], vf[:, :, t], wf[:, :, t]
+        ruk = rt * (uf * kt)
+        bonus = ruk[..., :rows].sum(-1, keepdim=True)
+        for g0 in range(rows, d, rows):
+            bonus = bonus + ruk[..., g0:g0 + rows].sum(-1, keepdim=True)
+        tiles = []
+        for j0 in range(0, d, col_tile):
+            cols = slice(j0, j0 + col_tile)
+            acc = None
+            for g0 in range(0, d, rows):
+                part = torch.einsum("bhi,bhic->bhc", rt[..., g0:g0 + rows],
+                                    S[:, :, g0:g0 + rows, cols])
+                acc = part if acc is None else acc + part
+            tiles.append(acc + bonus * vt[..., cols])
+        outs.append(torch.cat(tiles, dim=-1))
+        S = wt[..., :, None] * S + kt[..., :, None] * vt[..., None, :]
     o = torch.stack(outs, dim=2).to(r.dtype)
     return (o, S) if return_state else o
 

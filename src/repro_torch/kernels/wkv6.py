@@ -14,6 +14,14 @@ compute one function; one CUDA kernel serves both.  :func:`wkv6_cuda`:
   launches the kernel on the current stream, raises if the launch returned
   an error, and adds one to ``LAUNCHES["wkv6"]`` (kernels/_build.py).
   There is no fallback.
+
+The kernel splits each head's value columns into tiles of ``col_tile``
+columns, one block each, its key rows into ``row_groups`` groups inside a
+block, gives each thread ``cols_per_thread`` columns of its group, and
+stages ``steps`` time steps per pass (:data:`TILES`, picked by measurement on the card with
+``scripts/k11_k14_compare.py``);
+:func:`repro_torch.kernels.ref.wkv6_split_emulated` is its arithmetic in
+torch (the columns a thread holds do not change it).
 """
 from __future__ import annotations
 
@@ -24,13 +32,19 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import wkv6_ref
 
-__all__ = ["HEAD_DIMS", "wkv6_cuda"]
+__all__ = ["HEAD_DIMS", "TILES", "DECODE_TILES", "wkv6_cuda"]
 
 HEAD_DIMS = (16, 64)           # the head sizes the kernel is built for
+# {d: (col_tile, row_groups, cols_per_thread, steps per pass)} the wrapper
+# launches with, for a prompt (T > 1) and for one decode step (T = 1): the
+# tilings csrc/wkv6.cu is built for
+TILES = {64: (32, 8, 2, 32), 16: (16, 4, 1, 32)}
+DECODE_TILES = {64: (32, 16, 2, 1), 16: (16, 8, 1, 1)}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# r, k, v, w, u, s0, o, s_out; B, H, T, d; stream
-_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P]
+# r, k, v, w, u, s0, o, s_out; B, H, T, d, col_tile, row_groups,
+# cols_per_thread, steps; stream
+_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 
 
 def wkv6_cuda(r, k, v, w, u, *, initial_state=None):
@@ -50,6 +64,7 @@ def wkv6_cuda(r, k, v, w, u, *, initial_state=None):
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"wkv6: head size {d} is not one of the "
                                   f"built sizes {HEAD_DIMS}")
+    tiles = (DECODE_TILES if T == 1 else TILES)[d]
     f32 = torch.float32
     want = {"k": (k, r.dtype, (B, H, T, d)), "v": (v, r.dtype, (B, H, T, d)),
             "w": (w, f32, (B, H, T, d)), "u": (u, f32, (H, d))}
@@ -63,7 +78,12 @@ def wkv6_cuda(r, k, v, w, u, *, initial_state=None):
         if tuple(t.shape) != shape:
             raise ValueError(f"wkv6: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-    r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
+    # the kernel reads r, k, v and w four values at a time: 16-byte
+    # aligned rows (a fresh copy where a view starts elsewhere)
+    r, k, v, w = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                  else t.clone(memory_format=torch.contiguous_format)
+                  for t in (r, k, v, w))
+    u = u.contiguous()
     s0 = None if initial_state is None else initial_state.contiguous()
     o = torch.empty_like(r)
     state = torch.empty((B, H, d, d), dtype=f32, device=r.device)
@@ -71,5 +91,5 @@ def wkv6_cuda(r, k, v, w, u, *, initial_state=None):
         f"wkv6_{_SUFFIX[r.dtype]}", _ARGTYPES, r.device,
         (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
          u.data_ptr(), 0 if s0 is None else s0.data_ptr(), o.data_ptr(),
-         state.data_ptr(), B, H, T, d))
+         state.data_ptr(), B, H, T, d, *tiles))
     return o, state
