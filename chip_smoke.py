@@ -45,7 +45,9 @@ reference package ``repro``, and, in order:
 9. holds K12 (the p-multigrid interpolation) against its plain version for
    every step of the ladder at E=1024 (bitwise, fp64 and fp32) with face
    values kept bitwise, and K6 and K7 (the multi-RHS block kernels)
-   against K4 and K5 lane by lane (bitwise at b = 1 and 4);
+   against K4 and K5 lane by lane (bitwise at b = 1, 2, 3 and 4, n = 10, 5,
+   3 on the paper grid and n = 10 on the 16x16x16 grid), with 5 repeated K6
+   calls bitwise the same;
 10. solves the paper case through the two routes of this slice, each with
    the launch counters reset just before it: p-multigrid PCG to
    rnorm <= 1e-8 r0 beside Chebyshev-PCG(4) to the same tolerance, and
@@ -58,12 +60,17 @@ reference package ``repro``, and, in order:
    intervals' one-time set-up;
 12. holds K3 and K2 (the v1 operator) and K8 and K9 (the s-step cycle)
    against their plain versions at n=10, E=1024, fp64 and fp32, K8/K9 at
-   s = 1, 2, 4;
+   s = 1, 2, 4; K8 also on the 16x16x16 grid (E=4096) at s = 1, 2, 4 and
+   at s = SSTEP_MAX_S with n = 4, with its launch plan printed (variant,
+   grid, blocks per SM, shared memory, registers), both variants of the
+   plan run, its Gram partials bitwise ``ref.sstep_gram_emulated`` of its
+   basis and 5 repeated calls bitwise the same;
 13. solves the paper case through the two routes of this slice, each with
    the launch counters reset just before it: v1 over K3 (100 iterations,
    against the plain route) and s-step over K8 + K9 at s = 4 and 1 (100
    iterations) and 2 (99, a remainder cycle), against v2, and s-step at
-   s = 4 to a tolerance it crosses inside a cycle;
+   s = 4 to a tolerance it crosses inside a cycle (K8 one cooperative
+   launch per cycle);
 14. times K2, K3, K8 and K9 (K8 and K9 at s = 1, 2, 4) beside their plain
    versions at E=1024 and E=4096, and v1 and s-step per iteration beside
    v2, in turns;
@@ -718,14 +725,19 @@ def phase_interp_block_parity():
         print(f"  K12 {dtype}: largest rel err over the ladder {worst:.1e}",
               flush=True)
 
-    # K6 / K7: every output bitwise K4's / K5's on each lane
+    # K6 / K7: every output bitwise K4's / K5's on each lane, for every
+    # width of K6's lane groups (b = 1..4: one group of b lanes)
+    print(f"  K6 lanes by layer sweep (b = 1..{BLOCK_B}): "
+          + "; ".join(f"b={b} {K.k6_lane_groups(b)}"
+                      for b in range(1, BLOCK_B + 1)), flush=True)
     for dtype in (torch.float64, torch.float32):
-        for n in (10, 5, 3):
-            case = NekboneCase(n=n, grid=PAPER_GRID, dtype=dtype)
+        for n, grid in ((10, PAPER_GRID), (5, PAPER_GRID), (3, PAPER_GRID),
+                        (10, BIG_GRID)):
+            case = NekboneCase(n=n, grid=grid, dtype=dtype)
             E = case.mesh.nelt
             m, c = ops.slab_axis_factors(case.grid, n, dtype, "cuda")
             g3 = ops.diag_metric(case.g, E, n)
-            for b in (1, BLOCK_B):
+            for b in (1, 2, 3, BLOCK_B):
                 o = [_v2_operands(case, rng) for _ in range(b)]
                 P = torch.stack([q["p"] for q in o])
                 R = torch.stack([q["r"] for q in o])
@@ -747,9 +759,19 @@ def phase_interp_block_parity():
                     same &= all(torch.equal(a, z) for a, z in (
                         (p3[j], p), (w3[j], w), (pap[j], pp), (x3[j], x),
                         (r3[j], r), (rcr[j], rr)))
-                check(same, f"K6/K7 {dtype} n={n} b={b}: p, w, pap, x, r, "
-                            "rcr of every lane bitwise K4's and K5's")
-                if dtype == torch.float64 and n == 10 and b == BLOCK_B:
+                check(same, f"K6/K7 {dtype} n={n} E={E} b={b}: p, w, pap, "
+                            "x, r, rcr of every lane bitwise K4's and K5's")
+                if n == 10:
+                    # a stale read of a lane's p column or of the block's
+                    # layers shows as calls that disagree
+                    reps = [K.nekbone_ax_slab_block_cuda(
+                        P, R, case.D, g3, *m, beta, n=n) for _ in range(5)]
+                    check(all(torch.equal(a, z) for rep in reps
+                              for a, z in zip(rep, (p3, w3, pap))),
+                          f"K6 {dtype} n={n} E={E} b={b}: 5 more calls give "
+                          "bitwise the same p, w and pap")
+                if (dtype == torch.float64 and n == 10 and b == BLOCK_B
+                        and grid == PAPER_GRID):
                     _, pw, _ = K.nekbone_ax_slab_block_plain(
                         P, R, case.D, g3, *m, beta, n=n)
                     _, pr, _ = K.nekbone_cg_update_block_plain(
@@ -1075,9 +1097,11 @@ def phase_v1_sstep_parity():
 
     from repro_torch.core.nekbone import NekboneCase
     from repro_torch.kernels import nekbone_ax as K
+    from repro_torch.kernels import ref
 
     print("== K2/K3 and K8/K9 parity (kernel vs plain; n=10, E=1024; K8/K9 "
-          "at s = 1, 2, 4)", flush=True)
+          "at s = 1, 2, 4; K8 also at E=4096 and at s = SSTEP_MAX_S, n = 4)",
+          flush=True)
     rng = np.random.default_rng(7)
     errs = {}
     n = 10
@@ -1142,6 +1166,59 @@ def phase_v1_sstep_parity():
                 errs["K8"] = float((kb - pb).abs().max())
                 errs["K9"] = float((kr - pr).abs().max())
         print(f"  theta ({dtype}) {o['theta']:.6e}", flush=True)
+    # K8's launch plan on every size it runs here, both variants of the plan
+    # (the metric in shared memory, or read through L2), the Gram partials
+    # in the kernel's order of terms, and repeats (a missing grid sync or a
+    # stale read of a neighbour's A_loc v shows as calls that disagree)
+    variants = set()
+    for dtype, basis_tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+        for n, grid, ss in ((10, PAPER_GRID, (1, 2, SSTEP_S)),
+                            (10, BIG_GRID, (1, 2, SSTEP_S)),
+                            (4, PAPER_GRID, (K.SSTEP_MAX_S,))):
+            case = NekboneCase(n=n, grid=grid, dtype=dtype)
+            E = case.mesh.nelt
+            o = _sstep_inputs(case, rng)
+            args = (o["p"], o["r"], case.D, o["g3"], *o["m"], *o["c"],
+                    o["inv_theta"])
+            for s in ss:
+                tag = f"{dtype} n={n} E={E} s={s}"
+                plan, info = K.nekbone_ax_powers_plan(E, n, s, dtype)
+                variants.add(plan.variant)
+                print(f"  K8 {tag}: {plan.variant}-memory metric, one "
+                      f"cooperative launch of {plan.grid} blocks "
+                      f"({info['slices']} elements side by side, "
+                      f"{plan.per_block} owned), {plan.blocks_per_sm} blocks "
+                      f"per SM on {info['sm_count']} SMs, {plan.smem_bytes} "
+                      f"bytes dynamic + {info['static_smem']} static shared "
+                      f"memory, {info['registers']} registers", flush=True)
+                kb, kg = K.nekbone_ax_powers_cuda(*args, n=n, s=s)
+                if (n, grid) != (10, PAPER_GRID):   # held above
+                    pb, pg = K.nekbone_ax_powers_plain(*args, n=n, s=s)
+                    berr = max(rel_err(kb[:, m], pb[:, m])
+                               for m in range(2 * s - 1))
+                    gk, gp = kg.sum(0), pg.sum(0)
+                    gerr = float((gk - gp).abs().max() / gp.abs().max())
+                    check(berr <= basis_tol and gerr <= 10 * basis_tol,
+                          f"K8 {tag}: basis max rel err {berr:.2e} <= "
+                          f"{basis_tol:g}, summed Gram rel err {gerr:.2e} <= "
+                          f"{10 * basis_tol:g}")
+                    del pb, pg
+                em = ref.sstep_gram_emulated(o["p"], o["r"], kb, *o["c"],
+                                             n=n, s=s)
+                check(torch.equal(kg, em),
+                      f"K8 {tag}: Gram partials bitwise "
+                      "ref.sstep_gram_emulated of the basis")
+                reps = [K.nekbone_ax_powers_cuda(*args, n=n, s=s)
+                        for _ in range(5)]
+                check(all(torch.equal(b, kb) and torch.equal(g, kg)
+                          for b, g in reps),
+                      f"K8 {tag}: 5 more calls give bitwise the same basis "
+                      "and Gram partials")
+                del kb, kg, em, reps
+            del o, args
+            torch.cuda.empty_cache()
+    check(variants == {"shared", "device"},
+          f"K8: both variants of the plan ran ({sorted(variants)})")
     torch.cuda.synchronize()
     return errs
 
@@ -1210,8 +1287,8 @@ def phase_v1_sstep_routes(hist):
         check(launches == _zero_but(nekbone_ax_powers=cycles,
                                     nekbone_sstep_update=cycles),
               f"sstep s={s}: launches {launches} (K8 = K9 = {cycles} "
-              f"cycles; K8's device launches {cycles} x (s + 2) = "
-              f"{cycles * (s + 2)})")
+              f"cycles; K8 is 1 device launch per cycle, a cooperative "
+              f"launch, so {cycles} device launches)")
         dev = _rel_dev(h, v2_hist[:niter + 1])
         k = int(dev.argmax())
         print(f"  sstep s={s}: theta {case._sstep_theta:.6e} (first solve "
@@ -1358,7 +1435,7 @@ def phase_times(bw_copy, cases):
             if (nin, nout) == (10, 5):
                 rows[("K12", grid)] = row
         m, c = o["m"], o["c"]
-        for b in (1, BLOCK_B):
+        for b in (1, 3, BLOCK_B):
             ops_b = [_v2_operands(case, rng) for _ in range(b)]
             P, R, X = (torch.stack([q[key] for q in ops_b])
                        for key in ("p", "r", "x"))
@@ -1384,6 +1461,13 @@ def phase_times(bw_copy, cases):
                 rows[(f"{name} b={b}", grid)] = row
                 if b == BLOCK_B:
                     rows[(name, grid)] = row
+            # K6 reads the metric once per pair of lanes
+            # (csrc/nekbone_ax_slab_block.cu)
+            moved = 4 * b + 3 * len(K.k6_lane_groups(b))
+            print(f"  K6 b={b} E={E}: moves {moved} fields "
+                  f"({moved * field / 1e6:.1f} MB) against the book's "
+                  f"{4 * b + 3}; {moved * field / rows[(f'K6 b={b}', grid)]['ms'] / 1e6:.0f}"
+                  " GB/s moved", flush=True)
             del P, R, X, p3, w3, ops_b
         # the fields K11's variant actually moves (csrc/nekbone_cheb_apply.cu):
         # with the state resident, r and the metric in and A d out at the
@@ -1517,6 +1601,21 @@ def phase_slice3_times(routes, v2_solve_ms):
     return out
 
 
+def _k8_moved_fields(s: int, resident: bool) -> int:
+    """Fields one K8 call moves through L2 or device memory
+    (csrc/nekbone_ax_powers.cu): p (and r when s >= 2) at the start; the
+    metric once per step with an application (once in all when resident);
+    per application its unassembled output; per assembly its input and its
+    basis vector; the Gram's 2s + 1 vectors once per pass (n = 10: 3 x 3
+    tiles of pairs, ten a pass)."""
+    K = 2 * s + 1
+    apps = 2 * s - 1
+    tiles = -(-K // 3) * (-(-K // 3) + 1) // 2
+    metric = 3 if resident else 3 * s
+    return ((2 if s >= 2 else 1) + metric + apps + 2 * apps
+            + K * -(-tiles // 10))
+
+
 def phase_slice4_times(bw_copy, routes, rows):
     """Device time of K2, K3, K8 and K9 beside their plain versions (and
     K9 beside one ``torch.matmul``) at E=1024 and E=4096; then ms per
@@ -1576,11 +1675,19 @@ def phase_slice4_times(bw_copy, routes, rows):
                 (5 + 2 * s - 1) * field + gram_bytes,
                 (2 * s - 1) * E * n3 * 12 * n,
                 E * n3 * (6 * (2 * s - 1) + 3 * K_ * (K_ + 1) // 2), bw_copy)
-            moved = (11 * s if s >= 2 else 10) * field + gram_bytes
+            plan, info = K.nekbone_ax_powers_plan(E, n, s, torch.float64)
+            fields = _k8_moved_fields(s, plan.resident)
+            moved = fields * field + gram_bytes
             row8["moved_bytes"] = moved
-            print(f"  K8 s={s} E={E}: the chain of {s + 2} launches moves "
-                  f"{moved / 1e6:.1f} MB against the book's "
-                  f"{((5 + 2 * s - 1) * field + gram_bytes) / 1e6:.1f} MB; "
+            print(f"  K8 s={s} E={E}: one cooperative launch, "
+                  f"{plan.variant}-memory metric (grid {plan.grid}, "
+                  f"{plan.blocks_per_sm} blocks per SM, {plan.smem_bytes} + "
+                  f"{info['static_smem']} bytes shared, {info['registers']} "
+                  f"registers), moves {fields} fields ({moved / 1e6:.1f} MB "
+                  f"with the Gram partials) against the book's "
+                  f"{5 + 2 * s - 1} "
+                  f"({((5 + 2 * s - 1) * field + gram_bytes) / 1e6:.1f} MB) "
+                  f"and the chain's {11 * s if s >= 2 else 10}; "
                   f"{moved / row8['ms'] / 1e6:.0f} GB/s moved", flush=True)
             # K9: x, p, r and 2s-1 basis vectors in, x, r, p out; 6 flops
             # per term and point, 3 for rcr.  Library: the three

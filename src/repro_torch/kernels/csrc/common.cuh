@@ -2,7 +2,7 @@
 // nekbone_ax_slab.cu, nekbone_cg_update.cu, nekbone_pcg_update.cu,
 // nekbone_cheb_apply.cu, nekbone_ax_slab_block.cu,
 // nekbone_cg_update_block.cu, nekbone_ax_powers.cu,
-// nekbone_sstep_update.cu).
+// nekbone_sstep_update.cu, nekbone_interp.cu).
 //
 // * Rounded arithmetic without contraction.  The CG vector updates
 //   (p = r + beta p, x += alpha p, r -= alpha w, the Chebyshev recurrence)
@@ -13,9 +13,12 @@
 // * A deterministic block sum: a fixed shared-memory tree, so partial inner
 //   products are the same from run to run (no atomics).
 // * The local operator of one element, with the full metric (K1, K2, K3)
-//   or its diagonal (K4, K6, K8), and the node-by-node direct-stiffness sum
-//   of an unassembled field in core/gs.ds_sum_local's tree (K5, K7, K8,
-//   K10; K11 in a branch-free form with coherent loads).
+//   or its diagonal (K4, K6, K8, K11), for one input or several (K6's
+//   lanes, K8's two chains) through one layer sweep, and the node-by-node direct-stiffness sum of an
+//   unassembled field in core/gs.ds_sum_local's tree (K5, K7, K10; K8 and
+//   K11 in a branch-free form with coherent loads).
+// * The block shape and occupancy query of the persistent cooperative
+//   kernels (K8, K11).
 // * Dispatch of the run-time n (2..16) to the template instantiations.
 // * Storage apart from accumulation.  A field is loaded in its storage type
 //   and upcast to the accumulation type (convert), the arithmetic runs in
@@ -203,6 +206,103 @@ __device__ __forceinline__ void ax_diag_columns(AxShared<N, T>& sh,
       uc, wc, i, j);
 }
 
+// Several inputs through one layer sweep (K6's lanes, K8's two chains):
+// ax_diag_columns on each uc[q] into wc[q], operation for operation as one
+// call on that input alone (the same products, contracted and summed in
+// the same order, so each output is bitwise the one-input call's), with
+// each value of D and of the metric read once for all W inputs and two
+// barriers a layer for all.  The first input's layers live in sh.one (so
+// that ax_diag_columns(sh.one, ...) runs one input on the same memory),
+// input q's in u[q - 1], r[q - 1], s[q - 1].
+template <int N, typename T, int L>
+struct AxSharedL {
+  static constexpr int kMore = L > 1 ? L - 1 : 1;
+  AxShared<N, T> one;
+  T u[kMore][N][N];
+  T r[kMore][N][N];
+  T s[kMore][N][N];
+};
+
+template <int N, typename T, int L>
+__device__ __forceinline__ T (&lane_u(AxSharedL<N, T, L>& sh, int q))[N][N] {
+  return q == 0 ? sh.one.u : sh.u[q - 1];
+}
+template <int N, typename T, int L>
+__device__ __forceinline__ T (&lane_r(AxSharedL<N, T, L>& sh, int q))[N][N] {
+  return q == 0 ? sh.one.r : sh.r[q - 1];
+}
+template <int N, typename T, int L>
+__device__ __forceinline__ T (&lane_s(AxSharedL<N, T, L>& sh, int q))[N][N] {
+  return q == 0 ? sh.one.s : sh.s[q - 1];
+}
+
+template <int N, typename T, int L, typename G, typename U, int W>
+__device__ __forceinline__ void ax_diag_columns_lanes(AxSharedL<N, T, L>& sh,
+                                                      const G* __restrict__ ge,
+                                                      const U (&uc)[W],
+                                                      T (&wc)[W][N], int i,
+                                                      int j) {
+  static_assert(W >= 1 && W <= L, "ax_diag_columns_lanes: 1 <= W <= L");
+  AxShared<N, T>& s0 = sh.one;
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int q = 0; q < W; ++q) wc[q][k] = T(0);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+#pragma unroll
+    for (int q = 0; q < W; ++q) lane_u(sh, q)[j][i] = uc[q][k];
+    __syncthreads();
+    T wr[W], ws[W], wt[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) wr[q] = ws[q] = wt[q] = T(0);
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      const T dt = s0.Dt[l][i];
+      const T dj = s0.D[j][l];
+      const T dk = s0.D[k][l];
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        wr[q] += dt * lane_u(sh, q)[j][l];
+        ws[q] += dj * lane_u(sh, q)[l][i];
+        wt[q] += dk * uc[q][l];
+      }
+    }
+    const T grr = convert<T>(ge[0 * (N * N * N) + k * (N * N)]);
+    const T gss = convert<T>(ge[1 * (N * N * N) + k * (N * N)]);
+    const T gtt = convert<T>(ge[2 * (N * N * N) + k * (N * N)]);
+    T ut[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      ut[q] = gtt * wt[q];
+      lane_r(sh, q)[j][i] = grr * wr[q];
+      lane_s(sh, q)[j][i] = gss * ws[q];
+    }
+    __syncthreads();
+    T acc[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) acc[q] = T(0);
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      const T di = s0.D[l][i];
+      const T dj = s0.D[l][j];
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        acc[q] += di * lane_r(sh, q)[j][l];
+        acc[q] += dj * lane_s(sh, q)[l][i];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < W; ++q) wc[q][k] += acc[q];
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      const T dm = s0.D[k][m];
+#pragma unroll
+      for (int q = 0; q < W; ++q) wc[q][m] += dm * ut[q];
+    }
+  }
+}
+
 // The full metric (rr, rs, rt, ss, st, tt) read from device memory: ge
 // points at the element's (6, n^3) metric plus the thread's offset (K1, K2,
 // K3).
@@ -249,6 +349,86 @@ __device__ __forceinline__ void masked_ax(AxShared<N, T>& sh,
 #pragma unroll
   for (int k = 0; k < N; ++k)
     ad[e * N3 + tid + k * N2] = wc[k] * (mz[iz * N + k] * myx);
+}
+
+// ---------------------------------------------------------------------------
+// Persistent cooperative kernels (K8, K11): one launch in which every block
+// is resident at once and owns a contiguous, z-major range of elements for
+// all its steps, with grid-wide barriers between them.  A block is (n, n, P)
+// threads: P elements side by side, each slice an n x n layer marching its
+// element's layers.
+// ---------------------------------------------------------------------------
+
+// Elements a block works on side by side (its z extent) in K11: at most
+// 512 threads, so that two blocks an SM keep every owned element of the
+// paper case (E = 1024, fp64, n = 10) in flight at once.
+template <int N>
+constexpr int kSlices = N >= 12 ? 2 : N >= 8 ? 4 : N >= 5 ? 8 : 16;
+// Blocks an SM must hold at up to `registers` registers a thread: ptxas
+// keeps to what lets them be resident.
+constexpr int min_blocks(int threads, int registers) {
+  const int fit = 65536 / (registers * ((threads + 31) / 32 * 32));
+  return fit > 1 ? fit : 1;
+}
+// K11 at up to 78 registers (the chain of launches it replaced took
+// 74-78): 72 at n = 10, two blocks of 13 warps.
+template <int N>
+constexpr int kMinBlocks = min_blocks(N * N * kSlices<N>, 78);
+// K6 and K8 hold two operator outputs a thread (2n values: K6's lanes in
+// pairs, K8's two chains): about 256 threads a block, and two blocks an SM
+// at up to 128 registers (at K11's shape the outputs spill, and both are
+// slower; scripts/k8_k6_compare.py --ablation).
+template <int N>
+constexpr int kWideSlices = 256 / (N * N) > 1 ? 256 / (N * N) : 1;
+template <int N>
+constexpr int kWideMinBlocks = min_blocks(N * N * kWideSlices<N>, 128);
+
+// The thread's column of a field kept in shared memory, layer k at k N^2:
+// the operator's input without the N registers a copy would hold.
+template <int N, typename T>
+struct SharedColumn {
+  const T* p;
+  __device__ __forceinline__ T operator[](int k) const { return p[k * N * N]; }
+};
+
+// The occupancy of a cooperative kernel fn of `threads` threads a block
+// (`slices` elements side by side): out = {blocks per SM at dyn bytes of
+// dynamic shared memory (0 if a block may not take that much), static
+// shared bytes, registers per thread, the most dynamic shared bytes a block
+// may take, SM count, cooperative launch supported (0/1), slices}.
+inline cudaError_t coop_query(const void* fn, int threads, int slices,
+                              int dyn, int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  int optin = 0, sms = 0, coop = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  const int max_dyn = optin - static_cast<int>(attr.sharedSizeBytes);
+  int blocks = 0;
+  if (dyn <= max_dyn) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dyn);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                          threads, dyn);
+    if (err != cudaSuccess) return err;
+  }
+  out[0] = blocks;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = attr.numRegs;
+  out[3] = max_dyn;
+  out[4] = sms;
+  out[5] = coop;
+  out[6] = slices;
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -391,3 +571,20 @@ __device__ __forceinline__ T sum_xyz_cg(const T* w, size_t e, int k, int j,
 #define NEKBONE_FOR_EACH_N(CASE) \
   CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) \
   CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
+
+namespace nekbone {
+
+// kSlices of the run-time n (1 outside 2..16).
+inline int slices_of(int n) {
+  switch (n) {
+#define NEKBONE_CASE(N) \
+  case N:               \
+    return kSlices<N>;
+    NEKBONE_FOR_EACH_N(NEKBONE_CASE)
+#undef NEKBONE_CASE
+    default:
+      return 1;
+  }
+}
+
+}  // namespace nekbone

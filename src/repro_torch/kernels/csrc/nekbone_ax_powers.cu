@@ -10,267 +10,524 @@
 // :1164).  The TPU kernel kept a block of z-slabs plus s ghost slabs on each
 // side in VMEM (sstep_extend_field / sstep_extend_zfactor), so the 2s - 1
 // chained assembled applications never left the chip; the windows exist
-// because the TPU walks its grid in order.  Here one thread block cannot
-// see its neighbours' new vector without a grid-wide barrier, so the
-// function is computed over the whole box as a chain of s + 2 launches on
-// the caller's stream, one thread block per element, an n x n thread layer
-// marching the k layers (K11, nekbone_cheb_apply.cu, was such a chain too
-// and is now one cooperative launch with grid syncs between its steps):
+// because the TPU walks its grid in order.  On Hopper a block cannot see its
+// neighbours' new vector without a grid-wide barrier, so the whole cycle is
+// one persistent, cooperative launch (cudaLaunchCooperativeKernel), K11's
+// design (nekbone_cheb_apply.cu): every block is resident at once and owns
+// one contiguous, z-major range of elements for the whole call; a block is
+// (n, n, P) threads, P elements side by side (kWideSlices, 2 at n = 10),
+// each slice an n x n layer marching its element's layers, over as many
+// rounds as the block owns elements / P; two blocks an SM at up to 128
+// registers (common.cuh kWideMinBlocks: the two chains' operator outputs
+// are 2n values a thread).
 //
-// * start:       mask * A_loc p (and of r when s >= 2), unassembled;
-// * step j=1..s: assembles the previous unassembled output with common.cuh's
-//                sum_xyz (core/gs.ds_sum_local's tree: x pairs, then y
-//                pairs of x-sums, then z pairs, the reference's order),
-//                scales by 1/theta and stores A'^j p in the basis (and
-//                A'^j r while j <= s - 1); then writes mask * A_loc of the
-//                new vector unless its chain ends here;
-// * gram:        one 128-thread block per element reads the element's 2s+1
-//                vectors layer by layer into shared memory; thread t sums
-//                the upper-triangle pairs t and t + 128 over the element's
-//                nodes in a fixed order, and the partial is mirrored.
+// * start:       the masked, unassembled A_loc p (and A_loc r when s >= 2);
+// * step j=1..s: grid sync; assembles both chains' previous unassembled
+//                outputs with common.cuh's sum_xyz_cg (core/gs.ds_sum_local's
+//                pairing, branch-free, read through L2 since other blocks
+//                wrote them), scales by 1/theta and stores A'^j p in the
+//                basis (and A'^j r while j <= s - 1), a layer at a time;
+//                then applies the operator to the new vectors unless their
+//                chain ends here, both chains through one layer sweep
+//                (common.cuh ax_diag_columns_lanes: D and the metric read
+//                once for both);
+// * gram:        right after the last step, with no further grid sync: each
+//                slice stages only its own element's values, which its
+//                threads stored themselves.
 //
-// Each vector is stored before the next application reads it and before the
-// Gram reads it (the reference's rounding through storage; T is both the
-// storage and the accumulation type here, f32 or f64).  The unassembled
-// outputs ping-pong between two buffers per chain, since a step reads its
-// neighbours' copies of the previous one while it writes the next.  The
-// local operator is common.cuh's masked_ax (K4's and K11's); its
-// contractions use FMA, so the basis is not bitwise the plain version's but
-// within a few ulps (held to 1e-12 relative), while the assembly, the scale
-// and the Gram's order of terms are fixed.  The Gram partials are summed
-// over elements by torch.sum; only the (2s+1)^2 matrix goes to the host.
+// s grid syncs per call.  The unassembled outputs ping-pong between two
+// buffers per chain, since a step reads its neighbours' copies of the
+// previous one while it writes the next.  The operator is common.cuh's
+// ax_diag_columns (or its two-input form, each output bitwise the same)
+// with its input columns read from the slice's shared scratch (K4's and
+// K11's arithmetic, FMA contractions included), the
+// assembly keeps ds_sum_local's pairing and the scale is mul_rn, so the
+// basis is bitwise what the chain of s + 2 launches this kernel replaced
+// computed (scripts/k8_k6_compare.py); every vector is rounded through
+// storage before the next application and before the Gram reads it (T is
+// both the storage and the accumulation type, f32 or f64).
+//
+// Where the metric diagonals live is a template parameter, chosen by
+// kernels/nekbone_ax.k8_plan: RESIDENT copies the owned elements' metric
+// into dynamic shared memory once, at the start, where it fits (24 KB an
+// element at fp64, n = 10: not at the paper case's E = 1024, where four
+// owned elements' metric leaves room for one block an SM, not two);
+// otherwise every application reads it through L2 (24.6 MB at E = 1024,
+// beside the four A v buffers' 32.8 MB).  Where both run, they take the
+// same time (fp64 at E = 512, fp32 at E = 1024).
+//
+// The Gram is spread over every thread of a slice: the (2s+1)^2 pairs form
+// 3 x 3 tiles, thread (i, j) takes tile j (of a pass of n tiles) and row i
+// of each layer, and keeps its tile's 9 sums in registers, so each staged
+// value it reads serves 3 pairs; the layers of the element's vectors (and
+// c) arrive by cp.async into a ring of shared buffers, the next ones in
+// flight while one is summed.  The order of terms is fixed: per row the
+// layers in order and each layer's nodes in order, then the n rows in
+// order, every product and sum rounded on its own
+// (kernels/ref.sstep_gram_emulated reproduces the partials bitwise).  The partials are summed over elements
+// by torch.sum; only the (2s+1)^2 matrix goes to the host.
 //
 // Bound: bytes.  The book is p, r and the 3 metric diagonals in and the
 // 2s - 1 basis vectors out: 12 fields at s=4, 98.3 MB at E=1024, n=10, fp64
-// (29.3 us at the data sheet's 3.35 TB/s).  The work is (2s - 1)(12n + 10)
-// flops per node for the applications and 3 per pair and node for the Gram,
-// 1.1 GF at s=4: below the bytes' time.  The chain moves far more than the
-// book: 11s fields for s >= 2 (44 at s=4: start 7, each step with two
-// applications 9, step s - 1 8, step s 2, the Gram 2s + 1) — what a
-// one-residency design (thread-block clusters sharing ghost layers through
-// distributed shared memory) would save.
+// (29.3 us at the data sheet's 3.35 TB/s), plus the Gram partials.  The
+// work is (2s - 1)(12n + 10) flops per node for the applications and 3 per
+// pair and node for the Gram, 1.1 GF at s=4: below the bytes' time.  What
+// the design moves (chip_smoke.py prints it): p and r; per step with an
+// application the metric (once in all when resident); per application its
+// unassembled output; per stored vector its assembled input and its basis
+// write; the Gram's vectors once.  On the card the operator's
+// shared-memory reads take most of the time, as in K11
+// (scripts/k8_k6_compare.py --ablation).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace nekbone {
 
-constexpr int kGramThreads = 128;
+namespace cg = cooperative_groups;
 
-template <int N, typename T>
-__global__ void __launch_bounds__(N * N)
-nekbone_powers_start_kernel(const T* __restrict__ p, const T* __restrict__ r,
-                            const T* __restrict__ D, const T* __restrict__ g3,
-                            const T* __restrict__ mx,
-                            const T* __restrict__ my,
-                            const T* __restrict__ mz, T* __restrict__ adp,
-                            T* __restrict__ adr, int ex, int ey) {
+// The operands of one call, passed by value to the kernel.
+template <typename T>
+struct PowersArgs {
+  const T* p;
+  const T* r;
+  const T* D;
+  const T* g3;
+  const T* mx;
+  const T* my;
+  const T* mz;
+  const T* cx;
+  const T* cy;
+  const T* cz;
+  const T* inv_theta;
+  T* basis;
+  T* gram;
+  T* adp0;  // unassembled A_loc of the p chain, even steps
+  T* adp1;  // odd steps
+  T* adr0;  // the r chain
+  T* adr1;
+  int ex, ey, ez, s, per_block;
+};
+
+// The Gram's tiles: kGramTile x kGramTile pairs (a, b) a thread sums.
+constexpr int kGramTile = 3;
+// Layers of the Gram's staging ring: ring - 1 in flight while one is
+// summed; 4 up to s = 4, 2 past it (so that the ring of 2s + 2 staged
+// values a node still fits beside two blocks' other shared memory).
+__host__ __device__ inline int gram_ring(int s) { return s <= 4 ? 4 : 2; }
+
+// Values of one slice's shared scratch: the p and the r chain's operator
+// input columns (n^3 each) during the steps; after them, the Gram's ring of
+// staged layers of the 2s + 1 vectors and c (gram_ring (2s + 2) n (n + 1):
+// rows padded by one value, so that threads on different rows of a layer
+// read different banks) and, in the same place, its sums (kGramTile^2 n^2).
+__host__ __device__ inline int scratch_values(int n, int s) {
+  const int column = 2 * n * n * n;
+  const int staged = gram_ring(s) * (2 * s + 2) * n * (n + 1);
+  const int sums = kGramTile * kGramTile * n * n;
+  const int most = column > staged ? column : staged;
+  return most > sums ? most : sums;
+}
+
+// One value from device memory into shared memory, asynchronously.
+template <typename T>
+__device__ __forceinline__ void cp_async_value(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(static_cast<int>(sizeof(T))));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most `pending` of the thread's newest groups are in flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending));
+}
+
+// The thread's element in one round of a block's owned range: slice p of
+// round q works on element first + q P + p; a slice past the range (the
+// last round of the last block) computes on the block's last element and
+// stores nothing outside its own shared scratch, so that it still meets
+// every barrier.  per_block is a multiple of P.
+template <int N, typename T, bool RESIDENT>
+struct PowersNode {
+  size_t e;       // the element the slice computes on
+  bool active;    // e is its own
+  int ix, iy, iz;
+  size_t base;    // offset of the thread's layer-0 node
+  T* scratch;     // the slice's shared scratch
+  T* colp;        // the thread's columns in it (the p and the r chain's
+  T* colr;        // operator inputs), layer 0
+  const T* gm;    // the metric diagonals at the thread's node, layer 0
+
+  __device__ __forceinline__ PowersNode(const PowersArgs<T>& a, T* smem,
+                                        int slot, size_t first, size_t last,
+                                        int q, int p, int tid) {
+    constexpr int P = kWideSlices<N>;
+    constexpr int N3 = N * N * N;
+    const size_t local = static_cast<size_t>(q) * P + p;
+    active = first + local < last;
+    e = active ? first + local : last - 1;
+    ix = static_cast<int>(e % a.ex);
+    iy = static_cast<int>((e / a.ex) % a.ey);
+    iz = static_cast<int>(e / (static_cast<size_t>(a.ex) * a.ey));
+    base = e * N3 + tid;
+    scratch = smem + static_cast<size_t>(p) * slot;
+    colp = scratch + tid;
+    colr = scratch + N3 + tid;
+    // RESIDENT: [slice scratch][owned element][3][layer][thread]; a slot
+    // past the range is allocated and never loaded
+    gm = RESIDENT ? smem + static_cast<size_t>(P) * slot + local * 3 * N3 + tid
+                  : a.g3 + e * 3 * N3 + tid;
+  }
+};
+
+// mask * wc, unassembled, into ad (active slices only): common.cuh
+// masked_ax's product.
+template <int N, typename T, bool RESIDENT>
+__device__ __forceinline__ void masked_store(
+    const PowersArgs<T>& a, const PowersNode<N, T, RESIDENT>& nd,
+    const T (&wc)[N], T* ad, int i, int j) {
   constexpr int N2 = N * N;
-  constexpr int N3 = N * N * N;
-  __shared__ AxShared<N, T> sh;
-
-  const int i = threadIdx.x;
-  const int j = threadIdx.y;
-  const size_t e = blockIdx.x;
-  const int ix = static_cast<int>(e % ex);
-  const int iy = static_cast<int>((e / ex) % ey);
-  const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
-  const size_t base = e * N3 + j * N + i;
-
-  load_D(sh, D, i, j);
-  T vc[N];
+  const T myx = a.my[nd.iy * N + j] * a.mx[nd.ix * N + i];
+  if (nd.active) {
 #pragma unroll
-  for (int k = 0; k < N; ++k) vc[k] = p[base + k * N2];
-  masked_ax(sh, g3, mx, my, mz, vc, adp, e, i, j, ix, iy, iz);
+    for (int k = 0; k < N; ++k)
+      ad[nd.base + k * N2] = wc[k] * (a.mz[nd.iz * N + k] * myx);
+  }
+}
+
+// The masked, unassembled A_loc of the p chain's column into adp (and, when
+// adr is not null, of the r chain's into adr through the same layer sweep):
+// common.cuh masked_ax, operation for operation, with the columns read from
+// shared memory; ax_diag_columns_lanes gives each output bitwise what
+// ax_diag_columns gives it alone.
+template <int N, typename T, bool RESIDENT>
+__device__ __forceinline__ void powers_ax(AxSharedL<N, T, 2>& sh,
+                                          const PowersArgs<T>& a,
+                                          const PowersNode<N, T, RESIDENT>& nd,
+                                          T* adp, T* adr, int i, int j) {
   if (adr != nullptr) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) vc[k] = r[base + k * N2];
-    masked_ax(sh, g3, mx, my, mz, vc, adr, e, i, j, ix, iy, iz);
+    T w[2][N];
+    const SharedColumn<N, T> cols[2] = {{nd.colp}, {nd.colr}};
+    ax_diag_columns_lanes(sh, nd.gm, cols, w, i, j);
+    masked_store(a, nd, w[0], adp, i, j);
+    masked_store(a, nd, w[1], adr, i, j);
+  } else {
+    T wp[N];
+    ax_diag_columns(sh.one, nd.gm, SharedColumn<N, T>{nd.colp}, wp, i, j);
+    masked_store(a, nd, wp, adp, i, j);
   }
 }
 
-// One chain's part of a step: v = (1/theta) gs(ad_in) into basis slot m,
-// then mask * A_loc v into ad_out unless ad_out is null.
-template <int N, typename T>
-__device__ __forceinline__ void powers_advance(
-    AxShared<N, T>& sh, const T* __restrict__ ad_in, T* __restrict__ ad_out,
-    T* __restrict__ vm, const T* __restrict__ g3, const T* __restrict__ mx,
-    const T* __restrict__ my, const T* __restrict__ mz, T ith, size_t e,
-    int i, int j, int ix, int iy, int iz, int ex, int ey, int ez) {
+// One chain's vector of a step: v = (1/theta) gs(ad_in) into basis slot m
+// and, when the chain goes on (keep), into the thread's column col.  A
+// layer at a time: unrolled, the eight loads of every layer in flight at
+// once spill registers (scripts/k8_k6_compare.py --ablation).
+template <int N, typename T, bool RESIDENT>
+__device__ __forceinline__ void powers_assemble(
+    const PowersArgs<T>& a, const PowersNode<N, T, RESIDENT>& nd,
+    const T* ad_in, T* col, bool keep, int m, T ith, int i, int j) {
   constexpr int N2 = N * N;
-  T vc[N];
-#pragma unroll
+  constexpr int N3 = N * N * N;
+  T* vm = a.basis + (nd.e * (2 * a.s - 1) + m) * N3 + j * N + i;
+#pragma unroll 1
   for (int k = 0; k < N; ++k) {
-    vc[k] = mul_rn(sum_xyz<N>(ad_in, e, k, j, i, ix, iy, iz, ex, ey, ez),
-                   ith);
-    vm[k * N2 + j * N + i] = vc[k];
+    const T v = mul_rn(sum_xyz_cg<N>(ad_in, nd.e, k, j, i, nd.ix, nd.iy,
+                                     nd.iz, a.ex, a.ey, a.ez),
+                       ith);
+    if (nd.active) vm[k * N2] = v;
+    if (keep) col[k * N2] = v;
   }
-  if (ad_out != nullptr)
-    masked_ax(sh, g3, mx, my, mz, vc, ad_out, e, i, j, ix, iy, iz);
 }
 
-// Step j: the p-chain's vector goes to basis slot mp, the r-chain's (when
-// mr >= 0) to slot mr; a null ad_out ends that chain.
-template <int N, typename T>
-__global__ void __launch_bounds__(N * N)
-nekbone_powers_step_kernel(const T* __restrict__ adp_in,
-                           T* __restrict__ adp_out,
-                           const T* __restrict__ adr_in,
-                           T* __restrict__ adr_out, T* __restrict__ basis,
-                           const T* __restrict__ D, const T* __restrict__ g3,
-                           const T* __restrict__ mx,
-                           const T* __restrict__ my,
-                           const T* __restrict__ mz,
-                           const T* __restrict__ inv_theta, int nb, int mp,
-                           int mr, int ex, int ey, int ez) {
+// Layer k of the slice's element into the staging buffer buf ([2s + 2]
+// [row][n + 1]): thread (i, j) copies its node of the 2s + 1 vectors, in
+// V's order, and stores c there last.  The caller commits the group.
+template <int N, typename T, bool RESIDENT>
+__device__ __forceinline__ void gram_stage(
+    const PowersArgs<T>& a, const PowersNode<N, T, RESIDENT>& nd, T* buf,
+    int k, int i, int j) {
+  constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
-  __shared__ AxShared<N, T> sh;
+  constexpr int NP = N * (N + 1);
+  const int s = a.s;
+  const int tid = j * N + i;
+  const int at = j * (N + 1) + i;
+  const T* bas = a.basis + nd.e * (2 * s - 1) * N3 + k * N2 + tid;
+  // V's order: p, A'p..A'^s p, r, A'r..A'^(s-1) r
+  cp_async_value(buf + at, a.p + nd.base + k * N2);
+  for (int v = 1; v <= s; ++v)
+    cp_async_value(buf + v * NP + at, bas + (v - 1) * N3);
+  cp_async_value(buf + (s + 1) * NP + at, a.r + nd.base + k * N2);
+  for (int v = s + 2; v <= 2 * s; ++v)
+    cp_async_value(buf + v * NP + at, bas + (v - 2) * N3);
+  // c = cz * (cy * cx); the factors are 0, 1/2 or 1, so any order is exact
+  buf[(2 * s + 1) * NP + at] =
+      a.cz[nd.iz * N + k] * (a.cy[nd.iy * N + j] * a.cx[nd.ix * N + i]);
+}
 
+// The Gram partials of the slice's element.  Its (2s+1)^2 pairs form
+// kGramTile x kGramTile tiles (ta <= tb); thread t of the slice takes tile
+// t / n and row t % n of each layer (passes of n tiles), and adds
+// (V_a c) V_b of the row's nodes, layers in order and each layer's nodes in
+// order, to a register per pair of its tile; the layers arrive by cp.async
+// into a ring of gram_ring(s) buffers, the next ones in flight while one
+// is summed.  Then the tile's first thread sums its n rows in
+// order.  A diagonal tile's pairs a > b are computed and dropped; an index
+// past 2s is clamped and dropped.
+template <int N, typename T, bool RESIDENT>
+__device__ __forceinline__ void powers_gram(
+    const PowersArgs<T>& a, const PowersNode<N, T, RESIDENT>& nd, int i,
+    int j) {
+  constexpr int N2 = N * N;
+  constexpr int NP = N * (N + 1);
+  constexpr int G = kGramTile;
+  const int R = gram_ring(a.s);
+  const int tid = j * N + i;
+  const int K = 2 * a.s + 1;
+  const int nt = (K + G - 1) / G;
+  const int ntiles = nt * (nt + 1) / 2;
+  const int stride = (K + 1) * NP;  // one staged layer: V, then c
+  T* red = nd.scratch;
+  for (int t0 = 0; t0 < ntiles; t0 += N) {
+    // this thread's tile (ta, tb), row-major over ta <= tb, and row
+    int tile = t0 + tid / N;
+    const int row = tid % N;
+    const bool busy = tile < ntiles;
+    int ta = 0;
+    if (busy) {
+      while (tile >= nt - ta) {
+        tile -= nt - ta;
+        ++ta;
+      }
+    }
+    const int tb = ta + (busy ? tile : 0);
+    int av[G], bv[G];
+#pragma unroll
+    for (int x = 0; x < G; ++x) {
+      av[x] = min(G * ta + x, K - 1);
+      bv[x] = min(G * tb + x, K - 1);
+    }
+    T acc[G][G];
+#pragma unroll
+    for (int x = 0; x < G; ++x)
+#pragma unroll
+      for (int y = 0; y < G; ++y) acc[x][y] = T(0);
+    // one group per layer (empty past the last), so that layer k's group
+    // is the k-th
+    for (int k = 0; k < R - 1; ++k) {
+      if (k < N) gram_stage(a, nd, nd.scratch + k * stride, k, i, j);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int k = 0; k < N; ++k) {
+      // layer k is in, and every thread is done with layer k - 1's buffer,
+      // where layer k + R - 1 goes
+      if (R == 4)
+        cp_async_wait<2>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      if (k + R - 1 < N)
+        gram_stage(a, nd, nd.scratch + ((k + R - 1) % R) * stride,
+                   k + R - 1, i, j);
+      cp_async_commit();
+      const T* buf = nd.scratch + (k % R) * stride + row * (N + 1);
+      if (busy) {
+#pragma unroll 2
+        for (int x0 = 0; x0 < N; ++x0) {
+          const T cn = buf[K * NP + x0];
+          T wa[G], vb[G];
+#pragma unroll
+          for (int x = 0; x < G; ++x) {
+            wa[x] = mul_rn(buf[av[x] * NP + x0], cn);
+            vb[x] = buf[bv[x] * NP + x0];
+          }
+#pragma unroll
+          for (int x = 0; x < G; ++x)
+#pragma unroll
+            for (int y = 0; y < G; ++y)
+              acc[x][y] = add_rn(acc[x][y], mul_rn(wa[x], vb[y]));
+        }
+      }
+    }
+    // every thread is done with the staged layers: the sums take their place
+    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < G; ++x)
+#pragma unroll
+      for (int y = 0; y < G; ++y) red[(x * G + y) * N2 + tid] = acc[x][y];
+    __syncthreads();
+    if (busy && row == 0 && nd.active) {
+      T* ge = a.gram + nd.e * K * K;
+#pragma unroll
+      for (int x = 0; x < G; ++x)
+#pragma unroll
+        for (int y = 0; y < G; ++y) {
+          const int pa = G * ta + x;
+          const int pb = G * tb + y;
+          if (pa <= pb && pb < K) {
+            T g = red[(x * G + y) * N2 + tid];
+#pragma unroll
+            for (int l = 1; l < N; ++l)
+              g = add_rn(g, red[(x * G + y) * N2 + tid + l]);
+            ge[pa * K + pb] = g;
+            ge[pb * K + pa] = g;
+          }
+        }
+    }
+    // the sums' slots are staged into again by the next pass or round
+    __syncthreads();
+  }
+}
+
+// Block (N, N, P): slice p = threadIdx.z works on its own element of each
+// round, with its own operator layers and scratch; the barriers inside the
+// operator and the Gram are block-wide, so every slice runs every round.
+template <int N, typename T, bool RESIDENT>
+__global__ void __launch_bounds__(N * N * kWideSlices<N>,
+                                  kWideMinBlocks<N>)
+nekbone_powers_kernel(const PowersArgs<T> a) {
+  constexpr int N2 = N * N;
+  constexpr int N3 = N * N * N;
+  constexpr int P = kWideSlices<N>;
+  __shared__ AxSharedL<N, T, 2> sh_all[P];
+  extern __shared__ __align__(16) unsigned char scratch_bytes[];
+  T* smem = reinterpret_cast<T*>(scratch_bytes);
+
+  cg::grid_group grid = cg::this_grid();
   const int i = threadIdx.x;
   const int j = threadIdx.y;
-  const size_t e = blockIdx.x;
-  const int ix = static_cast<int>(e % ex);
-  const int iy = static_cast<int>((e / ex) % ey);
-  const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
-  T* be = basis + e * nb * N3;
+  const int p = threadIdx.z;
+  const int tid = j * N + i;
+  AxSharedL<N, T, 2>& sh = sh_all[p];
+  const int slot = scratch_values(N, a.s);
+  const size_t E = static_cast<size_t>(a.ex) * a.ey * a.ez;
+  const size_t first = static_cast<size_t>(blockIdx.x) * a.per_block;
+  const size_t last = first + a.per_block < E ? first + a.per_block : E;
+  const int rounds = static_cast<int>((last - first + P - 1) / P);
 
-  load_D(sh, D, i, j);
-  const T ith = *inv_theta;
-  powers_advance<N>(sh, adp_in, adp_out, be + mp * N3, g3, mx, my, mz, ith,
-                    e, i, j, ix, iy, iz, ex, ey, ez);
-  if (mr >= 0)
-    powers_advance<N>(sh, adr_in, adr_out, be + mr * N3, g3, mx, my, mz, ith,
-                      e, i, j, ix, iy, iz, ex, ey, ez);
-}
-
-// Per-element Gram partials over V = [p, basis[0..s-1], r, basis[s..2s-2]].
-template <int N, typename T>
-__global__ void __launch_bounds__(kGramThreads)
-nekbone_powers_gram_kernel(const T* __restrict__ p, const T* __restrict__ r,
-                           const T* __restrict__ basis,
-                           const T* __restrict__ cx,
-                           const T* __restrict__ cy,
-                           const T* __restrict__ cz, T* __restrict__ gram,
-                           int s, int ex, int ey) {
-  constexpr int N2 = N * N;
-  constexpr int N3 = N * N * N;
-  __shared__ T sv[kSstepMaxK][N2];
-  __shared__ T sc[N2];
-
-  const int tid = threadIdx.x;
-  const size_t e = blockIdx.x;
-  const int ix = static_cast<int>(e % ex);
-  const int iy = static_cast<int>((e / ex) % ey);
-  const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
-  const int K = 2 * s + 1;
-  const int nb = 2 * s - 1;
-  const int npairs = K * (K + 1) / 2;
-
-  // this thread's pairs (a <= b), row-major over the upper triangle
-  int pa[2] = {0, 0}, pb[2] = {0, 0};
-  bool own[2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    int idx = tid + q * kGramThreads;
-    own[q] = idx < npairs;
-    int a = 0;
-    while (own[q] && idx >= K - a) {
-      idx -= K - a;
-      ++a;
-    }
-    pa[q] = a;
-    pb[q] = a + idx;
-  }
-  T acc[2] = {T(0), T(0)};
-
-  for (int k = 0; k < N; ++k) {
-    for (int t = tid; t < K * N2; t += kGramThreads) {
-      const int m = t / N2;
-      const int node = t - m * N2;
-      const T* v;
-      if (m == 0)
-        v = p + e * N3;
-      else if (m <= s)
-        v = basis + (e * nb + m - 1) * N3;
-      else if (m == s + 1)
-        v = r + e * N3;
-      else
-        v = basis + (e * nb + m - 2) * N3;
-      sv[m][node] = v[k * N2 + node];
-    }
-    for (int t = tid; t < N2; t += kGramThreads) {
-      const int jj = t / N;
-      const int ii = t - jj * N;
-      // c = (cz * cy) * cx; the factors are 0, 1/2 or 1, so the product is
-      // exact in any order.
-      sc[t] = cz[iz * N + k] * (cy[iy * N + jj] * cx[ix * N + ii]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      if (!own[q]) continue;
-      const T* va = sv[pa[q]];
-      const T* vb = sv[pb[q]];
-      T sum = acc[q];
-      for (int node = 0; node < N2; ++node)
-        sum += (va[node] * sc[node]) * vb[node];
-      acc[q] = sum;
-    }
+  load_D(sh.one, a.D, i, j);
+  if (RESIDENT) {
+    // the owned elements' metric, once; published by the barrier below
+    T* sm = smem + static_cast<size_t>(P) * slot;
+    const T* src = a.g3 + first * 3 * N3;
+    const size_t count = (last - first) * 3 * N3;
+    for (size_t t = tid + static_cast<size_t>(p) * N2; t < count;
+         t += static_cast<size_t>(P) * N2)
+      sm[t] = src[t];
     __syncthreads();
   }
-  T* ge = gram + e * K * K;
+  const T ith = *a.inv_theta;
+
+  // start: A_loc p into adp0 and, when the r chain has a step, A_loc r
+  // into adr0 through the same layer sweep
+  for (int q = 0; q < rounds; ++q) {
+    const PowersNode<N, T, RESIDENT> nd(a, smem, slot, first, last, q, p,
+                                        tid);
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    if (!own[q]) continue;
-    ge[pa[q] * K + pb[q]] = acc[q];
-    ge[pb[q] * K + pa[q]] = acc[q];
+    for (int k = 0; k < N; ++k) {
+      nd.colp[k * N2] = a.p[nd.base + k * N2];
+      if (a.s >= 2) nd.colr[k * N2] = a.r[nd.base + k * N2];
+    }
+    powers_ax(sh, a, nd, a.adp0, a.s >= 2 ? a.adr0 : nullptr, i, j);
+  }
+  for (int step = 1; step <= a.s; ++step) {
+    // every block's A_loc of the previous step is written
+    grid.sync();
+    const bool odd = step % 2;
+    const T* inp = odd ? a.adp0 : a.adp1;
+    T* outp = odd ? a.adp1 : a.adp0;
+    const T* inr = odd ? a.adr0 : a.adr1;
+    T* outr = odd ? a.adr1 : a.adr0;
+    for (int q = 0; q < rounds; ++q) {
+      const PowersNode<N, T, RESIDENT> nd(a, smem, slot, first, last, q, p,
+                                          tid);
+      // chain c = 0 (p) stores A'^step p in slot step - 1 and goes on
+      // while step < s; chain 1 (r) stores A'^step r in slot s + step - 1
+      // while step <= s - 1, and goes on while step < s - 1
+#pragma unroll 1
+      for (int c = 0; c < (step <= a.s - 1 ? 2 : 1); ++c)
+        powers_assemble(a, nd, c ? inr : inp, c ? nd.colr : nd.colp,
+                        step < a.s - c, c ? a.s + step - 1 : step - 1, ith,
+                        i, j);
+      if (step < a.s)
+        powers_ax(sh, a, nd, outp, step < a.s - 1 ? outr : nullptr, i, j);
+    }
+  }
+  // the Gram of the owned elements: each slice stages its own element's
+  // values, which its threads stored themselves; the barrier orders the
+  // last operator's reads of the columns before the staging
+  __syncthreads();
+  for (int q = 0; q < rounds; ++q) {
+    const PowersNode<N, T, RESIDENT> nd(a, smem, slot, first, last, q, p,
+                                        tid);
+    powers_gram(a, nd, i, j);
   }
 }
 
-template <int N, typename T>
-cudaError_t launch(const T* p, const T* r, const T* D, const T* g3,
-                   const T* mx, const T* my, const T* mz, const T* cx,
-                   const T* cy, const T* cz, const T* inv_theta, T* basis,
-                   T* gram, T* ad0p, T* ad1p, T* ad0r, T* ad1r, int ex,
-                   int ey, int ez, int s, cudaStream_t stream) {
-  const int E = ex * ey * ez;
-  const dim3 threads(N, N);
-  const int nb = 2 * s - 1;
-  nekbone_powers_start_kernel<N, T><<<E, threads, 0, stream>>>(
-      p, r, D, g3, mx, my, mz, ad0p, s >= 2 ? ad0r : nullptr, ex, ey);
-  cudaError_t err = cudaGetLastError();
-  T* adp[2] = {ad0p, ad1p};
-  T* adr[2] = {ad0r, ad1r};
-  for (int step = 1; step <= s && err == cudaSuccess; ++step) {
-    const int mr = step <= s - 1 ? s + step - 1 : -1;
-    nekbone_powers_step_kernel<N, T><<<E, threads, 0, stream>>>(
-        adp[(step - 1) % 2], step < s ? adp[step % 2] : nullptr,
-        adr[(step - 1) % 2], step < s - 1 ? adr[step % 2] : nullptr, basis, D,
-        g3, mx, my, mz, inv_theta, nb, step - 1, mr, ex, ey, ez);
-    err = cudaGetLastError();
-  }
+template <int N, typename T, bool RESIDENT>
+size_t dyn_bytes(int s, int per_block) {
+  return (static_cast<size_t>(kWideSlices<N>) * scratch_values(N, s) +
+          (RESIDENT ? static_cast<size_t>(per_block) * 3 * N * N * N : 0)) *
+         sizeof(T);
+}
+
+// out: common.cuh coop_query's seven values for this instantiation.
+template <int N, typename T, bool RESIDENT>
+cudaError_t query(int dyn, int* out) {
+  return coop_query(
+      reinterpret_cast<const void*>(&nekbone_powers_kernel<N, T, RESIDENT>),
+      N * N * kWideSlices<N>, kWideSlices<N>, dyn, out);
+}
+
+template <int N, typename T, bool RESIDENT>
+cudaError_t launch(const PowersArgs<T>& a, int grid, cudaStream_t stream) {
+  if (a.per_block % kWideSlices<N> != 0) return cudaErrorInvalidValue;
+  const void* fn =
+      reinterpret_cast<const void*>(&nekbone_powers_kernel<N, T, RESIDENT>);
+  const size_t dyn = dyn_bytes<N, T, RESIDENT>(a.s, a.per_block);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
   if (err != cudaSuccess) return err;
-  nekbone_powers_gram_kernel<N, T><<<E, kGramThreads, 0, stream>>>(
-      p, r, basis, cx, cy, cz, gram, s, ex, ey);
-  return cudaGetLastError();
+  void* args[] = {const_cast<PowersArgs<T>*>(&a)};
+  return cudaLaunchCooperativeKernel(fn, dim3(grid),
+                                     dim3(N, N, kWideSlices<N>), args, dyn,
+                                     stream);
 }
 
 template <typename T>
-int dispatch(const T* p, const T* r, const T* D, const T* g3, const T* mx,
-             const T* my, const T* mz, const T* cx, const T* cy, const T* cz,
-             const T* inv_theta, T* basis, T* gram, T* ad0p, T* ad1p,
-             T* ad0r, T* ad1r, int ex, int ey, int ez, int n, int s,
+int dispatch_query(int n, int resident, int dyn, int* out) {
+  switch (n) {
+#define NEKBONE_CASE(N)                                                  \
+  case N:                                                                \
+    return static_cast<int>(resident ? query<N, T, true>(dyn, out)       \
+                                     : query<N, T, false>(dyn, out));
+    NEKBONE_FOR_EACH_N(NEKBONE_CASE)
+#undef NEKBONE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int dispatch(const PowersArgs<T>& a, int n, int resident, int grid,
              void* stream) {
-  if (ex <= 0 || ey <= 0 || ez <= 0 || s < 1 || s > kSstepMaxS)
+  const long long E = static_cast<long long>(a.ex) * a.ey * a.ez;
+  if (a.ex <= 0 || a.ey <= 0 || a.ez <= 0 || a.s < 1 || a.s > kSstepMaxS ||
+      a.per_block < 1 || grid < 1 ||
+      static_cast<long long>(grid) * a.per_block < E ||
+      static_cast<long long>(grid - 1) * a.per_block >= E)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n) {
-#define NEKBONE_CASE(N)                                                     \
-  case N:                                                                   \
-    return static_cast<int>(launch<N, T>(p, r, D, g3, mx, my, mz, cx, cy,   \
-                                         cz, inv_theta, basis, gram, ad0p,  \
-                                         ad1p, ad0r, ad1r, ex, ey, ez, s,   \
-                                         st));
+#define NEKBONE_CASE(N)                                                   \
+  case N:                                                                 \
+    return static_cast<int>(resident ? launch<N, T, true>(a, grid, st)    \
+                                     : launch<N, T, false>(a, grid, st));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -283,30 +540,36 @@ int dispatch(const T* p, const T* r, const T* D, const T* g3, const T* mx,
 // p, r and the scratch ad0p, ad1p, ad0r, ad1r: (E, n^3); D: (n, n); g3:
 // (E, 3, n^3); mx, cx: (EX, n); my, cy: (EY, n); mz, cz: (EZ, n);
 // inv_theta: one value; basis: (E, 2s-1, n^3); gram: (E, 2s+1, 2s+1).
-// Elements z-major over (EX, EY, EZ); 1 <= s <= 10.  Queues s + 2 launches
-// and returns the first non-zero cudaGetLastError(), or 0.
+// Elements z-major over (EX, EY, EZ); 1 <= s <= 10; block b owns elements
+// [b * per_block, (b + 1) * per_block), and every block owns one.  One
+// cooperative launch of `grid` blocks, the metric in shared memory when
+// `resident`; returns its error (cudaErrorCooperativeLaunchTooLarge when the
+// grid cannot be resident at once), or 0.
+//
+// nekbone_ax_powers_query_<dtype>(n, resident, dyn, out): fills out[7] as
+// common.cuh coop_query documents; returns a CUDA error, or 0.
+#define NEKBONE_POWERS_ENTRY(SUFFIX, T)                                       \
+  extern "C" int nekbone_ax_powers_##SUFFIX(                                  \
+      const T* p, const T* r, const T* D, const T* g3, const T* mx,           \
+      const T* my, const T* mz, const T* cx, const T* cy, const T* cz,        \
+      const T* inv_theta, T* basis, T* gram, T* ad0p, T* ad1p, T* ad0r,       \
+      T* ad1r, int ex, int ey, int ez, int n, int s, int resident,            \
+      int per_block, int grid, void* stream) {                                \
+    const nekbone::PowersArgs<T> a{p,     r,    D,    g3,   mx,   my,   mz,   \
+                                   cx,    cy,   cz,   inv_theta,  basis,      \
+                                   gram,  ad0p, ad1p, ad0r, ad1r, ex,   ey,   \
+                                   ez,    s,    per_block};                   \
+    return nekbone::dispatch<T>(a, n, resident, grid, stream);                \
+  }                                                                           \
+  extern "C" int nekbone_ax_powers_query_##SUFFIX(int n, int resident,        \
+                                                  int dyn, int* out) {        \
+    return nekbone::dispatch_query<T>(n, resident, dyn, out);                 \
+  }
+
 #ifdef NEKBONE_REAL_F64
-extern "C" int nekbone_ax_powers_f64(
-    const double* p, const double* r, const double* D, const double* g3,
-    const double* mx, const double* my, const double* mz, const double* cx,
-    const double* cy, const double* cz, const double* inv_theta,
-    double* basis, double* gram, double* ad0p, double* ad1p, double* ad0r,
-    double* ad1r, int ex, int ey, int ez, int n, int s, void* stream) {
-  return nekbone::dispatch<double>(p, r, D, g3, mx, my, mz, cx, cy, cz,
-                                   inv_theta, basis, gram, ad0p, ad1p, ad0r,
-                                   ad1r, ex, ey, ez, n, s, stream);
-}
+NEKBONE_POWERS_ENTRY(f64, double)
 #endif
 
 #ifdef NEKBONE_REAL_F32
-extern "C" int nekbone_ax_powers_f32(
-    const float* p, const float* r, const float* D, const float* g3,
-    const float* mx, const float* my, const float* mz, const float* cx,
-    const float* cy, const float* cz, const float* inv_theta, float* basis,
-    float* gram, float* ad0p, float* ad1p, float* ad0r, float* ad1r, int ex,
-    int ey, int ez, int n, int s, void* stream) {
-  return nekbone::dispatch<float>(p, r, D, g3, mx, my, mz, cx, cy, cz,
-                                  inv_theta, basis, gram, ad0p, ad1p, ad0r,
-                                  ad1r, ex, ey, ez, n, s, stream);
-}
+NEKBONE_POWERS_ENTRY(f32, float)
 #endif

@@ -7,32 +7,162 @@
 //
 // Replaces the TPU kernel
 // src/repro/kernels/nekbone_ax.py:nekbone_ax_slab_block_kernel (pallas_call
-// at :825).  As in K4 (nekbone_ax_slab.cu) the work is per element: one
-// thread block, an n x n thread layer marching the k layers, the
-// unassembled masked w out, the assembly left to the update kernel (K7).
-// The operator data is loaded once for all b lanes: D and D^T into shared
-// memory, the element's three metric diagonals into registers (each thread
-// holds its column, 3n values), the mask column as n register values.  The
-// block then loops over the lanes and runs K4's per-lane arithmetic on
-// them: the same common.cuh device function (ax_diag_columns_g) with the
-// metric read from those registers instead of device memory, the same
-// rounded p update, the same mask product and partial sum.  Each lane's p,
-// w and pap are therefore bitwise K4's on that lane.
+// at :825).  As in K4 (nekbone_ax_slab.cu) the work is per element, an
+// n x n thread layer marching the k layers, the unassembled masked w out,
+// the assembly left to the update kernel (K7).  What bounds it on the card
+// is the operator's shared-memory traffic and barriers, not device memory
+// (K4 and K11 measured that), so the design shares them between lanes and
+// keeps enough warps in flight:
+//
+// * a block is (n, n, P) threads, P elements side by side (common.cuh
+//   kWideSlices, 2 at n = 10), each slice with its own operator layers, and
+//   the register cap of __launch_bounds__ lets kWideMinBlocks blocks share
+//   an SM (2 at n = 10: up to 128 registers, 14 warps; at three blocks' 80
+//   registers the pairs spill, and the kernel is slower);
+// * the lanes go through the layer sweep in pairs (kLanes; blockIdx.y picks
+//   the pair, an odd b's last lane runs alone): common.cuh's
+//   ax_diag_columns_lanes reads each value of D and of the metric once, and
+//   takes two barriers a layer, for both lanes;
+// * a pair's p columns, the operator's inputs, live in dynamic shared
+//   memory (one column of n^3 values per lane and slice), the outputs wc in
+//   registers; a lane alone keeps its column in registers, as K4 does; the
+//   metric is read once per pair (from device memory, then mostly from
+//   L2).
+//
+// Each lane keeps K4's arithmetic operation for operation: the same rounded
+// p update, the operator's products contracted and summed in the same
+// order, the same mask product, and pap summed by block_sum<N2>'s tree per
+// slice.  Each lane's p, w and pap are therefore bitwise K4's on that lane.
 //
 // Bound: bytes.  Per lane p_prev and r in, p and w out (4 fields), plus the
 // 3 metric diagonals once: (4b + 3) fields, 8.19 MB each at E=1024, n=10,
 // fp64 — 155.6 MB at b=4, 46.4 us at 3.35 TB/s.  About 12n + 10 flops per
-// node and lane.  The shared metric is what the batch saves: K4 run b times
-// moves 7b fields (229.4 MB at b=4).  pap leaves as (b, E) values, summed
-// per lane outside.
+// node and lane.  The design moves (4b + 3 ceil(b/2)) fields: the metric
+// once per pair.  pap leaves as (b, E) values, summed per lane outside.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace nekbone {
 
+// Lanes that share one layer sweep: pairs (in fours the outputs' 4n values
+// spill at the register cap, and the kernel is slower;
+// scripts/k8_k6_compare.py --ablation).
+constexpr int kLanes = 2;
+// The operands of one launch and the slice's element.
 template <int N, typename T>
-__global__ void __launch_bounds__(N * N)
+struct BlockLanes {
+  const T* __restrict__ p_prev;
+  const T* __restrict__ r;
+  const T* __restrict__ g3;
+  const T* __restrict__ mx;
+  const T* __restrict__ my;
+  const T* __restrict__ mz;
+  const T* __restrict__ beta;
+  T* __restrict__ p_out;
+  T* __restrict__ w;
+  T* __restrict__ pap;
+  AxSharedL<N, T, kLanes>* sh;
+  T (*red)[N * N];  // [kLanes][n^2]: the pap sums
+  T* cols;          // [kLanes][n^3]: the lanes' p columns
+  size_t e, E;
+  bool active;
+  int ix, iy, iz;
+};
+
+// Lanes l0 .. l0 + W - 1 of the slice's element: p, the operator, w and
+// pap, each lane as K4 computes it.  A group's p columns live in the
+// slice's shared columns; a lane alone keeps its column in registers, as
+// K4 does.
+template <int N, typename T, int W>
+__device__ __forceinline__ void lanes(const BlockLanes<N, T>& a, int l0,
+                                      int i, int j) {
+  constexpr int N2 = N * N;
+  constexpr int N3 = N * N * N;
+  const int tid = j * N + i;
+  size_t base[W];
+  T* col[W];
+  T pc[N];
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    base[q] = ((l0 + q) * a.E + a.e) * N3 + tid;
+    col[q] = a.cols + q * N3 + tid;
+    const T b = a.beta[l0 + q];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const size_t o = base[q] + k * N2;
+      const T v = add_rn(a.r[o], mul_rn(b, a.p_prev[o]));
+      if (W == 1)
+        pc[k] = v;
+      else
+        col[q][k * N2] = v;
+      if (a.active) a.p_out[o] = v;
+    }
+  }
+  T wc[W][N];
+  const T* ge = a.g3 + a.e * 3 * N3 + tid;
+  if constexpr (W == 1) {
+    ax_diag_columns(a.sh->one, ge, pc, wc[0], i, j);
+  } else {
+    SharedColumn<N, T> uc[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) uc[q] = SharedColumn<N, T>{col[q]};
+    ax_diag_columns_lanes(*a.sh, ge, uc, wc, i, j);
+  }
+
+  // the box mask is (mz * my) * mx; all factors are 0 or 1, so the product
+  // is exact in any order (K4 forms the same values).
+  const T myx = a.my[a.iy * N + j] * a.mx[a.ix * N + i];
+  T part[W];
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    part[q] = T(0);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const T v = wc[q][k] * (a.mz[a.iz * N + k] * myx);
+      part[q] += (W == 1 ? pc[k] : col[q][k * N2]) * v;
+      if (a.active) a.w[base[q] + k * N2] = v;
+    }
+  }
+  // block_sum<N2>'s tree for each lane, the lanes' barriers shared
+#pragma unroll
+  for (int q = 0; q < W; ++q) a.red[q][tid] = part[q];
+  __syncthreads();
+  constexpr int kHalf = pow2_ceil(N2) / 2;
+#pragma unroll
+  for (int s = kHalf; s > 0; s >>= 1) {
+    if (tid < s && tid + s < N2) {
+#pragma unroll
+      for (int q = 0; q < W; ++q) a.red[q][tid] += a.red[q][tid + s];
+    }
+    __syncthreads();
+  }
+  if (tid == 0 && a.active) {
+#pragma unroll
+    for (int q = 0; q < W; ++q) a.pap[(l0 + q) * a.E + a.e] = a.red[q][0];
+  }
+}
+
+// The group's lanes, w of them (1 <= w <= W): one instantiation per width.
+template <int N, typename T, int W>
+__device__ __forceinline__ void lanes_of(const BlockLanes<N, T>& a, int l0,
+                                         int w, int i, int j) {
+  if constexpr (W == 1) {
+    lanes<N, T, 1>(a, l0, i, j);
+  } else {
+    if (w == W)
+      lanes<N, T, W>(a, l0, i, j);
+    else
+      lanes_of<N, T, W - 1>(a, l0, w, i, j);
+  }
+}
+
+// Block (N, N, P), grid (ceil(E / P), ceil(b / kLanes)): slice p works on
+// element blockIdx.x P + p (a slice past E computes on element E - 1 and
+// stores nothing, so that it meets every barrier), for the lanes of group
+// blockIdx.y.
+template <int N, typename T>
+__global__ void __launch_bounds__(N * N * kWideSlices<N>, kWideMinBlocks<N>)
 nekbone_ax_slab_block_kernel(const T* __restrict__ p_prev,
                              const T* __restrict__ r, const T* __restrict__ D,
                              const T* __restrict__ g3,
@@ -41,59 +171,31 @@ nekbone_ax_slab_block_kernel(const T* __restrict__ p_prev,
                              const T* __restrict__ mz,
                              const T* __restrict__ beta,
                              T* __restrict__ p_out, T* __restrict__ w,
-                             T* __restrict__ pap, int ex, int ey, int nrhs) {
-  constexpr int N2 = N * N;
+                             T* __restrict__ pap, int ex, int ey, int ez,
+                             int nrhs) {
   constexpr int N3 = N * N * N;
-  __shared__ AxShared<N, T> sh;
-  __shared__ T red[N2];
+  constexpr int P = kWideSlices<N>;
+  __shared__ AxSharedL<N, T, kLanes> sh_all[P];
+  __shared__ T red_all[P][kLanes][N * N];
+  extern __shared__ __align__(16) unsigned char col_bytes[];
 
   const int i = threadIdx.x;
   const int j = threadIdx.y;
-  const int tid = j * N + i;
-  const size_t e = blockIdx.x;
-  const size_t E = gridDim.x;
-  const int ix = static_cast<int>(e % ex);
-  const int iy = static_cast<int>((e / ex) % ey);
-  const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
+  const int p = threadIdx.z;
+  const size_t E = static_cast<size_t>(ex) * ey * ez;
+  const size_t local = static_cast<size_t>(blockIdx.x) * P + p;
+  const bool active = local < E;
+  const size_t e = active ? local : E - 1;
+  const BlockLanes<N, T> a{
+      p_prev, r, g3, mx, my, mz, beta, p_out, w, pap, &sh_all[p],
+      red_all[p], reinterpret_cast<T*>(col_bytes) + p * kLanes * N3, e, E,
+      active, static_cast<int>(e % ex), static_cast<int>((e / ex) % ey),
+      static_cast<int>(e / (static_cast<size_t>(ex) * ey))};
 
-  // operator data, once for every lane
-  load_D(sh, D, i, j);
-  const T* ge = g3 + e * 3 * N3 + tid;
-  T gc[3][N];
-  T mk[N];
-  // the box mask is (mz * my) * mx; all factors are 0 or 1, so the product
-  // is exact in any order (K4 forms the same values).
-  const T myx = my[iy * N + j] * mx[ix * N + i];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    gc[0][k] = ge[0 * N3 + k * N2];
-    gc[1][k] = ge[1 * N3 + k * N2];
-    gc[2][k] = ge[2 * N3 + k * N2];
-    mk[k] = mz[iz * N + k] * myx;
-  }
-  const auto metric = [&gc](int c, int k) { return gc[c][k]; };
-
-  for (int l = 0; l < nrhs; ++l) {
-    const size_t base = (l * E + e) * N3 + tid;
-    const T b = beta[l];
-    T pc[N];
-    T wc[N];
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      pc[k] = add_rn(r[base + k * N2], mul_rn(b, p_prev[base + k * N2]));
-      p_out[base + k * N2] = pc[k];
-    }
-    ax_diag_columns_g(sh, metric, pc, wc, i, j);
-    T part = T(0);
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const T v = wc[k] * mk[k];
-      part += pc[k] * v;
-      w[base + k * N2] = v;
-    }
-    const T total = block_sum<N2>(part, red, tid);
-    if (tid == 0) pap[l * E + e] = total;
-  }
+  load_D(sh_all[p].one, D, i, j);
+  const int l0 = blockIdx.y * kLanes;
+  const int width = nrhs - l0 < kLanes ? nrhs - l0 : kLanes;
+  lanes_of<N, T, kLanes>(a, l0, width, i, j);
 }
 
 template <int N, typename T>
@@ -101,9 +203,18 @@ cudaError_t launch(const T* p_prev, const T* r, const T* D, const T* g3,
                    const T* mx, const T* my, const T* mz, const T* beta,
                    T* p_out, T* w, T* pap, int ex, int ey, int ez, int nrhs,
                    cudaStream_t stream) {
-  const int E = ex * ey * ez;
-  nekbone_ax_slab_block_kernel<N, T><<<E, dim3(N, N), 0, stream>>>(
-      p_prev, r, D, g3, mx, my, mz, beta, p_out, w, pap, ex, ey, nrhs);
+  constexpr int P = kWideSlices<N>;
+  const long long E = static_cast<long long>(ex) * ey * ez;
+  const size_t dyn = static_cast<size_t>(P) * kLanes * N * N * N * sizeof(T);
+  const void* fn = reinterpret_cast<const void*>(
+      &nekbone_ax_slab_block_kernel<N, T>);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((E + P - 1) / P),
+                  static_cast<unsigned>((nrhs + kLanes - 1) / kLanes));
+  nekbone_ax_slab_block_kernel<N, T><<<grid, dim3(N, N, P), dyn, stream>>>(
+      p_prev, r, D, g3, mx, my, mz, beta, p_out, w, pap, ex, ey, ez, nrhs);
   return cudaGetLastError();
 }
 
@@ -112,7 +223,7 @@ int dispatch(const T* p_prev, const T* r, const T* D, const T* g3,
              const T* mx, const T* my, const T* mz, const T* beta, T* p_out,
              T* w, T* pap, int ex, int ey, int ez, int n, int nrhs,
              void* stream) {
-  if (ex <= 0 || ey <= 0 || ez <= 0 || nrhs <= 0)
+  if (ex <= 0 || ey <= 0 || ez <= 0 || nrhs <= 0 || nrhs > 65535 * kLanes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {

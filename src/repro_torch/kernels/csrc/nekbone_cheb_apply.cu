@@ -107,21 +107,6 @@ struct ChebArgs {
   int ex, ey, ez, k, per_block;
 };
 
-// Elements a block works on side by side (its z extent): at most 512
-// threads, so that two blocks an SM keep every owned element of the paper
-// case (E = 1024, fp64, n = 10) in flight at once.
-template <int N>
-constexpr int kSlices = N >= 12 ? 2 : N >= 8 ? 4 : N >= 5 ? 8 : 16;
-// Blocks an SM must hold, at up to 78 registers a thread (the chain of
-// launches took 74-78): ptxas keeps to what lets them be resident (72 at
-// n = 10, two blocks of 13 warps).
-constexpr int min_blocks(int threads) {
-  const int fit = 65536 / (78 * ((threads + 31) / 32 * 32));
-  return fit > 1 ? fit : 1;
-}
-template <int N>
-constexpr int kMinBlocks = min_blocks(N * N * kSlices<N>);
-
 // The thread's element in one round of a block's owned range: slice p of
 // round q works on element first + q P + p; a slice past the range (the
 // last round of the last block) computes on the block's last element and
@@ -164,14 +149,6 @@ struct ChebNode {
       col = smem + p * N3 + tid;
     }
   }
-};
-
-// The thread's column of d read from shared memory, layer k at k N^2: the
-// operator's input without the N registers a copy would hold.
-template <int N, typename T>
-struct SharedColumn {
-  const T* p;
-  __device__ __forceinline__ T operator[](int k) const { return p[k * N * N]; }
 };
 
 // The masked, unassembled A_loc of the thread's column of d into ad:
@@ -312,45 +289,12 @@ nekbone_cheb_kernel(const ChebArgs<T> a) {
   }
 }
 
-// out = {blocks per SM at dyn bytes of dynamic shared memory (0 if a block
-// may not take that much), static shared bytes, registers per thread, the
-// most dynamic shared bytes a block may take, SM count, cooperative launch
-// supported (0/1), elements a block works on side by side}.
+// out: common.cuh coop_query's seven values for this instantiation.
 template <int N, typename T, bool RESIDENT>
 cudaError_t query(int dyn, int* out) {
-  const void* fn =
-      reinterpret_cast<const void*>(&nekbone_cheb_kernel<N, T, RESIDENT>);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  int optin = 0, sms = 0, coop = 0;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  const int max_dyn = optin - static_cast<int>(attr.sharedSizeBytes);
-  int blocks = 0;
-  if (dyn <= max_dyn) {
-    err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dyn);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, fn, N * N * kSlices<N>, dyn);
-    if (err != cudaSuccess) return err;
-  }
-  out[0] = blocks;
-  out[1] = static_cast<int>(attr.sharedSizeBytes);
-  out[2] = attr.numRegs;
-  out[3] = max_dyn;
-  out[4] = sms;
-  out[5] = coop;
-  out[6] = kSlices<N>;
-  return cudaSuccess;
+  return coop_query(
+      reinterpret_cast<const void*>(&nekbone_cheb_kernel<N, T, RESIDENT>),
+      N * N * kSlices<N>, kSlices<N>, dyn, out);
 }
 
 template <int N, typename T, bool RESIDENT>
@@ -366,18 +310,6 @@ cudaError_t launch(const ChebArgs<T>& a, int grid, cudaStream_t stream) {
   void* args[] = {const_cast<ChebArgs<T>*>(&a)};
   return cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(N, N, kSlices<N>),
                                      args, dyn, stream);
-}
-
-inline int slices(int n) {
-  switch (n) {
-#define NEKBONE_CASE(N) \
-  case N:               \
-    return kSlices<N>;
-    NEKBONE_FOR_EACH_N(NEKBONE_CASE)
-#undef NEKBONE_CASE
-    default:
-      return 1;
-  }
 }
 
 template <typename T>
@@ -399,7 +331,7 @@ int dispatch(const ChebArgs<T>& a, int n, int resident, int grid,
              void* stream) {
   const long long E = static_cast<long long>(a.ex) * a.ey * a.ez;
   if (a.ex <= 0 || a.ey <= 0 || a.ez <= 0 || a.k < 1 || a.per_block < 1 ||
-      a.per_block % slices(n) != 0 ||
+      a.per_block % slices_of(n) != 0 ||
       grid < 1 || static_cast<long long>(grid) * a.per_block < E ||
       (!resident && (a.d == nullptr || a.res == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -427,7 +359,7 @@ int dispatch(const ChebArgs<T>& a, int n, int resident, int grid,
 // grid cannot be resident at once), or 0.
 //
 // nekbone_cheb_apply_query_<dtype>(n, resident, dyn, out): fills out[7] as
-// nekbone::query documents; returns a CUDA error, or 0.
+// common.cuh coop_query documents; returns a CUDA error, or 0.
 #define NEKBONE_CHEB_ENTRY(SUFFIX, T)                                         \
   extern "C" int nekbone_cheb_apply_##SUFFIX(                                 \
       const T* r, const T* D, const T* g3, const T* mx, const T* my,          \

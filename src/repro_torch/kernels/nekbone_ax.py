@@ -14,7 +14,8 @@
 * ``nekbone_interp_cuda`` — K12, ``csrc/nekbone_interp.cu``, replaces
   ``nekbone_interp_kernel`` (the p-multigrid transfers);
 * ``nekbone_ax_slab_block_cuda`` — K6, ``csrc/nekbone_ax_slab_block.cu``,
-  replaces ``nekbone_ax_slab_block_kernel`` (K4 over b right-hand sides);
+  replaces ``nekbone_ax_slab_block_kernel`` (K4 over b right-hand sides,
+  the lanes in pairs through one layer sweep, :func:`k6_lane_groups`);
 * ``nekbone_cg_update_block_cuda`` — K7,
   ``csrc/nekbone_cg_update_block.cu``, replaces
   ``nekbone_cg_update_block_kernel`` (K5 over b right-hand sides);
@@ -22,8 +23,8 @@
   ``csrc/nekbone_ax_dots.cu``, replace ``nekbone_ax_pap_kernel`` and
   ``nekbone_ax_dots_kernel`` (the v1 fused iteration's operator);
 * ``nekbone_ax_powers_cuda`` — K8, ``csrc/nekbone_ax_powers.cu``, replaces
-  ``nekbone_ax_powers_kernel`` (the s-step basis and Gram; one call queues
-  s + 2 device launches and counts once);
+  ``nekbone_ax_powers_kernel`` (the s-step basis and Gram; one cooperative
+  launch per call, its grid and variant chosen by :func:`k8_plan`);
 * ``nekbone_sstep_update_cuda`` — K9, ``csrc/nekbone_sstep_update.cu``,
   replaces ``nekbone_sstep_update_kernel`` (the s-step multi-axpy).
 
@@ -81,8 +82,11 @@ __all__ = ["nekbone_ax_cuda",
            "nekbone_ax_dots_plain", "nekbone_ax_powers_cuda",
            "nekbone_ax_powers_plain", "nekbone_sstep_update_cuda",
            "nekbone_sstep_update_plain", "N_RANGE", "INTERP_PAIRS",
-           "SSTEP_MAX_S", "MIXES", "build_for", "K11Plan", "k11_plan",
-           "k11_state_bytes", "nekbone_cheb_apply_plan"]
+           "SSTEP_MAX_S", "MIXES", "build_for", "CoopPlan", "K11Plan",
+           "coop_plan", "k11_plan", "k11_state_bytes",
+           "nekbone_cheb_apply_plan", "k8_plan", "k8_metric_bytes",
+           "k8_scratch_bytes", "nekbone_ax_powers_plan", "K6_LANES",
+           "k6_lane_groups"]
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
@@ -122,7 +126,7 @@ _ARGTYPES = {
     "nekbone_cg_update_block": [_P] * 11 + [_I] * 5 + [_P],
     "nekbone_ax_pap": [_P] * 6 + [_I] * 2 + [_P],
     "nekbone_ax_dots": [_P] * 9 + [_I] * 2 + [_P],
-    "nekbone_ax_powers": [_P] * 17 + [_I] * 5 + [_P],
+    "nekbone_ax_powers": [_P] * 17 + [_I] * 8 + [_P],
     "nekbone_sstep_update": [_P] * 12 + [_I] * 5 + [_P],
 }
 # Entry points that live in another stem's library.
@@ -291,14 +295,14 @@ def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
 
 
 @dataclasses.dataclass(frozen=True)
-class K11Plan:
-    """One K11 launch: block b of ``grid`` owns elements ``[b * per_block,
-    (b + 1) * per_block)`` (z-major, the last range cut at E) for all k
-    steps; ``resident`` keeps their d, res and z in the block's dynamic
-    shared memory, else in device memory (with a shared copy of the
-    operator's input column per slice); ``smem_bytes`` is that dynamic
-    shared memory and ``blocks_per_sm`` the residency the grid was sized
-    by."""
+class CoopPlan:
+    """One launch of a persistent cooperative kernel (K8, K11): block b of
+    ``grid`` owns elements ``[b * per_block, (b + 1) * per_block)`` (z-major,
+    the last range cut at E) for the whole call; ``resident`` keeps each
+    owned element's data (K11 its d, res and z; K8 its metric) in the
+    block's dynamic shared memory, else in device memory; ``smem_bytes`` is
+    the dynamic shared memory a block takes and ``blocks_per_sm`` the
+    residency the grid was sized by."""
     resident: bool
     per_block: int
     grid: int
@@ -310,6 +314,57 @@ class K11Plan:
         return "shared" if self.resident else "device"
 
 
+K11Plan = CoopPlan
+
+
+def coop_plan(E: int, sm_count: int, blocks_per_sm, smem_per_block: int, *,
+              slices: int, elem_bytes: int, base_bytes: int,
+              device_bytes: int, what: str) -> CoopPlan:
+    """The variant and grid of a cooperative kernel for E elements.
+
+    ``blocks_per_sm(resident, dyn_bytes)`` is how many blocks of that
+    variant an SM holds with ``dyn_bytes`` of dynamic shared memory each (on
+    the card, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    ``smem_per_block`` the most dynamic shared memory a block may take.
+    Every block of a cooperative launch is resident at once, so the grid is
+    at most ``sm_count`` times that residency.  A block works on ``slices``
+    elements side by side, so it owns a multiple m of them.  The
+    shared-memory variant takes ``base_bytes + m * elem_bytes``; it is taken
+    if and only if some such m fits both: that much in one block, and
+    ceil(E / m) blocks on the card at the residency it allows; the least
+    such m.  Otherwise the device-memory variant, whose ``device_bytes`` do
+    not depend on E, owns the least multiple m with ceil(E / m) blocks
+    resident.  Raises ``ValueError`` where neither can run (no block of the
+    device variant fits an SM).
+    """
+    if E < 1 or sm_count < 1 or slices < 1:
+        raise ValueError(f"{what}: E={E}, sm_count={sm_count}, "
+                         f"slices={slices}")
+
+    def round_up(m):
+        return -(-m // slices) * slices
+
+    m = slices
+    if base_bytes + m * elem_bytes <= smem_per_block:
+        fit = blocks_per_sm(True, base_bytes + m * elem_bytes)
+        # the residency falls as m grows, so no m below this one fits
+        m = round_up(max(m, -(-E // max(sm_count * fit, 1))))
+        while base_bytes + m * elem_bytes <= smem_per_block:
+            dyn = base_bytes + m * elem_bytes
+            fit = blocks_per_sm(True, dyn)
+            grid = -(-E // m)
+            if fit >= 1 and grid <= sm_count * fit:
+                return CoopPlan(True, m, grid, fit, dyn)
+            m += slices
+    fit = (blocks_per_sm(False, device_bytes)
+           if device_bytes <= smem_per_block else 0)
+    if fit < 1:
+        raise ValueError(f"{what}: no block is resident on an SM in either "
+                         "variant")
+    m = round_up(-(-E // (sm_count * fit)))
+    return CoopPlan(False, m, -(-E // m), fit, device_bytes)
+
+
 def k11_state_bytes(n: int, dtype: torch.dtype) -> int:
     """d, res and z of one element: the shared memory it takes resident."""
     return 3 * n ** 3 * dtype.itemsize
@@ -317,51 +372,47 @@ def k11_state_bytes(n: int, dtype: torch.dtype) -> int:
 
 def k11_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
              blocks_per_sm, smem_per_block: int, *,
-             slices: int = 1) -> K11Plan:
-    """K11's variant and grid for E elements of degree n - 1.
+             slices: int = 1) -> CoopPlan:
+    """K11's variant and grid for E elements of degree n - 1
+    (:func:`coop_plan`): resident, a block keeps its elements' d, res and z
+    (:func:`k11_state_bytes` each) in shared memory; in device memory, it
+    keeps one n^3 copy of the operator's input column per slice there."""
+    return coop_plan(E, sm_count, blocks_per_sm, smem_per_block,
+                     slices=slices, elem_bytes=k11_state_bytes(n, dtype),
+                     base_bytes=0,
+                     device_bytes=slices * n ** 3 * dtype.itemsize,
+                     what=f"k11_plan: K11 (n={n}, {dtype})")
 
-    ``blocks_per_sm(resident, dyn_bytes)`` is how many blocks of that
-    variant an SM holds with ``dyn_bytes`` of dynamic shared memory each (on
-    the card, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
-    ``smem_per_block`` the most dynamic shared memory a block of the
-    shared-memory variant may take.  Every block of a cooperative launch is
-    resident at once, so the grid is at most ``sm_count`` times that
-    residency.  A block works on ``slices`` elements side by side, so it
-    owns a multiple m of them.  The shared-memory variant is taken if and
-    only if some such m fits both: m elements' state in one block, and
-    ceil(E / m) blocks on the card at the residency that state allows; the
-    least such m.  Otherwise the device-memory variant, whose residency
-    (with one n^3 column copy per slice in shared memory) does not depend
-    on E, owns the least multiple m with ceil(E / m) blocks resident.
-    Raises ``ValueError`` where neither can run (no block of the device
-    variant fits an SM).
-    """
-    if E < 1 or sm_count < 1 or slices < 1:
-        raise ValueError(f"k11_plan: E={E}, sm_count={sm_count}, "
-                         f"slices={slices}")
 
-    def round_up(m):
-        return -(-m // slices) * slices
+def k8_metric_bytes(n: int, dtype: torch.dtype) -> int:
+    """The three metric diagonals of one element: the shared memory K8's
+    resident variant gives each owned element."""
+    return 3 * n ** 3 * dtype.itemsize
 
-    state = k11_state_bytes(n, dtype)
-    m = slices
-    if m * state <= smem_per_block:
-        fit = blocks_per_sm(True, m * state)
-        # the residency falls as m grows, so no m below this one fits
-        m = round_up(max(m, -(-E // max(sm_count * fit, 1))))
-        while m * state <= smem_per_block:
-            fit = blocks_per_sm(True, m * state)
-            grid = -(-E // m)
-            if fit >= 1 and grid <= sm_count * fit:
-                return K11Plan(True, m, grid, fit, m * state)
-            m += slices
-    column = slices * n ** 3 * dtype.itemsize
-    fit = blocks_per_sm(False, column) if column <= smem_per_block else 0
-    if fit < 1:
-        raise ValueError(f"k11_plan: no block of K11 (n={n}, {dtype}) is "
-                         "resident on an SM in either variant")
-    m = round_up(-(-E // (sm_count * fit)))
-    return K11Plan(False, m, -(-E // m), fit, column)
+
+def k8_scratch_bytes(n: int, s: int, dtype: torch.dtype, slices: int) -> int:
+    """K8's shared scratch of a block in either variant: per slice the p and
+    the r chain's operator input columns (n^3 values each) during the
+    steps, then the Gram's ring of staged layers of the 2s + 1 vectors and
+    c (4 layers up to s = 4, 2 past it; rows padded to n + 1), and its sums
+    (9 n^2) (csrc/nekbone_ax_powers.cu ``scratch_values``)."""
+    ring = 4 if s <= 4 else 2
+    return slices * max(2 * n ** 3, ring * (2 * s + 2) * n * (n + 1),
+                        9 * n ** 2) * dtype.itemsize
+
+
+def k8_plan(E: int, n: int, s: int, dtype: torch.dtype, sm_count: int,
+            blocks_per_sm, smem_per_block: int, *,
+            slices: int = 1) -> CoopPlan:
+    """K8's variant and grid for E elements of degree n - 1 at cycle length
+    s (:func:`coop_plan`): both variants take :func:`k8_scratch_bytes`; the
+    resident one adds its owned elements' metric (:func:`k8_metric_bytes`
+    each), the device one reads the metric through L2."""
+    scratch = k8_scratch_bytes(n, s, dtype, slices)
+    return coop_plan(E, sm_count, blocks_per_sm, smem_per_block,
+                     slices=slices, elem_bytes=k8_metric_bytes(n, dtype),
+                     base_bytes=scratch, device_bytes=scratch,
+                     what=f"k8_plan: K8 (n={n}, s={s}, {dtype})")
 
 
 def _device_index(device: torch.device) -> int:
@@ -370,48 +421,72 @@ def _device_index(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _k11_query(mix: str, n: int, resident: bool, dyn: int,
-               device: int) -> tuple[int, ...]:
-    """The C side's occupancy query (csrc/nekbone_cheb_apply.cu ``query``):
-    (blocks per SM, static shared bytes, registers, the most dynamic shared
-    bytes, SM count, cooperative launch supported, elements a block works
-    on side by side)."""
-    fn = getattr(_build.load(f"nekbone_cheb_apply_{mix}"),
-                 f"nekbone_cheb_apply_query_{mix}")
+def _coop_query(stem: str, mix: str, n: int, resident: bool, dyn: int,
+                device: int) -> tuple[int, ...]:
+    """The C side's occupancy query of ``stem`` (csrc/common.cuh
+    ``coop_query``): (blocks per SM, static shared bytes, registers, the
+    most dynamic shared bytes, SM count, cooperative launch supported,
+    elements a block works on side by side)."""
+    fn = getattr(_build.load(f"{stem}_{mix}"), f"{stem}_query_{mix}")
     fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 7)()
     with torch.cuda.device(device):
         err = fn(n, int(resident), dyn, out)
     if err != 0:
-        raise RuntimeError(f"nekbone_cheb_apply: occupancy query failed with "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"{stem}: occupancy query failed with CUDA error "
+                           f"{err}")
     return tuple(out)
 
 
 @functools.lru_cache(maxsize=None)
-def _k11_device_plan(E: int, n: int, mix: str, device: int) -> K11Plan:
-    info = _k11_query(mix, n, True, 0, device)
+def _coop_device_plan(stem: str, E: int, n: int, s: int, mix: str,
+                      device: int) -> CoopPlan:
+    """The plan of K11 (``s`` unused) or K8 on ``device``; raises if the
+    device cannot launch cooperatively or no variant runs."""
+    info = _coop_query(stem, mix, n, True, 0, device)
     if not info[5]:
-        raise RuntimeError("nekbone_cheb_apply: the device does not support "
-                           "cooperative launches (cudaDevAttrCooperativeLaunch)")
-    return k11_plan(
-        E, n, MIXES[mix]["S"], info[4],
-        lambda resident, dyn: _k11_query(mix, n, resident, dyn, device)[0],
-        info[3], slices=info[6])
+        raise RuntimeError(f"{stem}: the device does not support cooperative "
+                           "launches (cudaDevAttrCooperativeLaunch)")
+
+    def fit(resident, dyn):
+        return _coop_query(stem, mix, n, resident, dyn, device)[0]
+
+    dtype = MIXES[mix]["S"]
+    if stem == "nekbone_cheb_apply":
+        return k11_plan(E, n, dtype, info[4], fit, info[3], slices=info[6])
+    return k8_plan(E, n, s, dtype, info[4], fit, info[3], slices=info[6])
+
+
+def _plan_info(stem: str, plan: CoopPlan, n: int, dtype: torch.dtype,
+               device) -> dict:
+    index = _device_index(torch.device(device))
+    mix = next(m for m, dt in MIXES.items() if dt["S"] == dtype)
+    info = _coop_query(stem, mix, n, plan.resident, plan.smem_bytes, index)
+    return {"registers": info[2], "static_smem": info[1],
+            "sm_count": info[4], "slices": info[6]}
 
 
 def nekbone_cheb_apply_plan(E: int, n: int, dtype: torch.dtype,
-                            device="cuda") -> tuple[K11Plan, dict]:
+                            device="cuda") -> tuple[CoopPlan, dict]:
     """The plan K11 launches with for E elements on ``device``, and the
     instantiation it runs: ``{"registers", "static_smem", "sm_count",
     "slices"}``."""
     index = _device_index(torch.device(device))
     mix = next(m for m, dt in MIXES.items() if dt["S"] == dtype)
-    plan = _k11_device_plan(E, n, mix, index)
-    info = _k11_query(mix, n, plan.resident, plan.smem_bytes, index)
-    return plan, {"registers": info[2], "static_smem": info[1],
-                  "sm_count": info[4], "slices": info[6]}
+    plan = _coop_device_plan("nekbone_cheb_apply", E, n, 0, mix, index)
+    return plan, _plan_info("nekbone_cheb_apply", plan, n, dtype, device)
+
+
+def nekbone_ax_powers_plan(E: int, n: int, s: int, dtype: torch.dtype,
+                           device="cuda") -> tuple[CoopPlan, dict]:
+    """The plan K8 launches with for E elements at cycle length s on
+    ``device``, and the instantiation it runs (as
+    :func:`nekbone_cheb_apply_plan`)."""
+    index = _device_index(torch.device(device))
+    mix = next(m for m, dt in MIXES.items() if dt["S"] == dtype)
+    plan = _coop_device_plan("nekbone_ax_powers", E, n, s, mix, index)
+    return plan, _plan_info("nekbone_ax_powers", plan, n, dtype, device)
 
 
 def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
@@ -437,7 +512,8 @@ def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
                  D=(D, (n, n)), g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)),
                  my=(my, (ey, n)), mz=(mz, (ez, n)), cx=(cx, (ex, n)),
                  cy=(cy, (ey, n)), cz=(cz, (ez, n)), coef=(coef, (k + 1, 2)))
-    plan = _k11_device_plan(E, n, mix, _device_index(r2.device))
+    plan = _coop_device_plan("nekbone_cheb_apply", E, n, 0, mix,
+                             _device_index(r2.device))
     z = torch.empty_like(r2)
     scratch = torch.empty(2 if plan.resident else 4, E, n3, dtype=r2.dtype,
                           device=r2.device)
@@ -476,8 +552,24 @@ def nekbone_interp_cuda(u2, mt, *, nin: int, nout: int):
     return v2
 
 
+# K6's lanes that share one layer sweep (csrc/nekbone_ax_slab_block.cu
+# kLanes).
+K6_LANES = 2
+
+
+def k6_lane_groups(b: int) -> list[tuple[int, ...]]:
+    """The lanes of each of K6's layer sweeps for b right-hand sides: group
+    g (``blockIdx.y``) takes lanes ``K6_LANES g`` onwards, the last group of
+    an odd b one lane."""
+    if b < 1:
+        raise ValueError(f"k6_lane_groups: b={b}")
+    return [tuple(range(l0, min(l0 + K6_LANES, b)))
+            for l0 in range(0, b, K6_LANES)]
+
+
 def nekbone_ax_slab_block_cuda(p3, r3, D, g3, mx, my, mz, beta, *, n: int):
-    """K6: K4 over b right-hand sides, the operator data read once.
+    """K6: K4 over b right-hand sides, the lanes in pairs through one layer
+    sweep (:func:`k6_lane_groups`).
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_ax_slab_block_plain`:
     ``p3``, ``r3``: (b, E, n^3); ``beta``: (b,).  Returns ``(p3, w3, pap)``
@@ -587,10 +679,12 @@ def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
     """K8: the scaled s-step basis and per-element Gram partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_ax_powers_plain`.
+    One cooperative launch (:func:`k8_plan` picks its variant and grid).
     The kernel allocates nothing: this wrapper hands it the basis, the Gram
     partials and four buffers of unassembled operator outputs (two per
     chain).  Returns ``(basis, gram)``: (E, 2s-1, n^3) and
-    (E, 2s+1, 2s+1).
+    (E, 2s+1, 2s+1); the partials are summed in the order of
+    :func:`repro_torch.kernels.ref.sstep_gram_emulated`.
     """
     if p2.device.type == "cpu":
         return nekbone_ax_powers_plain(p2, r2, D, g3, mx, my, mz, cx, cy, cz,
@@ -604,13 +698,16 @@ def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
                  mx=(mx, (ex, n)), my=(my, (ey, n)), mz=(mz, (ez, n)),
                  cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)),
                  inv_theta=(inv_theta.reshape(1), (1,)))
+    plan = _coop_device_plan("nekbone_ax_powers", E, n, s, mix,
+                             _device_index(p2.device))
     K = 2 * s + 1
     basis = torch.empty(E, 2 * s - 1, n3, dtype=p2.dtype, device=p2.device)
     gram = torch.empty(E, K, K, dtype=p2.dtype, device=p2.device)
     scratch = torch.empty(4, E, n3, dtype=p2.dtype, device=p2.device)
     _launch("nekbone_ax_powers", mix, p2.device,
             (p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta, basis, gram,
-             *scratch), (ex, ey, ez, n, s))
+             *scratch),
+            (ex, ey, ez, n, s, int(plan.resident), plan.per_block, plan.grid))
     return basis, gram
 
 

@@ -26,7 +26,8 @@ __all__ = ["accum_dtype", "nekbone_ax_ref", "nekbone_ax_plain",
            "nekbone_interp_plain", "nekbone_ax_slab_block_plain",
            "nekbone_cg_update_block_plain", "nekbone_ax_pap_plain",
            "nekbone_ax_dots_plain", "nekbone_ax_powers_plain",
-           "nekbone_sstep_update_plain", "attention_ref",
+           "nekbone_sstep_update_plain", "sstep_gram_emulated",
+           "attention_ref",
            "flash_attention_plain", "flash_attention_tc_emulated",
            "flash_tiles", "wkv6_ref", "wkv6_chunked", "wkv6_split_emulated"]
 
@@ -308,6 +309,40 @@ def nekbone_ax_powers_plain(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
     c = box_outer(cz.to(acc), cy.to(acc), cx.to(acc)).reshape(E, 1, n ** 3)
     gram = torch.einsum("eal,ebl->eab", V * c, V)
     return basis.to(p2.dtype), gram
+
+
+def sstep_gram_emulated(p2, r2, basis, cx, cy, cz, *, n: int, s: int):
+    """K8's per-element Gram partials in the CUDA kernel's order of terms.
+
+    ``V = [p, basis[:, :s], r, basis[:, s:]]`` as K8 orders it; for each
+    pair a <= b, element and row j of a layer, the kernel's thread adds
+    ``(V_a * c) * V_b`` of the row's nodes, the layers k = 0..n-1 in order
+    and each layer's nodes i = 0..n-1 in order, from 0; then the n row sums
+    are added in order.  Every product and sum is rounded on its own (no
+    contraction), as the kernel's ``mul_rn`` and ``add_rn`` are, so on the
+    card this matches the kernel bitwise.  ``p2``, ``r2``: (E, n^3);
+    ``basis``: (E, 2s-1, n^3).  Returns (E, 2s+1, 2s+1), symmetric.
+    """
+    E = p2.shape[0]
+    K = 2 * s + 1
+    V = torch.stack([p2] + [basis[:, m] for m in range(s)] + [r2]
+                    + [basis[:, s + m] for m in range(s - 1)],
+                    dim=1).reshape(E, K, n, n, n)
+    c = box_outer(cz, cy, cx).reshape(E, 1, n, n, n)
+    a, b = torch.triu_indices(K, K)
+    terms = (V * c)[:, a] * V[:, b]          # (E, pairs, k, j, i)
+    # each row j's terms, layer-major: (E, pairs, j, k * i)
+    terms = terms.permute(0, 1, 3, 2, 4).reshape(E, len(a), n, n * n)
+    rows = torch.zeros_like(terms[..., 0])
+    for t in range(n * n):
+        rows = rows + terms[..., t]
+    total = rows[..., 0]
+    for j in range(1, n):
+        total = total + rows[..., j]
+    gram = torch.empty(E, K, K, dtype=p2.dtype, device=p2.device)
+    gram[:, a, b] = total
+    gram[:, b, a] = total
+    return gram
 
 
 def nekbone_sstep_update_plain(x2, p2, r2, basis, coef, cx, cy, cz, *,
