@@ -61,10 +61,10 @@ reference package ``repro``, and, in order:
 12. holds K3 and K2 (the v1 operator) and K8 and K9 (the s-step cycle)
    against their plain versions at n=10, E=1024, fp64 and fp32, K8/K9 at
    s = 1, 2, 4; K8 also on the 16x16x16 grid (E=4096) at s = 1, 2, 4 and
-   at s = SSTEP_MAX_S with n = 4, with its launch plan printed (variant,
-   grid, blocks per SM, shared memory, registers), both variants of the
-   plan run, its Gram partials bitwise ``ref.sstep_gram_emulated`` of its
-   basis and 5 repeated calls bitwise the same;
+   at s = SSTEP_MAX_S with n = 4, with its launch plan printed (grid,
+   blocks per SM, shared memory, registers), its Gram partials bitwise
+   ``ref.sstep_gram_emulated`` of its basis and 5 repeated calls bitwise
+   the same;
 13. solves the paper case through the two routes of this slice, each with
    the launch counters reset just before it: v1 over K3 (100 iterations,
    against the plain route) and s-step over K8 + K9 at s = 4 and 1 (100
@@ -1166,11 +1166,9 @@ def phase_v1_sstep_parity():
                 errs["K8"] = float((kb - pb).abs().max())
                 errs["K9"] = float((kr - pr).abs().max())
         print(f"  theta ({dtype}) {o['theta']:.6e}", flush=True)
-    # K8's launch plan on every size it runs here, both variants of the plan
-    # (the metric in shared memory, or read through L2), the Gram partials
-    # in the kernel's order of terms, and repeats (a missing grid sync or a
-    # stale read of a neighbour's A_loc v shows as calls that disagree)
-    variants = set()
+    # K8's launch plan on every size it runs here, the Gram partials in the
+    # kernel's order of terms, and repeats (a missing grid sync or a stale
+    # read of a neighbour's A_loc v shows as calls that disagree)
     for dtype, basis_tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
         for n, grid, ss in ((10, PAPER_GRID, (1, 2, SSTEP_S)),
                             (10, BIG_GRID, (1, 2, SSTEP_S)),
@@ -1183,10 +1181,8 @@ def phase_v1_sstep_parity():
             for s in ss:
                 tag = f"{dtype} n={n} E={E} s={s}"
                 plan, info = K.nekbone_ax_powers_plan(E, n, s, dtype)
-                variants.add(plan.variant)
-                print(f"  K8 {tag}: {plan.variant}-memory metric, one "
-                      f"cooperative launch of {plan.grid} blocks "
-                      f"({info['slices']} elements side by side, "
+                print(f"  K8 {tag}: one cooperative launch of {plan.grid} "
+                      f"blocks ({info['slices']} elements side by side, "
                       f"{plan.per_block} owned), {plan.blocks_per_sm} blocks "
                       f"per SM on {info['sm_count']} SMs, {plan.smem_bytes} "
                       f"bytes dynamic + {info['static_smem']} static shared "
@@ -1217,8 +1213,6 @@ def phase_v1_sstep_parity():
                 del kb, kg, em, reps
             del o, args
             torch.cuda.empty_cache()
-    check(variants == {"shared", "device"},
-          f"K8: both variants of the plan ran ({sorted(variants)})")
     torch.cuda.synchronize()
     return errs
 
@@ -1601,18 +1595,17 @@ def phase_slice3_times(routes, v2_solve_ms):
     return out
 
 
-def _k8_moved_fields(s: int, resident: bool) -> int:
+def _k8_moved_fields(s: int) -> int:
     """Fields one K8 call moves through L2 or device memory
     (csrc/nekbone_ax_powers.cu): p (and r when s >= 2) at the start; the
-    metric once per step with an application (once in all when resident);
-    per application its unassembled output; per assembly its input and its
-    basis vector; the Gram's 2s + 1 vectors once per pass (n = 10: 3 x 3
-    tiles of pairs, ten a pass)."""
+    metric once per step with an application; per application its
+    unassembled output; per assembly its input and its basis vector; the
+    Gram's 2s + 1 vectors once per pass (n = 10: 3 x 3 tiles of pairs, ten a
+    pass)."""
     K = 2 * s + 1
     apps = 2 * s - 1
     tiles = -(-K // 3) * (-(-K // 3) + 1) // 2
-    metric = 3 if resident else 3 * s
-    return ((2 if s >= 2 else 1) + metric + apps + 2 * apps
+    return ((2 if s >= 2 else 1) + 3 * s + apps + 2 * apps
             + K * -(-tiles // 10))
 
 
@@ -1676,12 +1669,12 @@ def phase_slice4_times(bw_copy, routes, rows):
                 (2 * s - 1) * E * n3 * 12 * n,
                 E * n3 * (6 * (2 * s - 1) + 3 * K_ * (K_ + 1) // 2), bw_copy)
             plan, info = K.nekbone_ax_powers_plan(E, n, s, torch.float64)
-            fields = _k8_moved_fields(s, plan.resident)
+            fields = _k8_moved_fields(s)
             moved = fields * field + gram_bytes
             row8["moved_bytes"] = moved
-            print(f"  K8 s={s} E={E}: one cooperative launch, "
-                  f"{plan.variant}-memory metric (grid {plan.grid}, "
-                  f"{plan.blocks_per_sm} blocks per SM, {plan.smem_bytes} + "
+            print(f"  K8 s={s} E={E}: one cooperative launch (grid "
+                  f"{plan.grid}, {plan.blocks_per_sm} blocks per SM, "
+                  f"{plan.smem_bytes} + "
                   f"{info['static_smem']} bytes shared, {info['registers']} "
                   f"registers), moves {fields} fields ({moved / 1e6:.1f} MB "
                   f"with the Gram partials) against the book's "

@@ -174,7 +174,7 @@ def ablate_k11():
     want, _ = K.nekbone_cheb_apply_plain(*args, n=n, k=k)
     runs = {name: (lib, plan, plan.resident) for name, lib in libs.items()}
     # the device-memory variant of the built kernel on the same E
-    runs["state in device memory"] = (libs["built"], K.K11Plan(
+    runs["state in device memory"] = (libs["built"], K.CoopPlan(
         False, plan.per_block, plan.grid, plan.blocks_per_sm, 0), False)
     for name, (lib, p, resident) in runs.items():
         z = k11_run(lib, o, p, n=n, k=k, resident=resident)

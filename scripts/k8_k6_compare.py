@@ -22,12 +22,10 @@ one lane at a time) into ``build/k8_k6_parent/``, then:
   basis is bitwise the chain's and the Gram partials bitwise
   ``ref.sstep_gram_emulated`` of it, each one's max abs error against the
   plain version, 5 repeated calls bitwise, and times both in turns
-  (earlier, new, new, earlier) at s = 1, 2, 4 on both grids (fp64); then
-  the two variants of the plan on one size each can run (fp64 E = 512,
-  fp32 E = 1024): the metric in shared memory against the metric read
-  through L2;
+  (earlier, new, new, earlier) at s = 1, 2, 4: fp64 on both grids, fp32 on
+  the paper grid;
 * K6: on b lanes (b = 1, 3, 4) shows whether p, w and pap are bitwise the
-  earlier kernel's, and times both in turns on both grids (fp64);
+  earlier kernel's, and times both in turns on both grids, fp64 and fp32;
 * SASS: builds K1, K4, K5, K10 and K11 (f64) from ``--parent`` and from the
   tree and shows whether ``cuobjdump -sass`` gives each the same
   instructions (the tree's ``common.cuh`` helpers that they share).
@@ -37,14 +35,16 @@ one lane at a time) into ``build/k8_k6_parent/``, then:
 registers, spills and SASS opcode counts (local loads and stores, shared
 and global loads, barriers, fp64 arithmetic) and times each at the paper
 grid: K8 at s = 4 with ``built``, ``no operator`` (A_loc replaced by the
-identity on the columns), ``no assembly`` (each node's own copy in place of
-the gather-scatter sum), ``no grid sync``, ``no Gram``, and the block shapes
-``4 elements a block`` at one block an SM (128 registers) or two (72); K6
-at b = 4 and 1 with ``built`` (lanes in pairs), ``no operator`` (w = p:
-what is left is the traffic), ``lanes in fours``, ``single lanes`` (every
-lane through its own layer sweep, as K4's operator) and ``three blocks an
-SM`` (a register cap for three blocks, not two).  A variant that computes another
-function says so; only ``built`` is held against the plain version.
+identity on the columns), ``no assembly`` (each node's own copy in place
+of the gather-scatter sum), ``no grid sync``, ``no Gram``, and the block
+shapes ``4 elements a block`` at one block an SM (128 registers) or two
+(72); K6 at b = 4 and 1 with ``built`` (lanes in pairs, one element a
+block), ``no operator`` (w = p: what is left is the traffic), ``lone
+lane's metric through L2`` (read layer by layer, as a pair reads it),
+``lanes in fours``, ``single lanes`` (every lane through its own layer
+sweep, as K4's operator) and ``at 80 registers`` (a register cap for six
+blocks an SM, not four), b = 1 also on the 16x16x16 grid.  A variant that computes another function says so; only
+``built`` is held against the plain version.
 """
 from __future__ import annotations
 
@@ -140,9 +140,8 @@ def planned_k8(fn, plan, p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta, *,
     scratch = torch.empty(4, E, n ** 3, dtype=p2.dtype, device=p2.device)
     err = fn(*(t.data_ptr() for t in (p2, r2, D, g3, mx, my, mz, cx, cy, cz,
                                       inv_theta, basis, gram, *scratch)),
-             mx.shape[0], my.shape[0], mz.shape[0], n, s, int(plan.resident),
-             plan.per_block, plan.grid,
-             torch.cuda.current_stream().cuda_stream)
+             mx.shape[0], my.shape[0], mz.shape[0], n, s, plan.per_block,
+             plan.grid, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"K8 with plan {plan}: CUDA error {err}")
     return basis, gram
@@ -190,7 +189,7 @@ def compare_k8(libs, smi):
                      (1024, torch.float32)):
         for s in (1, 2, 4):
             plan, info = K.nekbone_ax_powers_plan(E, n, s, dtype)
-            print(f"  plan E={E} {dtype} s={s}: {plan.variant} variant, grid "
+            print(f"  plan E={E} {dtype} s={s}: grid "
                   f"{plan.grid}, {plan.per_block} elements per block, "
                   f"{plan.blocks_per_sm} blocks per SM, {plan.smem_bytes} "
                   f"bytes dynamic + {info['static_smem']} static shared, "
@@ -224,48 +223,15 @@ def compare_k8(libs, smi):
                   f"{float((gk - gp).abs().max() / gp.abs().max()):.3e}, "
                   f"chain {float((gc - gp).abs().max() / gp.abs().max()):.3e}"
                   f"; 5 repeats bitwise {same}", flush=True)
-            if dtype == torch.float64:
-                fns = {"chain": lambda: chain_k8(chain, *args, n=n, s=s),
-                       "new": lambda: K.nekbone_ax_powers_cuda(*args, n=n,
-                                                               s=s)}
-                times = [(lb, cs.device_ms(fns[lb]) * 1e3)
-                         for lb in ("chain", "new", "new", "chain")]
-                print(f"  E={E} s={s} us, in turns: "
-                      + ", ".join(f"{lb} {t:.1f}" for lb, t in times),
-                      flush=True)
+            fns = {"chain": lambda: chain_k8(chain, *args, n=n, s=s),
+                   "new": lambda: K.nekbone_ax_powers_cuda(*args, n=n, s=s)}
+            times = [(lb, cs.device_ms(fns[lb]) * 1e3)
+                     for lb in ("chain", "new", "new", "chain")]
+            print(f"  E={E} {dtype} s={s} us, in turns: "
+                  + ", ".join(f"{lb} {t:.1f}" for lb, t in times),
+                  flush=True)
         del args
         torch.cuda.empty_cache()
-    # the two variants of the plan on one size each can run
-    for grid, dtype, mix in (((8, 8, 8), torch.float64, "f64"),
-                             (cs.PAPER_GRID, torch.float32, "f32")):
-        case, args = _sstep_case(grid, dtype)
-        E = case.mesh.nelt
-        fn = getattr(K._build.load(f"nekbone_ax_powers_{mix}"),
-                     f"nekbone_ax_powers_{mix}")
-        fn.argtypes, fn.restype = K._ARGTYPES["nekbone_ax_powers"], ctypes.c_int
-        s = cs.SSTEP_S
-        plan, info = K.nekbone_ax_powers_plan(E, n, s, dtype)
-        index = torch.cuda.current_device()
-        device_plan = K.k8_plan(
-            E, n, s, dtype, info["sm_count"],
-            lambda res, dyn: 0 if res else K._coop_query(
-                "nekbone_ax_powers", mix, n, False, dyn, index)[0],
-            K._coop_query("nekbone_ax_powers", mix, n, True, 0, index)[3],
-            slices=info["slices"])
-        want, _ = K.nekbone_ax_powers_cuda(*args, n=n, s=s)
-        row = []
-        for label, pl in (("planned", plan), ("device", device_plan)):
-            b, _ = planned_k8(fn, pl, *args, n=n, s=s)
-            torch.cuda.synchronize()
-            us = cs.device_ms(lambda: planned_k8(fn, pl, *args, n=n, s=s)) * 1e3
-            row.append(f"{label} ({pl.variant}: grid {pl.grid}, "
-                       f"{pl.blocks_per_sm} blocks per SM, {pl.smem_bytes} "
-                       f"bytes) {us:.1f} us, basis bitwise "
-                       f"{torch.equal(b, want)}")
-        print(f"  K8 variants E={E} {dtype} s={s}: " + "; ".join(row),
-              flush=True)
-        del args
-    torch.cuda.empty_cache()
 
 
 def compare_k6(libs, smi):
@@ -277,8 +243,8 @@ def compare_k6(libs, smi):
     from repro_torch.kernels import nekbone_ax as K
     from repro_torch.kernels import ops
 
-    print(f"== K6: lanes in pairs beside the one-element kernel ({smi})",
-          flush=True)
+    print(f"== K6: lanes in pairs beside the kernel of one lane at a time "
+          f"({smi})", flush=True)
     n = 10
     rng = np.random.default_rng(5)
     for grid in (cs.PAPER_GRID, cs.BIG_GRID):
@@ -300,17 +266,15 @@ def compare_k6(libs, smi):
                 was = block_k6(old, *args, n=n)
                 torch.cuda.synchronize()
                 same = all(torch.equal(a, z) for a, z in zip(new, was))
-                line = (f"  E={E} {dtype} b={b}: p, w, pap bitwise the "
-                        f"earlier K6 {same}")
-                if dtype == torch.float64:
-                    fns = {"earlier": lambda: block_k6(old, *args, n=n),
-                           "new": lambda: K.nekbone_ax_slab_block_cuda(
-                               *args, n=n)}
-                    times = [(lb, cs.device_ms(fns[lb]) * 1e3)
-                             for lb in ("earlier", "new", "new", "earlier")]
-                    line += "; us, in turns: " + ", ".join(
-                        f"{lb} {t:.1f}" for lb, t in times)
-                print(line, flush=True)
+                fns = {"earlier": lambda: block_k6(old, *args, n=n),
+                       "new": lambda: K.nekbone_ax_slab_block_cuda(*args,
+                                                                   n=n)}
+                times = [(lb, cs.device_ms(fns[lb]) * 1e3)
+                         for lb in ("earlier", "new", "new", "earlier")]
+                print(f"  E={E} {dtype} b={b}: p, w, pap bitwise the earlier "
+                      f"K6 {same}; us, in turns: "
+                      + ", ".join(f"{lb} {t:.1f}" for lb, t in times),
+                      flush=True)
                 del o, P, R, args, new, was
             torch.cuda.empty_cache()
 
@@ -369,7 +333,7 @@ def k8_variants(src: str) -> dict[str, str]:
     src = _edit(src, "    NEKBONE_FOR_EACH_N(NEKBONE_CASE)",
                 "    NEKBONE_CASE(10)")
     gram = src[src.index("  // the Gram of the owned elements"):
-               src.index("template <int N, typename T, bool RESIDENT>\n"
+               src.index("template <int N, typename T>\n"
                          "size_t dyn_bytes(")]
     copy = ("#pragma unroll\n    for (int k = 0; k < N; ++k) {{ {0} }}")
     no_op = _edit(
@@ -402,7 +366,7 @@ def k8_variants(src: str) -> dict[str, str]:
 def k6_variants(src: str) -> dict[str, str]:
     src = _edit(src, "    NEKBONE_FOR_EACH_N(NEKBONE_CASE)",
                 "    NEKBONE_CASE(10)")
-    start = src.index("  if constexpr (W == 1) {\n    ax_diag_columns(")
+    start = src.index("  if constexpr (W == 1) {\n    ax_diag_columns_g(")
     end = src.index("ax_diag_columns_lanes(*a.sh, ge, uc, wc, i, j);\n  }\n",
                     start) + len("ax_diag_columns_lanes(*a.sh, ge, uc, wc, i, "
                                  "j);\n  }\n")
@@ -413,11 +377,16 @@ def k6_variants(src: str) -> dict[str, str]:
             "    for (int k = 0; k < N; ++k)\n"
             "      wc[q][k] = W == 1 ? pc[k] : col[q][k * N2];\n")
         + src[end:],
+        "lone lane's metric through L2": _edit(
+            src, "    ax_diag_columns_g(\n        a.sh->one, [&gc](int c, int k) "
+                 "{ return gc[c][k]; }, pc, wc[0], i,\n        j);",
+            "    ax_diag_columns(a.sh->one, ge, pc, wc[0], i, j);"),
         "lanes in fours": _edit(src, "constexpr int kLanes = 2;",
                                 "constexpr int kLanes = 4;"),
         "single lanes": _edit(src, "constexpr int kLanes = 2;",
                               "constexpr int kLanes = 1;"),
-        "three blocks an SM": _edit(src, "kWideMinBlocks<N>", "3"),
+        "at 80 registers": _edit(src, "min_blocks(N * N, 128)",
+                                 "min_blocks(N * N, 80)"),
     }
 
 
@@ -473,9 +442,9 @@ def variant_plan(lib, E: int, n: int, s: int):
             raise RuntimeError("K8 variant: occupancy query failed")
         return tuple(out)
 
-    info = query(True, 0)
-    return K.k8_plan(E, n, s, torch.float64, info[4],
-                     lambda res, dyn: query(res, dyn)[0], info[3],
+    info = query(False, 0)
+    return K.k8_plan(E, n, torch.float64, info[4],
+                     lambda res, dyn: query(res, dyn)[0], info[3], s=s,
                      slices=info[6])
 
 
@@ -501,7 +470,7 @@ def ablate(smi):
         b, _ = planned_k8(fn, plan, *args, n=n, s=s)
         torch.cuda.synchronize()
         us = cs.device_ms(lambda: planned_k8(fn, plan, *args, n=n, s=s)) * 1e3
-        print(f"  K8 E={case.mesh.nelt} s={s} ({plan.variant} variant, grid "
+        print(f"  K8 E={case.mesh.nelt} s={s} (grid "
               f"{plan.grid}, {plan.blocks_per_sm} blocks an SM), "
               f"{name}: {us:.1f} us; basis max rel err vs plain "
               f"{cs.rel_err(b, want):.2e}", flush=True)
@@ -519,6 +488,12 @@ def ablate(smi):
     beta = torch.full((b,), 0.37, dtype=torch.float64, device="cuda")
     k6 = (P, R, case.D, g3, *m, beta)
     _, want, _ = K.nekbone_ax_slab_block_plain(*k6, n=n)
+    # one lane on the 16x16x16 grid, where the metric is past L2
+    big = NekboneCase(n=n, grid=cs.BIG_GRID, dtype=torch.float64)
+    bo = cs._v2_operands(big, rng)
+    bm, _ = ops.slab_axis_factors(big.grid, n, torch.float64, "cuda")
+    one_big = (bo["p"][None], bo["r"][None], big.D,
+               ops.diag_metric(big.g, big.mesh.nelt, n), *bm, beta[:1])
     for name, (fn, _) in libs.items():
         fn.argtypes = [_P] * 11 + [_I] * 5 + [_P]
         _, w, _ = block_k6(fn, *k6, n=n)
@@ -526,8 +501,10 @@ def ablate(smi):
         us = cs.device_ms(lambda: block_k6(fn, *k6, n=n)) * 1e3
         one = (P[:1], R[:1], case.D, g3, *m, beta[:1])
         us1 = cs.device_ms(lambda: block_k6(fn, *one, n=n)) * 1e3
-        print(f"  K6 E={E} b={b}, {name}: {us:.1f} us (b=1: {us1:.1f} us); "
-              f"w max rel err vs plain {cs.rel_err(w, want):.2e}", flush=True)
+        us1b = cs.device_ms(lambda: block_k6(fn, *one_big, n=n)) * 1e3
+        print(f"  K6 E={E} b={b}, {name}: {us:.1f} us (b=1: {us1:.1f} us; "
+              f"b=1 at E={big.mesh.nelt}: {us1b:.1f} us); w max rel err vs "
+              f"plain {cs.rel_err(w, want):.2e}", flush=True)
 
 
 def main() -> int:

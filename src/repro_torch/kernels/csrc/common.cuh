@@ -14,11 +14,12 @@
 //   products are the same from run to run (no atomics).
 // * The local operator of one element, with the full metric (K1, K2, K3)
 //   or its diagonal (K4, K6, K8, K11), for one input or several (K6's
-//   lanes, K8's two chains) through one layer sweep, and the node-by-node direct-stiffness sum of an
-//   unassembled field in core/gs.ds_sum_local's tree (K5, K7, K10; K8 and
-//   K11 in a branch-free form with coherent loads).
+//   lanes, K8's two chains) through one layer sweep, and the node-by-node
+//   direct-stiffness sum of an unassembled field in core/gs.ds_sum_local's
+//   tree (K5, K7, K10; K8 and K11 in a branch-free form with coherent
+//   loads).
 // * The block shape and occupancy query of the persistent cooperative
-//   kernels (K8, K11).
+//   kernels (K8, K11), and the register cap of K6's.
 // * Dispatch of the run-time n (2..16) to the template instantiations.
 // * Storage apart from accumulation.  A field is loaded in its storage type
 //   and upcast to the accumulation type (convert), the arithmetic runs in
@@ -365,7 +366,7 @@ __device__ __forceinline__ void masked_ax(AxShared<N, T>& sh,
 template <int N>
 constexpr int kSlices = N >= 12 ? 2 : N >= 8 ? 4 : N >= 5 ? 8 : 16;
 // Blocks an SM must hold at up to `registers` registers a thread: ptxas
-// keeps to what lets them be resident.
+// keeps to what lets them be resident (also K6's cap).
 constexpr int min_blocks(int threads, int registers) {
   const int fit = 65536 / (registers * ((threads + 31) / 32 * 32));
   return fit > 1 ? fit : 1;
@@ -374,10 +375,10 @@ constexpr int min_blocks(int threads, int registers) {
 // 74-78): 72 at n = 10, two blocks of 13 warps.
 template <int N>
 constexpr int kMinBlocks = min_blocks(N * N * kSlices<N>, 78);
-// K6 and K8 hold two operator outputs a thread (2n values: K6's lanes in
-// pairs, K8's two chains): about 256 threads a block, and two blocks an SM
-// at up to 128 registers (at K11's shape the outputs spill, and both are
-// slower; scripts/k8_k6_compare.py --ablation).
+// K8 holds two operator outputs a thread (2n values: its two chains):
+// about 256 threads a block, and two blocks an SM at up to 128 registers
+// (at K11's shape the outputs spill, and it is slower;
+// scripts/k8_k6_compare.py --ablation).
 template <int N>
 constexpr int kWideSlices = 256 / (N * N) > 1 ? 256 / (N * N) : 1;
 template <int N>

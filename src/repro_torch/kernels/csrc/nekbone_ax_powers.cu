@@ -47,14 +47,12 @@
 // storage before the next application and before the Gram reads it (T is
 // both the storage and the accumulation type, f32 or f64).
 //
-// Where the metric diagonals live is a template parameter, chosen by
-// kernels/nekbone_ax.k8_plan: RESIDENT copies the owned elements' metric
-// into dynamic shared memory once, at the start, where it fits (24 KB an
-// element at fp64, n = 10: not at the paper case's E = 1024, where four
-// owned elements' metric leaves room for one block an SM, not two);
-// otherwise every application reads it through L2 (24.6 MB at E = 1024,
-// beside the four A v buffers' 32.8 MB).  Where both run, they take the
-// same time (fp64 at E = 512, fp32 at E = 1024).
+// Every application reads the metric diagonals through L2 (24.6 MB at
+// E = 1024, beside the four A v buffers' 32.8 MB).  A copy of the owned
+// elements' metric in shared memory (24 KB an element at fp64, n = 10)
+// measured slower where it fit: 224.7 us against 162.0 at fp64 E = 512,
+// s = 4, since it leaves room for one block an SM, not two (PERF.md).
+// kernels/nekbone_ax.k8_plan sizes the grid.
 //
 // The Gram is spread over every thread of a slice: the (2s+1)^2 pairs form
 // 3 x 3 tiles, thread (i, j) takes tile j (of a pass of n tiles) and row i
@@ -64,8 +62,9 @@
 // flight while one is summed.  The order of terms is fixed: per row the
 // layers in order and each layer's nodes in order, then the n rows in
 // order, every product and sum rounded on its own
-// (kernels/ref.sstep_gram_emulated reproduces the partials bitwise).  The partials are summed over elements
-// by torch.sum; only the (2s+1)^2 matrix goes to the host.
+// (kernels/ref.sstep_gram_emulated reproduces the partials bitwise).  The
+// partials are summed over elements by torch.sum; only the (2s+1)^2 matrix
+// goes to the host.
 //
 // Bound: bytes.  The book is p, r and the 3 metric diagonals in and the
 // 2s - 1 basis vectors out: 12 fields at s=4, 98.3 MB at E=1024, n=10, fp64
@@ -73,9 +72,9 @@
 // work is (2s - 1)(12n + 10) flops per node for the applications and 3 per
 // pair and node for the Gram, 1.1 GF at s=4: below the bytes' time.  What
 // the design moves (chip_smoke.py prints it): p and r; per step with an
-// application the metric (once in all when resident); per application its
-// unassembled output; per stored vector its assembled input and its basis
-// write; the Gram's vectors once.  On the card the operator's
+// application the metric; per application its unassembled output; per
+// stored vector its assembled input and its basis write; the Gram's vectors
+// once.  On the card the operator's
 // shared-memory reads take most of the time, as in K11
 // (scripts/k8_k6_compare.py --ablation).
 #include <cooperative_groups.h>
@@ -151,7 +150,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // last round of the last block) computes on the block's last element and
 // stores nothing outside its own shared scratch, so that it still meets
 // every barrier.  per_block is a multiple of P.
-template <int N, typename T, bool RESIDENT>
+template <int N, typename T>
 struct PowersNode {
   size_t e;       // the element the slice computes on
   bool active;    // e is its own
@@ -177,18 +176,15 @@ struct PowersNode {
     scratch = smem + static_cast<size_t>(p) * slot;
     colp = scratch + tid;
     colr = scratch + N3 + tid;
-    // RESIDENT: [slice scratch][owned element][3][layer][thread]; a slot
-    // past the range is allocated and never loaded
-    gm = RESIDENT ? smem + static_cast<size_t>(P) * slot + local * 3 * N3 + tid
-                  : a.g3 + e * 3 * N3 + tid;
+    gm = a.g3 + e * 3 * N3 + tid;
   }
 };
 
 // mask * wc, unassembled, into ad (active slices only): common.cuh
 // masked_ax's product.
-template <int N, typename T, bool RESIDENT>
+template <int N, typename T>
 __device__ __forceinline__ void masked_store(
-    const PowersArgs<T>& a, const PowersNode<N, T, RESIDENT>& nd,
+    const PowersArgs<T>& a, const PowersNode<N, T>& nd,
     const T (&wc)[N], T* ad, int i, int j) {
   constexpr int N2 = N * N;
   const T myx = a.my[nd.iy * N + j] * a.mx[nd.ix * N + i];
@@ -204,10 +200,10 @@ __device__ __forceinline__ void masked_store(
 // common.cuh masked_ax, operation for operation, with the columns read from
 // shared memory; ax_diag_columns_lanes gives each output bitwise what
 // ax_diag_columns gives it alone.
-template <int N, typename T, bool RESIDENT>
+template <int N, typename T>
 __device__ __forceinline__ void powers_ax(AxSharedL<N, T, 2>& sh,
                                           const PowersArgs<T>& a,
-                                          const PowersNode<N, T, RESIDENT>& nd,
+                                          const PowersNode<N, T>& nd,
                                           T* adp, T* adr, int i, int j) {
   if (adr != nullptr) {
     T w[2][N];
@@ -226,9 +222,9 @@ __device__ __forceinline__ void powers_ax(AxSharedL<N, T, 2>& sh,
 // and, when the chain goes on (keep), into the thread's column col.  A
 // layer at a time: unrolled, the eight loads of every layer in flight at
 // once spill registers (scripts/k8_k6_compare.py --ablation).
-template <int N, typename T, bool RESIDENT>
+template <int N, typename T>
 __device__ __forceinline__ void powers_assemble(
-    const PowersArgs<T>& a, const PowersNode<N, T, RESIDENT>& nd,
+    const PowersArgs<T>& a, const PowersNode<N, T>& nd,
     const T* ad_in, T* col, bool keep, int m, T ith, int i, int j) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
@@ -246,9 +242,9 @@ __device__ __forceinline__ void powers_assemble(
 // Layer k of the slice's element into the staging buffer buf ([2s + 2]
 // [row][n + 1]): thread (i, j) copies its node of the 2s + 1 vectors, in
 // V's order, and stores c there last.  The caller commits the group.
-template <int N, typename T, bool RESIDENT>
+template <int N, typename T>
 __device__ __forceinline__ void gram_stage(
-    const PowersArgs<T>& a, const PowersNode<N, T, RESIDENT>& nd, T* buf,
+    const PowersArgs<T>& a, const PowersNode<N, T>& nd, T* buf,
     int k, int i, int j) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
@@ -278,9 +274,9 @@ __device__ __forceinline__ void gram_stage(
 // is summed.  Then the tile's first thread sums its n rows in
 // order.  A diagonal tile's pairs a > b are computed and dropped; an index
 // past 2s is clamped and dropped.
-template <int N, typename T, bool RESIDENT>
+template <int N, typename T>
 __device__ __forceinline__ void powers_gram(
-    const PowersArgs<T>& a, const PowersNode<N, T, RESIDENT>& nd, int i,
+    const PowersArgs<T>& a, const PowersNode<N, T>& nd, int i,
     int j) {
   constexpr int N2 = N * N;
   constexpr int NP = N * (N + 1);
@@ -387,12 +383,11 @@ __device__ __forceinline__ void powers_gram(
 // Block (N, N, P): slice p = threadIdx.z works on its own element of each
 // round, with its own operator layers and scratch; the barriers inside the
 // operator and the Gram are block-wide, so every slice runs every round.
-template <int N, typename T, bool RESIDENT>
+template <int N, typename T>
 __global__ void __launch_bounds__(N * N * kWideSlices<N>,
                                   kWideMinBlocks<N>)
 nekbone_powers_kernel(const PowersArgs<T> a) {
   constexpr int N2 = N * N;
-  constexpr int N3 = N * N * N;
   constexpr int P = kWideSlices<N>;
   __shared__ AxSharedL<N, T, 2> sh_all[P];
   extern __shared__ __align__(16) unsigned char scratch_bytes[];
@@ -411,23 +406,12 @@ nekbone_powers_kernel(const PowersArgs<T> a) {
   const int rounds = static_cast<int>((last - first + P - 1) / P);
 
   load_D(sh.one, a.D, i, j);
-  if (RESIDENT) {
-    // the owned elements' metric, once; published by the barrier below
-    T* sm = smem + static_cast<size_t>(P) * slot;
-    const T* src = a.g3 + first * 3 * N3;
-    const size_t count = (last - first) * 3 * N3;
-    for (size_t t = tid + static_cast<size_t>(p) * N2; t < count;
-         t += static_cast<size_t>(P) * N2)
-      sm[t] = src[t];
-    __syncthreads();
-  }
   const T ith = *a.inv_theta;
 
   // start: A_loc p into adp0 and, when the r chain has a step, A_loc r
   // into adr0 through the same layer sweep
   for (int q = 0; q < rounds; ++q) {
-    const PowersNode<N, T, RESIDENT> nd(a, smem, slot, first, last, q, p,
-                                        tid);
+    const PowersNode<N, T> nd(a, smem, slot, first, last, q, p, tid);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       nd.colp[k * N2] = a.p[nd.base + k * N2];
@@ -444,8 +428,7 @@ nekbone_powers_kernel(const PowersArgs<T> a) {
     const T* inr = odd ? a.adr0 : a.adr1;
     T* outr = odd ? a.adr1 : a.adr0;
     for (int q = 0; q < rounds; ++q) {
-      const PowersNode<N, T, RESIDENT> nd(a, smem, slot, first, last, q, p,
-                                          tid);
+      const PowersNode<N, T> nd(a, smem, slot, first, last, q, p, tid);
       // chain c = 0 (p) stores A'^step p in slot step - 1 and goes on
       // while step < s; chain 1 (r) stores A'^step r in slot s + step - 1
       // while step <= s - 1, and goes on while step < s - 1
@@ -463,33 +446,30 @@ nekbone_powers_kernel(const PowersArgs<T> a) {
   // last operator's reads of the columns before the staging
   __syncthreads();
   for (int q = 0; q < rounds; ++q) {
-    const PowersNode<N, T, RESIDENT> nd(a, smem, slot, first, last, q, p,
-                                        tid);
+    const PowersNode<N, T> nd(a, smem, slot, first, last, q, p, tid);
     powers_gram(a, nd, i, j);
   }
 }
 
-template <int N, typename T, bool RESIDENT>
-size_t dyn_bytes(int s, int per_block) {
-  return (static_cast<size_t>(kWideSlices<N>) * scratch_values(N, s) +
-          (RESIDENT ? static_cast<size_t>(per_block) * 3 * N * N * N : 0)) *
+template <int N, typename T>
+size_t dyn_bytes(int s) {
+  return static_cast<size_t>(kWideSlices<N>) * scratch_values(N, s) *
          sizeof(T);
 }
 
 // out: common.cuh coop_query's seven values for this instantiation.
-template <int N, typename T, bool RESIDENT>
+template <int N, typename T>
 cudaError_t query(int dyn, int* out) {
   return coop_query(
-      reinterpret_cast<const void*>(&nekbone_powers_kernel<N, T, RESIDENT>),
+      reinterpret_cast<const void*>(&nekbone_powers_kernel<N, T>),
       N * N * kWideSlices<N>, kWideSlices<N>, dyn, out);
 }
 
-template <int N, typename T, bool RESIDENT>
+template <int N, typename T>
 cudaError_t launch(const PowersArgs<T>& a, int grid, cudaStream_t stream) {
   if (a.per_block % kWideSlices<N> != 0) return cudaErrorInvalidValue;
-  const void* fn =
-      reinterpret_cast<const void*>(&nekbone_powers_kernel<N, T, RESIDENT>);
-  const size_t dyn = dyn_bytes<N, T, RESIDENT>(a.s, a.per_block);
+  const void* fn = reinterpret_cast<const void*>(&nekbone_powers_kernel<N, T>);
+  const size_t dyn = dyn_bytes<N, T>(a.s);
   const cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
   if (err != cudaSuccess) return err;
@@ -500,12 +480,11 @@ cudaError_t launch(const PowersArgs<T>& a, int grid, cudaStream_t stream) {
 }
 
 template <typename T>
-int dispatch_query(int n, int resident, int dyn, int* out) {
+int dispatch_query(int n, int dyn, int* out) {
   switch (n) {
-#define NEKBONE_CASE(N)                                                  \
-  case N:                                                                \
-    return static_cast<int>(resident ? query<N, T, true>(dyn, out)       \
-                                     : query<N, T, false>(dyn, out));
+#define NEKBONE_CASE(N) \
+  case N:               \
+    return static_cast<int>(query<N, T>(dyn, out));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -514,8 +493,7 @@ int dispatch_query(int n, int resident, int dyn, int* out) {
 }
 
 template <typename T>
-int dispatch(const PowersArgs<T>& a, int n, int resident, int grid,
-             void* stream) {
+int dispatch(const PowersArgs<T>& a, int n, int grid, void* stream) {
   const long long E = static_cast<long long>(a.ex) * a.ey * a.ez;
   if (a.ex <= 0 || a.ey <= 0 || a.ez <= 0 || a.s < 1 || a.s > kSstepMaxS ||
       a.per_block < 1 || grid < 1 ||
@@ -524,10 +502,9 @@ int dispatch(const PowersArgs<T>& a, int n, int resident, int grid,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n) {
-#define NEKBONE_CASE(N)                                                   \
-  case N:                                                                 \
-    return static_cast<int>(resident ? launch<N, T, true>(a, grid, st)    \
-                                     : launch<N, T, false>(a, grid, st));
+#define NEKBONE_CASE(N) \
+  case N:               \
+    return static_cast<int>(launch<N, T>(a, grid, st));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -542,28 +519,30 @@ int dispatch(const PowersArgs<T>& a, int n, int resident, int grid,
 // inv_theta: one value; basis: (E, 2s-1, n^3); gram: (E, 2s+1, 2s+1).
 // Elements z-major over (EX, EY, EZ); 1 <= s <= 10; block b owns elements
 // [b * per_block, (b + 1) * per_block), and every block owns one.  One
-// cooperative launch of `grid` blocks, the metric in shared memory when
-// `resident`; returns its error (cudaErrorCooperativeLaunchTooLarge when the
-// grid cannot be resident at once), or 0.
+// cooperative launch of `grid` blocks; returns its error
+// (cudaErrorCooperativeLaunchTooLarge when the grid cannot be resident at
+// once), or 0.
 //
 // nekbone_ax_powers_query_<dtype>(n, resident, dyn, out): fills out[7] as
-// common.cuh coop_query documents; returns a CUDA error, or 0.
+// common.cuh coop_query documents; returns a CUDA error, or 0.  K8 has one
+// instantiation, so `resident` is ignored (it keeps the form of K11's
+// query).
 #define NEKBONE_POWERS_ENTRY(SUFFIX, T)                                       \
   extern "C" int nekbone_ax_powers_##SUFFIX(                                  \
       const T* p, const T* r, const T* D, const T* g3, const T* mx,           \
       const T* my, const T* mz, const T* cx, const T* cy, const T* cz,        \
       const T* inv_theta, T* basis, T* gram, T* ad0p, T* ad1p, T* ad0r,       \
-      T* ad1r, int ex, int ey, int ez, int n, int s, int resident,            \
-      int per_block, int grid, void* stream) {                                \
+      T* ad1r, int ex, int ey, int ez, int n, int s, int per_block,           \
+      int grid, void* stream) {                                               \
     const nekbone::PowersArgs<T> a{p,     r,    D,    g3,   mx,   my,   mz,   \
                                    cx,    cy,   cz,   inv_theta,  basis,      \
                                    gram,  ad0p, ad1p, ad0r, ad1r, ex,   ey,   \
                                    ez,    s,    per_block};                   \
-    return nekbone::dispatch<T>(a, n, resident, grid, stream);                \
+    return nekbone::dispatch<T>(a, n, grid, stream);                          \
   }                                                                           \
-  extern "C" int nekbone_ax_powers_query_##SUFFIX(int n, int resident,        \
+  extern "C" int nekbone_ax_powers_query_##SUFFIX(int n, int /*resident*/,   \
                                                   int dyn, int* out) {        \
-    return nekbone::dispatch_query<T>(n, resident, dyn, out);                 \
+    return nekbone::dispatch_query<T>(n, dyn, out);                           \
   }
 
 #ifdef NEKBONE_REAL_F64

@@ -7,32 +7,31 @@
 //
 // Replaces the TPU kernel
 // src/repro/kernels/nekbone_ax.py:nekbone_ax_slab_block_kernel (pallas_call
-// at :825).  As in K4 (nekbone_ax_slab.cu) the work is per element, an
-// n x n thread layer marching the k layers, the unassembled masked w out,
-// the assembly left to the update kernel (K7).  What bounds it on the card
-// is the operator's shared-memory traffic and barriers, not device memory
-// (K4 and K11 measured that), so the design shares them between lanes and
-// keeps enough warps in flight:
+// at :825).  As in K4 (nekbone_ax_slab.cu) the work is per element: one
+// block, an n x n thread layer marching the k layers, the unassembled
+// masked w out, the assembly left to the update kernel (K7).  What bounds
+// it on the card is the operator's shared-memory traffic and barriers, not
+// device memory (K4 and K11 measured that), so the design shares them
+// between lanes and keeps enough warps in flight:
 //
-// * a block is (n, n, P) threads, P elements side by side (common.cuh
-//   kWideSlices, 2 at n = 10), each slice with its own operator layers, and
-//   the register cap of __launch_bounds__ lets kWideMinBlocks blocks share
-//   an SM (2 at n = 10: up to 128 registers, 14 warps; at three blocks' 80
-//   registers the pairs spill, and the kernel is slower);
 // * the lanes go through the layer sweep in pairs (kLanes; blockIdx.y picks
 //   the pair, an odd b's last lane runs alone): common.cuh's
 //   ax_diag_columns_lanes reads each value of D and of the metric once, and
 //   takes two barriers a layer, for both lanes;
 // * a pair's p columns, the operator's inputs, live in dynamic shared
-//   memory (one column of n^3 values per lane and slice), the outputs wc in
-//   registers; a lane alone keeps its column in registers, as K4 does; the
-//   metric is read once per pair (from device memory, then mostly from
-//   L2).
+//   memory (one column of n^3 values per lane), the outputs wc in
+//   registers, and the metric is read once per pair, layer by layer (from
+//   device memory, then mostly from L2); a lane alone keeps its column and
+//   its metric in registers, as the kernel of one lane at a time did;
+// * the register cap of __launch_bounds__ is 128, four blocks of 100
+//   threads an SM at n = 10 (at 80 registers the pairs spill, and the
+//   kernel is slower).  Two elements side by side in a block measured no
+//   faster at b = 4 and slower at b = 1 (PERF.md), so a block holds one.
 //
 // Each lane keeps K4's arithmetic operation for operation: the same rounded
 // p update, the operator's products contracted and summed in the same
-// order, the same mask product, and pap summed by block_sum<N2>'s tree per
-// slice.  Each lane's p, w and pap are therefore bitwise K4's on that lane.
+// order, the same mask product, and pap summed by block_sum<N2>'s tree.
+// Each lane's p, w and pap are therefore bitwise K4's on that lane.
 //
 // Bound: bytes.  Per lane p_prev and r in, p and w out (4 fields), plus the
 // 3 metric diagonals once: (4b + 3) fields, 8.19 MB each at E=1024, n=10,
@@ -49,7 +48,7 @@ namespace nekbone {
 // spill at the register cap, and the kernel is slower;
 // scripts/k8_k6_compare.py --ablation).
 constexpr int kLanes = 2;
-// The operands of one launch and the slice's element.
+// The operands of one launch and the block's element.
 template <int N, typename T>
 struct BlockLanes {
   const T* __restrict__ p_prev;
@@ -66,13 +65,12 @@ struct BlockLanes {
   T (*red)[N * N];  // [kLanes][n^2]: the pap sums
   T* cols;          // [kLanes][n^3]: the lanes' p columns
   size_t e, E;
-  bool active;
   int ix, iy, iz;
 };
 
-// Lanes l0 .. l0 + W - 1 of the slice's element: p, the operator, w and
+// Lanes l0 .. l0 + W - 1 of the block's element: p, the operator, w and
 // pap, each lane as K4 computes it.  A group's p columns live in the
-// slice's shared columns; a lane alone keeps its column in registers, as
+// block's shared columns; a lane alone keeps its column in registers, as
 // K4 does.
 template <int N, typename T, int W>
 __device__ __forceinline__ void lanes(const BlockLanes<N, T>& a, int l0,
@@ -80,6 +78,19 @@ __device__ __forceinline__ void lanes(const BlockLanes<N, T>& a, int l0,
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
   const int tid = j * N + i;
+  const T* ge = a.g3 + a.e * 3 * N3 + tid;
+  // a lane alone loads its element's metric into registers before the
+  // sweep, as K6's kernel of one lane at a time did: read layer by layer,
+  // each load's latency shows once the metric is past L2 (E = 4096)
+  T gc[3][N];
+  if constexpr (W == 1) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      gc[0][k] = ge[0 * N3 + k * N2];
+      gc[1][k] = ge[1 * N3 + k * N2];
+      gc[2][k] = ge[2 * N3 + k * N2];
+    }
+  }
   size_t base[W];
   T* col[W];
   T pc[N];
@@ -96,13 +107,14 @@ __device__ __forceinline__ void lanes(const BlockLanes<N, T>& a, int l0,
         pc[k] = v;
       else
         col[q][k * N2] = v;
-      if (a.active) a.p_out[o] = v;
+      a.p_out[o] = v;
     }
   }
   T wc[W][N];
-  const T* ge = a.g3 + a.e * 3 * N3 + tid;
   if constexpr (W == 1) {
-    ax_diag_columns(a.sh->one, ge, pc, wc[0], i, j);
+    ax_diag_columns_g(
+        a.sh->one, [&gc](int c, int k) { return gc[c][k]; }, pc, wc[0], i,
+        j);
   } else {
     SharedColumn<N, T> uc[W];
 #pragma unroll
@@ -121,7 +133,7 @@ __device__ __forceinline__ void lanes(const BlockLanes<N, T>& a, int l0,
     for (int k = 0; k < N; ++k) {
       const T v = wc[q][k] * (a.mz[a.iz * N + k] * myx);
       part[q] += (W == 1 ? pc[k] : col[q][k * N2]) * v;
-      if (a.active) a.w[base[q] + k * N2] = v;
+      a.w[base[q] + k * N2] = v;
     }
   }
   // block_sum<N2>'s tree for each lane, the lanes' barriers shared
@@ -137,7 +149,7 @@ __device__ __forceinline__ void lanes(const BlockLanes<N, T>& a, int l0,
     }
     __syncthreads();
   }
-  if (tid == 0 && a.active) {
+  if (tid == 0) {
 #pragma unroll
     for (int q = 0; q < W; ++q) a.pap[(l0 + q) * a.E + a.e] = a.red[q][0];
   }
@@ -157,12 +169,10 @@ __device__ __forceinline__ void lanes_of(const BlockLanes<N, T>& a, int l0,
   }
 }
 
-// Block (N, N, P), grid (ceil(E / P), ceil(b / kLanes)): slice p works on
-// element blockIdx.x P + p (a slice past E computes on element E - 1 and
-// stores nothing, so that it meets every barrier), for the lanes of group
-// blockIdx.y.
+// Block (N, N), grid (E, ceil(b / kLanes)): block x works on element x for
+// the lanes of group blockIdx.y.
 template <int N, typename T>
-__global__ void __launch_bounds__(N * N * kWideSlices<N>, kWideMinBlocks<N>)
+__global__ void __launch_bounds__(N * N, min_blocks(N * N, 128))
 nekbone_ax_slab_block_kernel(const T* __restrict__ p_prev,
                              const T* __restrict__ r, const T* __restrict__ D,
                              const T* __restrict__ g3,
@@ -171,28 +181,21 @@ nekbone_ax_slab_block_kernel(const T* __restrict__ p_prev,
                              const T* __restrict__ mz,
                              const T* __restrict__ beta,
                              T* __restrict__ p_out, T* __restrict__ w,
-                             T* __restrict__ pap, int ex, int ey, int ez,
-                             int nrhs) {
-  constexpr int N3 = N * N * N;
-  constexpr int P = kWideSlices<N>;
-  __shared__ AxSharedL<N, T, kLanes> sh_all[P];
-  __shared__ T red_all[P][kLanes][N * N];
+                             T* __restrict__ pap, int ex, int ey, int nrhs) {
+  __shared__ AxSharedL<N, T, kLanes> sh;
+  __shared__ T red[kLanes][N * N];
   extern __shared__ __align__(16) unsigned char col_bytes[];
 
   const int i = threadIdx.x;
   const int j = threadIdx.y;
-  const int p = threadIdx.z;
-  const size_t E = static_cast<size_t>(ex) * ey * ez;
-  const size_t local = static_cast<size_t>(blockIdx.x) * P + p;
-  const bool active = local < E;
-  const size_t e = active ? local : E - 1;
+  const size_t e = blockIdx.x;
   const BlockLanes<N, T> a{
-      p_prev, r, g3, mx, my, mz, beta, p_out, w, pap, &sh_all[p],
-      red_all[p], reinterpret_cast<T*>(col_bytes) + p * kLanes * N3, e, E,
-      active, static_cast<int>(e % ex), static_cast<int>((e / ex) % ey),
+      p_prev, r, g3, mx, my, mz, beta, p_out, w, pap, &sh, red,
+      reinterpret_cast<T*>(col_bytes), e, gridDim.x,
+      static_cast<int>(e % ex), static_cast<int>((e / ex) % ey),
       static_cast<int>(e / (static_cast<size_t>(ex) * ey))};
 
-  load_D(sh_all[p].one, D, i, j);
+  load_D(sh.one, D, i, j);
   const int l0 = blockIdx.y * kLanes;
   const int width = nrhs - l0 < kLanes ? nrhs - l0 : kLanes;
   lanes_of<N, T, kLanes>(a, l0, width, i, j);
@@ -203,18 +206,16 @@ cudaError_t launch(const T* p_prev, const T* r, const T* D, const T* g3,
                    const T* mx, const T* my, const T* mz, const T* beta,
                    T* p_out, T* w, T* pap, int ex, int ey, int ez, int nrhs,
                    cudaStream_t stream) {
-  constexpr int P = kWideSlices<N>;
-  const long long E = static_cast<long long>(ex) * ey * ez;
-  const size_t dyn = static_cast<size_t>(P) * kLanes * N * N * N * sizeof(T);
+  const size_t dyn = static_cast<size_t>(kLanes) * N * N * N * sizeof(T);
   const void* fn = reinterpret_cast<const void*>(
       &nekbone_ax_slab_block_kernel<N, T>);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((E + P - 1) / P),
+  const dim3 grid(static_cast<unsigned>(ex * ey * ez),
                   static_cast<unsigned>((nrhs + kLanes - 1) / kLanes));
-  nekbone_ax_slab_block_kernel<N, T><<<grid, dim3(N, N, P), dyn, stream>>>(
-      p_prev, r, D, g3, mx, my, mz, beta, p_out, w, pap, ex, ey, ez, nrhs);
+  nekbone_ax_slab_block_kernel<N, T><<<grid, dim3(N, N), dyn, stream>>>(
+      p_prev, r, D, g3, mx, my, mz, beta, p_out, w, pap, ex, ey, nrhs);
   return cudaGetLastError();
 }
 

@@ -24,7 +24,7 @@
   ``nekbone_ax_dots_kernel`` (the v1 fused iteration's operator);
 * ``nekbone_ax_powers_cuda`` — K8, ``csrc/nekbone_ax_powers.cu``, replaces
   ``nekbone_ax_powers_kernel`` (the s-step basis and Gram; one cooperative
-  launch per call, its grid and variant chosen by :func:`k8_plan`);
+  launch per call, its grid chosen by :func:`k8_plan`);
 * ``nekbone_sstep_update_cuda`` — K9, ``csrc/nekbone_sstep_update.cu``,
   replaces ``nekbone_sstep_update_kernel`` (the s-step multi-axpy).
 
@@ -82,11 +82,10 @@ __all__ = ["nekbone_ax_cuda",
            "nekbone_ax_dots_plain", "nekbone_ax_powers_cuda",
            "nekbone_ax_powers_plain", "nekbone_sstep_update_cuda",
            "nekbone_sstep_update_plain", "N_RANGE", "INTERP_PAIRS",
-           "SSTEP_MAX_S", "MIXES", "build_for", "CoopPlan", "K11Plan",
-           "coop_plan", "k11_plan", "k11_state_bytes",
-           "nekbone_cheb_apply_plan", "k8_plan", "k8_metric_bytes",
-           "k8_scratch_bytes", "nekbone_ax_powers_plan", "K6_LANES",
-           "k6_lane_groups"]
+           "SSTEP_MAX_S", "MIXES", "build_for", "CoopPlan",
+           "device_memory_plan", "k11_plan", "k11_state_bytes",
+           "nekbone_cheb_apply_plan", "k8_plan", "k8_scratch_bytes",
+           "nekbone_ax_powers_plan", "K6_LANES", "k6_lane_groups"]
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
@@ -126,7 +125,7 @@ _ARGTYPES = {
     "nekbone_cg_update_block": [_P] * 11 + [_I] * 5 + [_P],
     "nekbone_ax_pap": [_P] * 6 + [_I] * 2 + [_P],
     "nekbone_ax_dots": [_P] * 9 + [_I] * 2 + [_P],
-    "nekbone_ax_powers": [_P] * 17 + [_I] * 8 + [_P],
+    "nekbone_ax_powers": [_P] * 17 + [_I] * 7 + [_P],
     "nekbone_sstep_update": [_P] * 12 + [_I] * 5 + [_P],
 }
 # Entry points that live in another stem's library.
@@ -298,11 +297,11 @@ def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
 class CoopPlan:
     """One launch of a persistent cooperative kernel (K8, K11): block b of
     ``grid`` owns elements ``[b * per_block, (b + 1) * per_block)`` (z-major,
-    the last range cut at E) for the whole call; ``resident`` keeps each
-    owned element's data (K11 its d, res and z; K8 its metric) in the
-    block's dynamic shared memory, else in device memory; ``smem_bytes`` is
-    the dynamic shared memory a block takes and ``blocks_per_sm`` the
-    residency the grid was sized by."""
+    the last range cut at E) for the whole call; ``resident`` (K11 only)
+    keeps the owned elements' d, res and z in the block's dynamic shared
+    memory, else in device memory; ``smem_bytes`` is the dynamic shared
+    memory a block takes and ``blocks_per_sm`` the residency the grid was
+    sized by."""
     resident: bool
     per_block: int
     grid: int
@@ -314,55 +313,22 @@ class CoopPlan:
         return "shared" if self.resident else "device"
 
 
-K11Plan = CoopPlan
-
-
-def coop_plan(E: int, sm_count: int, blocks_per_sm, smem_per_block: int, *,
-              slices: int, elem_bytes: int, base_bytes: int,
-              device_bytes: int, what: str) -> CoopPlan:
-    """The variant and grid of a cooperative kernel for E elements.
-
-    ``blocks_per_sm(resident, dyn_bytes)`` is how many blocks of that
-    variant an SM holds with ``dyn_bytes`` of dynamic shared memory each (on
-    the card, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
-    ``smem_per_block`` the most dynamic shared memory a block may take.
-    Every block of a cooperative launch is resident at once, so the grid is
-    at most ``sm_count`` times that residency.  A block works on ``slices``
-    elements side by side, so it owns a multiple m of them.  The
-    shared-memory variant takes ``base_bytes + m * elem_bytes``; it is taken
-    if and only if some such m fits both: that much in one block, and
-    ceil(E / m) blocks on the card at the residency it allows; the least
-    such m.  Otherwise the device-memory variant, whose ``device_bytes`` do
-    not depend on E, owns the least multiple m with ceil(E / m) blocks
-    resident.  Raises ``ValueError`` where neither can run (no block of the
-    device variant fits an SM).
-    """
+def _check_plan(what: str, E: int, sm_count: int, slices: int) -> None:
     if E < 1 or sm_count < 1 or slices < 1:
         raise ValueError(f"{what}: E={E}, sm_count={sm_count}, "
                          f"slices={slices}")
 
-    def round_up(m):
-        return -(-m // slices) * slices
 
-    m = slices
-    if base_bytes + m * elem_bytes <= smem_per_block:
-        fit = blocks_per_sm(True, base_bytes + m * elem_bytes)
-        # the residency falls as m grows, so no m below this one fits
-        m = round_up(max(m, -(-E // max(sm_count * fit, 1))))
-        while base_bytes + m * elem_bytes <= smem_per_block:
-            dyn = base_bytes + m * elem_bytes
-            fit = blocks_per_sm(True, dyn)
-            grid = -(-E // m)
-            if fit >= 1 and grid <= sm_count * fit:
-                return CoopPlan(True, m, grid, fit, dyn)
-            m += slices
-    fit = (blocks_per_sm(False, device_bytes)
-           if device_bytes <= smem_per_block else 0)
-    if fit < 1:
-        raise ValueError(f"{what}: no block is resident on an SM in either "
-                         "variant")
-    m = round_up(-(-E // (sm_count * fit)))
-    return CoopPlan(False, m, -(-E // m), fit, device_bytes)
+def device_memory_plan(E: int, sm_count: int, fit: int, slices: int,
+                       dyn_bytes: int) -> CoopPlan:
+    """The device-memory variant of a cooperative kernel (K8, and K11 where
+    its state does not fit), ``fit`` >= 1 blocks an SM with ``dyn_bytes``
+    of dynamic shared memory each, a residency that does not depend on E:
+    every block owns the least multiple m of ``slices`` elements with
+    ceil(E / m) blocks resident at once."""
+    m = -(-E // (sm_count * fit))
+    m = -(-m // slices) * slices
+    return CoopPlan(False, m, -(-E // m), fit, dyn_bytes)
 
 
 def k11_state_bytes(n: int, dtype: torch.dtype) -> int:
@@ -373,46 +339,75 @@ def k11_state_bytes(n: int, dtype: torch.dtype) -> int:
 def k11_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
              blocks_per_sm, smem_per_block: int, *,
              slices: int = 1) -> CoopPlan:
-    """K11's variant and grid for E elements of degree n - 1
-    (:func:`coop_plan`): resident, a block keeps its elements' d, res and z
-    (:func:`k11_state_bytes` each) in shared memory; in device memory, it
-    keeps one n^3 copy of the operator's input column per slice there."""
-    return coop_plan(E, sm_count, blocks_per_sm, smem_per_block,
-                     slices=slices, elem_bytes=k11_state_bytes(n, dtype),
-                     base_bytes=0,
-                     device_bytes=slices * n ** 3 * dtype.itemsize,
-                     what=f"k11_plan: K11 (n={n}, {dtype})")
+    """K11's variant and grid for E elements of degree n - 1.
 
+    ``blocks_per_sm(resident, dyn_bytes)`` is how many blocks of that
+    variant an SM holds with ``dyn_bytes`` of dynamic shared memory each (on
+    the card, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    ``smem_per_block`` the most dynamic shared memory a block of the
+    shared-memory variant may take.  Every block of a cooperative launch is
+    resident at once, so the grid is at most ``sm_count`` times that
+    residency.  A block works on ``slices`` elements side by side, so it
+    owns a multiple m of them.  The shared-memory variant is taken if and
+    only if some such m fits both: m elements' state in one block, and
+    ceil(E / m) blocks on the card at the residency that state allows; the
+    least such m.  Otherwise the device-memory variant
+    (:func:`device_memory_plan`, with one n^3 column copy per slice in
+    shared memory).  Raises ``ValueError`` where neither can run (no block
+    of the device variant fits an SM).
+    """
+    _check_plan("k11_plan", E, sm_count, slices)
 
-def k8_metric_bytes(n: int, dtype: torch.dtype) -> int:
-    """The three metric diagonals of one element: the shared memory K8's
-    resident variant gives each owned element."""
-    return 3 * n ** 3 * dtype.itemsize
+    def round_up(m):
+        return -(-m // slices) * slices
+
+    state = k11_state_bytes(n, dtype)
+    m = slices
+    if m * state <= smem_per_block:
+        fit = blocks_per_sm(True, m * state)
+        # the residency falls as m grows, so no m below this one fits
+        m = round_up(max(m, -(-E // max(sm_count * fit, 1))))
+        while m * state <= smem_per_block:
+            fit = blocks_per_sm(True, m * state)
+            grid = -(-E // m)
+            if fit >= 1 and grid <= sm_count * fit:
+                return CoopPlan(True, m, grid, fit, m * state)
+            m += slices
+    column = slices * n ** 3 * dtype.itemsize
+    fit = blocks_per_sm(False, column) if column <= smem_per_block else 0
+    if fit < 1:
+        raise ValueError(f"k11_plan: no block of K11 (n={n}, {dtype}) is "
+                         "resident on an SM in either variant")
+    return device_memory_plan(E, sm_count, fit, slices, column)
 
 
 def k8_scratch_bytes(n: int, s: int, dtype: torch.dtype, slices: int) -> int:
-    """K8's shared scratch of a block in either variant: per slice the p and
-    the r chain's operator input columns (n^3 values each) during the
-    steps, then the Gram's ring of staged layers of the 2s + 1 vectors and
-    c (4 layers up to s = 4, 2 past it; rows padded to n + 1), and its sums
-    (9 n^2) (csrc/nekbone_ax_powers.cu ``scratch_values``)."""
+    """K8's shared scratch of a block: per slice the p and the r chain's
+    operator input columns (n^3 values each) during the steps, then the
+    Gram's ring of staged layers of the 2s + 1 vectors and c (4 layers up to
+    s = 4, 2 past it; rows padded to n + 1), and its sums (9 n^2)
+    (csrc/nekbone_ax_powers.cu ``scratch_values``)."""
     ring = 4 if s <= 4 else 2
     return slices * max(2 * n ** 3, ring * (2 * s + 2) * n * (n + 1),
                         9 * n ** 2) * dtype.itemsize
 
 
-def k8_plan(E: int, n: int, s: int, dtype: torch.dtype, sm_count: int,
-            blocks_per_sm, smem_per_block: int, *,
+def k8_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
+            blocks_per_sm, smem_per_block: int, *, s: int,
             slices: int = 1) -> CoopPlan:
-    """K8's variant and grid for E elements of degree n - 1 at cycle length
-    s (:func:`coop_plan`): both variants take :func:`k8_scratch_bytes`; the
-    resident one adds its owned elements' metric (:func:`k8_metric_bytes`
-    each), the device one reads the metric through L2."""
+    """K8's grid for E elements of degree n - 1 at cycle length s: a block
+    takes :func:`k8_scratch_bytes` of dynamic shared memory and reads the
+    metric through L2 (:func:`device_memory_plan`; ``blocks_per_sm`` and
+    ``smem_per_block`` as for :func:`k11_plan`, asked only for
+    ``resident=False``).  Raises ``ValueError`` where no block fits an
+    SM."""
+    _check_plan("k8_plan", E, sm_count, slices)
     scratch = k8_scratch_bytes(n, s, dtype, slices)
-    return coop_plan(E, sm_count, blocks_per_sm, smem_per_block,
-                     slices=slices, elem_bytes=k8_metric_bytes(n, dtype),
-                     base_bytes=scratch, device_bytes=scratch,
-                     what=f"k8_plan: K8 (n={n}, s={s}, {dtype})")
+    fit = blocks_per_sm(False, scratch) if scratch <= smem_per_block else 0
+    if fit < 1:
+        raise ValueError(f"k8_plan: no block of K8 (n={n}, s={s}, {dtype}) "
+                         "is resident on an SM")
+    return device_memory_plan(E, sm_count, fit, slices, scratch)
 
 
 def _device_index(device: torch.device) -> int:
@@ -440,10 +435,11 @@ def _coop_query(stem: str, mix: str, n: int, resident: bool, dyn: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _coop_device_plan(stem: str, E: int, n: int, s: int, mix: str,
-                      device: int) -> CoopPlan:
-    """The plan of K11 (``s`` unused) or K8 on ``device``; raises if the
-    device cannot launch cooperatively or no variant runs."""
+def _coop_device_plan(stem: str, planner, E: int, n: int, mix: str,
+                      device: int, **kw) -> CoopPlan:
+    """``planner`` (:func:`k11_plan` or :func:`k8_plan`, with its keywords
+    ``kw``) for ``stem``'s instantiation on ``device``; raises if the device
+    cannot launch cooperatively or no variant runs."""
     info = _coop_query(stem, mix, n, True, 0, device)
     if not info[5]:
         raise RuntimeError(f"{stem}: the device does not support cooperative "
@@ -452,19 +448,18 @@ def _coop_device_plan(stem: str, E: int, n: int, s: int, mix: str,
     def fit(resident, dyn):
         return _coop_query(stem, mix, n, resident, dyn, device)[0]
 
-    dtype = MIXES[mix]["S"]
-    if stem == "nekbone_cheb_apply":
-        return k11_plan(E, n, dtype, info[4], fit, info[3], slices=info[6])
-    return k8_plan(E, n, s, dtype, info[4], fit, info[3], slices=info[6])
+    return planner(E, n, MIXES[mix]["S"], info[4], fit, info[3],
+                   slices=info[6], **kw)
 
 
-def _plan_info(stem: str, plan: CoopPlan, n: int, dtype: torch.dtype,
-               device) -> dict:
+def _coop_plan_info(stem: str, planner, E: int, n: int,
+                    dtype: torch.dtype, device, **kw) -> tuple[CoopPlan, dict]:
     index = _device_index(torch.device(device))
     mix = next(m for m, dt in MIXES.items() if dt["S"] == dtype)
+    plan = _coop_device_plan(stem, planner, E, n, mix, index, **kw)
     info = _coop_query(stem, mix, n, plan.resident, plan.smem_bytes, index)
-    return {"registers": info[2], "static_smem": info[1],
-            "sm_count": info[4], "slices": info[6]}
+    return plan, {"registers": info[2], "static_smem": info[1],
+                  "sm_count": info[4], "slices": info[6]}
 
 
 def nekbone_cheb_apply_plan(E: int, n: int, dtype: torch.dtype,
@@ -472,10 +467,8 @@ def nekbone_cheb_apply_plan(E: int, n: int, dtype: torch.dtype,
     """The plan K11 launches with for E elements on ``device``, and the
     instantiation it runs: ``{"registers", "static_smem", "sm_count",
     "slices"}``."""
-    index = _device_index(torch.device(device))
-    mix = next(m for m, dt in MIXES.items() if dt["S"] == dtype)
-    plan = _coop_device_plan("nekbone_cheb_apply", E, n, 0, mix, index)
-    return plan, _plan_info("nekbone_cheb_apply", plan, n, dtype, device)
+    return _coop_plan_info("nekbone_cheb_apply", k11_plan, E, n, dtype,
+                           device)
 
 
 def nekbone_ax_powers_plan(E: int, n: int, s: int, dtype: torch.dtype,
@@ -483,10 +476,8 @@ def nekbone_ax_powers_plan(E: int, n: int, s: int, dtype: torch.dtype,
     """The plan K8 launches with for E elements at cycle length s on
     ``device``, and the instantiation it runs (as
     :func:`nekbone_cheb_apply_plan`)."""
-    index = _device_index(torch.device(device))
-    mix = next(m for m, dt in MIXES.items() if dt["S"] == dtype)
-    plan = _coop_device_plan("nekbone_ax_powers", E, n, s, mix, index)
-    return plan, _plan_info("nekbone_ax_powers", plan, n, dtype, device)
+    return _coop_plan_info("nekbone_ax_powers", k8_plan, E, n, dtype, device,
+                           s=s)
 
 
 def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
@@ -512,7 +503,7 @@ def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
                  D=(D, (n, n)), g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)),
                  my=(my, (ey, n)), mz=(mz, (ez, n)), cx=(cx, (ex, n)),
                  cy=(cy, (ey, n)), cz=(cz, (ez, n)), coef=(coef, (k + 1, 2)))
-    plan = _coop_device_plan("nekbone_cheb_apply", E, n, 0, mix,
+    plan = _coop_device_plan("nekbone_cheb_apply", k11_plan, E, n, mix,
                              _device_index(r2.device))
     z = torch.empty_like(r2)
     scratch = torch.empty(2 if plan.resident else 4, E, n3, dtype=r2.dtype,
@@ -679,7 +670,7 @@ def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
     """K8: the scaled s-step basis and per-element Gram partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_ax_powers_plain`.
-    One cooperative launch (:func:`k8_plan` picks its variant and grid).
+    One cooperative launch (:func:`k8_plan` sizes its grid).
     The kernel allocates nothing: this wrapper hands it the basis, the Gram
     partials and four buffers of unassembled operator outputs (two per
     chain).  Returns ``(basis, gram)``: (E, 2s-1, n^3) and
@@ -698,8 +689,8 @@ def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
                  mx=(mx, (ex, n)), my=(my, (ey, n)), mz=(mz, (ez, n)),
                  cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)),
                  inv_theta=(inv_theta.reshape(1), (1,)))
-    plan = _coop_device_plan("nekbone_ax_powers", E, n, s, mix,
-                             _device_index(p2.device))
+    plan = _coop_device_plan("nekbone_ax_powers", k8_plan, E, n, mix,
+                             _device_index(p2.device), s=s)
     K = 2 * s + 1
     basis = torch.empty(E, 2 * s - 1, n3, dtype=p2.dtype, device=p2.device)
     gram = torch.empty(E, K, K, dtype=p2.dtype, device=p2.device)
@@ -707,7 +698,7 @@ def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
     _launch("nekbone_ax_powers", mix, p2.device,
             (p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta, basis, gram,
              *scratch),
-            (ex, ey, ez, n, s, int(plan.resident), plan.per_block, plan.grid))
+            (ex, ey, ez, n, s, plan.per_block, plan.grid))
     return basis, gram
 
 

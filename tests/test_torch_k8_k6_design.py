@@ -2,13 +2,13 @@
 in pairs through one layer sweep), on the CPU.
 
 * ``kernels.nekbone_ax.k8_plan``: every element is owned by exactly one
-  block, in contiguous z-major ranges; the variant that keeps the metric in
-  shared memory is chosen if and only if it fits (checked against a direct
-  search over every owned count); a size neither variant can run raises.
-  The occupancy of a block comes from an argument (on the card, CUDA's
-  occupancy calculator); here from a model of the H100's limits.  K11's own
-  plan tests (tests/test_torch_k11_k14_design.py) hold its planner, which
-  shares ``coop_plan`` with K8's.
+  block, in contiguous z-major ranges; each block owns the least count that
+  puts every block on the card at once (checked against a direct search
+  over every owned count); a size no block can run raises.  The occupancy
+  of a block comes from an argument (on the card, CUDA's occupancy
+  calculator); here from a model of the H100's limits.  K11's own plan
+  tests (tests/test_torch_k11_k14_design.py) hold its planner, whose
+  device-memory variant is K8's ``device_memory_plan``.
 * ``kernels.ref.sstep_gram_emulated``, K8's order of the Gram's terms in
   torch, against the JAX package's ``nekbone_ax_powers`` (its Pallas kernel
   in interpret mode) and K8's plain version, fp64.
@@ -69,8 +69,8 @@ BLOCKS = {
 def _plan(E, n, s, dtype, sm_count=SMS):
     threads, regs, static, slices = BLOCKS[(n, dtype)]
     fit = occupancy(threads, regs, static)
-    plan = K.k8_plan(E, n, s, dtype, sm_count, fit, SMEM_PER_BLOCK - static,
-                     slices=slices)
+    plan = K.k8_plan(E, n, dtype, sm_count, fit, SMEM_PER_BLOCK - static,
+                     s=s, slices=slices)
     return plan, fit, static, slices
 
 
@@ -92,23 +92,17 @@ def test_k8_plan_covers_every_element_once(E, n, s, dtype):
 
 
 @pytest.mark.parametrize("E,n,s,dtype", CASES)
-def test_k8_plan_shared_iff_the_metric_fits(E, n, s, dtype):
+def test_k8_plan_owns_the_least_that_fits_at_once(E, n, s, dtype):
     plan, fit, static, slices = _plan(E, n, s, dtype)
     scratch = K.k8_scratch_bytes(n, s, dtype, slices)
-    metric = K.k8_metric_bytes(n, dtype)
+    assert not plan.resident and plan.variant == "device"
+    assert plan.smem_bytes == scratch
+    assert plan.blocks_per_sm == fit(False, scratch) >= 1
     fitting = [m for m in range(slices, E + slices, slices)
-               if scratch + m * metric <= SMEM_PER_BLOCK - static
-               and fit(True, scratch + m * metric) >= 1
-               and -(-E // m) <= SMS * fit(True, scratch + m * metric)]
-    assert plan.resident == bool(fitting)
-    if plan.resident:
-        assert plan.per_block == fitting[0]
-        assert plan.smem_bytes == scratch + plan.per_block * metric
-    else:
-        assert plan.smem_bytes == scratch
+               if -(-E // m) <= SMS * fit(False, scratch)]
+    assert plan.per_block == fitting[0]
     # every block of the grid is resident at once
     assert plan.grid <= SMS * plan.blocks_per_sm
-    assert plan.blocks_per_sm == fit(plan.resident, plan.smem_bytes)
 
 
 def test_k8_scratch_holds_the_column_and_the_grams_staging():
@@ -140,54 +134,58 @@ def test_k8_runs_every_s_at_every_n():
             static = 8 * n ** 2 * dtype.itemsize * slices
             fit = occupancy(n * n * slices, 128, static)
             for s in range(1, K.SSTEP_MAX_S + 1):
-                plan = K.k8_plan(1024, n, s, dtype, SMS, fit,
-                                 SMEM_PER_BLOCK - static, slices=slices)
+                plan = K.k8_plan(1024, n, dtype, SMS, fit,
+                                 SMEM_PER_BLOCK - static, s=s, slices=slices)
                 assert plan.grid * plan.per_block >= 1024
 
 
 def test_k8_plan_paper_case():
-    """fp64 at the paper case reads the metric through L2 (four elements a
-    block, two blocks an SM: their metric does not fit beside the columns at
-    that residency); fp32 keeps it in shared memory; the 16x16x16 grid
-    does not."""
-    plan, *_ = _plan(1024, 10, 4, torch.float64)
-    assert (plan.variant, plan.per_block, plan.grid, plan.blocks_per_sm) \
-        == ("device", 4, 256, 2)
-    plan, *_ = _plan(1024, 10, 4, torch.float32)
-    assert (plan.variant, plan.per_block, plan.grid) == ("shared", 4, 256)
+    """The paper case, fp64 and fp32: four elements a block (two side by
+    side, two rounds), two blocks an SM, grid 256; the 16x16x16 grid owns
+    more a block on no more blocks."""
+    for dtype in (torch.float64, torch.float32):
+        plan, *_ = _plan(1024, 10, 4, dtype)
+        assert (plan.per_block, plan.grid, plan.blocks_per_sm) \
+            == (4, 256, 2)
     plan, *_ = _plan(4096, 10, 4, torch.float64)
-    assert plan.variant == "device" and plan.grid <= 2 * SMS
+    assert plan.per_block == 16 and plan.grid <= 2 * SMS
 
 
-def test_k8_plan_raises_where_neither_variant_runs():
+def test_k8_plan_raises_where_no_block_fits():
     scratch = K.k8_scratch_bytes(10, 4, torch.float64, 2)
-    with pytest.raises(ValueError, match="either variant"):
-        K.k8_plan(1024, 10, 4, torch.float64, SMS, lambda res, dyn: 0,
-                  SMEM_PER_BLOCK, slices=2)
+    with pytest.raises(ValueError, match="resident on an SM"):
+        K.k8_plan(1024, 10, torch.float64, SMS, lambda res, dyn: 0,
+                  SMEM_PER_BLOCK, s=4, slices=2)
     # not even the scratch fits a block
-    with pytest.raises(ValueError, match="either variant"):
-        K.k8_plan(1024, 10, 4, torch.float64, SMS, lambda res, dyn: 4,
-                  scratch - 1, slices=2)
+    with pytest.raises(ValueError, match="resident on an SM"):
+        K.k8_plan(1024, 10, torch.float64, SMS, lambda res, dyn: 4,
+                  scratch - 1, s=4, slices=2)
     for bad in (dict(E=0), dict(sm_count=0), dict(slices=0)):
         kw = dict(E=1024, sm_count=SMS, slices=2) | bad
         with pytest.raises(ValueError):
-            K.k8_plan(kw["E"], 10, 4, torch.float64, kw["sm_count"],
-                      lambda res, dyn: 2, SMEM_PER_BLOCK,
+            K.k8_plan(kw["E"], 10, torch.float64, kw["sm_count"],
+                      lambda res, dyn: 2, SMEM_PER_BLOCK, s=4,
                       slices=kw["slices"])
 
 
-def test_k11_plan_is_coop_plan_with_k11s_bytes():
-    """K11's planner is the shared one with its state per element and no
-    fixed shared bytes in the resident variant."""
-    threads, regs, static, slices = 400, 72, 19200, 4   # K11's block, n = 10
-    fit = occupancy(threads, regs, static)
+def test_k8_and_k11_share_the_device_memory_plan():
+    """K8's plan, and K11's where its state does not fit, are
+    ``device_memory_plan`` of their own shared bytes: K8 its scratch, K11
+    one n^3 column per slice."""
     for E in (64, 1024, 4096):
-        want = K.coop_plan(
-            E, SMS, fit, SMEM_PER_BLOCK - static, slices=slices,
-            elem_bytes=K.k11_state_bytes(10, torch.float64), base_bytes=0,
-            device_bytes=slices * 1000 * 8, what="K11")
-        assert K.k11_plan(E, 10, torch.float64, SMS, fit,
-                          SMEM_PER_BLOCK - static, slices=slices) == want
+        threads, regs, static, slices = 400, 72, 19200, 4   # K11, n = 10
+        fit = occupancy(threads, regs, static)
+        column = slices * 1000 * 8
+        want = K.device_memory_plan(E, SMS, fit(False, column), slices,
+                                    column)
+        # a budget below one element's state: the device-memory variant
+        budget = K.k11_state_bytes(10, torch.float64) * slices - 1
+        assert K.k11_plan(E, 10, torch.float64, SMS, fit, budget,
+                          slices=slices) == want
+        plan, fit, _, slices = _plan(E, 10, 4, torch.float64)
+        scratch = K.k8_scratch_bytes(10, 4, torch.float64, slices)
+        assert plan == K.device_memory_plan(E, SMS, fit(False, scratch),
+                                            slices, scratch)
 
 
 # ---------------------------------------------------------------------------
