@@ -78,7 +78,14 @@ reference package ``repro``, and, in order:
    bf16; ``bf16_ir``: bf16 vectors, x, the metric and D in f32) against
    their plain versions at n=10, E=1024 and 4096: fields value by value,
    partials relatively; a K4 that skips rounding p through storage must
-   fail the same check;
+   fail the same check; then K4, K3 and K2, the persistent walkers: their
+   launch plans at E = 1024 and 4096 in every build (grid, elements a
+   block, stages, staged operands, TMA bulk or cp.async path, shared
+   memory, registers and spills from ``ptxas -v``), and every build
+   against its plain version at n = 10, 5 and 3 (both copy paths) on the
+   paper grid, the 16x16x16 grid and a 3x3x5 grid (E = 45, which no block
+   count divides), with 5 repeated calls bitwise the same and K2's w and
+   pap bitwise K3's;
 16. solves the paper case (b in fp64, 100 inner iterations per sweep)
    through the ``ir`` route — ``f32_ir`` over v2, v1 and s-step (s=4),
    ``bf16_ir`` over v2 and v1 — and the non-refined ``bf16`` policy over v2
@@ -88,8 +95,8 @@ reference package ``repro``, and, in order:
    ``bf16_ir``'s outer rnorms never rising; times each solve; and shows
    that bf16 over s-step and bf16 Jacobi-PCG (kernels without a bf16
    build) raise;
-17. times the bf16 K4, K5 and K3 (both builds) beside their plain versions
-   at E=1024 and E=4096;
+17. times the f32 K4 and K3 and the bf16 K4, K5 and K3 (both builds)
+   beside their plain versions at E=1024 and E=4096;
 18. profiles each kernel route (device time per iteration, by kernel, and
    the device's busy share);
 19. holds K13 (flash attention; in bf16 on the tensor cores) and K14 (the
@@ -1943,6 +1950,135 @@ def phase_bf16_parity():
     return errs
 
 
+# K4, K3 and K2 (the persistent walkers): the grids their plans run on, both
+# copy paths (bulk at n = 10, cp.async at n = 5 and 3), and an element count
+# that no block count divides
+WALK_CASES = ((10, PAPER_GRID), (5, PAPER_GRID), (3, PAPER_GRID),
+              (10, BIG_GRID), (5, BIG_GRID), (3, BIG_GRID),
+              (10, (3, 3, 5)), (5, (3, 3, 5)), (3, (3, 3, 5)))
+WALK_MIXES = ("f64", "f32") + BF16_MIXES
+# per-element partials, summed, relative: f64 and f32 as phase_v2_parity
+WALK_TOL = {"f64": 1e-12, "f32": 1e-5, "bf16": BF16_PART_TOL,
+            "bf16_ir": BF16_PART_TOL}
+
+
+def _walk_field_ok(k, p, mix):
+    """A field of a walker against its plain version: relative (f64, f32)
+    or value by value (bf16 storage), and the figure printed."""
+    if mix in BF16_MIXES:
+        v = _value_rel(k, p, BF16_F32_TOL)
+        return v <= 1.0, f"value by value {v:.2f} of the limit"
+    v = rel_err(k, p)
+    return v <= WALK_TOL[mix], f"max rel err {v:.2e}"
+
+
+def phase_walk_parity():
+    """K4, K3 and K2, the persistent walkers: their launch plans at E =
+    1024 and 4096 in every build (with registers and spills), and every
+    build against its plain version on WALK_CASES, 5 repeated calls
+    bitwise the same."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== K4/K3/K2 walkers: launch plans (n = 10) and parity in every "
+          "build (n = 10, 5, 3 on the paper grid, the 16x16x16 grid and "
+          "3x3x5; fields relative in f64 and f32, value by value in bf16; "
+          "partials summed, relative)", flush=True)
+    logs = {name: _ptxas_report(path.with_suffix(".log").read_text())
+            for name, path in _build.build_all().items()}
+    walkers = (("K4", "nekbone_ax_slab", "nekbone_ax_slab",
+                "nekbone_ax_slab_kernel<10>"),
+               ("K3", "nekbone_ax_pap", "nekbone_ax_dots",
+                "nekbone_ax_dots_kernel<10,0>"),
+               ("K2", "nekbone_ax_dots", "nekbone_ax_dots",
+                "nekbone_ax_dots_kernel<10,1>"))
+    for key, stem, lib, kernel in walkers:
+        for mix in WALK_MIXES:
+            if key == "K2" and mix in BF16_MIXES:
+                continue
+            regs, spill = logs[f"{lib}_{mix}"][kernel]
+            for E in (1024, 4096):
+                plan, info = K.walk_launch_info(stem, E, 10, mix)
+                check(plan.grid <= info["sm_count"] * plan.blocks_per_sm
+                      and plan.bulk and plan.stages >= 2,
+                      f"{key} {mix} E={E} plan: grid {plan.grid} "
+                      f"({plan.per_block} elements a block, one wave at "
+                      f"{plan.blocks_per_sm} blocks an SM on "
+                      f"{info['sm_count']} SMs), {plan.stages} stages of "
+                      f"{', '.join(plan.staged)} by {plan.copy}, "
+                      f"{plan.smem_bytes} bytes dynamic + "
+                      f"{info['static_smem']} static shared, {regs} "
+                      f"registers ({info['registers']} by the runtime), "
+                      f"{spill} bytes spilled")
+    rng = np.random.default_rng(20)
+    errs = {}
+    for n, grid in WALK_CASES:
+        case = NekboneCase(n=n, grid=grid, dtype=torch.float64)
+        E = case.mesh.nelt
+        n3 = n ** 3
+        u64, D64, g64 = _operator_data(rng, E, n, torch.float64)
+        mask64 = case.mask.reshape(E, n3).contiguous()
+        c64 = case.c.reshape(E, n3).contiguous()
+        for mix in WALK_MIXES:
+            dt = K.MIXES[mix]
+            tag = f"{mix} n={n} E={E}"
+            plan4, _ = K.walk_launch_info("nekbone_ax_slab", E, n, mix)
+            plan3, _ = K.walk_launch_info("nekbone_ax_pap", E, n, mix)
+            o = _mix_operands(case, rng, mix)
+            k4 = (o["p"], o["r"], o["D"], o["g3"], *o["m"], o["beta"])
+            kp, kw, kpap = K.nekbone_ax_slab_cuda(*k4, n=n)
+            pp, pw, ppap = K.nekbone_ax_slab_plain(*k4, n=n)
+            wok, wtxt = _walk_field_ok(kw, pw, mix)
+            perr = _part_err(kpap, ppap)
+            reps = [K.nekbone_ax_slab_cuda(*k4, n=n) for _ in range(5)]
+            same = all(torch.equal(a, b) for rep in reps
+                       for a, b in zip(rep, (kp, kw, kpap)))
+            check(torch.equal(kp, pp) and wok and perr <= WALK_TOL[mix]
+                  and same and plan4.bulk == (n % 2 == 0),
+                  f"K4 {tag} ({plan4.copy}, grid {plan4.grid} x "
+                  f"{plan4.per_block}, {', '.join(plan4.staged)} staged): p "
+                  f"bitwise, w {wtxt}, pap rel err {perr:.2e}; 5 more calls "
+                  "bitwise the same")
+            k3 = (u64.to(dt["S"]), D64.to(dt["O"]), g64.to(dt["O"]),
+                  mask64.to(dt["S"]))
+            kw3, kpap3 = K.nekbone_ax_pap_cuda(*k3, n=n)
+            pw3, ppap3 = K.nekbone_ax_pap_plain(*k3, n=n)
+            wok3, wtxt3 = _walk_field_ok(kw3, pw3, mix)
+            perr3 = _part_err(kpap3, ppap3)
+            reps = [K.nekbone_ax_pap_cuda(*k3, n=n) for _ in range(5)]
+            same3 = all(torch.equal(a, b) for rep in reps
+                        for a, b in zip(rep, (kw3, kpap3)))
+            check(wok3 and perr3 <= WALK_TOL[mix] and same3
+                  and plan3.bulk == (n % 2 == 0),
+                  f"K3 {tag} ({plan3.copy}, grid {plan3.grid} x "
+                  f"{plan3.per_block}, {', '.join(plan3.staged)} staged): w "
+                  f"{wtxt3}, pap rel err {perr3:.2e}; 5 more calls bitwise "
+                  "the same")
+            if mix not in BF16_MIXES:
+                r = torch.as_tensor(rng.normal(size=(E, n3)), dtype=dt["S"],
+                                    device="cuda")
+                k2 = k3 + (r, c64.to(dt["S"]))
+                kw2, kpap2, krcz = K.nekbone_ax_dots_cuda(*k2, n=n)
+                _, _, prcz = K.nekbone_ax_dots_plain(*k2, n=n)
+                rerr = _part_err(krcz, prcz)
+                check(torch.equal(kw2, kw3) and torch.equal(kpap2, kpap3)
+                      and rerr <= WALK_TOL[mix],
+                      f"K2 {tag}: w and pap bitwise K3's, rcz rel err "
+                      f"{rerr:.2e}")
+            if n == 10 and grid == PAPER_GRID and mix == "f32":
+                errs[("K4", mix)] = float((kw - pw).abs().max())
+                errs[("K3", mix)] = float((kw3 - pw3).abs().max())
+            del o, k4, k3, kp, kw, pp, pw, kw3, pw3, reps
+        del case, u64, D64, g64, mask64, c64
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return errs
+
+
 @contextlib.contextmanager
 def _plain_kernels():
     """The kernel wrappers of the ir and bf16 routes (K1, K3, K4, K5, K8,
@@ -2084,17 +2220,18 @@ def phase_ir_routes(hist, v2_solve_ms):
 
 
 def phase_bf16_times(bw_copy, rows):
-    """Device time of the bf16 K4, K5 and K3 (both builds) beside their
-    plain versions at E=1024 and E=4096."""
+    """Device time of the f32 K4 and K3 and the bf16 K4, K5 and K3 (both
+    builds) beside their plain versions at E=1024 and E=4096."""
     import numpy as np
     import torch
 
     from repro_torch.core.nekbone import NekboneCase
     from repro_torch.kernels import nekbone_ax as K
 
-    print("== times of the bf16 builds (n=10; device time per call, CUDA "
-          "events around 20 queued calls, median of 5; operations at the "
-          "fp32 rate, 67 TF/s)", flush=True)
+    print("== times of the reduced-precision builds (K4 and K3 in f32, "
+          "K4, K5 and K3 in bf16 and bf16_ir; n=10; device time per call, "
+          "CUDA events around 20 queued calls, median of 5; operations at "
+          "the fp32 rate, 67 TF/s)", flush=True)
     rng = np.random.default_rng(12)
     n = 10
     for grid in (PAPER_GRID, BIG_GRID):
@@ -2103,7 +2240,7 @@ def phase_bf16_times(bw_copy, rows):
         nodes = E * n ** 3
         u64, D64, g64 = _operator_data(rng, E, n, torch.float64)
         mask64 = case.mask.reshape(E, n ** 3).contiguous()
-        for mix in BF16_MIXES:
+        for mix in ("f32",) + BF16_MIXES:
             dt = K.MIXES[mix]
             S, X, O = (dt[r].itemsize for r in "SXO")
             o = _mix_operands(case, rng, mix)
@@ -2123,6 +2260,8 @@ def phase_bf16_times(bw_copy, rows):
                 "K3": (K.nekbone_ax_pap_cuda, K.nekbone_ax_pap_plain, k3,
                        3 * S + 6 * O, (12 * n, 18)),
             }
+            if mix == "f32":   # K5's f32 build is not this slice's
+                del work["K5"]
             for name, (kern, plain, args, per_node, (fm, fr)) in work.items():
                 row = _time_row(
                     f"{name} {mix} E={E} ({per_node} B/node)",
@@ -2617,6 +2756,7 @@ def main() -> int:
         launches.update(slice4["launches"])
         phase_slice4_times(bw, slice4, rows)
         err.update(phase_bf16_parity())
+        err.update(phase_walk_parity())
         ir = phase_ir_routes(hist, v2_solve_ms)
         phase_bf16_times(bw, rows)
         phase_profile(cases, pcg, routes, slice4)
@@ -2691,6 +2831,19 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms")})
+    for key, kname, cu, line, variant in (
+            ("K4", "nekbone_ax_slab", "nekbone_ax_slab.cu", 476, "v2"),
+            ("K3", "nekbone_ax_pap", "nekbone_ax_dots.cu", 404, "v1")):
+        row = rows[(f"{key} f32", PAPER_GRID)]
+        kernels.append({
+            "name": f"{kname}_f32", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{cu}",
+            "replaces": f"src/repro/kernels/nekbone_ax.py:{line}",
+            "launches": ir["launches"][f"f32_ir {variant}"][kname],
+            "max_abs_err": err[(key, "f32")], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms")})
     lm = (("K13 global", "flash_attn", "src/repro_torch/kernels/csrc/"
            "flash_attn.cu", "src/repro/kernels/flash_attn.py:32",
            "gemma2-27b", "K13"),

@@ -589,3 +589,374 @@ inline int slices_of(int n) {
 }
 
 }  // namespace nekbone
+
+namespace nekbone {
+
+// ---------------------------------------------------------------------------
+// Persistent element walkers (K4, K3, K2).  A block of n x n threads owns a
+// contiguous, z-major range of elements (kernels/nekbone_ax.k4_plan,
+// k3_plan) and walks it one element at a time.  A ring of stages in dynamic
+// shared memory holds the operands of the elements after the current one:
+// each stage is filled by TMA bulk copies issued by one thread (the bulk
+// path: every operand's size and address a multiple of 16 bytes, n even) or
+// by per-thread cp.async (n odd), and completes on its own mbarrier.  The
+// operator sweeps the current element meanwhile, with the rows and columns
+// of D that thread (i, j) contracts with held in registers.  Operands the
+// plan does not stage are read from device memory, prefetched to L2 one
+// element ahead.  Kept apart from the helpers above, so that the other
+// kernels compile as before.
+// ---------------------------------------------------------------------------
+
+// The most stages a ring may have.
+constexpr int kMaxStages = 4;
+// The walkers' register cap: as many blocks an SM as 256 threads (8-byte
+// accumulation) or 512 (4-byte) fill, at least one.  At n = 10 (128-thread
+// blocks): fp64 two blocks an SM at up to 255 registers a thread (its 4n
+// values of D take 80), f32 and the bf16 builds four at up to 128
+// (scripts/k4_k3_compare.py --ablation: fp64 spills below 168, and three
+// blocks measured slower; the 4-byte builds ran fastest at four).
+template <int N, typename A>
+constexpr int kWalkMinBlocks =
+    (sizeof(A) == 8 ? 256 : 512) / ((N * N + 31) / 32 * 32) > 1
+        ? (sizeof(A) == 8 ? 256 : 512) / ((N * N + 31) / 32 * 32)
+        : 1;
+
+// a * b + c rounded once (the contraction nvcc may or may not make of
+// `c += a * b`, made explicit where the kernels it replaced made it).
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+
+// The launch plan of a walker, as the planner made it.
+struct WalkPlan {
+  int per_block;  // elements a block owns
+  int stages;     // depth of the ring (1..kMaxStages)
+  int staged;     // bit q: operand q is staged
+  int bulk;       // 1: TMA bulk copies; 0: per-thread cp.async
+};
+
+// A slot's bytes in a stage: the operand's bytes per element on the bulk
+// path; on the cp.async path its 16-byte rounding and a 16-byte margin for
+// the copy window (an element that starts inside a copy unit).
+__host__ __device__ constexpr int walk_slot_bytes(int bytes, int bulk) {
+  return bulk ? bytes : (bytes + 15) / 16 * 16 + 16;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Thread 0 arms the barrier for `bytes` of bulk copies (its one arrival).
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the barrier's phase of this parity has completed.  A copy
+// that never lands traps (a launch error) after 2^28 tries, seconds, rather
+// than hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  for (unsigned tries = 0;; ++tries) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// One TMA 1-D bulk copy of `bytes` (a multiple of 16; both addresses
+// 16-byte aligned) into shared memory, completed on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One cp.async of a U-byte unit of which the first `src_bytes` are read
+// (the rest zero-filled).
+template <int U>
+__device__ __forceinline__ void cp_async_unit(void* dst, const void* src,
+                                              int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(U), "r"(src_bytes)
+               : "memory");
+}
+
+// The barrier's phase counts this thread's arrival once its earlier
+// cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// `bytes` from src, which starts anywhere inside a U-byte unit, copied by
+// the n threads in U-byte units from the unit that holds its first byte:
+// the copy lands (src % U) bytes into dst.  The first unit may read the
+// bytes before src (of the same allocation, whose base is U-aligned); the
+// last reads no byte past src + bytes.
+template <int U>
+__device__ __forceinline__ void copy_window(unsigned char* dst,
+                                            const unsigned char* src,
+                                            int bytes, int tid, int threads) {
+  const int head = static_cast<int>(reinterpret_cast<size_t>(src) % U);
+  const unsigned char* from = src - head;
+  const int span = head + bytes;
+  for (int c = tid; c * U < span; c += threads) {
+    const int left = span - c * U;
+    cp_async_unit<U>(dst + c * U, from + c * U, left < U ? left : U);
+  }
+}
+
+// The ring of a walker over K operands.  Operand q lies in device memory
+// at src[q] + e * bytes[q] for element e; where the plan stages it, the
+// t-th element of the block finds it in stage t % stages at offset off[q]
+// (plus the copy window's head on the cp.async path).
+template <int K>
+struct WalkRing {
+  unsigned long long* full;     // one barrier per stage
+  unsigned char* base;          // the stages, in dynamic shared memory
+  const unsigned char* src[K];  // each operand in device memory
+  int bytes[K];                 // its bytes per element
+  int unit[K];                  // cp.async path: its copy unit (4 or 8)
+  int off[K];                   // its slot in a stage
+  int stage_bytes;
+  WalkPlan plan;
+
+  __device__ __forceinline__ WalkRing(unsigned long long* full_,
+                                      unsigned char* base_,
+                                      const WalkPlan& plan_,
+                                      const void* const (&src_)[K],
+                                      const int (&bytes_)[K],
+                                      const int (&size_)[K])
+      : full(full_), base(base_), plan(plan_) {
+    stage_bytes = 0;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      src[q] = static_cast<const unsigned char*>(src_[q]);
+      bytes[q] = bytes_[q];
+      unit[q] = size_[q] < 4 ? 4 : size_[q];
+      off[q] = stage_bytes;
+      if (has(q)) stage_bytes += walk_slot_bytes(bytes[q], plan.bulk);
+    }
+  }
+
+  __device__ __forceinline__ bool has(int q) const {
+    return (plan.staged >> q) & 1;
+  }
+
+  // Thread 0 makes the barriers; a __syncthreads() must follow before any
+  // thread fills or waits.
+  __device__ __forceinline__ void init(int tid, int threads) {
+    if (tid == 0 && plan.staged) {
+      for (int s = 0; s < plan.stages; ++s)
+        mbar_init(&full[s], plan.bulk ? 1u : static_cast<unsigned>(threads));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
+
+  // Element e, the t-th of the block, into stage t % stages; called by
+  // every thread once no thread reads that stage any more.
+  __device__ __forceinline__ void fill(int t, size_t e, int tid,
+                                       int threads) {
+    if (!plan.staged) return;
+    const int s = t % plan.stages;
+    unsigned char* stage = base + s * stage_bytes;
+    if (plan.bulk) {
+      if (tid != 0) return;
+      // the stage's last reads were generic; its next writes are TMA's
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      unsigned total = 0;
+#pragma unroll
+      for (int q = 0; q < K; ++q)
+        if (has(q)) total += static_cast<unsigned>(bytes[q]);
+      mbar_expect_tx(&full[s], total);
+#pragma unroll
+      for (int q = 0; q < K; ++q)
+        if (has(q))
+          bulk_copy(stage + off[q], src[q] + e * bytes[q],
+                    static_cast<unsigned>(bytes[q]), &full[s]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        if (!has(q)) continue;
+        if (unit[q] == 8)
+          copy_window<8>(stage + off[q], src[q] + e * bytes[q], bytes[q],
+                         tid, threads);
+        else
+          copy_window<4>(stage + off[q], src[q] + e * bytes[q], bytes[q],
+                         tid, threads);
+      }
+      cp_async_arrive(&full[s]);
+    }
+  }
+
+  // Until the t-th element's stage has landed.
+  __device__ __forceinline__ void wait(int t) const {
+    if (plan.staged)
+      mbar_wait(&full[t % plan.stages],
+                static_cast<unsigned>((t / plan.stages) & 1));
+  }
+
+  // Operand q of element e, the t-th: in its stage where staged, else in
+  // device memory.
+  template <typename T>
+  __device__ __forceinline__ const T* at(int q, int t, size_t e) const {
+    const unsigned char* g = src[q] + e * bytes[q];
+    if (!has(q)) return reinterpret_cast<const T*>(g);
+    const int head =
+        plan.bulk ? 0 : static_cast<int>(reinterpret_cast<size_t>(g) % unit[q]);
+    return reinterpret_cast<const T*>(base + (t % plan.stages) * stage_bytes +
+                                      off[q] + head);
+  }
+
+  // The operands element e will read from device memory, prefetched to L2.
+  __device__ __forceinline__ void prefetch(size_t e, int tid,
+                                           int threads) const {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      if (has(q)) continue;
+      const unsigned char* g = src[q] + e * bytes[q];
+      if (plan.bulk) {
+        if (tid == 0)
+          asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(g),
+                       "r"(static_cast<unsigned>(bytes[q]))
+                       : "memory");
+      } else {
+        for (int c = tid; c * 128 < bytes[q]; c += threads)
+          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(g + c * 128));
+      }
+    }
+  }
+};
+
+// D's rows i and j and columns i and j, the values thread (i, j) contracts
+// with (ax_columns reads them from shared memory as Dt[l][i], D[j][l],
+// D[l][i] and D[l][j]), in registers in the accumulation type T.
+template <int N, typename T>
+struct DRegs {
+  T row_i[N], row_j[N], col_i[N], col_j[N];
+
+  template <typename O>
+  __device__ __forceinline__ void load(const O* __restrict__ D, int i,
+                                       int j) {
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      row_i[l] = convert<T>(D[i * N + l]);
+      row_j[l] = convert<T>(D[j * N + l]);
+      col_i[l] = convert<T>(D[l * N + i]);
+      col_j[l] = convert<T>(D[l * N + j]);
+    }
+  }
+  __device__ __forceinline__ T ri(int l) const { return row_i[l]; }
+  __device__ __forceinline__ T rj(int l) const { return row_j[l]; }
+  __device__ __forceinline__ T ci(int l) const { return col_i[l]; }
+  __device__ __forceinline__ T cj(int l) const { return col_j[l]; }
+};
+
+// ax_columns with the thread's rows and columns of D from `dr` (DRegs):
+// the same products, contracted and summed in the same order, so wc is
+// bitwise ax_columns'.  The broadcast row D[k][.] and the layers stay in
+// shared memory (sh.D, published by the first barrier; sh.Dt is not read).
+template <int N, typename T, typename DR, typename Metric, typename U>
+__device__ __forceinline__ void ax_columns_dregs(AxShared<N, T>& sh,
+                                                 const DR& dr, Metric metric,
+                                                 const U& uc, T (&wc)[N],
+                                                 int i, int j) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) wc[k] = T(0);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    sh.u[j][i] = uc[k];
+    __syncthreads();
+    T wr = T(0), ws = T(0), wt = T(0);
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      wr += dr.ri(l) * sh.u[j][l];
+      ws += dr.rj(l) * sh.u[l][i];
+      wt += sh.D[k][l] * uc[l];
+    }
+    T ur, us, ut;
+    metric(k, wr, ws, wt, ur, us, ut);
+    sh.r[j][i] = ur;
+    sh.s[j][i] = us;
+    __syncthreads();
+    T acc = T(0);
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      acc += dr.ci(l) * sh.r[j][l];
+      acc += dr.cj(l) * sh.s[l][i];
+    }
+    wc[k] += acc;
+#pragma unroll
+    for (int m = 0; m < N; ++m) wc[m] += sh.D[k][m] * ut;
+  }
+}
+
+// The first and one-past-last element of this block's range.
+__device__ __forceinline__ void walk_range(size_t E, int per_block,
+                                           size_t& first, size_t& last) {
+  first = static_cast<size_t>(blockIdx.x) * per_block;
+  last = first + per_block < E ? first + per_block : E;
+  if (first > E) first = E;
+}
+
+// The dynamic shared bytes of a ring over K operands (the planner's
+// smem_bytes).
+template <int K>
+inline int walk_ring_bytes(const WalkPlan& p, const int (&bytes)[K]) {
+  int stage = 0;
+  for (int q = 0; q < K; ++q)
+    if ((p.staged >> q) & 1) stage += walk_slot_bytes(bytes[q], p.bulk);
+  return p.stages * stage;
+}
+
+// A plan the kernel can run on these pointers (bulk: every operand
+// 16-byte aligned with sizes a multiple of 16; cp.async: aligned to its
+// copy unit).
+template <int K>
+inline bool walk_plan_ok(const WalkPlan& p, long long E, int grid,
+                         const void* const (&src)[K], const int (&bytes)[K],
+                         const int (&size)[K]) {
+  if (p.per_block < 1 || grid < 1 ||
+      static_cast<long long>(grid) * p.per_block < E || p.stages < 1 ||
+      p.stages > kMaxStages || p.staged < 0 || p.staged >= (1 << K) ||
+      (p.bulk != 0 && p.bulk != 1))
+    return false;
+  for (int q = 0; q < K; ++q) {
+    const size_t a = reinterpret_cast<size_t>(src[q]);
+    const int unit = size[q] < 4 ? 4 : size[q];
+    if (p.bulk ? (a % 16 != 0 || bytes[q] % 16 != 0) : a % unit != 0)
+      return false;
+  }
+  return true;
+}
+
+}  // namespace nekbone

@@ -12,9 +12,8 @@
 // 64 elements x 8 KB (fp64) = 512 KB, more than the 227 KB of shared memory
 // a block may use, so here the work splits differently:
 //
-// * this kernel is per element (one thread block, an n x n thread layer
-//   marching the k layers as in nekbone_ax.cu; the layer loop is
-//   common.cuh's ax_diag_columns, shared with the Chebyshev kernel) and
+// * this kernel works element by element (an n x n thread layer marching
+//   an element's k layers, the layer loop in ax_diag_columns' order) and
 //   writes the *unassembled* masked w;
 // * the update kernel (nekbone_cg_update.cu) assembles w node by node,
 //   reading the neighbours' face copies straight from device memory in
@@ -33,6 +32,32 @@
 // about 12n+10 flops per node, so it is bound by device-memory bytes (about
 // 17 us at the data sheet's 3.35 TB/s).  pap leaves as one value per element
 // (E values), summed outside by torch.sum.
+//
+// Design (common.cuh's walkers).  One block per element, each loading its
+// columns, sweeping the operator and storing in series, left the sweep and
+// the traffic unoverlapped, 1.29 waves of blocks at E=1024 and the
+// operator's shared-memory reads of D on every node.  Here:
+//
+// * persistent blocks, one wave: kernels/nekbone_ax.k4_plan sizes the grid
+//   from the occupancy calculator; block b owns the z-major elements
+//   [b * per_block, (b + 1) * per_block) and walks them (an ordinary
+//   launch: no block waits for another);
+// * a ring of stages (two) in dynamic shared memory holds the next
+//   element's p_prev, r and metric diagonals (operands 0, 1, 2) while the
+//   operator sweeps the current one: one thread's TMA bulk copies where n is
+//   even, per-thread cp.async where it is odd, each stage completed on an
+//   mbarrier.  The planner stages what fits two blocks an SM (all three at
+//   n = 10 in every build); an operand it does not stage is read from
+//   device memory, prefetched to L2 one element ahead;
+// * thread (i, j) holds D's rows i, j and columns i, j in registers
+//   (common.cuh DRegs, 4n values); only the broadcast row D[k][.] and the
+//   layers go through shared memory.  __launch_bounds__ asks for two blocks
+//   an SM at n = 10 in fp64 (255 registers a thread) and four in f32 and
+//   bf16 (128; common.cuh kWalkMinBlocks).
+//
+// Every product and sum of a node is taken in ax_diag_columns' order and
+// pap goes through block_sum<N*N>'s tree, so p, w and pap are bitwise the
+// kernel of one block per element (and K6's lanes stay bitwise K4's).
 //
 // beta is read from a device pointer, so the CG loop never waits for the
 // card.  p = r + beta * p_prev is computed with rounded, uncontracted
@@ -55,94 +80,168 @@
 
 namespace nekbone {
 
+// The operands of one launch, passed by value.
+template <typename S, typename O, typename A>
+struct SlabArgs {
+  const S* p_prev;
+  const S* r;
+  const O* D;
+  const O* g3;
+  const S* mx;
+  const S* my;
+  const S* mz;
+  const A* beta;
+  S* p_out;
+  S* w;
+  A* pap;
+  int ex, ey, ez;
+  WalkPlan plan;
+};
+
+// Operands 0, 1, 2 of the ring: p_prev, r (n^3 values in S) and the metric
+// diagonals (3 n^3 in O) of one element; their bytes and value sizes.
+template <int N, typename S, typename O>
+__host__ __device__ __forceinline__ void slab_operands(int (&bytes)[3],
+                                                       int (&size)[3]) {
+  constexpr int kS = static_cast<int>(sizeof(S));
+  constexpr int kO = static_cast<int>(sizeof(O));
+  bytes[0] = bytes[1] = N * N * N * kS;
+  bytes[2] = 3 * N * N * N * kO;
+  size[0] = size[1] = kS;
+  size[2] = kO;
+}
+
 template <int N, typename S, typename O, typename A>
-__global__ void __launch_bounds__(N * N)
-nekbone_ax_slab_kernel(const S* __restrict__ p_prev, const S* __restrict__ r,
-                       const O* __restrict__ D, const O* __restrict__ g3,
-                       const S* __restrict__ mx, const S* __restrict__ my,
-                       const S* __restrict__ mz, const A* __restrict__ beta,
-                       S* __restrict__ p_out, S* __restrict__ w,
-                       A* __restrict__ pap, int ex, int ey) {
+__global__ void __launch_bounds__(N * N, kWalkMinBlocks<N, A>)
+nekbone_ax_slab_kernel(const SlabArgs<S, O, A> a) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
   __shared__ AxShared<N, A> sh;
   __shared__ A red[N2];
+  __shared__ unsigned long long full[kMaxStages];
+  extern __shared__ __align__(128) unsigned char ring_bytes[];
 
   const int i = threadIdx.x;
   const int j = threadIdx.y;
   const int tid = j * N + i;
-  const size_t e = blockIdx.x;
-  const int ix = static_cast<int>(e % ex);
-  const int iy = static_cast<int>((e / ex) % ey);
-  const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
-  const size_t base = e * N3 + tid;
+  const size_t E = static_cast<size_t>(a.ex) * a.ey * a.ez;
+  size_t first, last;
+  walk_range(E, a.plan.per_block, first, last);
+  const int count = static_cast<int>(last - first);
+  const void* const src[3] = {a.p_prev, a.r, a.g3};
+  int bytes[3], size[3];
+  slab_operands<N, S, O>(bytes, size);
+  WalkRing<3> ring(full, ring_bytes, a.plan, src, bytes, size);
+  ring.init(tid, N2);
+  load_D(sh, a.D, i, j);
+  DRegs<N, A> dr;
+  dr.load(a.D, i, j);
+  const A b = *a.beta;
+  __syncthreads();
+  for (int t = 0; t < a.plan.stages && t < count; ++t)
+    ring.fill(t, first + t, tid, N2);
 
-  load_D(sh, D, i, j);
-  const A b = *beta;
-  A pc[N];
-  A wc[N];
+  for (int t = 0; t < count; ++t) {
+    const size_t e = first + t;
+    if (t + 1 < count) ring.prefetch(e + 1, tid, N2);
+    const int ix = static_cast<int>(e % a.ex);
+    const int iy = static_cast<int>((e / a.ex) % a.ey);
+    const int iz = static_cast<int>(e / (static_cast<size_t>(a.ex) * a.ey));
+    const size_t base = e * N3 + tid;
+    ring.wait(t);
+    const S* pp = ring.at<S>(0, t, e) + tid;
+    const S* rr = ring.at<S>(1, t, e) + tid;
+    const O* ge = ring.at<O>(2, t, e) + tid;
+    A pc[N];
+    A wc[N];
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    // the stored direction, and the operator applied to exactly it (the
-    // round trip through S is the identity for f64 and f32)
-    const size_t o = base + k * N2;
-    const S ps =
-        convert<S>(add_rn(convert<A>(r[o]), mul_rn(b, convert<A>(p_prev[o]))));
-    p_out[o] = ps;
-    pc[k] = convert<A>(ps);
-  }
-  ax_diag_columns(sh, g3 + e * 3 * N3 + tid, pc, wc, i, j);
+    for (int k = 0; k < N; ++k) {
+      // the stored direction, and the operator applied to exactly it (the
+      // round trip through S is the identity for f64 and f32)
+      const S ps = convert<S>(
+          add_rn(convert<A>(rr[k * N2]), mul_rn(b, convert<A>(pp[k * N2]))));
+      a.p_out[base + k * N2] = ps;
+      pc[k] = convert<A>(ps);
+    }
+    ax_columns_dregs(
+        sh, dr,
+        [ge](int k, A wr, A ws, A wt, A& ur, A& us, A& ut) {
+          ur = convert<A>(ge[0 * N3 + k * N2]) * wr;
+          us = convert<A>(ge[1 * N3 + k * N2]) * ws;
+          ut = convert<A>(ge[2 * N3 + k * N2]) * wt;
+        },
+        pc, wc, i, j);
 
-  const A myx = convert<A>(my[iy * N + j]) * convert<A>(mx[ix * N + i]);
-  A part = A(0);
+    const A myx =
+        convert<A>(a.my[iy * N + j]) * convert<A>(a.mx[ix * N + i]);
+    A part = A(0);
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    // the box mask is (mz * my) * mx; all factors are 0 or 1, so any order
-    // of the product is exact.
-    const A v = wc[k] * (convert<A>(mz[iz * N + k]) * myx);
-    part += pc[k] * v;
-    w[base + k * N2] = convert<S>(v);
+    for (int k = 0; k < N; ++k) {
+      // the box mask is (mz * my) * mx; all factors are 0 or 1, so any
+      // order of the product is exact.
+      const A v = wc[k] * (convert<A>(a.mz[iz * N + k]) * myx);
+      part += pc[k] * v;
+      a.w[base + k * N2] = convert<S>(v);
+    }
+    const A total = block_sum<N2>(part, red, tid);
+    if (tid == 0) a.pap[e] = total;
+    // block_sum's barriers: no thread reads this element's stage any more
+    if (t + a.plan.stages < count)
+      ring.fill(t + a.plan.stages, e + a.plan.stages, tid, N2);
   }
-  const A total = block_sum<N2>(part, red, tid);
-  if (tid == 0) pap[e] = total;
 }
 
 template <int N, typename S, typename O, typename A>
-cudaError_t launch(const S* p_prev, const S* r, const O* D, const O* g3,
-                   const S* mx, const S* my, const S* mz, const A* beta,
-                   S* p_out, S* w, A* pap, int ex, int ey, int ez,
+const void* kernel_fn() {
+  return reinterpret_cast<const void*>(&nekbone_ax_slab_kernel<N, S, O, A>);
+}
+
+// out: common.cuh coop_query's seven values for this instantiation.
+template <int N, typename S, typename O, typename A>
+cudaError_t query(int dyn, int* out) {
+  return coop_query(kernel_fn<N, S, O, A>(), N * N, 1, dyn, out);
+}
+
+template <int N, typename S, typename O, typename A>
+cudaError_t launch(const SlabArgs<S, O, A>& a, int grid,
                    cudaStream_t stream) {
-  const int E = ex * ey * ez;
-  nekbone_ax_slab_kernel<N, S, O, A><<<E, dim3(N, N), 0, stream>>>(
-      p_prev, r, D, g3, mx, my, mz, beta, p_out, w, pap, ex, ey);
+  const void* const src[3] = {a.p_prev, a.r, a.g3};
+  int bytes[3], size[3];
+  slab_operands<N, S, O>(bytes, size);
+  const long long E = static_cast<long long>(a.ex) * a.ey * a.ez;
+  if (!walk_plan_ok(a.plan, E, grid, src, bytes, size))
+    return cudaErrorInvalidValue;
+  const int dyn = walk_ring_bytes(a.plan, bytes);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel_fn<N, S, O, A>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dyn);
+  if (err != cudaSuccess) return err;
+  nekbone_ax_slab_kernel<N, S, O, A><<<grid, dim3(N, N), dyn, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename S, typename O, typename A>
-int dispatch(const void* p_prev, const void* r, const void* D, const void* g3,
-             const void* mx, const void* my, const void* mz,
-             const void* beta, void* p_out, void* w, void* pap, int ex,
-             int ey, int ez, int n, void* stream) {
-  if (ex <= 0 || ey <= 0 || ez <= 0)
+int dispatch_query(int n, int dyn, int* out) {
+  switch (n) {
+#define NEKBONE_CASE(N) \
+  case N:               \
+    return static_cast<int>(query<N, S, O, A>(dyn, out));
+    NEKBONE_FOR_EACH_N(NEKBONE_CASE)
+#undef NEKBONE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename S, typename O, typename A>
+int dispatch(const SlabArgs<S, O, A>& a, int n, int grid, void* stream) {
+  if (a.ex <= 0 || a.ey <= 0 || a.ez <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const S* ps = static_cast<const S*>(p_prev);
-  const S* rs = static_cast<const S*>(r);
-  const O* Ds = static_cast<const O*>(D);
-  const O* gs = static_cast<const O*>(g3);
-  const S* mxs = static_cast<const S*>(mx);
-  const S* mys = static_cast<const S*>(my);
-  const S* mzs = static_cast<const S*>(mz);
-  const A* bs = static_cast<const A*>(beta);
-  S* po = static_cast<S*>(p_out);
-  S* wo = static_cast<S*>(w);
-  A* pa = static_cast<A*>(pap);
   switch (n) {
-#define NEKBONE_CASE(N)                                                    \
-  case N:                                                                  \
-    return static_cast<int>(launch<N, S, O, A>(ps, rs, Ds, gs, mxs, mys,   \
-                                               mzs, bs, po, wo, pa, ex, ey, \
-                                               ez, s));
+#define NEKBONE_CASE(N) \
+  case N:               \
+    return static_cast<int>(launch<N, S, O, A>(a, grid, s));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -154,28 +253,47 @@ int dispatch(const void* p_prev, const void* r, const void* D, const void* g3,
 
 // p_prev, r, p_out, w: (E, n^3) in S; D: (n, n) and g3: (E, 3, n^3) in O;
 // mx: (EX, n), my: (EY, n), mz: (EZ, n) in S; beta: one value and pap: (E,)
-// in A.  Elements z-major over (EX, EY, EZ).  Returns cudaGetLastError()
-// after the launch.
-#define NEKBONE_AX_SLAB_ENTRY(NAME, S, O, A)                                 \
-  extern "C" int NAME(const void* p_prev, const void* r, const void* D,      \
-                      const void* g3, const void* mx, const void* my,        \
-                      const void* mz, const void* beta, void* p_out, void* w, \
-                      void* pap, int ex, int ey, int ez, int n,              \
-                      void* stream) {                                        \
-    return nekbone::dispatch<S, O, A>(p_prev, r, D, g3, mx, my, mz, beta,    \
-                                      p_out, w, pap, ex, ey, ez, n, stream); \
+// in A.  Elements z-major over (EX, EY, EZ).  The plan (per_block, grid,
+// stages, staged, bulk) is kernels/nekbone_ax.k4_plan's; a plan the
+// pointers do not allow returns cudaErrorInvalidValue.  Returns
+// cudaGetLastError() after the launch.
+//
+// nekbone_ax_slab_query_<dtype>(n, resident, dyn, out): fills out[7] as
+// common.cuh coop_query documents (resident is ignored); returns a CUDA
+// error, or 0.
+#define NEKBONE_AX_SLAB_ENTRY(SUFFIX, S, O, A)                                \
+  extern "C" int nekbone_ax_slab_##SUFFIX(                                    \
+      const void* p_prev, const void* r, const void* D, const void* g3,       \
+      const void* mx, const void* my, const void* mz, const void* beta,       \
+      void* p_out, void* w, void* pap, int ex, int ey, int ez, int n,         \
+      int per_block, int grid, int stages, int staged, int bulk,              \
+      void* stream) {                                                         \
+    const nekbone::SlabArgs<S, O, A> a{                                       \
+        static_cast<const S*>(p_prev), static_cast<const S*>(r),              \
+        static_cast<const O*>(D),      static_cast<const O*>(g3),             \
+        static_cast<const S*>(mx),     static_cast<const S*>(my),             \
+        static_cast<const S*>(mz),     static_cast<const A*>(beta),           \
+        static_cast<S*>(p_out),        static_cast<S*>(w),                    \
+        static_cast<A*>(pap),          ex,                                    \
+        ey,                            ez,                                    \
+        {per_block, stages, staged, bulk}};                                   \
+    return nekbone::dispatch<S, O, A>(a, n, grid, stream);                    \
+  }                                                                           \
+  extern "C" int nekbone_ax_slab_query_##SUFFIX(int n, int resident, int dyn, \
+                                                int* out) {                   \
+    (void)resident;                                                           \
+    return nekbone::dispatch_query<S, O, A>(n, dyn, out);                     \
   }
 
 #ifdef NEKBONE_REAL_F64
-NEKBONE_AX_SLAB_ENTRY(nekbone_ax_slab_f64, double, double, double)
+NEKBONE_AX_SLAB_ENTRY(f64, double, double, double)
 #endif
 #ifdef NEKBONE_REAL_F32
-NEKBONE_AX_SLAB_ENTRY(nekbone_ax_slab_f32, float, float, float)
+NEKBONE_AX_SLAB_ENTRY(f32, float, float, float)
 #endif
 #ifdef NEKBONE_REAL_BF16
-NEKBONE_AX_SLAB_ENTRY(nekbone_ax_slab_bf16, __nv_bfloat16, __nv_bfloat16,
-                      float)
+NEKBONE_AX_SLAB_ENTRY(bf16, __nv_bfloat16, __nv_bfloat16, float)
 #endif
 #ifdef NEKBONE_REAL_BF16_IR
-NEKBONE_AX_SLAB_ENTRY(nekbone_ax_slab_bf16_ir, __nv_bfloat16, float, float)
+NEKBONE_AX_SLAB_ENTRY(bf16_ir, __nv_bfloat16, float, float)
 #endif

@@ -3,7 +3,8 @@
 * ``nekbone_ax_cuda`` — K1, ``csrc/nekbone_ax.cu``, replaces the reference's
   ``kernels/nekbone_ax.py:nekbone_ax_kernel``;
 * ``nekbone_ax_slab_cuda`` — K4, ``csrc/nekbone_ax_slab.cu``, replaces
-  ``nekbone_ax_slab_kernel``;
+  ``nekbone_ax_slab_kernel`` (persistent blocks that stage the next
+  element's operands while they sweep the current one; :func:`k4_plan`);
 * ``nekbone_cg_update_cuda`` — K5, ``csrc/nekbone_cg_update.cu``, replaces
   ``nekbone_cg_update_kernel``;
 * ``nekbone_pcg_update_cuda`` — K10, ``csrc/nekbone_pcg_update.cu``,
@@ -21,7 +22,8 @@
   ``nekbone_cg_update_block_kernel`` (K5 over b right-hand sides);
 * ``nekbone_ax_pap_cuda`` — K3, and ``nekbone_ax_dots_cuda`` — K2, both
   ``csrc/nekbone_ax_dots.cu``, replace ``nekbone_ax_pap_kernel`` and
-  ``nekbone_ax_dots_kernel`` (the v1 fused iteration's operator);
+  ``nekbone_ax_dots_kernel`` (the v1 fused iteration's operator; K4's
+  design, :func:`k3_plan`);
 * ``nekbone_ax_powers_cuda`` — K8, ``csrc/nekbone_ax_powers.cu``, replaces
   ``nekbone_ax_powers_kernel`` (the s-step basis and Gram; one cooperative
   launch per call, its grid chosen by :func:`k8_plan`);
@@ -85,7 +87,9 @@ __all__ = ["nekbone_ax_cuda",
            "SSTEP_MAX_S", "MIXES", "build_for", "CoopPlan",
            "device_memory_plan", "k11_plan", "k11_state_bytes",
            "nekbone_cheb_apply_plan", "k8_plan", "k8_scratch_bytes",
-           "nekbone_ax_powers_plan", "K6_LANES", "k6_lane_groups"]
+           "nekbone_ax_powers_plan", "K6_LANES", "k6_lane_groups", "STAGES",
+           "WalkPlan", "walk_slot_bytes", "k4_operands", "k3_operands",
+           "k4_plan", "k3_plan", "walk_plan", "walk_launch_info"]
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
@@ -116,15 +120,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers, then the ints, then the stream.
 _ARGTYPES = {
     "nekbone_ax": [_P] * 4 + [_I] * 2 + [_P],
-    "nekbone_ax_slab": [_P] * 11 + [_I] * 4 + [_P],
+    "nekbone_ax_slab": [_P] * 11 + [_I] * 9 + [_P],
     "nekbone_cg_update": [_P] * 11 + [_I] * 4 + [_P],
     "nekbone_pcg_update": [_P] * 13 + [_I] * 4 + [_P],
     "nekbone_cheb_apply": [_P] * 16 + [_I] * 8 + [_P],
     "nekbone_interp": [_P] * 3 + [_I] * 3 + [_P],
     "nekbone_ax_slab_block": [_P] * 11 + [_I] * 5 + [_P],
     "nekbone_cg_update_block": [_P] * 11 + [_I] * 5 + [_P],
-    "nekbone_ax_pap": [_P] * 6 + [_I] * 2 + [_P],
-    "nekbone_ax_dots": [_P] * 9 + [_I] * 2 + [_P],
+    "nekbone_ax_pap": [_P] * 6 + [_I] * 7 + [_P],
+    "nekbone_ax_dots": [_P] * 9 + [_I] * 7 + [_P],
     "nekbone_ax_powers": [_P] * 17 + [_I] * 7 + [_P],
     "nekbone_sstep_update": [_P] * 12 + [_I] * 5 + [_P],
 }
@@ -217,7 +221,8 @@ def nekbone_ax_slab_cuda(p2, r2, D, g3, mx, my, mz, beta, *, n: int):
     """K4: ``p = r + beta p2``, masked diagonal-metric Ax, pap partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_ax_slab_plain`; the
-    element grid is ``(len(mx), len(my), len(mz))``.  Builds by operand
+    element grid is ``(len(mx), len(my), len(mz))``.  One launch of the
+    grid :func:`k4_plan` sizes, staging what it says.  Builds by operand
     dtype (:data:`MIXES`): p2, r2 and the factors in S, D and g3 in O, beta
     in A.  Returns ``(p, w, pap)`` with ``p`` and the unassembled ``w`` in
     S and ``pap`` of shape (E,) in A.
@@ -232,11 +237,14 @@ def nekbone_ax_slab_cuda(p2, r2, D, g3, mx, my, mz, beta, *, n: int):
                  g3=(g3, (E, 3, n3), "O"), mx=(mx, (ex, n)),
                  my=(my, (ey, n)), mz=(mz, (ez, n)),
                  beta=(beta.reshape(1), (1,), "A"))
+    plan = _walk_launch_plan("nekbone_ax_slab", k4_plan, E, n, mix,
+                             p2.device, (p2, r2, g3))
     p_out = torch.empty_like(p2)
     w2 = torch.empty_like(p2)
     pap = torch.empty(E, dtype=MIXES[mix]["A"], device=p2.device)
     _launch("nekbone_ax_slab", mix, p2.device,
-            (p2, r2, D, g3, mx, my, mz, beta, p_out, w2, pap), (ex, ey, ez, n))
+            (p2, r2, D, g3, mx, my, mz, beta, p_out, w2, pap),
+            (ex, ey, ez, n, *plan.launch_ints))
     return p_out, w2, pap
 
 
@@ -410,6 +418,129 @@ def k8_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
     return device_memory_plan(E, sm_count, fit, slices, scratch)
 
 
+# The ring's depth of the walkers (K4, K3, K2): the element being swept and
+# the next one.  The kernels take 1..4 (csrc/common.cuh kMaxStages).
+STAGES = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkPlan:
+    """One launch of a walker (K4, K3, K2): block b of ``grid`` owns the
+    z-major elements ``[b * per_block, (b + 1) * per_block)`` (the last
+    range cut at E) and walks them, while a ring of ``stages`` stages in
+    its dynamic shared memory (``smem_bytes``) holds the ``staged``
+    operands of the next elements, filled by TMA bulk copies (``bulk``) or
+    per-thread ``cp.async``; the other operands are read from device
+    memory.  ``blocks_per_sm`` is the residency the grid was sized by."""
+    per_block: int
+    grid: int
+    blocks_per_sm: int
+    smem_bytes: int
+    stages: int
+    staged: tuple[str, ...]
+    operands: tuple[str, ...]
+    bulk: bool
+
+    @property
+    def copy(self) -> str:
+        return "bulk" if self.bulk else "cp.async"
+
+    @property
+    def staged_mask(self) -> int:
+        return sum(1 << self.operands.index(name) for name in self.staged)
+
+    @property
+    def launch_ints(self) -> tuple[int, ...]:
+        """(per_block, grid, stages, staged, bulk): the C entry's plan."""
+        return (self.per_block, self.grid, self.stages, self.staged_mask,
+                int(self.bulk))
+
+
+def walk_slot_bytes(nbytes: int, bulk: bool) -> int:
+    """An operand's slot in a stage (csrc/common.cuh ``walk_slot_bytes``):
+    its bytes per element on the bulk path; on the cp.async path rounded
+    to 16 with a 16-byte margin for the copy window."""
+    return nbytes if bulk else -(-nbytes // 16) * 16 + 16
+
+
+def k4_operands(n: int, mix: str) -> dict[str, int]:
+    """K4's stageable operands and their bytes per element: p_prev and r
+    (n^3 values in S) and the metric diagonals (3 n^3 in O)."""
+    s, o = MIXES[mix]["S"].itemsize, MIXES[mix]["O"].itemsize
+    return {"p_prev": n ** 3 * s, "r": n ** 3 * s, "g3": 3 * n ** 3 * o}
+
+
+def k3_operands(n: int, mix: str) -> dict[str, int]:
+    """K3's (and K2's) stageable operands and their bytes per element: p
+    (n^3 values in S), the metric (6 n^3 in O) and the mask (n^3 in S)."""
+    s, o = MIXES[mix]["S"].itemsize, MIXES[mix]["O"].itemsize
+    return {"p": n ** 3 * s, "g": 6 * n ** 3 * o, "mask": n ** 3 * s}
+
+
+def walk_plan(what: str, E: int, operands: dict[str, int], sm_count: int,
+              blocks_per_sm, smem_per_block: int, *,
+              aligned: bool = True) -> WalkPlan:
+    """The launch plan of a walker over E elements.
+
+    ``operands`` are the operands a ring may stage with their bytes per
+    element, in the kernel's order; ``blocks_per_sm(dyn_bytes)`` is how many
+    blocks an SM holds with that much dynamic shared memory each (on the
+    card, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    ``smem_per_block`` the most a block may take.  The copy path is the
+    bulk one where every operand's bytes are a multiple of 16 and its
+    pointer 16-byte aligned (``aligned``), cp.async otherwise.  The
+    residency comes first: the staged set is the one with the most bytes
+    whose ring of :data:`STAGES` stages leaves as many blocks an SM as the
+    block's registers allow (``blocks_per_sm(0)``), else one block fewer,
+    and so on (ties: the earlier operands); each block owns the least count
+    of elements that puts the whole grid on the card at once
+    (:func:`device_memory_plan`), so it ends in one wave.  Raises
+    ``ValueError`` where no ring of even one operand fits a block.
+    """
+    _check_plan(what, E, sm_count, 1)
+    names = tuple(operands)
+    bulk = aligned and all(b % 16 == 0 for b in operands.values())
+    slots = {k: walk_slot_bytes(b, bulk) for k, b in operands.items()}
+    subsets = [tuple(k for q, k in enumerate(names) if m >> q & 1)
+               for m in range(1, 1 << len(names))]
+    # most bytes first; among equals the one whose operands come first
+    subsets.sort(key=lambda sub: (-sum(operands[k] for k in sub),
+                                  [names.index(k) for k in sub]))
+    for need in range(max(blocks_per_sm(0), 1), 0, -1):
+        for sub in subsets:
+            dyn = STAGES * sum(slots[k] for k in sub)
+            if dyn > smem_per_block:
+                continue
+            fit = blocks_per_sm(dyn)
+            if fit >= need:
+                base = device_memory_plan(E, sm_count, fit, 1, dyn)
+                return WalkPlan(base.per_block, base.grid, fit, dyn, STAGES,
+                                sub, names, bulk)
+    raise ValueError(
+        f"{what}: no ring of {STAGES} stages of any of its operands "
+        f"({', '.join(f'{k} {b} B' for k, b in operands.items())} per "
+        f"element) fits a block resident on an SM ({smem_per_block} bytes "
+        "of shared memory a block at most)")
+
+
+def k4_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
+            smem_per_block: int, *, aligned: bool = True) -> WalkPlan:
+    """K4's plan for E elements of degree n - 1 in build ``mix``
+    (:func:`walk_plan` over :func:`k4_operands`)."""
+    return walk_plan(f"k4_plan (n={n}, {mix})", E, k4_operands(n, mix),
+                     sm_count, blocks_per_sm, smem_per_block,
+                     aligned=aligned)
+
+
+def k3_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
+            smem_per_block: int, *, aligned: bool = True) -> WalkPlan:
+    """K3's and K2's plan for E elements of degree n - 1 in build ``mix``
+    (:func:`walk_plan` over :func:`k3_operands`)."""
+    return walk_plan(f"k3_plan (n={n}, {mix})", E, k3_operands(n, mix),
+                     sm_count, blocks_per_sm, smem_per_block,
+                     aligned=aligned)
+
+
 def _device_index(device: torch.device) -> int:
     return device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -421,8 +552,10 @@ def _coop_query(stem: str, mix: str, n: int, resident: bool, dyn: int,
     """The C side's occupancy query of ``stem`` (csrc/common.cuh
     ``coop_query``): (blocks per SM, static shared bytes, registers, the
     most dynamic shared bytes, SM count, cooperative launch supported,
-    elements a block works on side by side)."""
-    fn = getattr(_build.load(f"{stem}_{mix}"), f"{stem}_query_{mix}")
+    elements a block works on side by side).  The walkers (K4, K3, K2)
+    ignore ``resident``."""
+    lib = _build.load(f"{_LIBRARY.get(stem, stem)}_{mix}")
+    fn = getattr(lib, f"{stem}_query_{mix}")
     fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 7)()
@@ -478,6 +611,48 @@ def nekbone_ax_powers_plan(E: int, n: int, s: int, dtype: torch.dtype,
     :func:`nekbone_cheb_apply_plan`)."""
     return _coop_plan_info("nekbone_ax_powers", k8_plan, E, n, dtype, device,
                            s=s)
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_device_plan(stem: str, planner, E: int, n: int, mix: str,
+                      device: int, aligned: bool) -> WalkPlan:
+    """``planner`` (:func:`k4_plan` or :func:`k3_plan`) for ``stem``'s
+    instantiation on ``device``."""
+    info = _coop_query(stem, mix, n, False, 0, device)
+
+    def fit(dyn):
+        return _coop_query(stem, mix, n, False, dyn, device)[0]
+
+    return planner(E, n, mix, info[4], fit, info[3], aligned=aligned)
+
+
+def _walk_launch_plan(stem: str, planner, E: int, n: int, mix: str,
+                      device: torch.device, staged) -> WalkPlan:
+    """The plan of a launch on these operands: the bulk path needs every
+    stageable operand 16-byte aligned; the cp.async path copies in units
+    of at least 4 bytes, so a bf16 operand off 4-byte alignment raises."""
+    ptrs = [t.data_ptr() for t in staged]
+    if any(a % 4 for a in ptrs):
+        raise ValueError(f"{stem}: the kernel copies its operands in 4-byte "
+                         "units; a bf16 operand starts off 4-byte alignment "
+                         f"(data_ptr % 4 = {[a % 4 for a in ptrs]})")
+    return _walk_device_plan(stem, planner, E, n, mix,
+                             _device_index(device),
+                             all(a % 16 == 0 for a in ptrs))
+
+
+def walk_launch_info(stem: str, E: int, n: int, mix: str, device="cuda",
+                     aligned: bool = True) -> tuple[WalkPlan, dict]:
+    """The plan a walker (``nekbone_ax_slab``, ``nekbone_ax_pap`` or
+    ``nekbone_ax_dots``) launches with for E elements in build ``mix`` on
+    ``device``, and the instantiation it runs: ``{"registers",
+    "static_smem", "sm_count"}``."""
+    planner = k4_plan if stem == "nekbone_ax_slab" else k3_plan
+    index = _device_index(torch.device(device))
+    plan = _walk_device_plan(stem, planner, E, n, mix, index, aligned)
+    info = _coop_query(stem, mix, n, False, plan.smem_bytes, index)
+    return plan, {"registers": info[2], "static_smem": info[1],
+                  "sm_count": info[4]}
 
 
 def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
@@ -623,7 +798,8 @@ def nekbone_ax_pap_cuda(p2, D, g2, mask2, *, n: int):
     Operands as :func:`repro_torch.kernels.ref.nekbone_ax_pap_plain`:
     ``p2``, ``mask2``: (E, n^3) in S; ``D``, ``g2``: (n, n), (E, 6, n^3) in
     O (:data:`MIXES`).  Returns ``(w, pap)`` with ``w`` unassembled in S
-    and ``pap`` of shape (E,) in A.
+    and ``pap`` of shape (E,) in A.  One launch of the grid :func:`k3_plan`
+    sizes.
     """
     if p2.device.type == "cpu":
         return nekbone_ax_pap_plain(p2, D, g2, mask2, n=n)
@@ -632,17 +808,20 @@ def nekbone_ax_pap_cuda(p2, D, g2, mask2, *, n: int):
     mix = _check("nekbone_ax_pap", n, p2.device, p2=(p2, (E, n3)),
                  D=(D, (n, n), "O"), g2=(g2, (E, 6, n3), "O"),
                  mask2=(mask2, (E, n3)))
+    plan = _walk_launch_plan("nekbone_ax_pap", k3_plan, E, n, mix,
+                             p2.device, (p2, g2, mask2))
     w2 = torch.empty_like(p2)
     pap = torch.empty(E, dtype=MIXES[mix]["A"], device=p2.device)
     _launch("nekbone_ax_pap", mix, p2.device, (p2, D, g2, mask2, w2, pap),
-            (E, n))
+            (E, n, *plan.launch_ints))
     return w2, pap
 
 
 def nekbone_ax_dots_cuda(p2, D, g2, mask2, r2, c2, *, n: int):
     """K2: K3 plus per-element ``r·c·r`` partials.
 
-    Operands as :func:`repro_torch.kernels.ref.nekbone_ax_dots_plain`.
+    Operands as :func:`repro_torch.kernels.ref.nekbone_ax_dots_plain`; K3's
+    plan (:func:`k3_plan`), r and c read from device memory.
     Returns ``(w, pap, rcz)`` with ``pap`` and ``rcz`` of shape (E,).
     """
     if p2.device.type == "cpu":
@@ -652,10 +831,13 @@ def nekbone_ax_dots_cuda(p2, D, g2, mask2, r2, c2, *, n: int):
     mix = _check("nekbone_ax_dots", n, p2.device, p2=(p2, (E, n3)),
                  D=(D, (n, n)), g2=(g2, (E, 6, n3)), mask2=(mask2, (E, n3)),
                  r2=(r2, (E, n3)), c2=(c2, (E, n3)))
+    plan = _walk_launch_plan("nekbone_ax_dots", k3_plan, E, n, mix,
+                             p2.device, (p2, g2, mask2))
     w2 = torch.empty_like(p2)
     parts = torch.empty(2, E, dtype=p2.dtype, device=p2.device)
     _launch("nekbone_ax_dots", mix, p2.device,
-            (p2, D, g2, mask2, r2, c2, w2, parts[0], parts[1]), (E, n))
+            (p2, D, g2, mask2, r2, c2, w2, parts[0], parts[1]),
+            (E, n, *plan.launch_ints))
     return w2, parts[0], parts[1]
 
 
