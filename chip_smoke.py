@@ -10,10 +10,11 @@ reference package ``repro``, and, in order:
 
 1. prints the card, its power limit, and the torch / CUDA / nvcc versions;
 2. builds the CUDA kernels from the thirteen sources of
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (32
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (38
    libraries: f64 and f32 for the Nekbone kernels, and the two bf16
-   operand mixes ``bf16`` and ``bf16_ir`` for K4, K5 and K3; f32 and bf16
-   for K13 and K14), in parallel, and shows from the bf16 K13's machine
+   operand mixes ``bf16`` and ``bf16_ir`` for K3, K4, K5, K8, K9 and K10;
+   f32 and bf16 for K13 and K14), in parallel, prints its wall time, and
+   shows from the bf16 K13's machine
    code (``cuobjdump -sass``) that it runs tensor-core MMAs (HMMA) on
    operands copied by cp.async (LDGSTS);
 3. measures device-to-device copy bandwidth on a 1 GiB buffer (the
@@ -85,18 +86,28 @@ reference package ``repro``, and, in order:
    against its plain version at n = 10, 5 and 3 (both copy paths) on the
    paper grid, the 16x16x16 grid and a 3x3x5 grid (E = 45, which no block
    count divides), with 5 repeated calls bitwise the same and K2's w and
-   pap bitwise K3's;
+   pap bitwise K3's; and K8, K9 and K10 in both bf16 builds at n=10, E =
+   1024 and 4096, K8 and K9 at s = 4, 2, 1: each of K8's stored powers
+   value by value against one plain application to its previous stored
+   power, its Gram partials bitwise ``ref.sstep_gram_emulated`` of its own
+   vectors (a K8 that skips rounding the powers through storage must fail
+   the power check), K9's x, r, p and K10's x, z value by value, their
+   partials summed, every output's dtype its role's;
 16. solves the paper case (b in fp64, 100 inner iterations per sweep)
-   through the ``ir`` route — ``f32_ir`` over v2, v1 and s-step (s=4),
-   ``bf16_ir`` over v2 and v1 — and the non-refined ``bf16`` policy over v2
-   and v1, each with the launch counters reset just before it: launches
-   exact, the history against the same route over the plain versions on
-   the card, ``f32_ir`` at or below fp64 v2's 100-iteration rnorm,
+   through the ``ir`` route — ``f32_ir`` and ``bf16_ir`` over v2, v1 and
+   s-step (s=4) — the non-refined ``bf16`` policy over v2, v1 and s-step,
+   and bf16 Jacobi-PCG over K4 + K10 (``bf16`` through the case,
+   ``bf16_ir`` through ``precond.pcg_fused_v2_fixed_iters``), each with the
+   launch counters reset just before it: launches exact, the history
+   against the same route over the plain versions on the card (bf16
+   s-step over its first cycle, where two valid Gram orders agree),
+   ``f32_ir`` over v2 and v1 at or below fp64 v2's 100-iteration rnorm,
    ``bf16_ir``'s outer rnorms never rising; times each solve; and shows
-   that bf16 over s-step and bf16 Jacobi-PCG (kernels without a bf16
-   build) raise;
-17. times the f32 K4 and K3 and the bf16 K4, K5 and K3 (both builds)
-   beside their plain versions at E=1024 and E=4096;
+   that the bf16 routes whose kernels have no bf16 build (Chebyshev- and
+   pmg-PCG, block CG, ``reference`` over K1) raise;
+17. times the f32 K4 and K3 and the bf16 K4, K5, K3, K8, K9 and K10 (both
+   builds; K9 also beside one ``torch.matmul``) beside their plain
+   versions at E=1024 and E=4096;
 18. profiles each kernel route (device time per iteration, by kernel, and
    the device's busy share);
 19. holds K13 (flash attention; in bf16 on the tensor cores) and K14 (the
@@ -605,7 +616,8 @@ def phase_pcg_parity():
                 err = abs(float(a.sum() - b.sum())) / abs(float(b.sum()))
                 check(err <= part_tol, f"K10 {tag}: {name} rel err "
                                        f"{err:.2e} <= {part_tol:g}")
-            plan, info = K.nekbone_cheb_apply_plan(case.mesh.nelt, n, dtype)
+            plan, info = K.nekbone_cheb_apply_plan(
+                case.mesh.nelt, n, "f64" if dtype == torch.float64 else "f32")
             variants.add(plan.variant)
             print(f"  K11 {tag}: {plan.variant}-memory variant, one "
                   f"cooperative launch of {plan.grid} blocks ({info['slices']}"
@@ -1187,7 +1199,8 @@ def phase_v1_sstep_parity():
                     o["inv_theta"])
             for s in ss:
                 tag = f"{dtype} n={n} E={E} s={s}"
-                plan, info = K.nekbone_ax_powers_plan(E, n, s, dtype)
+                plan, info = K.nekbone_ax_powers_plan(
+                    E, n, s, "f64" if dtype == torch.float64 else "f32")
                 print(f"  K8 {tag}: one cooperative launch of {plan.grid} "
                       f"blocks ({info['slices']} elements side by side, "
                       f"{plan.per_block} owned), {plan.blocks_per_sm} blocks "
@@ -1474,7 +1487,7 @@ def phase_times(bw_copy, cases):
         # with the state resident, r and the metric in and A d out at the
         # start, A d and the metric in and A d out at each middle step, A d
         # and r in and z out at the last; in device memory, d, res and z too
-        plan, _ = K.nekbone_cheb_apply_plan(E, n, torch.float64)
+        plan, _ = K.nekbone_cheb_apply_plan(E, n, "f64")
         fields = 5 * CHEB_K + 3 if plan.resident else 11 * CHEB_K
         moved = fields * field
         print(f"  K11 E={E} ({plan.variant}-memory variant): moves "
@@ -1675,7 +1688,7 @@ def phase_slice4_times(bw_copy, routes, rows):
                 (5 + 2 * s - 1) * field + gram_bytes,
                 (2 * s - 1) * E * n3 * 12 * n,
                 E * n3 * (6 * (2 * s - 1) + 3 * K_ * (K_ + 1) // 2), bw_copy)
-            plan, info = K.nekbone_ax_powers_plan(E, n, s, torch.float64)
+            plan, info = K.nekbone_ax_powers_plan(E, n, s, "f64")
             fields = _k8_moved_fields(s)
             moved = fields * field + gram_bytes
             row8["moved_bytes"] = moved
@@ -1819,8 +1832,8 @@ BF16_HEAD_TOL = 1e-2
 # bf16_ir's outer norms must not rise (x 1.05: the reference's own test)
 IR_MONOTONE = 1.05
 IR_ROUTES = (("f32_ir", "v2"), ("f32_ir", "v1"), ("f32_ir", "sstep"),
-             ("bf16_ir", "v2"), ("bf16_ir", "v1"), ("bf16", "v2"),
-             ("bf16", "v1"))
+             ("bf16_ir", "v2"), ("bf16_ir", "v1"), ("bf16_ir", "sstep"),
+             ("bf16", "v2"), ("bf16", "v1"), ("bf16", "sstep"))
 IR_IMPL = {"v2": "pallas_fused_cg_v2", "v1": "pallas_fused_cg",
            "sstep": "pallas_sstep_v3"}
 
@@ -1946,6 +1959,195 @@ def phase_bf16_parity():
                                           .max())
             del o, k4, k5, k3, kp, kw, pp, pw, kx, kr, px, pr, kw3, pw3
         del u64, D64, g64, mask64
+    torch.cuda.synchronize()
+    return errs
+
+
+# K8 and K9 at these cycle lengths in the bf16 builds
+BF16_SSTEP_S = (SSTEP_S, 2, 1)
+
+
+def _k8_unrounded(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta, *, n,
+                  s):
+    """A wrong K8 for the negative check: K8's plain version
+    (kernels/ref.nekbone_ax_powers_plain) without the rounding of each
+    power through storage before the next application; the stored basis
+    is still rounded once.  Returns the basis alone."""
+    import torch
+
+    from repro_torch.core.geom import box_outer
+    from repro_torch.core.gs import ds_sum_local
+    from repro_torch.kernels.ref import _masked_ax_diag, accum_dtype
+
+    acc = accum_dtype(p2.dtype)
+    E = p2.shape[0]
+    grid = (mx.shape[0], my.shape[0], mz.shape[0])
+    g = g3.to(acc).reshape(E, 3, n, n, n)
+    mask = box_outer(mz.to(acc), my.to(acc), mx.to(acc)).reshape(E, n, n, n)
+    ith = inv_theta.reshape(()).to(acc)
+
+    def chain(v, napps):
+        out = []
+        for _ in range(napps):
+            v = ds_sum_local(_masked_ax_diag(v, D.to(acc), g, mask),
+                             grid) * ith
+            out.append(v)
+        return out
+
+    new = (chain(p2.to(acc).reshape(E, n, n, n), s)
+           + chain(r2.to(acc).reshape(E, n, n, n), s - 1))
+    return torch.stack(new, dim=1).reshape(E, 2 * s - 1, n ** 3) \
+        .to(p2.dtype)
+
+
+def _k8_power_check(basis, p2, r2, args, *, n, s):
+    """K8's stored powers each against one plain application
+    (``nekbone_ax_powers_plain`` at s = 1) to the same basis's previous
+    stored power (p or r for the first).  Returns, by power (the p
+    chain's j = 1..s, then the r chain's j = 1..s-1), the value-by-value
+    figure (_value_rel; <= 1 passes), and the largest absolute difference
+    over all powers."""
+    from repro_torch.kernels import nekbone_ax as K
+
+    figures, worst = [], 0.0
+    for chain, start, count in ((0, p2, s), (s, r2, s - 1)):
+        prev = start
+        for j in range(count):
+            got = basis[:, chain + j]
+            want = K.nekbone_ax_powers_plain(prev, prev, *args, n=n,
+                                             s=1)[0][:, 0]
+            figures.append(_value_rel(got, want, BF16_F32_TOL))
+            worst = max(worst, float((got.float() - want.float()).abs()
+                                     .max()))
+            prev = got.contiguous()
+    return figures, worst
+
+
+def phase_bf16_sstep_pcg_parity():
+    """K8, K9 and K10 in their bf16 builds (both operand mixes) against
+    their plain versions, n = 10 on the paper grid and at E = 4096, K8 and
+    K9 at s = 4, 2 and 1.  K8's stored powers are held each against one
+    plain application to the kernel's own previous power (one bf16 step of
+    difference in power j moves power j + 1 by more than a step, so the
+    whole chain against the plain chain would test round-off), its Gram
+    partials bitwise ``ref.sstep_gram_emulated`` of f32 upcasts of its own
+    p, r and basis; a K8 that skips rounding the powers through storage
+    must fail the power check at some power from the second on.  K9's x, r
+    and p and K10's x and z are held value by value, their partials
+    summed.  K9's and K10's roundings of r and z to storage feed only
+    summed partials, which BF16_PART_TOL does not resolve, so they get no
+    negative check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cg_sstep import estimate_theta
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+    from repro_torch.kernels import ref
+
+    print("== bf16 K8/K9/K10 parity (kernel vs plain; n=10, E = 1024 and "
+          f"4096; builds {', '.join(BF16_MIXES)}; K8/K9 at s = "
+          f"{', '.join(map(str, BF16_SSTEP_S))}; fields value by value: "
+          f"|o - p| <= 2^-7 |p| + {BF16_F32_TOL:g} max |p|; partials summed, "
+          f"relative, <= {BF16_PART_TOL:g})", flush=True)
+    rng = np.random.default_rng(21)
+    errs = {}
+    n = 10
+    for grid in (PAPER_GRID, BIG_GRID):
+        case = NekboneCase(n=n, grid=grid, dtype=torch.float64)
+        E = case.mesh.nelt
+        inv_theta = 1.0 / estimate_theta(case.D, case.g, case.grid,
+                                         case.mask)
+        invd64 = (1.0 / case.operator_diagonal()).reshape(E, n ** 3) \
+            .contiguous()
+        for mix in BF16_MIXES:
+            dt = K.MIXES[mix]
+            tag = f"{mix} E={E}"
+            o = _mix_operands(case, rng, mix)
+            ith = torch.full((1,), inv_theta, dtype=dt["A"], device="cuda")
+            k8 = (o["D"], o["g3"], *o["m"], *o["c"], ith)
+            for s in BF16_SSTEP_S:
+                plan, info = K.nekbone_ax_powers_plan(E, n, s, mix)
+                kb, kg = K.nekbone_ax_powers_cuda(o["p"], o["r"], *k8, n=n,
+                                                  s=s)
+                figs, k8_err = _k8_power_check(kb, o["p"], o["r"], k8,
+                                               n=n, s=s)
+                em = ref.sstep_gram_emulated(
+                    o["p"].float(), o["r"].float(), kb.float(),
+                    *(f.float() for f in o["c"]), n=n, s=s)
+                check(kb.dtype == dt["S"] and kg.dtype == dt["A"]
+                      and max(figs) <= 1.0 and torch.equal(kg, em),
+                      f"K8 {tag} s={s} (grid {plan.grid}, "
+                      f"{plan.blocks_per_sm} blocks per SM, "
+                      f"{plan.smem_bytes} + {info['static_smem']} bytes "
+                      f"shared, {info['registers']} registers): basis in "
+                      f"{dt['S']}, each power value by value against one "
+                      "plain application to the previous stored power "
+                      "(worst by power "
+                      + " ".join(f"{v:.2f}" for v in figs)
+                      + f" of the limit); Gram partials in {dt['A']} "
+                      "bitwise ref.sstep_gram_emulated of the kernel's own "
+                      "vectors")
+                if grid == PAPER_GRID and s == SSTEP_S:
+                    bad = _k8_unrounded(o["p"], o["r"], *k8, n=n, s=s)
+                    bfigs, _ = _k8_power_check(bad, o["p"], o["r"], k8,
+                                               n=n, s=s)
+                    later = bfigs[1:s] + bfigs[s + 1:]
+                    check(max(later) > 1.0,
+                          f"K8 {tag} s={s}: a stand-in that skips rounding "
+                          "the powers through storage fails the power check "
+                          "from the second power on (worst by power "
+                          + " ".join(f"{v:.2f}" for v in bfigs) + ")")
+                # K9 on K8's basis, random coefficients in A
+                coef = torch.as_tensor(rng.normal(size=(3, 2 * s + 1)),
+                                       dtype=dt["A"], device="cuda")
+                k9 = (o["x"], o["p"], o["r"], kb, coef, *o["c"])
+                kx, kr, kp, krcr = K.nekbone_sstep_update_cuda(*k9, n=n,
+                                                               s=s)
+                px, pr, pp, prcr = K.nekbone_sstep_update_plain(*k9, n=n,
+                                                                s=s)
+                vals = [_value_rel(a, b, BF16_F32_TOL)
+                        for a, b in ((kx, px), (kr, pr), (kp, pp))]
+                rerr = _part_err(krcr, prcr)
+                check(kx.dtype == dt["X"] and kr.dtype == kp.dtype == dt["S"]
+                      and krcr.dtype == dt["A"] and max(vals) <= 1.0
+                      and rerr <= BF16_PART_TOL,
+                      f"K9 {tag} s={s}: x in {dt['X']}, r and p in "
+                      f"{dt['S']}, value by value (worst "
+                      + " ".join(f"{v:.2f}" for v in vals)
+                      + f" of the limit; bitwise: x {torch.equal(kx, px)}, "
+                      f"r {torch.equal(kr, pr)}, p {torch.equal(kp, pp)}), "
+                      f"rcr in {dt['A']} rel err {rerr:.2e}")
+                if grid == PAPER_GRID and s == SSTEP_S:
+                    errs[("K8", mix)] = k8_err
+                    errs[("K9", mix)] = float((kr.float() - pr.float())
+                                              .abs().max())
+                del kb, kg, em, kx, kr, kp, px, pr, pp
+            # K10 on K4's own output, z in K4's residual slot
+            z = _v2_operands(case, rng)["p"].to(dt["S"])
+            invd = invd64.to(dt["O"])
+            kp4, kw4, _ = K.nekbone_ax_slab_cuda(
+                o["p"], z, o["D"], o["g3"], *o["m"], o["beta"], n=n)
+            k10 = (o["x"], kp4, z, kw4, o["alpha"], invd, *o["c"])
+            kx, kz, krtz, krcr = K.nekbone_pcg_update_cuda(*k10, n=n)
+            px, pz, prtz, prcr = K.nekbone_pcg_update_plain(*k10, n=n)
+            xval = _value_rel(kx, px, BF16_F32_TOL)
+            zval = _value_rel(kz, pz, BF16_F32_TOL)
+            terr, rerr = _part_err(krtz, prtz), _part_err(krcr, prcr)
+            check(kx.dtype == dt["X"] and kz.dtype == dt["S"]
+                  and krtz.dtype == krcr.dtype == dt["A"] and xval <= 1.0
+                  and zval <= 1.0 and max(terr, rerr) <= BF16_PART_TOL,
+                  f"K10 {tag}: x in {dt['X']}, z in {dt['S']}, invd in "
+                  f"{dt['O']}, value by value (worst {xval:.2f} and "
+                  f"{zval:.2f} of the limit; bitwise: x {torch.equal(kx, px)}"
+                  f", z {torch.equal(kz, pz)}), rtz and rcr in {dt['A']} "
+                  f"rel err {terr:.2e} and {rerr:.2e}")
+            if grid == PAPER_GRID:
+                errs[("K10", mix)] = float((kz.float() - pz.float()).abs()
+                                           .max())
+            del o, k8, kx, kz, px, pz, kp4, kw4
+        del invd64
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return errs
 
@@ -2082,12 +2284,13 @@ def phase_walk_parity():
 @contextlib.contextmanager
 def _plain_kernels():
     """The kernel wrappers of the ir and bf16 routes (K1, K3, K4, K5, K8,
-    K9) replaced by their plain versions, which run on the card's tensors:
-    the same route over plain versions."""
+    K9, K10) replaced by their plain versions, which run on the card's
+    tensors: the same route over plain versions."""
     from repro_torch.kernels import nekbone_ax as K
 
     names = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
-             "nekbone_ax_pap", "nekbone_ax_powers", "nekbone_sstep_update")
+             "nekbone_ax_pap", "nekbone_ax_powers", "nekbone_sstep_update",
+             "nekbone_pcg_update")
     saved = {name: getattr(K, f"{name}_cuda") for name in names}
     try:
         for name in names:
@@ -2114,13 +2317,18 @@ def _ir_launches(prec, variant):
 
 
 def phase_ir_routes(hist, v2_solve_ms):
-    """The ir route (f32_ir over v2, v1 and s-step; bf16_ir over v2 and v1)
-    and the non-refined bf16 policy (v2, v1) on the paper case, through
-    ``case.solve``, each with the launch counters set to 0 just before it,
-    against the same route over the plain versions on the card."""
+    """The ir route (f32_ir and bf16_ir over v2, v1 and s-step) and the
+    non-refined bf16 policy (v2, v1, s-step) on the paper case, through
+    ``case.solve``, and bf16 Jacobi-PCG (``bf16`` through ``case.solve``,
+    ``bf16_ir`` through ``precond.pcg_fused_v2_fixed_iters``, where a
+    refined policy runs as its storage policy), each with the launch
+    counters set to 0 just before it, against the same route over the plain
+    versions on the card; then the bf16 routes whose kernels have no bf16
+    build, which must raise."""
     import numpy as np
     import torch
 
+    from repro_torch.core import precond as pc
     from repro_torch.core.nekbone import NekboneCase
 
     v2_last = float(hist["pallas_fused_cg_v2"][NITER])
@@ -2142,7 +2350,8 @@ def phase_ir_routes(hist, v2_solve_ms):
         h = res.history.double().cpu().numpy()
         want_len = sweeps + 1 if refined else NITER + 1
         check(res.pipeline == ("ir" if refined else
-                               {"v2": "fused_v2", "v1": "fused_v1"}[variant])
+                               {"v2": "fused_v2", "v1": "fused_v1",
+                                "sstep": "sstep_v3"}[variant])
               and h.shape == (want_len,) and bool(np.isfinite(h).all())
               and bool(torch.isfinite(res.x).all())
               and res.x.dtype == (torch.float64 if refined
@@ -2165,12 +2374,23 @@ def phase_ir_routes(hist, v2_solve_ms):
                   + " ".join(f"{v:.2f}" for v in h / ph) + "; plain route "
                   + " ".join(f"{v:.3e}" for v in ph) + ")")
         else:
+            # s-step: the first cycle's entries (0..s, the Gram's quadratic
+            # forms, entry 0 too: f32 partials summed in another order);
+            # two valid f32 orders of the Gram fork after it
+            head = SSTEP_S + 1 if variant == "sstep" else 11
             dev = _rel_dev(h, ph)
             worst = float(np.abs(np.log(h / ph)).max())
-            check(h[0] == ph[0] and float(dev[:11].max()) <= BF16_HEAD_TOL,
-                  f"{label}: history entries 0..10 within {BF16_HEAD_TOL:g} "
-                  f"of the plain route's ({float(dev[:11].max()):.2e}); all "
-                  f"{NITER + 1} within {np.exp(worst):.2f}x (reported)")
+            first = (dev[0] <= BF16_PART_TOL if variant == "sstep"
+                     else h[0] == ph[0])
+            check(first and float(dev[:head].max()) <= BF16_HEAD_TOL,
+                  f"{label}: history entry 0 "
+                  + (f"within {BF16_PART_TOL:g} ({dev[0]:.2e})"
+                     if variant == "sstep" else "equal")
+                  + f" and entries 0..{head - 1} within "
+                  f"{BF16_HEAD_TOL:g} of the plain route's "
+                  f"({float(dev[:head].max()):.2e}); entries 0..10 within "
+                  f"{float(dev[:11].max()):.2e}, all {NITER + 1} within "
+                  f"{np.exp(worst):.2f}x (reported)")
         ms = wall_ms(lambda: case.solve(f, niter=NITER), reps=3)
         out["ms"][label] = ms
         out["hist"][label] = h
@@ -2195,43 +2415,113 @@ def phase_ir_routes(hist, v2_solve_ms):
                   f"{'yes' if h[-1] <= v2_last else 'NO'} ({h[-1]:.6e} "
                   f"against {v2_last:.6e}; reported, not gated)", flush=True)
         if prec == "bf16_ir":
-            check(bool(np.all(h[1:] <= h[:-1] * IR_MONOTONE)),
-                  f"{label}: outer rnorms never rise (x {IR_MONOTONE:g})")
+            plain_falls = bool(np.all(ph[1:] <= ph[:-1] * IR_MONOTONE))
+            if variant == "sstep" and not plain_falls:
+                # a limit of the formulation, not of the kernels: the
+                # kernel route is then held to the plain route alone
+                print(f"  {label}: the plain route's outer rnorms rise too "
+                      f"(x {IR_MONOTONE:g}); held to the plain route alone",
+                      flush=True)
+            else:
+                check(bool(np.all(h[1:] <= h[:-1] * IR_MONOTONE)),
+                      f"{label}: outer rnorms never rise (x "
+                      f"{IR_MONOTONE:g}; the plain route's: {plain_falls})")
             print(f"  {label}: reaches fp64 v2's {NITER}-iteration rnorm: "
                   f"{'yes' if h[-1] <= v2_last else 'NO'} ({h[-1]:.6e} "
                   f"against {v2_last:.6e}; reported, not gated)", flush=True)
+    # --- bf16 Jacobi-PCG (K4 + K10): bf16 through the case, bf16_ir (x
+    # and the operator's data in f32) through pcg_fused_v2_fixed_iters ----
+    case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64)
+    u_ex, f = case.manufactured()
+    invd = 1.0 / case.operator_diagonal()
+    bf16_case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                            precision="bf16",
+                            ax_impl="pallas_fused_cg_v2")
+    f16 = bf16_case.manufactured()[1]
+
+    def jacobi(prec):
+        if prec == "bf16":
+            return bf16_case.solve(f16, niter=NITER, precond="jacobi")
+        return pc.pcg_fused_v2_fixed_iters(
+            f, D=case.D, g=case.g, grid=case.grid, niter=NITER,
+            precond=pc.JacobiPrecond(invdiag=invd), mask=case.mask,
+            c=case.c, precision=prec)
+
+    for prec, x_dtype in (("bf16", torch.bfloat16),
+                          ("bf16_ir", torch.float32)):
+        label = f"{prec} jacobi"
+        res, launches = _launch_run(lambda: jacobi(prec))
+        out["launches"][label] = launches
+        h = res.history.double().cpu().numpy()
+        check(h.shape == (NITER + 1,) and bool(np.isfinite(h).all())
+              and bool(torch.isfinite(res.x).all())
+              and res.x.dtype == x_dtype,
+              f"{label}: x {res.x.dtype}, finite, history of {h.size}")
+        check(launches == _zero_but(nekbone_ax_slab=NITER,
+                                    nekbone_pcg_update=NITER),
+              f"{label}: launches {launches}")
+        with _plain_kernels():
+            pres, plaunch = _launch_run(lambda: jacobi(prec))
+        ph = pres.history.double().cpu().numpy()
+        check(plaunch == _zero_but(), f"{label} over plain versions: no "
+                                      "kernel launched")
+        dev = _rel_dev(h, ph)
+        worst = float(np.abs(np.log(h / ph)).max())
+        check(h[0] == ph[0] and float(dev[:11].max()) <= BF16_HEAD_TOL,
+              f"{label}: history entries 0..10 within {BF16_HEAD_TOL:g} of "
+              f"the plain route's ({float(dev[:11].max()):.2e}); all "
+              f"{NITER + 1} within {np.exp(worst):.2f}x (reported)")
+        ms = wall_ms(lambda: jacobi(prec), reps=3)
+        out["ms"][label] = ms
+        out["hist"][label] = h
+        err = float(case.solution_error(res.x.to(torch.float64), u_ex))
+        print(f"  {label}: history[0, 10, 50, 100] "
+              + " ".join(f"{v:.6e}" for v in h[[0, 10, 50, NITER]])
+              + f"; last / fp64 v2's history[{NITER}] {h[-1] / v2_last:.3e};"
+              f" solution_error {err:.6e}; {ms:.3f} ms to completion, "
+              f"{ms / NITER:.4f} ms per iteration (fp64 v2 "
+              f"{v2_solve_ms / NITER:.4f})", flush=True)
+
     # the bf16 routes whose kernels have no bf16 build raise, naming the
     # queue that holds them; nothing falls back
-    for prec, impl, pc in (("bf16_ir", "pallas_sstep_v3", None),
-                           ("bf16", "pallas_sstep_v3", None),
-                           ("bf16", "pallas_fused_cg_v2", "jacobi")):
-        case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
-                           precision=prec, ax_impl=impl, s=SSTEP_S)
-        _, f = case.manufactured()
+    def raises(label, fn):
         try:
-            _launch_run(lambda: case.solve(f, niter=NITER, precond=pc))
+            _launch_run(fn)
             raised = ""
         except NotImplementedError as exc:
             raised = str(exc)
         check("ROADMAP.md queue 2" in raised,
-              f"{prec} over {impl}{' with ' + pc if pc else ''} raises on "
-              f"the card: {raised or 'nothing raised'}")
+              f"{label} raises on the card: {raised or 'nothing raised'}")
+
+    for pcn in (f"cheb{CHEB_K}", "pmg"):
+        raises(f"bf16 {pcn}-PCG over pallas_fused_cg_v2",
+               lambda: bf16_case.solve(f16, niter=NITER, precond=pcn))
+    F = torch.stack([f16 * (j + 1) for j in range(BLOCK_B)])
+    raises(f"bf16 block CG (b = {BLOCK_B}) over pallas_fused_cg_v2",
+           lambda: bf16_case.solve(F, niter=NITER))
+    ref_case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                           precision="bf16", ax_impl="pallas")
+    raises("bf16 reference CG over pallas (K1)",
+           lambda: ref_case.solve(f16, niter=NITER))
     return out
 
 
 def phase_bf16_times(bw_copy, rows):
-    """Device time of the f32 K4 and K3 and the bf16 K4, K5 and K3 (both
-    builds) beside their plain versions at E=1024 and E=4096."""
+    """Device time of the f32 K4 and K3 and the bf16 K4, K5, K3, K8 (s=4),
+    K9 (s=4, beside one ``torch.matmul`` in bf16) and K10 (both builds)
+    beside their plain versions at E=1024 and E=4096."""
     import numpy as np
     import torch
 
+    from repro_torch.core.cg_sstep import estimate_theta
     from repro_torch.core.nekbone import NekboneCase
     from repro_torch.kernels import nekbone_ax as K
 
     print("== times of the reduced-precision builds (K4 and K3 in f32, "
-          "K4, K5 and K3 in bf16 and bf16_ir; n=10; device time per call, "
-          "CUDA events around 20 queued calls, median of 5; operations at "
-          "the fp32 rate, 67 TF/s)", flush=True)
+          "K4, K5, K3, K8, K9 and K10 in bf16 and bf16_ir; n=10, K8 and K9 "
+          f"at s={SSTEP_S}; device time per call, CUDA events around 20 "
+          "queued calls, median of 5; operations at the fp32 rate, 67 "
+          "TF/s)", flush=True)
     rng = np.random.default_rng(12)
     n = 10
     for grid in (PAPER_GRID, BIG_GRID):
@@ -2262,14 +2552,59 @@ def phase_bf16_times(bw_copy, rows):
             }
             if mix == "f32":   # K5's f32 build is not this slice's
                 del work["K5"]
+            else:
+                # K8: p, r, 3 metric diagonals in, 2s - 1 basis vectors
+                # and the Gram partials (A) out; K9: x in and out, p, r
+                # and the basis in, r, p out; K10: x in and out, p, z, w
+                # in, z out, invd in.  Flops as for fp64.
+                s, K_ = SSTEP_S, 2 * SSTEP_S + 1
+                ith = torch.full((1,), 1.0 / estimate_theta(
+                    case.D, case.g, case.grid, case.mask), dtype=dt["A"],
+                    device="cuda")
+                k8 = (o["p"], o["r"], o["D"], o["g3"], *o["m"], *o["c"],
+                      ith)
+                basis, _ = K.nekbone_ax_powers_cuda(*k8, n=n, s=s)
+                coef = torch.as_tensor(rng.normal(size=(3, K_)),
+                                       dtype=dt["A"], device="cuda")
+                k9 = (o["x"], o["p"], o["r"], basis, coef, *o["c"])
+                z = o["r"]
+                invd = (1.0 / case.operator_diagonal()).reshape(
+                    E, n ** 3).to(dt["O"])
+                k10 = (o["x"], kp, z, kw, o["alpha"], invd, *o["c"])
+                gram_bytes = E * K_ * K_ * dt["A"].itemsize
+                work.update({
+                    "K8": (K.nekbone_ax_powers_cuda,
+                           K.nekbone_ax_powers_plain, k8,
+                           (2 * s + 1) * S + 3 * O + gram_bytes / nodes,
+                           ((2 * s - 1) * 12 * n,
+                            6 * (2 * s - 1) + 3 * K_ * (K_ + 1) // 2)),
+                    "K9": (K.nekbone_sstep_update_cuda,
+                           K.nekbone_sstep_update_plain, k9,
+                           2 * X + (2 * s + 3) * S, (0, 6 * K_ + 3)),
+                    "K10": (K.nekbone_pcg_update_cuda,
+                            K.nekbone_pcg_update_plain, k10,
+                            2 * X + 4 * S + O, (0, 14)),
+                })
+                V = torch.stack([o["p"]] + [basis[:, m] for m in range(s)]
+                                + [o["r"]]
+                                + [basis[:, s + m] for m in range(s - 1)]
+                                ).reshape(K_, nodes)
+                coef_s = coef.to(dt["S"])
             for name, (kern, plain, args, per_node, (fm, fr)) in work.items():
+                kw_s = dict(n=n, s=SSTEP_S) if name in ("K8", "K9") \
+                    else dict(n=n)
+                lib = (lambda: torch.matmul(coef_s, V)) if name == "K9" \
+                    else None
                 row = _time_row(
-                    f"{name} {mix} E={E} ({per_node} B/node)",
-                    lambda: kern(*args, n=n), lambda: plain(*args, n=n),
-                    per_node * nodes, nodes * fm, nodes * fr, bw_copy,
+                    f"{name} {mix} E={E} ({per_node:.4g} B/node"
+                    + (f"; library: torch.matmul of the {dt['S']} "
+                       "coefficients and V" if lib else "") + ")",
+                    lambda: kern(*args, **kw_s),
+                    lambda: plain(*args, **kw_s), per_node * nodes,
+                    nodes * fm, nodes * fr, bw_copy, lib=lib,
                     mma_peak=FP32_PEAK, rest_peak=FP32_PEAK)
                 rows[(f"{name} {mix}", grid)] = row
-            del o, k4, k5, k3, kp, kw
+            del o, k4, k5, k3, kp, kw, work
         del u64, D64, g64, mask64
     torch.cuda.empty_cache()
 
@@ -2756,6 +3091,7 @@ def main() -> int:
         launches.update(slice4["launches"])
         phase_slice4_times(bw, slice4, rows)
         err.update(phase_bf16_parity())
+        err.update(phase_bf16_sstep_pcg_parity())
         err.update(phase_walk_parity())
         ir = phase_ir_routes(hist, v2_solve_ms)
         phase_bf16_times(bw, rows)
@@ -2820,7 +3156,13 @@ def main() -> int:
                 ("K4", "nekbone_ax_slab", "nekbone_ax_slab.cu", 476, "v2"),
                 ("K5", "nekbone_cg_update", "nekbone_cg_update.cu", 625,
                  "v2"),
-                ("K3", "nekbone_ax_pap", "nekbone_ax_dots.cu", 404, "v1")):
+                ("K3", "nekbone_ax_pap", "nekbone_ax_dots.cu", 404, "v1"),
+                ("K8", "nekbone_ax_powers", "nekbone_ax_powers.cu", 1026,
+                 "sstep"),
+                ("K9", "nekbone_sstep_update", "nekbone_sstep_update.cu",
+                 1198, "sstep"),
+                ("K10", "nekbone_pcg_update", "nekbone_pcg_update.cu", 1322,
+                 "jacobi")):
             row = rows[(f"{key} {mix}", PAPER_GRID)]
             kernels.append({
                 "name": f"{kname}_{mix}", "route": "cuda",

@@ -170,7 +170,7 @@ def ablate_k11():
     case = NekboneCase(n=n, grid=C.PAPER_GRID, dtype=torch.float64)
     o = C._pcg_operands(case, np.random.default_rng(3))
     args = (o["z"], o["D"], o["g3"], *o["m"], *o["c"], o["coef"][k])
-    plan, _ = K.nekbone_cheb_apply_plan(case.mesh.nelt, n, torch.float64)
+    plan, _ = K.nekbone_cheb_apply_plan(case.mesh.nelt, n, "f64")
     want, _ = K.nekbone_cheb_apply_plain(*args, n=n, k=k)
     runs = {name: (lib, plan, plan.resident) for name, lib in libs.items()}
     # the device-memory variant of the built kernel on the same E

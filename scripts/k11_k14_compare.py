@@ -47,6 +47,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
+from scripts.k4_k3_compare import _sass  # noqa: E402  (one SASS reader)
+
 OUT = ROOT / "build/k11_k14_parent"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -173,26 +175,6 @@ SASS_STEMS = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
               "nekbone_ax_slab_block", "nekbone_ax_powers")
 
 
-def _sass(so: pathlib.Path) -> dict[str, list[str]]:
-    """{function: its instructions} from ``cuobjdump -sass``, addresses and
-    encodings dropped."""
-    import re
-
-    from repro_torch.kernels import _build
-
-    cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(so)],
-                          capture_output=True, text=True, timeout=300).stdout
-    out = {}
-    for part in text.split("Function : ")[1:]:
-        name, body = part.split("\n", 1)
-        out[name.strip()] = [
-            re.sub(r"/\*[^*]*\*/", "", line).strip()
-            for line in body.splitlines() if re.match(r"\s+/\*[0-9a-f]{4}\*/",
-                                                       line)]
-    return out
-
-
 def compare_sass(parent: pathlib.Path) -> None:
     from repro_torch.kernels import _build
 
@@ -234,7 +216,8 @@ def compare_k11(lib, smi):
     for E, grid, dtype in ((1024, cs.PAPER_GRID, torch.float64),
                            (4096, cs.BIG_GRID, torch.float64),
                            (1024, cs.PAPER_GRID, torch.float32)):
-        plan, info = K.nekbone_cheb_apply_plan(E, 10, dtype)
+        plan, info = K.nekbone_cheb_apply_plan(
+            E, 10, "f64" if dtype == torch.float64 else "f32")
         print(f"  plan E={E} {dtype}: {plan.variant} variant, grid "
               f"{plan.grid}, {plan.per_block} elements per block, "
               f"{plan.blocks_per_sm} blocks per SM, {plan.smem_bytes} bytes "

@@ -369,6 +369,16 @@ def compare(parent: dict, smi):
     return ok
 
 
+def _sass_key(name: str):
+    """A kernel's SASS name without its type arguments: (name, its integer
+    and bool template arguments), so that an instantiation keeps its key
+    when a source gains type parameters."""
+    m = re.match(r"_ZN\d+nekbone\d+([A-Za-z_0-9]+?)I", name)
+    if m is None:
+        return name
+    return m.group(1), tuple(re.findall(r"L[ib](\d+)E", name))
+
+
 def _sass(so: pathlib.Path) -> dict[str, list[str]]:
     """{function: its instructions} from ``cuobjdump -sass``, addresses and
     encodings dropped."""
@@ -380,7 +390,7 @@ def _sass(so: pathlib.Path) -> dict[str, list[str]]:
     out = {}
     for part in text.split("Function : ")[1:]:
         name, body = part.split("\n", 1)
-        out[name.strip()] = [
+        out[_sass_key(name.strip())] = [
             re.sub(r"/\*[^*]*\*/", "", line).strip()
             for line in body.splitlines() if re.match(r"\s+/\*[0-9a-f]{4}\*/",
                                                        line)]

@@ -58,6 +58,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
+from scripts.k4_k3_compare import _sass  # noqa: E402  (one SASS reader)
+
 CSRC = ROOT / "src/repro_torch/kernels/csrc"
 OUT = ROOT / "build/k8_k6_parent"
 ABL = ROOT / "build/k8_k6_ablation"
@@ -188,7 +190,8 @@ def compare_k8(libs, smi):
     for E, dtype in ((1024, torch.float64), (4096, torch.float64),
                      (1024, torch.float32)):
         for s in (1, 2, 4):
-            plan, info = K.nekbone_ax_powers_plan(E, n, s, dtype)
+            plan, info = K.nekbone_ax_powers_plan(
+                E, n, s, "f64" if dtype == torch.float64 else "f32")
             print(f"  plan E={E} {dtype} s={s}: grid "
                   f"{plan.grid}, {plan.per_block} elements per block, "
                   f"{plan.blocks_per_sm} blocks per SM, {plan.smem_bytes} "
@@ -277,26 +280,6 @@ def compare_k6(libs, smi):
                       flush=True)
                 del o, P, R, args, new, was
             torch.cuda.empty_cache()
-
-
-def _sass(so: pathlib.Path) -> dict[str, list[str]]:
-    """{function: its instructions} from ``cuobjdump -sass``, addresses and
-    encodings dropped."""
-    import re
-
-    from repro_torch.kernels import _build
-
-    cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(so)],
-                          capture_output=True, text=True, timeout=300).stdout
-    out = {}
-    for part in text.split("Function : ")[1:]:
-        name, body = part.split("\n", 1)
-        out[name.strip()] = [
-            re.sub(r"/\*[^*]*\*/", "", line).strip()
-            for line in body.splitlines() if re.match(r"\s+/\*[0-9a-f]{4}\*/",
-                                                       line)]
-    return out
 
 
 def compare_sass(parent: pathlib.Path) -> None:

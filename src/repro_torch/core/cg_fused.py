@@ -32,9 +32,9 @@ the preconditioned and tolerance-driven drivers of ``core/precond.py``.
 Low-precision inner solves over v2, v1 or s-step, each scaled by the
 residual's inf-norm, and an outer residual ``r = b - mask gs(A x)`` formed
 in ``b``'s precision by one assembled K1 per sweep.  The ``bf16`` and
-``bf16_ir`` policies run K4, K5 and K3 in their bf16 builds (bf16 storage,
-f32 accumulation); K8 and K9 have no bf16 build yet, so bf16 over s-step
-raises on the card (ROADMAP.md queue 2).
+``bf16_ir`` policies run K4, K5, K3, K8 and K9 in their bf16 builds (bf16
+storage, f32 accumulation), so both run over v2, v1 and s-step on the
+card.
 
 The reference's v1 ``block_e``, and its v2 slab split ``sz``, contraction
 ``layout`` and ``grid_order``, are TPU VMEM knobs with no counterpart here:

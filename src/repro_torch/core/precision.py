@@ -15,15 +15,15 @@ Named policies::
     f32_ir   f32 storage, f32 accum, refined
     bf16_ir  bf16 vectors, f32 accum + x + metric, refined
 
-What runs on the card: every kernel in ``f64`` and ``f32``; K4, K5 (v2)
-and K3 (v1) also in two bf16 builds, ``bf16`` (every operand bf16) and
-``bf16_ir`` (bf16 vectors; x, the metric and D in f32), both accumulating
-in f32.  The refined policies run the ``ir`` route
-(``cg_fused.cg_ir_fixed_iters``): ``f32_ir`` over v2, v1 and s-step,
-``bf16_ir`` over v2 and v1.  bf16 over s-step, and bf16 on any route whose
-kernels are outside K3, K4 and K5 (Jacobi, Chebyshev, pmg, block,
-``reference`` over K1), raise on the card: those kernels' bf16 builds are
-ROADMAP.md queue 2.  On the CPU every policy runs the plain versions.
+What runs on the card: every kernel in ``f64`` and ``f32``; K4, K5 (v2),
+K3 (v1), K8, K9 (s-step) and K10 (Jacobi-PCG) also in two bf16 builds,
+``bf16`` (every operand bf16) and ``bf16_ir`` (bf16 vectors; x and the
+operator's data in f32), both accumulating in f32.  The refined policies
+run the ``ir`` route (``cg_fused.cg_ir_fixed_iters``) over v2, v1 and
+s-step.  bf16 on any route whose kernels are outside K3, K4, K5, K8, K9
+and K10 (Chebyshev, pmg, block, ``reference`` over K1) raises on the card:
+those kernels' bf16 builds are ROADMAP.md queue 2.  On the CPU every
+policy runs the plain versions.
 """
 from __future__ import annotations
 

@@ -385,11 +385,14 @@ template <int N>
 constexpr int kWideMinBlocks = min_blocks(N * N * kWideSlices<N>, 128);
 
 // The thread's column of a field kept in shared memory, layer k at k N^2:
-// the operator's input without the N registers a copy would hold.
-template <int N, typename T>
+// the operator's input without the N registers a copy would hold.  The
+// column holds V values (K8's bf16 builds: storage) and reads as T.
+template <int N, typename T, typename V = T>
 struct SharedColumn {
-  const T* p;
-  __device__ __forceinline__ T operator[](int k) const { return p[k * N * N]; }
+  const V* p;
+  __device__ __forceinline__ T operator[](int k) const {
+    return convert<T>(p[k * N * N]);
+  }
 };
 
 // The occupancy of a cooperative kernel fn of `threads` threads a block

@@ -25,27 +25,36 @@
 // Bound: bytes.  x, p, r and the 2s - 1 basis vectors in, x, r, p out:
 // 13 fields at s=4, 106.5 MB at E=1024, n=10, fp64 (31.8 us at the data
 // sheet's 3.35 TB/s); 6(2s+1) + 3 flops per node, far below.
+//
+// Storage and accumulation (common.cuh), K5's roles: S the CG vectors (p,
+// r, the basis) and the c factors, X the solution, A the coefficients, the
+// arithmetic and rcr.  Four builds: f64 and f32 (one type throughout);
+// bf16 (S = X = bf16, A = f32) and bf16_ir (S = bf16, X = A = f32).  Each
+// combination is summed in A from the upcast values and rounded once to
+// its storage type; r is rounded to S before r.c.r, since the next cycle's
+// K8 reads the stored r (the round trip is the identity for f64 and f32).
+// At s=4 bf16 moves 26 bytes per node, bf16_ir 30 (x in f32).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace nekbone {
 
-template <int N, typename T>
+template <int N, typename S, typename X, typename A>
 __global__ void __launch_bounds__(N * N)
-nekbone_sstep_update_kernel(const T* __restrict__ x, const T* __restrict__ p,
-                            const T* __restrict__ r,
-                            const T* __restrict__ basis,
-                            const T* __restrict__ coef,
-                            const T* __restrict__ cx,
-                            const T* __restrict__ cy,
-                            const T* __restrict__ cz, T* __restrict__ x_out,
-                            T* __restrict__ r_out, T* __restrict__ p_out,
-                            T* __restrict__ rcr, int s, int ex, int ey) {
+nekbone_sstep_update_kernel(const X* __restrict__ x, const S* __restrict__ p,
+                            const S* __restrict__ r,
+                            const S* __restrict__ basis,
+                            const A* __restrict__ coef,
+                            const S* __restrict__ cx,
+                            const S* __restrict__ cy,
+                            const S* __restrict__ cz, X* __restrict__ x_out,
+                            S* __restrict__ r_out, S* __restrict__ p_out,
+                            A* __restrict__ rcr, int s, int ex, int ey) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
-  __shared__ T sco[3][kSstepMaxK];
-  __shared__ T red[N2];
+  __shared__ A sco[3][kSstepMaxK];
+  __shared__ A red[N2];
 
   const int i = threadIdx.x;
   const int j = threadIdx.y;
@@ -57,22 +66,22 @@ nekbone_sstep_update_kernel(const T* __restrict__ x, const T* __restrict__ p,
   const int K = 2 * s + 1;
   const int nb = 2 * s - 1;
   const size_t base = e * N3 + tid;
-  const T* be = basis + e * nb * N3 + tid;
+  const S* be = basis + e * nb * N3 + tid;
 
   for (int t = tid; t < 3 * K; t += N2) sco[t / K][t % K] = coef[t];
   __syncthreads();
   // c is (cz * cy) * cx; the factors are 0, 1/2 or 1, so the product is
   // exact in any order.
-  const T cyx = cy[iy * N + j] * cx[ix * N + i];
+  const A cyx = convert<A>(cy[iy * N + j]) * convert<A>(cx[ix * N + i]);
 
-  T part = T(0);
+  A part = A(0);
   for (int k = 0; k < N; ++k) {
     const size_t o = base + k * N2;
-    T xa = x[o];
-    T ra = T(0);
-    T pa = T(0);
+    A xa = convert<A>(x[o]);
+    A ra = A(0);
+    A pa = A(0);
     for (int m = 0; m < K; ++m) {
-      T v;
+      S v;
       if (m == 0)
         v = p[o];
       else if (m <= s)
@@ -81,35 +90,38 @@ nekbone_sstep_update_kernel(const T* __restrict__ x, const T* __restrict__ p,
         v = r[o];
       else
         v = be[(m - 2) * N3 + k * N2];
-      xa = add_rn(xa, mul_rn(sco[0][m], v));
-      ra = add_rn(ra, mul_rn(sco[1][m], v));
-      pa = add_rn(pa, mul_rn(sco[2][m], v));
+      const A va = convert<A>(v);
+      xa = add_rn(xa, mul_rn(sco[0][m], va));
+      ra = add_rn(ra, mul_rn(sco[1][m], va));
+      pa = add_rn(pa, mul_rn(sco[2][m], va));
     }
-    x_out[o] = xa;
-    r_out[o] = ra;
-    p_out[o] = pa;
-    const T c = cz[iz * N + k] * cyx;
-    part += (ra * c) * ra;
+    x_out[o] = convert<X>(xa);
+    const S rs = convert<S>(ra);
+    r_out[o] = rs;
+    p_out[o] = convert<S>(pa);
+    const A rn = convert<A>(rs);
+    const A c = convert<A>(cz[iz * N + k]) * cyx;
+    part += (rn * c) * rn;
   }
-  const T total = block_sum<N2>(part, red, tid);
+  const A total = block_sum<N2>(part, red, tid);
   if (tid == 0) rcr[e] = total;
 }
 
-template <int N, typename T>
-cudaError_t launch(const T* x, const T* p, const T* r, const T* basis,
-                   const T* coef, const T* cx, const T* cy, const T* cz,
-                   T* x_out, T* r_out, T* p_out, T* rcr, int ex, int ey,
+template <int N, typename S, typename X, typename A>
+cudaError_t launch(const X* x, const S* p, const S* r, const S* basis,
+                   const A* coef, const S* cx, const S* cy, const S* cz,
+                   X* x_out, S* r_out, S* p_out, A* rcr, int ex, int ey,
                    int ez, int s, cudaStream_t stream) {
   const int E = ex * ey * ez;
-  nekbone_sstep_update_kernel<N, T><<<E, dim3(N, N), 0, stream>>>(
+  nekbone_sstep_update_kernel<N, S, X, A><<<E, dim3(N, N), 0, stream>>>(
       x, p, r, basis, coef, cx, cy, cz, x_out, r_out, p_out, rcr, s, ex, ey);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const T* x, const T* p, const T* r, const T* basis,
-             const T* coef, const T* cx, const T* cy, const T* cz, T* x_out,
-             T* r_out, T* p_out, T* rcr, int ex, int ey, int ez, int n,
+template <typename S, typename X, typename A>
+int dispatch(const X* x, const S* p, const S* r, const S* basis,
+             const A* coef, const S* cx, const S* cy, const S* cz, X* x_out,
+             S* r_out, S* p_out, A* rcr, int ex, int ey, int ez, int n,
              int s, void* stream) {
   if (ex <= 0 || ey <= 0 || ez <= 0 || s < 1 || s > kSstepMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -117,9 +129,9 @@ int dispatch(const T* x, const T* p, const T* r, const T* basis,
   switch (n) {
 #define NEKBONE_CASE(N)                                                     \
   case N:                                                                   \
-    return static_cast<int>(launch<N, T>(x, p, r, basis, coef, cx, cy, cz,  \
-                                         x_out, r_out, p_out, rcr, ex, ey,  \
-                                         ez, s, st));
+    return static_cast<int>(launch<N, S, X, A>(x, p, r, basis, coef, cx,    \
+                                               cy, cz, x_out, r_out, p_out, \
+                                               rcr, ex, ey, ez, s, st));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -129,30 +141,31 @@ int dispatch(const T* x, const T* p, const T* r, const T* basis,
 
 }  // namespace nekbone
 
-// x, p, r, x_out, r_out, p_out: (E, n^3); basis: (E, 2s-1, n^3); coef:
-// (3, 2s+1); cx: (EX, n); cy: (EY, n); cz: (EZ, n); rcr: (E,).  Elements
-// z-major over (EX, EY, EZ); 1 <= s <= 10.  Returns cudaGetLastError()
-// after the launch.
-#ifdef NEKBONE_REAL_F64
-extern "C" int nekbone_sstep_update_f64(
-    const double* x, const double* p, const double* r, const double* basis,
-    const double* coef, const double* cx, const double* cy, const double* cz,
-    double* x_out, double* r_out, double* p_out, double* rcr, int ex, int ey,
-    int ez, int n, int s, void* stream) {
-  return nekbone::dispatch<double>(x, p, r, basis, coef, cx, cy, cz, x_out,
-                                   r_out, p_out, rcr, ex, ey, ez, n, s,
-                                   stream);
-}
-#endif
+// x, x_out: (E, n^3) in X; p, r, r_out, p_out: (E, n^3) and basis: (E,
+// 2s-1, n^3) in S; coef: (3, 2s+1) and rcr: (E,) in A; cx: (EX, n); cy:
+// (EY, n); cz: (EZ, n) in S.  Elements z-major over (EX, EY, EZ);
+// 1 <= s <= 10.  Returns cudaGetLastError() after the launch.
+#define NEKBONE_SSTEP_UPDATE_ENTRY(NAME, S, X, A)                           \
+  extern "C" int NAME(const X* x, const S* p, const S* r, const S* basis,  \
+                      const A* coef, const S* cx, const S* cy, const S* cz, \
+                      X* x_out, S* r_out, S* p_out, A* rcr, int ex, int ey, \
+                      int ez, int n, int s, void* stream) {                 \
+    return nekbone::dispatch<S, X, A>(x, p, r, basis, coef, cx, cy, cz,     \
+                                      x_out, r_out, p_out, rcr, ex, ey, ez, \
+                                      n, s, stream);                        \
+  }
 
+#ifdef NEKBONE_REAL_F64
+NEKBONE_SSTEP_UPDATE_ENTRY(nekbone_sstep_update_f64, double, double, double)
+#endif
 #ifdef NEKBONE_REAL_F32
-extern "C" int nekbone_sstep_update_f32(
-    const float* x, const float* p, const float* r, const float* basis,
-    const float* coef, const float* cx, const float* cy, const float* cz,
-    float* x_out, float* r_out, float* p_out, float* rcr, int ex, int ey,
-    int ez, int n, int s, void* stream) {
-  return nekbone::dispatch<float>(x, p, r, basis, coef, cx, cy, cz, x_out,
-                                  r_out, p_out, rcr, ex, ey, ez, n, s,
-                                  stream);
-}
+NEKBONE_SSTEP_UPDATE_ENTRY(nekbone_sstep_update_f32, float, float, float)
+#endif
+#ifdef NEKBONE_REAL_BF16
+NEKBONE_SSTEP_UPDATE_ENTRY(nekbone_sstep_update_bf16, __nv_bfloat16,
+                           __nv_bfloat16, float)
+#endif
+#ifdef NEKBONE_REAL_BF16_IR
+NEKBONE_SSTEP_UPDATE_ENTRY(nekbone_sstep_update_bf16_ir, __nv_bfloat16, float,
+                           float)
 #endif

@@ -41,11 +41,12 @@ Every wrapper takes the kernel's flat operands ((E, n^3) fields, or
   ``_build.LAUNCHES``.
   There is no fallback: a CUDA tensor the kernel does not take raises.
 
-Every kernel is built for f64 and f32, one dtype for all operands.  K4, K5
-and K3 also take the two bf16 operand mixes of :data:`MIXES` — ``bf16``
-(every operand bf16) and ``bf16_ir`` (bf16 vectors; x, the metric and D in
-f32) — with f32 scalars and partials; the dtype of each operand picks the
-build.  Any other kernel raises for bf16 (ROADMAP.md queue 2).
+Every kernel is built for f64 and f32, one dtype for all operands.  K4, K5,
+K3, K8, K9 and K10 also take the two bf16 operand mixes of :data:`MIXES` —
+``bf16`` (every operand bf16) and ``bf16_ir`` (bf16 vectors; x and the
+operator's data in f32) — with f32 scalars, partials and (K8) unassembled
+operator outputs; the dtype of each operand picks the build.  Any other
+kernel raises for bf16 (ROADMAP.md queue 2).
 
 The kernels are built from the sources at first use (kernels/_build.py).
 """
@@ -103,10 +104,11 @@ INTERP_PAIRS = frozenset(
 SSTEP_MAX_S = 10
 
 # The operand mixes of the builds, by role: S the CG vectors (and the mask
-# and c fields or factors), X the solution x, O the operator's data (D and
-# the metric), A the scalars (alpha, beta) and the partials.  f64 and f32
-# are one dtype throughout; the bf16 mixes accumulate in f32 and are built
-# for the stems of _BF16_STEMS only.
+# and c fields or factors), X the solution x, O the operator's data (D, the
+# metric, K10's invd), A the scalars (alpha, beta, 1/theta, the s-step
+# coefficients) and the partials.  f64 and f32 are one dtype throughout;
+# the bf16 mixes accumulate in f32 and are built for the stems of
+# _BF16_STEMS only.
 _F64, _F32, _BF16 = torch.float64, torch.float32, torch.bfloat16
 MIXES = {
     "f64": dict(S=_F64, X=_F64, O=_F64, A=_F64),
@@ -115,7 +117,8 @@ MIXES = {
     "bf16_ir": dict(S=_BF16, X=_F32, O=_F32, A=_F32),
 }
 _BF16_STEMS = frozenset({"nekbone_ax_slab", "nekbone_cg_update",
-                         "nekbone_ax_pap"})
+                         "nekbone_ax_pap", "nekbone_ax_powers",
+                         "nekbone_sstep_update", "nekbone_pcg_update"})
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers, then the ints, then the stream.
 _ARGTYPES = {
@@ -158,12 +161,13 @@ def _build_for(stem: str, signature: tuple) -> str:
     if storage == torch.bfloat16 and stem not in _BF16_STEMS:
         raise NotImplementedError(
             f"{stem}: the CUDA kernel has no bf16 build yet (built in bf16: "
-            "K4, K5 and K3; the rest are ROADMAP.md queue 2)")
+            "K3, K4, K5, K8, K9 and K10; the rest are ROADMAP.md queue 2)")
     mixes = [m for m, dt in MIXES.items() if dt["S"] == storage]
     if not mixes:
         raise NotImplementedError(
-            f"{stem}: the CUDA kernel is built for float64, float32 and (K4, "
-            f"K5, K3) bfloat16 storage, not {storage} (ROADMAP.md queue 2)")
+            f"{stem}: the CUDA kernel is built for float64, float32 and (K3, "
+            f"K4, K5, K8, K9, K10) bfloat16 storage, not {storage} "
+            "(ROADMAP.md queue 2)")
     mix = next((m for m in mixes if all(
         dtype == MIXES[m][role] for _, role, dtype in signature)), None)
     if mix is None:
@@ -279,8 +283,10 @@ def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
     """K10: assemble ``w``, ``x += alpha p``, ``z -= alpha invd w``, partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_pcg_update_plain`;
-    ``w2`` is K4's unassembled output.  Returns ``(x, z, rtz, rcr)`` with
-    ``rtz`` and ``rcr`` of shape (E,).
+    ``w2`` is K4's unassembled output.  Builds by operand dtype
+    (:data:`MIXES`): x2 in X, p2, z2, w2 and the factors in S, invd2 in O,
+    alpha in A.  Returns ``(x, z, rtz, rcr)`` with ``rtz`` and ``rcr`` of
+    shape (E,) in A.
     """
     if x2.device.type == "cpu":
         return nekbone_pcg_update_plain(x2, p2, z2, w2, alpha, invd2, cx, cy,
@@ -288,13 +294,14 @@ def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
     ex, ey, ez = cx.shape[0], cy.shape[0], cz.shape[0]
     E = ex * ey * ez
     n3 = n ** 3
-    mix = _check("nekbone_pcg_update", n, x2.device, x2=(x2, (E, n3)),
-                 p2=(p2, (E, n3)), z2=(z2, (E, n3)), w2=(w2, (E, n3)),
-                 alpha=(alpha.reshape(1), (1,)), invd2=(invd2, (E, n3)),
-                 cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    mix = _check("nekbone_pcg_update", n, x2.device,
+                 x2=(x2, (E, n3), "X"), p2=(p2, (E, n3)), z2=(z2, (E, n3)),
+                 w2=(w2, (E, n3)), alpha=(alpha.reshape(1), (1,), "A"),
+                 invd2=(invd2, (E, n3), "O"), cx=(cx, (ex, n)),
+                 cy=(cy, (ey, n)), cz=(cz, (ez, n)))
     x_out = torch.empty_like(x2)
     z_out = torch.empty_like(z2)
-    parts = torch.empty(2, E, dtype=x2.dtype, device=x2.device)
+    parts = torch.empty(2, E, dtype=MIXES[mix]["A"], device=x2.device)
     _launch("nekbone_pcg_update", mix, x2.device,
             (x2, p2, z2, w2, alpha, invd2, cx, cy, cz, x_out, z_out,
              parts[0], parts[1]), (ex, ey, ez, n))
@@ -389,28 +396,34 @@ def k11_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
     return device_memory_plan(E, sm_count, fit, slices, column)
 
 
-def k8_scratch_bytes(n: int, s: int, dtype: torch.dtype, slices: int) -> int:
-    """K8's shared scratch of a block: per slice the p and the r chain's
-    operator input columns (n^3 values each) during the steps, then the
-    Gram's ring of staged layers of the 2s + 1 vectors and c (4 layers up to
-    s = 4, 2 past it; rows padded to n + 1), and its sums (9 n^2)
-    (csrc/nekbone_ax_powers.cu ``scratch_values``)."""
+def k8_scratch_bytes(n: int, s: int, dtype: torch.dtype, slices: int,
+                     accum: torch.dtype | None = None) -> int:
+    """K8's shared scratch of a block, its vectors stored in ``dtype`` and
+    summed in ``accum`` (by default ``dtype``): per slice the p and the r
+    chain's operator input columns (n^3 values each, in ``dtype``) during
+    the steps, then the Gram's ring of staged layers of the 2s + 1 vectors
+    and c (4 layers up to s = 4, 2 past it; rows padded to n + 1), and its
+    sums (9 n^2), both in ``accum``; a slice's share is whole ``accum``
+    values (csrc/nekbone_ax_powers.cu ``scratch_values``)."""
+    a = (accum or dtype).itemsize
     ring = 4 if s <= 4 else 2
-    return slices * max(2 * n ** 3, ring * (2 * s + 2) * n * (n + 1),
-                        9 * n ** 2) * dtype.itemsize
+    column = -(-2 * n ** 3 * dtype.itemsize // a)
+    return slices * max(column, ring * (2 * s + 2) * n * (n + 1),
+                        9 * n ** 2) * a
 
 
 def k8_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
             blocks_per_sm, smem_per_block: int, *, s: int,
-            slices: int = 1) -> CoopPlan:
-    """K8's grid for E elements of degree n - 1 at cycle length s: a block
+            slices: int = 1, accum: torch.dtype | None = None) -> CoopPlan:
+    """K8's grid for E elements of degree n - 1 at cycle length s, stored
+    in ``dtype`` and summed in ``accum`` (by default ``dtype``): a block
     takes :func:`k8_scratch_bytes` of dynamic shared memory and reads the
     metric through L2 (:func:`device_memory_plan`; ``blocks_per_sm`` and
     ``smem_per_block`` as for :func:`k11_plan`, asked only for
     ``resident=False``).  Raises ``ValueError`` where no block fits an
     SM."""
     _check_plan("k8_plan", E, sm_count, slices)
-    scratch = k8_scratch_bytes(n, s, dtype, slices)
+    scratch = k8_scratch_bytes(n, s, dtype, slices, accum)
     fit = blocks_per_sm(False, scratch) if scratch <= smem_per_block else 0
     if fit < 1:
         raise ValueError(f"k8_plan: no block of K8 (n={n}, s={s}, {dtype}) "
@@ -585,32 +598,30 @@ def _coop_device_plan(stem: str, planner, E: int, n: int, mix: str,
                    slices=info[6], **kw)
 
 
-def _coop_plan_info(stem: str, planner, E: int, n: int,
-                    dtype: torch.dtype, device, **kw) -> tuple[CoopPlan, dict]:
+def _coop_plan_info(stem: str, planner, E: int, n: int, mix: str, device,
+                    **kw) -> tuple[CoopPlan, dict]:
     index = _device_index(torch.device(device))
-    mix = next(m for m, dt in MIXES.items() if dt["S"] == dtype)
     plan = _coop_device_plan(stem, planner, E, n, mix, index, **kw)
     info = _coop_query(stem, mix, n, plan.resident, plan.smem_bytes, index)
     return plan, {"registers": info[2], "static_smem": info[1],
                   "sm_count": info[4], "slices": info[6]}
 
 
-def nekbone_cheb_apply_plan(E: int, n: int, dtype: torch.dtype,
+def nekbone_cheb_apply_plan(E: int, n: int, mix: str,
                             device="cuda") -> tuple[CoopPlan, dict]:
-    """The plan K11 launches with for E elements on ``device``, and the
-    instantiation it runs: ``{"registers", "static_smem", "sm_count",
-    "slices"}``."""
-    return _coop_plan_info("nekbone_cheb_apply", k11_plan, E, n, dtype,
-                           device)
+    """The plan K11 launches with for E elements in build ``mix`` (a
+    :data:`MIXES` key) on ``device``, and the instantiation it runs:
+    ``{"registers", "static_smem", "sm_count", "slices"}``."""
+    return _coop_plan_info("nekbone_cheb_apply", k11_plan, E, n, mix, device)
 
 
-def nekbone_ax_powers_plan(E: int, n: int, s: int, dtype: torch.dtype,
+def nekbone_ax_powers_plan(E: int, n: int, s: int, mix: str,
                            device="cuda") -> tuple[CoopPlan, dict]:
-    """The plan K8 launches with for E elements at cycle length s on
-    ``device``, and the instantiation it runs (as
+    """The plan K8 launches with for E elements at cycle length s in build
+    ``mix`` on ``device``, and the instantiation it runs (as
     :func:`nekbone_cheb_apply_plan`)."""
-    return _coop_plan_info("nekbone_ax_powers", k8_plan, E, n, dtype, device,
-                           s=s)
+    return _coop_plan_info("nekbone_ax_powers", k8_plan, E, n, mix, device,
+                           s=s, accum=MIXES[mix]["A"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -855,9 +866,13 @@ def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
     One cooperative launch (:func:`k8_plan` sizes its grid).
     The kernel allocates nothing: this wrapper hands it the basis, the Gram
     partials and four buffers of unassembled operator outputs (two per
-    chain).  Returns ``(basis, gram)``: (E, 2s-1, n^3) and
-    (E, 2s+1, 2s+1); the partials are summed in the order of
-    :func:`repro_torch.kernels.ref.sstep_gram_emulated`.
+    chain).  Builds by operand dtype (:data:`MIXES`): p2, r2 and the
+    factors in S, D and g3 in O, inv_theta in A.  Returns ``(basis,
+    gram)``: (E, 2s-1, n^3) in S and (E, 2s+1, 2s+1) in A; the partials are
+    summed in the order of
+    :func:`repro_torch.kernels.ref.sstep_gram_emulated`.  The unassembled
+    outputs are A too, so that a bf16 build rounds each vector once, after
+    its assembly.
     """
     if p2.device.type == "cpu":
         return nekbone_ax_powers_plain(p2, r2, D, g3, mx, my, mz, cx, cy, cz,
@@ -867,16 +882,18 @@ def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
     E = ex * ey * ez
     n3 = n ** 3
     mix = _check("nekbone_ax_powers", n, p2.device, p2=(p2, (E, n3)),
-                 r2=(r2, (E, n3)), D=(D, (n, n)), g3=(g3, (E, 3, n3)),
-                 mx=(mx, (ex, n)), my=(my, (ey, n)), mz=(mz, (ez, n)),
-                 cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)),
-                 inv_theta=(inv_theta.reshape(1), (1,)))
+                 r2=(r2, (E, n3)), D=(D, (n, n), "O"),
+                 g3=(g3, (E, 3, n3), "O"), mx=(mx, (ex, n)),
+                 my=(my, (ey, n)), mz=(mz, (ez, n)), cx=(cx, (ex, n)),
+                 cy=(cy, (ey, n)), cz=(cz, (ez, n)),
+                 inv_theta=(inv_theta.reshape(1), (1,), "A"))
+    acc = MIXES[mix]["A"]
     plan = _coop_device_plan("nekbone_ax_powers", k8_plan, E, n, mix,
-                             _device_index(p2.device), s=s)
+                             _device_index(p2.device), s=s, accum=acc)
     K = 2 * s + 1
     basis = torch.empty(E, 2 * s - 1, n3, dtype=p2.dtype, device=p2.device)
-    gram = torch.empty(E, K, K, dtype=p2.dtype, device=p2.device)
-    scratch = torch.empty(4, E, n3, dtype=p2.dtype, device=p2.device)
+    gram = torch.empty(E, K, K, dtype=acc, device=p2.device)
+    scratch = torch.empty(4, E, n3, dtype=acc, device=p2.device)
     _launch("nekbone_ax_powers", mix, p2.device,
             (p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta, basis, gram,
              *scratch),
@@ -889,8 +906,10 @@ def nekbone_sstep_update_cuda(x2, p2, r2, basis, coef, cx, cy, cz, *, n: int,
     """K9: the s-step multi-axpy and per-element ``r·c·r`` partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_sstep_update_plain`:
-    ``basis`` (E, 2s-1, n^3) from K8, ``coef`` (3, 2s+1).  Returns
-    ``(x, r, p, rcr)`` with ``rcr`` of shape (E,).
+    ``basis`` (E, 2s-1, n^3) from K8, ``coef`` (3, 2s+1).  Builds by
+    operand dtype (:data:`MIXES`): x2 in X, p2, r2, the basis and the
+    factors in S, coef in A.  Returns ``(x, r, p, rcr)`` with ``rcr`` of
+    shape (E,) in A.
     """
     if x2.device.type == "cpu":
         return nekbone_sstep_update_plain(x2, p2, r2, basis, coef, cx, cy, cz,
@@ -899,15 +918,15 @@ def nekbone_sstep_update_cuda(x2, p2, r2, basis, coef, cx, cy, cz, *, n: int,
     ex, ey, ez = cx.shape[0], cy.shape[0], cz.shape[0]
     E = ex * ey * ez
     n3 = n ** 3
-    mix = _check("nekbone_sstep_update", n, x2.device, x2=(x2, (E, n3)),
-                 p2=(p2, (E, n3)), r2=(r2, (E, n3)),
+    mix = _check("nekbone_sstep_update", n, x2.device,
+                 x2=(x2, (E, n3), "X"), p2=(p2, (E, n3)), r2=(r2, (E, n3)),
                  basis=(basis, (E, 2 * s - 1, n3)),
-                 coef=(coef, (3, 2 * s + 1)),
+                 coef=(coef, (3, 2 * s + 1), "A"),
                  cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)))
     x_out = torch.empty_like(x2)
     r_out = torch.empty_like(r2)
     p_out = torch.empty_like(p2)
-    rcr = torch.empty(E, dtype=x2.dtype, device=x2.device)
+    rcr = torch.empty(E, dtype=MIXES[mix]["A"], device=x2.device)
     _launch("nekbone_sstep_update", mix, x2.device,
             (x2, p2, r2, basis, coef, cx, cy, cz, x_out, r_out, p_out, rcr),
             (ex, ey, ez, n, s))

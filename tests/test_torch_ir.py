@@ -369,10 +369,10 @@ def test_bf16_ax_pap_plain_matches_reference(x64, mix):
 
 
 def test_bf16_wrappers_pick_a_build_by_operand_dtype():
-    """Each operand's dtype picks the build: K4, K5 and K3 take both bf16
-    mixes, every other kernel raises for bf16 naming ROADMAP queue 2, and
-    a mix of dtypes that no build has raises.  Off the card the wrappers
-    raise before any of that."""
+    """Each operand's dtype picks the build: K4, K5, K3, K8, K9 and K10
+    take both bf16 mixes, every other kernel raises for bf16 naming ROADMAP
+    queue 2, and a mix of dtypes that no build has raises.  Off the card
+    the wrappers raise before any of that."""
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
 
     def t(dtype):
@@ -391,8 +391,17 @@ def test_bf16_wrappers_pick_a_build_by_operand_dtype():
         pick("nekbone_ax_slab", p2=(t(bf16), ()), D=(t(f64), (), "O"))
     with pytest.raises(TypeError, match="match no build"):
         pick("nekbone_ax", u2=(t(f32), ()), D=(t(f64), ()))
-    for stem in ("nekbone_ax_powers", "nekbone_ax_dots", "nekbone_ax",
-                 "nekbone_pcg_update"):
+    for O, mix in ((bf16, "bf16"), (f32, "bf16_ir")):
+        assert pick("nekbone_ax_powers", p2=(t(bf16), ()),
+                    D=(t(O), (), "O"), inv_theta=(t(f32), (), "A")) == mix
+        assert pick("nekbone_sstep_update", x2=(t(O), (), "X"),
+                    p2=(t(bf16), ()), coef=(t(f32), (), "A")) == mix
+        assert pick("nekbone_pcg_update", x2=(t(O), (), "X"),
+                    p2=(t(bf16), ()), invd2=(t(O), (), "O"),
+                    alpha=(t(f32), (), "A")) == mix
+    for stem in ("nekbone_ax_dots", "nekbone_ax", "nekbone_ax_slab_block",
+                 "nekbone_cg_update_block", "nekbone_cheb_apply",
+                 "nekbone_interp"):
         with pytest.raises(NotImplementedError, match="queue 2"):
             pick(stem, p2=(t(bf16), ()))
     n, E = 3, 2
