@@ -10,10 +10,10 @@ reference package ``repro``, and, in order:
 
 1. prints the card, its power limit, and the torch / CUDA / nvcc versions;
 2. builds the CUDA kernels from the thirteen sources of
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (38
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (46
    libraries: f64 and f32 for the Nekbone kernels, and the two bf16
-   operand mixes ``bf16`` and ``bf16_ir`` for K3, K4, K5, K8, K9 and K10;
-   f32 and bf16 for K13 and K14), in parallel, prints its wall time, and
+   operand mixes ``bf16`` and ``bf16_ir`` for K3 to K12; f32 and bf16 for
+   K13 and K14), in parallel, prints its wall time, and
    shows from the bf16 K13's machine
    code (``cuobjdump -sass``) that it runs tensor-core MMAs (HMMA) on
    operands copied by cp.async (LDGSTS);
@@ -103,14 +103,33 @@ reference package ``repro``, and, in order:
    s-step over its first cycle, where two valid Gram orders agree),
    ``f32_ir`` over v2 and v1 at or below fp64 v2's 100-iteration rnorm,
    ``bf16_ir``'s outer rnorms never rising; times each solve; and shows
-   that the bf16 routes whose kernels have no bf16 build (Chebyshev- and
-   pmg-PCG, block CG, ``reference`` over K1) raise;
-17. times the f32 K4 and K3 and the bf16 K4, K5, K3, K8, K9 and K10 (both
-   builds; K9 also beside one ``torch.matmul``) beside their plain
-   versions at E=1024 and E=4096;
-18. profiles each kernel route (device time per iteration, by kernel, and
+   that bf16 over ``reference`` (K1, which has no bf16 build) raises;
+17. holds K11, K12, K6 and K7 in both bf16 builds against their plain
+   versions value by value: K11 at n = 10, 5, 3 (its shared-memory
+   variant at E=1024, its device-memory variant at E=4096; the planner's
+   shared bytes those the kernel stages; 5 repeated calls bitwise), K12 on
+   every step of the n = 10 ladder (bitwise) and every other pair, K6 and
+   K7 at b = 1, 3, 4 with every lane bitwise the bf16 K4's and K5's; a
+   stand-in that keeps K11's recurrence in storage, one that keeps K12's
+   intermediate stages in storage, a K6 that skips rounding p and a K7
+   that rounds the assembled w must each fail the value check;
+18. solves the paper case through bf16 Chebyshev-PCG(4) and pmg-PCG and
+   bf16 block CG at b = 4 (``bf16`` through the case, ``bf16_ir`` through
+   ``precond.pcg_fused_v2_fixed_iters`` and
+   ``cg_block.cg_block_fixed_iters``), each with the launch counters reset
+   just before it and the plain versions of its kernels made to raise:
+   launches exact, the history's entries 0..10 against the same route
+   over the plain versions on the card, within 1e-2 or, where the plain
+   route itself moves further under another valid f32 order of its
+   operator, within 10x that spread (whether 1e-2 held is reported), the
+   block lanes bitwise their own bf16 v2 solves; times each solve;
+19. times the f32 K4 and K3 and the bf16 K4, K5, K3, K8, K9, K10, K11,
+   K12, K6 and K7 (both builds; K9 also beside one ``torch.matmul``, K12
+   beside one ``torch.einsum``) beside their plain versions at E=1024 and
+   E=4096;
+20. profiles each kernel route (device time per iteration, by kernel, and
    the device's busy share);
-19. holds K13 (flash attention; in bf16 on the tensor cores) and K14 (the
+21. holds K13 (flash attention; in bf16 on the tensor cores) and K14 (the
    RWKV6 recurrence) against their plain versions in bf16 and f32, at
    gemma2-27b's heads (Hq 32, Hkv 16, d 128: 2048 tokens with window 1024,
    global, and a q_offset case; two ragged cases across partial tiles,
@@ -124,18 +143,18 @@ reference package ``repro``, and, in order:
    value check fails the bf16 kernel's arithmetic with P rounded once to
    bf16 (``ref.flash_attention_tc_emulated(split_p=False)``) at the global
    shape and passes it with P split;
-20. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens)
+22. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens)
    and gemma2-27b (2 of its 46 layers, batch 2, prompt 6144, 16 new)
    three times each through ``launch.serve.serve`` at full width, with
    every plain attention / WKV function and SDPA made to raise meanwhile:
    the tokens are in range, the runs agree bitwise, the launch counts are
    K14 = layers x tokens and K13 = layers in each; the third run is
    profiled, its device time read against the second's wall clock;
-21. times K13 and K14 at the serve shapes beside their plain versions
+23. times K13 and K14 at the serve shapes beside their plain versions
    and, for K13, SDPA; holds K13 there in bf16 and f32 (batch 2, 6144
    tokens, global and window 4096), and shows that these checks fail a
    K13 that ignores the window or cuts it one key short;
-22. prints the ``kernels`` JSON line, the card line, and last the result
+24. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits with status 1 and prints no result line.
@@ -2152,6 +2171,609 @@ def phase_bf16_sstep_pcg_parity():
     return errs
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: the bf16 builds of K11, K12, K6 and K7
+# ---------------------------------------------------------------------------
+# K11 and K12 at these degrees, K6 and K7 at these widths, in the bf16 builds
+BF16_CHEB_NS = (10, 5, 3)
+BF16_BLOCK_BS = (1, 3, BLOCK_B)
+# fixed pmg iterations of the bf16 pmg routes (fp64 pmg reaches 1e-8 r0 in
+# 13); Chebyshev and block run NITER
+BF16_PMG_ITERS = PMG_MAX_ITERS
+
+
+def _k11_in_storage(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *, n, k):
+    """A wrong K11 for the negative check: K11's plain version
+    (kernels/ref.nekbone_cheb_apply_plain) with the recurrence's d, res and
+    z rounded to storage after every update, as one type for every field
+    would keep them (the TPU kernel keeps them in the accumulation type and
+    rounds only z, once)."""
+    from repro_torch.core.geom import box_outer
+    from repro_torch.core.gs import ds_sum_local
+    from repro_torch.kernels.ref import _masked_ax_diag, accum_dtype
+
+    acc, st = accum_dtype(r2.dtype), r2.dtype
+    E = r2.shape[0]
+    grid = (mx.shape[0], my.shape[0], mz.shape[0])
+    g = g3.to(acc).reshape(E, 3, n, n, n)
+    mask = box_outer(mz.to(acc), my.to(acc), mx.to(acc)).reshape(E, n, n, n)
+    coef = coef.to(acc)
+
+    def stored(v):
+        return v.to(st).to(acc)
+
+    r = r2.to(acc).reshape(E, n, n, n)
+    d = stored(coef[0, 0] * r)
+    z = d
+    res = r
+    for i in range(1, k + 1):
+        res = stored(res - ds_sum_local(_masked_ax_diag(d, D.to(acc), g,
+                                                        mask), grid))
+        d = stored(coef[i, 0] * d + coef[i, 1] * res)
+        z = stored(z + d)
+    return z.reshape(E, n ** 3).to(st)
+
+
+def _k12_in_storage(u2, mt, *, nin, nout):
+    """A wrong K12 for the negative check: K12's plain version
+    (kernels/ref.nekbone_interp_plain) with its two intermediate stages
+    rounded to storage, as buffers of the storage type would hold them."""
+    import torch
+
+    from repro_torch.kernels.ref import accum_dtype
+
+    acc, st = accum_dtype(u2.dtype), u2.dtype
+    E = u2.shape[0]
+    m = mt.to(acc)
+    u = u2.to(acc).reshape(E, nin, nin, nin)
+    v1 = torch.zeros(E, nin, nin, nout, dtype=acc, device=u2.device)
+    for l in range(nin):
+        v1 = v1 + u[..., l, None] * m[l]
+    v1 = v1.to(st).to(acc)
+    v2 = torch.zeros(E, nin, nout, nout, dtype=acc, device=u2.device)
+    for l in range(nin):
+        v2 = v2 + v1[:, :, l, None, :] * m[l, :, None]
+    v2 = v2.to(st).to(acc)
+    v3 = torch.zeros(E, nout, nout, nout, dtype=acc, device=u2.device)
+    for l in range(nin):
+        v3 = v3 + v2[:, l, None] * m[l, :, None, None]
+    return v3.reshape(E, nout ** 3).to(st)
+
+
+def _k5_unrounded_rcr(x2, p2, r2, w2, alpha, cx, cy, cz, *, n):
+    """A wrong K7 lane for the negative check: K5's plain version
+    (kernels/ref.nekbone_cg_update_plain) with r.c.r taken over the
+    unrounded residual.  Returns the rcr partials alone."""
+    from repro_torch.core.geom import box_outer
+    from repro_torch.core.gs import ds_sum_local
+    from repro_torch.kernels.ref import accum_dtype
+
+    acc = accum_dtype(r2.dtype)
+    E = x2.shape[0]
+    grid = (cx.shape[0], cy.shape[0], cz.shape[0])
+    w = ds_sum_local(w2.to(acc).reshape(E, n, n, n), grid).reshape(E, -1)
+    r = r2.to(acc) - alpha.reshape(()).to(acc) * w
+    c = box_outer(cz.to(acc), cy.to(acc), cx.to(acc)).reshape(E, n ** 3)
+    return (r * c * r).sum(dim=1)
+
+
+def _k7_lane_w_in_storage(x2, p2, r2, w2, alpha, cx, cy, cz, *, n):
+    """A wrong K7 lane for the negative check: K5's plain version
+    (kernels/ref.nekbone_cg_update_plain) with the assembled w rounded to
+    storage before the axpy, as an assembly in the storage type would
+    leave it.  Returns the stored r alone."""
+    from repro_torch.core.gs import ds_sum_local
+    from repro_torch.kernels.ref import accum_dtype
+
+    acc = accum_dtype(r2.dtype)
+    E = x2.shape[0]
+    grid = (cx.shape[0], cy.shape[0], cz.shape[0])
+    w = ds_sum_local(w2.to(acc).reshape(E, n, n, n), grid).reshape(E, -1)
+    w = w.to(r2.dtype).to(acc)
+    return (r2.to(acc) - alpha.reshape(()).to(acc) * w).to(r2.dtype)
+
+
+def phase_bf16_cheb_pmg_block_parity():
+    """K11, K12, K6 and K7 in their bf16 builds (both operand mixes)
+    against their plain versions, value by value, with one stand-in of
+    each that skips a load-bearing rounding, which must fail the same
+    check.  K11 at n = 10, 5, 3 on the paper grid (its shared-memory
+    variant) and n = 10 at E = 4096 (its device-memory variant), k = 1 and
+    4, its planner's shared bytes those the kernel stages; K12 on every
+    step of the n = 10 ladder at E = 1024 (bitwise, as in f64 and f32) and
+    every other instantiated pair at E = 9; K6 and K7 at b = 1, 3, 4, n =
+    10, 5, 3, every lane bitwise the bf16 K4's and K5's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== bf16 K11/K12/K6/K7 parity (kernel vs plain; builds "
+          f"{', '.join(BF16_MIXES)}; fields value by value: |o - p| <= "
+          f"2^-7 |p| + {BF16_F32_TOL:g} max |p|; partials summed, relative, "
+          f"<= {BF16_PART_TOL:g})", flush=True)
+    rng = np.random.default_rng(41)
+    errs = {}
+    variants = set()
+
+    def cast(o, mix):
+        dt = K.MIXES[mix]
+        return dict(S=dt["S"], X=dt["X"], O=dt["O"], A=dt["A"],
+                    D=o["D"].to(dt["O"]), g3=o["g3"].to(dt["O"]),
+                    m=tuple(f.to(dt["S"]) for f in o["m"]),
+                    c=tuple(f.to(dt["S"]) for f in o["c"]))
+
+    # --- K11: both variants -----------------------------------------------
+    for n, grid in [(n, PAPER_GRID) for n in BF16_CHEB_NS] + [(10, BIG_GRID)]:
+        case = NekboneCase(n=n, grid=grid, dtype=torch.float64)
+        E = case.mesh.nelt
+        o64 = _pcg_operands(case, rng)
+        for mix in BF16_MIXES:
+            o = cast(o64, mix)
+            tag = f"{mix} n={n} E={E}"
+            r = o64["z"].to(o["S"])
+            plan, info = K.nekbone_cheb_apply_plan(E, n, mix)
+            variants.add(plan.variant)
+            # what the kernel stages (nekbone_cheb_apply.cu cheb_dyn_bytes)
+            staged = ((plan.per_block * 3 if plan.resident
+                       else info["slices"]) * n ** 3 * o["A"].itemsize)
+            print(f"  K11 {tag}: {plan.variant}-memory variant, grid "
+                  f"{plan.grid} ({info['slices']} elements side by side, "
+                  f"{plan.per_block} owned), {plan.blocks_per_sm} blocks per "
+                  f"SM, {plan.smem_bytes} bytes dynamic + "
+                  f"{info['static_smem']} static shared memory, "
+                  f"{info['registers']} registers", flush=True)
+            check(plan.smem_bytes == staged
+                  and (not plan.resident or plan.smem_bytes == plan.per_block
+                       * K.k11_state_bytes(n, o["S"], o["A"])),
+                  f"K11 {tag}: the planner's {plan.smem_bytes} shared bytes "
+                  f"are the {staged} the kernel stages (its state in "
+                  f"{o['A']})")
+            if n == 10:
+                want = "shared" if grid == PAPER_GRID else "device"
+                check(plan.variant == want,
+                      f"K11 {tag}: the {want}-memory variant")
+            for k in (1, CHEB_K):
+                args = (r, o["D"], o["g3"], *o["m"], *o["c"],
+                        o64["coef"][k].to(o["A"]))
+                kz, krtz = K.nekbone_cheb_apply_cuda(*args, n=n, k=k)
+                pz, prtz = K.nekbone_cheb_apply_plain(*args, n=n, k=k)
+                zval = _value_rel(kz, pz, BF16_F32_TOL)
+                terr = _part_err(krtz, prtz)
+                check(kz.dtype == o["S"] and krtz.dtype == o["A"]
+                      and zval <= 1.0 and terr <= BF16_PART_TOL,
+                      f"K11 {tag} k={k}: z in {o['S']} value by value (worst "
+                      f"{zval:.2f} of the limit; {int((kz != pz).sum())} of "
+                      f"{kz.numel()} values differ), rtz in {o['A']} rel err "
+                      f"{terr:.2e}")
+                if n == 10 and k == CHEB_K:
+                    reps = [K.nekbone_cheb_apply_cuda(*args, n=n, k=k)
+                            for _ in range(5)]
+                    check(all(torch.equal(z, kz) and torch.equal(t, krtz)
+                              for z, t in reps),
+                          f"K11 {tag} k={k}: 5 more calls give bitwise the "
+                          "same z and rtz")
+                if grid == PAPER_GRID and n == 10 and k == CHEB_K:
+                    errs[("K11", mix)] = float((kz.float() - pz.float())
+                                               .abs().max())
+                    bad = _value_rel(_k11_in_storage(*args, n=n, k=k), pz,
+                                     BF16_F32_TOL)
+                    check(bad > 1.0,
+                          f"K11 {tag} k={k}: a stand-in that keeps the "
+                          "recurrence in storage fails the z check "
+                          f"({bad:.1f}x the limit)")
+            del o, r
+        del o64
+    check(variants == {"shared", "device"},
+          f"K11 bf16: both variants ran ({sorted(variants)})")
+
+    # --- K12: every step of the n = 10 ladder, and the other pairs ---------
+    E = PAPER_GRID[0] * PAPER_GRID[1] * PAPER_GRID[2]
+    for mix in BF16_MIXES:
+        dt = K.MIXES[mix]
+        worst = 0.0
+        for nin, nout in LADDER_PAIRS:
+            u = torch.as_tensor(rng.normal(size=(E, nin ** 3)),
+                                device="cuda").to(dt["S"])
+            mt = _ladder_matrix(nin, nout, dt["O"])
+            v = K.nekbone_interp_cuda(u, mt, nin=nin, nout=nout)
+            want = K.nekbone_interp_plain(u, mt, nin=nin, nout=nout)
+            val = _value_rel(v, want, BF16_F32_TOL)
+            worst = max(worst, val)
+            check(v.dtype == dt["S"] and torch.equal(v, want),
+                  f"K12 {mix} {nin}->{nout} E={E}: v in {dt['S']} bitwise "
+                  f"the plain version (value figure {val:.2f})")
+            if (nin, nout) == (10, 5):
+                errs[("K12", mix)] = float((v.float() - want.float()).abs()
+                                           .max())
+                bad = _value_rel(_k12_in_storage(u, mt, nin=nin, nout=nout),
+                                 want, BF16_F32_TOL)
+                check(bad > 1.0,
+                      f"K12 {mix} {nin}->{nout}: a stand-in that keeps its "
+                      f"two intermediate stages in storage fails the v check "
+                      f"({bad:.1f}x the limit)")
+        others = sorted(K.INTERP_PAIRS - set(LADDER_PAIRS))
+        failing = []
+        for nin, nout in others:
+            u = torch.as_tensor(rng.normal(size=(9, nin ** 3)),
+                                device="cuda").to(dt["S"])
+            mt = _ladder_matrix(nin, nout, dt["O"])
+            if not torch.equal(
+                    K.nekbone_interp_cuda(u, mt, nin=nin, nout=nout),
+                    K.nekbone_interp_plain(u, mt, nin=nin, nout=nout)):
+                failing.append((nin, nout))
+        check(not failing, f"K12 {mix}: the other {len(others)} instantiated "
+                           f"pairs, E=9, bitwise (failing: {failing})")
+
+    # --- K6 / K7: b = 1, 3, 4, every lane bitwise the bf16 K4's / K5's ----
+    for n in BF16_CHEB_NS:
+        case = NekboneCase(n=n, grid=PAPER_GRID, dtype=torch.float64)
+        E = case.mesh.nelt
+        for mix in BF16_MIXES:
+            dt = K.MIXES[mix]
+            for b in BF16_BLOCK_BS:
+                lanes = [_mix_operands(case, rng, mix) for _ in range(b)]
+                o = lanes[0]
+                tag = f"{mix} n={n} E={E} b={b}"
+                P = torch.stack([q["p"] for q in lanes])
+                R = torch.stack([q["r"] for q in lanes])
+                X = torch.stack([q["x"] for q in lanes])
+                beta = torch.as_tensor(rng.uniform(0.2, 0.9, size=b),
+                                       dtype=dt["A"], device="cuda")
+                alpha = torch.as_tensor(rng.uniform(0.2, 0.9, size=b),
+                                        dtype=dt["A"], device="cuda")
+                k6 = (P, R, o["D"], o["g3"], *o["m"], beta)
+                kp, kw, kpap = K.nekbone_ax_slab_block_cuda(*k6, n=n)
+                pp, pw, ppap = K.nekbone_ax_slab_block_plain(*k6, n=n)
+                wval = _value_rel(kw, pw, BF16_F32_TOL)
+                perr = max(_part_err(kpap[j], ppap[j]) for j in range(b))
+                check(kp.dtype == kw.dtype == dt["S"]
+                      and kpap.dtype == dt["A"] and torch.equal(kp, pp)
+                      and wval <= 1.0 and perr <= BF16_PART_TOL,
+                      f"K6 {tag}: p bitwise the plain version's, w value by "
+                      f"value (worst {wval:.2f} of the limit), pap rel err "
+                      f"{perr:.2e}")
+                k7 = (X, kp, R, kw, alpha, *o["c"])
+                kx, kr, krcr = K.nekbone_cg_update_block_cuda(*k7, n=n)
+                px, pr, prcr = K.nekbone_cg_update_block_plain(*k7, n=n)
+                xval = _value_rel(kx, px, BF16_F32_TOL)
+                rval = _value_rel(kr, pr, BF16_F32_TOL)
+                rerr = max(_part_err(krcr[j], prcr[j]) for j in range(b))
+                check(kx.dtype == dt["X"] and kr.dtype == dt["S"]
+                      and krcr.dtype == dt["A"] and xval <= 1.0
+                      and rval <= 1.0 and rerr <= BF16_PART_TOL,
+                      f"K7 {tag}: x in {dt['X']}, r in {dt['S']}, value by "
+                      f"value (worst {xval:.2f} and {rval:.2f} of the limit; "
+                      f"bitwise: x {torch.equal(kx, px)}, r "
+                      f"{torch.equal(kr, pr)}), rcr rel err {rerr:.2e}")
+                same = True
+                for j in range(b):
+                    p, w, pap = K.nekbone_ax_slab_cuda(
+                        P[j], R[j], o["D"], o["g3"], *o["m"],
+                        beta[j:j + 1], n=n)
+                    x, r, rcr = K.nekbone_cg_update_cuda(
+                        X[j], p, R[j], w, alpha[j:j + 1], *o["c"], n=n)
+                    same &= all(torch.equal(a, z) for a, z in (
+                        (kp[j], p), (kw[j], w), (kpap[j], pap), (kx[j], x),
+                        (kr[j], r), (krcr[j], rcr)))
+                check(same, f"K6/K7 {tag}: p, w, pap, x, r, rcr of every "
+                            "lane bitwise the bf16 K4's and K5's")
+                if n == 10 and b == BLOCK_B:
+                    errs[("K6", mix)] = float((kw.float() - pw.float()).abs()
+                                              .max())
+                    errs[("K7", mix)] = float((kr.float() - pr.float()).abs()
+                                              .max())
+                    bad6 = min(_value_rel(_k4_unrounded(
+                        P[j], R[j], o["D"], o["g3"], *o["m"], beta[j:j + 1],
+                        n=n)[1], pw[j], BF16_F32_TOL) for j in range(b))
+                    bad7 = min(_value_rel(_k7_lane_w_in_storage(
+                        X[j], kp[j], R[j], kw[j], alpha[j:j + 1], *o["c"],
+                        n=n), pr[j], BF16_F32_TOL) for j in range(b))
+                    rcr_fig = max(_part_err(_k5_unrounded_rcr(
+                        X[j], kp[j], R[j], kw[j], alpha[j:j + 1], *o["c"],
+                        n=n), prcr[j]) for j in range(b)) / BF16_PART_TOL
+                    check(bad6 > 1.0,
+                          f"K6 {tag}: a stand-in that skips rounding p "
+                          "through storage fails the w check on every lane "
+                          f"(least {bad6:.1f}x the limit)")
+                    check(bad7 > 1.0,
+                          f"K7 {tag}: a stand-in that rounds the assembled w "
+                          "to storage fails the r check on every lane "
+                          f"(least {bad7:.1f}x the limit)")
+                    print(f"  K7 {tag}: r.c.r over the unrounded r (its "
+                          "other rounding, which feeds only the partials): "
+                          f"{rcr_fig:.2f} of BF16_PART_TOL at most (reported: "
+                          "the partial check does not resolve it)",
+                          flush=True)
+                del lanes, P, R, X, kp, kw, kx, kr, pp, pw, px, pr
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return errs
+
+
+@contextlib.contextmanager
+def _operator_rounded_once():
+    """The plain versions' local operator (kernels/ref._masked_ax_diag, in
+    K4, K6 and K11) evaluated in f64 and rounded to f32 once: another valid
+    f32 evaluation of the same function, the correctly rounded one.  A
+    route over the plain versions run under it measures how far two valid
+    f32 orders of the operator move that route's history."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    saved = ref._masked_ax_diag
+
+    def once(u4, D, g, mask):
+        if u4.dtype != torch.float32:
+            return saved(u4, D, g, mask)
+        return saved(u4.double(), D.double(), g.double(),
+                     mask.double()).float()
+
+    ref._masked_ax_diag = once
+    try:
+        yield
+    finally:
+        ref._masked_ax_diag = saved
+
+
+@contextlib.contextmanager
+def _forbid(targets):
+    """While active, every function ``name`` of ``module`` in ``targets``
+    (pairs ``(module, names)``) raises: the path run meanwhile on the card
+    must not call any of them."""
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+
+    saved = [(mod, name, getattr(mod, name))
+             for mod, names in targets for name in names]
+    for mod, name, _ in saved:
+        setattr(mod, name, forbidden)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _forbid_plain_nekbone():
+    """The plain versions of the kernels the bf16 Chebyshev, pmg and block
+    routes run (K4, K5, K6, K7, K11, K12), where the wrappers look them up
+    and in kernels/ref.py."""
+    from repro_torch.kernels import nekbone_ax, ref
+
+    names = ("nekbone_ax_slab_plain", "nekbone_cg_update_plain",
+             "nekbone_ax_slab_block_plain", "nekbone_cg_update_block_plain",
+             "nekbone_cheb_apply_plain", "nekbone_interp_plain")
+    return _forbid(((nekbone_ax, names), (ref, names)))
+
+
+def phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms):
+    """bf16 Chebyshev-PCG(4) (K11, K4, K5), pmg-PCG (K11, K12, K4, K5) and
+    block CG at b = 4 (K6, K7) on the paper case: ``bf16`` through
+    ``case.solve``, ``bf16_ir`` through the drivers (a refined case with a
+    preconditioner or b > 1 routes elsewhere, as the reference's does),
+    each with the launch counters set to 0 just before it and the plain
+    versions of its kernels made to raise meanwhile; launches exact; bf16
+    block's lanes each bitwise their own bf16 v2 solve.  The history is
+    held to the same route over the plain versions on the card: entry 0
+    equal, and entries 0..10 within BF16_HEAD_TOL or, where the route
+    itself moves further under another valid f32 order of its operator
+    (the plain route again with the operator rounded once,
+    :func:`_operator_rounded_once`), within ENVELOPE_FACTOR times that
+    spread, as the fp64 routes are held to the plain route's own spread.
+    Whether entries 0..10 lie within BF16_HEAD_TOL is reported for each.
+    Chebyshev's and pmg's residuals fall by orders of magnitude within
+    those entries while they are stored in bf16, so there two valid orders
+    part by about 1e-2 (ROADMAP.md queue 3)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cg_block as cb
+    from repro_torch.core import precond as pc
+    from repro_torch.core.gs import ds_sum_local
+    from repro_torch.core.nekbone import NekboneCase
+
+    v2_last = float(hist["pallas_fused_cg_v2"][NITER])
+    print(f"== paper case, bf16 Chebyshev, pmg and block routes: n=10, "
+          f"E=1024, b in fp64 (bf16: cast by the case), Chebyshev and block "
+          f"{NITER} iterations, pmg {BF16_PMG_ITERS}; fp64 v2 for "
+          f"comparison: history[{NITER}]={v2_last:.6e}, "
+          f"{v2_solve_ms / NITER:.4f} ms/iteration", flush=True)
+    out = {"launches": {}, "ms": {}, "hist": {}, "head": {}}
+    case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64)
+    u_ex, f = case.manufactured()
+    bf16_case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                            precision="bf16", ax_impl="pallas_fused_cg_v2")
+    f16 = bf16_case.manufactured()[1]
+    rng = np.random.default_rng(9)
+    F = torch.stack([f] + [
+        ds_sum_local(torch.as_tensor(rng.normal(size=tuple(f.shape)),
+                                     dtype=f.dtype, device="cuda"),
+                     case.grid) * case.mask for _ in range(BLOCK_B - 1)])
+    F16 = F.to(torch.bfloat16)
+    cheb = f"cheb{CHEB_K}"
+    spec = {"cheb": case.precond_spec(cheb), "pmg": case.precond_spec("pmg")}
+    L1 = len(spec["pmg"].ns) - 1          # smoothed levels
+    kw = dict(D=case.D, g=case.g, grid=case.grid, mask=case.mask, c=case.c,
+              precision="bf16_ir")
+    it_p = BF16_PMG_ITERS
+    vc = 2 * L1 * (it_p + 1)              # K11 and K12 calls, and residuals
+    want = {
+        "cheb": (NITER, _zero_but(nekbone_cheb_apply=NITER + 1,
+                                  nekbone_ax_slab=NITER,
+                                  nekbone_cg_update=NITER)),
+        "pmg": (it_p, _zero_but(nekbone_interp=vc, nekbone_cheb_apply=vc,
+                                nekbone_ax_slab=it_p + vc,
+                                nekbone_cg_update=it_p + vc)),
+        "block": (NITER, _zero_but(nekbone_ax_slab_block=NITER,
+                                   nekbone_cg_update_block=NITER)),
+    }
+    routes = {
+        "bf16 cheb": lambda: bf16_case.solve(f16, niter=NITER, precond=cheb),
+        "bf16_ir cheb": lambda: pc.pcg_fused_v2_fixed_iters(
+            f, niter=NITER, precond=spec["cheb"], **kw),
+        "bf16 pmg": lambda: bf16_case.solve(f16, niter=it_p, precond="pmg"),
+        "bf16_ir pmg": lambda: pc.pcg_fused_v2_fixed_iters(
+            f, niter=it_p, precond=spec["pmg"], **kw),
+        "bf16 block": lambda: bf16_case.solve(F16, niter=NITER),
+        "bf16_ir block": lambda: cb.cg_block_fixed_iters(F, niter=NITER,
+                                                         **kw),
+    }
+    for label, fn in routes.items():
+        prec, kind = label.split()
+        iters, launches_want = want[kind]
+        x_dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+        shape = ((BLOCK_B, iters + 1) if kind == "block" else (iters + 1,))
+        with _forbid_plain_nekbone():
+            res, launches = _launch_run(fn)
+        out["launches"][label] = launches
+        h = res.history.double().cpu().numpy()
+        check(h.shape == shape and bool(np.isfinite(h).all())
+              and bool(torch.isfinite(res.x.float()).all())
+              and res.x.dtype == x_dtype
+              and (kind != "block" or res.pipeline
+                   == f"fused_v2_rhs{BLOCK_B}"),
+              f"{label}: pipeline {res.pipeline}, x {res.x.dtype}, finite, "
+              f"history {h.shape}")
+        check(launches == launches_want, f"{label}: launches {launches}")
+        with _plain_kernels():
+            pres, plaunch = _launch_run(fn)
+            with _operator_rounded_once():
+                tres, _ = _launch_run(fn)
+        ph = pres.history.double().cpu().numpy()
+        th = tres.history.double().cpu().numpy()
+        check(plaunch == _zero_but(), f"{label} over plain versions: no "
+                                      "kernel launched")
+
+        def by_entry(a, b):
+            return _rel_dev(a, b)[..., :11].reshape(-1, 11).max(axis=0)
+
+        head, spread = by_entry(h, ph), by_entry(th, ph)
+        bar = max(BF16_HEAD_TOL, ENVELOPE_FACTOR * float(spread.max()))
+        worst = float(np.abs(np.log(h / ph)).max())
+        out["head"][label] = (float(head.max()), float(spread.max()))
+        check(np.array_equal(h[..., 0], ph[..., 0])
+              and float(head.max()) <= bar,
+              f"{label}: history entry 0 equal and entries 0..10 within "
+              f"{bar:.3g} of the plain route's ({float(head.max()):.2e}; by "
+              "entry " + " ".join(f"{v:.1e}" for v in head) + "); the plain "
+              f"route under another valid f32 order of its operator moves by "
+              f"{float(spread.max()):.2e} (by entry "
+              + " ".join(f"{v:.1e}" for v in spread) + "); within "
+              f"{BF16_HEAD_TOL:g}: {'yes' if head.max() <= BF16_HEAD_TOL else 'NO'}"
+              f" (reported); all {iters + 1} within {np.exp(worst):.2f}x "
+              "(reported)")
+        if label == "bf16 block":
+            same = [torch.equal(res.history[j], bf16_case.solve(
+                F16[j], niter=NITER).history) for j in range(BLOCK_B)]
+            check(all(same), f"{label}: every lane's history bitwise its own "
+                             f"bf16 v2 solve ({same})")
+        ms = wall_ms(fn, reps=3)
+        out["ms"][label] = ms
+        out["hist"][label] = h
+        lane0 = h[0] if kind == "block" else h
+        x0 = res.x[0] if kind == "block" else res.x
+        err = float(case.solution_error(x0.to(torch.float64), u_ex))
+        print(f"  {label}: history[0, 10, {iters}] "
+              + " ".join(f"{v:.6e}" for v in lane0[[0, 10, iters]])
+              + f" (plain route {ph.reshape(-1, iters + 1)[0, iters]:.6e}); "
+              f"last / fp64 v2's history[{NITER}] {lane0[-1] / v2_last:.3e}; "
+              f"solution_error {err:.6e}; {ms:.3f} ms to completion, "
+              f"{ms / iters:.4f} ms per iteration; launches "
+              f"{({k: v for k, v in launches.items() if v})}", flush=True)
+    return out
+
+
+def phase_bf16_slice12_times(bw_copy, rows):
+    """Device time of K11 (k = 4), K12 (every step of the n = 10 ladder),
+    K6 and K7 (b = 4) in both bf16 builds beside their plain versions (K12
+    also beside one ``torch.einsum``) at E = 1024 and 4096."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cost
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== times of the bf16 K11, K12, K6 and K7 (builds "
+          f"{', '.join(BF16_MIXES)}; n=10, K11 at k={CHEB_K}, K6 and K7 at "
+          f"b={BLOCK_B}; device time per call, CUDA events around 20 queued "
+          "calls, median of 5; operations at the fp32 rate, 67 TF/s)",
+          flush=True)
+    rng = np.random.default_rng(43)
+    n = 10
+    for grid in (PAPER_GRID, BIG_GRID):
+        case = NekboneCase(n=n, grid=grid, dtype=torch.float64)
+        E = case.mesh.nelt
+        nodes = E * n ** 3
+        q = _pcg_operands(case, rng)
+        for mix in BF16_MIXES:
+            dt = K.MIXES[mix]
+            S, X, O = (dt[r].itemsize for r in "SXO")
+            D, g3 = q["D"].to(dt["O"]), q["g3"].to(dt["O"])
+            m = tuple(f.to(dt["S"]) for f in q["m"])
+            c = tuple(f.to(dt["S"]) for f in q["c"])
+            k11 = (q["z"].to(dt["S"]), D, g3, *m, *c,
+                   q["coef"][CHEB_K].to(dt["A"]))
+            lanes = [_mix_operands(case, rng, mix) for _ in range(BLOCK_B)]
+            P, R, Xs = (torch.stack([o[key] for o in lanes])
+                        for key in ("p", "r", "x"))
+            beta = torch.full((BLOCK_B,), 0.37, dtype=dt["A"], device="cuda")
+            alpha = torch.full((BLOCK_B,), 0.81, dtype=dt["A"],
+                               device="cuda")
+            k6 = (P, R, D, g3, *m, beta)
+            p3, w3, _ = K.nekbone_ax_slab_block_cuda(*k6, n=n)
+            k7 = (Xs, p3, R, w3, alpha, *c)
+            # bytes per node: K11 r, 3 metric diagonals in, z out; K6 per
+            # lane p_prev, r in, p, w out and the metric once; K7 per lane
+            # x in and out, p, r, w in, r out.  Flops as for fp64.
+            work = {
+                "K11": (K.nekbone_cheb_apply_cuda, K.nekbone_cheb_apply_plain,
+                        k11, dict(n=n, k=CHEB_K), 2 * S + 3 * O,
+                        cost.cheb_apply_flops(n, CHEB_K)),
+                "K6": (K.nekbone_ax_slab_block_cuda,
+                       K.nekbone_ax_slab_block_plain, k6, dict(n=n),
+                       4 * BLOCK_B * S + 3 * O,
+                       (BLOCK_B * 12 * n, BLOCK_B * 10)),
+                "K7": (K.nekbone_cg_update_block_cuda,
+                       K.nekbone_cg_update_block_plain, k7, dict(n=n),
+                       BLOCK_B * (2 * X + 4 * S), (0, BLOCK_B * 8)),
+            }
+            for name, (kern, plain, args, kw_, per_node, (fm, fr)) in \
+                    work.items():
+                rows[(f"{name} {mix}", grid)] = _time_row(
+                    f"{name} {mix} E={E} ({per_node:.4g} B/node)",
+                    lambda: kern(*args, **kw_), lambda: plain(*args, **kw_),
+                    per_node * nodes, nodes * fm, nodes * fr, bw_copy,
+                    mma_peak=FP32_PEAK, rest_peak=FP32_PEAK)
+            for nin, nout in LADDER_PAIRS:
+                u2 = torch.as_tensor(rng.normal(size=(E, nin ** 3)),
+                                     device="cuda").to(dt["S"])
+                mt = _ladder_matrix(nin, nout, dt["O"])
+                u32, mt32 = u2.float(), mt.float()
+                row = _time_row(
+                    f"K12 {mix} {nin}->{nout} E={E} (library: torch.einsum "
+                    "in f32 on the upcast operands)",
+                    lambda: K.nekbone_interp_cuda(u2, mt, nin=nin, nout=nout),
+                    lambda: K.nekbone_interp_plain(u2, mt, nin=nin,
+                                                   nout=nout),
+                    E * (nin ** 3 + nout ** 3) * S,
+                    2 * E * (nin * nin * nout + nin * nout * nout + nout ** 3),
+                    0, bw_copy,
+                    lib=lambda: torch.einsum(
+                        "ekji,ia,jb,kc->ecba", u32.view(E, nin, nin, nin),
+                        mt32, mt32, mt32),
+                    mma_peak=FP32_PEAK, rest_peak=FP32_PEAK)
+                rows[(f"K12 {mix} {nin}->{nout}", grid)] = row
+                if (nin, nout) == (10, 5):
+                    rows[(f"K12 {mix}", grid)] = row
+            del k11, k6, k7, lanes, P, R, Xs, p3, w3, work
+        del q
+        torch.cuda.empty_cache()
+
+
 # K4, K3 and K2 (the persistent walkers): the grids their plans run on, both
 # copy paths (bulk at n = 10, cp.async at n = 5 and 3), and an element count
 # that no block count divides
@@ -2283,14 +2905,15 @@ def phase_walk_parity():
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """The kernel wrappers of the ir and bf16 routes (K1, K3, K4, K5, K8,
-    K9, K10) replaced by their plain versions, which run on the card's
-    tensors: the same route over plain versions."""
+    """The kernel wrappers of the ir and bf16 routes (K1, K3 to K12)
+    replaced by their plain versions, which run on the card's tensors: the
+    same route over plain versions."""
     from repro_torch.kernels import nekbone_ax as K
 
     names = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
              "nekbone_ax_pap", "nekbone_ax_powers", "nekbone_sstep_update",
-             "nekbone_pcg_update")
+             "nekbone_pcg_update", "nekbone_cheb_apply", "nekbone_interp",
+             "nekbone_ax_slab_block", "nekbone_cg_update_block")
     saved = {name: getattr(K, f"{name}_cuda") for name in names}
     try:
         for name in names:
@@ -2323,8 +2946,8 @@ def phase_ir_routes(hist, v2_solve_ms):
     ``bf16_ir`` through ``precond.pcg_fused_v2_fixed_iters``, where a
     refined policy runs as its storage policy), each with the launch
     counters set to 0 just before it, against the same route over the plain
-    versions on the card; then the bf16 routes whose kernels have no bf16
-    build, which must raise."""
+    versions on the card; then bf16 on ``reference`` (K1 has no bf16
+    build), which must raise."""
     import numpy as np
     import torch
 
@@ -2482,27 +3105,18 @@ def phase_ir_routes(hist, v2_solve_ms):
               f"{ms / NITER:.4f} ms per iteration (fp64 v2 "
               f"{v2_solve_ms / NITER:.4f})", flush=True)
 
-    # the bf16 routes whose kernels have no bf16 build raise, naming the
-    # queue that holds them; nothing falls back
-    def raises(label, fn):
-        try:
-            _launch_run(fn)
-            raised = ""
-        except NotImplementedError as exc:
-            raised = str(exc)
-        check("ROADMAP.md queue 2" in raised,
-              f"{label} raises on the card: {raised or 'nothing raised'}")
-
-    for pcn in (f"cheb{CHEB_K}", "pmg"):
-        raises(f"bf16 {pcn}-PCG over pallas_fused_cg_v2",
-               lambda: bf16_case.solve(f16, niter=NITER, precond=pcn))
-    F = torch.stack([f16 * (j + 1) for j in range(BLOCK_B)])
-    raises(f"bf16 block CG (b = {BLOCK_B}) over pallas_fused_cg_v2",
-           lambda: bf16_case.solve(F, niter=NITER))
+    # bf16 on the route whose kernel has no bf16 build (K1) raises, naming
+    # the queue that holds it; nothing falls back
     ref_case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
                            precision="bf16", ax_impl="pallas")
-    raises("bf16 reference CG over pallas (K1)",
-           lambda: ref_case.solve(f16, niter=NITER))
+    try:
+        _launch_run(lambda: ref_case.solve(f16, niter=NITER))
+        raised = ""
+    except NotImplementedError as exc:
+        raised = str(exc)
+    check("ROADMAP.md queue 2" in raised,
+          "bf16 reference CG over pallas (K1) raises on the card: "
+          f"{raised or 'nothing raised'}")
     return out
 
 
@@ -2815,35 +3429,19 @@ def _check_k13_split(q, k, v, kw, o, p):
                                          "fails P rounded once to bf16"))
 
 
-class _ForbidPlain:
-    """While active, every plain attention / WKV formulation and PyTorch's
-    fused attention raise: the serving path on the card must run K13/K14."""
+def _forbid_plain_lm():
+    """Every plain attention / WKV formulation and PyTorch's fused
+    attention: the serving path on the card must run K13/K14."""
+    import torch.nn.functional as F
 
-    def __enter__(self):
-        import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn, ref, wkv6
+    from repro_torch.models import attention, rwkv6
 
-        from repro_torch.kernels import flash_attn, ref, wkv6
-        from repro_torch.models import attention, rwkv6
-
-        def forbidden(*args, **kwargs):
-            raise AssertionError("a plain version ran on the card's path")
-
-        self._saved = []
-        for mod, names in ((flash_attn, ("flash_attention_plain",)),
-                           (ref, ("flash_attention_tc_emulated",)),
-                           (wkv6, ("wkv6_ref",)),
-                           (attention, ("attention_ref",)),
-                           (rwkv6, ("wkv6_ref", "wkv6_chunked")),
-                           (F, ("scaled_dot_product_attention",))):
-            for name in names:
-                self._saved.append((mod, name, getattr(mod, name)))
-                setattr(mod, name, forbidden)
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn in self._saved:
-            setattr(mod, name, fn)
-        return False
+    return _forbid(((flash_attn, ("flash_attention_plain",)),
+                    (ref, ("flash_attention_tc_emulated",)),
+                    (wkv6, ("wkv6_ref",)), (attention, ("attention_ref",)),
+                    (rwkv6, ("wkv6_ref", "wkv6_chunked")),
+                    (F, ("scaled_dot_product_attention",))))
 
 
 def _serve_profile(tag, prof, wall_s):
@@ -2903,7 +3501,7 @@ def phase_serve():
                                     cfg) if last else None)
             prof = (profile(activities=[ProfilerActivity.CUDA]) if last
                     else contextlib.nullcontext())
-            with _ForbidPlain(), prof:
+            with _forbid_plain_lm(), prof:
                 tokens, stats = serve(cfg, batch=B, prompt_len=P, gen=G,
                                       seed=0, params=params)
                 torch.cuda.synchronize()
@@ -3094,7 +3692,10 @@ def main() -> int:
         err.update(phase_bf16_sstep_pcg_parity())
         err.update(phase_walk_parity())
         ir = phase_ir_routes(hist, v2_solve_ms)
+        err.update(phase_bf16_cheb_pmg_block_parity())
+        slice12 = phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms)
         phase_bf16_times(bw, rows)
+        phase_bf16_slice12_times(bw, rows)
         phase_profile(cases, pcg, routes, slice4)
         err.update(phase_lm_parity())
         served = phase_serve()
@@ -3169,6 +3770,25 @@ def main() -> int:
                 "source": f"src/repro_torch/kernels/csrc/{cu}",
                 "replaces": f"src/repro/kernels/nekbone_ax.py:{line}",
                 "launches": ir["launches"][f"{mix} {variant}"][kname],
+                "max_abs_err": err[(key, mix)], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms")})
+    for mix in BF16_MIXES:
+        for key, kname, cu, line, route in (
+                ("K11", "nekbone_cheb_apply", "nekbone_cheb_apply.cu", 1434,
+                 "cheb"),
+                ("K12", "nekbone_interp", "nekbone_interp.cu", 1596, "pmg"),
+                ("K6", "nekbone_ax_slab_block", "nekbone_ax_slab_block.cu",
+                 741, "block"),
+                ("K7", "nekbone_cg_update_block",
+                 "nekbone_cg_update_block.cu", 859, "block")):
+            row = rows[(f"{key} {mix}", PAPER_GRID)]
+            kernels.append({
+                "name": f"{kname}_{mix}", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{cu}",
+                "replaces": f"src/repro/kernels/nekbone_ax.py:{line}",
+                "launches": slice12["launches"][f"{mix} {route}"][kname],
                 "max_abs_err": err[(key, mix)], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],

@@ -73,8 +73,8 @@ class NekboneCase:
                dtype; a refined one keeps ``dtype`` as the outer precision
                and sends fixed-iteration solves of the fused pipelines to
                the ``ir`` route.  On the card bf16 runs over v2, v1,
-               s-step and Jacobi-PCG (K4, K5, K3, K8, K9 and K10 in
-               bf16); the other kernels' bf16 builds raise (ROADMAP.md
+               s-step, Jacobi-, Chebyshev- and pmg-PCG and block CG (K3
+               to K12 in bf16); ``reference`` over K1 raises (ROADMAP.md
                queue 2).
       s:       iterations per s-step cycle (the 'pallas_sstep_v3' knob;
                ignored by every other ax_impl).

@@ -16,14 +16,17 @@ Named policies::
     bf16_ir  bf16 vectors, f32 accum + x + metric, refined
 
 What runs on the card: every kernel in ``f64`` and ``f32``; K4, K5 (v2),
-K3 (v1), K8, K9 (s-step) and K10 (Jacobi-PCG) also in two bf16 builds,
+K3 (v1), K8, K9 (s-step), K10 (Jacobi-PCG), K11 (Chebyshev-PCG), K11
+with K12 (pmg-PCG) and K6, K7 (block CG) also in two bf16 builds,
 ``bf16`` (every operand bf16) and ``bf16_ir`` (bf16 vectors; x and the
 operator's data in f32), both accumulating in f32.  The refined policies
 run the ``ir`` route (``cg_fused.cg_ir_fixed_iters``) over v2, v1 and
-s-step.  bf16 on any route whose kernels are outside K3, K4, K5, K8, K9
-and K10 (Chebyshev, pmg, block, ``reference`` over K1) raises on the card:
-those kernels' bf16 builds are ROADMAP.md queue 2.  On the CPU every
-policy runs the plain versions.
+s-step; with a preconditioner or b > 1 a refined case routes elsewhere,
+as the reference's does, so ``bf16_ir`` reaches K6, K7, K11 and K12
+through the drivers (``precond.pcg_fused_v2_fixed_iters``,
+``cg_block.cg_block_fixed_iters``).  bf16 on ``reference`` (K1) raises on
+the card: K1's and K2's bf16 builds are ROADMAP.md queue 2.  On the CPU
+every policy runs the plain versions.
 """
 from __future__ import annotations
 

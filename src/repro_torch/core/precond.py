@@ -472,11 +472,18 @@ def _pcg_pmg(b, spec: PMGPrecond, op, policy, tol2: float | None,
     dtype = b.dtype
     for o in lops:
         nl3 = o["n"] ** 3
+        # the coarser levels' factors come in the operator's dtype; the
+        # kernels take them as vectors (exact in any dtype: 0, 1/2, 1)
+        o["m"] = tuple(f.to(dtype) for f in o["m"])
+        o["c"] = tuple(f.to(dtype) for f in o["c"])
         o["mask2"] = box_outer(o["m"][2], o["m"][1], o["m"][0]) \
             .reshape(E, nl3)
         o["c2"] = box_outer(o["c"][2], o["c"][1], o["c"][0]) \
             .reshape(E, nl3).to(acc)
         o["zero"] = torch.zeros(E, nl3, dtype=dtype, device=b.device)
+        # K5's x slot of the residual (scratch), in the solution's dtype
+        o["zero_x"] = torch.zeros(E, nl3, dtype=policy.x_storage_dtype,
+                                  device=b.device)
     Dc, gc, maskc, cc = coarse
     nc = ns[-1]
     mask_c2 = maskc.reshape(E, nc ** 3)
@@ -492,7 +499,7 @@ def _pcg_pmg(b, spec: PMGPrecond, op, policy, tol2: float | None,
     def residual(r2l, z2l, o):
         p2, w2, _ = _ax.nekbone_ax_slab_cuda(o["zero"], z2l, o["D"], o["g3"],
                                              *o["m"], beta0, n=o["n"])
-        _, res, _ = _ax.nekbone_cg_update_cuda(o["zero"], p2, r2l, w2,
+        _, res, _ = _ax.nekbone_cg_update_cuda(o["zero_x"], p2, r2l, w2,
                                                alpha1, *o["c"], n=o["n"])
         return res
 

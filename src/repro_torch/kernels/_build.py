@@ -4,9 +4,9 @@ Each ``csrc/<stem>.cu`` becomes one shared library with a plain C
 interface (loaded with ``ctypes``) per dtype of :data:`SOURCES` — ``f64``
 and ``f32`` for the Nekbone kernels, and ``bf16`` and ``bf16_ir`` (the two
 operand mixes of the bf16 policies: every operand bf16, or bf16 vectors
-with x and the operator's data in f32) for K3, K4, K5, K8, K9 and K10;
-``f32`` and ``bf16`` for the LM kernels (K13 ``flash_attn``, K14
-``wkv6``) — compiled for Hopper only::
+with x and the operator's data in f32) for K3 to K12; ``f32`` and
+``bf16`` for the LM kernels (K13 ``flash_attn``, K14 ``wkv6``) — compiled
+for Hopper only::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -DNEKBONE_REAL_F64 \\
@@ -45,11 +45,12 @@ _NEKBONE = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
             "nekbone_pcg_update", "nekbone_cheb_apply", "nekbone_interp",
             "nekbone_ax_slab_block", "nekbone_cg_update_block",
             "nekbone_ax_dots", "nekbone_ax_powers", "nekbone_sstep_update")
-# The Nekbone stems with bf16 builds (K4, K5, K3, K8, K9, K10); the rest
-# wait in ROADMAP.md queue 2.
+# The Nekbone stems with bf16 builds (K3 to K12: K2 shares K3's source but
+# has no bf16 entry); K1 and K2 wait in ROADMAP.md queue 2.
 BF16_NEKBONE = ("nekbone_ax_slab", "nekbone_cg_update", "nekbone_ax_dots",
                 "nekbone_ax_powers", "nekbone_sstep_update",
-                "nekbone_pcg_update")
+                "nekbone_pcg_update", "nekbone_cheb_apply", "nekbone_interp",
+                "nekbone_ax_slab_block", "nekbone_cg_update_block")
 # {stem: the dtypes it is built for}: one library per pair.
 SOURCES = {**{stem: ("f64", "f32") + (("bf16", "bf16_ir")
                                       if stem in BF16_NEKBONE else ())

@@ -38,6 +38,18 @@
 // fp64 — 155.6 MB at b=4, 46.4 us at 3.35 TB/s.  About 12n + 10 flops per
 // node and lane.  The design moves (4b + 3 ceil(b/2)) fields: the metric
 // once per pair.  pap leaves as (b, E) values, summed per lane outside.
+//
+// Storage and accumulation (common.cuh), K4's roles: S the CG vectors
+// (p_prev, r, p, w and the mask factors), O the operator's data (D,
+// metric), A beta, the arithmetic and pap.  Four builds: f64 and f32 (one
+// type throughout); bf16 (S = O = bf16, A = f32) and bf16_ir (S = bf16,
+// O = A = f32).  Each lane rounds as K4 does: p is rounded to S before the
+// operator (the stored p, which K7 applies alpha to, is the one the
+// operator sees), w is rounded to S once, and pap is A over the unrounded
+// w.  A pair's p columns stay in shared memory as the stored S values,
+// read as A; the layers, D and the pap sums are A.  So each bf16 lane is
+// bitwise the bf16 K4's on that lane too.  At b=4 bf16 moves 38 bytes a
+// node (4 lanes of p_prev, r, p, w in bf16 and the metric), bf16_ir 44.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -49,21 +61,21 @@ namespace nekbone {
 // scripts/k8_k6_compare.py --ablation).
 constexpr int kLanes = 2;
 // The operands of one launch and the block's element.
-template <int N, typename T>
+template <int N, typename S, typename O, typename A>
 struct BlockLanes {
-  const T* __restrict__ p_prev;
-  const T* __restrict__ r;
-  const T* __restrict__ g3;
-  const T* __restrict__ mx;
-  const T* __restrict__ my;
-  const T* __restrict__ mz;
-  const T* __restrict__ beta;
-  T* __restrict__ p_out;
-  T* __restrict__ w;
-  T* __restrict__ pap;
-  AxSharedL<N, T, kLanes>* sh;
-  T (*red)[N * N];  // [kLanes][n^2]: the pap sums
-  T* cols;          // [kLanes][n^3]: the lanes' p columns
+  const S* __restrict__ p_prev;
+  const S* __restrict__ r;
+  const O* __restrict__ g3;
+  const S* __restrict__ mx;
+  const S* __restrict__ my;
+  const S* __restrict__ mz;
+  const A* __restrict__ beta;
+  S* __restrict__ p_out;
+  S* __restrict__ w;
+  A* __restrict__ pap;
+  AxSharedL<N, A, kLanes>* sh;
+  A (*red)[N * N];  // [kLanes][n^2]: the pap sums
+  S* cols;          // [kLanes][n^3]: the lanes' stored p columns
   size_t e, E;
   int ix, iy, iz;
 };
@@ -72,68 +84,72 @@ struct BlockLanes {
 // pap, each lane as K4 computes it.  A group's p columns live in the
 // block's shared columns; a lane alone keeps its column in registers, as
 // K4 does.
-template <int N, typename T, int W>
-__device__ __forceinline__ void lanes(const BlockLanes<N, T>& a, int l0,
-                                      int i, int j) {
+template <int N, typename S, typename O, typename A, int W>
+__device__ __forceinline__ void lanes(const BlockLanes<N, S, O, A>& a,
+                                      int l0, int i, int j) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
   const int tid = j * N + i;
-  const T* ge = a.g3 + a.e * 3 * N3 + tid;
+  const O* ge = a.g3 + a.e * 3 * N3 + tid;
   // a lane alone loads its element's metric into registers before the
   // sweep, as K6's kernel of one lane at a time did: read layer by layer,
   // each load's latency shows once the metric is past L2 (E = 4096)
-  T gc[3][N];
+  A gc[3][N];
   if constexpr (W == 1) {
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      gc[0][k] = ge[0 * N3 + k * N2];
-      gc[1][k] = ge[1 * N3 + k * N2];
-      gc[2][k] = ge[2 * N3 + k * N2];
+      gc[0][k] = convert<A>(ge[0 * N3 + k * N2]);
+      gc[1][k] = convert<A>(ge[1 * N3 + k * N2]);
+      gc[2][k] = convert<A>(ge[2 * N3 + k * N2]);
     }
   }
   size_t base[W];
-  T* col[W];
-  T pc[N];
+  S* col[W];
+  A pc[N];
 #pragma unroll
   for (int q = 0; q < W; ++q) {
     base[q] = ((l0 + q) * a.E + a.e) * N3 + tid;
     col[q] = a.cols + q * N3 + tid;
-    const T b = a.beta[l0 + q];
+    const A b = a.beta[l0 + q];
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const size_t o = base[q] + k * N2;
-      const T v = add_rn(a.r[o], mul_rn(b, a.p_prev[o]));
+      // the stored direction, and the operator applied to exactly it (the
+      // round trip through S is the identity for f64 and f32)
+      const S v = convert<S>(
+          add_rn(convert<A>(a.r[o]), mul_rn(b, convert<A>(a.p_prev[o]))));
       if (W == 1)
-        pc[k] = v;
+        pc[k] = convert<A>(v);
       else
         col[q][k * N2] = v;
       a.p_out[o] = v;
     }
   }
-  T wc[W][N];
+  A wc[W][N];
   if constexpr (W == 1) {
     ax_diag_columns_g(
         a.sh->one, [&gc](int c, int k) { return gc[c][k]; }, pc, wc[0], i,
         j);
   } else {
-    SharedColumn<N, T> uc[W];
+    SharedColumn<N, A, S> uc[W];
 #pragma unroll
-    for (int q = 0; q < W; ++q) uc[q] = SharedColumn<N, T>{col[q]};
+    for (int q = 0; q < W; ++q) uc[q] = SharedColumn<N, A, S>{col[q]};
     ax_diag_columns_lanes(*a.sh, ge, uc, wc, i, j);
   }
 
   // the box mask is (mz * my) * mx; all factors are 0 or 1, so the product
   // is exact in any order (K4 forms the same values).
-  const T myx = a.my[a.iy * N + j] * a.mx[a.ix * N + i];
-  T part[W];
+  const A myx =
+      convert<A>(a.my[a.iy * N + j]) * convert<A>(a.mx[a.ix * N + i]);
+  A part[W];
 #pragma unroll
   for (int q = 0; q < W; ++q) {
-    part[q] = T(0);
+    part[q] = A(0);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      const T v = wc[q][k] * (a.mz[a.iz * N + k] * myx);
-      part[q] += (W == 1 ? pc[k] : col[q][k * N2]) * v;
-      a.w[base[q] + k * N2] = v;
+      const A v = wc[q][k] * (convert<A>(a.mz[a.iz * N + k]) * myx);
+      part[q] += (W == 1 ? pc[k] : convert<A>(col[q][k * N2])) * v;
+      a.w[base[q] + k * N2] = convert<S>(v);
     }
   }
   // block_sum<N2>'s tree for each lane, the lanes' barriers shared
@@ -156,83 +172,84 @@ __device__ __forceinline__ void lanes(const BlockLanes<N, T>& a, int l0,
 }
 
 // The group's lanes, w of them (1 <= w <= W): one instantiation per width.
-template <int N, typename T, int W>
-__device__ __forceinline__ void lanes_of(const BlockLanes<N, T>& a, int l0,
-                                         int w, int i, int j) {
+template <int N, typename S, typename O, typename A, int W>
+__device__ __forceinline__ void lanes_of(const BlockLanes<N, S, O, A>& a,
+                                         int l0, int w, int i, int j) {
   if constexpr (W == 1) {
-    lanes<N, T, 1>(a, l0, i, j);
+    lanes<N, S, O, A, 1>(a, l0, i, j);
   } else {
     if (w == W)
-      lanes<N, T, W>(a, l0, i, j);
+      lanes<N, S, O, A, W>(a, l0, i, j);
     else
-      lanes_of<N, T, W - 1>(a, l0, w, i, j);
+      lanes_of<N, S, O, A, W - 1>(a, l0, w, i, j);
   }
 }
 
 // Block (N, N), grid (E, ceil(b / kLanes)): block x works on element x for
 // the lanes of group blockIdx.y.
-template <int N, typename T>
+template <int N, typename S, typename O, typename A>
 __global__ void __launch_bounds__(N * N, min_blocks(N * N, 128))
-nekbone_ax_slab_block_kernel(const T* __restrict__ p_prev,
-                             const T* __restrict__ r, const T* __restrict__ D,
-                             const T* __restrict__ g3,
-                             const T* __restrict__ mx,
-                             const T* __restrict__ my,
-                             const T* __restrict__ mz,
-                             const T* __restrict__ beta,
-                             T* __restrict__ p_out, T* __restrict__ w,
-                             T* __restrict__ pap, int ex, int ey, int nrhs) {
-  __shared__ AxSharedL<N, T, kLanes> sh;
-  __shared__ T red[kLanes][N * N];
+nekbone_ax_slab_block_kernel(const S* __restrict__ p_prev,
+                             const S* __restrict__ r, const O* __restrict__ D,
+                             const O* __restrict__ g3,
+                             const S* __restrict__ mx,
+                             const S* __restrict__ my,
+                             const S* __restrict__ mz,
+                             const A* __restrict__ beta,
+                             S* __restrict__ p_out, S* __restrict__ w,
+                             A* __restrict__ pap, int ex, int ey, int nrhs) {
+  __shared__ AxSharedL<N, A, kLanes> sh;
+  __shared__ A red[kLanes][N * N];
   extern __shared__ __align__(16) unsigned char col_bytes[];
 
   const int i = threadIdx.x;
   const int j = threadIdx.y;
   const size_t e = blockIdx.x;
-  const BlockLanes<N, T> a{
+  const BlockLanes<N, S, O, A> a{
       p_prev, r, g3, mx, my, mz, beta, p_out, w, pap, &sh, red,
-      reinterpret_cast<T*>(col_bytes), e, gridDim.x,
+      reinterpret_cast<S*>(col_bytes), e, gridDim.x,
       static_cast<int>(e % ex), static_cast<int>((e / ex) % ey),
       static_cast<int>(e / (static_cast<size_t>(ex) * ey))};
 
   load_D(sh.one, D, i, j);
   const int l0 = blockIdx.y * kLanes;
   const int width = nrhs - l0 < kLanes ? nrhs - l0 : kLanes;
-  lanes_of<N, T, kLanes>(a, l0, width, i, j);
+  lanes_of<N, S, O, A, kLanes>(a, l0, width, i, j);
 }
 
-template <int N, typename T>
-cudaError_t launch(const T* p_prev, const T* r, const T* D, const T* g3,
-                   const T* mx, const T* my, const T* mz, const T* beta,
-                   T* p_out, T* w, T* pap, int ex, int ey, int ez, int nrhs,
+template <int N, typename S, typename O, typename A>
+cudaError_t launch(const S* p_prev, const S* r, const O* D, const O* g3,
+                   const S* mx, const S* my, const S* mz, const A* beta,
+                   S* p_out, S* w, A* pap, int ex, int ey, int ez, int nrhs,
                    cudaStream_t stream) {
-  const size_t dyn = static_cast<size_t>(kLanes) * N * N * N * sizeof(T);
+  // a pair's stored p columns
+  const size_t dyn = static_cast<size_t>(kLanes) * N * N * N * sizeof(S);
   const void* fn = reinterpret_cast<const void*>(
-      &nekbone_ax_slab_block_kernel<N, T>);
+      &nekbone_ax_slab_block_kernel<N, S, O, A>);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(ex * ey * ez),
                   static_cast<unsigned>((nrhs + kLanes - 1) / kLanes));
-  nekbone_ax_slab_block_kernel<N, T><<<grid, dim3(N, N), dyn, stream>>>(
+  nekbone_ax_slab_block_kernel<N, S, O, A><<<grid, dim3(N, N), dyn, stream>>>(
       p_prev, r, D, g3, mx, my, mz, beta, p_out, w, pap, ex, ey, nrhs);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const T* p_prev, const T* r, const T* D, const T* g3,
-             const T* mx, const T* my, const T* mz, const T* beta, T* p_out,
-             T* w, T* pap, int ex, int ey, int ez, int n, int nrhs,
+template <typename S, typename O, typename A>
+int dispatch(const S* p_prev, const S* r, const O* D, const O* g3,
+             const S* mx, const S* my, const S* mz, const A* beta, S* p_out,
+             S* w, A* pap, int ex, int ey, int ez, int n, int nrhs,
              void* stream) {
   if (ex <= 0 || ey <= 0 || ez <= 0 || nrhs <= 0 || nrhs > 65535 * kLanes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
-#define NEKBONE_CASE(N)                                                  \
-  case N:                                                                \
-    return static_cast<int>(launch<N, T>(p_prev, r, D, g3, mx, my, mz,   \
-                                         beta, p_out, w, pap, ex, ey, ez, \
-                                         nrhs, s));
+#define NEKBONE_CASE(N)                                                     \
+  case N:                                                                   \
+    return static_cast<int>(launch<N, S, O, A>(p_prev, r, D, g3, mx, my, mz, \
+                                               beta, p_out, w, pap, ex, ey,  \
+                                               ez, nrhs, s));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -242,27 +259,37 @@ int dispatch(const T* p_prev, const T* r, const T* D, const T* g3,
 
 }  // namespace nekbone
 
-// p_prev, r, p_out, w: (b, E, n^3); D: (n, n); g3: (E, 3, n^3); mx: (EX, n);
-// my: (EY, n); mz: (EZ, n); beta: (b,); pap: (b, E).  Elements z-major over
-// (EX, EY, EZ).  Returns cudaGetLastError() after the launch.
-#ifdef NEKBONE_REAL_F64
-extern "C" int nekbone_ax_slab_block_f64(
-    const double* p_prev, const double* r, const double* D, const double* g3,
-    const double* mx, const double* my, const double* mz, const double* beta,
-    double* p_out, double* w, double* pap, int ex, int ey, int ez, int n,
-    int nrhs, void* stream) {
-  return nekbone::dispatch<double>(p_prev, r, D, g3, mx, my, mz, beta, p_out,
-                                   w, pap, ex, ey, ez, n, nrhs, stream);
-}
-#endif
+// p_prev, r, p_out, w: (b, E, n^3) in S; D: (n, n) and g3: (E, 3, n^3) in
+// O; mx: (EX, n), my: (EY, n), mz: (EZ, n) in S; beta: (b,) and pap: (b, E)
+// in A.  Elements z-major over (EX, EY, EZ).  Returns cudaGetLastError()
+// after the launch.
+#define NEKBONE_AX_SLAB_BLOCK_ENTRY(NAME, S, O, A)                            \
+  extern "C" int NAME(const void* p_prev, const void* r, const void* D,      \
+                      const void* g3, const void* mx, const void* my,        \
+                      const void* mz, const void* beta, void* p_out,         \
+                      void* w, void* pap, int ex, int ey, int ez, int n,     \
+                      int nrhs, void* stream) {                              \
+    return nekbone::dispatch<S, O, A>(                                       \
+        static_cast<const S*>(p_prev), static_cast<const S*>(r),             \
+        static_cast<const O*>(D), static_cast<const O*>(g3),                 \
+        static_cast<const S*>(mx), static_cast<const S*>(my),                \
+        static_cast<const S*>(mz), static_cast<const A*>(beta),              \
+        static_cast<S*>(p_out), static_cast<S*>(w), static_cast<A*>(pap),    \
+        ex, ey, ez, n, nrhs, stream);                                        \
+  }
 
+#ifdef NEKBONE_REAL_F64
+NEKBONE_AX_SLAB_BLOCK_ENTRY(nekbone_ax_slab_block_f64, double, double,
+                            double)
+#endif
 #ifdef NEKBONE_REAL_F32
-extern "C" int nekbone_ax_slab_block_f32(
-    const float* p_prev, const float* r, const float* D, const float* g3,
-    const float* mx, const float* my, const float* mz, const float* beta,
-    float* p_out, float* w, float* pap, int ex, int ey, int ez, int n,
-    int nrhs, void* stream) {
-  return nekbone::dispatch<float>(p_prev, r, D, g3, mx, my, mz, beta, p_out,
-                                  w, pap, ex, ey, ez, n, nrhs, stream);
-}
+NEKBONE_AX_SLAB_BLOCK_ENTRY(nekbone_ax_slab_block_f32, float, float, float)
+#endif
+#ifdef NEKBONE_REAL_BF16
+NEKBONE_AX_SLAB_BLOCK_ENTRY(nekbone_ax_slab_block_bf16, __nv_bfloat16,
+                            __nv_bfloat16, float)
+#endif
+#ifdef NEKBONE_REAL_BF16_IR
+NEKBONE_AX_SLAB_BLOCK_ENTRY(nekbone_ax_slab_block_bf16_ir, __nv_bfloat16,
+                            float, float)
 #endif

@@ -31,28 +31,37 @@
 // at E=1024, n=10, fp64, 196.6 MB at b=4 (58.7 us at 3.35 TB/s).  K5 has no
 // operator stream to share, so the batch saves only launches here.  rcr
 // leaves as (b, E) values, summed per lane outside.
+//
+// Storage and accumulation (common.cuh), K5's roles: S the CG vectors (p,
+// r, w and the c factors), X the solution, A alpha, the arithmetic, the
+// assembly of w and rcr.  Four builds: f64 and f32 (one type throughout);
+// bf16 (S = X = bf16, A = f32) and bf16_ir (S = bf16, X = A = f32).  Each
+// lane rounds as K5 does: w is assembled in A from its S copies and the
+// updated r is rounded to S before r.c.r (the next iteration reads the
+// stored r), so each bf16 lane is bitwise the bf16 K5's on that lane.  At
+// b=4 bf16 moves 48 bytes a node, bf16_ir 64 (x in f32).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace nekbone {
 
-template <int N, typename T>
+template <int N, typename S, typename X, typename A>
 __global__ void __launch_bounds__(N * N)
-nekbone_cg_update_block_kernel(const T* __restrict__ x,
-                               const T* __restrict__ p,
-                               const T* __restrict__ r,
-                               const T* __restrict__ w,
-                               const T* __restrict__ alpha,
-                               const T* __restrict__ cx,
-                               const T* __restrict__ cy,
-                               const T* __restrict__ cz,
-                               T* __restrict__ x_out, T* __restrict__ r_out,
-                               T* __restrict__ rcr, int ex, int ey, int ez,
+nekbone_cg_update_block_kernel(const X* __restrict__ x,
+                               const S* __restrict__ p,
+                               const S* __restrict__ r,
+                               const S* __restrict__ w,
+                               const A* __restrict__ alpha,
+                               const S* __restrict__ cx,
+                               const S* __restrict__ cy,
+                               const S* __restrict__ cz,
+                               X* __restrict__ x_out, S* __restrict__ r_out,
+                               A* __restrict__ rcr, int ex, int ey, int ez,
                                int nrhs) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
-  __shared__ T red[N2];
+  __shared__ A red[N2];
 
   const int i = threadIdx.x;
   const int j = threadIdx.y;
@@ -65,7 +74,7 @@ nekbone_cg_update_block_kernel(const T* __restrict__ x,
 
   // c is (cz * cy) * cx; the factors are 0, 1/2 or 1, so the product is
   // exact in any order (K5 forms the same values).
-  const T cyx = cy[iy * N + j] * cx[ix * N + i];
+  const A cyx = convert<A>(cy[iy * N + j]) * convert<A>(cx[ix * N + i]);
 
   for (int l = 0; l < nrhs; ++l) {
     // opaque to nvcc: the neighbour addresses are recomputed per lane, not
@@ -74,48 +83,52 @@ nekbone_cg_update_block_kernel(const T* __restrict__ x,
     asm volatile("" : "+l"(el));
     const size_t lane = l * E * N3;
     const size_t base = lane + el * N3 + tid;
-    const T* wl = w + lane;
-    const T a = alpha[l];
-    T part = T(0);
+    const S* wl = w + lane;
+    const A a = alpha[l];
+    A part = A(0);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const size_t o = base + k * N2;
-      const T wa = sum_xyz<N>(wl, el, k, j, i, ix, iy, iz, ex, ey, ez);
-      x_out[o] = add_rn(x[o], mul_rn(a, p[o]));
-      const T rn = sub_rn(r[o], mul_rn(a, wa));
-      r_out[o] = rn;
-      const T c = cz[iz * N + k] * cyx;
+      const A wa = sum_xyz<N>(wl, el, k, j, i, ix, iy, iz, ex, ey, ez);
+      x_out[o] =
+          convert<X>(add_rn(convert<A>(x[o]), mul_rn(a, convert<A>(p[o]))));
+      // the stored residual, and r.c.r over exactly it (the round trip
+      // through S is the identity for f64 and f32)
+      const S rs = convert<S>(sub_rn(convert<A>(r[o]), mul_rn(a, wa)));
+      r_out[o] = rs;
+      const A rn = convert<A>(rs);
+      const A c = convert<A>(cz[iz * N + k]) * cyx;
       part += (rn * c) * rn;
     }
-    const T total = block_sum<N2>(part, red, tid);
+    const A total = block_sum<N2>(part, red, tid);
     if (tid == 0) rcr[l * E + e] = total;
   }
 }
 
-template <int N, typename T>
-cudaError_t launch(const T* x, const T* p, const T* r, const T* w,
-                   const T* alpha, const T* cx, const T* cy, const T* cz,
-                   T* x_out, T* r_out, T* rcr, int ex, int ey, int ez,
+template <int N, typename S, typename X, typename A>
+cudaError_t launch(const X* x, const S* p, const S* r, const S* w,
+                   const A* alpha, const S* cx, const S* cy, const S* cz,
+                   X* x_out, S* r_out, A* rcr, int ex, int ey, int ez,
                    int nrhs, cudaStream_t stream) {
   const int E = ex * ey * ez;
-  nekbone_cg_update_block_kernel<N, T><<<E, dim3(N, N), 0, stream>>>(
+  nekbone_cg_update_block_kernel<N, S, X, A><<<E, dim3(N, N), 0, stream>>>(
       x, p, r, w, alpha, cx, cy, cz, x_out, r_out, rcr, ex, ey, ez, nrhs);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const T* x, const T* p, const T* r, const T* w, const T* alpha,
-             const T* cx, const T* cy, const T* cz, T* x_out, T* r_out,
-             T* rcr, int ex, int ey, int ez, int n, int nrhs, void* stream) {
+template <typename S, typename X, typename A>
+int dispatch(const X* x, const S* p, const S* r, const S* w, const A* alpha,
+             const S* cx, const S* cy, const S* cz, X* x_out, S* r_out,
+             A* rcr, int ex, int ey, int ez, int n, int nrhs, void* stream) {
   if (ex <= 0 || ey <= 0 || ez <= 0 || nrhs <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
-#define NEKBONE_CASE(N)                                                     \
-  case N:                                                                   \
-    return static_cast<int>(launch<N, T>(x, p, r, w, alpha, cx, cy, cz,     \
-                                         x_out, r_out, rcr, ex, ey, ez,     \
-                                         nrhs, s));
+#define NEKBONE_CASE(N)                                                      \
+  case N:                                                                    \
+    return static_cast<int>(launch<N, S, X, A>(x, p, r, w, alpha, cx, cy,    \
+                                               cz, x_out, r_out, rcr, ex,    \
+                                               ey, ez, nrhs, s));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -125,27 +138,38 @@ int dispatch(const T* x, const T* p, const T* r, const T* w, const T* alpha,
 
 }  // namespace nekbone
 
-// x, p, r, w (unassembled, masked), x_out, r_out: (b, E, n^3); alpha: (b,);
-// cx: (EX, n); cy: (EY, n); cz: (EZ, n); rcr: (b, E).  Elements z-major over
-// (EX, EY, EZ).  Returns cudaGetLastError() after the launch.
-#ifdef NEKBONE_REAL_F64
-extern "C" int nekbone_cg_update_block_f64(
-    const double* x, const double* p, const double* r, const double* w,
-    const double* alpha, const double* cx, const double* cy,
-    const double* cz, double* x_out, double* r_out, double* rcr, int ex,
-    int ey, int ez, int n, int nrhs, void* stream) {
-  return nekbone::dispatch<double>(x, p, r, w, alpha, cx, cy, cz, x_out,
-                                   r_out, rcr, ex, ey, ez, n, nrhs, stream);
-}
-#endif
+// x, x_out: (b, E, n^3) in X; p, r, w (unassembled, masked), r_out: (b, E,
+// n^3) in S; alpha: (b,) and rcr: (b, E) in A; cx: (EX, n), cy: (EY, n),
+// cz: (EZ, n) in S.  Elements z-major over (EX, EY, EZ).  Returns
+// cudaGetLastError() after the launch.
+#define NEKBONE_CG_UPDATE_BLOCK_ENTRY(NAME, S, X, A)                         \
+  extern "C" int NAME(const void* x, const void* p, const void* r,          \
+                      const void* w, const void* alpha, const void* cx,     \
+                      const void* cy, const void* cz, void* x_out,          \
+                      void* r_out, void* rcr, int ex, int ey, int ez, int n, \
+                      int nrhs, void* stream) {                             \
+    return nekbone::dispatch<S, X, A>(                                      \
+        static_cast<const X*>(x), static_cast<const S*>(p),                 \
+        static_cast<const S*>(r), static_cast<const S*>(w),                 \
+        static_cast<const A*>(alpha), static_cast<const S*>(cx),            \
+        static_cast<const S*>(cy), static_cast<const S*>(cz),               \
+        static_cast<X*>(x_out), static_cast<S*>(r_out),                     \
+        static_cast<A*>(rcr), ex, ey, ez, n, nrhs, stream);                 \
+  }
 
+#ifdef NEKBONE_REAL_F64
+NEKBONE_CG_UPDATE_BLOCK_ENTRY(nekbone_cg_update_block_f64, double, double,
+                              double)
+#endif
 #ifdef NEKBONE_REAL_F32
-extern "C" int nekbone_cg_update_block_f32(
-    const float* x, const float* p, const float* r, const float* w,
-    const float* alpha, const float* cx, const float* cy, const float* cz,
-    float* x_out, float* r_out, float* rcr, int ex, int ey, int ez, int n,
-    int nrhs, void* stream) {
-  return nekbone::dispatch<float>(x, p, r, w, alpha, cx, cy, cz, x_out,
-                                  r_out, rcr, ex, ey, ez, n, nrhs, stream);
-}
+NEKBONE_CG_UPDATE_BLOCK_ENTRY(nekbone_cg_update_block_f32, float, float,
+                              float)
+#endif
+#ifdef NEKBONE_REAL_BF16
+NEKBONE_CG_UPDATE_BLOCK_ENTRY(nekbone_cg_update_block_bf16, __nv_bfloat16,
+                              __nv_bfloat16, float)
+#endif
+#ifdef NEKBONE_REAL_BF16_IR
+NEKBONE_CG_UPDATE_BLOCK_ENTRY(nekbone_cg_update_block_bf16_ir,
+                              __nv_bfloat16, float, float)
 #endif

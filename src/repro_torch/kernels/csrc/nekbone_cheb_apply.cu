@@ -76,8 +76,28 @@
 // The recurrence uses rounded, uncontracted arithmetic, as the plain
 // version's separate tensor operations do; only the operator's
 // contractions use FMA.  The scalars are read from a device pointer.
+//
+// Storage and accumulation (common.cuh).  The template takes the storage
+// type S of the vectors (r, z and the mask and c factors), the storage
+// type O of the operator's data (D, metric) and the accumulation type A
+// (the scalars, the arithmetic, the partials).  Four builds: f64 and f32
+// (one type throughout); bf16 (S = O = bf16, A = f32) and bf16_ir
+// (S = bf16, O = A = f32: the bf16_ir policy keeps the operator's data in
+// f32, core/precision.py).  The TPU kernel runs the whole recurrence in
+// the accumulation type and rounds only z to storage, forming r.c.z over
+// the rounded z (the next K4 reads the stored z).  So here the
+// recurrence's state d, res and z, both unassembled A d buffers and the
+// partials are A, whatever S is: the state in shared memory (RESIDENT) or
+// in device scratch; in the device variant, where S is not A, the running
+// z lives in a scratch field of its own (zacc) and the stored z is
+// written once, at the last step.  Shared memory is sized by A
+// (cheb_dyn_bytes, kernels/nekbone_ax.k11_state_bytes), so the bf16
+// builds keep f32's plan.  bf16 reads r and the metric at 2 bytes a value
+// (bf16_ir: the metric at 4) and writes z at 2.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -86,44 +106,67 @@ namespace nekbone {
 namespace cg = cooperative_groups;
 
 // The operands of one call, passed by value to the kernel.
-template <typename T>
+template <typename S, typename O, typename A>
 struct ChebArgs {
-  const T* r;
-  const T* D;
-  const T* g3;
-  const T* mx;
-  const T* my;
-  const T* mz;
-  const T* cx;
-  const T* cy;
-  const T* cz;
-  const T* coef;
-  T* z;
-  T* d;    // device variant only: (E, n^3) scratch
-  T* res;  // device variant only: (E, n^3) scratch
-  T* ad0;  // unassembled A d, even steps
-  T* ad1;  // unassembled A d, odd steps
-  T* rtz;
+  const S* r;
+  const O* D;
+  const O* g3;
+  const S* mx;
+  const S* my;
+  const S* mz;
+  const S* cx;
+  const S* cy;
+  const S* cz;
+  const A* coef;
+  S* z;
+  A* d;    // device variant only: (E, n^3) scratch
+  A* res;  // device variant only: (E, n^3) scratch
+  A* ad0;  // unassembled A d, even steps
+  A* ad1;  // unassembled A d, odd steps
+  A* rtz;
   int ex, ey, ez, k, per_block;
+  A* zacc;  // device variant with S != A only: the running z, (E, n^3)
 };
+
+// The running z of the device variant: the output field itself where it
+// holds A values, else its scratch.
+template <typename S, typename O, typename A>
+__device__ __forceinline__ A* running_z(const ChebArgs<S, O, A>& a) {
+  if constexpr (std::is_same<S, A>::value)
+    return a.z;
+  else
+    return a.zacc;
+}
+
+// The dynamic shared bytes of a block (kernels/nekbone_ax.k11_state_bytes
+// and k11_plan compute the same): RESIDENT, d, res and z of its per_block
+// elements; else one copy of the operator's input column per slice; every
+// value an A.
+template <int N, typename A>
+constexpr size_t cheb_dyn_bytes(bool resident, int per_block) {
+  return (resident ? static_cast<size_t>(per_block) * 3
+                   : static_cast<size_t>(kSlices<N>)) *
+         N * N * N * sizeof(A);
+}
 
 // The thread's element in one round of a block's owned range: slice p of
 // round q works on element first + q P + p; a slice past the range (the
 // last round of the last block) computes on the block's last element and
 // stores nothing outside its own (allocated, unused) shared slot, so that
 // it still meets every barrier.  per_block is a multiple of P.
-template <int N, typename T, bool RESIDENT>
+template <int N, typename A, bool RESIDENT>
 struct ChebNode {
   size_t e;       // the element the slice computes on
   bool active;    // e is its own
   int ix, iy, iz;
   size_t base;    // offset of the thread's layer-0 node
-  T* sd;          // the thread's column of d, res and z, layer 0 (the
-  T* sres;        // layers N * N apart)
-  T* sz;
-  T* col;         // the column of the operator's input d, in shared memory
+  A* sd;          // the thread's column of d, res and z, layer 0 (the
+  A* sres;        // layers N * N apart)
+  A* sz;
+  A* col;         // the column of the operator's input d, in shared memory
 
-  __device__ __forceinline__ ChebNode(const ChebArgs<T>& a, T* smem,
+  template <typename S, typename O>
+  __device__ __forceinline__ ChebNode(const ChebArgs<S, O, A>& a, A* smem,
                                       size_t first, size_t last, int q, int p,
                                       int tid) {
     constexpr int N3 = N * N * N;
@@ -144,7 +187,7 @@ struct ChebNode {
     } else {
       sd = a.d + base;
       sres = a.res + base;
-      sz = a.z + base;
+      sz = running_z(a) + base;
       // [slice][layer][thread]: the operator's copy of d
       col = smem + p * N3 + tid;
     }
@@ -155,22 +198,24 @@ struct ChebNode {
 // common.cuh masked_ax, operation for operation (so the output is bitwise
 // the same), with the column read from shared memory and the store kept to
 // active slices.
-template <int N, typename T>
-__device__ __forceinline__ void cheb_ax(AxShared<N, T>& sh,
-                                        const ChebArgs<T>& a, const T* col,
-                                        T* ad, size_t e, bool active, int i,
-                                        int j, int ix, int iy, int iz) {
+template <int N, typename S, typename O, typename A>
+__device__ __forceinline__ void cheb_ax(AxShared<N, A>& sh,
+                                        const ChebArgs<S, O, A>& a,
+                                        const A* col, A* ad, size_t e,
+                                        bool active, int i, int j, int ix,
+                                        int iy, int iz) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
   const int tid = j * N + i;
-  T wc[N];
-  ax_diag_columns(sh, a.g3 + e * 3 * N3 + tid, SharedColumn<N, T>{col}, wc,
+  A wc[N];
+  ax_diag_columns(sh, a.g3 + e * 3 * N3 + tid, SharedColumn<N, A>{col}, wc,
                   i, j);
-  const T myx = a.my[iy * N + j] * a.mx[ix * N + i];
+  const A myx = convert<A>(a.my[iy * N + j]) * convert<A>(a.mx[ix * N + i]);
   if (active) {
 #pragma unroll
     for (int k = 0; k < N; ++k)
-      ad[e * N3 + tid + k * N2] = wc[k] * (a.mz[iz * N + k] * myx);
+      ad[e * N3 + tid + k * N2] =
+          wc[k] * (convert<A>(a.mz[iz * N + k]) * myx);
   }
 }
 
@@ -178,38 +223,45 @@ __device__ __forceinline__ void cheb_ax(AxShared<N, T>& sh,
 // d, res, z, then (not LAST) write the masked A_loc of the new d to ad_out,
 // or (LAST) write z and the rtz partials.  At step 1 the device variant
 // reads res as r and z as d (the RESIDENT start stores them).
-template <int N, typename T, bool RESIDENT, bool LAST>
-__device__ __forceinline__ void cheb_step(const ChebArgs<T>& a,
-                                          AxShared<N, T>& sh, T* red, T* smem,
-                                          const T* ad_in, T* ad_out,
+template <int N, typename S, typename O, typename A, bool RESIDENT,
+          bool LAST>
+__device__ __forceinline__ void cheb_step(const ChebArgs<S, O, A>& a,
+                                          AxShared<N, A>& sh, A* red, A* smem,
+                                          const A* ad_in, A* ad_out,
                                           int step, size_t first, size_t last,
                                           int rounds, int p, int i, int j) {
   constexpr int N2 = N * N;
   const int tid = j * N + i;
-  const T ci0 = a.coef[2 * step];
-  const T ci1 = a.coef[2 * step + 1];
+  const A ci0 = a.coef[2 * step];
+  const A ci1 = a.coef[2 * step + 1];
   for (int q = 0; q < rounds; ++q) {
-    const ChebNode<N, T, RESIDENT> nd(a, smem, first, last, q, p, tid);
-    T part = T(0);
-    T cyx = T(0);
-    if (LAST) cyx = a.cy[nd.iy * N + j] * a.cx[nd.ix * N + i];
+    const ChebNode<N, A, RESIDENT> nd(a, smem, first, last, q, p, tid);
+    A part = A(0);
+    A cyx = A(0);
+    if (LAST)
+      cyx = convert<A>(a.cy[nd.iy * N + j]) * convert<A>(a.cx[nd.ix * N + i]);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const int s = k * N2;
-      const T aw = sum_xyz_cg<N>(ad_in, nd.e, k, j, i, nd.ix, nd.iy, nd.iz,
+      const A aw = sum_xyz_cg<N>(ad_in, nd.e, k, j, i, nd.ix, nd.iy, nd.iz,
                                  a.ex, a.ey, a.ez);
-      const T dold = nd.sd[s];
-      const T resold = (!RESIDENT && step == 1) ? a.r[nd.base + k * N2]
-                                                : nd.sres[s];
-      const T zold = (!RESIDENT && step == 1) ? dold : nd.sz[s];
-      const T rn = sub_rn(resold, aw);
-      const T dn = add_rn(mul_rn(ci0, dold), mul_rn(ci1, rn));
-      const T zn = add_rn(zold, dn);
+      const A dold = nd.sd[s];
+      const A resold = (!RESIDENT && step == 1)
+                           ? convert<A>(a.r[nd.base + k * N2])
+                           : nd.sres[s];
+      const A zold = (!RESIDENT && step == 1) ? dold : nd.sz[s];
+      const A rn = sub_rn(resold, aw);
+      const A dn = add_rn(mul_rn(ci0, dold), mul_rn(ci1, rn));
+      const A zn = add_rn(zold, dn);
       if (LAST) {
-        if (nd.active) a.z[nd.base + k * N2] = zn;
+        // the stored z, and r.c.z over exactly it (the round trip through
+        // S is the identity for f64 and f32)
+        const S zs = convert<S>(zn);
+        if (nd.active) a.z[nd.base + k * N2] = zs;
         // c is (cz * cy) * cx, exact in any order (factors 0, 1/2, 1).
-        part += mul_rn(
-            mul_rn(a.r[nd.base + k * N2], a.cz[nd.iz * N + k] * cyx), zn);
+        part += mul_rn(mul_rn(convert<A>(a.r[nd.base + k * N2]),
+                              convert<A>(a.cz[nd.iz * N + k]) * cyx),
+                       convert<A>(zs));
       } else {
         if (RESIDENT || nd.active) {
           nd.sd[s] = dn;
@@ -220,7 +272,7 @@ __device__ __forceinline__ void cheb_step(const ChebArgs<T>& a,
       }
     }
     if (LAST) {
-      const T total = block_sum<N2>(part, red, tid);
+      const A total = block_sum<N2>(part, red, tid);
       if (tid == 0 && nd.active) a.rtz[nd.e] = total;
     } else {
       cheb_ax(sh, a, nd.col, ad_out, nd.e, nd.active, i, j, nd.ix, nd.iy,
@@ -232,23 +284,23 @@ __device__ __forceinline__ void cheb_step(const ChebArgs<T>& a,
 // Block (N, N, P): slice p = threadIdx.z works on its own element of each
 // round, with its own operator scratch; the barriers inside the operator
 // and the block sum are block-wide, so every slice runs every round.
-template <int N, typename T, bool RESIDENT>
+template <int N, typename S, typename O, typename A, bool RESIDENT>
 __global__ void __launch_bounds__(N * N * kSlices<N>, kMinBlocks<N>)
-nekbone_cheb_kernel(const ChebArgs<T> a) {
+nekbone_cheb_kernel(const ChebArgs<S, O, A> a) {
   constexpr int N2 = N * N;
   constexpr int P = kSlices<N>;
-  __shared__ AxShared<N, T> sh_all[P];
-  __shared__ T red_all[P][N2];
+  __shared__ AxShared<N, A> sh_all[P];
+  __shared__ A red_all[P][N2];
   extern __shared__ __align__(16) unsigned char state_bytes[];
-  T* smem = reinterpret_cast<T*>(state_bytes);
+  A* smem = reinterpret_cast<A*>(state_bytes);
 
   cg::grid_group grid = cg::this_grid();
   const int i = threadIdx.x;
   const int j = threadIdx.y;
   const int p = threadIdx.z;
   const int tid = j * N + i;
-  AxShared<N, T>& sh = sh_all[p];
-  T* red = red_all[p];
+  AxShared<N, A>& sh = sh_all[p];
+  A* red = red_all[p];
   const size_t E = static_cast<size_t>(a.ex) * a.ey * a.ez;
   const size_t first = static_cast<size_t>(blockIdx.x) * a.per_block;
   const size_t last = first + a.per_block < E ? first + a.per_block : E;
@@ -257,13 +309,13 @@ nekbone_cheb_kernel(const ChebArgs<T> a) {
   // start: d = c00 r, and the masked A_loc d into ad0.  D is published by
   // the first barrier of the operator.
   load_D(sh, a.D, i, j);
-  const T c00 = a.coef[0];
+  const A c00 = a.coef[0];
   for (int q = 0; q < rounds; ++q) {
-    const ChebNode<N, T, RESIDENT> nd(a, smem, first, last, q, p, tid);
+    const ChebNode<N, A, RESIDENT> nd(a, smem, first, last, q, p, tid);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      const T rv = a.r[nd.base + k * N2];
-      const T dk = mul_rn(c00, rv);
+      const A rv = convert<A>(a.r[nd.base + k * N2]);
+      const A dk = mul_rn(c00, rv);
       if (RESIDENT || nd.active) nd.sd[k * N2] = dk;
       if (RESIDENT) {
         nd.sres[k * N2] = rv;
@@ -278,47 +330,48 @@ nekbone_cheb_kernel(const ChebArgs<T> a) {
   for (int step = 1; step <= a.k; ++step) {
     // every block's A d of the previous step is written
     grid.sync();
-    const T* ad_in = step % 2 ? a.ad0 : a.ad1;
-    T* ad_out = step % 2 ? a.ad1 : a.ad0;
+    const A* ad_in = step % 2 ? a.ad0 : a.ad1;
+    A* ad_out = step % 2 ? a.ad1 : a.ad0;
     if (step < a.k)
-      cheb_step<N, T, RESIDENT, false>(a, sh, red, smem, ad_in, ad_out,
-                                       step, first, last, rounds, p, i, j);
+      cheb_step<N, S, O, A, RESIDENT, false>(a, sh, red, smem, ad_in, ad_out,
+                                             step, first, last, rounds, p, i,
+                                             j);
     else
-      cheb_step<N, T, RESIDENT, true>(a, sh, red, smem, ad_in, ad_out, step,
-                                      first, last, rounds, p, i, j);
+      cheb_step<N, S, O, A, RESIDENT, true>(a, sh, red, smem, ad_in, ad_out,
+                                            step, first, last, rounds, p, i,
+                                            j);
   }
 }
 
 // out: common.cuh coop_query's seven values for this instantiation.
-template <int N, typename T, bool RESIDENT>
+template <int N, typename S, typename O, typename A, bool RESIDENT>
 cudaError_t query(int dyn, int* out) {
-  return coop_query(
-      reinterpret_cast<const void*>(&nekbone_cheb_kernel<N, T, RESIDENT>),
-      N * N * kSlices<N>, kSlices<N>, dyn, out);
+  return coop_query(reinterpret_cast<const void*>(
+                        &nekbone_cheb_kernel<N, S, O, A, RESIDENT>),
+                    N * N * kSlices<N>, kSlices<N>, dyn, out);
 }
 
-template <int N, typename T, bool RESIDENT>
-cudaError_t launch(const ChebArgs<T>& a, int grid, cudaStream_t stream) {
-  const void* fn =
-      reinterpret_cast<const void*>(&nekbone_cheb_kernel<N, T, RESIDENT>);
-  const size_t dyn = (RESIDENT ? static_cast<size_t>(a.per_block) * 3
-                                : static_cast<size_t>(kSlices<N>)) *
-                     N * N * N * sizeof(T);
+template <int N, typename S, typename O, typename A, bool RESIDENT>
+cudaError_t launch(const ChebArgs<S, O, A>& a, int grid,
+                   cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(
+      &nekbone_cheb_kernel<N, S, O, A, RESIDENT>);
+  const size_t dyn = cheb_dyn_bytes<N, A>(RESIDENT, a.per_block);
   const cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
   if (err != cudaSuccess) return err;
-  void* args[] = {const_cast<ChebArgs<T>*>(&a)};
+  void* args[] = {const_cast<ChebArgs<S, O, A>*>(&a)};
   return cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(N, N, kSlices<N>),
                                      args, dyn, stream);
 }
 
-template <typename T>
+template <typename S, typename O, typename A>
 int dispatch_query(int n, int resident, int dyn, int* out) {
   switch (n) {
-#define NEKBONE_CASE(N)                                                  \
-  case N:                                                                \
-    return static_cast<int>(resident ? query<N, T, true>(dyn, out)       \
-                                     : query<N, T, false>(dyn, out));
+#define NEKBONE_CASE(N)                                                    \
+  case N:                                                                  \
+    return static_cast<int>(resident ? query<N, S, O, A, true>(dyn, out)   \
+                                     : query<N, S, O, A, false>(dyn, out));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -326,21 +379,22 @@ int dispatch_query(int n, int resident, int dyn, int* out) {
   }
 }
 
-template <typename T>
-int dispatch(const ChebArgs<T>& a, int n, int resident, int grid,
+template <typename S, typename O, typename A>
+int dispatch(const ChebArgs<S, O, A>& a, int n, int resident, int grid,
              void* stream) {
   const long long E = static_cast<long long>(a.ex) * a.ey * a.ez;
   if (a.ex <= 0 || a.ey <= 0 || a.ez <= 0 || a.k < 1 || a.per_block < 1 ||
       a.per_block % slices_of(n) != 0 ||
       grid < 1 || static_cast<long long>(grid) * a.per_block < E ||
-      (!resident && (a.d == nullptr || a.res == nullptr)))
+      (!resident && (a.d == nullptr || a.res == nullptr ||
+                     (!std::is_same<S, A>::value && a.zacc == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
-#define NEKBONE_CASE(N)                                                   \
-  case N:                                                                 \
-    return static_cast<int>(resident ? launch<N, T, true>(a, grid, s)     \
-                                     : launch<N, T, false>(a, grid, s));
+#define NEKBONE_CASE(N)                                                     \
+  case N:                                                                   \
+    return static_cast<int>(resident ? launch<N, S, O, A, true>(a, grid, s) \
+                                     : launch<N, S, O, A, false>(a, grid, s));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -350,36 +404,53 @@ int dispatch(const ChebArgs<T>& a, int n, int resident, int grid,
 
 }  // namespace nekbone
 
-// r, z: (E, n^3); D: (n, n); g3: (E, 3, n^3); mx, cx: (EX, n); my, cy:
-// (EY, n); mz, cz: (EZ, n); coef: (k+1, 2); rtz: (E,); ad0, ad1: (E, n^3)
-// scratch; d, res: (E, n^3) scratch of the device variant (null when
-// resident).  Elements z-major over (EX, EY, EZ); block b owns elements
-// [b * per_block, (b + 1) * per_block).  One cooperative launch of `grid`
-// blocks; returns its error (cudaErrorCooperativeLaunchTooLarge when the
-// grid cannot be resident at once), or 0.
+// r, z: (E, n^3) in S; D: (n, n) and g3: (E, 3, n^3) in O; mx, cx: (EX,
+// n), my, cy: (EY, n), mz, cz: (EZ, n) in S; coef: (k+1, 2) and rtz: (E,)
+// in A; ad0, ad1: (E, n^3) scratch in A; d, res: (E, n^3) scratch in A of
+// the device variant (null when resident); zacc: (E, n^3) scratch in A of
+// the device variant where S is not A (else null, unread).  Elements
+// z-major over (EX, EY, EZ); block b owns elements [b * per_block, (b + 1)
+// * per_block).  One cooperative launch of `grid` blocks; returns its
+// error (cudaErrorCooperativeLaunchTooLarge when the grid cannot be
+// resident at once), or 0.
 //
 // nekbone_cheb_apply_query_<dtype>(n, resident, dyn, out): fills out[7] as
 // common.cuh coop_query documents; returns a CUDA error, or 0.
-#define NEKBONE_CHEB_ENTRY(SUFFIX, T)                                         \
+#define NEKBONE_CHEB_ENTRY(SUFFIX, S, O, A)                                   \
   extern "C" int nekbone_cheb_apply_##SUFFIX(                                 \
-      const T* r, const T* D, const T* g3, const T* mx, const T* my,          \
-      const T* mz, const T* cx, const T* cy, const T* cz, const T* coef,      \
-      T* z, T* d, T* res, T* ad0, T* ad1, T* rtz, int ex, int ey, int ez,     \
+      const void* r, const void* D, const void* g3, const void* mx,           \
+      const void* my, const void* mz, const void* cx, const void* cy,         \
+      const void* cz, const void* coef, void* z, void* d, void* res,          \
+      void* ad0, void* ad1, void* rtz, void* zacc, int ex, int ey, int ez,    \
       int n, int k, int resident, int per_block, int grid, void* stream) {    \
-    const nekbone::ChebArgs<T> a{r,  D,   g3,  mx,  my,  mz, cx, cy, cz,      \
-                                 coef, z, d, res, ad0, ad1, rtz, ex, ey, ez,  \
-                                 k,  per_block};                              \
-    return nekbone::dispatch<T>(a, n, resident, grid, stream);                \
+    const nekbone::ChebArgs<S, O, A> a{                                       \
+        static_cast<const S*>(r),    static_cast<const O*>(D),                \
+        static_cast<const O*>(g3),   static_cast<const S*>(mx),               \
+        static_cast<const S*>(my),   static_cast<const S*>(mz),               \
+        static_cast<const S*>(cx),   static_cast<const S*>(cy),               \
+        static_cast<const S*>(cz),   static_cast<const A*>(coef),             \
+        static_cast<S*>(z),          static_cast<A*>(d),                      \
+        static_cast<A*>(res),        static_cast<A*>(ad0),                    \
+        static_cast<A*>(ad1),        static_cast<A*>(rtz),                    \
+        ex,                          ey,                                      \
+        ez,                          k,                                       \
+        per_block,                   static_cast<A*>(zacc)};                  \
+    return nekbone::dispatch<S, O, A>(a, n, resident, grid, stream);          \
   }                                                                           \
   extern "C" int nekbone_cheb_apply_query_##SUFFIX(int n, int resident,       \
                                                    int dyn, int* out) {       \
-    return nekbone::dispatch_query<T>(n, resident, dyn, out);                 \
+    return nekbone::dispatch_query<S, O, A>(n, resident, dyn, out);           \
   }
 
 #ifdef NEKBONE_REAL_F64
-NEKBONE_CHEB_ENTRY(f64, double)
+NEKBONE_CHEB_ENTRY(f64, double, double, double)
 #endif
-
 #ifdef NEKBONE_REAL_F32
-NEKBONE_CHEB_ENTRY(f32, float)
+NEKBONE_CHEB_ENTRY(f32, float, float, float)
+#endif
+#ifdef NEKBONE_REAL_BF16
+NEKBONE_CHEB_ENTRY(bf16, __nv_bfloat16, __nv_bfloat16, float)
+#endif
+#ifdef NEKBONE_REAL_BF16_IR
+NEKBONE_CHEB_ENTRY(bf16_ir, __nv_bfloat16, float, float)
 #endif

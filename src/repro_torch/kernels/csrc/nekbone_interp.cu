@@ -28,10 +28,22 @@
 // (one element at 10 -> 5, eight at 5 -> 3, 37 at 3 -> 2), so the coarse
 // levels do not run 4- to 25-thread blocks.
 //
+// Storage and accumulation (common.cuh).  The template takes the storage
+// type S of the fields (u in, v out), the storage type O of the transfer
+// matrix mt and the accumulation type A.  Four builds: f64 and f32 (one
+// type throughout); bf16 (S = O = bf16, A = f32) and bf16_ir (S = bf16,
+// O = A = f32: the bf16_ir policy keeps the operator's data, the pmg
+// transfers among them, in f32).  u and mt are upcast to A as they are
+// staged, so every staged value, the three contractions and both
+// intermediate buffers are A, and v is rounded to S once, at the end, as
+// the TPU kernel does; the shared memory is sized by A.  bf16 moves 2
+// bytes per value in and out.
+//
 // Bound: bytes, and at the coarse levels launch latency.  E=1024, fp64:
 // 10 -> 5 reads 8.19 MB and writes 1.02 MB (2.8 us at 3.35 TB/s), 5 -> 3
 // 1.02 + 0.22 MB, 3 -> 2 0.22 + 0.07 MB — well under the few microseconds
-// a launch takes.  2 (nin^2 nout + nin nout^2 + nout^3) flops per element.
+// a launch takes (bf16: 10 -> 5 2.05 + 0.26 MB).  2 (nin^2 nout + nin
+// nout^2 + nout^3) flops per element.
 //
 // Instantiated for the pairs of the p-multigrid ladder, (n, ceil(n/2)) and
 // (ceil(n/2), n) for n = 3..16; any other pair returns an error.
@@ -47,114 +59,121 @@ struct InterpShape {
   static constexpr int kV1 = NIN * NIN * NOUT;    // (k, j, io)
   static constexpr int kV2 = NIN * NOUT * NOUT;   // (k, jo, io)
   static constexpr int kOut = NOUT * NOUT * NOUT; // (ko, jo, io)
-  // buffer A holds u, then the second stage's output; buffer B the first's
+  // bufA holds u, then the second stage's output; bufB the first's
   static constexpr int kA = kIn > kV2 ? kIn : kV2;
   static constexpr int kPerElem = kA + kV1;
-  static constexpr int kMt = (NIN * NOUT + 1) / 2 * 2;  // keeps A aligned
+  static constexpr int kMt = (NIN * NOUT + 1) / 2 * 2;  // keeps bufA aligned
 };
 
 constexpr int kInterpThreads = 256;
 
-template <int NIN, int NOUT, typename T>
+template <int NIN, int NOUT, typename S, typename O, typename A>
 __global__ void __launch_bounds__(kInterpThreads)
-nekbone_interp_kernel(const T* __restrict__ u, const T* __restrict__ mt,
-                      T* __restrict__ v, int E, int epb) {
-  using S = InterpShape<NIN, NOUT>;
+nekbone_interp_kernel(const S* __restrict__ u, const O* __restrict__ mt,
+                      S* __restrict__ v, int E, int epb) {
+  using Sh = InterpShape<NIN, NOUT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smt = reinterpret_cast<T*>(smem_raw);
-  T* A = smt + S::kMt;
-  T* B = A + static_cast<size_t>(epb) * S::kA;
+  A* smt = reinterpret_cast<A*>(smem_raw);
+  A* bufA = smt + Sh::kMt;
+  A* bufB = bufA + static_cast<size_t>(epb) * Sh::kA;
 
   const size_t e0 = static_cast<size_t>(blockIdx.x) * epb;
   const int ne = min(epb, E - static_cast<int>(e0));
   const int tid = threadIdx.x;
   constexpr int nt = kInterpThreads;
 
-  for (int t = tid; t < NIN * NOUT; t += nt) smt[t] = mt[t];
-  const T* ub = u + e0 * S::kIn;
-  for (int t = tid; t < ne * S::kIn; t += nt) {
-    const int el = t / S::kIn;
-    A[el * S::kA + (t - el * S::kIn)] = ub[t];
+  for (int t = tid; t < NIN * NOUT; t += nt) smt[t] = convert<A>(mt[t]);
+  const S* ub = u + e0 * Sh::kIn;
+  for (int t = tid; t < ne * Sh::kIn; t += nt) {
+    const int el = t / Sh::kIn;
+    bufA[el * Sh::kA + (t - el * Sh::kIn)] = convert<A>(ub[t]);
   }
   __syncthreads();
 
   // along i: v1[k][j][io] = sum_i u[k][j][i] mt[i][io]
-  for (int t = tid; t < ne * S::kV1; t += nt) {
-    const int el = t / S::kV1;
-    const int q = t - el * S::kV1;
+  for (int t = tid; t < ne * Sh::kV1; t += nt) {
+    const int el = t / Sh::kV1;
+    const int q = t - el * Sh::kV1;
     const int io = q % NOUT;
-    const T* a = A + el * S::kA + (q / NOUT) * NIN;
-    T acc = T(0);
+    const A* a = bufA + el * Sh::kA + (q / NOUT) * NIN;
+    A acc = A(0);
 #pragma unroll
     for (int l = 0; l < NIN; ++l) acc = add_rn(acc, mul_rn(a[l], smt[l * NOUT + io]));
-    B[t] = acc;
+    bufB[t] = acc;
   }
   __syncthreads();
 
   // along j: v2[k][jo][io] = sum_j v1[k][j][io] mt[j][jo]
-  for (int t = tid; t < ne * S::kV2; t += nt) {
-    const int el = t / S::kV2;
-    const int q = t - el * S::kV2;
+  for (int t = tid; t < ne * Sh::kV2; t += nt) {
+    const int el = t / Sh::kV2;
+    const int q = t - el * Sh::kV2;
     const int io = q % NOUT;
     const int jo = (q / NOUT) % NOUT;
     const int k = q / (NOUT * NOUT);
-    const T* b = B + el * S::kV1 + k * NIN * NOUT + io;
-    T acc = T(0);
+    const A* b = bufB + el * Sh::kV1 + k * NIN * NOUT + io;
+    A acc = A(0);
 #pragma unroll
     for (int l = 0; l < NIN; ++l)
       acc = add_rn(acc, mul_rn(b[l * NOUT], smt[l * NOUT + jo]));
-    A[el * S::kA + q] = acc;
+    bufA[el * Sh::kA + q] = acc;
   }
   __syncthreads();
 
-  // along k: v[ko][jo][io] = sum_k v2[k][jo][io] mt[k][ko]
-  T* vb = v + e0 * S::kOut;
-  for (int t = tid; t < ne * S::kOut; t += nt) {
-    const int el = t / S::kOut;
-    const int q = t - el * S::kOut;
+  // along k: v[ko][jo][io] = sum_k v2[k][jo][io] mt[k][ko], rounded to S
+  S* vb = v + e0 * Sh::kOut;
+  for (int t = tid; t < ne * Sh::kOut; t += nt) {
+    const int el = t / Sh::kOut;
+    const int q = t - el * Sh::kOut;
     const int ko = q / (NOUT * NOUT);
-    const T* a = A + el * S::kA + (q - ko * NOUT * NOUT);
-    T acc = T(0);
+    const A* a = bufA + el * Sh::kA + (q - ko * NOUT * NOUT);
+    A acc = A(0);
 #pragma unroll
     for (int l = 0; l < NIN; ++l)
       acc = add_rn(acc, mul_rn(a[l * NOUT * NOUT], smt[l * NOUT + ko]));
-    vb[t] = acc;
+    vb[t] = convert<S>(acc);
   }
 }
 
-template <int NIN, int NOUT, typename T>
-cudaError_t launch(const T* u, const T* mt, T* v, int E,
+// The dynamic shared bytes of a block of epb elements: mt and the two
+// buffers, every value staged in A.
+template <int NIN, int NOUT, typename A>
+constexpr size_t interp_smem_bytes(int epb) {
+  using Sh = InterpShape<NIN, NOUT>;
+  return (Sh::kMt + static_cast<size_t>(epb) * Sh::kPerElem) * sizeof(A);
+}
+
+template <int NIN, int NOUT, typename S, typename O, typename A>
+cudaError_t launch(const S* u, const O* mt, S* v, int E,
                    cudaStream_t stream) {
-  using S = InterpShape<NIN, NOUT>;
-  constexpr int kBig = S::kIn > S::kOut ? S::kIn : S::kOut;
+  using Sh = InterpShape<NIN, NOUT>;
+  constexpr int kBig = Sh::kIn > Sh::kOut ? Sh::kIn : Sh::kOut;
   constexpr int epb = kBig >= 1024 ? 1 : 1024 / kBig;
-  const size_t smem = (S::kMt + static_cast<size_t>(epb) * S::kPerElem)
-                      * sizeof(T);
+  const size_t smem = interp_smem_bytes<NIN, NOUT, A>(epb);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nekbone_interp_kernel<NIN, NOUT, T>,
+        nekbone_interp_kernel<NIN, NOUT, S, O, A>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int blocks = (E + epb - 1) / epb;
-  nekbone_interp_kernel<NIN, NOUT, T>
+  nekbone_interp_kernel<NIN, NOUT, S, O, A>
       <<<blocks, kInterpThreads, smem, stream>>>(u, mt, v, E, epb);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const T* u, const T* mt, T* v, int E, int nin, int nout,
+template <typename S, typename O, typename A>
+int dispatch(const S* u, const O* mt, S* v, int E, int nin, int nout,
              void* stream) {
   if (E <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nin * 32 + nout) {
-#define NEKBONE_PAIR(NF)                                                  \
-  case (NF) * 32 + ((NF) + 1) / 2:                                        \
-    return static_cast<int>(launch<(NF), ((NF) + 1) / 2, T>(u, mt, v, E,  \
-                                                            s));          \
-  case (((NF) + 1) / 2) * 32 + (NF):                                      \
-    return static_cast<int>(launch<((NF) + 1) / 2, (NF), T>(u, mt, v, E,  \
-                                                            s));
+#define NEKBONE_PAIR(NF)                                                   \
+  case (NF) * 32 + ((NF) + 1) / 2:                                         \
+    return static_cast<int>(                                               \
+        launch<(NF), ((NF) + 1) / 2, S, O, A>(u, mt, v, E, s));            \
+  case (((NF) + 1) / 2) * 32 + (NF):                                       \
+    return static_cast<int>(                                               \
+        launch<((NF) + 1) / 2, (NF), S, O, A>(u, mt, v, E, s));
     NEKBONE_PAIR(3) NEKBONE_PAIR(4) NEKBONE_PAIR(5) NEKBONE_PAIR(6)
     NEKBONE_PAIR(7) NEKBONE_PAIR(8) NEKBONE_PAIR(9) NEKBONE_PAIR(10)
     NEKBONE_PAIR(11) NEKBONE_PAIR(12) NEKBONE_PAIR(13) NEKBONE_PAIR(14)
@@ -167,19 +186,27 @@ int dispatch(const T* u, const T* mt, T* v, int E, int nin, int nout,
 
 }  // namespace nekbone
 
-// u: (E, nin^3); mt: (nin, nout); v: (E, nout^3).  Returns
+// u: (E, nin^3) and v: (E, nout^3) in S; mt: (nin, nout) in O.  Returns
 // cudaGetLastError() after the launch.
-#ifdef NEKBONE_REAL_F64
-extern "C" int nekbone_interp_f64(const double* u, const double* mt,
-                                  double* v, int E, int nin, int nout,
-                                  void* stream) {
-  return nekbone::dispatch<double>(u, mt, v, E, nin, nout, stream);
-}
-#endif
+#define NEKBONE_INTERP_ENTRY(NAME, S, O, A)                                  \
+  extern "C" int NAME(const void* u, const void* mt, void* v, int E,        \
+                      int nin, int nout, void* stream) {                    \
+    return nekbone::dispatch<S, O, A>(static_cast<const S*>(u),              \
+                                      static_cast<const O*>(mt),             \
+                                      static_cast<S*>(v), E, nin, nout,      \
+                                      stream);                               \
+  }
 
+#ifdef NEKBONE_REAL_F64
+NEKBONE_INTERP_ENTRY(nekbone_interp_f64, double, double, double)
+#endif
 #ifdef NEKBONE_REAL_F32
-extern "C" int nekbone_interp_f32(const float* u, const float* mt, float* v,
-                                  int E, int nin, int nout, void* stream) {
-  return nekbone::dispatch<float>(u, mt, v, E, nin, nout, stream);
-}
+NEKBONE_INTERP_ENTRY(nekbone_interp_f32, float, float, float)
+#endif
+#ifdef NEKBONE_REAL_BF16
+NEKBONE_INTERP_ENTRY(nekbone_interp_bf16, __nv_bfloat16, __nv_bfloat16,
+                     float)
+#endif
+#ifdef NEKBONE_REAL_BF16_IR
+NEKBONE_INTERP_ENTRY(nekbone_interp_bf16_ir, __nv_bfloat16, float, float)
 #endif

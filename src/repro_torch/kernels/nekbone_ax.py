@@ -41,12 +41,12 @@ Every wrapper takes the kernel's flat operands ((E, n^3) fields, or
   ``_build.LAUNCHES``.
   There is no fallback: a CUDA tensor the kernel does not take raises.
 
-Every kernel is built for f64 and f32, one dtype for all operands.  K4, K5,
-K3, K8, K9 and K10 also take the two bf16 operand mixes of :data:`MIXES` —
-``bf16`` (every operand bf16) and ``bf16_ir`` (bf16 vectors; x and the
-operator's data in f32) — with f32 scalars, partials and (K8) unassembled
-operator outputs; the dtype of each operand picks the build.  Any other
-kernel raises for bf16 (ROADMAP.md queue 2).
+Every kernel is built for f64 and f32, one dtype for all operands.  K3 to
+K12 also take the two bf16 operand mixes of :data:`MIXES` — ``bf16``
+(every operand bf16) and ``bf16_ir`` (bf16 vectors; x and the operator's
+data in f32) — with f32 scalars, partials and (K8, K11) unassembled
+operator outputs and recurrence state; the dtype of each operand picks
+the build.  K1 and K2 raise for bf16 (ROADMAP.md queue 2).
 
 The kernels are built from the sources at first use (kernels/_build.py).
 """
@@ -105,10 +105,10 @@ SSTEP_MAX_S = 10
 
 # The operand mixes of the builds, by role: S the CG vectors (and the mask
 # and c fields or factors), X the solution x, O the operator's data (D, the
-# metric, K10's invd), A the scalars (alpha, beta, 1/theta, the s-step
-# coefficients) and the partials.  f64 and f32 are one dtype throughout;
-# the bf16 mixes accumulate in f32 and are built for the stems of
-# _BF16_STEMS only.
+# metric, K10's invd, K12's transfer matrix), A the scalars (alpha, beta,
+# 1/theta, the s-step and Chebyshev coefficients) and the partials.  f64
+# and f32 are one dtype throughout; the bf16 mixes accumulate in f32 and
+# are built for the stems of _BF16_STEMS only.
 _F64, _F32, _BF16 = torch.float64, torch.float32, torch.bfloat16
 MIXES = {
     "f64": dict(S=_F64, X=_F64, O=_F64, A=_F64),
@@ -118,7 +118,10 @@ MIXES = {
 }
 _BF16_STEMS = frozenset({"nekbone_ax_slab", "nekbone_cg_update",
                          "nekbone_ax_pap", "nekbone_ax_powers",
-                         "nekbone_sstep_update", "nekbone_pcg_update"})
+                         "nekbone_sstep_update", "nekbone_pcg_update",
+                         "nekbone_cheb_apply", "nekbone_interp",
+                         "nekbone_ax_slab_block",
+                         "nekbone_cg_update_block"})
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers, then the ints, then the stream.
 _ARGTYPES = {
@@ -126,7 +129,7 @@ _ARGTYPES = {
     "nekbone_ax_slab": [_P] * 11 + [_I] * 9 + [_P],
     "nekbone_cg_update": [_P] * 11 + [_I] * 4 + [_P],
     "nekbone_pcg_update": [_P] * 13 + [_I] * 4 + [_P],
-    "nekbone_cheb_apply": [_P] * 16 + [_I] * 8 + [_P],
+    "nekbone_cheb_apply": [_P] * 17 + [_I] * 8 + [_P],
     "nekbone_interp": [_P] * 3 + [_I] * 3 + [_P],
     "nekbone_ax_slab_block": [_P] * 11 + [_I] * 5 + [_P],
     "nekbone_cg_update_block": [_P] * 11 + [_I] * 5 + [_P],
@@ -161,13 +164,12 @@ def _build_for(stem: str, signature: tuple) -> str:
     if storage == torch.bfloat16 and stem not in _BF16_STEMS:
         raise NotImplementedError(
             f"{stem}: the CUDA kernel has no bf16 build yet (built in bf16: "
-            "K3, K4, K5, K8, K9 and K10; the rest are ROADMAP.md queue 2)")
+            "K3 to K12; K1 and K2 are ROADMAP.md queue 2)")
     mixes = [m for m, dt in MIXES.items() if dt["S"] == storage]
     if not mixes:
         raise NotImplementedError(
-            f"{stem}: the CUDA kernel is built for float64, float32 and (K3, "
-            f"K4, K5, K8, K9, K10) bfloat16 storage, not {storage} "
-            "(ROADMAP.md queue 2)")
+            f"{stem}: the CUDA kernel is built for float64, float32 and (K3 "
+            f"to K12) bfloat16 storage, not {storage} (ROADMAP.md queue 2)")
     mix = next((m for m in mixes if all(
         dtype == MIXES[m][role] for _, role, dtype in signature)), None)
     if mix is None:
@@ -346,15 +348,21 @@ def device_memory_plan(E: int, sm_count: int, fit: int, slices: int,
     return CoopPlan(False, m, -(-E // m), fit, dyn_bytes)
 
 
-def k11_state_bytes(n: int, dtype: torch.dtype) -> int:
-    """d, res and z of one element: the shared memory it takes resident."""
-    return 3 * n ** 3 * dtype.itemsize
+def k11_state_bytes(n: int, dtype: torch.dtype,
+                    accum: torch.dtype | None = None) -> int:
+    """d, res and z of one element, stored in ``dtype`` and summed in
+    ``accum`` (by default ``dtype``): the shared memory it takes resident.
+    The recurrence's state is ``accum`` whatever the storage (z is rounded
+    to ``dtype`` once, on its way out), so this is 3 n^3 ``accum`` values
+    (csrc/nekbone_cheb_apply.cu ``cheb_dyn_bytes``)."""
+    return 3 * n ** 3 * (accum or dtype).itemsize
 
 
 def k11_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
              blocks_per_sm, smem_per_block: int, *,
-             slices: int = 1) -> CoopPlan:
-    """K11's variant and grid for E elements of degree n - 1.
+             slices: int = 1, accum: torch.dtype | None = None) -> CoopPlan:
+    """K11's variant and grid for E elements of degree n - 1, stored in
+    ``dtype`` and summed in ``accum`` (by default ``dtype``).
 
     ``blocks_per_sm(resident, dyn_bytes)`` is how many blocks of that
     variant an SM holds with ``dyn_bytes`` of dynamic shared memory each (on
@@ -367,16 +375,16 @@ def k11_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
     only if some such m fits both: m elements' state in one block, and
     ceil(E / m) blocks on the card at the residency that state allows; the
     least such m.  Otherwise the device-memory variant
-    (:func:`device_memory_plan`, with one n^3 column copy per slice in
-    shared memory).  Raises ``ValueError`` where neither can run (no block
-    of the device variant fits an SM).
+    (:func:`device_memory_plan`, with one n^3 column copy of ``accum``
+    values per slice in shared memory).  Raises ``ValueError`` where
+    neither can run (no block of the device variant fits an SM).
     """
     _check_plan("k11_plan", E, sm_count, slices)
 
     def round_up(m):
         return -(-m // slices) * slices
 
-    state = k11_state_bytes(n, dtype)
+    state = k11_state_bytes(n, dtype, accum)
     m = slices
     if m * state <= smem_per_block:
         fit = blocks_per_sm(True, m * state)
@@ -388,7 +396,7 @@ def k11_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
             if fit >= 1 and grid <= sm_count * fit:
                 return CoopPlan(True, m, grid, fit, m * state)
             m += slices
-    column = slices * n ** 3 * dtype.itemsize
+    column = slices * n ** 3 * (accum or dtype).itemsize
     fit = blocks_per_sm(False, column) if column <= smem_per_block else 0
     if fit < 1:
         raise ValueError(f"k11_plan: no block of K11 (n={n}, {dtype}) is "
@@ -584,8 +592,9 @@ def _coop_query(stem: str, mix: str, n: int, resident: bool, dyn: int,
 def _coop_device_plan(stem: str, planner, E: int, n: int, mix: str,
                       device: int, **kw) -> CoopPlan:
     """``planner`` (:func:`k11_plan` or :func:`k8_plan`, with its keywords
-    ``kw``) for ``stem``'s instantiation on ``device``; raises if the device
-    cannot launch cooperatively or no variant runs."""
+    ``kw``) for ``stem``'s instantiation on ``device``, stored in the
+    build's S and summed in its A; raises if the device cannot launch
+    cooperatively or no variant runs."""
     info = _coop_query(stem, mix, n, True, 0, device)
     if not info[5]:
         raise RuntimeError(f"{stem}: the device does not support cooperative "
@@ -595,7 +604,7 @@ def _coop_device_plan(stem: str, planner, E: int, n: int, mix: str,
         return _coop_query(stem, mix, n, resident, dyn, device)[0]
 
     return planner(E, n, MIXES[mix]["S"], info[4], fit, info[3],
-                   slices=info[6], **kw)
+                   slices=info[6], accum=MIXES[mix]["A"], **kw)
 
 
 def _coop_plan_info(stem: str, planner, E: int, n: int, mix: str, device,
@@ -621,7 +630,7 @@ def nekbone_ax_powers_plan(E: int, n: int, s: int, mix: str,
     ``mix`` on ``device``, and the instantiation it runs (as
     :func:`nekbone_cheb_apply_plan`)."""
     return _coop_plan_info("nekbone_ax_powers", k8_plan, E, n, mix, device,
-                           s=s, accum=MIXES[mix]["A"])
+                           s=s)
 
 
 @functools.lru_cache(maxsize=None)
@@ -674,8 +683,12 @@ def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
     One cooperative launch (:func:`k11_plan` picks its variant and grid).
     The kernel allocates nothing: this wrapper hands it ``z``, the
     partials, two buffers of the unassembled ``A d`` and, in the
-    device-memory variant, scratch for the recurrence's ``d`` and ``res``.
-    Returns ``(z, rtz)`` with ``rtz`` of shape (E,).
+    device-memory variant, scratch for the recurrence's ``d`` and ``res``
+    (and its running ``z`` where the storage is not A).  Builds by operand
+    dtype (:data:`MIXES`): r2 and the factors in S, D and g3 in O, coef in
+    A.  Returns ``(z, rtz)``: z in S and ``rtz`` of shape (E,) in A.  The
+    scratch is A too, so that a bf16 build runs the whole recurrence in
+    f32 and rounds z once, as the reference does.
     """
     if r2.device.type == "cpu":
         return nekbone_cheb_apply_plain(r2, D, g3, mx, my, mz, cx, cy, cz,
@@ -686,23 +699,28 @@ def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
     E = ex * ey * ez
     n3 = n ** 3
     mix = _check("nekbone_cheb_apply", n, r2.device, r2=(r2, (E, n3)),
-                 D=(D, (n, n)), g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)),
-                 my=(my, (ey, n)), mz=(mz, (ez, n)), cx=(cx, (ex, n)),
-                 cy=(cy, (ey, n)), cz=(cz, (ez, n)), coef=(coef, (k + 1, 2)))
+                 D=(D, (n, n), "O"), g3=(g3, (E, 3, n3), "O"),
+                 mx=(mx, (ex, n)), my=(my, (ey, n)), mz=(mz, (ez, n)),
+                 cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)),
+                 coef=(coef, (k + 1, 2), "A"))
+    acc = MIXES[mix]["A"]
     plan = _coop_device_plan("nekbone_cheb_apply", k11_plan, E, n, mix,
                              _device_index(r2.device))
     z = torch.empty_like(r2)
-    scratch = torch.empty(2 if plan.resident else 4, E, n3, dtype=r2.dtype,
-                          device=r2.device)
-    rtz = torch.empty(E, dtype=r2.dtype, device=r2.device)
+    # ad0, ad1; the device variant's d and res; and its running z where z
+    # is not stored in A
+    count = 2 if plan.resident else 4 + (r2.dtype != acc)
+    scratch = torch.empty(count, E, n3, dtype=acc, device=r2.device)
+    rtz = torch.empty(E, dtype=acc, device=r2.device)
     state = (0, 0) if plan.resident else (scratch[2].data_ptr(),
                                           scratch[3].data_ptr())
+    zacc = scratch[4].data_ptr() if count == 5 else 0
     _build.launch(
         f"nekbone_cheb_apply_{mix}", _ARGTYPES["nekbone_cheb_apply"],
         r2.device,
         (*(t.data_ptr() for t in (r2, D, g3, mx, my, mz, cx, cy, cz, coef,
                                   z)), *state, scratch[0].data_ptr(),
-         scratch[1].data_ptr(), rtz.data_ptr(), ex, ey, ez, n, k,
+         scratch[1].data_ptr(), rtz.data_ptr(), zacc, ex, ey, ez, n, k,
          int(plan.resident), plan.per_block, plan.grid))
     return z, rtz
 
@@ -711,7 +729,8 @@ def nekbone_interp_cuda(u2, mt, *, nin: int, nout: int):
     """K12: tensor-product GLL-to-GLL interpolation, along i, then j, then k.
 
     ``u2``: (E, nin^3); ``mt``: (nin, nout), rows indexed by the input grid
-    (``J`` restricts, ``J^T`` prolongs).  Returns (E, nout^3).  The pair
+    (``J`` restricts, ``J^T`` prolongs).  Builds by operand dtype
+    (:data:`MIXES`): u2 in S, mt in O.  Returns (E, nout^3) in S.  The pair
     must be a step of the p-multigrid ladder (:data:`INTERP_PAIRS`).
     """
     if u2.device.type == "cpu":
@@ -722,7 +741,7 @@ def nekbone_interp_cuda(u2, mt, *, nin: int, nout: int):
                          "n = 3..16")
     E = u2.shape[0]
     mix = _check("nekbone_interp", nin, u2.device,
-                 u2=(u2, (E, nin ** 3)), mt=(mt, (nin, nout)))
+                 u2=(u2, (E, nin ** 3)), mt=(mt, (nin, nout), "O"))
     v2 = torch.empty(E, nout ** 3, dtype=u2.dtype, device=u2.device)
     _launch("nekbone_interp", mix, u2.device, (u2, mt, v2),
             (E, nin, nout))
@@ -749,9 +768,10 @@ def nekbone_ax_slab_block_cuda(p3, r3, D, g3, mx, my, mz, beta, *, n: int):
     sweep (:func:`k6_lane_groups`).
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_ax_slab_block_plain`:
-    ``p3``, ``r3``: (b, E, n^3); ``beta``: (b,).  Returns ``(p3, w3, pap)``
-    with ``w3`` unassembled and ``pap`` of shape (b, E); each lane is
-    bitwise K4's on that lane.
+    ``p3``, ``r3``: (b, E, n^3); ``beta``: (b,).  Builds by operand dtype
+    (:data:`MIXES`): p3, r3 and the factors in S, D and g3 in O, beta in A.
+    Returns ``(p3, w3, pap)`` with ``w3`` unassembled in S and ``pap`` of
+    shape (b, E) in A; each lane is bitwise K4's on that lane.
     """
     if p3.device.type == "cpu":
         return nekbone_ax_slab_block_plain(p3, r3, D, g3, mx, my, mz, beta,
@@ -761,12 +781,13 @@ def nekbone_ax_slab_block_cuda(p3, r3, D, g3, mx, my, mz, beta, *, n: int):
     n3 = n ** 3
     b = p3.shape[0]
     mix = _check("nekbone_ax_slab_block", n, p3.device,
-                 p3=(p3, (b, E, n3)), r3=(r3, (b, E, n3)), D=(D, (n, n)),
-                 g3=(g3, (E, 3, n3)), mx=(mx, (ex, n)), my=(my, (ey, n)),
-                 mz=(mz, (ez, n)), beta=(beta, (b,)))
+                 p3=(p3, (b, E, n3)), r3=(r3, (b, E, n3)),
+                 D=(D, (n, n), "O"), g3=(g3, (E, 3, n3), "O"),
+                 mx=(mx, (ex, n)), my=(my, (ey, n)), mz=(mz, (ez, n)),
+                 beta=(beta, (b,), "A"))
     p_out = torch.empty_like(p3)
     w3 = torch.empty_like(p3)
-    pap = torch.empty(b, E, dtype=p3.dtype, device=p3.device)
+    pap = torch.empty(b, E, dtype=MIXES[mix]["A"], device=p3.device)
     _launch("nekbone_ax_slab_block", mix, p3.device,
             (p3, r3, D, g3, mx, my, mz, beta, p_out, w3, pap),
             (ex, ey, ez, n, b))
@@ -779,9 +800,10 @@ def nekbone_cg_update_block_cuda(x3, p3, r3, w3, alpha, cx, cy, cz, *,
 
     Operands as
     :func:`repro_torch.kernels.ref.nekbone_cg_update_block_plain`: ``x3``,
-    ``p3``, ``r3``, ``w3``: (b, E, n^3); ``alpha``: (b,).  Returns
-    ``(x3, r3, rcr)`` with ``rcr`` of shape (b, E); each lane is bitwise
-    K5's on that lane.
+    ``p3``, ``r3``, ``w3``: (b, E, n^3); ``alpha``: (b,).  Builds by
+    operand dtype (:data:`MIXES`): x3 in X, p3, r3, w3 and the factors in
+    S, alpha in A.  Returns ``(x3, r3, rcr)`` with ``rcr`` of shape (b, E)
+    in A; each lane is bitwise K5's on that lane.
     """
     if x3.device.type == "cpu":
         return nekbone_cg_update_block_plain(x3, p3, r3, w3, alpha, cx, cy,
@@ -791,12 +813,13 @@ def nekbone_cg_update_block_cuda(x3, p3, r3, w3, alpha, cx, cy, cz, *,
     n3 = n ** 3
     b = x3.shape[0]
     mix = _check("nekbone_cg_update_block", n, x3.device,
-                 x3=(x3, (b, E, n3)), p3=(p3, (b, E, n3)), r3=(r3, (b, E, n3)),
-                 w3=(w3, (b, E, n3)), alpha=(alpha, (b,)), cx=(cx, (ex, n)),
+                 x3=(x3, (b, E, n3), "X"), p3=(p3, (b, E, n3)),
+                 r3=(r3, (b, E, n3)), w3=(w3, (b, E, n3)),
+                 alpha=(alpha, (b,), "A"), cx=(cx, (ex, n)),
                  cy=(cy, (ey, n)), cz=(cz, (ez, n)))
     x_out = torch.empty_like(x3)
     r_out = torch.empty_like(r3)
-    rcr = torch.empty(b, E, dtype=x3.dtype, device=x3.device)
+    rcr = torch.empty(b, E, dtype=MIXES[mix]["A"], device=x3.device)
     _launch("nekbone_cg_update_block", mix, x3.device,
             (x3, p3, r3, w3, alpha, cx, cy, cz, x_out, r_out, rcr),
             (ex, ey, ez, n, b))
@@ -889,7 +912,7 @@ def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
                  inv_theta=(inv_theta.reshape(1), (1,), "A"))
     acc = MIXES[mix]["A"]
     plan = _coop_device_plan("nekbone_ax_powers", k8_plan, E, n, mix,
-                             _device_index(p2.device), s=s, accum=acc)
+                             _device_index(p2.device), s=s)
     K = 2 * s + 1
     basis = torch.empty(E, 2 * s - 1, n3, dtype=p2.dtype, device=p2.device)
     gram = torch.empty(E, K, K, dtype=acc, device=p2.device)

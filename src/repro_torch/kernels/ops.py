@@ -13,13 +13,16 @@ import torch
 
 from repro_torch.core.geom import (GEOM_RR, GEOM_RS, GEOM_RT, GEOM_SS,
                                    GEOM_ST, GEOM_TT, box_axis_factors)
+from repro_torch.core.gs import ds_sum_local
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import nekbone_ax as _ax
 from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels.ref import accum_dtype
 
 __all__ = ["nekbone_ax", "nekbone_ax_dots", "nekbone_ax_pap",
-           "slab_axis_factors", "diag_metric", "nekbone_ax_powers",
+           "slab_axis_factors", "diag_metric", "nekbone_ax_dots_slab",
+           "nekbone_cg_update", "nekbone_ax_dots_slab_block",
+           "nekbone_cg_update_block", "nekbone_ax_powers",
            "nekbone_sstep_update", "nekbone_pcg_update",
            "nekbone_cheb_precond", "nekbone_interp", "flash_attention",
            "wkv6"]
@@ -112,6 +115,131 @@ def diag_metric(g: torch.Tensor, E: int, n: int) -> torch.Tensor:
             "the slab (v2) pipeline requires an axis-aligned (diagonal-"
             "metric) mesh; off-diagonal metric entries are non-zero")
     return g[:, [GEOM_RR, GEOM_SS, GEOM_TT]].reshape(E, 3, n ** 3).contiguous()
+
+
+def _scalars(value, nrhs: int | None, dtype: torch.dtype, device):
+    """A step scalar in the accumulation dtype of ``dtype``: one value, or
+    (for ``nrhs`` lanes) a scalar or length-``nrhs`` vector broadcast."""
+    t = torch.as_tensor(value, dtype=accum_dtype(dtype), device=device)
+    if nrhs is None:
+        return t.reshape(1)
+    return torch.broadcast_to(t, (nrhs,)).contiguous()
+
+
+def nekbone_ax_dots_slab(p_prev: torch.Tensor, r: torch.Tensor,
+                         D: torch.Tensor, g3: torch.Tensor,
+                         grid: tuple[int, int, int], *, beta=0.0):
+    """The v2 front half (K4) on natural shapes, its output assembled.
+
+    Computes ``p = r + beta * p_prev`` and the *fully assembled* masked
+    operator output ``w = mask * gs(D^T G D p)``: K4 writes it unassembled
+    and this wrapper assembles it (``core/gs.ds_sum_local``), as the
+    reference's wrapper stitches its blocks' boundary planes.  The
+    reference's ``sz``, ``layout``, ``grid_order`` and ``interpret`` are TPU
+    knobs with no counterpart, and the accumulation dtype is the build's
+    (f64 for f64, f32 otherwise).
+
+    Args:
+      p_prev, r: (E, n, n, n); elements z-major over ``grid``.
+      D: (n, n); g3: (E, 3, n, n, n) metric diagonal (rr, ss, tt), or a
+         6-component metric whose off-diagonal entries are zero
+         (:func:`diag_metric`).
+      grid: (EX, EY, EZ); beta: direction-update scalar.
+
+    Returns ``(p, w, pap)`` with ``pap == p·c·(mask gs w_local)``.
+    """
+    E = p_prev.shape[0]
+    n = p_prev.shape[-1]
+    n3 = n ** 3
+    grid = tuple(grid)
+    (mx, my, mz), _ = slab_axis_factors(grid, n, p_prev.dtype,
+                                        p_prev.device)
+    p2, w2, pap_e = _ax.nekbone_ax_slab_cuda(
+        p_prev.reshape(E, n3).contiguous(), r.reshape(E, n3).contiguous(),
+        D.to(p_prev.dtype).contiguous(),
+        diag_metric(g3.to(p_prev.dtype), E, n), mx, my, mz,
+        _scalars(beta, None, p_prev.dtype, p_prev.device), n=n)
+    w = ds_sum_local(w2.reshape(p_prev.shape), grid)
+    return p2.reshape(p_prev.shape), w, torch.sum(pap_e)
+
+
+def nekbone_cg_update(x: torch.Tensor, p: torch.Tensor, r: torch.Tensor,
+                      w: torch.Tensor, alpha, grid: tuple[int, int, int]):
+    """The v2 back half (K5) on natural shapes.
+
+    Computes ``x + alpha p``, ``r - alpha gs(w)`` and the weighted norm
+    ``sum(r_new * c * r_new)`` of the stored residual, ``c`` rebuilt in the
+    kernel.  ``w`` is the masked *unassembled* operator output of K4
+    (``kernels.nekbone_ax.nekbone_ax_slab_cuda``): the kernel assembles
+    it, so the reference's ``addb``/``addt`` boundary planes have no
+    counterpart, nor do its ``sz`` and ``interpret``.
+
+    Args:
+      x, p, r, w: (E, n, n, n); alpha: a float or a scalar tensor; grid:
+      the element grid.
+
+    Returns ``(x_new, r_new, rtz_new)``.
+    """
+    E = x.shape[0]
+    n = x.shape[-1]
+    n3 = n ** 3
+    _, (cx, cy, cz) = slab_axis_factors(tuple(grid), n, p.dtype, p.device)
+    x2, r2, rcr_e = _ax.nekbone_cg_update_cuda(
+        x.reshape(E, n3), p.reshape(E, n3), r.reshape(E, n3),
+        w.reshape(E, n3), _scalars(alpha, None, p.dtype, p.device), cx, cy,
+        cz, n=n)
+    return x2.reshape(x.shape), r2.reshape(x.shape), torch.sum(rcr_e)
+
+
+def nekbone_ax_dots_slab_block(p_prev: torch.Tensor, r: torch.Tensor,
+                               D: torch.Tensor, g3: torch.Tensor,
+                               grid: tuple[int, int, int], *, beta=0.0):
+    """The batched v2 front half (K6) on natural shapes, its output
+    assembled: :func:`nekbone_ax_dots_slab` over a leading right-hand-side
+    axis (b, E, n, n, n), ``beta`` a scalar or a length-b vector.
+
+    Returns ``(p, w, pap)`` with ``pap`` a length-b vector of per-RHS
+    ``p·c·(mask gs w_local)``, each lane's sum taken on its own row.
+    """
+    nrhs, E = p_prev.shape[0], p_prev.shape[1]
+    n = p_prev.shape[-1]
+    n3 = n ** 3
+    grid = tuple(grid)
+    (mx, my, mz), _ = slab_axis_factors(grid, n, p_prev.dtype,
+                                        p_prev.device)
+    p3, w3, pap_be = _ax.nekbone_ax_slab_block_cuda(
+        p_prev.reshape(nrhs, E, n3).contiguous(),
+        r.reshape(nrhs, E, n3).contiguous(),
+        D.to(p_prev.dtype).contiguous(),
+        diag_metric(g3.to(p_prev.dtype), E, n), mx, my, mz,
+        _scalars(beta, nrhs, p_prev.dtype, p_prev.device), n=n)
+    w = torch.stack([ds_sum_local(w3[j].reshape(E, n, n, n), grid)
+                     for j in range(nrhs)])
+    return (p3.reshape(p_prev.shape), w,
+            torch.stack([torch.sum(row) for row in pap_be]))
+
+
+def nekbone_cg_update_block(x: torch.Tensor, p: torch.Tensor,
+                            r: torch.Tensor, w: torch.Tensor, alpha,
+                            grid: tuple[int, int, int]):
+    """The batched v2 back half (K7) on natural shapes:
+    :func:`nekbone_cg_update` over a leading right-hand-side axis (b, E, n,
+    n, n), ``alpha`` a scalar or a length-b vector, ``w`` K6's unassembled
+    output.
+
+    Returns ``(x_new, r_new, rtz_new)`` with ``rtz_new`` a length-b vector
+    of per-RHS weighted norms of the stored residual.
+    """
+    nrhs, E = x.shape[0], x.shape[1]
+    n = x.shape[-1]
+    n3 = n ** 3
+    _, (cx, cy, cz) = slab_axis_factors(tuple(grid), n, p.dtype, p.device)
+    x3, r3, rcr_be = _ax.nekbone_cg_update_block_cuda(
+        x.reshape(nrhs, E, n3), p.reshape(nrhs, E, n3),
+        r.reshape(nrhs, E, n3), w.reshape(nrhs, E, n3),
+        _scalars(alpha, nrhs, p.dtype, p.device), cx, cy, cz, n=n)
+    return (x3.reshape(x.shape), r3.reshape(x.shape),
+            torch.stack([torch.sum(row) for row in rcr_be]))
 
 
 def nekbone_pcg_update(x: torch.Tensor, p: torch.Tensor, z: torch.Tensor,

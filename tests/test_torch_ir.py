@@ -369,10 +369,11 @@ def test_bf16_ax_pap_plain_matches_reference(x64, mix):
 
 
 def test_bf16_wrappers_pick_a_build_by_operand_dtype():
-    """Each operand's dtype picks the build: K4, K5, K3, K8, K9 and K10
-    take both bf16 mixes, every other kernel raises for bf16 naming ROADMAP
-    queue 2, and a mix of dtypes that no build has raises.  Off the card
-    the wrappers raise before any of that."""
+    """Each operand's dtype picks the build: K3 to K12 take both bf16
+    mixes, chosen role by role (S vectors, X solution, O operator data, A
+    scalars), K1 and K2 raise for bf16 naming ROADMAP queue 2, and a mix of
+    dtypes that no build has raises.  Off the card the wrappers raise
+    before any of that."""
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
 
     def t(dtype):
@@ -399,9 +400,20 @@ def test_bf16_wrappers_pick_a_build_by_operand_dtype():
         assert pick("nekbone_pcg_update", x2=(t(O), (), "X"),
                     p2=(t(bf16), ()), invd2=(t(O), (), "O"),
                     alpha=(t(f32), (), "A")) == mix
-    for stem in ("nekbone_ax_dots", "nekbone_ax", "nekbone_ax_slab_block",
-                 "nekbone_cg_update_block", "nekbone_cheb_apply",
-                 "nekbone_interp"):
+        assert pick("nekbone_cheb_apply", r2=(t(bf16), ()),
+                    D=(t(O), (), "O"), g3=(t(O), (), "O"),
+                    coef=(t(f32), (), "A")) == mix
+        assert pick("nekbone_interp", u2=(t(bf16), ()),
+                    mt=(t(O), (), "O")) == mix
+        assert pick("nekbone_ax_slab_block", p3=(t(bf16), ()),
+                    D=(t(O), (), "O"), g3=(t(O), (), "O"),
+                    beta=(t(f32), (), "A")) == mix
+        assert pick("nekbone_cg_update_block", x3=(t(O), (), "X"),
+                    p3=(t(bf16), ()), alpha=(t(f32), (), "A")) == mix
+    with pytest.raises(TypeError, match="match no build"):
+        pick("nekbone_cheb_apply", r2=(t(bf16), ()), D=(t(f32), (), "O"),
+             coef=(t(bf16), (), "A"))
+    for stem in ("nekbone_ax_dots", "nekbone_ax"):
         with pytest.raises(NotImplementedError, match="queue 2"):
             pick(stem, p2=(t(bf16), ()))
     n, E = 3, 2
