@@ -10,13 +10,13 @@ reference package ``repro``, and, in order:
 
 1. prints the card, its power limit, and the torch / CUDA / nvcc versions;
 2. builds the CUDA kernels from the thirteen sources of
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (46
-   libraries: f64 and f32 for the Nekbone kernels, and the two bf16
-   operand mixes ``bf16`` and ``bf16_ir`` for K3 to K12; f32 and bf16 for
-   K13 and K14), in parallel, prints its wall time, and
-   shows from the bf16 K13's machine
-   code (``cuobjdump -sass``) that it runs tensor-core MMAs (HMMA) on
-   operands copied by cp.async (LDGSTS);
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (48
+   libraries: f64, f32 and the two bf16 operand mixes ``bf16`` and
+   ``bf16_ir`` for the Nekbone kernels K1 to K12; f32 and bf16 for K13 and
+   K14), in parallel, prints its wall time, K13's registers, spills and
+   shared memory at every head size (16, 64, 128, 192), and shows from
+   the bf16 K13's machine code (``cuobjdump -sass``) that it runs
+   tensor-core MMAs (HMMA) on operands copied by cp.async (LDGSTS);
 3. measures device-to-device copy bandwidth on a 1 GiB buffer (the
    measured roofline);
 4. holds K1 (the operator kernel) against its plain PyTorch version, n=2..16
@@ -92,7 +92,12 @@ reference package ``repro``, and, in order:
    power, its Gram partials bitwise ``ref.sstep_gram_emulated`` of its own
    vectors (a K8 that skips rounding the powers through storage must fail
    the power check), K9's x, r, p and K10's x, z value by value, their
-   partials summed, every output's dtype its role's;
+   partials summed, every output's dtype its role's; and K1 and K2 in
+   both bf16 builds at n = 2..16 (E = 8) and n = 10 (E = 1024 and 4096),
+   fields value by value, partials summed, 5 repeated calls bitwise (a K1
+   that rounds D u to bf16 before the metric and a K2 whose partials are
+   stored in bf16 must fail the same checks), and K2 among the walkers in
+   every build, its w and pap bitwise K3's;
 16. solves the paper case (b in fp64, 100 inner iterations per sweep)
    through the ``ir`` route — ``f32_ir`` and ``bf16_ir`` over v2, v1 and
    s-step (s=4) — the non-refined ``bf16`` policy over v2, v1 and s-step,
@@ -102,8 +107,12 @@ reference package ``repro``, and, in order:
    against the same route over the plain versions on the card (bf16
    s-step over its first cycle, where two valid Gram orders agree),
    ``f32_ir`` over v2 and v1 at or below fp64 v2's 100-iteration rnorm,
-   ``bf16_ir``'s outer rnorms never rising; times each solve; and shows
-   that bf16 over ``reference`` (K1, which has no bf16 build) raises;
+   ``bf16_ir``'s outer rnorms never rising; times each solve; and solves
+   it through bf16 ``reference`` (reference CG over the bf16 K1, 100
+   iterations, the plain versions made to raise meanwhile): K1 launched
+   100 times, entries 0..10 against the same route over the plain
+   versions, within 1e-2 or 10x the plain route's own spread under
+   another valid f32 order of its operator;
 17. holds K11, K12, K6 and K7 in both bf16 builds against their plain
    versions value by value: K11 at n = 10, 5, 3 (its shared-memory
    variant at E=1024, its device-memory variant at E=4096; the planner's
@@ -123,10 +132,10 @@ reference package ``repro``, and, in order:
    route itself moves further under another valid f32 order of its
    operator, within 10x that spread (whether 1e-2 held is reported), the
    block lanes bitwise their own bf16 v2 solves; times each solve;
-19. times the f32 K4 and K3 and the bf16 K4, K5, K3, K8, K9, K10, K11,
-   K12, K6 and K7 (both builds; K9 also beside one ``torch.matmul``, K12
-   beside one ``torch.einsum``) beside their plain versions at E=1024 and
-   E=4096;
+19. times the f32 K4 and K3 and the bf16 K1, K2, K4, K5, K3, K8, K9,
+   K10, K11, K12, K6 and K7 (both builds; K9 also beside one
+   ``torch.matmul``, K12 beside one ``torch.einsum``) beside their plain
+   versions at E=1024 and E=4096;
 20. profiles each kernel route (device time per iteration, by kernel, and
    the device's busy share);
 21. holds K13 (flash attention; in bf16 on the tensor cores) and K14 (the
@@ -137,30 +146,41 @@ reference package ``repro``, and, in order:
    keys) and rwkv6-1.6b's (H 32, d 64: T = 1024 from a zero and a random
    state, T = 1, and T = 1000, which ends in a partial pass of K14's
    staged steps; 5 repeated calls bitwise the same; K14's blocks per call
-   printed and more than B x H), plus d = 16 with fully masked rows (K13)
-   and T = 37 (K14); bf16 outputs also
+   printed and more than B x H), plus d = 16 with fully masked rows (K13),
+   d = 64 and 192 (GQA 5:1 with window 333 over 1000 tokens, 12:1 causal
+   over 777) and T = 37 (K14); bf16 outputs also
    value by value (one bf16 step of each value); shows that the same
    value check fails the bf16 kernel's arithmetic with P rounded once to
    bf16 (``ref.flash_attention_tc_emulated(split_p=False)``) at the global
    shape and passes it with P split;
-22. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens)
-   and gemma2-27b (2 of its 46 layers, batch 2, prompt 6144, 16 new)
-   three times each through ``launch.serve.serve`` at full width, with
-   every plain attention / WKV function and SDPA made to raise meanwhile:
-   the tokens are in range, the runs agree bitwise, the launch counts are
-   K14 = layers x tokens and K13 = layers in each; the third run is
-   profiled, its device time read against the second's wall clock;
+22. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens),
+   gemma2-27b (2 of its 46 layers, batch 2, prompt 6144, 16 new),
+   nemotron-4-340b (2 of its 96 layers, batch 2, prompt 4096, 16 new) and
+   hymba-1.5b (32 layers, batch 4, prompt 2048, 32 new) three times each
+   through ``launch.serve.serve`` at full width, with every plain
+   attention / WKV function and SDPA made to raise meanwhile: the tokens
+   are in range, the runs agree bitwise, the launch counts are K14 =
+   layers x tokens and K13 = layers in each, by build too (K13 one per
+   layer at its head size and window); the third run is profiled,
+   its device time read against the second's wall clock; and times
+   hymba's selective scan (plain PyTorch) a layer at its serve shape;
 23. times K13 and K14 at the serve shapes beside their plain versions
-   and, for K13, SDPA; holds K13 there in bf16 and f32 (batch 2, 6144
-   tokens, global and window 4096), and shows that these checks fail a
-   K13 that ignores the window or cuts it one key short;
-24. prints the ``kernels`` JSON line, the card line, and last the result
-   line ``{"ok": true, "device": {...}}``.
+   and, for K13 on global layers, SDPA; holds K13 there in bf16 and f32
+   (gemma2: batch 2, 6144 tokens, global and window 4096), in bf16 at
+   nemotron-4's global layer (batch 2, 4096 tokens, d 192) and hymba's
+   global and window-1024 layers (batch 4, 2048 tokens, d 64), and shows
+   that these checks fail a K13 that ignores the window or cuts it one
+   key short;
+24. prints the ``kernels`` JSON line (each row's launches are its own
+   build's count in a measured run: ``_build.BUILD_LAUNCHES``, one K13
+   row per served layer kind), the card line, and last the result line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits with status 1 and prints no result line.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -343,20 +363,24 @@ def phase_build():
                 or stem.startswith(("flash_attn", "wkv6"))}
         print(f"  {stem}: {path.name}; registers {main}; spill "
               f"bytes by instantiation: {spills or 'none'}")
-    report = _ptxas_report(paths[K13_BF16].with_suffix(".log").read_text())
-    smem = _build.load(K13_BF16).flash_attn_bf16_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    for key, (regs, spill) in sorted(report.items()):
-        d = int(re.search(r"<(\d+)>", key).group(1))
-        print(f"  {K13_BF16} {key}: {regs} registers, {spill} bytes spill "
-              f"stores, {smem(d)} bytes dynamic shared memory")
+    from repro_torch.kernels.flash_attn import HEAD_DIMS
+
+    for lib in (K13_BF16, "flash_attn_f32"):
+        report = _ptxas_report(paths[lib].with_suffix(".log").read_text())
+        smem = getattr(_build.load(lib), f"{lib}_smem_bytes")
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        for key, (regs, spill) in sorted(report.items()):
+            d = int(re.search(r"<(\d+)>", key).group(1))
+            print(f"  {lib} {key}: {regs} registers, {spill} bytes spill "
+                  f"stores, {smem(d)} bytes dynamic shared memory")
     # the machine code: tensor-core MMAs (HMMA) and cp.async copies (LDGSTS)
     cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(paths[K13_BF16])],
                           capture_output=True, text=True, timeout=120).stdout
     kernels = [f for f in sass.split("Function : ")[1:]
                if "flash_attn_tc_kernel" in f.split("\n", 1)[0]]
-    check(len(kernels) == 2, f"{K13_BF16}: SASS of both head sizes")
+    check(len(kernels) == len(HEAD_DIMS),
+          f"{K13_BF16}: SASS of every head size {HEAD_DIMS}")
     for f in kernels:
         d = re.search(r"ILi(\d+)E", f).group(1)
         ops = {op: len(re.findall(rf"\b{op}\b", f))
@@ -820,6 +844,20 @@ def phase_interp_block_parity():
     return errs
 
 
+class _Launches(dict):
+    """Launches per wrapper (``_build.LAUNCHES``), with the same run's
+    launches per build in ``builds`` (``_build.BUILD_LAUNCHES``)."""
+
+    def __init__(self, per_wrapper, builds):
+        super().__init__(per_wrapper)
+        self.builds = dict(builds)
+
+    def of(self, build):
+        """Launches of ``build`` (``<stem>_<dtype>``, K13 with its detail)
+        in this run: 0 where it was not launched."""
+        return self.builds.get(build, 0)
+
+
 def _launch_run(fn):
     """``fn()`` with every launch count set to 0 just before it; returns
     its result and the counts read just after."""
@@ -830,7 +868,7 @@ def _launch_run(fn):
     _build.reset_launches()
     res = fn()
     torch.cuda.synchronize()
-    return res, dict(_build.LAUNCHES)
+    return res, _Launches(_build.LAUNCHES, _build.BUILD_LAUNCHES)
 
 
 def _zero_but(**want):
@@ -1982,6 +2020,127 @@ def phase_bf16_parity():
     return errs
 
 
+def _k1_grad_in_storage(u2, D, g2, *, n):
+    """A wrong K1 for the negative check: K1's plain version
+    (kernels/ref.nekbone_ax_plain) with the reference-space gradient D u
+    rounded to storage before the metric, where the kernel keeps it in A."""
+    from repro_torch.core.ax import apply_metric, local_grad3, local_grad3_t
+    from repro_torch.kernels.ref import accum_dtype
+
+    acc = accum_dtype(u2.dtype)
+    E = u2.shape[0]
+    Da = D.to(acc)
+    grad = [t.to(u2.dtype).to(acc)
+            for t in local_grad3(u2.to(acc).reshape(E, n, n, n), Da)]
+    w = local_grad3_t(*apply_metric(
+        *grad, g2.to(acc).reshape(E, 6, n, n, n)), Da)
+    return w.reshape(E, n ** 3).to(u2.dtype)
+
+
+def _k2_parts_in_storage(p2, D, g2, mask2, r2, c2, *, n):
+    """A wrong K2 for the negative check: K2's plain version with its
+    per-element partials stored in the storage dtype S (the wrapper's
+    allocation before they moved to A), as the sum then reads them."""
+    from repro_torch.kernels.ref import nekbone_ax_dots_plain
+
+    w, pap, rcz = nekbone_ax_dots_plain(p2, D, g2, mask2, r2, c2, n=n)
+    return w, pap.to(p2.dtype), rcz.to(p2.dtype)
+
+
+def phase_bf16_k1_k2_parity():
+    """K1 and K2 in their bf16 builds (both operand mixes) against their
+    plain versions: n = 2..16 at E = 8 and n = 10 at E = 1024 and 4096
+    (random SPD metric, the box's mask and c), fields value by value,
+    partials summed, relatively; outputs in their roles' dtypes; at n = 10
+    5 repeated calls bitwise the same; and, at E = 1024, a K1 that rounds
+    D u to storage and a K2 whose partials are stored in S must fail the
+    same checks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    print("== bf16 K1/K2 parity (kernel vs plain; builds "
+          f"{', '.join(BF16_MIXES)}; n = 2..16 at E=8, n=10 at E = 1024 and "
+          f"4096; fields value by value: |o - p| <= 2^-7 |p| + "
+          f"{BF16_F32_TOL:g} max |p|; partials summed, relative, <= "
+          f"{BF16_PART_TOL:g})", flush=True)
+    rng = np.random.default_rng(23)
+    errs = {}
+    cases = [(n, (2, 2, 2)) for n in K.N_RANGE] + [(10, PAPER_GRID),
+                                                   (10, BIG_GRID)]
+    for n, grid in cases:
+        case = NekboneCase(n=n, grid=grid, dtype=torch.float64)
+        E = case.mesh.nelt
+        n3 = n ** 3
+        u64, D64, g64 = _operator_data(rng, E, n, torch.float64)
+        r64 = torch.as_tensor(rng.normal(size=(E, n3)), device="cuda")
+        # at E = 8 no mask, so that each element's pap = p^T A_loc p >= 0
+        # and the sum of 8 does not cancel
+        mask64 = (case.mask if E > 8 else torch.ones_like(case.mask)
+                  ).reshape(E, n3).contiguous()
+        c64 = case.c.reshape(E, n3).contiguous()
+        for mix in BF16_MIXES:
+            dt = K.MIXES[mix]
+            k1 = (u64.to(dt["S"]), D64.to(dt["O"]), g64.to(dt["O"]))
+            k2 = k1 + tuple(t.to(dt["S"]) for t in (mask64, r64, c64))
+            kw = K.nekbone_ax_cuda(*k1, n=n)
+            pw = K.nekbone_ax_plain(*k1, n=n)
+            kw2, kpap, krcz = K.nekbone_ax_dots_cuda(*k2, n=n)
+            pw2, ppap, prcz = K.nekbone_ax_dots_plain(*k2, n=n)
+            v1 = _value_rel(kw, pw, BF16_F32_TOL)
+            v2 = _value_rel(kw2, pw2, BF16_F32_TOL)
+            perr = max(_part_err(kpap, ppap), _part_err(krcz, prcz))
+            roles = (kw.dtype == kw2.dtype == dt["S"]
+                     and kpap.dtype == krcz.dtype == dt["A"])
+            if E == 8:
+                check(roles and v1 <= 1.0 and v2 <= 1.0
+                      and perr <= BF16_PART_TOL,
+                      f"K1/K2 {mix} n={n} E=8: w in {dt['S']}, partials in "
+                      f"{dt['A']}; K1 w {v1:.2f}, K2 w {v2:.2f} of the "
+                      f"value limit, partials rel err {perr:.1e}")
+                continue
+            tag = f"{mix} n={n} E={E}"
+            reps = [(K.nekbone_ax_cuda(*k1, n=n),
+                     K.nekbone_ax_dots_cuda(*k2, n=n)) for _ in range(5)]
+            same = all(torch.equal(a, kw) and all(
+                torch.equal(x, y) for x, y in zip(b, (kw2, kpap, krcz)))
+                for a, b in reps)
+            check(roles and v1 <= 1.0 and same,
+                  f"K1 {tag}: w in {dt['S']}, value by value (worst "
+                  f"{v1:.2f} of the limit; {int((kw != pw).sum())} of "
+                  f"{kw.numel()} values differ); 5 more calls of K1 and K2 "
+                  "bitwise the same")
+            check(v2 <= 1.0 and perr <= BF16_PART_TOL,
+                  f"K2 {tag}: w value by value (worst {v2:.2f} of the "
+                  f"limit), pap and rcz in {dt['A']}, rel err "
+                  f"{_part_err(kpap, ppap):.2e} and "
+                  f"{_part_err(krcz, prcz):.2e}")
+            if grid == PAPER_GRID:
+                bad = _value_rel(_k1_grad_in_storage(*k1, n=n), pw,
+                                 BF16_F32_TOL)
+                check(bad > 1.0,
+                      f"K1 {tag}: a stand-in that rounds D u to storage "
+                      f"before the metric fails the w check ({bad:.1f}x the "
+                      "limit)")
+                _, bpap, brcz = _k2_parts_in_storage(*k2, n=n)
+                bad = max(_part_err(bpap, ppap), _part_err(brcz, prcz))
+                check(bad > BF16_PART_TOL,
+                      f"K2 {tag}: a stand-in whose partials are stored in "
+                      f"{dt['S']} fails the partial check (rel err "
+                      f"{bad:.2e}, {bad / BF16_PART_TOL:.1f}x the limit)")
+                errs[("K1", mix)] = float((kw.float() - pw.float()).abs()
+                                          .max())
+                errs[("K2", mix)] = float((kw2.float() - pw2.float()).abs()
+                                          .max())
+            del k1, k2, kw, pw, kw2, pw2, reps
+        del case, u64, D64, g64, r64, mask64, c64
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return errs
+
+
 # K8 and K9 at these cycle lengths in the bf16 builds
 BF16_SSTEP_S = (SSTEP_S, 2, 1)
 
@@ -2493,29 +2652,29 @@ def phase_bf16_cheb_pmg_block_parity():
 
 
 @contextlib.contextmanager
-def _operator_rounded_once():
-    """The plain versions' local operator (kernels/ref._masked_ax_diag, in
-    K4, K6 and K11) evaluated in f64 and rounded to f32 once: another valid
-    f32 evaluation of the same function, the correctly rounded one.  A
-    route over the plain versions run under it measures how far two valid
-    f32 orders of the operator move that route's history."""
+def _operator_rounded_once(name="_masked_ax_diag"):
+    """The plain versions' local operator ``kernels/ref.<name>``
+    (``_masked_ax_diag``, in K4, K6 and K11; ``ax_local_fused``, the full
+    metric's, in K1) evaluated in f64 and rounded to f32 once: another
+    valid f32 evaluation of the same function, the correctly rounded one.
+    A route over the plain versions run under it measures how far two
+    valid f32 orders of the operator move that route's history."""
     import torch
 
     from repro_torch.kernels import ref
 
-    saved = ref._masked_ax_diag
+    saved = getattr(ref, name)
 
-    def once(u4, D, g, mask):
-        if u4.dtype != torch.float32:
-            return saved(u4, D, g, mask)
-        return saved(u4.double(), D.double(), g.double(),
-                     mask.double()).float()
+    def once(*fields):
+        if fields[0].dtype != torch.float32:
+            return saved(*fields)
+        return saved(*(t.double() for t in fields)).float()
 
-    ref._masked_ax_diag = once
+    setattr(ref, name, once)
     try:
         yield
     finally:
-        ref._masked_ax_diag = saved
+        setattr(ref, name, saved)
 
 
 @contextlib.contextmanager
@@ -2538,12 +2697,13 @@ def _forbid(targets):
 
 
 def _forbid_plain_nekbone():
-    """The plain versions of the kernels the bf16 Chebyshev, pmg and block
-    routes run (K4, K5, K6, K7, K11, K12), where the wrappers look them up
-    and in kernels/ref.py."""
+    """The plain versions of the kernels the bf16 reference, Chebyshev, pmg
+    and block routes run (K1, K4, K5, K6, K7, K11, K12), where the wrappers
+    look them up and in kernels/ref.py."""
     from repro_torch.kernels import nekbone_ax, ref
 
-    names = ("nekbone_ax_slab_plain", "nekbone_cg_update_plain",
+    names = ("nekbone_ax_plain", "nekbone_ax_slab_plain",
+             "nekbone_cg_update_plain",
              "nekbone_ax_slab_block_plain", "nekbone_cg_update_block_plain",
              "nekbone_cheb_apply_plain", "nekbone_interp_plain")
     return _forbid(((nekbone_ax, names), (ref, names)))
@@ -2822,8 +2982,6 @@ def phase_walk_parity():
                 "nekbone_ax_dots_kernel<10,1>"))
     for key, stem, lib, kernel in walkers:
         for mix in WALK_MIXES:
-            if key == "K2" and mix in BF16_MIXES:
-                continue
             regs, spill = logs[f"{lib}_{mix}"][kernel]
             for E in (1024, 4096):
                 plan, info = K.walk_launch_info(stem, E, 10, mix)
@@ -2882,17 +3040,16 @@ def phase_walk_parity():
                   f"{plan3.per_block}, {', '.join(plan3.staged)} staged): w "
                   f"{wtxt3}, pap rel err {perr3:.2e}; 5 more calls bitwise "
                   "the same")
-            if mix not in BF16_MIXES:
-                r = torch.as_tensor(rng.normal(size=(E, n3)), dtype=dt["S"],
-                                    device="cuda")
-                k2 = k3 + (r, c64.to(dt["S"]))
-                kw2, kpap2, krcz = K.nekbone_ax_dots_cuda(*k2, n=n)
-                _, _, prcz = K.nekbone_ax_dots_plain(*k2, n=n)
-                rerr = _part_err(krcz, prcz)
-                check(torch.equal(kw2, kw3) and torch.equal(kpap2, kpap3)
-                      and rerr <= WALK_TOL[mix],
-                      f"K2 {tag}: w and pap bitwise K3's, rcz rel err "
-                      f"{rerr:.2e}")
+            r = torch.as_tensor(rng.normal(size=(E, n3)), dtype=dt["S"],
+                                device="cuda")
+            k2 = k3 + (r, c64.to(dt["S"]))
+            kw2, kpap2, krcz = K.nekbone_ax_dots_cuda(*k2, n=n)
+            _, _, prcz = K.nekbone_ax_dots_plain(*k2, n=n)
+            rerr = _part_err(krcz, prcz)
+            check(torch.equal(kw2, kw3) and torch.equal(kpap2, kpap3)
+                  and rerr <= WALK_TOL[mix],
+                  f"K2 {tag}: w and pap bitwise K3's, rcz rel err "
+                  f"{rerr:.2e}")
             if n == 10 and grid == PAPER_GRID and mix == "f32":
                 errs[("K4", mix)] = float((kw - pw).abs().max())
                 errs[("K3", mix)] = float((kw3 - pw3).abs().max())
@@ -2946,8 +3103,14 @@ def phase_ir_routes(hist, v2_solve_ms):
     ``bf16_ir`` through ``precond.pcg_fused_v2_fixed_iters``, where a
     refined policy runs as its storage policy), each with the launch
     counters set to 0 just before it, against the same route over the plain
-    versions on the card; then bf16 on ``reference`` (K1 has no bf16
-    build), which must raise."""
+    versions on the card; then bf16 on ``reference`` (reference CG over
+    K1's bf16 build) with the plain versions made to raise meanwhile,
+    launches exact, against the same route over the plain versions: entry
+    0 equal and entries 0..10 within BF16_HEAD_TOL or, where the plain
+    route itself moves further under another valid f32 order of its
+    operator (:func:`_operator_rounded_once` on ``ax_local_fused``), within
+    ENVELOPE_FACTOR times that spread, as the bf16 Chebyshev, pmg and block
+    routes are held."""
     import numpy as np
     import torch
 
@@ -3105,25 +3268,66 @@ def phase_ir_routes(hist, v2_solve_ms):
               f"{ms / NITER:.4f} ms per iteration (fp64 v2 "
               f"{v2_solve_ms / NITER:.4f})", flush=True)
 
-    # bf16 on the route whose kernel has no bf16 build (K1) raises, naming
-    # the queue that holds it; nothing falls back
+    # --- bf16 reference CG over K1: the case's bf16 policy on `pallas` ---
+    label = "bf16 reference"
     ref_case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
                            precision="bf16", ax_impl="pallas")
-    try:
-        _launch_run(lambda: ref_case.solve(f16, niter=NITER))
-        raised = ""
-    except NotImplementedError as exc:
-        raised = str(exc)
-    check("ROADMAP.md queue 2" in raised,
-          "bf16 reference CG over pallas (K1) raises on the card: "
-          f"{raised or 'nothing raised'}")
+    f_ref = ref_case.manufactured()[1]
+
+    def reference():
+        return ref_case.solve(f_ref, niter=NITER)
+
+    with _forbid_plain_nekbone():
+        res, launches = _launch_run(reference)
+    out["launches"][label] = launches
+    h = res.history.double().cpu().numpy()
+    check(res.pipeline == "reference" and h.shape == (NITER + 1,)
+          and bool(np.isfinite(h).all())
+          and bool(torch.isfinite(res.x.float()).all())
+          and res.x.dtype == torch.bfloat16,
+          f"{label}: pipeline {res.pipeline}, x {res.x.dtype}, finite, "
+          f"history of {h.size}")
+    check(launches == _zero_but(nekbone_ax=NITER),
+          f"{label}: launches {launches}")
+    with _plain_kernels():
+        pres, plaunch = _launch_run(reference)
+        with _operator_rounded_once("ax_local_fused"):
+            tres, _ = _launch_run(reference)
+    ph = pres.history.double().cpu().numpy()
+    th = tres.history.double().cpu().numpy()
+    check(plaunch == _zero_but(), f"{label} over plain versions: no kernel "
+                                  "launched")
+    head, spread = _rel_dev(h, ph)[:11], _rel_dev(th, ph)[:11]
+    bar = max(BF16_HEAD_TOL, ENVELOPE_FACTOR * float(spread.max()))
+    worst = float(np.abs(np.log(h / ph)).max())
+    out["head"] = {label: (float(head.max()), float(spread.max()))}
+    check(h[0] == ph[0] and float(head.max()) <= bar,
+          f"{label}: history entry 0 equal and entries 0..10 within "
+          f"{bar:.3g} of the plain route's ({float(head.max()):.2e}; by "
+          "entry " + " ".join(f"{v:.1e}" for v in head) + "); the plain "
+          "route under another valid f32 order of its operator moves by "
+          f"{float(spread.max()):.2e} (by entry "
+          + " ".join(f"{v:.1e}" for v in spread) + f"); within "
+          f"{BF16_HEAD_TOL:g}: "
+          f"{'yes' if head.max() <= BF16_HEAD_TOL else 'NO'} (reported); "
+          f"all {NITER + 1} within {np.exp(worst):.2f}x (reported)")
+    ms = wall_ms(reference, reps=3)
+    out["ms"][label] = ms
+    out["hist"][label] = h
+    err = float(case.solution_error(res.x.to(torch.float64), u_ex))
+    print(f"  {label}: history[0, 10, 50, 100] "
+          + " ".join(f"{v:.6e}" for v in h[[0, 10, 50, NITER]])
+          + f" (plain route {ph[NITER]:.6e}); last / fp64 v2's "
+          f"history[{NITER}] {h[-1] / v2_last:.3e}; solution_error "
+          f"{err:.6e}; {ms:.3f} ms to completion, {ms / NITER:.4f} ms per "
+          f"iteration (fp64 v2 {v2_solve_ms / NITER:.4f})", flush=True)
     return out
 
 
 def phase_bf16_times(bw_copy, rows):
-    """Device time of the f32 K4 and K3 and the bf16 K4, K5, K3, K8 (s=4),
-    K9 (s=4, beside one ``torch.matmul`` in bf16) and K10 (both builds)
-    beside their plain versions at E=1024 and E=4096."""
+    """Device time of the f32 K4 and K3 and the bf16 K1, K2, K4, K5, K3, K8
+    (s=4), K9 (s=4, beside one ``torch.matmul`` in bf16) and K10 (both
+    builds) beside their plain versions at E=1024 and E=4096."""
     import numpy as np
     import torch
 
@@ -3132,7 +3336,8 @@ def phase_bf16_times(bw_copy, rows):
     from repro_torch.kernels import nekbone_ax as K
 
     print("== times of the reduced-precision builds (K4 and K3 in f32, "
-          "K4, K5, K3, K8, K9 and K10 in bf16 and bf16_ir; n=10, K8 and K9 "
+          "K1, K2, K4, K5, K3, K8, K9 and K10 in bf16 and bf16_ir; n=10, K8 "
+          "and K9 "
           f"at s={SSTEP_S}; device time per call, CUDA events around 20 "
           "queued calls, median of 5; operations at the fp32 rate, 67 "
           "TF/s)", flush=True)
@@ -3186,7 +3391,15 @@ def phase_bf16_times(bw_copy, rows):
                     E, n ** 3).to(dt["O"])
                 k10 = (o["x"], kp, z, kw, o["alpha"], invd, *o["c"])
                 gram_bytes = E * K_ * K_ * dt["A"].itemsize
+                r2 = torch.as_tensor(rng.normal(size=(E, n ** 3)),
+                                     dtype=dt["S"], device="cuda")
+                k2 = k3 + (r2, case.c.reshape(E, n ** 3).to(dt["S"]))
                 work.update({
+                    # K1: u, 6 metric fields in, w out; K2: K3's and r, c
+                    "K1": (K.nekbone_ax_cuda, K.nekbone_ax_plain, k3[:3],
+                           2 * S + 6 * O, (12 * n, 17)),
+                    "K2": (K.nekbone_ax_dots_cuda, K.nekbone_ax_dots_plain,
+                           k2, 5 * S + 6 * O, (12 * n, 21)),
                     "K8": (K.nekbone_ax_powers_cuda,
                            K.nekbone_ax_powers_plain, k8,
                            (2 * s + 1) * S + 3 * O + gram_bytes / nodes,
@@ -3230,8 +3443,11 @@ def phase_bf16_times(bw_copy, rows):
 # tensor cores (K13's and K14's operation bounds).
 BF16_TENSOR_PEAK = 989e12
 FP32_PEAK = 67e12
-# gemma2-27b's attention shapes and rwkv6-1.6b's WKV shapes
+# gemma2-27b's, nemotron-4-340b's and hymba-1.5b's attention shapes and
+# rwkv6-1.6b's WKV shapes
 GEMMA_HEADS = dict(Hq=32, Hkv=16, d=128)
+NEMOTRON_HEADS = dict(Hq=96, Hkv=8, d=192)
+HYMBA_HEADS = dict(Hq=25, Hkv=5, d=64)
 RWKV_HEADS = dict(H=32, d=64)
 # Kernel against plain version, relative to the plain version's max |.|:
 # float32 is two summation orders; bfloat16 outputs (o) may differ by one
@@ -3248,7 +3464,9 @@ K14_S_TOL = 1e-4
 BF16_STEP = 2.0 ** -7
 # serve runs: (arch, depth kept, batch, prompt, generated tokens)
 SERVE_RUNS = (("rwkv6-1.6b", None, 4, 1024, 32),
-              ("gemma2-27b", 2, 2, 6144, 16))
+              ("gemma2-27b", 2, 2, 6144, 16),
+              ("nemotron-4-340b", 2, 2, 4096, 16),
+              ("hymba-1.5b", None, 4, 2048, 32))
 # K13's bf16 build (the tensor-core kernel), for its ptxas and shared-memory
 # report
 K13_BF16 = "flash_attn_bf16"
@@ -3327,7 +3545,8 @@ def phase_lm_parity():
     from repro_torch.kernels import wkv6 as WK
 
     print("== K13/K14 parity (kernel vs plain; gemma2-27b's Hq 32, Hkv 16, "
-          "d 128 and rwkv6-1.6b's H 32, d 64)", flush=True)
+          "d 128, hymba-1.5b's d 64 and nemotron-4-340b's d 192, and "
+          "rwkv6-1.6b's H 32, d 64)", flush=True)
     gen = torch.Generator("cuda").manual_seed(5)
     err = {}
     Hq, Hkv, d = GEMMA_HEADS["Hq"], GEMMA_HEADS["Hkv"], GEMMA_HEADS["d"]
@@ -3346,7 +3565,21 @@ def phase_lm_parity():
          dict(causal=True, window=None, softcap=50.0, q_offset=700)),
         ("d=16, rows 0..4 masked", dict(B=2, Hq=4, Hkv=2, Sq=40, Skv=40,
                                         d=16),
-         dict(causal=True, window=16, softcap=50.0, q_offset=-5)))
+         dict(causal=True, window=16, softcap=50.0, q_offset=-5)),
+        # hymba's and nemotron's head sizes, GQA 5:1 with a window and 12:1
+        # causal, across partial tiles
+        ("d=64, GQA 5:1, S=1000, window 333",
+         dict(B=1, Hq=25, Hkv=5, Sq=1000, Skv=1000, d=64),
+         dict(causal=True, window=333, softcap=None, q_offset=0)),
+        ("d=64, GQA 12:1, S=777", dict(B=2, Hq=24, Hkv=2, Sq=777, Skv=777,
+                                       d=64),
+         dict(causal=True, window=None, softcap=None, q_offset=0)),
+        ("d=192, GQA 5:1, S=1000, window 333",
+         dict(B=1, Hq=10, Hkv=2, Sq=1000, Skv=1000, d=192),
+         dict(causal=True, window=333, softcap=None, q_offset=0)),
+        ("d=192, GQA 12:1, S=777", dict(B=2, Hq=24, Hkv=2, Sq=777,
+                                        Skv=777, d=192),
+         dict(causal=True, window=None, softcap=None, q_offset=0)))
     for dtype in (torch.bfloat16, torch.float32):
         for label, shape, kw in k13_cases:
             q, k, v = _k13_inputs(gen, dtype=dtype, **shape)
@@ -3467,10 +3700,36 @@ def _serve_profile(tag, prof, wall_s):
               f"{name[:40]} {t:.1f} ms" for name, t in top), flush=True)
 
 
+def _hymba_scan_ms(cfg, B, T):
+    """Host-clock time of one layer's selective scan (``models/ssm._ssm_scan``,
+    plain PyTorch as in the reference) at the serve shape, inputs in bf16,
+    median of 3: the Mamba path's host-bound share of a hymba prefill."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    di, n = 2 * cfg.d_model, cfg.ssm_state
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    x, Bc, Cc = rnd(B, T, di), rnd(B, T, n), rnd(B, T, n)
+    dt = (torch.rand((B, T, di), generator=gen, device="cuda") * 0.1
+          ).bfloat16()
+    A = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device="cuda").expand(di, n)
+    D = torch.ones(di, device="cuda")
+    h0 = torch.zeros((B, di, n), device="cuda")
+    return wall_ms(lambda: ssm._ssm_scan(x, dt, Bc, Cc, A, D, h0), reps=3)
+
+
 def phase_serve():
-    """Serve rwkv6-1.6b (24 layers) and gemma2-27b (2 of 46 layers) at full
-    width through ``launch.serve.serve``, three times each: run 0 cold, run
-    1 warm (the busy share's wall clock), run 2 profiled."""
+    """Serve rwkv6-1.6b (24 layers), gemma2-27b (2 of 46 layers),
+    nemotron-4-340b (2 of 96 layers) and hymba-1.5b (32 layers) at full
+    width through ``launch.serve.serve``, three times each: run 0 cold,
+    run 1 warm (the busy share's wall clock), run 2 profiled; and the time
+    of hymba's selective scan (plain PyTorch) per prefill."""
     import dataclasses
 
     import torch
@@ -3506,7 +3765,8 @@ def phase_serve():
                                       seed=0, params=params)
                 torch.cuda.synchronize()
             del params
-            runs.append((tokens, stats, dict(_build.LAUNCHES),
+            runs.append((tokens, stats,
+                         _Launches(_build.LAUNCHES, _build.BUILD_LAUNCHES),
                          torch.cuda.max_memory_allocated()))
             torch.cuda.empty_cache()
         tokens, stats, launches, _ = runs[0]
@@ -3524,12 +3784,22 @@ def phase_serve():
         want = dict.fromkeys(_build.LAUNCHES, 0)
         if cfg.block == "rwkv":
             want["wkv6"] = cfg.n_layers * G      # prefill + G - 1 steps
+            want_builds = {"wkv6_bf16": want["wkv6"]}
         else:
             want["flash_attn"] = cfg.n_layers    # every prefill layer
-        check(all(ln == want for _, _, ln, _ in runs),
+            # one bf16 launch a layer, by its head size and window
+            pattern = cfg.window_pattern()
+            want_builds = collections.Counter(
+                f"flash_attn_bf16_d{cfg.hd}"
+                + ("" if w is None else f"_window{w}")
+                for w in (pattern[i % len(pattern)]
+                          for i in range(cfg.n_layers)))
+        check(all(ln == want and ln.builds == want_builds
+                  for _, _, ln, _ in runs),
               f"{tag}: launches flash_attn {launches['flash_attn']}, wkv6 "
               f"{launches['wkv6']} (want {want['flash_attn']}, "
-              f"{want['wkv6']}) in every run, no other kernel")
+              f"{want['wkv6']}), by build {launches.builds} (want "
+              f"{dict(want_builds)}) in every run, no other kernel")
         for i, (_, st, _, pk) in enumerate(runs):
             print(f"  {tag} run {i}: prefill {st['prefill_s'] * 1e3:.1f} ms, "
                   f"decode {st['decode_s'] * 1e3 / (G - 1):.2f} ms per token "
@@ -3539,6 +3809,15 @@ def phase_serve():
         print(f"  {tag}: first tokens {tokens[0, :8].tolist()}", flush=True)
         warm = runs[1][1]
         _serve_profile(tag, prof, warm["prefill_s"] + warm["decode_s"])
+        if cfg.block == "hymba":
+            scan = _hymba_scan_ms(cfg, B, P)
+            out["scan_ms"] = scan
+            print(f"  {tag}: the selective scan alone (plain PyTorch, 2 "
+                  f"device ops a step) takes {scan:.1f} ms a layer, "
+                  f"{scan * cfg.n_layers:.0f} ms for {cfg.n_layers} layers, "
+                  "beside prefills of " + ", ".join(
+                      f"{st['prefill_s'] * 1e3:.0f}" for _, st, _, _ in runs)
+                  + " ms (runs 0, 1, 2; host clocks)", flush=True)
         out["launches"][arch] = launches
         out["stats"][arch] = [st for _, st, _, _ in runs]
         del runs, tokens, stats, logits, warm
@@ -3570,8 +3849,9 @@ def _lm_row(label, kern, plain, nbytes, flops, peak, bw_copy, *, calls,
 
 
 def phase_lm_times(bw_copy):
-    """K13 at gemma2's serve shapes (batch 2, 6144 tokens) and K14 at
-    rwkv6's (batch 4, 1024 tokens; and one decode step)."""
+    """K13 at gemma2's serve shapes (batch 2, 6144 tokens), nemotron-4's
+    (batch 2, 4096) and hymba's (batch 4, 2048), and K14 at rwkv6's (batch
+    4, 1024 tokens; and one decode step)."""
     import torch
     import torch.nn.functional as F
 
@@ -3631,6 +3911,40 @@ def phase_lm_times(bw_copy):
     del q32, k32, v32, plain32, want, got
     torch.cuda.empty_cache()
     del q, k, v
+    # nemotron-4-340b's global layer (d 192, GQA 12:1) and hymba-1.5b's
+    # global and window-1024 layers (d 64, GQA 5:1), neither soft-capped:
+    # on the global layers SDPA computes the same function
+    for arch, heads, B, S, windows in (
+            ("nemotron-4-340b", NEMOTRON_HEADS, 2, 4096, (None,)),
+            ("hymba-1.5b", HYMBA_HEADS, 4, 2048, (None, 1024))):
+        Hq, Hkv, d = heads["Hq"], heads["Hkv"], heads["d"]
+        q, k, v = _k13_inputs(gen, B, Hq, Hkv, S, S, d, torch.bfloat16)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        for window in windows:
+            label = f"K13 d={d} " + ("global" if window is None
+                                     else f"window {window}")
+            kw = dict(causal=True, window=window, softcap=None, q_offset=0,
+                      scale=d ** -0.5)
+            flops = 4 * d * B * Hq * _attn_pairs(S, S, True, window)
+            lib = None
+            if window is None:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=True, scale=d ** -0.5,
+                    enable_gqa=True)
+            rows[label] = _lm_row(
+                f"{label} bf16 ({arch}: B={B}, Hq {Hq}, Hkv {Hkv}, S={S})",
+                lambda: FA.flash_attention_cuda(q, k, v, **kw),
+                lambda: ref.flash_attention_plain(q, k, v, **kw),
+                nbytes, flops, BF16_TENSOR_PEAK, bw_copy, calls=3, lib=lib)
+            o = FA.flash_attention_cuda(q, k, v, **kw)
+            want = ref.flash_attention_plain(q, k, v, **kw)
+            _check_k13(f"{arch} {label} at the serve shape", o, want)
+            rows[label]["max_abs_err"] = float((o.float() - want.float())
+                                               .abs().max())
+            del o, want
+            torch.cuda.empty_cache()
+        del q, k, v
+        torch.cuda.empty_cache()
     H, d = RWKV_HEADS["H"], RWKV_HEADS["d"]
     for label, T, state in (("prefill T=1024", 1024, False),
                             ("decode T=1", 1, True)):
@@ -3669,7 +3983,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     try:
-        name, smi_line = phase_device()
+        device_name, smi_line = phase_device()
         phase_build()
         bw = phase_copy_bandwidth()
         err = {"K1": phase_k1_parity()}
@@ -3690,6 +4004,7 @@ def main() -> int:
         phase_slice4_times(bw, slice4, rows)
         err.update(phase_bf16_parity())
         err.update(phase_bf16_sstep_pcg_parity())
+        err.update(phase_bf16_k1_k2_parity())
         err.update(phase_walk_parity())
         ir = phase_ir_routes(hist, v2_solve_ms)
         err.update(phase_bf16_cheb_pmg_block_parity())
@@ -3747,7 +4062,8 @@ def main() -> int:
         row = rows[(key, PAPER_GRID)]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[route][kname],
+            "replaces": replaces,
+            "launches": launches[route].of(f"{kname}_f64"),
             "max_abs_err": err[key], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -3769,7 +4085,8 @@ def main() -> int:
                 "name": f"{kname}_{mix}", "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{cu}",
                 "replaces": f"src/repro/kernels/nekbone_ax.py:{line}",
-                "launches": ir["launches"][f"{mix} {variant}"][kname],
+                "launches": ir["launches"][f"{mix} {variant}"].of(
+                    f"{kname}_{mix}"),
                 "max_abs_err": err[(key, mix)], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
@@ -3788,7 +4105,8 @@ def main() -> int:
                 "name": f"{kname}_{mix}", "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{cu}",
                 "replaces": f"src/repro/kernels/nekbone_ax.py:{line}",
-                "launches": slice12["launches"][f"{mix} {route}"][kname],
+                "launches": slice12["launches"][f"{mix} {route}"].of(
+                    f"{kname}_{mix}"),
                 "max_abs_err": err[(key, mix)], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
@@ -3801,30 +4119,64 @@ def main() -> int:
             "name": f"{kname}_f32", "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{cu}",
             "replaces": f"src/repro/kernels/nekbone_ax.py:{line}",
-            "launches": ir["launches"][f"f32_ir {variant}"][kname],
+            "launches": ir["launches"][f"f32_ir {variant}"].of(
+                f"{kname}_f32"),
             "max_abs_err": err[(key, "f32")], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms")})
-    lm = (("K13 global", "flash_attn", "src/repro_torch/kernels/csrc/"
-           "flash_attn.cu", "src/repro/kernels/flash_attn.py:32",
-           "gemma2-27b", "K13"),
+    # K1 and K2 in bf16: K1's bf16 build from the bf16 reference route (100
+    # launches); K1's bf16_ir build and K2's from the bf16 and bf16_ir v1
+    # routes (no route runs them, as in the reference: the ir route's K1
+    # is the fp64 build)
+    for mix in BF16_MIXES:
+        for key, kname, cu, line, label in (
+                ("K1", "nekbone_ax", "nekbone_ax.cu", 240,
+                 "bf16 reference" if mix == "bf16" else f"{mix} v1"),
+                ("K2", "nekbone_ax_dots", "nekbone_ax_dots.cu", 305,
+                 f"{mix} v1")):
+            row = rows[(f"{key} {mix}", PAPER_GRID)]
+            kernels.append({
+                "name": f"{kname}_{mix}", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{cu}",
+                "replaces": f"src/repro/kernels/nekbone_ax.py:{line}",
+                "launches": ir["launches"][label].of(f"{kname}_{mix}"),
+                "max_abs_err": err[(key, mix)], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms")})
+    flash = ("src/repro_torch/kernels/csrc/flash_attn.cu",
+             "src/repro/kernels/flash_attn.py:32")
+    # each K13 row is one layer kind of a served model, with its own launches
+    lm = (("K13 global", "flash_attn", *flash, "gemma2-27b",
+           "flash_attn_bf16_d128", err["K13"]),
+          ("K13 window 4096", "flash_attn_window4096", *flash, "gemma2-27b",
+           "flash_attn_bf16_d128_window4096", err["K13"]),
+          ("K13 d=192 global", "flash_attn_d192", *flash, "nemotron-4-340b",
+           "flash_attn_bf16_d192", None),
+          ("K13 d=64 global", "flash_attn_d64", *flash, "hymba-1.5b",
+           "flash_attn_bf16_d64", None),
+          ("K13 d=64 window 1024", "flash_attn_d64_window1024", *flash,
+           "hymba-1.5b", "flash_attn_bf16_d64_window1024", None),
           ("K14 prefill T=1024", "wkv6",
            "src/repro_torch/kernels/csrc/wkv6.cu",
-           "src/repro/kernels/wkv6.py:89", "rwkv6-1.6b", "K14"))
-    for key, kname, source, replaces, arch, ekey in lm:
+           "src/repro/kernels/wkv6.py:89", "rwkv6-1.6b", "wkv6_bf16",
+           err["K14"]))
+    for key, kname, source, replaces, arch, build, max_err in lm:
         row = lm_rows[key]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": served["launches"][arch][kname],
-            "max_abs_err": err[ekey], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "launches": served["launches"][arch].of(build),
+            "max_abs_err": (max_err if max_err is not None
+                            else row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -39,7 +39,7 @@ sys.path.insert(0, str(ROOT))
 SRC = ROOT / "src/repro_torch/kernels/csrc/flash_attn.cu"
 OUT = ROOT / "build/k13_ablation"
 
-BOUNDS = "__launch_bounds__(kThreads, kMinBlocks)\nflash_attn_tc_kernel"
+BOUNDS = "__launch_bounds__(kThreads, kMinBlocks<D>)\nflash_attn_tc_kernel"
 P_LO = """        mma(acc[j], pl, bv[0], bv[1]);
         mma(acc[j + 1], pl, bv[2], bv[3]);
 """
@@ -67,14 +67,14 @@ def variants(src: str) -> dict[str, str]:
     return {
         "built": src,
         "bounds unstated": _edit(src, BOUNDS, BOUNDS.replace(
-            ", kMinBlocks", "")),
+            ", kMinBlocks<D>", "")),
         "P once": _edit(src, P_LO, ""),
         "no softmax": no_softmax,
         "no softmax, P once": _edit(no_softmax, P_LO, ""),
         "32-key tiles": _edit(src, "constexpr int kBK = 64;",
                               "constexpr int kBK = 32;"),
         "8 warps": _edit(_edit(src, WARPS, WARPS.replace("4", "8")),
-                         "constexpr int kMinBlocks = 2;",
+                         "constexpr int kMinBlocks = D <= 128 ? 2 : 1;",
                          "constexpr int kMinBlocks = 1;"),
     }
 

@@ -113,8 +113,10 @@ def lm_params_from_reference(cfg, tree, *, device=None):
 
     ``tree`` is the reference's ``init_params(key, cfg)`` pytree with numpy
     (or array-like) leaves: nested dicts whose keys are the port's module
-    attribute names, the per-layer entries under ``"layers"`` stacked on a
-    leading L axis (``jax.vmap``), which is unstacked here.  Every port
+    attribute names (a hymba layer's ``mamba`` tree and its
+    ``norm_attn_out`` and ``norm_ssm_out`` included), the per-layer entries
+    under ``"layers"`` stacked on a leading L axis (``jax.vmap``), which is
+    unstacked here.  Every port
     parameter must be given, with its shape; dtypes follow
     ``cfg.param_dtype``.  ``device`` is the card unless given.
     """

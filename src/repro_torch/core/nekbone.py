@@ -72,10 +72,10 @@ class NekboneCase:
                Non-refined policies also set ``dtype`` to the storage
                dtype; a refined one keeps ``dtype`` as the outer precision
                and sends fixed-iteration solves of the fused pipelines to
-               the ``ir`` route.  On the card bf16 runs over v2, v1,
-               s-step, Jacobi-, Chebyshev- and pmg-PCG and block CG (K3
-               to K12 in bf16); ``reference`` over K1 raises (ROADMAP.md
-               queue 2).
+               the ``ir`` route.  On the card bf16 runs over every
+               route: ``reference`` (K1), v2, v1, s-step, Jacobi-,
+               Chebyshev- and pmg-PCG and block CG (K1 to K12 in
+               bf16).
       s:       iterations per s-step cycle (the 'pallas_sstep_v3' knob;
                ignored by every other ax_impl).
       precond: None | 'jacobi' | 'cheb' (optionally 'cheb<k>') | 'pmg'

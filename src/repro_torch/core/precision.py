@@ -15,18 +15,18 @@ Named policies::
     f32_ir   f32 storage, f32 accum, refined
     bf16_ir  bf16 vectors, f32 accum + x + metric, refined
 
-What runs on the card: every kernel in ``f64`` and ``f32``; K4, K5 (v2),
-K3 (v1), K8, K9 (s-step), K10 (Jacobi-PCG), K11 (Chebyshev-PCG), K11
-with K12 (pmg-PCG) and K6, K7 (block CG) also in two bf16 builds,
-``bf16`` (every operand bf16) and ``bf16_ir`` (bf16 vectors; x and the
-operator's data in f32), both accumulating in f32.  The refined policies
+What runs on the card: every kernel, K1 to K12, in ``f64``, ``f32`` and
+two bf16 builds, ``bf16`` (every operand bf16) and ``bf16_ir`` (bf16
+vectors; x and the operator's data in f32), both accumulating in f32:
+K1 (reference CG), K4, K5 (v2), K3 (v1), K8, K9 (s-step), K10
+(Jacobi-PCG), K11 (Chebyshev-PCG), K11 with K12 (pmg-PCG) and K6, K7
+(block CG); K2 has no route, as in the reference.  The refined policies
 run the ``ir`` route (``cg_fused.cg_ir_fixed_iters``) over v2, v1 and
 s-step; with a preconditioner or b > 1 a refined case routes elsewhere,
 as the reference's does, so ``bf16_ir`` reaches K6, K7, K11 and K12
 through the drivers (``precond.pcg_fused_v2_fixed_iters``,
-``cg_block.cg_block_fixed_iters``).  bf16 on ``reference`` (K1) raises on
-the card: K1's and K2's bf16 builds are ROADMAP.md queue 2.  On the CPU
-every policy runs the plain versions.
+``cg_block.cg_block_fixed_iters``).  On the CPU every policy runs the
+plain versions.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ Each ``csrc/<stem>.cu`` becomes one shared library with a plain C
 interface (loaded with ``ctypes``) per dtype of :data:`SOURCES` — ``f64``
 and ``f32`` for the Nekbone kernels, and ``bf16`` and ``bf16_ir`` (the two
 operand mixes of the bf16 policies: every operand bf16, or bf16 vectors
-with x and the operator's data in f32) for K3 to K12; ``f32`` and
-``bf16`` for the LM kernels (K13 ``flash_attn``, K14 ``wkv6``) — compiled
+with x and the operator's data in f32) for all of them, K1 to K12; ``f32``
+and ``bf16`` for the LM kernels (K13 ``flash_attn``, K14 ``wkv6``) — compiled
 for Hopper only::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
@@ -14,8 +14,8 @@ for Hopper only::
 
 The macro (``-DNEKBONE_REAL_BF16_IR`` for ``bf16_ir``) keeps only that
 dtype's C entry points ``<stem>_f64`` (or ``_f32``, ``_bf16``,
-``_bf16_ir``; ``nekbone_ax_dots`` also exports ``nekbone_ax_pap_<dtype>``,
-and only that one in its bf16 builds), and with them that dtype's
+``_bf16_ir``; ``nekbone_ax_dots`` also exports ``nekbone_ax_pap_<dtype>``),
+and with them that dtype's
 template instantiations, so the builds run in parallel.  The macro keeps its
 first slice's name (``NEKBONE_REAL_``) for every source, so a library's
 name and flags depend only on its stem and dtype.  The libraries go to
@@ -36,27 +36,19 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["CSRC", "SOURCES", "DTYPES", "BF16_NEKBONE", "NVCC_FLAGS",
-           "LAUNCHES", "reset_launches", "split_name", "build_dir",
-           "nvcc_path", "build_all", "load", "launch"]
+__all__ = ["CSRC", "SOURCES", "DTYPES", "NVCC_FLAGS",
+           "LAUNCHES", "BUILD_LAUNCHES", "reset_launches", "split_name",
+           "build_dir", "nvcc_path", "build_all", "load", "launch"]
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 _NEKBONE = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
             "nekbone_pcg_update", "nekbone_cheb_apply", "nekbone_interp",
             "nekbone_ax_slab_block", "nekbone_cg_update_block",
             "nekbone_ax_dots", "nekbone_ax_powers", "nekbone_sstep_update")
-# The Nekbone stems with bf16 builds (K3 to K12: K2 shares K3's source but
-# has no bf16 entry); K1 and K2 wait in ROADMAP.md queue 2.
-BF16_NEKBONE = ("nekbone_ax_slab", "nekbone_cg_update", "nekbone_ax_dots",
-                "nekbone_ax_powers", "nekbone_sstep_update",
-                "nekbone_pcg_update", "nekbone_cheb_apply", "nekbone_interp",
-                "nekbone_ax_slab_block", "nekbone_cg_update_block")
-# {stem: the dtypes it is built for}: one library per pair.
-SOURCES = {**{stem: ("f64", "f32") + (("bf16", "bf16_ir")
-                                      if stem in BF16_NEKBONE else ())
-              for stem in _NEKBONE},
-           "flash_attn": ("f32", "bf16"), "wkv6": ("f32", "bf16")}
 DTYPES = ("f64", "f32", "bf16", "bf16_ir")
+# {stem: the dtypes it is built for}: one library per pair.
+SOURCES = {**{stem: DTYPES for stem in _NEKBONE},
+           "flash_attn": ("f32", "bf16"), "wkv6": ("f32", "bf16")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,11 +62,16 @@ LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
             "nekbone_cg_update_block": 0, "nekbone_ax_pap": 0,
             "nekbone_ax_dots": 0, "nekbone_ax_powers": 0,
             "nekbone_sstep_update": 0, "flash_attn": 0, "wkv6": 0}
+# The same launches by the build that ran: {C entry point (``<stem>_<dtype>``)
+# and the launch's detail, if any (K13 adds its head size and window,
+# ``flash_attn_bf16_d64_window1024``): count}, for the launched keys only.
+BUILD_LAUNCHES: dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    BUILD_LAUNCHES.clear()
 
 
 def split_name(name: str) -> tuple[str, str]:
@@ -174,11 +171,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, argtypes: list, device, args, *,
-           library: str | None = None) -> None:
+           library: str | None = None, detail: str = "") -> None:
     """Call the C entry point ``name`` (``<stem>_<dtype>``) of ``library``
     (by default the library of that name) with ``args`` and the current
     stream of ``device``; raise if it returns a CUDA error, else add one to
-    ``LAUNCHES[<stem>]``."""
+    ``LAUNCHES[<stem>]`` and to ``BUILD_LAUNCHES[name + detail]``."""
     import torch
 
     fn = getattr(load(library or name), name)
@@ -192,3 +189,4 @@ def launch(name: str, argtypes: list, device, args, *,
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
     LAUNCHES[split_name(name)[0]] += 1
+    BUILD_LAUNCHES[name + detail] = BUILD_LAUNCHES.get(name + detail, 0) + 1

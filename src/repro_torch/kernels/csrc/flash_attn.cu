@@ -26,8 +26,9 @@
 //
 // f32 (flash_attn_f32, flash_attn_kernel): four warps per block, 4 rows per
 // warp.  The block stages the q tile once and one 32-key tile of K and V at
-// a time in shared memory (converted to f32; K rows padded so that the
-// lanes' float4 reads of different rows fall in different banks).  Lane l
+// a time in dynamic shared memory (converted to f32; K rows padded so that
+// the lanes' float4 reads of different rows fall in different banks; 62.5
+// KB at hd = 192, past the 48 KB a static array may take).  Lane l
 // scores key l of the tile against each of its warp's rows; the row max
 // and sum are warp shuffles; the p row goes through shared memory, and
 // lane l then accumulates the output columns l, l + 32, ... of each row in
@@ -43,13 +44,17 @@
 // * K and V arrive by cp.async.cg 16-byte copies into a two-stage ring in
 //   dynamic shared memory (Q 17 KB, K and V 17 KB each per stage at
 //   hd = 128: 85 KB, hence cudaFuncSetAttribute; two blocks of 219
-//   registers a thread share an SM); rows are padded by 8 elements (16
+//   registers a thread share an SM up to hd = 128, one block at hd = 192,
+//   whose 125 KB leave no room for a second); rows are padded by 8 elements (16
 //   bytes), so the 8 rows of an ldmatrix fall in 8 different bank groups;
 //   rows past Sq or Skv are zero-filled (src-size 0), never read.  Tile
 //   t + 1 is in flight while tile t is computed.
 // * S = Q K^T: Q's fragments are loaded once by ldmatrix and kept in
-//   registers; K's by ldmatrix; bf16 x bf16 products are exact in f32, so
-//   the scores lose nothing against f32 arithmetic on the same bf16 inputs.
+//   registers (at hd = 192 their 48 registers beside the O accumulator's
+//   96 spill 64 bytes; loading them again for each key tile spills
+//   nothing but runs no faster on an H100, scripts/k1_k2_k13_compare.py);
+//   K's by ldmatrix; bf16 x bf16 products are exact in f32, so the scores
+//   lose nothing against f32 arithmetic on the same bf16 inputs.
 // * The softmax runs in registers on the accumulator layout: a thread holds
 //   two rows (g and g + 8 of its warp's 16) and 16 keys of each, the row
 //   max and sum are two quad shuffles; scores are kept in log2 units, so
@@ -66,9 +71,11 @@
 //   then fails every output well below the typical size.  The split costs
 //   half as many MMAs again (6 hd instead of 4 hd per pair).
 //
-// D (the head size) is a template parameter of both kernels, 16 or 128.
-// The CUDA-core kernel takes the storage type T of q, k, v and o as a
-// parameter too, and is built for float.
+// D (the head size) is a template parameter of both kernels, 16, 64, 128
+// or 192 (NEKBONE_FOR_EACH_HEAD_DIM): 128 is gemma2's, 64 hymba's and
+// whisper's, 192 nemotron-4's, 16 the reduced configs'.  The CUDA-core
+// kernel takes the storage type T of q, k, v and o as a parameter too, and
+// is built for float.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -97,6 +104,10 @@ constexpr int kBQ = kWarps * kRows;    // query rows per block
 constexpr int kBK = 32;                // keys per tile: one per lane
 constexpr float kNegInf = -1e30f;      // the reference's _NEG_INF
 
+// The head sizes both kernels are instantiated for (kernels/flash_attn.py
+// HEAD_DIMS).
+#define NEKBONE_FOR_EACH_HEAD_DIM(X) X(16) X(64) X(128) X(192)
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -116,17 +127,31 @@ struct Mask {
   float scale, cap;
 };
 
+// Dynamic shared memory of flash_attn_kernel, in floats: the q tile, the K
+// tile (rows padded to D + 4), the V tile and the p rows of the warps.
+template <int D>
+struct F32Smem {
+  static constexpr int kKS = D + 4;
+  static constexpr int kQ = kBQ * D;
+  static constexpr int kK = kBK * kKS;
+  static constexpr int kV = kBK * D;
+  static constexpr int kP = kWarps * kRows * kBK;
+  static constexpr int kBytes = (kQ + kK + kV + kP) * 4;
+};
+
 template <int D, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
                   int Sq, int q_offset, Mask mk) {
-  constexpr int KS = D + 4;            // padded K row (16-byte aligned)
+  using L = F32Smem<D>;
+  constexpr int KS = L::kKS;           // padded K row (16-byte aligned)
   constexpr int NC = (D + 31) / 32;    // output columns per lane
-  __shared__ __align__(16) float qs[kBQ][D];
-  __shared__ __align__(16) float ks[kBK][KS];
-  __shared__ float vs[kBK][D];
-  __shared__ float ps[kWarps][kRows][kBK];
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qs = smem_f32;                // [kBQ][D]
+  float* ks = qs + L::kQ;              // [kBK][KS]
+  float* vs = ks + L::kK;              // [kBK][D]
+  float* ps = vs + L::kV;              // [kWarps][kRows][kBK]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -142,7 +167,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int idx = tid; idx < kBQ * D; idx += kWarps * 32) {
     const int row = idx / D, c = idx % D;
-    qs[row][c] = q0 + row < Sq
+    qs[row * D + c] = q0 + row < Sq
                      ? to_f32(qb[static_cast<size_t>(q0 + row) * D + c])
                      : 0.f;
   }
@@ -173,8 +198,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int key = idx / D, c = idx % D;
       const bool in = kt + key < mk.Skv;
       const size_t at = static_cast<size_t>(kt + key) * D + c;
-      ks[key][c] = in ? to_f32(kb[at]) : 0.f;
-      vs[key][c] = in ? to_f32(vb[at]) : 0.f;
+      ks[key * KS + c] = in ? to_f32(kb[at]) : 0.f;
+      vs[key * D + c] = in ? to_f32(vb[at]) : 0.f;
     }
     __syncthreads();
 
@@ -183,11 +208,11 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < kRows; ++r) s[r] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < D; c += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(&ks[lane][c]);
+      const float4 kk = *reinterpret_cast<const float4*>(&ks[lane * KS + c]);
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float4 qq =
-            *reinterpret_cast<const float4*>(&qs[warp * kRows + r][c]);
+            *reinterpret_cast<const float4*>(&qs[(warp * kRows + r) * D + c]);
         s[r] = fmaf(qq.x, kk.x, s[r]);
         s[r] = fmaf(qq.y, kk.y, s[r]);
         s[r] = fmaf(qq.z, kk.z, s[r]);
@@ -211,7 +236,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m[r] - m_new);
       l[r] = l[r] * corr + warp_sum(p);
       m[r] = m_new;
-      ps[warp][r][lane] = p;
+      ps[(warp * kRows + r) * kBK + lane] = p;
 #pragma unroll
       for (int j = 0; j < NC; ++j) acc[r][j] *= corr;
     }
@@ -219,12 +244,12 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int key = 0; key < kBK; ++key) {
       float pk[kRows];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) pk[r] = ps[warp][r][key];
+      for (int r = 0; r < kRows; ++r) pk[r] = ps[(warp * kRows + r) * kBK + key];
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
         const int c = lane + 32 * j;
         if (c < D) {
-          const float vv = vs[key][c];
+          const float vv = vs[key * D + c];
 #pragma unroll
           for (int r = 0; r < kRows; ++r) acc[r][j] = fmaf(pk[r], vv, acc[r][j]);
         }
@@ -247,6 +272,20 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <int D, typename T>
+int launch_f32(dim3 grid, const T* q, const T* k, const T* v, T* o, int Hq,
+               int Hkv, int Sq, int q_offset, const Mask& mk,
+               cudaStream_t s) {
+  constexpr int bytes = F32Smem<D>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attn_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attn_kernel<D, T><<<grid, kWarps * 32, bytes, s>>>(
+      q, k, v, o, Hq, Hkv, Sq, q_offset, mk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch(const T* q, const T* k, const T* v, T* o, int B, int Hq,
              int Hkv, int Sq, int Skv, int d, float scale, int causal,
@@ -259,18 +298,14 @@ int dispatch(const T* q, const T* k, const T* v, T* o, int B, int Hq,
                   static_cast<unsigned>(B) * static_cast<unsigned>(Hq));
   const Mask mk{Skv, causal, has_window, window, has_cap, scale, cap};
   switch (d) {
-    case 16:
-      flash_attn_kernel<16, T><<<grid, kWarps * 32, 0, s>>>(
-          q, k, v, o, Hq, Hkv, Sq, q_offset, mk);
-      break;
-    case 128:
-      flash_attn_kernel<128, T><<<grid, kWarps * 32, 0, s>>>(
-          q, k, v, o, Hq, Hkv, Sq, q_offset, mk);
-      break;
+#define LM_CASE(D) \
+  case D:          \
+    return launch_f32<D, T>(grid, q, k, v, o, Hq, Hkv, Sq, q_offset, mk, s);
+    NEKBONE_FOR_EACH_HEAD_DIM(LM_CASE)
+#undef LM_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 
@@ -285,11 +320,13 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBQ = 16 * kWarps;       // query rows per block, 16 per warp
 constexpr int kBK = 64;                // keys per tile
-// Two blocks per SM (85 KB of shared memory each at hd = 128).  Stating it
-// lets ptxas spend up to 255 registers a thread (it takes 219); left to
-// its own heuristic it stops at 177 and the kernel runs a fifth slower
-// on an H100.
-constexpr int kMinBlocks = 2;
+// Two blocks per SM up to hd = 128 (85 KB of shared memory each at hd =
+// 128).  Stating it lets ptxas spend up to 255 registers a thread (it takes
+// 219 at hd = 128); left to its own heuristic it stops at 177 and the
+// kernel runs a fifth slower on an H100.  At hd = 192 a block takes 125 KB,
+// so one fits an SM.
+template <int D>
+constexpr int kMinBlocks = D <= 128 ? 2 : 1;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Dynamic shared memory: the q tile, then a ring of two stages, each a K
@@ -394,7 +431,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
 flash_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      int Hq, int Hkv, int Sq, int q_offset, Mask mk) {
@@ -603,12 +640,25 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mk{Skv, causal, has_window, window, has_cap, scale, cap};
   switch (d) {
-    case 16:
-      return launch<16>(q, k, v, o, B, Hq, Hkv, Sq, q_offset, mk, s);
-    case 128:
-      return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, q_offset, mk, s);
+#define LM_CASE(D) \
+  case D:          \
+    return launch<D>(q, k, v, o, B, Hq, Hkv, Sq, q_offset, mk, s);
+    NEKBONE_FOR_EACH_HEAD_DIM(LM_CASE)
+#undef LM_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int smem_bytes(int d) {
+  switch (d) {
+#define LM_CASE(D) \
+  case D:          \
+    return Smem<D>::kBytes;
+    NEKBONE_FOR_EACH_HEAD_DIM(LM_CASE)
+#undef LM_CASE
+    default:
+      return 0;
   }
 }
 
@@ -630,6 +680,20 @@ extern "C" int flash_attn_f32(const float* q, const float* k, const float* v,
                              causal, has_window, window, has_cap, cap,
                              q_offset, stream);
 }
+
+// Dynamic shared memory of flash_attn_f32's block at head size d (0 for a
+// size it is not built for).
+extern "C" int flash_attn_f32_smem_bytes(int d) {
+  switch (d) {
+#define LM_CASE(D) \
+  case D:          \
+    return lm::F32Smem<D>::kBytes;
+    NEKBONE_FOR_EACH_HEAD_DIM(LM_CASE)
+#undef LM_CASE
+    default:
+      return 0;
+  }
+}
 #endif
 
 #ifdef NEKBONE_REAL_BF16
@@ -647,7 +711,6 @@ extern "C" int flash_attn_bf16(const __nv_bfloat16* q,
 // Dynamic shared memory of flash_attn_bf16's block at head size d (0 for a
 // size it is not built for).
 extern "C" int flash_attn_bf16_smem_bytes(int d) {
-  return d == 16 ? lm::tc::Smem<16>::kBytes
-                 : d == 128 ? lm::tc::Smem<128>::kBytes : 0;
+  return lm::tc::smem_bytes(d);
 }
 #endif

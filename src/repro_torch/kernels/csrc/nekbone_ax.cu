@@ -24,22 +24,30 @@
 // with K2 and K3 (nekbone_ax_dots.cu).  It is a first, simple version: no
 // TMA, no prefetch of the next layer's metric, one element per block.
 //
-// n is a template parameter (2..16, dispatched at run time); T is float or
-// double, and the kernel accumulates in T (the reference's _accum rule for
-// f32 and f64 storage).  bf16 is not built.
+// n is a template parameter (2..16, dispatched at run time).  The storage
+// roles are common.cuh's: S for u and w, O for D and the six metric fields,
+// and A = accum_t<S> for the arithmetic (the reference's _accum rule).  Four
+// builds: f64 and f32 (one type throughout, so every convert is the
+// identity and the arithmetic is the single-type kernel's), bf16 (S = O =
+// bf16, A = f32) and bf16_ir (S = bf16, O = A = f32).  u and the metric are
+// upcast on load, the whole operator runs in A, and w is rounded to S once,
+// on store, as the TPU kernel does (w_ref[...] = w.astype(w_ref.dtype)).
+// In bf16 K1 moves 16 bytes a node (u, 6 metric fields, w), in bf16_ir 28
+// (the metric in f32).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace nekbone {
 
-template <int N, typename T>
+template <int N, typename S, typename O>
 __global__ void __launch_bounds__(N * N)
-nekbone_ax_kernel(const T* __restrict__ u, const T* __restrict__ D,
-                  const T* __restrict__ g, T* __restrict__ w) {
+nekbone_ax_kernel(const S* __restrict__ u, const O* __restrict__ D,
+                  const O* __restrict__ g, S* __restrict__ w) {
+  using A = accum_t<S>;
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
-  __shared__ AxShared<N, T> sh;
+  __shared__ AxShared<N, A> sh;
 
   const int i = threadIdx.x;
   const int j = threadIdx.y;
@@ -47,31 +55,31 @@ nekbone_ax_kernel(const T* __restrict__ u, const T* __restrict__ D,
   const size_t base = e * N3 + j * N + i;
 
   load_D(sh, D, i, j);
-  T uc[N];
-  T wc[N];
+  A uc[N];
+  A wc[N];
 #pragma unroll
-  for (int k = 0; k < N; ++k) uc[k] = u[base + k * N2];
+  for (int k = 0; k < N; ++k) uc[k] = convert<A>(u[base + k * N2]);
   ax_full_columns(sh, g + e * 6 * N3 + j * N + i, uc, wc, i, j);
 #pragma unroll
-  for (int k = 0; k < N; ++k) w[base + k * N2] = wc[k];
+  for (int k = 0; k < N; ++k) w[base + k * N2] = convert<S>(wc[k]);
 }
 
-template <int N, typename T>
-cudaError_t launch(const T* u, const T* D, const T* g, T* w, int E,
+template <int N, typename S, typename O>
+cudaError_t launch(const S* u, const O* D, const O* g, S* w, int E,
                    cudaStream_t stream) {
-  nekbone_ax_kernel<N, T><<<E, dim3(N, N), 0, stream>>>(u, D, g, w);
+  nekbone_ax_kernel<N, S, O><<<E, dim3(N, N), 0, stream>>>(u, D, g, w);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const T* u, const T* D, const T* g, T* w, int E, int n,
+template <typename S, typename O>
+int dispatch(const S* u, const O* D, const O* g, S* w, int E, int n,
              void* stream) {
   if (E <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
 #define NEKBONE_CASE(N) \
   case N:               \
-    return static_cast<int>(launch<N, T>(u, D, g, w, E, s));
+    return static_cast<int>(launch<N, S, O>(u, D, g, w, E, s));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -81,19 +89,26 @@ int dispatch(const T* u, const T* D, const T* g, T* w, int E, int n,
 
 }  // namespace nekbone
 
-// u, w: (E, n^3); D: (n, n); g: (E, 6, n^3); all contiguous, on `stream`.
-// Returns cudaGetLastError() after the launch (0 on success).
-#ifdef NEKBONE_REAL_F64
-extern "C" int nekbone_ax_f64(const double* u, const double* D,
-                              const double* g, double* w, int E, int n,
-                              void* stream) {
-  return nekbone::dispatch<double>(u, D, g, w, E, n, stream);
-}
-#endif
+// u, w: (E, n^3) in S; D: (n, n) and g: (E, 6, n^3) in O; all contiguous,
+// on `stream`.  Returns cudaGetLastError() after the launch (0 on success).
+#define NEKBONE_AX_ENTRY(SUFFIX, S, O)                                       \
+  extern "C" int nekbone_ax_##SUFFIX(const void* u, const void* D,           \
+                                     const void* g, void* w, int E, int n,   \
+                                     void* stream) {                         \
+    return nekbone::dispatch<S, O>(                                          \
+        static_cast<const S*>(u), static_cast<const O*>(D),                  \
+        static_cast<const O*>(g), static_cast<S*>(w), E, n, stream);         \
+  }
 
+#ifdef NEKBONE_REAL_F64
+NEKBONE_AX_ENTRY(f64, double, double)
+#endif
 #ifdef NEKBONE_REAL_F32
-extern "C" int nekbone_ax_f32(const float* u, const float* D, const float* g,
-                              float* w, int E, int n, void* stream) {
-  return nekbone::dispatch<float>(u, D, g, w, E, n, stream);
-}
+NEKBONE_AX_ENTRY(f32, float, float)
+#endif
+#ifdef NEKBONE_REAL_BF16
+NEKBONE_AX_ENTRY(bf16, __nv_bfloat16, __nv_bfloat16)
+#endif
+#ifdef NEKBONE_REAL_BF16_IR
+NEKBONE_AX_ENTRY(bf16_ir, __nv_bfloat16, float)
 #endif

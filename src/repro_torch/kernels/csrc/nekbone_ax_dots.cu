@@ -48,10 +48,11 @@
 // the operator's data (D, metric) and the accumulation type A (the
 // arithmetic, the partials).  K3 has four builds: f64 and f32 (one type
 // throughout), bf16 (S = O = bf16, A = f32) and bf16_ir (S = bf16, O = A =
-// f32).  pap is taken over the unrounded w in A, and w leaves rounded to S,
-// as the TPU kernel does.  K2 is built for f64 and f32 only: no route
-// launches it.  K3 moves 18 bytes per node in bf16 (p, 6 metric fields,
-// mask, w) and 30 in bf16_ir (the metric in f32).
+// f32), and so has K2.  pap and rcz are taken in A (over the unrounded w,
+// and r and c upcast) and leave in A, the reference's _accum rule; w leaves
+// rounded to S, as the TPU kernel does.  K3 moves 18 bytes per node in
+// bf16 (p, 6 metric fields, mask, w) and 30 in bf16_ir (the metric in f32);
+// K2 22 and 34 (r and c too).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -308,7 +309,9 @@ NEKBONE_AX_DOTS_ENTRY(f32, float, float, float)
 #endif
 #ifdef NEKBONE_REAL_BF16
 NEKBONE_AX_PAP_ENTRY(bf16, __nv_bfloat16, __nv_bfloat16, float)
+NEKBONE_AX_DOTS_ENTRY(bf16, __nv_bfloat16, __nv_bfloat16, float)
 #endif
 #ifdef NEKBONE_REAL_BF16_IR
 NEKBONE_AX_PAP_ENTRY(bf16_ir, __nv_bfloat16, float, float)
+NEKBONE_AX_DOTS_ENTRY(bf16_ir, __nv_bfloat16, float, float)
 #endif

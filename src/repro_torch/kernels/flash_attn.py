@@ -9,13 +9,15 @@ rows x 32-key tiles).  :func:`flash_attention_cuda`:
 
 * for tensors on the CPU, returns the plain PyTorch version
   (:func:`repro_torch.kernels.ref.flash_attention_plain`) — the tests' path;
-* for CUDA tensors, checks device, dtype (float32 or bfloat16, the same for
-  q, k and v), shapes, the head size (16 or 128, the sizes it is built for),
-  contiguity and 16-byte alignment (the bf16 kernel copies rows in 16-byte
+* for any other tensors, checks the dtype (float32 or bfloat16, the same
+  for q, k and v) and the head size (16, 64, 128 or 192, the sizes it is
+  built for), then the device (a CUDA device), shapes, contiguity and
+  16-byte alignment (the bf16 kernel copies rows in 16-byte
   pieces; a misaligned tensor raises, it is not copied), allocates the
   output, launches the kernel on the current stream, raises if the launch
-  returned an error, and adds one to ``LAUNCHES["flash_attn"]``
-  (kernels/_build.py).  There is no fallback.
+  returned an error, and adds one to ``LAUNCHES["flash_attn"]`` and to
+  the build's count by head size and window (``BUILD_LAUNCHES``,
+  kernels/_build.py).  There is no fallback.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from repro_torch.kernels.ref import flash_attention_plain
 
 __all__ = ["HEAD_DIMS", "flash_attention_cuda"]
 
-HEAD_DIMS = (16, 128)          # the head sizes the kernel is built for
+# the head sizes the kernel is built for: the reduced configs', hymba's,
+# gemma2's and nemotron-4's
+HEAD_DIMS = (16, 64, 128, 192)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, o; B, Hq, Hkv, Sq, Skv, d; scale; causal, has_window, window,
@@ -45,9 +49,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      window=window, softcap=softcap,
                                      q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attn: tensors must be on the CPU or a CUDA "
-                         f"device, got {q.device}")
     if q.dtype not in _SUFFIX:
         raise NotImplementedError(f"flash_attn: the CUDA kernel is built for "
                                   f"float32 and bfloat16, not {q.dtype}")
@@ -56,6 +57,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"flash_attn: head size {d} is not one of "
                                   f"the built sizes {HEAD_DIMS}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attn: tensors must be on the CPU or a CUDA "
+                         f"device, got {q.device}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attn: {Hq} query heads over {Hkv} kv heads")
     for name, t, shape in (("k", k, (B, Hkv, Skv, d)),
@@ -80,5 +84,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq, Hkv,
          Sq, Skv, d, float(scale), int(causal), int(window is not None),
          int(window or 0), int(softcap is not None), float(softcap or 0.0),
-         int(q_offset)))
+         int(q_offset)),
+        detail=f"_d{d}" + ("" if window is None else f"_window{window}"))
     return o

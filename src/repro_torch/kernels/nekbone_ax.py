@@ -41,12 +41,11 @@ Every wrapper takes the kernel's flat operands ((E, n^3) fields, or
   ``_build.LAUNCHES``.
   There is no fallback: a CUDA tensor the kernel does not take raises.
 
-Every kernel is built for f64 and f32, one dtype for all operands.  K3 to
-K12 also take the two bf16 operand mixes of :data:`MIXES` — ``bf16``
-(every operand bf16) and ``bf16_ir`` (bf16 vectors; x and the operator's
-data in f32) — with f32 scalars, partials and (K8, K11) unassembled
-operator outputs and recurrence state; the dtype of each operand picks
-the build.  K1 and K2 raise for bf16 (ROADMAP.md queue 2).
+Every kernel is built for f64 and f32, one dtype for all operands, and
+for the two bf16 operand mixes of :data:`MIXES` — ``bf16`` (every operand
+bf16) and ``bf16_ir`` (bf16 vectors; x and the operator's data in f32) —
+with f32 scalars, partials and (K8, K11) unassembled operator outputs and
+recurrence state; the dtype of each operand picks the build.
 
 The kernels are built from the sources at first use (kernels/_build.py).
 """
@@ -107,8 +106,7 @@ SSTEP_MAX_S = 10
 # and c fields or factors), X the solution x, O the operator's data (D, the
 # metric, K10's invd, K12's transfer matrix), A the scalars (alpha, beta,
 # 1/theta, the s-step and Chebyshev coefficients) and the partials.  f64
-# and f32 are one dtype throughout; the bf16 mixes accumulate in f32 and
-# are built for the stems of _BF16_STEMS only.
+# and f32 are one dtype throughout; the bf16 mixes accumulate in f32.
 _F64, _F32, _BF16 = torch.float64, torch.float32, torch.bfloat16
 MIXES = {
     "f64": dict(S=_F64, X=_F64, O=_F64, A=_F64),
@@ -116,12 +114,6 @@ MIXES = {
     "bf16": dict(S=_BF16, X=_BF16, O=_BF16, A=_F32),
     "bf16_ir": dict(S=_BF16, X=_F32, O=_F32, A=_F32),
 }
-_BF16_STEMS = frozenset({"nekbone_ax_slab", "nekbone_cg_update",
-                         "nekbone_ax_pap", "nekbone_ax_powers",
-                         "nekbone_sstep_update", "nekbone_pcg_update",
-                         "nekbone_cheb_apply", "nekbone_interp",
-                         "nekbone_ax_slab_block",
-                         "nekbone_cg_update_block"})
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers, then the ints, then the stream.
 _ARGTYPES = {
@@ -148,9 +140,9 @@ def build_for(stem: str, **tensors: tuple) -> str:
     Each operand is ``(tensor, shape)`` or ``(tensor, shape, role)``, the
     role a key of a ``MIXES`` entry (``S`` when omitted); the first ``S``
     operand's dtype selects the storage, and every operand must then match
-    one build role by role.  bf16 storage raises ``NotImplementedError``
-    for a kernel without a bf16 build; a dtype that matches no build raises
-    ``TypeError``.  The answer is cached by the operands' (name, role,
+    one build role by role.  A storage dtype no build has (float16, say)
+    raises ``NotImplementedError``; a mix of dtypes that matches no build
+    raises ``TypeError``.  The answer is cached by the operands' (name, role,
     dtype), so a launch pays for one tuple and one lookup.
     """
     return _build_for(stem, tuple(
@@ -161,15 +153,11 @@ def build_for(stem: str, **tensors: tuple) -> str:
 @functools.lru_cache(maxsize=None)
 def _build_for(stem: str, signature: tuple) -> str:
     storage = next(dtype for _, role, dtype in signature if role == "S")
-    if storage == torch.bfloat16 and stem not in _BF16_STEMS:
-        raise NotImplementedError(
-            f"{stem}: the CUDA kernel has no bf16 build yet (built in bf16: "
-            "K3 to K12; K1 and K2 are ROADMAP.md queue 2)")
     mixes = [m for m, dt in MIXES.items() if dt["S"] == storage]
     if not mixes:
         raise NotImplementedError(
-            f"{stem}: the CUDA kernel is built for float64, float32 and (K3 "
-            f"to K12) bfloat16 storage, not {storage} (ROADMAP.md queue 2)")
+            f"{stem}: the CUDA kernel is built for float64, float32 and "
+            f"bfloat16 storage, not {storage}")
     mix = next((m for m in mixes if all(
         dtype == MIXES[m][role] for _, role, dtype in signature)), None)
     if mix is None:
@@ -211,13 +199,17 @@ def _launch(stem: str, mix: str, device: torch.device, tensors,
 
 def nekbone_ax_cuda(u2: torch.Tensor, D: torch.Tensor, g2: torch.Tensor, *,
                     n: int) -> torch.Tensor:
-    """K1: ``w = D^T G D u``.  u2: (E, n^3); D: (n, n); g2: (E, 6, n^3)."""
+    """K1: ``w = D^T G D u``.  u2: (E, n^3); D: (n, n); g2: (E, 6, n^3).
+
+    Builds by operand dtype (:data:`MIXES`): u2 in S, D and g2 in O.
+    Returns ``w`` in S, computed in A and rounded once.
+    """
     if u2.device.type == "cpu":
         return nekbone_ax_plain(u2, D, g2, n=n)
     E = u2.shape[0]
     n3 = n ** 3
     mix = _check("nekbone_ax", n, u2.device, u2=(u2, (E, n3)),
-                 D=(D, (n, n)), g2=(g2, (E, 6, n3)))
+                 D=(D, (n, n), "O"), g2=(g2, (E, 6, n3), "O"))
     w2 = torch.empty_like(u2)
     _launch("nekbone_ax", mix, u2.device, (u2, D, g2, w2), (E, n))
     return w2
@@ -855,20 +847,22 @@ def nekbone_ax_dots_cuda(p2, D, g2, mask2, r2, c2, *, n: int):
     """K2: K3 plus per-element ``r·c·r`` partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_ax_dots_plain`; K3's
-    plan (:func:`k3_plan`), r and c read from device memory.
-    Returns ``(w, pap, rcz)`` with ``pap`` and ``rcz`` of shape (E,).
+    plan (:func:`k3_plan`), r and c read from device memory.  Builds by
+    operand dtype (:data:`MIXES`): p2, mask2, r2 and c2 in S, D and g2 in
+    O.  Returns ``(w, pap, rcz)`` with ``w`` unassembled in S and ``pap``
+    and ``rcz`` of shape (E,) in A.
     """
     if p2.device.type == "cpu":
         return nekbone_ax_dots_plain(p2, D, g2, mask2, r2, c2, n=n)
     E = p2.shape[0]
     n3 = n ** 3
     mix = _check("nekbone_ax_dots", n, p2.device, p2=(p2, (E, n3)),
-                 D=(D, (n, n)), g2=(g2, (E, 6, n3)), mask2=(mask2, (E, n3)),
-                 r2=(r2, (E, n3)), c2=(c2, (E, n3)))
+                 D=(D, (n, n), "O"), g2=(g2, (E, 6, n3), "O"),
+                 mask2=(mask2, (E, n3)), r2=(r2, (E, n3)), c2=(c2, (E, n3)))
     plan = _walk_launch_plan("nekbone_ax_dots", k3_plan, E, n, mix,
                              p2.device, (p2, g2, mask2))
     w2 = torch.empty_like(p2)
-    parts = torch.empty(2, E, dtype=p2.dtype, device=p2.device)
+    parts = torch.empty(2, E, dtype=MIXES[mix]["A"], device=p2.device)
     _launch("nekbone_ax_dots", mix, p2.device,
             (p2, D, g2, mask2, r2, c2, w2, parts[0], parts[1]),
             (E, n, *plan.launch_ints))

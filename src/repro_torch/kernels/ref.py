@@ -7,9 +7,10 @@ against on the card (``chip_smoke.py``).  They
 are written for clarity, not speed.  Operands are upcast to the
 accumulation dtype of the reference's ``_accum`` rule (f64 stays f64,
 everything narrower accumulates in f32) and field outputs are rounded back
-to the storage dtype.  K3, K4 and K5 take the bf16 kernels' two operand
-mixes (``kernels.nekbone_ax.MIXES``: bf16 vectors with the operator and x
-in bf16 or in f32) and round where those kernels and the TPU kernels do:
+to the storage dtype.  The Nekbone kernels' plain versions take the bf16
+kernels' two operand mixes (``kernels.nekbone_ax.MIXES``: bf16 vectors
+with the operator and x in bf16 or in f32) and round where those kernels
+and the TPU kernels do: K1's and K3's w once, after the whole operator,
 K4's direction before the operator, K5's residual before ``r·c·r``.
 """
 from __future__ import annotations

@@ -1,7 +1,8 @@
-"""The LM of the port: the ``dense`` (attention + MLP) and ``rwkv`` (RWKV6
-time/channel mix) blocks, for serving.
+"""The LM of the port: the ``dense`` (attention + MLP), ``rwkv`` (RWKV6
+time/channel mix) and ``hymba`` (attention and a Mamba path in parallel,
+then the MLP) blocks, for serving.
 
-The port of the reference's ``models/model.py`` for those two blocks.  The
+The port of the reference's ``models/model.py`` for those three blocks.  The
 reference stacks per-layer params on a leading L axis and scans over
 window-pattern groups; here the model is an ``nn.Module`` with a
 ``ModuleList`` of layers, and layer i takes window ``pattern[i % p]`` of
@@ -18,8 +19,8 @@ Entry points (the reference's signatures, with ``params`` the module):
   * ``decode_step(params, cfg, tok, cache, index)`` — one-token decode
 
 There is no backward and no remat: training is ROADMAP.md queue 1 item 3.
-The ``moe`` and ``hymba`` blocks, encoder-decoder stacks, image tokens and
-learned positions raise ``NotImplementedError`` (the same item).
+The ``moe`` block, encoder-decoder stacks, image tokens and learned
+positions raise ``NotImplementedError`` (the same item).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from torch import nn
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as R
+from repro_torch.models import ssm as SM
 
 __all__ = ["Layer", "LM", "init_params", "forward", "init_cache", "prefill",
            "decode_step"]
@@ -39,7 +41,7 @@ _UNPORTED = "the rest of the LM substrate, ROADMAP.md queue 1 item 3"
 
 
 def _check_ported(cfg) -> None:
-    if cfg.block not in ("dense", "rwkv"):
+    if cfg.block not in ("dense", "rwkv", "hymba"):
         raise NotImplementedError(f"block {cfg.block!r} is not ported "
                                   f"({_UNPORTED})")
     for what, unported in (("encoder-decoder stacks", cfg.enc_layers),
@@ -78,6 +80,12 @@ class Layer(nn.Module):
             self.norm2b = norm()
         self.mlp = L.MLP(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated,
                          dtype=dt)
+        if cfg.block == "hymba":
+            self.mamba = SM.init_mamba(gen, cfg)
+            self.norm_attn_out = L.Norm(cfg.d_model, dtype=dt,
+                                        device=gen.device)
+            self.norm_ssm_out = L.Norm(cfg.d_model, dtype=dt,
+                                       device=gen.device)
 
 
 class LM(nn.Module):
@@ -113,13 +121,25 @@ def _windows(cfg) -> list:
 # ---------------------------------------------------------------------------
 # Layer bodies
 # ---------------------------------------------------------------------------
+def _mix_paths(ao, so, lp: Layer, cfg):
+    """hymba: the mean of the rms-normed attention and SSM outputs."""
+    return 0.5 * (L.rms_norm(ao, lp.norm_attn_out, eps=cfg.norm_eps)
+                  + L.rms_norm(so, lp.norm_ssm_out, eps=cfg.norm_eps))
+
+
 def _attn_layer(x, lp: Layer, cfg, *, positions, window):
-    """One full-sequence dense layer.  Returns the new residual stream and
-    the layer's (k, v)."""
+    """One full-sequence dense or hymba layer.  Returns the new residual
+    stream, the layer's (k, v) and, for hymba, its SSM cache (the conv tail
+    and the scan's last state; else None)."""
     cdt = L.dtype_of(cfg.compute_dtype)
     h = _norm(x, lp.norm1, cfg)
     ao, kv = A.attention(h, lp.attn, cfg, positions=positions, window=window,
                          causal=True, impl=cfg.attn_impl)
+    ssm = None
+    if cfg.block == "hymba":
+        so, tail, hT = SM._mamba_core(h, lp.mamba, cfg)
+        ao = _mix_paths(ao, so.to(h.dtype), lp, cfg)
+        ssm = {"conv": tail, "h": hT}
     if cfg.sandwich_norm:
         ao = _norm(ao, lp.norm1b, cfg)
     x = x + ao
@@ -127,7 +147,7 @@ def _attn_layer(x, lp: Layer, cfg, *, positions, window):
     ff = L.mlp(h, lp.mlp, act=cfg.act, compute_dtype=cdt)
     if cfg.sandwich_norm:
         ff = _norm(ff, lp.norm2b, cfg)
-    return x + ff, kv
+    return x + ff, kv, ssm
 
 
 def _embed(params: LM, cfg, tokens):
@@ -167,7 +187,8 @@ def forward(params: LM, cfg, tokens, extra=None):
         if cfg.block == "rwkv":
             x = R.rwkv6_block(x, lp.rwkv, cfg, lp.norm1, lp.norm2)
         else:
-            x, _ = _attn_layer(x, lp, cfg, positions=positions, window=window)
+            x, _, _ = _attn_layer(x, lp, cfg, positions=positions,
+                                  window=window)
     x = _norm(x, params.final_norm, cfg)
     return _logits(params, cfg, x)
 
@@ -177,12 +198,16 @@ def forward(params: LM, cfg, tokens, extra=None):
 # ---------------------------------------------------------------------------
 def init_cache(cfg, batch: int, max_len: int, *, device) -> list[dict]:
     """Per-layer caches (zeros): KV caches of ``max_len`` slots for dense
-    layers, recurrent caches for rwkv layers."""
+    layers, recurrent caches for rwkv layers, both for hymba layers."""
     if cfg.block == "rwkv":
         return [R.init_rwkv6_cache(cfg, batch, device=device)
                 for _ in range(cfg.n_layers)]
-    return [A.init_kv_cache(cfg, batch, max_len, device=device)
-            for _ in range(cfg.n_layers)]
+    caches = [A.init_kv_cache(cfg, batch, max_len, device=device)
+              for _ in range(cfg.n_layers)]
+    if cfg.block == "hymba":
+        for c in caches:
+            c.update(SM.init_mamba_cache(cfg, batch, device=device))
+    return caches
 
 
 def _decode_layer(x, lp: Layer, cfg, cache_l, index, window):
@@ -192,6 +217,10 @@ def _decode_layer(x, lp: Layer, cfg, cache_l, index, window):
     h = _norm(x, lp.norm1, cfg)
     ao, cache_l = A.decode_attention(h, lp.attn, cfg, cache_l, index,
                                      window=window)
+    if cfg.block == "hymba":
+        so, sc = SM.mamba_decode(h, lp.mamba, cfg, cache_l)
+        ao = _mix_paths(ao, so, lp, cfg)
+        cache_l["conv"], cache_l["h"] = sc["conv"], sc["h"]
     if cfg.sandwich_norm:
         ao = _norm(ao, lp.norm1b, cfg)
     x = x + ao
@@ -236,9 +265,12 @@ def prefill(params: LM, cfg, tokens, extra=None, *, max_len: int):
         positions = _positions(x)
         cache = init_cache(cfg, B, max_len, device=tokens.device)
         for lp, cache_l, window in zip(params.layers, cache, _windows(cfg)):
-            x, (k, v) = _attn_layer(x, lp, cfg, positions=positions,
-                                    window=window)
+            x, (k, v), ssm = _attn_layer(x, lp, cfg, positions=positions,
+                                         window=window)
             cache_l["k"][:, :, :S] = k.to(cache_l["k"].dtype)
             cache_l["v"][:, :, :S] = v.to(cache_l["v"].dtype)
+            if ssm is not None:
+                cache_l["conv"] = ssm["conv"].to(cache_l["conv"].dtype)
+                cache_l["h"] = ssm["h"]
     x = _norm(x, params.final_norm, cfg)
     return _logits(params, cfg, x[:, -1:]), cache

@@ -369,11 +369,10 @@ def test_bf16_ax_pap_plain_matches_reference(x64, mix):
 
 
 def test_bf16_wrappers_pick_a_build_by_operand_dtype():
-    """Each operand's dtype picks the build: K3 to K12 take both bf16
+    """Each operand's dtype picks the build: K1 to K12 take both bf16
     mixes, chosen role by role (S vectors, X solution, O operator data, A
-    scalars), K1 and K2 raise for bf16 naming ROADMAP queue 2, and a mix of
-    dtypes that no build has raises.  Off the card the wrappers raise
-    before any of that."""
+    scalars), and a mix of dtypes that no build has raises.  Off the card
+    the wrappers raise before any of that."""
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
 
     def t(dtype):
@@ -414,8 +413,8 @@ def test_bf16_wrappers_pick_a_build_by_operand_dtype():
         pick("nekbone_cheb_apply", r2=(t(bf16), ()), D=(t(f32), (), "O"),
              coef=(t(bf16), (), "A"))
     for stem in ("nekbone_ax_dots", "nekbone_ax"):
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            pick(stem, p2=(t(bf16), ()))
+        assert pick(stem, p2=(t(bf16), ())) == "bf16"
+        assert pick(stem, p2=(t(bf16), ()), D=(t(f32), (), "O")) == "bf16_ir"
     n, E = 3, 2
     meta = torch.empty(E, n ** 3, dtype=bf16, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):

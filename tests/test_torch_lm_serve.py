@@ -1,6 +1,8 @@
 """The LM serving slice of the port against the JAX package, on the CPU.
 
-rwkv6-1.6b and gemma2-27b at ``reduced()`` size (float32): the reference's
+rwkv6-1.6b, gemma2-27b, nemotron-4-340b and hymba-1.5b at ``reduced()``
+size (float32; hymba with its Mamba path and both paths' norms): the
+reference's
 weights carried across by ``convert.lm_params_from_reference``, the same
 prompts (numpy, from a seed), the reference's ``prefill`` + ``decode_step``
 greedy loop against the port's ``serve``.  Tolerance: logits within 1e-4 of
@@ -23,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.launch import serve as S
 from repro_torch.models import model as M
 
-NAMES = ["rwkv6-1.6b", "gemma2-27b"]
+NAMES = ["rwkv6-1.6b", "gemma2-27b", "nemotron-4-340b", "hymba-1.5b"]
 LOGIT_TOL = 1e-4           # relative to max |logit|
 B, PROMPT, GEN = 2, 24, 6  # prompt > gemma2's reduced window of 16
 
@@ -130,7 +132,7 @@ def test_unported_archs_and_blocks_raise():
         get("qwen3-moe-30b-a3b")
     gen = torch.Generator("cpu").manual_seed(0)
     for cfg in (JARCHS["qwen3-moe-30b-a3b"].reduced(),
-                JARCHS["hymba-1.5b"].reduced(),
+                JARCHS["arctic-480b"].reduced(),
                 JARCHS["whisper-large-v3"].reduced(),
                 JARCHS["llava-next-mistral-7b"].reduced()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
