@@ -79,15 +79,16 @@ reference package ``repro``, and, in order:
    bf16; ``bf16_ir``: bf16 vectors, x, the metric and D in f32) against
    their plain versions at n=10, E=1024 and 4096: fields value by value,
    partials relatively; a K4 that skips rounding p through storage must
-   fail the same check; then K4, K3 and K2, the persistent walkers: their
-   launch plans at E = 1024 and 4096 in every build (grid, elements a
-   block, stages, staged operands, TMA bulk or cp.async path, shared
-   memory, registers and spills from ``ptxas -v``), and every build
-   against its plain version at n = 10, 5 and 3 (both copy paths) on the
-   paper grid, the 16x16x16 grid and a 3x3x5 grid (E = 45, which no block
-   count divides), with 5 repeated calls bitwise the same and K2's w and
-   pap bitwise K3's; and K8, K9 and K10 in both bf16 builds at n=10, E =
-   1024 and 4096, K8 and K9 at s = 4, 2, 1: each of K8's stored powers
+   fail the same check; then K4, K3, K2, K5 and K7, the persistent
+   walkers: their launch plans at E = 1024 and 4096 in every build (grid,
+   elements or work items a block, stages, staged operands, TMA bulk or
+   cp.async path, shared memory, registers and spills from ``ptxas -v``;
+   K7 at b = 4), and every build against its plain version at n = 10, 5
+   and 3 (both copy paths) on the paper grid, the 16x16x16 grid and a
+   3x3x5 grid (E = 45, which no block count divides), with 5 repeated
+   calls bitwise the same, K2's w and pap bitwise K3's and K7's lanes (b =
+   3, lane-major work items) bitwise K5's; and K8, K9 and K10 in both
+   bf16 builds at n=10, E = 1024 and 4096, K8 and K9 at s = 4, 2, 1: each of K8's stored powers
    value by value against one plain application to its previous stored
    power, its Gram partials bitwise ``ref.sstep_gram_emulated`` of its own
    vectors (a K8 that skips rounding the powers through storage must fail
@@ -125,19 +126,22 @@ reference package ``repro``, and, in order:
 18. solves the paper case through bf16 Chebyshev-PCG(4) and pmg-PCG and
    bf16 block CG at b = 4 (``bf16`` through the case, ``bf16_ir`` through
    ``precond.pcg_fused_v2_fixed_iters`` and
-   ``cg_block.cg_block_fixed_iters``), each with the launch counters reset
+   ``cg_block.cg_block_fixed_iters``), and f32 block CG at b = 4 through
+   the case (K6's and K7's f32 builds), each with the launch counters reset
    just before it and the plain versions of its kernels made to raise:
    launches exact, the history's entries 0..10 against the same route
    over the plain versions on the card, within 1e-2 or, where the plain
    route itself moves further under another valid f32 order of its
    operator, within 10x that spread (whether 1e-2 held is reported), the
-   block lanes bitwise their own bf16 v2 solves; times each solve;
-19. times the f32 K4 and K3 and the bf16 K1, K2, K4, K5, K3, K8, K9,
-   K10, K11, K12, K6 and K7 (both builds; K9 also beside one
+   block lanes bitwise their own bf16 (f32) v2 solves; times each solve;
+19. times the f32 K4, K5, K3 and K7 and the bf16 K1, K2, K4, K5, K3, K8,
+   K9, K10, K11, K12, K6 and K7 (both builds; K9 also beside one
    ``torch.matmul``, K12 beside one ``torch.einsum``) beside their plain
-   versions at E=1024 and E=4096;
+   versions at E=1024 and E=4096, each with the bytes it moves and its
+   share of the bound;
 20. profiles each kernel route (device time per iteration, by kernel, and
-   the device's busy share);
+   the device's busy share), ``bf16_ir`` v2 and bf16 block CG at b = 4
+   among them;
 21. holds K13 (flash attention; in bf16 on the tensor cores) and K14 (the
    RWKV6 recurrence) against their plain versions in bf16 and f32, at
    gemma2-27b's heads (Hq 32, Hkv 16, d 128: 2048 tokens with window 1024,
@@ -1418,7 +1422,8 @@ def _time_row(label, kern, plain, nbytes, mma_flops, rest_flops, bw_copy,
     t_ops = (mma_flops / mma_peak + rest_flops / rest_peak) * 1e3
     bound = max(t_bytes, t_ops)
     print(f"  {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
-          f"{nbytes / ms / 1e6 / (bw_copy / 1e9):.2f} of copy BW); plain "
+          f"{nbytes / ms / 1e6 / (bw_copy / 1e9):.2f} of copy BW, "
+          f"{bound / ms:.2f} of the bound); plain "
           f"{plain_ms:.4f} ms; "
           + (f"library {lib_ms:.4f} ms; " if lib is not None else "")
           + f"bound {bound:.4f} ms (bytes at 3.35 TB/s {t_bytes:.4f}, "
@@ -1809,13 +1814,18 @@ def phase_slice4_times(bw_copy, routes, rows):
     return out
 
 
-def phase_profile(cases, pcg, routes, slice4, niter: int = 20):
+def phase_profile(cases, pcg, routes, slice4, ir, slice12,
+                  niter: int = 20):
     """Device time per iteration of each solve, by kernel, from
     torch.profiler; the busy share is device time over the span from the
     first to the last device event (the profiler slows the host, so the
-    idle share it shows is an upper bound)."""
+    idle share it shows is an upper bound).  The reduced-precision solves
+    (``bf16_ir`` over v2, ``bf16`` block CG at b = 4) count their
+    iterations as their CG update kernel's launches (K5's, K7's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
 
     print(f"== profile ({niter}-iteration solves under torch.profiler)",
           flush=True)
@@ -1834,12 +1844,29 @@ def phase_profile(cases, pcg, routes, slice4, niter: int = 20):
     for label in ("v1", f"sstep{SSTEP_S}"):
         case, f, _ = slice4["cases"][label]
         runs[label] = (case, f, dict(niter=niter))
-    for impl, (case, f, kw) in runs.items():
-        case.solve(f, **kw)
+    solves = {impl: (lambda case=case, f=f, kw=kw:
+                     int(case.solve(f, **kw).iters))
+              for impl, (case, f, kw) in runs.items()}
+
+    def counted(fn, stem):
+        def run():
+            _build.reset_launches()
+            fn()
+            return _build.LAUNCHES[stem]
+        return run
+
+    case, f = ir["cases"]["bf16_ir v2"]
+    solves["bf16_ir v2"] = counted(lambda: case.solve(f, niter=niter),
+                                   "nekbone_cg_update")
+    bcase, F16 = slice12["block_case"]
+    solves[f"bf16 block b={BLOCK_B}"] = counted(
+        lambda: bcase.solve(F16, niter=niter), "nekbone_cg_update_block")
+    for impl, solve in solves.items():
+        solve()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            iters = int(case.solve(f, **kw).iters)
+            iters = solve()
             torch.cuda.synchronize()
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2713,14 +2740,15 @@ def phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms):
     """bf16 Chebyshev-PCG(4) (K11, K4, K5), pmg-PCG (K11, K12, K4, K5) and
     block CG at b = 4 (K6, K7) on the paper case: ``bf16`` through
     ``case.solve``, ``bf16_ir`` through the drivers (a refined case with a
-    preconditioner or b > 1 routes elsewhere, as the reference's does),
-    each with the launch counters set to 0 just before it and the plain
+    preconditioner or b > 1 routes elsewhere, as the reference's does), and
+    f32 block CG through ``case.solve`` (K6's and K7's f32 builds), each
+    with the launch counters set to 0 just before it and the plain
     versions of its kernels made to raise meanwhile; launches exact; bf16
-    block's lanes each bitwise their own bf16 v2 solve.  The history is
-    held to the same route over the plain versions on the card: entry 0
-    equal, and entries 0..10 within BF16_HEAD_TOL or, where the route
-    itself moves further under another valid f32 order of its operator
-    (the plain route again with the operator rounded once,
+    and f32 block's lanes each bitwise their own v2 solve in that policy.
+    The history is held to the same route over the plain versions on the
+    card: entry 0 equal, and entries 0..10 within BF16_HEAD_TOL or, where
+    the route itself moves further under another valid f32 order of its
+    operator (the plain route again with the operator rounded once,
     :func:`_operator_rounded_once`), within ENVELOPE_FACTOR times that
     spread, as the fp64 routes are held to the plain route's own spread.
     Whether entries 0..10 lie within BF16_HEAD_TOL is reported for each.
@@ -2736,8 +2764,9 @@ def phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms):
     from repro_torch.core.nekbone import NekboneCase
 
     v2_last = float(hist["pallas_fused_cg_v2"][NITER])
-    print(f"== paper case, bf16 Chebyshev, pmg and block routes: n=10, "
-          f"E=1024, b in fp64 (bf16: cast by the case), Chebyshev and block "
+    print(f"== paper case, bf16 Chebyshev, pmg and block routes and f32 "
+          f"block: n=10, E=1024, b in fp64 (bf16 and f32: cast by the "
+          f"case), Chebyshev and block "
           f"{NITER} iterations, pmg {BF16_PMG_ITERS}; fp64 v2 for "
           f"comparison: history[{NITER}]={v2_last:.6e}, "
           f"{v2_solve_ms / NITER:.4f} ms/iteration", flush=True)
@@ -2747,12 +2776,15 @@ def phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms):
     bf16_case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
                             precision="bf16", ax_impl="pallas_fused_cg_v2")
     f16 = bf16_case.manufactured()[1]
+    f32_case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                           precision="f32", ax_impl="pallas_fused_cg_v2")
     rng = np.random.default_rng(9)
     F = torch.stack([f] + [
         ds_sum_local(torch.as_tensor(rng.normal(size=tuple(f.shape)),
                                      dtype=f.dtype, device="cuda"),
                      case.grid) * case.mask for _ in range(BLOCK_B - 1)])
     F16 = F.to(torch.bfloat16)
+    F32 = F.to(torch.float32)
     cheb = f"cheb{CHEB_K}"
     spec = {"cheb": case.precond_spec(cheb), "pmg": case.precond_spec("pmg")}
     L1 = len(spec["pmg"].ns) - 1          # smoothed levels
@@ -2780,7 +2812,9 @@ def phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms):
         "bf16 block": lambda: bf16_case.solve(F16, niter=NITER),
         "bf16_ir block": lambda: cb.cg_block_fixed_iters(F, niter=NITER,
                                                          **kw),
+        "f32 block": lambda: f32_case.solve(F32, niter=NITER),
     }
+    lane_cases = {"bf16": (bf16_case, F16), "f32": (f32_case, F32)}
     for label, fn in routes.items():
         prec, kind = label.split()
         iters, launches_want = want[kind]
@@ -2825,11 +2859,12 @@ def phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms):
               f"{BF16_HEAD_TOL:g}: {'yes' if head.max() <= BF16_HEAD_TOL else 'NO'}"
               f" (reported); all {iters + 1} within {np.exp(worst):.2f}x "
               "(reported)")
-        if label == "bf16 block":
-            same = [torch.equal(res.history[j], bf16_case.solve(
-                F16[j], niter=NITER).history) for j in range(BLOCK_B)]
+        if kind == "block" and prec in lane_cases:
+            lane_case, FL = lane_cases[prec]
+            same = [torch.equal(res.history[j], lane_case.solve(
+                FL[j], niter=NITER).history) for j in range(BLOCK_B)]
             check(all(same), f"{label}: every lane's history bitwise its own "
-                             f"bf16 v2 solve ({same})")
+                             f"{prec} v2 solve ({same})")
         ms = wall_ms(fn, reps=3)
         out["ms"][label] = ms
         out["hist"][label] = h
@@ -2843,13 +2878,15 @@ def phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms):
               f"solution_error {err:.6e}; {ms:.3f} ms to completion, "
               f"{ms / iters:.4f} ms per iteration; launches "
               f"{({k: v for k, v in launches.items() if v})}", flush=True)
+    out["block_case"] = (bf16_case, F16)
     return out
 
 
 def phase_bf16_slice12_times(bw_copy, rows):
     """Device time of K11 (k = 4), K12 (every step of the n = 10 ladder),
-    K6 and K7 (b = 4) in both bf16 builds beside their plain versions (K12
-    also beside one ``torch.einsum``) at E = 1024 and 4096."""
+    K6 and K7 (b = 4) in both bf16 builds, and of K7 in f32, beside their
+    plain versions (K12 also beside one ``torch.einsum``) at E = 1024 and
+    4096."""
     import numpy as np
     import torch
 
@@ -2858,7 +2895,8 @@ def phase_bf16_slice12_times(bw_copy, rows):
     from repro_torch.kernels import nekbone_ax as K
 
     print("== times of the bf16 K11, K12, K6 and K7 (builds "
-          f"{', '.join(BF16_MIXES)}; n=10, K11 at k={CHEB_K}, K6 and K7 at "
+          f"{', '.join(BF16_MIXES)}; K7 also f32; n=10, K11 at k={CHEB_K}, "
+          "K6 and K7 at "
           f"b={BLOCK_B}; device time per call, CUDA events around 20 queued "
           "calls, median of 5; operations at the fp32 rate, 67 TF/s)",
           flush=True)
@@ -2869,7 +2907,7 @@ def phase_bf16_slice12_times(bw_copy, rows):
         E = case.mesh.nelt
         nodes = E * n ** 3
         q = _pcg_operands(case, rng)
-        for mix in BF16_MIXES:
+        for mix in ("f32",) + BF16_MIXES:
             dt = K.MIXES[mix]
             S, X, O = (dt[r].itemsize for r in "SXO")
             D, g3 = q["D"].to(dt["O"]), q["g3"].to(dt["O"])
@@ -2901,6 +2939,8 @@ def phase_bf16_slice12_times(bw_copy, rows):
                        K.nekbone_cg_update_block_plain, k7, dict(n=n),
                        BLOCK_B * (2 * X + 4 * S), (0, BLOCK_B * 8)),
             }
+            if mix == "f32":    # K7 alone: the others' f32 rows are fp64's
+                work = {"K7": work["K7"]}
             for name, (kern, plain, args, kw_, per_node, (fm, fr)) in \
                     work.items():
                 rows[(f"{name} {mix}", grid)] = _time_row(
@@ -2908,7 +2948,7 @@ def phase_bf16_slice12_times(bw_copy, rows):
                     lambda: kern(*args, **kw_), lambda: plain(*args, **kw_),
                     per_node * nodes, nodes * fm, nodes * fr, bw_copy,
                     mma_peak=FP32_PEAK, rest_peak=FP32_PEAK)
-            for nin, nout in LADDER_PAIRS:
+            for nin, nout in LADDER_PAIRS if mix != "f32" else ():
                 u2 = torch.as_tensor(rng.normal(size=(E, nin ** 3)),
                                      device="cuda").to(dt["S"])
                 mt = _ladder_matrix(nin, nout, dt["O"])
@@ -2957,10 +2997,11 @@ def _walk_field_ok(k, p, mix):
 
 
 def phase_walk_parity():
-    """K4, K3 and K2, the persistent walkers: their launch plans at E =
-    1024 and 4096 in every build (with registers and spills), and every
-    build against its plain version on WALK_CASES, 5 repeated calls
-    bitwise the same."""
+    """K4, K3, K2, K5 and K7, the persistent walkers: their launch plans at
+    E = 1024 and 4096 in every build (with registers and spills; K7 at b =
+    4), and every build against its plain version on WALK_CASES, 5 repeated
+    calls bitwise the same, K7's lanes (b = 3, lane-major items) each
+    bitwise K5's."""
     import numpy as np
     import torch
 
@@ -2968,10 +3009,10 @@ def phase_walk_parity():
     from repro_torch.kernels import _build
     from repro_torch.kernels import nekbone_ax as K
 
-    print("== K4/K3/K2 walkers: launch plans (n = 10) and parity in every "
-          "build (n = 10, 5, 3 on the paper grid, the 16x16x16 grid and "
-          "3x3x5; fields relative in f64 and f32, value by value in bf16; "
-          "partials summed, relative)", flush=True)
+    print("== K4/K3/K2/K5/K7 walkers: launch plans (n = 10) and parity in "
+          "every build (n = 10, 5, 3 on the paper grid, the 16x16x16 grid "
+          "and 3x3x5; fields relative in f64 and f32, value by value in "
+          "bf16; partials summed, relative)", flush=True)
     logs = {name: _ptxas_report(path.with_suffix(".log").read_text())
             for name, path in _build.build_all().items()}
     walkers = (("K4", "nekbone_ax_slab", "nekbone_ax_slab",
@@ -2979,16 +3020,24 @@ def phase_walk_parity():
                ("K3", "nekbone_ax_pap", "nekbone_ax_dots",
                 "nekbone_ax_dots_kernel<10,0>"),
                ("K2", "nekbone_ax_dots", "nekbone_ax_dots",
-                "nekbone_ax_dots_kernel<10,1>"))
+                "nekbone_ax_dots_kernel<10,1>"),
+               ("K5", "nekbone_cg_update", "nekbone_cg_update",
+                "nekbone_cg_update_kernel<10>"),
+               ("K7", "nekbone_cg_update_block", "nekbone_cg_update_block",
+                "nekbone_cg_update_block_kernel<10>"))
     for key, stem, lib, kernel in walkers:
+        lanes = dict(b=BLOCK_B) if key == "K7" else {}
         for mix in WALK_MIXES:
             regs, spill = logs[f"{lib}_{mix}"][kernel]
             for E in (1024, 4096):
-                plan, info = K.walk_launch_info(stem, E, 10, mix)
+                plan, info = K.walk_launch_info(stem, E, 10, mix, **lanes)
                 check(plan.grid <= info["sm_count"] * plan.blocks_per_sm
                       and plan.bulk and plan.stages >= 2,
-                      f"{key} {mix} E={E} plan: grid {plan.grid} "
-                      f"({plan.per_block} elements a block, one wave at "
+                      f"{key} {mix} E={E}"
+                      + (f" b={BLOCK_B}" if lanes else "")
+                      + f" plan: grid {plan.grid} "
+                      f"({plan.per_block} {'items' if lanes else 'elements'}"
+                      " a block, one wave at "
                       f"{plan.blocks_per_sm} blocks an SM on "
                       f"{info['sm_count']} SMs), {plan.stages} stages of "
                       f"{', '.join(plan.staged)} by {plan.copy}, "
@@ -3050,10 +3099,50 @@ def phase_walk_parity():
                   and rerr <= WALK_TOL[mix],
                   f"K2 {tag}: w and pap bitwise K3's, rcz rel err "
                   f"{rerr:.2e}")
+            # K5 on K4's outputs; K7 over three lanes of other operands
+            k5 = (o["x"], kp, o["r"], kw, o["alpha"], *o["c"])
+            kx, kr, krcr = K.nekbone_cg_update_cuda(*k5, n=n)
+            px, pr, prcr = K.nekbone_cg_update_plain(*k5, n=n)
+            xok, xtxt = _walk_field_ok(kx, px, mix)
+            rok, rtxt = _walk_field_ok(kr, pr, mix)
+            cerr = _part_err(krcr, prcr)
+            reps = [K.nekbone_cg_update_cuda(*k5, n=n) for _ in range(5)]
+            same5 = all(torch.equal(a, b) for rep in reps
+                        for a, b in zip(rep, (kx, kr, krcr)))
+            plan5, _ = K.walk_launch_info("nekbone_cg_update", E, n, mix)
+            check(xok and rok and cerr <= WALK_TOL[mix] and same5
+                  and plan5.bulk == (n % 2 == 0),
+                  f"K5 {tag} ({plan5.copy}, grid {plan5.grid} x "
+                  f"{plan5.per_block}, {', '.join(plan5.staged)} staged): x "
+                  f"{xtxt}, r {rtxt}, rcr rel err {cerr:.2e}; 5 more calls "
+                  "bitwise the same")
+            X3 = torch.stack([o["x"], -o["x"], o["x"]])
+            P3 = torch.stack([kp, o["r"], o["p"]])
+            R3 = torch.stack([o["r"], kp, o["p"]])
+            W3 = torch.stack([kw, kp, o["r"]])
+            al3 = torch.as_tensor(rng.normal(size=3), dtype=dt["A"],
+                                  device="cuda")
+            k7 = (X3, P3, R3, W3, al3, *o["c"])
+            x3, r3, rcr3 = K.nekbone_cg_update_block_cuda(*k7, n=n)
+            lanes_ok = all(
+                all(torch.equal(a, b) for a, b in zip(
+                    (x3[j], r3[j], rcr3[j]), K.nekbone_cg_update_cuda(
+                        X3[j], P3[j], R3[j], W3[j], al3[j:j + 1], *o["c"],
+                        n=n)))
+                for j in range(3))
+            plan7, _ = K.walk_launch_info("nekbone_cg_update_block", E, n,
+                                          mix, b=3)
+            check(lanes_ok, f"K7 {tag} b=3 (grid {plan7.grid} x "
+                            f"{plan7.per_block} items, lane-major): x, r, rcr "
+                            "of every lane bitwise K5's")
             if n == 10 and grid == PAPER_GRID and mix == "f32":
                 errs[("K4", mix)] = float((kw - pw).abs().max())
                 errs[("K3", mix)] = float((kw3 - pw3).abs().max())
-            del o, k4, k3, kp, kw, pp, pw, kw3, pw3, reps
+                errs[("K5", mix)] = float((kr - pr).abs().max())
+                _, pr3, _ = K.nekbone_cg_update_block_plain(*k7, n=n)
+                errs[("K7", mix)] = float((r3 - pr3).abs().max())
+            del o, k4, k3, kp, kw, pp, pw, kw3, pw3, reps, k5, k7, X3, P3, \
+                R3, W3
         del case, u64, D64, g64, mask64, c64
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3122,7 +3211,7 @@ def phase_ir_routes(hist, v2_solve_ms):
           f"{NITER} inner iterations per sweep; fp64 v2 for comparison: "
           f"history[{NITER}]={v2_last:.6e}, {v2_solve_ms:.3f} ms "
           f"({v2_solve_ms / NITER:.4f} ms/iteration)", flush=True)
-    out = {"launches": {}, "ms": {}, "hist": {}}
+    out = {"launches": {}, "ms": {}, "hist": {}, "cases": {}}
     for prec, variant in IR_ROUTES:
         label = f"{prec} {variant}"
         case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
@@ -3180,6 +3269,7 @@ def phase_ir_routes(hist, v2_solve_ms):
         ms = wall_ms(lambda: case.solve(f, niter=NITER), reps=3)
         out["ms"][label] = ms
         out["hist"][label] = h
+        out["cases"][label] = (case, f)
         shown = h if refined else h[[0, 10, 50, NITER]]
         what = "outer history" if refined else "history[0, 10, 50, 100]"
         print(f"  {label}: {what} " + " ".join(f"{v:.6e}" for v in shown)
@@ -3325,9 +3415,9 @@ def phase_ir_routes(hist, v2_solve_ms):
 
 
 def phase_bf16_times(bw_copy, rows):
-    """Device time of the f32 K4 and K3 and the bf16 K1, K2, K4, K5, K3, K8
-    (s=4), K9 (s=4, beside one ``torch.matmul`` in bf16) and K10 (both
-    builds) beside their plain versions at E=1024 and E=4096."""
+    """Device time of the f32 K4, K5 and K3 and the bf16 K1, K2, K4, K5,
+    K3, K8 (s=4), K9 (s=4, beside one ``torch.matmul`` in bf16) and K10
+    (both builds) beside their plain versions at E=1024 and E=4096."""
     import numpy as np
     import torch
 
@@ -3335,7 +3425,7 @@ def phase_bf16_times(bw_copy, rows):
     from repro_torch.core.nekbone import NekboneCase
     from repro_torch.kernels import nekbone_ax as K
 
-    print("== times of the reduced-precision builds (K4 and K3 in f32, "
+    print("== times of the reduced-precision builds (K4, K5 and K3 in f32, "
           "K1, K2, K4, K5, K3, K8, K9 and K10 in bf16 and bf16_ir; n=10, K8 "
           "and K9 "
           f"at s={SSTEP_S}; device time per call, CUDA events around 20 "
@@ -3369,9 +3459,7 @@ def phase_bf16_times(bw_copy, rows):
                 "K3": (K.nekbone_ax_pap_cuda, K.nekbone_ax_pap_plain, k3,
                        3 * S + 6 * O, (12 * n, 18)),
             }
-            if mix == "f32":   # K5's f32 build is not this slice's
-                del work["K5"]
-            else:
+            if mix != "f32":
                 # K8: p, r, 3 metric diagonals in, 2s - 1 basis vectors
                 # and the Gram partials (A) out; K9: x in and out, p, r
                 # and the basis in, r, p out; K10: x in and out, p, z, w
@@ -4011,7 +4099,7 @@ def main() -> int:
         slice12 = phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms)
         phase_bf16_times(bw, rows)
         phase_bf16_slice12_times(bw, rows)
-        phase_profile(cases, pcg, routes, slice4)
+        phase_profile(cases, pcg, routes, slice4, ir, slice12)
         err.update(phase_lm_parity())
         served = phase_serve()
         lm_rows = phase_lm_times(bw)
@@ -4111,16 +4199,23 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms")})
-    for key, kname, cu, line, variant in (
-            ("K4", "nekbone_ax_slab", "nekbone_ax_slab.cu", 476, "v2"),
-            ("K3", "nekbone_ax_pap", "nekbone_ax_dots.cu", 404, "v1")):
+    # the f32 builds: K4, K5 and K3 from the f32_ir routes, K7 from f32
+    # block CG
+    for key, kname, cu, line, run in (
+            ("K4", "nekbone_ax_slab", "nekbone_ax_slab.cu", 476,
+             ir["launches"]["f32_ir v2"]),
+            ("K5", "nekbone_cg_update", "nekbone_cg_update.cu", 625,
+             ir["launches"]["f32_ir v2"]),
+            ("K3", "nekbone_ax_pap", "nekbone_ax_dots.cu", 404,
+             ir["launches"]["f32_ir v1"]),
+            ("K7", "nekbone_cg_update_block", "nekbone_cg_update_block.cu",
+             859, slice12["launches"]["f32 block"])):
         row = rows[(f"{key} f32", PAPER_GRID)]
         kernels.append({
             "name": f"{kname}_f32", "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{cu}",
             "replaces": f"src/repro/kernels/nekbone_ax.py:{line}",
-            "launches": ir["launches"][f"f32_ir {variant}"].of(
-                f"{kname}_f32"),
+            "launches": run.of(f"{kname}_f32"),
             "max_abs_err": err[(key, "f32")], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],

@@ -6,20 +6,25 @@ it (a ``git archive`` of the earlier commit, unpacked into a directory that
 ``.gitignore`` lists)::
 
     mkdir -p build/parent
-    git archive 95e9697 src/repro_torch/kernels/csrc | tar -x -C build/parent
+    git archive 6079930 src/repro_torch/kernels/csrc | tar -x -C build/parent
     python3 scripts/parent_compare.py --parent build/parent --builds \\
-        nekbone_ax_f64 nekbone_ax_f32 nekbone_ax_dots_f64 \\
-        nekbone_ax_dots_f32 flash_attn_f32 flash_attn_bf16
+        nekbone_cg_update nekbone_cg_update_block nekbone_ax \\
+        nekbone_ax_slab nekbone_pcg_update nekbone_cheb_apply \\
+        nekbone_interp nekbone_ax_slab_block nekbone_ax_dots \\
+        nekbone_ax_powers nekbone_sstep_update \\
+        --changed nekbone_cg_update nekbone_cg_update_block
 
 It builds the earlier sources' libraries named by ``--builds``
-(``<stem>_<dtype>``) into ``build/parent_compare/`` and the tree's
+(``<stem>_<dtype>``, or a stem alone for every build of it) into
+``build/parent_compare/`` and the tree's
 libraries of the same stems (every build of each), one ``nvcc`` each, all
 in parallel, then:
 
 * SASS: for each earlier Nekbone library, shows whether ``cuobjdump
   -sass`` gives it the same instructions as the tree's (paired by kernel
   and its integer template arguments, so a source that gains type
-  parameters keeps its keys);
+  parameters keeps its keys); it must, but for the stems named by
+  ``--changed`` (kernels the tree redesigned), which are only reported;
 * for the stems that have one, the stem's check below, with the earlier
   library loaded in place of the tree's (:func:`swapped`):
 
@@ -28,6 +33,19 @@ in parallel, then:
     and x over the earlier K1;
   - ``nekbone_ax_dots`` (K2): K2's fp64 w, pap and rcz at E = 1024, n = 10
     are bitwise the earlier K2's;
+  - ``nekbone_cg_update`` (K5) and ``nekbone_cg_update_block`` (K7, b =
+    1..4): x, r and rcr at E = 1024 and 4096, n = 10 and 5, bitwise the
+    earlier kernels' in every build compared (the earlier libraries called
+    through their own C signatures, one block an element); for K5 also the
+    fp64 v2 CG on the paper case (100 iterations) over the earlier K5,
+    history and x bitwise; each build timed in turns against the earlier
+    library at E = 1024 and 4096 (K7 at b = 4), with the launch plan and
+    registers, and held to at most 1.03 times the earlier time (the bf16
+    K7 at E = 1024 to at most half of it); and the ring-off ablation timed
+    in turns with the walker:
+    the same library launched with this script's planner, which stages
+    nothing, so that the walker reads x, p, r and w from device memory at
+    the residency its registers allow;
   - ``flash_attn`` (K13): the outputs at d = 16 and 128 (gemma2-27b's
     heads, batch 1, 2048 tokens, global and window 1024, softcap 50) in
     both builds are bitwise the earlier kernels'; each build is timed in
@@ -178,16 +196,22 @@ def sass(so: pathlib.Path) -> dict:
     return out
 
 
-def compare_sass(earlier: dict, tree: dict) -> bool:
+def compare_sass(earlier: dict, tree: dict, changed=()) -> bool:
+    """Whether every earlier library's SASS is the tree's, but for the
+    stems in ``changed``, which are reported."""
+    from repro_torch.kernels import _build
+
     print("== SASS beside the earlier sources", flush=True)
     ok = True
     for name, so in earlier.items():
         old, new = sass(so), sass(tree[name])
         same = old.keys() == new.keys() and all(old[k] == new[k] for k in old)
-        ok &= same
+        held = _build.split_name(name)[0] not in changed
+        ok &= same or not held
         print(f"  {name}: {len(old)} kernels, "
               f"{sum(map(len, old.values()))} instructions; the same SASS: "
-              f"{same}", flush=True)
+              f"{same}" + ("" if held else " (redesigned: reported)"),
+              flush=True)
     return ok
 
 
@@ -324,9 +348,200 @@ def check_k13(earlier: dict, tree: dict, extra: dict) -> bool:
     return ok
 
 
+# --- K5 and K7, the CG update walkers ------------------------------------
+
+# The earlier K5's and K7's C signatures: pointers, (ex, ey, ez, n[, b]),
+# the stream; one block an element, no plan.
+_EARLIER_INTS = {"nekbone_cg_update": 4, "nekbone_cg_update_block": 5}
+UPDATE_CASES = (((8, 8, 16), 10), ((16, 16, 16), 10), ((8, 8, 16), 5),
+                ((16, 16, 16), 5))
+
+
+def earlier_update(path: pathlib.Path, stem: str, mix: str):
+    """The earlier library's K5 or K7 as a function of the wrapper's
+    operands, returning ``(x, r, rcr)`` as the wrapper does."""
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as K
+
+    fn = getattr(ctypes.CDLL(str(path)), f"{stem}_{mix}")
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * \
+        _EARLIER_INTS[stem] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x, p, r, w, alpha, cx, cy, cz, *, n):
+        lanes = (x.shape[0],) if stem.endswith("_block") else ()
+        x_out, r_out = torch.empty_like(x), torch.empty_like(r)
+        rcr = torch.empty(x.shape[:-1], dtype=K.MIXES[mix]["A"],
+                          device=x.device)
+        err = fn(*(t.data_ptr() for t in (x, p, r, w, alpha, cx, cy, cz,
+                                          x_out, r_out, rcr)),
+                 cx.shape[0], cy.shape[0], cz.shape[0], n, *lanes,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"earlier {stem}_{mix}: CUDA error {err}")
+        return x_out, r_out, rcr
+    return call
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """``module``'s attributes replaced for the ``with`` block (the
+    wrappers look their kernels and planners up at call time)."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
+def ring_off_plan(E, n, mix, sm_count, blocks_per_sm, smem_per_block, *,
+                  aligned=True, b=1):
+    """The ablation's planner: the walker with nothing staged (every
+    operand read from device memory, prefetched to L2 one item ahead), its
+    grid in one wave at the residency the registers allow."""
+    from repro_torch.kernels import nekbone_ax as K
+
+    operands = K.k5_operands(n, mix)
+    fit = blocks_per_sm(0)
+    base = K.device_memory_plan(b * E, sm_count, fit, 1, 0)
+    return K.WalkPlan(base.per_block, base.grid, fit, 0, K.STAGES, (),
+                      tuple(operands), aligned and all(
+                          v % 16 == 0 for v in operands.values()))
+
+
+def _update_operands(gen, grid, n, mix, lanes):
+    """Random x, p, r, w ((lanes, E, n^3), or (E, n^3) for None) in the
+    build's roles, alpha in A, and the c factors."""
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as K
+    from repro_torch.kernels import ops
+
+    dt = K.MIXES[mix]
+    E = grid[0] * grid[1] * grid[2]
+    shape = (lanes or 1, E, n ** 3)
+
+    def field(dtype):
+        t = torch.randn(shape, generator=gen, dtype=torch.float64,
+                        device="cuda").to(dtype)
+        return t if lanes else t[0]
+
+    alpha = (torch.rand(lanes or 1, generator=gen, dtype=torch.float64,
+                        device="cuda") + 0.5).to(dt["A"])
+    _, c = ops.slab_axis_factors(grid, n, dt["S"], "cuda")
+    return (field(dt["X"]), field(dt["S"]), field(dt["S"]), field(dt["S"]),
+            alpha, *c)
+
+
+def _check_update(stem: str, earlier: dict) -> bool:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import nekbone_ax as K
+
+    block = stem.endswith("_block")
+    key, wrapper = (("K7", "nekbone_cg_update_block_cuda") if block
+                    else ("K5", "nekbone_cg_update_cuda"))
+    planner = "k7_plan" if block else "k5_plan"
+    mixes = [m for m in K.MIXES if f"{stem}_{m}" in earlier]
+    old = {m: earlier_update(earlier[f"{stem}_{m}"], stem, m) for m in mixes}
+    gen = torch.Generator("cuda").manual_seed(24)
+    ok = True
+    print(f"== {key} ({stem}) beside the earlier kernels: x, r and rcr "
+          "bitwise" + (", b = 1..4" if block else ""), flush=True)
+    for mix in mixes:
+        bad = []
+        for grid, n in UPDATE_CASES:
+            for lanes in ((1, 2, 3, 4) if block else (None,)):
+                args = _update_operands(gen, grid, n, mix, lanes)
+                new = getattr(K, wrapper)(*args, n=n)
+                same = all(torch.equal(a, b) for a, b in
+                           zip(new, old[mix](*args, n=n)))
+                if not same:
+                    bad.append((grid, n, lanes))
+        ok &= not bad
+        print(f"  {mix}: E = 1024 and 4096, n = 10 and 5: bitwise "
+              f"{'every case' if not bad else f'NOT {bad}'}", flush=True)
+    if not block and "f64" in mixes:
+        from repro_torch.core.nekbone import NekboneCase
+
+        case = NekboneCase(n=10, grid=cs.PAPER_GRID, dtype=torch.float64,
+                           ax_impl="pallas_fused_cg_v2")
+        _, f = case.manufactured()
+        tree = case.solve(f, niter=cs.NITER)
+        with patched(K, nekbone_cg_update_cuda=old["f64"]):
+            prev = case.solve(f, niter=cs.NITER)
+        same = (torch.equal(tree.history, prev.history)
+                and torch.equal(tree.x, prev.x))
+        ok &= same
+        print(f"  fp64 v2 CG ({cs.NITER} iterations, paper case): "
+              f"history[{cs.NITER}] {float(tree.history[cs.NITER]):.6e}; "
+              f"history and x bitwise over the earlier K5: {same}",
+              flush=True)
+    print(f"== {key}: device ms in turns (CUDA events, 3 calls, median of "
+          "3) beside the earlier library, and beside the walker with its "
+          "ring off (same library, nothing staged)", flush=True)
+    b = 4 if block else None
+    for mix in mixes:
+        for grid in ((8, 8, 16), (16, 16, 16)):
+            E = grid[0] * grid[1] * grid[2]
+            args = _update_operands(gen, grid, 10, mix, b)
+            kw = dict(b=b) if block else {}
+            plan, info = K.walk_launch_info(stem, E, 10, mix, **kw)
+            off_plan = K._walk_device_plan(stem, ring_off_plan, E, 10, mix,
+                                           torch.cuda.current_device(),
+                                           True, **kw)
+
+            def run():
+                return getattr(K, wrapper)(*args, n=10)
+            times = in_turns(run, lambda: patched(K, **{wrapper:
+                                                        old[mix]}))
+            off = in_turns(run, lambda: patched(K, **{planner:
+                                                      ring_off_plan}),
+                           labels=("ring off", "ring"))
+            want = run()
+            with patched(K, **{planner: ring_off_plan}):
+                same = all(torch.equal(a, z) for a, z in zip(run(), want))
+            ok &= same
+            best = {label: min(ts) for label, ts in {**times, **off}.items()}
+            ratio = best["tree"] / best["earlier"]
+            limit = 0.5 if block and mix.startswith("bf16") and E == 1024 \
+                else 1.03
+            ok &= ratio <= limit
+            print(f"  {mix} E={E}" + (f" b={b}" if block else "")
+                  + f": plan grid {plan.grid} x {plan.per_block}, "
+                  f"{plan.blocks_per_sm} blocks an SM, {plan.smem_bytes} B "
+                  f"ring ({plan.copy}), {info['registers']} registers; "
+                  + "; ".join(f"{label} " + ", ".join(f"{t:.4f}" for t in ts)
+                              + " ms" for label, ts in
+                              {**times, **off}.items())
+                  + f"; tree / earlier {ratio:.3f} (at most {limit:g}: "
+                  f"{ratio <= limit}), ring / ring off "
+                  f"{best['ring'] / best['ring off']:.3f}"
+                  f" (ring off: grid {off_plan.grid} x "
+                  f"{off_plan.per_block}, {off_plan.blocks_per_sm} blocks "
+                  f"an SM; outputs bitwise the ring's: {same})", flush=True)
+            del args
+    return ok
+
+
+def check_k5(earlier: dict, tree: dict, extra: dict) -> bool:
+    return _check_update("nekbone_cg_update", earlier)
+
+
+def check_k7(earlier: dict, tree: dict, extra: dict) -> bool:
+    return _check_update("nekbone_cg_update_block", earlier)
+
+
 # {stem: (its check, {tag: (dtype, edits of the tree's source)})}
 CHECKS = {"nekbone_ax": (check_k1, {}),
           "nekbone_ax_dots": (check_k2, {}),
+          "nekbone_cg_update": (check_k5, {}),
+          "nekbone_cg_update_block": (check_k7, {}),
           "flash_attn": (check_k13, {"qreload": ("bf16", Q_RELOAD)})}
 
 
@@ -334,9 +549,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=pathlib.Path, required=True,
                     help="a checkout (or archive) of the earlier commit")
+    ap.add_argument("--changed", nargs="*", default=(),
+                    help="stems whose kernels the tree redesigned: their "
+                         "SASS is reported, not held")
     ap.add_argument("--builds", nargs="+", required=True,
                     help="the earlier libraries to build and compare, "
-                         "<stem>_<dtype> (nekbone_ax_f64, flash_attn_bf16)")
+                         "<stem>_<dtype> (nekbone_ax_f64, flash_attn_bf16) "
+                         "or a stem (every build of it)")
     args = ap.parse_args()
     import torch
 
@@ -345,7 +564,9 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
 
-    builds = [_build.split_name(name) for name in args.builds]
+    builds = [pair for name in args.builds for pair in (
+        [(name, dtype) for dtype in _build.SOURCES.get(name, ())]
+        if name in _build.SOURCES else [_build.split_name(name)])]
     stems = list(dict.fromkeys(stem for stem, _ in builds))
     unknown = [f"{stem}_{dtype}" for stem, dtype in builds
                if dtype not in _build.SOURCES.get(stem, ())]
@@ -371,7 +592,7 @@ def main() -> int:
     earlier = {name: so for name, so in built.items() if name in tree}
     extra = {tag: so for tag, so in built.items() if tag not in tree}
     ok = compare_sass({name: so for name, so in earlier.items()
-                       if name.startswith("nekbone_")}, tree)
+                       if name.startswith("nekbone_")}, tree, args.changed)
     for stem in stems:
         if stem in CHECKS:
             ok &= CHECKS[stem][0](earlier, tree, extra)

@@ -16,8 +16,8 @@
 //   or its diagonal (K4, K6, K8, K11), for one input or several (K6's
 //   lanes, K8's two chains) through one layer sweep, and the node-by-node
 //   direct-stiffness sum of an unassembled field in core/gs.ds_sum_local's
-//   tree (K5, K7, K10; K8 and K11 in a branch-free form with coherent
-//   loads).
+//   tree (K10; K8 and K11 in a branch-free form with coherent loads, K5 and
+//   K7 in one with read-only loads beside the walkers' own staged copy).
 // * The block shape and occupancy query of the persistent cooperative
 //   kernels (K8, K11), and the register cap of K6's.
 // * Dispatch of the run-time n (2..16) to the template instantiations.
@@ -596,10 +596,11 @@ inline int slices_of(int n) {
 namespace nekbone {
 
 // ---------------------------------------------------------------------------
-// Persistent element walkers (K4, K3, K2).  A block of n x n threads owns a
-// contiguous, z-major range of elements (kernels/nekbone_ax.k4_plan,
-// k3_plan) and walks it one element at a time.  A ring of stages in dynamic
-// shared memory holds the operands of the elements after the current one:
+// Persistent element walkers (K4, K3, K2; K5 and K7 below).  A block of
+// n x n threads owns a contiguous, z-major range of elements
+// (kernels/nekbone_ax.k4_plan, k3_plan) and walks it one element at a
+// time.  A ring of stages in dynamic shared memory holds the operands of
+// the elements after the current one:
 // each stage is filled by TMA bulk copies issued by one thread (the bulk
 // path: every operand's size and address a multiple of 16 bytes, n even) or
 // by per-thread cp.async (n odd), and completes on its own mbarrier.  The
@@ -943,11 +944,11 @@ inline int walk_ring_bytes(const WalkPlan& p, const int (&bytes)[K]) {
 
 // A plan the kernel can run on these pointers (bulk: every operand
 // 16-byte aligned with sizes a multiple of 16; cp.async: aligned to its
-// copy unit).
+// copy unit, or with `any_head` to its values alone).
 template <int K>
 inline bool walk_plan_ok(const WalkPlan& p, long long E, int grid,
                          const void* const (&src)[K], const int (&bytes)[K],
-                         const int (&size)[K]) {
+                         const int (&size)[K], bool any_head = false) {
   if (p.per_block < 1 || grid < 1 ||
       static_cast<long long>(grid) * p.per_block < E || p.stages < 1 ||
       p.stages > kMaxStages || p.staged < 0 || p.staged >= (1 << K) ||
@@ -955,11 +956,369 @@ inline bool walk_plan_ok(const WalkPlan& p, long long E, int grid,
     return false;
   for (int q = 0; q < K; ++q) {
     const size_t a = reinterpret_cast<size_t>(src[q]);
-    const int unit = size[q] < 4 ? 4 : size[q];
+    const int unit = any_head ? size[q] : size[q] < 4 ? 4 : size[q];
     if (p.bulk ? (a % 16 != 0 || bytes[q] % 16 != 0) : a % unit != 0)
       return false;
   }
   return true;
+}
+
+}  // namespace nekbone
+
+namespace nekbone {
+
+// ---------------------------------------------------------------------------
+// The CG update walkers (K5, K7).  A work item is one element of one lane:
+// item q = l * E + e (lane-major, so K5 is K7 with one lane), its fields at
+// q * n^3 of each (lanes, E, n^3) operand.  A block of n x n threads walks
+// its contiguous range of items on the walkers' ring (WalkRing above): the
+// next item's x, p, r and its own copy of the unassembled w land in a stage
+// while the current item is updated.  The copies of w in the neighbouring
+// elements are not staged: every thread issues the same seven predicated
+// loads a node, through the read-only path, switched off along an axis
+// without a neighbour (sum_xyz_nc).  Kept apart from the helpers above, so
+// that the other kernels compile as before.
+// ---------------------------------------------------------------------------
+
+// The value at a where p, else 0, through the non-coherent read-only path:
+// the field was written before the launch and no block writes it.  Not
+// volatile, so that nvcc may issue a layer's loads early.
+__device__ __forceinline__ double ld_nc(bool p, const double* a) {
+  double v;
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n mov.b64 %0, 0;\n"
+      " @p ld.global.nc.f64 %0, [%1];\n}"
+      : "=d"(v)
+      : "l"(a), "r"(static_cast<int>(p)));
+  return v;
+}
+__device__ __forceinline__ float ld_nc(bool p, const float* a) {
+  float v;
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n mov.b32 %0, 0;\n"
+      " @p ld.global.nc.f32 %0, [%1];\n}"
+      : "=f"(v)
+      : "l"(a), "r"(static_cast<int>(p)));
+  return v;
+}
+__device__ __forceinline__ __nv_bfloat16 ld_nc(bool p,
+                                               const __nv_bfloat16* a) {
+  unsigned short v;
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n mov.b16 %0, 0;\n"
+      " @p ld.global.nc.b16 %0, [%1];\n}"
+      : "=h"(v)
+      : "l"(a), "r"(static_cast<int>(p)));
+  return __ushort_as_bfloat16(v);
+}
+
+// sum_xyz's value of node (k, j, i) of element e, in the accumulation type,
+// from the node's own copy `own` (read by the caller) and the neighbours'
+// copies in w, without branches: every node issues the same seven loads,
+// those of copies it does not have predicated off, and selects.  The pairs
+// are sum_xyz's, x first, then y, then z, each as (own side + neighbour's
+// side); IEEE addition is commutative, so that is bitwise sum_xyz's (lower
+// + upper) for either side.
+template <int N, typename T>
+__device__ __forceinline__ accum_t<T> sum_xyz_nc(const T* __restrict__ w,
+                                                 accum_t<T> own, size_t e,
+                                                 int k, int j, int i, int ix,
+                                                 int iy, int iz, int ex,
+                                                 int ey, int ez) {
+  using A = accum_t<T>;
+  constexpr int N2 = N * N;
+  constexpr int N3 = N * N * N;
+  // along each axis: is there a neighbour's copy, and where is it (element
+  // offset, and the node index on its side: N - 1 - own)
+  const bool hx = (i == N - 1 && ix < ex - 1) || (i == 0 && ix > 0);
+  const bool hy = (j == N - 1 && iy < ey - 1) || (j == 0 && iy > 0);
+  const bool hz = (k == N - 1 && iz < ez - 1) || (k == 0 && iz > 0);
+  const ptrdiff_t sx = i == N - 1 ? 1 : -1;
+  const ptrdiff_t sy = (j == N - 1 ? 1 : -1) * static_cast<ptrdiff_t>(ex);
+  const ptrdiff_t sz =
+      (k == N - 1 ? 1 : -1) * static_cast<ptrdiff_t>(ex) * ey;
+  const T* at0 = w + e * N3 + (k * N + j) * N + i;
+  // the copy of the node in the element offset along the axes flagged
+  auto at = [&](bool dx, bool dy, bool dz) {
+    return at0 + ((dx ? sx : 0) + (dy ? sy : 0) + (dz ? sz : 0)) * N3 +
+           (dx ? (N - 1 - 2 * i) : 0) + (dy ? (N - 1 - 2 * j) * N : 0) +
+           (dz ? (N - 1 - 2 * k) * N2 : 0);
+  };
+  auto ld = [&](bool p, bool dx, bool dy, bool dz) {
+    return convert<A>(ld_nc(p, at(dx, dy, dz)));
+  };
+  // a (the copy on the own side along x) paired with its x neighbour
+  auto xsum = [&](A a, bool p, bool dy, bool dz) {
+    const A b = ld(p && hx, true, dy, dz);
+    return hx ? add_rn(a, b) : a;
+  };
+  // the x-sum of a paired with the x-sum on the y neighbour's side
+  auto xysum = [&](A a, bool p, bool dz) {
+    const A lo = xsum(a, p, false, dz);
+    const A hi = xsum(ld(p && hy, false, true, dz), p && hy, true, dz);
+    return hy ? add_rn(lo, hi) : lo;
+  };
+  const A lo = xysum(own, true, false);
+  const A hi = xysum(ld(hz, false, false, true), hz, true);
+  return hz ? add_rn(lo, hi) : lo;
+}
+
+// block_sum's tree over the NT values of the block's threads, with its
+// pairs (tid, tid + s) in its order, so bitwise block_sum's: the steps of s
+// >= 64 through shared memory, the rest in warp 0 (s = 32 from shared
+// memory, then shuffles); two barriers at NT = 100 against block_sum's
+// eight.  The result is valid in thread 0, and every thread has passed the
+// last barrier after its value was in.  Warp 0 reads `sh` after that
+// barrier, so consecutive calls alternate two buffers of NT values.
+template <int NT, typename T>
+__device__ __forceinline__ T block_sum_shfl(T v, T* sh, int tid) {
+  constexpr int kHalf = pow2_ceil(NT) / 2;
+  if constexpr (kHalf >= 32) {
+    sh[tid] = v;
+    __syncthreads();
+#pragma unroll
+    for (int s = kHalf; s >= 64; s >>= 1) {
+      if (tid < s && tid + s < NT) sh[tid] += sh[tid + s];
+      __syncthreads();
+    }
+    if (tid < 32) v = tid + 32 < NT ? sh[tid] + sh[tid + 32] : sh[tid];
+  } else {
+    __syncthreads();
+  }
+  if (tid < 32) {
+    constexpr unsigned kLanes = NT >= 32 ? 0xffffffffu : (1u << NT) - 1u;
+#pragma unroll
+    for (int s = kHalf >= 32 ? 16 : kHalf; s > 0; s >>= 1) {
+      const T o = __shfl_down_sync(kLanes, v, s);
+      if (tid < s && tid + s < NT) v += o;
+    }
+  }
+  return v;
+}
+
+// The operands of one launch of K5 or K7, passed by value.
+template <typename S, typename X, typename A>
+struct UpdateArgs {
+  const X* x;
+  const S* p;
+  const S* r;
+  const S* w;
+  const A* alpha;  // one value a lane
+  const S* cx;
+  const S* cy;
+  const S* cz;
+  X* x_out;
+  S* r_out;
+  A* rcr;  // one value an item
+  int ex, ey, ez;
+  int lanes;
+  WalkPlan plan;
+};
+
+// Operands 0..3 of the ring: x (n^3 values in X), p, r and w (n^3 in S) of
+// one item; their bytes and value sizes.
+template <int N, typename S, typename X>
+__host__ __device__ __forceinline__ void update_operands(int (&bytes)[4],
+                                                         int (&size)[4]) {
+  constexpr int kS = static_cast<int>(sizeof(S));
+  constexpr int kX = static_cast<int>(sizeof(X));
+  bytes[0] = N * N * N * kX;
+  bytes[1] = bytes[2] = bytes[3] = N * N * N * kS;
+  size[0] = kX;
+  size[1] = size[2] = size[3] = kS;
+}
+
+// Where item q lies: its lane and its element's grid coordinates.  The
+// walk divides once, for its first item, and steps from there.
+struct ItemPos {
+  size_t lane;
+  int ix, iy, iz;
+
+  __device__ __forceinline__ ItemPos(size_t q, size_t E, int ex, int ey) {
+    lane = q / E;
+    const size_t e = q - lane * E;
+    ix = static_cast<int>(e % ex);
+    iy = static_cast<int>((e / ex) % ey);
+    iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
+  }
+  // to item q + 1 (z-major elements, then the next lane)
+  __device__ __forceinline__ void next(int ex, int ey, int ez) {
+    if (++ix < ex) return;
+    ix = 0;
+    if (++iy < ey) return;
+    iy = 0;
+    if (++iz < ez) return;
+    iz = 0;
+    ++lane;
+  }
+};
+
+// WalkRing's fill and at with the stage s given: the update walk keeps its
+// stage and phase as it goes, so that an item pays no division (t % stages
+// in fill, wait and at, and a copy unit's modulo in at, are integer
+// divisions by run-time values).  kBulkAll: the plan stages every operand
+// by bulk copies (n even, as on the paper case), known at compile time, so
+// that neither the other copy path nor device-memory operands cost
+// instructions or registers there.  WalkRing's own are K4's, K3's and K2's
+// and stay as they are.
+template <bool kBulkAll, int K>
+__device__ __forceinline__ void ring_fill_stage(const WalkRing<K>& ring,
+                                                int s, size_t e, int tid,
+                                                int threads) {
+  if (!kBulkAll && !ring.plan.staged) return;
+  unsigned char* stage = ring.base + s * ring.stage_bytes;
+  if (kBulkAll || ring.plan.bulk) {
+    if (tid != 0) return;
+    // the stage's last reads were generic; its next writes are TMA's
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    unsigned total = 0;
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      if (kBulkAll || ring.has(q))
+        total += static_cast<unsigned>(ring.bytes[q]);
+    mbar_expect_tx(&ring.full[s], total);
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      if (kBulkAll || ring.has(q))
+        bulk_copy(stage + ring.off[q], ring.src[q] + e * ring.bytes[q],
+                  static_cast<unsigned>(ring.bytes[q]), &ring.full[s]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      if (!ring.has(q)) continue;
+      if (ring.unit[q] == 8)
+        copy_window<8>(stage + ring.off[q], ring.src[q] + e * ring.bytes[q],
+                       ring.bytes[q], tid, threads);
+      else
+        copy_window<4>(stage + ring.off[q], ring.src[q] + e * ring.bytes[q],
+                       ring.bytes[q], tid, threads);
+    }
+    cp_async_arrive(&ring.full[s]);
+  }
+}
+
+// Operand q of element e, in `stage` (its stage's base) where staged, else
+// in device memory; copy units are 4 or 8 bytes, so the head is a mask.
+template <typename T, bool kBulkAll, int K>
+__device__ __forceinline__ const T* ring_at_stage(const WalkRing<K>& ring,
+                                                  const unsigned char* stage,
+                                                  int q, size_t e) {
+  if (kBulkAll) return reinterpret_cast<const T*>(stage + ring.off[q]);
+  const unsigned char* g = ring.src[q] + e * ring.bytes[q];
+  if (!ring.has(q)) return reinterpret_cast<const T*>(g);
+  const int head = ring.plan.bulk ? 0
+                                  : static_cast<int>(
+                                        reinterpret_cast<size_t>(g) &
+                                        static_cast<size_t>(ring.unit[q] - 1));
+  return reinterpret_cast<const T*>(stage + ring.off[q] + head);
+}
+
+// One item, the t-th of the block, whose stage has landed: thread (i, j)
+// assembles its column's n values of w first (every neighbour load of the
+// item in flight at once, none behind a store), then marches its k layers
+// (x += alpha p, r -= alpha w, its r.c.r partial in k order), and the
+// block sums the partials in block_sum's tree (block_sum_shfl, `red` two
+// buffers of n^2 values).  K5 and K7 run every item through this one
+// function, so each K7 lane is bitwise K5 on that lane.
+template <int N, bool kBulkAll, typename S, typename X, typename A>
+__device__ __forceinline__ void cg_update_item(const UpdateArgs<S, X, A>& a,
+                                               const WalkRing<4>& ring,
+                                               const unsigned char* stage,
+                                               size_t q, const ItemPos& pos,
+                                               A* red, int i, int j) {
+  constexpr int N2 = N * N;
+  constexpr int N3 = N * N * N;
+  const int tid = j * N + i;
+  const int ix = pos.ix, iy = pos.iy, iz = pos.iz;
+  const A al = a.alpha[pos.lane];
+  const X* xs = ring_at_stage<X, kBulkAll>(ring, stage, 0, q) + tid;
+  const S* ps = ring_at_stage<S, kBulkAll>(ring, stage, 1, q) + tid;
+  const S* rs = ring_at_stage<S, kBulkAll>(ring, stage, 2, q) + tid;
+  const S* ws = ring_at_stage<S, kBulkAll>(ring, stage, 3, q) + tid;
+  const size_t base = q * N3 + tid;
+  const A cyx = convert<A>(a.cy[iy * N + j]) * convert<A>(a.cx[ix * N + i]);
+  A wa[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    wa[k] = sum_xyz_nc<N>(a.w, convert<A>(ws[k * N2]), q, k, j, i, ix, iy,
+                          iz, a.ex, a.ey, a.ez);
+  A part = A(0);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const size_t o = base + k * N2;
+    a.x_out[o] = convert<X>(
+        add_rn(convert<A>(xs[k * N2]), mul_rn(al, convert<A>(ps[k * N2]))));
+    // the stored residual, and r.c.r over exactly it (the round trip
+    // through S is the identity for f64 and f32)
+    const S rn_s =
+        convert<S>(sub_rn(convert<A>(rs[k * N2]), mul_rn(al, wa[k])));
+    a.r_out[o] = rn_s;
+    const A rn = convert<A>(rn_s);
+    // c is (cz * cy) * cx; the factors are 0, 1/2 or 1, so the product is
+    // exact in any order.
+    const A c = convert<A>(a.cz[iz * N + k]) * cyx;
+    part += (rn * c) * rn;
+  }
+  const A total = block_sum_shfl<N2>(part, red, tid);
+  if (tid == 0) a.rcr[q] = total;
+}
+
+// The walk of a block over its items (lanes * E of them), kBulkAll as for
+// ring_fill_stage.
+template <int N, bool kBulkAll, typename S, typename X, typename A>
+__device__ __forceinline__ void cg_update_walk(const UpdateArgs<S, X, A>& a,
+                                               unsigned long long* full,
+                                               unsigned char* ring_bytes,
+                                               A* red) {
+  constexpr int N2 = N * N;
+  const int i = threadIdx.x;
+  const int j = threadIdx.y;
+  const int tid = j * N + i;
+  const size_t E = static_cast<size_t>(a.ex) * a.ey * a.ez;
+  size_t first, last;
+  walk_range(E * a.lanes, a.plan.per_block, first, last);
+  const int count = static_cast<int>(last - first);
+  const void* const src[4] = {a.x, a.p, a.r, a.w};
+  int bytes[4], size[4];
+  update_operands<N, S, X>(bytes, size);
+  WalkRing<4> ring(full, ring_bytes, a.plan, src, bytes, size);
+  ring.init(tid, N2);
+  __syncthreads();
+  const int stages = a.plan.stages;
+  for (int t = 0; t < stages && t < count; ++t)
+    ring_fill_stage<kBulkAll>(ring, t, first + t, tid, N2);
+  ItemPos pos(first, E, a.ex, a.ey);
+  // the t-th item's stage s = t % stages, and its phase (t / stages) & 1
+  int s = 0;
+  unsigned phase = 0;
+  for (int t = 0; t < count; ++t, pos.next(a.ex, a.ey, a.ez)) {
+    const size_t q = first + t;
+    if (!kBulkAll && t + 1 < count) ring.prefetch(q + 1, tid, N2);
+    if (kBulkAll || a.plan.staged) mbar_wait(&full[s], phase);
+    cg_update_item<N, kBulkAll>(a, ring, ring.base + s * ring.stage_bytes, q,
+                                pos, red + (t & 1) * N2, i, j);
+    // block_sum_shfl's barrier: no thread reads this item's stage any more
+    if (t + stages < count)
+      ring_fill_stage<kBulkAll>(ring, s, q + stages, tid, N2);
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1u;
+    }
+  }
+}
+
+// A plan the update walkers can run on these operands, over `items` items.
+// The cp.async path takes any operand aligned to its values: copy_window
+// reads from the copy unit that holds an item's first byte, which lies in
+// the operand's allocation (CUDA allocations are 256-byte aligned), so a
+// bf16 view that starts 2 bytes past a 4-byte boundary (a lane of a (b, E,
+// n^3) field at odd n) is read as it is.
+template <int N, typename S, typename X, typename A>
+inline bool update_plan_ok(const UpdateArgs<S, X, A>& a, long long items,
+                           int grid, int& dyn) {
+  const void* const src[4] = {a.x, a.p, a.r, a.w};
+  int bytes[4], size[4];
+  update_operands<N, S, X>(bytes, size);
+  dyn = walk_ring_bytes(a.plan, bytes);
+  return walk_plan_ok(a.plan, items, grid, src, bytes, size,
+                      /*any_head=*/true);
 }
 
 }  // namespace nekbone

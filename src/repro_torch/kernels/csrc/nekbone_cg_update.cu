@@ -11,9 +11,8 @@
 // and stitched in the two neighbouring blocks' boundary planes.  Here the
 // front-half kernel (nekbone_ax_slab.cu) writes the unassembled masked w,
 // and this kernel assembles it: thread (i, j) of the element's n x n layer,
-// at layer k, reads the node's own copy and, on a face, edge or corner, the
-// coincident copies in the neighbouring elements, straight from device
-// memory (common.cuh's sum_xyz, shared with K10 and K11).  The sums follow
+// at layer k, takes the node's own copy and, on a face, edge or corner, the
+// coincident copies in the neighbouring elements.  The sums follow
 // core/gs.ds_sum_local's tree exactly, so the assembled w is bitwise the
 // plain version's in fp64 and fp32.
 //
@@ -25,6 +24,37 @@
 // 6 x 8.19 MB = 49.2 MB (about 15 us at the data sheet's 3.35 TB/s); a
 // handful of flops per node, so the kernel is bound by bytes.  rcr leaves
 // as one value per element (E values), summed outside by torch.sum.
+//
+// Design (common.cuh's update walkers, the skeleton of K4's).  One block of
+// n x n threads per element, with every thread loading one value per field
+// per layer, left too few bytes in flight (in bf16 above all: 2 bytes a
+// load), branched inside a warp on face, edge and corner nodes (each path
+// waiting for its own loads) and ran 7.8 blocks an SM in one ragged wave at
+// E=1024.  Here:
+//
+// * persistent blocks, one wave: kernels/nekbone_ax.k5_plan sizes the grid
+//   from the occupancy calculator; block b owns the z-major elements
+//   [b * per_block, (b + 1) * per_block) and walks them;
+// * a ring of two stages in dynamic shared memory holds the next element's
+//   x, p, r and its own copy of w while the current one is updated (n = 10:
+//   2 x 32,000 bytes in fp64, 2 x 8,000 in bf16): one thread's TMA bulk
+//   copies where n is even, per-thread cp.async where it is odd;
+// * the neighbours' copies of w are read through L2 by predicated loads
+//   that every thread issues alike (common.cuh sum_xyz_nc), paired as
+//   sum_xyz pairs them;
+// * a thread assembles its column's n values of w before it stores
+//   anything, so that an item's neighbour loads are in flight together
+//   and none waits behind a store; the walk steps its items' grid
+//   coordinates and its ring's stage and phase instead of dividing for
+//   each item (common.cuh ItemPos, ring_fill_stage), and where the plan
+//   stages every operand by bulk copies (n even) it runs a walk that knows
+//   so at compile time: the kernel issues few instructions a byte, so
+//   instructions, not the ring, set its time;
+// * the partials go through block_sum's tree with its last steps as warp
+//   shuffles (block_sum_shfl: the same pairs, two barriers for eight).
+//
+// The arithmetic is the one-block-per-element kernel's: x and r bitwise,
+// and rcr too (each column's partial in k order, then block_sum's pairs).
 //
 // alpha is read from a device pointer.  Both axpys use rounded, uncontracted
 // multiply and add, so x and r are bitwise the plain version's.  The
@@ -48,86 +78,64 @@
 namespace nekbone {
 
 template <int N, typename S, typename X, typename A>
-__global__ void __launch_bounds__(N * N)
-nekbone_cg_update_kernel(const X* __restrict__ x, const S* __restrict__ p,
-                         const S* __restrict__ r, const S* __restrict__ w,
-                         const A* __restrict__ alpha,
-                         const S* __restrict__ cx, const S* __restrict__ cy,
-                         const S* __restrict__ cz, X* __restrict__ x_out,
-                         S* __restrict__ r_out, A* __restrict__ rcr, int ex,
-                         int ey, int ez) {
-  constexpr int N2 = N * N;
-  constexpr int N3 = N * N * N;
-  __shared__ A red[N2];
-
-  const int i = threadIdx.x;
-  const int j = threadIdx.y;
-  const int tid = j * N + i;
-  const size_t e = blockIdx.x;
-  const int ix = static_cast<int>(e % ex);
-  const int iy = static_cast<int>((e / ex) % ey);
-  const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
-  const size_t base = e * N3 + tid;
-  const A a = *alpha;
-  const A cyx = convert<A>(cy[iy * N + j]) * convert<A>(cx[ix * N + i]);
-
-  A part = A(0);
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const size_t o = base + k * N2;
-    const A wa = sum_xyz<N>(w, e, k, j, i, ix, iy, iz, ex, ey, ez);
-    x_out[o] =
-        convert<X>(add_rn(convert<A>(x[o]), mul_rn(a, convert<A>(p[o]))));
-    // the stored residual, and r.c.r over exactly it (the round trip
-    // through S is the identity for f64 and f32)
-    const S rs = convert<S>(sub_rn(convert<A>(r[o]), mul_rn(a, wa)));
-    r_out[o] = rs;
-    const A rn = convert<A>(rs);
-    // c is (cz * cy) * cx; the factors are 0, 1/2 or 1, so the product is
-    // exact in any order.
-    const A c = convert<A>(cz[iz * N + k]) * cyx;
-    part += (rn * c) * rn;
-  }
-  const A total = block_sum<N2>(part, red, tid);
-  if (tid == 0) rcr[e] = total;
+__global__ void __launch_bounds__(N * N, kWalkMinBlocks<N, A>)
+nekbone_cg_update_kernel(const UpdateArgs<S, X, A> a) {
+  __shared__ A red[2 * N * N];
+  __shared__ unsigned long long full[kMaxStages];
+  extern __shared__ __align__(128) unsigned char ring_bytes[];
+  if (a.plan.bulk && a.plan.staged == 15)
+    cg_update_walk<N, true>(a, full, ring_bytes, red);
+  else
+    cg_update_walk<N, false>(a, full, ring_bytes, red);
 }
 
 template <int N, typename S, typename X, typename A>
-cudaError_t launch(const X* x, const S* p, const S* r, const S* w,
-                   const A* alpha, const S* cx, const S* cy, const S* cz,
-                   X* x_out, S* r_out, A* rcr, int ex, int ey, int ez,
+const void* kernel_fn() {
+  return reinterpret_cast<const void*>(&nekbone_cg_update_kernel<N, S, X, A>);
+}
+
+// out: common.cuh coop_query's seven values for this instantiation.
+template <int N, typename S, typename X, typename A>
+cudaError_t query(int dyn, int* out) {
+  return coop_query(kernel_fn<N, S, X, A>(), N * N, 1, dyn, out);
+}
+
+template <int N, typename S, typename X, typename A>
+cudaError_t launch(const UpdateArgs<S, X, A>& a, int grid,
                    cudaStream_t stream) {
-  const int E = ex * ey * ez;
-  nekbone_cg_update_kernel<N, S, X, A><<<E, dim3(N, N), 0, stream>>>(
-      x, p, r, w, alpha, cx, cy, cz, x_out, r_out, rcr, ex, ey, ez);
+  const long long E = static_cast<long long>(a.ex) * a.ey * a.ez;
+  int dyn = 0;
+  if (!update_plan_ok<N>(a, E, grid, dyn)) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel_fn<N, S, X, A>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dyn);
+  if (err != cudaSuccess) return err;
+  nekbone_cg_update_kernel<N, S, X, A><<<grid, dim3(N, N), dyn, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename S, typename X, typename A>
-int dispatch(const void* x, const void* p, const void* r, const void* w,
-             const void* alpha, const void* cx, const void* cy,
-             const void* cz, void* x_out, void* r_out, void* rcr, int ex,
-             int ey, int ez, int n, void* stream) {
-  if (ex <= 0 || ey <= 0 || ez <= 0)
+int dispatch_query(int n, int dyn, int* out) {
+  switch (n) {
+#define NEKBONE_CASE(N) \
+  case N:               \
+    return static_cast<int>(query<N, S, X, A>(dyn, out));
+    NEKBONE_FOR_EACH_N(NEKBONE_CASE)
+#undef NEKBONE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename S, typename X, typename A>
+int dispatch(const UpdateArgs<S, X, A>& a, int n, int grid, void* stream) {
+  if (a.ex <= 0 || a.ey <= 0 || a.ez <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const X* xs = static_cast<const X*>(x);
-  const S* ps = static_cast<const S*>(p);
-  const S* rs = static_cast<const S*>(r);
-  const S* ws = static_cast<const S*>(w);
-  const A* as = static_cast<const A*>(alpha);
-  const S* cxs = static_cast<const S*>(cx);
-  const S* cys = static_cast<const S*>(cy);
-  const S* czs = static_cast<const S*>(cz);
-  X* xo = static_cast<X*>(x_out);
-  S* ro = static_cast<S*>(r_out);
-  A* rc = static_cast<A*>(rcr);
   switch (n) {
-#define NEKBONE_CASE(N)                                                     \
-  case N:                                                                   \
-    return static_cast<int>(launch<N, S, X, A>(xs, ps, rs, ws, as, cxs,     \
-                                               cys, czs, xo, ro, rc, ex, ey, \
-                                               ez, s));
+#define NEKBONE_CASE(N) \
+  case N:               \
+    return static_cast<int>(launch<N, S, X, A>(a, grid, s));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -139,29 +147,46 @@ int dispatch(const void* x, const void* p, const void* r, const void* w,
 
 // x, x_out: (E, n^3) in X; p, r, w (unassembled, masked), r_out: (E, n^3)
 // in S; alpha: one value and rcr: (E,) in A; cx: (EX, n), cy: (EY, n), cz:
-// (EZ, n) in S.  Elements z-major over (EX, EY, EZ).  Returns
+// (EZ, n) in S.  Elements z-major over (EX, EY, EZ).  The plan (per_block,
+// grid, stages, staged, bulk) is kernels/nekbone_ax.k5_plan's; a plan the
+// pointers do not allow returns cudaErrorInvalidValue.  Returns
 // cudaGetLastError() after the launch.
-#define NEKBONE_CG_UPDATE_ENTRY(NAME, S, X, A)                              \
-  extern "C" int NAME(const void* x, const void* p, const void* r,          \
-                      const void* w, const void* alpha, const void* cx,     \
-                      const void* cy, const void* cz, void* x_out,          \
-                      void* r_out, void* rcr, int ex, int ey, int ez, int n, \
-                      void* stream) {                                       \
-    return nekbone::dispatch<S, X, A>(x, p, r, w, alpha, cx, cy, cz, x_out, \
-                                      r_out, rcr, ex, ey, ez, n, stream);   \
+//
+// nekbone_cg_update_query_<dtype>(n, resident, dyn, out): fills out[7] as
+// common.cuh coop_query documents (resident is ignored); returns a CUDA
+// error, or 0.
+#define NEKBONE_CG_UPDATE_ENTRY(SUFFIX, S, X, A)                              \
+  extern "C" int nekbone_cg_update_##SUFFIX(                                  \
+      const void* x, const void* p, const void* r, const void* w,             \
+      const void* alpha, const void* cx, const void* cy, const void* cz,      \
+      void* x_out, void* r_out, void* rcr, int ex, int ey, int ez, int n,     \
+      int per_block, int grid, int stages, int staged, int bulk,              \
+      void* stream) {                                                         \
+    const nekbone::UpdateArgs<S, X, A> a{                                     \
+        static_cast<const X*>(x),     static_cast<const S*>(p),               \
+        static_cast<const S*>(r),     static_cast<const S*>(w),               \
+        static_cast<const A*>(alpha), static_cast<const S*>(cx),              \
+        static_cast<const S*>(cy),    static_cast<const S*>(cz),              \
+        static_cast<X*>(x_out),       static_cast<S*>(r_out),                 \
+        static_cast<A*>(rcr),         ex, ey, ez, /*lanes=*/1,                \
+        {per_block, stages, staged, bulk}};                                   \
+    return nekbone::dispatch<S, X, A>(a, n, grid, stream);                    \
+  }                                                                           \
+  extern "C" int nekbone_cg_update_query_##SUFFIX(int n, int resident,        \
+                                                  int dyn, int* out) {        \
+    (void)resident;                                                           \
+    return nekbone::dispatch_query<S, X, A>(n, dyn, out);                     \
   }
 
 #ifdef NEKBONE_REAL_F64
-NEKBONE_CG_UPDATE_ENTRY(nekbone_cg_update_f64, double, double, double)
+NEKBONE_CG_UPDATE_ENTRY(f64, double, double, double)
 #endif
 #ifdef NEKBONE_REAL_F32
-NEKBONE_CG_UPDATE_ENTRY(nekbone_cg_update_f32, float, float, float)
+NEKBONE_CG_UPDATE_ENTRY(f32, float, float, float)
 #endif
 #ifdef NEKBONE_REAL_BF16
-NEKBONE_CG_UPDATE_ENTRY(nekbone_cg_update_bf16, __nv_bfloat16, __nv_bfloat16,
-                        float)
+NEKBONE_CG_UPDATE_ENTRY(bf16, __nv_bfloat16, __nv_bfloat16, float)
 #endif
 #ifdef NEKBONE_REAL_BF16_IR
-NEKBONE_CG_UPDATE_ENTRY(nekbone_cg_update_bf16_ir, __nv_bfloat16, float,
-                        float)
+NEKBONE_CG_UPDATE_ENTRY(bf16_ir, __nv_bfloat16, float, float)
 #endif

@@ -8,24 +8,23 @@
 //
 // Replaces the TPU kernel
 // src/repro/kernels/nekbone_ax.py:nekbone_cg_update_block_kernel
-// (pallas_call at :918).  As in K5 (nekbone_cg_update.cu) the work is per
-// element, one n x n thread layer marching the k layers, and the assembly
-// reads the neighbours' face copies of the unassembled w straight from
-// device memory in core/gs.ds_sum_local's tree (common.cuh's sum_xyz).  The
-// weight c = mask / multiplicity is rebuilt once per element from its
-// per-axis factors: the thread's (cy * cx) product, times the layer's cz
-// factor (an L1 hit) at each layer.  The block loops over the lanes and runs
-// K5's arithmetic on each: the same gathers, the same rounded, uncontracted
-// axpys, the same partial sum.  So each lane's x, r and rcr are bitwise
-// K5's on that lane.
+// (pallas_call at :918).
 //
-// Registers decide this kernel's speed (H100, n=10, fp64): left alone,
-// nvcc hoists every layer's neighbour addresses out of the lane loop and
-// holds them live across it (168 registers against K5's 56, and K7 at b=1
-// took twice K5's time); holding the n values of c across the lanes costs
-// registers too.  So an opaque per-lane copy of the element index keeps the
-// address arithmetic inside the loop, and c's layer factor is read again
-// per lane.
+// Design: K5's walker (nekbone_cg_update.cu, common.cuh's update walkers)
+// over b x E work items, item q = l * E + e, its fields at q * n^3 of each
+// (b, E, n^3) operand.  The items are lane-major, so block ranges cut across
+// the lanes and all b lanes are in flight across the grid together;
+// kernels/nekbone_ax.k7_plan sizes the grid for b E items.  Each item reads
+// its own alpha[l] and writes rcr at (l, e).  The kernel this replaced ran
+// one block per element that looped over the lanes in series, each lane
+// ending in a block sum; it kept the neighbour addresses inside the loop
+// with an opaque copy of the element index, and took at b = 4 in bf16 about
+// the fp64 kernel's time on a quarter of the bytes.
+//
+// Every item goes through K5's function (common.cuh cg_update_item): the
+// same gathers in core/gs.ds_sum_local's tree, the same rounded,
+// uncontracted axpys, the same partial sum.  So each lane's x, r and rcr
+// are bitwise K5's on that lane.
 //
 // Bound: bytes.  Per lane x, p, r, w in and x, r out: 6 fields of 8.19 MB
 // at E=1024, n=10, fp64, 196.6 MB at b=4 (58.7 us at 3.35 TB/s).  K5 has no
@@ -35,11 +34,8 @@
 // Storage and accumulation (common.cuh), K5's roles: S the CG vectors (p,
 // r, w and the c factors), X the solution, A alpha, the arithmetic, the
 // assembly of w and rcr.  Four builds: f64 and f32 (one type throughout);
-// bf16 (S = X = bf16, A = f32) and bf16_ir (S = bf16, X = A = f32).  Each
-// lane rounds as K5 does: w is assembled in A from its S copies and the
-// updated r is rounded to S before r.c.r (the next iteration reads the
-// stored r), so each bf16 lane is bitwise the bf16 K5's on that lane.  At
-// b=4 bf16 moves 48 bytes a node, bf16_ir 64 (x in f32).
+// bf16 (S = X = bf16, A = f32) and bf16_ir (S = bf16, X = A = f32).  At b=4
+// bf16 moves 48 bytes a node, bf16_ir 64 (x in f32).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -47,88 +43,67 @@
 namespace nekbone {
 
 template <int N, typename S, typename X, typename A>
-__global__ void __launch_bounds__(N * N)
-nekbone_cg_update_block_kernel(const X* __restrict__ x,
-                               const S* __restrict__ p,
-                               const S* __restrict__ r,
-                               const S* __restrict__ w,
-                               const A* __restrict__ alpha,
-                               const S* __restrict__ cx,
-                               const S* __restrict__ cy,
-                               const S* __restrict__ cz,
-                               X* __restrict__ x_out, S* __restrict__ r_out,
-                               A* __restrict__ rcr, int ex, int ey, int ez,
-                               int nrhs) {
-  constexpr int N2 = N * N;
-  constexpr int N3 = N * N * N;
-  __shared__ A red[N2];
-
-  const int i = threadIdx.x;
-  const int j = threadIdx.y;
-  const int tid = j * N + i;
-  const size_t e = blockIdx.x;
-  const size_t E = gridDim.x;
-  const int ix = static_cast<int>(e % ex);
-  const int iy = static_cast<int>((e / ex) % ey);
-  const int iz = static_cast<int>(e / (static_cast<size_t>(ex) * ey));
-
-  // c is (cz * cy) * cx; the factors are 0, 1/2 or 1, so the product is
-  // exact in any order (K5 forms the same values).
-  const A cyx = convert<A>(cy[iy * N + j]) * convert<A>(cx[ix * N + i]);
-
-  for (int l = 0; l < nrhs; ++l) {
-    // opaque to nvcc: the neighbour addresses are recomputed per lane, not
-    // hoisted out of the loop and held live across it
-    size_t el = e;
-    asm volatile("" : "+l"(el));
-    const size_t lane = l * E * N3;
-    const size_t base = lane + el * N3 + tid;
-    const S* wl = w + lane;
-    const A a = alpha[l];
-    A part = A(0);
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const size_t o = base + k * N2;
-      const A wa = sum_xyz<N>(wl, el, k, j, i, ix, iy, iz, ex, ey, ez);
-      x_out[o] =
-          convert<X>(add_rn(convert<A>(x[o]), mul_rn(a, convert<A>(p[o]))));
-      // the stored residual, and r.c.r over exactly it (the round trip
-      // through S is the identity for f64 and f32)
-      const S rs = convert<S>(sub_rn(convert<A>(r[o]), mul_rn(a, wa)));
-      r_out[o] = rs;
-      const A rn = convert<A>(rs);
-      const A c = convert<A>(cz[iz * N + k]) * cyx;
-      part += (rn * c) * rn;
-    }
-    const A total = block_sum<N2>(part, red, tid);
-    if (tid == 0) rcr[l * E + e] = total;
-  }
+__global__ void __launch_bounds__(N * N, kWalkMinBlocks<N, A>)
+nekbone_cg_update_block_kernel(const UpdateArgs<S, X, A> a) {
+  __shared__ A red[2 * N * N];
+  __shared__ unsigned long long full[kMaxStages];
+  extern __shared__ __align__(128) unsigned char ring_bytes[];
+  if (a.plan.bulk && a.plan.staged == 15)
+    cg_update_walk<N, true>(a, full, ring_bytes, red);
+  else
+    cg_update_walk<N, false>(a, full, ring_bytes, red);
 }
 
 template <int N, typename S, typename X, typename A>
-cudaError_t launch(const X* x, const S* p, const S* r, const S* w,
-                   const A* alpha, const S* cx, const S* cy, const S* cz,
-                   X* x_out, S* r_out, A* rcr, int ex, int ey, int ez,
-                   int nrhs, cudaStream_t stream) {
-  const int E = ex * ey * ez;
-  nekbone_cg_update_block_kernel<N, S, X, A><<<E, dim3(N, N), 0, stream>>>(
-      x, p, r, w, alpha, cx, cy, cz, x_out, r_out, rcr, ex, ey, ez, nrhs);
+const void* kernel_fn() {
+  return reinterpret_cast<const void*>(
+      &nekbone_cg_update_block_kernel<N, S, X, A>);
+}
+
+// out: common.cuh coop_query's seven values for this instantiation.
+template <int N, typename S, typename X, typename A>
+cudaError_t query(int dyn, int* out) {
+  return coop_query(kernel_fn<N, S, X, A>(), N * N, 1, dyn, out);
+}
+
+template <int N, typename S, typename X, typename A>
+cudaError_t launch(const UpdateArgs<S, X, A>& a, int grid,
+                   cudaStream_t stream) {
+  const long long items =
+      static_cast<long long>(a.ex) * a.ey * a.ez * a.lanes;
+  int dyn = 0;
+  if (!update_plan_ok<N>(a, items, grid, dyn)) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel_fn<N, S, X, A>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dyn);
+  if (err != cudaSuccess) return err;
+  nekbone_cg_update_block_kernel<N, S, X, A>
+      <<<grid, dim3(N, N), dyn, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename S, typename X, typename A>
-int dispatch(const X* x, const S* p, const S* r, const S* w, const A* alpha,
-             const S* cx, const S* cy, const S* cz, X* x_out, S* r_out,
-             A* rcr, int ex, int ey, int ez, int n, int nrhs, void* stream) {
-  if (ex <= 0 || ey <= 0 || ez <= 0 || nrhs <= 0)
+int dispatch_query(int n, int dyn, int* out) {
+  switch (n) {
+#define NEKBONE_CASE(N) \
+  case N:               \
+    return static_cast<int>(query<N, S, X, A>(dyn, out));
+    NEKBONE_FOR_EACH_N(NEKBONE_CASE)
+#undef NEKBONE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename S, typename X, typename A>
+int dispatch(const UpdateArgs<S, X, A>& a, int n, int grid, void* stream) {
+  if (a.ex <= 0 || a.ey <= 0 || a.ez <= 0 || a.lanes <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
-#define NEKBONE_CASE(N)                                                      \
-  case N:                                                                    \
-    return static_cast<int>(launch<N, S, X, A>(x, p, r, w, alpha, cx, cy,    \
-                                               cz, x_out, r_out, rcr, ex,    \
-                                               ey, ez, nrhs, s));
+#define NEKBONE_CASE(N) \
+  case N:               \
+    return static_cast<int>(launch<N, S, X, A>(a, grid, s));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -140,36 +115,46 @@ int dispatch(const X* x, const S* p, const S* r, const S* w, const A* alpha,
 
 // x, x_out: (b, E, n^3) in X; p, r, w (unassembled, masked), r_out: (b, E,
 // n^3) in S; alpha: (b,) and rcr: (b, E) in A; cx: (EX, n), cy: (EY, n),
-// cz: (EZ, n) in S.  Elements z-major over (EX, EY, EZ).  Returns
-// cudaGetLastError() after the launch.
-#define NEKBONE_CG_UPDATE_BLOCK_ENTRY(NAME, S, X, A)                         \
-  extern "C" int NAME(const void* x, const void* p, const void* r,          \
-                      const void* w, const void* alpha, const void* cx,     \
-                      const void* cy, const void* cz, void* x_out,          \
-                      void* r_out, void* rcr, int ex, int ey, int ez, int n, \
-                      int nrhs, void* stream) {                             \
-    return nekbone::dispatch<S, X, A>(                                      \
-        static_cast<const X*>(x), static_cast<const S*>(p),                 \
-        static_cast<const S*>(r), static_cast<const S*>(w),                 \
-        static_cast<const A*>(alpha), static_cast<const S*>(cx),            \
-        static_cast<const S*>(cy), static_cast<const S*>(cz),               \
-        static_cast<X*>(x_out), static_cast<S*>(r_out),                     \
-        static_cast<A*>(rcr), ex, ey, ez, n, nrhs, stream);                 \
+// cz: (EZ, n) in S.  Elements z-major over (EX, EY, EZ).  The plan
+// (per_block, grid, stages, staged, bulk) is kernels/nekbone_ax.k7_plan's,
+// over b E items; a plan the pointers do not allow returns
+// cudaErrorInvalidValue.  Returns cudaGetLastError() after the launch.
+//
+// nekbone_cg_update_block_query_<dtype>(n, resident, dyn, out): fills
+// out[7] as common.cuh coop_query documents (resident is ignored); returns
+// a CUDA error, or 0.
+#define NEKBONE_CG_UPDATE_BLOCK_ENTRY(SUFFIX, S, X, A)                        \
+  extern "C" int nekbone_cg_update_block_##SUFFIX(                            \
+      const void* x, const void* p, const void* r, const void* w,             \
+      const void* alpha, const void* cx, const void* cy, const void* cz,      \
+      void* x_out, void* r_out, void* rcr, int ex, int ey, int ez, int n,     \
+      int nrhs, int per_block, int grid, int stages, int staged, int bulk,    \
+      void* stream) {                                                         \
+    const nekbone::UpdateArgs<S, X, A> a{                                     \
+        static_cast<const X*>(x),     static_cast<const S*>(p),               \
+        static_cast<const S*>(r),     static_cast<const S*>(w),               \
+        static_cast<const A*>(alpha), static_cast<const S*>(cx),              \
+        static_cast<const S*>(cy),    static_cast<const S*>(cz),              \
+        static_cast<X*>(x_out),       static_cast<S*>(r_out),                 \
+        static_cast<A*>(rcr),         ex, ey, ez, nrhs,                       \
+        {per_block, stages, staged, bulk}};                                   \
+    return nekbone::dispatch<S, X, A>(a, n, grid, stream);                    \
+  }                                                                           \
+  extern "C" int nekbone_cg_update_block_query_##SUFFIX(int n, int resident,  \
+                                                        int dyn, int* out) {  \
+    (void)resident;                                                           \
+    return nekbone::dispatch_query<S, X, A>(n, dyn, out);                     \
   }
 
 #ifdef NEKBONE_REAL_F64
-NEKBONE_CG_UPDATE_BLOCK_ENTRY(nekbone_cg_update_block_f64, double, double,
-                              double)
+NEKBONE_CG_UPDATE_BLOCK_ENTRY(f64, double, double, double)
 #endif
 #ifdef NEKBONE_REAL_F32
-NEKBONE_CG_UPDATE_BLOCK_ENTRY(nekbone_cg_update_block_f32, float, float,
-                              float)
+NEKBONE_CG_UPDATE_BLOCK_ENTRY(f32, float, float, float)
 #endif
 #ifdef NEKBONE_REAL_BF16
-NEKBONE_CG_UPDATE_BLOCK_ENTRY(nekbone_cg_update_block_bf16, __nv_bfloat16,
-                              __nv_bfloat16, float)
+NEKBONE_CG_UPDATE_BLOCK_ENTRY(bf16, __nv_bfloat16, __nv_bfloat16, float)
 #endif
 #ifdef NEKBONE_REAL_BF16_IR
-NEKBONE_CG_UPDATE_BLOCK_ENTRY(nekbone_cg_update_block_bf16_ir,
-                              __nv_bfloat16, float, float)
+NEKBONE_CG_UPDATE_BLOCK_ENTRY(bf16_ir, __nv_bfloat16, float, float)
 #endif

@@ -6,7 +6,8 @@
   ``nekbone_ax_slab_kernel`` (persistent blocks that stage the next
   element's operands while they sweep the current one; :func:`k4_plan`);
 * ``nekbone_cg_update_cuda`` — K5, ``csrc/nekbone_cg_update.cu``, replaces
-  ``nekbone_cg_update_kernel``;
+  ``nekbone_cg_update_kernel`` (K4's walker skeleton over the elements,
+  :func:`k5_plan`);
 * ``nekbone_pcg_update_cuda`` — K10, ``csrc/nekbone_pcg_update.cu``,
   replaces ``nekbone_pcg_update_kernel``;
 * ``nekbone_cheb_apply_cuda`` — K11, ``csrc/nekbone_cheb_apply.cu``,
@@ -19,7 +20,8 @@
   the lanes in pairs through one layer sweep, :func:`k6_lane_groups`);
 * ``nekbone_cg_update_block_cuda`` — K7,
   ``csrc/nekbone_cg_update_block.cu``, replaces
-  ``nekbone_cg_update_block_kernel`` (K5 over b right-hand sides);
+  ``nekbone_cg_update_block_kernel`` (K5's walker over the b E work items
+  of b right-hand sides, lane-major, :func:`k7_plan`);
 * ``nekbone_ax_pap_cuda`` — K3, and ``nekbone_ax_dots_cuda`` — K2, both
   ``csrc/nekbone_ax_dots.cu``, replace ``nekbone_ax_pap_kernel`` and
   ``nekbone_ax_dots_kernel`` (the v1 fused iteration's operator; K4's
@@ -89,7 +91,8 @@ __all__ = ["nekbone_ax_cuda",
            "nekbone_cheb_apply_plan", "k8_plan", "k8_scratch_bytes",
            "nekbone_ax_powers_plan", "K6_LANES", "k6_lane_groups", "STAGES",
            "WalkPlan", "walk_slot_bytes", "k4_operands", "k3_operands",
-           "k4_plan", "k3_plan", "walk_plan", "walk_launch_info"]
+           "k5_operands", "k4_plan", "k3_plan", "k5_plan", "k7_plan",
+           "walk_plan", "walk_launch_info"]
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
@@ -119,12 +122,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "nekbone_ax": [_P] * 4 + [_I] * 2 + [_P],
     "nekbone_ax_slab": [_P] * 11 + [_I] * 9 + [_P],
-    "nekbone_cg_update": [_P] * 11 + [_I] * 4 + [_P],
+    "nekbone_cg_update": [_P] * 11 + [_I] * 9 + [_P],
     "nekbone_pcg_update": [_P] * 13 + [_I] * 4 + [_P],
     "nekbone_cheb_apply": [_P] * 17 + [_I] * 8 + [_P],
     "nekbone_interp": [_P] * 3 + [_I] * 3 + [_P],
     "nekbone_ax_slab_block": [_P] * 11 + [_I] * 5 + [_P],
-    "nekbone_cg_update_block": [_P] * 11 + [_I] * 5 + [_P],
+    "nekbone_cg_update_block": [_P] * 11 + [_I] * 10 + [_P],
     "nekbone_ax_pap": [_P] * 6 + [_I] * 7 + [_P],
     "nekbone_ax_dots": [_P] * 9 + [_I] * 7 + [_P],
     "nekbone_ax_powers": [_P] * 17 + [_I] * 7 + [_P],
@@ -250,7 +253,8 @@ def nekbone_cg_update_cuda(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int):
     """K5: assemble ``w``, ``x += alpha p``, ``r -= alpha w``, rcr partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_cg_update_plain`;
-    ``w2`` is K4's unassembled output.  Builds by operand dtype
+    ``w2`` is K4's unassembled output.  One launch of the grid
+    :func:`k5_plan` sizes, staging what it says.  Builds by operand dtype
     (:data:`MIXES`): x2 in X, p2, r2, w2 and the factors in S, alpha in A.
     Returns ``(x, r, rcr)`` with ``rcr`` of shape (E,) in A.
     """
@@ -263,12 +267,14 @@ def nekbone_cg_update_cuda(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int):
                  p2=(p2, (E, n3)), r2=(r2, (E, n3)), w2=(w2, (E, n3)),
                  alpha=(alpha.reshape(1), (1,), "A"), cx=(cx, (ex, n)),
                  cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    plan = _walk_launch_plan("nekbone_cg_update", k5_plan, E, n, mix,
+                             x2.device, (x2, p2, r2, w2), any_head=True)
     x_out = torch.empty_like(x2)
     r_out = torch.empty_like(r2)
     rcr = torch.empty(E, dtype=MIXES[mix]["A"], device=x2.device)
     _launch("nekbone_cg_update", mix, x2.device,
             (x2, p2, r2, w2, alpha, cx, cy, cz, x_out, r_out, rcr),
-            (ex, ey, ez, n))
+            (ex, ey, ez, n, *plan.launch_ints))
     return x_out, r_out, rcr
 
 
@@ -431,20 +437,22 @@ def k8_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
     return device_memory_plan(E, sm_count, fit, slices, scratch)
 
 
-# The ring's depth of the walkers (K4, K3, K2): the element being swept and
-# the next one.  The kernels take 1..4 (csrc/common.cuh kMaxStages).
+# The ring's depth of the walkers (K4, K3, K2, K5, K7): the element being
+# swept and the next one.  The kernels take 1..4 (csrc/common.cuh
+# kMaxStages).
 STAGES = 2
 
 
 @dataclasses.dataclass(frozen=True)
 class WalkPlan:
-    """One launch of a walker (K4, K3, K2): block b of ``grid`` owns the
-    z-major elements ``[b * per_block, (b + 1) * per_block)`` (the last
-    range cut at E) and walks them, while a ring of ``stages`` stages in
-    its dynamic shared memory (``smem_bytes``) holds the ``staged``
-    operands of the next elements, filled by TMA bulk copies (``bulk``) or
-    per-thread ``cp.async``; the other operands are read from device
-    memory.  ``blocks_per_sm`` is the residency the grid was sized by."""
+    """One launch of a walker (K4, K3, K2, K5; K7 over its work items):
+    block b of ``grid`` owns the z-major elements ``[b * per_block, (b + 1)
+    * per_block)`` (the last range cut at E) and walks them, while a ring
+    of ``stages`` stages in its dynamic shared memory (``smem_bytes``)
+    holds the ``staged`` operands of the next elements, filled by TMA bulk
+    copies (``bulk``) or per-thread ``cp.async``; the other operands are
+    read from device memory.  ``blocks_per_sm`` is the residency the grid
+    was sized by."""
     per_block: int
     grid: int
     blocks_per_sm: int
@@ -488,6 +496,14 @@ def k3_operands(n: int, mix: str) -> dict[str, int]:
     (n^3 values in S), the metric (6 n^3 in O) and the mask (n^3 in S)."""
     s, o = MIXES[mix]["S"].itemsize, MIXES[mix]["O"].itemsize
     return {"p": n ** 3 * s, "g": 6 * n ** 3 * o, "mask": n ** 3 * s}
+
+
+def k5_operands(n: int, mix: str) -> dict[str, int]:
+    """K5's (and K7's, per work item) stageable operands and their bytes
+    per element: x (n^3 values in X), p, r and w (n^3 in S)."""
+    s, x = MIXES[mix]["S"].itemsize, MIXES[mix]["X"].itemsize
+    return {"x": n ** 3 * x, "p": n ** 3 * s, "r": n ** 3 * s,
+            "w": n ** 3 * s}
 
 
 def walk_plan(what: str, E: int, operands: dict[str, int], sm_count: int,
@@ -554,6 +570,56 @@ def k3_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
                      aligned=aligned)
 
 
+def _update_plan(what: str, items: int, n: int, mix: str, sm_count: int,
+                 blocks_per_sm, smem_per_block: int,
+                 aligned: bool) -> WalkPlan:
+    """:func:`walk_plan` over K5's operands for ``items`` work items, its
+    residency capped at what the ring of all four operands allows."""
+    operands = k5_operands(n, mix)
+    bulk = aligned and all(b % 16 == 0 for b in operands.values())
+    ring = STAGES * sum(walk_slot_bytes(b, bulk) for b in operands.values())
+    cap = blocks_per_sm(ring) if ring <= smem_per_block else 0
+
+    def fit(dyn):
+        return min(blocks_per_sm(dyn), cap) if cap >= 1 \
+            else blocks_per_sm(dyn)
+
+    return walk_plan(what, items, operands, sm_count, fit, smem_per_block,
+                     aligned=aligned)
+
+
+def k5_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
+            smem_per_block: int, *, aligned: bool = True) -> WalkPlan:
+    """K5's plan for E elements of degree n - 1 in build ``mix``:
+    :func:`walk_plan` over :func:`k5_operands`, at the residency that the
+    ring of all four operands allows.  The kernel does a few flops a node
+    and stores straight from registers, so the staged bytes, not the
+    blocks an SM, keep the memory busy: every operand is staged wherever
+    one block of that ring fits an SM (at n = 10 in every build: 2 x 32,000
+    bytes in fp64, 2 x 8,000 in bf16), and :func:`walk_plan`'s rule holds
+    where none does."""
+    return _update_plan(f"k5_plan (n={n}, {mix})", E, n, mix, sm_count,
+                        blocks_per_sm, smem_per_block, aligned)
+
+
+def k7_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
+            smem_per_block: int, *, b: int,
+            aligned: bool = True) -> WalkPlan:
+    """K7's plan for b lanes of E elements: :func:`k5_plan`'s over the b E
+    work items, lane-major (item l E + e is element e of lane l), so that
+    a block's range may cross from one lane into the next."""
+    if b < 1:
+        raise ValueError(f"k7_plan: b={b}")
+    return _update_plan(f"k7_plan (n={n}, {mix}, b={b})", b * E, n, mix,
+                        sm_count, blocks_per_sm, smem_per_block, aligned)
+
+
+# The walkers' planners by stem.
+_WALK_PLANNERS = {"nekbone_ax_slab": k4_plan, "nekbone_ax_pap": k3_plan,
+                  "nekbone_ax_dots": k3_plan, "nekbone_cg_update": k5_plan,
+                  "nekbone_cg_update_block": k7_plan}
+
+
 def _device_index(device: torch.device) -> int:
     return device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -565,8 +631,8 @@ def _coop_query(stem: str, mix: str, n: int, resident: bool, dyn: int,
     """The C side's occupancy query of ``stem`` (csrc/common.cuh
     ``coop_query``): (blocks per SM, static shared bytes, registers, the
     most dynamic shared bytes, SM count, cooperative launch supported,
-    elements a block works on side by side).  The walkers (K4, K3, K2)
-    ignore ``resident``."""
+    elements a block works on side by side).  The walkers (K4, K3, K2, K5,
+    K7) ignore ``resident``."""
     lib = _build.load(f"{_LIBRARY.get(stem, stem)}_{mix}")
     fn = getattr(lib, f"{stem}_query_{mix}")
     fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
@@ -627,41 +693,45 @@ def nekbone_ax_powers_plan(E: int, n: int, s: int, mix: str,
 
 @functools.lru_cache(maxsize=None)
 def _walk_device_plan(stem: str, planner, E: int, n: int, mix: str,
-                      device: int, aligned: bool) -> WalkPlan:
-    """``planner`` (:func:`k4_plan` or :func:`k3_plan`) for ``stem``'s
-    instantiation on ``device``."""
+                      device: int, aligned: bool, **kw) -> WalkPlan:
+    """``planner`` (:data:`_WALK_PLANNERS`, with its keywords ``kw``) for
+    ``stem``'s instantiation on ``device``."""
     info = _coop_query(stem, mix, n, False, 0, device)
 
     def fit(dyn):
         return _coop_query(stem, mix, n, False, dyn, device)[0]
 
-    return planner(E, n, mix, info[4], fit, info[3], aligned=aligned)
+    return planner(E, n, mix, info[4], fit, info[3], aligned=aligned, **kw)
 
 
 def _walk_launch_plan(stem: str, planner, E: int, n: int, mix: str,
-                      device: torch.device, staged) -> WalkPlan:
+                      device: torch.device, staged, *, any_head=False,
+                      **kw) -> WalkPlan:
     """The plan of a launch on these operands: the bulk path needs every
     stageable operand 16-byte aligned; the cp.async path copies in units
-    of at least 4 bytes, so a bf16 operand off 4-byte alignment raises."""
+    of at least 4 bytes, so a bf16 operand off 4-byte alignment raises,
+    unless the kernel reads a copy's first unit from before the operand
+    (``any_head``: K5 and K7, csrc/common.cuh ``update_plan_ok``)."""
     ptrs = [t.data_ptr() for t in staged]
-    if any(a % 4 for a in ptrs):
+    if not any_head and any(a % 4 for a in ptrs):
         raise ValueError(f"{stem}: the kernel copies its operands in 4-byte "
                          "units; a bf16 operand starts off 4-byte alignment "
                          f"(data_ptr % 4 = {[a % 4 for a in ptrs]})")
     return _walk_device_plan(stem, planner, E, n, mix,
                              _device_index(device),
-                             all(a % 16 == 0 for a in ptrs))
+                             all(a % 16 == 0 for a in ptrs), **kw)
 
 
 def walk_launch_info(stem: str, E: int, n: int, mix: str, device="cuda",
-                     aligned: bool = True) -> tuple[WalkPlan, dict]:
-    """The plan a walker (``nekbone_ax_slab``, ``nekbone_ax_pap`` or
-    ``nekbone_ax_dots``) launches with for E elements in build ``mix`` on
-    ``device``, and the instantiation it runs: ``{"registers",
-    "static_smem", "sm_count"}``."""
-    planner = k4_plan if stem == "nekbone_ax_slab" else k3_plan
+                     aligned: bool = True, **kw) -> tuple[WalkPlan, dict]:
+    """The plan a walker (``nekbone_ax_slab``, ``nekbone_ax_pap``,
+    ``nekbone_ax_dots``, ``nekbone_cg_update`` or
+    ``nekbone_cg_update_block``, the last with its lane count ``b``)
+    launches with for E elements in build ``mix`` on ``device``, and the
+    instantiation it runs: ``{"registers", "static_smem", "sm_count"}``."""
+    planner = _WALK_PLANNERS[stem]
     index = _device_index(torch.device(device))
-    plan = _walk_device_plan(stem, planner, E, n, mix, index, aligned)
+    plan = _walk_device_plan(stem, planner, E, n, mix, index, aligned, **kw)
     info = _coop_query(stem, mix, n, False, plan.smem_bytes, index)
     return plan, {"registers": info[2], "static_smem": info[1],
                   "sm_count": info[4]}
@@ -788,14 +858,15 @@ def nekbone_ax_slab_block_cuda(p3, r3, D, g3, mx, my, mz, beta, *, n: int):
 
 def nekbone_cg_update_block_cuda(x3, p3, r3, w3, alpha, cx, cy, cz, *,
                                  n: int):
-    """K7: K5 over b right-hand sides, ``c`` rebuilt once per element.
+    """K7: K5 over b right-hand sides, the b E work items in one walk.
 
     Operands as
     :func:`repro_torch.kernels.ref.nekbone_cg_update_block_plain`: ``x3``,
-    ``p3``, ``r3``, ``w3``: (b, E, n^3); ``alpha``: (b,).  Builds by
-    operand dtype (:data:`MIXES`): x3 in X, p3, r3, w3 and the factors in
-    S, alpha in A.  Returns ``(x3, r3, rcr)`` with ``rcr`` of shape (b, E)
-    in A; each lane is bitwise K5's on that lane.
+    ``p3``, ``r3``, ``w3``: (b, E, n^3); ``alpha``: (b,).  One launch of
+    the grid :func:`k7_plan` sizes.  Builds by operand dtype
+    (:data:`MIXES`): x3 in X, p3, r3, w3 and the factors in S, alpha in A.
+    Returns ``(x3, r3, rcr)`` with ``rcr`` of shape (b, E) in A; each lane
+    is bitwise K5's on that lane.
     """
     if x3.device.type == "cpu":
         return nekbone_cg_update_block_plain(x3, p3, r3, w3, alpha, cx, cy,
@@ -809,12 +880,15 @@ def nekbone_cg_update_block_cuda(x3, p3, r3, w3, alpha, cx, cy, cz, *,
                  r3=(r3, (b, E, n3)), w3=(w3, (b, E, n3)),
                  alpha=(alpha, (b,), "A"), cx=(cx, (ex, n)),
                  cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    plan = _walk_launch_plan("nekbone_cg_update_block", k7_plan, E, n, mix,
+                             x3.device, (x3, p3, r3, w3), any_head=True,
+                             b=b)
     x_out = torch.empty_like(x3)
     r_out = torch.empty_like(r3)
     rcr = torch.empty(b, E, dtype=MIXES[mix]["A"], device=x3.device)
     _launch("nekbone_cg_update_block", mix, x3.device,
             (x3, p3, r3, w3, alpha, cx, cy, cz, x_out, r_out, rcr),
-            (ex, ey, ez, n, b))
+            (ex, ey, ez, n, b, *plan.launch_ints))
     return x_out, r_out, rcr
 
 
