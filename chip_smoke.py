@@ -20,7 +20,13 @@ reference package ``repro``, and, in order:
 3. measures device-to-device copy bandwidth on a 1 GiB buffer (the
    measured roofline);
 4. holds K1 (the operator kernel) against its plain PyTorch version, n=2..16
-   at small E and n=10 at E=1024, fp64 and fp32;
+   at small E and n=10 at E=1024, fp64 and fp32; then K1's walker: its
+   launch plans at n = 10, E = 1024 and 4096 in every build (grid,
+   elements a block, stages, staged operands, copy path, shared memory,
+   registers and spills), every build at n = 2, 3, 5, 10, 16 over E = 1,
+   7, 131, 133, 1024, 4096 (f64 and f32 relative, bf16 value by value),
+   and u and the metric 1 value off their allocations' start (the
+   cp.async path) with w bitwise the aligned call's;
 5. holds K4 and K5 (the v2 CG iteration) against their plain versions for
    one iteration of the paper case, fp64 and fp32, at n = 10, 5 and 3 (the
    degrees of the p-multigrid ladder);
@@ -65,7 +71,10 @@ reference package ``repro``, and, in order:
    at s = SSTEP_MAX_S with n = 4, with its launch plan printed (grid,
    blocks per SM, shared memory, registers), its Gram partials bitwise
    ``ref.sstep_gram_emulated`` of its basis and 5 repeated calls bitwise
-   the same;
+   the same; then K9's walker in f64 and f32: its plans at n = 10, E =
+   1024 and 4096, s = 1, 2, 4, 10, and n = 3, 5, 10 at s = 1, 2, 4, 10
+   over K1's element counts, x, r and p bitwise the plain version, rcr
+   summed, relative;
 13. solves the paper case through the two routes of this slice, each with
    the launch counters reset just before it: v1 over K3 (100 iterations,
    against the plain route) and s-step over K8 + K9 at s = 4 and 1 (100
@@ -93,7 +102,9 @@ reference package ``repro``, and, in order:
    power, its Gram partials bitwise ``ref.sstep_gram_emulated`` of its own
    vectors (a K8 that skips rounding the powers through storage must fail
    the power check), K9's x, r, p and K10's x, z value by value, their
-   partials summed, every output's dtype its role's; and K1 and K2 in
+   partials summed, every output's dtype its role's, and K9's walker at
+   K9's plans and edge cases above, x, r and p value by value; and K1 and
+   K2 in
    both bf16 builds at n = 2..16 (E = 8) and n = 10 (E = 1024 and 4096),
    fields value by value, partials summed, 5 repeated calls bitwise (a K1
    that rounds D u to bf16 before the metric and a K2 whose partials are
@@ -134,9 +145,9 @@ reference package ``repro``, and, in order:
    route itself moves further under another valid f32 order of its
    operator, within 10x that spread (whether 1e-2 held is reported), the
    block lanes bitwise their own bf16 (f32) v2 solves; times each solve;
-19. times the f32 K4, K5, K3 and K7 and the bf16 K1, K2, K4, K5, K3, K8,
-   K9, K10, K11, K12, K6 and K7 (both builds; K9 also beside one
-   ``torch.matmul``, K12 beside one ``torch.einsum``) beside their plain
+19. times the f32 K4, K5, K3, K8, K9, K6 and K7 and the bf16 K1, K2, K4,
+   K5, K3, K8, K9, K10, K11, K12, K6 and K7 (both builds; K9 also beside
+   one ``torch.matmul``, K12 beside one ``torch.einsum``) beside their plain
    versions at E=1024 and E=4096, each with the bytes it moves and its
    share of the bound;
 20. profiles each kernel route (device time per iteration, by kernel, and
@@ -452,8 +463,165 @@ def phase_k1_parity():
                           f"{err:.2e} <= {tol:g}")
         if dtype == torch.float64:
             main_err = float((w - wp).abs().max())
+    _k1_walk_parity()
     torch.cuda.synchronize()
     return main_err
+
+
+# The element counts and degrees K1's and K9's walkers are held at: one
+# element, a few, counts no block count divides, and the paper's E = 1024
+# and 4096; the element grids of K9 (z-major over (EX, EY, EZ))
+EDGE_GRIDS = {1: (1, 1, 1), 7: (1, 7, 1), 131: (131, 1, 1),
+              133: (7, 1, 19), 1024: PAPER_GRID, 4096: BIG_GRID}
+K1_EDGE_NS = (2, 3, 5, 10, 16)
+K9_EDGE_NS = (3, 5, 10)
+K9_EDGE_S = (1, 2, 4, 10)
+
+
+def _walker_line(stem, E, n, mix, **kw):
+    """A walker's launch plan on this card, with its instantiation's
+    registers and spills from ptxas, as one line; and whether its grid is
+    one wave."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import nekbone_ax as K
+
+    plan, info = K.walk_launch_info(stem, E, n, mix, **kw)
+    log = _build.build_all()[f"{stem}_{mix}"].with_suffix(".log").read_text()
+    regs, spill = _ptxas_report(log)[f"{stem}_kernel<{n}>"]
+    wave = plan.grid <= info["sm_count"] * plan.blocks_per_sm
+    return plan, wave, (
+        f"grid {plan.grid} ({plan.per_block} elements a block, one wave at "
+        f"{plan.blocks_per_sm} blocks an SM on {info['sm_count']} SMs), "
+        f"{plan.stages} stages of {', '.join(plan.staged) or 'nothing'} by "
+        f"{plan.copy}, {plan.smem_bytes} bytes dynamic + "
+        f"{info['static_smem']} static shared, {regs} registers "
+        f"({info['registers']} by the runtime), {spill} bytes spilled")
+
+
+def _k1_walk_parity():
+    """K1's walker in every build: its launch plans at n = 10, E = 1024 and
+    4096; every n of K1_EDGE_NS at every E of EDGE_GRIDS against the plain
+    version (f64 and f32 relative, bf16 value by value); and a view 1 value
+    past its allocation's start (off 16-byte alignment: the cp.async path)
+    bitwise the aligned call's w."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as K
+
+    print(f"  K1 walker: plans at n=10 and every build at n = {K1_EDGE_NS} "
+          f"over E = {tuple(EDGE_GRIDS)} (f64 and f32 relative, bf16 value "
+          "by value)", flush=True)
+    for mix in WALK_MIXES:
+        for E in (1024, 4096):
+            plan, wave, line = _walker_line("nekbone_ax", E, 10, mix)
+            check(plan.bulk and plan.stages >= 2 and wave,
+                  f"K1 {mix} E={E} plan: {line}")
+    rng = np.random.default_rng(15)
+    for n in K1_EDGE_NS:
+        worst = {mix: "" for mix in WALK_MIXES}
+        bad = []
+        for E in EDGE_GRIDS:
+            u64, D64, g64 = _operator_data(rng, E, n, torch.float64)
+            for mix in WALK_MIXES:
+                dt = K.MIXES[mix]
+                args = (u64.to(dt["S"]), D64.to(dt["O"]), g64.to(dt["O"]))
+                ok, txt = _walk_field_ok(K.nekbone_ax_cuda(*args, n=n),
+                                         K.nekbone_ax_plain(*args, n=n), mix)
+                if not ok:
+                    bad.append((mix, E, txt))
+                if E == 4096:
+                    worst[mix] = txt
+            del u64, g64
+        check(not bad, f"K1 n={n}: every build at every E within its "
+                       "tolerance (at E=4096: "
+              + "; ".join(f"{m} {t}" for m, t in worst.items()) + ")"
+              + (f"; FAILED {bad}" if bad else ""))
+    # a misaligned view: the cp.async path, w bitwise the aligned call's
+    E, n = 1024, 10
+    u64, D64, g64 = _operator_data(rng, E, n, torch.float64)
+    for mix in WALK_MIXES:
+        dt = K.MIXES[mix]
+        u, D, g = u64.to(dt["S"]), D64.to(dt["O"]), g64.to(dt["O"])
+        ub = torch.empty(u.numel() + 1, dtype=u.dtype, device="cuda")
+        gb = torch.empty(g.numel() + 1, dtype=g.dtype, device="cuda")
+        ub[1:] = u.reshape(-1)
+        gb[1:] = g.reshape(-1)
+        uv, gv = ub[1:].view(u.shape), gb[1:].view(g.shape)
+        plan = K._walk_launch_plan("nekbone_ax", K.k1_plan, E, n, mix,
+                                   uv.device, (uv, gv), any_head=True)
+        w = K.nekbone_ax_cuda(uv, D, gv, n=n)
+        check(not plan.bulk and torch.equal(w, K.nekbone_ax_cuda(u, D, g,
+                                                                 n=n)),
+              f"K1 {mix} n={n} E={E}, u and the metric 1 value off their "
+              f"allocations' start ({plan.copy}, {', '.join(plan.staged)} "
+              "staged): w bitwise the aligned call's")
+
+
+def _k9_edge_parity(mixes):
+    """K9's walker in ``mixes``: its launch plans at n = 10, E = 1024 and
+    4096, every s of K9_EDGE_S; and every n of K9_EDGE_NS and s at every E
+    of EDGE_GRIDS against its plain version on random x, p, r, basis and
+    coefficients: x, r and p bitwise in f64 and f32, value by value in
+    bf16, the rcr partials summed, relative."""
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as K
+    from repro_torch.kernels import ops
+
+    print(f"  K9 walker ({', '.join(mixes)}): plans at n=10 and parity at "
+          f"n = {K9_EDGE_NS}, s = {K9_EDGE_S} over E = {tuple(EDGE_GRIDS)}",
+          flush=True)
+    for mix in mixes:
+        for E in (1024, 4096):
+            for s in K9_EDGE_S:
+                plan, wave, line = _walker_line("nekbone_sstep_update", E,
+                                                10, mix, s=s)
+                check(plan.bulk and plan.stages >= 2 and wave,
+                      f"K9 {mix} E={E} s={s} plan: {line}")
+    gen = torch.Generator("cuda").manual_seed(9)
+    for n in K9_EDGE_NS:
+        n3 = n ** 3
+        bad = []
+        for E, grid in EDGE_GRIDS.items():
+            for s in K9_EDGE_S:
+                x64, p64, r64 = (torch.randn(E, n3, generator=gen,
+                                             dtype=torch.float64,
+                                             device="cuda")
+                                 for _ in range(3))
+                b64 = torch.randn(E, 2 * s - 1, n3, generator=gen,
+                                  dtype=torch.float64, device="cuda")
+                c64 = torch.randn(3, 2 * s + 1, generator=gen,
+                                  dtype=torch.float64, device="cuda")
+                for mix in mixes:
+                    dt = K.MIXES[mix]
+                    _, c = ops.slab_axis_factors(grid, n, dt["S"], "cuda")
+                    args = (x64.to(dt["X"]), p64.to(dt["S"]),
+                            r64.to(dt["S"]), b64.to(dt["S"]),
+                            c64.to(dt["A"]), *c)
+                    got = K.nekbone_sstep_update_cuda(*args, n=n, s=s)
+                    want = K.nekbone_sstep_update_plain(*args, n=n, s=s)
+                    if mix in BF16_MIXES:
+                        fields = max(_value_rel(a, b, BF16_F32_TOL) for a, b
+                                     in zip(got[:3], want[:3])) <= 1.0
+                        tol = BF16_PART_TOL
+                    else:
+                        fields = all(torch.equal(a, b) for a, b in
+                                     zip(got[:3], want[:3]))
+                        tol = WALK_TOL[mix]
+                    rerr = _part_err(got[3], want[3])
+                    roles = (got[0].dtype == dt["X"]
+                             and got[1].dtype == got[2].dtype == dt["S"]
+                             and got[3].dtype == dt["A"])
+                    if not (fields and rerr <= tol and roles):
+                        bad.append((mix, E, s, fields, rerr))
+                del x64, p64, r64, b64
+        check(not bad, f"K9 n={n}, s = {K9_EDGE_S}, E = {tuple(EDGE_GRIDS)}"
+              f" in {', '.join(mixes)}: x, r, p "
+              + ("value by value" if mixes == BF16_MIXES else "bitwise")
+              + " the plain version, rcr within its tolerance"
+              + (f"; FAILED {bad}" if bad else ""))
+    torch.cuda.empty_cache()
 
 
 def _v2_operands(case, rng):
@@ -836,14 +1004,16 @@ def phase_interp_block_parity():
                               for a, z in zip(rep, (p3, w3, pap))),
                           f"K6 {dtype} n={n} E={E} b={b}: 5 more calls give "
                           "bitwise the same p, w and pap")
-                if (dtype == torch.float64 and n == 10 and b == BLOCK_B
-                        and grid == PAPER_GRID):
+                if n == 10 and b == BLOCK_B and grid == PAPER_GRID:
                     _, pw, _ = K.nekbone_ax_slab_block_plain(
                         P, R, case.D, g3, *m, beta, n=n)
                     _, pr, _ = K.nekbone_cg_update_block_plain(
                         X, p3, R, w3, alpha, *c, n=n)
-                    errs["K6"] = float((w3 - pw).abs().max())
-                    errs["K7"] = float((r3 - pr).abs().max())
+                    if dtype == torch.float64:
+                        errs["K6"] = float((w3 - pw).abs().max())
+                        errs["K7"] = float((r3 - pr).abs().max())
+                    else:
+                        errs[("K6", "f32")] = float((w3 - pw).abs().max())
     torch.cuda.synchronize()
     return errs
 
@@ -1242,9 +1412,11 @@ def phase_v1_sstep_parity():
                   and torch.equal(kp, pp) and rerr <= tol,
                   f"K9 {tag} s={s}: x, r, p bitwise the plain version, rcr "
                   f"rel err {rerr:.2e} <= {tol:g}")
-            if dtype == torch.float64 and s == SSTEP_S:
-                errs["K8"] = float((kb - pb).abs().max())
-                errs["K9"] = float((kr - pr).abs().max())
+            if s == SSTEP_S:
+                k8, k9 = (("K8", "K9") if dtype == torch.float64
+                          else (("K8", "f32"), ("K9", "f32")))
+                errs[k8] = float((kb - pb).abs().max())
+                errs[k9] = float((kr - pr).abs().max())
         print(f"  theta ({dtype}) {o['theta']:.6e}", flush=True)
     # K8's launch plan on every size it runs here, the Gram partials in the
     # kernel's order of terms, and repeats (a missing grid sync or a stale
@@ -1294,6 +1466,7 @@ def phase_v1_sstep_parity():
                 del kb, kg, em, reps
             del o, args
             torch.cuda.empty_cache()
+    _k9_edge_parity(("f64", "f32"))
     torch.cuda.synchronize()
     return errs
 
@@ -2353,6 +2526,7 @@ def phase_bf16_sstep_pcg_parity():
             del o, k8, kx, kz, px, pz, kp4, kw4
         del invd64
         torch.cuda.empty_cache()
+    _k9_edge_parity(BF16_MIXES)
     torch.cuda.synchronize()
     return errs
 
@@ -2884,9 +3058,9 @@ def phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms):
 
 def phase_bf16_slice12_times(bw_copy, rows):
     """Device time of K11 (k = 4), K12 (every step of the n = 10 ladder),
-    K6 and K7 (b = 4) in both bf16 builds, and of K7 in f32, beside their
-    plain versions (K12 also beside one ``torch.einsum``) at E = 1024 and
-    4096."""
+    K6 and K7 (b = 4) in both bf16 builds, and of K6 and K7 in f32, beside
+    their plain versions (K12 also beside one ``torch.einsum``) at E = 1024
+    and 4096."""
     import numpy as np
     import torch
 
@@ -2895,7 +3069,8 @@ def phase_bf16_slice12_times(bw_copy, rows):
     from repro_torch.kernels import nekbone_ax as K
 
     print("== times of the bf16 K11, K12, K6 and K7 (builds "
-          f"{', '.join(BF16_MIXES)}; K7 also f32; n=10, K11 at k={CHEB_K}, "
+          f"{', '.join(BF16_MIXES)}; K6 and K7 also f32; n=10, K11 at "
+          f"k={CHEB_K}, "
           "K6 and K7 at "
           f"b={BLOCK_B}; device time per call, CUDA events around 20 queued "
           "calls, median of 5; operations at the fp32 rate, 67 TF/s)",
@@ -2939,8 +3114,8 @@ def phase_bf16_slice12_times(bw_copy, rows):
                        K.nekbone_cg_update_block_plain, k7, dict(n=n),
                        BLOCK_B * (2 * X + 4 * S), (0, BLOCK_B * 8)),
             }
-            if mix == "f32":    # K7 alone: the others' f32 rows are fp64's
-                work = {"K7": work["K7"]}
+            if mix == "f32":    # K6 and K7: K11's f32 row is fp64's
+                work = {"K6": work["K6"], "K7": work["K7"]}
             for name, (kern, plain, args, kw_, per_node, (fm, fr)) in \
                     work.items():
                 rows[(f"{name} {mix}", grid)] = _time_row(
@@ -3415,9 +3590,10 @@ def phase_ir_routes(hist, v2_solve_ms):
 
 
 def phase_bf16_times(bw_copy, rows):
-    """Device time of the f32 K4, K5 and K3 and the bf16 K1, K2, K4, K5,
-    K3, K8 (s=4), K9 (s=4, beside one ``torch.matmul`` in bf16) and K10
-    (both builds) beside their plain versions at E=1024 and E=4096."""
+    """Device time of the f32 K4, K5, K3, K8 and K9 (s=4) and the bf16 K1,
+    K2, K4, K5, K3, K8 (s=4), K9 (s=4; K9 beside one ``torch.matmul`` in
+    its storage type) and K10 (both builds) beside their plain versions at
+    E=1024 and E=4096."""
     import numpy as np
     import torch
 
@@ -3425,9 +3601,9 @@ def phase_bf16_times(bw_copy, rows):
     from repro_torch.core.nekbone import NekboneCase
     from repro_torch.kernels import nekbone_ax as K
 
-    print("== times of the reduced-precision builds (K4, K5 and K3 in f32, "
-          "K1, K2, K4, K5, K3, K8, K9 and K10 in bf16 and bf16_ir; n=10, K8 "
-          "and K9 "
+    print("== times of the reduced-precision builds (K4, K5, K3, K8 and K9 "
+          "in f32, K1, K2, K4, K5, K3, K8, K9 and K10 in bf16 and bf16_ir; "
+          "n=10, K8 and K9 "
           f"at s={SSTEP_S}; device time per call, CUDA events around 20 "
           "queued calls, median of 5; operations at the fp32 rate, 67 "
           "TF/s)", flush=True)
@@ -3459,26 +3635,39 @@ def phase_bf16_times(bw_copy, rows):
                 "K3": (K.nekbone_ax_pap_cuda, K.nekbone_ax_pap_plain, k3,
                        3 * S + 6 * O, (12 * n, 18)),
             }
+            # K8: p, r, 3 metric diagonals in, 2s - 1 basis vectors and the
+            # Gram partials (A) out; K9: x in and out, p, r and the basis
+            # in, r, p out.  Flops as for fp64.
+            s, K_ = SSTEP_S, 2 * SSTEP_S + 1
+            ith = torch.full((1,), 1.0 / estimate_theta(
+                case.D, case.g, case.grid, case.mask), dtype=dt["A"],
+                device="cuda")
+            k8 = (o["p"], o["r"], o["D"], o["g3"], *o["m"], *o["c"], ith)
+            basis, _ = K.nekbone_ax_powers_cuda(*k8, n=n, s=s)
+            coef = torch.as_tensor(rng.normal(size=(3, K_)), dtype=dt["A"],
+                                   device="cuda")
+            k9 = (o["x"], o["p"], o["r"], basis, coef, *o["c"])
+            gram_bytes = E * K_ * K_ * dt["A"].itemsize
+            work.update({
+                "K8": (K.nekbone_ax_powers_cuda, K.nekbone_ax_powers_plain,
+                       k8, (2 * s + 1) * S + 3 * O + gram_bytes / nodes,
+                       ((2 * s - 1) * 12 * n,
+                        6 * (2 * s - 1) + 3 * K_ * (K_ + 1) // 2)),
+                "K9": (K.nekbone_sstep_update_cuda,
+                       K.nekbone_sstep_update_plain, k9,
+                       2 * X + (2 * s + 3) * S, (0, 6 * K_ + 3)),
+            })
+            V = torch.stack([o["p"]] + [basis[:, m] for m in range(s)]
+                            + [o["r"]]
+                            + [basis[:, s + m] for m in range(s - 1)]
+                            ).reshape(K_, nodes)
+            coef_s = coef.to(dt["S"])
             if mix != "f32":
-                # K8: p, r, 3 metric diagonals in, 2s - 1 basis vectors
-                # and the Gram partials (A) out; K9: x in and out, p, r
-                # and the basis in, r, p out; K10: x in and out, p, z, w
-                # in, z out, invd in.  Flops as for fp64.
-                s, K_ = SSTEP_S, 2 * SSTEP_S + 1
-                ith = torch.full((1,), 1.0 / estimate_theta(
-                    case.D, case.g, case.grid, case.mask), dtype=dt["A"],
-                    device="cuda")
-                k8 = (o["p"], o["r"], o["D"], o["g3"], *o["m"], *o["c"],
-                      ith)
-                basis, _ = K.nekbone_ax_powers_cuda(*k8, n=n, s=s)
-                coef = torch.as_tensor(rng.normal(size=(3, K_)),
-                                       dtype=dt["A"], device="cuda")
-                k9 = (o["x"], o["p"], o["r"], basis, coef, *o["c"])
+                # K10: x in and out, p, z, w in, z out, invd in
                 z = o["r"]
                 invd = (1.0 / case.operator_diagonal()).reshape(
                     E, n ** 3).to(dt["O"])
                 k10 = (o["x"], kp, z, kw, o["alpha"], invd, *o["c"])
-                gram_bytes = E * K_ * K_ * dt["A"].itemsize
                 r2 = torch.as_tensor(rng.normal(size=(E, n ** 3)),
                                      dtype=dt["S"], device="cuda")
                 k2 = k3 + (r2, case.c.reshape(E, n ** 3).to(dt["S"]))
@@ -3488,23 +3677,10 @@ def phase_bf16_times(bw_copy, rows):
                            2 * S + 6 * O, (12 * n, 17)),
                     "K2": (K.nekbone_ax_dots_cuda, K.nekbone_ax_dots_plain,
                            k2, 5 * S + 6 * O, (12 * n, 21)),
-                    "K8": (K.nekbone_ax_powers_cuda,
-                           K.nekbone_ax_powers_plain, k8,
-                           (2 * s + 1) * S + 3 * O + gram_bytes / nodes,
-                           ((2 * s - 1) * 12 * n,
-                            6 * (2 * s - 1) + 3 * K_ * (K_ + 1) // 2)),
-                    "K9": (K.nekbone_sstep_update_cuda,
-                           K.nekbone_sstep_update_plain, k9,
-                           2 * X + (2 * s + 3) * S, (0, 6 * K_ + 3)),
                     "K10": (K.nekbone_pcg_update_cuda,
                             K.nekbone_pcg_update_plain, k10,
                             2 * X + 4 * S + O, (0, 14)),
                 })
-                V = torch.stack([o["p"]] + [basis[:, m] for m in range(s)]
-                                + [o["r"]]
-                                + [basis[:, s + m] for m in range(s - 1)]
-                                ).reshape(K_, nodes)
-                coef_s = coef.to(dt["S"])
             for name, (kern, plain, args, per_node, (fm, fr)) in work.items():
                 kw_s = dict(n=n, s=SSTEP_S) if name in ("K8", "K9") \
                     else dict(n=n)
@@ -3519,7 +3695,7 @@ def phase_bf16_times(bw_copy, rows):
                     nodes * fm, nodes * fr, bw_copy, lib=lib,
                     mma_peak=FP32_PEAK, rest_peak=FP32_PEAK)
                 rows[(f"{name} {mix}", grid)] = row
-            del o, k4, k5, k3, kp, kw, work
+            del o, k4, k5, k3, kp, kw, work, basis, V
         del u64, D64, g64, mask64
     torch.cuda.empty_cache()
 
@@ -4199,8 +4375,8 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms")})
-    # the f32 builds: K4, K5 and K3 from the f32_ir routes, K7 from f32
-    # block CG
+    # the f32 builds: K4, K5 and K3 from the f32_ir v2 and v1 routes, K8
+    # and K9 from f32_ir over s-step, K6 and K7 from f32 block CG
     for key, kname, cu, line, run in (
             ("K4", "nekbone_ax_slab", "nekbone_ax_slab.cu", 476,
              ir["launches"]["f32_ir v2"]),
@@ -4208,6 +4384,12 @@ def main() -> int:
              ir["launches"]["f32_ir v2"]),
             ("K3", "nekbone_ax_pap", "nekbone_ax_dots.cu", 404,
              ir["launches"]["f32_ir v1"]),
+            ("K8", "nekbone_ax_powers", "nekbone_ax_powers.cu", 1026,
+             ir["launches"]["f32_ir sstep"]),
+            ("K9", "nekbone_sstep_update", "nekbone_sstep_update.cu", 1198,
+             ir["launches"]["f32_ir sstep"]),
+            ("K6", "nekbone_ax_slab_block", "nekbone_ax_slab_block.cu", 741,
+             slice12["launches"]["f32 block"]),
             ("K7", "nekbone_cg_update_block", "nekbone_cg_update_block.cu",
              859, slice12["launches"]["f32 block"])):
         row = rows[(f"{key} f32", PAPER_GRID)]

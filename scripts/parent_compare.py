@@ -6,13 +6,12 @@ it (a ``git archive`` of the earlier commit, unpacked into a directory that
 ``.gitignore`` lists)::
 
     mkdir -p build/parent
-    git archive 6079930 src/repro_torch/kernels/csrc | tar -x -C build/parent
+    git archive a98a22e src/repro_torch/kernels/csrc | tar -x -C build/parent
     python3 scripts/parent_compare.py --parent build/parent --builds \\
-        nekbone_cg_update nekbone_cg_update_block nekbone_ax \\
-        nekbone_ax_slab nekbone_pcg_update nekbone_cheb_apply \\
-        nekbone_interp nekbone_ax_slab_block nekbone_ax_dots \\
-        nekbone_ax_powers nekbone_sstep_update \\
-        --changed nekbone_cg_update nekbone_cg_update_block
+        nekbone_ax nekbone_sstep_update nekbone_ax_slab nekbone_cg_update \\
+        nekbone_pcg_update nekbone_cheb_apply nekbone_interp \\
+        nekbone_ax_slab_block nekbone_cg_update_block nekbone_ax_dots \\
+        nekbone_ax_powers --changed nekbone_ax nekbone_sstep_update
 
 It builds the earlier sources' libraries named by ``--builds``
 (``<stem>_<dtype>``, or a stem alone for every build of it) into
@@ -25,12 +24,25 @@ in parallel, then:
   and its integer template arguments, so a source that gains type
   parameters keeps its keys); it must, but for the stems named by
   ``--changed`` (kernels the tree redesigned), which are only reported;
-* for the stems that have one, the stem's check below, with the earlier
-  library loaded in place of the tree's (:func:`swapped`):
+* for the stems of ``--changed`` that have one, the stem's check below,
+  with the earlier library loaded in place of the tree's (:func:`swapped`)
+  or called through its own C signature (each check's ``earlier_*``):
 
-  - ``nekbone_ax`` (K1): the fp64 reference CG on the paper case
-    (``ax_impl="pallas"``, 100 iterations) gives bitwise the same history
-    and x over the earlier K1;
+  - ``nekbone_ax`` (K1): w at E = 1024 and 4096, n = 10 and 5, bitwise
+    the earlier kernel's in every build compared (the earlier library
+    called through its own C signature, ``earlier_k1``); the fp64
+    reference CG on the paper case (``ax_impl="pallas"``, 100 iterations)
+    gives bitwise the same history and x over the earlier K1; each build
+    timed in turns against the earlier library at n = 10, E = 1024 and
+    4096, with its launch plan, registers and spills, and held to at most
+    1.03 times the earlier time; and the sweep ablations, edited copies of
+    ``nekbone_ax.cu`` each timed in turns with the tree's, its w bitwise
+    the tree's: the same walker with K3's scalar sweep
+    (``ax_columns_dregs``, ``SCALAR_SWEEP``), and with a sweep that also
+    reads the strided u[l][i] and s[l][i] as vectors, from transposed
+    copies of the layers (``TRANSPOSED_SWEEP``); and the tree's K1 on the
+    plan of the scalar copy, whose larger static shared memory may stage
+    less, which parts the plan's share from the sweep's;
   - ``nekbone_ax_dots`` (K2): K2's fp64 w, pap and rcz at E = 1024, n = 10
     are bitwise the earlier K2's;
   - ``nekbone_cg_update`` (K5) and ``nekbone_cg_update_block`` (K7, b =
@@ -46,6 +58,19 @@ in parallel, then:
     the same library launched with this script's planner, which stages
     nothing, so that the walker reads x, p, r and w from device memory at
     the residency its registers allow;
+  - ``nekbone_sstep_update`` (K9): x, r, p and rcr at s = 1, 2, 4, E =
+    1024 and 4096, n = 10 and 5, bitwise the earlier kernel's in every
+    build compared (``earlier_k9``); the fp64 s-step CG on the paper case
+    (s = 4, 100 iterations) over the earlier K9, history and x bitwise;
+    each build timed in turns against the earlier library at s = 1, 2, 4,
+    10, n = 10, E = 1024 and 4096, held to at most 1.03 times the earlier
+    time, and beside an edited copy whose column loop is rolled
+    (``ROLLED_COLUMNS``: the pointer picked in the loop, its trip count
+    2s + 1), outputs bitwise; and, in fp64 at s = 4, the chosen plan timed
+    in turns against the ring-off plan and against a plan that stages x, p
+    and r only (``xpr_plan``), outputs bitwise; and for the stems of
+    ``--changed`` the CPU seconds of each library's ``nvcc``, the earlier,
+    the tree's and the edited copies';
   - ``flash_attn`` (K13): the outputs at d = 16 and 128 (gemma2-27b's
     heads, batch 1, 2048 tokens, global and window 1024, softcap 50) in
     both builds are bitwise the earlier kernels'; each build is timed in
@@ -63,6 +88,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import os
 import pathlib
 import re
 import subprocess
@@ -111,17 +137,21 @@ def start_build(cu: pathlib.Path, so: pathlib.Path, dtype: str):
                             stderr=subprocess.STDOUT, text=True), so
 
 
-def wait_builds(procs: dict) -> dict:
-    """``{key: (proc, so)}`` -> ``{key: so}``, the ptxas log beside each
-    library; exits on a failed build."""
-    built = {}
+def wait_builds(procs: dict) -> tuple[dict, dict]:
+    """``{key: (proc, so)}`` -> ``({key: so}, {key: CPU seconds of its
+    nvcc})``, the ptxas log beside each library; exits on a failed
+    build."""
+    built, cpu = {}, {}
     for key, (proc, so) in procs.items():
-        log, _ = proc.communicate()
+        log = proc.stdout.read()
+        _, status, usage = os.wait4(proc.pid, 0)
+        proc.returncode = os.waitstatus_to_exitcode(status)
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed on {key}:\n{log[-4000:]}")
         so.with_suffix(".log").write_text(log)
         built[key] = so
-    return built
+        cpu[key] = usage.ru_utime + usage.ru_stime
+    return built, cpu
 
 
 def edited(stem: str, edits, tag: str) -> pathlib.Path:
@@ -148,13 +178,20 @@ def swapped(libs: dict):
     tree's ones of those names, for the ``with`` block."""
     from repro_torch.kernels import _build
 
+    from repro_torch.kernels import nekbone_ax as K
+
     saved = {name: _build._LIBS[name] for name in libs}
     for name, path in libs.items():
         _build._LIBS[name] = ctypes.CDLL(str(path))
+    # a walker's plan rests on its library's occupancy query
+    K._coop_query.cache_clear()
+    K._walk_device_plan.cache_clear()
     try:
         yield
     finally:
         _build._LIBS.update(saved)
+        K._coop_query.cache_clear()
+        K._walk_device_plan.cache_clear()
 
 
 def in_turns(fn, other, *, labels=("earlier", "tree")) -> dict:
@@ -217,24 +254,248 @@ def compare_sass(earlier: dict, tree: dict, changed=()) -> bool:
 
 # --- the checks of one stem -------------------------------------------------
 
+# K1's edited copies: the same walker with K3's scalar sweep, and with a
+# sweep that also reads the strided u[l][i] and s[l][i] as 16-byte vectors,
+# from transposed copies of the layers that every thread stores beside them
+SCALAR_SWEEP = (("__shared__ __align__(16) AxVecShared<N, A> sh;",
+                 "__shared__ __align__(16) AxShared<N, A> sh;"),
+                ("ax_columns_vec(sh, dr, metric, uc, wc, i, j);",
+                 "ax_columns_dregs(sh, dr, metric, uc, wc, i, j);"))
+TRANSPOSED_HELPER = """
+template <int N, typename T>
+struct AxTrShared {
+  static constexpr int kPitch = kVecPitch<N, T>;
+  __align__(16) T D[N][kPitch];
+  __align__(16) T u[N][kPitch];
+  __align__(16) T ut[N][kPitch];
+  __align__(16) T r[N][kPitch];
+  __align__(16) T st[N][kPitch];
+};
+
+template <int N, typename T, typename O>
+__device__ __forceinline__ void load_D(AxTrShared<N, T>& sh,
+                                       const O* __restrict__ D, int i, int j) {
+  sh.D[j][i] = convert<T>(D[j * N + i]);
+}
+
+template <int N, typename T, typename DR, typename Metric, typename U>
+__device__ __forceinline__ void ax_columns_tr(AxTrShared<N, T>& sh,
+                                              const DR& dr, Metric metric,
+                                              const U& uc, T (&wc)[N], int i,
+                                              int j) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) wc[k] = T(0);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    sh.u[j][i] = uc[k];
+    sh.ut[i][j] = uc[k];
+    __syncthreads();
+    T row[N], col[N], dk[N];
+    ld_row<N>(sh.u[j], row);
+    ld_row<N>(sh.ut[i], col);
+    ld_row<N>(sh.D[k], dk);
+    T wr = T(0), ws = T(0), wt = T(0);
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      wr += dr.ri(l) * row[l];
+      ws += dr.rj(l) * col[l];
+      wt += dk[l] * uc[l];
+    }
+    T ur, us, ut;
+    metric(k, wr, ws, wt, ur, us, ut);
+    sh.r[j][i] = ur;
+    sh.st[i][j] = us;
+#pragma unroll
+    for (int m = 0; m < N; ++m)
+      if (m != k) wc[m] += dk[m] * ut;
+    const T dkk = dk[k];
+    __syncthreads();
+    ld_row<N>(sh.r[j], row);
+    ld_row<N>(sh.st[i], col);
+    T acc = T(0);
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      acc += dr.ci(l) * row[l];
+      acc += dr.cj(l) * col[l];
+    }
+    wc[k] += acc;
+    wc[k] += dkk * ut;
+  }
+}
+"""
+TRANSPOSED_SWEEP = (
+    ("namespace nekbone {\n", "namespace nekbone {\n" + TRANSPOSED_HELPER),
+    ("__shared__ __align__(16) AxVecShared<N, A> sh;",
+     "__shared__ __align__(16) AxTrShared<N, A> sh;"),
+    ("ax_columns_vec(sh, dr, metric, uc, wc, i, j);",
+     "ax_columns_tr(sh, dr, metric, uc, wc, i, j);"))
+# (grid, n) of the bitwise checks of K1 and K9
+PARITY_CASES = (((8, 8, 16), 10), ((16, 16, 16), 10), ((8, 8, 16), 5),
+                ((16, 16, 16), 5))
+
+
+def _ctypes_fn(path: pathlib.Path, name: str, pointers: int, ints: int):
+    fn = getattr(ctypes.CDLL(str(path)), name)
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _call(fn, name, tensors, ints):
+    import torch
+
+    err = fn(*(t.data_ptr() for t in tensors), *ints,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"earlier {name}: CUDA error {err}")
+
+
+def earlier_k1(path: pathlib.Path, mix: str):
+    """The earlier library's K1 (one block an element, C signature (u, D,
+    g, w, E, n, stream)) as a function of the wrapper's operands."""
+    import torch
+
+    fn = _ctypes_fn(path, f"nekbone_ax_{mix}", 4, 2)
+
+    def call(u2, D, g2, *, n):
+        w2 = torch.empty_like(u2)
+        _call(fn, f"nekbone_ax_{mix}", (u2, D, g2, w2), (u2.shape[0], n))
+        return w2
+    return call
+
+
+def _k1_operands(rng, E, n, mix):
+    """u, D and a random SPD metric (chip_smoke's operator data) in the
+    build's roles."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import nekbone_ax as K
+
+    dt = K.MIXES[mix]
+    u, D, g = cs._operator_data(rng, E, n, torch.float64)
+    return u.to(dt["S"]), D.to(dt["O"]), g.to(dt["O"])
+
+
+def _plan_text(stem, E, n, mix, tree, kernel, **kw) -> str:
+    import chip_smoke as cs
+    from repro_torch.kernels import nekbone_ax as K
+
+    plan, info = K.walk_launch_info(stem, E, n, mix, **kw)
+    regs, spill = cs._ptxas_report(tree[f"{stem}_{mix}"].with_suffix(
+        ".log").read_text())[kernel]
+    return (f"grid {plan.grid} x {plan.per_block}, {plan.blocks_per_sm} "
+            f"blocks an SM, {', '.join(plan.staged) or 'nothing'} staged "
+            f"({plan.smem_bytes} B, {plan.copy}), {regs} registers, "
+            f"{spill} B spilled")
+
+
+def _best(times: dict) -> dict:
+    return {label: min(ts) for label, ts in times.items()}
+
+
+def _fmt(times: dict) -> str:
+    return "; ".join(f"{label} " + ", ".join(f"{t:.4f}" for t in ts)
+                     + " ms" for label, ts in times.items())
+
+
+# the label of the tree's K1 timed on its scalar-sweep copy's plan
+SAME_PLAN = "tree on the scalar sweep's plan"
+
+
 def check_k1(earlier: dict, tree: dict, extra: dict) -> bool:
+    import numpy as np
     import torch
 
     import chip_smoke as cs
     from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
 
-    case = NekboneCase(n=10, grid=cs.PAPER_GRID, dtype=torch.float64,
-                       ax_impl="pallas")
-    _, f = case.manufactured()
-    tree = case.solve(f, niter=cs.NITER)
-    with swapped({"nekbone_ax_f64": earlier["nekbone_ax_f64"]}):
-        old = case.solve(f, niter=cs.NITER)
-    same = (torch.equal(tree.history, old.history)
-            and torch.equal(tree.x, old.x))
-    print(f"== K1: fp64 reference CG ({cs.NITER} iterations, paper case): "
-          f"history[{cs.NITER}] {float(tree.history[cs.NITER]):.6e}; "
-          f"history and x bitwise the earlier K1's: {same}", flush=True)
-    return same
+    mixes = [m for m in K.MIXES if f"nekbone_ax_{m}" in earlier]
+    old = {m: earlier_k1(earlier[f"nekbone_ax_{m}"], m) for m in mixes}
+    rng = np.random.default_rng(25)
+    ok = True
+    print("== K1 beside the earlier kernel: w bitwise", flush=True)
+    for mix in mixes:
+        bad = []
+        for grid, n in PARITY_CASES:
+            E = grid[0] * grid[1] * grid[2]
+            args = _k1_operands(rng, E, n, mix)
+            if not torch.equal(K.nekbone_ax_cuda(*args, n=n),
+                               old[mix](*args, n=n)):
+                bad.append((E, n))
+        ok &= not bad
+        print(f"  {mix}: E = 1024 and 4096, n = 10 and 5: bitwise "
+              f"{'every case' if not bad else f'NOT {bad}'}", flush=True)
+    if "f64" in mixes:
+        case = NekboneCase(n=10, grid=cs.PAPER_GRID, dtype=torch.float64,
+                           ax_impl="pallas")
+        _, f = case.manufactured()
+        new = case.solve(f, niter=cs.NITER)
+        with patched(K, nekbone_ax_cuda=old["f64"]):
+            prev = case.solve(f, niter=cs.NITER)
+        same = (torch.equal(new.history, prev.history)
+                and torch.equal(new.x, prev.x))
+        ok &= same
+        print(f"  fp64 reference CG ({cs.NITER} iterations, paper case): "
+              f"history[{cs.NITER}] {float(new.history[cs.NITER]):.6e}; "
+              f"history and x bitwise over the earlier K1: {same}",
+              flush=True)
+    print("== K1: device ms in turns (CUDA events, 3 calls, median of 3) "
+          "beside the earlier library, and beside the same walker with "
+          "K3's scalar sweep and with the strided reads from transposed "
+          "copies", flush=True)
+    kernel = "nekbone_ax_kernel<10>"
+    for mix in mixes:
+        forms = {form: {f"nekbone_ax_{mix}": extra[f"k1{form}_{mix}"]}
+                 for form in ("scalar", "transposed")}
+        for grid in ((8, 8, 16), (16, 16, 16)):
+            E = grid[0] * grid[1] * grid[2]
+            args = _k1_operands(rng, E, 10, mix)
+
+            def run():
+                return K.nekbone_ax_cuda(*args, n=10)
+            times = in_turns(run, lambda: patched(K, nekbone_ax_cuda=old[
+                mix]))
+            want = run()
+            notes = []
+            for form, libs in forms.items():
+                times.update(in_turns(run, lambda: swapped(libs),
+                                      labels=(f"{form} sweep",
+                                              f"tree ({form})")))
+                with swapped(libs):
+                    same = torch.equal(run(), want)
+                    notes.append(f"{form}: " + _plan_text(
+                        "nekbone_ax", E, 10, mix,
+                        {f"nekbone_ax_{mix}": extra[f"k1{form}_{mix}"]},
+                        kernel) + f", w bitwise the tree's: {same}")
+                    their = K._walk_device_plan(
+                        "nekbone_ax", K.k1_plan, E, 10, mix,
+                        torch.cuda.current_device(), True)
+                ok &= same
+                if form == "scalar":
+                    # the tree's sweep on the scalar form's plan (its
+                    # larger static shared memory may stage less): the
+                    # plan's share apart from the sweep's
+                    times.update(in_turns(
+                        run, lambda: patched(K, k1_plan=lambda *a, **k:
+                                             their),
+                        labels=(SAME_PLAN, "tree (plan)")))
+            best = _best(times)
+            ratio = best["tree"] / best["earlier"]
+            ok &= ratio <= 1.03
+            print(f"  {mix} E={E}: plan " + _plan_text(
+                "nekbone_ax", E, 10, mix, tree, kernel)
+                + f"; {_fmt(times)}; tree / earlier {ratio:.3f} (at most "
+                f"1.03: {ratio <= 1.03}); tree / scalar sweep "
+                f"{best['tree (scalar)'] / best['scalar sweep']:.3f} (on "
+                f"one plan {best[SAME_PLAN] / best['scalar sweep']:.3f}), "
+                "tree / transposed "
+                f"{best['tree (transposed)'] / best['transposed sweep']:.3f}"
+                + "".join(f"; {note}" for note in notes), flush=True)
+            del args
+    return ok
 
 
 def check_k2(earlier: dict, tree: dict, extra: dict) -> bool:
@@ -405,12 +666,8 @@ def ring_off_plan(E, n, mix, sm_count, blocks_per_sm, smem_per_block, *,
     grid in one wave at the residency the registers allow."""
     from repro_torch.kernels import nekbone_ax as K
 
-    operands = K.k5_operands(n, mix)
-    fit = blocks_per_sm(0)
-    base = K.device_memory_plan(b * E, sm_count, fit, 1, 0)
-    return K.WalkPlan(base.per_block, base.grid, fit, 0, K.STAGES, (),
-                      tuple(operands), aligned and all(
-                          v % 16 == 0 for v in operands.values()))
+    return _fixed_plan(K.k5_operands(n, mix), (), b * E, sm_count,
+                       blocks_per_sm, aligned)
 
 
 def _update_operands(gen, grid, n, mix, lanes):
@@ -537,8 +794,221 @@ def check_k7(earlier: dict, tree: dict, extra: dict) -> bool:
     return _check_update("nekbone_cg_update_block", earlier)
 
 
+# --- K9, the s-step update walker ------------------------------------------
+
+def earlier_k9(path: pathlib.Path, mix: str):
+    """The earlier library's K9 (one block an element, C signature (x, p,
+    r, basis, coef, cx, cy, cz, x_out, r_out, p_out, rcr, ex, ey, ez, n, s,
+    stream)) as a function of the wrapper's operands."""
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as K
+
+    name = f"nekbone_sstep_update_{mix}"
+    fn = _ctypes_fn(path, name, 12, 5)
+
+    def call(x2, p2, r2, basis, coef, cx, cy, cz, *, n, s):
+        x_out, r_out, p_out = (torch.empty_like(t) for t in (x2, r2, p2))
+        rcr = torch.empty(x2.shape[0], dtype=K.MIXES[mix]["A"],
+                          device=x2.device)
+        _call(fn, name, (x2, p2, r2, basis, coef, cx, cy, cz, x_out, r_out,
+                         p_out, rcr),
+              (cx.shape[0], cy.shape[0], cz.shape[0], n, s))
+        return x_out, r_out, p_out, rcr
+    return call
+
+
+def _k9_operands(gen, grid, n, s, mix):
+    """Random x, p, r, basis and coefficients in the build's roles, and the
+    c factors of ``grid``."""
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as K
+    from repro_torch.kernels import ops
+
+    dt = K.MIXES[mix]
+    E, n3 = grid[0] * grid[1] * grid[2], n ** 3
+
+    def field(shape, dtype):
+        return torch.randn(shape, generator=gen, dtype=torch.float64,
+                           device="cuda").to(dtype)
+
+    _, c = ops.slab_axis_factors(grid, n, dt["S"], "cuda")
+    return (field((E, n3), dt["X"]), field((E, n3), dt["S"]),
+            field((E, n3), dt["S"]), field((E, 2 * s - 1, n3), dt["S"]),
+            field((3, 2 * s + 1), dt["A"]), *c)
+
+
+def _fixed_plan(operands: dict, staged: tuple, E, sm_count, blocks_per_sm,
+                aligned):
+    """A walker's plan that stages ``staged`` of ``operands``, its grid in
+    one wave at the residency that ring allows."""
+    from repro_torch.kernels import nekbone_ax as K
+
+    bulk = aligned and all(v % 16 == 0 for v in operands.values())
+    dyn = K.STAGES * sum(K.walk_slot_bytes(operands[k], bulk)
+                         for k in staged)
+    fit = blocks_per_sm(dyn)
+    base = K.device_memory_plan(E, sm_count, fit, 1, dyn)
+    return K.WalkPlan(base.per_block, base.grid, fit, dyn, K.STAGES, staged,
+                      tuple(operands), bulk)
+
+
+def k9_ring_off_plan(E, n, mix, sm_count, blocks_per_sm, smem_per_block, *,
+                     s, aligned=True):
+    """The ablation's planner: K9's walker with nothing staged."""
+    from repro_torch.kernels import nekbone_ax as K
+
+    return _fixed_plan(K.k9_operands(n, s, mix), (), E, sm_count,
+                       blocks_per_sm, aligned)
+
+
+def xpr_plan(E, n, mix, sm_count, blocks_per_sm, smem_per_block, *, s,
+             aligned=True):
+    """The other planner: K9's walker with x, p and r staged and the basis
+    read from device memory, at the residency that ring allows."""
+    from repro_torch.kernels import nekbone_ax as K
+
+    return _fixed_plan(K.k9_operands(n, s, mix), ("x", "p", "r"), E,
+                       sm_count, blocks_per_sm, aligned)
+
+
+# K9's edited copy: the column loop rolled (its run-time trip count 2s + 1,
+# each column's pointer picked in the loop) in place of the table of
+# pointers and the loop unrolled to kSstepMaxK
+ROLLED_COLUMNS = (
+    ("""  // V's columns: p, basis[0..s-1], r, basis[s..2s-2]
+  const S* col[kSstepMaxK];
+#pragma unroll
+  for (int m = 0; m < kSstepMaxK; ++m)
+    col[m] = m == 0 ? ps
+                    : m == s + 1 ? rs : bs + (m <= s ? m - 1 : m - 2) * N3;
+""", ""),
+    ("""#pragma unroll
+  for (int m = 0; m < kSstepMaxK; ++m) {
+    if (m < K) {
+      A c0, c1, c2;
+      coef3(sco[m], c0, c1, c2);
+      A v[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) v[k] = convert<A>(col[m][k * N2]);""",
+     """#pragma unroll 1
+  for (int m = 0; m < K; ++m) {
+    {
+      const S* cm = m == 0 ? ps
+                           : m == s + 1 ? rs
+                                        : bs + (m <= s ? m - 1 : m - 2) * N3;
+      A c0, c1, c2;
+      coef3(sco[m], c0, c1, c2);
+      A v[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) v[k] = convert<A>(cm[k * N2]);"""))
+
+
+def check_k9(earlier: dict, tree: dict, extra: dict) -> bool:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    stem = "nekbone_sstep_update"
+    mixes = [m for m in K.MIXES if f"{stem}_{m}" in earlier]
+    old = {m: earlier_k9(earlier[f"{stem}_{m}"], m) for m in mixes}
+    gen = torch.Generator("cuda").manual_seed(25)
+    ok = True
+    print("== K9 beside the earlier kernel: x, r, p and rcr bitwise",
+          flush=True)
+    for mix in mixes:
+        bad = []
+        for grid, n in PARITY_CASES:
+            for s in (1, 2, 4):
+                args = _k9_operands(gen, grid, n, s, mix)
+                new = K.nekbone_sstep_update_cuda(*args, n=n, s=s)
+                if not all(torch.equal(a, b) for a, b in
+                           zip(new, old[mix](*args, n=n, s=s))):
+                    bad.append((grid, n, s))
+        ok &= not bad
+        print(f"  {mix}: E = 1024 and 4096, n = 10 and 5, s = 1, 2, 4: "
+              f"bitwise {'every case' if not bad else f'NOT {bad}'}",
+              flush=True)
+    if "f64" in mixes:
+        case = NekboneCase(n=10, grid=cs.PAPER_GRID, dtype=torch.float64,
+                           ax_impl="pallas_sstep_v3", s=cs.SSTEP_S)
+        _, f = case.manufactured()
+        new = case.solve(f, niter=cs.NITER)
+        with patched(K, nekbone_sstep_update_cuda=old["f64"]):
+            prev = case.solve(f, niter=cs.NITER)
+        same = (torch.equal(new.history, prev.history)
+                and torch.equal(new.x, prev.x))
+        ok &= same
+        print(f"  fp64 s-step CG (s={cs.SSTEP_S}, {cs.NITER} iterations, "
+              f"paper case): history[{cs.NITER}] "
+              f"{float(new.history[cs.NITER]):.6e}; history and x bitwise "
+              f"over the earlier K9: {same}", flush=True)
+    print("== K9: device ms in turns (CUDA events, 3 calls, median of 3) "
+          "beside the earlier library and an edited copy with the column "
+          "loop rolled; in fp64 at s = 4 also beside the ring off and x, p, "
+          "r staged alone", flush=True)
+    kernel = "nekbone_sstep_update_kernel<10>"
+    for mix in mixes:
+        for grid in ((8, 8, 16), (16, 16, 16)):
+            E = grid[0] * grid[1] * grid[2]
+            for s in (1, 2, cs.SSTEP_S, K.SSTEP_MAX_S):
+                args = _k9_operands(gen, grid, 10, s, mix)
+
+                def run():
+                    return K.nekbone_sstep_update_cuda(*args, n=10, s=s)
+                times = in_turns(run, lambda: patched(
+                    K, nekbone_sstep_update_cuda=old[mix]))
+                rolled = {f"{stem}_{mix}": extra[f"k9rolled_{mix}"]}
+                others = in_turns(run, lambda: swapped(rolled),
+                                  labels=("rolled columns", "tree (rolled)"))
+                want = run()
+                with swapped(rolled):
+                    same = all(torch.equal(a, b) for a, b in zip(run(), want))
+                ok &= same
+                notes = [f"rolled columns' outputs bitwise the tree's: {same}"]
+                if mix == "f64" and s == cs.SSTEP_S:
+                    for label, planner in (("ring off", k9_ring_off_plan),
+                                           ("x, p, r staged", xpr_plan)):
+                        others.update(in_turns(
+                            run, lambda: patched(K, k9_plan=planner),
+                            labels=(label, f"chosen ({label})")))
+                        with patched(K, k9_plan=planner):
+                            same = all(torch.equal(a, b)
+                                       for a, b in zip(run(), want))
+                            index = torch.cuda.current_device()
+                            alt = K._walk_device_plan(
+                                stem, planner, E, 10, mix, index, True, s=s)
+                        ok &= same
+                        notes.append(f"{label}: grid {alt.grid} x "
+                                     f"{alt.per_block}, {alt.blocks_per_sm} "
+                                     "blocks an SM, outputs bitwise the "
+                                     f"chosen plan's: {same}")
+                best = _best(times)
+                ratio = best["tree"] / best["earlier"]
+                ok &= ratio <= 1.03
+                print(f"  {mix} E={E} s={s}: plan " + _plan_text(
+                    stem, E, 10, mix, tree, kernel, s=s)
+                    + f"; {_fmt({**times, **others})}; tree / earlier "
+                    f"{ratio:.3f} (at most 1.03: {ratio <= 1.03})"
+                    + "".join(f"; {note}" for note in notes), flush=True)
+                del args
+    return ok
+
+
+# The tree's other stems a check's solve launches (K9's s-step CG: K8).
+ROUTE_STEMS = {"nekbone_sstep_update": ("nekbone_ax_powers",)}
 # {stem: (its check, {tag: (dtype, edits of the tree's source)})}
-CHECKS = {"nekbone_ax": (check_k1, {}),
+CHECKS = {"nekbone_ax": (check_k1, {
+              f"k1{form}_{m}": (m, edits)
+              for form, edits in (("scalar", SCALAR_SWEEP),
+                                  ("transposed", TRANSPOSED_SWEEP))
+              for m in ("f64", "f32", "bf16", "bf16_ir")}),
+          "nekbone_sstep_update": (check_k9, {
+              f"k9rolled_{m}": (m, ROLLED_COLUMNS)
+              for m in ("f64", "f32", "bf16", "bf16_ir")}),
           "nekbone_ax_dots": (check_k2, {}),
           "nekbone_cg_update": (check_k5, {}),
           "nekbone_cg_update_block": (check_k7, {}),
@@ -551,7 +1021,8 @@ def main() -> int:
                     help="a checkout (or archive) of the earlier commit")
     ap.add_argument("--changed", nargs="*", default=(),
                     help="stems whose kernels the tree redesigned: their "
-                         "SASS is reported, not held")
+                         "SASS is reported, not held, and their checks "
+                         "run")
     ap.add_argument("--builds", nargs="+", required=True,
                     help="the earlier libraries to build and compare, "
                          "<stem>_<dtype> (nekbone_ax_f64, flash_attn_bf16) "
@@ -576,24 +1047,39 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip(), flush=True)
-    # only the libraries compared
-    _build.SOURCES = {stem: _build.SOURCES[stem] for stem in stems}
+    # the stems checked: those redesigned; the others are held by their SASS
+    checked = [stem for stem in stems if stem in args.changed]
+    # only the libraries compared, and those the checks' routes launch
+    _build.SOURCES = {stem: _build.SOURCES[stem] for stem in [
+        *stems, *(need for stem in checked for need in ROUTE_STEMS.get(
+            stem, ()) if need not in stems)]}
     csrc = args.parent.resolve() / "src/repro_torch/kernels/csrc"
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {f"{stem}_{dtype}": start_build(
         csrc / f"{stem}.cu", OUT / f"{stem}_{dtype}.so", dtype)
         for stem, dtype in builds}
-    for stem in stems:
+    for stem in checked:
         for tag, (dtype, edits) in CHECKS.get(stem, (None, {}))[1].items():
             procs[tag] = start_build(edited(stem, edits, tag),
                                      OUT / f"{stem}_{tag}_{dtype}.so", dtype)
+        # the tree's own libraries of a redesigned stem, for their compile
+        # time beside the earlier ones'
+        for dtype in _build.SOURCES[stem]:
+            procs[f"tree {stem}_{dtype}"] = start_build(
+                _build.CSRC / f"{stem}.cu", OUT / f"tree_{stem}_{dtype}.so",
+                dtype)
     tree = _build.build_all()
-    built = wait_builds(procs)
+    built, cpu = wait_builds(procs)
+    unchecked = {f"{stem}_{dtype}" for stem, dtype in builds
+                 if stem not in checked}
+    print("== nvcc CPU seconds (one library each, all started together): "
+          + "; ".join(f"{key} {t:.1f}" for key, t in cpu.items()
+                      if key not in unchecked), flush=True)
     earlier = {name: so for name, so in built.items() if name in tree}
     extra = {tag: so for tag, so in built.items() if tag not in tree}
     ok = compare_sass({name: so for name, so in earlier.items()
                        if name.startswith("nekbone_")}, tree, args.changed)
-    for stem in stems:
+    for stem in checked:
         if stem in CHECKS:
             ok &= CHECKS[stem][0](earlier, tree, extra)
     print(f"parent_compare: {'every check held' if ok else 'A CHECK FAILED'}",

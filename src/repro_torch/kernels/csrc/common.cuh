@@ -1322,3 +1322,132 @@ inline bool update_plan_ok(const UpdateArgs<S, X, A>& a, long long items,
 }
 
 }  // namespace nekbone
+
+namespace nekbone {
+
+// ---------------------------------------------------------------------------
+// The layer sweep with vector reads of the layer (K1).  ax_columns reads
+// each contraction's operands one value at a time from shared memory:
+// u[j][l], u[l][i], D[k][l] (twice), r[j][l] and s[l][i], about 6n scalar
+// loads a node and layer.  Here the contractions along a row of the layer
+// read it in 16-byte vectors: u[j][.] and r[j][.], and the broadcast row
+// D[k][.] once a layer for both of its uses; the strided u[l][i] and
+// s[l][i] stay scalar loads, which a warp serves without bank conflicts
+// (its threads read consecutive i of one row).  In fp64 that is 1.5n
+// vector and 2n scalar loads a node and layer.  Transposed copies of the
+// layers, which would turn the strided reads into vectors too, cost a
+// store each and measured slower in every build (scripts/parent_compare.py
+// times that form beside this one).  Kept apart from the helpers above, so
+// that the other kernels compile as before.
+// ---------------------------------------------------------------------------
+
+// Values a row of AxVecShared holds: N values of T padded to an odd number
+// of 16-byte units, so that every row starts on a 16-byte boundary (vector
+// reads) and the rows that one quarter-warp's vector reads touch start in
+// different groups of four banks.
+template <int N, typename T>
+constexpr int kVecPitch =
+    (((N * static_cast<int>(sizeof(T)) + 15) / 16) | 1) * 16 /
+    static_cast<int>(sizeof(T));
+
+// Shared memory of ax_columns_vec: D's rows and the layers of u, r and s.
+template <int N, typename T>
+struct AxVecShared {
+  static constexpr int kPitch = kVecPitch<N, T>;
+  __align__(16) T D[N][kPitch];
+  __align__(16) T u[N][kPitch];
+  __align__(16) T r[N][kPitch];
+  __align__(16) T s[N][kPitch];
+};
+
+// Thread (i, j) loads D[j][i], upcast to T; the first barrier of
+// ax_columns_vec publishes it.
+template <int N, typename T, typename O>
+__device__ __forceinline__ void load_D(AxVecShared<N, T>& sh,
+                                       const O* __restrict__ D, int i, int j) {
+  sh.D[j][i] = convert<T>(D[j * N + i]);
+}
+
+// The N values of a row of AxVecShared (16-byte aligned, padded) by
+// 16-byte loads: double2 for 8-byte T, float4 for 4-byte T.
+template <int N, typename T>
+__device__ __forceinline__ void ld_row(const T* row, T (&v)[N]) {
+  static_assert(sizeof(T) == 8 || sizeof(T) == 4, "ld_row: f64 or f32");
+  if constexpr (sizeof(T) == 8) {
+#pragma unroll
+    for (int c = 0; c < (N + 1) / 2; ++c) {
+      const double2 q = reinterpret_cast<const double2*>(row)[c];
+      v[2 * c] = q.x;
+      if (2 * c + 1 < N) v[2 * c + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < (N + 3) / 4; ++c) {
+      const float4 q = reinterpret_cast<const float4*>(row)[c];
+      v[4 * c] = q.x;
+      if (4 * c + 1 < N) v[4 * c + 1] = q.y;
+      if (4 * c + 2 < N) v[4 * c + 2] = q.z;
+      if (4 * c + 3 < N) v[4 * c + 3] = q.w;
+    }
+  }
+}
+
+// ax_columns_dregs with vector reads of the layer's rows: the same
+// products, contracted and summed in the same order (wr, ws, wt and acc as
+// chains over l, each on its own, wc[k] += acc before wc[k] += D[k][k] ut),
+// so wc is bitwise ax_columns'.  The scatter of ut into wc[m], m != k, goes before
+// the second barrier: each of those wc[m] takes one term a layer, so its
+// order is kept.
+template <int N, typename T, typename DR, typename Metric, typename U>
+__device__ __forceinline__ void ax_columns_vec(AxVecShared<N, T>& sh,
+                                               const DR& dr, Metric metric,
+                                               const U& uc, T (&wc)[N], int i,
+                                               int j) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) wc[k] = T(0);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    sh.u[j][i] = uc[k];
+    __syncthreads();
+    // one row of values live at a time: the row u[j][.] is done with
+    // before D[k][.] is read
+    T wr = T(0), ws = T(0), wt = T(0);
+    {
+      T row[N];
+      ld_row<N>(sh.u[j], row);
+#pragma unroll
+      for (int l = 0; l < N; ++l) wr += dr.ri(l) * row[l];
+    }
+#pragma unroll
+    for (int l = 0; l < N; ++l) ws += dr.rj(l) * sh.u[l][i];
+    T dk[N];
+    ld_row<N>(sh.D[k], dk);
+#pragma unroll
+    for (int l = 0; l < N; ++l) wt += dk[l] * uc[l];
+    T ur, us, ut;
+    metric(k, wr, ws, wt, ur, us, ut);
+    sh.r[j][i] = ur;
+    sh.s[j][i] = us;
+#pragma unroll
+    for (int m = 0; m < N; ++m)
+      if (m != k) wc[m] += dk[m] * ut;
+    const T dkk = dk[k];
+    __syncthreads();
+    T row[N];
+    ld_row<N>(sh.r[j], row);
+    T acc = T(0);
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      acc += dr.ci(l) * row[l];
+      acc += dr.cj(l) * sh.s[l][i];
+    }
+    wc[k] += acc;
+    wc[k] += dkk * ut;
+    // The next layer writes u before its first barrier and r and s only
+    // after it; every read of this layer's u happened before the second
+    // barrier above, and of r and s before any thread reaches the next
+    // first barrier.
+  }
+}
+
+}  // namespace nekbone

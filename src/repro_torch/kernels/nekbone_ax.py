@@ -1,7 +1,9 @@
 """Wrappers of the CUDA kernels of the Nekbone operator, CG and PCG.
 
 * ``nekbone_ax_cuda`` — K1, ``csrc/nekbone_ax.cu``, replaces the reference's
-  ``kernels/nekbone_ax.py:nekbone_ax_kernel``;
+  ``kernels/nekbone_ax.py:nekbone_ax_kernel`` (K3's walker over the
+  elements, :func:`k1_plan`, with a layer sweep that reads the layer in
+  16-byte vectors);
 * ``nekbone_ax_slab_cuda`` — K4, ``csrc/nekbone_ax_slab.cu``, replaces
   ``nekbone_ax_slab_kernel`` (persistent blocks that stage the next
   element's operands while they sweep the current one; :func:`k4_plan`);
@@ -30,7 +32,8 @@
   ``nekbone_ax_powers_kernel`` (the s-step basis and Gram; one cooperative
   launch per call, its grid chosen by :func:`k8_plan`);
 * ``nekbone_sstep_update_cuda`` — K9, ``csrc/nekbone_sstep_update.cu``,
-  replaces ``nekbone_sstep_update_kernel`` (the s-step multi-axpy).
+  replaces ``nekbone_sstep_update_kernel`` (the s-step multi-axpy; K5's
+  walker over x, p, r and the element's basis block, :func:`k9_plan`).
 
 Every wrapper takes the kernel's flat operands ((E, n^3) fields, or
 (b, E, n^3) for K6 and K7), and:
@@ -91,7 +94,8 @@ __all__ = ["nekbone_ax_cuda",
            "nekbone_cheb_apply_plan", "k8_plan", "k8_scratch_bytes",
            "nekbone_ax_powers_plan", "K6_LANES", "k6_lane_groups", "STAGES",
            "WalkPlan", "walk_slot_bytes", "k4_operands", "k3_operands",
-           "k5_operands", "k4_plan", "k3_plan", "k5_plan", "k7_plan",
+           "k5_operands", "k1_operands", "k9_operands", "k4_plan",
+           "k3_plan", "k5_plan", "k7_plan", "k1_plan", "k9_plan",
            "walk_plan", "walk_launch_info"]
 
 # The n the kernels are instantiated for (template parameter).
@@ -120,7 +124,7 @@ MIXES = {
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers, then the ints, then the stream.
 _ARGTYPES = {
-    "nekbone_ax": [_P] * 4 + [_I] * 2 + [_P],
+    "nekbone_ax": [_P] * 4 + [_I] * 7 + [_P],
     "nekbone_ax_slab": [_P] * 11 + [_I] * 9 + [_P],
     "nekbone_cg_update": [_P] * 11 + [_I] * 9 + [_P],
     "nekbone_pcg_update": [_P] * 13 + [_I] * 4 + [_P],
@@ -131,7 +135,7 @@ _ARGTYPES = {
     "nekbone_ax_pap": [_P] * 6 + [_I] * 7 + [_P],
     "nekbone_ax_dots": [_P] * 9 + [_I] * 7 + [_P],
     "nekbone_ax_powers": [_P] * 17 + [_I] * 7 + [_P],
-    "nekbone_sstep_update": [_P] * 12 + [_I] * 5 + [_P],
+    "nekbone_sstep_update": [_P] * 12 + [_I] * 10 + [_P],
 }
 # Entry points that live in another stem's library.
 _LIBRARY = {"nekbone_ax_pap": "nekbone_ax_dots"}
@@ -205,7 +209,8 @@ def nekbone_ax_cuda(u2: torch.Tensor, D: torch.Tensor, g2: torch.Tensor, *,
     """K1: ``w = D^T G D u``.  u2: (E, n^3); D: (n, n); g2: (E, 6, n^3).
 
     Builds by operand dtype (:data:`MIXES`): u2 in S, D and g2 in O.
-    Returns ``w`` in S, computed in A and rounded once.
+    Returns ``w`` in S, computed in A and rounded once.  One launch of the
+    grid :func:`k1_plan` sizes, staging what it says.
     """
     if u2.device.type == "cpu":
         return nekbone_ax_plain(u2, D, g2, n=n)
@@ -213,8 +218,11 @@ def nekbone_ax_cuda(u2: torch.Tensor, D: torch.Tensor, g2: torch.Tensor, *,
     n3 = n ** 3
     mix = _check("nekbone_ax", n, u2.device, u2=(u2, (E, n3)),
                  D=(D, (n, n), "O"), g2=(g2, (E, 6, n3), "O"))
+    plan = _walk_launch_plan("nekbone_ax", k1_plan, E, n, mix, u2.device,
+                             (u2, g2), any_head=True)
     w2 = torch.empty_like(u2)
-    _launch("nekbone_ax", mix, u2.device, (u2, D, g2, w2), (E, n))
+    _launch("nekbone_ax", mix, u2.device, (u2, D, g2, w2),
+            (E, n, *plan.launch_ints))
     return w2
 
 
@@ -437,22 +445,22 @@ def k8_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
     return device_memory_plan(E, sm_count, fit, slices, scratch)
 
 
-# The ring's depth of the walkers (K4, K3, K2, K5, K7): the element being
-# swept and the next one.  The kernels take 1..4 (csrc/common.cuh
-# kMaxStages).
+# The ring's depth of the walkers (K1, K4, K3, K2, K5, K7, K9): the
+# element being swept and the next one.  The kernels take 1..4
+# (csrc/common.cuh kMaxStages).
 STAGES = 2
 
 
 @dataclasses.dataclass(frozen=True)
 class WalkPlan:
-    """One launch of a walker (K4, K3, K2, K5; K7 over its work items):
-    block b of ``grid`` owns the z-major elements ``[b * per_block, (b + 1)
-    * per_block)`` (the last range cut at E) and walks them, while a ring
-    of ``stages`` stages in its dynamic shared memory (``smem_bytes``)
-    holds the ``staged`` operands of the next elements, filled by TMA bulk
-    copies (``bulk``) or per-thread ``cp.async``; the other operands are
-    read from device memory.  ``blocks_per_sm`` is the residency the grid
-    was sized by."""
+    """One launch of a walker (K1, K4, K3, K2, K5, K9; K7 over its work
+    items): block b of ``grid`` owns the z-major elements ``[b *
+    per_block, (b + 1) * per_block)`` (the last range cut at E) and walks
+    them, while a ring of ``stages`` stages in its dynamic shared memory
+    (``smem_bytes``) holds the ``staged`` operands of the next elements,
+    filled by TMA bulk copies (``bulk``) or per-thread ``cp.async``; the
+    other operands are read from device memory.  ``blocks_per_sm`` is the
+    residency the grid was sized by."""
     per_block: int
     grid: int
     blocks_per_sm: int
@@ -504,6 +512,22 @@ def k5_operands(n: int, mix: str) -> dict[str, int]:
     s, x = MIXES[mix]["S"].itemsize, MIXES[mix]["X"].itemsize
     return {"x": n ** 3 * x, "p": n ** 3 * s, "r": n ** 3 * s,
             "w": n ** 3 * s}
+
+
+def k1_operands(n: int, mix: str) -> dict[str, int]:
+    """K1's stageable operands and their bytes per element: u (n^3 values
+    in S) and the metric (6 n^3 in O)."""
+    s, o = MIXES[mix]["S"].itemsize, MIXES[mix]["O"].itemsize
+    return {"u": n ** 3 * s, "g": 6 * n ** 3 * o}
+
+
+def k9_operands(n: int, s: int, mix: str) -> dict[str, int]:
+    """K9's stageable operands and their bytes per element at cycle length
+    s: x (n^3 values in X), p and r (n^3 in S) and the element's basis block
+    ((2s - 1) n^3 in S, contiguous in the (E, 2s-1, n^3) layout)."""
+    v, x = MIXES[mix]["S"].itemsize, MIXES[mix]["X"].itemsize
+    return {"x": n ** 3 * x, "p": n ** 3 * v, "r": n ** 3 * v,
+            "basis": (2 * s - 1) * n ** 3 * v}
 
 
 def walk_plan(what: str, E: int, operands: dict[str, int], sm_count: int,
@@ -570,12 +594,24 @@ def k3_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
                      aligned=aligned)
 
 
-def _update_plan(what: str, items: int, n: int, mix: str, sm_count: int,
-                 blocks_per_sm, smem_per_block: int,
+def k1_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
+            smem_per_block: int, *, aligned: bool = True) -> WalkPlan:
+    """K1's plan for E elements of degree n - 1 in build ``mix``
+    (:func:`walk_plan` over :func:`k1_operands`): residency first, so at
+    n = 10 f32 stages the metric alone (both operands leave no room for a
+    fourth block an SM) and reads u from device memory; fp64 (2 x 56,000
+    bytes at two blocks an SM), bf16 and ``bf16_ir`` stage both."""
+    return walk_plan(f"k1_plan (n={n}, {mix})", E, k1_operands(n, mix),
+                     sm_count, blocks_per_sm, smem_per_block,
+                     aligned=aligned)
+
+
+def _update_plan(what: str, items: int, operands: dict[str, int],
+                 sm_count: int, blocks_per_sm, smem_per_block: int,
                  aligned: bool) -> WalkPlan:
-    """:func:`walk_plan` over K5's operands for ``items`` work items, its
-    residency capped at what the ring of all four operands allows."""
-    operands = k5_operands(n, mix)
+    """:func:`walk_plan` over an update walker's ``operands`` (K5, K7, K9)
+    for ``items`` work items, its residency capped at what the ring of all
+    of them allows."""
     bulk = aligned and all(b % 16 == 0 for b in operands.values())
     ring = STAGES * sum(walk_slot_bytes(b, bulk) for b in operands.values())
     cap = blocks_per_sm(ring) if ring <= smem_per_block else 0
@@ -598,8 +634,8 @@ def k5_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
     one block of that ring fits an SM (at n = 10 in every build: 2 x 32,000
     bytes in fp64, 2 x 8,000 in bf16), and :func:`walk_plan`'s rule holds
     where none does."""
-    return _update_plan(f"k5_plan (n={n}, {mix})", E, n, mix, sm_count,
-                        blocks_per_sm, smem_per_block, aligned)
+    return _update_plan(f"k5_plan (n={n}, {mix})", E, k5_operands(n, mix),
+                        sm_count, blocks_per_sm, smem_per_block, aligned)
 
 
 def k7_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
@@ -610,14 +646,34 @@ def k7_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
     a block's range may cross from one lane into the next."""
     if b < 1:
         raise ValueError(f"k7_plan: b={b}")
-    return _update_plan(f"k7_plan (n={n}, {mix}, b={b})", b * E, n, mix,
-                        sm_count, blocks_per_sm, smem_per_block, aligned)
+    return _update_plan(f"k7_plan (n={n}, {mix}, b={b})", b * E,
+                        k5_operands(n, mix), sm_count, blocks_per_sm,
+                        smem_per_block, aligned)
+
+
+def k9_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
+            smem_per_block: int, *, s: int,
+            aligned: bool = True) -> WalkPlan:
+    """K9's plan for E elements of degree n - 1 at cycle length s in build
+    ``mix``: :func:`k5_plan`'s rule over :func:`k9_operands`.  All four
+    are staged wherever one block of their ring fits an SM, at the
+    residency that ring allows (s = 4, n = 10, fp64: 2 x 80,000 bytes, one
+    block an SM), else :func:`walk_plan`'s rule holds (s = 10 in fp64: a
+    basis block is 152,000 bytes, so x, p and r are staged and the basis is
+    read from device memory)."""
+    if not 1 <= s <= SSTEP_MAX_S:
+        raise ValueError(f"k9_plan: s={s} outside 1..{SSTEP_MAX_S}")
+    return _update_plan(f"k9_plan (n={n}, s={s}, {mix})", E,
+                        k9_operands(n, s, mix), sm_count, blocks_per_sm,
+                        smem_per_block, aligned)
 
 
 # The walkers' planners by stem.
-_WALK_PLANNERS = {"nekbone_ax_slab": k4_plan, "nekbone_ax_pap": k3_plan,
-                  "nekbone_ax_dots": k3_plan, "nekbone_cg_update": k5_plan,
-                  "nekbone_cg_update_block": k7_plan}
+_WALK_PLANNERS = {"nekbone_ax": k1_plan, "nekbone_ax_slab": k4_plan,
+                  "nekbone_ax_pap": k3_plan, "nekbone_ax_dots": k3_plan,
+                  "nekbone_cg_update": k5_plan,
+                  "nekbone_cg_update_block": k7_plan,
+                  "nekbone_sstep_update": k9_plan}
 
 
 def _device_index(device: torch.device) -> int:
@@ -631,8 +687,8 @@ def _coop_query(stem: str, mix: str, n: int, resident: bool, dyn: int,
     """The C side's occupancy query of ``stem`` (csrc/common.cuh
     ``coop_query``): (blocks per SM, static shared bytes, registers, the
     most dynamic shared bytes, SM count, cooperative launch supported,
-    elements a block works on side by side).  The walkers (K4, K3, K2, K5,
-    K7) ignore ``resident``."""
+    elements a block works on side by side).  The walkers (K1, K4, K3, K2,
+    K5, K7, K9) ignore ``resident``."""
     lib = _build.load(f"{_LIBRARY.get(stem, stem)}_{mix}")
     fn = getattr(lib, f"{stem}_query_{mix}")
     fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
@@ -724,10 +780,10 @@ def _walk_launch_plan(stem: str, planner, E: int, n: int, mix: str,
 
 def walk_launch_info(stem: str, E: int, n: int, mix: str, device="cuda",
                      aligned: bool = True, **kw) -> tuple[WalkPlan, dict]:
-    """The plan a walker (``nekbone_ax_slab``, ``nekbone_ax_pap``,
-    ``nekbone_ax_dots``, ``nekbone_cg_update`` or
-    ``nekbone_cg_update_block``, the last with its lane count ``b``)
-    launches with for E elements in build ``mix`` on ``device``, and the
+    """The plan a walker (``nekbone_ax``, ``nekbone_ax_slab``,
+    ``nekbone_ax_pap``, ``nekbone_ax_dots``, ``nekbone_cg_update``,
+    ``nekbone_cg_update_block`` with its lane count ``b`` or
+    ``nekbone_sstep_update`` with its cycle length ``s``) launches with for E elements in build ``mix`` on ``device``, and the
     instantiation it runs: ``{"registers", "static_smem", "sm_count"}``."""
     planner = _WALK_PLANNERS[stem]
     index = _device_index(torch.device(device))
@@ -997,7 +1053,8 @@ def nekbone_sstep_update_cuda(x2, p2, r2, basis, coef, cx, cy, cz, *, n: int,
     """K9: the s-step multi-axpy and per-element ``r·c·r`` partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_sstep_update_plain`:
-    ``basis`` (E, 2s-1, n^3) from K8, ``coef`` (3, 2s+1).  Builds by
+    ``basis`` (E, 2s-1, n^3) from K8, ``coef`` (3, 2s+1).  One launch of
+    the grid :func:`k9_plan` sizes, staging what it says.  Builds by
     operand dtype (:data:`MIXES`): x2 in X, p2, r2, the basis and the
     factors in S, coef in A.  Returns ``(x, r, p, rcr)`` with ``rcr`` of
     shape (E,) in A.
@@ -1014,11 +1071,14 @@ def nekbone_sstep_update_cuda(x2, p2, r2, basis, coef, cx, cy, cz, *, n: int,
                  basis=(basis, (E, 2 * s - 1, n3)),
                  coef=(coef, (3, 2 * s + 1), "A"),
                  cx=(cx, (ex, n)), cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    plan = _walk_launch_plan("nekbone_sstep_update", k9_plan, E, n, mix,
+                             x2.device, (x2, p2, r2, basis), any_head=True,
+                             s=s)
     x_out = torch.empty_like(x2)
     r_out = torch.empty_like(r2)
     p_out = torch.empty_like(p2)
     rcr = torch.empty(E, dtype=MIXES[mix]["A"], device=x2.device)
     _launch("nekbone_sstep_update", mix, x2.device,
             (x2, p2, r2, basis, coef, cx, cy, cz, x_out, r_out, p_out, rcr),
-            (ex, ey, ez, n, s))
+            (ex, ey, ez, n, s, *plan.launch_ints))
     return x_out, r_out, p_out, rcr
