@@ -62,7 +62,9 @@ reference package ``repro``, and, in order:
    v2 solve), plus the tolerance-driven block solve and the per-RHS
    ``block_loop`` route at b = 2;
 11. times every kernel and its plain version (device time by CUDA events)
-   at E=1024 and E=4096 (with the fields K11's variant moves), the solves
+   at E=1024 and E=4096 (with the fields K11's variant moves; beside each
+   K12 step an empty kernel launched on that step's grid, the launch
+   floor), the solves
    per iteration and to tolerance (host clock), and the Chebyshev and pmg
    intervals' one-time set-up;
 12. holds K3 and K2 (the v1 operator) and K8 and K9 (the s-step cycle)
@@ -109,7 +111,17 @@ reference package ``repro``, and, in order:
    fields value by value, partials summed, 5 repeated calls bitwise (a K1
    that rounds D u to bf16 before the metric and a K2 whose partials are
    stored in bf16 must fail the same checks), and K2 among the walkers in
-   every build, its w and pap bitwise K3's;
+   every build, its w and pap bitwise K3's; K10's walker among them, its
+   plans at E = 1024 and 4096 printed, every build at n = 10, 5, 3 on the
+   three grids (x and z bitwise the plain version in f64 and f32, value by
+   value in bf16; rtz and rcr summed; 5 repeated calls bitwise) and every
+   operand 1 value off its allocation's start (cp.async) bitwise the
+   aligned call; and K12's walker: its plans on the paper ladder at E =
+   1024 and 4096 in every build (group, grid, threads, copy path, shared
+   memory, registers; no spills), v bitwise the plain version at every ladder
+   pair n = 3..16 and E = 1, 7, 1024, 4096, and on the paper ladder at
+   E = 1024 5 repeated calls and u 1 value off its allocation's start
+   bitwise the aligned call;
 16. solves the paper case (b in fp64, 100 inner iterations per sweep)
    through the ``ir`` route — ``f32_ir`` and ``bf16_ir`` over v2, v1 and
    s-step (s=4) — the non-refined ``bf16`` policy over v2, v1 and s-step,
@@ -145,11 +157,11 @@ reference package ``repro``, and, in order:
    route itself moves further under another valid f32 order of its
    operator, within 10x that spread (whether 1e-2 held is reported), the
    block lanes bitwise their own bf16 (f32) v2 solves; times each solve;
-19. times the f32 K4, K5, K3, K8, K9, K6 and K7 and the bf16 K1, K2, K4,
-   K5, K3, K8, K9, K10, K11, K12, K6 and K7 (both builds; K9 also beside
-   one ``torch.matmul``, K12 beside one ``torch.einsum``) beside their plain
-   versions at E=1024 and E=4096, each with the bytes it moves and its
-   share of the bound;
+19. times the f32 K4, K5, K3, K8, K9, K10, K6 and K7 and the bf16 K1,
+   K2, K4, K5, K3, K8, K9, K10, K11, K12, K6 and K7 (both builds; K9 also
+   beside one ``torch.matmul``, K12 beside one ``torch.einsum``) beside
+   their plain versions at E=1024 and E=4096, each with the bytes it
+   moves and its share of the bound;
 20. profiles each kernel route (device time per iteration, by kernel, and
    the device's busy share), ``bf16_ir`` v2 and bf16 block CG at b = 4
    among them;
@@ -1683,6 +1695,16 @@ def phase_times(bw_copy, cases):
             rows[(f"K12 {nin}->{nout}", grid)] = row
             if (nin, nout) == (10, 5):
                 rows[("K12", grid)] = row
+            # the launch floor: an empty kernel on this step's grid, block
+            # size and shared memory, timed by the same harness
+            plan, _ = K.nekbone_interp_plan(E, nin, nout, "f64")
+            row["floor_ms"] = device_ms(
+                lambda: K.nekbone_interp_floor(plan, "f64"))
+            print(f"  K12 {nin}->{nout} E={E}: plan G={plan.group}, grid "
+                  f"{plan.grid} x {plan.per_block} groups of "
+                  f"{plan.threads} threads ({plan.copy}); the empty kernel "
+                  f"on this grid {row['floor_ms']:.4f} ms, the kernel "
+                  f"{row['ms'] / row['floor_ms']:.2f} of it", flush=True)
         m, c = o["m"], o["c"]
         for b in (1, 3, BLOCK_B):
             ops_b = [_v2_operands(case, rng) for _ in range(b)]
@@ -3184,10 +3206,10 @@ def phase_walk_parity():
     from repro_torch.kernels import _build
     from repro_torch.kernels import nekbone_ax as K
 
-    print("== K4/K3/K2/K5/K7 walkers: launch plans (n = 10) and parity in "
-          "every build (n = 10, 5, 3 on the paper grid, the 16x16x16 grid "
-          "and 3x3x5; fields relative in f64 and f32, value by value in "
-          "bf16; partials summed, relative)", flush=True)
+    print("== K4/K3/K2/K5/K7/K10 walkers: launch plans (n = 10) and parity "
+          "in every build (n = 10, 5, 3 on the paper grid, the 16x16x16 grid "
+          "and 3x3x5; fields relative in f64 and f32 (K10's bitwise), value "
+          "by value in bf16; partials summed, relative)", flush=True)
     logs = {name: _ptxas_report(path.with_suffix(".log").read_text())
             for name, path in _build.build_all().items()}
     walkers = (("K4", "nekbone_ax_slab", "nekbone_ax_slab",
@@ -3199,7 +3221,9 @@ def phase_walk_parity():
                ("K5", "nekbone_cg_update", "nekbone_cg_update",
                 "nekbone_cg_update_kernel<10>"),
                ("K7", "nekbone_cg_update_block", "nekbone_cg_update_block",
-                "nekbone_cg_update_block_kernel<10>"))
+                "nekbone_cg_update_block_kernel<10>"),
+               ("K10", "nekbone_pcg_update", "nekbone_pcg_update",
+                "nekbone_pcg_update_kernel<10>"))
     for key, stem, lib, kernel in walkers:
         lanes = dict(b=BLOCK_B) if key == "K7" else {}
         for mix in WALK_MIXES:
@@ -3229,6 +3253,7 @@ def phase_walk_parity():
         u64, D64, g64 = _operator_data(rng, E, n, torch.float64)
         mask64 = case.mask.reshape(E, n3).contiguous()
         c64 = case.c.reshape(E, n3).contiguous()
+        invd64 = (1.0 / case.operator_diagonal()).reshape(E, n3)
         for mix in WALK_MIXES:
             dt = K.MIXES[mix]
             tag = f"{mix} n={n} E={E}"
@@ -3291,6 +3316,11 @@ def phase_walk_parity():
                   f"{plan5.per_block}, {', '.join(plan5.staged)} staged): x "
                   f"{xtxt}, r {rtxt}, rcr rel err {cerr:.2e}; 5 more calls "
                   "bitwise the same")
+            # K10 on K4's outputs, z in K4's residual slot
+            k10 = (o["x"], kp, o["r"], kw, o["alpha"], invd64.to(dt["O"]),
+                   *o["c"])
+            _k10_walk_check(k10, n, E, mix, tag,
+                            misaligned=n == 10 and grid == PAPER_GRID)
             X3 = torch.stack([o["x"], -o["x"], o["x"]])
             P3 = torch.stack([kp, o["r"], o["p"]])
             R3 = torch.stack([o["r"], kp, o["p"]])
@@ -3318,10 +3348,136 @@ def phase_walk_parity():
                 errs[("K7", mix)] = float((r3 - pr3).abs().max())
             del o, k4, k3, kp, kw, pp, pw, kw3, pw3, reps, k5, k7, X3, P3, \
                 R3, W3
-        del case, u64, D64, g64, mask64, c64
+        del case, u64, D64, g64, mask64, c64, invd64
         torch.cuda.empty_cache()
+    _k12_walk_parity(logs)
     torch.cuda.synchronize()
     return errs
+
+
+def _k10_walk_check(k10, n, E, mix, tag, *, misaligned):
+    """K10's walker against its plain version (x and z bitwise in f64 and
+    f32, value by value in bf16; rtz and rcr summed, relative), 5 repeated
+    calls bitwise the same; with ``misaligned`` also every operand 1 value
+    off its allocation's start (the cp.async path), bitwise the aligned
+    call's."""
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as K
+
+    got = K.nekbone_pcg_update_cuda(*k10, n=n)
+    want = K.nekbone_pcg_update_plain(*k10, n=n)
+    if mix in BF16_MIXES:
+        fields = [_walk_field_ok(a, b, mix) for a, b in zip(got, want[:2])]
+    else:
+        fields = [(torch.equal(a, b), "bitwise" if torch.equal(a, b)
+                   else f"NOT bitwise ({rel_err(a, b):.2e})")
+                  for a, b in zip(got, want[:2])]
+    perr = [_part_err(a, b) for a, b in zip(got[2:], want[2:])]
+    reps = [K.nekbone_pcg_update_cuda(*k10, n=n) for _ in range(5)]
+    same = all(torch.equal(a, b) for rep in reps for a, b in zip(rep, got))
+    plan, _ = K.walk_launch_info("nekbone_pcg_update", E, n, mix)
+    check(all(ok for ok, _ in fields) and max(perr) <= WALK_TOL[mix]
+          and same and plan.bulk == (n % 2 == 0),
+          f"K10 {tag} ({plan.copy}, grid {plan.grid} x {plan.per_block}, "
+          f"{', '.join(plan.staged)} staged): x {fields[0][1]}, z "
+          f"{fields[1][1]}, rtz rel err {perr[0]:.2e}, rcr {perr[1]:.2e}; 5 "
+          "more calls bitwise the same")
+    if misaligned:
+        moved = [_off_start(t) for t in k10[:4]] + [k10[4],
+                                                    _off_start(k10[5])]
+        plan = K._walk_launch_plan("nekbone_pcg_update", K.k10_plan, E, n,
+                                   mix, moved[0].device,
+                                   (*moved[:4], moved[5]), any_head=True)
+        off = K.nekbone_pcg_update_cuda(*moved, *k10[6:], n=n)
+        check(not plan.bulk and all(torch.equal(a, b)
+                                    for a, b in zip(off, got)),
+              f"K10 {tag}, x, p, z, w and invd 1 value off their "
+              f"allocations' start ({plan.copy}, "
+              f"{', '.join(plan.staged)} staged): x, z, rtz, rcr bitwise "
+              "the aligned call's")
+
+
+def _off_start(t):
+    """``t`` copied into a view one value past its allocation's start (off
+    16-byte alignment: a walker's cp.async path)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+# K12's element counts: one element, a few, and the paper's E = 1024 and
+# 4096
+K12_WALK_ES = (1, 7, 1024, 4096)
+
+
+def _k12_walk_parity(logs):
+    """K12's walker in every build: its plans on the paper case's ladder
+    (10 -> 5 -> 3 -> 2 and back) at E = 1024 and 4096 (group, grid,
+    threads, copy path, shared memory, registers and spills); v bitwise
+    its plain version at every ladder pair n = 3..16 and every E of
+    K12_WALK_ES; on the paper case's ladder at E = 1024, 5 repeated calls
+    bitwise the same and u 1 value off its allocation's start (the cp.async
+    path) bitwise the aligned call's."""
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as K
+
+    print(f"  K12 walker: plans on the paper ladder and every build at "
+          f"every ladder pair over E = {K12_WALK_ES}, bitwise", flush=True)
+    gen = torch.Generator("cuda").manual_seed(26)
+    pairs = sorted(K.INTERP_PAIRS)
+    for mix in WALK_MIXES:
+        dt = K.MIXES[mix]
+        for E in (1024, 4096):
+            for nin, nout in LADDER_PAIRS:
+                plan, info = K.nekbone_interp_plan(E, nin, nout, mix)
+                regs, spill = logs[f"nekbone_interp_{mix}"][
+                    f"nekbone_interp_kernel<{nin},{nout}>"]
+                check(plan.grid <= info["sm_count"] * plan.blocks_per_sm
+                      and plan.bulk and spill == 0,
+                      f"K12 {mix} {nin}->{nout} E={E} plan: G={plan.group}, "
+                      f"grid {plan.grid} ({plan.per_block} groups a block, "
+                      f"one wave at {plan.blocks_per_sm} blocks an SM on "
+                      f"{info['sm_count']} SMs), {plan.threads} threads, "
+                      f"{K.K12_STAGES} stage by {plan.copy}, "
+                      f"{plan.smem_bytes} bytes dynamic + "
+                      f"{info['static_smem']} static shared, {regs} "
+                      f"registers ({info['registers']} by the runtime), "
+                      f"{spill} bytes spilled")
+        bad, paths = [], set()
+        for nin, nout in pairs:
+            mt = _ladder_matrix(nin, nout, torch.float64).to(dt["O"])
+            for E in K12_WALK_ES:
+                u = torch.randn(E, nin ** 3, generator=gen,
+                                dtype=torch.float64, device="cuda") \
+                    .to(dt["S"])
+                v = K.nekbone_interp_cuda(u, mt, nin=nin, nout=nout)
+                paths.add(K.nekbone_interp_plan(E, nin, nout, mix)[0].copy)
+                if not torch.equal(v, K.nekbone_interp_plain(
+                        u, mt, nin=nin, nout=nout)):
+                    bad.append((nin, nout, E))
+                if E == 1024 and (nin, nout) in LADDER_PAIRS:
+                    reps = [K.nekbone_interp_cuda(u, mt, nin=nin, nout=nout)
+                            for _ in range(5)]
+                    uo = _off_start(u)
+                    plan, _ = K.nekbone_interp_plan(E, nin, nout, mix,
+                                                    aligned=False)
+                    if (not all(torch.equal(r, v) for r in reps)
+                            or plan.bulk or not torch.equal(
+                                K.nekbone_interp_cuda(uo, mt, nin=nin,
+                                                      nout=nout), v)):
+                        bad.append((nin, nout, E, "repeats or misaligned"))
+                del u, v
+        check(not bad,
+              f"K12 {mix}: v bitwise the plain version at all "
+              f"{len(pairs)} ladder pairs, E = {K12_WALK_ES} (copy paths "
+              f"{sorted(paths)}); on the paper ladder at E=1024, 5 more "
+              "calls bitwise the same and u 1 value off its allocation's "
+              "start (cp.async) bitwise the aligned call"
+              + (f"; FAILED {bad}" if bad else ""))
 
 
 @contextlib.contextmanager
@@ -3590,10 +3746,10 @@ def phase_ir_routes(hist, v2_solve_ms):
 
 
 def phase_bf16_times(bw_copy, rows):
-    """Device time of the f32 K4, K5, K3, K8 and K9 (s=4) and the bf16 K1,
-    K2, K4, K5, K3, K8 (s=4), K9 (s=4; K9 beside one ``torch.matmul`` in
-    its storage type) and K10 (both builds) beside their plain versions at
-    E=1024 and E=4096."""
+    """Device time of the f32 K4, K5, K3, K8 and K9 (s=4) and K10, and the
+    bf16 K1, K2, K4, K5, K3, K8 (s=4), K9 (s=4; K9 beside one
+    ``torch.matmul`` in its storage type) and K10 (both builds) beside
+    their plain versions at E=1024 and E=4096."""
     import numpy as np
     import torch
 
@@ -3601,8 +3757,9 @@ def phase_bf16_times(bw_copy, rows):
     from repro_torch.core.nekbone import NekboneCase
     from repro_torch.kernels import nekbone_ax as K
 
-    print("== times of the reduced-precision builds (K4, K5, K3, K8 and K9 "
-          "in f32, K1, K2, K4, K5, K3, K8, K9 and K10 in bf16 and bf16_ir; "
+    print("== times of the reduced-precision builds (K4, K5, K3, K8, K9 and "
+          "K10 in f32, K1, K2, K4, K5, K3, K8, K9 and K10 in bf16 and "
+          "bf16_ir; "
           "n=10, K8 and K9 "
           f"at s={SSTEP_S}; device time per call, CUDA events around 20 "
           "queued calls, median of 5; operations at the fp32 rate, 67 "
@@ -3662,12 +3819,14 @@ def phase_bf16_times(bw_copy, rows):
                             + [basis[:, s + m] for m in range(s - 1)]
                             ).reshape(K_, nodes)
             coef_s = coef.to(dt["S"])
+            # K10: x in and out, p, z, w in, z out, invd in
+            invd = (1.0 / case.operator_diagonal()).reshape(
+                E, n ** 3).to(dt["O"])
+            k10 = (o["x"], kp, o["r"], kw, o["alpha"], invd, *o["c"])
+            work["K10"] = (K.nekbone_pcg_update_cuda,
+                           K.nekbone_pcg_update_plain, k10,
+                           2 * X + 4 * S + O, (0, 14))
             if mix != "f32":
-                # K10: x in and out, p, z, w in, z out, invd in
-                z = o["r"]
-                invd = (1.0 / case.operator_diagonal()).reshape(
-                    E, n ** 3).to(dt["O"])
-                k10 = (o["x"], kp, z, kw, o["alpha"], invd, *o["c"])
                 r2 = torch.as_tensor(rng.normal(size=(E, n ** 3)),
                                      dtype=dt["S"], device="cuda")
                 k2 = k3 + (r2, case.c.reshape(E, n ** 3).to(dt["S"]))
@@ -3677,9 +3836,6 @@ def phase_bf16_times(bw_copy, rows):
                            2 * S + 6 * O, (12 * n, 17)),
                     "K2": (K.nekbone_ax_dots_cuda, K.nekbone_ax_dots_plain,
                            k2, 5 * S + 6 * O, (12 * n, 21)),
-                    "K10": (K.nekbone_pcg_update_cuda,
-                            K.nekbone_pcg_update_plain, k10,
-                            2 * X + 4 * S + O, (0, 14)),
                 })
             for name, (kern, plain, args, per_node, (fm, fr)) in work.items():
                 kw_s = dict(n=n, s=SSTEP_S) if name in ("K8", "K9") \

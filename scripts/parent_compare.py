@@ -6,12 +6,15 @@ it (a ``git archive`` of the earlier commit, unpacked into a directory that
 ``.gitignore`` lists)::
 
     mkdir -p build/parent
-    git archive a98a22e src/repro_torch/kernels/csrc | tar -x -C build/parent
+    git archive 3b06939 src/repro_torch/kernels/csrc | tar -x -C build/parent
     python3 scripts/parent_compare.py --parent build/parent --builds \\
-        nekbone_ax nekbone_sstep_update nekbone_ax_slab nekbone_cg_update \\
-        nekbone_pcg_update nekbone_cheb_apply nekbone_interp \\
+        nekbone_pcg_update nekbone_interp nekbone_ax nekbone_sstep_update \\
+        nekbone_ax_slab nekbone_cg_update nekbone_cheb_apply \\
         nekbone_ax_slab_block nekbone_cg_update_block nekbone_ax_dots \\
-        nekbone_ax_powers --changed nekbone_ax nekbone_sstep_update
+        nekbone_ax_powers --changed nekbone_pcg_update nekbone_interp
+
+(3b06939 is the commit before K10's and K12's redesigns, whose stems are
+``--changed`` here; a98a22e the one before K1's and K9's.)
 
 It builds the earlier sources' libraries named by ``--builds``
 (``<stem>_<dtype>``, or a stem alone for every build of it) into
@@ -71,6 +74,34 @@ in parallel, then:
     and r only (``xpr_plan``), outputs bitwise; and for the stems of
     ``--changed`` the CPU seconds of each library's ``nvcc``, the earlier,
     the tree's and the edited copies';
+  - ``nekbone_pcg_update`` (K10): x, z, rtz and rcr bitwise the earlier
+    kernel's in every build compared (``earlier_k10``) at E = 1024 and
+    4096, n = 10 and 5, n = 3 and E = 45, and with every operand 1 value
+    off its allocation's start (the cp.async path); the fp64 Jacobi-PCG on
+    the paper case (100 iterations) over the earlier K10, history and x
+    bitwise; each build timed in turns against the earlier library at
+    n = 10, E = 1024 and 4096, and against a ring of one stage
+    (``k10_one_stage_plan``), in fp64 also against an edited copy under
+    K9's register cap of three blocks an SM (``K10_K9_CAP``), on the
+    chosen plan and on the residency-first plan (``k10_residency_plan``:
+    invd read through L2), outputs bitwise; and the static SASS
+    instructions of K10's n = 10 kernel beside the earlier one's;
+  - ``nekbone_interp`` (K12): v bitwise the earlier kernel's in every
+    build compared (``earlier_k12``) at all 28 ladder pairs and E = 1, 7,
+    1024, 4096, and with u 1 value off its allocation's start at E =
+    1024; the fp64 pmg-PCG on the paper case (to 1e-8 r0) over the
+    earlier K12, history and x bitwise; each build timed in turns at the
+    paper ladder's six steps, E = 1024 and 4096, against the earlier
+    library, in f64 and bf16 an edited copy with a ring of two stages
+    (``K12_TWO_STAGES``, planned with ``K12_STAGES`` = 2), the other group
+    sizes the planner would weigh at other thread floors
+    (``K12_GROUP_FLOORS``, through ``K12_MIN_THREADS``), at 10 -> 5 and
+    5 -> 10 an edited copy that contracts along i and j layer by layer
+    (``K12_LAYERED``) and in fp64 at 10 -> 5 one that reads the rows as
+    16-byte vectors (``K12_VECTOR_ROWS``), outputs bitwise; with an empty
+    kernel timed on each plan's grid (``nekbone_ax.nekbone_interp_floor``, the
+    launch floor), and the static SASS instructions at 10 -> 5 and
+    5 -> 10;
   - ``flash_attn`` (K13): the outputs at d = 16 and 128 (gemma2-27b's
     heads, batch 1, 2048 tokens, global and window 1024, softcap 50) in
     both builds are bitwise the earlier kernels'; each build is timed in
@@ -180,18 +211,20 @@ def swapped(libs: dict):
 
     from repro_torch.kernels import nekbone_ax as K
 
+    caches = (K._coop_query, K._walk_device_plan, K._interp_query,
+              K._interp_device_plan)
     saved = {name: _build._LIBS[name] for name in libs}
     for name, path in libs.items():
         _build._LIBS[name] = ctypes.CDLL(str(path))
     # a walker's plan rests on its library's occupancy query
-    K._coop_query.cache_clear()
-    K._walk_device_plan.cache_clear()
+    for cache in caches:
+        cache.cache_clear()
     try:
         yield
     finally:
         _build._LIBS.update(saved)
-        K._coop_query.cache_clear()
-        K._walk_device_plan.cache_clear()
+        for cache in caches:
+            cache.cache_clear()
 
 
 def in_turns(fn, other, *, labels=("earlier", "tree")) -> dict:
@@ -998,8 +1031,528 @@ def check_k9(earlier: dict, tree: dict, extra: dict) -> bool:
     return ok
 
 
-# The tree's other stems a check's solve launches (K9's s-step CG: K8).
-ROUTE_STEMS = {"nekbone_sstep_update": ("nekbone_ax_powers",)}
+# --- K10 and K12 ------------------------------------------------------------
+
+# (grid, n) of the bitwise checks of K10: both copy paths (n = 5 and 3 take
+# cp.async) and a grid no block count divides
+K10_CASES = (((8, 8, 16), 10), ((16, 16, 16), 10), ((8, 8, 16), 5),
+             ((16, 16, 16), 5), ((8, 8, 16), 3), ((3, 3, 5), 10))
+# the element counts of K12's bitwise checks
+K12_ES = (1, 7, 1024, 4096)
+# the steps of the paper case's ladder (10 -> 5 -> 3 -> 2 and back)
+K12_LADDER = ((10, 5), (5, 10), (5, 3), (3, 5), (3, 2), (2, 3))
+# K12's group sizes timed at each step: the least count a bulk copy takes
+# (min_threads 1), and the counts that keep 64, 128 (the planner's) and
+# 256 threads a block busy
+K12_GROUP_FLOORS = (1, 64, 128, 256)
+# K12's edited copies: the rows along i read as 16-byte vectors where they
+# are 16-byte aligned (the bulk path with nin * sizeof(S) a multiple of
+# 16); and the contractions along i and j layer by layer, one barrier a
+# layer, through two layer buffers (G nin nout values each) inside the
+# group's buffer
+K12_VECTOR_ROWS = (
+    ("""template <int N, typename S, typename A>
+__device__ __forceinline__ void interp_row(const S* row, A (&v)[N]) {
+#pragma unroll
+  for (int l = 0; l < N; ++l) v[l] = convert<A>(row[l]);
+}""", """template <int N, bool kVec, typename S, typename A>
+__device__ __forceinline__ void interp_row(const S* row, A (&v)[N]) {
+  if constexpr (kVec) {
+    constexpr int kPer = 16 / static_cast<int>(sizeof(S));
+#pragma unroll
+    for (int c = 0; c < N / kPer; ++c) {
+      const uint4 q = reinterpret_cast<const uint4*>(row)[c];
+      S vals[kPer];
+      memcpy(vals, &q, 16);
+#pragma unroll
+      for (int m = 0; m < kPer; ++m) v[c * kPer + m] = convert<A>(vals[m]);
+    }
+  } else {
+#pragma unroll
+    for (int l = 0; l < N; ++l) v[l] = convert<A>(row[l]);
+  }
+}"""),
+    ("interp_row<NIN>(in + row * NIN, uv);",
+     "interp_row<NIN, kBulk && (NIN * static_cast<int>(sizeof(S))) % 16 "
+     "== 0>(in + row * NIN, uv);"),
+    ('#include "common.cuh"', '#include <cstring>\n\n#include "common.cuh"'))
+K12_LAYERED = (("""    // along i, every layer: v1[el'][k][j][io] = sum_i u[el'][k][j][i]
+    // mt[i][io], the rows (el', k, j) contiguous in the stage
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      const int row = row0 + m * rows_step;
+      if (row < ne * NIN2) {
+        A uv[NIN];
+        interp_row<NIN>(in + row * NIN, uv);
+        A acc = A(0);
+#pragma unroll
+        for (int l = 0; l < NIN; ++l) acc = add_rn(acc, mul_rn(uv[l], mi[l]));
+        v1[row * NOUT + io] = acc;
+      }
+    }
+    __syncthreads();
+    // no thread reads this group's stage any more
+    if (t + kInterpStages < count)
+      interp_fill<kBulk, NIN3>(ring, s, a.u, (g + kInterpStages) * G,
+                               elements(g + kInterpStages), tid, threads);
+    // along j, every layer: v2[k] = sum_j v1[el][k][j][io] mt[j][jo]
+    if (el < ne) {
+      A v2[NIN];
+      const A* b = v1 + el * NIN2 * NOUT + io;
+#pragma unroll
+      for (int k = 0; k < NIN; ++k) {
+        A acc = A(0);
+#pragma unroll
+        for (int l = 0; l < NIN; ++l)
+          acc = add_rn(acc, mul_rn(b[(k * NIN + l) * NOUT], mj[l]));
+        v2[k] = acc;
+      }
+""", """    A v2[NIN];
+#pragma unroll
+    for (int k = 0; k < NIN; ++k) {
+      A* buf = v1 + (k & 1) * G * NIN * NOUT;
+      for (int row = tid / NOUT; row < ne * NIN; row += rows_step) {
+        const int e = row / NIN;
+        const S* r = in + e * NIN3 + k * NIN * NIN + (row - e * NIN) * NIN;
+        A uv[NIN];
+        interp_row<NIN>(r, uv);
+        A acc = A(0);
+#pragma unroll
+        for (int l = 0; l < NIN; ++l) acc = add_rn(acc, mul_rn(uv[l], mi[l]));
+        buf[row * NOUT + io] = acc;
+      }
+      __syncthreads();
+      if (k == NIN - 1 && t + kInterpStages < count)
+        interp_fill<kBulk, NIN3>(ring, s, a.u, (g + kInterpStages) * G,
+                                 elements(g + kInterpStages), tid, threads);
+      const A* b = buf + (el < ne ? el : 0) * NIN * NOUT + io;
+      A acc = A(0);
+#pragma unroll
+      for (int l = 0; l < NIN; ++l) acc = add_rn(acc, mul_rn(b[l * NOUT], mj[l]));
+      v2[k] = acc;
+    }
+    if (el < ne) {
+"""),)
+
+
+# K12's ring of two stages: the next group's copy issued a group ahead
+# (timed with nekbone_ax.K12_STAGES = 2, so that the plan sizes the ring)
+K12_TWO_STAGES = (("constexpr int kInterpStages = 1;",
+                   "constexpr int kInterpStages = 2;"),)
+# K10 under K9's register cap (common.cuh kWalkMinBlocks with 384 threads
+# in place of 256 at 8-byte accumulation): three fp64 blocks of 128 threads
+# an SM at n = 10
+K10_K9_CAP = (("__launch_bounds__(N * N, kWalkMinBlocks<N, A>)",
+               "__launch_bounds__(N * N, kSstepMinBlocks<N, A>)"),
+              ("namespace nekbone {\n", """namespace nekbone {
+
+template <int N, typename A>
+constexpr int kSstepMinBlocks =
+    (sizeof(A) == 8 ? 384 : 512) / ((N * N + 31) / 32 * 32) > 1
+        ? (sizeof(A) == 8 ? 384 : 512) / ((N * N + 31) / 32 * 32)
+        : 1;
+"""))
+
+
+def earlier_k10(path: pathlib.Path, mix: str):
+    """The earlier library's K10 (one block an element, C signature (x, p,
+    z, w, alpha, invd, cx, cy, cz, x_out, z_out, rtz, rcr, ex, ey, ez, n,
+    stream)) as a function of the wrapper's operands."""
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as K
+
+    name = f"nekbone_pcg_update_{mix}"
+    fn = _ctypes_fn(path, name, 13, 4)
+
+    def call(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *, n):
+        x_out, z_out = torch.empty_like(x2), torch.empty_like(z2)
+        parts = torch.empty(2, x2.shape[0], dtype=K.MIXES[mix]["A"],
+                            device=x2.device)
+        _call(fn, name, (x2, p2, z2, w2, alpha, invd2, cx, cy, cz, x_out,
+                         z_out, parts[0], parts[1]),
+              (cx.shape[0], cy.shape[0], cz.shape[0], n))
+        return x_out, z_out, parts[0], parts[1]
+    return call
+
+
+def earlier_k12(path: pathlib.Path, mix: str):
+    """The earlier library's K12 (blocks of a few elements, C signature
+    (u, mt, v, E, nin, nout, stream))."""
+    import torch
+
+    name = f"nekbone_interp_{mix}"
+    fn = _ctypes_fn(path, name, 3, 3)
+
+    def call(u2, mt, *, nin, nout):
+        v2 = torch.empty(u2.shape[0], nout ** 3, dtype=u2.dtype,
+                         device=u2.device)
+        _call(fn, name, (u2, mt, v2), (u2.shape[0], nin, nout))
+        return v2
+    return call
+
+
+def _k10_operands(gen, grid, n, mix):
+    """Random x, p, z, w, alpha, a positive invd in the build's roles, and
+    the c factors of ``grid``."""
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as K
+    from repro_torch.kernels import ops
+
+    dt = K.MIXES[mix]
+    E, n3 = grid[0] * grid[1] * grid[2], n ** 3
+
+    def field(dtype, lo=None):
+        t = (torch.rand if lo is not None else torch.randn)(
+            (E, n3), generator=gen, dtype=torch.float64, device="cuda")
+        return (t * 1.5 + lo if lo is not None else t).to(dtype)
+
+    alpha = (torch.rand(1, generator=gen, dtype=torch.float64,
+                        device="cuda") + 0.5).to(dt["A"])
+    _, c = ops.slab_axis_factors(grid, n, dt["S"], "cuda")
+    return (field(dt["X"]), field(dt["S"]), field(dt["S"]), field(dt["S"]),
+            alpha, field(dt["O"], lo=0.5), *c)
+
+
+def _off16(t):
+    """``t`` copied into a view one value past its allocation's start: the
+    cp.async path at any n."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def k10_residency_plan(E, n, mix, sm_count, blocks_per_sm, smem_per_block,
+                       *, aligned=True):
+    """The other planner: :func:`walk_plan`'s rule over K10's operands,
+    residency first (n = 10, fp64: x, p, z and w staged at three blocks an
+    SM, invd read through L2)."""
+    from repro_torch.kernels import nekbone_ax as K
+
+    return K.walk_plan(f"k10_residency_plan (n={n}, {mix})", E,
+                       K.k10_operands(n, mix), sm_count, blocks_per_sm,
+                       smem_per_block, aligned=aligned)
+
+
+def k10_one_stage_plan(E, n, mix, sm_count, blocks_per_sm, smem_per_block,
+                       *, aligned=True):
+    """The other ring: all five operands staged in a ring of one stage, at
+    the residency that allows (n = 10, fp64: 40,000 bytes, three blocks an
+    SM by registers), the next element's copy issued once the current one
+    is done."""
+    from repro_torch.kernels import nekbone_ax as K
+
+    ops = K.k10_operands(n, mix)
+    bulk = aligned and all(v % 16 == 0 for v in ops.values())
+    dyn = sum(K.walk_slot_bytes(v, bulk) for v in ops.values())
+    fit = blocks_per_sm(dyn)
+    base = K.device_memory_plan(E, sm_count, fit, 1, dyn)
+    return K.WalkPlan(base.per_block, base.grid, fit, dyn, 1, tuple(ops),
+                      tuple(ops), bulk)
+
+
+def check_k10(earlier: dict, tree: dict, extra: dict) -> bool:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    stem = "nekbone_pcg_update"
+    mixes = [m for m in K.MIXES if f"{stem}_{m}" in earlier]
+    old = {m: earlier_k10(earlier[f"{stem}_{m}"], m) for m in mixes}
+    gen = torch.Generator("cuda").manual_seed(26)
+    ok = True
+    print("== K10 beside the earlier kernel: x, z, rtz and rcr bitwise "
+          "(E = 1024 and 4096 at n = 10 and 5, n = 3, E = 45; every "
+          "operand 1 value off its allocation's start)", flush=True)
+    for mix in mixes:
+        bad = []
+        for grid, n in K10_CASES:
+            args = _k10_operands(gen, grid, n, mix)
+            want = old[mix](*args, n=n)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    K.nekbone_pcg_update_cuda(*args, n=n), want)):
+                bad.append((grid, n))
+            if grid == (8, 8, 16):
+                moved = [_off16(t) for t in args[:4]] + [args[4],
+                                                         _off16(args[5])]
+                if not all(torch.equal(a, b) for a, b in zip(
+                        K.nekbone_pcg_update_cuda(*moved, *args[6:], n=n),
+                        want)):
+                    bad.append((grid, n, "misaligned"))
+        ok &= not bad
+        print(f"  {mix}: bitwise {'every case' if not bad else f'NOT {bad}'}",
+              flush=True)
+    if "f64" in mixes:
+        case = NekboneCase(n=10, grid=cs.PAPER_GRID, dtype=torch.float64,
+                           ax_impl="pallas_fused_cg_v2")
+        _, f = case.manufactured()
+        new = case.solve(f, niter=cs.NITER, precond="jacobi")
+        with patched(K, nekbone_pcg_update_cuda=old["f64"]):
+            prev = case.solve(f, niter=cs.NITER, precond="jacobi")
+        same = (torch.equal(new.history, prev.history)
+                and torch.equal(new.x, prev.x))
+        ok &= same
+        print(f"  fp64 Jacobi-PCG ({cs.NITER} iterations, paper case): "
+              f"history[{cs.NITER}] {float(new.history[cs.NITER]):.6e}; "
+              f"history and x bitwise over the earlier K10: {same}",
+              flush=True)
+    print("== K10: device ms in turns (CUDA events, 3 calls, median of 3) "
+          "beside the earlier library and a ring of one stage; in fp64 also "
+          "beside the chosen plan under K9's register cap (three blocks an "
+          "SM) and the residency-first plan under that cap (invd read "
+          "through L2)", flush=True)
+    kernel = "nekbone_pcg_update_kernel<10>"
+    for mix in mixes:
+        for grid in (cs.PAPER_GRID, cs.BIG_GRID):
+            E = grid[0] * grid[1] * grid[2]
+            args = _k10_operands(gen, grid, 10, mix)
+
+            def run():
+                return K.nekbone_pcg_update_cuda(*args, n=10)
+            times = in_turns(run, lambda: patched(
+                K, nekbone_pcg_update_cuda=old[mix]))
+            notes = []
+            want = run()
+            cap = {f"{stem}_{mix}": extra.get(f"k10cap_{mix}")}
+            variants = [("one stage", k10_one_stage_plan, False)]
+            if mix == "f64":
+                variants = [("K9's cap", K.k10_plan, True),
+                            ("residency first, K9's cap",
+                             k10_residency_plan, True), *variants]
+
+            def variant(planner, capped):
+                stack = contextlib.ExitStack()
+                if capped:
+                    stack.enter_context(swapped(cap))
+                stack.enter_context(patched(K, k10_plan=planner))
+                return stack
+            for label, planner, capped in variants:
+                times.update(in_turns(
+                    run, lambda: variant(planner, capped),
+                    labels=(label, f"chosen ({label})")))
+                with variant(planner, capped):
+                    same = all(torch.equal(a, b)
+                               for a, b in zip(run(), want))
+                    alt = K._walk_device_plan(
+                        stem, planner, E, 10, mix,
+                        torch.cuda.current_device(), True)
+                    regs = K.walk_launch_info(stem, E, 10, mix)[1][
+                        "registers"]
+                ok &= same
+                notes.append(
+                    f"{label}: grid {alt.grid} x {alt.per_block}, "
+                    f"{alt.blocks_per_sm} blocks an SM, {alt.stages} "
+                    f"stage(s) of {', '.join(alt.staged)} "
+                    f"({alt.smem_bytes} B), {regs} registers, outputs "
+                    f"bitwise the chosen plan's: {same}")
+            best = _best(times)
+            print(f"  {mix} E={E}: plan " + _plan_text(
+                stem, E, 10, mix, tree, kernel) + f"; {_fmt(times)}; tree / "
+                f"earlier {best['tree'] / best['earlier']:.3f}"
+                + "".join(f"; {note}" for note in notes), flush=True)
+            del args
+    _sass_counts(earlier, tree, stem, (("nekbone_pcg_update_kernel", (10,)),))
+    return ok
+
+
+def _sass_counts(earlier: dict, tree: dict, stem: str, kernels):
+    """Static SASS instructions of the kernels' instantiations ``(name,
+    leading integer template arguments)``, the earlier library's beside the
+    tree's, in every build compared."""
+    print(f"== {stem}: SASS instructions (static, whole kernel)", flush=True)
+    for name, so in earlier.items():
+        if not name.startswith(stem + "_"):
+            continue
+        old, new = sass(so), sass(tree[name])
+        for kname, lead in kernels:
+            def count(table):
+                return sum(len(body) for key, body in table.items()
+                           if isinstance(key, tuple) and key[0] == kname
+                           and tuple(int(v) for v in key[1][:len(lead)])
+                           == lead)
+            print(f"  {name} {kname}<{', '.join(map(str, lead))}>: earlier "
+                  f"{count(old)}, tree {count(new)}", flush=True)
+
+
+@contextlib.contextmanager
+def k12_variant(**consts):
+    """K12's planner under the module constants ``consts``
+    (``K12_MIN_THREADS``, ``K12_STAGES``) for the ``with`` block."""
+    from repro_torch.kernels import nekbone_ax as K
+
+    K._interp_device_plan.cache_clear()
+    with patched(K, **consts):
+        try:
+            yield
+        finally:
+            K._interp_device_plan.cache_clear()
+
+
+@contextlib.contextmanager
+def k12_two_stages(path: pathlib.Path, mix: str):
+    """The edited copy of K12 with a ring of two stages
+    (``K12_TWO_STAGES``) in place of the tree's library, planned for it."""
+    with swapped({f"nekbone_interp_{mix}": path}), \
+            k12_variant(K12_STAGES=2):
+        yield
+
+
+def check_k12(earlier: dict, tree: dict, extra: dict) -> bool:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+
+    stem = "nekbone_interp"
+    mixes = [m for m in K.MIXES if f"{stem}_{m}" in earlier]
+    old = {m: earlier_k12(earlier[f"{stem}_{m}"], m) for m in mixes}
+    gen = torch.Generator("cuda").manual_seed(27)
+    ok = True
+    pairs = sorted(K.INTERP_PAIRS)
+    print(f"== K12 beside the earlier kernel: v bitwise at every ladder pair "
+          f"({len(pairs)}) and E = {K12_ES}; u 1 value off its allocation's "
+          "start at E = 1024", flush=True)
+    for mix in mixes:
+        dt = K.MIXES[mix]
+        bad = []
+        for nin, nout in pairs:
+            mt = cs._ladder_matrix(nin, nout, torch.float64).to(dt["O"])
+            for E in K12_ES:
+                u = torch.randn(E, nin ** 3, generator=gen,
+                                dtype=torch.float64,
+                                device="cuda").to(dt["S"])
+                want = old[mix](u, mt, nin=nin, nout=nout)
+                if not torch.equal(K.nekbone_interp_cuda(u, mt, nin=nin,
+                                                         nout=nout), want):
+                    bad.append((nin, nout, E))
+                if E == 1024 and not torch.equal(K.nekbone_interp_cuda(
+                        _off16(u), mt, nin=nin, nout=nout), want):
+                    bad.append((nin, nout, E, "misaligned"))
+        ok &= not bad
+        print(f"  {mix}: bitwise {'every case' if not bad else f'NOT {bad}'}",
+              flush=True)
+    if "f64" in mixes:
+        case = NekboneCase(n=10, grid=cs.PAPER_GRID, dtype=torch.float64,
+                           ax_impl="pallas_fused_cg_v2")
+        _, f = case.manufactured()
+        r0 = float(torch.sqrt(torch.abs(torch.sum(f * case.c * f))))
+        kw = dict(tol=cs.PMG_RTOL * r0, max_iter=cs.NITER, precond="pmg")
+        new = case.solve(f, **kw)
+        with patched(K, nekbone_interp_cuda=old["f64"]):
+            prev = case.solve(f, **kw)
+        # the history is NaN past the last iteration
+        same = (torch.equal(new.history.nan_to_num(-1.0),
+                            prev.history.nan_to_num(-1.0))
+                and torch.equal(new.x, prev.x))
+        ok &= same
+        print(f"  fp64 pmg-PCG (paper case, to {cs.PMG_RTOL:g} r0): "
+              f"{int(new.iters)} iterations, rnorm {float(new.rnorm):.6e}; "
+              f"history and x bitwise over the earlier K12: {same}",
+              flush=True)
+    print("== K12: device ms in turns (CUDA events, 3 calls, median of 3) "
+          "beside the earlier library, a ring of two stages (f64, bf16), "
+          "other group sizes, layer by layer and (fp64) rows read as "
+          "16-byte vectors; the empty kernel on each plan's grid",
+          flush=True)
+    for mix in mixes:
+        dt = K.MIXES[mix]
+        for grid in (cs.PAPER_GRID, cs.BIG_GRID):
+            E = grid[0] * grid[1] * grid[2]
+            for nin, nout in K12_LADDER:
+                mt = cs._ladder_matrix(nin, nout, torch.float64).to(dt["O"])
+                u = torch.randn(E, nin ** 3, generator=gen,
+                                dtype=torch.float64,
+                                device="cuda").to(dt["S"])
+
+                def run():
+                    return K.nekbone_interp_cuda(u, mt, nin=nin, nout=nout)
+                plan, info = K.nekbone_interp_plan(E, nin, nout, mix)
+                times = in_turns(run, lambda: patched(
+                    K, nekbone_interp_cuda=old[mix]))
+                two = extra.get(f"k12twostage_{mix}")
+                if two is not None:
+                    times.update(in_turns(
+                        run, lambda: k12_two_stages(two, mix),
+                        labels=("two stages", "tree (stages)")))
+                floor = cs.device_ms(lambda: K.nekbone_interp_floor(plan,
+                                                                    mix))
+                want = run()
+                notes = []
+                for low in K12_GROUP_FLOORS:
+                    if low == K.K12_MIN_THREADS:
+                        continue
+                    with k12_variant(K12_MIN_THREADS=low):
+                        alt, _ = K.nekbone_interp_plan(E, nin, nout, mix)
+                        same = torch.equal(run(), want)
+                    if alt.group == plan.group:
+                        continue
+                    ok &= same
+                    label = f"G={alt.group}"
+                    times.update(in_turns(
+                        run, lambda: k12_variant(K12_MIN_THREADS=low),
+                        labels=(label, f"tree ({label})")))
+                    notes.append(f"{label}: grid {alt.grid} x "
+                                 f"{alt.per_block}, {alt.threads} threads, "
+                                 f"{alt.blocks_per_sm} blocks an SM, "
+                                 f"{alt.copy}, v bitwise: {same}")
+                if (nin, nout) in ((10, 5), (5, 10)):
+                    layered = {f"{stem}_{mix}": extra[f"k12layered_{mix}"]}
+                    times.update(in_turns(run, lambda: swapped(layered),
+                                          labels=("layer by layer",
+                                                  "tree (layers)")))
+                    with swapped(layered):
+                        same = torch.equal(run(), want)
+                    ok &= same
+                    notes.append(f"layer by layer: v bitwise: {same}")
+                if mix == "f64" and (nin, nout) == (10, 5):
+                    vector = {f"{stem}_{mix}": extra[f"k12vector_{mix}"]}
+                    times.update(in_turns(run, lambda: swapped(vector),
+                                          labels=("vector rows",
+                                                  "tree (rows)")))
+                    with swapped(vector):
+                        same = torch.equal(run(), want)
+                    ok &= same
+                    notes.append(f"vector rows' v bitwise: {same}")
+                stages = "no copy"
+                if two is not None:
+                    with k12_two_stages(two, mix):
+                        alt, _ = K.nekbone_interp_plan(E, nin, nout, mix)
+                        same = torch.equal(run(), want)
+                    ok &= same
+                    stages = (f"G={alt.group}, grid {alt.grid} x "
+                              f"{alt.per_block}, {alt.blocks_per_sm} blocks "
+                              f"an SM, {alt.smem_bytes} B, v bitwise: {same}")
+                best = _best(times)
+                regs, spill = cs._ptxas_report(
+                    tree[f"{stem}_{mix}"].with_suffix(".log").read_text())[
+                    f"nekbone_interp_kernel<{nin},{nout}>"]
+                print(f"  {mix} {nin}->{nout} E={E}: plan G={plan.group}, "
+                      f"grid {plan.grid} x {plan.per_block} groups, "
+                      f"{plan.threads} threads, {plan.blocks_per_sm} blocks "
+                      f"an SM, {plan.smem_bytes} B ({plan.copy}), {regs} "
+                      f"registers, {spill} B spilled; {_fmt(times)}; tree / "
+                      f"earlier {best['tree'] / best['earlier']:.3f}; empty "
+                      f"kernel on this grid {floor:.4f} ms; two stages: "
+                      f"{stages}"
+                      + "".join(f"; {note}" for note in notes), flush=True)
+                del u
+    _sass_counts(earlier, tree, stem, (("nekbone_interp_kernel", (10, 5)),
+                                       ("nekbone_interp_kernel", (5, 10))))
+    return ok
+
+
+# The tree's other stems a check's solve launches (K9's s-step CG: K8;
+# K10's Jacobi-PCG: K4; K12's pmg-PCG: K4, K5 and K11).
+ROUTE_STEMS = {"nekbone_sstep_update": ("nekbone_ax_powers",),
+               "nekbone_pcg_update": ("nekbone_ax_slab",),
+               "nekbone_interp": ("nekbone_ax_slab", "nekbone_cg_update",
+                                  "nekbone_cheb_apply")}
 # {stem: (its check, {tag: (dtype, edits of the tree's source)})}
 CHECKS = {"nekbone_ax": (check_k1, {
               f"k1{form}_{m}": (m, edits)
@@ -1009,6 +1562,14 @@ CHECKS = {"nekbone_ax": (check_k1, {
           "nekbone_sstep_update": (check_k9, {
               f"k9rolled_{m}": (m, ROLLED_COLUMNS)
               for m in ("f64", "f32", "bf16", "bf16_ir")}),
+          "nekbone_pcg_update": (check_k10, {
+              "k10cap_f64": ("f64", K10_K9_CAP)}),
+          "nekbone_interp": (check_k12, {
+              **{f"k12vector_{m}": (m, K12_VECTOR_ROWS) for m in ("f64",)},
+              **{f"k12twostage_{m}": (m, K12_TWO_STAGES)
+                 for m in ("f64", "bf16")},
+              **{f"k12layered_{m}": (m, K12_LAYERED)
+                 for m in ("f64", "f32", "bf16", "bf16_ir")}}),
           "nekbone_ax_dots": (check_k2, {}),
           "nekbone_cg_update": (check_k5, {}),
           "nekbone_cg_update_block": (check_k7, {}),

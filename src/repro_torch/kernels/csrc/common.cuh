@@ -1093,6 +1093,49 @@ __device__ __forceinline__ T block_sum_shfl(T v, T* sh, int tid) {
   return v;
 }
 
+// Two sums of block_sum_shfl's form under one set of barriers (K10's rtz
+// and rcr): each value goes through block_sum_shfl's pairs in its order, so
+// each result is bitwise block_sum's of its value.  `sh` holds 2 NT values
+// (a's, then b's); consecutive calls alternate two such buffers.  The
+// results are valid in thread 0.
+template <int NT, typename T>
+__device__ __forceinline__ void block_sum2_shfl(T& a, T& b, T* sh, int tid) {
+  constexpr int kHalf = pow2_ceil(NT) / 2;
+  T* sa = sh;
+  T* sb = sh + NT;
+  if constexpr (kHalf >= 32) {
+    sa[tid] = a;
+    sb[tid] = b;
+    __syncthreads();
+#pragma unroll
+    for (int s = kHalf; s >= 64; s >>= 1) {
+      if (tid < s && tid + s < NT) {
+        sa[tid] += sa[tid + s];
+        sb[tid] += sb[tid + s];
+      }
+      __syncthreads();
+    }
+    if (tid < 32) {
+      a = tid + 32 < NT ? sa[tid] + sa[tid + 32] : sa[tid];
+      b = tid + 32 < NT ? sb[tid] + sb[tid + 32] : sb[tid];
+    }
+  } else {
+    __syncthreads();
+  }
+  if (tid < 32) {
+    constexpr unsigned kLanes = NT >= 32 ? 0xffffffffu : (1u << NT) - 1u;
+#pragma unroll
+    for (int s = kHalf >= 32 ? 16 : kHalf; s > 0; s >>= 1) {
+      const T oa = __shfl_down_sync(kLanes, a, s);
+      const T ob = __shfl_down_sync(kLanes, b, s);
+      if (tid < s && tid + s < NT) {
+        a += oa;
+        b += ob;
+      }
+    }
+  }
+}
+
 // The operands of one launch of K5 or K7, passed by value.
 template <typename S, typename X, typename A>
 struct UpdateArgs {

@@ -11,12 +11,15 @@
   ``nekbone_cg_update_kernel`` (K4's walker skeleton over the elements,
   :func:`k5_plan`);
 * ``nekbone_pcg_update_cuda`` — K10, ``csrc/nekbone_pcg_update.cu``,
-  replaces ``nekbone_pcg_update_kernel``;
+  replaces ``nekbone_pcg_update_kernel`` (K5's walker over x, p, z, w and
+  invd, :func:`k10_plan`);
 * ``nekbone_cheb_apply_cuda`` — K11, ``csrc/nekbone_cheb_apply.cu``,
   replaces ``nekbone_cheb_apply_kernel`` (one cooperative launch per call,
   its grid and variant chosen by :func:`k11_plan`);
 * ``nekbone_interp_cuda`` — K12, ``csrc/nekbone_interp.cu``, replaces
-  ``nekbone_interp_kernel`` (the p-multigrid transfers);
+  ``nekbone_interp_kernel`` (the p-multigrid transfers; a layer walker over
+  groups of elements, thread (jo, io) of an element owning its output
+  column, :func:`k12_plan`);
 * ``nekbone_ax_slab_block_cuda`` — K6, ``csrc/nekbone_ax_slab_block.cu``,
   replaces ``nekbone_ax_slab_block_kernel`` (K4 over b right-hand sides,
   the lanes in pairs through one layer sweep, :func:`k6_lane_groups`);
@@ -59,6 +62,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -96,7 +100,10 @@ __all__ = ["nekbone_ax_cuda",
            "WalkPlan", "walk_slot_bytes", "k4_operands", "k3_operands",
            "k5_operands", "k1_operands", "k9_operands", "k4_plan",
            "k3_plan", "k5_plan", "k7_plan", "k1_plan", "k9_plan",
-           "walk_plan", "walk_launch_info"]
+           "k10_operands", "k10_plan", "walk_plan", "walk_launch_info",
+           "InterpPlan", "K12_MIN_THREADS", "K12_STAGES", "k12_group_align",
+           "k12_lanes", "k12_max_threads", "k12_dyn_bytes", "k12_plan",
+           "nekbone_interp_plan", "nekbone_interp_floor"]
 
 # The n the kernels are instantiated for (template parameter).
 N_RANGE = range(2, 17)
@@ -127,9 +134,9 @@ _ARGTYPES = {
     "nekbone_ax": [_P] * 4 + [_I] * 7 + [_P],
     "nekbone_ax_slab": [_P] * 11 + [_I] * 9 + [_P],
     "nekbone_cg_update": [_P] * 11 + [_I] * 9 + [_P],
-    "nekbone_pcg_update": [_P] * 13 + [_I] * 4 + [_P],
+    "nekbone_pcg_update": [_P] * 13 + [_I] * 9 + [_P],
     "nekbone_cheb_apply": [_P] * 17 + [_I] * 8 + [_P],
-    "nekbone_interp": [_P] * 3 + [_I] * 3 + [_P],
+    "nekbone_interp": [_P] * 3 + [_I] * 7 + [_P],
     "nekbone_ax_slab_block": [_P] * 11 + [_I] * 5 + [_P],
     "nekbone_cg_update_block": [_P] * 11 + [_I] * 10 + [_P],
     "nekbone_ax_pap": [_P] * 6 + [_I] * 7 + [_P],
@@ -291,7 +298,8 @@ def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
     """K10: assemble ``w``, ``x += alpha p``, ``z -= alpha invd w``, partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_pcg_update_plain`;
-    ``w2`` is K4's unassembled output.  Builds by operand dtype
+    ``w2`` is K4's unassembled output.  One launch of the grid
+    :func:`k10_plan` sizes, staging what it says.  Builds by operand dtype
     (:data:`MIXES`): x2 in X, p2, z2, w2 and the factors in S, invd2 in O,
     alpha in A.  Returns ``(x, z, rtz, rcr)`` with ``rtz`` and ``rcr`` of
     shape (E,) in A.
@@ -307,12 +315,15 @@ def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
                  w2=(w2, (E, n3)), alpha=(alpha.reshape(1), (1,), "A"),
                  invd2=(invd2, (E, n3), "O"), cx=(cx, (ex, n)),
                  cy=(cy, (ey, n)), cz=(cz, (ez, n)))
+    plan = _walk_launch_plan("nekbone_pcg_update", k10_plan, E, n, mix,
+                             x2.device, (x2, p2, z2, w2, invd2),
+                             any_head=True)
     x_out = torch.empty_like(x2)
     z_out = torch.empty_like(z2)
     parts = torch.empty(2, E, dtype=MIXES[mix]["A"], device=x2.device)
     _launch("nekbone_pcg_update", mix, x2.device,
             (x2, p2, z2, w2, alpha, invd2, cx, cy, cz, x_out, z_out,
-             parts[0], parts[1]), (ex, ey, ez, n))
+             parts[0], parts[1]), (ex, ey, ez, n, *plan.launch_ints))
     return x_out, z_out, parts[0], parts[1]
 
 
@@ -445,7 +456,7 @@ def k8_plan(E: int, n: int, dtype: torch.dtype, sm_count: int,
     return device_memory_plan(E, sm_count, fit, slices, scratch)
 
 
-# The ring's depth of the walkers (K1, K4, K3, K2, K5, K7, K9): the
+# The ring's depth of the walkers (K1, K4, K3, K2, K5, K7, K9, K10): the
 # element being swept and the next one.  The kernels take 1..4
 # (csrc/common.cuh kMaxStages).
 STAGES = 2
@@ -453,7 +464,7 @@ STAGES = 2
 
 @dataclasses.dataclass(frozen=True)
 class WalkPlan:
-    """One launch of a walker (K1, K4, K3, K2, K5, K9; K7 over its work
+    """One launch of a walker (K1, K4, K3, K2, K5, K9, K10; K7 over its work
     items): block b of ``grid`` owns the z-major elements ``[b *
     per_block, (b + 1) * per_block)`` (the last range cut at E) and walks
     them, while a ring of ``stages`` stages in its dynamic shared memory
@@ -528,6 +539,14 @@ def k9_operands(n: int, s: int, mix: str) -> dict[str, int]:
     v, x = MIXES[mix]["S"].itemsize, MIXES[mix]["X"].itemsize
     return {"x": n ** 3 * x, "p": n ** 3 * v, "r": n ** 3 * v,
             "basis": (2 * s - 1) * n ** 3 * v}
+
+
+def k10_operands(n: int, mix: str) -> dict[str, int]:
+    """K10's stageable operands and their bytes per element: x (n^3 values
+    in X), p, z and w (n^3 in S) and invd (n^3 in O)."""
+    v, x, o = (MIXES[mix][role].itemsize for role in ("S", "X", "O"))
+    return {"x": n ** 3 * x, "p": n ** 3 * v, "z": n ** 3 * v,
+            "w": n ** 3 * v, "invd": n ** 3 * o}
 
 
 def walk_plan(what: str, E: int, operands: dict[str, int], sm_count: int,
@@ -609,7 +628,8 @@ def k1_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
 def _update_plan(what: str, items: int, operands: dict[str, int],
                  sm_count: int, blocks_per_sm, smem_per_block: int,
                  aligned: bool) -> WalkPlan:
-    """:func:`walk_plan` over an update walker's ``operands`` (K5, K7, K9)
+    """:func:`walk_plan` over an update walker's ``operands`` (K5, K7, K9,
+    K10)
     for ``items`` work items, its residency capped at what the ring of all
     of them allows."""
     bulk = aligned and all(b % 16 == 0 for b in operands.values())
@@ -668,12 +688,25 @@ def k9_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
                         smem_per_block, aligned)
 
 
+def k10_plan(E: int, n: int, mix: str, sm_count: int, blocks_per_sm,
+             smem_per_block: int, *, aligned: bool = True) -> WalkPlan:
+    """K10's plan for E elements of degree n - 1 in build ``mix``:
+    :func:`k5_plan`'s rule over :func:`k10_operands`.  All five are staged
+    wherever one block of their ring fits an SM, at the residency that ring
+    allows (n = 10: 2 x 40,000 bytes in fp64 at two blocks an SM, 2 x
+    20,000 in f32, 2 x 10,000 in bf16, 2 x 14,000 in ``bf16_ir``), else
+    :func:`walk_plan`'s rule holds."""
+    return _update_plan(f"k10_plan (n={n}, {mix})", E, k10_operands(n, mix),
+                        sm_count, blocks_per_sm, smem_per_block, aligned)
+
+
 # The walkers' planners by stem.
 _WALK_PLANNERS = {"nekbone_ax": k1_plan, "nekbone_ax_slab": k4_plan,
                   "nekbone_ax_pap": k3_plan, "nekbone_ax_dots": k3_plan,
                   "nekbone_cg_update": k5_plan,
                   "nekbone_cg_update_block": k7_plan,
-                  "nekbone_sstep_update": k9_plan}
+                  "nekbone_sstep_update": k9_plan,
+                  "nekbone_pcg_update": k10_plan}
 
 
 def _device_index(device: torch.device) -> int:
@@ -688,7 +721,7 @@ def _coop_query(stem: str, mix: str, n: int, resident: bool, dyn: int,
     ``coop_query``): (blocks per SM, static shared bytes, registers, the
     most dynamic shared bytes, SM count, cooperative launch supported,
     elements a block works on side by side).  The walkers (K1, K4, K3, K2,
-    K5, K7, K9) ignore ``resident``."""
+    K5, K7, K9, K10) ignore ``resident``."""
     lib = _build.load(f"{_LIBRARY.get(stem, stem)}_{mix}")
     fn = getattr(lib, f"{stem}_query_{mix}")
     fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
@@ -782,9 +815,11 @@ def walk_launch_info(stem: str, E: int, n: int, mix: str, device="cuda",
                      aligned: bool = True, **kw) -> tuple[WalkPlan, dict]:
     """The plan a walker (``nekbone_ax``, ``nekbone_ax_slab``,
     ``nekbone_ax_pap``, ``nekbone_ax_dots``, ``nekbone_cg_update``,
-    ``nekbone_cg_update_block`` with its lane count ``b`` or
-    ``nekbone_sstep_update`` with its cycle length ``s``) launches with for E elements in build ``mix`` on ``device``, and the
-    instantiation it runs: ``{"registers", "static_smem", "sm_count"}``."""
+    ``nekbone_cg_update_block`` with its lane count ``b``,
+    ``nekbone_sstep_update`` with its cycle length ``s`` or
+    ``nekbone_pcg_update``) launches with for E elements in build ``mix`` on
+    ``device``, and the instantiation it runs: ``{"registers",
+    "static_smem", "sm_count"}``."""
     planner = _WALK_PLANNERS[stem]
     index = _device_index(torch.device(device))
     plan = _walk_device_plan(stem, planner, E, n, mix, index, aligned, **kw)
@@ -843,13 +878,208 @@ def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
     return z, rtz
 
 
+# K12's groups need not hold more elements than keep this many threads a
+# block busy (G k12_lanes).
+K12_MIN_THREADS = 128
+# The depth of K12's ring (csrc/nekbone_interp.cu kInterpStages): one stage,
+# the next group's copy landing while the current group is contracted along
+# j and k.
+K12_STAGES = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class InterpPlan:
+    """One launch of K12: the elements go in ``groups`` groups of ``group``
+    (the last one cut at E), one copy each; block b of ``grid`` owns the
+    groups ``[b * per_block, (b + 1) * per_block)`` and walks them with
+    ``threads`` = ``group`` :func:`k12_lanes` threads, while the ring
+    (:data:`K12_STAGES`) in its dynamic shared memory (``smem_bytes``, with
+    the group's contraction along i) takes the next group's input, copied
+    by TMA bulk copies (``bulk``) or per-thread ``cp.async``.
+    ``blocks_per_sm`` is the residency the grid was sized by."""
+    group: int
+    groups: int
+    per_block: int
+    grid: int
+    blocks_per_sm: int
+    threads: int
+    smem_bytes: int
+    bulk: bool
+
+    @property
+    def copy(self) -> str:
+        return "bulk" if self.bulk else "cp.async"
+
+    @property
+    def launch_ints(self) -> tuple[int, ...]:
+        """(group, per_block, grid, bulk): the C entry's plan."""
+        return (self.group, self.per_block, self.grid, int(self.bulk))
+
+
+def k12_group_align(nin: int, mix: str) -> int:
+    """The least G whose input bytes (G nin^3 values in S) are a multiple of
+    16: a group that is one bulk copy comes in multiples of it."""
+    nbytes = nin ** 3 * MIXES[mix]["S"].itemsize
+    return 16 // math.gcd(16, nbytes)
+
+
+def k12_lanes(nin: int, nout: int) -> int:
+    """Threads a group's element takes in K12 (csrc/nekbone_interp.cu
+    ``kInterpLanes``): nout x max(nin, nout); the first nout x nout own an
+    output column each, and on a restriction the others share the
+    contraction along i."""
+    return nout * max(nin, nout)
+
+
+def k12_max_threads(nin: int, mix: str) -> int:
+    """The most threads a block of K12 takes (csrc/nekbone_interp.cu
+    ``kInterpMaxThreads``): 1024 where a row of nin values in A is at most
+    20 bytes, else 256."""
+    return 1024 if nin * MIXES[mix]["A"].itemsize <= 20 else 256
+
+
+def k12_dyn_bytes(nin: int, nout: int, mix: str, group: int,
+                  bulk: bool) -> int:
+    """A block's dynamic shared bytes (csrc/nekbone_interp.cu
+    ``interp_dyn_bytes``): the ring's :data:`K12_STAGES` stages of one
+    group's input, then the group's contraction along i, G nin^2 nout
+    values in A."""
+    s, a = MIXES[mix]["S"].itemsize, MIXES[mix]["A"].itemsize
+    return (K12_STAGES * walk_slot_bytes(group * nin ** 3 * s, bulk)
+            + group * nin * nin * nout * a)
+
+
+def k12_plan(E: int, nin: int, nout: int, mix: str, sm_count: int,
+             blocks_per_sm, smem_per_block: int, *,
+             aligned: bool = True) -> InterpPlan:
+    """K12's plan for E elements from degree nin - 1 to nout - 1 in build
+    ``mix``.
+
+    ``blocks_per_sm(threads, dyn_bytes)`` is how many blocks of ``threads``
+    threads an SM holds with that much dynamic shared memory each (on the
+    card, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    ``smem_per_block`` the most a block may take.  A group of G elements is
+    one bulk copy where u is 16-byte aligned (``aligned``) and G, and the
+    last group's count, are multiples of :func:`k12_group_align`, with G
+    :func:`k12_lanes` threads within :func:`k12_max_threads`; otherwise the
+    plan takes the cp.async path.  G is the count, among the multiples of
+    that alignment up to the least that keeps :data:`K12_MIN_THREADS`
+    threads a block busy, that keeps the most elements resident an SM
+    (ties: the larger): the coarse steps take blocks of about that many
+    threads where they would otherwise run blocks of 4 to 50, and a step
+    whose input fills shared memory (10 -> 5 in fp64) takes small groups.
+    Every block owns the least count of groups that puts the whole grid on
+    the card at once (:func:`device_memory_plan`).  Raises ``ValueError``
+    where the pair is no ladder step or no block fits an SM.
+    """
+    what = f"k12_plan ({nin}->{nout}, {mix})"
+    _check_plan(what, E, sm_count, 1)
+    if (nin, nout) not in INTERP_PAIRS:
+        raise ValueError(f"k12_plan: ({nin}, {nout}) is not a step of the "
+                         "p-multigrid ladder")
+    most = k12_max_threads(nin, mix)
+    per = k12_lanes(nin, nout)
+    align = k12_group_align(nin, mix)
+    # the least bulk group that keeps K12_MIN_THREADS busy, and its last
+    # group
+    top = align * max(1, -(-K12_MIN_THREADS // (align * per)))
+    while top > align and top * per > most:
+        top -= align
+    bulk = (aligned and top * per <= most
+            and (E - (-(-E // top) - 1) * top) % align == 0)
+    step = align if bulk else 1
+    if not bulk:
+        top = max(1, min(-(-K12_MIN_THREADS // per), most // per))
+
+    best = None
+    for group in range(step, top + 1, step):
+        if bulk and (E - (-(-E // group) - 1) * group) % align:
+            continue
+        dyn = k12_dyn_bytes(nin, nout, mix, group, bulk)
+        fit = blocks_per_sm(group * per, dyn) if dyn <= smem_per_block else 0
+        if fit >= 1 and (best is None or fit * group >= best[0]):
+            best = (fit * group, group, fit, dyn)
+    if best is None:
+        raise ValueError(
+            f"{what}: no block of a group of {step} or more elements fits an "
+            f"SM ({smem_per_block} bytes of shared memory a block at most)")
+    _, group, fit, dyn = best
+    groups = -(-E // group)
+    base = device_memory_plan(groups, sm_count, fit, 1, dyn)
+    return InterpPlan(group, groups, base.per_block, base.grid, fit,
+                      group * per, dyn, bulk)
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_query(mix: str, nin: int, nout: int, threads: int, dyn: int,
+                  device: int) -> tuple[int, ...]:
+    """K12's occupancy query (csrc/nekbone_interp.cu, common.cuh
+    ``coop_query``) for blocks of ``threads`` threads."""
+    lib = _build.load(f"nekbone_interp_{mix}")
+    fn = getattr(lib, f"nekbone_interp_query_{mix}")
+    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = fn(nin, nout, threads, dyn, out)
+    if err != 0:
+        raise RuntimeError(f"nekbone_interp: occupancy query failed with "
+                           f"CUDA error {err}")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_device_plan(E: int, nin: int, nout: int, mix: str, device: int,
+                        aligned: bool) -> InterpPlan:
+    """:func:`k12_plan` for the instantiation on ``device``."""
+    info = _interp_query(mix, nin, nout, 32, 0, device)
+
+    def fit(threads, dyn):
+        return _interp_query(mix, nin, nout, threads, dyn, device)[0]
+
+    return k12_plan(E, nin, nout, mix, info[4], fit, info[3],
+                    aligned=aligned)
+
+
+def nekbone_interp_plan(E: int, nin: int, nout: int, mix: str,
+                        device="cuda", aligned: bool = True
+                        ) -> tuple[InterpPlan, dict]:
+    """The plan K12 launches with for E elements of the step nin -> nout in
+    build ``mix`` on ``device``, and the instantiation it runs:
+    ``{"registers", "static_smem", "sm_count"}``."""
+    index = _device_index(torch.device(device))
+    plan = _interp_device_plan(E, nin, nout, mix, index, aligned)
+    info = _interp_query(mix, nin, nout, plan.threads, plan.smem_bytes,
+                         index)
+    return plan, {"registers": info[2], "static_smem": info[1],
+                  "sm_count": info[4]}
+
+
+def nekbone_interp_floor(plan: InterpPlan, mix: str, device="cuda") -> None:
+    """An empty kernel launched on ``plan``'s grid, block size and dynamic
+    shared memory, from K12's library of build ``mix``: the launch floor
+    that the coarse steps are read against.  It runs on no route and is
+    not counted in ``_build.LAUNCHES``."""
+    lib = _build.load(f"nekbone_interp_{mix}")
+    fn = getattr(lib, f"nekbone_interp_floor_{mix}")
+    fn.argtypes, fn.restype = [_I, _I, _I, _P], ctypes.c_int
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        err = fn(plan.grid, plan.threads, plan.smem_bytes,
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nekbone_interp_floor_{mix}: launch failed with "
+                           f"CUDA error {err}")
+
+
 def nekbone_interp_cuda(u2, mt, *, nin: int, nout: int):
     """K12: tensor-product GLL-to-GLL interpolation, along i, then j, then k.
 
     ``u2``: (E, nin^3); ``mt``: (nin, nout), rows indexed by the input grid
-    (``J`` restricts, ``J^T`` prolongs).  Builds by operand dtype
-    (:data:`MIXES`): u2 in S, mt in O.  Returns (E, nout^3) in S.  The pair
-    must be a step of the p-multigrid ladder (:data:`INTERP_PAIRS`).
+    (``J`` restricts, ``J^T`` prolongs).  One launch of the grid
+    :func:`k12_plan` sizes.  Builds by operand dtype (:data:`MIXES`): u2 in
+    S, mt in O.  Returns (E, nout^3) in S.  The pair must be a step of the
+    p-multigrid ladder (:data:`INTERP_PAIRS`).
     """
     if u2.device.type == "cpu":
         return nekbone_interp_plain(u2, mt, nin=nin, nout=nout)
@@ -860,9 +1090,11 @@ def nekbone_interp_cuda(u2, mt, *, nin: int, nout: int):
     E = u2.shape[0]
     mix = _check("nekbone_interp", nin, u2.device,
                  u2=(u2, (E, nin ** 3)), mt=(mt, (nin, nout), "O"))
+    plan = _interp_device_plan(E, nin, nout, mix, _device_index(u2.device),
+                               u2.data_ptr() % 16 == 0)
     v2 = torch.empty(E, nout ** 3, dtype=u2.dtype, device=u2.device)
     _launch("nekbone_interp", mix, u2.device, (u2, mt, v2),
-            (E, nin, nout))
+            (E, nin, nout, *plan.launch_ints))
     return v2
 
 
