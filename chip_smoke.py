@@ -157,15 +157,41 @@ reference package ``repro``, and, in order:
    route itself moves further under another valid f32 order of its
    operator, within 10x that spread (whether 1e-2 held is reported), the
    block lanes bitwise their own bf16 (f32) v2 solves; times each solve;
-19. times the f32 K4, K5, K3, K8, K9, K10, K6 and K7 and the bf16 K1,
+19. serves the paper case (n=10, E=1024, fp64, ``pallas_fused_cg_v2``,
+   uncut) through ``launch.solver_service.SolverService`` at ``max_b`` 4,
+   right-hand sides from a seed: 8 requests at 100 iterations (two
+   ``block`` dispatches over K6 + K7), 2 Jacobi requests (one
+   ``block_loop`` dispatch over K4 + K10) and 1 to a tolerance (one
+   ``v2_tol`` dispatch over K4 + K5), with the launch counters reset just
+   before the drain: results in submission order, dispatches of 4, 4, 2
+   and 1 that never mix buckets, launches exact, every answer bitwise the
+   direct ``solve_case`` of the same batch and stopping rule, the block
+   histories against single-RHS v2 solves by the route rule (entries 0..10
+   to 1e-12, then 10x the plain route's spread); drains again under
+   ``obs.trace.recording`` (a valid trace file with the
+   ``service.dispatch``, ``solve`` and ``block.dispatch`` spans, telemetry
+   on every result, every answer bitwise the untraced drain's) and once
+   more untraced (the pair the tracing cost is read from); times v1
+   against v2 an iteration through ``autotune.pick_pipeline``'s measure at
+   E = 1, 8, 64, 512 and 1024 and prints the crossover, holds the pick at
+   E = 1024 (and ``NekboneCase(ax_impl="auto")``) to the faster of v1 and
+   v2 in the 100-iteration solves timed in turns in item 15 (a pick slower
+   by more than those rounds' spread fails), resolves ``auto`` with the f32
+   and bf16_ir policies (keyed by the policy) and solves with each; and
+   runs ``bench_service`` (16 requests of 25 iterations at b = 1, 2, 4, 8,
+   3 repeats), printing each b's request latency (p50, p99) and its
+   throughput over the whole window beside the card's name and power
+   limit; all within 60 s, with ``$REPRO_CACHE_DIR`` a fresh temporary
+   directory for the whole script;
+20. times the f32 K4, K5, K3, K8, K9, K10, K6 and K7 and the bf16 K1,
    K2, K4, K5, K3, K8, K9, K10, K11, K12, K6 and K7 (both builds; K9 also
    beside one ``torch.matmul``, K12 beside one ``torch.einsum``) beside
    their plain versions at E=1024 and E=4096, each with the bytes it
    moves and its share of the bound;
-20. profiles each kernel route (device time per iteration, by kernel, and
+21. profiles each kernel route (device time per iteration, by kernel, and
    the device's busy share), ``bf16_ir`` v2 and bf16 block CG at b = 4
    among them;
-21. holds K13 (flash attention; in bf16 on the tensor cores) and K14 (the
+22. holds K13 (flash attention; in bf16 on the tensor cores) and K14 (the
    RWKV6 recurrence) against their plain versions in bf16 and f32, at
    gemma2-27b's heads (Hq 32, Hkv 16, d 128: 2048 tokens with window 1024,
    global, and a q_offset case; two ragged cases across partial tiles,
@@ -180,7 +206,7 @@ reference package ``repro``, and, in order:
    value check fails the bf16 kernel's arithmetic with P rounded once to
    bf16 (``ref.flash_attention_tc_emulated(split_p=False)``) at the global
    shape and passes it with P split;
-22. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens),
+23. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens),
    gemma2-27b (2 of its 46 layers, batch 2, prompt 6144, 16 new),
    nemotron-4-340b (2 of its 96 layers, batch 2, prompt 4096, 16 new) and
    hymba-1.5b (32 layers, batch 4, prompt 2048, 32 new) three times each
@@ -191,14 +217,15 @@ reference package ``repro``, and, in order:
    layer at its head size and window); the third run is profiled,
    its device time read against the second's wall clock; and times
    hymba's selective scan (plain PyTorch) a layer at its serve shape;
-23. times K13 and K14 at the serve shapes beside their plain versions
+24. times K13 and K14 at the serve shapes beside their plain versions
    and, for K13 on global layers, SDPA; holds K13 there in bf16 and f32
    (gemma2: batch 2, 6144 tokens, global and window 4096), in bf16 at
    nemotron-4's global layer (batch 2, 4096 tokens, d 192) and hymba's
    global and window-1024 layers (batch 4, 2048 tokens, d 64), and shows
    that these checks fail a K13 that ignores the window or cuts it one
    key short;
-24. prints the ``kernels`` JSON line (each row's launches are its own
+25. prints the whole script's time beside the card's name and power
+   limit, the ``kernels`` JSON line (each row's launches are its own
    build's count in a measured run: ``_build.BUILD_LAUNCHES``, one K13
    row per served layer kind), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -211,16 +238,25 @@ import collections
 import contextlib
 import ctypes
 import json
+import os
 import pathlib
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
+try:
+    # the kernel and solve timers (CUDA events behind a spin kernel; host
+    # clock to a synchronize) live in the port
+    from repro_torch.kernels.timing import device_ms, wall_ms
+except ImportError:     # no checkout beside this script: main() says so
+    pass
 
 # H100 SXM data sheet: device-memory rate, and peak fp64 rates outside and
 # on the tensor cores.  bound_ms is the larger of bytes / BW_PEAK and the
@@ -257,9 +293,6 @@ SSTEP_HIST_TOL_HEAD = 1e-9    # s-step vs v2, entries 0..10 (the Gram forms)
 SSTEP1_HIST_TOL_HEAD = 1e-10  # s=1 vs v2, entries 0..10
 # the steps of the p-multigrid ladder of the paper case, both directions
 LADDER_PAIRS = ((10, 5), (5, 10), (5, 3), (3, 5), (3, 2), (2, 3))
-# about 10 ms of spin at the H100's clock: longer than the host takes to
-# enqueue the calls that device_ms times after it.
-SPIN_CYCLES = 20_000_000
 
 
 class CheckFailed(Exception):
@@ -270,48 +303,6 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         raise CheckFailed(what)
     print(f"  ok  {what}", flush=True)
-
-
-def device_ms(fn, *, calls: int = 20, reps: int = 5,
-              warmup: int = 3) -> float:
-    """Device time of one call of ``fn``: CUDA events around ``calls``
-    back-to-back calls, median over ``reps``.  A spin kernel queued first
-    lets the host enqueue all the calls before the first one runs, so the
-    host's own time per call (wrapper checks, launch) stays out of it."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def wall_ms(fn, *, reps: int = 5, warmup: int = 1) -> float:
-    """Host-clock time of one call of ``fn`` that ends in a synchronize,
-    median over ``reps`` (what a caller of ``fn`` waits)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def rel_err(a, b) -> float:
@@ -1997,16 +1988,14 @@ def phase_slice4_times(bw_copy, routes, rows):
         for key, (case, _) in solves.items():
             times[key].append(wall_ms(
                 lambda: case.solve(f, niter=NITER), reps=3) / NITER)
-    out = {}
     for key, (case, book) in solves.items():
         ms = statistics.median(times[key])
-        out[key] = ms
         print(f"  solve {key}, {NITER} iterations: {ms:.4f} ms/iteration "
               f"(median of 3 rounds in turns: "
               + ", ".join(f"{t:.4f}" for t in times[key])
               + f"); book {book / 1e6:.1f} MB/iteration -> "
               f"{book / ms / 1e6:.0f} GB/s", flush=True)
-    return out
+    return times
 
 
 def phase_profile(cases, pcg, routes, slice4, ir, slice12,
@@ -4382,8 +4371,254 @@ def phase_lm_times(bw_copy):
     torch.cuda.empty_cache()
     return rows
 
+# the service phase: the paper case through launch/solver_service.py
+SERVICE_MAX_B = 4
+SERVICE_TOL = 1e-6
+SERVICE_MAX_ITER = 1000
+# ax_impl="auto": v1 against v2 through pick_pipeline's measure at n = 10
+AUTO_GRIDS = ((1, 1, 1), (2, 2, 2), (4, 4, 4), (8, 8, 8), PAPER_GRID)
+# the policies NekboneCase(ax_impl="auto") is resolved with on the card
+AUTO_POLICIES = ("f32", "bf16_ir")
+BENCH_REQUESTS = 16
+BENCH_NITER = 25
+
+
+def _service_requests(cfg, fs):
+    """The service phase's 11 requests: 8 at NITER (two block dispatches
+    at SERVICE_MAX_B), 2 Jacobi at NITER (one block_loop dispatch), 1 to
+    SERVICE_TOL (one v2_tol dispatch)."""
+    from repro_torch.launch.solver_service import SolveRequest
+
+    return ([SolveRequest(f=f, config=cfg, niter=NITER) for f in fs[:8]]
+            + [SolveRequest(f=f, config=cfg, niter=NITER, precond="jacobi")
+               for f in fs[8:10]]
+            + [SolveRequest(f=fs[10], config=cfg, tol=SERVICE_TOL,
+                            max_iter=SERVICE_MAX_ITER)])
+
+
+def phase_service(hist, smi_line, solve_rounds):
+    """The solver service on the card at the paper case: scheduling,
+    answers bitwise the direct solves of the same batch, the route rule on
+    the block histories, a traced drain bitwise the untraced one,
+    ``ax_impl="auto"`` (v1 against v2 by E, the pick held to
+    ``solve_rounds``: phase_slice4_times' 100-iteration solves in turns, ms
+    an iteration), and ``bench_service``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.nekbone import PAPER_CASES
+    from repro_torch.core.gs import ds_sum_local
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.solver_service import (SolverService,
+                                                   _bucket_key,
+                                                   bench_service)
+    from repro_torch.obs import trace
+
+    t_phase = time.perf_counter()
+    print("== solver service: paper case, n=10, E=1024, fp64, "
+          f"pallas_fused_cg_v2, max_b={SERVICE_MAX_B}", flush=True)
+    cfg = dataclasses.replace(PAPER_CASES[1024], dtype="float64",
+                              ax_impl="pallas_fused_cg_v2")
+    svc = SolverService(max_b=SERVICE_MAX_B)
+    case = svc._case_for(cfg)
+    _, f0 = case.manufactured()
+    gen = torch.Generator(device=case.device).manual_seed(27)
+    fs = [f0] + [ds_sum_local(torch.randn(
+        tuple(f0.shape), generator=gen, dtype=f0.dtype, device=f0.device),
+        case.grid) * case.mask for _ in range(10)]
+
+    # --- scheduling, launches, answers --------------------------------
+    reqs = _service_requests(cfg, fs)
+    ids = [svc.submit(r) for r in reqs]
+    t0 = time.perf_counter()
+    results, launches = _launch_run(svc.drain)
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    log = svc.dispatch_log
+    print("  dispatches: " + "; ".join(
+        f"b={d.batch_size} {d.pipeline} ids {d.request_ids} "
+        f"{d.wall_us / 1e3:.3f} ms" for d in log)
+        + f"; drain {drain_ms:.3f} ms; launches {launches}", flush=True)
+    check([r.request_id for r in results] == ids,
+          "service: results in submission order")
+    check([d.batch_size for d in log] == [4, 4, 2, 1]
+          and [d.request_ids for d in log] == [ids[0:4], ids[4:8],
+                                               ids[8:10], ids[10:]],
+          "service: 4 dispatches of 4, 4, 2 and 1, in submission order")
+    check(all(len({_bucket_key(reqs[i]) for i in d.request_ids}) == 1
+              for d in log) and len({d.bucket for d in log}) == 3,
+          "service: no dispatch mixes buckets (3 buckets)")
+    k_tol = int(results[10].iters_taken)
+    check(launches == _zero_but(
+        nekbone_ax_slab_block=2 * NITER, nekbone_cg_update_block=2 * NITER,
+        nekbone_ax_slab=2 * NITER + k_tol, nekbone_pcg_update=2 * NITER,
+        nekbone_cg_update=k_tol),
+          f"service: launches K6 = K7 = {2 * NITER}, K4 = {2 * NITER} + "
+          f"{k_tol}, K10 = {2 * NITER}, K5 = {k_tol}")
+    direct = [case.solve(torch.stack(fs[0:4]), b=4, niter=NITER),
+              case.solve(torch.stack(fs[4:8]), b=4, niter=NITER),
+              case.solve(torch.stack(fs[8:10]), b=2, niter=NITER,
+                         precond="jacobi"),
+              case.solve(fs[10][None], b=1, tol=SERVICE_TOL,
+                         max_iter=SERVICE_MAX_ITER)]
+    lanes = [(direct[0], j) for j in range(4)] + \
+        [(direct[1], j) for j in range(4)] + \
+        [(direct[2], 0), (direct[2], 1), (direct[3], 0)]
+    same = [_same_bits(r.x, d.x[j]) and _same_bits(r.history, d.history[j])
+            for r, (d, j) in zip(results, lanes)]
+    check(all(same), "service: every x and history bitwise the direct "
+          "solve of the same batch and stopping rule (b = 4, 4, 2, 1)")
+    h_tol = results[10].history.cpu().numpy()
+    check(0 < k_tol < SERVICE_MAX_ITER
+          and float(results[10].rnorm) <= SERVICE_TOL
+          and bool(np.isnan(h_tol[k_tol + 1:]).all()),
+          f"service: the tol request stops in {k_tol} iterations at rnorm "
+          f"{float(results[10].rnorm):.3e} <= {SERVICE_TOL:g}")
+    envelope = float(_rel_dev(hist["fused on the CPU"], hist["fused"]).max())
+    worst_head = worst_all = 0.0
+    for j in range(8):
+        single = case.solve(fs[j], niter=NITER).history.cpu().numpy()
+        dev = _rel_dev(results[j].history.cpu().numpy(), single)
+        worst_head = max(worst_head, float(dev[:11].max()))
+        worst_all = max(worst_all, float(dev.max()))
+    print(f"  block lanes vs single-RHS v2: entries 0..10 {worst_head:.2e}, "
+          f"all {worst_all:.2e} (plain route's spread {envelope:.2e})",
+          flush=True)
+    check(worst_head <= HIST_RTOL_HEAD
+          and worst_all <= max(HIST_RTOL_HEAD, ENVELOPE_FACTOR * envelope),
+          f"service: block histories within {HIST_RTOL_HEAD:g} (0..10) and "
+          f"{ENVELOPE_FACTOR:g}x the plain route's spread of their single-"
+          "RHS v2 solves")
+
+    # --- the same drain, traced ----------------------------------------
+    path = pathlib.Path(tempfile.mkdtemp(prefix="repro-trace-")) / \
+        "service.trace.jsonl"
+    for r in _service_requests(cfg, fs):
+        svc.submit(r)
+    t0 = time.perf_counter()
+    with trace.recording(path) as rec:
+        traced = svc.drain()
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    problems = trace.validate_trace_file(path)
+    spans = collections.Counter(r["name"] for r in rec.records
+                                if r["type"] == "span")
+    # the same drain untraced once more, after the traced one: the pair
+    # the instrumentation's cost is read from
+    for r in _service_requests(cfg, fs):
+        svc.submit(r)
+    t0 = time.perf_counter()
+    svc.drain()
+    again_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  traced drain: {traced_ms:.3f} ms (untraced again "
+          f"{again_ms:.3f} ms); spans {dict(spans)}, counters "
+          f"{rec.counters}, trace file {path.stat().st_size} B", flush=True)
+    shutil.rmtree(path.parent)
+    check(problems == [], f"service: trace file valid ({problems[:3]})")
+    check({"service.dispatch", "solve", "block.dispatch"} <= set(spans),
+          "service: spans service.dispatch, solve and block.dispatch")
+    check(all(r.telemetry is not None for r in traced),
+          "service: every traced result carries telemetry")
+    check(all(_same_bits(a.x, b.x) and _same_bits(a.history, b.history)
+              for a, b in zip(results, traced)),
+          "service: every x and history bitwise the same with tracing on "
+          "and off")
+
+    # --- ax_impl="auto": v1 against v2 by E -----------------------------
+    pairs = {}
+    for grid in AUTO_GRIDS:
+        measure = autotune._default_measure_pipeline(grid, 10,
+                                                     torch.float64, "cuda")
+        pairs[grid] = {p: measure(p) * 1e3 for p in autotune.PIPELINES}
+        e = grid[0] * grid[1] * grid[2]
+        print(f"  auto E={e}: v1 {pairs[grid]['pallas_fused_cg']:.4f} ms, "
+              f"v2 {pairs[grid]['pallas_fused_cg_v2']:.4f} ms an iteration "
+              f"({smi_line})", flush=True)
+    v2_wins = [g[0] * g[1] * g[2] for g in AUTO_GRIDS
+               if pairs[g]["pallas_fused_cg_v2"] < pairs[g]["pallas_fused_cg"]]
+    all_e = [g[0] * g[1] * g[2] for g in AUTO_GRIDS]
+    cross = next((e for i, e in enumerate(all_e)
+                  if set(all_e[i:]) <= set(v2_wins)), None)
+    print(f"  auto crossover: v2 faster from E={cross} on (v2 faster at "
+          f"{v2_wins})", flush=True)
+    autotune.clear_cache()
+    pick = autotune.pick_pipeline(PAPER_GRID, 10, torch.float64)
+    auto_case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                            ax_impl="auto")
+    # the pick against the solves phase_slice4_times timed in turns, a
+    # measurement the pick's own measure does not make
+    rounds = {"pallas_fused_cg": solve_rounds["v1"],
+              "pallas_fused_cg_v2": solve_rounds["v2"]}
+    med = {p: statistics.median(r) for p, r in rounds.items()}
+    spread = max(max(r) - min(r) for r in rounds.values())
+    other = next(p for p in autotune.PIPELINES if p != pick)
+    print(f"  auto pick at E=1024: {pick}; {NITER}-iteration solves in "
+          "turns: " + ", ".join(
+              f"{p} {med[p]:.4f} ms/iteration (rounds "
+              + ", ".join(f"{t:.4f}" for t in rounds[p]) + ")"
+              for p in autotune.PIPELINES)
+          + f"; spread {spread:.4f}", flush=True)
+    check(med[pick] - med[other] <= spread,
+          f"auto: the pick at E=1024 ({pick}, {med[pick]:.4f} ms) is not "
+          f"slower than {other} ({med[other]:.4f} ms) by more than the "
+          f"rounds' spread ({spread:.4f} ms)")
+    for policy in AUTO_POLICIES:
+        pc = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64,
+                         precision=policy, ax_impl="auto")
+        out = pc.solve(pc.manufactured()[1], niter=NITER)
+        print(f"  auto {policy}: {pc.ax_impl}, route {out.pipeline}, "
+              f"history[{NITER}] {float(out.history[-1]):.6e}", flush=True)
+        check(pc.ax_impl in autotune.PIPELINES
+              and pc.ax_impl == autotune.cache_info().get(
+                  ("pipeline", 10, *PAPER_GRID, str(pc.dtype).removeprefix(
+                      "torch."), policy, torch.cuda.get_device_name(0)))
+              and bool(torch.isfinite(out.x).all()),
+              f"auto {policy}: resolved by a pick keyed by the policy, and "
+              "solves to finite values")
+    keys = [e["key"] for e in json.loads(
+        autotune.cache_path().read_text())["entries"]]
+    print(f"  auto cache {autotune.cache_path().name} keys {keys}",
+          flush=True)
+    check(auto_case.ax_impl == pick and auto_case.ax_impl_requested == "auto"
+          and ["pipeline", 10, *PAPER_GRID, "float64", "float64",
+               torch.cuda.get_device_name(0)] in keys
+          and len(keys) == 1 + len(AUTO_POLICIES),
+          "auto: NekboneCase(ax_impl='auto') resolves to the cached, "
+          "measured pick, keyed by the card's name")
+
+    # --- bench_service ----------------------------------------------------
+    bench = bench_service(nelt=1024, requests=BENCH_REQUESTS,
+                          max_b=8, niter=BENCH_NITER, warm=True,
+                          dtype="float64")
+    rows = bench["rows"]
+    check(set(rows) == {"1", "2", "4", "8"} and all(
+        rows[b]["dispatches"] == BENCH_REQUESTS // int(b) for b in rows),
+          "bench_service: b = 1, 2, 4, 8 with 16 / b dispatches")
+    print("  bench_service (E=1024, n=10, fp64, 16 requests, niter "
+          f"{BENCH_NITER}, {bench['repeats']} repeats): " + "; ".join(
+              f"b={b} latency p50 {r['latency_ms_p50']:.4f} ms p99 "
+              f"{r['latency_ms_p99']:.4f} ms, {r['ms_per_request']:.4f} "
+              f"ms/request {r['throughput_req_s']:.2f} req/s"
+              for b, r in rows.items())
+          + f" | {bench['device']} | {smi_line}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"  service phase: {seconds:.1f} s", flush=True)
+    check(seconds <= 60.0, f"service phase within 60 s ({seconds:.1f} s)")
+    return {"launches": launches, "pairs": pairs, "rows": rows}
+
+
+def _same_bits(a, b) -> bool:
+    """Bitwise equality that holds NaN padding equal to itself."""
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8)))
+
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from the root of a checkout", file=sys.stderr)
@@ -4398,9 +4633,20 @@ def main() -> int:
     if shutil.which("nvidia-smi") is None:
         print("chip_smoke.py: nvidia-smi not found", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a fresh autotune cache for the whole run: no pick left by an earlier
+    # run can change one of this run's
+    cache_dir = tempfile.mkdtemp(prefix="repro-cache-")
+    os.environ["REPRO_CACHE_DIR"] = cache_dir
+    try:
+        return _run_phases(t_start)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def _run_phases(t_start) -> int:
+    import torch
 
     try:
         device_name, smi_line = phase_device()
@@ -4421,7 +4667,7 @@ def main() -> int:
         err.update(phase_v1_sstep_parity())
         slice4 = phase_v1_sstep_routes(hist)
         launches.update(slice4["launches"])
-        phase_slice4_times(bw, slice4, rows)
+        solve_rounds = phase_slice4_times(bw, slice4, rows)
         err.update(phase_bf16_parity())
         err.update(phase_bf16_sstep_pcg_parity())
         err.update(phase_bf16_k1_k2_parity())
@@ -4429,6 +4675,7 @@ def main() -> int:
         ir = phase_ir_routes(hist, v2_solve_ms)
         err.update(phase_bf16_cheb_pmg_block_parity())
         slice12 = phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms)
+        phase_service(hist, smi_line, solve_rounds)
         phase_bf16_times(bw, rows)
         phase_bf16_slice12_times(bw, rows)
         phase_profile(cases, pcg, routes, slice4, ir, slice12)
@@ -4438,6 +4685,8 @@ def main() -> int:
     except CheckFailed as exc:
         print(f"FAILED: {exc}", flush=True)
         return 1
+    print(f"== whole script: {time.perf_counter() - t_start:.1f} s "
+          f"({smi_line})", flush=True)
 
     meta = {
         "K1": ("nekbone_ax", "src/repro_torch/kernels/csrc/nekbone_ax.cu",

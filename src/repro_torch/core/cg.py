@@ -53,6 +53,9 @@ class SolveResult:
     rnorm: torch.Tensor
     pipeline: str | None = None
     precond: str | None = None
+    # host-side telemetry (obs/metrics.SolveTelemetry), attached by
+    # solvers.solve_case only when a trace recorder is active
+    telemetry: object = None
 
     # -- legacy (x, hist) tuple protocol --------------------------------
     def __iter__(self):

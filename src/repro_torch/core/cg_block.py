@@ -99,6 +99,10 @@ def _prepare_block(B, D, g, grid, mask, c, precision):
     return policy, B.to(policy.storage_dtype), op
 
 
+def _nrhs(B) -> int:
+    return 1 if B.ndim == 4 else int(B.shape[0])
+
+
 def _solve(B, D, g, grid, mask, c, precision, tol2, max_iter) -> SolveResult:
     policy, B, op = _prepare_block(B, D, g, grid, mask, c, precision)
     nrhs, E = B.shape[0], B.shape[1]
@@ -126,7 +130,14 @@ def cg_block_fixed_iters(B: torch.Tensor, *, D: torch.Tensor, g: torch.Tensor,
     ``rnorm`` and ``achieved_rtol`` (b,).  Each lane is bitwise its own
     single-RHS v2 solve.
     """
-    return _solve(B, D, g, grid, mask, c, precision, None, niter)
+    # tracing: the host boundary of the batched solve is this dispatch,
+    # one span when on
+    from repro_torch.obs import trace as _trace
+
+    rec = _trace.active()
+    with (rec.span("block.dispatch", b=_nrhs(B), niter=niter)
+          if rec is not None else _trace.NULL_SPAN):
+        return _solve(B, D, g, grid, mask, c, precision, None, niter)
 
 
 def cg_block_tol(B: torch.Tensor, *, D: torch.Tensor, g: torch.Tensor,
@@ -142,5 +153,10 @@ def cg_block_tol(B: torch.Tensor, *, D: torch.Tensor, g: torch.Tensor,
     per-RHS histories are prefixes of the fixed-iteration ones, NaN-padded
     to ``max_iter + 1``; ``iters`` is the joint count.
     """
-    return _solve(B, D, g, grid, mask, c, precision, float(tol) ** 2,
-                  max_iter)
+    from repro_torch.obs import trace as _trace
+
+    rec = _trace.active()
+    with (rec.span("block.dispatch", b=_nrhs(B), tol=tol)
+          if rec is not None else _trace.NULL_SPAN):
+        return _solve(B, D, g, grid, mask, c, precision, float(tol) ** 2,
+                      max_iter)

@@ -409,16 +409,22 @@ def cg_ir_fixed_iters(b: torch.Tensor, *, D: torch.Tensor, g: torch.Tensor,
     x = torch.zeros_like(b)
     r = b
     norms = [torch.sqrt(torch.abs(torch.sum(b * c_hi * b)))]
-    for _ in range(outer_iters):
-        # (the reference times each sweep in an obs.trace span; the port's
-        # tracing is ROADMAP.md queue 1 item 13)
-        # inf-norm scaling, on the device: no host read per sweep
-        scale = torch.max(torch.abs(r))
-        scale = torch.where(scale > 0, scale, torch.ones_like(scale))
-        e = inner(r / scale).x
-        x = x + scale * e.to(hi)
-        r, rn = refresh(x)
-        norms.append(rn)
+    # tracing: the recorder is read once per solve; one `is None` test per
+    # sweep when off, an "ir.sweep" span per refinement when on
+    from repro_torch.obs import trace as _trace
+
+    rec = _trace.active()
+    for sweep in range(outer_iters):
+        with (rec.span("ir.sweep", sweep=sweep, variant=variant,
+                       inner_iters=inner_iters)
+              if rec is not None else _trace.NULL_SPAN):
+            # inf-norm scaling, on the device: no host read per sweep
+            scale = torch.max(torch.abs(r))
+            scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+            e = inner(r / scale).x
+            x = x + scale * e.to(hi)
+            r, rn = refresh(x)
+            norms.append(rn)
     hist = torch.stack(norms)
     return SolveResult.from_cg(
         CGResult(x=x, iters=torch.tensor(outer_iters * inner_iters,

@@ -245,6 +245,11 @@ def cg_sstep_fixed_iters(b: torch.Tensor, *, D: torch.Tensor,
     hist: list[float] = []
     rcr_last = None
     it = 0
+    # tracing: the recorder is read once per solve; when off the loop pays
+    # one `is None` test per cycle and allocates nothing
+    from repro_torch.obs import trace as _trace
+
+    rec = _trace.active()
     while it < niter:
         # per-cycle tolerance check on the previous update's stored-residual
         # reduction — the start-of-iteration rtz the next Gram would report.
@@ -252,19 +257,23 @@ def cg_sstep_fixed_iters(b: torch.Tensor, *, D: torch.Tensor,
                 and abs(float(rcr_last)) <= tol2:
             break
         m = min(s, niter - it)
-        basis, gram_e = _ax.nekbone_ax_powers_cuda(
-            p2, r2, op["D"], op["g3"], op["mx"], op["my"], op["mz"], cx, cy,
-            cz, inv_theta, n=n, s=s)
-        # the one host read of the cycle: the summed (2s+1)^2 Gram block
-        G = torch.sum(gram_e, dim=0).cpu().numpy().astype(policy.gram)
-        coef_np, rtzs, m = cycle_coefficients(G, s, m, theta, tol2)
-        if m == 0:
-            break
-        hist.extend(np.sqrt(np.abs(v)) for v in rtzs)
-        coef = torch.as_tensor(coef_np, dtype=acc, device=dev)
-        x2, r2, p2, rcr_e = _ax.nekbone_sstep_update_cuda(
-            x2, p2, r2, basis, coef, cx, cy, cz, n=n, s=s)
-        rcr_last = torch.sum(rcr_e)
+        with (rec.span("sstep.cycle", it=it, s=s)
+              if rec is not None else _trace.NULL_SPAN):
+            with _trace.profiler_annotation("nekbone.sstep_powers"):
+                basis, gram_e = _ax.nekbone_ax_powers_cuda(
+                    p2, r2, op["D"], op["g3"], op["mx"], op["my"], op["mz"],
+                    cx, cy, cz, inv_theta, n=n, s=s)
+            # the one host read of the cycle: the summed (2s+1)^2 Gram block
+            G = torch.sum(gram_e, dim=0).cpu().numpy().astype(policy.gram)
+            coef_np, rtzs, m = cycle_coefficients(G, s, m, theta, tol2)
+            if m == 0:
+                break
+            hist.extend(np.sqrt(np.abs(v)) for v in rtzs)
+            coef = torch.as_tensor(coef_np, dtype=acc, device=dev)
+            with _trace.profiler_annotation("nekbone.sstep_update"):
+                x2, r2, p2, rcr_e = _ax.nekbone_sstep_update_cuda(
+                    x2, p2, r2, basis, coef, cx, cy, cz, n=n, s=s)
+            rcr_last = torch.sum(rcr_e)
         it += m
         if tol2 is not None and m < s:
             break

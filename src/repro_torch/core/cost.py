@@ -7,11 +7,14 @@ points per direction,
     reads   = 24 D,   writes = 6 D            fp64 words
     I(n)    = (12 n + 34) / 240               flop/byte (fp64) (Eq. 2)
 
-Pure arithmetic, hardware-independent: a copy of the part of the
-reference's ``core/cost.py`` that the ported paths and ``chip_smoke.py``
-use to turn times into bytes per second: the v1, v2 and s-step books, the
-preconditioned v2 books (Jacobi, Chebyshev), the p-multigrid books and the
-multi-RHS books of the v2 pipeline.
+Pure arithmetic, hardware-independent: a copy of the reference's
+``core/cost.py``, every public name: the v1, v2 and s-step books, the
+preconditioned v2 books (Jacobi, Chebyshev), the p-multigrid books, the
+multi-RHS books, the side channels and collectives of the reference's halo'd
+and sharded pipelines, and the dtype-aware rung table
+(:data:`PIPELINE_STREAMS`, :func:`bytes_per_dof_iter`).  They count bytes
+and flops, not time, so they carry over as they are; the port's own K11 is
+priced by :func:`cheb_apply_flops`.
 """
 from __future__ import annotations
 
@@ -32,7 +35,15 @@ __all__ = ["flops_per_dof", "cg_iter_flops", "cg_iter_bytes", "intensity",
            "PMG_SMOOTH_RATIO", "pmg_degrees", "pmg_dof_fracs",
            "pmg_vcycle_streams", "pmg_streams", "pmg_flops_per_dof",
            "MULTI_RHS_SHARED_STREAMS", "multi_rhs_streams",
-           "ir_overhead_streams"]
+           "ir_overhead_streams", "MULTI_RHS_BATCHES", "streams_per_rhs",
+           "multi_rhs_halo_streams", "fused_v2_intensity",
+           "fused_v2_plane_streams", "sstep_collective_streams",
+           "cheb_collective_streams", "v2_plane_collective_streams",
+           "sstep_effective_streams", "cheb_halo_streams",
+           "cheb_effective_streams", "cheb_flops_per_dof",
+           "pmg_halo_streams", "pmg_effective_streams", "PIPELINE_STREAMS",
+           "bytes_per_dof_iter", "pipeline_flops_per_dof",
+           "pipeline_intensity", "roofline_gflops"]
 
 # Eq. 2's stream counts: words moved per DOF per CG iteration when the
 # operator, mask, and every inner product run as separate passes.
@@ -361,17 +372,25 @@ def pmg_flops_per_dof(n: int, k: int = PMG_DEFAULT_K,
 MULTI_RHS_SHARED_STREAMS = 3.0
 
 
-def multi_rhs_streams(b: int, pipeline: str = "fused_v2"
-                      ) -> tuple[float, float]:
+# The ladder's rung family: *_rhs{b} entries are pinned at these batches.
+MULTI_RHS_BATCHES = (2, 4, 8)
+
+
+def multi_rhs_streams(b: int, pipeline: str = "fused_v2", *,
+                      s: int = SSTEP_DEFAULT_S) -> tuple[float, float]:
     """(reads, writes) full-field streams per DOF per iteration *per RHS*
     of a b-way block solve.
 
     ``fused_v2``: of the 9 read streams, 3 are the shared metric diagonals
     and 6 are per-RHS vectors; all 4 write streams are per RHS:
-    ``reads = 6 + 3/b``, ``writes = 4``.  The reference's ``sstep_v3``
-    branch prices a batched s-step kernel that neither package has
-    (``route_name`` sends b > 1 s-step requests to ``block``); it is not
-    ported.
+    ``reads = 6 + 3/b``, ``writes = 4``.
+
+    ``sstep_v3``: the same 3 shared streams sit inside the per-cycle
+    budget (2s+7 reads, 2s+2 writes over s iterations), so composing the
+    s-step cycle with a b-way block divides them by s*b:
+    ``reads = (2s+4)/s + 3/(s*b)``, ``writes = (2s+2)/s``.  Neither package
+    has a batched s-step kernel (``route_name`` sends b > 1 s-step
+    requests to ``block``); the branch prices the composition.
     """
     b = float(b)
     if b < 1:
@@ -380,4 +399,276 @@ def multi_rhs_streams(b: int, pipeline: str = "fused_v2"
         reads = (FUSED_V2_READ_STREAMS - MULTI_RHS_SHARED_STREAMS
                  + MULTI_RHS_SHARED_STREAMS / b)
         return reads, float(FUSED_V2_WRITE_STREAMS)
+    if pipeline == "sstep_v3":
+        cr, cw = sstep_cycle_streams(s)
+        reads = ((cr - MULTI_RHS_SHARED_STREAMS) / float(s)
+                 + MULTI_RHS_SHARED_STREAMS / (float(s) * b))
+        return reads, cw / float(s)
     raise ValueError(f"no multi-RHS books for pipeline {pipeline!r}")
+
+
+def streams_per_rhs(b: int, pipeline: str = "fused_v2", *,
+                    s: int = SSTEP_DEFAULT_S) -> float:
+    """Total (reads + writes) streams per DOF per iteration per RHS,
+    strictly decreasing in b."""
+    r, w = multi_rhs_streams(b, pipeline, s=s)
+    return r + w
+
+
+def multi_rhs_halo_streams(b: int, s: int, sz: int) -> float:
+    """Per-RHS matrix-powers halo of a b-way block s-step solve in the
+    reference's books: of the 5 halo'd fields (:func:`sstep_halo_streams`)
+    p and r are per RHS, the 3 metric diagonals are read once for the
+    batch: ``(4 + 6/b)/sz`` per iteration per RHS."""
+    return 2.0 * float(s) * (2.0 + 3.0 / float(b)) / (float(sz) * float(s))
+
+
+def _multi_rhs_rung(pipeline: str) -> tuple[str, int] | None:
+    """Split a ``<base>_rhs<b>`` ladder rung into (base, b); None if the
+    name is not a multi-RHS rung."""
+    base, sep, tail = pipeline.rpartition("_rhs")
+    if not sep or not tail.isdigit():
+        return None
+    return base, int(tail)
+
+
+# ---------------------------------------------------------------------------
+# side channels and per-device collectives of the reference's books.  They
+# price the reference's halo'd slab residencies and its sharded pipelines;
+# the port's kernels have no halos (K8 and K11 are one cooperative launch
+# each) and the port has no sharded driver yet (ROADMAP.md queue 1 item 14).
+# They carry over as books: bytes and flops, not time.
+# ---------------------------------------------------------------------------
+
+def fused_v2_intensity(n: int, itemsize: int = 8) -> float:
+    """Eq. 2 re-evaluated for the v2 pipeline: same flops over 13 streams."""
+    return flops_per_dof(n) / (
+        (FUSED_V2_READ_STREAMS + FUSED_V2_WRITE_STREAMS) * float(itemsize))
+
+
+def fused_v2_plane_streams(n: int, sz: int) -> float:
+    """Stream-equivalents of the reference's v2 boundary-plane side
+    channel: per block of ``sz`` slabs two ``EX*EY*n^2``-word planes written
+    and read back, ``4 / (n * sz)`` of one full stream."""
+    return 4.0 / (float(n) * float(sz))
+
+
+def sstep_collective_streams(s: int, ez_local: int) -> float:
+    """Per-device stream-equivalents of the sharded s-step halo exchange,
+    per iteration: 2 fields x s slabs x 2 directions, each sent and
+    received, per cycle of s iterations: ``8/ez_local``."""
+    return 2.0 * 2.0 * 2.0 * float(s) / (float(ez_local) * float(s))
+
+
+def cheb_collective_streams(k: int, ez_local: int) -> float:
+    """Per-device stream-equivalents of the sharded Chebyshev apply's
+    k-deep residual ghost exchange, per iteration: ``4k/ez_local``."""
+    return 2.0 * 2.0 * float(k) / float(ez_local)
+
+
+def v2_plane_collective_streams(n: int, ez_local: int) -> float:
+    """Per-device stream-equivalents of the sharded v2-family plane stitch:
+    ``4 / (n * ez_local)``."""
+    return 2.0 * 2.0 / (float(n) * float(ez_local))
+
+
+def _local_ez(ndev: int, ez: int | None) -> int:
+    if ndev == 1:
+        return 0                      # unused: collective terms are zero
+    if ez is None:
+        raise ValueError("ndev > 1 needs the global EZ (ez=) to size the "
+                         "per-device halo")
+    if ez % ndev:
+        raise ValueError(f"EZ {ez} not divisible by ndev {ndev}")
+    return ez // ndev
+
+
+def sstep_effective_streams(s: int, sz: int, ndev: int = 1,
+                            ez: int | None = None) -> float:
+    """Headline + halo side channel (+ the per-device collective channel
+    when ``ndev > 1``, which needs the global ``ez``): total effective
+    streams per iteration of the s-step pipeline."""
+    r, w = sstep_streams(s)
+    total = r + w + sstep_halo_streams(s, sz)
+    ez_l = _local_ez(ndev, ez)
+    if ndev > 1:
+        total += sstep_collective_streams(s, ez_l)
+    return total
+
+
+def cheb_halo_streams(k: int, sz: int) -> float:
+    """Stream-equivalents of the reference's Chebyshev-kernel halo: 4
+    halo'd fields over ``2k`` ghost slabs per ``sz``-slab block, every
+    iteration: ``8k/sz``.  The port's K11 has no halo; it is priced by
+    :func:`cheb_apply_flops` and its source note."""
+    return 2.0 * 4.0 * float(k) / float(sz)
+
+
+def cheb_effective_streams(k: int, sz: int, ndev: int = 1,
+                           ez: int | None = None, n: int = 10) -> float:
+    """Headline + halo: total effective streams per iteration of
+    Chebyshev-PCG; ``ndev > 1`` adds the residual ghosts and the v2 plane
+    stitch at ``ez_local = ez/ndev``."""
+    total = (CHEB_V2_READ_STREAMS + CHEB_V2_WRITE_STREAMS
+             + cheb_halo_streams(k, sz))
+    ez_l = _local_ez(ndev, ez)
+    if ndev > 1:
+        total += cheb_collective_streams(k, ez_l)
+        total += v2_plane_collective_streams(n, ez_l)
+    return total
+
+
+def cheb_flops_per_dof(n: int, k: int = CHEB_DEFAULT_K) -> int:
+    """Eq.-1 flops per DOF per iteration of Chebyshev-PCG in the
+    reference's books: the CG iteration plus k operator applications
+    (12n + 17 each) and 6 recurrence flops per application."""
+    return flops_per_dof(n) + k * (12 * n + 17 + 6)
+
+
+def pmg_halo_streams(n: int, k: int = PMG_DEFAULT_K,
+                     sz: int = 4) -> tuple[float, float]:
+    """(reads, writes) side-channel stream-equivalents of one V-cycle in
+    the reference's books: per smoothed level two Chebyshev-apply halos and
+    two v2 plane stitches (split evenly), each at the level's DOF
+    fraction, one representative ``sz`` at every level."""
+    fr = pmg_dof_fracs(n)
+    ns = pmg_degrees(n)
+    reads = writes = 0.0
+    for nl, f in zip(ns[:-1], fr[:-1]):
+        reads += 2.0 * cheb_halo_streams(k, sz) * f
+        half = 2.0 * fused_v2_plane_streams(nl, sz) / 2.0
+        reads += half * f
+        writes += half * f
+    return reads, writes
+
+
+def pmg_effective_streams(n: int = 10, k: int = PMG_DEFAULT_K,
+                          sz: int = 4,
+                          coarse_iters: int = PMG_COARSE_ITERS) -> float:
+    """Headline + halo/plane side channels: total effective streams per
+    PCG iteration of pmg (single device)."""
+    r, w = pmg_streams(n, coarse_iters)
+    hr, hw = pmg_halo_streams(n, k, sz)
+    return r + w + hr + hw
+
+
+# ---------------------------------------------------------------------------
+# dtype-aware accounting: the stream counts are fixed per pipeline rung; the
+# precision policy sets the bytes each stream carries.
+# ---------------------------------------------------------------------------
+
+# (reads, writes) full-field streams per DOF per CG iteration, per rung.
+# The s-step rung carries the default s=4 point, the pmg rung n=10.
+PIPELINE_STREAMS = {
+    "eq2": (CG_READ_STREAMS, CG_WRITE_STREAMS),
+    "fused_v1": (FUSED_CG_READ_STREAMS, FUSED_CG_WRITE_STREAMS),
+    "fused_v2": (FUSED_V2_READ_STREAMS, FUSED_V2_WRITE_STREAMS),
+    "sstep_v3": sstep_streams(SSTEP_DEFAULT_S),
+    "fused_v2_jacobi": (JACOBI_V2_READ_STREAMS, JACOBI_V2_WRITE_STREAMS),
+    "fused_v2_cheb": (CHEB_V2_READ_STREAMS, CHEB_V2_WRITE_STREAMS),
+    "fused_v2_pmg": pmg_streams(10, PMG_COARSE_ITERS),
+}
+# the multi-RHS rungs, per RHS, standalone (batched v2) and composed with
+# the s-step cycle
+PIPELINE_STREAMS.update({
+    f"{base}_rhs{nb}": multi_rhs_streams(nb, base)
+    for base in ("fused_v2", "sstep_v3") for nb in MULTI_RHS_BATCHES
+})
+
+
+def bytes_per_dof_iter(pipeline: str, precision, *, exact: bool = False,
+                       n: int = 10, sz: int = 4,
+                       s: int = SSTEP_DEFAULT_S,
+                       k: int = CHEB_DEFAULT_K, ndev: int = 1,
+                       ez: int | None = None) -> tuple[float, float]:
+    """(read_bytes, write_bytes) per DOF per CG iteration for a pipeline
+    rung under a precision policy.
+
+    ``exact=True`` folds in the reference's sub-stream side channels: the
+    v2 boundary planes (:func:`fused_v2_plane_streams`, split evenly into
+    reads and writes; the Jacobi and Chebyshev rungs inherit them), the
+    s-step halo (:func:`sstep_halo_streams`, reads) and the Chebyshev halo
+    (:func:`cheb_halo_streams`, reads); eq2 and fused_v1 have none.
+    ``ndev > 1`` (needs ``ez`` and ``exact=True``) adds the per-device
+    collective channels of the sharded pipelines, split evenly; pipelines
+    without a sharded variant reject it.
+    """
+    reads, writes = PIPELINE_STREAMS[pipeline]
+    if pipeline == "sstep_v3" and s != SSTEP_DEFAULT_S:
+        reads, writes = sstep_streams(s)
+    if pipeline == "fused_v2_pmg" and n != 10:
+        reads, writes = pmg_streams(n)
+    rhs_rung = _multi_rhs_rung(pipeline)
+    if rhs_rung is not None and rhs_rung[0] == "sstep_v3" \
+            and s != SSTEP_DEFAULT_S:
+        reads, writes = multi_rhs_streams(rhs_rung[1], "sstep_v3", s=s)
+    if ndev > 1 and pipeline not in ("sstep_v3", "fused_v2",
+                                     "fused_v2_jacobi", "fused_v2_cheb"):
+        raise ValueError(f"pipeline {pipeline!r} has no sharded variant; "
+                         "ndev > 1 is not meaningful for it")
+    if ndev > 1 and not exact:
+        raise ValueError("ndev > 1 only affects the exact accounting; "
+                         "pass exact=True")
+    if exact:
+        ez_l = _local_ez(ndev, ez)
+        if pipeline in ("fused_v2", "fused_v2_jacobi", "fused_v2_cheb"):
+            half = fused_v2_plane_streams(n, sz) / 2.0
+            reads, writes = reads + half, writes + half
+            if pipeline == "fused_v2_cheb":
+                reads = reads + cheb_halo_streams(k, sz)
+            if ndev > 1:
+                half_c = v2_plane_collective_streams(n, ez_l) / 2.0
+                reads, writes = reads + half_c, writes + half_c
+                if pipeline == "fused_v2_cheb":
+                    half_k = cheb_collective_streams(k, ez_l) / 2.0
+                    reads, writes = reads + half_k, writes + half_k
+        elif pipeline == "fused_v2_pmg":
+            half = fused_v2_plane_streams(n, sz) / 2.0
+            hr, hw = pmg_halo_streams(n, PMG_DEFAULT_K, sz)
+            reads, writes = reads + half + hr, writes + half + hw
+        elif pipeline == "sstep_v3":
+            reads = reads + sstep_halo_streams(s, sz)
+            if ndev > 1:
+                half_s = sstep_collective_streams(s, ez_l) / 2.0
+                reads, writes = reads + half_s, writes + half_s
+        elif rhs_rung is not None:
+            base, nb = rhs_rung
+            if base == "fused_v2":
+                # every RHS's planes travel: the b=1 charge per RHS
+                half = fused_v2_plane_streams(n, sz) / 2.0
+                reads, writes = reads + half, writes + half
+            else:  # sstep_v3_rhs{b}: metric halo shared across the batch
+                reads = reads + multi_rhs_halo_streams(nb, s, sz)
+    itemsize = precision_itemsize(precision)
+    return reads * itemsize, writes * itemsize
+
+
+def pipeline_flops_per_dof(n: int, pipeline: str, *,
+                           s: int = SSTEP_DEFAULT_S,
+                           k: int = CHEB_DEFAULT_K) -> float:
+    """Eq.-1 flops per DOF per CG iteration of a pipeline rung: the fusion
+    ladder and the block rungs keep (12n + 34); Jacobi adds 3; Chebyshev
+    adds k operator applications (:func:`cheb_flops_per_dof`); pmg its
+    V-cycle (:func:`pmg_flops_per_dof`)."""
+    if pipeline in ("eq2", "fused_v1", "fused_v2", "sstep_v3"):
+        return float(flops_per_dof(n))
+    if _multi_rhs_rung(pipeline) is not None:
+        return float(flops_per_dof(n))
+    if pipeline == "fused_v2_jacobi":
+        return float(flops_per_dof(n) + 3)
+    if pipeline == "fused_v2_cheb":
+        return float(cheb_flops_per_dof(n, k))
+    if pipeline == "fused_v2_pmg":
+        return pmg_flops_per_dof(n)
+    raise ValueError(f"unknown pipeline {pipeline!r}")
+
+
+def pipeline_intensity(n: int, pipeline: str, precision) -> float:
+    """Eq. 2 arithmetic intensity of a (pipeline, precision) point."""
+    return pipeline_flops_per_dof(n, pipeline) / float(
+        sum(bytes_per_dof_iter(pipeline, precision)))
+
+
+def roofline_gflops(bandwidth_gbs: float, n: int, itemsize: int = 8) -> float:
+    """Memory-roofline performance bound: BW * I(n) (paper §VI-B)."""
+    return bandwidth_gbs * intensity(n, itemsize)

@@ -65,8 +65,13 @@ class NekboneCase:
                iteration in the two CUDA kernels K4 and K5
                (core/cg_fused.py); 'pallas_sstep_v3' runs s iterations
                per cycle over K8 and K9 (core/cg_sstep.py).  The names
-               keep the reference package's spelling.  'auto' (the
-               autotuned pick) is not ported yet and raises.
+               keep the reference package's spelling.  'auto' resolves at
+               construction to v1 or v2 through
+               ``kernels/autotune.pick_pipeline``: on the card both are
+               timed once per (device, case key, precision policy) and
+               the faster is cached; on the CPU the pick is v2;
+               preconditioned cases take v2.  The requested value is kept
+               in ``ax_impl_requested``.
       precision: 'f64' | 'f32' | 'bf16' | 'bf16_ir' | 'f32_ir' | None — the
                fused pipeline's precision policy (core/precision.py).
                Non-refined policies also set ``dtype`` to the storage
@@ -110,11 +115,15 @@ class NekboneCase:
             policy = resolve_policy(self.precision)
             if not policy.refine:
                 self.dtype = policy.storage_dtype
-        if self.ax_impl == "auto":
-            raise NotImplementedError(
-                "ax_impl='auto' needs the autotuned pipeline pick, not "
-                "ported yet: ROADMAP.md queue 1 item 7")
         self.device = _resolve_device(self.device)
+        self.ax_impl_requested = self.ax_impl
+        if self.ax_impl == "auto":
+            from repro_torch.kernels import autotune
+
+            self.ax_impl = autotune.pick_pipeline(
+                self.grid, self.n, self.dtype,
+                precision=self.precision, device=self.device,
+                precond=self.precond)
         self.mesh = BoxMesh(self.n, tuple(self.grid), tuple(self.lengths))
         ops = self.mesh.ops
 

@@ -470,20 +470,28 @@ def _pcg_pmg(b, spec: PMGPrecond, op, policy, tol2: float | None,
                  c=(op["cx"], op["cy"], op["cz"]))]
     lops += [dict(o) for o in levels[1:]]
     dtype = b.dtype
-    for o in lops:
-        nl3 = o["n"] ** 3
-        # the coarser levels' factors come in the operator's dtype; the
-        # kernels take them as vectors (exact in any dtype: 0, 1/2, 1)
-        o["m"] = tuple(f.to(dtype) for f in o["m"])
-        o["c"] = tuple(f.to(dtype) for f in o["c"])
-        o["mask2"] = box_outer(o["m"][2], o["m"][1], o["m"][0]) \
-            .reshape(E, nl3)
-        o["c2"] = box_outer(o["c"][2], o["c"][1], o["c"][0]) \
-            .reshape(E, nl3).to(acc)
-        o["zero"] = torch.zeros(E, nl3, dtype=dtype, device=b.device)
-        # K5's x slot of the residual (scratch), in the solution's dtype
-        o["zero_x"] = torch.zeros(E, nl3, dtype=policy.x_storage_dtype,
-                                  device=b.device)
+    # tracing: the recorder is read once per solve.  The per-level operand
+    # set-up is the V-cycle's host boundary level by level, so the
+    # "pmg.vcycle.level" spans sit there; the solve is one "pmg.dispatch".
+    from repro_torch.obs import trace as _trace
+
+    rec = _trace.active()
+    for lev, o in enumerate(lops):
+        with (rec.span("pmg.vcycle.level", level=lev, n=o["n"], k=spec.k)
+              if rec is not None else _trace.NULL_SPAN):
+            nl3 = o["n"] ** 3
+            # the coarser levels' factors come in the operator's dtype; the
+            # kernels take them as vectors (exact in any dtype: 0, 1/2, 1)
+            o["m"] = tuple(f.to(dtype) for f in o["m"])
+            o["c"] = tuple(f.to(dtype) for f in o["c"])
+            o["mask2"] = box_outer(o["m"][2], o["m"][1], o["m"][0]) \
+                .reshape(E, nl3)
+            o["c2"] = box_outer(o["c"][2], o["c"][1], o["c"][0]) \
+                .reshape(E, nl3).to(acc)
+            o["zero"] = torch.zeros(E, nl3, dtype=dtype, device=b.device)
+            # K5's x slot of the residual (scratch), in the solution's dtype
+            o["zero_x"] = torch.zeros(E, nl3, dtype=policy.x_storage_dtype,
+                                      device=b.device)
     Dc, gc, maskc, cc = coarse
     nc = ns[-1]
     mask_c2 = maskc.reshape(E, nc ** 3)
@@ -534,7 +542,10 @@ def _pcg_pmg(b, spec: PMGPrecond, op, policy, tol2: float | None,
         z2 = vcycle_level(r2, 0)
         return z2, torch.sum(r2.to(acc) * c2 * z2.to(acc))
 
-    return _pcg_apply(b, vcycle, op, policy, tol2, max_iter)
+    with (rec.span("pmg.dispatch", levels=L, coarse_n=ns[-1])
+          if rec is not None else _trace.NULL_SPAN):
+        with _trace.profiler_annotation("nekbone.pcg_pmg"):
+            return _pcg_apply(b, vcycle, op, policy, tol2, max_iter)
 
 
 # ---------------------------------------------------------------------------

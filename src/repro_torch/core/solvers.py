@@ -229,15 +229,22 @@ def solve_case(case, f: torch.Tensor, *, b: int | None = None,
         raise ValueError(f"b={b} needs a (b, E, n, n, n) rhs; "
                          f"got {tuple(f.shape)}")
     f_in = f[0] if (batched and b == 1) else f
-    res = _solve_resolved(case, f_in, b=b, niter=niter, tol=tol,
-                          max_iter=max_iter, pc_name=pc_name)
+    from repro_torch.obs import trace as _trace
+
+    rec = _trace.active()
+    if rec is None:            # tracing off: the plain dispatch, nothing else
+        res = _solve_resolved(case, f_in, b=b, niter=niter, tol=tol,
+                              max_iter=max_iter, pc_name=pc_name)
+    else:
+        res = _traced_solve(rec, case, f_in, b=b, niter=niter, tol=tol,
+                            max_iter=max_iter, pc_name=pc_name)
     # a batched rhs always comes back batched, even at b=1.
     if batched and res.x.ndim == 4:
         res = SolveResult(x=res.x[None], history=res.history[None],
                           iters_taken=res.iters_taken[None],
                           achieved_rtol=res.achieved_rtol[None],
                           rnorm=res.rnorm[None], pipeline=res.pipeline,
-                          precond=res.precond)
+                          precond=res.precond, telemetry=res.telemetry)
     return res
 
 
@@ -249,6 +256,38 @@ def _solve_resolved(case, f, *, b, niter, tol, max_iter, pc_name):
             f"{NOT_PORTED[name]})")
     return REGISTRY[name](case, f, b=b, niter=niter, tol=tol,
                           max_iter=max_iter, pc_name=pc_name)
+
+
+def _traced_solve(rec, case, f, *, b, niter, tol, max_iter, pc_name):
+    """The tracing-on dispatch: the same :func:`_solve_resolved` call (so
+    the solve output is bitwise the same), in a ``solve`` span, with a
+    :class:`~repro_torch.obs.metrics.SolveTelemetry` attached to the
+    result's ``telemetry`` field.  The synchronize here and the iters/rtol
+    reads in ``capture_solve`` are waits the tracing-off path never pays."""
+    import dataclasses
+
+    from repro_torch.kernels import autotune as _autotune
+    from repro_torch.kernels.timing import stopwatch
+    from repro_torch.obs import metrics as obs_metrics
+
+    route = route_name(case, b=b, niter=niter, pc_name=pc_name)
+    at0 = _autotune.cache_stats()
+    sw = stopwatch()
+    with rec.span("solve", route=route, b=b, niter=niter,
+                  precond=pc_name, ax_impl=getattr(case, "ax_impl", None)):
+        res = _solve_resolved(case, f, b=b, niter=niter, tol=tol,
+                              max_iter=max_iter, pc_name=pc_name)
+        if res.x.is_cuda:
+            torch.cuda.synchronize(res.x.device)
+    wall = sw.us()
+    at1 = _autotune.cache_stats()
+    rec.count("solves")
+    tel = obs_metrics.capture_solve(
+        res, route=route, b=b, niter=niter,
+        tol=None if niter is not None else tol, wall_us=wall,
+        phases={"dispatch": round(wall, 3)},
+        autotune={k: at1[k] - at0.get(k, 0) for k in at1})
+    return dataclasses.replace(res, telemetry=tel)
 
 
 def solve(case_or_config, f: torch.Tensor | None = None, *,

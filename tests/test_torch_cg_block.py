@@ -183,8 +183,11 @@ def test_multi_rhs_books_match_reference(b):
     assert torch_cost.multi_rhs_streams(b) == jax_cost.multi_rhs_streams(b)
     assert torch_cost.MULTI_RHS_SHARED_STREAMS == \
         jax_cost.MULTI_RHS_SHARED_STREAMS
+    for s in (1, 2, 4):
+        assert torch_cost.multi_rhs_streams(b, "sstep_v3", s=s) == \
+            jax_cost.multi_rhs_streams(b, "sstep_v3", s=s)
     with pytest.raises(ValueError):
-        torch_cost.multi_rhs_streams(b, "sstep_v3")
+        torch_cost.multi_rhs_streams(b, "eq2")
 
 
 # ---------------------------------------------------------------------------

@@ -85,9 +85,16 @@ def test_unported_routes_raise(x64, kw, solve_kw):
     assert np.all(np.abs(np.log(ratio)) <= np.log(4.0)), (h, h_ref)
 
 
-def test_auto_impl_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NekboneCase(n=3, grid=(1, 1, 1), ax_impl="auto", device="cpu")
+def test_auto_impl_raises(monkeypatch):
+    """``ax_impl='auto'`` resolves through ``autotune.pick_pipeline`` now;
+    what still raises is an auto case on the card where there is none: the
+    pick never falls back to the CPU's threshold."""
+    case = NekboneCase(n=3, grid=(1, 1, 1), ax_impl="auto", device="cpu")
+    assert case.ax_impl_requested == "auto"
+    assert case.ax_impl in ("pallas_fused_cg", "pallas_fused_cg_v2")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NekboneCase(n=3, grid=(1, 1, 1), ax_impl="auto")
 
 
 def test_default_device_is_the_card(monkeypatch):
