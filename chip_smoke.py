@@ -201,33 +201,53 @@ reference package ``repro``, and, in order:
    staged steps; 5 repeated calls bitwise the same; K14's blocks per call
    printed and more than B x H), plus d = 16 with fully masked rows (K13),
    d = 64 and 192 (GQA 5:1 with window 333 over 1000 tokens, 12:1 causal
-   over 777) and T = 37 (K14); bf16 outputs also
+   over 777), whisper-large-v3's non-causal encoder (batch 4, 20:20,
+   d 64, 1500 x 1500 frames, not a whole number of key tiles) and
+   cross-attention (64 queries over 1500 keys), arctic-480b's GQA 7:1
+   and codeqwen1.5-7b's 32:32 at d 128 (causal over 2048), and T = 37
+   (K14); bf16 outputs also
    value by value (one bf16 step of each value); shows that the same
    value check fails the bf16 kernel's arithmetic with P rounded once to
    bf16 (``ref.flash_attention_tc_emulated(split_p=False)``) at the global
-   shape and passes it with P split;
+   shape and passes it with P split; then holds qwen3-moe-30b-a3b's MoE
+   layer at full width (128 experts, top 8, d 2048, f 768, f32, 512
+   tokens at capacity factor 1.0) on the card against the CPU: the same
+   kept (token, expert) pairs, some dropped, outputs within 1e-5 of max
+   |y|, 3 calls bitwise the same;
 23. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens),
    gemma2-27b (2 of its 46 layers, batch 2, prompt 6144, 16 new),
-   nemotron-4-340b (2 of its 96 layers, batch 2, prompt 4096, 16 new) and
-   hymba-1.5b (32 layers, batch 4, prompt 2048, 32 new) three times each
-   through ``launch.serve.serve`` at full width, with every plain
-   attention / WKV function and SDPA made to raise meanwhile: the tokens
-   are in range, the runs agree bitwise, the launch counts are K14 =
-   layers x tokens and K13 = layers in each, by build too (K13 one per
-   layer at its head size and window); the third run is profiled,
-   its device time read against the second's wall clock; and times
-   hymba's selective scan (plain PyTorch) a layer at its serve shape;
+   nemotron-4-340b (2 of its 96 layers, batch 2, prompt 4096, 16 new),
+   hymba-1.5b (32 layers, batch 4, prompt 2048, 32 new),
+   qwen3-moe-30b-a3b (8 of 48 layers, batch 4, prompt 2048, 16 new),
+   arctic-480b (2 of 35 layers, bf16 weights, batch 2, prompt 2048, 16
+   new), whisper-large-v3 (32 encoder and 32 decoder layers, batch 4,
+   1500 audio frames, prompt 64, 64 new), llava-next-mistral-7b (32
+   layers, batch 2, 2880 image tokens and a prompt of 128, 32 new),
+   qwen2.5-14b (8 of 48 layers) and codeqwen1.5-7b (8 of 32), both at
+   batch 4, prompt 2048, 16 new, three times each through
+   ``launch.serve.serve`` at full width (the image and audio stubs 0.1 x
+   N(0, 1) from a seed), with every plain attention / WKV function and
+   SDPA made to raise meanwhile: the tokens are in range, the runs agree
+   bitwise, the launch counts are K14 = layers x tokens and K13 = layers
+   in each (whisper: 32 encoder + 32 decoder + 32 cross-attention), by
+   build too (K13 one per layer at its head size and window, non-causal
+   launches apart); the third run is profiled, its device time read
+   against the second's wall clock; and times hymba's selective scan
+   (plain PyTorch) a layer at its serve shape;
 24. times K13 and K14 at the serve shapes beside their plain versions
    and, for K13 on global layers, SDPA; holds K13 there in bf16 and f32
    (gemma2: batch 2, 6144 tokens, global and window 4096), in bf16 at
-   nemotron-4's global layer (batch 2, 4096 tokens, d 192) and hymba's
-   global and window-1024 layers (batch 4, 2048 tokens, d 64), and shows
-   that these checks fail a K13 that ignores the window or cuts it one
-   key short;
+   nemotron-4's global layer (batch 2, 4096 tokens, d 192), hymba's
+   global and window-1024 layers (batch 4, 2048 tokens, d 64) and the
+   global layers of qwen3-moe, arctic, qwen2.5, codeqwen and llava and
+   whisper's encoder, cross-attention and decoder at their serve shapes,
+   and shows that these checks fail a K13 that ignores the window or cuts
+   it one key short;
 25. prints the whole script's time beside the card's name and power
    limit, the ``kernels`` JSON line (each row's launches are its own
    build's count in a measured run: ``_build.BUILD_LAUNCHES``, one K13
-   row per served layer kind), the card line, and last the result line
+   row per served layer kind, whisper's encoder and cross-attention
+   apart), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits with status 1 and prints no result line.
@@ -3871,11 +3891,26 @@ K14_S_TOL = 1e-4
 # (at most 2^-7 of the value) plus their f32 difference (the float32
 # tolerance of the largest value).
 BF16_STEP = 2.0 ** -7
-# serve runs: (arch, depth kept, batch, prompt, generated tokens)
+# serve runs: (arch, depth kept, batch, prompt, generated tokens); depth
+# None keeps every layer (whisper: 32 encoder and 32 decoder layers).
+# llava's 2880 image tokens come before its prompt; whisper's decoder
+# reads 1500 audio frames (its decoder context is 448 tokens).
 SERVE_RUNS = (("rwkv6-1.6b", None, 4, 1024, 32),
               ("gemma2-27b", 2, 2, 6144, 16),
               ("nemotron-4-340b", 2, 2, 4096, 16),
-              ("hymba-1.5b", None, 4, 2048, 32))
+              ("hymba-1.5b", None, 4, 2048, 32),
+              ("qwen3-moe-30b-a3b", 8, 4, 2048, 16),
+              ("arctic-480b", 2, 2, 2048, 16),
+              ("whisper-large-v3", None, 4, 64, 64),
+              ("llava-next-mistral-7b", None, 2, 128, 32),
+              ("qwen2.5-14b", 8, 4, 2048, 16),
+              ("codeqwen1.5-7b", 8, 4, 2048, 16))
+# the MoE layer on the card against the CPU: qwen3-moe-30b-a3b's width, f32,
+# 1 x 512 tokens at capacity factor 1.0 (some assignments dropped); outputs
+# within MOE_TOL of max |y| (two f32 orders of the router and the expert
+# products, over d 2048 and f 768)
+MOE_TOKENS = 512
+MOE_TOL = 1e-5
 # K13's bf16 build (the tensor-core kernel), for its ptxas and shared-memory
 # report
 K13_BF16 = "flash_attn_bf16"
@@ -3954,8 +3989,10 @@ def phase_lm_parity():
     from repro_torch.kernels import wkv6 as WK
 
     print("== K13/K14 parity (kernel vs plain; gemma2-27b's Hq 32, Hkv 16, "
-          "d 128, hymba-1.5b's d 64 and nemotron-4-340b's d 192, and "
-          "rwkv6-1.6b's H 32, d 64)", flush=True)
+          "d 128, hymba-1.5b's d 64 and nemotron-4-340b's d 192, "
+          "whisper-large-v3's non-causal encoder and cross-attention, "
+          "arctic-480b's and codeqwen1.5-7b's heads, and rwkv6-1.6b's H 32, "
+          "d 64)", flush=True)
     gen = torch.Generator("cuda").manual_seed(5)
     err = {}
     Hq, Hkv, d = GEMMA_HEADS["Hq"], GEMMA_HEADS["Hkv"], GEMMA_HEADS["d"]
@@ -3988,6 +4025,21 @@ def phase_lm_parity():
          dict(causal=True, window=333, softcap=None, q_offset=0)),
         ("d=192, GQA 12:1, S=777", dict(B=2, Hq=24, Hkv=2, Sq=777,
                                         Skv=777, d=192),
+         dict(causal=True, window=None, softcap=None, q_offset=0)),
+        # whisper-large-v3's encoder and cross-attention, non-causal over
+        # its 1500 audio frames (not a whole number of 64-key tiles), and
+        # arctic-480b's GQA 7:1 and codeqwen1.5-7b's MHA at d 128
+        ("whisper encoder: d=64, 20:20, S=1500, non-causal",
+         dict(B=4, Hq=20, Hkv=20, Sq=1500, Skv=1500, d=64),
+         dict(causal=False, window=None, softcap=None, q_offset=0)),
+        ("whisper cross-attention: d=64, 20:20, Sq=64, Skv=1500, "
+         "non-causal", dict(B=4, Hq=20, Hkv=20, Sq=64, Skv=1500, d=64),
+         dict(causal=False, window=None, softcap=None, q_offset=0)),
+        ("arctic: d=128, GQA 7:1, S=2048",
+         dict(B=1, Hq=56, Hkv=8, Sq=2048, Skv=2048, d=128),
+         dict(causal=True, window=None, softcap=None, q_offset=0)),
+        ("codeqwen: d=128, MHA 32:32, S=2048",
+         dict(B=1, Hq=32, Hkv=32, Sq=2048, Skv=2048, d=128),
          dict(causal=True, window=None, softcap=None, q_offset=0)))
     for dtype in (torch.bfloat16, torch.float32):
         for label, shape, kw in k13_cases:
@@ -4049,6 +4101,65 @@ def phase_lm_parity():
                           for a, b in reps),
                       f"K14 {dtype} {label}: 5 more calls give bitwise the "
                       "same o and state")
+    return err
+
+
+def phase_moe_parity():
+    """qwen3-moe-30b-a3b's MoE layer (``models/moe.moe_ffn``) at full width
+    (128 experts, top 8, d 2048, f 768) in float32 on the card against the
+    same layer on the CPU: 1 x MOE_TOKENS tokens at capacity factor 1.0,
+    so that some assignments are dropped.  The kept (token, expert) pairs
+    must be the same, the outputs within MOE_TOL of max |y|, and 3 calls on
+    the card bitwise the same (the combine sums each token's k rows; it
+    adds nothing with atomics)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import moe as MO
+
+    cfg = dataclasses.replace(get("qwen3-moe-30b-a3b"),
+                              compute_dtype="float32", capacity_factor=1.0)
+    T, k, E = MOE_TOKENS, cfg.top_k, cfg.n_experts
+    cap = MO._capacity(T, k, E, cfg.capacity_factor)
+    print(f"== MoE layer, card against CPU ({cfg.name}: {E} experts, top "
+          f"{k}, d {cfg.d_model}, f {cfg.d_ff_expert}, f32; 1 x {T} tokens, "
+          f"capacity factor 1.0: {cap} slots an expert)", flush=True)
+    moe = MO.init_moe(torch.Generator("cuda").manual_seed(11), cfg)
+    x = torch.randn((1, T, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(12))
+
+    def kept_pairs(eid, slot):
+        kept = (slot < E * cap).cpu()
+        tok = torch.arange(T * k) // k
+        return set(zip(tok[kept].tolist(), eid.cpu()[kept].tolist()))
+
+    got = [MO.moe_ffn(x, moe, cfg) for _ in range(3)]
+    eid, _, slot = MO._route(x[0], moe.router, top_k=k, capacity=cap)
+    pairs = kept_pairs(eid, slot)
+    ms = device_ms(lambda: MO.moe_ffn(x, moe, cfg), calls=3, reps=3,
+                   warmup=1)
+    torch.cuda.synchronize()
+    moe, x = moe.cpu(), x.cpu()
+    want = MO.moe_ffn(x, moe, cfg)
+    eid_c, _, slot_c = MO._route(x[0], moe.router, top_k=k, capacity=cap)
+    pairs_c = kept_pairs(eid_c, slot_c)
+    err = float((got[0].cpu() - want).abs().max())
+    rel = err / float(want.abs().max())
+    print(f"  kept {len(pairs)} of {T * k} assignments on the card, "
+          f"{len(pairs_c)} on the CPU; max |card - CPU| {err:.3e}, "
+          f"{rel:.2e} of max |y|; {ms:.3f} ms a call on the card (device "
+          "time)", flush=True)
+    check(pairs == pairs_c and len(pairs) < T * k,
+          "MoE: the card keeps the CPU's (token, expert) pairs, and drops "
+          "some")
+    check(rel <= MOE_TOL and bool(torch.isfinite(got[0]).all()),
+          f"MoE: card within {MOE_TOL:g} of max |y| of the CPU")
+    check(all(_same_bits(g, got[0]) for g in got[1:]),
+          "MoE: 3 calls on the card give bitwise the same output")
+    del moe, x, got
+    torch.cuda.empty_cache()
     return err
 
 
@@ -4133,12 +4244,29 @@ def _hymba_scan_ms(cfg, B, T):
     return wall_ms(lambda: ssm._ssm_scan(x, dt, Bc, Cc, A, D, h0), reps=3)
 
 
+def _stubs(cfg, B):
+    """The modality stubs of a served run (llava's image embeddings,
+    whisper's audio frames): 0.1 x N(0, 1) from a seeded generator on the
+    card, in the compute dtype, as the reference's tests/test_models.py
+    makes them, so that the image rows and the encoder carry data; None
+    for a text-only model."""
+    import torch
+
+    from repro_torch.configs.specs import extra_specs
+
+    spec = extra_specs(cfg, B)
+    if spec is None:
+        return None
+    gen = torch.Generator("cuda").manual_seed(2)
+    return {key: (0.1 * torch.randn(t.shape, generator=gen, device="cuda"))
+            .to(t.dtype) for key, t in spec.items()}
+
+
 def phase_serve():
-    """Serve rwkv6-1.6b (24 layers), gemma2-27b (2 of 46 layers),
-    nemotron-4-340b (2 of 96 layers) and hymba-1.5b (32 layers) at full
-    width through ``launch.serve.serve``, three times each: run 0 cold,
-    run 1 warm (the busy share's wall clock), run 2 profiled; and the time
-    of hymba's selective scan (plain PyTorch) per prefill."""
+    """Serve each of SERVE_RUNS at full width through
+    ``launch.serve.serve`` (depth cut where it says), three times each: run
+    0 cold, run 1 warm (the busy share's wall clock), run 2 profiled; and
+    the time of hymba's selective scan (plain PyTorch) per prefill."""
     import dataclasses
 
     import torch
@@ -4158,6 +4286,10 @@ def phase_serve():
         cfg = get(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
+        # what earlier phases and runs leave on the card; each peak is also
+        # printed less it, the serve run's own (its stubs included)
+        base = torch.cuda.memory_allocated()
+        extra = _stubs(cfg, B)
         runs = []
         for rep in range(3):
             _build.reset_launches()
@@ -4171,7 +4303,7 @@ def phase_serve():
                     else contextlib.nullcontext())
             with _forbid_plain_lm(), prof:
                 tokens, stats = serve(cfg, batch=B, prompt_len=P, gen=G,
-                                      seed=0, params=params)
+                                      seed=0, params=params, extra=extra)
                 torch.cuda.synchronize()
             del params
             runs.append((tokens, stats,
@@ -4180,7 +4312,12 @@ def phase_serve():
             torch.cuda.empty_cache()
         tokens, stats, launches, _ = runs[0]
         logits = stats["logits"]
-        tag = f"{arch} ({cfg.n_layers} layers, batch {B}, prompt {P}, {G} new)"
+        tag = (f"{arch} ({cfg.n_layers} layers, batch {B}, prompt {P}, "
+               f"{G} new" + (f", {cfg.img_tokens} image tokens first"
+                             if cfg.img_tokens else "")
+               + (f", {cfg.enc_layers} encoder layers over "
+                  f"{cfg.audio_ctx} audio frames" if cfg.enc_layers else "")
+               + ")")
         check(tuple(tokens.shape) == (B, G) and tokens.dtype == torch.long
               and bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
               and bool(torch.isfinite(logits).all()),
@@ -4195,14 +4332,21 @@ def phase_serve():
             want["wkv6"] = cfg.n_layers * G      # prefill + G - 1 steps
             want_builds = {"wkv6_bf16": want["wkv6"]}
         else:
-            want["flash_attn"] = cfg.n_layers    # every prefill layer
-            # one bf16 launch a layer, by its head size and window
+            # one bf16 launch a prefill layer, by its head size and window;
+            # whisper adds a non-causal one for each encoder layer and a
+            # non-causal cross one (Sq != Skv) for each decoder layer
             pattern = cfg.window_pattern()
-            want_builds = collections.Counter(
-                f"flash_attn_bf16_d{cfg.hd}"
-                + ("" if w is None else f"_window{w}")
-                for w in (pattern[i % len(pattern)]
-                          for i in range(cfg.n_layers)))
+            builds = [f"flash_attn_bf16_d{cfg.hd}"
+                      + ("" if w is None else f"_window{w}")
+                      for w in (pattern[i % len(pattern)]
+                                for i in range(cfg.n_layers))]
+            if cfg.enc_layers:
+                builds += ([f"flash_attn_bf16_d{cfg.hd}_noncausal"]
+                           * cfg.enc_layers
+                           + [f"flash_attn_bf16_d{cfg.hd}_noncausal_cross"]
+                           * cfg.n_layers)
+            want["flash_attn"] = len(builds)
+            want_builds = collections.Counter(builds)
         check(all(ln == want and ln.builds == want_builds
                   for _, _, ln, _ in runs),
               f"{tag}: launches flash_attn {launches['flash_attn']}, wkv6 "
@@ -4213,8 +4357,11 @@ def phase_serve():
             print(f"  {tag} run {i}: prefill {st['prefill_s'] * 1e3:.1f} ms, "
                   f"decode {st['decode_s'] * 1e3 / (G - 1):.2f} ms per token "
                   f"step, {st['tok_per_s']:.1f} tokens/s decoded, "
-                  f"{B * P / st['prefill_s']:.0f} prompt tokens/s; peak "
-                  f"memory {pk / 2 ** 30:.1f} GiB", flush=True)
+                  f"{B * (P + cfg.img_tokens) / st['prefill_s']:.0f} "
+                  f"prompt tokens/s (image tokens counted); peak "
+                  f"memory {pk / 2 ** 30:.2f} GiB, {(pk - base) / 2 ** 30:.2f} "
+                  f"GiB above the {base / 2 ** 30:.2f} GiB held before the "
+                  "run", flush=True)
         print(f"  {tag}: first tokens {tokens[0, :8].tolist()}", flush=True)
         warm = runs[1][1]
         _serve_profile(tag, prof, warm["prefill_s"] + warm["decode_s"])
@@ -4229,7 +4376,7 @@ def phase_serve():
                   + " ms (runs 0, 1, 2; host clocks)", flush=True)
         out["launches"][arch] = launches
         out["stats"][arch] = [st for _, st, _, _ in runs]
-        del runs, tokens, stats, logits, warm
+        del runs, tokens, stats, logits, warm, extra
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     return out
@@ -4259,8 +4406,9 @@ def _lm_row(label, kern, plain, nbytes, flops, peak, bw_copy, *, calls,
 
 def phase_lm_times(bw_copy):
     """K13 at gemma2's serve shapes (batch 2, 6144 tokens), nemotron-4's
-    (batch 2, 4096) and hymba's (batch 4, 2048), and K14 at rwkv6's (batch
-    4, 1024 tokens; and one decode step)."""
+    (batch 2, 4096), hymba's (batch 4, 2048) and those of qwen3-moe,
+    arctic, qwen2.5, codeqwen, llava and whisper's three layer kinds, and
+    K14 at rwkv6's (batch 4, 1024 tokens; and one decode step)."""
     import torch
     import torch.nn.functional as F
 
@@ -4353,6 +4501,51 @@ def phase_lm_times(bw_copy):
             del o, want
             torch.cuda.empty_cache()
         del q, k, v
+        torch.cuda.empty_cache()
+    # qwen3-moe, arctic, qwen2.5, codeqwen, llava and whisper at their
+    # serve shapes (SERVE_RUNS: batch, and prompt after llava's image
+    # tokens): one global causal layer each, and whisper's three kinds, its
+    # encoder over the 1500 audio frames, its cross-attention from the
+    # prompt to them and its decoder's self-attention.  None is soft-capped
+    # or windowed, so SDPA computes the same function on each.
+    from repro_torch.configs import get
+
+    runs = {arch: (B, P + get(arch).img_tokens)
+            for arch, _, B, P, _ in SERVE_RUNS}
+    shapes = [(f"K13 {arch}", arch, runs[arch][1], runs[arch][1], True)
+              for arch in ("qwen3-moe-30b-a3b", "arctic-480b", "qwen2.5-14b",
+                           "codeqwen1.5-7b", "llava-next-mistral-7b")]
+    wcfg = get("whisper-large-v3")
+    text = runs[wcfg.name][1]
+    shapes += [("K13 whisper encoder", wcfg.name, wcfg.audio_ctx,
+                wcfg.audio_ctx, False),
+               ("K13 whisper cross", wcfg.name, text, wcfg.audio_ctx, False),
+               ("K13 whisper decoder", wcfg.name, text, text, True)]
+    for key, arch, Sq, Skv, causal in shapes:
+        cfg = get(arch)
+        B = runs[arch][0]
+        Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q, k, v = _k13_inputs(gen, B, Hq, Hkv, Sq, Skv, d, torch.bfloat16)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        kw = dict(causal=causal, window=None, softcap=None, q_offset=0,
+                  scale=d ** -0.5)
+        flops = 4 * d * B * Hq * _attn_pairs(Sq, Skv, causal, None)
+        rows[key] = _lm_row(
+            f"{key} bf16 ({arch}: B={B}, Hq {Hq}, Hkv {Hkv}, d {d}, "
+            f"Sq={Sq}, Skv={Skv}, " + ("causal" if causal else "non-causal")
+            + ")",
+            lambda: FA.flash_attention_cuda(q, k, v, **kw),
+            lambda: ref.flash_attention_plain(q, k, v, **kw),
+            nbytes, flops, BF16_TENSOR_PEAK, bw_copy, calls=3,
+            lib=lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=d ** -0.5,
+                enable_gqa=True))
+        o = FA.flash_attention_cuda(q, k, v, **kw)
+        want = ref.flash_attention_plain(q, k, v, **kw)
+        _check_k13(f"{key} at the serve shape", o, want)
+        rows[key]["max_abs_err"] = float((o.float() - want.float())
+                                         .abs().max())
+        del q, k, v, o, want
         torch.cuda.empty_cache()
     H, d = RWKV_HEADS["H"], RWKV_HEADS["d"]
     for label, T, state in (("prefill T=1024", 1024, False),
@@ -4680,6 +4873,7 @@ def _run_phases(t_start) -> int:
         phase_bf16_slice12_times(bw, rows)
         phase_profile(cases, pcg, routes, slice4, ir, slice12)
         err.update(phase_lm_parity())
+        err["MoE"] = phase_moe_parity()
         served = phase_serve()
         lm_rows = phase_lm_times(bw)
     except CheckFailed as exc:
@@ -4844,6 +5038,21 @@ def _run_phases(t_start) -> int:
            "src/repro_torch/kernels/csrc/wkv6.cu",
            "src/repro/kernels/wkv6.py:89", "rwkv6-1.6b", "wkv6_bf16",
            err["K14"]))
+    # qwen3-moe, arctic, qwen2.5, codeqwen, llava and whisper: one row per
+    # model and layer kind, named by the build and the model (whisper's
+    # encoder, cross-attention and decoder self-attention each their own)
+    for arch in ("qwen3-moe-30b-a3b", "arctic-480b", "qwen2.5-14b",
+                 "codeqwen1.5-7b", "llava-next-mistral-7b"):
+        lm += ((f"K13 {arch}", f"flash_attn_d128@{arch}", *flash, arch,
+                "flash_attn_bf16_d128", None),)
+    lm += (("K13 whisper decoder", "flash_attn_d64@whisper-large-v3",
+            *flash, "whisper-large-v3", "flash_attn_bf16_d64", None),
+           ("K13 whisper encoder",
+            "flash_attn_d64_noncausal@whisper-large-v3", *flash,
+            "whisper-large-v3", "flash_attn_bf16_d64_noncausal", None),
+           ("K13 whisper cross",
+            "flash_attn_d64_noncausal_cross@whisper-large-v3", *flash,
+            "whisper-large-v3", "flash_attn_bf16_d64_noncausal_cross", None))
     for key, kname, source, replaces, arch, build, max_err in lm:
         row = lm_rows[key]
         kernels.append({

@@ -114,26 +114,31 @@ def lm_params_from_reference(cfg, tree, *, device=None):
     ``tree`` is the reference's ``init_params(key, cfg)`` pytree with numpy
     (or array-like) leaves: nested dicts whose keys are the port's module
     attribute names (a hymba layer's ``mamba`` tree and its
-    ``norm_attn_out`` and ``norm_ssm_out`` included), the per-layer entries
-    under ``"layers"`` stacked on a leading L axis (``jax.vmap``), which is
-    unstacked here.  Every port
-    parameter must be given, with its shape; dtypes follow
-    ``cfg.param_dtype``.  ``device`` is the card unless given.
+    ``norm_attn_out`` and ``norm_ssm_out``, a moe layer's ``moe`` tree,
+    whisper's ``xattn``, ``norm_x``, ``pos_embed``, ``enc_pos`` and
+    ``enc_final_norm`` included), the per-layer entries under ``"layers"``
+    and whisper's ``"enc_layers"`` stacked on a leading axis of
+    ``cfg.n_layers`` and ``cfg.enc_layers`` layers (``jax.vmap``), which is
+    unstacked here.  Every port parameter must be given, with its shape;
+    dtypes follow ``cfg.param_dtype``.  ``device`` is the card unless
+    given.
     """
     from repro_torch.models import model as M
 
     device = torch.device("cuda" if device is None else device)
     model = M.init_params(torch.Generator(device).manual_seed(0), cfg)
     params = dict(model.named_parameters())
+    stacks = {"layers": cfg.n_layers, "enc_layers": cfg.enc_layers}
     seen = set()
     for path, leaf in _leaves(tree):
         a = np.asarray(leaf)
-        if path[0] == "layers":
-            if a.shape[0] != cfg.n_layers:
+        if path[0] in stacks:
+            n = stacks[path[0]]
+            if a.shape[0] != n:
                 raise ValueError(f"{'.'.join(path)} stacks {a.shape[0]} "
-                                 f"layers, cfg has {cfg.n_layers}")
-            items = [(".".join(("layers", str(i)) + path[1:]), a[i])
-                     for i in range(cfg.n_layers)]
+                                 f"layers, cfg has {n}")
+            items = [(".".join((path[0], str(i)) + path[1:]), a[i])
+                     for i in range(n)]
         else:
             items = [(".".join(path), a)]
         for name, arr in items:

@@ -63,8 +63,11 @@ LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
             "nekbone_ax_dots": 0, "nekbone_ax_powers": 0,
             "nekbone_sstep_update": 0, "flash_attn": 0, "wkv6": 0}
 # The same launches by the build that ran: {C entry point (``<stem>_<dtype>``)
-# and the launch's detail, if any (K13 adds its head size and window,
-# ``flash_attn_bf16_d64_window1024``): count}, for the launched keys only.
+# and the launch's detail, if any (K13 adds its head size, its window,
+# ``_noncausal`` where it is not causal and ``_cross`` where Sq != Skv:
+# ``flash_attn_bf16_d64_window1024``, ``flash_attn_bf16_d64_noncausal``,
+# ``flash_attn_bf16_d64_noncausal_cross``): count}, for the launched keys
+# only.
 BUILD_LAUNCHES: dict[str, int] = {}
 
 

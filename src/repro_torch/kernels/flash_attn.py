@@ -16,7 +16,9 @@ rows x 32-key tiles).  :func:`flash_attention_cuda`:
   pieces; a misaligned tensor raises, it is not copied), allocates the
   output, launches the kernel on the current stream, raises if the launch
   returned an error, and adds one to ``LAUNCHES["flash_attn"]`` and to
-  the build's count by head size and window (``BUILD_LAUNCHES``,
+  the build's count by head size, window, ``_noncausal`` for a
+  non-causal call (whisper's encoder and cross-attention) and ``_cross``
+  where Sq != Skv (the cross-attention) (``BUILD_LAUNCHES``,
   kernels/_build.py).  There is no fallback.
 """
 from __future__ import annotations
@@ -30,8 +32,8 @@ from repro_torch.kernels.ref import flash_attention_plain
 
 __all__ = ["HEAD_DIMS", "flash_attention_cuda"]
 
-# the head sizes the kernel is built for: the reduced configs', hymba's,
-# gemma2's and nemotron-4's
+# the head sizes the kernel is built for: the reduced configs', hymba's and
+# whisper's, gemma2's and the other 128-wide models', and nemotron-4's
 HEAD_DIMS = (16, 64, 128, 192)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -85,5 +87,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          Sq, Skv, d, float(scale), int(causal), int(window is not None),
          int(window or 0), int(softcap is not None), float(softcap or 0.0),
          int(q_offset)),
-        detail=f"_d{d}" + ("" if window is None else f"_window{window}"))
+        detail=f"_d{d}" + ("" if window is None else f"_window{window}")
+        + ("" if causal else "_noncausal")
+        + ("" if Sq == Skv else "_cross"))
     return o

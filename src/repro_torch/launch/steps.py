@@ -1,10 +1,11 @@
 """The serving step functions: prefill and one-token decode.
 
 The port of the reference's ``launch/steps.py`` serving half: closures of
-``cfg`` around ``model.prefill`` and ``model.decode_step``.  ``TrainState``
-and ``make_train_step`` come with the training path (ROADMAP.md queue 1
-item 3).  PyTorch runs eagerly, so nothing here is compiled (the reference
-jits these closures).
+``cfg`` around ``model.prefill`` and ``model.decode_step``, for every
+registered architecture (the prefill takes llava's and whisper's modality
+stubs as ``extra``).  ``TrainState`` and ``make_train_step`` come with the
+training path (ROADMAP.md queue 1 item 3).  PyTorch runs eagerly, so
+nothing here is compiled (the reference jits these closures).
 """
 from __future__ import annotations
 

@@ -1,2 +1,3 @@
-"""LM architectures of the port (the serving path of the dense and rwkv
-blocks)."""
+"""LM architectures of the port: the serving path of every block kind
+(dense, moe, rwkv, hymba), whisper's encoder-decoder and llava's image
+tokens."""

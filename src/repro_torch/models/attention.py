@@ -10,9 +10,12 @@ takes a plain version.  On a CPU tensor the impl picks the plain
 formulation: ``naive`` the reference's oracle (``kernels/ref.attention_ref``),
 ``chunked`` and ``flash`` the kernel's own online-softmax function (K13's
 plain version; ``chunked`` computes that same function in the reference).
-The reference's sequence-sharded and context-parallel branches, and its
-cross-attention ``kv_override``, are not ported (ROADMAP.md queue 1 items
-14 and 3).
+``kv_override=(k, v)`` supplies the keys and values, (B, Hkv, Skv, hd),
+in place of the layer's own projections (whisper's cross-attention, over
+the encoder's output); with ``causal=False`` it and the encoder's
+self-attention run K13 non-causal, with Sq != Skv for the former.  The
+reference's sequence-sharded and context-parallel branches are not ported
+(ROADMAP.md queue 1 item 14).
 
 Decode (:func:`decode_attention`) attends a (B, Hkv, max_len, hd) cache.
 It is plain torch, as in the reference, where it is einsum code outside any
@@ -46,6 +49,7 @@ class Attention(nn.Module):
         self.wk = L.Linear(gen, d, Hkv * hd, bias=cfg.qkv_bias, dtype=dt)
         self.wv = L.Linear(gen, d, Hkv * hd, bias=cfg.qkv_bias, dtype=dt)
         self.wo = L.Linear(gen, H * hd, d, dtype=dt)
+        self.q_norm = self.k_norm = None
         if cfg.qk_norm:
             self.q_norm = L.Norm(hd, dtype=dt, device=gen.device)
             self.k_norm = L.Norm(hd, dtype=dt, device=gen.device)
@@ -55,33 +59,46 @@ def init_attention(gen: torch.Generator, cfg) -> Attention:
     return Attention(gen, cfg)
 
 
-def _project_qkv(x, p: Attention, cfg, positions):
+def _heads(x, w: L.Linear, n: int, cfg, norm=None, positions=None):
+    """(B, S, d) -> (B, S, n, hd) through ``w``; rms-normed by ``norm``
+    (qk-norm) if given, and rotated where the config has RoPE and
+    ``positions`` is given."""
     B, S, _ = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    cdt = L.dtype_of(cfg.compute_dtype)
-    q = L.linear(x, p.wq, cdt).reshape(B, S, H, hd)
-    k = L.linear(x, p.wk, cdt).reshape(B, S, Hkv, hd)
-    v = L.linear(x, p.wv, cdt).reshape(B, S, Hkv, hd)
-    if cfg.qk_norm:
-        q = L.rms_norm(q, p.q_norm, eps=cfg.norm_eps)
-        k = L.rms_norm(k, p.k_norm, eps=cfg.norm_eps)
-    if cfg.pos_emb == "rope":
-        q = L.rope(q, positions, theta=cfg.rope_theta)
-        k = L.rope(k, positions, theta=cfg.rope_theta)
+    t = L.linear(x, w, L.dtype_of(cfg.compute_dtype)).reshape(B, S, n, cfg.hd)
+    if norm is not None:
+        t = L.rms_norm(t, norm, eps=cfg.norm_eps)
+    if cfg.pos_emb == "rope" and positions is not None:
+        t = L.rope(t, positions, theta=cfg.rope_theta)
+    return t
+
+
+def _project_qkv(x, p: Attention, cfg, positions, *, kv: bool = True):
+    """q, k, v in (B, S, heads, hd); k and v are None unless ``kv``."""
+    q = _heads(x, p.wq, cfg.n_heads, cfg, p.q_norm, positions)
+    if not kv:
+        return q, None, None
+    k = _heads(x, p.wk, cfg.n_kv_heads, cfg, p.k_norm, positions)
+    v = _heads(x, p.wv, cfg.n_kv_heads, cfg)
     return q, k, v
 
 
 def attention(x, p: Attention, cfg, *, positions, window=None, causal=True,
-              impl: str = "chunked"):
+              impl: str = "chunked", kv_override=None):
     """Full-sequence (prefill) attention.
 
     Returns (out, (k, v)) — k/v in (B, Hkv, S, hd) for cache construction.
+    ``kv_override`` supplies external K/V (cross-attention), already
+    (B, Hkv, Skv, hd); the layer's own k and v are then not computed.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; have {IMPLS}")
     H, hd = cfg.n_heads, cfg.hd
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    q, k, v = _project_qkv(x, p, cfg, positions, kv=kv_override is None)
+    q = q.transpose(1, 2)
+    if kv_override is not None:
+        k, v = kv_override
+    else:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
     scale = hd ** -0.5
     if impl == "naive" and q.device.type == "cpu":
         out = attention_ref(q, k, v, causal=causal, scale=scale,

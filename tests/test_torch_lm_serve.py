@@ -1,13 +1,14 @@
 """The LM serving slice of the port against the JAX package, on the CPU.
 
-rwkv6-1.6b, gemma2-27b, nemotron-4-340b and hymba-1.5b at ``reduced()``
-size (float32; hymba with its Mamba path and both paths' norms): the
-reference's
-weights carried across by ``convert.lm_params_from_reference``, the same
-prompts (numpy, from a seed), the reference's ``prefill`` + ``decode_step``
-greedy loop against the port's ``serve``.  Tolerance: logits within 1e-4 of
-max |logit| at every step (float32 round-off of two evaluation orders);
-greedy tokens identical.
+All ten architectures at ``reduced()`` size (float32; hymba with its Mamba
+path and both paths' norms, the moe models with their experts, whisper with
+its encoder and cross-attention, llava with its image tokens): the
+reference's weights carried across by ``convert.lm_params_from_reference``,
+the same prompts and modality stubs (numpy, from a seed; the stubs 0.1 x
+N(0, 1), as the reference's tests/test_models.py makes them), the
+reference's ``prefill`` + ``decode_step`` greedy loop against the port's
+``serve``.  Tolerance: logits within 1e-4 of max |logit| at every step
+(float32 round-off of two evaluation orders); greedy tokens identical.
 """
 import dataclasses
 
@@ -25,7 +26,7 @@ from repro_torch.kernels import _build
 from repro_torch.launch import serve as S
 from repro_torch.models import model as M
 
-NAMES = ["rwkv6-1.6b", "gemma2-27b", "nemotron-4-340b", "hymba-1.5b"]
+NAMES = list(JARCHS)
 LOGIT_TOL = 1e-4           # relative to max |logit|
 B, PROMPT, GEN = 2, 24, 6  # prompt > gemma2's reduced window of 16
 
@@ -42,16 +43,35 @@ def _prompts(cfg, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (B, PROMPT))
 
 
-def _jax_greedy(name, tree, prompts):
+def _extra(cfg, seed=2):
+    """The modality stubs as numpy float32, 0.1 x N(0, 1), or None."""
+    rng = np.random.default_rng(seed)
+    if cfg.img_tokens:
+        return {"img_embeds": 0.1 * rng.standard_normal(
+            (B, cfg.img_tokens, cfg.d_model), dtype=np.float32)}
+    if cfg.enc_layers:
+        return {"audio_embeds": 0.1 * rng.standard_normal(
+            (B, cfg.audio_ctx, cfg.d_model), dtype=np.float32)}
+    return None
+
+
+def _as(extra, to):
+    return None if extra is None else {k: to(v) for k, v in extra.items()}
+
+
+def _jax_greedy(name, tree, prompts, extra):
     cfg = JARCHS[name].reduced()
-    prefill = jax.jit(lambda p, t: JM.prefill(p, cfg, t, max_len=PROMPT + GEN))
+    off = cfg.img_tokens or 0
+    prefill = jax.jit(lambda p, t, e: JM.prefill(p, cfg, t, e,
+                                                 max_len=off + PROMPT + GEN))
     step = jax.jit(lambda p, t, c, i: JM.decode_step(p, cfg, t, c, i))
-    logits, cache = prefill(tree, jnp.asarray(prompts, jnp.int32))
+    logits, cache = prefill(tree, jnp.asarray(prompts, jnp.int32),
+                            _as(extra, jnp.asarray))
     tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
     toks, picked = [tok], [logits[:, -1]]
     for i in range(GEN - 1):
         logits, cache = step(tree, tok, cache,
-                             jnp.asarray(PROMPT + i, jnp.int32))
+                             jnp.asarray(off + PROMPT + i, jnp.int32))
         tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
         toks.append(tok)
         picked.append(logits[:, -1])
@@ -67,12 +87,13 @@ def _top2_gap(logits):
 @pytest.mark.parametrize("name", NAMES)
 def test_serve_matches_reference(name):
     cfg, tree, model = _weights(name)
-    prompts = _prompts(cfg)
-    want_tok, want_logits = _jax_greedy(name, tree, prompts)
+    prompts, extra = _prompts(cfg), _extra(cfg)
+    want_tok, want_logits = _jax_greedy(name, tree, prompts, extra)
     _build.reset_launches()
     tok, stats = S.serve(cfg, batch=B, prompt_len=PROMPT, gen=GEN,
                          device="cpu", params=model,
-                         prompts=torch.as_tensor(prompts))
+                         prompts=torch.as_tensor(prompts),
+                         extra=_as(extra, torch.as_tensor))
     got = stats["logits"].numpy()
     assert got.shape == want_logits.shape == (B, GEN, cfg.vocab)
     scale = float(np.abs(want_logits).max())
@@ -92,15 +113,19 @@ def test_prefill_decode_matches_forward(name):
     reference's test_models.py check, same tolerance)."""
     cfg, _, model = _weights(name)
     S_ = 20
+    off = cfg.img_tokens or 0
     tokens = torch.as_tensor(
         np.random.default_rng(1).integers(0, cfg.vocab, (B, S_)))
-    full = M.forward(model, cfg, tokens)
+    extra = _as(_extra(cfg), torch.as_tensor)
+    full = M.forward(model, cfg, tokens, extra)
     k0 = S_ - 3
-    logits, cache = M.prefill(model, cfg, tokens[:, :k0], max_len=S_)
-    errs = [float((logits[:, -1] - full[:, k0 - 1]).abs().max())]
+    logits, cache = M.prefill(model, cfg, tokens[:, :k0], extra,
+                              max_len=off + S_)
+    errs = [float((logits[:, -1] - full[:, off + k0 - 1]).abs().max())]
     for i in range(k0, S_):
-        logits, cache = M.decode_step(model, cfg, tokens[:, i:i + 1], cache, i)
-        errs.append(float((logits[:, 0] - full[:, i]).abs().max()))
+        logits, cache = M.decode_step(model, cfg, tokens[:, i:i + 1], cache,
+                                      off + i)
+        errs.append(float((logits[:, 0] - full[:, off + i]).abs().max()))
     scale = float(full.abs().max())
     assert max(errs) < 2e-4 * max(scale, 10.0), errs
 
@@ -108,10 +133,14 @@ def test_prefill_decode_matches_forward(name):
 @pytest.mark.parametrize("name", NAMES)
 def test_forward_matches_reference(name):
     cfg, tree, model = _weights(name)
-    tokens = _prompts(cfg)
+    tokens, extra = _prompts(cfg), _extra(cfg)
     want = np.asarray(JM.forward(tree, JARCHS[name].reduced(),
-                                 jnp.asarray(tokens, jnp.int32)))
-    got = M.forward(model, cfg, torch.as_tensor(tokens)).numpy()
+                                 jnp.asarray(tokens, jnp.int32),
+                                 _as(extra, jnp.asarray)))
+    got = M.forward(model, cfg, torch.as_tensor(tokens),
+                    _as(extra, torch.as_tensor)).numpy()
+    assert got.shape == want.shape == (B, (cfg.img_tokens or 0) + PROMPT,
+                                       cfg.vocab)
     assert np.abs(got - want).max() <= LOGIT_TOL * np.abs(want).max()
 
 
@@ -127,16 +156,12 @@ def test_configs_are_the_reference_configs(name):
     assert get(name) is cfg
 
 
-def test_unported_archs_and_blocks_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get("qwen3-moe-30b-a3b")
-    gen = torch.Generator("cpu").manual_seed(0)
-    for cfg in (JARCHS["qwen3-moe-30b-a3b"].reduced(),
-                JARCHS["arctic-480b"].reduced(),
-                JARCHS["whisper-large-v3"].reduced(),
-                JARCHS["llava-next-mistral-7b"].reduced()):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_params(gen, cfg)
+def test_every_reference_arch_resolves():
+    assert list(ARCHS) == list(JARCHS)
+    for name in JARCHS:
+        assert get(name).name == name
+    with pytest.raises(KeyError, match="unknown arch 'gpt-2'"):
+        get("gpt-2")
 
 
 def test_lm_params_from_reference_rejects_a_partial_tree():
