@@ -243,11 +243,38 @@ reference package ``repro``, and, in order:
    whisper's encoder, cross-attention and decoder at their serve shapes,
    and shows that these checks fail a K13 that ignores the window or cuts
    it one key short;
-25. prints the whole script's time beside the card's name and power
+25. trains (``launch.train``, ``launch.steps.make_train_step``,
+   ``kernels/autograd.py``), with every plain attention / WKV function and
+   SDPA made to raise on the card meanwhile: all ten architectures at
+   ``reduced()`` size in f32 take one step's loss and every parameter's
+   gradient on the card (K13's f32 build at head size 16, K14's f32
+   build) against the same model and batch on the CPU (loss within 1e-5,
+   each gradient within 1e-4 of its largest value, every gradient finite,
+   every attention and time-mix weight's nonzero, launches one per
+   attention or WKV layer), and the same check fails a stand-in that
+   returns K13's (K14's) output detached; qwen2.5-14b (4 of its 48
+   layers, f32 weights and moments, bf16 compute, remat; batch 2,
+   sequence 2048) and rwkv6-1.6b (all 24 layers; batch 4, sequence 1024)
+   take 8 steps each through ``launch.train.train`` at peak lr 3e-4 on
+   ``SyntheticLMStream(seed=0)``: losses finite and falling, exactly
+   layers x 2 K13 (K14) launches a step (forward and remat recompute),
+   peak memory under 75 GiB, step ms (median of steps 3-8), tokens/s and
+   MFU printed beside the card's name and power limit, then one more step
+   of each under ``torch.profiler`` (device time by kernel against the
+   median step's host clock); one qwen2.5 step
+   with ``grad_accum=2`` against one with ``grad_accum=1`` on the same
+   batch and state (loss, gradient norm, update); reduced qwen2.5 and
+   rwkv6 trained 6 steps straight and 3 + checkpoint + restore + 3,
+   bitwise; K13 timed at the training shape beside its plain version and
+   SDPA, and the plain backward (``autograd.flash_attention_bwd``) timed
+   there; K14's plain backward (``autograd.WKV6Fn``) at rwkv6's training
+   shape, one layer's host clock and device time; all within 150 s;
+26. prints the whole script's time beside the card's name and power
    limit, the ``kernels`` JSON line (each row's launches are its own
    build's count in a measured run: ``_build.BUILD_LAUNCHES``, one K13
    row per served layer kind, whisper's encoder and cross-attention
-   apart), the card line, and last the result line
+   apart, and one K13 and one K14 row for the 8-step training runs), the
+   card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits with status 1 and prints no result line.
@@ -258,6 +285,7 @@ import collections
 import contextlib
 import ctypes
 import json
+import math
 import os
 import pathlib
 import re
@@ -4564,6 +4592,463 @@ def phase_lm_times(bw_copy):
     torch.cuda.empty_cache()
     return rows
 
+# the training phase: the ten architectures reduced, a step's gradients on
+# the card against the CPU; qwen2.5-14b (4 of its 48 layers, f32 weights and
+# moments, bf16 compute, remat) and rwkv6-1.6b (all 24 layers) at full width
+# through launch.train.train; restarts of reduced qwen2.5 and rwkv6
+TRAIN_REDUCED = (2, 32)          # batch, sequence of the reduced steps
+# card against CPU, f32 (the same weights and batch): the loss relative, each
+# parameter's gradient relative to its largest |g| on the CPU (two f32
+# evaluation orders; the CPU port against the reference measured 3.9e-5 at
+# worst, rwkv6's u)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+# (arch, layers kept (None: all), batch, sequence)
+TRAIN_RUNS = (("qwen2.5-14b", 4, 2, 2048), ("rwkv6-1.6b", None, 4, 1024))
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4
+TRAIN_PEAK_GIB = 75.0
+# one grad_accum=2 step against one grad_accum=1 step on the same batch
+# from the same state (bf16 compute; the micro-batches' weight gradients
+# are rounded to bf16 apart and summed in f32): the loss and the pre-clip
+# gradient norm relative; the parameters' update, |P2 - P1| over
+# |P1 - P0| (AdamW's first step is sign(g) lr, so entries whose g is
+# within round-off of 0 may take either sign).  Two runs on an H100 at
+# 700 W read the same: loss bitwise, gradient norm 2.5e-6, update 0.0130
+# (0.017% of the entries apart by more than lr / 2); the bars stand 40x
+# above the gradient norm's reading and 3.8x above the update's
+ACCUM_LOSS_TOL = 1e-5
+ACCUM_GNORM_TOL = 1e-4
+ACCUM_UPDATE_TOL = 0.05
+TRAIN_PHASE_S = 150.0
+
+
+def _loss_and_grads(model, cfg, tokens, extra):
+    """One training step's loss and every parameter's gradient (on the
+    CPU), as ``launch/steps.make_train_step`` takes them."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    named = dict(model.named_parameters())
+    loss = M.loss_fn(model, cfg, {"tokens": tokens}, extra)
+    got = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return float(loss.detach()), {k: (torch.zeros_like(p) if g is None else g)
+                         .detach().cpu() for (k, p), g in zip(named.items(),
+                                                              got)}
+
+
+def _mixing(name: str) -> bool:
+    """An attention (self or cross) or RWKV time-mix weight."""
+    return any(f".{m}." in name for m in ("attn", "xattn")) or (
+        ".rwkv." in name and not name.split(".rwkv.")[1].startswith("cm_"))
+
+
+def _grad_report(cpu, card):
+    """(loss rel err, worst leaf rel err and its name, non-finite leaves,
+    mixing weights whose card gradient is all 0)."""
+    import torch
+
+    (l0, g0), (l1, g1) = cpu, card
+    worst, where = 0.0, None
+    for k, a in g0.items():
+        b = g1[k]
+        err = float((b - a).abs().max()) / max(float(a.abs().max()), 1e-30)
+        if err > worst:
+            worst, where = err, k
+    bad = [k for k, g in g1.items() if not bool(torch.isfinite(g).all())]
+    zero = [k for k, g in g1.items() if _mixing(k) and not bool(g.any())]
+    return abs(l1 - l0) / abs(l0), worst, where, bad, zero
+
+
+def _grads_agree(rep) -> bool:
+    lrel, worst, _, bad, zero = rep
+    return (lrel <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL and not bad
+            and not zero)
+
+
+def _detached(fn_name):
+    """A stand-in for ``kernels/autograd``'s Function ``fn_name`` that
+    calls the kernel's wrapper directly: its output has no ``grad_fn``."""
+    from repro_torch.kernels import ops
+
+    if fn_name == "FlashAttentionFn":
+        return lambda q, k, v, causal, scale, window, softcap, q_offset: \
+            ops.flash_attention(q, k, v, causal=causal, scale=scale,
+                                window=window, softcap=softcap,
+                                q_offset=q_offset)
+    return lambda r, k, v, w, u, s0: ops.wkv6(r, k, v, w, u,
+                                              initial_state=s0,
+                                              return_state=True)
+
+
+def _train_reduced():
+    """Every architecture at reduced() size in f32: one step's loss and
+    gradients on the card (K13's f32 build at head size 16, K14's f32
+    build) against the same model and batch on the CPU; then the same
+    check with K13 (K14) called without its Function must fail."""
+    import copy
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.models import model as M
+
+    B, S = TRAIN_REDUCED
+    print(f"== training, reduced (every architecture, f32, batch {B}, "
+          f"sequence {S}): a step's gradients on the card against the CPU",
+          flush=True)
+    for name, base in ARCHS.items():
+        cfg = base.reduced()
+        model = M.init_params(torch.Generator().manual_seed(0),
+                              cfg).requires_grad_(True)
+        card = copy.deepcopy(model).cuda()
+        toks = torch.from_numpy(SyntheticLMStream(cfg.vocab, seed=0).batch(
+            0, B, S))
+        extra = _stubs(cfg, B)
+        cpu = _loss_and_grads(model, cfg, toks, None if extra is None else
+                              {k: t.cpu() for k, t in extra.items()})
+        with _forbid_plain_lm():
+            got, launches = _launch_run(lambda: _loss_and_grads(
+                card, cfg, toks.cuda(), extra))
+        rep = _grad_report(cpu, got)
+        lrel, worst, where, bad, zero = rep
+        if cfg.block == "rwkv":
+            want = {"wkv6": cfg.n_layers, "flash_attn": 0}
+        else:
+            want = {"flash_attn": cfg.n_layers * (2 if cfg.enc_layers else 1)
+                    + cfg.enc_layers, "wkv6": 0}
+        n_mix = sum(_mixing(k) for k in got[1])
+        check(_grads_agree(rep) and all(launches[k] == v
+                                        for k, v in want.items()),
+              f"{name} reduced: loss {got[0]:.6f} (CPU {cpu[0]:.6f}, rel "
+              f"{lrel:.1e} <= {TRAIN_LOSS_TOL:g}); {len(got[1])} gradients "
+              f"finite, worst {worst:.1e} of max |g| ({where}) <= "
+              f"{TRAIN_GRAD_TOL:g}; the {n_mix} attention / time-mix "
+              f"weights' nonzero; launches {dict(launches)} (want {want})")
+        if name in ("qwen2.5-14b", "rwkv6-1.6b"):
+            fn = "WKV6Fn" if cfg.block == "rwkv" else "FlashAttentionFn"
+            with _forbid_plain_lm(), mock.patch.object(
+                    getattr(AG, fn), "apply", _detached(fn)):
+                bad_rep = _grad_report(cpu, _loss_and_grads(
+                    card, cfg, toks.cuda(), extra))
+            check(not _grads_agree(bad_rep),
+                  f"{name} reduced: the check fails a stand-in that returns "
+                  f"{'K14' if fn == 'WKV6Fn' else 'K13'}'s output detached "
+                  f"(worst {bad_rep[1]:.1e}; {len(bad_rep[4])} mixing "
+                  "weights with no gradient)")
+        del model, card
+
+
+def _peak_gib():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _train_full(arch, layers, B, S, smi_line):
+    """``launch.train.train`` at full width for TRAIN_STEPS steps, the plain
+    attention and WKV forms made to raise; returns its history and
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch.train import train
+
+    cfg = get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    tag = (f"{arch} ({cfg.n_layers} layers, batch {B}, sequence {S}, "
+           f"{cfg.param_dtype} weights, {cfg.opt_moment_dtype} moments, "
+           f"{cfg.compute_dtype} compute, remat {cfg.remat})")
+    print(f"== training {tag}: {TRAIN_STEPS} steps at peak lr {TRAIN_LR:g}",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    hist = []
+    with _forbid_plain_lm():
+        (state, losses), launches = _launch_run(lambda: train(
+            cfg, steps=TRAIN_STEPS, batch=B, seq=S, peak_lr=TRAIN_LR,
+            seed=0, device="cuda", history=hist))
+    peak = _peak_gib()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    tail = hist[2:]
+    ms = statistics.median(r["ms"] for r in tail)
+    _train_profile(tag, state, cfg, B, S, ms)
+    del state
+    torch.cuda.empty_cache()
+    if cfg.block == "rwkv":
+        build, kern = "wkv6_bf16", "wkv6"
+        want = {"wkv6": TRAIN_STEPS * cfg.n_layers * 2, "flash_attn": 0}
+    else:
+        build, kern = f"flash_attn_bf16_d{cfg.hd}", "flash_attn"
+        want = {"flash_attn": TRAIN_STEPS * cfg.n_layers * 2, "wkv6": 0}
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{tag}: losses finite and falling, {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (" + ", ".join(f"{x:.4f}" for x in losses)
+          + ")")
+    check(all(launches[k] == v for k, v in want.items())
+          and launches.of(build) == want[kern],
+          f"{tag}: {launches.of(build)} {build} launches, {want[kern]} = "
+          f"{TRAIN_STEPS} steps x {cfg.n_layers} layers x 2 (forward and "
+          f"remat recompute); launches {dict(launches)}")
+    check(peak < TRAIN_PEAK_GIB,
+          f"{tag}: peak memory {peak:.2f} GiB < {TRAIN_PEAK_GIB:g} "
+          f"({base / 2 ** 30:.2f} GiB held before the run; {n_params / 1e9:.3f}"
+          f" B parameters)")
+    tps = statistics.median(r["tokens_per_s"] for r in tail)
+    mfu = statistics.median(r["mfu"] for r in tail)
+    print(f"  {tag}: step {ms:.1f} ms (median of steps 3-{TRAIN_STEPS}; "
+          f"first {hist[0]['ms']:.1f} ms), {tps:.0f} tokens/s, MFU {mfu:.3f} "
+          f"(of 989 TF/s), peak memory {peak:.2f} GiB; {smi_line}",
+          flush=True)
+    return {"launches": launches, "ms": ms, "tokens_per_s": tps, "mfu": mfu,
+            "peak_gib": peak, "cfg": cfg}
+
+
+def _device_events(prof):
+    import torch
+
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _train_profile(tag, state, cfg, B, S, step_ms):
+    """One more training step, on the batch after the run's, under
+    torch.profiler (device activity only: the host's ops of rwkv6's step
+    would take minutes to parse; its launches are not the run's): device
+    time by kernel over the median unprofiled step's host clock, the busy
+    share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch import steps as St
+
+    step_fn = St.make_train_step(cfg, peak_lr=TRAIN_LR, warmup=1,
+                                 total_steps=100)
+    tokens = torch.from_numpy(SyntheticLMStream(vocab=cfg.vocab, seed=0)
+                              .batch(TRAIN_STEPS, B, S)).to("cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+    kernels = _device_events(prof)
+    if not kernels:
+        print(f"  {tag}: the profiler saw no device time", flush=True)
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  {tag}: one profiled step: device {busy:.1f} ms in "
+          f"{len(kernels)} device ops; {busy / step_ms:.2f} of the "
+          f"unprofiled median step's {step_ms:.1f} ms (busy share); top: "
+          + "; ".join(f"{name[:40]} {t:.1f} ms" for name, t in top),
+          flush=True)
+
+
+def _wkv_backward(gen, step_ms):
+    """K14's plain backward (``autograd.WKV6Fn``: ``ref.wkv6_chunked``'s
+    autograd) at rwkv6-1.6b's training shape, one layer: its host clock
+    (synchronized, median of 3) and its device time (torch.profiler),
+    beside the median training step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import autograd as AG
+
+    cfg = get("rwkv6-1.6b")
+    _, _, B, T = TRAIN_RUNS[1]
+    H, d = cfg.n_heads, cfg.hd
+    r, k, v, w, u, _ = _k14_inputs(gen, B, H, T, d, torch.bfloat16, False)
+    ins = [t.requires_grad_() for t in (r, k, v, w, u)]
+    o = AG.wkv6(*ins)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+
+    def bwd():
+        return torch.autograd.grad(o, ins, do, retain_graph=True)
+
+    host = wall_ms(bwd, reps=3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bwd()
+        torch.cuda.synchronize()
+    kernels = _device_events(prof)
+    dev = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"  the plain K14 backward (kernels/autograd.WKV6Fn, f32) at "
+          f"rwkv6-1.6b's training shape (B={B}, H={H}, T={T}, d={d}): host "
+          f"{host:.1f} ms a layer, device {dev:.1f} ms in {len(kernels)} "
+          f"device ops; x {cfg.n_layers} layers {host * cfg.n_layers:.0f} "
+          f"ms of the {step_ms:.1f} ms step", flush=True)
+    return host, dev
+
+
+def _train_accum(cfg, B, S):
+    """One grad_accum=2 step against one grad_accum=1 step on one batch,
+    each from the fresh state of seed 0."""
+    import torch
+
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch import steps as St
+
+    print(f"== training {cfg.name} ({cfg.n_layers} layers): one step with "
+          "grad_accum=2 against one with grad_accum=1, same batch and state",
+          flush=True)
+    tokens = torch.from_numpy(SyntheticLMStream(cfg.vocab, seed=0).batch(
+        0, B, S)).cuda()
+
+    def fresh():
+        return St.make_train_state(torch.Generator("cuda").manual_seed(0),
+                                   cfg)
+
+    def step(state, accum):
+        fn = St.make_train_step(cfg, peak_lr=TRAIN_LR, warmup=1,
+                                total_steps=100, grad_accum=accum)
+        with _forbid_plain_lm():
+            (state, m), launches = _launch_run(
+                lambda: fn(state, {"tokens": tokens}))
+        return state, {k: float(v) for k, v in m.items()}, launches
+
+    torch.cuda.reset_peak_memory_stats()
+    state, m1, l1 = step(fresh(), 1)
+    p1 = {k: p.detach().clone() for k, p in state.named().items()}
+    del state
+    torch.cuda.empty_cache()
+    state = fresh()
+    with torch.no_grad():
+        u1 = math.sqrt(sum(float(torch.sum(torch.square(p1[k] - p)))
+                           for k, p in state.named().items()))
+    state, m2, l2 = step(state, 2)
+    with torch.no_grad():
+        du = math.sqrt(sum(float(torch.sum(torch.square(p1[k] - p)))
+                           for k, p in state.named().items()))
+        flips = sum(int(torch.count_nonzero((p1[k] - p).abs()
+                                            > 0.5 * m1["lr"]))
+                    for k, p in state.named().items())
+        n = sum(p.numel() for p in p1.values())
+    peak = _peak_gib()
+    del state, p1
+    torch.cuda.empty_cache()
+    lrel = abs(m2["loss"] - m1["loss"]) / abs(m1["loss"])
+    grel = abs(m2["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    want = cfg.n_layers * 2
+    check(lrel <= ACCUM_LOSS_TOL and grel <= ACCUM_GNORM_TOL
+          and du <= ACCUM_UPDATE_TOL * u1
+          and l1["flash_attn"] == want and l2["flash_attn"] == 2 * want,
+          f"{cfg.name}: grad_accum 2 against 1: loss {m2['loss']:.6f} / "
+          f"{m1['loss']:.6f} (rel {lrel:.1e} <= {ACCUM_LOSS_TOL:g}), grad "
+          f"norm {m2['grad_norm']:.5f} / {m1['grad_norm']:.5f} (rel "
+          f"{grel:.1e} <= {ACCUM_GNORM_TOL:g}), |P2 - P1| {du:.4e} <= "
+          f"{ACCUM_UPDATE_TOL:g} |P1 - P0| = {u1:.4e} ({flips} of {n} "
+          f"entries apart by more than lr / 2); K13 launches "
+          f"{l1['flash_attn']} and {l2['flash_attn']} (want {want} and "
+          f"{2 * want}); peak memory {peak:.2f} GiB")
+    check(peak < TRAIN_PEAK_GIB,
+          f"{cfg.name} grad_accum steps: peak memory {peak:.2f} GiB < "
+          f"{TRAIN_PEAK_GIB:g}")
+
+
+def _train_restart():
+    """Reduced qwen2.5 and rwkv6 on the card: 6 steps straight against 3,
+    a checkpoint, a restore and 3 more; the final parameters bitwise."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch.train import train
+
+    print("== training restart on the card (reduced qwen2.5-14b and "
+          "rwkv6-1.6b, f32): 6 steps against 3 + save + restore + 3",
+          flush=True)
+    for arch in ("qwen2.5-14b", "rwkv6-1.6b"):
+        cfg = get(arch).reduced()
+        kw = dict(batch=2, seq=32, peak_lr=1e-3, device="cuda", log_every=3)
+        with _forbid_plain_lm():
+            full, _ = train(cfg, steps=6, **kw)
+            with tempfile.TemporaryDirectory(prefix="repro-ckpt-") as d:
+                train(cfg, steps=3, ckpt_dir=d, ckpt_every=3, **kw)
+                resumed, _ = train(cfg, steps=6, ckpt_dir=d, ckpt_every=3,
+                                   **kw)
+        a, b = full.named(), resumed.named()
+        same = all(_same_bits(a[k].detach(), b[k].detach()) for k in a) \
+            and all(_same_bits(full.mu[k], resumed.mu[k])
+                    and _same_bits(full.nu[k], resumed.nu[k]) for k in a) \
+            and full.step == resumed.step == 6
+        worst = max(float((a[k] - b[k]).detach().abs().max()) for k in a)
+        check(same, f"{arch} reduced: 6 steps straight and 3 + restart + 3 "
+              f"give bitwise the same parameters, moments and step ({len(a)}"
+              f" parameters; max |diff| {worst:.1e})")
+        del full, resumed
+    torch.cuda.empty_cache()
+
+
+def phase_train(lm_rows, bw_copy, smi_line):
+    """The training path on the card (module docstring, item 25)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
+    _train_reduced()
+    full = {}
+    for arch, layers, B, S in TRAIN_RUNS:
+        full[arch] = _train_full(arch, layers, B, S, smi_line)
+        if arch == "qwen2.5-14b":
+            _train_accum(full[arch]["cfg"], B, S)
+    _train_restart()
+    # K13 at the training shape (qwen2.5-14b, batch 2, 2048 tokens): its
+    # time beside the plain version and SDPA, and the plain backward's
+    print("== K13 at the training shape, and its plain backward", flush=True)
+    cfg = get("qwen2.5-14b")
+    _, B, S = TRAIN_RUNS[0][1:]
+    Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator("cuda").manual_seed(8)
+    q, k, v = _k13_inputs(gen, B, Hq, Hkv, S, S, d, torch.bfloat16)
+    kw = dict(causal=True, window=None, softcap=None, q_offset=0,
+              scale=d ** -0.5)
+    flops = 4 * d * B * Hq * _attn_pairs(S, S, True, None)
+    row = _lm_row(
+        f"K13 bf16 qwen2.5-14b training shape (B={B}, Hq {Hq}, Hkv {Hkv}, "
+        f"d {d}, S={S})", lambda: FA.flash_attention_cuda(q, k, v, **kw),
+        lambda: ref.flash_attention_plain(q, k, v, **kw),
+        2 * (2 * q.numel() + k.numel() + v.numel()), flops,
+        BF16_TENSOR_PEAK, bw_copy, calls=3,
+        lib=lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=True))
+    o = FA.flash_attention_cuda(q, k, v, **kw)
+    want = ref.flash_attention_plain(q, k, v, **kw)
+    _check_k13("qwen2.5-14b at the training shape", o, want)
+    row["max_abs_err"] = float((o.float() - want.float()).abs().max())
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+    bwd_ms = device_ms(lambda: AG.flash_attention_bwd(q, k, v, o, do, **kw),
+                       calls=1, reps=3, warmup=1)
+    print(f"  the plain backward (kernels/autograd.flash_attention_bwd, f32, "
+          f"tiles of {AG.BLOCK_K} keys) at that shape: {bwd_ms:.2f} ms, "
+          f"{bwd_ms / row['ms']:.1f}x K13's forward",
+          flush=True)
+    del q, k, v, o, want, do
+    _wkv_backward(gen, full["rwkv6-1.6b"]["ms"])
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"  training phase {seconds:.1f} s ({smi_line})", flush=True)
+    check(seconds <= TRAIN_PHASE_S,
+          f"training phase within {TRAIN_PHASE_S:g} s ({seconds:.1f} s)")
+    return {"full": full, "k13_row": row, "bwd_ms": bwd_ms,
+            "k14_row": lm_rows["K14 prefill T=1024"]}
+
+
 # the service phase: the paper case through launch/solver_service.py
 SERVICE_MAX_B = 4
 SERVICE_TOL = 1e-6
@@ -4876,6 +5361,7 @@ def _run_phases(t_start) -> int:
         err["MoE"] = phase_moe_parity()
         served = phase_serve()
         lm_rows = phase_lm_times(bw)
+        trained = phase_train(lm_rows, bw, smi_line)
     except CheckFailed as exc:
         print(f"FAILED: {exc}", flush=True)
         return 1
@@ -5064,6 +5550,23 @@ def _run_phases(t_start) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    # the training runs' launches (forward and remat recompute), with K13's
+    # times at the training shape and K14's at its serve shape (the same
+    # batch 4, 1024 tokens, H 32, d 64)
+    for kname, source, replaces, arch, build, row, max_err in (
+            ("flash_attn_d128@qwen2.5-14b-train", *flash, "qwen2.5-14b",
+             "flash_attn_bf16_d128", trained["k13_row"],
+             trained["k13_row"]["max_abs_err"]),
+            ("wkv6@rwkv6-1.6b-train", "src/repro_torch/kernels/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6.py:89", "rwkv6-1.6b", "wkv6_bf16",
+             trained["k14_row"], err["K14"])):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": trained["full"][arch]["launches"].of(build),
+            "max_abs_err": max_err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,9 @@
 and the reference's ten LM architectures (``ARCHS`` / :func:`get`), in the
 reference's order, each a verbatim copy of the reference's config.
 
-The serving path runs all ten (``launch/serve.py``).  Training (the loss,
-the optimizer, the data and checkpoint modules) waits for ROADMAP.md
-queue 1 item 3, and the mesh-only specs (``cache_specs``, PartitionSpecs)
-for item 14 (``configs/specs.py``).
+The serving path (``launch/serve.py``) and the training path
+(``launch/train.py``) run all ten; the mesh-only specs (``cache_specs``,
+PartitionSpecs) wait for ROADMAP.md queue 1 item 14 (``configs/specs.py``).
 """
 from __future__ import annotations
 

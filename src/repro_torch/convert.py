@@ -16,7 +16,9 @@ s-step basis scale theta the same way, so both packages run one theta
 rather than two power iterations.  :func:`lm_params_from_reference` loads
 the reference's LM parameter pytree (``models/model.init_params``, as numpy
 arrays) into the port's model, so both packages serve with identical
-weights.
+weights; :func:`train_state_from_reference` does the same for a training
+state (parameters, AdamW's moments and step), so both packages train from
+one state.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from repro_torch.core.precond import (ChebyshevPrecond, JacobiPrecond,
                                       PMGPrecond)
 
 __all__ = ["FIELDS", "case_from_arrays", "precond_from_reference",
-           "sstep_theta_from_reference", "lm_params_from_reference"]
+           "sstep_theta_from_reference", "lm_params_from_reference",
+           "lm_named_arrays", "train_state_from_reference"]
 
 FIELDS = ("D", "g", "mask", "mult", "c", "bmass")
 
@@ -108,6 +111,49 @@ def _leaves(tree, prefix=()):
             yield prefix + (key,), sub
 
 
+def lm_named_arrays(cfg, tree):
+    """``(port parameter name, numpy array)`` for each leaf of a reference
+    tree shaped like ``init_params(key, cfg)``: nested dicts whose keys are
+    the port's module attribute names, the per-layer entries under
+    ``"layers"`` and whisper's ``"enc_layers"`` stacked on a leading axis of
+    ``cfg.n_layers`` and ``cfg.enc_layers`` layers (``jax.vmap``), which is
+    unstacked here."""
+    stacks = {"layers": cfg.n_layers, "enc_layers": cfg.enc_layers}
+    for path, leaf in _leaves(tree):
+        a = np.asarray(leaf)
+        if path[0] not in stacks:
+            yield ".".join(path), a
+            continue
+        n = stacks[path[0]]
+        if a.shape[0] != n:
+            raise ValueError(f"{'.'.join(path)} stacks {a.shape[0]} "
+                             f"layers, cfg has {n}")
+        for i in range(n):
+            yield ".".join((path[0], str(i)) + path[1:]), a[i]
+
+
+@torch.no_grad()
+def _load_named(dst: dict, cfg, tree, what: str) -> None:
+    """Copy every leaf of ``tree`` into the tensor of ``dst`` of its port
+    name; every tensor of ``dst`` must be given, with its shape."""
+    seen = set()
+    for name, arr in lm_named_arrays(cfg, tree):
+        if name not in dst:
+            raise ValueError(f"the reference {what} has {name}, which the "
+                             "port's model does not")
+        if tuple(arr.shape) != tuple(dst[name].shape):
+            raise ValueError(f"{name} has shape {arr.shape}, expected "
+                             f"{tuple(dst[name].shape)}")
+        # bfloat16 leaves (ml_dtypes' numpy type): exact through float32
+        if str(arr.dtype) == "bfloat16":
+            arr = arr.astype(np.float32)
+        dst[name].copy_(torch.tensor(arr))
+        seen.add(name)
+    missing = sorted(set(dst) - seen)
+    if missing:
+        raise ValueError(f"the reference {what} lacks {missing}")
+
+
 def lm_params_from_reference(cfg, tree, *, device=None):
     """The port's LM (``models.model.LM``) holding the reference's weights.
 
@@ -116,42 +162,33 @@ def lm_params_from_reference(cfg, tree, *, device=None):
     attribute names (a hymba layer's ``mamba`` tree and its
     ``norm_attn_out`` and ``norm_ssm_out``, a moe layer's ``moe`` tree,
     whisper's ``xattn``, ``norm_x``, ``pos_embed``, ``enc_pos`` and
-    ``enc_final_norm`` included), the per-layer entries under ``"layers"``
-    and whisper's ``"enc_layers"`` stacked on a leading axis of
-    ``cfg.n_layers`` and ``cfg.enc_layers`` layers (``jax.vmap``), which is
-    unstacked here.  Every port parameter must be given, with its shape;
-    dtypes follow ``cfg.param_dtype``.  ``device`` is the card unless
-    given.
+    ``enc_final_norm`` included), stacked per layer as
+    :func:`lm_named_arrays` reads them.  Every port parameter must be
+    given, with its shape; dtypes follow ``cfg.param_dtype``.  ``device`` is
+    the card unless given.
     """
     from repro_torch.models import model as M
 
     device = torch.device("cuda" if device is None else device)
     model = M.init_params(torch.Generator(device).manual_seed(0), cfg)
-    params = dict(model.named_parameters())
-    stacks = {"layers": cfg.n_layers, "enc_layers": cfg.enc_layers}
-    seen = set()
-    for path, leaf in _leaves(tree):
-        a = np.asarray(leaf)
-        if path[0] in stacks:
-            n = stacks[path[0]]
-            if a.shape[0] != n:
-                raise ValueError(f"{'.'.join(path)} stacks {a.shape[0]} "
-                                 f"layers, cfg has {n}")
-            items = [(".".join((path[0], str(i)) + path[1:]), a[i])
-                     for i in range(n)]
-        else:
-            items = [(".".join(path), a)]
-        for name, arr in items:
-            if name not in params:
-                raise ValueError(f"the reference tree has {name}, which the "
-                                 "port's model does not")
-            dst = params[name]
-            if tuple(arr.shape) != tuple(dst.shape):
-                raise ValueError(f"{name} has shape {arr.shape}, expected "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(torch.tensor(arr))
-            seen.add(name)
-    missing = sorted(set(params) - seen)
-    if missing:
-        raise ValueError(f"the reference tree lacks {missing}")
+    _load_named(dict(model.named_parameters()), cfg, tree, "tree")
     return model
+
+
+def train_state_from_reference(cfg, params_tree, mu_tree, nu_tree, step, *,
+                               device=None):
+    """The port's ``launch.steps.TrainState`` holding a reference train
+    state (``launch/steps.TrainState``'s ``params``, ``mu``, ``nu`` and
+    ``step``, numpy leaves): the model from :func:`lm_params_from_reference`
+    with its parameters requiring grad, the moments in
+    ``cfg.opt_moment_dtype`` keyed by parameter name, ``int(step)``.
+    ``device`` is the card unless given."""
+    from repro_torch.launch import steps as St
+
+    device = torch.device("cuda" if device is None else device)
+    state = St.make_train_state(torch.Generator(device).manual_seed(0), cfg)
+    _load_named(state.named(), cfg, params_tree, "params")
+    _load_named(state.mu, cfg, mu_tree, "mu")
+    _load_named(state.nu, cfg, nu_tree, "nu")
+    state.step = int(np.asarray(step))
+    return state

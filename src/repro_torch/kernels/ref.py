@@ -418,20 +418,22 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
     """K13: the function of the reference's flash kernel, whole rows at once.
 
     q: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d) -> (B, Hq, Sq, d) in q's
-    dtype, computed in f32.  Masked scores are -1e30 and their p is zeroed,
-    as in the kernel, so a row with no valid key gives 0, not NaN.
+    dtype, computed in f32 (f64 for f64 inputs).  Masked scores are -1e30
+    and their p is zeroed, as in the kernel, so a row with no valid key
+    gives 0, not NaN.
     """
     B, Hq, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    qg = q.float().reshape(B, Hkv, Hq // Hkv, Sq, d)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    acc = accum_dtype(q.dtype)
+    qg = q.to(acc).reshape(B, Hkv, Hq // Hkv, Sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(acc)) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     mask = _attn_mask(Sq, Skv, causal, window, q_offset, q.device)
     s = torch.where(mask, s, NEG_INF)
     p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
     l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) \
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(acc)) \
         / torch.where(l == 0.0, 1.0, l)
     return o.reshape(B, Hq, Sq, d).to(q.dtype)
 
@@ -527,10 +529,11 @@ def wkv6_ref(r, k, v, w, u, *, initial_state=None,
 
     r, k and v are upcast to f32 first, as the TPU kernel does (the
     reference's oracle forms ``k v^T`` in the input dtype; the two agree in
-    f32).  Returns o in r's dtype and, with ``return_state``, the f32 state.
+    f32); f64 inputs are computed in f64.  Returns o in r's dtype and, with
+    ``return_state``, the state (f32, or f64 for f64 inputs).
     """
     B, H, T, d = r.shape
-    f32 = torch.float32
+    f32 = accum_dtype(r.dtype)
     S = (torch.zeros((B, H, d, d), dtype=f32, device=r.device)
          if initial_state is None else initial_state.to(f32))
     rf, kf, vf, wf = (x.to(f32) for x in (r, k, v, w))
@@ -598,14 +601,15 @@ def wkv6_chunked(r, k, v, w, u, *, initial_state=None, chunk: int = 16,
     """The chunked-parallel WKV6 form (the reference's training path and the
     TPU kernel's ``chunked`` body): per chunk of c steps three matmuls and a
     masked (c, c) correlation, with cumulative decay products.  Same
-    function as :func:`wkv6_ref`; c is the largest divisor of T not above
-    ``chunk``.
+    function as :func:`wkv6_ref`, and differentiable (the reference's
+    training gradient); c is the largest divisor of T not above ``chunk``.
+    Computed in f32 (f64 for f64 inputs).
     """
     B, H, T, d = r.shape
     c = min(chunk, T)
     while T % c:
         c -= 1
-    f32 = torch.float32
+    f32 = accum_dtype(r.dtype)
     S = (torch.zeros((B, H, d, d), dtype=f32, device=r.device)
          if initial_state is None else initial_state.to(f32))
     uu = u.to(f32)[None, :, None, :]                  # (1, H, 1, d)

@@ -1,1 +1,1 @@
-"""Entry points of the port's LM serving path."""
+"""Entry points of the port's LM serving and training paths."""

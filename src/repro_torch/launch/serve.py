@@ -17,6 +17,7 @@ RWKV recurrence K14, in prefill and in every decode step.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
@@ -44,6 +45,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def _grad_off(params):
+    """``requires_grad`` off on ``params``' parameters that have it, for the
+    run: ``torch.matmul`` folds a batched product into one GEMM only where
+    no operand requires grad, so a train state's model would otherwise
+    serve a rounding apart from a serving one."""
+    on = [p for p in params.parameters() if p.requires_grad]
+    for p in on:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in on:
+            p.requires_grad_(True)
+
+
 def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           seed: int = 0, device=None, params=None, prompts=None,
           extra=None):
@@ -58,7 +75,9 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     device, the reference's stubs.  The cache holds ``img_tokens +
     prompt_len + gen`` positions, and step i decodes at position
     ``img_tokens + prompt_len + i``.  ``device`` is the card unless given
-    (``"cpu"`` runs the plain versions of the kernels).
+    (``"cpu"`` runs the plain versions of the kernels).  A model whose
+    parameters require grad (a train state's) serves bitwise as one whose
+    do not: that flag is off for the run.
 
     Returns ``(tokens, stats)``: tokens (batch, gen) int64, and stats with
     ``prefill_s``, ``decode_s``, ``tok_per_s`` (decoded tokens per second
@@ -87,22 +106,23 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     prefill = St.make_serve_prefill(cfg, max_len=offset + prompt_len + gen)
     step = St.make_serve_step(cfg)
 
-    _sync(device)
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, prompts, extra)
-    tok = logits[:, -1].argmax(-1, keepdim=True)
-    _sync(device)
-    t_prefill = time.perf_counter() - t0
-
-    out, picked = [tok], [logits[:, -1]]
-    t1 = time.perf_counter()
-    for i in range(gen - 1):
-        logits, cache = step(params, tok, cache, offset + prompt_len + i)
+    with _grad_off(params):
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, prompts, extra)
         tok = logits[:, -1].argmax(-1, keepdim=True)
-        out.append(tok)
-        picked.append(logits[:, -1])
-    _sync(device)
-    t_decode = time.perf_counter() - t1
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+
+        out, picked = [tok], [logits[:, -1]]
+        t1 = time.perf_counter()
+        for i in range(gen - 1):
+            logits, cache = step(params, tok, cache, offset + prompt_len + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(tok)
+            picked.append(logits[:, -1])
+        _sync(device)
+        t_decode = time.perf_counter() - t1
     return torch.cat(out, dim=1), {
         "prefill_s": t_prefill, "decode_s": t_decode,
         "tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),

@@ -15,7 +15,10 @@ in place of the layer's own projections (whisper's cross-attention, over
 the encoder's output); with ``causal=False`` it and the encoder's
 self-attention run K13 non-causal, with Sq != Skv for the former.  The
 reference's sequence-sharded and context-parallel branches are not ported
-(ROADMAP.md queue 1 item 14).
+(ROADMAP.md queue 1 item 14).  Where a gradient is wanted (training), K13
+and its plain version run through ``kernels/autograd.FlashAttentionFn``,
+whose backward is FlashAttention-2's in plain torch; serving calls the
+wrapper itself.
 
 Decode (:func:`decode_attention`) attends a (B, Hkv, max_len, hd) cache.
 It is plain torch, as in the reference, where it is einsum code outside any
@@ -30,7 +33,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import autograd as AG
 from repro_torch.kernels.ref import NEG_INF, attention_ref
 from repro_torch.models import layers as L
 
@@ -104,8 +107,8 @@ def attention(x, p: Attention, cfg, *, positions, window=None, causal=True,
         out = attention_ref(q, k, v, causal=causal, scale=scale,
                             window=window, softcap=cfg.attn_softcap)
     else:
-        out = ops.flash_attention(q, k, v, causal=causal, scale=scale,
-                                  window=window, softcap=cfg.attn_softcap)
+        out = AG.flash_attention(q, k, v, causal=causal, scale=scale,
+                                 window=window, softcap=cfg.attn_softcap)
     B, _, S, _ = out.shape
     out = out.transpose(1, 2).reshape(B, S, H * hd)
     return L.linear(out, p.wo, L.dtype_of(cfg.compute_dtype)), (k, v)

@@ -5,10 +5,13 @@ The port of the reference's ``models/layers.py``.  Parameters live in small
 keys (``Linear.w`` and ``.b``, ``Norm.scale`` and ``.bias``, ``MLP.w_in``
 ...), so a reference tree maps onto them key by key
 (``convert.lm_params_from_reference``).  Weights keep the reference's
-``(d_in, d_out)`` layout.  Parameters do not require grad: this is the
-serving path.  The reference's sharding constraints (``constrain`` /
-``RULES``) have no counterpart here: sharding waits for ROADMAP.md queue 1
-item 14 (distributed).
+``(d_in, d_out)`` layout.  ``init_norm``, ``init_linear`` and ``init_mlp``
+are the reference's initialisers; they return these modules.  Parameters
+are made with ``requires_grad=False``, so serving builds no graph;
+``launch/steps.make_train_state`` turns them on for training
+(``model.requires_grad_(True)``).  The reference's sharding constraints
+(``constrain`` / ``RULES``) have no counterpart here: sharding waits for
+ROADMAP.md queue 1 item 14 (distributed).
 """
 from __future__ import annotations
 
@@ -16,8 +19,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["dtype_of", "param", "normal", "Norm", "Linear", "MLP", "rms_norm",
-           "layer_norm", "softcap", "activation", "linear", "mlp", "rope"]
+__all__ = ["dtype_of", "param", "normal", "Norm", "Linear", "MLP",
+           "init_norm", "init_linear", "init_mlp", "rms_norm", "layer_norm",
+           "softcap", "activation", "linear", "mlp", "rope"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -64,6 +68,25 @@ class MLP(nn.Module):
         self.w_in = Linear(gen, d, d_ff, dtype=dtype)
         self.w_out = Linear(gen, d_ff, d, dtype=dtype)
         self.w_gate = Linear(gen, d, d_ff, dtype=dtype) if gated else None
+
+
+def init_norm(d: int, *, bias: bool = False, dtype=torch.float32,
+              device=None) -> Norm:
+    """Scale ones (and bias zeros), on ``device`` (the CPU unless given)."""
+    return Norm(d, bias=bias, dtype=dtype, device=device)
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
+                bias: bool = False, dtype=torch.float32,
+                scale: float | None = None) -> Linear:
+    """``w`` = N(0, 1) x scale (d_in ** -0.5 unless given) from ``gen``, on
+    its device; ``b`` zeros where ``bias``."""
+    return Linear(gen, d_in, d_out, bias=bias, dtype=dtype, scale=scale)
+
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, *, gated: bool,
+             dtype=torch.float32) -> MLP:
+    return MLP(gen, d, d_ff, gated=gated, dtype=dtype)
 
 
 def rms_norm(x: torch.Tensor, p: Norm, *, eps: float = 1e-6,

@@ -1,4 +1,5 @@
-"""The LM of the port: every block kind of the reference, for serving.
+"""The LM of the port: every block kind of the reference, for serving and
+training.
 
 Block kinds (static per arch): ``dense`` (attention + MLP), ``moe``
 (attention + MoE, plus a parallel dense MLP for arctic), ``rwkv`` (RWKV6
@@ -19,6 +20,8 @@ Entry points (the reference's signatures, with ``params`` the module):
   * ``init_params(gen, cfg)``                 — weights from a
     ``torch.Generator``, on its device
   * ``forward(params, cfg, tokens, extra)``   — full-sequence logits
+  * ``loss_fn(params, cfg, batch, extra)``    — next-token cross entropy
+    plus the z-loss, an f32 scalar
   * ``init_cache(cfg, batch, max_len, device=...)`` — per-layer caches
   * ``prefill(params, cfg, tokens, extra, max_len=...)`` — fill the cache,
     last-position logits
@@ -26,9 +29,15 @@ Entry points (the reference's signatures, with ``params`` the module):
 
 ``extra`` holds the modality stubs: ``img_embeds`` (B, img_tokens, d) for
 llava, ``audio_embeds`` (B, audio_ctx, d) for whisper
-(``configs/specs.extra_specs``).  There is no backward and no remat:
-training (``loss_fn``, ``param_specs``) waits for ROADMAP.md queue 1
-item 3.
+(``configs/specs.extra_specs``).  Training differentiates ``loss_fn`` with
+autograd: K13 and K14 carry their gradients through
+``kernels/autograd.py``.  Remat: with ``cfg.remat`` set and a gradient
+wanted, each window-pattern group of layers (whisper's encoder and decoder
+stacks included) runs under ``torch.utils.checkpoint.checkpoint``
+(non-reentrant), which keeps only the group's input and recomputes its
+forward in the backward pass, the counterpart of the reference's
+``jax.checkpoint`` with ``nothing_saveable``.  ``param_specs`` (the mesh)
+waits for ROADMAP.md queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -43,8 +53,8 @@ from repro_torch.models import moe as MO
 from repro_torch.models import rwkv6 as R
 from repro_torch.models import ssm as SM
 
-__all__ = ["Layer", "LM", "init_params", "forward", "init_cache", "prefill",
-           "decode_step"]
+__all__ = ["Layer", "LM", "init_params", "forward", "loss_fn", "init_cache",
+           "prefill", "decode_step"]
 
 
 def _norm(x, p, cfg):
@@ -201,6 +211,34 @@ def _positions(x):
     return torch.arange(S, device=x.device).expand(B, S)
 
 
+def _run_stack(x, layers, cfg, *, positions, causal=True, cross=None):
+    """The full-sequence layers in order (window ``pattern[i % p]`` for
+    layer i, cross-attention ``cross[i]`` where given), by window-pattern
+    groups of p layers; with ``cfg.remat`` and a gradient wanted, each
+    group under ``checkpoint`` (module docstring)."""
+    n = len(layers)
+    windows = _windows(cfg, n)
+    cross = [None] * n if cross is None else cross
+    p = len(cfg.window_pattern())
+
+    def group(x, lo):
+        for i in range(lo, min(lo + p, n)):
+            lp = layers[i]
+            if cfg.block == "rwkv":
+                x = R.rwkv6_block(x, lp.rwkv, cfg, lp.norm1, lp.norm2)
+            else:
+                x, _, _ = _attn_layer(x, lp, cfg, positions=positions,
+                                      window=windows[i], causal=causal,
+                                      cross=cross[i])
+        return x
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lo in range(0, n, p):
+        x = (checkpoint(group, x, lo, use_reentrant=False) if remat
+             else group(x, lo))
+    return x
+
+
 def _encode(params: LM, cfg, extra):
     """Whisper's encoder on stub frame embeddings (B, audio_ctx, d): learned
     positions, the non-causal stack, the final norm."""
@@ -209,11 +247,8 @@ def _encode(params: LM, cfg, extra):
                          f"(batch, {cfg.audio_ctx}, {cfg.d_model})")
     x = extra["audio_embeds"].to(L.dtype_of(cfg.compute_dtype))
     x = x + params.enc_pos[:x.shape[1]].to(x.dtype)
-    positions = _positions(x)
-    for lp, window in zip(params.enc_layers,
-                          _windows(cfg, cfg.enc_layers)):
-        x, _, _ = _attn_layer(x, lp, cfg, positions=positions, window=window,
-                              causal=False)
+    x = _run_stack(x, params.enc_layers, cfg, positions=_positions(x),
+                   causal=False)
     return _norm(x, params.enc_final_norm, cfg)
 
 
@@ -245,17 +280,29 @@ def forward(params: LM, cfg, tokens, extra=None):
     """Full-sequence logits.  tokens: (B, S_text); returns (B, S_total, V)
     float32, S_total counting llava's image tokens."""
     x = _embed(params, cfg, tokens, extra)
-    positions = _positions(x)
-    cross = _cross(params, cfg, extra)
-    for lp, window, ckv in zip(params.layers, _windows(cfg, cfg.n_layers),
-                               cross):
-        if cfg.block == "rwkv":
-            x = R.rwkv6_block(x, lp.rwkv, cfg, lp.norm1, lp.norm2)
-        else:
-            x, _, _ = _attn_layer(x, lp, cfg, positions=positions,
-                                  window=window, cross=ckv)
+    x = _run_stack(x, params.layers, cfg, positions=_positions(x),
+                   cross=_cross(params, cfg, extra))
     x = _norm(x, params.final_norm, cfg)
     return _logits(params, cfg, x)
+
+
+def loss_fn(params: LM, cfg, batch, extra=None):
+    """Next-token cross entropy plus a 1e-4 z-loss over ``batch["tokens"]``
+    (B, S) integer tokens: the mean of ``logz - logit[target]`` and of
+    ``logz ** 2`` over the B x (S - 1) predicted positions (with llava's
+    image tokens first, the text logits are the tail).  Returns an f32
+    scalar.  The picked logit is a ``torch.gather``: the same function as
+    the reference's masked sum over the vocabulary, which exists for its
+    vocab-sharded layout."""
+    tokens = batch["tokens"]
+    logits = forward(params, cfg, tokens[:, :-1], extra)
+    logits = logits[:, -(tokens.shape[1] - 1):]
+    targets = tokens[:, 1:].long()
+    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
+    logz = torch.logsumexp(logits, dim=-1)
+    nll = logz - picked
+    loss = nll.mean() + 1e-4 * (logz ** 2).mean()
+    return loss.float()
 
 
 # ---------------------------------------------------------------------------

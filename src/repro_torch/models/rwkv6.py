@@ -7,11 +7,15 @@ bonus ``u``, per-head WKV state recurrence, grouped RMS norm, gated output,
 and the squared-ReLU channel-mix.
 
 The WKV recurrence (:func:`_wkv_apply`) runs K14 (``ops.wkv6``) on every
-CUDA tensor — prefill (T = the prompt) and every decode step (T = 1) — so
-serving on the card never takes a plain version.  On a CPU tensor
-``cfg.use_kernels`` picks the plain formulation the reference picks: the
-kernel's own function (``ops.wkv6``, the sequential recurrence) when set,
-else the chunked form for T > 1 and the sequential scan for T = 1.
+CUDA tensor — prefill (T = the prompt), every decode step (T = 1) and the
+training forward — so the card never takes a plain version.  On a CPU
+tensor ``cfg.use_kernels`` picks the plain formulation the reference picks:
+the kernel's own function (``ops.wkv6``, the sequential recurrence) when
+set, else the chunked form for T > 1 and the sequential scan for T = 1.
+Where a gradient is wanted, the kernel's path runs through
+``kernels/autograd.WKV6Fn``, whose backward differentiates the chunked
+form (the reference's training gradient); the plain forms are
+differentiated by autograd as they run.
 
 Decode carries the reference's recurrent cache: the last normed hidden
 state of each of the two token-shifts and the (B, H, hd, hd) f32 WKV state.
@@ -22,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import autograd as AG
 from repro_torch.kernels.ref import wkv6_chunked, wkv6_ref
 from repro_torch.models import layers as L
 
@@ -94,8 +98,8 @@ def _wkv_apply(r, k, v, w, u, s0, cfg, *, return_state):
         plain = wkv6_ref if r.shape[2] == 1 else wkv6_chunked
         return plain(r, k, v, w, u, initial_state=s0,
                      return_state=return_state)
-    return ops.wkv6(r, k, v, w, u, initial_state=s0,
-                    return_state=return_state)
+    return AG.wkv6(r, k, v, w, u, initial_state=s0,
+                   return_state=return_state)
 
 
 def _time_mix(x, x_prev, p: RWKV6, cfg, s0=None, *, return_state=False):

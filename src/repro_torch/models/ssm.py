@@ -15,7 +15,8 @@ chunk's steps one at a time (``h = decay * h + input``: two small device
 operations a step, so a prefill on the card is host-bound, about T x
 layers of them), and contracts the chunk's states with C in one einsum.
 The per-step values are the reference step's: the same f32 products, in
-the same order.
+the same order; the scan is differentiable end to end, as the reference's
+``lax.scan``.
 
 Decode carries (conv tail, SSM state): O(1) in sequence length.
 """
@@ -94,6 +95,10 @@ def _ssm_scan(x, dt, Bc, Cc, A, D, h0):
     Returns (y (B, T, di) f32, h_T (B, di, n) f32).
     """
     B, T, di = x.shape
+    # autograd keeps every step's h, so a gradient's scan stacks new
+    # tensors; without one, each step writes into its chunk's buffer
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, dt, Bc, Cc, A, D, h0))
     xf, dtf, bf, cf = (t.float() for t in (x, dt, Bc, Cc))
     ys = torch.empty((B, T, di), dtype=torch.float32, device=x.device)
     h = h0
@@ -104,11 +109,19 @@ def _ssm_scan(x, dt, Bc, Cc, A, D, h0):
         decay = torch.exp(dtc[..., None] * A)
         inp = (dtc * xf[:, t0:t1].transpose(0, 1))[..., None] \
             * bf[:, t0:t1, None, :].transpose(0, 1)
-        hs = torch.empty_like(decay)
-        for t in range(t1 - t0):
-            h = torch.add(decay[t] * h, inp[t], out=hs[t])
+        if grad:
+            hs = []
+            for t in range(t1 - t0):
+                h = decay[t] * h + inp[t]
+                hs.append(h)
+            hs = torch.stack(hs)
+        else:
+            hs = torch.empty_like(decay)
+            for t in range(t1 - t0):
+                h = torch.add(decay[t] * h, inp[t], out=hs[t])
         ys[:, t0:t1] = torch.einsum("tbdn,btn->btd", hs, cf[:, t0:t1])
-    # h is a step of the last chunk's buffer: keep the state, not the chunk
+    # without a gradient h is a step of the last chunk's buffer: keep the
+    # state, not the chunk
     return ys + D * x, h.clone()
 
 
