@@ -86,6 +86,23 @@ reference package ``repro``, and, in order:
 14. times K2, K3, K8 and K9 (K8 and K9 at s = 1, 2, 4) beside their plain
    versions at E=1024 and E=4096, and v1 and s-step per iteration beside
    v2, in turns;
+14b. holds K5 and K10 with edge planes (the sharded solves' operand): one
+   iteration's operands on the paper grid (n = 10 and 5) split into 2 and
+   4 shards in one process, each shard launched with its neighbours'
+   x,y-assembled edge planes, every output bitwise the slices of the
+   single-device call in every build; times the planes kernels at a
+   middle shard of 4 and K8 and K11 at a shard's ghost-extended E (768);
+   then the sharded solves of the paper case (fp64) over 2 and 4 gloo
+   ranks sharing the card and over one NCCL rank, spawned as
+   ``chip_smoke.py --dist-child`` processes that load the built
+   libraries and build none: v1 (100 iterations), s-step s=4 (100),
+   Jacobi-PCG (100) and Chebyshev-PCG(4) to 1e-8 r0, each held to its
+   single-process route (entries 0..10 to 1e-12; all within 10x the plain
+   route's spread; the NCCL rank bitwise), every rank's
+   launches and collectives per cycle or iteration exact and its
+   ppermute bytes the cost books'; ms per iteration and the bytes staged
+   through the host printed (processes sharing one card: not a scaling
+   figure);
 15. holds K4, K5 and K3 in their bf16 builds (``bf16``: every operand
    bf16; ``bf16_ir``: bf16 vectors, x, the metric and D in f32) against
    their plain versions at n=10, E=1024 and 4096: fields value by value,
@@ -1164,6 +1181,7 @@ def phase_pcg_routes():
           f"jacobi: all {NITER + 1} entries within {ENVELOPE_FACTOR:g}x the "
           f"plain route's own CPU-vs-card spread ({envelope:.2e})")
     out["cases"]["jacobi"] = (v2, f, dict(niter=NITER, precond="jacobi"))
+    out["envelope"] = {"jacobi": envelope}
 
     # --- Chebyshev-PCG(k), solve to CHEB_TOL --------------------------------
     name = f"cheb{CHEB_K}"
@@ -5286,6 +5304,497 @@ def phase_service(hist, smi_line, solve_rounds):
     return {"launches": launches, "pairs": pairs, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# the sharded solves (src/repro_torch/distributed/): K5 and K10 with edge
+# planes, K8 and K11 on ghost-extended grids, and the paper case over 2 and
+# 4 gloo ranks sharing the one card and over one NCCL rank
+# ---------------------------------------------------------------------------
+
+# (backend, ranks) of the worlds spawned; gloo ranks share the one card
+DIST_WORLDS = (("gloo", 2), ("gloo", 4), ("nccl", 1))
+DIST_SSTEP_S = 4
+DIST_CHEB_RTOL = 1e-8         # Chebyshev-PCG(4) to 1e-8 r0
+DIST_CHILD_TIMEOUT_S = 150
+DIST_INIT_TIMEOUT_S = 60
+DIST_PHASE_S = 90.0
+DIST_ROUTES = ("v1", "sstep", "jacobi", "cheb")
+
+
+def _shard_split(t, parts):
+    """``t`` cut into ``parts`` equal contiguous blocks along dim 0."""
+    m = t.shape[0] // parts
+    return [t[i * m:(i + 1) * m].contiguous() for i in range(parts)]
+
+
+def phase_planes(bw_copy):
+    """K5 and K10 with edge planes: one iteration's operands on the paper
+    grid split into 2 (and 4) shards in one process, each shard's K5 and
+    K10 launched with its neighbours' x,y-assembled edge planes
+    (``core/gs.edge_planes``); its x, r (z) and partials must be bitwise
+    the slices of the single-device call, in every build, at n = 10 (TMA)
+    and 5 (cp.async).  Then the planes kernels timed at a middle shard of
+    4 (both planes), and K8 and K11 at the extended E of that shard."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cost
+    from repro_torch.core.gs import edge_planes
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.kernels import nekbone_ax as K
+    from repro_torch.kernels.ref import accum_dtype
+
+    print("== K5 and K10 with edge planes (shards in one process; every "
+          "build, bitwise the single-device slices)", flush=True)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(30)
+    errs, rows = {}, {}
+    for n in (10, 5):
+        case = NekboneCase(n=n, grid=PAPER_GRID, dtype=torch.float64)
+        ex, ey, ez = PAPER_GRID
+        invd64 = (1.0 / case.operator_diagonal()).reshape(-1, n ** 3)
+        for mix in ("f64", "f32") + BF16_MIXES:
+            dt = K.MIXES[mix]
+            o = _mix_operands(case, rng, mix)
+            invd = invd64.to(dt["O"]).contiguous()
+            kp, kw, _ = K.nekbone_ax_slab_cuda(o["p"], o["r"], o["D"],
+                                               o["g3"], *o["m"], o["beta"],
+                                               n=n)
+            cx, cy, cz = o["c"]
+            whole5 = K.nekbone_cg_update_cuda(o["x"], kp, o["r"], kw,
+                                              o["alpha"], cx, cy, cz, n=n)
+            whole10 = K.nekbone_pcg_update_cuda(o["x"], kp, o["r"], kw,
+                                                o["alpha"], invd, cx, cy, cz,
+                                                n=n)
+            for parts in (2, 4):
+                ezl = ez // parts
+                sl = {k: _shard_split(v, parts) for k, v in
+                      (("x", o["x"]), ("p", kp), ("r", o["r"]), ("w", kw),
+                       ("invd", invd))}
+                czs = _shard_split(cz, parts)
+                planes = [edge_planes(w, (ex, ey, ezl), accum_dtype(
+                    dt["S"])) for w in sl["w"]]
+                got5, got10 = [], []
+                for i in range(parts):
+                    below = planes[i - 1][1] if i > 0 else None
+                    above = planes[i + 1][0] if i + 1 < parts else None
+                    args = (sl["x"][i], sl["p"][i], sl["r"][i], sl["w"][i],
+                            o["alpha"])
+                    got5.append(K.nekbone_cg_update_cuda(
+                        *args, cx, cy, czs[i], n=n, from_below=below,
+                        from_above=above))
+                    got10.append(K.nekbone_pcg_update_cuda(
+                        *args, sl["invd"][i], cx, cy, czs[i], n=n,
+                        from_below=below, from_above=above))
+                for label, whole, got in (("K5", whole5, got5),
+                                          ("K10", whole10, got10)):
+                    same = all(torch.equal(torch.cat([g[j] for g in got]),
+                                           whole[j])
+                               for j in range(len(whole)))
+                    check(same, f"{label} planes {mix} n={n}, {parts} "
+                                f"shards: every output bitwise the "
+                                f"single-device slices")
+            # the planes kernels against their plain versions (f64, n=10)
+            if mix == "f64" and n == 10:
+                i = 1                      # a middle shard of 4: both planes
+                sl4 = {k: _shard_split(v, 4) for k, v in
+                       (("x", o["x"]), ("p", kp), ("r", o["r"]), ("w", kw),
+                        ("invd", invd))}
+                czs = _shard_split(cz, 4)
+                pl = [edge_planes(w, (ex, ey, ez // 4), torch.float64)
+                      for w in sl4["w"]]
+                args = (sl4["x"][i], sl4["p"][i], sl4["r"][i], sl4["w"][i],
+                        o["alpha"])
+                kw5 = dict(n=n, from_below=pl[i - 1][1],
+                           from_above=pl[i + 1][0])
+                k5 = K.nekbone_cg_update_cuda(*args, cx, cy, czs[i], **kw5)
+                p5 = K.nekbone_cg_update_plain(*args, cx, cy, czs[i], **kw5)
+                k10 = K.nekbone_pcg_update_cuda(*args, sl4["invd"][i], cx,
+                                                cy, czs[i], **kw5)
+                p10 = K.nekbone_pcg_update_plain(*args, sl4["invd"][i], cx,
+                                                 cy, czs[i], **kw5)
+                errs["K5 planes"] = float((k5[1] - p5[1]).abs().max())
+                errs["K10 planes"] = float((k10[1] - p10[1]).abs().max())
+                check(torch.equal(k5[0], p5[0]) and torch.equal(k5[1], p5[1])
+                      and torch.equal(k10[0], p10[0])
+                      and torch.equal(k10[1], p10[1]),
+                      "K5 and K10 planes f64 n=10: x, r and z bitwise their "
+                      "plain versions with the planes")
+                El = sl4["x"][i].shape[0]
+                field = El * n ** 3 * 8
+                plane_bytes = 2 * ex * ey * n * n * 8
+                for label, kern, plain, nbytes, flops in (
+                        ("K5 planes", lambda: K.nekbone_cg_update_cuda(
+                            *args, cx, cy, czs[i], **kw5),
+                         lambda: K.nekbone_cg_update_plain(
+                             *args, cx, cy, czs[i], **kw5),
+                         6 * field + plane_bytes, 8),
+                        ("K10 planes", lambda: K.nekbone_pcg_update_cuda(
+                            *args, sl4["invd"][i], cx, cy, czs[i], **kw5),
+                         lambda: K.nekbone_pcg_update_plain(
+                             *args, sl4["invd"][i], cx, cy, czs[i], **kw5),
+                         7 * field + plane_bytes, 14)):
+                    rows[label] = _time_row(
+                        f"{label} E={El} (a middle shard of 4)", kern, plain,
+                        nbytes, 0, El * n ** 3 * flops, bw_copy)
+                # the single-device kernels on the same shard, no planes
+                for label, kern in (
+                        ("K5", lambda: K.nekbone_cg_update_cuda(
+                            *args, cx, cy, czs[i], n=n)),
+                        ("K10", lambda: K.nekbone_pcg_update_cuda(
+                            *args, sl4["invd"][i], cx, cy, czs[i], n=n))):
+                    print(f"  {label} E={El} without planes: "
+                          f"{device_ms(kern):.4f} ms", flush=True)
+    # K8 and K11 on the extended grid of a middle shard of 4 (4 own layers
+    # and 4 ghost layers a side: E = 768)
+    n = 10
+    case = NekboneCase(n=n, grid=(8, 8, 12), dtype=torch.float64)
+    E = case.mesh.nelt
+    field = E * n ** 3 * 8
+    o = _pcg_operands(case, rng)
+    theta = torch.full((1,), 1.0 / 2.25, dtype=torch.float64, device="cuda")
+    k8 = (o["p"], o["z"], case.D, o["g3"], *o["m"], *o["c"], theta)
+    k11 = (o["z"], o["D"], o["g3"], *o["m"], *o["c"], o["coef"][CHEB_K])
+    s, K_ = DIST_SSTEP_S, 2 * DIST_SSTEP_S + 1
+    rows["K8 extended"] = _time_row(        # phase_slice4_times' book
+        f"K8 s={s} E={E} (extended)",
+        lambda: K.nekbone_ax_powers_cuda(*k8, n=n, s=s),
+        lambda: K.nekbone_ax_powers_plain(*k8, n=n, s=s),
+        (5 + 2 * s - 1) * field + E * K_ * K_ * 8,
+        (2 * s - 1) * E * n ** 3 * 12 * n,
+        E * n ** 3 * (6 * (2 * s - 1) + 3 * K_ * (K_ + 1) // 2), bw_copy)
+    rows["K11 extended"] = _time_row(
+        f"K11 k={CHEB_K} E={E} (extended)",
+        lambda: K.nekbone_cheb_apply_cuda(*k11, n=n, k=CHEB_K),
+        lambda: K.nekbone_cheb_apply_plain(*k11, n=n, k=CHEB_K),
+        5 * field, *(E * n ** 3 * f for f in cost.cheb_apply_flops(
+            n, CHEB_K)), bw_copy)
+    torch.cuda.synchronize()
+    print(f"  planes phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return errs, rows
+
+
+def _dist_spec(case, f):
+    """What every rank of a world solves, set up once here: theta, the
+    Chebyshev interval and the tolerance (so every rank and the
+    single-process routes take the same values)."""
+    import torch
+
+    from repro_torch.core.cg_sstep import estimate_theta
+
+    spec = case.precond_spec(f"cheb{CHEB_K}")
+    r0 = float(torch.sqrt(torch.sum(f * case.c * f)))
+    return dict(theta=estimate_theta(case.D, case.g, case.grid, case.mask),
+                lmin=spec.lmin, lmax=spec.lmax, tol=DIST_CHEB_RTOL * r0,
+                niter=NITER, s=DIST_SSTEP_S, k=CHEB_K)
+
+
+def _dist_solves(case, f, spec, mesh=None):
+    """The four routes, sharded over ``mesh`` (``None``: their
+    single-process drivers).  Yields ``(route, thunk)``."""
+    from repro_torch.core.cg_fused import (cg_fused_fixed_iters,
+                                           cg_fused_sharded_fixed_iters)
+    from repro_torch.core.cg_sstep import cg_sstep_fixed_iters
+    from repro_torch.core.precond import (ChebyshevPrecond, cg_fused_tol,
+                                          pcg_fused_v2_fixed_iters)
+    from repro_torch.distributed import pcg, sharding, sstep
+
+    common = dict(D=case.D, g=case.g, grid=case.grid, mask=case.mask,
+                  c=case.c)
+    jac = case.precond_spec("jacobi")
+    cheb = ChebyshevPrecond(k=spec["k"], lmin=spec["lmin"],
+                            lmax=spec["lmax"])
+    niter = spec["niter"]
+    if mesh is None:
+        return {
+            "v1": lambda: cg_fused_fixed_iters(
+                f, D=case.D, g=case.g, mask=case.mask, c=case.c,
+                grid=case.grid, niter=niter),
+            "sstep": lambda: cg_sstep_fixed_iters(
+                f, niter=niter, s=spec["s"], theta=spec["theta"], **common),
+            "jacobi": lambda: pcg_fused_v2_fixed_iters(
+                f, niter=niter, precond=jac, **common),
+            "cheb": lambda: cg_fused_tol(
+                f, tol=spec["tol"], max_iter=niter, precond=cheb, **common)}
+
+    def cut(a):
+        return sharding.shard_leading(a, mesh).contiguous()
+
+    return {
+        "v1": lambda: cg_fused_sharded_fixed_iters(
+            cut(f), D=case.D, g=cut(case.g), mask=cut(case.mask),
+            c=cut(case.c), grid_local=case.shard_grid(mesh.ndev),
+            niter=niter, mesh=mesh),
+        "sstep": lambda: sstep.cg_sstep_sharded_fixed_iters(
+            f, niter=niter, s=spec["s"], theta=spec["theta"], mesh=mesh,
+            **common),
+        "jacobi": lambda: pcg.pcg_sharded_fixed_iters(
+            f, niter=niter, precond=jac, mesh=mesh, **common),
+        "cheb": lambda: pcg.pcg_sharded_tol(
+            f, tol=spec["tol"], max_iter=niter, precond=cheb, mesh=mesh,
+            **common)}
+
+
+def dist_child(spec_path: str, rank: str) -> int:
+    """One rank of a world that phase_distributed spawned: the four routes
+    on its shard of the paper case, on the card, each run once warm and
+    once measured; the measured run's histories, x, launch and collective
+    counts, bytes and times go to ``<out>/rank<r>.npz`` and ``.json``.  It loads the libraries the build phase made and builds
+    none; any failure ends it with an error."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.nekbone import NekboneCase
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import _build
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    rank = int(rank)
+    out = pathlib.Path(spec["out"])
+    missing = [str(p) for p in _build_targets() if not p.exists()]
+    if missing:
+        print(f"dist child: libraries not built: {missing[:3]}",
+              file=sys.stderr)
+        return 3
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        spec["backend"], init_method=f"file://{spec['init']}", rank=rank,
+        world_size=spec["world"],
+        timeout=datetime.timedelta(seconds=DIST_INIT_TIMEOUT_S))
+    try:
+        mesh = sharding.solver_mesh()
+        case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64)
+        f = case.manufactured()[1]
+        report, arrays = {}, {}
+        for route, solve in _dist_solves(case, f, spec, mesh).items():
+            # a warm run first (the libraries' first loads, the launch
+            # plans, NCCL's communicator), then the measured one
+            solve()
+            torch.cuda.synchronize()
+            dist.barrier()
+            sharding.reset_collectives()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with sharding.collective_log() as log:
+                res = solve()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(_build.BUILD_LAUNCHES)
+            x = res.x
+            if route == "v1":          # the driver returns the shard's x
+                x = sharding.all_gather(x.contiguous(), mesh)
+            it = int(res.iters_taken)
+            report[route] = dict(
+                iters=it, ms_per_iter=seconds * 1e3 / max(it, 1),
+                counts=log.counts, bytes=log.bytes,
+                host_staged=log.host_staged, launches=launches)
+            arrays[f"{route}_hist"] = res.history.cpu().numpy()
+            if rank == 0:
+                arrays[f"{route}_x"] = x.reshape(-1).cpu().numpy()
+        report["shard"] = mesh.shard
+        np.savez(out / f"rank{rank}.npz", **arrays)
+        (out / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _build_targets():
+    from repro_torch.kernels import _build
+
+    return [_build._target(stem, dtype) for stem, dtypes in
+            _build.SOURCES.items() for dtype in dtypes]
+
+
+def _spawn_world(backend, world, spec, tmp):
+    """Run ``world`` ranks of ``dist_child``; return their reports and
+    arrays.  A rank that fails or outlives DIST_CHILD_TIMEOUT_S fails the
+    check (the others are killed)."""
+    import numpy as np
+
+    out = pathlib.Path(tmp) / f"{backend}{world}"
+    out.mkdir(parents=True, exist_ok=True)
+    spec = dict(spec, backend=backend, world=world, out=str(out),
+                init=str(out / "rendezvous"))
+    path = out / "spec.json"
+    path.write_text(json.dumps(spec))
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--dist-child", str(path), str(r)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    deadline = time.perf_counter() + DIST_CHILD_TIMEOUT_S
+    logs, ok = [], True
+    for r, proc in enumerate(procs):
+        try:
+            log, _ = proc.communicate(
+                timeout=max(deadline - time.perf_counter(), 1.0))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            log, _ = proc.communicate()
+            log += f"\n(killed after {DIST_CHILD_TIMEOUT_S} s)"
+        ok &= proc.returncode == 0
+        logs.append(f"  rank {r} rc {proc.returncode}: {log[-1500:]}")
+    if not ok:
+        print("\n".join(logs), flush=True)
+    check(ok, f"{backend} world of {world}: every rank exited 0")
+    reports = [json.loads((out / f"rank{r}.json").read_text())
+               for r in range(world)]
+    arrays = []
+    for r in range(world):
+        with np.load(out / f"rank{r}.npz") as z:
+            arrays.append({k: z[k] for k in z.files})
+    return reports, arrays
+
+
+def phase_distributed(hist, pcg_envelope, smi_line):
+    """The paper case over 2 and 4 gloo ranks sharing the card and one
+    NCCL rank: v1 (100 iterations), s-step s=4 (100), Jacobi-PCG (100)
+    and Chebyshev-PCG(4) to 1e-8 r0, each held to its single-process route
+    on the card: entries 0..10 to 1e-12, all entries within 10x the plain
+    route's own CPU-vs-card spread (v2's for v1, s-step and Chebyshev,
+    Jacobi's for Jacobi); the NCCL rank bitwise.  Launches and collectives are counted
+    per cycle or iteration, the bytes held to the cost books.  Times are
+    of processes that share one card: not a scaling figure."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cost
+    from repro_torch.core.nekbone import NekboneCase
+
+    print(f"== sharded solves: paper case (n=10, E=1024, fp64) over "
+          f"{', '.join(f'{w} {b}' for b, w in DIST_WORLDS)} rank(s) on one "
+          f"card ({smi_line}); times are of ranks sharing the card, not "
+          "a scaling figure", flush=True)
+    t_phase = time.perf_counter()
+    case = NekboneCase(n=10, grid=PAPER_GRID, dtype=torch.float64)
+    f = case.manufactured()[1]
+    spec = _dist_spec(case, f)
+    one, one_ms = {}, {}
+    for route, solve in _dist_solves(case, f, spec).items():
+        solve()                           # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        it = int(res.iters_taken)
+        one_ms[route] = (time.perf_counter() - t0) * 1e3 / it
+        one[route] = (res.history.cpu().numpy(),
+                      res.x.reshape(-1).cpu().numpy(), it)
+    print(f"  single process: theta {spec['theta']:.6e}, cheb{CHEB_K} "
+          f"interval [{spec['lmin']:.6e}, {spec['lmax']:.6e}], tol "
+          f"{spec['tol']:.6e}; ms per iteration "
+          + ", ".join(f"{r} {one_ms[r]:.4f}" for r in DIST_ROUTES)
+          + f"; cheb{CHEB_K} iterations {one['cheb'][2]}", flush=True)
+    v2_env = float(_rel_dev(hist["fused on the CPU"], hist["fused"]).max())
+    env = {"v1": v2_env, "sstep": v2_env, "cheb": v2_env,
+           "jacobi": pcg_envelope}
+    head = dict.fromkeys(DIST_ROUTES, HIST_RTOL_HEAD)
+    ex, ey, ez = PAPER_GRID
+    n = 10
+    launch_rows = {}
+    with tempfile.TemporaryDirectory(prefix="dist-") as tmp:
+        for backend, world in DIST_WORLDS:
+            reports, arrays = _spawn_world(backend, world, spec, tmp)
+            ez_l = ez // world
+            stream = ex * ey * ez_l * n ** 3 * 8
+            for route in DIST_ROUTES:
+                h1, x1, it1 = one[route]
+                hs = [a[f"{route}_hist"] for a in arrays]
+                check(all(_same_bits_np(h, hs[0]) for h in hs),
+                      f"{backend}{world} {route}: every rank's history "
+                      "bitwise the same")
+                h, x = hs[0], arrays[0][f"{route}_x"]
+                it = reports[0][route]["iters"]
+                check(it == it1, f"{backend}{world} {route}: {it} "
+                                 f"iterations, single process {it1}")
+                dev = _rel_dev(h[:it + 1], h1[:it + 1])
+                xerr = float(np.abs(x - x1).max() / np.abs(x1).max())
+                if backend == "nccl":
+                    check(_same_bits_np(h, h1) and np.array_equal(x, x1),
+                          f"{backend}{world} {route}: history and x bitwise "
+                          "the single-process route")
+                else:
+                    check(float(dev[:11].max()) <= head[route],
+                          f"{backend}{world} {route}: entries 0..10 within "
+                          f"{head[route]:g} of the single-process route "
+                          f"({float(dev[:11].max()):.2e})")
+                    check(float(dev.max()) <= max(
+                        head[route], ENVELOPE_FACTOR * env[route]),
+                          f"{backend}{world} {route}: all {it + 1} entries "
+                          f"within {ENVELOPE_FACTOR:g}x the plain route's "
+                          f"spread {env[route]:.2e} ({float(dev.max()):.2e})")
+                # launches and collectives, per rank
+                cyc = -(-spec["niter"] // spec["s"])
+                for rep in reports:
+                    r = rep[route]
+                    shards = world > 1
+                    upd = "_planes" if shards else ""
+                    want_l, want_c = {
+                        "v1": ({"nekbone_ax_pap_f64": it},
+                               {"ppermute": 2 * it, "psum": 2 * it + 1}),
+                        "sstep": ({"nekbone_ax_powers_f64": cyc,
+                                   "nekbone_sstep_update_f64": cyc},
+                                  {"ppermute": 2 * cyc, "psum": cyc + 1,
+                                   "all_gather": 1}),
+                        "jacobi": ({"nekbone_ax_slab_f64": it,
+                                    f"nekbone_pcg_update{upd}_f64": it},
+                                   {"ppermute": 2 * it, "psum": 2 * it + 1,
+                                    "all_gather": 1}),
+                        "cheb": ({"nekbone_cheb_apply_f64": it + 1,
+                                  "nekbone_ax_slab_f64": it,
+                                  f"nekbone_cg_update{upd}_f64": it},
+                                 {"ppermute": 4 * it + 2, "psum": 2 * it + 1,
+                                  "all_gather": 1})}[route]
+                    check(r["launches"] == want_l and r["counts"] == want_c,
+                          f"{backend}{world} {route} shard {rep['shard']}: "
+                          f"launches {r['launches']}, collectives "
+                          f"{r['counts']}")
+                    edge = (rep["shard"] in (0, world - 1)) + (world == 1)
+                    plane = cost.v2_plane_collective_streams(n, ez_l) \
+                        * stream
+                    book = {"v1": it * plane,
+                            "sstep": cyc * spec["s"]
+                            * cost.sstep_collective_streams(spec["s"], ez_l)
+                            * stream,
+                            "jacobi": it * plane,
+                            "cheb": it * plane + (it + 1)
+                            * cost.cheb_collective_streams(spec["k"], ez_l)
+                            * stream}[route] * (1 - edge / 2)
+                    got = r["bytes"].get("ppermute", 0)
+                    check(math.isclose(got, book, rel_tol=1e-12,
+                                       abs_tol=0.5),
+                          f"{backend}{world} {route} shard {rep['shard']}: "
+                          f"{got} ppermute bytes, the cost books' {book:.0f}")
+                ms = [rep[route]["ms_per_iter"] for rep in reports]
+                staged = [rep[route]["host_staged"] for rep in reports]
+                print(f"  {backend}{world} {route}: {it} iterations; rel dev "
+                      f"entries 0..10 {float(dev[:11].max()):.2e}, all "
+                      f"{float(dev.max()):.2e}; x rel {xerr:.2e}; ms per "
+                      f"iteration by rank {['%.4f' % m for m in ms]} "
+                      f"(single process {one_ms[route]:.4f}); bytes staged "
+                      f"through the host by rank {staged}; collectives "
+                      f"{reports[0][route]['counts']}, bytes "
+                      f"{reports[0][route]['bytes']}", flush=True)
+                if backend == "gloo" and world == 2:
+                    launch_rows[route] = reports[0][route]["launches"]
+    seconds = time.perf_counter() - t_phase
+    print(f"  sharded phase: {seconds:.1f} s ({smi_line})", flush=True)
+    check(seconds <= DIST_PHASE_S,
+          f"sharded phase within {DIST_PHASE_S:g} s ({seconds:.1f} s)")
+    return launch_rows
+
+
+def _same_bits_np(a, b) -> bool:
+    import numpy as np
+
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
 def _same_bits(a, b) -> bool:
     """Bitwise equality that holds NaN padding equal to itself."""
     import torch
@@ -5297,6 +5806,8 @@ def _same_bits(a, b) -> bool:
 
 def main() -> int:
     t_start = time.perf_counter()
+    if sys.argv[1:2] == ["--dist-child"]:
+        return dist_child(*sys.argv[2:4])
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from the root of a checkout", file=sys.stderr)
@@ -5346,6 +5857,10 @@ def _run_phases(t_start) -> int:
         slice4 = phase_v1_sstep_routes(hist)
         launches.update(slice4["launches"])
         solve_rounds = phase_slice4_times(bw, slice4, rows)
+        plane_err, plane_rows = phase_planes(bw)
+        err.update(plane_err)
+        dist_launches = phase_distributed(hist, pcg["envelope"]["jacobi"],
+                                          smi_line)
         err.update(phase_bf16_parity())
         err.update(phase_bf16_sstep_pcg_parity())
         err.update(phase_bf16_k1_k2_parity())
@@ -5507,6 +6022,23 @@ def _run_phases(t_start) -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms")})
+    # the planes instantiations of K5 and K10, launched by the sharded
+    # Chebyshev and Jacobi solves over 2 gloo ranks (rank 0's count), timed
+    # at a middle shard of 4
+    for key, kname, cu, line, route in (
+            ("K5 planes", "nekbone_cg_update_planes", "nekbone_cg_update.cu",
+             625, "cheb"),
+            ("K10 planes", "nekbone_pcg_update_planes",
+             "nekbone_pcg_update.cu", 1322, "jacobi")):
+        row = plane_rows[key]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{cu}",
+            "replaces": f"src/repro/kernels/nekbone_ax.py:{line}",
+            "launches": dist_launches[route].get(f"{kname}_f64", 0),
+            "max_abs_err": err[key], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     flash = ("src/repro_torch/kernels/csrc/flash_attn.cu",
              "src/repro/kernels/flash_attn.py:32")
     # each K13 row is one layer kind of a served model, with its own launches

@@ -268,20 +268,25 @@ def sass(so: pathlib.Path) -> dict:
 
 def compare_sass(earlier: dict, tree: dict, changed=()) -> bool:
     """Whether every earlier library's SASS is the tree's, but for the
-    stems in ``changed``, which are reported."""
+    stems in ``changed``, which are reported.  Kernels the tree adds beside
+    the earlier ones (K5's and K10's planes instantiations) are listed;
+    every earlier kernel must keep its instructions."""
     from repro_torch.kernels import _build
 
     print("== SASS beside the earlier sources", flush=True)
     ok = True
     for name, so in earlier.items():
         old, new = sass(so), sass(tree[name])
-        same = old.keys() == new.keys() and all(old[k] == new[k] for k in old)
+        same = all(k in new and old[k] == new[k] for k in old)
+        added = sorted({k[0] if isinstance(k, tuple) else k
+                        for k in new.keys() - old.keys()})
         held = _build.split_name(name)[0] not in changed
         ok &= same or not held
         print(f"  {name}: {len(old)} kernels, "
               f"{sum(map(len, old.values()))} instructions; the same SASS: "
-              f"{same}" + ("" if held else " (redesigned: reported)"),
-              flush=True)
+              f"{same}" + ("" if held else " (redesigned: reported)")
+              + (f"; {len(new) - len(old)} kernels added: {added}"
+                 if added else ""), flush=True)
     return ok
 
 

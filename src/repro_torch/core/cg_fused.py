@@ -38,8 +38,14 @@ card.
 
 The reference's v1 ``block_e``, and its v2 slab split ``sz``, contraction
 ``layout`` and ``grid_order``, are TPU VMEM knobs with no counterpart here:
-the kernels work per element.  The sharded pipeline is not ported yet
-(ROADMAP.md).
+the kernels work per element.
+
+**v1 sharded** (:func:`cg_fused_sharded_fixed_iters`, DESIGN.md §10): the
+v1 iteration on one shard of a z-slab decomposition — K3 on the shard's
+block, ``gs.ds_sum_sharded`` for the assembly (one exchange of the
+boundary planes, two ppermutes) and the torch vector pass, with the
+``pap`` and ``r·c·r`` partials summed by two psums in the accumulation
+dtype.
 
 Preconditions: ``b`` must be assembled (coincident copies equal —
 manufactured right-hand sides are) and masked.
@@ -50,12 +56,12 @@ import torch
 
 from repro_torch.core.cg import CGResult, SolveResult
 from repro_torch.core.geom import box_axis_factors, box_outer
-from repro_torch.core.gs import ds_sum_local
+from repro_torch.core.gs import ds_sum_local, ds_sum_sharded
 from repro_torch.core.precision import resolve_policy
 from repro_torch.kernels import nekbone_ax as _ax
 
 __all__ = ["cg_fused_fixed_iters", "cg_fused_v2_fixed_iters",
-           "cg_ir_fixed_iters"]
+           "cg_fused_sharded_fixed_iters", "cg_ir_fixed_iters"]
 
 
 def cg_fused_fixed_iters(b: torch.Tensor, *, D: torch.Tensor,
@@ -119,6 +125,67 @@ def cg_fused_fixed_iters(b: torch.Tensor, *, D: torch.Tensor,
                             None, niter)
     return SolveResult.from_cg(_result(x, k, hist, b.shape),
                                pipeline="fused_v1")
+
+
+def cg_fused_sharded_fixed_iters(b: torch.Tensor, *, D: torch.Tensor,
+                                 g: torch.Tensor, mask: torch.Tensor,
+                                 c: torch.Tensor,
+                                 grid_local: tuple[int, int, int],
+                                 niter: int, mesh=None,
+                                 precision=None) -> SolveResult:
+    """Fixed-iteration v1 CG on one shard of a z-slab decomposition.
+
+    Every shard of ``mesh`` (default
+    :func:`repro_torch.distributed.sharding.solver_mesh`) calls it with its
+    own blocks: ``b``, ``g``, ``mask``, ``c`` its ``(E_local, ...)`` slices
+    of the global fields (``sharding.shard_leading``) and ``grid_local``
+    its element grid ``(EX, EY, EZ_local)``.  Per iteration: K3 on the
+    block, one psum of ``pap``, ``ds_sum_sharded`` (two ppermutes), the
+    axpys, one psum of ``r·c·r``.  The psum'd partials travel in the
+    accumulation dtype, so every shard takes the same ``alpha`` and
+    ``beta``, and the history (replicated) matches
+    :func:`cg_fused_fixed_iters` to round-off.  Returns the shard's block
+    of ``x`` with the global history, as the reference's ``shard_map`` body
+    does.
+    """
+    from repro_torch.distributed import sharding
+
+    mesh = sharding.solver_mesh() if mesh is None else mesh
+    policy, b = _policy(b, precision)
+    E = b.shape[0]
+    n = b.shape[-1]
+    n3 = n ** 3
+    acc = policy.accum_dtype
+    D = D.to(policy.op_storage_dtype).contiguous()
+    g2 = g.to(policy.op_storage_dtype).reshape(E, 6, n3).contiguous()
+    mask2 = mask.to(b.dtype).reshape(E, n3).contiguous()
+    c_acc = c.to(b.dtype).to(acc)
+
+    def gsum(v):
+        return sharding.psum(v.reshape(1), mesh)[0]
+
+    rtz = gsum(torch.sum(b.to(acc) * c_acc * b.to(acc)))
+
+    def body(state, rtz):
+        x, r, p = state
+        w2, pap_e = _ax.nekbone_ax_pap_cuda(p.reshape(E, n3), D, g2, mask2,
+                                            n=n)
+        pap = gsum(torch.sum(pap_e))
+        w = ds_sum_sharded(w2.reshape(b.shape), tuple(grid_local), mesh)
+        alpha = rtz / pap
+        x = (x.to(acc) + alpha * p.to(acc)).to(policy.x_storage_dtype)
+        r = (r.to(acc) - alpha * w.to(acc)).to(b.dtype)
+        rtz_new = gsum(torch.sum(r.to(acc) * c_acc * r.to(acc)))
+        beta = rtz_new / rtz
+        p = (r.to(acc) + beta * p.to(acc)).to(b.dtype)
+        return (x, r, p), rtz_new, torch.sqrt(torch.abs(rtz_new))
+
+    state = (torch.zeros(b.shape, dtype=policy.x_storage_dtype,
+                         device=b.device), b, b)
+    (x, *_), k, hist = _run(body, state, rtz, torch.sqrt(torch.abs(rtz)),
+                            None, niter)
+    return SolveResult.from_cg(_result(x, k, hist, b.shape),
+                               pipeline="fused_v1_sharded")
 
 
 def _check_box_fields(grid, n, mask, c) -> None:

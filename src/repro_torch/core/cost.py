@@ -436,8 +436,11 @@ def _multi_rhs_rung(pipeline: str) -> tuple[str, int] | None:
 # side channels and per-device collectives of the reference's books.  They
 # price the reference's halo'd slab residencies and its sharded pipelines;
 # the port's kernels have no halos (K8 and K11 are one cooperative launch
-# each) and the port has no sharded driver yet (ROADMAP.md queue 1 item 14).
-# They carry over as books: bytes and flops, not time.
+# each; a shard runs them on its ghost-extended grid, distributed/halo.py).
+# The collective books are the bytes a shard with two neighbours sends and
+# receives (distributed/sharding.COLLECTIVE_BYTES): its ppermutes per
+# iteration, in streams of the shard's E_local n^3 values.  They carry over
+# as books: bytes and flops, not time.
 # ---------------------------------------------------------------------------
 
 def fused_v2_intensity(n: int, itemsize: int = 8) -> float:

@@ -16,8 +16,9 @@ Every field lives on ``device``.  ``device=None`` means the card
 for ``device="cpu"``, as the tests do.  Jacobi, Chebyshev and p-multigrid
 preconditioning (core/precond.py, core/pmg.py), multi-RHS block solves
 (core/cg_block.py) and iterative refinement (``precision="f32_ir"`` or
-``"bf16_ir"``, core/cg_fused.py) are ported; sharding is not yet
-(ROADMAP.md).
+``"bf16_ir"``, core/cg_fused.py) are ported, and so are the sharded solves
+over ``torch.distributed`` (``distributed/``, :meth:`NekboneCase.shard_grid`
+and :meth:`NekboneCase.sharded_ax_full`).
 """
 from __future__ import annotations
 
@@ -266,3 +267,33 @@ class NekboneCase:
         are 1 to keep the inverse finite."""
         return precond_mod.operator_diagonal(self.D, self.g, self.grid,
                                  self.mask).to(self.dtype)
+
+    # ------------------------------------------------------------------
+    # Distributed (z-slab) operator set
+    # ------------------------------------------------------------------
+    def shard_grid(self, n_shards: int) -> tuple[int, int, int]:
+        """The element grid of one of ``n_shards`` z-slabs."""
+        ex, ey, ez = self.grid
+        if ez % n_shards:
+            raise ValueError(f"EZ={ez} not divisible by {n_shards} shards")
+        return ex, ey, ez // n_shards
+
+    def sharded_ax_full(self, mesh=None) -> Callable:
+        """Per-shard assembled operator over ``mesh`` (default
+        :func:`repro_torch.distributed.sharding.solver_mesh`).
+
+        Returns ``op(u_local, g_local, mask_local, grid_local)`` on a
+        shard's blocks of the fields (z-major element order makes a
+        leading-axis split a z-split): the local operator, the sharded
+        gather-scatter (one plane exchange), the mask.
+        """
+        from repro_torch.distributed import sharding
+
+        mesh = sharding.solver_mesh() if mesh is None else mesh
+
+        def op(u_local, g_local, mask_local, grid_local):
+            w = ax_mod.ax_local(u_local, self.D, g_local, impl=self.ax_impl)
+            w = gs_mod.ds_sum_sharded(w, grid_local, mesh)
+            return w * mask_local
+
+        return op

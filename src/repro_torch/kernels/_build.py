@@ -57,7 +57,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # counter, for K1-K12 (kernels/nekbone_ax.py), K13 (kernels/flash_attn.py)
 # and K14 (kernels/wkv6.py).
 LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
-            "nekbone_pcg_update": 0, "nekbone_cheb_apply": 0,
+            "nekbone_cg_update_planes": 0, "nekbone_pcg_update": 0,
+            "nekbone_pcg_update_planes": 0, "nekbone_cheb_apply": 0,
             "nekbone_interp": 0, "nekbone_ax_slab_block": 0,
             "nekbone_cg_update_block": 0, "nekbone_ax_pap": 0,
             "nekbone_ax_dots": 0, "nekbone_ax_powers": 0,

@@ -1060,6 +1060,74 @@ __device__ __forceinline__ accum_t<T> sum_xyz_nc(const T* __restrict__ w,
   return hz ? add_rn(lo, hi) : lo;
 }
 
+// The edge planes of a sharded solve (core/gs.edge_planes): a neighbour
+// shard's x,y-assembled face, (EY*EX, n, n) values in the accumulation type
+// A, that the z step adds to the k = 0 face of the bottom element layer
+// (below) or to the k = n-1 face of the top one (above); null where the
+// shard holds the global end.  NoPlanes is the single-shard walk's: its
+// code is the walk without this operand.
+template <typename A>
+struct EdgePlanes {
+  static constexpr bool kOn = true;
+  const A* below;
+  const A* above;
+};
+struct NoPlanes {
+  static constexpr bool kOn = false;
+};
+
+// sum_xyz_nc with the edge planes: along z, a node on the bottom layer's k
+// = 0 face (or the top layer's k = n-1 face) whose shard is not at that
+// global end takes the plane's value where sum_xyz_nc takes the z
+// neighbour's x,y sum.  Both are that neighbour copy's (x then y) sum, so
+// the pair (own side + neighbour's side) is bitwise the single-shard one.
+template <int N, typename T>
+__device__ __forceinline__ accum_t<T> sum_xyz_nc_planes(
+    const T* __restrict__ w, accum_t<T> own, size_t e, int k, int j, int i,
+    int ix, int iy, int iz, int ex, int ey, int ez,
+    const EdgePlanes<accum_t<T>>& pl) {
+  using A = accum_t<T>;
+  constexpr int N2 = N * N;
+  constexpr int N3 = N * N * N;
+  const bool hx = (i == N - 1 && ix < ex - 1) || (i == 0 && ix > 0);
+  const bool hy = (j == N - 1 && iy < ey - 1) || (j == 0 && iy > 0);
+  const bool hz = (k == N - 1 && iz < ez - 1) || (k == 0 && iz > 0);
+  const bool pz = (k == 0 && iz == 0 && pl.below != nullptr) ||
+                  (k == N - 1 && iz == ez - 1 && pl.above != nullptr);
+  const ptrdiff_t sx = i == N - 1 ? 1 : -1;
+  const ptrdiff_t sy = (j == N - 1 ? 1 : -1) * static_cast<ptrdiff_t>(ex);
+  const ptrdiff_t sz =
+      (k == N - 1 ? 1 : -1) * static_cast<ptrdiff_t>(ex) * ey;
+  const T* at0 = w + e * N3 + (k * N + j) * N + i;
+  auto at = [&](bool dx, bool dy, bool dz) {
+    return at0 + ((dx ? sx : 0) + (dy ? sy : 0) + (dz ? sz : 0)) * N3 +
+           (dx ? (N - 1 - 2 * i) : 0) + (dy ? (N - 1 - 2 * j) * N : 0) +
+           (dz ? (N - 1 - 2 * k) * N2 : 0);
+  };
+  auto ld = [&](bool p, bool dx, bool dy, bool dz) {
+    return convert<A>(ld_nc(p, at(dx, dy, dz)));
+  };
+  auto xsum = [&](A a, bool p, bool dy, bool dz) {
+    const A b = ld(p && hx, true, dy, dz);
+    return hx ? add_rn(a, b) : a;
+  };
+  auto xysum = [&](A a, bool p, bool dz) {
+    const A lo = xsum(a, p, false, dz);
+    const A hi = xsum(ld(p && hy, false, true, dz), p && hy, true, dz);
+    return hy ? add_rn(lo, hi) : lo;
+  };
+  // the plane's copy of the node: (EY*EX, N, N), element (iy, ix), (j, i)
+  const A* plane =
+      pz ? (k == 0 ? pl.below : pl.above) +
+               (static_cast<size_t>(iy) * ex + ix) * N2 + j * N + i
+         : pl.below;
+  const A lo = xysum(own, true, false);
+  const A hz_hi = xysum(ld(hz, false, false, true), hz, true);
+  const A p_hi = ld_nc(pz, plane);
+  const A hi = hz ? hz_hi : p_hi;
+  return (hz || pz) ? add_rn(lo, hi) : lo;
+}
+
 // block_sum's tree over the NT values of the block's threads, with its
 // pairs (tid, tid + s) in its order, so bitwise block_sum's: the steps of s
 // >= 64 through shared memory, the rest in warp 0 (s = 32 from shared
@@ -1260,12 +1328,17 @@ __device__ __forceinline__ const T* ring_at_stage(const WalkRing<K>& ring,
 // block sums the partials in block_sum's tree (block_sum_shfl, `red` two
 // buffers of n^2 values).  K5 and K7 run every item through this one
 // function, so each K7 lane is bitwise K5 on that lane.
-template <int N, bool kBulkAll, typename S, typename X, typename A>
+//
+// P is NoPlanes, or EdgePlanes<A> for the planes instantiation of K5 (a
+// sharded solve's shard, one lane).
+template <int N, bool kBulkAll, typename S, typename X, typename A,
+          typename P = NoPlanes>
 __device__ __forceinline__ void cg_update_item(const UpdateArgs<S, X, A>& a,
                                                const WalkRing<4>& ring,
                                                const unsigned char* stage,
                                                size_t q, const ItemPos& pos,
-                                               A* red, int i, int j) {
+                                               A* red, int i, int j,
+                                               const P& pl = P{}) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
   const int tid = j * N + i;
@@ -1279,9 +1352,14 @@ __device__ __forceinline__ void cg_update_item(const UpdateArgs<S, X, A>& a,
   const A cyx = convert<A>(a.cy[iy * N + j]) * convert<A>(a.cx[ix * N + i]);
   A wa[N];
 #pragma unroll
-  for (int k = 0; k < N; ++k)
-    wa[k] = sum_xyz_nc<N>(a.w, convert<A>(ws[k * N2]), q, k, j, i, ix, iy,
-                          iz, a.ex, a.ey, a.ez);
+  for (int k = 0; k < N; ++k) {
+    if constexpr (P::kOn)
+      wa[k] = sum_xyz_nc_planes<N>(a.w, convert<A>(ws[k * N2]), q, k, j, i,
+                                   ix, iy, iz, a.ex, a.ey, a.ez, pl);
+    else
+      wa[k] = sum_xyz_nc<N>(a.w, convert<A>(ws[k * N2]), q, k, j, i, ix, iy,
+                            iz, a.ex, a.ey, a.ez);
+  }
   A part = A(0);
 #pragma unroll
   for (int k = 0; k < N; ++k) {
@@ -1304,12 +1382,13 @@ __device__ __forceinline__ void cg_update_item(const UpdateArgs<S, X, A>& a,
 }
 
 // The walk of a block over its items (lanes * E of them), kBulkAll as for
-// ring_fill_stage.
-template <int N, bool kBulkAll, typename S, typename X, typename A>
+// ring_fill_stage, P as for cg_update_item.
+template <int N, bool kBulkAll, typename S, typename X, typename A,
+          typename P = NoPlanes>
 __device__ __forceinline__ void cg_update_walk(const UpdateArgs<S, X, A>& a,
                                                unsigned long long* full,
                                                unsigned char* ring_bytes,
-                                               A* red) {
+                                               A* red, const P& pl = P{}) {
   constexpr int N2 = N * N;
   const int i = threadIdx.x;
   const int j = threadIdx.y;
@@ -1336,7 +1415,7 @@ __device__ __forceinline__ void cg_update_walk(const UpdateArgs<S, X, A>& a,
     if (!kBulkAll && t + 1 < count) ring.prefetch(q + 1, tid, N2);
     if (kBulkAll || a.plan.staged) mbar_wait(&full[s], phase);
     cg_update_item<N, kBulkAll>(a, ring, ring.base + s * ring.stage_bytes, q,
-                                pos, red + (t & 1) * N2, i, j);
+                                pos, red + (t & 1) * N2, i, j, pl);
     // block_sum_shfl's barrier: no thread reads this item's stage any more
     if (t + stages < count)
       ring_fill_stage<kBulkAll>(ring, s, q + stages, tid, N2);

@@ -89,9 +89,34 @@ nekbone_cg_update_kernel(const UpdateArgs<S, X, A> a) {
     cg_update_walk<N, false>(a, full, ring_bytes, red);
 }
 
+// The planes instantiation: a sharded solve's shard, whose bottom and top
+// element layers take a neighbour shard's x,y-assembled edge plane in the z
+// step (common.cuh EdgePlanes, sum_xyz_nc_planes).  The kernel above is the
+// walk without that operand, so its code is the single-shard kernel's.
 template <int N, typename S, typename X, typename A>
+__global__ void __launch_bounds__(N * N, kWalkMinBlocks<N, A>)
+nekbone_cg_update_planes_kernel(const UpdateArgs<S, X, A> a,
+                                const EdgePlanes<A> pl) {
+  __shared__ A red[2 * N * N];
+  __shared__ unsigned long long full[kMaxStages];
+  extern __shared__ __align__(128) unsigned char ring_bytes[];
+  if (a.plan.bulk && a.plan.staged == 15)
+    cg_update_walk<N, true>(a, full, ring_bytes, red, pl);
+  else
+    cg_update_walk<N, false>(a, full, ring_bytes, red, pl);
+}
+
+// P is empty for the single-shard kernel, or EdgePlanes<A> for the planes
+// kernel, which runs on the single-shard kernel's plan (the same walk, ring
+// and register cap).
+template <int N, typename S, typename X, typename A, typename... P>
 const void* kernel_fn() {
-  return reinterpret_cast<const void*>(&nekbone_cg_update_kernel<N, S, X, A>);
+  if constexpr (sizeof...(P) == 0)
+    return reinterpret_cast<const void*>(
+        &nekbone_cg_update_kernel<N, S, X, A>);
+  else
+    return reinterpret_cast<const void*>(
+        &nekbone_cg_update_planes_kernel<N, S, X, A>);
 }
 
 // out: common.cuh coop_query's seven values for this instantiation.
@@ -100,17 +125,21 @@ cudaError_t query(int dyn, int* out) {
   return coop_query(kernel_fn<N, S, X, A>(), N * N, 1, dyn, out);
 }
 
-template <int N, typename S, typename X, typename A>
+template <int N, typename S, typename X, typename A, typename... P>
 cudaError_t launch(const UpdateArgs<S, X, A>& a, int grid,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const P&... pl) {
   const long long E = static_cast<long long>(a.ex) * a.ey * a.ez;
   int dyn = 0;
   if (!update_plan_ok<N>(a, E, grid, dyn)) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel_fn<N, S, X, A>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dyn);
+      kernel_fn<N, S, X, A, P...>(),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return err;
-  nekbone_cg_update_kernel<N, S, X, A><<<grid, dim3(N, N), dyn, stream>>>(a);
+  if constexpr (sizeof...(P) == 0)
+    nekbone_cg_update_kernel<N, S, X, A><<<grid, dim3(N, N), dyn, stream>>>(a);
+  else
+    nekbone_cg_update_planes_kernel<N, S, X, A>
+        <<<grid, dim3(N, N), dyn, stream>>>(a, pl...);
   return cudaGetLastError();
 }
 
@@ -127,15 +156,16 @@ int dispatch_query(int n, int dyn, int* out) {
   }
 }
 
-template <typename S, typename X, typename A>
-int dispatch(const UpdateArgs<S, X, A>& a, int n, int grid, void* stream) {
+template <typename S, typename X, typename A, typename... P>
+int dispatch(const UpdateArgs<S, X, A>& a, int n, int grid, void* stream,
+             const P&... pl) {
   if (a.ex <= 0 || a.ey <= 0 || a.ez <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
 #define NEKBONE_CASE(N) \
   case N:               \
-    return static_cast<int>(launch<N, S, X, A>(a, grid, s));
+    return static_cast<int>(launch<N, S, X, A>(a, grid, s, pl...));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -151,6 +181,10 @@ int dispatch(const UpdateArgs<S, X, A>& a, int n, int grid, void* stream) {
 // grid, stages, staged, bulk) is kernels/nekbone_ax.k5_plan's; a plan the
 // pointers do not allow returns cudaErrorInvalidValue.  Returns
 // cudaGetLastError() after the launch.
+//
+// nekbone_cg_update_planes_<dtype>(..., rcr, below, above, ex, ...): the
+// same launch with a sharded solve's edge planes below, above: (EY*EX, n, n)
+// in A, or null at a global end (common.cuh EdgePlanes).
 //
 // nekbone_cg_update_query_<dtype>(n, resident, dyn, out): fills out[7] as
 // common.cuh coop_query documents (resident is ignored); returns a CUDA
@@ -171,6 +205,24 @@ int dispatch(const UpdateArgs<S, X, A>& a, int n, int grid, void* stream) {
         static_cast<A*>(rcr),         ex, ey, ez, /*lanes=*/1,                \
         {per_block, stages, staged, bulk}};                                   \
     return nekbone::dispatch<S, X, A>(a, n, grid, stream);                    \
+  }                                                                           \
+  extern "C" int nekbone_cg_update_planes_##SUFFIX(                           \
+      const void* x, const void* p, const void* r, const void* w,             \
+      const void* alpha, const void* cx, const void* cy, const void* cz,      \
+      void* x_out, void* r_out, void* rcr, const void* below,                 \
+      const void* above, int ex, int ey, int ez, int n, int per_block,        \
+      int grid, int stages, int staged, int bulk, void* stream) {             \
+    const nekbone::UpdateArgs<S, X, A> a{                                     \
+        static_cast<const X*>(x),     static_cast<const S*>(p),               \
+        static_cast<const S*>(r),     static_cast<const S*>(w),               \
+        static_cast<const A*>(alpha), static_cast<const S*>(cx),              \
+        static_cast<const S*>(cy),    static_cast<const S*>(cz),              \
+        static_cast<X*>(x_out),       static_cast<S*>(r_out),                 \
+        static_cast<A*>(rcr),         ex, ey, ez, /*lanes=*/1,                \
+        {per_block, stages, staged, bulk}};                                   \
+    const nekbone::EdgePlanes<A> pl{static_cast<const A*>(below),             \
+                                    static_cast<const A*>(above)};            \
+    return nekbone::dispatch<S, X, A>(a, n, grid, stream, pl);                \
   }                                                                           \
   extern "C" int nekbone_cg_update_query_##SUFFIX(int n, int resident,        \
                                                   int dyn, int* out) {        \

@@ -126,12 +126,14 @@ __host__ __device__ __forceinline__ void pcg_operands(int (&bytes)[5],
 // += alpha p, z -= alpha invd w, its rtz and rcr partials in k order), and
 // the block sums both partials in block_sum's tree (`red` one of two
 // buffers of 2 n^2 values).
+// P is NoPlanes, or EdgePlanes<A> for the planes instantiation (a sharded
+// solve's shard, common.cuh sum_xyz_nc_planes).
 template <int N, bool kBulkAll, typename S, typename X, typename O,
-          typename A>
+          typename A, typename P = NoPlanes>
 __device__ __forceinline__ void pcg_update_item(
     const PcgArgs<S, X, O, A>& a, const WalkRing<5>& ring,
     const unsigned char* stage, size_t e, const ItemPos& pos, A al, A* red,
-    int i, int j) {
+    int i, int j, const P& pl = P{}) {
   constexpr int N2 = N * N;
   constexpr int N3 = N * N * N;
   const int tid = j * N + i;
@@ -145,9 +147,14 @@ __device__ __forceinline__ void pcg_update_item(
   const A cyx = convert<A>(a.cy[iy * N + j]) * convert<A>(a.cx[ix * N + i]);
   A wa[N];
 #pragma unroll
-  for (int k = 0; k < N; ++k)
-    wa[k] = sum_xyz_nc<N>(a.w, convert<A>(ws[k * N2]), e, k, j, i, ix, iy,
-                          iz, a.ex, a.ey, a.ez);
+  for (int k = 0; k < N; ++k) {
+    if constexpr (P::kOn)
+      wa[k] = sum_xyz_nc_planes<N>(a.w, convert<A>(ws[k * N2]), e, k, j, i,
+                                   ix, iy, iz, a.ex, a.ey, a.ez, pl);
+    else
+      wa[k] = sum_xyz_nc<N>(a.w, convert<A>(ws[k * N2]), e, k, j, i, ix, iy,
+                            iz, a.ex, a.ey, a.ez);
+  }
   A part_rtz = A(0);
   A part_rcr = A(0);
 #pragma unroll
@@ -175,13 +182,14 @@ __device__ __forceinline__ void pcg_update_item(
   }
 }
 
-// The walk of a block over its elements, kBulkAll as for ring_fill_stage.
+// The walk of a block over its elements, kBulkAll as for ring_fill_stage,
+// P as for pcg_update_item.
 template <int N, bool kBulkAll, typename S, typename X, typename O,
-          typename A>
+          typename A, typename P = NoPlanes>
 __device__ __forceinline__ void pcg_update_walk(const PcgArgs<S, X, O, A>& a,
                                                 unsigned long long* full,
                                                 unsigned char* ring_bytes,
-                                                A* red) {
+                                                A* red, const P& pl = P{}) {
   constexpr int N2 = N * N;
   const int i = threadIdx.x;
   const int j = threadIdx.y;
@@ -209,7 +217,8 @@ __device__ __forceinline__ void pcg_update_walk(const PcgArgs<S, X, O, A>& a,
     if (!kBulkAll && t + 1 < count) ring.prefetch(e + 1, tid, N2);
     if (kBulkAll || a.plan.staged) mbar_wait(&full[s], phase);
     pcg_update_item<N, kBulkAll>(a, ring, ring.base + s * ring.stage_bytes,
-                                 e, pos, al, red + (t & 1) * 2 * N2, i, j);
+                                 e, pos, al, red + (t & 1) * 2 * N2, i, j,
+                                 pl);
     // block_sum2_shfl's barrier: no thread reads this element's stage any
     // more
     if (t + stages < count)
@@ -233,10 +242,33 @@ nekbone_pcg_update_kernel(const PcgArgs<S, X, O, A> a) {
     pcg_update_walk<N, false>(a, full, ring_bytes, red);
 }
 
+// The planes instantiation: a sharded solve's shard (common.cuh
+// EdgePlanes).  The kernel above is the walk without that operand, so its
+// code is the single-shard kernel's.
 template <int N, typename S, typename X, typename O, typename A>
+__global__ void __launch_bounds__(N * N, kWalkMinBlocks<N, A>)
+nekbone_pcg_update_planes_kernel(const PcgArgs<S, X, O, A> a,
+                                 const EdgePlanes<A> pl) {
+  __shared__ A red[4 * N * N];
+  __shared__ unsigned long long full[kMaxStages];
+  extern __shared__ __align__(128) unsigned char ring_bytes[];
+  if (a.plan.bulk && a.plan.staged == 31)
+    pcg_update_walk<N, true>(a, full, ring_bytes, red, pl);
+  else
+    pcg_update_walk<N, false>(a, full, ring_bytes, red, pl);
+}
+
+// P is empty for the single-shard kernel, or EdgePlanes<A> for the planes
+// kernel, which runs on the single-shard kernel's plan.
+template <int N, typename S, typename X, typename O, typename A,
+          typename... P>
 const void* kernel_fn() {
-  return reinterpret_cast<const void*>(
-      &nekbone_pcg_update_kernel<N, S, X, O, A>);
+  if constexpr (sizeof...(P) == 0)
+    return reinterpret_cast<const void*>(
+        &nekbone_pcg_update_kernel<N, S, X, O, A>);
+  else
+    return reinterpret_cast<const void*>(
+        &nekbone_pcg_update_planes_kernel<N, S, X, O, A>);
 }
 
 // out: common.cuh coop_query's seven values for this instantiation.
@@ -245,9 +277,10 @@ cudaError_t query(int dyn, int* out) {
   return coop_query(kernel_fn<N, S, X, O, A>(), N * N, 1, dyn, out);
 }
 
-template <int N, typename S, typename X, typename O, typename A>
+template <int N, typename S, typename X, typename O, typename A,
+          typename... P>
 cudaError_t launch(const PcgArgs<S, X, O, A>& a, int grid,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const P&... pl) {
   const long long E = static_cast<long long>(a.ex) * a.ey * a.ez;
   const void* const src[5] = {a.x, a.p, a.z, a.w, a.invd};
   int bytes[5], size[5];
@@ -259,11 +292,15 @@ cudaError_t launch(const PcgArgs<S, X, O, A>& a, int grid,
     return cudaErrorInvalidValue;
   const int dyn = walk_ring_bytes(a.plan, bytes);
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel_fn<N, S, X, O, A>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dyn);
+      kernel_fn<N, S, X, O, A, P...>(),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return err;
-  nekbone_pcg_update_kernel<N, S, X, O, A>
-      <<<grid, dim3(N, N), dyn, stream>>>(a);
+  if constexpr (sizeof...(P) == 0)
+    nekbone_pcg_update_kernel<N, S, X, O, A>
+        <<<grid, dim3(N, N), dyn, stream>>>(a);
+  else
+    nekbone_pcg_update_planes_kernel<N, S, X, O, A>
+        <<<grid, dim3(N, N), dyn, stream>>>(a, pl...);
   return cudaGetLastError();
 }
 
@@ -280,15 +317,16 @@ int dispatch_query(int n, int dyn, int* out) {
   }
 }
 
-template <typename S, typename X, typename O, typename A>
-int dispatch(const PcgArgs<S, X, O, A>& a, int n, int grid, void* stream) {
+template <typename S, typename X, typename O, typename A, typename... P>
+int dispatch(const PcgArgs<S, X, O, A>& a, int n, int grid, void* stream,
+             const P&... pl) {
   if (a.ex <= 0 || a.ey <= 0 || a.ez <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
 #define NEKBONE_CASE(N) \
   case N:               \
-    return static_cast<int>(launch<N, S, X, O, A>(a, grid, s));
+    return static_cast<int>(launch<N, S, X, O, A>(a, grid, s, pl...));
     NEKBONE_FOR_EACH_N(NEKBONE_CASE)
 #undef NEKBONE_CASE
     default:
@@ -304,6 +342,10 @@ int dispatch(const PcgArgs<S, X, O, A>& a, int n, int grid, void* stream) {
 // EZ).  The plan (per_block, grid, stages, staged, bulk) is
 // kernels/nekbone_ax.k10_plan's; a plan the pointers do not allow returns
 // cudaErrorInvalidValue.  Returns cudaGetLastError() after the launch.
+//
+// nekbone_pcg_update_planes_<dtype>(..., rcr, below, above, ex, ...): the
+// same launch with a sharded solve's edge planes below, above: (EY*EX, n, n)
+// in A, or null at a global end (common.cuh EdgePlanes).
 //
 // nekbone_pcg_update_query_<dtype>(n, resident, dyn, out): fills out[7] as
 // common.cuh coop_query documents (resident is ignored); returns a CUDA
@@ -326,6 +368,27 @@ int dispatch(const PcgArgs<S, X, O, A>& a, int n, int grid, void* stream) {
         ey,                           ez,                                     \
         {per_block, stages, staged, bulk}};                                   \
     return nekbone::dispatch<S, X, O, A>(a, n, grid, stream);                 \
+  }                                                                           \
+  extern "C" int nekbone_pcg_update_planes_##SUFFIX(                          \
+      const void* x, const void* p, const void* z, const void* w,             \
+      const void* alpha, const void* invd, const void* cx, const void* cy,    \
+      const void* cz, void* x_out, void* z_out, void* rtz, void* rcr,         \
+      const void* below, const void* above, int ex, int ey, int ez, int n,    \
+      int per_block, int grid, int stages, int staged, int bulk,              \
+      void* stream) {                                                         \
+    const nekbone::PcgArgs<S, X, O, A> a{                                     \
+        static_cast<const X*>(x),     static_cast<const S*>(p),               \
+        static_cast<const S*>(z),     static_cast<const S*>(w),               \
+        static_cast<const A*>(alpha), static_cast<const O*>(invd),            \
+        static_cast<const S*>(cx),    static_cast<const S*>(cy),              \
+        static_cast<const S*>(cz),    static_cast<X*>(x_out),                 \
+        static_cast<S*>(z_out),       static_cast<A*>(rtz),                   \
+        static_cast<A*>(rcr),         ex,                                     \
+        ey,                           ez,                                     \
+        {per_block, stages, staged, bulk}};                                   \
+    const nekbone::EdgePlanes<A> pl{static_cast<const A*>(below),             \
+                                    static_cast<const A*>(above)};            \
+    return nekbone::dispatch<S, X, O, A>(a, n, grid, stream, pl);             \
   }                                                                           \
   extern "C" int nekbone_pcg_update_query_##SUFFIX(int n, int resident,       \
                                                    int dyn, int* out) {       \

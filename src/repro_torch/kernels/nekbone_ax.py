@@ -134,7 +134,9 @@ _ARGTYPES = {
     "nekbone_ax": [_P] * 4 + [_I] * 7 + [_P],
     "nekbone_ax_slab": [_P] * 11 + [_I] * 9 + [_P],
     "nekbone_cg_update": [_P] * 11 + [_I] * 9 + [_P],
+    "nekbone_cg_update_planes": [_P] * 13 + [_I] * 9 + [_P],
     "nekbone_pcg_update": [_P] * 13 + [_I] * 9 + [_P],
+    "nekbone_pcg_update_planes": [_P] * 15 + [_I] * 9 + [_P],
     "nekbone_cheb_apply": [_P] * 17 + [_I] * 8 + [_P],
     "nekbone_interp": [_P] * 3 + [_I] * 7 + [_P],
     "nekbone_ax_slab_block": [_P] * 11 + [_I] * 5 + [_P],
@@ -145,7 +147,9 @@ _ARGTYPES = {
     "nekbone_sstep_update": [_P] * 12 + [_I] * 10 + [_P],
 }
 # Entry points that live in another stem's library.
-_LIBRARY = {"nekbone_ax_pap": "nekbone_ax_dots"}
+_LIBRARY = {"nekbone_ax_pap": "nekbone_ax_dots",
+            "nekbone_cg_update_planes": "nekbone_cg_update",
+            "nekbone_pcg_update_planes": "nekbone_pcg_update"}
 
 
 def build_for(stem: str, **tensors: tuple) -> str:
@@ -206,6 +210,8 @@ def _check(stem: str, n: int, device: torch.device,
 
 def _launch(stem: str, mix: str, device: torch.device, tensors,
             ints) -> None:
+    # ``ints`` follow the tensors' pointers; the planes entry points take
+    # their two plane pointers (0 for an absent one) first among them
     _build.launch(f"{stem}_{mix}", _ARGTYPES[stem], device,
                   (*(t.data_ptr() for t in tensors), *ints),
                   library=f"{_LIBRARY.get(stem, stem)}_{mix}")
@@ -264,7 +270,29 @@ def nekbone_ax_slab_cuda(p2, r2, D, g3, mx, my, mz, beta, *, n: int):
     return p_out, w2, pap
 
 
-def nekbone_cg_update_cuda(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int):
+def _plane_operands(stem: str, mix: str, ex: int, ey: int, n: int,
+                    device, from_below, from_above) -> tuple[int, int]:
+    """Check the edge planes of a K5 or K10 launch and return their
+    pointers (0 for an absent one): ``(EY*EX, n, n)``, contiguous, on
+    ``device``, in the build's accumulation dtype A."""
+    ptrs = []
+    for name, t in (("from_below", from_below), ("from_above", from_above)):
+        if t is None:
+            ptrs.append(0)
+            continue
+        if (t.device != device or t.dtype != MIXES[mix]["A"]
+                or tuple(t.shape) != (ey * ex, n, n)
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{stem}: {name} must be a contiguous ({ey * ex}, {n}, {n}) "
+                f"{MIXES[mix]['A']} tensor on {device}, got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        ptrs.append(t.data_ptr())
+    return ptrs[0], ptrs[1]
+
+
+def nekbone_cg_update_cuda(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int,
+                           from_below=None, from_above=None):
     """K5: assemble ``w``, ``x += alpha p``, ``r -= alpha w``, rcr partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_cg_update_plain`;
@@ -272,9 +300,18 @@ def nekbone_cg_update_cuda(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int):
     :func:`k5_plan` sizes, staging what it says.  Builds by operand dtype
     (:data:`MIXES`): x2 in X, p2, r2, w2 and the factors in S, alpha in A.
     Returns ``(x, r, rcr)`` with ``rcr`` of shape (E,) in A.
+
+    ``from_below``/``from_above`` (optional, ``(EY*EX, n, n)`` in A): a
+    neighbour shard's x,y-assembled edge plane
+    (``core/gs.edge_planes``), added in the z step of the bottom layer's
+    ``k = 0`` face or the top layer's ``k = n-1`` face.  With either given
+    the launch is the planes instantiation of the kernel, counted as
+    ``nekbone_cg_update_planes``; with neither, the single-shard one.
     """
     if x2.device.type == "cpu":
-        return nekbone_cg_update_plain(x2, p2, r2, w2, alpha, cx, cy, cz, n=n)
+        return nekbone_cg_update_plain(x2, p2, r2, w2, alpha, cx, cy, cz, n=n,
+                                       from_below=from_below,
+                                       from_above=from_above)
     ex, ey, ez = cx.shape[0], cy.shape[0], cz.shape[0]
     E = ex * ey * ez
     n3 = n ** 3
@@ -287,14 +324,20 @@ def nekbone_cg_update_cuda(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int):
     x_out = torch.empty_like(x2)
     r_out = torch.empty_like(r2)
     rcr = torch.empty(E, dtype=MIXES[mix]["A"], device=x2.device)
-    _launch("nekbone_cg_update", mix, x2.device,
-            (x2, p2, r2, w2, alpha, cx, cy, cz, x_out, r_out, rcr),
-            (ex, ey, ez, n, *plan.launch_ints))
+    tensors = (x2, p2, r2, w2, alpha, cx, cy, cz, x_out, r_out, rcr)
+    ints = (ex, ey, ez, n, *plan.launch_ints)
+    if from_below is None and from_above is None:
+        _launch("nekbone_cg_update", mix, x2.device, tensors, ints)
+    else:
+        planes = _plane_operands("nekbone_cg_update", mix, ex, ey, n,
+                                 x2.device, from_below, from_above)
+        _launch("nekbone_cg_update_planes", mix, x2.device, tensors,
+                (*planes, *ints))
     return x_out, r_out, rcr
 
 
 def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
-                            n: int):
+                            n: int, from_below=None, from_above=None):
     """K10: assemble ``w``, ``x += alpha p``, ``z -= alpha invd w``, partials.
 
     Operands as :func:`repro_torch.kernels.ref.nekbone_pcg_update_plain`;
@@ -302,11 +345,14 @@ def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
     :func:`k10_plan` sizes, staging what it says.  Builds by operand dtype
     (:data:`MIXES`): x2 in X, p2, z2, w2 and the factors in S, invd2 in O,
     alpha in A.  Returns ``(x, z, rtz, rcr)`` with ``rtz`` and ``rcr`` of
-    shape (E,) in A.
+    shape (E,) in A.  ``from_below``/``from_above`` as
+    :func:`nekbone_cg_update_cuda` takes them (the planes instantiation,
+    counted as ``nekbone_pcg_update_planes``).
     """
     if x2.device.type == "cpu":
         return nekbone_pcg_update_plain(x2, p2, z2, w2, alpha, invd2, cx, cy,
-                                        cz, n=n)
+                                        cz, n=n, from_below=from_below,
+                                        from_above=from_above)
     ex, ey, ez = cx.shape[0], cy.shape[0], cz.shape[0]
     E = ex * ey * ez
     n3 = n ** 3
@@ -321,9 +367,16 @@ def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
     x_out = torch.empty_like(x2)
     z_out = torch.empty_like(z2)
     parts = torch.empty(2, E, dtype=MIXES[mix]["A"], device=x2.device)
-    _launch("nekbone_pcg_update", mix, x2.device,
-            (x2, p2, z2, w2, alpha, invd2, cx, cy, cz, x_out, z_out,
-             parts[0], parts[1]), (ex, ey, ez, n, *plan.launch_ints))
+    tensors = (x2, p2, z2, w2, alpha, invd2, cx, cy, cz, x_out, z_out,
+               parts[0], parts[1])
+    ints = (ex, ey, ez, n, *plan.launch_ints)
+    if from_below is None and from_above is None:
+        _launch("nekbone_pcg_update", mix, x2.device, tensors, ints)
+    else:
+        planes = _plane_operands("nekbone_pcg_update", mix, ex, ey, n,
+                                 x2.device, from_below, from_above)
+        _launch("nekbone_pcg_update_planes", mix, x2.device, tensors,
+                (*planes, *ints))
     return x_out, z_out, parts[0], parts[1]
 
 

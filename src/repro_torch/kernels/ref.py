@@ -92,13 +92,33 @@ def nekbone_ax_slab_plain(p2, r2, D, g3, mx, my, mz, beta, *, n: int):
             v.to(p2.dtype).reshape(E, n ** 3), pap)
 
 
-def nekbone_cg_update_plain(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int):
+def _assemble(w2, grid, n: int, acc, from_below=None, from_above=None):
+    """``ds_sum_local`` of K4's unassembled ``w2`` in ``acc``, with a
+    neighbour shard's x,y-assembled edge planes (``(EY*EX, n, n)``, in
+    ``acc``) added in the z step: ``from_below`` to the ``k = 0`` face of
+    the bottom element layer, ``from_above`` to the ``k = n-1`` face of the
+    top one, where a single-shard sum adds its neighbour layer's value."""
+    ex, ey, ez = grid
+    E = w2.shape[0]
+    w = ds_sum_local(w2.to(acc).reshape(E, n, n, n), grid)
+    v = w.reshape(ez, ey * ex, n, n, n)
+    if from_below is not None:
+        v[0, :, 0] += from_below.to(acc).reshape(ey * ex, n, n)
+    if from_above is not None:
+        v[-1, :, -1] += from_above.to(acc).reshape(ey * ex, n, n)
+    return w.reshape(E, n ** 3)
+
+
+def nekbone_cg_update_plain(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int,
+                            from_below=None, from_above=None):
     """K5: assemble w, both axpys, r·c·r partials over the stored r.
 
     Args:
       x2, p2, r2: (E, n^3); w2: (E, n^3) masked *unassembled* operator
       output (K4's); alpha: one-element tensor; cx, cy, cz: per-axis
-      ``c = mask/mult`` factors, whose lengths give the element grid.
+      ``c = mask/mult`` factors, whose lengths give the element grid;
+      from_below, from_above: optional (EY*EX, n, n) edge planes of the
+      neighbour shards in the accumulation dtype (``_assemble``).
 
     Returns ``(x, r, rcr)`` with one ``sum(r * c * r)`` per element (E,).
     """
@@ -106,7 +126,7 @@ def nekbone_cg_update_plain(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int):
     E = x2.shape[0]
     a = alpha.reshape(()).to(acc)
     grid = (cx.shape[0], cy.shape[0], cz.shape[0])
-    w = ds_sum_local(w2.to(acc).reshape(E, n, n, n), grid).reshape(E, n ** 3)
+    w = _assemble(w2, grid, n, acc, from_below, from_above)
     x = x2.to(acc) + a * p2.to(acc)
     r = (r2.to(acc) - a * w).to(r2.dtype)
     c = box_outer(cz.to(acc), cy.to(acc), cx.to(acc)).reshape(E, n ** 3)
@@ -120,7 +140,7 @@ def _grid(fx, fy, fz):
 
 
 def nekbone_pcg_update_plain(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
-                             n: int):
+                             n: int, from_below=None, from_above=None):
     """K10: assemble w, ``x += alpha p``, ``z -= alpha invd w``, partials.
 
     Args:
@@ -128,7 +148,8 @@ def nekbone_pcg_update_plain(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
       (E, n^3) masked *unassembled* operator output (K4's); alpha:
       one-element tensor; invd2: (E, n^3) assembled ``1/diag(A)`` (1 at
       masked nodes); cx, cy, cz: per-axis ``c`` factors, whose lengths give
-      the element grid.
+      the element grid; from_below, from_above: optional edge planes of
+      the neighbour shards, as :func:`nekbone_cg_update_plain` takes them.
 
     Returns ``(x, z, rtz, rcr)``; with ``d = 1/invd`` taken after ``z`` is
     rounded to storage, ``rtz = sum(z c z d)`` (= r·c·z) and
@@ -137,8 +158,7 @@ def nekbone_pcg_update_plain(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
     acc = accum_dtype(x2.dtype)
     E = x2.shape[0]
     a = alpha.reshape(()).to(acc)
-    w = ds_sum_local(w2.to(acc).reshape(E, n, n, n),
-                     _grid(cx, cy, cz)).reshape(E, n ** 3)
+    w = _assemble(w2, _grid(cx, cy, cz), n, acc, from_below, from_above)
     invd = invd2.to(acc)
     x = x2.to(acc) + a * p2.to(acc)
     z = (z2.to(acc) - a * (invd * w)).to(z2.dtype)

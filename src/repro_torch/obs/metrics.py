@@ -8,8 +8,9 @@ Two consumers:
   and the result stays bitwise identical.  The per-phase wall-µs come from
   :func:`repro_torch.kernels.timing.stopwatch`, the autotune cache hit/miss
   deltas from :func:`repro_torch.kernels.autotune.cache_stats`.
-  :func:`measure_collectives` is the reference's jaxpr walk of the
-  sharded drivers; the port has none yet, so it raises.
+  :func:`measure_collectives` counts the collectives a call of the
+  sharded drivers issues (the reference walks their jaxprs; here the
+  solver mesh's collectives count themselves, ``distributed/sharding``).
 
 * :class:`ServiceMetrics` is the solver service's queue/dispatch
   instrument: a queue-depth gauge (+ high-water mark), a dispatch
@@ -88,12 +89,17 @@ def _host_max(v) -> float:
     return float(np.max(np.asarray(v)))
 
 
-def measure_collectives(fn, *args) -> dict[str, int]:
-    """The reference counts the collectives of a sharded driver's jaxpr.
-    The port has no sharded driver yet, so there is nothing to count."""
-    raise NotImplementedError(
-        "measure_collectives needs the sharded drivers, not ported yet: "
-        "ROADMAP.md queue 1 item 14")
+def measure_collectives(fn, *args, **kwargs) -> dict[str, int]:
+    """Collective calls of ``fn(*args, **kwargs)`` by kind (``ppermute``,
+    ``psum``, ``all_gather``; kinds with no call left out), read from the
+    counter of :mod:`repro_torch.distributed.sharding`.  The reference
+    traces ``fn`` and counts the primitives of its jaxpr; here ``fn`` runs,
+    on every shard of its mesh together."""
+    from repro_torch.distributed.sharding import collective_log
+
+    with collective_log() as log:
+        fn(*args, **kwargs)
+    return log.counts
 
 
 # ---------------------------------------------------------------------------

@@ -289,8 +289,22 @@ def dataclass_fields(cls):
 
 
 def test_measure_collectives_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        measure_collectives(lambda: None)
+    """The sharded drivers of ROADMAP.md queue 1 item 14 landed, so
+    measure_collectives counts the collectives a call issues (here on the
+    one-shard mesh: a psum and a plane exchange), and none for a call
+    that issues none."""
+    import torch
+
+    from repro_torch.distributed import sharding
+
+    mesh = sharding.solver_mesh()
+
+    def step():
+        sharding.psum(torch.ones(3), mesh)
+        sharding.ppermute_pair(torch.ones(2), torch.ones(2), mesh)
+
+    assert measure_collectives(lambda: None) == {}
+    assert measure_collectives(step) == {"ppermute": 2, "psum": 1}
 
 
 # ---------------------------------------------------------------------------
