@@ -103,6 +103,32 @@ reference package ``repro``, and, in order:
    ppermute bytes the cost books'; ms per iteration and the bytes staged
    through the host printed (processes sharing one card: not a scaling
    figure);
+14c. runs the cost-model drift check (``obs/drift.assert_no_drift``) on
+   the card: the bytes fused_v2, fused_v2_jacobi and sstep_v3 move per
+   iteration (each launch's operands and results and the eager ops
+   between them) within their bands of the cost books and equal to the
+   CPU's count, printed beside the CPU's ratios, and the collective
+   contracts, and prints the host time of K1's wrapper with and without
+   its charge hook; then serves hymba-1.5b at full width (32 layers, batch 2,
+   prompt 4096, 8 decode steps on given tokens, f32 weights from seed 0,
+   bf16 compute)
+   over a (data 1, model 2) mesh of two gloo ranks sharing the card,
+   spawned as ``chip_smoke.py --lm-child``: the prefill sequence-sharded
+   (K13 on each rank's 2048-query slice: rank 0 at q_offset 0, rank 1 at
+   q_offset 1024 on the 29 windowed layers' [halo | own] keys and 2048 on
+   the 3 global layers' gathered keys) and every decode step against the
+   sequence-sharded cache (2052 slots a rank), its prefill logits held to
+   a single process on the card (1e-2 of max |logit|) and every step's to
+   a single process whose decode softmax is split over the cache's two
+   blocks of 2052 slots and combined by the log-sum-exp rule (1e-5 of
+   max |logit|; its distance from the plain process, and that of a
+   process with a cache of 64 slots more, printed), the ranks' logits
+   bitwise the same, K13's launches by rank and q_offset and the
+   ppermute, all-gather, pmax and psum counts and bytes exact; and
+   qwen3-moe-30b-a3b's MoE layer (128 experts, top 8, 512 tokens, f32)
+   expert-parallel over the two ranks (64 experts a rank, one psum)
+   against the single-process layer (1e-5 of max |y|); K13 timed at the
+   ranks' slice shapes beside its plain version and SDPA with the mask;
 15. holds K4, K5 and K3 in their bf16 builds (``bf16``: every operand
    bf16; ``bf16_ir``: bf16 vectors, x, the metric and D in f32) against
    their plain versions at n=10, E=1024 and 4096: fields value by value,
@@ -290,7 +316,9 @@ reference package ``repro``, and, in order:
    limit, the ``kernels`` JSON line (each row's launches are its own
    build's count in a measured run: ``_build.BUILD_LAUNCHES``, one K13
    row per served layer kind, whisper's encoder and cross-attention
-   apart, and one K13 and one K14 row for the 8-step training runs), the
+   apart, four for the sharded hymba prefill's query slices (rank 0 at
+   q_offset 0, rank 1 at 2048 and 1024, each rank's launches), and one K13
+   and one K14 row for the 8-step training runs), the
    card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -5318,6 +5346,30 @@ DIST_CHILD_TIMEOUT_S = 150
 DIST_INIT_TIMEOUT_S = 60
 DIST_PHASE_S = 90.0
 DIST_ROUTES = ("v1", "sstep", "jacobi", "cheb")
+DRIFT_PHASE_S = 60.0
+# card against CPU, bytes rows: the count is the same but for s-step's
+# coefficient tensors (a few hundred bytes a cycle, 2e-4 of its ratio)
+DRIFT_CARD_CPU_RTOL = 1e-3
+CHARGE_ROUNDS, CHARGE_CALLS = 3, 2000
+# the sharded LM: hymba-1.5b at full width over a (data 1, model 2) mesh of
+# gloo ranks sharing the card; a short warm run first (2 x 256 prompt)
+LM_SHARD_ARCH = "hymba-1.5b"
+LM_SHARD_B, LM_SHARD_PROMPT, LM_SHARD_STEPS = 2, 4096, 8
+LM_SHARD_WARM = 256
+LM_SHARD_TP = 2
+LM_SHARD_TOL = 1e-2           # of max |logit|: the prefill, one process
+# the decode steps are held to one process whose decode softmax is split
+# over the cache's LM_SHARD_TP blocks of slots and combined by the
+# log-sum-exp rule in f32 (_split_softmax_decode: the sharded decode's
+# arithmetic without a process group), within LM_SPLIT_TOL of max |logit|.
+# The plain single-process decode is no such reference: bf16 decode
+# carries any other f32 summation order of the softmax to 1-3e-2 of max
+# |logit| within two steps, as one process whose cache has LM_SHARD_PAD
+# masked slots more shows (both distances are printed, not held)
+LM_SPLIT_TOL = 1e-5
+LM_SHARD_PAD = 64
+LM_SHARD_CHILD_TIMEOUT_S = 360
+LM_SHARD_PHASE_S = 240.0
 
 
 def _shard_split(t, parts):
@@ -5609,10 +5661,12 @@ def _build_targets():
             _build.SOURCES.items() for dtype in dtypes]
 
 
-def _spawn_world(backend, world, spec, tmp):
-    """Run ``world`` ranks of ``dist_child``; return their reports and
-    arrays.  A rank that fails or outlives DIST_CHILD_TIMEOUT_S fails the
-    check (the others are killed)."""
+def _spawn_world(backend, world, spec, tmp, *, flag="--dist-child",
+                 timeout=DIST_CHILD_TIMEOUT_S):
+    """Run ``world`` ranks of ``dist_child`` (``lm_child`` with ``flag``
+    ``--lm-child``); return their reports and arrays.  A rank that fails
+    or outlives ``timeout`` seconds fails the check (the others are
+    killed)."""
     import numpy as np
 
     out = pathlib.Path(tmp) / f"{backend}{world}"
@@ -5623,9 +5677,9 @@ def _spawn_world(backend, world, spec, tmp):
     path.write_text(json.dumps(spec))
     procs = [subprocess.Popen(
         [sys.executable, str(pathlib.Path(__file__).resolve()),
-         "--dist-child", str(path), str(r)], stdout=subprocess.PIPE,
+         flag, str(path), str(r)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    deadline = time.perf_counter() + DIST_CHILD_TIMEOUT_S
+    deadline = time.perf_counter() + timeout
     logs, ok = [], True
     for r, proc in enumerate(procs):
         try:
@@ -5635,7 +5689,7 @@ def _spawn_world(backend, world, spec, tmp):
             for p in procs:
                 p.kill()
             log, _ = proc.communicate()
-            log += f"\n(killed after {DIST_CHILD_TIMEOUT_S} s)"
+            log += f"\n(killed after {timeout} s)"
         ok &= proc.returncode == 0
         logs.append(f"  rank {r} rc {proc.returncode}: {log[-1500:]}")
     if not ok:
@@ -5788,6 +5842,502 @@ def phase_distributed(hist, pcg_envelope, smi_line):
     return launch_rows
 
 
+def phase_drift(smi_line):
+    """The cost-model drift check on the card beside the CPU: every row
+    within its band or contract, and the card's byte count the CPU's."""
+    import torch
+
+    from repro_torch.obs import drift
+
+    print(f"== cost-model drift (obs/drift.py): fused_v2, fused_v2_jacobi, "
+          f"sstep_v3 at n={drift._DRIFT_N}, grid {drift._DRIFT_GRID}, "
+          f"{drift._DRIFT_PRECISION}; the card beside the CPU", flush=True)
+    t0 = time.perf_counter()
+    cpu = drift.check(device="cpu")
+    try:
+        card = drift.assert_no_drift(device="cuda")
+    except drift.ModelDriftError as exc:
+        check(False, f"drift on the card: {exc}")
+    torch.cuda.synchronize()
+    for c_row, g_row in zip(cpu.rows, card.rows):
+        print(f"  {g_row.pipeline} {g_row.check}: card {g_row.measured} "
+              f"(ratio {g_row.ratio}), CPU {c_row.measured} (ratio "
+              f"{c_row.ratio}); expected {g_row.expected}, band "
+              f"{g_row.band}", flush=True)
+    check(cpu.ok and card.ok, "drift: every row within its band or "
+          "contract on the CPU and on the card")
+    check(all(c.measured == g.measured for c, g in zip(cpu.rows, card.rows)
+              if c.check == "collectives"),
+          "drift: the card's collectives are the CPU's count")
+    worst = max(abs(g.ratio - c.ratio) / c.ratio
+                for c, g in zip(cpu.rows, card.rows)
+                if c.check == "bytes_per_dof_iter")
+    check(worst <= DRIFT_CARD_CPU_RTOL,
+          f"drift: the card's bytes ratios within {DRIFT_CARD_CPU_RTOL:g} "
+          f"of the CPU's ({worst:.2e}; the host's small tensors are "
+          "charged as eager ops on the CPU and moved by uncharged copies "
+          "on the card)")
+    hook = _charge_hook_us()
+    print(f"  the charge hook with nothing counted: K1's wrapper (E=1, n=10, "
+          f"f64) {hook['charged']:.2f} us of host time a call, the function "
+          f"it wraps {hook['bare']:.2f} (min of {CHARGE_ROUNDS} x "
+          f"{CHARGE_CALLS} calls each, in turns; {smi_line})", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"  drift phase: {seconds:.1f} s ({smi_line})", flush=True)
+    check(seconds <= DRIFT_PHASE_S,
+          f"drift phase within {DRIFT_PHASE_S:g} s ({seconds:.1f} s)")
+
+
+def _charge_hook_us():
+    """Host microseconds a call of K1's wrapper with its drift charge hook
+    (``_build.charged``) while nothing is counted, and of the function it
+    wraps: E=1, so the launches queue faster than the card drains them
+    and the loop's time is the host's."""
+    import torch
+
+    from repro_torch.kernels import nekbone_ax as NA
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    n = 10
+
+    def draw(*shape):
+        return torch.randn(shape, dtype=torch.float64, device="cuda",
+                           generator=gen)
+
+    u, D, g = draw(1, n ** 3), draw(n, n), draw(1, 6, n ** 3)
+    fns = {"charged": NA.nekbone_ax_cuda,
+           "bare": NA.nekbone_ax_cuda.__wrapped__}
+    best = dict.fromkeys(fns, float("inf"))
+    for _ in range(CHARGE_ROUNDS):
+        for key, fn in fns.items():
+            fn(u, D, g, n=n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CHARGE_CALLS):
+                fn(u, D, g, n=n)
+            torch.cuda.synchronize()
+            best[key] = min(best[key], (time.perf_counter() - t0)
+                            / CHARGE_CALLS * 1e6)
+    return best
+
+
+def _lm_shard_inputs(cfg, B, P, n):
+    """Prompts (B, P) and the n decode steps' tokens (B, n) from seeds 1
+    and 2 on the card: every rank and the single process draw the same."""
+    import torch
+
+    def draw(shape, seed):
+        return torch.randint(0, cfg.vocab, shape, device="cuda",
+                             generator=torch.Generator("cuda")
+                             .manual_seed(seed))
+
+    return draw((B, P), 1), draw((B, n), 2)
+
+
+def _lm_shard_serve(cfg, params, prompts, steps, pad=0):
+    """Prefill ``prompts`` and decode ``steps``' tokens one by one through
+    the serving entry points (``launch.steps.make_serve_prefill`` and
+    ``make_serve_step``; a cache of ``pad`` slots more than they need),
+    each part with the launch and collective counts set to 0 just before it
+    and read just after.  Returns the logits (B, 1 + n, V) f32 and each
+    part's host time, launches by build and collective log."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as St
+
+    P, n = prompts.shape[1], steps.shape[1]
+    prefill = St.make_serve_prefill(cfg, max_len=P + n + pad)
+    step = St.make_serve_step(cfg)
+    out = {}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    SH.reset_collectives()
+    t0 = time.perf_counter()
+    with SH.collective_log() as log:
+        logits, cache = prefill(params, prompts)
+        torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_launches"] = dict(_build.BUILD_LAUNCHES)
+    out["prefill_log"] = log
+    got = [logits[:, -1]]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with SH.collective_log() as log:
+        for i in range(n):
+            logits, cache = step(params, steps[:, i:i + 1], cache, P + i)
+            got.append(logits[:, -1])
+        torch.cuda.synchronize()
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / n
+    out["decode_launches"] = dict(_build.BUILD_LAUNCHES)
+    out["decode_log"] = log
+    out["cache_slots"] = int(cache[0]["k"].shape[2])
+    out["logits"] = torch.stack(got, dim=1).float()
+    return out
+
+
+def _lm_shard_moe():
+    """qwen3-moe's MoE layer at full width in f32 (phase_moe_parity's: seed
+    11's weights, seed 12's 512 tokens, capacity factor 1.0), on the card,
+    in a holder whose parameter names ``run_specs`` reads."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+
+    from repro_torch.configs import get
+    from repro_torch.models import moe as MO
+
+    cfg = dataclasses.replace(get("qwen3-moe-30b-a3b"),
+                              compute_dtype="float32", capacity_factor=1.0)
+    holder = nn.Module()
+    holder.moe = MO.init_moe(torch.Generator("cuda").manual_seed(11), cfg)
+    x = torch.randn((1, MOE_TOKENS, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(12))
+    return cfg, holder, x
+
+
+def _split_softmax_decode(parts):
+    """A context in which ``models.attention.decode_attention`` splits each
+    step's softmax over the cache's ``parts`` contiguous blocks of slots
+    and combines the blocks' maxima, sums and unnormalised outputs by the
+    log-sum-exp rule in f32: the arithmetic of the decode over a cache
+    sequence-sharded on ``parts`` ranks, in one process, written apart
+    from the port's combine (``distributed/context_parallel.py``)."""
+    import functools
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels.ref import NEG_INF
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+
+    def decode(x, p, cfg, cache, cache_index, *, window=None,
+               context_parallel=False):
+        B, H, Hkv, hd = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        positions = torch.full((B, 1), cache_index, dtype=torch.long,
+                               device=x.device)
+        q, k_new, v_new = A._project_qkv(x, p, cfg, positions)
+        k, v = cache["k"], cache["v"]
+        k[:, :, cache_index:cache_index + 1] = k_new.transpose(1, 2).to(
+            k.dtype)
+        v[:, :, cache_index:cache_index + 1] = v_new.transpose(1, 2).to(
+            v.dtype)
+        qg = q.transpose(1, 2).reshape(B, Hkv, H // Hkv, 1, hd).float()
+        size = k.shape[2] // parts
+        blocks = []
+        for lo in range(0, parts * size, size):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qg,
+                             k[:, :, lo:lo + size].float()) * hd ** -0.5
+            s = L.softcap(s, cfg.attn_softcap)
+            kpos = lo + torch.arange(size, device=x.device)
+            mask = kpos <= cache_index
+            if window is not None:
+                mask &= cache_index - kpos < window
+            s = torch.where(mask, s, NEG_INF)
+            m_b = s.amax(-1, keepdim=True)
+            pe = torch.exp(s - m_b)
+            blocks.append((m_b, pe.sum(-1, keepdim=True), torch.einsum(
+                "bhgqk,bhkd->bhgqd", pe, v[:, :, lo:lo + size].float())))
+        m = functools.reduce(torch.maximum, [b[0] for b in blocks])
+        corr = [torch.exp(m_b - m) for m_b, _, _ in blocks]
+        l_ = sum(l_b * c for (_, l_b, _), c in zip(blocks, corr))
+        o = sum(o_b * c for (_, _, o_b), c in zip(blocks, corr))
+        out = (o / l_).reshape(B, H, 1, hd).transpose(1, 2).reshape(
+            B, 1, H * hd)
+        return L.linear(out.to(x.dtype), p.wo,
+                        L.dtype_of(cfg.compute_dtype)), cache
+
+    return mock.patch.object(A, "decode_attention", decode)
+
+
+def lm_child(spec_path: str, rank: str) -> int:
+    """One rank of phase_sharded_lm's world: hymba-1.5b over the (data 1,
+    model 2) mesh (a warm run, then the measured one) and the
+    expert-parallel MoE layer; logits, outputs, counts and times go to
+    ``<out>/rank<r>.npz`` and ``.json``.  It loads the libraries the build
+    phase made and builds none; any failure ends it with an error."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.configs import get
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MO
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    rank = int(rank)
+    out = pathlib.Path(spec["out"])
+    missing = [str(p) for p in _build_targets() if not p.exists()]
+    if missing:
+        print(f"lm child: libraries not built: {missing[:3]}",
+              file=sys.stderr)
+        return 3
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{spec['init']}", rank=rank,
+        world_size=spec["world"],
+        timeout=datetime.timedelta(seconds=DIST_INIT_TIMEOUT_S))
+    try:
+        mesh = make_mesh_for(spec["world"], model_parallel=LM_SHARD_TP)
+        cfg = get(LM_SHARD_ARCH)
+        report, arrays = {"shard": SH.axis_mesh(mesh, "model").shard}, {}
+        with SH.use_mesh(mesh):
+            params = M.init_params(torch.Generator("cuda").manual_seed(0),
+                                   cfg)
+            convert.shard_params(params, M.run_specs(cfg, params, mesh),
+                                 mesh)
+            warm = _lm_shard_inputs(cfg, LM_SHARD_B, LM_SHARD_WARM, 2)
+            with _forbid_plain_lm():
+                _lm_shard_serve(cfg, params, *warm)
+                dist.barrier()
+                run = _lm_shard_serve(
+                    cfg, params, *_lm_shard_inputs(
+                        cfg, LM_SHARD_B, LM_SHARD_PROMPT, LM_SHARD_STEPS))
+            del params
+            torch.cuda.empty_cache()
+            for part in ("prefill", "decode"):
+                log = run[f"{part}_log"]
+                report[part] = dict(
+                    ms=run[f"{part}_ms"], launches=run[f"{part}_launches"],
+                    counts=log.counts, bytes=log.bytes,
+                    host_staged=log.host_staged)
+            report["cache_slots"] = run["cache_slots"]
+            arrays["logits"] = run["logits"].cpu().numpy()
+            # the MoE layer, expert-parallel: the experts cut by run_specs
+            mcfg, holder, x = _lm_shard_moe()
+            convert.shard_params(holder, M.run_specs(mcfg, holder, mesh),
+                                 mesh)
+            MO.moe_ffn(x, holder.moe, mcfg)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            with SH.collective_log() as log:
+                y = MO.moe_ffn(x, holder.moe, mcfg)
+                torch.cuda.synchronize()
+            report["moe"] = dict(
+                ms=(time.perf_counter() - t0) * 1e3, counts=log.counts,
+                bytes=log.bytes, experts=int(holder.moe.w_in.shape[0]))
+            arrays["moe_y"] = y.cpu().numpy()
+        np.savez(out / f"rank{rank}.npz", **arrays)
+        (out / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _k13_shard_rows(bw_copy):
+    """K13 at the sharded prefill's slice shapes (batch 2, 2048 queries,
+    hymba's heads, bf16): rank 0's own-key calls and rank 1's offset
+    calls, each beside its plain version and SDPA with the same mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator("cuda").manual_seed(21)
+    Hq, Hkv, d = HYMBA_HEADS["Hq"], HYMBA_HEADS["Hkv"], HYMBA_HEADS["d"]
+    B, S_loc, halo = LM_SHARD_B, LM_SHARD_PROMPT // LM_SHARD_TP, 1024
+    rows = {}
+    for key, Skv, window, q_offset in (
+            ("rank 0 global", S_loc, None, 0),
+            ("rank 0 window 1024", S_loc, 1024, 0),
+            ("rank 1 global", 2 * S_loc, None, S_loc),
+            ("rank 1 window 1024", S_loc + halo, 1024, halo)):
+        q, k, v = _k13_inputs(gen, B, Hq, Hkv, S_loc, Skv, d,
+                              torch.bfloat16)
+        kw = dict(causal=True, window=window, softcap=None,
+                  q_offset=q_offset, scale=d ** -0.5)
+        qpos = q_offset + torch.arange(S_loc, device="cuda")[:, None]
+        kpos = torch.arange(Skv, device="cuda")[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= qpos - kpos < window
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * d * B * Hq * _attn_pairs(S_loc, Skv, True, window,
+                                             q_offset)
+        rows[key] = _lm_row(
+            f"K13 d=64 {key} bf16 (hymba-1.5b over model 2: B={B}, Hq {Hq}, "
+            f"Hkv {Hkv}, Sq {S_loc}, Skv {Skv}, q_offset {q_offset})",
+            lambda: FA.flash_attention_cuda(q, k, v, **kw),
+            lambda: ref.flash_attention_plain(q, k, v, **kw),
+            nbytes, flops, BF16_TENSOR_PEAK, bw_copy, calls=3,
+            lib=lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=d ** -0.5, enable_gqa=True))
+        o = FA.flash_attention_cuda(q, k, v, **kw)
+        want = ref.flash_attention_plain(q, k, v, **kw)
+        _check_k13(f"hymba-1.5b {key} at the slice shape", o, want)
+        rows[key]["max_abs_err"] = float((o.float() - want.float())
+                                         .abs().max())
+        del q, k, v, o, want, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_sharded_lm(bw_copy, smi_line):
+    """hymba-1.5b served over two gloo ranks sharing the card, and the
+    expert-parallel MoE layer, each held to a single process on the card
+    (docstring item 14c).  Times are of processes that share one card:
+    not a scaling figure."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MO
+
+    cfg = get(LM_SHARD_ARCH)
+    B, P, n, tp = LM_SHARD_B, LM_SHARD_PROMPT, LM_SHARD_STEPS, LM_SHARD_TP
+    S_loc, slots = P // tp, (P + n) // tp
+    pattern = cfg.window_pattern()
+    windows = [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+    n_glob = sum(w is None for w in windows)
+    n_win = cfg.n_layers - n_glob
+    halo = 1024
+    print(f"== sharded LM: {LM_SHARD_ARCH} at full width ({cfg.n_layers} "
+          f"layers: {n_glob} global, {n_win} window {halo}; batch {B}, "
+          f"prompt {P}, {n} decode steps on given tokens, f32 weights from "
+          f"seed 0, bf16 compute) over a (data 1, model {tp}) mesh of gloo "
+          f"ranks sharing the card, and qwen3-moe's MoE layer "
+          f"expert-parallel over it ({smi_line}); times are of ranks sharing one card, not a "
+          "scaling figure", flush=True)
+    t_phase = time.perf_counter()
+    params = M.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    with _forbid_plain_lm():
+        _lm_shard_serve(cfg, params,
+                        *_lm_shard_inputs(cfg, B, LM_SHARD_WARM, 2))
+        one = _lm_shard_serve(cfg, params,
+                              *_lm_shard_inputs(cfg, B, P, n))
+        alt = _lm_shard_serve(cfg, params,
+                              *_lm_shard_inputs(cfg, B, P, n),
+                              pad=LM_SHARD_PAD)
+        with _split_softmax_decode(tp):
+            split = _lm_shard_serve(cfg, params,
+                                    *_lm_shard_inputs(cfg, B, P, n))
+    del params
+    torch.cuda.empty_cache()
+    mcfg, holder, x = _lm_shard_moe()
+    MO.moe_ffn(x, holder.moe, mcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_one = MO.moe_ffn(x, holder.moe, mcfg)
+    torch.cuda.synchronize()
+    moe_one_ms = (time.perf_counter() - t0) * 1e3
+    y_one = y_one.cpu().numpy()
+    del holder, x
+    torch.cuda.empty_cache()
+    print(f"  single process: prefill {one['prefill_ms']:.1f} ms, decode "
+          f"{one['decode_ms']:.2f} ms a step; K13 launches "
+          f"{one['prefill_launches']}; MoE layer {moe_one_ms:.2f} ms "
+          "(host clocks)", flush=True)
+    with tempfile.TemporaryDirectory(prefix="lm-shard-") as tmp:
+        reports, arrays = _spawn_world("gloo", tp, {}, tmp,
+                                       flag="--lm-child",
+                                       timeout=LM_SHARD_CHILD_TIMEOUT_S)
+    kv = 2 * B * cfg.n_kv_heads * cfg.hd * 2     # k and v rows, bf16
+    for rep in reports:
+        r = rep["shard"]
+        pre, dec = rep["prefill"], rep["decode"]
+        print(f"  rank {r}: prefill {pre['ms']:.1f} ms (single process "
+              f"{one['prefill_ms']:.1f}), decode {dec['ms']:.2f} ms a step "
+              f"(single process {one['decode_ms']:.2f}); bytes staged "
+              f"through the host: prefill {pre['host_staged']}, decode "
+              f"{dec['host_staged']} a run; K13 {pre['launches']}; "
+              f"collectives prefill {pre['counts']} {pre['bytes']}, decode "
+              f"{dec['counts']} {dec['bytes']}; MoE {rep['moe']['ms']:.2f} "
+              f"ms (single process {moe_one_ms:.2f}), collectives "
+              f"{rep['moe']['counts']}, bytes {rep['moe']['bytes']}",
+              flush=True)
+        suffix = ("", "") if r == 0 else (f"_qoffset{S_loc}",
+                                          f"_qoffset{halo}")
+        want_l = {f"flash_attn_bf16_d64{suffix[0]}": n_glob,
+                  f"flash_attn_bf16_d64_window{halo}{suffix[1]}": n_win}
+        check(pre["launches"] == want_l and dec["launches"] == {},
+              f"rank {r}: K13 ran {sum(pre['launches'].values())} times in "
+              f"the prefill, by build and q_offset {pre['launches']}, none "
+              "in decode")
+        want_c = {"all_gather": n_glob + cfg.n_layers, "ppermute": n_win}
+        want_b = {"all_gather": n_glob * tp * kv * S_loc
+                  + cfg.n_layers * tp * B * S_loc * cfg.d_model * 2,
+                  "ppermute": n_win * kv * halo}
+        check(pre["counts"] == want_c and pre["bytes"] == want_b,
+              f"rank {r} prefill: collectives {pre['counts']}, bytes "
+              f"{pre['bytes']} (want {want_c}, {want_b})")
+        part = B * cfg.n_heads * 4       # one f32 a (batch, head): the max
+        want_c = {"pmax": n * cfg.n_layers, "psum": n * cfg.n_layers}
+        want_b = {"pmax": n * cfg.n_layers * part,
+                  "psum": n * cfg.n_layers * part * (cfg.hd + 1)}
+        check(dec["counts"] == want_c and dec["bytes"] == want_b,
+              f"rank {r} decode: collectives {dec['counts']}, bytes "
+              f"{dec['bytes']} (want {want_c}, {want_b})")
+        check(rep["cache_slots"] == slots,
+              f"rank {r}: {rep['cache_slots']} cache slots a layer "
+              f"(max_len {P + n} over {tp})")
+        check(rep["moe"]["experts"] == mcfg.n_experts // tp
+              and rep["moe"]["counts"] == {"psum": 1},
+              f"rank {r} MoE: {rep['moe']['experts']} experts, one psum")
+    want = one["logits"].cpu().numpy()
+    ref = split["logits"].cpu().numpy()
+    scale = float(np.abs(want).max())
+
+    def dist(lg, base):
+        return [float(np.abs(lg[:, t] - base[:, t]).max()) / scale
+                for t in range(n + 1)]
+
+    logits = [a["logits"] for a in arrays]
+    errs = [dist(lg, ref) for lg in logits]
+    plain = dist(logits[0], want)
+
+    def steps(e):
+        return ", ".join(f"{x:.2e}" for x in e)
+
+    print(f"  logits, max |diff| / max |logit| (max |logit| {scale:.3f}) "
+          f"by step, prefill first: rank 0 from the split-softmax process "
+          f"{steps(errs[0])}; not held: rank 0 from the plain process "
+          f"{steps(plain)}, the split-softmax process from it "
+          f"{steps(dist(ref, want))}, the process with a cache of "
+          f"{LM_SHARD_PAD} slots more from it "
+          f"{steps(dist(alt['logits'].cpu().numpy(), want))}", flush=True)
+    pre = max(dist(lg, want)[0] for lg in logits)
+    check(all(np.isfinite(lg).all() for lg in logits)
+          and pre <= LM_SHARD_TOL,
+          f"sharded {LM_SHARD_ARCH}: prefill logits within "
+          f"{LM_SHARD_TOL:g} of max |logit| of the single process on every "
+          f"rank ({pre:.2e})")
+    check(max(max(e) for e in errs) <= LM_SPLIT_TOL,
+          f"sharded {LM_SHARD_ARCH}: the prefill's and {n} decode steps' "
+          f"logits within {LM_SPLIT_TOL:g} of max |logit| of the process "
+          f"whose decode softmax is split over the cache's {tp} blocks on "
+          f"every rank (worst {max(max(e) for e in errs):.2e})")
+    check(all(np.array_equal(lg, logits[0]) for lg in logits[1:]),
+          f"sharded {LM_SHARD_ARCH}: every rank's logits bitwise the same")
+    moe_rel = [float(np.abs(a["moe_y"] - y_one).max() / np.abs(y_one).max())
+               for a in arrays]
+    check(max(moe_rel) <= MOE_TOL,
+          f"expert-parallel MoE within {MOE_TOL:g} of max |y| of the "
+          f"single-process layer on every rank ({max(moe_rel):.2e})")
+    rows = _k13_shard_rows(bw_copy)
+    seconds = time.perf_counter() - t_phase
+    print(f"  sharded LM phase: {seconds:.1f} s ({smi_line})", flush=True)
+    check(seconds <= LM_SHARD_PHASE_S,
+          f"sharded LM phase within {LM_SHARD_PHASE_S:g} s ({seconds:.1f} s)")
+    launches = {}
+    for rep in reports:
+        for build, c in rep["prefill"]["launches"].items():
+            launches[(rep["shard"], build)] = c
+    return {"rows": rows, "launches": launches}
+
+
 def _same_bits_np(a, b) -> bool:
     import numpy as np
 
@@ -5808,6 +6358,8 @@ def main() -> int:
     t_start = time.perf_counter()
     if sys.argv[1:2] == ["--dist-child"]:
         return dist_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--lm-child"]:
+        return lm_child(*sys.argv[2:4])
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from the root of a checkout", file=sys.stderr)
@@ -5861,6 +6413,8 @@ def _run_phases(t_start) -> int:
         err.update(plane_err)
         dist_launches = phase_distributed(hist, pcg["envelope"]["jacobi"],
                                           smi_line)
+        phase_drift(smi_line)
+        lm_shard = phase_sharded_lm(bw, smi_line)
         err.update(phase_bf16_parity())
         err.update(phase_bf16_sstep_pcg_parity())
         err.update(phase_bf16_k1_k2_parity())
@@ -6082,6 +6636,25 @@ def _run_phases(t_start) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    # the sharded hymba prefill's K13 calls, by rank: rank 0 on its own
+    # keys (q_offset 0), rank 1 at q_offset 2048 (global layers, gathered
+    # keys) and 1024 (windowed layers, [halo | own] keys); launches from
+    # the measured run of each rank, times at the slice shapes
+    for key, build, shard in (
+            ("rank 0 global", "flash_attn_bf16_d64", 0),
+            ("rank 0 window 1024", "flash_attn_bf16_d64_window1024", 0),
+            ("rank 1 global", "flash_attn_bf16_d64_qoffset2048", 1),
+            ("rank 1 window 1024",
+             "flash_attn_bf16_d64_window1024_qoffset1024", 1)):
+        row = lm_shard["rows"][key]
+        kernels.append({
+            "name": build.replace("flash_attn_bf16", "flash_attn")
+            + f"@hymba-1.5b-model2-rank{shard}", "route": "cuda",
+            "source": flash[0], "replaces": flash[1],
+            "launches": lm_shard["launches"].get((shard, build), 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     # the training runs' launches (forward and remat recompute), with K13's
     # times at the training shape and K14's at its serve shape (the same
     # batch 4, 1024 tokens, H 32, d 64)

@@ -3,8 +3,8 @@ and the reference's ten LM architectures (``ARCHS`` / :func:`get`), in the
 reference's order, each a verbatim copy of the reference's config.
 
 The serving path (``launch/serve.py``) and the training path
-(``launch/train.py``) run all ten; the mesh-only specs (``cache_specs``,
-PartitionSpecs) wait for ROADMAP.md queue 1 item 14 (``configs/specs.py``).
+(``launch/train.py``) run all ten; ``configs/specs.py`` gives each cell's
+inputs and their partition specs on a mesh.
 """
 from __future__ import annotations
 

@@ -1,27 +1,43 @@
-"""Input stand-ins per (arch x shape) cell, on the ``meta`` device.
+"""Input stand-ins and their partition specs per (arch x shape) cell.
 
-The port of the reference's ``configs/specs.py``, for what has a meaning
-without a mesh: the modality stubs' shapes and dtype (:func:`extra_specs`)
-and each cell's step inputs (:func:`input_specs`) as
-``torch.empty(..., device="meta")`` tensors, which hold a shape and a dtype
-and allocate nothing.  ``kind``:
+The port of the reference's ``configs/specs.py``.  The modality stubs'
+shapes and dtype (:func:`extra_specs`) and each cell's step inputs
+(:func:`input_specs`) are ``torch.empty(..., device="meta")`` tensors,
+which hold a shape and a dtype and allocate nothing.  ``kind``:
   * train   — the loss's inputs: a token batch (+ modality stubs)
   * prefill — ``serve_prefill``'s inputs: the full prompt (+ modality stubs)
   * decode  — ``serve_step``'s inputs: one token, a cache of ``seq_len``
               slots and the position index
 Token ids are int64, as the port's entry points take them (the reference's
-are int32).  The reference's PartitionSpecs (``_extra_pspecs``, the second
-half of ``input_specs``' result) and ``cache_specs`` place arrays on a mesh;
-they wait for ROADMAP.md queue 1 item 14 (distributed).
+are int32).  The reference's ``input_specs`` returns the inputs and their
+PartitionSpecs together; here :func:`input_pspecs` returns the specs
+(``distributed/sharding.P``) keyed as :func:`input_specs` keys the inputs,
+and :func:`cache_specs` specs a decode cache, one dict a layer (the port's
+cache layout), each spec the reference's less its leading layer axis.
+``long_500k`` (batch 1) marks the cache context-parallel: its sequence axis
+is sharded over ``data``.  ``mesh`` is a ``DeviceMesh`` or an
+``AbstractMesh``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.distributed.sharding import RULES, P, mesh_axes
 from repro_torch.models.layers import dtype_of
 
-__all__ = ["input_specs", "extra_specs"]
+__all__ = ["input_specs", "input_pspecs", "cache_specs", "extra_specs"]
+
+
+def _div(mesh, dim, axes):
+    if axes is None or mesh is None:
+        return None
+    sizes = mesh_axes(mesh)
+    ax = (axes,) if isinstance(axes, str) else tuple(axes)
+    sz = 1
+    for a in ax:
+        sz *= sizes.get(a, 1)
+    return axes if (sz > 1 and dim % sz == 0) else None
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -61,4 +77,65 @@ def input_specs(cfg: ArchConfig, cell: ShapeCell) -> dict:
         return {"tokens": _meta((B, 1), torch.long),
                 "cache": M.init_cache(cfg, B, S, device="meta"),
                 "index": _meta((), torch.long)}
+    raise ValueError(cell.kind)
+
+
+def _extra_pspecs(extra, mesh):
+    if extra is None:
+        return None
+    return {k: P(_div(mesh, v.shape[0], RULES.dp), None, None)
+            for k, v in extra.items()}
+
+
+def cache_specs(cfg: ArchConfig, cache, mesh, *,
+                context_parallel: bool) -> list[dict]:
+    """Specs of a decode cache (``models.model.init_cache``, built without
+    a mesh: the global shapes), one ``{name: P}`` a layer."""
+
+    def spec_for(name, shape):
+        B = shape[0]
+        dp = _div(mesh, B, RULES.dp)
+        if name in ("k", "v"):
+            Hkv, S = shape[1], shape[2]
+            if context_parallel:
+                return P(None, _div(mesh, Hkv, RULES.tp),
+                         _div(mesh, S, RULES.seq), None)
+            tp_h = _div(mesh, Hkv, RULES.tp)
+            if tp_h is None:          # kv heads < TP degree: shard sequence
+                return P(dp, None, _div(mesh, S, RULES.tp), None)
+            return P(dp, tp_h, None, None)
+        if name in ("xk", "xv"):
+            return P(dp, _div(mesh, shape[1], RULES.tp), None, None)
+        if name == "state":           # rwkv (B, H, hd, hd)
+            return P(dp, _div(mesh, shape[1], RULES.tp), None, None)
+        if name in ("tm_x", "cm_x"):
+            return P(dp, None, None)
+        if name == "conv":            # (B, K-1, di)
+            return P(dp, None, _div(mesh, shape[2], RULES.tp))
+        if name == "h":               # (B, di, n)
+            return P(dp, _div(mesh, shape[1], RULES.tp), None)
+        return P(*([None] * len(shape)))
+
+    return [{name: spec_for(name, t.shape) for name, t in layer.items()}
+            for layer in cache]
+
+
+def input_pspecs(cfg: ArchConfig, cell: ShapeCell, mesh=None) -> dict:
+    """The specs of :func:`input_specs`' inputs, keyed the same way (the
+    second half of the reference's ``input_specs``)."""
+    B, S = cell.global_batch, cell.seq_len
+    dp = _div(mesh, B, RULES.dp)
+    inputs = input_specs(cfg, cell)
+    if cell.kind == "train":
+        return {"batch": {"tokens": P(dp, None)},
+                "extra": _extra_pspecs(inputs["extra"], mesh)}
+    if cell.kind == "prefill":
+        return {"tokens": P(dp, None),
+                "extra": _extra_pspecs(inputs["extra"], mesh)}
+    if cell.kind == "decode":
+        cp = cell.name == "long_500k"
+        return {"tokens": P(dp, None),
+                "cache": cache_specs(cfg, inputs["cache"], mesh,
+                                     context_parallel=cp),
+                "index": P()}
     raise ValueError(cell.kind)

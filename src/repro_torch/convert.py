@@ -18,7 +18,9 @@ the reference's LM parameter pytree (``models/model.init_params``, as numpy
 arrays) into the port's model, so both packages serve with identical
 weights; :func:`train_state_from_reference` does the same for a training
 state (parameters, AdamW's moments and step), so both packages train from
-one state.
+one state.  :func:`shard_params` cuts a full model to one rank's shards of
+a mesh by per-parameter specs (``models.model.param_specs`` or
+``run_specs``): weights reach a sharded run only through it.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from repro_torch.core.precond import (ChebyshevPrecond, JacobiPrecond,
 
 __all__ = ["FIELDS", "case_from_arrays", "precond_from_reference",
            "sstep_theta_from_reference", "lm_params_from_reference",
-           "lm_named_arrays", "train_state_from_reference"]
+           "lm_named_arrays", "train_state_from_reference", "shard_params"]
 
 FIELDS = ("D", "g", "mask", "mult", "c", "bmass")
 
@@ -192,3 +194,50 @@ def train_state_from_reference(cfg, params_tree, mu_tree, nu_tree, step, *,
     _load_named(state.nu, cfg, nu_tree, "nu")
     state.step = int(np.asarray(step))
     return state
+
+
+@torch.no_grad()
+def shard_params(params, specs: dict, mesh):
+    """Cut the full model ``params`` (an ``nn.Module``) to this rank's
+    shards, in place, and return it.
+
+    ``specs`` maps parameter names to specs (``distributed/sharding.P``:
+    each entry an axis name, a tuple of axis names or None); ``mesh`` is
+    the ``DeviceMesh``, whose ``get_coordinate()`` places this process.  A
+    dimension whose entry names axes is cut into as many equal blocks as
+    those axes have ranks together and keeps block ``i``, ``i`` this rank's
+    position on them in the order named (the reference's layout of a
+    ``NamedSharding``); axes the mesh lacks are ignored.  A cut parameter
+    is replaced by a contiguous copy of its block, so the full one can be
+    freed."""
+    from repro_torch.distributed.sharding import mesh_axes
+
+    sizes = mesh_axes(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    named = dict(params.named_parameters())
+    unknown = sorted(set(specs) - set(named))
+    if unknown:
+        raise ValueError(f"specs name parameters the model lacks: "
+                         f"{unknown[:5]}")
+    for name, spec in specs.items():
+        t = named[name]
+        block = t
+        for dim, entry in enumerate(spec):
+            axes = [a for a in ((entry,) if isinstance(entry, str)
+                                else entry or ()) if a in sizes]
+            parts, i = 1, 0
+            for a in axes:
+                parts, i = parts * sizes[a], i * sizes[a] + coord[a]
+            if parts == 1:
+                continue
+            if t.shape[dim] % parts:
+                raise ValueError(f"{name}: dimension {dim} of "
+                                 f"{tuple(t.shape)} is not a multiple of "
+                                 f"{parts} shards")
+            m = t.shape[dim] // parts
+            block = block.narrow(dim, i * m, m)
+        if block is not t:
+            module, _, attr = name.rpartition(".")
+            setattr(params.get_submodule(module), attr, torch.nn.Parameter(
+                block.contiguous(), requires_grad=t.requires_grad))
+    return params

@@ -1,12 +1,39 @@
-"""The solver mesh and the collectives of the sharded Nekbone drivers.
+"""Sharding: the LM mesh's rules, and the collectives of the sharded
+drivers.
 
-The reference's ``distributed/sharding.py`` holds two things: the LM
-production mesh's rules (``AxisRules``, ``constrain``, ``RULES``), which
-are not ported yet (ROADMAP.md queue 1 item 14, the LM half), and the
-solver half ported here.  The sharded solvers (``core/gs.py``,
+The port of the reference's ``distributed/sharding.py``, in two halves.
+
+**The LM half** (reference ``:73-190``).  Axis convention
+(``launch/mesh.py``): ``pod`` (data parallelism across pods), ``data``
+(FSDP parameter sharding and batch data parallelism), ``model`` (tensor
+parallelism: heads, ffn hidden, experts, vocab).  The mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` with named axes, made active
+by :func:`use_mesh` and read by :func:`current_mesh`; an
+:class:`AbstractMesh` (axis names and sizes, no process group) stands in
+where only specs are wanted, such as the production meshes' 256 and 512
+ranks.  :class:`P` is the port's PartitionSpec: a tuple whose entries are
+an axis name, a tuple of axis names, or None.  :class:`AxisRules` maps
+logical dimensions to mesh axes, sharding a dimension only when the axes
+divide it (:meth:`AxisRules.div`); :data:`RULES` is the one instance every
+module reads, tuned by :func:`set_rules`.
+
+:func:`constrain` keeps the reference's call sites.  Without an active
+mesh it is the identity, and so is a size: ``AxisRules._size`` is 1, so
+every single-device path is what it was.  With a mesh it drops the axis
+names the mesh lacks, redistributes a ``DTensor`` to the spec's placements,
+and returns a plain tensor unchanged (no copy): the port has no GSPMD, so a
+plain tensor is replicated over the mesh, every rank computing it whole,
+and the sharded work is done by explicit branches that cut it —
+sequence-sharded attention and context-parallel decode
+(``models/attention.py``, ``distributed/context_parallel.py``) and the
+expert-parallel MoE (``models/moe.py``).  They talk over one axis of the
+mesh through :func:`axis_mesh`, a :class:`SolverMesh` over that axis's
+ranks, and the collectives below.
+
+**The solver half.**  The sharded solvers (``core/gs.py``,
 ``core/cg_fused.py``, ``distributed/sstep.py``, ``distributed/pcg.py``)
 split the element grid into contiguous z-slabs, one per process, over a
-1-D :class:`SolverMesh`, and talk through three collectives only:
+1-D :class:`SolverMesh`, and talk through three of its collectives:
 
 * :func:`ppermute_pair` — a block to the next shard and a block to the
   previous one, both directions in one ``dist.batch_isend_irecv``, zeros
@@ -15,13 +42,20 @@ split the element grid into contiguous z-slabs, one per process, over a
 * :func:`psum` — ``all_reduce`` SUM of one stacked buffer;
 * :func:`all_gather` — the answer, once, after a solve's loop.
 
+The LM branches use those three (an all-gather along any dimension) and two
+more: :func:`ppermute_shift` (a block to the next shard only, one
+ppermute: the attention halo) and :func:`pmax` (``all_reduce`` MAX: the
+context-parallel softmax's maximum).  On a mesh axis that is not the
+whole world the reductions and the gather run over that axis's process
+group (``SolverMesh.group``).
+
 Every call adds one to its kind in :data:`COLLECTIVES` and its bytes to
 :data:`COLLECTIVE_BYTES`, which ``obs/metrics.measure_collectives`` reads:
 a ppermute's bytes are those sent plus those received (a shard at a global
-end has one neighbour), a psum's the buffer's, an all-gather's the gathered
-result's.  A call is counted where it is issued, also on a one-shard mesh,
-where it moves nothing (a one-rank process group still runs its
-all-reduce and all-gather).
+end has one neighbour), a psum's or a pmax's the buffer's, an
+all-gather's the gathered result's.  A call is counted where it is issued,
+also on a one-shard mesh, where it moves nothing (a one-rank process group
+still runs its all-reduce and all-gather).
 
 Backends.  An NCCL group exchanges the device tensors themselves.  Gloo's
 send, receive and all-reduce take host tensors, so under gloo every
@@ -42,13 +76,16 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["SolverMesh", "solver_mesh", "shard_leading", "ppermute_pair", "psum", "all_gather", "COLLECTIVES",
+__all__ = ["SolverMesh", "solver_mesh", "shard_leading", "ppermute_pair",
+           "ppermute_shift", "psum", "pmax", "all_gather", "COLLECTIVES",
            "COLLECTIVE_BYTES", "HOST_STAGED_BYTES", "reset_collectives",
-           "collective_log"]
+           "collective_log", "P", "AbstractMesh", "use_mesh",
+           "current_mesh", "mesh_axes", "axis_mesh", "constrain",
+           "AxisRules", "RULES", "set_rules"]
 
 # Calls and bytes by kind since the last reset_collectives().
-COLLECTIVES = {"ppermute": 0, "psum": 0, "all_gather": 0}
-COLLECTIVE_BYTES = {"ppermute": 0, "psum": 0, "all_gather": 0}
+COLLECTIVES = {"ppermute": 0, "psum": 0, "pmax": 0, "all_gather": 0}
+COLLECTIVE_BYTES = {"ppermute": 0, "psum": 0, "pmax": 0, "all_gather": 0}
 # Bytes copied between the card and the host for a gloo group (both ways).
 HOST_STAGED_BYTES = {"to_host": 0, "to_device": 0}
 
@@ -95,12 +132,15 @@ class SolverMesh:
 
     ``order`` lists the world's ranks in shard order, so the neighbours of
     this process are ``order[shard - 1]`` and ``order[shard + 1]``;
-    ``backend`` is ``"nccl"``, ``"gloo"``, or None on the one-shard mesh.
+    ``backend`` is ``"nccl"``, ``"gloo"``, or None on the one-shard mesh;
+    ``group`` is the process group of ``order``'s ranks where they are not
+    the whole world (:func:`axis_mesh`), else None.
     """
 
     order: tuple[int, ...]
     shard: int
     backend: str | None = None
+    group: object = dataclasses.field(default=None, compare=False)
 
     @property
     def ndev(self) -> int:
@@ -233,16 +273,35 @@ def psum(buf: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
     COLLECTIVE_BYTES["psum"] += buf.numel() * buf.element_size()
     if mesh.backend is None:
         return buf.clone()
+    return _all_reduce(buf, mesh, dist.ReduceOp.SUM)
+
+
+def pmax(buf: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
+    """``buf``'s elementwise maximum over the shards (``all_reduce`` MAX),
+    as a new tensor on ``buf``'s device."""
+    import torch.distributed as dist
+
+    COLLECTIVES["pmax"] += 1
+    COLLECTIVE_BYTES["pmax"] += buf.numel() * buf.element_size()
+    if mesh.backend is None:
+        return buf.clone()
+    return _all_reduce(buf, mesh, dist.ReduceOp.MAX)
+
+
+def _all_reduce(buf, mesh, op):
+    import torch.distributed as dist
+
     t = _host(buf, mesh)
     if t is buf:
         t = buf.clone()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    dist.all_reduce(t, op=op, group=mesh.group)
     return _back(t, buf.device, mesh)
 
 
-def all_gather(x: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
-    """The shards' blocks of ``x`` concatenated along the leading axis in
-    shard order: the global field, on every shard."""
+def all_gather(x: torch.Tensor, mesh: SolverMesh,
+               dim: int = 0) -> torch.Tensor:
+    """The shards' blocks of ``x`` concatenated along ``dim`` (the leading
+    axis by default) in shard order: the global field, on every shard."""
     import torch.distributed as dist
 
     COLLECTIVES["all_gather"] += 1
@@ -252,6 +311,243 @@ def all_gather(x: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
         return x.clone()
     t = _host(x, mesh)
     parts = [torch.empty_like(t) for _ in range(mesh.ndev)]
-    dist.all_gather(parts, t)
-    out = torch.cat([parts[r] for r in mesh.order], dim=0)
+    dist.all_gather(parts, t, group=mesh.group)
+    idx = [r if mesh.group is None else dist.get_group_rank(mesh.group, r)
+           for r in mesh.order]
+    out = torch.cat([parts[i] for i in idx], dim=dim)
     return _back(out, x.device, mesh)
+
+
+def ppermute_shift(x: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
+    """Send ``x`` to the next shard; return what the previous shard sent,
+    zeros on the first shard (the reference's ``ppermute`` with the
+    permutation ``[(i, i + 1)]``).  One ppermute; its bytes are those sent
+    plus those received."""
+    import torch.distributed as dist
+
+    COLLECTIVES["ppermute"] += 1
+    got = torch.zeros_like(x)
+    if mesh.ndev == 1:
+        return got
+    ops, nbytes = [], 0
+    buf = recv = None
+    if not mesh.last:
+        buf = _host(x, mesh)
+        ops.append(dist.P2POp(dist.isend, buf, mesh.order[mesh.shard + 1]))
+        nbytes += buf.numel() * buf.element_size()
+    if not mesh.first:
+        recv = torch.empty_like(x, device="cpu" if mesh.staged else x.device)
+        ops.append(dist.P2POp(dist.irecv, recv, mesh.order[mesh.shard - 1]))
+        nbytes += recv.numel() * recv.element_size()
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    COLLECTIVE_BYTES["ppermute"] += nbytes
+    return got if recv is None else _back(recv, x.device, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the LM half: specs, the active mesh, constrain, the rules
+# ---------------------------------------------------------------------------
+
+class P(tuple):
+    """A partition spec: one entry a dimension, each an axis name, a tuple
+    of axis names, or None (replicated)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (tuple(e) if isinstance(e, list) else e
+                                     for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes, with no process group behind it:
+    enough for specs (:class:`AxisRules`, ``models.model.param_specs``,
+    ``configs.specs``), not for collectives."""
+
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh`` with named axes, or an
+    :class:`AbstractMesh`) the active mesh inside the block."""
+    mesh_axes(mesh)
+    _ACTIVE.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.pop()
+
+
+def current_mesh():
+    """The active mesh (:func:`use_mesh`), or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or an
+    :class:`AbstractMesh` (or any object with ``axis_names`` and a
+    ``shape`` mapping), in the mesh's order."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.mesh.shape))
+    if getattr(mesh, "axis_names", None) is None:
+        raise TypeError(f"{type(mesh).__name__} is not a mesh with named "
+                        "axes")
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
+def axis_mesh(mesh, axis: str) -> SolverMesh:
+    """This rank's line of ``mesh`` (a ``DeviceMesh``) along ``axis``, as a
+    :class:`SolverMesh`: the ranks that share this rank's coordinates on
+    the other axes, in ``axis`` order, with that axis's process group."""
+    import torch.distributed as dist
+
+    names = list(mesh.mesh_dim_names)
+    grid = mesh.mesh
+    me = dist.get_rank()
+    coord = [int(c) for c in (grid == me).nonzero()[0]]
+    line = [coord[i] if name != axis else slice(None)
+            for i, name in enumerate(names)]
+    order = tuple(int(r) for r in grid[tuple(line)].reshape(-1))
+    group = None if len(order) == dist.get_world_size() else \
+        mesh.get_group(axis)
+    return SolverMesh(order=order, shard=order.index(me),
+                      backend=str(dist.get_backend()), group=group)
+
+
+def _filter(spec, names) -> P:
+    def filt(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, (tuple, list)):
+            kept = tuple(a for a in entry if a in names)
+            return kept if kept else None
+        return entry if entry in names else None
+
+    return P(*(filt(e) for e in spec))
+
+
+def constrain(x, spec):
+    """The reference's ``with_sharding_constraint``, without GSPMD.
+
+    Without an active mesh: ``x``.  With one: a ``DTensor`` is
+    redistributed to ``spec`` (less the axis names the mesh lacks, as the
+    reference drops them) — ``Shard(d)`` on each axis that names dimension
+    d, ``Replicate()`` on the others; a plain tensor is returned as it is,
+    not copied (module docstring)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    spec = _filter(spec, mesh_axes(mesh))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    placements = [Replicate()] * len(mesh_axes(mesh))
+    names = list(mesh_axes(mesh))
+    for dim, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            placements[names.index(a)] = Shard(dim)
+    return x.redistribute(x.device_mesh, placements)
+
+
+@dataclasses.dataclass
+class AxisRules:
+    """Logical-to-mesh mapping with divisibility-aware helpers.
+
+    Mutable singleton (:data:`RULES`): launchers tune it per run via
+    :func:`set_rules` (e.g. ``fsdp_pod=True`` for the >100B archs) and every
+    module sees the change because they all hold the same object.
+    """
+
+    dp: tuple[str, ...] = ("pod", "data")   # batch / token parallelism
+    fsdp: str | None = "data"               # parameter sharding
+    fsdp_pod: bool = False                  # also FSDP over 'pod' (huge archs)
+    tp: str | None = "model"                # tensor parallelism
+    seq: str | None = "data"                # context parallelism (long decode)
+
+    # -- axis-size helpers --------------------------------------------------
+    def _size(self, axes) -> int:
+        mesh = current_mesh()
+        if mesh is None:
+            return 1
+        if isinstance(axes, str):
+            axes = (axes,)
+        sizes = mesh_axes(mesh)
+        s = 1
+        for a in axes:
+            s *= sizes.get(a, 1)
+        return s
+
+    def div(self, dim: int, axes):
+        """Return ``axes`` if ``dim`` divides evenly over them, else None."""
+        if axes is None:
+            return None
+        sz = self._size(axes)
+        return axes if (sz > 1 and dim % sz == 0) else (axes if sz == 1
+                                                         else None)
+
+    @property
+    def fsdp_axes(self):
+        if self.fsdp is None:
+            return None
+        return ("pod", self.fsdp) if self.fsdp_pod else self.fsdp
+
+    # -- common specs --------------------------------------------------------
+    def act_btd(self, d: int | None = None) -> P:
+        """Activations (batch, seq, d_model): batch over dp."""
+        return P(self.dp, None, None)
+
+    def act_bthd(self, heads: int) -> P:
+        """(batch, seq, heads, head_dim): heads over tp when divisible."""
+        return P(self.dp, None, self.div(heads, self.tp), None)
+
+    def w_in(self, d_in: int, d_out: int) -> P:
+        """Input-side weight (d_in, d_out): FSDP rows, TP cols."""
+        return P(self.div(d_in, self.fsdp_axes), self.div(d_out, self.tp))
+
+    def w_out(self, d_in: int, d_out: int) -> P:
+        """Output-side weight (d_in, d_out): TP rows, FSDP cols."""
+        return P(self.div(d_in, self.tp), self.div(d_out, self.fsdp_axes))
+
+    def w_expert(self, n_exp: int, d_in: int, d_out: int) -> P:
+        """Expert weights (E, d_in, d_out): experts over TP, FSDP on d_in."""
+        return P(self.div(n_exp, self.tp), self.div(d_in, self.fsdp_axes),
+                 None)
+
+    def embed(self, vocab: int, d: int) -> P:
+        """Embedding / unembedding (vocab, d): vocab over TP, d over FSDP."""
+        return P(self.div(vocab, self.tp), self.div(d, self.fsdp_axes))
+
+    def kv_cache(self, kv_heads: int) -> P:
+        """KV cache (batch, kv_heads, seq, head_dim)."""
+        return P(self.dp, self.div(kv_heads, self.tp), None, None)
+
+    def kv_cache_cp(self, kv_heads: int) -> P:
+        """Context-parallel KV cache for long single-sequence decode:
+        the *sequence* axis is sharded (batch is 1)."""
+        return P(None, self.div(kv_heads, self.tp), self.seq, None)
+
+
+RULES = AxisRules()
+
+
+def set_rules(**kw) -> AxisRules:
+    """Mutate the global rules in place (same object everywhere)."""
+    for k, v in kw.items():
+        if not hasattr(RULES, k):
+            raise AttributeError(f"AxisRules has no field {k!r}")
+        setattr(RULES, k, v)
+    return RULES

@@ -29,6 +29,7 @@ each library as ``<name>-<hash>.log``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -38,7 +39,8 @@ import threading
 
 __all__ = ["CSRC", "SOURCES", "DTYPES", "NVCC_FLAGS",
            "LAUNCHES", "BUILD_LAUNCHES", "reset_launches", "split_name",
-           "build_dir", "nvcc_path", "build_all", "load", "launch"]
+           "build_dir", "nvcc_path", "build_all", "load", "launch",
+           "CHARGE", "charged"]
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 _NEKBONE = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
@@ -65,11 +67,54 @@ LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
             "nekbone_sstep_update": 0, "flash_attn": 0, "wkv6": 0}
 # The same launches by the build that ran: {C entry point (``<stem>_<dtype>``)
 # and the launch's detail, if any (K13 adds its head size, its window,
-# ``_noncausal`` where it is not causal and ``_cross`` where Sq != Skv:
+# ``_noncausal`` where it is not causal, ``_cross`` where Skv != q_offset +
+# Sq and ``_qoffset<q_offset>`` where q_offset != 0:
 # ``flash_attn_bf16_d64_window1024``, ``flash_attn_bf16_d64_noncausal``,
-# ``flash_attn_bf16_d64_noncausal_cross``): count}, for the launched keys
-# only.
+# ``flash_attn_bf16_d64_noncausal_cross``,
+# ``flash_attn_bf16_d64_window1024_qoffset1024``): count}, for the launched
+# keys only.
 BUILD_LAUNCHES: dict[str, int] = {}
+
+
+# The stream recorder of obs/drift.py while it measures, else None: an
+# object with ``depth`` (wrappers entered and not left) and
+# ``charge(name, read_bytes, write_bytes)``.
+CHARGE = None
+
+
+def _tensor_bytes(obj) -> int:
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(_tensor_bytes(o) for o in obj)
+    if isinstance(obj, dict):
+        return sum(_tensor_bytes(o) for o in obj.values())
+    return 0
+
+
+def charged(fn):
+    """A kernel wrapper that charges :data:`CHARGE`, where one is set, the
+    bytes of its tensor operands and of its tensor results, once a call, on
+    the CPU (its plain version) as on the card; what runs inside it is not
+    charged again."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        rec = CHARGE
+        if rec is None:
+            return fn(*args, **kwargs)
+        reads = _tensor_bytes((args, kwargs))
+        rec.depth += 1
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            rec.depth -= 1
+        if rec.depth == 0:
+            rec.charge(fn.__name__, reads, _tensor_bytes(out))
+        return out
+
+    return wrapper
 
 
 def reset_launches() -> None:

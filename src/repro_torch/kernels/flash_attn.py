@@ -17,8 +17,10 @@ rows x 32-key tiles).  :func:`flash_attention_cuda`:
   output, launches the kernel on the current stream, raises if the launch
   returned an error, and adds one to ``LAUNCHES["flash_attn"]`` and to
   the build's count by head size, window, ``_noncausal`` for a
-  non-causal call (whisper's encoder and cross-attention) and ``_cross``
-  where Sq != Skv (the cross-attention) (``BUILD_LAUNCHES``,
+  non-causal call (whisper's encoder and cross-attention), ``_cross``
+  where the keys do not end at the last query (Skv != q_offset + Sq:
+  the cross-attention) and ``_qoffset<q_offset>`` where q_offset != 0 (a
+  query slice of a sequence-sharded prefill) (``BUILD_LAUNCHES``,
   kernels/_build.py).  There is no fallback.
 """
 from __future__ import annotations
@@ -89,5 +91,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          int(q_offset)),
         detail=f"_d{d}" + ("" if window is None else f"_window{window}")
         + ("" if causal else "_noncausal")
-        + ("" if Sq == Skv else "_cross"))
+        + ("" if Skv == q_offset + Sq else "_cross")
+        + ("" if q_offset == 0 else f"_qoffset{q_offset}"))
     return o

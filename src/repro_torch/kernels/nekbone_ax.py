@@ -49,6 +49,9 @@ Every wrapper takes the kernel's flat operands ((E, n^3) fields, or
   ``_build.LAUNCHES``.
   There is no fallback: a CUDA tensor the kernel does not take raises.
 
+On either path, while ``obs/drift.py`` measures, the wrapper charges the
+bytes of its operands and results once (``_build.charged``).
+
 Every kernel is built for f64 and f32, one dtype for all operands, and
 for the two bf16 operand mixes of :data:`MIXES` — ``bf16`` (every operand
 bf16) and ``bf16_ir`` (bf16 vectors; x and the operator's data in f32) —
@@ -217,6 +220,7 @@ def _launch(stem: str, mix: str, device: torch.device, tensors,
                   library=f"{_LIBRARY.get(stem, stem)}_{mix}")
 
 
+@_build.charged
 def nekbone_ax_cuda(u2: torch.Tensor, D: torch.Tensor, g2: torch.Tensor, *,
                     n: int) -> torch.Tensor:
     """K1: ``w = D^T G D u``.  u2: (E, n^3); D: (n, n); g2: (E, 6, n^3).
@@ -239,6 +243,7 @@ def nekbone_ax_cuda(u2: torch.Tensor, D: torch.Tensor, g2: torch.Tensor, *,
     return w2
 
 
+@_build.charged
 def nekbone_ax_slab_cuda(p2, r2, D, g3, mx, my, mz, beta, *, n: int):
     """K4: ``p = r + beta p2``, masked diagonal-metric Ax, pap partials.
 
@@ -291,6 +296,7 @@ def _plane_operands(stem: str, mix: str, ex: int, ey: int, n: int,
     return ptrs[0], ptrs[1]
 
 
+@_build.charged
 def nekbone_cg_update_cuda(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int,
                            from_below=None, from_above=None):
     """K5: assemble ``w``, ``x += alpha p``, ``r -= alpha w``, rcr partials.
@@ -336,6 +342,7 @@ def nekbone_cg_update_cuda(x2, p2, r2, w2, alpha, cx, cy, cz, *, n: int,
     return x_out, r_out, rcr
 
 
+@_build.charged
 def nekbone_pcg_update_cuda(x2, p2, z2, w2, alpha, invd2, cx, cy, cz, *,
                             n: int, from_below=None, from_above=None):
     """K10: assemble ``w``, ``x += alpha p``, ``z -= alpha invd w``, partials.
@@ -881,6 +888,7 @@ def walk_launch_info(stem: str, E: int, n: int, mix: str, device="cuda",
                   "sm_count": info[4]}
 
 
+@_build.charged
 def nekbone_cheb_apply_cuda(r2, D, g3, mx, my, mz, cx, cy, cz, coef, *,
                             n: int, k: int):
     """K11: ``z = q_k(A) r`` and per-element ``r·c·z`` partials.
@@ -1125,6 +1133,7 @@ def nekbone_interp_floor(plan: InterpPlan, mix: str, device="cuda") -> None:
                            f"CUDA error {err}")
 
 
+@_build.charged
 def nekbone_interp_cuda(u2, mt, *, nin: int, nout: int):
     """K12: tensor-product GLL-to-GLL interpolation, along i, then j, then k.
 
@@ -1166,6 +1175,7 @@ def k6_lane_groups(b: int) -> list[tuple[int, ...]]:
             for l0 in range(0, b, K6_LANES)]
 
 
+@_build.charged
 def nekbone_ax_slab_block_cuda(p3, r3, D, g3, mx, my, mz, beta, *, n: int):
     """K6: K4 over b right-hand sides, the lanes in pairs through one layer
     sweep (:func:`k6_lane_groups`).
@@ -1197,6 +1207,7 @@ def nekbone_ax_slab_block_cuda(p3, r3, D, g3, mx, my, mz, beta, *, n: int):
     return p_out, w3, pap
 
 
+@_build.charged
 def nekbone_cg_update_block_cuda(x3, p3, r3, w3, alpha, cx, cy, cz, *,
                                  n: int):
     """K7: K5 over b right-hand sides, the b E work items in one walk.
@@ -1233,6 +1244,7 @@ def nekbone_cg_update_block_cuda(x3, p3, r3, w3, alpha, cx, cy, cz, *,
     return x_out, r_out, rcr
 
 
+@_build.charged
 def nekbone_ax_pap_cuda(p2, D, g2, mask2, *, n: int):
     """K3: ``w = mask (D^T G D p)`` with the full metric, pap partials.
 
@@ -1258,6 +1270,7 @@ def nekbone_ax_pap_cuda(p2, D, g2, mask2, *, n: int):
     return w2, pap
 
 
+@_build.charged
 def nekbone_ax_dots_cuda(p2, D, g2, mask2, r2, c2, *, n: int):
     """K2: K3 plus per-element ``r·c·r`` partials.
 
@@ -1290,6 +1303,7 @@ def _check_s(stem: str, s: int) -> None:
                          f"1..{SSTEP_MAX_S}")
 
 
+@_build.charged
 def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
                            *, n: int, s: int):
     """K8: the scaled s-step basis and per-element Gram partials.
@@ -1333,6 +1347,7 @@ def nekbone_ax_powers_cuda(p2, r2, D, g3, mx, my, mz, cx, cy, cz, inv_theta,
     return basis, gram
 
 
+@_build.charged
 def nekbone_sstep_update_cuda(x2, p2, r2, basis, coef, cx, cy, cz, *, n: int,
                               s: int):
     """K9: the s-step multi-axpy and per-element ``r·c·r`` partials.

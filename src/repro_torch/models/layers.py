@@ -9,15 +9,18 @@ keys (``Linear.w`` and ``.b``, ``Norm.scale`` and ``.bias``, ``MLP.w_in``
 are the reference's initialisers; they return these modules.  Parameters
 are made with ``requires_grad=False``, so serving builds no graph;
 ``launch/steps.make_train_state`` turns them on for training
-(``model.requires_grad_(True)``).  The reference's sharding constraints
-(``constrain`` / ``RULES``) have no counterpart here: sharding waits for
-ROADMAP.md queue 1 item 14 (distributed).
+(``model.requires_grad_(True)``).  The reference's sharding constraint on
+the MLP's hidden activation stands where it stands there
+(``distributed/sharding.constrain``: an identity on the port's plain
+tensors).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.sharding import RULES, P, constrain
 
 __all__ = ["dtype_of", "param", "normal", "Norm", "Linear", "MLP",
            "init_norm", "init_linear", "init_mlp", "rms_norm", "layer_norm",
@@ -143,12 +146,15 @@ def linear(x: torch.Tensor, p: Linear, compute_dtype=None) -> torch.Tensor:
 
 def mlp(x: torch.Tensor, p: MLP, *, act: str,
         compute_dtype=None) -> torch.Tensor:
-    """(Gated) MLP."""
+    """(Gated) MLP, with the reference's TP constraint on the hidden
+    activation."""
     h = linear(x, p.w_in, compute_dtype)
+    h_spec = P(RULES.dp, None, RULES.div(h.shape[-1], RULES.tp))
     if p.w_gate is not None:
-        h = h * activation(linear(x, p.w_gate, compute_dtype), act)
+        h = constrain(h * activation(linear(x, p.w_gate, compute_dtype), act),
+                      h_spec)
     else:
-        h = activation(h, act)
+        h = constrain(activation(h, act), h_spec)
     return linear(h, p.w_out, compute_dtype)
 
 

@@ -36,8 +36,20 @@ wanted, each window-pattern group of layers (whisper's encoder and decoder
 stacks included) runs under ``torch.utils.checkpoint.checkpoint``
 (non-reentrant), which keeps only the group's input and recomputes its
 forward in the backward pass, the counterpart of the reference's
-``jax.checkpoint`` with ``nothing_saveable``.  ``param_specs`` (the mesh)
-waits for ROADMAP.md queue 1 item 14.
+``jax.checkpoint`` with ``nothing_saveable``.
+
+Sharding.  The reference's ``constrain`` calls stand where they stand there
+(identities without a mesh, and on the port's plain tensors:
+``distributed/sharding.py``).  Under an active mesh the model runs its
+explicit branches: sequence-sharded prefill attention and sequence-sharded
+or context-parallel decode (``models/attention.py``; ``init_cache``,
+``prefill`` and ``decode_step`` take ``context_parallel``) and the
+expert-parallel MoE (``models/moe.py``).  :func:`param_specs` is the
+reference's spec of every parameter (train, or ``serve=True``), by
+parameter name; :func:`run_specs` the part of it the port's branches take
+— each MoE expert tensor's expert axis over ``model``, everything else
+replicated, since without GSPMD a dense weight is used whole — and
+``convert.shard_params`` cuts a full model to one rank's shards by either.
 """
 from __future__ import annotations
 
@@ -47,6 +59,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import RULES, P, constrain, mesh_axes
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MO
@@ -54,7 +67,7 @@ from repro_torch.models import rwkv6 as R
 from repro_torch.models import ssm as SM
 
 __all__ = ["Layer", "LM", "init_params", "forward", "loss_fn", "init_cache",
-           "prefill", "decode_step"]
+           "prefill", "decode_step", "param_specs", "run_specs"]
 
 
 def _norm(x, p, cfg):
@@ -167,6 +180,7 @@ def _attn_layer(x, lp: Layer, cfg, *, positions, window, causal=True,
     h = _norm(x, lp.norm1, cfg)
     ao, kv = A.attention(h, lp.attn, cfg, positions=positions, window=window,
                          causal=causal, impl=cfg.attn_impl)
+    ao = constrain(ao, RULES.act_btd())
     ssm = None
     if cfg.block == "hymba":
         so, tail, hT = SM._mamba_core(h, lp.mamba, cfg)
@@ -180,9 +194,9 @@ def _attn_layer(x, lp: Layer, cfg, *, positions, window, causal=True,
         xo, _ = A.attention(h, lp.xattn, cfg, positions=positions,
                             causal=False, impl=cfg.attn_impl,
                             kv_override=cross)
-        x = x + xo
+        x = x + constrain(xo, RULES.act_btd())
     h = _norm(x, lp.norm2, cfg)
-    return x + _ffn(h, lp, cfg), kv, ssm
+    return constrain(x + _ffn(h, lp, cfg), RULES.act_btd()), kv, ssm
 
 
 def _embed(params: LM, cfg, tokens, extra=None, pos0: int = 0):
@@ -197,13 +211,18 @@ def _embed(params: LM, cfg, tokens, extra=None, pos0: int = 0):
         x = torch.cat([extra["img_embeds"].to(x.dtype), x], dim=1)
     if cfg.pos_emb == "learned":
         x = x + params.pos_embed[pos0:pos0 + x.shape[1]].to(x.dtype)
-    return x
+    return constrain(x, RULES.act_btd())
+
+
+def _vocab_spec(cfg) -> P:
+    return P(RULES.dp, None, RULES.div(cfg.vocab, RULES.tp))
 
 
 def _logits(params: LM, cfg, x):
     head = params.embed if cfg.tie_embeddings else params.lm_head
     logits = x @ head.to(x.dtype).T
-    return L.softcap(logits.float(), cfg.logit_softcap)
+    return constrain(L.softcap(logits.float(), cfg.logit_softcap),
+                     _vocab_spec(cfg))
 
 
 def _positions(x):
@@ -230,7 +249,7 @@ def _run_stack(x, layers, cfg, *, positions, causal=True, cross=None):
                 x, _, _ = _attn_layer(x, lp, cfg, positions=positions,
                                       window=windows[i], causal=causal,
                                       cross=cross[i])
-        return x
+        return constrain(x, RULES.act_btd())
 
     remat = cfg.remat and torch.is_grad_enabled()
     for lo in range(0, n, p):
@@ -296,7 +315,7 @@ def loss_fn(params: LM, cfg, batch, extra=None):
     vocab-sharded layout."""
     tokens = batch["tokens"]
     logits = forward(params, cfg, tokens[:, :-1], extra)
-    logits = logits[:, -(tokens.shape[1] - 1):]
+    logits = constrain(logits[:, -(tokens.shape[1] - 1):], _vocab_spec(cfg))
     targets = tokens[:, 1:].long()
     picked = torch.gather(logits, -1, targets[..., None])[..., 0]
     logz = torch.logsumexp(logits, dim=-1)
@@ -308,16 +327,19 @@ def loss_fn(params: LM, cfg, batch, extra=None):
 # ---------------------------------------------------------------------------
 # Public: serving (prefill + decode)
 # ---------------------------------------------------------------------------
-def init_cache(cfg, batch: int, max_len: int, *, device) -> list[dict]:
+def init_cache(cfg, batch: int, max_len: int, *, device,
+               context_parallel: bool = False) -> list[dict]:
     """Per-layer caches (zeros): KV caches of ``max_len`` slots for
     attention layers (with whisper's cross-attention ``xk`` and ``xv`` of
     ``audio_ctx`` slots), recurrent caches for rwkv layers, both for hymba
-    layers."""
+    layers.  Under a mesh that shards the KV cache's sequence, this rank's
+    ``max_len / size`` slots of it (``attention.init_kv_cache``)."""
     if cfg.block == "rwkv":
         return [R.init_rwkv6_cache(cfg, batch, device=device)
                 for _ in range(cfg.n_layers)]
     cdt = L.dtype_of(cfg.compute_dtype)
-    caches = [A.init_kv_cache(cfg, batch, max_len, device=device)
+    caches = [A.init_kv_cache(cfg, batch, max_len, device=device,
+                              context_parallel=context_parallel)
               for _ in range(cfg.n_layers)]
     for c in caches:
         if cfg.block == "hymba":
@@ -346,12 +368,14 @@ def _cross_decode(x, lp: Layer, cfg, cache_l):
     return x + L.linear(o.to(x.dtype), lp.xattn.wo, cdt)
 
 
-def _decode_layer(x, lp: Layer, cfg, cache_l, index, window):
+def _decode_layer(x, lp: Layer, cfg, cache_l, index, window,
+                  context_parallel=False):
     if cfg.block == "rwkv":
         return R.rwkv6_decode(x, lp.rwkv, cfg, cache_l, lp.norm1, lp.norm2)
     h = _norm(x, lp.norm1, cfg)
     ao, cache_l = A.decode_attention(h, lp.attn, cfg, cache_l, index,
-                                     window=window)
+                                     window=window,
+                                     context_parallel=context_parallel)
     if cfg.block == "hymba":
         so, sc = SM.mamba_decode(h, lp.mamba, cfg, cache_l)
         ao = _mix_paths(ao, so, lp, cfg)
@@ -365,7 +389,8 @@ def _decode_layer(x, lp: Layer, cfg, cache_l, index, window):
     return x + _ffn(h, lp, cfg), cache_l
 
 
-def decode_step(params: LM, cfg, tokens, cache, index: int):
+def decode_step(params: LM, cfg, tokens, cache, index: int, *,
+                context_parallel: bool = False):
     """One decode step.  tokens: (B, 1); ``index``: the position of the new
     token (counting llava's image tokens).  Returns (logits (B, 1, V),
     cache); KV caches are updated in place."""
@@ -373,13 +398,15 @@ def decode_step(params: LM, cfg, tokens, cache, index: int):
     new_cache = []
     for lp, cache_l, window in zip(params.layers, cache,
                                    _windows(cfg, cfg.n_layers)):
-        x, nc = _decode_layer(x, lp, cfg, cache_l, index, window)
+        x, nc = _decode_layer(x, lp, cfg, cache_l, index, window,
+                              context_parallel)
         new_cache.append(nc)
     x = _norm(x, params.final_norm, cfg)
     return _logits(params, cfg, x), new_cache
 
 
-def prefill(params: LM, cfg, tokens, extra=None, *, max_len: int):
+def prefill(params: LM, cfg, tokens, extra=None, *, max_len: int,
+            context_parallel: bool = False):
     """Run the full prompt (after llava's image tokens; whisper's encoder
     first), build the cache, return last-position logits (B, 1, V) and the
     cache."""
@@ -399,14 +426,19 @@ def prefill(params: LM, cfg, tokens, extra=None, *, max_len: int):
                           "state": s_new})
     else:
         positions = _positions(x)
-        cache = init_cache(cfg, B, max_len, device=tokens.device)
+        cache = init_cache(cfg, B, max_len, device=tokens.device,
+                           context_parallel=context_parallel)
         cross = _cross(params, cfg, extra)
+        spec = (RULES.kv_cache_cp(cfg.n_kv_heads) if context_parallel
+                else RULES.kv_cache(cfg.n_kv_heads))
         for lp, cache_l, window, ckv in zip(
                 params.layers, cache, _windows(cfg, cfg.n_layers), cross):
             x, (k, v), ssm = _attn_layer(x, lp, cfg, positions=positions,
                                          window=window, cross=ckv)
-            cache_l["k"][:, :, :S] = k.to(cache_l["k"].dtype)
-            cache_l["v"][:, :, :S] = v.to(cache_l["v"].dtype)
+            A.fill_kv_cache(cfg, cache_l, k, v,
+                            context_parallel=context_parallel)
+            cache_l["k"] = constrain(cache_l["k"], spec)
+            cache_l["v"] = constrain(cache_l["v"], spec)
             if ssm is not None:
                 cache_l["conv"] = ssm["conv"].to(cache_l["conv"].dtype)
                 cache_l["h"] = ssm["h"]
@@ -415,3 +447,88 @@ def prefill(params: LM, cfg, tokens, extra=None, *, max_len: int):
                 cache_l["xv"] = ckv[1].to(cache_l["xv"].dtype)
     x = _norm(x, params.final_norm, cfg)
     return _logits(params, cfg, x[:, -1:]), cache
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding specs
+# ---------------------------------------------------------------------------
+def _named(params) -> dict:
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def param_specs(cfg, params, mesh, *, serve: bool = False) -> dict:
+    """``{parameter name: P}`` for the model ``params`` (an :class:`LM`, or
+    a ``{name: tensor}`` mapping) on ``mesh`` (a ``DeviceMesh`` or an
+    ``AbstractMesh``): the reference's ``param_specs``, leaf by leaf, less
+    its leading ``None`` for the stacked layer axis (the port keeps one
+    module a layer).
+
+    Train mode: FSDP over 'data' (+ 'pod' when ``RULES.fsdp_pod``), TP over
+    'model'; dims shard only when divisible.  ``serve=True`` drops FSDP
+    (weights replicated over the batch axes, TP only)."""
+    sizes = mesh_axes(mesh)
+
+    def div(dim, axes):
+        if axes is None:
+            return None
+        ax = (axes,) if isinstance(axes, str) else tuple(axes)
+        sz = 1
+        for a in ax:
+            sz *= sizes.get(a, 1)
+        return (axes if dim % sz == 0 else None) if sz > 1 else None
+
+    fsdp = None if serve else RULES.fsdp_axes
+    tp = RULES.tp
+
+    def spec_for(keys, shape):
+        core = tuple(shape)
+        name = keys[-1]
+        parent = keys[-2] if len(keys) > 1 else ""
+
+        def out(*entries):
+            entries = tuple(entries[:len(core)])
+            return P(*(entries + (None,) * (len(core) - len(entries))))
+
+        if name in ("embed", "lm_head"):
+            return P(div(shape[0], tp), div(shape[1], fsdp))
+        if name in ("pos_embed", "enc_pos"):
+            return P(None, div(shape[1], fsdp))
+        if len(core) == 0:
+            return P()
+        # MoE expert tensors: (E, d_in, d_out)
+        if parent == "moe" and len(core) == 3:
+            if name == "w_out":
+                return out(div(core[0], tp), None, div(core[2], fsdp))
+            return out(div(core[0], tp), div(core[1], fsdp), None)
+        if parent == "moe" and name == "router":
+            return out(div(core[0], fsdp), None)
+        # Linear weights by role
+        if name == "w" or (len(core) == 2 and name in (
+                "in_proj", "x_proj", "dt_proj", "out_proj", "mix_A", "w_A",
+                "w_B", "mix_B", "A_log", "conv_w", "router")):
+            d_in, d_out = core[-2], core[-1]
+            out_side = parent in ("wo", "w_out", "cm_wv") or name == "out_proj"
+            if out_side:
+                return out(div(d_in, tp), div(d_out, fsdp))
+            return out(div(d_in, fsdp), div(d_out, tp))
+        if len(core) == 1:
+            return out(None)
+        return out(*([None] * len(core)))
+
+    return {name: spec_for(name.split("."), t.shape)
+            for name, t in _named(params).items()}
+
+
+def run_specs(cfg, params, mesh) -> dict:
+    """The specs a sharded run of the port takes (module docstring): the
+    serving :func:`param_specs` with each MoE expert tensor's expert axis
+    kept and every other entry None."""
+    def keep(name, spec):
+        if len(spec) == 3 and name.split(".")[-2] == "moe":
+            return P(spec[0], None, None)
+        return P(*([None] * len(spec)))
+
+    return {name: keep(name, spec) for name, spec in
+            param_specs(cfg, params, mesh, serve=True).items()}

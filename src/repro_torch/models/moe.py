@@ -23,16 +23,27 @@ Two things differ from the reference, for the card:
   every run.
 
 The expert products are batched matrix products (``torch.bmm``), as the
-reference leaves them to XLA outside any Pallas kernel.  The reference's
-expert-parallel branch (``shard_map`` over the TP axis, one ``psum``) is
-not ported: it waits for ROADMAP.md queue 1 item 14, which brings the
-mesh that the reference picks that branch from.
+reference leaves them to XLA outside any Pallas kernel.
+
+Expert parallelism (the reference's ``shard_map`` branch).  Under an active
+mesh (``distributed/sharding.use_mesh``) whose ``model`` axis (size tp > 1)
+divides the experts, rank r of that axis holds experts ``[r * E/tp, (r +
+1) * E/tp)`` (``convert.shard_params`` cuts them by ``models.model.
+param_specs``) and every token, the tokens being replicated over the axis:
+it routes them over all E experts, keeps the assignments to its own
+(``expert_lo = r * E/tp``), runs its experts, and one ``psum`` over the
+axis adds the ranks' outputs.  No token crosses between ranks.  The
+capacity is the reference's: that of a dp shard's tokens, and each dp
+shard's batch rows are dispatched on their own, as the reference's
+``shard_map`` does.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import RULES
 from repro_torch.models import layers as L
 
 __all__ = ["MoE", "init_moe", "moe_ffn"]
@@ -93,13 +104,19 @@ def _route(x: torch.Tensor, router_w: torch.Tensor, *, top_k: int,
 
 
 def _dispatch_compute(x, router_w, w_in, w_gate, w_out, *, top_k: int,
-                      capacity: int, act: str, compute_dtype) -> torch.Tensor:
-    """Route ``x (T, d)`` through the experts; returns (T, d) in
-    ``compute_dtype``."""
+                      capacity: int, act: str, compute_dtype,
+                      expert_lo: int = 0) -> torch.Tensor:
+    """Route ``x (T, d)`` over the router's experts and through the local
+    ones, ``w_in.shape[0]`` of them from global expert ``expert_lo`` on;
+    returns (T, d) in ``compute_dtype``, the local experts' part."""
     T, d = x.shape
     E = w_in.shape[0]
     cdt = compute_dtype
     _, gate, slot = _route(x, router_w, top_k=top_k, capacity=capacity)
+    if E != router_w.shape[1]:          # a slice of the experts: its slots
+        lo = expert_lo * capacity
+        mine = (slot >= lo) & (slot < lo + E * capacity)
+        slot = torch.where(mine, slot - lo, E * capacity)
     kept = slot < E * capacity
     tok = torch.arange(T, device=x.device).repeat_interleave(top_k)
     buf = torch.zeros((E * capacity + 1, d), dtype=cdt, device=x.device)
@@ -119,11 +136,34 @@ def _dispatch_compute(x, router_w, w_in, w_gate, w_out, *, top_k: int,
 
 
 def moe_ffn(x: torch.Tensor, p: MoE, cfg) -> torch.Tensor:
-    """MoE FFN on (B, S, d) activations, every expert on this device."""
+    """MoE FFN on (B, S, d) activations: every expert on this device, or,
+    under a mesh whose TP axis divides the experts, this rank's slice of
+    them and one psum over the axis (module docstring)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    cap = _capacity(B * S, k, E, cfg.capacity_factor)
-    out = _dispatch_compute(
-        x.reshape(B * S, d), p.router, p.w_in, p.w_gate, p.w_out, top_k=k,
-        capacity=cap, act=cfg.act, compute_dtype=L.dtype_of(cfg.compute_dtype))
+    cdt = L.dtype_of(cfg.compute_dtype)
+    mesh = SH.current_mesh()
+    sizes = {} if mesh is None else SH.mesh_axes(mesh)
+    tp_size = sizes.get(RULES.tp, 1)
+    if tp_size == 1 or E % tp_size:
+        cap = _capacity(B * S, k, E, cfg.capacity_factor)
+        out = _dispatch_compute(
+            x.reshape(B * S, d), p.router, p.w_in, p.w_gate, p.w_out,
+            top_k=k, capacity=cap, act=cfg.act, compute_dtype=cdt)
+        return out.reshape(B, S, d).to(x.dtype)
+
+    line = SH.axis_mesh(mesh, RULES.tp)
+    E_loc = E // tp_size
+    if p.w_in.shape[0] != E_loc:
+        raise ValueError(f"expert-parallel MoE over {tp_size} ranks holds "
+                         f"{E_loc} experts a rank, got {p.w_in.shape[0]} "
+                         "(cut the weights with convert.shard_params)")
+    dp_size = RULES._size(RULES.dp)
+    groups = dp_size if B % dp_size == 0 else 1
+    cap = _capacity(B // groups * S, k, E, cfg.capacity_factor)
+    out = torch.cat([_dispatch_compute(
+        xg.reshape(-1, d), p.router, p.w_in, p.w_gate, p.w_out, top_k=k,
+        capacity=cap, act=cfg.act, compute_dtype=cdt,
+        expert_lo=line.shard * E_loc) for xg in x.chunk(groups)])
+    out = SH.psum(out, line)
     return out.reshape(B, S, d).to(x.dtype)
