@@ -129,6 +129,34 @@ reference package ``repro``, and, in order:
    expert-parallel over the two ranks (64 experts a rank, one psum)
    against the single-process layer (1e-5 of max |y|); K13 timed at the
    ranks' slice shapes beside its plain version and SDPA with the mask;
+14d. runs the LM's last distributed parts in one world of two gloo ranks
+   sharing the card (``chip_smoke.py --lm-parallel-child``), started
+   first, while this process makes the references and the checkpoint:
+   the collective matmul (``distributed/overlap.py``) at qwen2.5-14b's MLP
+   width (4096 tokens, 2048 a rank, d_model 5120, d_ff 13824), w
+   replicated and cut by columns, f32 and bf16, against torch.matmul of
+   the gathered x (1e-5 and 2e-2 of max |y|; one ppermute of a block each
+   way; ring and gather-then-matmul times); a two-stage GPipe pipeline
+   (``distributed/pipeline.py``) of four of qwen2.5-14b's decoder layers
+   at full width (f32 weights from seeds 50-53, bf16 compute; 4
+   microbatches of 1 x 512 tokens), the last stage's output bitwise (else
+   within 1e-5 of max |y|) one process's ``_run_stack`` over the four, 8
+   K13 launches and 5 ppermutes a stage; ``psum_tree``
+   (``distributed/compression.py``) of hymba-1.5b's gradients (its first
+   4 layers at full width, one 512-token sequence a rank, K13 forward and
+   remat, its launches by window exact) with none, bf16 and int8 (a generator) against the sum of both
+   ranks' trees in one process (1e-6, 2e-2, 5e-2 of max |sum| a leaf);
+   that hymba's train state (params, mu, nu, step) saved here and restored
+   by the ranks onto (data 1, model 2) by ``param_specs(serve=True)``,
+   every block bitwise ``shard_block`` of the whole leaf, the parameters
+   gathered whole bitwise and served over the mesh (batch 2, a 512-token
+   prompt, 4 decode steps; logits within 1e-4 of max |logit| of one
+   process whose decode softmax is split as the ranks', K13 by rank and
+   q_offset exact), the blocks saved back from the ranks (rank 0 writes)
+   and restored here bitwise the original; K13 held to its plain version
+   and timed at the pipeline's, the gradients' (B 1, 512 queries, hymba's
+   heads, global and window 1024) and the restored prefill's shapes; the
+   phase within 90 s;
 15. holds K4, K5 and K3 in their bf16 builds (``bf16``: every operand
    bf16; ``bf16_ir``: bf16 vectors, x, the metric and D in f32) against
    their plain versions at n=10, E=1024 and 4096: fields value by value,
@@ -317,8 +345,12 @@ reference package ``repro``, and, in order:
    build's count in a measured run: ``_build.BUILD_LAUNCHES``, one K13
    row per served layer kind, whisper's encoder and cross-attention
    apart, four for the sharded hymba prefill's query slices (rank 0 at
-   q_offset 0, rank 1 at 2048 and 1024, each rank's launches), and one K13
-   and one K14 row for the 8-step training runs), the
+   q_offset 0, rank 1 at 2048 and 1024, each rank's launches), one for the
+   qwen2.5-14b pipeline (both stages' launches), two for the hymba
+   gradients (global and window 1024, both ranks' launches) and four for
+   the restored hymba prefill (rank 1 at q_offset 256), and one K13 and
+   one K14 row for
+   the 8-step training runs), the
    card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -5661,14 +5693,10 @@ def _build_targets():
             _build.SOURCES.items() for dtype in dtypes]
 
 
-def _spawn_world(backend, world, spec, tmp, *, flag="--dist-child",
-                 timeout=DIST_CHILD_TIMEOUT_S):
-    """Run ``world`` ranks of ``dist_child`` (``lm_child`` with ``flag``
-    ``--lm-child``); return their reports and arrays.  A rank that fails
-    or outlives ``timeout`` seconds fails the check (the others are
-    killed)."""
-    import numpy as np
-
+def _start_world(backend, world, spec, tmp, *, flag="--dist-child"):
+    """Start ``world`` ranks of ``dist_child`` (``lm_child`` with ``flag``
+    ``--lm-child``, ``lm_parallel_child`` with ``--lm-parallel-child``);
+    return their processes and output directory (:func:`_join_world`)."""
     out = pathlib.Path(tmp) / f"{backend}{world}"
     out.mkdir(parents=True, exist_ok=True)
     spec = dict(spec, backend=backend, world=world, out=str(out),
@@ -5679,6 +5707,16 @@ def _spawn_world(backend, world, spec, tmp, *, flag="--dist-child",
         [sys.executable, str(pathlib.Path(__file__).resolve()),
          flag, str(path), str(r)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    return procs, out
+
+
+def _join_world(procs, out, backend, *, timeout):
+    """Wait for a world's ranks; return their reports and arrays.  A rank
+    that fails or outlives ``timeout`` seconds fails the check (the others
+    are killed)."""
+    import numpy as np
+
+    world = len(procs)
     deadline = time.perf_counter() + timeout
     logs, ok = [], True
     for r, proc in enumerate(procs):
@@ -5702,6 +5740,14 @@ def _spawn_world(backend, world, spec, tmp, *, flag="--dist-child",
         with np.load(out / f"rank{r}.npz") as z:
             arrays.append({k: z[k] for k in z.files})
     return reports, arrays
+
+
+def _spawn_world(backend, world, spec, tmp, *, flag="--dist-child",
+                 timeout=DIST_CHILD_TIMEOUT_S):
+    """Run ``world`` ranks (:func:`_start_world`) and wait for them
+    (:func:`_join_world`)."""
+    return _join_world(*_start_world(backend, world, spec, tmp, flag=flag),
+                       backend, timeout=timeout)
 
 
 def phase_distributed(hist, pcg_envelope, smi_line):
@@ -6135,10 +6181,11 @@ def lm_child(spec_path: str, rank: str) -> int:
     return 0
 
 
-def _k13_shard_rows(bw_copy):
-    """K13 at the sharded prefill's slice shapes (batch 2, 2048 queries,
-    hymba's heads, bf16): rank 0's own-key calls and rank 1's offset
-    calls, each beside its plain version and SDPA with the same mask."""
+def _k13_slice_rows(bw_copy, B, S_loc, cases, what, heads=HYMBA_HEADS):
+    """K13 at sequence-sharded prefill slice shapes (batch ``B``, ``S_loc``
+    queries, ``heads`` (hymba's unless given), bf16), one row a causal case
+    ``(key, Skv, window, q_offset)``, each beside its plain version and
+    SDPA with the same mask."""
     import torch
     import torch.nn.functional as F
 
@@ -6146,14 +6193,9 @@ def _k13_shard_rows(bw_copy):
     from repro_torch.kernels import ref
 
     gen = torch.Generator("cuda").manual_seed(21)
-    Hq, Hkv, d = HYMBA_HEADS["Hq"], HYMBA_HEADS["Hkv"], HYMBA_HEADS["d"]
-    B, S_loc, halo = LM_SHARD_B, LM_SHARD_PROMPT // LM_SHARD_TP, 1024
+    Hq, Hkv, d = heads["Hq"], heads["Hkv"], heads["d"]
     rows = {}
-    for key, Skv, window, q_offset in (
-            ("rank 0 global", S_loc, None, 0),
-            ("rank 0 window 1024", S_loc, 1024, 0),
-            ("rank 1 global", 2 * S_loc, None, S_loc),
-            ("rank 1 window 1024", S_loc + halo, 1024, halo)):
+    for key, Skv, window, q_offset in cases:
         q, k, v = _k13_inputs(gen, B, Hq, Hkv, S_loc, Skv, d,
                               torch.bfloat16)
         kw = dict(causal=True, window=window, softcap=None,
@@ -6167,8 +6209,8 @@ def _k13_shard_rows(bw_copy):
         flops = 4 * d * B * Hq * _attn_pairs(S_loc, Skv, True, window,
                                              q_offset)
         rows[key] = _lm_row(
-            f"K13 d=64 {key} bf16 (hymba-1.5b over model 2: B={B}, Hq {Hq}, "
-            f"Hkv {Hkv}, Sq {S_loc}, Skv {Skv}, q_offset {q_offset})",
+            f"K13 d={d} {key} bf16 ({what}: B={B}, Hq {Hq}, Hkv {Hkv}, "
+            f"Sq {S_loc}, Skv {Skv}, q_offset {q_offset})",
             lambda: FA.flash_attention_cuda(q, k, v, **kw),
             lambda: ref.flash_attention_plain(q, k, v, **kw),
             nbytes, flops, BF16_TENSOR_PEAK, bw_copy, calls=3,
@@ -6176,12 +6218,24 @@ def _k13_shard_rows(bw_copy):
                 q, k, v, attn_mask=mask, scale=d ** -0.5, enable_gqa=True))
         o = FA.flash_attention_cuda(q, k, v, **kw)
         want = ref.flash_attention_plain(q, k, v, **kw)
-        _check_k13(f"hymba-1.5b {key} at the slice shape", o, want)
+        _check_k13(f"{what}, {key}, at the slice shape", o, want)
         rows[key]["max_abs_err"] = float((o.float() - want.float())
                                          .abs().max())
         del q, k, v, o, want, mask
         torch.cuda.empty_cache()
     return rows
+
+
+def _k13_shard_rows(bw_copy):
+    """K13 at the sharded prefill's slice shapes (batch 2, 2048 queries):
+    rank 0's own-key calls and rank 1's offset calls."""
+    S_loc, halo = LM_SHARD_PROMPT // LM_SHARD_TP, 1024
+    return _k13_slice_rows(bw_copy, LM_SHARD_B, S_loc, (
+        ("rank 0 global", S_loc, None, 0),
+        ("rank 0 window 1024", S_loc, 1024, 0),
+        ("rank 1 global", 2 * S_loc, None, S_loc),
+        ("rank 1 window 1024", S_loc + halo, 1024, halo)),
+        "hymba-1.5b over model 2")
 
 
 def phase_sharded_lm(bw_copy, smi_line):
@@ -6338,6 +6392,648 @@ def phase_sharded_lm(bw_copy, smi_line):
     return {"rows": rows, "launches": launches}
 
 
+# the parallel LM (docstring item 14d): one gloo world of two ranks sharing
+# the card.  The collective matmul at qwen2.5-14b's MLP width (4096 tokens,
+# 2048 a rank); a two-stage GPipe pipeline of qwen2.5-14b's decoder layers
+# (4 of 48, 2 a stage, f32 weights, bf16 compute; 4 microbatches of 1 x 512
+# tokens); psum_tree on hymba-1.5b's gradients (4 of 32 layers with the
+# first four's windows; one 512-token sequence a rank); that hymba's train
+# state restored onto (data 1, model 2), served (batch 2, a 512-token
+# prompt, 4 decode steps), saved back from the ranks and restored onto one
+# process.
+LMP = dict(cmm_tokens=4096, pipe_layers=4,
+           pipe_micro=4, pipe_tokens=512, hymba_layers=4, tree_tokens=512,
+           serve_batch=2, serve_prompt=512, serve_steps=4)
+LMP_TP = 2
+LMP_CMM_TOL = {"f32": 1e-5, "bf16": 2e-2}        # of max |y|
+LMP_PIPE_TOL = 1e-5                              # of max |y|
+# psum_tree, of max |sum| a leaf: tests/distributed_checks.py's bars
+LMP_TREE_TOL = {"none": 1e-6, "bf16": 2e-2, "int8": 5e-2}
+LMP_LOGIT_TOL = 1e-4                             # of max |logit|
+LMP_STEP = 7
+LMP_REPS = 3
+LMP_CHILD_TIMEOUT_S = 240
+LMP_PHASE_S = 90.0
+
+
+def _lmp_cfgs():
+    """qwen2.5-14b cut to the pipeline's layers and hymba-1.5b cut to its
+    first ``hymba_layers`` (their windows kept), at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get
+
+    qwen, hymba = get("qwen2.5-14b"), get("hymba-1.5b")
+    n = LMP["hymba_layers"]
+    return (dataclasses.replace(qwen, n_layers=LMP["pipe_layers"]),
+            dataclasses.replace(hymba, n_layers=n, windows=hymba.windows[:n]))
+
+
+def _lmp_time(fn):
+    """Median host ms of ``fn()`` to a synchronize over LMP_REPS runs after
+    a warm one, every rank starting each run together; and its result."""
+    import torch
+    import torch.distributed as dist
+
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(LMP_REPS):
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _lmp_hymba_state(cfg):
+    """hymba's train state: weights from seed 0, ``mu`` 1e-3 N(0, 1) from
+    seed 1, ``nu`` 1e-6 U(0, 1) from seed 2, step LMP_STEP; the parameters
+    not requiring grad (the serve path's)."""
+    import torch
+
+    from repro_torch.launch import steps as St
+
+    state = St.make_train_state(torch.Generator("cuda").manual_seed(0), cfg)
+    g_mu = torch.Generator("cuda").manual_seed(1)
+    g_nu = torch.Generator("cuda").manual_seed(2)
+    with torch.no_grad():
+        for k in state.mu:
+            state.mu[k].copy_(torch.randn(state.mu[k].shape, generator=g_mu,
+                                          device="cuda") * 1e-3)
+            state.nu[k].copy_(torch.rand(state.nu[k].shape, generator=g_nu,
+                                         device="cuda") * 1e-6)
+    state.step = LMP_STEP
+    state.params.requires_grad_(False)
+    return state
+
+
+def _lmp_pipe_layers(cfg, ids):
+    import torch
+    from torch import nn
+
+    from repro_torch.models import model as M
+
+    return nn.ModuleList(M.Layer(torch.Generator("cuda").manual_seed(50 + i),
+                                 cfg) for i in ids)
+
+
+def _lmp_micro(cfg):
+    """The pipeline's microbatches (M, 1, tokens, d_model) in the compute
+    dtype, from seed 60."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    x = torch.randn((LMP["pipe_micro"], 1, LMP["pipe_tokens"],
+                     cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(60))
+    return x.to(L.dtype_of(cfg.compute_dtype))
+
+
+def _lmp_stage_fn(cfg):
+    from repro_torch.models import model as M
+
+    return lambda layers, x: M._run_stack(x, layers, cfg,
+                                          positions=M._positions(x))
+
+
+def _lmp_cmm(cfg):
+    """The collective matmul over the model axis at ``cfg``'s MLP width, w
+    replicated and cut by columns, f32 and bf16, against torch.matmul of
+    the whole x (which every rank drew); ring and gather-then-matmul
+    times."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.overlap import collective_matmul_allgather
+    from repro_torch.launch.mesh import make_mesh_for
+
+    line = SH.axis_mesh(make_mesh_for(LMP_TP, model_parallel=LMP_TP),
+                        "model")
+    P, i = line.ndev, line.shard
+    m, d, f = LMP["cmm_tokens"], cfg.d_model, cfg.d_ff
+    m_loc, n = m // P, f // P
+    gen = torch.Generator("cuda").manual_seed(40)
+    x32 = torch.randn((m, d), generator=gen, device="cuda")
+    w32 = torch.randn((d, f), generator=gen, device="cuda") * d ** -0.5
+    rep = {}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x, w = x32.to(dt), w32.to(dt)
+        x_l = x[i * m_loc:(i + 1) * m_loc].contiguous()
+        for layout, w_l in (("replicated", w), ("column-sharded",
+                                                w[:, i * n:(i + 1) * n]
+                                                .contiguous())):
+            want = torch.matmul(x, w_l)
+            with SH.collective_log() as log:
+                ring_ms, y = _lmp_time(
+                    lambda: collective_matmul_allgather(x_l, w_l, line))
+            gather_ms, _ = _lmp_time(
+                lambda: torch.matmul(SH.all_gather(x_l, line), w_l))
+            scale = want.float().abs().max()
+            rep[f"{layout} {tag}"] = dict(
+                ring_ms=ring_ms, gather_ms=gather_ms,
+                err=float((y.float() - want.float()).abs().max() / scale),
+                finite=bool(torch.isfinite(y).all()),
+                shape=list(y.shape), dtype=str(y.dtype),
+                counts={k: v // (1 + LMP_REPS) for k, v in log.counts.items()},
+                bytes={k: v // (1 + LMP_REPS) for k, v in log.bytes.items()},
+                host_staged=log.host_staged // (1 + LMP_REPS))
+            del want, y
+    return rep
+
+
+def _lmp_pipeline(cfg):
+    """This rank's stage of the pipeline over the world (a warm run, then
+    the measured one); its report and its (M, 1, tokens, d) buffer in
+    f32."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.kernels import _build
+
+    mesh = SH.solver_mesh()
+    per = cfg.n_layers // mesh.ndev
+    layers = _lmp_pipe_layers(cfg, range(mesh.shard * per,
+                                         (mesh.shard + 1) * per))
+    micro = _lmp_micro(cfg)
+
+    def run():
+        return pipeline_apply(layers, micro, _lmp_stage_fn(cfg), mesh)
+
+    with torch.inference_mode(), _forbid_plain_lm():
+        run()
+        torch.cuda.synchronize()
+        dist.barrier()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with SH.collective_log() as log:
+            out = run()
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.BUILD_LAUNCHES)
+    return (dict(stage=mesh.shard, ms=ms, launches=launches,
+                 counts=log.counts, bytes=log.bytes,
+                 host_staged=log.host_staged),
+            out.float().cpu().numpy())
+
+
+def _lmp_tree(cfg):
+    """psum_tree over the world of this rank's gradients (one sequence of
+    ``tree_tokens`` tokens from seed 70 + rank) with each wire format,
+    against the sum of both ranks' trees computed here in one process."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.compression import psum_tree
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+
+    mesh = SH.solver_mesh()
+    model = M.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    model.requires_grad_(True)
+    named = dict(model.named_parameters())
+
+    def grads(seed):
+        tokens = torch.randint(
+            0, cfg.vocab, (1, LMP["tree_tokens"] + 1), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(seed))
+        loss = M.loss_fn(model, cfg, {"tokens": tokens})
+        return dict(zip(named, torch.autograd.grad(loss,
+                                                   list(named.values()))))
+
+    _build.reset_launches()
+    with _forbid_plain_lm():
+        trees = [grads(70 + r) for r in range(mesh.ndev)]
+    rep = {"launches": dict(_build.BUILD_LAUNCHES), "leaves": len(named),
+           "numel": sum(p.numel() for p in named.values())}
+    own = trees[mesh.shard]
+    want = {k: sum(t[k] for t in trees) for k in named}
+    del trees, model, named
+    for c in ("none", "bf16", "int8"):
+        gen = (torch.Generator("cuda").manual_seed(80 + mesh.shard)
+               if c == "int8" else None)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with SH.collective_log() as log:
+            got = psum_tree(own, mesh, compression=c, generator=gen)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        worst, leaf, finite = 0.0, None, True
+        for k, t in got.items():
+            finite &= bool(torch.isfinite(t).all())
+            scale = float(want[k].abs().max())
+            e = float((t - want[k]).abs().max()) / (scale or 1.0)
+            if e >= worst:
+                worst, leaf = e, k
+        rep[c] = dict(ms=ms, err=worst, leaf=leaf, finite=finite,
+                      counts=log.counts, bytes=log.bytes,
+                      host_staged=log.host_staged)
+        del got
+    return rep
+
+
+def _lmp_restore(cfg, ckpt_in, ckpt_out):
+    """hymba's checkpoint (once the parent has written it) restored onto
+    (data 1, model 2) by
+    param_specs(serve=True), each block held bitwise to shard_block of the
+    state drawn here from the same seeds; the parameters gathered whole
+    (bitwise) and served over the mesh; the blocks saved back (rank 0
+    writes).  Returns the report and the logits."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import model as M
+
+    mesh = make_mesh_for(LMP_TP, model_parallel=LMP_TP)
+    orig = _lmp_hymba_state(cfg)
+    tree = orig.tree()
+    mgr = CheckpointManager(ckpt_in)
+    deadline = time.perf_counter() + LMP_CHILD_TIMEOUT_S
+    while mgr.latest_step() != LMP_STEP:       # the parent writes it
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"no step {LMP_STEP} under {ckpt_in}")
+        time.sleep(0.1)
+    specs = M.param_specs(cfg, orig.params, mesh, serve=True)
+    by_name = {k: SH.NamedSharding(mesh, sp) for k, sp in specs.items()}
+    shardings = {**by_name, "mu": by_name, "nu": by_name}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, blocks = mgr.restore(tree, shardings=shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    leaves = [(k, specs[k], tree[k], blocks[k]) for k in specs]
+    for part in ("mu", "nu"):
+        leaves += [(f"{part}/{k}", specs[k], tree[part][k], blocks[part][k])
+                   for k in specs]
+    bad = [k for k, sp, full, blk in leaves
+           if not _same_bits(blk, SH.shard_block(full, sp, mesh))]
+    cut = sum(blk.shape != full.shape for _, _, full, blk in leaves)
+    block_bytes = sum(blk.numel() * blk.element_size()
+                      for _, _, _, blk in leaves)
+    with SH.collective_log() as log:
+        whole = {k: SH.unshard(blocks[k], specs[k], mesh) for k in specs}
+    bad_whole = [k for k in specs if not _same_bits(whole[k], tree[k])]
+    model = M.init_params(torch.Generator("cuda").manual_seed(3), cfg)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(whole[k])
+    del whole
+    prompts, steps = _lm_shard_inputs(cfg, LMP["serve_batch"],
+                                      LMP["serve_prompt"], LMP["serve_steps"])
+    with SH.use_mesh(mesh), _forbid_plain_lm():
+        run = _lm_shard_serve(cfg, model, prompts, steps)
+    del model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt_out).save(step, blocks, shardings=shardings)
+    save_s = time.perf_counter() - t0
+    rep = dict(step=step, restore_s=restore_s, save_s=save_s,
+               leaves=len(leaves), cut=int(cut), block_bytes=block_bytes,
+               bad=bad[:5], bad_whole=bad_whole[:5],
+               gather_counts=log.counts, gather_bytes=log.bytes,
+               cache_slots=run["cache_slots"])
+    for part in ("prefill", "decode"):
+        plog = run[f"{part}_log"]
+        rep[part] = dict(ms=run[f"{part}_ms"],
+                         launches=run[f"{part}_launches"],
+                         counts=plog.counts, bytes=plog.bytes,
+                         host_staged=plog.host_staged)
+    return rep, run["logits"].cpu().numpy()
+
+
+def lm_parallel_child(spec_path: str, rank: str) -> int:
+    """One rank of phase_lm_parallel's world: the collective matmul, its
+    pipeline stage, psum_tree and the restore, in that order; reports to
+    ``<out>/rank<r>.json``, arrays to ``.npz``.  On the card it loads the
+    libraries the build phase made and builds none; any failure ends it
+    with an error."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    rank = int(rank)
+    out = pathlib.Path(spec["out"])
+    missing = [str(p) for p in _build_targets() if not p.exists()]
+    if missing:
+        print(f"lm-parallel child: libraries not built: {missing[:3]}",
+              file=sys.stderr)
+        return 3
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{spec['init']}", rank=rank,
+        world_size=spec["world"],
+        timeout=datetime.timedelta(seconds=DIST_INIT_TIMEOUT_S))
+    try:
+        qwen, hymba = _lmp_cfgs()
+        report = {"rank": rank}
+        arrays = {}
+        t0 = time.perf_counter()
+        report["cmm"] = _lmp_cmm(qwen)
+        report["pipe"], arrays["pipe"] = _lmp_pipeline(qwen)
+        torch.cuda.empty_cache()
+        report["tree"] = _lmp_tree(hymba)
+        torch.cuda.empty_cache()
+        report["restore"], arrays["logits"] = _lmp_restore(
+            hymba, spec["ckpt_in"], spec["ckpt_out"])
+        report["seconds"] = time.perf_counter() - t0
+        np.savez(out / f"rank{rank}.npz", **arrays)
+        (out / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _lmp_k13(cfg) -> str:
+    """K13's build name at ``cfg``'s compute dtype and head size."""
+    tag = "bf16" if cfg.compute_dtype == "bfloat16" else "f32"
+    return f"flash_attn_{tag}_d{cfg.hd}"
+
+
+def _lmp_flat(tree) -> dict:
+    """A state tree's leaves by ``name`` and ``part/name``."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update({f"{k}/{j}": t for j, t in v.items()})
+        else:
+            flat[k] = v
+    return flat
+
+
+def _lmp_windows(cfg) -> list:
+    """Each layer's attention window (None for a global layer)."""
+    pattern = cfg.window_pattern()
+    return [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+
+
+def _lmp_grad_key(window) -> str:
+    """The K13 row of the gradients' calls at ``window``."""
+    return "gradients " + ("global" if window is None
+                           else f"window {window}")
+
+
+def _lmp_check_ranks(qwen, hymba, reports):
+    """The ranks' reports against the phase's bars, counts and bytes."""
+    M_, T, d = LMP["pipe_micro"], LMP["pipe_tokens"], qwen.d_model
+    per = qwen.n_layers // LMP_TP
+    S_loc = LMP["serve_prompt"] // LMP_TP
+    act = T * d * (2 if qwen.compute_dtype == "bfloat16" else 4)
+    ticks = M_ + LMP_TP - 1
+    windows = _lmp_windows(hymba)
+    # the gradients: both sequences' forward, and remat's recompute
+    want_tree = {}
+    for w in windows:
+        b = _lmp_k13(hymba) + ("" if w is None else f"_window{w}")
+        want_tree[b] = (want_tree.get(b, 0)
+                        + LMP_TP * (2 if hymba.remat else 1))
+    for rep in reports:
+        r = rep["rank"]
+        for key, c in rep["cmm"].items():
+            tag = key.split()[-1]
+            block = (LMP["cmm_tokens"] // LMP_TP) * qwen.d_model * (
+                4 if tag == "f32" else 2)
+            check(c["finite"] and c["err"] <= LMP_CMM_TOL[tag],
+                  f"rank {r}: collective matmul, w {key}, within "
+                  f"{LMP_CMM_TOL[tag]:g} of max |y| of torch.matmul of the "
+                  f"gathered x ({c['err']:.2e})")
+            check(c["counts"] == {"ppermute": LMP_TP - 1}
+                  and c["bytes"] == {"ppermute": 2 * block * (LMP_TP - 1)},
+                  f"rank {r}: collective matmul, w {key}: "
+                  f"{c['counts']} {c['bytes']} (one ppermute of a block "
+                  f"each way)")
+        pipe = rep["pipe"]
+        check(pipe["launches"] == {_lmp_k13(qwen): per * M_},
+              f"rank {r}: pipeline stage {pipe['stage']}: K13 "
+              f"{pipe['launches']} ({per} layers x {M_} microbatches)")
+        check(pipe["counts"] == {"ppermute": ticks}
+              and pipe["bytes"] == {"ppermute": ticks * act},
+              f"rank {r}: pipeline: {pipe['counts']} {pipe['bytes']} (one "
+              f"ppermute a tick, {ticks} ticks of {act} bytes)")
+        tree = rep["tree"]
+        check(tree["launches"] == want_tree,
+              f"rank {r}: the gradients' K13 launches {tree['launches']} "
+              f"(want {want_tree}: {LMP_TP} sequences x {hymba.n_layers} "
+              f"layers x forward{' and remat' if hymba.remat else ''})")
+        for c, tol in LMP_TREE_TOL.items():
+            t = tree[c]
+            check(t["finite"] and t["err"] <= tol,
+                  f"rank {r}: psum_tree {c}: every leaf within {tol:g} of "
+                  f"max |sum| of the one-process sum (worst {t['err']:.2e}, "
+                  f"{t['leaf']})")
+        res = rep["restore"]
+        check(res["step"] == LMP_STEP and not res["bad"]
+              and not res["bad_whole"] and res["cut"] > 0,
+              f"rank {r}: restore onto (data 1, model {LMP_TP}): "
+              f"{res['cut']} of {res['leaves']} leaves cut, every block "
+              f"bitwise shard_block of the whole leaf (off: {res['bad']}), "
+              f"the parameters gathered whole bitwise (off: "
+              f"{res['bad_whole']})")
+        suffix = "" if r == 0 else f"_qoffset{S_loc}"
+        want_l = {}
+        for w in windows:
+            b = (_lmp_k13(hymba) + ("" if w is None else f"_window{w}")
+                 + suffix)
+            want_l[b] = want_l.get(b, 0) + 1
+        check(res["prefill"]["launches"] == want_l
+              and res["decode"]["launches"] == {},
+              f"rank {r}: the restored prefill's K13 "
+              f"{res['prefill']['launches']} (want {want_l}), none in "
+              "decode")
+        check(res["cache_slots"] == (LMP["serve_prompt"]
+                                     + LMP["serve_steps"]) // LMP_TP,
+              f"rank {r}: {res['cache_slots']} cache slots a layer")
+
+
+def phase_lm_parallel(bw_copy, smi_line):
+    """The collective matmul, a GPipe pipeline, psum_tree and the restore
+    onto another mesh in one world of two gloo ranks sharing the card, each
+    held to one process (docstring item 14d).  Times are of processes that
+    share one card: not a scaling figure."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+
+    qwen, hymba = _lmp_cfgs()
+    B, P, n = LMP["serve_batch"], LMP["serve_prompt"], LMP["serve_steps"]
+    print(f"== parallel LM ({smi_line}; {LMP_TP} gloo ranks sharing one "
+          f"card, not a scaling figure): the collective matmul at "
+          f"{qwen.name}'s MLP width ({LMP['cmm_tokens']} tokens, d_model "
+          f"{qwen.d_model}, d_ff {qwen.d_ff}); a {LMP_TP}-stage pipeline of "
+          f"{qwen.n_layers} of its layers ({LMP['pipe_micro']} "
+          f"microbatches of 1 x {LMP['pipe_tokens']}); psum_tree of "
+          f"{hymba.name}'s gradients ({hymba.n_layers} layers, "
+          f"{LMP['tree_tokens']} tokens a rank); its train state restored "
+          f"onto (data 1, model {LMP_TP}), served (batch {B}, prompt {P}, "
+          f"{n} decode steps), saved back and restored onto one process",
+          flush=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lm-parallel-") as tmp:
+        ckpt_in, ckpt_out = pathlib.Path(tmp) / "in", pathlib.Path(tmp) / "out"
+        # the ranks start (imports, CUDA, the collective matmul, ...) while
+        # this process makes the references and the checkpoint they restore
+        procs, out = _start_world(
+            "gloo", LMP_TP, {"ckpt_in": str(ckpt_in),
+                             "ckpt_out": str(ckpt_out)}, tmp,
+            flag="--lm-parallel-child")
+        try:
+            layers = _lmp_pipe_layers(qwen, range(qwen.n_layers))
+            micro = _lmp_micro(qwen)
+            with torch.inference_mode(), _forbid_plain_lm():
+                pipe_want = torch.stack([_lmp_stage_fn(qwen)(layers, micro[m])
+                                         for m in range(micro.shape[0])])
+            pipe_want = pipe_want.float().cpu().numpy()
+            del layers, micro
+            state = _lmp_hymba_state(hymba)
+            tree = state.tree()
+            inputs = _lm_shard_inputs(hymba, B, P, n)
+            with _forbid_plain_lm():
+                one = _lm_shard_serve(hymba, state.params, *inputs)
+                with _split_softmax_decode(LMP_TP):
+                    split = _lm_shard_serve(hymba, state.params, *inputs)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            CheckpointManager(ckpt_in).save(LMP_STEP, tree)
+            save_s = time.perf_counter() - t0
+            ref_s = time.perf_counter() - t_phase
+            reports, arrays = _join_world(procs, out, "gloo",
+                                          timeout=LMP_CHILD_TIMEOUT_S)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        world_s = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        step, back = CheckpointManager(ckpt_out).restore(tree)
+        restore_s = time.perf_counter() - t0
+        back = _lmp_flat(back)
+        off = [k for k, v in _lmp_flat(tree).items()
+               if not (_same_bits(back[k], v) if isinstance(v, torch.Tensor)
+                       else back[k] == v)]
+    for rep in reports:
+        r = rep["rank"]
+        for key, c in rep["cmm"].items():
+            print(f"  rank {r}: collective matmul, w {key}: ring "
+                  f"{c['ring_ms']:.2f} ms, gather then matmul "
+                  f"{c['gather_ms']:.2f} ms (host clocks, median of "
+                  f"{LMP_REPS}), error {c['err']:.2e} of max |y|; "
+                  f"{c['counts']} {c['bytes']}, {c['host_staged']} bytes "
+                  "staged", flush=True)
+        pipe, tr, res = rep["pipe"], rep["tree"], rep["restore"]
+        print(f"  rank {r}: pipeline stage {pipe['stage']}: "
+              f"{pipe['ms']:.1f} ms; K13 {pipe['launches']}; "
+              f"{pipe['counts']} {pipe['bytes']}, {pipe['host_staged']} "
+              f"bytes staged", flush=True)
+        print(f"  rank {r}: psum_tree of {tr['leaves']} leaves "
+              f"({tr['numel']} values; the gradients' K13 "
+              f"{tr['launches']}): " + "; ".join(
+                  f"{c} {tr[c]['ms']:.1f} ms, error {tr[c]['err']:.2e} "
+                  f"({tr[c]['leaf']}), {tr[c]['counts']} {tr[c]['bytes']}, "
+                  f"{tr[c]['host_staged']} bytes staged"
+                  for c in LMP_TREE_TOL), flush=True)
+        print(f"  rank {r}: restore {res['restore_s']:.2f} s ({res['cut']} "
+              f"of {res['leaves']} leaves cut, {res['block_bytes']} bytes "
+              f"held); the parameters gathered whole: "
+              f"{res['gather_counts']} {res['gather_bytes']}; prefill "
+              f"{res['prefill']['ms']:.1f} ms, K13 "
+              f"{res['prefill']['launches']}, {res['prefill']['counts']}; "
+              f"decode {res['decode']['ms']:.2f} ms a step, "
+              f"{res['decode']['counts']}; save back {res['save_s']:.2f} s",
+              flush=True)
+    _lmp_check_ranks(qwen, hymba, reports)
+    want = split["logits"].cpu().numpy()
+    plain = one["logits"].cpu().numpy()
+    scale = float(np.abs(want).max())
+    logits = [a["logits"] for a in arrays]
+
+    def dist(lg, base):
+        return [float(np.abs(lg[:, t] - base[:, t]).max()) / scale
+                for t in range(n + 1)]
+
+    errs = [dist(lg, want) for lg in logits]
+    print(f"  restored logits, max |diff| / max |logit| (max |logit| "
+          f"{scale:.3f}) by step, prefill first: rank 0 from the "
+          f"split-softmax process "
+          f"{', '.join(f'{e:.2e}' for e in errs[0])}; not held: from the "
+          f"plain process "
+          f"{', '.join(f'{e:.2e}' for e in dist(logits[0], plain))}",
+          flush=True)
+    check(all(np.isfinite(lg).all() and lg.shape == want.shape
+              for lg in logits) and max(max(e) for e in errs)
+          <= LMP_LOGIT_TOL,
+          f"restored {hymba.name}: the prefill's and {n} decode steps' "
+          f"logits within {LMP_LOGIT_TOL:g} of max |logit| of one process "
+          f"(decode softmax split over the cache's {LMP_TP} blocks) on "
+          f"every rank (worst {max(max(e) for e in errs):.2e})")
+    check(all(np.array_equal(lg, logits[0]) for lg in logits[1:]),
+          f"restored {hymba.name}: every rank's logits bitwise the same")
+    last = arrays[-1]["pipe"]
+    pipe_bitwise = _same_bits_np(last, pipe_want)
+    pipe_err = float(np.abs(last - pipe_want).max()
+                     / np.abs(pipe_want).max())
+    print(f"  pipeline: the last stage's output "
+          f"{'bitwise' if pipe_bitwise else 'not bitwise'} one process's "
+          f"_run_stack over the {qwen.n_layers} layers (error "
+          f"{pipe_err:.2e} of max |y|)", flush=True)
+    check(np.isfinite(last).all() and (pipe_bitwise
+                                       or pipe_err <= LMP_PIPE_TOL),
+          f"pipeline of {qwen.name}: the last stage's microbatches bitwise, "
+          f"or within {LMP_PIPE_TOL:g} of max |y|, one process's "
+          f"({pipe_err:.2e})")
+    check(step == LMP_STEP and not off,
+          f"the checkpoint saved back from the ranks restores onto one "
+          f"process bitwise the original state (off: {off[:5]}; save "
+          f"{save_s:.2f} s, restore {restore_s:.2f} s)")
+    S_loc, T = P // LMP_TP, LMP["tree_tokens"]
+    rows = _k13_slice_rows(bw_copy, B, S_loc, (
+        ("rank 0 global", S_loc, None, 0),
+        ("rank 0 window 1024", S_loc, 1024, 0),
+        ("rank 1 global", P, None, S_loc),
+        ("rank 1 window 1024", P, 1024, S_loc)),
+        f"{hymba.name} restored onto model {LMP_TP}")
+    # the gradients' calls: one sequence, its own keys, each window of the
+    # layers the tree runs
+    rows.update(_k13_slice_rows(bw_copy, 1, T, tuple(
+        (_lmp_grad_key(w), T, w, 0)
+        for w in dict.fromkeys(_lmp_windows(hymba))),
+        f"{hymba.name} gradients"))
+    rows.update(_k13_slice_rows(
+        bw_copy, 1, LMP["pipe_tokens"],
+        (("pipeline", LMP["pipe_tokens"], None, 0),),
+        f"{qwen.name} pipeline stage",
+        heads=dict(Hq=qwen.n_heads, Hkv=qwen.n_kv_heads, d=qwen.hd)))
+    seconds = time.perf_counter() - t_phase
+    print(f"  parallel LM phase: {seconds:.1f} s; the world's ranks ended "
+          f"at {world_s:.1f} s (rank 0's checks {reports[0]['seconds']:.1f} "
+          f"s), the references and the checkpoint made meanwhile by "
+          f"{ref_s:.1f} s ({smi_line})", flush=True)
+    check(seconds <= LMP_PHASE_S,
+          f"parallel LM phase within {LMP_PHASE_S:g} s ({seconds:.1f} s)")
+    launches = {"pipeline": sum(sum(rep["pipe"]["launches"].values())
+                                for rep in reports)}
+    for rep in reports:
+        for build, c in rep["restore"]["prefill"]["launches"].items():
+            launches[(rep["rank"], build)] = c
+        for build, c in rep["tree"]["launches"].items():
+            launches[("gradients", build)] = (
+                launches.get(("gradients", build), 0) + c)
+    return {"rows": rows, "launches": launches, "q_offset": S_loc,
+            "grad_windows": list(dict.fromkeys(_lmp_windows(hymba)))}
+
+
 def _same_bits_np(a, b) -> bool:
     import numpy as np
 
@@ -6360,6 +7056,8 @@ def main() -> int:
         return dist_child(*sys.argv[2:4])
     if sys.argv[1:2] == ["--lm-child"]:
         return lm_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--lm-parallel-child"]:
+        return lm_parallel_child(*sys.argv[2:4])
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from the root of a checkout", file=sys.stderr)
@@ -6415,6 +7113,7 @@ def _run_phases(t_start) -> int:
                                           smi_line)
         phase_drift(smi_line)
         lm_shard = phase_sharded_lm(bw, smi_line)
+        lm_par = phase_lm_parallel(bw, smi_line)
         err.update(phase_bf16_parity())
         err.update(phase_bf16_sstep_pcg_parity())
         err.update(phase_bf16_k1_k2_parity())
@@ -6652,6 +7351,37 @@ def _run_phases(t_start) -> int:
             + f"@hymba-1.5b-model2-rank{shard}", "route": "cuda",
             "source": flash[0], "replaces": flash[1],
             "launches": lm_shard["launches"].get((shard, build), 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # the parallel LM phase's K13 calls: both pipeline stages' launches at
+    # qwen2.5-14b's layer shape, the hymba gradients' (both ranks, forward
+    # and remat) by window, and the restored hymba prefill's by rank (rank
+    # 1's slice at q_offset 256), times at those shapes
+    q = lm_par["q_offset"]
+    for key, name, launches in (
+            ("pipeline", "flash_attn_d128@qwen2.5-14b-pipeline",
+             lm_par["launches"]["pipeline"]),
+            *((_lmp_grad_key(w), f"flash_attn_d64{suffix}"
+               "@hymba-1.5b-gradients",
+               lm_par["launches"].get(("gradients",
+                                       f"flash_attn_bf16_d64{suffix}"), 0))
+              for w in lm_par["grad_windows"]
+              for suffix in ("" if w is None else f"_window{w}",)),
+            *((key, build.replace("flash_attn_bf16", "flash_attn")
+               + f"@hymba-1.5b-restored-model2-rank{shard}",
+               lm_par["launches"].get((shard, build), 0))
+              for key, build, shard in (
+                  ("rank 0 global", "flash_attn_bf16_d64", 0),
+                  ("rank 0 window 1024", "flash_attn_bf16_d64_window1024",
+                   0),
+                  ("rank 1 global", f"flash_attn_bf16_d64_qoffset{q}", 1),
+                  ("rank 1 window 1024",
+                   f"flash_attn_bf16_d64_window1024_qoffset{q}", 1)))):
+        row = lm_par["rows"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": flash[0],
+            "replaces": flash[1], "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

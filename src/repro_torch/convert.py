@@ -203,17 +203,13 @@ def shard_params(params, specs: dict, mesh):
 
     ``specs`` maps parameter names to specs (``distributed/sharding.P``:
     each entry an axis name, a tuple of axis names or None); ``mesh`` is
-    the ``DeviceMesh``, whose ``get_coordinate()`` places this process.  A
-    dimension whose entry names axes is cut into as many equal blocks as
-    those axes have ranks together and keeps block ``i``, ``i`` this rank's
-    position on them in the order named (the reference's layout of a
-    ``NamedSharding``); axes the mesh lacks are ignored.  A cut parameter
-    is replaced by a contiguous copy of its block, so the full one can be
-    freed."""
-    from repro_torch.distributed.sharding import mesh_axes
+    the ``DeviceMesh``, whose ``get_coordinate()`` places this process.
+    Each parameter keeps ``sharding.shard_block`` of itself (the reference's
+    layout of a ``NamedSharding``; axes the mesh lacks are ignored).  A cut
+    parameter is replaced by a contiguous copy of its block, so the full
+    one can be freed."""
+    from repro_torch.distributed.sharding import shard_block
 
-    sizes = mesh_axes(mesh)
-    coord = dict(zip(sizes, mesh.get_coordinate()))
     named = dict(params.named_parameters())
     unknown = sorted(set(specs) - set(named))
     if unknown:
@@ -221,21 +217,10 @@ def shard_params(params, specs: dict, mesh):
                          f"{unknown[:5]}")
     for name, spec in specs.items():
         t = named[name]
-        block = t
-        for dim, entry in enumerate(spec):
-            axes = [a for a in ((entry,) if isinstance(entry, str)
-                                else entry or ()) if a in sizes]
-            parts, i = 1, 0
-            for a in axes:
-                parts, i = parts * sizes[a], i * sizes[a] + coord[a]
-            if parts == 1:
-                continue
-            if t.shape[dim] % parts:
-                raise ValueError(f"{name}: dimension {dim} of "
-                                 f"{tuple(t.shape)} is not a multiple of "
-                                 f"{parts} shards")
-            m = t.shape[dim] // parts
-            block = block.narrow(dim, i * m, m)
+        try:
+            block = shard_block(t, spec, mesh)
+        except ValueError as exc:
+            raise ValueError(f"{name}: {exc}") from None
         if block is not t:
             module, _, attr = name.rpartition(".")
             setattr(params.get_submodule(module), attr, torch.nn.Parameter(

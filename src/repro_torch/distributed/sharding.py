@@ -42,12 +42,17 @@ split the element grid into contiguous z-slabs, one per process, over a
 * :func:`psum` — ``all_reduce`` SUM of one stacked buffer;
 * :func:`all_gather` — the answer, once, after a solve's loop.
 
-The LM branches use those three (an all-gather along any dimension) and two
-more: :func:`ppermute_shift` (a block to the next shard only, one
-ppermute: the attention halo) and :func:`pmax` (``all_reduce`` MAX: the
-context-parallel softmax's maximum).  On a mesh axis that is not the
-whole world the reductions and the gather run over that axis's process
-group (``SolverMesh.group``).
+The LM branches use those three (an all-gather along any dimension) and
+three more: :func:`ppermute_shift` (a block to the next shard only, one
+ppermute: the attention halo and the pipeline's boundary activation),
+:func:`ppermute_ring` (a block to the next shard around the ring, started
+here and waited for by the caller: the collective matmul) and :func:`pmax`
+(``all_reduce`` MAX: the context-parallel softmax's maximum).  On a mesh
+axis that is not the whole world the reductions and the gather run over
+that axis's process group (``SolverMesh.group``).  :func:`shard_block` and
+:func:`unshard` cut a whole tensor to a rank's block of a spec and gather
+it back (``convert.shard_params``, the checkpoint's restore onto another
+mesh and its sharded save).
 
 Every call adds one to its kind in :data:`COLLECTIVES` and its bytes to
 :data:`COLLECTIVE_BYTES`, which ``obs/metrics.measure_collectives`` reads:
@@ -77,11 +82,12 @@ import numpy as np
 import torch
 
 __all__ = ["SolverMesh", "solver_mesh", "shard_leading", "ppermute_pair",
-           "ppermute_shift", "psum", "pmax", "all_gather", "COLLECTIVES",
-           "COLLECTIVE_BYTES", "HOST_STAGED_BYTES", "reset_collectives",
-           "collective_log", "P", "AbstractMesh", "use_mesh",
-           "current_mesh", "mesh_axes", "axis_mesh", "constrain",
-           "AxisRules", "RULES", "set_rules"]
+           "ppermute_shift", "ppermute_ring", "psum", "pmax", "all_gather",
+           "COLLECTIVES", "COLLECTIVE_BYTES", "HOST_STAGED_BYTES",
+           "reset_collectives", "collective_log", "P", "AbstractMesh",
+           "NamedSharding", "use_mesh", "current_mesh", "mesh_axes",
+           "axis_mesh", "shard_block", "unshard", "constrain", "AxisRules",
+           "RULES", "set_rules"]
 
 # Calls and bytes by kind since the last reset_collectives().
 COLLECTIVES = {"ppermute": 0, "psum": 0, "pmax": 0, "all_gather": 0}
@@ -345,6 +351,36 @@ def ppermute_shift(x: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
     return got if recv is None else _back(recv, x.device, mesh)
 
 
+def ppermute_ring(x: torch.Tensor, mesh: SolverMesh):
+    """Start sending ``x`` to the next shard around the ring (the last
+    shard's next is the first) and receiving the previous shard's block,
+    both in one ``dist.batch_isend_irecv`` (at two shards the next and
+    the previous shard are one peer); return a function that waits for
+    both and returns the received block on ``x``'s device.  The caller
+    works between the two calls.  One ppermute (the reference's
+    permutation ``[(i, (i + 1) % P)]``); its bytes are those sent plus
+    those received.  On a one-shard mesh the block comes back to itself."""
+    import torch.distributed as dist
+
+    COLLECTIVES["ppermute"] += 1
+    if mesh.ndev == 1:
+        return lambda: x
+    buf = _host(x, mesh)
+    recv = torch.empty_like(buf)
+    nxt = mesh.order[(mesh.shard + 1) % mesh.ndev]
+    prev = mesh.order[(mesh.shard - 1) % mesh.ndev]
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, buf, nxt),
+                                   dist.P2POp(dist.irecv, recv, prev)])
+    COLLECTIVE_BYTES["ppermute"] += 2 * buf.numel() * buf.element_size()
+
+    def wait() -> torch.Tensor:
+        for req in reqs:
+            req.wait()
+        return _back(recv, x.device, mesh)
+
+    return wait
+
+
 # ---------------------------------------------------------------------------
 # the LM half: specs, the active mesh, constrain, the rules
 # ---------------------------------------------------------------------------
@@ -373,6 +409,18 @@ class AbstractMesh:
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.axis_sizes))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's layout on a mesh, the counterpart of
+    ``jax.sharding.NamedSharding``: ``mesh`` (a ``DeviceMesh``, or a stand-in
+    with ``axis_names``, ``shape`` and ``get_coordinate``) and ``spec`` (a
+    :class:`P`).  The rank-local tensor of a leaf so laid out is
+    :func:`shard_block` of the whole leaf."""
+
+    mesh: object
+    spec: P
 
 
 _ACTIVE: list = []
@@ -425,6 +473,56 @@ def axis_mesh(mesh, axis: str) -> SolverMesh:
         mesh.get_group(axis)
     return SolverMesh(order=order, shard=order.index(me),
                       backend=str(dist.get_backend()), group=group)
+
+
+def _cuts(spec, mesh) -> list:
+    """``(dim, parts, axes)`` for each dimension ``spec`` cuts on ``mesh``:
+    ``axes`` the mesh axes of more than one rank that its entry names, in
+    the order named (axes the mesh lacks are ignored), ``parts`` the
+    product of their sizes."""
+    sizes = mesh_axes(mesh)
+    cuts = []
+    for dim, entry in enumerate(spec):
+        axes = [a for a in ((entry,) if isinstance(entry, str) else entry or ())
+                if sizes.get(a, 1) > 1]
+        if axes:
+            cuts.append((dim, int(np.prod([sizes[a] for a in axes])), axes))
+    return cuts
+
+
+def shard_block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` laid out by ``spec`` on
+    ``mesh`` (``mesh.get_coordinate()`` places the rank): a dimension whose
+    entry names axes is cut into as many equal blocks as those axes have
+    ranks together and keeps block ``i``, ``i`` this rank's position on them
+    in the order named (the layout of the reference's ``NamedSharding``).
+    Returns a view of ``t`` (``t`` itself where nothing is cut)."""
+    cuts = _cuts(spec, mesh)
+    if not cuts:
+        return t
+    sizes = mesh_axes(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    for dim, parts, axes in cuts:
+        if t.shape[dim] % parts:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} is not a "
+                             f"multiple of {parts} shards")
+        i = 0
+        for a in axes:
+            i = i * sizes[a] + coord[a]
+        m = t.shape[dim] // parts
+        t = t.narrow(dim, i * m, m)
+    return t
+
+
+def unshard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's :func:`shard_block`:
+    one :func:`all_gather` along each cut dimension for each axis that cuts
+    it, over that axis's line of ``mesh`` (a ``DeviceMesh``), the last
+    named axis first.  ``t`` itself where nothing is cut."""
+    for dim, _, axes in _cuts(spec, mesh):
+        for a in reversed(axes):
+            t = all_gather(t.contiguous(), axis_mesh(mesh, a), dim=dim)
+    return t
 
 
 def _filter(spec, names) -> P:

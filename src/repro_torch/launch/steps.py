@@ -15,8 +15,14 @@ parameters require grad (a train state's) builds no graph there.
 ``launch/serve.serve`` also turns that ``requires_grad`` off for its run,
 so such a model serves bitwise as one that does not.  PyTorch runs
 eagerly, so nothing here is compiled (the reference jits these closures).
-The reference's pinning of the gradients to the parameters' mesh sharding
-waits for ROADMAP.md queue 1 item 14.
+Under an active mesh (``distributed.sharding.use_mesh``) the step pins each
+gradient to its parameter's layout before AdamW, as the reference does:
+the port's parameters are laid out by ``models.model.run_specs`` (the
+reference pins to its ``param_specs``, the layout its GSPMD parameters
+have), so the two cannot disagree.  The port's gradients are plain
+tensors, which ``constrain`` leaves as they are: the pin is an identity
+kept for parity, and the state is bitwise that of the same step without a
+mesh.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.sharding import constrain, current_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
@@ -99,6 +106,8 @@ def make_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
     if grad_compression not in ("none", "bf16", "int8"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
 
+    pin = [None, None]          # the last mesh, and run_specs on it
+
     def train_step(state: TrainState, batch, extra=None):
         named = state.named()
         tokens = batch["tokens"]
@@ -131,6 +140,12 @@ def make_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
         if grad_compression == "bf16":
             for g in grads.values():
                 g.copy_(g.to(torch.bfloat16))
+
+        mesh = current_mesh()
+        if mesh is not None:
+            if pin[0] is not mesh:
+                pin[:] = mesh, M.run_specs(cfg, grads, mesh)
+            grads = {k: constrain(g, pin[1][k]) for k, g in grads.items()}
 
         lr = cosine_schedule(state.step, peak=peak_lr, warmup_steps=warmup,
                              total_steps=total_steps)

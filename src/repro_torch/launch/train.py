@@ -10,6 +10,12 @@ The port of the reference's ``launch/train.py``:
     saved mid-step would be half updated),
   * straggler watchdog — per-step wall time against the running median;
     steps slower than ``factor`` x median are logged with the step index,
+  * elastic restarts — checkpoints hold whole arrays, so a run resumes
+    whatever mesh wrote them.  Under an active mesh (``distributed.
+    sharding.use_mesh``) training runs replicated: every rank holds the
+    whole state (the port has no GSPMD, and ``models.model.run_specs`` cut
+    no dense weight), restores it whole, and the process group's saves
+    write from rank 0 alone (``checkpoint/manager.py``),
   * gradient accumulation (``grad_accum``) and gradient compression
     (``grad_compression``, ``steps.make_train_step``).
 
@@ -17,8 +23,7 @@ Each logged step prints the loss, the gradient norm, the step's wall time
 (host clock, to the read of its loss), tokens/s and, on the card, the MFU:
 ``analytic.train_mfu``, MODEL_FLOPS against the H100's dense bf16 peak.
 The run is on the card unless ``device`` says otherwise, and raises where
-there is no CUDA device and no ``device``.  The reference's elastic
-restore onto another mesh waits for ROADMAP.md queue 1 item 14.
+there is no CUDA device and no ``device``.
 
   python -m repro_torch.launch.train --arch qwen2.5-14b --reduced \\
       --device cpu --steps 30 --batch 8 --seq 128 --ckpt-dir /tmp/ck
@@ -36,6 +41,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCHS, get
 from repro_torch.data import SyntheticLMStream
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch import steps as St
 from repro_torch.launch.analytic import train_mfu
 from repro_torch.launch.serve import _device, _sync
@@ -109,6 +115,12 @@ def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 128,
     start = 0
     mgr = None
     boundary = None
+    mesh = SH.current_mesh()
+    if mesh is not None and SH.mesh_axes(mesh).get(SH.RULES.tp, 1) > 1:
+        # the branches a model axis turns on (sequence-sharded attention,
+        # the expert-parallel MoE) carry no gradient across ranks
+        raise ValueError("train runs replicated under a mesh; its model "
+                         "axis must have one rank")
     if ckpt_dir:
         mgr = CheckpointManager(ckpt_dir)
         if mgr.latest_step() is not None:
