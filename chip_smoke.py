@@ -6,15 +6,28 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA card and ``nvcc``, imports neither ``jax`` nor the
-reference package ``repro``, and, in order:
+reference package ``repro``, and does what the items below say, in their
+order but for these moves (``_run_phases``): once the build has started,
+every phase of this process runs while the libraries compile, each
+waiting for the libraries it loads: item 3, then the LM's items 22-25
+(which need K13's and K14's four libraries alone, compiled first), then
+items 4-21 (the planes of item 14b and the drift check of item 14c among
+them); then come the build's report (item 2) and the phases that start
+worlds of ranks, which load every library: the sharded solves of item
+14b, the sharded LM of item 14c, item 14d and item 26.  The dry run of
+item 26 runs in a CPU child from the build's start on.  After each phase
+one line gives its seconds and the script's:
 
 1. prints the card, its power limit, and the torch / CUDA / nvcc versions;
 2. builds the CUDA kernels from the thirteen sources of
    ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source and dtype (48
    libraries: f64, f32 and the two bf16 operand mixes ``bf16`` and
    ``bf16_ir`` for the Nekbone kernels K1 to K12; f32 and bf16 for K13 and
-   K14), in parallel, prints its wall time, K13's registers, spills and
-   shared memory at every head size (16, 64, 128, 192), and shows from
+   K14), all started at once, each under ``nice`` by its place in the
+   order the phases first load them (``kernels/_build.start_build``); then
+   prints each library's and the build's wall time, K13's registers,
+   spills and shared memory at every head size (16, 64, 128, 192), and
+   shows from
    the bf16 K13's machine code (``cuobjdump -sass``) that it runs
    tensor-core MMAs (HMMA) on operands copied by cp.async (LDGSTS);
 3. measures device-to-device copy bandwidth on a 1 GiB buffer (the
@@ -109,14 +122,14 @@ reference package ``repro``, and, in order:
    between them) within their bands of the cost books and equal to the
    CPU's count, printed beside the CPU's ratios, and the collective
    contracts, and prints the host time of K1's wrapper with and without
-   its charge hook; then serves hymba-1.5b at full width (32 layers, batch 2,
-   prompt 4096, 8 decode steps on given tokens, f32 weights from seed 0,
-   bf16 compute)
+   its charge hook; then serves hymba-1.5b at full width (16 of its 32
+   layers, batch 2, prompt 4096, 8 decode steps on given tokens, f32
+   weights from seed 0, bf16 compute)
    over a (data 1, model 2) mesh of two gloo ranks sharing the card,
    spawned as ``chip_smoke.py --lm-child``: the prefill sequence-sharded
    (K13 on each rank's 2048-query slice: rank 0 at q_offset 0, rank 1 at
-   q_offset 1024 on the 29 windowed layers' [halo | own] keys and 2048 on
-   the 3 global layers' gathered keys) and every decode step against the
+   q_offset 1024 on the 15 windowed layers' [halo | own] keys and 2048 on
+   the global layer's gathered keys) and every decode step against the
    sequence-sharded cache (2052 slots a rank), its prefill logits held to
    a single process on the card (1e-2 of max |logit|) and every step's to
    a single process whose decode softmax is split over the cache's two
@@ -285,22 +298,23 @@ reference package ``repro``, and, in order:
    tokens at capacity factor 1.0) on the card against the CPU: the same
    kept (token, expert) pairs, some dropped, outputs within 1e-5 of max
    |y|, 3 calls bitwise the same;
-23. serves rwkv6-1.6b (24 layers, batch 4, prompt 1024, 32 new tokens),
-   gemma2-27b (2 of its 46 layers, batch 2, prompt 6144, 16 new),
+23. serves rwkv6-1.6b (8 of 24 layers, batch 4, prompt 1024, 32 new
+   tokens), gemma2-27b (2 of its 46 layers, batch 2, prompt 6144, 16 new),
    nemotron-4-340b (2 of its 96 layers, batch 2, prompt 4096, 16 new),
-   hymba-1.5b (32 layers, batch 4, prompt 2048, 32 new),
-   qwen3-moe-30b-a3b (8 of 48 layers, batch 4, prompt 2048, 16 new),
-   arctic-480b (2 of 35 layers, bf16 weights, batch 2, prompt 2048, 16
-   new), whisper-large-v3 (32 encoder and 32 decoder layers, batch 4,
-   1500 audio frames, prompt 64, 64 new), llava-next-mistral-7b (32
-   layers, batch 2, 2880 image tokens and a prompt of 128, 32 new),
+   hymba-1.5b (8 of 32 layers: 1 global, 7 window-1024; batch 4, prompt
+   2048, 32 new), qwen3-moe-30b-a3b (8 of 48 layers, batch 4, prompt 2048,
+   16 new), arctic-480b (2 of 35 layers, bf16 weights, batch 2, prompt
+   2048, 16 new), whisper-large-v3 (all 32 encoder and 8 of 32 decoder
+   layers, batch 4, 1500 audio frames, prompt 64, 64 new),
+   llava-next-mistral-7b (8 of 32 layers, batch 2, 2880 image tokens and a
+   prompt of 128, 32 new),
    qwen2.5-14b (8 of 48 layers) and codeqwen1.5-7b (8 of 32), both at
    batch 4, prompt 2048, 16 new, three times each through
    ``launch.serve.serve`` at full width (the image and audio stubs 0.1 x
    N(0, 1) from a seed), with every plain attention / WKV function and
    SDPA made to raise meanwhile: the tokens are in range, the runs agree
    bitwise, the launch counts are K14 = layers x tokens and K13 = layers
-   in each (whisper: 32 encoder + 32 decoder + 32 cross-attention), by
+   in each (whisper: 32 encoder + 8 decoder + 8 cross-attention), by
    build too (K13 one per layer at its head size and window, non-causal
    launches apart); the third run is profiled, its device time read
    against the second's wall clock; and times hymba's selective scan
@@ -340,7 +354,41 @@ reference package ``repro``, and, in order:
    SDPA, and the plain backward (``autograd.flash_attention_bwd``) timed
    there; K14's plain backward (``autograd.WKV6Fn``) at rwkv6's training
    shape, one layer's host clock and device time; all within 150 s;
-26. prints the whole script's time beside the card's name and power
+26. trains over a cut mesh on two gloo ranks sharing the card
+   (``--train-mesh-child``; ``launch.steps.make_train_step`` under
+   ``sharding.use_mesh``, the state held cut by ``models.model.hold_cut``),
+   f32 compute: qwen2.5-14b (2 of 48 layers) FSDP over (data 2, model 1),
+   batch 2 (one a rank) × 2048, 3 steps; hymba-1.5b (4 of 32 layers, its
+   attention sequence-sharded through K13, forward and backward: each
+   rank's 2048 queries, the windowed layers on [halo | own] keys through
+   the halo exchange, rank 1 at q_offset 1024, the global layer on the
+   gathered keys, rank 1 at 2048) over (data 1, model 2), batch 1 × 4096,
+   2 steps; qwen3-moe-30b-a3b (2 of 48 layers, expert-parallel) over (data
+   1, model 2), batch 2 × 512, 2 steps.  Each rank in turn (hymba's at
+   once) first runs one process's steps on the same global batches and
+   keeps its blocks of every gradient and updated parameter and each first
+   moment leaf's largest |mu|; each step of the mesh run is then held to them (loss and
+   gradient norm within 1e-5, every gradient leaf gathered over the ranks
+   within 1e-4 of its largest |g|; the first moments within 1e-4 of their
+   leaf's largest of the reference's, made again on the card from its
+   gradients by AdamW's recurrence; in every leaf, each updated entry
+   whose first moment passes 1e-3 of the leaf's largest (or is 0 on both
+   sides) within 1e-6 of the leaf's largest + 1e-2 lr, every entry within
+   AdamW's step 2 lr (1 + wd max |p0|), at most 2% of the leaf's entries
+   past 1e-2 lr), and its parameters are set to the one process's before
+   the next step (f32
+   AdamW's first step flips the updates of near-zero gradients, which
+   later gradients would carry); hymba's halo exchanges (count and bytes)
+   and K13 launches by rank and build exact (forward and remat recompute)
+   and K13 held to its plain version at those slice shapes in f32; step
+   ms, peak memory and the bytes each rank holds, collectives and bytes
+   staged, by rank; within 300 s (a guard against a stalled world).
+   A CPU child (``--dryrun-child``, started with the build)
+   runs the dry run of qwen2.5-14b's four shapes and the two Nekbone cells
+   on the 256-rank mesh (``launch/dryrun.py``) within 300 s of its start:
+   no record has an error and every cell fits 80 GB a rank; their
+   roofline rows at the H100's data-sheet peaks are printed;
+27. prints the whole script's time beside the card's name and power
    limit, the ``kernels`` JSON line (each row's launches are its own
    build's count in a measured run: ``_build.BUILD_LAUNCHES``, one K13
    row per served layer kind, whisper's encoder and cross-attention
@@ -348,9 +396,9 @@ reference package ``repro``, and, in order:
    q_offset 0, rank 1 at 2048 and 1024, each rank's launches), one for the
    qwen2.5-14b pipeline (both stages' launches), two for the hymba
    gradients (global and window 1024, both ranks' launches) and four for
-   the restored hymba prefill (rank 1 at q_offset 256), and one K13 and
-   one K14 row for
-   the 8-step training runs), the
+   the restored hymba prefill (rank 1 at q_offset 256), one K13 and
+   one K14 row for the 8-step training runs, and four f32 K13 rows for the
+   hymba run over a cut mesh, by rank and window), the
    card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -361,6 +409,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
 import json
 import math
 import os
@@ -490,13 +539,45 @@ def _ptxas_report(log: str) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
-def phase_build():
+def phase_build_start():
+    """Start every library's ``nvcc`` (``kernels/_build.start_build``: all
+    at once, the first needed at the highest priority) and return the
+    start time; the phases up to phase_build run while they compile, each
+    waiting for the libraries it loads."""
+    from repro_torch.kernels import _build
+
+    print("== build started: one nvcc a library, all at once, niced by "
+          "first use; the phases up to the build report run meanwhile",
+          flush=True)
+    t0 = time.perf_counter()
+    _build.start_build(_build_order())
+    return t0
+
+
+def _build_order():
+    """The libraries in about the order the phases first load them: K13's
+    and K14's (the LM phases come first), K1's four (its parity runs
+    every build), the other Nekbone kernels' f64 and f32 builds by stem,
+    then their bf16 builds."""
+    from repro_torch.kernels import _build
+
+    rest = [s for s in _build.SOURCES
+            if s.startswith("nekbone") and s != "nekbone_ax"]
+    return (["flash_attn_bf16", "flash_attn_f32", "wkv6_bf16", "wkv6_f32"]
+            + [f"nekbone_ax_{m}" for m in _build.DTYPES]
+            + [f"{s}_{m}" for s in rest for m in ("f64", "f32")]
+            + [f"{s}_{m}" for s in rest for m in ("bf16", "bf16_ir")])
+
+
+def phase_build(t0):
+    """Wait for every library, then report each one's registers and
+    spills, K13's shared memory and SASS, and the build's seconds."""
     from repro_torch.kernels import _build
 
     print("== build", flush=True)
-    t0 = time.perf_counter()
     paths = _build.build_all()
     seconds = time.perf_counter() - t0
+    each = _build.build_seconds()
     for stem, path in paths.items():
         report = _ptxas_report(path.with_suffix(".log").read_text())
         spills = {key: v[1] for key, v in report.items() if v[1]}
@@ -530,7 +611,14 @@ def phase_build():
                for op in ("HMMA", "LDSM", "LDGSTS", "MUFU")}
         check(ops["HMMA"] > 0 and ops["LDGSTS"] > 0,
               f"{K13_BF16} flash_attn_tc_kernel<{d}> SASS: {ops}")
-    print(f"  build seconds {seconds:.1f} (0 when cached)", flush=True)
+    if each:
+        print("  nvcc seconds by library (start to end, beside the phases "
+              "above): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                     sorted(each.items(),
+                                            key=lambda kv: -kv[1])))
+    print(f"  build seconds {max(each.values(), default=0.0):.1f} (its "
+          f"last nvcc's end; 0 when cached); {seconds:.1f} s from its start "
+          "to this report", flush=True)
     return seconds
 
 
@@ -614,7 +702,7 @@ def _walker_line(stem, E, n, mix, **kw):
     from repro_torch.kernels import nekbone_ax as K
 
     plan, info = K.walk_launch_info(stem, E, n, mix, **kw)
-    log = _build.build_all()[f"{stem}_{mix}"].with_suffix(".log").read_text()
+    log = _build.wait_for(f"{stem}_{mix}").with_suffix(".log").read_text()
     regs, spill = _ptxas_report(log)[f"{stem}_kernel<{n}>"]
     wave = plan.grid <= info["sm_count"] * plan.blocks_per_sm
     return plan, wave, (
@@ -3325,8 +3413,12 @@ def phase_walk_parity():
           "in every build (n = 10, 5, 3 on the paper grid, the 16x16x16 grid "
           "and 3x3x5; fields relative in f64 and f32 (K10's bitwise), value "
           "by value in bf16; partials summed, relative)", flush=True)
-    logs = {name: _ptxas_report(path.with_suffix(".log").read_text())
-            for name, path in _build.build_all().items()}
+    logs = {name: _ptxas_report(
+        _build.wait_for(name).with_suffix(".log").read_text())
+        for stem in ("nekbone_ax_slab", "nekbone_ax_dots",
+                     "nekbone_cg_update", "nekbone_cg_update_block",
+                     "nekbone_pcg_update", "nekbone_interp")
+        for name in (f"{stem}_{mix}" for mix in _build.SOURCES[stem])}
     walkers = (("K4", "nekbone_ax_slab", "nekbone_ax_slab",
                 "nekbone_ax_slab_kernel<10>"),
                ("K3", "nekbone_ax_pap", "nekbone_ax_dots",
@@ -3998,17 +4090,21 @@ K14_S_TOL = 1e-4
 # tolerance of the largest value).
 BF16_STEP = 2.0 ** -7
 # serve runs: (arch, depth kept, batch, prompt, generated tokens); depth
-# None keeps every layer (whisper: 32 encoder and 32 decoder layers).
-# llava's 2880 image tokens come before its prompt; whisper's decoder
-# reads 1500 audio frames (its decoder context is 448 tokens).
-SERVE_RUNS = (("rwkv6-1.6b", None, 4, 1024, 32),
+# None keeps every layer; whisper's depth is its decoder's (its 32 encoder
+# layers stay), hymba's keeps the first 8 of its window pattern (layer 0
+# global).  rwkv6, hymba, whisper and llava keep 8 layers so that the whole
+# script stays well inside its 1200 s limit: a profiled run of hymba's 32
+# layers alone held 293,194 device events.  llava's 2880 image tokens come
+# before its prompt; whisper's decoder reads 1500 audio frames (its decoder
+# context is 448 tokens).
+SERVE_RUNS = (("rwkv6-1.6b", 8, 4, 1024, 32),
               ("gemma2-27b", 2, 2, 6144, 16),
               ("nemotron-4-340b", 2, 2, 4096, 16),
-              ("hymba-1.5b", None, 4, 2048, 32),
+              ("hymba-1.5b", 8, 4, 2048, 32),
               ("qwen3-moe-30b-a3b", 8, 4, 2048, 16),
               ("arctic-480b", 2, 2, 2048, 16),
-              ("whisper-large-v3", None, 4, 64, 64),
-              ("llava-next-mistral-7b", None, 2, 128, 32),
+              ("whisper-large-v3", 8, 4, 64, 64),
+              ("llava-next-mistral-7b", 8, 2, 128, 32),
               ("qwen2.5-14b", 8, 4, 2048, 16),
               ("codeqwen1.5-7b", 8, 4, 2048, 16))
 # the MoE layer on the card against the CPU: qwen3-moe-30b-a3b's width, f32,
@@ -4368,13 +4464,24 @@ def _stubs(cfg, B):
             .to(t.dtype) for key, t in spec.items()}
 
 
+def _cut_depth(cfg, layers):
+    """``cfg`` with its first ``layers`` layers (all where None); a window
+    pattern as long as the model (hymba's) is cut with it."""
+    import dataclasses
+
+    if layers is None:
+        return cfg
+    windows = cfg.windows
+    if windows is not None and len(windows) > layers:
+        windows = windows[:layers]
+    return dataclasses.replace(cfg, n_layers=layers, windows=windows)
+
+
 def phase_serve():
     """Serve each of SERVE_RUNS at full width through
     ``launch.serve.serve`` (depth cut where it says), three times each: run
     0 cold, run 1 warm (the busy share's wall clock), run 2 profiled; and
     the time of hymba's selective scan (plain PyTorch) per prefill."""
-    import dataclasses
-
     import torch
 
     from repro_torch.configs import get
@@ -4389,9 +4496,7 @@ def phase_serve():
     torch.cuda.reset_peak_memory_stats()
     out = {"launches": {}, "stats": {}}
     for arch, layers, B, P, G in SERVE_RUNS:
-        cfg = get(arch)
-        if layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = _cut_depth(get(arch), layers)
         # what earlier phases and runs leave on the card; each peak is also
         # printed less it, the serve run's own (its stubs included)
         base = torch.cuda.memory_allocated()
@@ -5386,6 +5491,9 @@ CHARGE_ROUNDS, CHARGE_CALLS = 3, 2000
 # the sharded LM: hymba-1.5b at full width over a (data 1, model 2) mesh of
 # gloo ranks sharing the card; a short warm run first (2 x 256 prompt)
 LM_SHARD_ARCH = "hymba-1.5b"
+# its first 16 layers (layer 0 global, 15 window 1024): the whole script
+# passed 1150 s on a slow host with all 32
+LM_SHARD_LAYERS = 16
 LM_SHARD_B, LM_SHARD_PROMPT, LM_SHARD_STEPS = 2, 4096, 8
 LM_SHARD_WARM = 256
 LM_SHARD_TP = 2
@@ -5402,6 +5510,13 @@ LM_SPLIT_TOL = 1e-5
 LM_SHARD_PAD = 64
 LM_SHARD_CHILD_TIMEOUT_S = 360
 LM_SHARD_PHASE_S = 240.0
+
+
+def _lm_shard_cfg():
+    """hymba-1.5b at full width, its first LM_SHARD_LAYERS layers."""
+    from repro_torch.configs import get
+
+    return _cut_depth(get(LM_SHARD_ARCH), LM_SHARD_LAYERS)
 
 
 def _shard_split(t, parts):
@@ -6112,7 +6227,6 @@ def lm_child(spec_path: str, rank: str) -> int:
     import torch.distributed as dist
 
     from repro_torch import convert
-    from repro_torch.configs import get
     from repro_torch.distributed import sharding as SH
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh_for
@@ -6135,7 +6249,7 @@ def lm_child(spec_path: str, rank: str) -> int:
         timeout=datetime.timedelta(seconds=DIST_INIT_TIMEOUT_S))
     try:
         mesh = make_mesh_for(spec["world"], model_parallel=LM_SHARD_TP)
-        cfg = get(LM_SHARD_ARCH)
+        cfg = _lm_shard_cfg()
         report, arrays = {"shard": SH.axis_mesh(mesh, "model").shard}, {}
         with SH.use_mesh(mesh):
             params = M.init_params(torch.Generator("cuda").manual_seed(0),
@@ -6181,11 +6295,12 @@ def lm_child(spec_path: str, rank: str) -> int:
     return 0
 
 
-def _k13_slice_rows(bw_copy, B, S_loc, cases, what, heads=HYMBA_HEADS):
+def _k13_slice_rows(bw_copy, B, S_loc, cases, what, heads=HYMBA_HEADS,
+                    dtype=None):
     """K13 at sequence-sharded prefill slice shapes (batch ``B``, ``S_loc``
-    queries, ``heads`` (hymba's unless given), bf16), one row a causal case
-    ``(key, Skv, window, q_offset)``, each beside its plain version and
-    SDPA with the same mask."""
+    queries, ``heads`` (hymba's unless given), ``dtype`` (bf16 unless
+    given)), one row a causal case ``(key, Skv, window, q_offset)``, each
+    beside its plain version and SDPA with the same mask."""
     import torch
     import torch.nn.functional as F
 
@@ -6194,10 +6309,11 @@ def _k13_slice_rows(bw_copy, B, S_loc, cases, what, heads=HYMBA_HEADS):
 
     gen = torch.Generator("cuda").manual_seed(21)
     Hq, Hkv, d = heads["Hq"], heads["Hkv"], heads["d"]
+    dtype = torch.bfloat16 if dtype is None else dtype
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
     rows = {}
     for key, Skv, window, q_offset in cases:
-        q, k, v = _k13_inputs(gen, B, Hq, Hkv, S_loc, Skv, d,
-                              torch.bfloat16)
+        q, k, v = _k13_inputs(gen, B, Hq, Hkv, S_loc, Skv, d, dtype)
         kw = dict(causal=True, window=window, softcap=None,
                   q_offset=q_offset, scale=d ** -0.5)
         qpos = q_offset + torch.arange(S_loc, device="cuda")[:, None]
@@ -6205,15 +6321,17 @@ def _k13_slice_rows(bw_copy, B, S_loc, cases, what, heads=HYMBA_HEADS):
         mask = kpos <= qpos
         if window is not None:
             mask &= qpos - kpos < window
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * d * B * Hq * _attn_pairs(S_loc, Skv, True, window,
                                              q_offset)
         rows[key] = _lm_row(
-            f"K13 d={d} {key} bf16 ({what}: B={B}, Hq {Hq}, Hkv {Hkv}, "
+            f"K13 d={d} {key} {tag} ({what}: B={B}, Hq {Hq}, Hkv {Hkv}, "
             f"Sq {S_loc}, Skv {Skv}, q_offset {q_offset})",
             lambda: FA.flash_attention_cuda(q, k, v, **kw),
             lambda: ref.flash_attention_plain(q, k, v, **kw),
-            nbytes, flops, BF16_TENSOR_PEAK, bw_copy, calls=3,
+            nbytes, flops,
+            BF16_TENSOR_PEAK if tag == "bf16" else FP32_PEAK, bw_copy,
+            calls=3,
             lib=lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=d ** -0.5, enable_gqa=True))
         o = FA.flash_attention_cuda(q, k, v, **kw)
@@ -6246,11 +6364,10 @@ def phase_sharded_lm(bw_copy, smi_line):
     import numpy as np
     import torch
 
-    from repro_torch.configs import get
     from repro_torch.models import model as M
     from repro_torch.models import moe as MO
 
-    cfg = get(LM_SHARD_ARCH)
+    cfg = _lm_shard_cfg()
     B, P, n, tp = LM_SHARD_B, LM_SHARD_PROMPT, LM_SHARD_STEPS, LM_SHARD_TP
     S_loc, slots = P // tp, (P + n) // tp
     pattern = cfg.window_pattern()
@@ -7034,6 +7151,527 @@ def phase_lm_parallel(bw_copy, smi_line):
             "grad_windows": list(dict.fromkeys(_lmp_windows(hymba)))}
 
 
+# ---------------------------------------------------------------------------
+# training over a cut mesh, and the dry run (docstring item 26)
+# ---------------------------------------------------------------------------
+
+# (arch, layers, (data, model), batch, sequence, steps), f32 compute (the
+# bars are tests/test_torch_train_mesh.py's, which bf16's order-dependent
+# rounding would not meet)
+TM_RUNS = (("qwen2.5-14b", 2, (2, 1), 2, 2048, 3),
+           ("hymba-1.5b", 4, (1, 2), 1, 4096, 2),
+           ("qwen3-moe-30b-a3b", 2, (1, 2), 2, 512, 2))
+TM_KW = dict(peak_lr=3e-4, warmup=1, total_steps=100)
+TM_LOSS_TOL = 1e-5                 # relative; loss and grad norm
+TM_GRAD_TOL = 1e-4                 # of each gradient leaf's largest |g|
+TM_MU_TOL = 1e-4                   # of each first moment leaf's largest
+TM_MU_FLOOR = 1e-3                 # |mu| past this of its leaf's largest:
+TM_UPDATE_FRAC = 1e-2              # ... the update within this of lr
+TM_APART_SHARE = 0.02              # a leaf's entries past it, at most
+TM_CHILD_TIMEOUT_S = 420
+# runs whose reference every rank makes at once (hymba's is bound by its
+# scan's host loop and fits the card twice); the others' in turn
+TM_REF_AT_ONCE = ("hymba-1.5b",)
+TM_PHASE_S = 300.0                 # a guard against a stalled world
+DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRY_TIMEOUT_S = 300
+
+
+def _tm_cfg(arch, layers):
+    import dataclasses
+
+    from repro_torch.configs import get
+
+    cfg = get(arch)
+    kw = dict(n_layers=layers, compute_dtype="float32")
+    if cfg.windows is not None:
+        kw["windows"] = cfg.windows[:layers]
+    return dataclasses.replace(cfg, **kw)
+
+
+def _tm_capture():
+    """Patch ``steps.adamw_update`` to keep the gradients it is handed;
+    returns the dict they land in and the undo."""
+    from repro_torch.launch import steps as St
+
+    seen, real = {}, St.adamw_update
+
+    def capture(named, grads, *args, **kw):
+        seen["g"] = {k: g.detach().clone() for k, g in grads.items()}
+        return real(named, grads, *args, **kw)
+
+    St.adamw_update = capture
+    return seen, lambda: setattr(St, "adamw_update", real)
+
+
+def _tm_run(run, rank, world):
+    """One TM_RUNS entry on this rank: the single-process reference, each
+    rank in turn (at once for TM_REF_AT_ONCE) keeping its blocks of every step's gradients and
+    parameters on the host, and each first moment leaf's largest |mu|;
+    then the run over the mesh, each step held to them, its parameters set
+    to the reference's before the next step (its moments stay its own), so
+    that each step is held to one process's step from the same
+    parameters; the report.  The reference's first moments are made again
+    on the card from its gradients by AdamW's recurrence (its b1 and clip
+    norm, its ops in its order: the same bits), so that the host holds no
+    copy of them (a copy of qwen2.5-14b's a step a rank runs the machine's
+    host memory out)."""
+    import inspect
+    import resource
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw as AW
+
+    adamw_kw = inspect.signature(AW.adamw_update).parameters
+    b1, clip = adamw_kw["b1"].default, adamw_kw["clip_norm"].default
+    arch, layers, (data, model), B, S, steps = run
+    cfg = _tm_cfg(arch, layers)
+    mesh = make_mesh_for(world, model_parallel=model)
+    stream = SyntheticLMStream(cfg.vocab, seed=0)
+    batches = [torch.from_numpy(stream.batch(k, B, S)).cuda()
+               for k in range(steps)]
+    with SH.use_mesh(mesh):
+        specs = M.param_specs(cfg, M.init_params(L.MetaGen(), cfg), mesh)
+
+    bounce = torch.empty(1 << 26, dtype=torch.float32, pin_memory=True)
+
+    def block(name, t):
+        """This rank's block of ``t``, to pageable host memory through a
+        pinned bounce buffer (a pageable copy from the card runs at a few
+        GB/s)."""
+        b = SH.shard_block(t, specs[name], mesh)
+        flat = b.contiguous().view(-1)
+        out = torch.empty(flat.numel(), dtype=b.dtype)
+        stage = bounce.view(b.dtype)
+        for i in range(0, flat.numel(), stage.numel()):
+            n = min(stage.numel(), flat.numel() - i)
+            stage[:n].copy_(flat[i:i + n])
+            out[i:i + n].copy_(stage[:n])
+        return out.view(b.shape)
+
+    ref = []
+    t0 = time.perf_counter()
+    for turn in ([None] if arch in TM_REF_AT_ONCE else range(world)):
+        if turn in (None, rank):
+            state = St.make_train_state(
+                torch.Generator("cuda").manual_seed(0), cfg)
+            step = St.make_train_step(cfg, **TM_KW)
+            seen, undo = _tm_capture()
+            try:
+                for k in range(steps):
+                    p0 = {n: float(p.detach().abs().max())
+                          for n, p in state.named().items()}
+                    state, m = step(state, {"tokens": batches[k]})
+                    ref.append(dict(
+                        loss=float(m["loss"]), gnorm=float(m["grad_norm"]),
+                        lr=float(m["lr"]), p0=p0, mu_max={
+                            n: float(mu.abs().max())
+                            for n, mu in state.mu.items()},
+                        g={n: block(n, g) for n, g in seen["g"].items()},
+                        p={n: block(n, p.detach()) for n, p in
+                           state.named().items()}))
+                    seen.clear()
+            finally:
+                undo()
+            del state, step
+            torch.cuda.empty_cache()
+        dist.barrier()
+    ref_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    with SH.use_mesh(mesh):
+        state = St.make_train_state(torch.Generator("cuda").manual_seed(0),
+                                    cfg, mesh=mesh)
+        held = sum(p.numel() * p.element_size()
+                   for p in state.named().values())
+        step = St.make_train_step(cfg, **TM_KW)
+        seen, undo = _tm_capture()
+        rep = {"arch": arch, "layers": layers, "mesh": [data, model],
+               "batch": B, "seq": S, "ref_s": ref_s, "held_bytes": held,
+               "steps": []}
+        m_ref = {}                    # the reference's first moments
+        _build.reset_launches()
+        try:
+            with SH.collective_log() as log:
+                for k in range(steps):
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    state, m = step(state, {"tokens": batches[k]})
+                    loss = float(m["loss"])
+                    ms = (time.perf_counter() - t1) * 1e3
+                    want = ref[k]
+                    grads, params, moments = {}, {}, {}
+                    gn = torch.tensor(want["gnorm"], dtype=torch.float32,
+                                      device="cuda")
+                    scale = torch.clamp(clip / torch.clamp(gn, min=1e-9),
+                                        max=1.0)
+                    for n, g in seen["g"].items():
+                        w = want["g"][n].cuda()
+                        grads[n] = [float((g - w).abs().max()),
+                                    float(w.abs().max())]
+                        mu = state.mu[n]
+                        m0 = m_ref.get(n, torch.zeros_like(mu))
+                        m_ref[n] = (m0.to(torch.float32) * b1
+                                    + (w * scale.to(w.dtype)).to(
+                                        torch.float32) * (1 - b1)).to(
+                                            mu.dtype)
+                        moments[n] = [float((mu - m_ref[n]).abs().max()),
+                                      want["mu_max"][n]]
+                        del w, m0
+                    for n, p in state.named().items():
+                        w = want["p"][n].cuda()
+                        err = (p.detach() - w).abs()
+                        mu = m_ref[n]
+                        sure = ((mu.abs() > TM_MU_FLOOR * want["mu_max"][n])
+                                | ((mu == 0) & (state.mu[n] == 0)))
+                        apart = err > (1e-6 * w.abs().max()
+                                       + TM_UPDATE_FRAC * want["lr"])
+                        params[n] = [float(err.max()),
+                                     int((apart & sure).sum()),
+                                     int(apart.sum()), int((~sure).sum()),
+                                     err.numel(), float(w.abs().max()),
+                                     want["p0"][n]]
+                        del w, err, sure, apart
+                    seen.clear()
+                    if k + 1 < steps:         # the next step from the same
+                        with torch.no_grad():  # parameters as the reference
+                            for n, p in state.named().items():
+                                p.copy_(want["p"][n].cuda())
+                    rep["steps"].append(dict(
+                        ms=ms, check_s=time.perf_counter() - t1 - ms / 1e3,
+                        loss=loss, ref_loss=want["loss"],
+                        gnorm=float(m["grad_norm"]), ref_gnorm=want["gnorm"],
+                        lr=want["lr"], grads=grads, params=params,
+                        moments=moments))
+        finally:
+            undo()
+    rep["run_s"] = time.perf_counter() - t_run
+    rep["launches"] = {k: v for k, v in _build.BUILD_LAUNCHES.items()
+                       if k.startswith("flash_attn")}
+    rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rep["host_peak_gib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    rep["counts"], rep["bytes"] = log.counts, log.bytes
+    rep["host_staged"] = log.host_staged
+    rep["cut"] = sum(p.shape != s for p, s in zip(
+        state.named().values(), M.cut_layout(state.params)[2].values()))
+    del state, step, ref, m_ref
+    torch.cuda.empty_cache()
+    return rep
+
+
+def train_mesh_child(spec_path: str, rank: str) -> int:
+    """One rank of phase_train_mesh's world: every TM_RUNS entry in turn;
+    its report to ``<out>/rank<r>.json``.  Loads the libraries the build
+    phase made and builds none; any failure ends it with an error."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    rank = int(rank)
+    out = pathlib.Path(spec["out"])
+    missing = [str(p) for p in _build_targets() if not p.exists()]
+    if missing:
+        print(f"train-mesh child: libraries not built: {missing[:3]}",
+              file=sys.stderr)
+        return 3
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{spec['init']}", rank=rank,
+        world_size=spec["world"],
+        timeout=datetime.timedelta(seconds=DIST_INIT_TIMEOUT_S))
+    try:
+        reports = [_tm_run(run, rank, spec["world"]) for run in TM_RUNS]
+        np.savez(out / f"rank{rank}.npz")
+        (out / f"rank{rank}.json").write_text(json.dumps(
+            {"rank": rank, "runs": reports}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dryrun_child(out_dir: str) -> int:
+    """The dry run's cells on the card machine's torch, in a process of
+    its own (the fake process group): qwen2.5-14b's four shapes on the
+    single-pod mesh and the two Nekbone cells; one JSON record a cell."""
+    import torch
+
+    from repro_torch.launch import dryrun as D
+
+    out = pathlib.Path(out_dir)
+    t0 = time.perf_counter()
+    for shape in DRY_SHAPES:
+        try:
+            rec = D.run_cell("qwen2.5-14b", shape, "single", verbose=False)
+        except Exception as exc:        # the parent fails the check
+            rec = {"arch": "qwen2.5-14b", "shape": shape, "mesh": "single",
+                   "error": f"{type(exc).__name__}: {exc}"}
+        (out / f"qwen2.5-14b__{shape}.json").write_text(json.dumps(rec))
+    for dt in (torch.float32, torch.bfloat16):
+        rec = D.run_nekbone("single", dtype=dt)
+        (out / f"{rec['arch']}.json").write_text(json.dumps(rec))
+    (out / "seconds.txt").write_text(f"{time.perf_counter() - t0:.1f}")
+    return 0
+
+
+def _start_dryrun():
+    """Start the dry-run child on the CPU (no card visible to it), its
+    records and output in a directory of its own; it runs beside the
+    phases that follow, and phase_train_mesh reads it."""
+    out = pathlib.Path(tempfile.mkdtemp(prefix="dryrun-"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    with open(out / "log.txt", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--dryrun-child", str(out)], env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+    return {"proc": proc, "dir": out, "t0": time.perf_counter()}
+
+
+def _stop_dryrun(dry):
+    if dry["proc"].poll() is None:
+        dry["proc"].kill()
+        dry["proc"].wait()
+    shutil.rmtree(dry["dir"], ignore_errors=True)
+
+
+def _tm_check(reports):
+    """Every run's steps on every rank against the reference's (module
+    docstring item 26), one check a quantity a step; returns the per-run
+    summaries."""
+    out = []
+    for i, run in enumerate(TM_RUNS):
+        arch, layers, (data, model), B, S, steps = run
+        reps = [r["runs"][i] for r in reports]
+        check(all(rep["cut"] > 0 for rep in reps), f"{arch} over (data "
+              f"{data}, model {model}): every rank holds leaves cut "
+              f"({[rep['cut'] for rep in reps]})")
+        worst_g, worst_mu, worst_share, apart, total = 0.0, 0.0, 0.0, 0, 0
+        for k in range(steps):
+            sts = [rep["steps"][k] for rep in reps]
+            rel = max(abs(st[key] - st["ref_" + key]) / abs(st["ref_" + key])
+                      for st in sts for key in ("loss", "gnorm"))
+            check(rel <= TM_LOSS_TOL, f"{arch} step {k}: every rank's loss "
+                  f"and gradient norm against one process's (worst rel "
+                  f"{rel:.1e} <= {TM_LOSS_TOL:g}; loss {sts[0]['loss']:.7f}"
+                  f" against {sts[0]['ref_loss']:.7f})")
+            lr = sts[0]["lr"]
+            g_rel, p_ratio, sure_bad, share = {}, {}, {}, {}
+            for name in sts[0]["grads"]:
+                err = max(st["grads"][name][0] for st in sts)
+                scale = max(st["grads"][name][1] for st in sts)
+                g_rel[name] = err / max(scale, 1e-30)
+                pe = [st["params"][name] for st in sts]
+                bound = (2 * lr * (1 + 0.1 * max(e[6] for e in pe))
+                         + 1e-6 * max(e[5] for e in pe))
+                p_ratio[name] = max(e[0] for e in pe) / bound
+                sure_bad[name] = sum(e[1] for e in pe)
+                n_apart, n = sum(e[2] for e in pe), sum(e[4] for e in pe)
+                share[name] = n_apart / n
+                apart += n_apart
+                total += n
+            mu_rel = {n: max(st["moments"][n][0] for st in sts)
+                      / max(sts[0]["moments"][n][1], 1e-30)
+                      for n in sts[0]["moments"]}
+            mn = max(mu_rel, key=mu_rel.get)
+            worst_mu = max(worst_mu, mu_rel[mn])
+            check(mu_rel[mn] <= TM_MU_TOL, f"{arch} step {k}: every rank's "
+                  f"first-moment blocks within {TM_MU_TOL:g} of their "
+                  f"leaf's largest of one process's (worst {mn}: "
+                  f"{mu_rel[mn]:.1e})")
+            gn = max(g_rel, key=g_rel.get)
+            pn = max(p_ratio, key=p_ratio.get)
+            sn = max(share, key=share.get)
+            worst_g = max(worst_g, g_rel[gn])
+            worst_share = max(worst_share, share[sn])
+            check(g_rel[gn] <= TM_GRAD_TOL, f"{arch} step {k}: every "
+                  f"gradient leaf, gathered over the ranks, within "
+                  f"{TM_GRAD_TOL:g} of its largest |g| (worst {gn}: "
+                  f"{g_rel[gn]:.1e})")
+            bad = {n: c for n, c in sure_bad.items() if c}
+            check(not bad, f"{arch} step {k}: in every leaf, every updated "
+                  f"entry whose first moment passes {TM_MU_FLOOR:g} of its "
+                  f"leaf's largest (or is 0 on both sides) within 1e-6 of "
+                  f"the leaf's largest + {TM_UPDATE_FRAC:g} lr of one "
+                  f"process's (entries past it: {bad or 0})")
+            check(p_ratio[pn] <= 1.0, f"{arch} step {k}: every updated "
+                  f"leaf within AdamW's step 2 lr (1 + wd max|p0|) of one "
+                  f"process's (worst {pn}: {p_ratio[pn]:.2e} of it)")
+            check(share[sn] <= TM_APART_SHARE, f"{arch} step {k}: in every "
+                  f"leaf at most {TM_APART_SHARE:g} of the updated entries "
+                  f"past {TM_UPDATE_FRAC:g} lr (worst {sn}: "
+                  f"{share[sn]:.2e})")
+        out.append(dict(arch=arch, worst_grad=worst_g, worst_mu=worst_mu,
+                        worst_share=worst_share, apart=apart, total=total))
+    return out
+
+
+def _tm_k13_rows(bw_copy, reports):
+    """The hymba run's halo exchanges and K13 launches by rank and build
+    (each rank's 2048-query slice: the windowed layers on [halo | own]
+    keys, rank 1 at q_offset 1024; the global layer on the gathered keys,
+    rank 1 at 2048), K13 held to the plain version at those slice shapes
+    in f32 and timed there."""
+    import torch
+
+    i = [r[0] for r in TM_RUNS].index("hymba-1.5b")
+    _, layers, (_, tp), B, S, steps = TM_RUNS[i]
+    S_loc = S // tp
+    cfg = _tm_cfg("hymba-1.5b", layers)
+    halo = min(w for w in cfg.layer_windows())
+    n_global = sum(1 for w in cfg.layer_windows() if w >= S)
+    n_window = layers - n_global
+    check(halo < S_loc, f"hymba trained over model 2: the window {halo} "
+          f"is shorter than a rank's {S_loc} queries (the halo branch)")
+    # each windowed layer a step: the halo's forward, its remat recompute
+    # and its gradient sent back; k and v rows in f32
+    want_n = 3 * n_window * steps
+    want_b = want_n * 2 * B * cfg.n_kv_heads * halo * cfg.hd * 4
+    for r, rep in enumerate(rk["runs"][i] for rk in reports):
+        got_n = rep["counts"].get("ppermute", 0)
+        got_b = rep["bytes"].get("ppermute", 0)
+        check(got_n == want_n and got_b == want_b, f"hymba trained over "
+              f"model 2: rank {r} sent and took its halo {got_n} times, "
+              f"{got_b} bytes (want {want_n}: {n_window} windowed layers x "
+              f"forward, remat and backward x {steps} steps; {want_b})")
+    rows = _k13_slice_rows(bw_copy, B, S_loc, (
+        ("rank 0 global", S_loc, None, 0),
+        (f"rank 0 window {halo}", S_loc, halo, 0),
+        ("rank 1 global", 2 * S_loc, None, S_loc),
+        (f"rank 1 window {halo}", halo + S_loc, halo, halo)),
+        "hymba-1.5b trained over model 2", dtype=torch.float32)
+    out = {}
+    for key, build, r, n in (
+            ("rank 0 global", "flash_attn_f32_d64", 0, n_global),
+            (f"rank 0 window {halo}", f"flash_attn_f32_d64_window{halo}",
+             0, n_window),
+            ("rank 1 global", f"flash_attn_f32_d64_qoffset{S_loc}", 1,
+             n_global),
+            (f"rank 1 window {halo}",
+             f"flash_attn_f32_d64_window{halo}_qoffset{halo}", 1,
+             n_window)):
+        got = reports[r]["runs"][i]["launches"].get(build, 0)
+        # forward and remat recompute, every step
+        check(got == 2 * n * steps, f"hymba trained over model 2: rank {r} "
+              f"launched {build} {got} times (want {2 * n * steps})")
+        out[key] = dict(rows[key], launches=got, build=build, rank=r)
+    return out
+
+
+def phase_train_mesh(bw_copy, smi_line, dry):
+    """Training over a cut mesh on two gloo ranks sharing the card, each
+    run held to one process's steps; and the dry run's records, from the
+    CPU child started with the build (docstring item 26).  Times are of
+    processes that share one card: not a multi-card figure."""
+    import torch
+
+    from repro_torch.launch import roofline as RF
+
+    print(f"== training over a cut mesh ({smi_line}; 2 gloo ranks sharing "
+          "one card, not a multi-card figure): " + "; ".join(
+              f"{a} ({n} layers, f32 compute) over (data {d}, model {m}), "
+              f"batch {B}, sequence {S}, {k} steps"
+              for a, n, (d, m), B, S, k in TM_RUNS) + "; and the dry run "
+          "(qwen2.5-14b's four shapes and the Nekbone cells, one rank of "
+          "256 on meta tensors), run in a CPU child since the build started",
+          flush=True)
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()        # the ranks need the card's memory
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train-mesh-") as tmp:
+        reports, _ = _spawn_world("gloo", 2, {}, tmp,
+                                  flag="--train-mesh-child",
+                                  timeout=TM_CHILD_TIMEOUT_S)
+    world_s = time.perf_counter() - t_phase
+    proc, dry_dir = dry["proc"], dry["dir"]
+    try:
+        proc.wait(timeout=max(
+            DRY_TIMEOUT_S - (time.perf_counter() - dry["t0"]), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log = (dry_dir / "log.txt").read_text()
+    check(proc.returncode == 0, f"the dry-run child exited 0 within "
+          f"{DRY_TIMEOUT_S} s of its start:\n" + log[-2000:])
+    dry_s = float((dry_dir / "seconds.txt").read_text())
+    recs = {p.stem: json.loads(p.read_text())
+            for p in sorted(dry_dir.glob("*.json"))}
+    for i, run in enumerate(TM_RUNS):
+        print(f"  {run[0]} over (data {run[2][0]}, model {run[2][1]}):",
+              flush=True)
+        for r, rep in enumerate(rank["runs"][i] for rank in reports):
+            print(f"    rank {r}: step ms " + ", ".join(
+                f"{st['ms']:.1f}" for st in rep["steps"])
+                + f" (host clock to the loss read; the checks after each "
+                + ", ".join(f"{st['check_s']:.1f}" for st in rep["steps"])
+                + f" s); peak {rep['peak_gib']:.2f} GiB on the card, "
+                f"{rep['host_peak_gib']:.2f} GiB on the host; holds "
+                f"{rep['held_bytes'] / 2 ** 30:.2f} GiB of parameters; "
+                f"collectives {rep['counts']} bytes {rep['bytes']}, "
+                f"{rep['host_staged']} bytes staged; reference turns "
+                f"{rep['ref_s']:.1f} s, the run {rep['run_s']:.1f} s; "
+                f"losses " + ", ".join(
+                    f"{st['loss']:.6f}" for st in rep["steps"]), flush=True)
+    summary = _tm_check(reports)
+    for i, run in enumerate(TM_RUNS):
+        print(f"  {run[0]}: worst gradient {summary[i]['worst_grad']:.2e} "
+              f"of its leaf's largest, worst first moment "
+              f"{summary[i]['worst_mu']:.2e}; {summary[i]['apart']} of "
+              f"{summary[i]['total']} updated entries apart by more than "
+              f"{TM_UPDATE_FRAC:g} lr, at most "
+              f"{summary[i]['worst_share']:.2e} of a leaf's", flush=True)
+    k13 = _tm_k13_rows(bw_copy, reports)
+    order = ["qwen2.5-14b__" + s for s in DRY_SHAPES]
+    cells = [recs[k] for k in order] + [recs[k] for k in sorted(recs)
+                                        if k.startswith("nekbone")]
+    for rec in cells:
+        check("error" not in rec, f"dry run {rec['arch']} x "
+              f"{rec['shape']}: no error ({rec.get('error', '')})")
+        if not rec.get("skipped"):
+            check(rec["fits_80gb"], f"dry run {rec['arch']} x "
+                  f"{rec['shape']}: peak {rec['live_bytes']['peak']:.3e} "
+                  "bytes a rank fits 80 GB")
+    print(f"  the dry run (one rank of 256 on meta; the H100 SXM data "
+          f"sheet's peaks, not a measurement), {dry_s:.1f} s in its child:",
+          flush=True)
+    print(RF.table(cells), flush=True)
+    for rec in cells:
+        if not rec.get("skipped"):
+            print(f"    {rec['arch']} x {rec['shape']}: dot FLOPs "
+                  f"{rec['dot_flops']:.4e}, model FLOPs a rank "
+                  f"{rec['model_flops_per_dev']:.4e}, peak "
+                  f"{rec['live_bytes']['peak'] / 1e9:.2f} GB a rank, "
+                  f"collectives " + json.dumps({k: v["bytes"] for k, v in
+                                                rec["collectives"].items()}),
+                  flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"  train-mesh world {world_s:.1f} s, dry-run child {dry_s:.1f} s "
+          f"(run beside the phases since the build started), this phase "
+          f"{phase_s:.1f} s (budget {TM_PHASE_S:g} s)", flush=True)
+    check(phase_s <= TM_PHASE_S, f"the cut-mesh training phase and the "
+          f"dry run's checks took {phase_s:.1f} s <= {TM_PHASE_S:g}")
+    torch.cuda.empty_cache()
+    return {"k13": k13}
+
+
 def _same_bits_np(a, b) -> bool:
     import numpy as np
 
@@ -7058,6 +7696,10 @@ def main() -> int:
         return lm_child(*sys.argv[2:4])
     if sys.argv[1:2] == ["--lm-parallel-child"]:
         return lm_parallel_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--train-mesh-child"]:
+        return train_mesh_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        return dryrun_child(sys.argv[2])
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from the root of a checkout", file=sys.stderr)
@@ -7084,55 +7726,82 @@ def main() -> int:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
+def _timed(t_start, fn, *args):
+    """``fn(*args)``, then one line with its seconds and the script's."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    now = time.perf_counter()
+    print(f"  [{fn.__name__}: {now - t0:.1f} s; {now - t_start:.1f} s into "
+          "the script]", flush=True)
+    return out
+
+
 def _run_phases(t_start) -> int:
     import torch
 
+    from repro_torch.kernels import _build
+
+    dry = None
+    run = functools.partial(_timed, t_start)
     try:
-        device_name, smi_line = phase_device()
-        phase_build()
-        bw = phase_copy_bandwidth()
-        err = {"K1": phase_k1_parity()}
-        err.update(phase_v2_parity())
-        launches, cases, hist = phase_routes()
-        err.update(phase_pcg_parity())
-        err.update(phase_interp_block_parity())
-        pcg = phase_pcg_routes()
+        device_name, smi_line = run(phase_device)
+        t_build = run(phase_build_start)
+        dry = _start_dryrun()
+        # the phases up to the build report run in this process while the
+        # libraries compile, each waiting for the ones it loads (the LM's
+        # first: they need four libraries, and cover the Nekbone ones'
+        # build); the report waits for all of them
+        bw = run(phase_copy_bandwidth)
+        err = {}
+        err.update(run(phase_lm_parity))
+        err["MoE"] = run(phase_moe_parity)
+        served = run(phase_serve)
+        lm_rows = run(phase_lm_times, bw)
+        trained = run(phase_train, lm_rows, bw, smi_line)
+        err["K1"] = run(phase_k1_parity)
+        err.update(run(phase_v2_parity))
+        launches, cases, hist = run(phase_routes)
+        err.update(run(phase_pcg_parity))
+        err.update(run(phase_interp_block_parity))
+        pcg = run(phase_pcg_routes)
         launches.update(pcg["launches"])
-        routes = phase_pmg_block_routes()
+        routes = run(phase_pmg_block_routes)
         launches.update(routes["launches"])
-        rows, v2_solve_ms = phase_times(bw, cases)
-        phase_pcg_times(pcg, v2_solve_ms)
-        phase_slice3_times(routes, v2_solve_ms)
-        err.update(phase_v1_sstep_parity())
-        slice4 = phase_v1_sstep_routes(hist)
+        rows, v2_solve_ms = run(phase_times, bw, cases)
+        run(phase_pcg_times, pcg, v2_solve_ms)
+        run(phase_slice3_times, routes, v2_solve_ms)
+        err.update(run(phase_v1_sstep_parity))
+        slice4 = run(phase_v1_sstep_routes, hist)
         launches.update(slice4["launches"])
-        solve_rounds = phase_slice4_times(bw, slice4, rows)
-        plane_err, plane_rows = phase_planes(bw)
+        solve_rounds = run(phase_slice4_times, bw, slice4, rows)
+        plane_err, plane_rows = run(phase_planes, bw)
         err.update(plane_err)
-        dist_launches = phase_distributed(hist, pcg["envelope"]["jacobi"],
-                                          smi_line)
-        phase_drift(smi_line)
-        lm_shard = phase_sharded_lm(bw, smi_line)
-        lm_par = phase_lm_parallel(bw, smi_line)
-        err.update(phase_bf16_parity())
-        err.update(phase_bf16_sstep_pcg_parity())
-        err.update(phase_bf16_k1_k2_parity())
-        err.update(phase_walk_parity())
-        ir = phase_ir_routes(hist, v2_solve_ms)
-        err.update(phase_bf16_cheb_pmg_block_parity())
-        slice12 = phase_bf16_cheb_pmg_block_routes(hist, v2_solve_ms)
-        phase_service(hist, smi_line, solve_rounds)
-        phase_bf16_times(bw, rows)
-        phase_bf16_slice12_times(bw, rows)
-        phase_profile(cases, pcg, routes, slice4, ir, slice12)
-        err.update(phase_lm_parity())
-        err["MoE"] = phase_moe_parity()
-        served = phase_serve()
-        lm_rows = phase_lm_times(bw)
-        trained = phase_train(lm_rows, bw, smi_line)
+        err.update(run(phase_bf16_parity))
+        err.update(run(phase_bf16_sstep_pcg_parity))
+        err.update(run(phase_bf16_k1_k2_parity))
+        err.update(run(phase_walk_parity))
+        ir = run(phase_ir_routes, hist, v2_solve_ms)
+        err.update(run(phase_bf16_cheb_pmg_block_parity))
+        slice12 = run(phase_bf16_cheb_pmg_block_routes, hist, v2_solve_ms)
+        run(phase_service, hist, smi_line, solve_rounds)
+        run(phase_bf16_times, bw, rows)
+        run(phase_bf16_slice12_times, bw, rows)
+        run(phase_profile, cases, pcg, routes, slice4, ir, slice12)
+        run(phase_drift, smi_line)
+        # every library is built from here on: the worlds' ranks load them
+        run(phase_build, t_build)
+        dist_launches = run(phase_distributed, hist,
+                            pcg["envelope"]["jacobi"], smi_line)
+        lm_shard = run(phase_sharded_lm, bw, smi_line)
+        lm_par = run(phase_lm_parallel, bw, smi_line)
+        meshed = run(phase_train_mesh, bw, smi_line, dry)
     except CheckFailed as exc:
         print(f"FAILED: {exc}", flush=True)
         return 1
+    finally:
+        _build.stop_build()
+        if dry is not None:
+            _stop_dryrun(dry)
     print(f"== whole script: {time.perf_counter() - t_start:.1f} s "
           f"({smi_line})", flush=True)
 
@@ -7402,6 +8071,17 @@ def _run_phases(t_start) -> int:
             "max_abs_err": max_err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # the hymba run over (data 1, model 2): K13's f32 launches by rank,
+    # forward and remat at each step, times at the slice shapes
+    for key, row in meshed["k13"].items():
+        kernels.append({
+            "name": row["build"]
+            + f"@hymba-1.5b-train-model2-rank{row['rank']}",
+            "route": "cuda", "source": flash[0], "replaces": flash[1],
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

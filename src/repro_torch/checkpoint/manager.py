@@ -233,16 +233,18 @@ class CheckpointManager:
         return step, _unflatten(out, tree_like)
 
     # ------------------------------------------------------------------
-    def install_sigterm_handler(self, get_state, *, exit_code: int = 0):
+    def install_sigterm_handler(self, get_state, *, exit_code: int = 0,
+                                shardings: dict | None = None):
         """On SIGTERM (preemption), save synchronously and exit.
-        ``get_state()`` returns ``(step, tree)``.  In a process group every
-        rank must get the signal: the save writes from rank 0 alone and
-        waits for it on every rank."""
+        ``get_state()`` returns ``(step, tree)``; ``shardings`` as in
+        :meth:`save`.  In a process group every rank must get the signal:
+        the save writes from rank 0 alone and waits for it on every
+        rank."""
 
         def handler(signum, frame):
             step, tree = get_state()
             self.save(step, tree, blocking=True,
-                      extra_meta={"preempted": True})
+                      extra_meta={"preempted": True}, shardings=shardings)
             sys.exit(exit_code)
 
         signal.signal(signal.SIGTERM, handler)

@@ -224,5 +224,6 @@ def shard_params(params, specs: dict, mesh):
         if block is not t:
             module, _, attr = name.rpartition(".")
             setattr(params.get_submodule(module), attr, torch.nn.Parameter(
-                block.contiguous(), requires_grad=t.requires_grad))
+                block.clone(memory_format=torch.contiguous_format),
+                requires_grad=t.requires_grad))
     return params

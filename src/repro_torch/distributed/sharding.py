@@ -26,7 +26,8 @@ plain tensor is replicated over the mesh, every rank computing it whole,
 and the sharded work is done by explicit branches that cut it —
 sequence-sharded attention and context-parallel decode
 (``models/attention.py``, ``distributed/context_parallel.py``) and the
-expert-parallel MoE (``models/moe.py``).  They talk over one axis of the
+expert-parallel MoE (``models/moe.py``) — and by parameters held cut and
+gathered where they are used (``models/model.hold_cut``).  They talk over one axis of the
 mesh through :func:`axis_mesh`, a :class:`SolverMesh` over that axis's
 ranks, and the collectives below.
 
@@ -54,13 +55,32 @@ that axis's process group (``SolverMesh.group``).  :func:`shard_block` and
 it back (``convert.shard_params``, the checkpoint's restore onto another
 mesh and its sharded save).
 
+Training over the mesh adds :func:`reduce_scatter` (a sum over the shards
+and this shard's block of it) and differentiable forms of the collectives,
+whose backward depends on what consumes their output: consumers
+*replicated* over the axis (every rank computes the same downstream) give
+every rank the whole gradient, so the backward is local; consumers
+*partial* over it (each rank uses the output for its own slice of the
+work) give every rank its part, so the backward sums over the axis.
+:func:`all_gather_ad` (either), :func:`psum_ad` (replicated: identity
+backward), :func:`grad_psum` (the identity forward where replicated
+values enter partial work: its gradient summed), :func:`halo_extend`
+(the attention halo, its gradient shifted back to the shard it came
+from), :func:`mean_over` (the loss's mean over the batch ranks) and
+:func:`gather_leaf` (a parameter held as this rank's block, gathered
+whole; backward, summed over the batch axes and cut back to the block).
+:func:`batch_cut` marks a block in which each rank holds its own rows of
+the batch (the train step's).
+
 Every call adds one to its kind in :data:`COLLECTIVES` and its bytes to
 :data:`COLLECTIVE_BYTES`, which ``obs/metrics.measure_collectives`` reads:
 a ppermute's bytes are those sent plus those received (a shard at a global
-end has one neighbour), a psum's or a pmax's the buffer's, an
-all-gather's the gathered result's.  A call is counted where it is issued,
-also on a one-shard mesh, where it moves nothing (a one-rank process group
-still runs its all-reduce and all-gather).
+end has one neighbour), a psum's, a pmax's or a reduce-scatter's the
+buffer's, an all-gather's the gathered result's.  A call is counted where
+it is issued, also on a one-shard mesh, where it moves nothing (a one-rank
+process group still runs its all-reduce and all-gather).  On tensors on
+``torch.device("meta")`` (the dry run, ``launch/dryrun.py``, under a fake
+process group) a call counts the same and moves nothing.
 
 Backends.  An NCCL group exchanges the device tensors themselves.  Gloo's
 send, receive and all-reduce take host tensors, so under gloo every
@@ -87,11 +107,16 @@ __all__ = ["SolverMesh", "solver_mesh", "shard_leading", "ppermute_pair",
            "reset_collectives", "collective_log", "P", "AbstractMesh",
            "NamedSharding", "use_mesh", "current_mesh", "mesh_axes",
            "axis_mesh", "shard_block", "unshard", "constrain", "AxisRules",
-           "RULES", "set_rules"]
+           "RULES", "set_rules", "reduce_scatter", "all_gather_ad",
+           "psum_ad", "grad_psum", "halo_extend", "gather_leaf",
+           "mean_over", "dp_lines", "has_group", "batch_cut", "batch_is_cut",
+           "swap_leaves"]
 
 # Calls and bytes by kind since the last reset_collectives().
-COLLECTIVES = {"ppermute": 0, "psum": 0, "pmax": 0, "all_gather": 0}
-COLLECTIVE_BYTES = {"ppermute": 0, "psum": 0, "pmax": 0, "all_gather": 0}
+COLLECTIVES = {"ppermute": 0, "psum": 0, "pmax": 0, "all_gather": 0,
+               "reduce_scatter": 0}
+COLLECTIVE_BYTES = {"ppermute": 0, "psum": 0, "pmax": 0, "all_gather": 0,
+                    "reduce_scatter": 0}
 # Bytes copied between the card and the host for a gloo group (both ways).
 HOST_STAGED_BYTES = {"to_host": 0, "to_device": 0}
 
@@ -212,7 +237,10 @@ def shard_leading(x: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
 def _host(t: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
     if mesh.staged and t.device.type != "cpu":
         HOST_STAGED_BYTES["to_host"] += t.numel() * t.element_size()
-        return t.to("cpu")
+        # page-locked, from the caching host allocator: a copy to pageable
+        # memory runs at a few GB/s, a pinned one near the link's rate
+        return torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=True).copy_(t)
     return t.contiguous()
 
 
@@ -222,6 +250,16 @@ def _back(t: torch.Tensor, device: torch.device,
         HOST_STAGED_BYTES["to_device"] += t.numel() * t.element_size()
         return t.to(device)
     return t
+
+
+def _meta(t: torch.Tensor) -> bool:
+    """``t`` lies on ``torch.device("meta")`` (the dry run): a collective
+    counts its call and bytes and moves nothing."""
+    return t.device.type == "meta"
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def ppermute_pair(to_next: torch.Tensor, to_prev: torch.Tensor,
@@ -240,6 +278,11 @@ def ppermute_pair(to_next: torch.Tensor, to_prev: torch.Tensor,
     from_prev = torch.zeros_like(to_prev)
     from_next = torch.zeros_like(to_next)
     if mesh.ndev == 1:
+        return from_prev, from_next
+    if _meta(to_next):
+        COLLECTIVE_BYTES["ppermute"] += 2 * (
+            (not mesh.last) * _nbytes(to_next)
+            + (not mesh.first) * _nbytes(to_prev))
         return from_prev, from_next
     ops, recv = [], []
     nbytes = 0
@@ -277,7 +320,7 @@ def psum(buf: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
 
     COLLECTIVES["psum"] += 1
     COLLECTIVE_BYTES["psum"] += buf.numel() * buf.element_size()
-    if mesh.backend is None:
+    if mesh.backend is None or _meta(buf):
         return buf.clone()
     return _all_reduce(buf, mesh, dist.ReduceOp.SUM)
 
@@ -289,7 +332,7 @@ def pmax(buf: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
 
     COLLECTIVES["pmax"] += 1
     COLLECTIVE_BYTES["pmax"] += buf.numel() * buf.element_size()
-    if mesh.backend is None:
+    if mesh.backend is None or _meta(buf):
         return buf.clone()
     return _all_reduce(buf, mesh, dist.ReduceOp.MAX)
 
@@ -307,7 +350,9 @@ def _all_reduce(buf, mesh, op):
 def all_gather(x: torch.Tensor, mesh: SolverMesh,
                dim: int = 0) -> torch.Tensor:
     """The shards' blocks of ``x`` concatenated along ``dim`` (the leading
-    axis by default) in shard order: the global field, on every shard."""
+    axis by default) in shard order: the global field, on every shard.
+    Under gloo, ndev - 1 ring steps of point-to-point exchanges through the
+    host; else one ``all_gather``."""
     import torch.distributed as dist
 
     COLLECTIVES["all_gather"] += 1
@@ -315,7 +360,12 @@ def all_gather(x: torch.Tensor, mesh: SolverMesh,
                                        * x.element_size())
     if mesh.backend is None:
         return x.clone()
+    if _meta(x):
+        return torch.cat([x] * mesh.ndev, dim=dim)
     t = _host(x, mesh)
+    if mesh.staged:
+        return torch.cat([_back(b, x.device, mesh)
+                          for b in _ring_gather(t, mesh)], dim=dim)
     parts = [torch.empty_like(t) for _ in range(mesh.ndev)]
     dist.all_gather(parts, t, group=mesh.group)
     idx = [r if mesh.group is None else dist.get_group_rank(mesh.group, r)
@@ -324,26 +374,81 @@ def all_gather(x: torch.Tensor, mesh: SolverMesh,
     return _back(out, x.device, mesh)
 
 
-def ppermute_shift(x: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
+def _ring_step(block: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
+    """Send ``block`` to the next shard around the ring and return the
+    previous shard's, one ``batch_isend_irecv`` (host tensors)."""
+    import torch.distributed as dist
+
+    got = torch.empty(block.shape, dtype=block.dtype,
+                      pin_memory=block.is_pinned())
+    nxt = mesh.order[(mesh.shard + 1) % mesh.ndev]
+    prev = mesh.order[(mesh.shard - 1) % mesh.ndev]
+    for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, block, nxt),
+                                       dist.P2POp(dist.irecv, got, prev)]):
+        req.wait()
+    return got
+
+
+def _ring_gather(t: torch.Tensor, mesh: SolverMesh) -> list:
+    """Every shard's block, in shard order, by ndev - 1 ring steps (gloo's
+    point-to-point moves large blocks several times faster than its
+    all-gather on one host)."""
+    blocks = [None] * mesh.ndev
+    i = mesh.shard
+    blocks[i] = t
+    for _ in range(mesh.ndev - 1):
+        got = _ring_step(blocks[i], mesh)
+        i = (i - 1) % mesh.ndev
+        blocks[i] = got
+    return blocks
+
+
+def _ring_reduce_scatter(t: torch.Tensor, mesh: SolverMesh,
+                         dim: int) -> torch.Tensor:
+    """This shard's block of the sum over the shards, by ndev - 1 ring
+    steps, each adding the received partial sum to its own block: block
+    ``i`` sums the shards from ``i + 1`` round to ``i``."""
+    chunks = [c.contiguous() for c in t.chunk(mesh.ndev, dim=dim)]
+    i = (mesh.shard - 1) % mesh.ndev
+    acc = chunks[i]
+    for _ in range(mesh.ndev - 1):
+        got = _ring_step(acc, mesh)
+        i = (i - 1) % mesh.ndev
+        acc = got + chunks[i]
+    return acc
+
+
+def ppermute_shift(x: torch.Tensor, mesh: SolverMesh, *,
+                   reverse: bool = False) -> torch.Tensor:
     """Send ``x`` to the next shard; return what the previous shard sent,
     zeros on the first shard (the reference's ``ppermute`` with the
-    permutation ``[(i, i + 1)]``).  One ppermute; its bytes are those sent
-    plus those received."""
+    permutation ``[(i, i + 1)]``).  ``reverse``: the other way round, to
+    the previous shard, zeros on the last (the permutation ``[(i + 1,
+    i)]``, the forward shift's transpose).  One ppermute; its bytes are
+    those sent plus those received."""
     import torch.distributed as dist
 
     COLLECTIVES["ppermute"] += 1
     got = torch.zeros_like(x)
     if mesh.ndev == 1:
         return got
+    step = -1 if reverse else 1
+    sends = not (mesh.first if reverse else mesh.last)
+    gets = not (mesh.last if reverse else mesh.first)
+    if _meta(x):
+        COLLECTIVE_BYTES["ppermute"] += (sends + gets) * _nbytes(x)
+        return got
     ops, nbytes = [], 0
     buf = recv = None
-    if not mesh.last:
+    if sends:
         buf = _host(x, mesh)
-        ops.append(dist.P2POp(dist.isend, buf, mesh.order[mesh.shard + 1]))
+        ops.append(dist.P2POp(dist.isend, buf,
+                              mesh.order[mesh.shard + step]))
         nbytes += buf.numel() * buf.element_size()
-    if not mesh.first:
+    if gets:
         recv = torch.empty_like(x, device="cpu" if mesh.staged else x.device)
-        ops.append(dist.P2POp(dist.irecv, recv, mesh.order[mesh.shard - 1]))
+        ops.append(dist.P2POp(dist.irecv, recv,
+                              mesh.order[mesh.shard - step]))
         nbytes += recv.numel() * recv.element_size()
     for req in dist.batch_isend_irecv(ops):
         req.wait()
@@ -365,6 +470,9 @@ def ppermute_ring(x: torch.Tensor, mesh: SolverMesh):
     COLLECTIVES["ppermute"] += 1
     if mesh.ndev == 1:
         return lambda: x
+    if _meta(x):
+        COLLECTIVE_BYTES["ppermute"] += 2 * _nbytes(x)
+        return lambda: torch.empty_like(x)
     buf = _host(x, mesh)
     recv = torch.empty_like(buf)
     nxt = mesh.order[(mesh.shard + 1) % mesh.ndev]
@@ -379,6 +487,235 @@ def ppermute_ring(x: torch.Tensor, mesh: SolverMesh):
         return _back(recv, x.device, mesh)
 
     return wait
+
+
+def reduce_scatter(x: torch.Tensor, mesh: SolverMesh,
+                   dim: int = 0) -> torch.Tensor:
+    """``x`` summed over the shards, and this shard's block of the sum
+    along ``dim`` (``x.shape[dim] / ndev`` wide, in shard order): under
+    gloo ndev - 1 ring steps through the host, else an ``all_reduce`` and
+    a cut.  One reduce_scatter; its bytes are the buffer's, ``x``'s."""
+    import torch.distributed as dist
+
+    COLLECTIVES["reduce_scatter"] += 1
+    COLLECTIVE_BYTES["reduce_scatter"] += _nbytes(x)
+    if x.shape[dim] % mesh.ndev:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} is not a "
+                         f"multiple of {mesh.ndev} shards")
+    m = x.shape[dim] // mesh.ndev
+    if mesh.backend is None or _meta(x):
+        return x.narrow(dim, mesh.shard * m, m).clone()
+    if mesh.staged:
+        t = _ring_reduce_scatter(_host(x.contiguous(), mesh), mesh, dim)
+        return _back(t, x.device, mesh)
+    t = _all_reduce(x.contiguous(), mesh, dist.ReduceOp.SUM)
+    return t.narrow(dim, mesh.shard * m, m).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# gradients through the collectives: what the backward of each does depends
+# on what consumes its output.  Consumers *replicated* over the axis (every
+# rank computes the same downstream) give every rank the whole gradient:
+# the backward is local.  Consumers *partial* over the axis (each rank uses
+# the output for its own slice of the work) give every rank its part: the
+# backward sums over the axis.
+# ---------------------------------------------------------------------------
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, partial):
+        ctx.mesh, ctx.dim, ctx.partial, ctx.n = mesh, dim, partial, \
+            x.shape[dim]
+        return all_gather(x.contiguous(), mesh, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim = ctx.mesh, ctx.dim
+        if ctx.partial:
+            g = reduce_scatter(g, mesh, dim)
+        else:
+            g = g.narrow(dim, mesh.shard * ctx.n, ctx.n)
+        return g, None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return psum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GradPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.mesh), None
+
+
+class _HaloExtend(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kv, halo, mesh):
+        ctx.halo, ctx.mesh = halo, mesh
+        S = kv.shape[-2]
+        got = ppermute_shift(kv[..., S - halo:, :].contiguous(), mesh)
+        if mesh.first:
+            return kv.view_as(kv)
+        return torch.cat([got, kv], dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        halo, mesh = ctx.halo, ctx.mesh
+        if mesh.first:
+            d_halo, d_own = torch.zeros_like(g[..., :halo, :]), g
+        else:
+            d_halo, d_own = g[..., :halo, :], g[..., halo:, :]
+        back = ppermute_shift(d_halo.contiguous(), mesh, reverse=True)
+        d_own = d_own.clone()
+        if not mesh.last:
+            d_own[..., -halo:, :] += back
+        return d_own, None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lines):
+        ctx.n = 1
+        for line in lines:
+            x = psum(x, line)
+            ctx.n *= line.ndev
+        return x / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class _GatherLeaf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, spec, mesh, summed):
+        ctx.spec, ctx.mesh, ctx.summed = spec, mesh, summed
+        return unshard(t, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        for dim, _, axes in _cuts(ctx.spec, ctx.mesh):
+            for a in axes:
+                line = axis_mesh(ctx.mesh, a)
+                if a in ctx.summed:
+                    g = reduce_scatter(g, line, dim)
+                else:
+                    m = g.shape[dim] // line.ndev
+                    g = g.narrow(dim, line.shard * m, m)
+        return g.contiguous(), None, None, None
+
+
+def all_gather_ad(x: torch.Tensor, mesh: SolverMesh, dim: int = 0, *,
+                  partial: bool) -> torch.Tensor:
+    """:func:`all_gather`, differentiable: its backward is this shard's
+    block of the gradient, summed over the shards first
+    (:func:`reduce_scatter`) where the consumers are ``partial``."""
+    return _AllGather.apply(x, mesh, dim, partial)
+
+
+def psum_ad(x: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
+    """:func:`psum`, differentiable, for replicated consumers: its backward
+    is the identity."""
+    return _Psum.apply(x, mesh)
+
+
+def grad_psum(x: torch.Tensor, mesh: SolverMesh) -> torch.Tensor:
+    """``x`` where it enters work that each shard does a slice of: the
+    identity forward, its gradient summed over the shards backward."""
+    return _GradPsum.apply(x, mesh)
+
+
+def halo_extend(kv: torch.Tensor, halo: int,
+                mesh: SolverMesh) -> torch.Tensor:
+    """``[the previous shard's last halo rows | kv]`` along dim -2, or
+    ``kv`` itself on the first shard (one :func:`ppermute_shift` of the
+    last ``halo`` rows); differentiable: the halo's gradient is shifted
+    back to the shard it came from and added to its last rows."""
+    return _HaloExtend.apply(kv, halo, mesh)
+
+
+def mean_over(x: torch.Tensor, lines) -> torch.Tensor:
+    """The mean of ``x`` over the shards of every mesh line of ``lines``
+    (one psum a line), differentiable: each shard's gradient is the
+    mean's, divided by the shard count (every shard holds the mean)."""
+    return _MeanOver.apply(x, tuple(lines))
+
+
+def gather_leaf(t: torch.Tensor, spec, mesh, summed=()) -> torch.Tensor:
+    """The whole leaf of which ``t`` is this rank's :func:`shard_block` by
+    ``spec`` on ``mesh`` (:func:`unshard`), differentiable: backward, each
+    cut dimension's gradient is cut back to this rank's block, summed
+    first over the axes in ``summed`` (:func:`reduce_scatter`: the batch
+    axes, whose ranks hold different data) and not over the others (their
+    ranks computed the same gradient).  ``t`` itself where nothing is
+    cut."""
+    if not _cuts(spec, mesh):
+        return t
+    return _GatherLeaf.apply(t, spec, mesh, frozenset(summed))
+
+
+@contextlib.contextmanager
+def swap_leaves(module, fn):
+    """Inside the block, each parameter ``t`` of ``module`` (an
+    ``nn.Module``, all its submodules) named ``name`` reads as ``fn(name,
+    t)`` (where that is not None); the parameters come back on exit."""
+    swapped = []
+    try:
+        for name, t in list(module.named_parameters()):
+            new = fn(name, t)
+            if new is None or new is t:
+                continue
+            owner, _, attr = name.rpartition(".")
+            sub = module.get_submodule(owner)
+            swapped.append((sub, attr, sub._parameters[attr]))
+            sub._parameters[attr] = new
+        yield module
+    finally:
+        for sub, attr, t in reversed(swapped):
+            sub._parameters[attr] = t
+
+
+_BATCH_CUT: list = []
+
+
+@contextlib.contextmanager
+def batch_cut():
+    """Inside the block the batch is already cut over the mesh's batch
+    axes (``RULES.dp``): a rank holds its own rows (the train step), so a
+    layer's batch is one data shard's."""
+    _BATCH_CUT.append(True)
+    try:
+        yield
+    finally:
+        _BATCH_CUT.pop()
+
+
+def batch_is_cut() -> bool:
+    return bool(_BATCH_CUT)
+
+
+def has_group(mesh) -> bool:
+    """``mesh`` is a ``DeviceMesh`` over a process group (not an
+    :class:`AbstractMesh`, which holds specs alone)."""
+    return getattr(mesh, "mesh_dim_names", None) is not None
+
+
+def dp_lines(mesh) -> list:
+    """This rank's lines of ``mesh`` along the batch axes of more than one
+    rank (``RULES.dp`` order)."""
+    sizes = mesh_axes(mesh)
+    return [axis_mesh(mesh, a) for a in RULES.dp if sizes.get(a, 1) > 1]
 
 
 # ---------------------------------------------------------------------------

@@ -22,25 +22,36 @@ name and flags depend only on its stem and dtype.  The libraries go to
 ``build/repro_torch/`` at the root of the checkout (``$REPRO_TORCH_BUILD_DIR`` overrides it), named
 by a hash of the sources, the shared header and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.
-:func:`build_all` starts one ``nvcc`` per library, all at once, and waits
-for them together; ``ptxas``'s register and spill report lands next to
-each library as ``<name>-<hash>.log``.
+:func:`start_build` starts one ``nvcc`` per missing library, all at once,
+and returns; each runs under ``nice`` at a level that grows with its
+place in the order the caller gives (by default :data:`SOURCES`' order),
+so that the first needed finish first and a caller can work with those
+while the rest compile.  :func:`wait_for` waits for one
+library, :func:`build_all` for all of them; :func:`load` waits for the one
+it loads, starting the build if none is running; :func:`stop_build` kills
+what is still compiling.  ``ptxas``'s register and spill report lands next
+to each library as ``<name>-<hash>.log``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import threading
+import time
 
 __all__ = ["CSRC", "SOURCES", "DTYPES", "NVCC_FLAGS",
            "LAUNCHES", "BUILD_LAUNCHES", "reset_launches", "split_name",
-           "build_dir", "nvcc_path", "build_all", "load", "launch",
-           "CHARGE", "charged"]
+           "build_dir", "nvcc_path", "start_build", "wait_for",
+           "build_all", "build_seconds", "stop_build", "load", "launch",
+           "CHARGE", "charged", "PLAIN_ON_META", "META_SCOPES",
+           "plain_on_meta"]
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 _NEKBONE = ("nekbone_ax", "nekbone_ax_slab", "nekbone_cg_update",
@@ -74,6 +85,26 @@ LAUNCHES = {"nekbone_ax": 0, "nekbone_ax_slab": 0, "nekbone_cg_update": 0,
 # ``flash_attn_bf16_d64_window1024_qoffset1024``): count}, for the launched
 # keys only.
 BUILD_LAUNCHES: dict[str, int] = {}
+
+# Calls whose tensors lay on torch.device("meta") (the dry run,
+# launch/dryrun.py), by kernel: the wrapper ran a plain version there, on
+# shapes alone, and launched nothing.  META_SCOPES holds the context
+# managers entered around each such call (the dry run's memory tracker: a
+# kernel's workspace on the card is its tiles, not the program's live
+# memory).
+PLAIN_ON_META: dict[str, int] = {}
+META_SCOPES: list = []
+
+
+@contextlib.contextmanager
+def plain_on_meta(name: str):
+    """Around a wrapper's plain version on meta tensors: counts the call in
+    :data:`PLAIN_ON_META` and enters :data:`META_SCOPES`."""
+    PLAIN_ON_META[name] = PLAIN_ON_META.get(name, 0) + 1
+    with contextlib.ExitStack() as stack:
+        for scope in META_SCOPES:
+            stack.enter_context(scope())
+        yield
 
 
 # The stream recorder of obs/drift.py while it measures, else None: an
@@ -169,53 +200,151 @@ def _target(stem: str, dtype: str) -> pathlib.Path:
     return build_dir() / f"{stem}_{dtype}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict[str, pathlib.Path]:
-    """Compile every missing library, one ``nvcc`` per library in parallel.
+def _niceness(rank: int) -> int:
+    """The ``nice`` level of the library at place ``rank`` of a build's
+    order: 1 for the first four, 3 more for each next four, at most 19
+    (a step of 3 about halves a process's share of a busy CPU)."""
+    return min(19, 1 + 3 * (rank // 4))
 
-    Returns ``{name: library path}`` with ``name`` the library's C entry
-    point, ``<stem>_<dtype>``.  Raises ``RuntimeError`` with the compiler's
-    output if any library fails to build.
+
+class _Job:
+    """One library's ``nvcc``: a thread waits for it, moves the library
+    into place if it built, and sets ``done``."""
+
+    def __init__(self, name: str, target: pathlib.Path, cmd: list[str]):
+        self.name, self.target = name, target
+        self.tmp = target.with_suffix(f".tmp{os.getpid()}.so")
+        self.log = target.with_suffix(".log")
+        self.error: str | None = None
+        self.seconds: float | None = None
+        self.done = threading.Event()
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as out:
+            # a process group of its own, so that stop_build kills nvcc's
+            # children too; the caller's session, so that ``nice`` ranks
+            # it below the caller (a session of its own would be a
+            # scheduling group of its own, as strong as the caller's)
+            self.proc = subprocess.Popen([*cmd, "-o", str(self.tmp)],
+                                         stdout=out,
+                                         stderr=subprocess.STDOUT,
+                                         process_group=0)
+        threading.Thread(target=self._finish, daemon=True).start()
+
+    def _finish(self) -> None:
+        rc = self.proc.wait()
+        self.seconds = time.perf_counter() - self.t0
+        if rc == 0:
+            os.replace(self.tmp, self.target)
+        else:
+            head = "\n".join(self.log.read_text().splitlines()[:40])
+            self.error = (f"nvcc failed on {self.name} (exit {rc}; first 40 "
+                          f"lines, all in {self.log}):\n{head}")
+        self.done.set()
+
+
+# The libraries start_build() compiles, by name, while the process lives.
+_JOBS: dict[str, _Job] = {}
+_JOBS_LOCK = threading.Lock()
+
+
+def _targets() -> dict[str, pathlib.Path]:
+    return {f"{stem}_{dtype}": _target(stem, dtype)
+            for stem, dtypes in SOURCES.items() for dtype in dtypes}
+
+
+def start_build(order: list[str] | None = None) -> dict[str, pathlib.Path]:
+    """Start one ``nvcc`` per library that is neither built nor compiling,
+    all at once, and return ``{name: library path}`` without waiting
+    (``name`` is the library's C entry point, ``<stem>_<dtype>``).
+
+    ``order`` lists the libraries the caller needs first, first; the rest
+    follow in :data:`SOURCES`' order.  Each ``nvcc`` runs under ``nice``
+    at its place's level (:func:`_niceness`), so that on a busy CPU the
+    libraries finish about in that order."""
+    build_dir().mkdir(parents=True, exist_ok=True)
+    targets = _targets()
+    ranked = list(dict.fromkeys([n for n in order or () if n in targets]
+                                + list(targets)))
+    nice = shutil.which("nice")
+    with _JOBS_LOCK:
+        for rank, name in enumerate(ranked):
+            so, job = targets[name], _JOBS.get(name)
+            if so.exists() or (job is not None and job.error is None):
+                continue
+            stem, dtype = split_name(name)
+            cmd = [nvcc_path(), *_flags(dtype), str(CSRC / f"{stem}.cu")]
+            if nice:
+                cmd = [nice, "-n", str(_niceness(rank)), *cmd]
+            _JOBS[name] = _Job(name, so, cmd)
+    return targets
+
+
+def wait_for(name: str) -> pathlib.Path:
+    """The path of library ``name``, once built (starting the build if it
+    is neither built nor compiling); raises ``RuntimeError`` with the
+    compiler's output if it failed."""
+    target = _target(*split_name(name))
+    with _JOBS_LOCK:
+        job = _JOBS.get(name)
+    if job is None:
+        if target.exists():
+            return target
+        start_build()
+        with _JOBS_LOCK:
+            job = _JOBS[name]
+    job.done.wait()
+    if job.error is not None:
+        raise RuntimeError(job.error)
+    return target
+
+
+def build_all() -> dict[str, pathlib.Path]:
+    """Build every missing library (one ``nvcc`` each, all at once) and
+    wait for all of them.
+
+    Returns ``{name: library path}``.  Raises ``RuntimeError`` with the
+    compiler's output if any library fails to build.
     """
-    out = build_dir()
-    out.mkdir(parents=True, exist_ok=True)
-    targets = {f"{stem}_{dtype}": _target(stem, dtype)
-               for stem, dtypes in SOURCES.items() for dtype in dtypes}
-    procs = {}
-    for name, so in targets.items():
-        if so.exists():
-            continue
-        stem, dtype = split_name(name)
-        tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc_path(), *_flags(dtype), "-o", str(tmp),
-               str(CSRC / f"{stem}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp)
+    targets = start_build()
     errors = []
-    for name, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        targets[name].with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            head = "\n".join(log.splitlines()[:40])
-            errors.append(f"nvcc failed on {name} (first 40 lines; all "
-                          f"in {targets[name].with_suffix('.log')}):\n{head}")
-            continue
-        os.replace(tmp, targets[name])
+    for name in targets:
+        try:
+            wait_for(name)
+        except RuntimeError as exc:
+            errors.append(str(exc))
     if errors:
         raise RuntimeError("\n".join(errors))
     return targets
 
 
+def build_seconds() -> dict[str, float]:
+    """``{name: seconds from its nvcc's start to its end}`` of the
+    libraries this process compiled and finished."""
+    with _JOBS_LOCK:
+        return {name: job.seconds for name, job in _JOBS.items()
+                if job.seconds is not None}
+
+
+def stop_build() -> None:
+    """Kill every ``nvcc`` of this process that is still running, with
+    the compilers it started."""
+    with _JOBS_LOCK:
+        jobs = list(_JOBS.values())
+    for job in jobs:
+        if job.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(job.proc.pid, signal.SIGKILL)
+    for job in jobs:
+        job.done.wait()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (``<stem>_<dtype>``), building all on
-    first use."""
+    """The loaded library ``name`` (``<stem>_<dtype>``), once built (every
+    missing library starts compiling at the first call)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            paths = build_all()
-            for key, path in paths.items():
-                _LIBS[key] = ctypes.CDLL(str(path))
-            lib = _LIBS[name]
+            lib = _LIBS[name] = ctypes.CDLL(str(wait_for(name)))
         return lib
 
 

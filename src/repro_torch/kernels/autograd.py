@@ -161,9 +161,13 @@ class WKV6Fn(torch.autograd.Function):
                 if t is not None and ctx.needs_input_grad[i]]
         ins = [None if t is None else t.detach().requires_grad_(i in want)
                for i, t in enumerate(saved)]
+        # on meta tensors (the dry run) the chunked form's products batched
+        # over the chunks: the same FLOPs without a loop of T / 16 steps
+        form = (ref.wkv6_chunked_batched if saved[0].device.type == "meta"
+                else ref.wkv6_chunked)
         with torch.enable_grad():
-            o, state = ref.wkv6_chunked(*ins[:5], initial_state=ins[5],
-                                        return_state=True)
+            o, state = form(*ins[:5], initial_state=ins[5],
+                            return_state=True)
             got = torch.autograd.grad((o, state), [ins[i] for i in want],
                                       (do, dstate), allow_unused=True)
         grads = [None] * len(saved)

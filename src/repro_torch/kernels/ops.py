@@ -5,7 +5,12 @@ The Nekbone wrappers reshape ``(E, n, n, n)`` fields to the kernels' flat
 wrapper of :mod:`repro_torch.kernels.nekbone_ax`; :func:`flash_attention`
 (K13) and :func:`wkv6` (K14) call :mod:`repro_torch.kernels.flash_attn` and
 :mod:`repro_torch.kernels.wkv6`.  Each runs its kernel on a CUDA tensor
-and its plain version on a CPU tensor.
+and its plain version on a CPU tensor.  On ``torch.device("meta")`` (the
+dry run, ``launch/dryrun.py``) K13 and K14 run a plain version on shapes
+alone — K13 its whole-row form, K14 its chunked form's products batched
+over the chunks (``ref.wkv6_chunked_batched``) — counted in
+``_build.PLAIN_ON_META`` and launching nothing; the kernel wrappers
+themselves refuse meta tensors.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 from repro_torch.core.geom import (GEOM_RR, GEOM_RS, GEOM_RT, GEOM_SS,
                                    GEOM_ST, GEOM_TT, box_axis_factors)
 from repro_torch.core.gs import ds_sum_local
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import nekbone_ax as _ax
 from repro_torch.kernels import wkv6 as _wkv6
@@ -415,6 +421,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     CPU tensor runs the plain version.
     """
     scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
+    if q.device.type == "meta":         # the dry run: shapes alone
+        with _build.plain_on_meta("flash_attn"):
+            return ref.flash_attention_plain(q, k, v, causal=causal,
+                                             scale=scale, window=window,
+                                             softcap=softcap,
+                                             q_offset=q_offset)
     return _flash.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
                                        window=window, softcap=softcap,
                                        q_offset=q_offset)
@@ -433,5 +445,14 @@ def wkv6(r, k, v, w, u, *, initial_state=None, return_state: bool = False,
     """
     if variant not in ("sequential", "chunked"):
         raise ValueError(f"unknown wkv6 variant {variant!r}")
-    o, state = _wkv6.wkv6_cuda(r, k, v, w, u, initial_state=initial_state)
+    if r.device.type == "meta":
+        # the dry run: the chunked plain form's products (the reference's
+        # training body, 16 steps a chunk), batched over the chunks
+        with _build.plain_on_meta("wkv6"):
+            o, state = ref.wkv6_chunked_batched(
+                r, k, v, w, u, initial_state=initial_state, chunk=16,
+                return_state=True)
+    else:
+        o, state = _wkv6.wkv6_cuda(r, k, v, w, u,
+                                   initial_state=initial_state)
     return (o, state) if return_state else o

@@ -655,3 +655,50 @@ def wkv6_chunked(r, k, v, w, u, *, initial_state=None, chunk: int = 16,
             S + torch.einsum("bhsd,bhsv->bhdv", k_t, vb))
     o = torch.cat(outs, dim=2).to(r.dtype)
     return (o, S) if return_state else o
+
+
+def wkv6_chunked_batched(r, k, v, w, u, *, initial_state=None,
+                         chunk: int = 16, return_state: bool = False):
+    """:func:`wkv6_chunked`'s products batched over its chunks, for meta
+    tensors (the dry run, where a Python loop of T / chunk steps a layer
+    costs minutes): the same dot products on the same shapes, so the same
+    FLOPs forward and backward, with each chunk's incoming state a
+    stand-in that depends on the chunk's inputs, as the chained state does
+    (meta tensors hold no values: the chain between chunks carries none).
+    Not a function of the inputs' values; shapes and dtypes only."""
+    B, H, T, d = r.shape
+    c = min(chunk, T)
+    while T % c:
+        c -= 1
+    n = T // c
+    f32 = accum_dtype(r.dtype)
+    S0 = (torch.zeros((B, H, d, d), dtype=f32, device=r.device)
+          if initial_state is None else initial_state.to(f32))
+    uu = u.to(f32)[None, :, None, None, :]
+    strict = torch.tril(torch.ones(c, c, dtype=torch.bool, device=r.device),
+                        diagonal=-1)
+    eye = torch.eye(c, dtype=f32, device=r.device)
+    rb, kb, vb, wb = (x.to(f32).reshape(B, H, n, c, d) for x in (r, k, v, w))
+    logw = torch.log(wb)
+    cum = torch.cumsum(logw, dim=3)
+    p_incl = torch.exp(cum)
+    p_excl = torch.exp(cum - logw)
+    r_t = rb * p_excl
+    k_t = kb * torch.exp(-cum)
+    A = torch.einsum("bhntd,bhnsd->bhnts", r_t, k_t)
+    A = torch.where(strict, A, 0.0)
+    bonus = torch.einsum("bhntd,bhntd->bhnt", rb, uu * kb)
+    A = A + torch.einsum("bhnt,ts->bhnts", bonus, eye)
+    upd = torch.einsum("bhnsd,bhnsv->bhndv", k_t, vb)
+    # the state entering chunk i > 0: a stand-in made of chunk i - 1's
+    # update; chunk 0 takes the initial state, as the chained form does
+    S_in = S0[:, :, None] + upd[:, :, :-1]
+    O = torch.cat([torch.einsum("bhtd,bhdv->bhtv", r_t[:, :, 0], S0)[:, :,
+                                                                       None],
+                   torch.einsum("bhntd,bhndv->bhntv", r_t[:, :, 1:], S_in)],
+                  dim=2)
+    o = (O + torch.einsum("bhnts,bhnsv->bhntv", A, vb)).reshape(B, H, T, d)
+    last = S_in[:, :, -1] if n > 1 else S0
+    S = p_incl[:, :, -1, -1][..., :, None] * (last + upd[:, :, -1])
+    o = o.to(r.dtype)
+    return (o, S) if return_state else o

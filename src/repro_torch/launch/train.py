@@ -12,10 +12,13 @@ The port of the reference's ``launch/train.py``:
     steps slower than ``factor`` x median are logged with the step index,
   * elastic restarts — checkpoints hold whole arrays, so a run resumes
     whatever mesh wrote them.  Under an active mesh (``distributed.
-    sharding.use_mesh``) training runs replicated: every rank holds the
-    whole state (the port has no GSPMD, and ``models.model.run_specs`` cut
-    no dense weight), restores it whole, and the process group's saves
-    write from rank 0 alone (``checkpoint/manager.py``),
+    sharding.use_mesh``, a ``DeviceMesh``) each rank holds its blocks of
+    the state, cut by the train ``models.model.param_specs`` (FSDP over
+    ``data``, TP over ``model``: ``models.model.hold_cut``), and trains on
+    its rows of each global batch (``steps.make_train_step``); it saves
+    and restores them through the checkpoint's sharded save and restore
+    (``shardings=``), the writes from rank 0 alone
+    (``checkpoint/manager.py``),
   * gradient accumulation (``grad_accum``) and gradient compression
     (``grad_compression``, ``steps.make_train_step``).
 
@@ -105,8 +108,12 @@ def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 128,
     its ``step``, ``loss``, ``grad_norm``, ``lr``, ``ms``, ``tokens_per_s``
     and (on the card) ``mfu`` to it."""
     device = _device(device)
+    mesh = SH.current_mesh()
+    if mesh is not None and not SH.has_group(mesh):
+        raise ValueError("train runs over a DeviceMesh; an AbstractMesh has "
+                         "no process group to train over")
     state = St.make_train_state(torch.Generator(device).manual_seed(seed),
-                                cfg)
+                                cfg, mesh=mesh)
     step_fn = St.make_train_step(
         cfg, peak_lr=peak_lr, total_steps=max(steps, 100),
         warmup=max(steps // 10, 1), grad_accum=grad_accum,
@@ -115,20 +122,16 @@ def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 128,
     start = 0
     mgr = None
     boundary = None
-    mesh = SH.current_mesh()
-    if mesh is not None and SH.mesh_axes(mesh).get(SH.RULES.tp, 1) > 1:
-        # the branches a model axis turns on (sequence-sharded attention,
-        # the expert-parallel MoE) carry no gradient across ranks
-        raise ValueError("train runs replicated under a mesh; its model "
-                         "axis must have one rank")
+    shardings = state.shardings()
     if ckpt_dir:
         mgr = CheckpointManager(ckpt_dir)
         if mgr.latest_step() is not None:
-            start, tree = mgr.restore(state.tree())
+            start, tree = mgr.restore(state.like(), shardings=shardings)
             state.load(tree)
             print(f"[train] resumed from step {start}")
         previous = signal.getsignal(signal.SIGTERM)
-        mgr.install_sigterm_handler(lambda: (state.step, state.tree()))
+        mgr.install_sigterm_handler(lambda: (state.step, state.tree()),
+                                    shardings=shardings)
         boundary = _StepBoundary(signal.getsignal(signal.SIGTERM))
 
     data = SyntheticLMStream(vocab=cfg.vocab, seed=seed)
@@ -161,9 +164,10 @@ def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 128,
                       + (f" MFU {rec['mfu']:.3f}" if "mfu" in rec else ""),
                       flush=True)
             if mgr and (step + 1) % ckpt_every == 0:
-                mgr.save(step + 1, state.tree(), blocking=False)
+                mgr.save(step + 1, state.tree(), blocking=False,
+                         shardings=shardings)
         if mgr:
-            mgr.save(steps, state.tree(), blocking=True)
+            mgr.save(steps, state.tree(), blocking=True, shardings=shardings)
     finally:
         if mgr:
             mgr.wait()

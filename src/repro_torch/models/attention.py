@@ -124,10 +124,11 @@ def _project_qkv(x, p: Attention, cfg, positions, *, kv: bool = True):
 # ---------------------------------------------------------------------------
 # The mesh branches
 # ---------------------------------------------------------------------------
-def _use_seq_shard(cfg, q, k) -> bool:
+def _use_seq_shard(cfg, B: int, S: int) -> bool:
     """The reference's choice of the sequence-sharded prefill: an active
     mesh whose TP axis (size > 1) does not divide the heads, and divides
-    the sequence into slices of 8 or more; the batch divides over dp."""
+    the sequence into slices of 8 or more; the batch divides over dp (a
+    batch already cut over dp, the train step's, always does)."""
     mesh = SH.current_mesh()
     if mesh is None:
         return False
@@ -137,9 +138,8 @@ def _use_seq_shard(cfg, q, k) -> bool:
     tp_size = sizes[RULES.tp]
     if tp_size == 1 or cfg.n_heads % tp_size == 0:
         return False
-    S, B = q.shape[2], q.shape[0]
     return (S % tp_size == 0 and S // tp_size >= 8
-            and B % RULES._size(RULES.dp) == 0)
+            and (SH.batch_is_cut() or B % RULES._size(RULES.dp) == 0))
 
 
 def _seq_sharded_chunked(q, k, v, *, causal, window, cap, scale):
@@ -148,7 +148,10 @@ def _seq_sharded_chunked(q, k, v, *, causal, window, cap, scale):
     whole sequence (this rank reads only its slice), or (B, Hkv, Skv, hd)
     with Skv != S (cross-attention: replicated keys, used whole, as the
     reference's replicated key spec has them).  Returns (B, H, S_loc, hd),
-    the rows of the TP axis's shard of the sequence."""
+    the rows of the TP axis's shard of the sequence.  The key collectives
+    are differentiable: each rank's query slice uses the gathered keys,
+    so the gather's backward sums over the axis, and the halo's gradient
+    goes back to the shard it came from."""
     line = SH.axis_mesh(SH.current_mesh(), RULES.tp)
     S = q.shape[2]
     S_loc = S // line.ndev
@@ -156,20 +159,14 @@ def _seq_sharded_chunked(q, k, v, *, causal, window, cap, scale):
     q_l = q[:, :, lo:lo + S_loc]
     k_l, v_l = k[:, :, lo:lo + S_loc], v[:, :, lo:lo + S_loc]
     if window is not None and causal and window < S_loc:
-        halo = window
-        got = SH.ppermute_shift(
-            torch.stack([k_l[:, :, S_loc - halo:],
-                         v_l[:, :, S_loc - halo:]]).contiguous(), line)
-        if line.first:                 # no left neighbour: own keys only
-            k_e, v_e, q_offset = k_l, v_l, 0
-        else:
-            k_e = torch.cat([got[0], k_l], dim=2)
-            v_e = torch.cat([got[1], v_l], dim=2)
-            q_offset = halo
+        kv = SH.halo_extend(torch.stack([k_l, v_l]), window, line)
+        k_e, v_e = kv[0], kv[1]
+        q_offset = 0 if line.first else window
     elif k.shape[2] != S:              # cross-attention: every key, whole
         k_e, v_e, q_offset = k, v, lo
     else:
-        kv = SH.all_gather(torch.stack([k_l, v_l]).contiguous(), line, dim=3)
+        kv = SH.all_gather_ad(torch.stack([k_l, v_l]), line, dim=3,
+                              partial=True)
         end = lo + S_loc if causal else S
         k_e, v_e, q_offset = kv[0, :, :, :end], kv[1, :, :, :end], lo
     return AG.flash_attention(q_l.contiguous(), k_e.contiguous(),
@@ -188,6 +185,26 @@ def attention(x, p: Attention, cfg, *, positions, window=None, causal=True,
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; have {IMPLS}")
     H, hd = cfg.n_heads, cfg.hd
+    seq_sharded = impl == "chunked" and _use_seq_shard(cfg, x.shape[0],
+                                                       x.shape[1])
+    if seq_sharded and torch.is_grad_enabled():
+        # each rank works on its query slice of what every rank computes
+        # whole: the gradients of x, of the keys given and of the layer's
+        # weights are summed over the axis where they enter
+        line = SH.axis_mesh(SH.current_mesh(), RULES.tp)
+        x = SH.grad_psum(x, line)
+        if kv_override is not None:
+            kv_override = tuple(SH.grad_psum(t, line) for t in kv_override)
+        with SH.swap_leaves(p, lambda _, t: SH.grad_psum(t, line)):
+            return _attention(x, p, cfg, positions, window, causal, impl,
+                              kv_override, seq_sharded)
+    return _attention(x, p, cfg, positions, window, causal, impl,
+                      kv_override, seq_sharded)
+
+
+def _attention(x, p, cfg, positions, window, causal, impl, kv_override,
+               seq_sharded):
+    H, hd = cfg.n_heads, cfg.hd
     q, k, v = _project_qkv(x, p, cfg, positions, kv=kv_override is None)
     q = q.transpose(1, 2)
     if kv_override is not None:
@@ -196,7 +213,6 @@ def attention(x, p: Attention, cfg, *, positions, window=None, causal=True,
         k, v = k.transpose(1, 2), v.transpose(1, 2)
     scale = hd ** -0.5
     cdt = L.dtype_of(cfg.compute_dtype)
-    seq_sharded = impl == "chunked" and _use_seq_shard(cfg, q, k)
     if seq_sharded:
         out = _seq_sharded_chunked(q, k, v, causal=causal, window=window,
                                    cap=cfg.attn_softcap, scale=scale)
@@ -211,11 +227,12 @@ def attention(x, p: Attention, cfg, *, positions, window=None, causal=True,
     if not seq_sharded:
         return L.linear(out, p.wo, cdt), (k, v)
     # the output projection on the sequence shard, then its (B, S, d)
-    # result gathered whole
+    # result gathered whole (replicated consumers: the gather's backward
+    # is this rank's rows of the gradient)
     out = constrain(out, SH.P(RULES.dp, RULES.tp, None))
     line = SH.axis_mesh(SH.current_mesh(), RULES.tp)
-    return SH.all_gather(L.linear(out, p.wo, cdt).contiguous(), line,
-                         dim=1), (k, v)
+    y = L.linear(out, p.wo, cdt).contiguous()
+    return SH.all_gather_ad(y, line, dim=1, partial=False), (k, v)
 
 
 def _cache_seq_axis(cfg, batch: int, context_parallel: bool):
@@ -230,7 +247,7 @@ def _cache_seq_axis(cfg, batch: int, context_parallel: bool):
         return RULES.seq
     tp = sizes.get(RULES.tp, 1)
     if (tp > 1 and cfg.n_kv_heads % tp != 0
-            and batch % RULES._size(RULES.dp) == 0):
+            and (SH.batch_is_cut() or batch % RULES._size(RULES.dp) == 0)):
         return RULES.tp
     return None
 

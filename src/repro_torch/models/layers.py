@@ -22,7 +22,7 @@ from torch import nn
 
 from repro_torch.distributed.sharding import RULES, P, constrain
 
-__all__ = ["dtype_of", "param", "normal", "Norm", "Linear", "MLP",
+__all__ = ["dtype_of", "param", "MetaGen", "normal", "Norm", "Linear", "MLP",
            "init_norm", "init_linear", "init_mlp", "rms_norm", "layer_norm",
            "softcap", "activation", "linear", "mlp", "rope"]
 
@@ -39,9 +39,20 @@ def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class MetaGen:
+    """Stands in for a ``torch.Generator`` on ``torch.device("meta")``,
+    which has none: the initialisers build their tensors' shapes and dtypes
+    there and draw nothing (the dry run, ``launch/dryrun.py``)."""
+
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, scale: float,
            dtype: torch.dtype) -> nn.Parameter:
-    """``N(0, 1) * scale`` from ``gen``, on ``gen``'s device."""
+    """``N(0, 1) * scale`` from ``gen``, on ``gen``'s device (an empty
+    tensor where ``gen`` is a :class:`MetaGen`)."""
+    if gen.device.type == "meta":
+        return param(torch.empty(shape, dtype=dtype, device=gen.device))
     return param(torch.randn(shape, generator=gen, device=gen.device,
                              dtype=dtype) * scale)
 

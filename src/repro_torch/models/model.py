@@ -27,6 +27,18 @@ Entry points (the reference's signatures, with ``params`` the module):
     last-position logits
   * ``decode_step(params, cfg, tok, cache, index)`` — one-token decode
 
+Cut parameters (:func:`hold_cut`).  Under a mesh the model may hold each
+leaf as this rank's block of its spec (FSDP over ``data``, TP over
+``model``: the train :func:`param_specs`; the dry run also holds serving
+layouts), gathered whole where a layer uses it (:func:`gathered`; the
+embedding and the head where they are read): inside the remat group, so
+the backward gathers again and no whole leaf outlives its group, the FSDP
+pattern.  A gathered leaf's gradient comes back as the block, summed over
+the batch axes (``sharding.gather_leaf``).  The axes :func:`run_specs`
+keeps (the experts over ``model``) stay cut.  Dense layers compute whole on
+every rank of ``model``: tensor-parallel compute is not ported (ROADMAP
+item 19).
+
 ``extra`` holds the modality stubs: ``img_embeds`` (B, img_tokens, d) for
 llava, ``audio_embeds`` (B, audio_ctx, d) for whisper
 (``configs/specs.extra_specs``).  Training differentiates ``loss_fn`` with
@@ -53,12 +65,14 @@ replicated, since without GSPMD a dense weight is used whole — and
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.sharding import RULES, P, constrain, mesh_axes
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -67,7 +81,8 @@ from repro_torch.models import rwkv6 as R
 from repro_torch.models import ssm as SM
 
 __all__ = ["Layer", "LM", "init_params", "forward", "loss_fn", "init_cache",
-           "prefill", "decode_step", "param_specs", "run_specs"]
+           "prefill", "decode_step", "param_specs", "run_specs", "hold_cut",
+           "cut_layout", "gathered"]
 
 
 def _norm(x, p, cfg):
@@ -140,13 +155,102 @@ class LM(nn.Module):
 
 def init_params(gen: torch.Generator, cfg) -> LM:
     """The model with weights drawn from ``gen``, on ``gen``'s device, in
-    ``cfg.param_dtype`` (the reference's distributions, not its values)."""
+    ``cfg.param_dtype`` (the reference's distributions, not its values).
+    ``gen`` may be ``layers.MetaGen()``: the model's shapes and dtypes on
+    ``torch.device("meta")``, nothing drawn (the dry run)."""
     return LM(gen, cfg)
 
 
 def _windows(cfg, n: int) -> list:
     pattern = cfg.window_pattern()
     return [pattern[i % len(pattern)] for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Cut parameters: held as this rank's blocks, gathered where they are used
+# ---------------------------------------------------------------------------
+def _summed(mesh) -> tuple:
+    """The axes over which a gathered leaf's gradient is summed: the batch
+    axes, whose ranks hold different rows."""
+    sizes = mesh_axes(mesh)
+    return tuple(a for a in RULES.dp if sizes.get(a, 1) > 1)
+
+
+def _leaf(module, name: str):
+    """``module``'s parameter ``name``, gathered whole where it is held cut
+    (:func:`hold_cut`)."""
+    t = getattr(module, name)
+    cut = getattr(module, "_gather", None)
+    if cut is None or name not in cut[1]:
+        return t
+    mesh, specs = cut
+    return SH.gather_leaf(t, specs[name], mesh, _summed(mesh))
+
+
+def gathered(module):
+    """Inside the block, each parameter of ``module`` (a :class:`Layer`)
+    held cut reads as the whole leaf (``sharding.gather_leaf``), outside
+    it as this rank's block.  A no-op for a module held whole."""
+    cut = getattr(module, "_gather", None)
+    if cut is None:
+        return contextlib.nullcontext()
+    mesh, specs = cut
+    summed = _summed(mesh)
+    return SH.swap_leaves(module, lambda name, t: SH.gather_leaf(
+        t, specs[name], mesh, summed) if name in specs else None)
+
+
+def _gather_spec(hold, use) -> P:
+    """The part of ``hold`` that a run gathers to reach ``use``: each
+    dimension's axes, less those ``use`` keeps."""
+    return P(*(h if u is None else None for h, u in zip(hold, use)))
+
+
+def hold_cut(params: "LM", cfg, mesh, specs: dict | None = None) -> dict:
+    """Hold ``params`` (whole, on every rank) cut, in place: each leaf as
+    this rank's ``sharding.shard_block`` of it by ``specs`` (default the
+    train :func:`param_specs`: FSDP over 'data', and 'pod' where
+    ``RULES.fsdp_pod``, TP over 'model'), gathered whole where a layer uses
+    it (:func:`gathered`, inside the remat group, so that the backward
+    gathers again and no whole leaf outlives its group), except for the
+    axes :func:`run_specs` keeps cut (the experts over 'model').  Returns
+    the specs the leaves are held by."""
+    if specs is None:
+        specs = param_specs(cfg, params, mesh)
+    use = run_specs(cfg, params, mesh)
+    shapes = {n: tuple(t.shape) for n, t in params.named_parameters()}
+    gather = {}
+    for name, t in list(params.named_parameters()):
+        block = SH.shard_block(t, specs[name], mesh)
+        if block is not t:
+            owner, _, attr = name.rpartition(".")
+            # a copy of its own: a view would keep the whole leaf alive
+            params.get_submodule(owner)._parameters[attr] = nn.Parameter(
+                block.clone(memory_format=torch.contiguous_format),
+                requires_grad=t.requires_grad)
+        g = _gather_spec(specs[name], use[name])
+        if SH._cuts(g, mesh):
+            gather[name] = g
+    # each layer gathers its own leaves; the root its direct ones
+    for prefix, module in params.named_modules():
+        if not isinstance(module, (Layer, LM)):
+            continue
+        mine = {}
+        for name, g in gather.items():
+            if isinstance(module, LM):
+                if "." not in name:
+                    mine[name] = g
+            elif name.startswith(prefix + "."):
+                mine[name[len(prefix) + 1:]] = g
+        module._gather = (mesh, mine) if mine else None
+    params._cut = (mesh, specs, shapes)
+    return specs
+
+
+def cut_layout(params: "LM"):
+    """``(mesh, specs, whole shapes)`` of a model held cut
+    (:func:`hold_cut`), else None."""
+    return getattr(params, "_cut", None)
 
 
 # ---------------------------------------------------------------------------
@@ -203,14 +307,15 @@ def _embed(params: LM, cfg, tokens, extra=None, pos0: int = 0):
     """Token embeddings, with llava's image embeddings prepended and
     learned positions from ``pos0`` on added.  Returns (B, img_tokens + S,
     d)."""
-    x = params.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
+    x = _leaf(params, "embed")[tokens].to(L.dtype_of(cfg.compute_dtype))
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     if cfg.img_tokens and extra is not None and "img_embeds" in extra:
         x = torch.cat([extra["img_embeds"].to(x.dtype), x], dim=1)
     if cfg.pos_emb == "learned":
-        x = x + params.pos_embed[pos0:pos0 + x.shape[1]].to(x.dtype)
+        x = x + _leaf(params, "pos_embed")[pos0:pos0 + x.shape[1]].to(
+            x.dtype)
     return constrain(x, RULES.act_btd())
 
 
@@ -218,8 +323,12 @@ def _vocab_spec(cfg) -> P:
     return P(RULES.dp, None, RULES.div(cfg.vocab, RULES.tp))
 
 
-def _logits(params: LM, cfg, x):
-    head = params.embed if cfg.tie_embeddings else params.lm_head
+def _head(params: LM, cfg):
+    return _leaf(params, "embed" if cfg.tie_embeddings else "lm_head")
+
+
+def _logits(params: LM, cfg, x, head=None):
+    head = _head(params, cfg) if head is None else head
     logits = x @ head.to(x.dtype).T
     return constrain(L.softcap(logits.float(), cfg.logit_softcap),
                      _vocab_spec(cfg))
@@ -243,12 +352,13 @@ def _run_stack(x, layers, cfg, *, positions, causal=True, cross=None):
     def group(x, lo):
         for i in range(lo, min(lo + p, n)):
             lp = layers[i]
-            if cfg.block == "rwkv":
-                x = R.rwkv6_block(x, lp.rwkv, cfg, lp.norm1, lp.norm2)
-            else:
-                x, _, _ = _attn_layer(x, lp, cfg, positions=positions,
-                                      window=windows[i], causal=causal,
-                                      cross=cross[i])
+            with gathered(lp):
+                if cfg.block == "rwkv":
+                    x = R.rwkv6_block(x, lp.rwkv, cfg, lp.norm1, lp.norm2)
+                else:
+                    x, _, _ = _attn_layer(x, lp, cfg, positions=positions,
+                                          window=windows[i], causal=causal,
+                                          cross=cross[i])
         return constrain(x, RULES.act_btd())
 
     remat = cfg.remat and torch.is_grad_enabled()
@@ -265,7 +375,7 @@ def _encode(params: LM, cfg, extra):
         raise ValueError(f"{cfg.name} needs extra['audio_embeds'] of shape "
                          f"(batch, {cfg.audio_ctx}, {cfg.d_model})")
     x = extra["audio_embeds"].to(L.dtype_of(cfg.compute_dtype))
-    x = x + params.enc_pos[:x.shape[1]].to(x.dtype)
+    x = x + _leaf(params, "enc_pos")[:x.shape[1]].to(x.dtype)
     x = _run_stack(x, params.enc_layers, cfg, positions=_positions(x),
                    causal=False)
     return _norm(x, params.enc_final_norm, cfg)
@@ -282,7 +392,11 @@ def _cross_kv_all_layers(params: LM, cfg, enc_out) -> list:
         return (L.linear(enc_out, w, cdt).reshape(B, Se, Hkv, hd)
                 .transpose(1, 2).contiguous())
 
-    return [(heads(lp.xattn.wk), heads(lp.xattn.wv)) for lp in params.layers]
+    out = []
+    for lp in params.layers:
+        with gathered(lp):
+            out.append((heads(lp.xattn.wk), heads(lp.xattn.wv)))
+    return out
 
 
 def _cross(params: LM, cfg, extra) -> list:
@@ -305,6 +419,11 @@ def forward(params: LM, cfg, tokens, extra=None):
     return _logits(params, cfg, x)
 
 
+# logits beyond this many bytes (f32) are made and reduced a chunk of tokens
+# at a time under checkpoint (loss_fn)
+LOSS_CHUNK_BYTES = 4 << 30
+
+
 def loss_fn(params: LM, cfg, batch, extra=None):
     """Next-token cross entropy plus a 1e-4 z-loss over ``batch["tokens"]``
     (B, S) integer tokens: the mean of ``logz - logit[target]`` and of
@@ -312,16 +431,47 @@ def loss_fn(params: LM, cfg, batch, extra=None):
     image tokens first, the text logits are the tail).  Returns an f32
     scalar.  The picked logit is a ``torch.gather``: the same function as
     the reference's masked sum over the vocabulary, which exists for its
-    vocab-sharded layout."""
+    vocab-sharded layout.  Where the f32 logits would pass
+    :data:`LOSS_CHUNK_BYTES` and a gradient is wanted, they are made,
+    reduced and freed a chunk of tokens at a time, each chunk under
+    ``checkpoint`` (the backward makes its chunk again): the same function
+    summed in another order, in the memory of one chunk (the reference's
+    vocab-sharded logits are 1/16 of the whole on its production
+    meshes)."""
     tokens = batch["tokens"]
-    logits = forward(params, cfg, tokens[:, :-1], extra)
-    logits = constrain(logits[:, -(tokens.shape[1] - 1):], _vocab_spec(cfg))
+    n = tokens.shape[1] - 1
     targets = tokens[:, 1:].long()
+    if not (torch.is_grad_enabled() and tokens.shape[0] * n * cfg.vocab * 4
+            > LOSS_CHUNK_BYTES):
+        logits = forward(params, cfg, tokens[:, :-1], extra)
+        logits = constrain(logits[:, -n:], _vocab_spec(cfg))
+        nll, z2 = _nll_z2(logits, targets)
+        return (nll.mean() + 1e-4 * z2.mean()).float()
+    x = _embed(params, cfg, tokens[:, :-1], extra)
+    x = _run_stack(x, params.layers, cfg, positions=_positions(x),
+                   cross=_cross(params, cfg, extra))
+    x = x[:, -n:].reshape(-1, x.shape[-1])
+    t = targets.reshape(-1)
+    rows = max(1, LOSS_CHUNK_BYTES // 4 // (cfg.vocab * 4))
+    head = _head(params, cfg)           # gathered once, not a chunk
+
+    def chunk(xc, tc):
+        logits = _logits(params, cfg, _norm(xc, params.final_norm, cfg),
+                         head)
+        nll, z2 = _nll_z2(logits, tc)
+        return torch.stack([nll.sum(), z2.sum()])
+
+    total = sum(checkpoint(chunk, x[i:i + rows], t[i:i + rows],
+                           use_reentrant=False)
+                for i in range(0, x.shape[0], rows))
+    return (total[0] / t.numel() + 1e-4 * total[1] / t.numel()).float()
+
+
+def _nll_z2(logits, targets):
+    """Each position's ``logz - logit[target]`` and ``logz ** 2``."""
     picked = torch.gather(logits, -1, targets[..., None])[..., 0]
     logz = torch.logsumexp(logits, dim=-1)
-    nll = logz - picked
-    loss = nll.mean() + 1e-4 * (logz ** 2).mean()
-    return loss.float()
+    return logz - picked, logz ** 2
 
 
 # ---------------------------------------------------------------------------
@@ -398,8 +548,9 @@ def decode_step(params: LM, cfg, tokens, cache, index: int, *,
     new_cache = []
     for lp, cache_l, window in zip(params.layers, cache,
                                    _windows(cfg, cfg.n_layers)):
-        x, nc = _decode_layer(x, lp, cfg, cache_l, index, window,
-                              context_parallel)
+        with gathered(lp):
+            x, nc = _decode_layer(x, lp, cfg, cache_l, index, window,
+                                  context_parallel)
         new_cache.append(nc)
     x = _norm(x, params.final_norm, cfg)
     return _logits(params, cfg, x), new_cache
@@ -416,12 +567,13 @@ def prefill(params: LM, cfg, tokens, extra=None, *, max_len: int,
     cache = []
     if cfg.block == "rwkv":
         for lp in params.layers:
-            h = L.rms_norm(x, lp.norm1, eps=cfg.norm_eps)
-            out, s_new = R._time_mix(h, R._shift(h), lp.rwkv, cfg,
-                                     return_state=True)
-            x = x + out
-            h2 = L.rms_norm(x, lp.norm2, eps=cfg.norm_eps)
-            x = x + R._channel_mix(h2, R._shift(h2), lp.rwkv)
+            with gathered(lp):
+                h = L.rms_norm(x, lp.norm1, eps=cfg.norm_eps)
+                out, s_new = R._time_mix(h, R._shift(h), lp.rwkv, cfg,
+                                         return_state=True)
+                x = x + out
+                h2 = L.rms_norm(x, lp.norm2, eps=cfg.norm_eps)
+                x = x + R._channel_mix(h2, R._shift(h2), lp.rwkv)
             cache.append({"tm_x": h[:, -1:], "cm_x": h2[:, -1:],
                           "state": s_new})
     else:
@@ -433,8 +585,9 @@ def prefill(params: LM, cfg, tokens, extra=None, *, max_len: int,
                 else RULES.kv_cache(cfg.n_kv_heads))
         for lp, cache_l, window, ckv in zip(
                 params.layers, cache, _windows(cfg, cfg.n_layers), cross):
-            x, (k, v), ssm = _attn_layer(x, lp, cfg, positions=positions,
-                                         window=window, cross=ckv)
+            with gathered(lp):
+                x, (k, v), ssm = _attn_layer(x, lp, cfg, positions=positions,
+                                             window=window, cross=ckv)
             A.fill_kv_cache(cfg, cache_l, k, v,
                             context_parallel=context_parallel)
             cache_l["k"] = constrain(cache_l["k"], spec)

@@ -35,7 +35,15 @@ it routes them over all E experts, keeps the assignments to its own
 axis adds the ranks' outputs.  No token crosses between ranks.  The
 capacity is the reference's: that of a dp shard's tokens, and each dp
 shard's batch rows are dispatched on their own, as the reference's
-``shard_map`` does.
+``shard_map`` does; where the batch is already cut over dp (the train
+step's, ``sharding.batch_cut``), a rank's batch is one such shard.
+
+Gradients (training over the mesh).  The psum's consumers are replicated
+(every rank adds the same outputs into the same stream), so its backward
+is the identity; the tokens and the router enter work that each rank does
+a slice of (its own experts), so their gradients are summed over the axis
+(``sharding.grad_psum``).  Each rank's expert weights get their whole
+gradient on that rank.
 """
 from __future__ import annotations
 
@@ -158,12 +166,18 @@ def moe_ffn(x: torch.Tensor, p: MoE, cfg) -> torch.Tensor:
         raise ValueError(f"expert-parallel MoE over {tp_size} ranks holds "
                          f"{E_loc} experts a rank, got {p.w_in.shape[0]} "
                          "(cut the weights with convert.shard_params)")
-    dp_size = RULES._size(RULES.dp)
+    # a batch already cut over dp (the train step's) is one data shard's
+    dp_size = 1 if SH.batch_is_cut() else RULES._size(RULES.dp)
     groups = dp_size if B % dp_size == 0 else 1
     cap = _capacity(B // groups * S, k, E, cfg.capacity_factor)
+    router = p.router
+    if torch.is_grad_enabled():
+        # every rank routes every token but keeps only its experts' part:
+        # the gradients of x and of the router sum over the axis
+        x, router = SH.grad_psum(x, line), SH.grad_psum(router, line)
     out = torch.cat([_dispatch_compute(
-        xg.reshape(-1, d), p.router, p.w_in, p.w_gate, p.w_out, top_k=k,
+        xg.reshape(-1, d), router, p.w_in, p.w_gate, p.w_out, top_k=k,
         capacity=cap, act=cfg.act, compute_dtype=cdt,
         expert_lo=line.shard * E_loc) for xg in x.chunk(groups)])
-    out = SH.psum(out, line)
+    out = SH.psum_ad(out, line)
     return out.reshape(B, S, d).to(x.dtype)

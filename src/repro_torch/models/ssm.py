@@ -109,7 +109,12 @@ def _ssm_scan(x, dt, Bc, Cc, A, D, h0):
         decay = torch.exp(dtc[..., None] * A)
         inp = (dtc * xf[:, t0:t1].transpose(0, 1))[..., None] \
             * bf[:, t0:t1, None, :].transpose(0, 1)
-        if grad:
+        if x.device.type == "meta":
+            # the dry run: the steps' shapes without the per-step loop (no
+            # dot product in it, so nothing the FLOP count reads)
+            hs = decay * inp
+            h = hs[-1]
+        elif grad:
             hs = []
             for t in range(t1 - t0):
                 h = decay[t] * h + inp[t]

@@ -60,15 +60,19 @@ def _flat(t: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: AdamWState, *, lr: float,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float | None = 1.0):
+                 weight_decay: float = 0.1, clip_norm: float | None = 1.0,
+                 grad_norm: torch.Tensor | None = None):
     """One AdamW step over every leaf of ``params`` (decay on every leaf, as
     in the reference).  Parameters and moments are updated in place; the
     math is float32, cast back to each parameter's and moment's dtype.
+    ``grad_norm``: the global norm of the gradients, where the leaves are
+    one rank's blocks of them (``launch/steps.py``); default
+    :func:`global_norm` of ``grads``.
 
     Returns ``(params, new_state, metrics)`` with ``metrics["grad_norm"]``
     the pre-clip global norm (a 0-d float32 tensor).
     """
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = None
     if clip_norm is not None:
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9),

@@ -334,8 +334,9 @@ def c_restore_cross(ref_dir, port_dir):
 
 
 def c_train(ckpt_dir):
-    """The trainer under (data 2, model 1): 4 steps, then resumed to 6 from
-    the step-4 checkpoint; and 6 steps straight through without a mesh."""
+    """The trainer under (data 2, model 1), its state cut over data: 4
+    steps, then resumed to 6 from the step-4 checkpoint; 6 steps straight
+    through under the same mesh; and 6 without a mesh."""
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.launch.train import train
@@ -346,12 +347,16 @@ def c_train(ckpt_dir):
                          **TRAIN)
         state, resumed = train(cfg, steps=6, ckpt_dir=ckpt_dir, device="cpu",
                                **TRAIN)
-    base, straight = train(cfg, steps=6, device="cpu", **TRAIN)
+        base, meshed = train(cfg, steps=6, device="cpu", **TRAIN)
+    _, straight = train(cfg, steps=6, device="cpu", **TRAIN)
     same = all(bool((a == b).all()) for a, b in
                zip(state.tree().values(), base.tree().values())
                if not isinstance(a, (int, dict)))
+    cut = sum(p.shape != shp for p, shp in zip(
+        state.named().values(), state.params._cut[2].values()))
     return {"first": np.array(first), "resumed": np.array(resumed),
-            "straight": np.array(straight), "same_params": np.array(same),
+            "meshed": np.array(meshed), "straight": np.array(straight),
+            "same_params": np.array(same), "cut": np.array(cut),
             "entries": np.array(sorted(p.name for p in
                                        pathlib.Path(ckpt_dir).iterdir()))}
 
@@ -893,8 +898,8 @@ def _one_step(cfg, mesh):
 
 def test_gradient_pin_is_bitwise(monkeypatch):
     """A train step under a mesh pins every gradient to its parameter's
-    layout, ``run_specs`` (constrain, once a parameter), and gives the
-    state of the step without one, bitwise."""
+    layout, the train ``param_specs`` (constrain, once a parameter), and
+    gives the state of the step without one, bitwise."""
     from repro_torch.models import model as M
 
     cfg = _qwen_cfg()
@@ -905,7 +910,7 @@ def test_gradient_pin_is_bitwise(monkeypatch):
                         lambda g, s: seen.append(s) or real(g, s))
     pinned = _one_step(cfg, mesh)
     plain = _one_step(cfg, None)
-    assert seen == list(M.run_specs(cfg, pinned.params, mesh).values())
+    assert seen == list(M.param_specs(cfg, pinned.params, mesh).values())
     for a, b in zip(pinned.tree().items(), plain.tree().items()):
         if isinstance(a[1], dict):
             assert all(torch.equal(a[1][k], b[1][k]) for k in a[1])
@@ -915,29 +920,32 @@ def test_gradient_pin_is_bitwise(monkeypatch):
 
 
 def test_trainer_resumes_under_a_mesh(worlds):
-    """Two ranks train under (data 2, model 1), replicated, checkpointing
-    every 2 steps from rank 0 alone, and resume from step 4: the losses and
-    the final state are bitwise those of 6 steps straight through without
-    a mesh."""
+    """Two ranks train under (data 2, model 1), the state cut over data,
+    checkpointing every 2 steps from rank 0 alone (the blocks gathered
+    whole), and resume from step 4: the losses and the final state are
+    bitwise those of 6 steps straight through under the mesh, and the
+    losses within 1e-5 of those without a mesh."""
     for r in range(2):
         got = load(worlds(2), "train", r)
         assert len(got["first"]) == 4 and len(got["resumed"]) == 2
-        assert _bitwise(np.concatenate([got["first"], got["resumed"]]),
-                        got["straight"])
-        assert bool(got["same_params"])
+        losses = np.concatenate([got["first"], got["resumed"]])
+        assert _bitwise(losses, got["meshed"])
+        assert np.abs(losses - got["straight"]).max() <= 1e-5 * np.abs(
+            got["straight"]).max()
+        assert bool(got["same_params"]) and int(got["cut"]) > 0
         assert list(got["entries"]) == ["step_2", "step_4", "step_6"]
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-14b", "qwen3-moe-30b-a3b"])
 def test_trainer_under_a_mesh_refuses_a_model_axis(arch):
-    """Over a model axis of 2 the sequence-sharded attention and the
-    expert-parallel MoE would carry no gradient across ranks: the trainer,
-    which runs replicated, refuses before its first step."""
+    """A mesh of specs alone (no process group), here with a model axis of
+    2, has no ranks to cut the state over or to sum the sharded branches'
+    gradients over: the trainer refuses it before its first step."""
     from repro_torch.configs import ARCHS
 
     cfg = ARCHS[arch].reduced()
     with SH.use_mesh(_PlacedMesh(("data", "model"), (1, 2), (0, 0))):
-        with pytest.raises(ValueError, match="replicated"):
+        with pytest.raises(ValueError, match="process group"):
             train(cfg, steps=1, batch=2, seq=8, device="cpu")
 
 
